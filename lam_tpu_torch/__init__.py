@@ -3,10 +3,13 @@ on one NVIDIA H100.
 
 The port of the JAX package `lam_tpu`, which stays in the repository as
 its reference. This package imports torch and numpy, never jax and never
-a lam_tpu module. Its main path is lam_tpu's: a symmetric system stored
-as packed lower-triangle tiles, solved by df64 CG or by f32 CG with
-iterative refinement, with the two symmetric matvecs as hand-written
-CUDA kernels for sm_90a (lam_tpu_torch/csrc, built at first use).
+a lam_tpu module. Its paths are lam_tpu's: a symmetric system stored as
+packed lower-triangle tiles, solved by df64 CG or by f32 CG with
+iterative refinement ('ir'), or stored as the fully-quantized fq cascade
+and solved by fq CG or by refinement whose inner loop reads only the
+2-byte first plane ('irfq'). The four symmetric matvecs are
+hand-written CUDA kernels for sm_90a (lam_tpu_torch/csrc, built at first
+use).
 """
 
 from lam_tpu_torch.solver.api import ConjugateGradient

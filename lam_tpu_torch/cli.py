@@ -6,7 +6,8 @@ Flags (the reference's getopt surface, file mode):
   -o <file>   write solution                 -i <int>   max iterations
   -e <float>  relative error                 -v         verbose
   -h          help
-  --precision df64|ir|f32   --device cuda|cpu (default cuda)
+  --precision df64|ir|f32|fq|irfq   --device cuda|cpu (default cuda)
+  --pack-cache  publish/reuse the packed planes beside the matrix file
 Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9.
 
 Default output is lam_tpu's one-line CSV:
@@ -42,10 +43,17 @@ def build_parser():
     p.add_argument("-h", dest="help", action="store_true",
                    help="Show this help message")
     p.add_argument("--precision", default="df64",
-                   choices=["df64", "ir", "f32"],
+                   choices=["df64", "ir", "f32", "fq", "irfq"],
                    help="df64 = f64-parity CG on the (hi, lo) pair; ir = "
                         "f32 iterations refined with the df64 matvec; "
-                        "f32 = f32 CG")
+                        "f32 = f32 CG; fq = CG on the fully-quantized "
+                        "cascade of three int16 planes (6 B/element); "
+                        "irfq = refinement on fq, the inner loop reading "
+                        "only the 2-byte first plane")
+    p.add_argument("--pack-cache", action="store_true",
+                   help="File mode: publish/reuse the packed planes "
+                        "beside the matrix file (<file>.fqpack, "
+                        ".f32pack, .df64pack) so reloads skip the pack")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda or cpu); cuda raises when no "
                         "card is present")
@@ -69,7 +77,7 @@ def _cli_main(argv=None):
             f"lam-cg-torch: not ported yet: {' '.join(unported)}")
     if args.help:
         print("Usage: lam-cg-torch [ -A -b -o -e -i -h -v "
-              "--precision --device ]")
+              "--precision --device --pack-cache ]")
         print("Options:")
         print("  -A <file>       Read matrix from file")
         print("  -b <file>       Read right hand side from file")
@@ -78,7 +86,8 @@ def _cli_main(argv=None):
         print("  -e <float>      Relative error")
         print("  -v              Verbose mode")
         print("  -h              Show this help message")
-        print("  --precision df64|ir|f32   --device cuda|cpu")
+        print("  --precision df64|ir|f32|fq|irfq   --device cuda|cpu")
+        print("  --pack-cache    Reuse/publish <matrix>.<storage>pack")
         return 0
 
     from lam_tpu_torch.solver.api import ConjugateGradient
@@ -89,7 +98,8 @@ def _cli_main(argv=None):
         if verbose:
             print(*a)
 
-    cg = ConjugateGradient(precision=args.precision, device=args.device)
+    cg = ConjugateGradient(precision=args.precision, device=args.device,
+                           pack_cache=args.pack_cache)
     vprint("Command line arguments:")
     vprint(f"  input_file_matrix: {args.matrix}")
     vprint(f"  input_file_rhs:    {args.rhs}")

@@ -1,10 +1,15 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
-// (sm_90a). Two kernels share one design:
+// (sm_90a). Four kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
 //   lam_gemv_df64_symm  replaces lam_tpu/ops/gemv.py:gemv_df64_symm
 //                       (packed=True; Pallas kernel _gemv_df64_symm_kernel)
+//   lam_gemv_q16_symm   replaces lam_tpu/ops/gemv.py:gemv_q16_symm
+//                       (_gemv_q16_symm_kernel and the blocked
+//                       _gemv_q16_symm_multi_kernel)
+//   lam_gemv_fq_symm    replaces lam_tpu/ops/gemv.py:gemv_fq_symm
+//                       (_gemv_fq_symm_kernel)
 //
 // Storage contract (lam_tpu_torch/ops/layout.py pack_tri_host): the matrix
 // is n x n with n = nblk * TB, and only its nblk(nblk+1)/2 lower-triangle
@@ -12,23 +17,29 @@
 // (T*TB, TB) row-major buffer. Tile t sits at block (i, k) with
 // t = i(i+1)/2 + k, k <= i. A tile contributes A_ik p_k to y_i (direct)
 // and, when k < i, A_ik^T p_i to y_k (transpose); a diagonal tile only
-// the direct term.
+// the direct term. The fq planes (layout.py quantize_fq_tiles) are int16
+// tiles against one power-of-two scale per tile, stored padded to a
+// multiple of 8 tiles; the grid covers the T real tiles only and never
+// reads the pad tiles.
 //
-// What bounds it: a matvec does 2 (f32) or 4 (df64) flops per stored
-// element and reads each stored element exactly once: 4 B (f32) or 8 B
-// (hi + lo planes) per element. At ~1 flop/byte it sits far below the
-// card's compute roof, so the only target is device-memory bandwidth.
+// What bounds it: a matvec does 2 (f32, q16) to 4 (df64, fq) flops per
+// stored element and reads each stored element exactly once: 2 B (q16),
+// 4 B (f32), 6 B (fq: three int16 planes) or 8 B (df64: hi + lo planes).
+// At ~1 flop/byte it sits far below the card's compute roof, so the only
+// target is device-memory bandwidth. q16 must also convert ~8 int16 values
+// per SM per clock at its byte floor, about half the card's I2F rate.
 //
 // How the design meets that:
 //  * Pass 1 gives each (tile, 64-row strip) its own block, so T*8 blocks
 //    keep all SMs streaming (one block per 1 MB tile would leave the last
 //    wave mostly idle). Each warp walks 8 consecutive rows; each lane
-//    reads 16 columns of a row as four 16-byte streaming loads (__ldcs),
-//    so a warp's loads cover whole 512-byte segments. The direct row
+//    holds 16 columns of a row, read as 16-byte streaming loads (__ldcs):
+//    four float4 (f32 planes) or two 8 x int16 (fq planes), so a warp's
+//    loads cover whole contiguous 512-byte segments. The direct row
 //    sum is a warp butterfly; each lane keeps the transpose column sums
 //    of its 16 columns in registers, reduced across the 8 warps in shared
 //    memory. The pass writes per-tile direct partials part_d[T][TB] and
-//    per-strip transpose partials part_t[T][8][TB] (~3% extra traffic).
+//    per-strip transpose partials part_t[T][8][TB].
 //  * Pass 2 sums, for every output row, its direct partials and the
 //    transpose partials of the tiles below it in a FIXED order. No float
 //    atomics: an order that changed from run to run would change CG
@@ -47,6 +58,17 @@
 // no error-free-transform terms for FMA contraction to erase
 // (lam_tpu/ops/gemv.py:644-665). The 'nolow'/'full' compensation budgets
 // of the TPU kernel therefore have no counterpart here.
+//
+// q16: int16 -> f32 is exact, and the tile's power-of-two scale is folded
+// into the operand values p (TB multiplies per block instead of one per
+// element, exact), as the TPU kernel does; products are exact-f32 FMAs
+// with f32 accumulation (no TF32, no bf16).
+//
+// fq: the TPU rebuilt a float-float pair from the three planes with
+// two_sum. Here q1*s1 + q2*s2 + q3*s3 is formed in double: every product
+// is exact, the first sum is exact and the cascade spans ~48 bits, so it
+// costs at most one f64 rounding, far below the 2^-48 storage bound. The
+// rest is the df64 kernel's f64 walk.
 
 #include <cuda_runtime.h>
 
@@ -58,14 +80,21 @@ constexpr int STRIPS = TB / ROWS;             // blocks per tile
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int ROWS_PER_WARP = ROWS / WARPS;   // 8
-constexpr int COLS_PER_LANE = TB / 32;        // 16 = four float4
+constexpr int COLS_PER_LANE = TB / 32;        // 16
 constexpr int P2_COLS = 32;                   // outputs per pass-2 block
 constexpr int P2_GROUPS = THREADS / P2_COLS;  // partial sums per output
 
+// A plane type reads VEC elements of the current tile per 16-byte load
+// (load) after set_tile(t), and says by what each tile folds into p
+// (p_scale; 1 where the plane carries no scale).
+
 struct F32Plane {
   using acc_t = float;
+  static constexpr int VEC = 4;
   const float* __restrict__ a;
-  __device__ __forceinline__ void load4(size_t off, acc_t v[4]) const {
+  __device__ __forceinline__ void set_tile(int) {}
+  __device__ __forceinline__ acc_t p_scale() const { return 1.0f; }
+  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
     const float4 x = __ldcs(reinterpret_cast<const float4*>(a + off));
     v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
   }
@@ -73,15 +102,73 @@ struct F32Plane {
 
 struct DF64Plane {
   using acc_t = double;
+  static constexpr int VEC = 4;
   const float* __restrict__ hi;
   const float* __restrict__ lo;
-  __device__ __forceinline__ void load4(size_t off, acc_t v[4]) const {
+  __device__ __forceinline__ void set_tile(int) {}
+  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
+  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
     const float4 h = __ldcs(reinterpret_cast<const float4*>(hi + off));
     const float4 l = __ldcs(reinterpret_cast<const float4*>(lo + off));
     v[0] = (double)h.x + (double)l.x;
     v[1] = (double)h.y + (double)l.y;
     v[2] = (double)h.z + (double)l.z;
     v[3] = (double)h.w + (double)l.w;
+  }
+};
+
+// Eight int16 of one 16-byte load, sign-extended.
+__device__ __forceinline__ void load_i16x8(const short* __restrict__ q,
+                                           size_t off, int e[8]) {
+  const int4 x = __ldcs(reinterpret_cast<const int4*>(q + off));
+  const int w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    e[2 * j] = (int)(short)(w[j] & 0xffff);
+    e[2 * j + 1] = w[j] >> 16;
+  }
+}
+
+struct Q16Plane {
+  using acc_t = float;
+  static constexpr int VEC = 8;
+  const short* __restrict__ q;
+  const float* __restrict__ s;
+  float sc;
+  __device__ __forceinline__ void set_tile(int t) { sc = __ldg(s + t); }
+  __device__ __forceinline__ acc_t p_scale() const { return sc; }
+  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
+    int e[VEC];
+    load_i16x8(q, off, e);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j) v[j] = (float)e[j];
+  }
+};
+
+struct FQPlane {
+  using acc_t = double;
+  static constexpr int VEC = 8;
+  const short* __restrict__ q1;
+  const short* __restrict__ q2;
+  const short* __restrict__ q3;
+  const float* __restrict__ s1;
+  const float* __restrict__ s2;
+  const float* __restrict__ s3;
+  double c1, c2, c3;
+  __device__ __forceinline__ void set_tile(int t) {
+    c1 = __ldg(s1 + t);
+    c2 = __ldg(s2 + t);
+    c3 = __ldg(s3 + t);
+  }
+  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
+  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
+    int e1[VEC], e2[VEC], e3[VEC];
+    load_i16x8(q1, off, e1);
+    load_i16x8(q2, off, e2);
+    load_i16x8(q3, off, e3);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      v[j] = ((double)e1[j] * c1 + (double)e2[j] * c2) + (double)e3[j] * c3;
   }
 };
 
@@ -130,11 +217,12 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Column of the tile that lane `lane` holds in slot q (0..15): four
-// float4 groups 128 columns apart, so each group is one coalesced
-// 512-byte (f32) segment across the warp.
+// Column of the tile that lane `lane` holds in slot q (0..15): groups of
+// VEC columns, 32*VEC columns apart, so each group is one coalesced
+// 512-byte segment across the warp.
+template <int VEC>
 __device__ __forceinline__ int lane_col(int lane, int q) {
-  return (q / 4) * 128 + lane * 4 + (q % 4);
+  return (q / VEC) * (32 * VEC) + lane * VEC + (q % VEC);
 }
 
 template <class Plane, class Vec>
@@ -142,6 +230,7 @@ __global__ void __launch_bounds__(THREADS)
 symm_pass1(Plane A, Vec P, typename Plane::acc_t* __restrict__ part_d,
            typename Plane::acc_t* __restrict__ part_t) {
   using acc_t = typename Plane::acc_t;
+  constexpr int VEC = Plane::VEC;
   __shared__ acc_t red[WARPS][TB];
 
   const int t = blockIdx.x / STRIPS;
@@ -151,12 +240,14 @@ symm_pass1(Plane A, Vec P, typename Plane::acc_t* __restrict__ part_d,
   const bool offdiag = k < i;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
+  A.set_tile(t);
+  const acc_t sc = A.p_scale();
 
   acc_t pk[COLS_PER_LANE];
   acc_t tacc[COLS_PER_LANE];
 #pragma unroll
   for (int q = 0; q < COLS_PER_LANE; ++q) {
-    pk[q] = P.get(k * TB + lane_col(lane, q));
+    pk[q] = P.get(k * TB + lane_col<VEC>(lane, q)) * sc;
     tacc[q] = acc_t(0);
   }
 
@@ -167,15 +258,15 @@ symm_pass1(Plane A, Vec P, typename Plane::acc_t* __restrict__ part_d,
     const size_t base = ((size_t)t * TB + r) * TB;
     acc_t a[COLS_PER_LANE];
 #pragma unroll
-    for (int g = 0; g < COLS_PER_LANE / 4; ++g)
-      A.load4(base + g * 128 + lane * 4, a + 4 * g);
+    for (int g = 0; g < COLS_PER_LANE / VEC; ++g)
+      A.load(base + g * 32 * VEC + lane * VEC, a + VEC * g);
     acc_t d = acc_t(0);
 #pragma unroll
     for (int q = 0; q < COLS_PER_LANE; ++q) d += a[q] * pk[q];
     d = warp_sum(d);
     if (lane == 0) part_d[(size_t)t * TB + r] = d;
     if (offdiag) {
-      const acc_t pi = P.get(i * TB + r);
+      const acc_t pi = P.get(i * TB + r) * sc;
 #pragma unroll
       for (int q = 0; q < COLS_PER_LANE; ++q) tacc[q] += a[q] * pi;
     }
@@ -183,7 +274,8 @@ symm_pass1(Plane A, Vec P, typename Plane::acc_t* __restrict__ part_d,
 
   if (offdiag) {  // uniform across the block
 #pragma unroll
-    for (int q = 0; q < COLS_PER_LANE; ++q) red[warp][lane_col(lane, q)] = tacc[q];
+    for (int q = 0; q < COLS_PER_LANE; ++q)
+      red[warp][lane_col<VEC>(lane, q)] = tacc[q];
     __syncthreads();
     acc_t* out = part_t + ((size_t)t * STRIPS + s) * TB;
     for (int c = threadIdx.x; c < TB; c += THREADS) {
@@ -248,8 +340,10 @@ int launch(Plane A, Vec P, Out Y, typename Plane::acc_t* part_d,
 }  // namespace
 
 // Scratch sizes the caller allocates (elements): part_d T*TB, part_t
-// T*STRIPS*TB, with T = nblk(nblk+1)/2; f32 for the f32 kernel, f64 for
-// the df64 kernel. Returns cudaGetLastError() after the launches.
+// T*STRIPS*TB, with T = nblk(nblk+1)/2 (never a padded plane's count);
+// f32 for the f32 and q16 kernels, f64 for the df64 and fq kernels. Every
+// plane and vector pointer is 16-byte aligned. Returns cudaGetLastError()
+// after the launches.
 extern "C" int lam_symm_tile() { return TB; }
 extern "C" int lam_symm_strips() { return STRIPS; }
 
@@ -267,4 +361,22 @@ extern "C" int lam_gemv_df64_symm(const float* a_hi, const float* a_lo,
   return launch(DF64Plane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
                 DF64Out{y_hi, y_lo}, part_d, part_t, nblk,
                 (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_q16_symm(const short* q1, const float* s1,
+                                 const float* p, float* y, float* part_d,
+                                 float* part_t, int nblk, void* stream) {
+  return launch(Q16Plane{q1, s1, 0.0f}, F32Vec{p}, F32Out{y}, part_d, part_t,
+                nblk, (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_fq_symm(const short* q1, const short* q2,
+                                const short* q3, const float* s1,
+                                const float* s2, const float* s3,
+                                const float* p_hi, const float* p_lo,
+                                float* y_hi, float* y_lo, double* part_d,
+                                double* part_t, int nblk, void* stream) {
+  return launch(FQPlane{q1, q2, q3, s1, s2, s3, 0.0, 0.0, 0.0},
+                DF64Vec{p_hi, p_lo}, DF64Out{y_hi, y_lo}, part_d, part_t,
+                nblk, (cudaStream_t)stream);
 }

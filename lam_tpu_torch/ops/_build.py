@@ -38,6 +38,8 @@ SIGNATURES = {
     "lam_symm_strips": (),
     "lam_gemv_f32_symm": (_P, _P, _P, _P, _P, _I, _P),
     "lam_gemv_df64_symm": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+    "lam_gemv_q16_symm": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "lam_gemv_fq_symm": (_P,) * 12 + (_I, _P),
 }
 
 

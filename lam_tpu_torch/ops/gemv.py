@@ -5,6 +5,12 @@ on the walk-order packed layout of `layout.pack_tri_host`:
 
     gemv_f32_symm   <- gemv_f32_symm(packed=True)   (gemv.py:455)
     gemv_df64_symm  <- gemv_df64_symm(packed=True)  (gemv.py:1008)
+    gemv_q16_symm   <- gemv_q16_symm                (gemv.py:2065)
+    gemv_fq_symm    <- gemv_fq_symm                 (gemv.py:2164)
+
+The last two read the fq cascade of `layout.quantize_fq_tiles`: int16
+planes against per-tile power-of-two scales, stored padded to a
+multiple of Q16_P tiles (the pad tiles are never read).
 
 On a CUDA tensor a wrapper launches the hand-written Hopper kernel of
 csrc/gemv_symm.cu (built at first use by `_build`) on the current
@@ -25,20 +31,23 @@ from lam_tpu_torch.ops import layout
 from lam_tpu_torch.precision import split_f64
 
 
-def _walk(tiles, p, nblk):
+def _walk(tiles, p, nblk, scale=None):
     """Plain triangle walk: tiles (T, tb, tb) and p (n,) in one dtype.
-    Direct terms scatter by row tile, transpose terms (off-diagonal
-    tiles only) by column tile."""
+    Direct terms scatter by row tile, transpose terms (off-diagonal tiles
+    only) by column tile. A per-tile `scale` (T,) is folded into p."""
     tb = tiles.shape[1]
     it, kt = (torch.as_tensor(x, dtype=torch.long, device=tiles.device)
               for x in layout._symm_tables(nblk))
     pb = p.reshape(nblk, tb)
-    direct = torch.einsum("tij,tj->ti", tiles, pb[kt])
+    pk, pi = pb[kt], pb[it]
+    if scale is not None:
+        pk, pi = pk * scale[:, None], pi * scale[:, None]
+    direct = torch.einsum("tij,tj->ti", tiles, pk)
     y = torch.zeros(nblk, tb, dtype=p.dtype, device=p.device)
     y.index_add_(0, it, direct)
     off = torch.nonzero(kt < it).flatten()
     if off.numel():
-        trans = torch.einsum("tij,ti->tj", tiles[off], pb[it[off]])
+        trans = torch.einsum("tij,ti->tj", tiles[off], pi[off])
         y.index_add_(0, kt[off], trans)
     return y.reshape(-1)
 
@@ -63,29 +72,79 @@ def gemv_df64_symm_plain(a_hi, a_lo, p_hi, p_lo):
     return split_f64(_walk(tiles, p, nblk))
 
 
+def gemv_q16_symm_plain(q1, s1, p):
+    """Plain PyTorch y ~= A @ p in f32 from the q1 plane (int16 tiles,
+    per-tile power-of-two scales s1, folded into p per tile), over the
+    real triangle tiles of an exact or padded plane."""
+    gemv_q16_symm_plain.calls += 1
+    tb, nblk, _ = layout.packed_geometry(q1.shape, p.shape[0],
+                                         "gemv_q16_symm", padded=True)
+    T = layout.tri_tile_count(nblk)
+    tiles = q1[:T * tb].to(torch.float32).reshape(T, tb, tb)
+    return _walk(tiles, p, nblk, s1[:T])
+
+
+def gemv_fq_symm_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
+    """Plain PyTorch (y_hi, y_lo) = A @ p, computed in float64 from the
+    three-plane fq cascade over the real triangle tiles and returned as
+    the f32 split of the f64 result."""
+    gemv_fq_symm_plain.calls += 1
+    tb, nblk, _ = layout.packed_geometry(q1.shape, p_hi.shape[0],
+                                         "gemv_fq_symm", padded=True)
+    T = layout.tri_tile_count(nblk)
+    tiles = sum(q[:T * tb].to(torch.float64).reshape(T, tb, tb)
+                * s[:T].to(torch.float64)[:, None, None]
+                for q, s in ((q1, s1), (q2, s2), (q3, s3)))
+    p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
+    return split_f64(_walk(tiles, p, nblk))
+
+
+_DTYPES = {"a": torch.float32, "q": torch.int16, "s": torch.float32,
+           "p": torch.float32}
+
+
 def _check(what, tensors, device):
-    """Raise ValueError unless every tensor is a contiguous float32 tensor
-    on `device` (cpu or cuda): the planes 2-D, the vectors (p_*) 1-D."""
+    """Raise ValueError unless every tensor is a contiguous tensor on
+    `device` (cpu or cuda) of its kind's dtype: the planes (a_*: f32,
+    q*: int16) 2-D, the scale tables (s*: f32) and vectors (p_*: f32)
+    1-D."""
     for name, x in tensors.items():
-        if x.dim() != (1 if name.startswith("p") else 2):
+        if x.dim() != (2 if name[0] in "aq" else 1):
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}")
-        if x.dtype != torch.float32:
-            raise ValueError(f"{what}: {name} must be float32, got {x.dtype}")
+        dtype = _DTYPES[name[0]]
+        if x.dtype != dtype:
+            raise ValueError(f"{what}: {name} must be "
+                             f"{str(dtype).split('.')[-1]}, got {x.dtype}")
         if x.device != device:
             raise ValueError(f"{what}: {name} is on {x.device}, "
                              f"expected {device}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
+        if x.is_cuda and name[0] in "aq" and x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned "
+                             "(the kernels read it as 16-byte vectors)")
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what}: unsupported device {device}")
 
 
-def _kernel_geometry(a, n, what, lib):
-    tb, nblk, T = layout.packed_geometry(a.shape, n, what)
+def _kernel_geometry(geometry, what, lib):
+    """(nblk, part_d elements, part_t elements) of a `packed_geometry`.
+    The kernel walks the T real triangle tiles only, so the partials are
+    sized by T, never by a padded plane's tile count."""
+    tb, nblk, _ = geometry
     if tb != lib.lam_symm_tile():
         raise ValueError(f"{what}: the CUDA kernel takes tb="
                          f"{lib.lam_symm_tile()} tiles, got tb={tb}")
+    T = layout.tri_tile_count(nblk)
     return nblk, T * tb, T * lib.lam_symm_strips() * tb
+
+
+def _check_scales(what, T, scales):
+    """Raise unless every scale table has one entry per stored tile."""
+    for name, s in scales.items():
+        if tuple(s.shape) != (T,):
+            raise ValueError(f"{what}: {name} table shape "
+                             f"{tuple(s.shape)} != ({T},)")
 
 
 def _raise_on(what, code):
@@ -103,7 +162,8 @@ def gemv_f32_symm(a, p):
         return gemv_f32_symm_plain(a, p)
     from lam_tpu_torch.ops._build import library
     lib = library()
-    nblk, n_d, n_t = _kernel_geometry(a, p.shape[0], what, lib)
+    nblk, n_d, n_t = _kernel_geometry(
+        layout.packed_geometry(a.shape, p.shape[0], what), what, lib)
     y = torch.empty_like(p)
     part_d = torch.empty(n_d, dtype=torch.float32, device=a.device)
     part_t = torch.empty(n_t, dtype=torch.float32, device=a.device)
@@ -143,7 +203,8 @@ def gemv_df64_symm(a_hi, a_lo, p_hi, p_lo, *, comp=None):
         return gemv_df64_symm_plain(a_hi, a_lo, p_hi, p_lo)
     from lam_tpu_torch.ops._build import library
     lib = library()
-    nblk, n_d, n_t = _kernel_geometry(a_hi, p_hi.shape[0], what, lib)
+    nblk, n_d, n_t = _kernel_geometry(
+        layout.packed_geometry(a_hi.shape, p_hi.shape[0], what), what, lib)
     y_hi = torch.empty_like(p_hi)
     y_lo = torch.empty_like(p_hi)
     part_d = torch.empty(n_d, dtype=torch.float64, device=a_hi.device)
@@ -159,8 +220,91 @@ def gemv_df64_symm(a_hi, a_lo, p_hi, p_lo, *, comp=None):
     return y_hi, y_lo
 
 
-KERNELS = (gemv_f32_symm, gemv_df64_symm)
-PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain)
+def gemv_q16_symm(q1, s1, p):
+    """y ~= A @ p for symmetric A stored as the q1 plane of the fq
+    cascade: int16 walk-order triangle tiles (T or padded Ts tiles)
+    against per-tile power-of-two scales s1, p (n,) f32. 2 B per stored
+    element; ~2^-16 tile-relative operator error. Exact int16 -> f32
+    conversion, the scale folded into p, exact f32 products with f32
+    accumulation (no TF32, no bf16) at every n."""
+    what = "gemv_q16_symm"
+    _check(what, {"q1": q1, "s1": s1, "p": p}, q1.device)
+    geometry = layout.packed_geometry(q1.shape, p.shape[0], what,
+                                      padded=True)
+    _check_scales(what, geometry[2], {"s1": s1})
+    if q1.device.type == "cpu":
+        return gemv_q16_symm_plain(q1, s1, p)
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    nblk, n_d, n_t = _kernel_geometry(geometry, what, lib)
+    y = torch.empty_like(p)
+    part_d = torch.empty(n_d, dtype=torch.float32, device=q1.device)
+    part_t = torch.empty(n_t, dtype=torch.float32, device=q1.device)
+    with torch.cuda.device(q1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lam_gemv_q16_symm(q1.data_ptr(), s1.data_ptr(),
+                                     p.data_ptr(), y.data_ptr(),
+                                     part_d.data_ptr(), part_t.data_ptr(),
+                                     nblk, stream)
+    gemv_q16_symm.launches += 1
+    _raise_on(what, code)
+    return y
+
+
+def gemv_fq_symm(q1, q2, q3, s1, s2, s3, p_hi, p_lo, *, comp=None):
+    """(y_hi, y_lo) = A @ p for symmetric A in the fully-quantized fq
+    storage: three int16 walk-order triangle planes (T or padded Ts
+    tiles) against per-tile power-of-two scale tables, 6 B per stored
+    element, ~2^-48 tile-relative accuracy; p = p_hi + p_lo.
+
+    The kernel forms the cascade and accumulates in native f64, so
+    `comp` selects nothing, as in `gemv_df64_symm`. lam_tpu's single
+    (tb, tb) broadcast q2/q3 tile of generate mode is not ported."""
+    what = "gemv_fq_symm"
+    if comp not in (None, "nolow", "full"):
+        raise ValueError(f"comp={comp!r} must be one of ('full', 'nolow')")
+    for name, q in (("q2", q2), ("q3", q3)):
+        if q.shape != q1.shape:
+            tb = q1.shape[1]
+            if tuple(q.shape) == (tb, tb):
+                raise NotImplementedError(
+                    f"{what}: {name} is one broadcast ({tb}, {tb}) tile; "
+                    "the broadcast zero planes are not ported yet")
+            raise ValueError(f"{name} plane shape {tuple(q.shape)} != q1 "
+                             f"plane {tuple(q1.shape)} (or one broadcast "
+                             f"({tb}, {tb}) tile)")
+    if p_lo.shape != p_hi.shape:
+        raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
+                         f"{tuple(p_lo.shape)} differ")
+    _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
+                  "s3": s3, "p_hi": p_hi, "p_lo": p_lo}, q1.device)
+    geometry = layout.packed_geometry(q1.shape, p_hi.shape[0], what,
+                                      padded=True)
+    _check_scales(what, geometry[2], {"s1": s1, "s2": s2, "s3": s3})
+    if q1.device.type == "cpu":
+        return gemv_fq_symm_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    nblk, n_d, n_t = _kernel_geometry(geometry, what, lib)
+    y_hi = torch.empty_like(p_hi)
+    y_lo = torch.empty_like(p_hi)
+    part_d = torch.empty(n_d, dtype=torch.float64, device=q1.device)
+    part_t = torch.empty(n_t, dtype=torch.float64, device=q1.device)
+    with torch.cuda.device(q1.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lam_gemv_fq_symm(
+            q1.data_ptr(), q2.data_ptr(), q3.data_ptr(), s1.data_ptr(),
+            s2.data_ptr(), s3.data_ptr(), p_hi.data_ptr(), p_lo.data_ptr(),
+            y_hi.data_ptr(), y_lo.data_ptr(), part_d.data_ptr(),
+            part_t.data_ptr(), nblk, stream)
+    gemv_fq_symm.launches += 1
+    _raise_on(what, code)
+    return y_hi, y_lo
+
+
+KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_q16_symm, gemv_fq_symm)
+PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_q16_symm_plain,
+         gemv_fq_symm_plain)
 
 
 def reset_counters():

@@ -2,11 +2,17 @@
 
 One device, file mode: a symmetric SPD system read from the binary
 format (or .npy), stored as packed lower-triangle planes and solved by
-CG in one of three precisions:
+CG in one of five precisions:
 
     'df64' f64-parity CG on the (hi, lo) pair (the default)
     'ir'   f32 inner CG on the hi plane, refined with the df64 matvec
     'f32'  f32 CG on an f32 plane
+    'fq'   CG on the fully-quantized three-plane storage (f64 vectors)
+    'irfq' f32 inner CG on the 2-byte q1 plane of the fq storage,
+           refined with the fq matvec
+
+pack_cache=True reads the packed planes from `<file>.<storage>pack`
+when that cache is usable and publishes a fresh pack there otherwise.
 
 Every other backend, precision or mode of the JAX facade raises
 NotImplementedError. The device is explicit; asking for CUDA where
@@ -24,11 +30,13 @@ from lam_tpu_torch import io as lio
 from lam_tpu_torch.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
 from lam_tpu_torch.solver.operators import DenseOperator, resolve_device
 
-PRECISIONS = ("df64", "ir", "f32")
+PRECISIONS = ("df64", "ir", "f32", "fq", "irfq")
+_BASE = {"ir": "df64", "irfq": "fq"}  # refinement mode -> its storage
 
 
 class ConjugateGradient:
-    def __init__(self, backend="local", precision="df64", device="cuda"):
+    def __init__(self, backend="local", precision="df64", device="cuda",
+                 pack_cache=False):
         if backend != "local":
             raise NotImplementedError(f"backend={backend!r} is not ported "
                                       "yet (only 'local')")
@@ -38,6 +46,7 @@ class ConjugateGradient:
         self.backend = backend
         self.precision = precision
         self.device = resolve_device(device)
+        self.pack_cache = pack_cache
         self.op = None
         self.rhs = None
         self.result = None
@@ -51,9 +60,10 @@ class ConjugateGradient:
         if rows != cols:
             raise ValueError(f"{filename}: matrix must be square")
         self.n = rows
-        ctor = (DenseOperator.from_file_f32 if self.precision == "f32"
-                else DenseOperator.from_file_df64)
-        self.op = ctor(filename, device=self.device)
+        storage = _BASE.get(self.precision, self.precision)
+        ctor = getattr(DenseOperator, f"from_file_{storage}")
+        self.op = ctor(filename, pack_cache=self.pack_cache,
+                       device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timings["load_s"] = time.perf_counter() - t0
@@ -71,9 +81,10 @@ class ConjugateGradient:
         """Run CG; returns True iff converged.
 
         warmup first runs the solve with max_iters=1 (one chunk of CG
-        iterations, frozen after the first, and for 'ir' one refinement
-        cycle), so the kernel build, first launches and the allocator's
-        first requests are timed as init_s, not in the solve."""
+        iterations, frozen after the first, and for 'ir'/'irfq' one
+        refinement cycle), so the kernel build, first launches and the
+        allocator's first requests are timed as init_s, not in the
+        solve."""
         if self.op is None or self.rhs is None:
             raise RuntimeError("load a system first")
         if warmup:
@@ -101,10 +112,11 @@ class ConjugateGradient:
         return bool(result.converged)
 
     def _solve_once(self, max_iters, rel_error):
-        if self.precision == "ir":
+        if self.precision in _BASE:
             return cg_solve_ir(self.op.as_f32(), self.op, self.rhs,
                                max_iters=max_iters, rel_error=rel_error,
-                               inner_floor=default_inner_floor("ir"))
+                               inner_floor=default_inner_floor(
+                                   self.precision))
         return cg_solve(self.op, self.rhs, max_iters=max_iters,
                         rel_error=rel_error)
 
@@ -116,12 +128,13 @@ class ConjugateGradient:
         return True
 
     def measure_gemv(self, repeats=20):
-        """Average matvec time: the avg_gemv CSV column. For 'ir' that is
-        the inner f32 matvec (nearly all of a solve's matvecs); the df64
-        one is kept as avg_gemv_acc_s. On CUDA it is timed with CUDA
-        events over `repeats` chained matvecs."""
+        """Average matvec time: the avg_gemv CSV column. For 'ir' and
+        'irfq' that is the inner f32 matvec (nearly all of a solve's
+        matvecs: f32 or q16); the accurate one (df64 or fq) is kept as
+        avg_gemv_acc_s. On CUDA it is timed with CUDA events over
+        `repeats` chained matvecs."""
         dt = self._time_matvec(self.op, repeats)
-        if self.precision == "ir":
+        if self.precision in _BASE:
             self.timings["avg_gemv_acc_s"] = dt
             dt = self._time_matvec(self.op.as_f32(), repeats)
         self.timings["avg_gemv_s"] = dt

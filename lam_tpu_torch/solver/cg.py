@@ -38,15 +38,21 @@ class CGResult(NamedTuple):
     converged: torch.Tensor      # bool
 
 
-# Inner tolerance floor of the refinement loop for an exact-f32 inner
-# operator (lam_tpu/solver/cg.py:47-59): the f32 recurrence stagnates
-# near kappa*eps_f32 anyway, so a tighter inner tolerance burns iterations.
+# Inner tolerance floors of the refinement loop (lam_tpu/solver/cg.py:
+# 47-59). An exact-f32 inner operator ('ir') gets a flat 1e-5: the f32
+# recurrence stagnates near kappa*eps_f32 anyway, so a tighter inner
+# tolerance burns iterations. The ~2^-16 quantized inner operator
+# ('irfq') gets a loose-early/tight-late per-cycle schedule; floors
+# below its error cost iterations.
 IR_INNER_FLOOR = 1e-5
+IRFQ_INNER_FLOOR = (3e-2, 1e-2)
 
 
 def default_inner_floor(precision):
-    """The inner_floor of a refinement precision mode; only 'ir' is
-    ported."""
+    """The inner_floor (scalar or per-cycle schedule) of a refinement
+    precision mode: 'ir' or 'irfq' ('irq' is not ported)."""
+    if precision == "irfq":
+        return IRFQ_INNER_FLOOR
     if precision != "ir":
         raise NotImplementedError(f"precision={precision!r} is not ported "
                                   "yet")

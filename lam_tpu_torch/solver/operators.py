@@ -10,6 +10,13 @@ loop (lam_tpu_torch/solver/cg.py):
          kernel; vectors are f32. `as_f32()` of a df64 operator is the
          same matvec on the df64 operator's own hi plane: the inner
          engine of the mixed-precision solver.
+  'fq'   fully-quantized packed storage: three int16 planes against
+         per-tile power-of-two scales (6 B per stored element, ~2^-48
+         tile-relative) plus the diagonal as an exact (dh, dl) f32 pair,
+         zeroed in the planes. Matvec by the fq symmetric kernel plus
+         the diagonal term, in f64. `as_f32()` is the q16 kernel on the
+         q1 plane alone (2 B per element) plus dh * p in f32: the inner
+         engine of 'irfq'.
   'f64'  the full square in float64 with a plain torch matvec: the
          oracle path (lam_tpu's engine='xla'), not a kernel path.
 
@@ -23,14 +30,23 @@ there is none raises; nothing falls back to the CPU.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.precision import join_f64, split_f64
+from lam_tpu_torch.solver import pack_cache as pc
 
 ENGINE = "pallas_symm_packed"  # lam_tpu's name for the packed layout
+
+# quantized-storage layouts: storage -> (per-plane dtypes, n_scales).
+# Operand order is (planes..., scales..., dh, dl).
+QUANT_LAYOUT = {
+    "fq": ((np.int16, np.int16, np.int16), 3),
+}
 
 
 def resolve_device(device):
@@ -103,6 +119,60 @@ def _host_pack_planes(a, precision, tb):
     return (hi,) if lo is None else (hi, lo)
 
 
+def quantize_storage_tiles(storage, buf, tb):
+    """The quantized planes and per-tile scales of a (k*tb, tb) walk-order
+    f64 buffer whose diagonal is already extracted and zeroed: 'fq' ->
+    (q1, q2, q3, s1, s2, s3)."""
+    if storage not in QUANT_LAYOUT:
+        raise NotImplementedError(f"{storage!r} storage is not ported yet")
+    return layout.quantize_fq_tiles(buf, tb)
+
+
+def _host_pack_tri(a, storage, tb):
+    """Streaming host pack of a symmetric f64 matrix (`a` may be a
+    np.memmap) into the quantized packed-triangle buffers, in operand
+    order (q1, q2, q3, s1, s2, s3, dh, dl). The diagonal is extracted as
+    an exact (dh, dl) f32 pair and zeroed before quantization; the planes
+    are padded to padded_tri_tile_count tiles with zero pad tiles and
+    zero pad scales. Peak host memory is the buffers plus one (tb, i*tb)
+    row block. Bit-identical to lam_tpu's `DenseOperator._host_pack_tri`
+    (its numpy path)."""
+    if storage not in QUANT_LAYOUT:
+        raise NotImplementedError(f"{storage!r} storage is not ported yet")
+    n = a.shape[0]
+    n_p = layout.padded_size(n, tb)
+    nblk = n_p // tb
+    Ts = layout.padded_tri_tile_count(nblk)
+    dtypes, n_scales = QUANT_LAYOUT[storage]
+    planes = [np.zeros((Ts * tb, tb), dt) for dt in dtypes]
+    scales = [np.zeros((Ts,), np.float32) for _ in range(n_scales)]
+    dh = np.zeros((n_p,), np.float32)
+    dl = np.zeros((n_p,), np.float32)
+    t = 0
+    for i in range(nblk):
+        r0, r1 = i * tb, min((i + 1) * tb, n)
+        width = (i + 1) * tb
+        cw = min(width, n)
+        blk = np.zeros((tb, width), np.float64)
+        if r1 > r0:
+            blk[:r1 - r0, :cw] = a[r0:r1, :cw]
+            rr = np.arange(r1 - r0)
+            dvals = blk[rr, r0 + rr].copy()
+            dhi = dvals.astype(np.float32)
+            dh[r0:r1] = dhi
+            dl[r0:r1] = (dvals - dhi.astype(np.float64)).astype(np.float32)
+            blk[rr, r0 + rr] = 0.0
+        for k in range(i + 1):
+            out = quantize_storage_tiles(storage,
+                                         blk[:, k * tb:(k + 1) * tb], tb)
+            for plane, val in zip(planes, out[:len(planes)]):
+                plane[t * tb:(t + 1) * tb] = val
+            for sc, val in zip(scales, out[len(planes):]):
+                sc[t] = val[0]
+            t += 1
+    return (*planes, *scales, dh, dl)
+
+
 # matvec implementations: fn(operand, p) -> A @ p
 
 def _mv_f64_plain(a, p):
@@ -124,6 +194,19 @@ def _mv_df64_packed(operand, p):
 def _mv_f32_of_df64_packed(operand, p):
     # the hi plane of a symmetric matrix's df64 pair is symmetric too
     return gemv.gemv_f32_symm(operand[0], p)
+
+
+def _mv_fq_packed(operand, p):
+    # the planes carry a zero diagonal: add (dh + dl) * p in f64
+    q1, q2, q3, s1, s2, s3, dh, dl = operand
+    ph, pl = split_f64(p)
+    yh, yl = gemv.gemv_fq_symm(q1, q2, q3, s1, s2, s3, ph, pl)
+    return join_f64(yh, yl) + join_f64(dh, dl) * p
+
+
+def _mv_f32_of_fq_packed(operand, p):
+    # inner view: the 2-byte q1 plane plus the f32 diagonal term
+    return gemv.gemv_q16_symm(operand[0], operand[3], p) + operand[6] * p
 
 
 class LinearOperator:
@@ -197,17 +280,23 @@ class DenseOperator(LinearOperator):
     def from_dense(a, precision="df64", engine="auto", device="cuda"):
         """Build from an (n, n) numpy array (f64 source of truth).
 
-        'f32'/'df64' store the packed lower triangle (engine
+        'f32'/'df64'/'fq' store the packed lower triangle (engine
         'pallas_symm_packed', which 'auto' picks after checking that A
         is symmetric); 'f64' is the plain oracle path."""
         n = a.shape[0]
         if a.shape != (n, n):
             raise ValueError(f"matrix must be square, got {a.shape}")
-        if precision not in ("f32", "df64", "f64"):
-            if precision in ("auto", "dfq", "fq"):
+        if precision not in ("f32", "df64", "fq", "f64"):
+            if precision in ("auto", "dfq"):
                 raise NotImplementedError(
                     f"precision={precision!r} is not ported yet")
             raise ValueError(f"unknown precision {precision!r}")
+        if precision == "fq":
+            if engine not in ("auto", ENGINE):
+                raise ValueError(
+                    f"precision='fq' implies the packed symmetric engine; "
+                    f"engine={engine!r} is not combinable")
+            return DenseOperator.from_dense_fq(a, device=device)
         if engine not in ("auto", ENGINE):
             raise NotImplementedError(f"engine={engine!r} is not ported yet")
         dev = resolve_device(device)
@@ -245,8 +334,57 @@ class DenseOperator(LinearOperator):
                              torch.float64, "df64", ENGINE, dev)
 
     @staticmethod
-    def _from_file_packed(path, precision, check_symmetric, device):
+    def _packed_operator(storage, bufs, n, n_padded, dev):
+        """DenseOperator over host quantized packed-triangle buffers in
+        operand order (`_host_pack_tri`, `pack_cache.load`)."""
+        if storage != "fq":
+            raise NotImplementedError(f"{storage!r} storage is not ported "
+                                      "yet")
+        q1, q2, q3, s1, s2, s3, dh, dl = bufs
+        layout.packed_geometry(q1.shape, n_padded, "DenseOperator",
+                               padded=True)
+        if q2.shape != q1.shape or q3.shape != q1.shape:
+            raise NotImplementedError(
+                "broadcast (tb, tb) q2/q3 tiles are not ported yet; pass "
+                "planes of the q1 plane's shape")
+        operand = tuple(_upload(b, dev) for b in bufs)
+        return DenseOperator(_mv_fq_packed, operand, n, n_padded,
+                             torch.float64, "fq", ENGINE, dev)
+
+    @staticmethod
+    def from_dense_fq(a, check_symmetric=True, device="cuda"):
+        """Fully-quantized packed operator ("fq") from an (n, n) array:
+        the three-plane int16 cascade of the lower triangle plus the
+        diagonal as an exact (dh, dl) pair, padded to a multiple of the
+        512-wide tile. Built streaming by row tile (`a` may be a
+        np.memmap)."""
+        n = a.shape[0]
+        if a.shape != (n, n):
+            raise ValueError(f"matrix must be square, got {a.shape}")
         dev = resolve_device(device)
+        if check_symmetric and not _verifies_symmetric(a):
+            raise ValueError(
+                "precision='fq' requires a symmetric matrix (the "
+                "lower-triangle kernel mirrors A's lower half); the "
+                "random-vector check found A v != A^T v")
+        tb = layout.SYMM_TB
+        bufs = _host_pack_tri(a, "fq", tb)
+        return DenseOperator._packed_operator("fq", bufs, n,
+                                              layout.padded_size(n, tb), dev)
+
+    @staticmethod
+    def _from_file_packed(path, precision, check_symmetric, pack_cache,
+                          device):
+        """Shared body of the from_file_* constructors: the buffers come
+        from the pack cache beside the file (pack_cache=True and a usable
+        cache), else from the streaming numpy pack over a memory map,
+        which is then published to the cache (pack_cache=True; atomic,
+        best-effort). Symmetry is trusted by default (CG's contract)."""
+        dev = resolve_device(device)
+        path = str(path)
+        # the source's identity before the memory map binds to it: a
+        # replace during the pack makes pack_cache.save refuse to publish
+        src_stat = os.stat(path)
         a = lio.open_matrix_memmap(path)
         if check_symmetric and not _verifies_symmetric(a):
             raise ValueError(
@@ -255,25 +393,49 @@ class DenseOperator(LinearOperator):
                 "the random-vector check found A v != A^T v")
         n = a.shape[0]
         tb = layout.SYMM_TB
-        bufs = _host_pack_planes(a, precision, tb)
+        n_p = layout.padded_size(n, tb)
+        mk = (DenseOperator._packed_operator if precision == "fq"
+              else DenseOperator._plane_operator)
+        if pack_cache:
+            hit = pc.load(path, precision)
+            if hit is not None and hit[:3] == (n, n_p, tb):
+                return mk(precision, hit[3], n, n_p, dev)
+        if precision == "fq":
+            bufs = _host_pack_tri(a, precision, tb)
+        else:
+            bufs = _host_pack_planes(a, precision, tb)
         del a
-        return DenseOperator._plane_operator(
-            precision, bufs, n, layout.padded_size(n, tb), dev)
+        if pack_cache:
+            pc.save(path, precision, n, n_p, tb, bufs, src_stat=src_stat)
+        return mk(precision, bufs, n, n_p, dev)
 
     @staticmethod
-    def from_file_f32(path, check_symmetric=False, device="cuda"):
+    def from_file_f32(path, check_symmetric=False, pack_cache=False,
+                      device="cuda"):
         """f32 packed-triangle operator straight from a matrix file
-        (binary format or .npy), by the streaming numpy pack. Symmetry
-        is trusted by default (CG's contract)."""
+        (binary format or .npy), by the streaming numpy pack or, with
+        pack_cache=True, from `<file>.f32pack` (published after a
+        fresh pack). Symmetry is trusted by default (CG's contract)."""
         return DenseOperator._from_file_packed(path, "f32", check_symmetric,
+                                               pack_cache, device)
+
+    @staticmethod
+    def from_file_df64(path, check_symmetric=False, pack_cache=False,
+                       device="cuda"):
+        """df64 (hi, lo) packed-triangle operator straight from a matrix
+        file, as from_file_f32 (cache `<file>.df64pack`)."""
+        return DenseOperator._from_file_packed(path, "df64",
+                                               check_symmetric, pack_cache,
                                                device)
 
     @staticmethod
-    def from_file_df64(path, check_symmetric=False, device="cuda"):
-        """df64 (hi, lo) packed-triangle operator straight from a matrix
-        file, as from_file_f32."""
-        return DenseOperator._from_file_packed(path, "df64",
-                                               check_symmetric, device)
+    def from_file_fq(path, check_symmetric=False, pack_cache=False,
+                     device="cuda"):
+        """Fully-quantized packed operator straight from a matrix file,
+        as from_file_f32 (cache `<file>.fqpack`, which lam_tpu reads and
+        writes too)."""
+        return DenseOperator._from_file_packed(path, "fq", check_symmetric,
+                                               pack_cache, device)
 
     @staticmethod
     def from_packed_planes(hi, lo, n, n_padded, device="cuda"):
@@ -285,17 +447,40 @@ class DenseOperator(LinearOperator):
         return DenseOperator._plane_operator("df64", bufs, n, n_padded,
                                              resolve_device(device))
 
+    @staticmethod
+    def from_fq_planes(q1, q2, q3, s1, s2, s3, dh, dl, n, n_padded,
+                       device="cuda"):
+        """fq operator from pre-packed buffers given as host arrays in
+        operand order, e.g. `np.asarray` of each entry of a lam_tpu fq
+        operator's `operand`: the state carried across from the JAX
+        package. The caller asserts they represent a symmetric matrix."""
+        dtypes = (np.int16,) * 3 + (np.float32,) * 5
+        bufs = tuple(np.asarray(b, dt) for b, dt in
+                     zip((q1, q2, q3, s1, s2, s3, dh, dl), dtypes))
+        return DenseOperator._packed_operator("fq", bufs, n, n_padded,
+                                              resolve_device(device))
+
+    def diagonal(self):
+        """The matrix diagonal as a padded f64 vector (fq: the exact
+        (dh, dl) pair the planes no longer carry)."""
+        if self.precision != "fq":
+            raise NotImplementedError(
+                f"diagonal() of a {self.precision!r} operator is not ported "
+                "yet")
+        return join_f64(self.operand[-2], self.operand[-1])
+
     def as_f32(self):
         """Sibling f32 operator SHARING this operator's device buffers
         (the same operand object, not a cast copy): the inner engine of
         cg_solve_ir, which holds one copy of the matrix."""
         if self.precision == "f32":
             return self
-        if self.precision != "df64":
+        views = {"df64": _mv_f32_of_df64_packed, "fq": _mv_f32_of_fq_packed}
+        if self.precision not in views:
             raise NotImplementedError(
                 f"as_f32() of a {self.precision!r} operator is not ported "
                 "yet")
-        return DenseOperator(_mv_f32_of_df64_packed, self.operand, self.n,
+        return DenseOperator(views[self.precision], self.operand, self.n,
                              self.n_padded, torch.float32, "f32",
                              self.engine, self.device)
 

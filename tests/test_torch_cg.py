@@ -233,11 +233,11 @@ def test_unported_options_raise(system):
     with pytest.raises(NotImplementedError):
         ConjugateGradient(backend="sharded", device="cpu")
     with pytest.raises(NotImplementedError):
-        ConjugateGradient(precision="irfq", device="cpu")
+        ConjugateGradient(precision="irq", device="cpu")
     with pytest.raises(NotImplementedError):
         DenseOperator.from_dense(system[0], engine="pallas", device="cpu")
     with pytest.raises(NotImplementedError):
-        DenseOperator.from_dense(system[0], precision="fq", device="cpu")
+        DenseOperator.from_dense(system[0], precision="dfq", device="cpu")
     with pytest.raises(NotImplementedError, match="-s"):
         tcli.main(["-s", "100", "--device", "cpu"])
 
@@ -255,7 +255,8 @@ def test_cuda_request_raises_without_fallback(system):
 
 def test_import_leaves_jax_out():
     code = ("import sys, lam_tpu_torch, lam_tpu_torch.cli, "
-            "lam_tpu_torch.generate, lam_tpu_torch.ops._build; "
+            "lam_tpu_torch.generate, lam_tpu_torch.ops._build, "
+            "lam_tpu_torch.solver.pack_cache; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lam_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

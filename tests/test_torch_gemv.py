@@ -50,9 +50,11 @@ def test_gemv_f32_symm_matches_lam_tpu():
     # both exact f32 products summed in f32, in different orders
     assert _rel(y.numpy().astype(np.float64), ref.astype(np.float64)) <= 1e-6
     # a CPU tensor takes the plain version; no kernel launch
-    assert gemv.counters() == {"gemv_f32_symm": 0, "gemv_df64_symm": 0,
-                               "gemv_f32_symm_plain": 1,
-                               "gemv_df64_symm_plain": 0}
+    counts = gemv.counters()
+    assert counts.pop("gemv_f32_symm_plain") == 1
+    assert set(counts.values()) == {0}
+    assert set(counts) >= {"gemv_f32_symm", "gemv_df64_symm",
+                           "gemv_df64_symm_plain"}
 
 
 @pytest.mark.parametrize("comp", [None, "nolow", "full"])
