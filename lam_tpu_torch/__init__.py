@@ -5,11 +5,13 @@ The port of the JAX package `lam_tpu`, which stays in the repository as
 its reference. This package imports torch and numpy, never jax and never
 a lam_tpu module. Its paths are lam_tpu's: a symmetric system stored as
 packed lower-triangle tiles, solved by df64 CG or by f32 CG with
-iterative refinement ('ir'), or stored as the fully-quantized fq cascade
-and solved by fq CG or by refinement whose inner loop reads only the
-2-byte first plane ('irfq'). The four symmetric matvecs are
-hand-written CUDA kernels for sm_90a (lam_tpu_torch/csrc, built at first
-use).
+iterative refinement ('ir'), or stored with a quantized lo plane ('dfq')
+and solved by dfq CG or by refinement on its f32 hi plane ('irq'), or
+stored as the fully-quantized fq cascade and solved by fq CG or by
+refinement whose inner loop reads only the 2-byte first plane ('irfq');
+or any square system stored as the full square (engine='pallas') and
+solved by f32, df64 or ir CG. The seven matvecs are hand-written CUDA
+kernels for sm_90a (lam_tpu_torch/csrc, built at first use).
 """
 
 from lam_tpu_torch.solver.api import ConjugateGradient

@@ -6,7 +6,8 @@ Flags (the reference's getopt surface, file mode):
   -o <file>   write solution                 -i <int>   max iterations
   -e <float>  relative error                 -v         verbose
   -h          help
-  --precision df64|ir|f32|fq|irfq   --device cuda|cpu (default cuda)
+  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu (default cuda)
+  --engine auto|pallas|pallas_symm_packed   (pallas: the full square)
   --pack-cache  publish/reuse the packed planes beside the matrix file
 Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9.
 
@@ -14,7 +15,8 @@ Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
 with num_iter = max_iters + 1 for an unconverged run, as the reference
 prints it. Every other lam_tpu flag (generate mode -s, positional
-arguments, --backend, --engine, ...) raises NotImplementedError.
+arguments, --backend, --engine pallas_symm|xla, ...) raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -43,17 +45,31 @@ def build_parser():
     p.add_argument("-h", dest="help", action="store_true",
                    help="Show this help message")
     p.add_argument("--precision", default="df64",
-                   choices=["df64", "ir", "f32", "fq", "irfq"],
+                   choices=["df64", "ir", "f32", "dfq", "irq", "fq",
+                            "irfq"],
                    help="df64 = f64-parity CG on the (hi, lo) pair; ir = "
                         "f32 iterations refined with the df64 matvec; "
-                        "f32 = f32 CG; fq = CG on the fully-quantized "
+                        "f32 = f32 CG; dfq = CG on packed storage with the "
+                        "lo plane quantized to int16 (6 B/element); irq = "
+                        "refinement on dfq, the inner loop reading the f32 "
+                        "hi plane; fq = CG on the fully-quantized "
                         "cascade of three int16 planes (6 B/element); "
                         "irfq = refinement on fq, the inner loop reading "
                         "only the 2-byte first plane")
+    p.add_argument("--engine", default="auto",
+                   choices=["auto", "pallas", "pallas_symm_packed",
+                            "pallas_symm", "xla"],
+                   help="pallas_symm_packed (what auto picks) stores and "
+                        "reads only the lower-triangle tiles of a "
+                        "symmetric matrix; pallas stores the full square "
+                        "(f32/df64/ir; any square matrix, symmetric or "
+                        "not). pallas_symm and xla are not ported yet")
     p.add_argument("--pack-cache", action="store_true",
                    help="File mode: publish/reuse the packed planes "
-                        "beside the matrix file (<file>.fqpack, "
-                        ".f32pack, .df64pack) so reloads skip the pack")
+                        "beside the matrix file (<file>.dfqpack, "
+                        ".fqpack, .f32pack, .df64pack) so reloads skip "
+                        "the pack; ignored with a notice by --engine "
+                        "pallas")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda or cpu); cuda raises when no "
                         "card is present")
@@ -77,7 +93,7 @@ def _cli_main(argv=None):
             f"lam-cg-torch: not ported yet: {' '.join(unported)}")
     if args.help:
         print("Usage: lam-cg-torch [ -A -b -o -e -i -h -v "
-              "--precision --device --pack-cache ]")
+              "--precision --engine --device --pack-cache ]")
         print("Options:")
         print("  -A <file>       Read matrix from file")
         print("  -b <file>       Read right hand side from file")
@@ -86,7 +102,8 @@ def _cli_main(argv=None):
         print("  -e <float>      Relative error")
         print("  -v              Verbose mode")
         print("  -h              Show this help message")
-        print("  --precision df64|ir|f32|fq|irfq   --device cuda|cpu")
+        print("  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu")
+        print("  --engine auto|pallas|pallas_symm_packed")
         print("  --pack-cache    Reuse/publish <matrix>.<storage>pack")
         return 0
 
@@ -98,8 +115,8 @@ def _cli_main(argv=None):
         if verbose:
             print(*a)
 
-    cg = ConjugateGradient(precision=args.precision, device=args.device,
-                           pack_cache=args.pack_cache)
+    cg = ConjugateGradient(precision=args.precision, engine=args.engine,
+                           device=args.device, pack_cache=args.pack_cache)
     vprint("Command line arguments:")
     vprint(f"  input_file_matrix: {args.matrix}")
     vprint(f"  input_file_rhs:    {args.rhs}")
@@ -107,7 +124,7 @@ def _cli_main(argv=None):
     vprint(f"  max_iters:         {args.max_iters}")
     vprint(f"  rel_error:         {args.rel_error:e}")
     vprint(f"  device:            {cg.device}")
-    vprint(f"  precision={cg.precision}")
+    vprint(f"  precision={cg.precision} engine={cg.engine}")
     vprint("")
 
     t0 = time.perf_counter()

@@ -1,10 +1,12 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
-// (sm_90a). Four kernels share one design:
+// (sm_90a). Five kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
 //   lam_gemv_df64_symm  replaces lam_tpu/ops/gemv.py:gemv_df64_symm
 //                       (packed=True; Pallas kernel _gemv_df64_symm_kernel)
+//   lam_gemv_dfq_symm   replaces lam_tpu/ops/gemv.py:gemv_dfq_symm
+//                       (:1172; Pallas kernel _gemv_dfq_symm_kernel)
 //   lam_gemv_q16_symm   replaces lam_tpu/ops/gemv.py:gemv_q16_symm
 //                       (_gemv_q16_symm_kernel and the blocked
 //                       _gemv_q16_symm_multi_kernel)
@@ -17,14 +19,16 @@
 // (T*TB, TB) row-major buffer. Tile t sits at block (i, k) with
 // t = i(i+1)/2 + k, k <= i. A tile contributes A_ik p_k to y_i (direct)
 // and, when k < i, A_ik^T p_i to y_k (transpose); a diagonal tile only
-// the direct term. The fq planes (layout.py quantize_fq_tiles) are int16
-// tiles against one power-of-two scale per tile, stored padded to a
-// multiple of 8 tiles; the grid covers the T real tiles only and never
-// reads the pad tiles.
+// the direct term. The dfq lo plane (layout.py quantize_lo_tiles) holds
+// int16 tiles against one power-of-two scale per tile, T tiles exactly.
+// The fq planes (layout.py quantize_fq_tiles) are int16 tiles against one
+// power-of-two scale per tile, stored padded to a multiple of 8 tiles; the
+// grid covers the T real tiles only and never reads the pad tiles.
 //
-// What bounds it: a matvec does 2 (f32, q16) to 4 (df64, fq) flops per
-// stored element and reads each stored element exactly once: 2 B (q16),
-// 4 B (f32), 6 B (fq: three int16 planes) or 8 B (df64: hi + lo planes).
+// What bounds it: a matvec does 2 (f32, q16) to 4 (df64, dfq, fq) flops
+// per stored element and reads each stored element exactly once: 2 B
+// (q16), 4 B (f32), 6 B (dfq: f32 hi + int16 lo; fq: three int16 planes)
+// or 8 B (df64: hi + lo planes).
 // At ~1 flop/byte it sits far below the card's compute roof, so the only
 // target is device-memory bandwidth. q16 must also convert ~8 int16 values
 // per SM per clock at its byte floor, about half the card's I2F rate.
@@ -35,7 +39,9 @@
 //    wave mostly idle). Each warp walks 8 consecutive rows; each lane
 //    holds 16 columns of a row, read as 16-byte streaming loads (__ldcs):
 //    four float4 (f32 planes) or two 8 x int16 (fq planes), so a warp's
-//    loads cover whole contiguous 512-byte segments. The direct row
+//    loads cover whole contiguous 512-byte segments; dfq pairs each float4
+//    of the hi plane with one 8-byte load of 4 int16 of the lo plane
+//    (256-byte segments). The direct row
 //    sum is a warp butterfly; each lane keeps the transpose column sums
 //    of its 16 columns in registers, reduced across the 8 warps in shared
 //    memory. The pass writes per-tile direct partials part_d[T][TB] and
@@ -63,6 +69,12 @@
 // into the operand values p (TB multiplies per block instead of one per
 // element, exact), as the TPU kernel does; products are exact-f32 FMAs
 // with f32 accumulation (no TF32, no bf16).
+//
+// dfq: the TPU dequantized the lo tile in f32 (exact: a power-of-two
+// scale) and ran the df64 walk's compensated chain. Here hi + loq * sc is
+// formed in double: the product is exact, so the element costs at most
+// one f64 rounding, far below the storage's ~2^-39 tile-relative error.
+// The rest is the df64 kernel's f64 walk.
 //
 // fq: the TPU rebuilt a float-float pair from the three planes with
 // two_sum. Here q1*s1 + q2*s2 + q3*s3 is formed in double: every product
@@ -169,6 +181,25 @@ struct FQPlane {
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
       v[j] = ((double)e1[j] * c1 + (double)e2[j] * c2) + (double)e3[j] * c3;
+  }
+};
+
+struct DFQPlane {
+  using acc_t = double;
+  static constexpr int VEC = 4;
+  const float* __restrict__ hi;
+  const short* __restrict__ loq;
+  const float* __restrict__ sc;
+  double c;
+  __device__ __forceinline__ void set_tile(int t) { c = __ldg(sc + t); }
+  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
+  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
+    const float4 h = __ldcs(reinterpret_cast<const float4*>(hi + off));
+    const int2 q = __ldcs(reinterpret_cast<const int2*>(loq + off));
+    v[0] = (double)h.x + (double)(int)(short)(q.x & 0xffff) * c;
+    v[1] = (double)h.y + (double)(q.x >> 16) * c;
+    v[2] = (double)h.z + (double)(int)(short)(q.y & 0xffff) * c;
+    v[3] = (double)h.w + (double)(q.y >> 16) * c;
   }
 };
 
@@ -341,7 +372,7 @@ int launch(Plane A, Vec P, Out Y, typename Plane::acc_t* part_d,
 
 // Scratch sizes the caller allocates (elements): part_d T*TB, part_t
 // T*STRIPS*TB, with T = nblk(nblk+1)/2 (never a padded plane's count);
-// f32 for the f32 and q16 kernels, f64 for the df64 and fq kernels. Every
+// f32 for the f32 and q16 kernels, f64 for the df64, dfq and fq kernels. Every
 // plane and vector pointer is 16-byte aligned. Returns cudaGetLastError()
 // after the launches.
 extern "C" int lam_symm_tile() { return TB; }
@@ -359,6 +390,16 @@ extern "C" int lam_gemv_df64_symm(const float* a_hi, const float* a_lo,
                                   float* y_hi, float* y_lo, double* part_d,
                                   double* part_t, int nblk, void* stream) {
   return launch(DF64Plane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
+                DF64Out{y_hi, y_lo}, part_d, part_t, nblk,
+                (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_dfq_symm(const float* a_hi, const short* a_loq,
+                                 const float* sc, const float* p_hi,
+                                 const float* p_lo, float* y_hi, float* y_lo,
+                                 double* part_d, double* part_t, int nblk,
+                                 void* stream) {
+  return launch(DFQPlane{a_hi, a_loq, sc, 0.0}, DF64Vec{p_hi, p_lo},
                 DF64Out{y_hi, y_lo}, part_d, part_t, nblk,
                 (cudaStream_t)stream);
 }

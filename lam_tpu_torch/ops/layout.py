@@ -4,7 +4,8 @@ The layout half of lam_tpu/ops/gemv.py (`_symm_tables`,
 `tri_tile_count`, `pack_tri_host`, `_packed_geometry`, gemv.py:275-406;
 the fq additions `Q16_P`, `padded_tri_tile_count`,
 `_symm_tables_padded`, `_pow2_scale`, `quantize_fq_tiles`, gemv.py:300,
-:337-361, :1123, :1876) and the padding rule of
+:337-361, :1123, :1876; the dfq lo quantizer `quantize_lo_tiles`,
+gemv.py:1134) and the padding rule of
 lam_tpu/solver/operators.py (`PAD_MULTIPLE`, `padded_size`,
 operators.py:31-43), byte-for-byte. The values are fixed here as layout
 contracts: the port reads none of the JAX package's LAM_TPU_* tuning
@@ -79,6 +80,28 @@ def _pow2_scale(m):
     power-of-two boundaries)."""
     fr, k = np.frexp(m / 32767.0)
     return 2.0 ** (int(k) - 1 if fr == 0.5 else int(k))
+
+
+def quantize_lo_tiles(lo_packed, tb):
+    """Quantize a packed (T*tb, tb) f32 lo plane to (int16 tiles,
+    per-tile f32 power-of-two scales): the dfq storage's lo plane.
+    q * scale is exact (a power-of-two scale) and |lo - q*scale| <=
+    scale/2 elementwise; an all-zero tile keeps scale 0."""
+    lo_packed = np.asarray(lo_packed, dtype=np.float32)
+    T = lo_packed.shape[0] // tb
+    q = np.empty_like(lo_packed, dtype=np.int16)
+    scales = np.zeros((T,), dtype=np.float32)
+    for t in range(T):
+        tile = lo_packed[t * tb:(t + 1) * tb]
+        m = float(np.abs(tile).max())
+        if m == 0.0:
+            q[t * tb:(t + 1) * tb] = 0
+            continue
+        scale = _pow2_scale(m)
+        scales[t] = scale
+        qt = np.rint(tile.astype(np.float64) / scale)
+        q[t * tb:(t + 1) * tb] = np.clip(qt, -32767, 32767)
+    return q, scales
 
 
 def quantize_fq_tiles(a_packed, tb):

@@ -1,18 +1,26 @@
 """The solver facade of lam_tpu/solver/api.py, main-path subset.
 
-One device, file mode: a symmetric SPD system read from the binary
-format (or .npy), stored as packed lower-triangle planes and solved by
-CG in one of five precisions:
+One device, file mode: an SPD system read from the binary format (or
+.npy) and solved by CG in one of seven precisions:
 
     'df64' f64-parity CG on the (hi, lo) pair (the default)
     'ir'   f32 inner CG on the hi plane, refined with the df64 matvec
     'f32'  f32 CG on an f32 plane
+    'dfq'  CG on the quantized-lo storage (f32 hi + int16 lo, f64
+           vectors)
+    'irq'  f32 inner CG on the dfq storage's hi plane, refined with the
+           dfq matvec
     'fq'   CG on the fully-quantized three-plane storage (f64 vectors)
     'irfq' f32 inner CG on the 2-byte q1 plane of the fq storage,
            refined with the fq matvec
 
-pack_cache=True reads the packed planes from `<file>.<storage>pack`
-when that cache is usable and publishes a fresh pack there otherwise.
+engine='auto' (and 'pallas_symm_packed') stores the packed lower
+triangle, trusting the file's symmetry (CG's contract); engine='pallas'
+reads the whole matrix and stores the full square (f32, df64 and ir
+only), for a matrix that is not symmetric. pack_cache=True reads the
+packed planes from `<file>.<storage>pack` when that cache is usable and
+publishes a fresh pack there otherwise; the full-square engine ignores
+it with a notice.
 
 Every other backend, precision or mode of the JAX facade raises
 NotImplementedError. The device is explicit; asking for CUDA where
@@ -21,6 +29,7 @@ there is none raises.
 
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -28,23 +37,33 @@ import torch
 
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
-from lam_tpu_torch.solver.operators import DenseOperator, resolve_device
+from lam_tpu_torch.solver.operators import (DENSE_ENGINE, QUANT_LAYOUT,
+                                            DenseOperator, check_engine,
+                                            resolve_device)
 
-PRECISIONS = ("df64", "ir", "f32", "fq", "irfq")
-_BASE = {"ir": "df64", "irfq": "fq"}  # refinement mode -> its storage
+PRECISIONS = ("df64", "ir", "f32", "dfq", "irq", "fq", "irfq")
+# refinement mode -> its storage
+_BASE = {"ir": "df64", "irq": "dfq", "irfq": "fq"}
 
 
 class ConjugateGradient:
-    def __init__(self, backend="local", precision="df64", device="cuda",
-                 pack_cache=False):
+    def __init__(self, backend="local", precision="df64", engine="auto",
+                 device="cuda", pack_cache=False):
         if backend != "local":
             raise NotImplementedError(f"backend={backend!r} is not ported "
                                       "yet (only 'local')")
         if precision not in PRECISIONS:
             raise NotImplementedError(f"precision={precision!r} is not "
                                       f"ported yet (one of {PRECISIONS})")
+        check_engine(engine)
+        if (engine == DENSE_ENGINE
+                and _BASE.get(precision, precision) in QUANT_LAYOUT):
+            raise ValueError(
+                f"precision={precision!r} implies packed storage; use "
+                "engine='pallas_symm_packed' (or 'auto')")
         self.backend = backend
         self.precision = precision
+        self.engine = engine
         self.device = resolve_device(device)
         self.pack_cache = pack_cache
         self.op = None
@@ -61,9 +80,19 @@ class ConjugateGradient:
             raise ValueError(f"{filename}: matrix must be square")
         self.n = rows
         storage = _BASE.get(self.precision, self.precision)
-        ctor = getattr(DenseOperator, f"from_file_{storage}")
-        self.op = ctor(filename, pack_cache=self.pack_cache,
-                       device=self.device)
+        if self.engine == DENSE_ENGINE:
+            # the full square, as lam_tpu's file-mode fallback builds it
+            if self.pack_cache:
+                print("lam-cg: --pack-cache only accelerates the packed "
+                      "engine's f32/df64/ir/dfq/irq/fq/irfq file loads; "
+                      "ignored for --engine pallas", file=sys.stderr)
+            self.op = DenseOperator.from_dense(
+                lio.read_matrix(filename), precision=storage,
+                engine=DENSE_ENGINE, device=self.device)
+        else:
+            ctor = getattr(DenseOperator, f"from_file_{storage}")
+            self.op = ctor(filename, pack_cache=self.pack_cache,
+                           device=self.device)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timings["load_s"] = time.perf_counter() - t0
@@ -81,7 +110,7 @@ class ConjugateGradient:
         """Run CG; returns True iff converged.
 
         warmup first runs the solve with max_iters=1 (one chunk of CG
-        iterations, frozen after the first, and for 'ir'/'irfq' one
+        iterations, frozen after the first, and for 'ir'/'irq'/'irfq' one
         refinement cycle), so the kernel build, first launches and the
         allocator's first requests are timed as init_s, not in the
         solve."""
@@ -128,10 +157,10 @@ class ConjugateGradient:
         return True
 
     def measure_gemv(self, repeats=20):
-        """Average matvec time: the avg_gemv CSV column. For 'ir' and
-        'irfq' that is the inner f32 matvec (nearly all of a solve's
-        matvecs: f32 or q16); the accurate one (df64 or fq) is kept as
-        avg_gemv_acc_s. On CUDA it is timed with CUDA events over
+        """Average matvec time: the avg_gemv CSV column. For 'ir', 'irq'
+        and 'irfq' that is the inner f32 matvec (nearly all of a solve's
+        matvecs: f32 or q16); the accurate one (df64, dfq or fq) is kept
+        as avg_gemv_acc_s. On CUDA it is timed with CUDA events over
         `repeats` chained matvecs."""
         dt = self._time_matvec(self.op, repeats)
         if self.precision in _BASE:

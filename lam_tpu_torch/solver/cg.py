@@ -39,7 +39,8 @@ class CGResult(NamedTuple):
 
 
 # Inner tolerance floors of the refinement loop (lam_tpu/solver/cg.py:
-# 47-59). An exact-f32 inner operator ('ir') gets a flat 1e-5: the f32
+# 47-65). An exact-f32 inner operator ('ir', and 'irq', whose inner loop
+# reads the dfq storage's f32 hi plane) gets a flat 1e-5: the f32
 # recurrence stagnates near kappa*eps_f32 anyway, so a tighter inner
 # tolerance burns iterations. The ~2^-16 quantized inner operator
 # ('irfq') gets a loose-early/tight-late per-cycle schedule; floors
@@ -50,12 +51,12 @@ IRFQ_INNER_FLOOR = (3e-2, 1e-2)
 
 def default_inner_floor(precision):
     """The inner_floor (scalar or per-cycle schedule) of a refinement
-    precision mode: 'ir' or 'irfq' ('irq' is not ported)."""
+    precision mode: 'ir', 'irq' or 'irfq'."""
     if precision == "irfq":
         return IRFQ_INNER_FLOOR
-    if precision != "ir":
-        raise NotImplementedError(f"precision={precision!r} is not ported "
-                                  "yet")
+    if precision not in ("ir", "irq"):
+        raise ValueError(f"{precision!r} is not a refinement precision "
+                         "('ir', 'irq' or 'irfq')")
     return IR_INNER_FLOOR
 
 

@@ -1,8 +1,10 @@
 """Linear operators: storage precision, padding and matvec kernel.
 
-The main-path subset of lam_tpu/solver/operators.py. A `DenseOperator`
-holds a symmetric matrix on one device and computes A @ p for the CG
-loop (lam_tpu_torch/solver/cg.py):
+The one-device subset of lam_tpu/solver/operators.py. A `DenseOperator`
+holds a matrix on one device and computes A @ p for the CG loop
+(lam_tpu_torch/solver/cg.py). With the packed engine
+('pallas_symm_packed', the default for a symmetric matrix) it stores
+the lower triangle of a symmetric matrix as walk-order tiles:
 
   'df64' packed lower-triangle (hi, lo) f32 planes, matvec by the df64
          symmetric kernel; vectors are f64. The f64-parity main path.
@@ -10,6 +12,13 @@ loop (lam_tpu_torch/solver/cg.py):
          kernel; vectors are f32. `as_f32()` of a df64 operator is the
          same matvec on the df64 operator's own hi plane: the inner
          engine of the mixed-precision solver.
+  'dfq'  quantized-lo packed storage: the f32 hi plane plus the lo plane
+         as int16 tiles against per-tile power-of-two scales (6 B per
+         stored element, ~2^-39 tile-relative) plus the diagonal as an
+         exact (dh, dl) f32 pair, zeroed in the planes. Matvec by the dfq
+         symmetric kernel plus the diagonal term, in f64. `as_f32()` is
+         the f32 symmetric kernel on the hi plane plus dh * p: the inner
+         engine of 'irq'.
   'fq'   fully-quantized packed storage: three int16 planes against
          per-tile power-of-two scales (6 B per stored element, ~2^-48
          tile-relative) plus the diagonal as an exact (dh, dl) f32 pair,
@@ -19,6 +28,12 @@ loop (lam_tpu_torch/solver/cg.py):
          engine of 'irfq'.
   'f64'  the full square in float64 with a plain torch matvec: the
          oracle path (lam_tpu's engine='xla'), not a kernel path.
+
+The full-square engine ('pallas', the only one for a matrix that is not
+symmetric, and what engine='auto' picks for one) stores the whole
+square: 'f32' as one f32 square, matvec by the dense f32 kernel; 'df64'
+as (hi, lo) f32 squares, matvec by the dense df64 kernel, whose
+`as_f32()` is the dense f32 kernel on the hi square.
 
 Padding: the matrix and vectors are zero-padded once, at construction,
 to the tile grid. Zero padding is exact for CG: padded entries of every
@@ -37,14 +52,18 @@ import torch
 
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout
-from lam_tpu_torch.precision import join_f64, split_f64
+from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
 from lam_tpu_torch.solver import pack_cache as pc
 
 ENGINE = "pallas_symm_packed"  # lam_tpu's name for the packed layout
+DENSE_ENGINE = "pallas"        # lam_tpu's name for the full-square engine
+ENGINES = ("auto", ENGINE, DENSE_ENGINE)
+UNPORTED_ENGINES = ("pallas_symm", "xla")
 
 # quantized-storage layouts: storage -> (per-plane dtypes, n_scales).
 # Operand order is (planes..., scales..., dh, dl).
 QUANT_LAYOUT = {
+    "dfq": ((np.float32, np.int16), 1),
     "fq": ((np.int16, np.int16, np.int16), 3),
 }
 
@@ -121,28 +140,33 @@ def _host_pack_planes(a, precision, tb):
 
 def quantize_storage_tiles(storage, buf, tb):
     """The quantized planes and per-tile scales of a (k*tb, tb) walk-order
-    f64 buffer whose diagonal is already extracted and zeroed: 'fq' ->
-    (q1, q2, q3, s1, s2, s3)."""
-    if storage not in QUANT_LAYOUT:
-        raise NotImplementedError(f"{storage!r} storage is not ported yet")
+    f64 buffer whose diagonal is already extracted and zeroed: 'dfq' ->
+    (hi, loq, sc); 'fq' -> (q1, q2, q3, s1, s2, s3)."""
+    if storage == "dfq":
+        hi, lo = split_f64_host(buf)
+        return (hi, *layout.quantize_lo_tiles(lo, tb))
+    if storage != "fq":
+        raise ValueError(f"unknown quantized storage {storage!r}")
     return layout.quantize_fq_tiles(buf, tb)
 
 
 def _host_pack_tri(a, storage, tb):
     """Streaming host pack of a symmetric f64 matrix (`a` may be a
     np.memmap) into the quantized packed-triangle buffers, in operand
-    order (q1, q2, q3, s1, s2, s3, dh, dl). The diagonal is extracted as
-    an exact (dh, dl) f32 pair and zeroed before quantization; the planes
-    are padded to padded_tri_tile_count tiles with zero pad tiles and
-    zero pad scales. Peak host memory is the buffers plus one (tb, i*tb)
-    row block. Bit-identical to lam_tpu's `DenseOperator._host_pack_tri`
-    (its numpy path)."""
+    order: 'dfq' (hi, loq, sc, dh, dl), 'fq' (q1, q2, q3, s1, s2, s3,
+    dh, dl). The diagonal is extracted as an exact (dh, dl) f32 pair and
+    zeroed before quantization. The fq planes are padded to
+    padded_tri_tile_count tiles with zero pad tiles and zero pad scales;
+    the dfq planes hold exactly the T triangle tiles. Peak host memory is
+    the buffers plus one (tb, i*tb) row block. Bit-identical to
+    lam_tpu's `DenseOperator._host_pack_tri` (its numpy path)."""
     if storage not in QUANT_LAYOUT:
-        raise NotImplementedError(f"{storage!r} storage is not ported yet")
+        raise ValueError(f"unknown quantized storage {storage!r}")
     n = a.shape[0]
     n_p = layout.padded_size(n, tb)
     nblk = n_p // tb
-    Ts = layout.padded_tri_tile_count(nblk)
+    Ts = (layout.padded_tri_tile_count(nblk) if storage == "fq"
+          else layout.tri_tile_count(nblk))
     dtypes, n_scales = QUANT_LAYOUT[storage]
     planes = [np.zeros((Ts * tb, tb), dt) for dt in dtypes]
     scales = [np.zeros((Ts,), np.float32) for _ in range(n_scales)]
@@ -196,6 +220,20 @@ def _mv_f32_of_df64_packed(operand, p):
     return gemv.gemv_f32_symm(operand[0], p)
 
 
+def _mv_dfq_packed(operand, p):
+    # the planes carry a zero diagonal: add (dh + dl) * p in f64
+    hi, loq, sc, dh, dl = operand
+    ph, pl = split_f64(p)
+    yh, yl = gemv.gemv_dfq_symm(hi, loq, sc, ph, pl)
+    return join_f64(yh, yl) + join_f64(dh, dl) * p
+
+
+def _mv_f32_of_dfq_packed(operand, p):
+    # inner view: the f32 triangle kernel on the hi plane plus the f32
+    # diagonal term the planes no longer carry
+    return gemv.gemv_f32_symm(operand[0], p) + operand[3] * p
+
+
 def _mv_fq_packed(operand, p):
     # the planes carry a zero diagonal: add (dh + dl) * p in f64
     q1, q2, q3, s1, s2, s3, dh, dl = operand
@@ -207,6 +245,32 @@ def _mv_fq_packed(operand, p):
 def _mv_f32_of_fq_packed(operand, p):
     # inner view: the 2-byte q1 plane plus the f32 diagonal term
     return gemv.gemv_q16_symm(operand[0], operand[3], p) + operand[6] * p
+
+
+def _mv_f32_pallas(a, p):
+    return gemv.gemv_f32(a, p)
+
+
+def _mv_df64_pallas(operand, p):
+    hi, lo = operand
+    ph, pl = split_f64(p)
+    yh, yl = gemv.gemv_df64(hi, lo, ph, pl)
+    return join_f64(yh, yl)
+
+
+def _mv_f32_of_df64_pallas(operand, p):
+    return gemv.gemv_f32(operand[0], p)
+
+
+# accurate packed matvec of each quantized storage, and the f32 inner
+# view over each (precision, engine) operand
+_MV_QUANT = {"dfq": _mv_dfq_packed, "fq": _mv_fq_packed}
+_MV_F32_OF = {
+    ("df64", ENGINE): _mv_f32_of_df64_packed,
+    ("dfq", ENGINE): _mv_f32_of_dfq_packed,
+    ("fq", ENGINE): _mv_f32_of_fq_packed,
+    ("df64", DENSE_ENGINE): _mv_f32_of_df64_pallas,
+}
 
 
 class LinearOperator:
@@ -267,7 +331,7 @@ class LinearOperator:
 
 
 class DenseOperator(LinearOperator):
-    """Device-resident dense symmetric matrix with a precision."""
+    """Device-resident dense matrix with a precision and an engine."""
 
     def __init__(self, matvec_fn, operand, n, n_padded, vector_dtype,
                  precision, engine, device):
@@ -280,43 +344,65 @@ class DenseOperator(LinearOperator):
     def from_dense(a, precision="df64", engine="auto", device="cuda"):
         """Build from an (n, n) numpy array (f64 source of truth).
 
-        'f32'/'df64'/'fq' store the packed lower triangle (engine
+        'f32'/'df64' store the packed lower triangle (engine
         'pallas_symm_packed', which 'auto' picks after checking that A
-        is symmetric); 'f64' is the plain oracle path."""
+        is symmetric) or the full square (engine 'pallas', which 'auto'
+        picks for a matrix that is not symmetric); 'dfq'/'fq' store the
+        packed triangle only; 'f64' is the plain oracle path."""
         n = a.shape[0]
         if a.shape != (n, n):
             raise ValueError(f"matrix must be square, got {a.shape}")
-        if precision not in ("f32", "df64", "fq", "f64"):
-            if precision in ("auto", "dfq"):
+        if precision not in ("f32", "df64", "dfq", "fq", "f64"):
+            if precision == "auto":
                 raise NotImplementedError(
                     f"precision={precision!r} is not ported yet")
             raise ValueError(f"unknown precision {precision!r}")
-        if precision == "fq":
+        check_engine(engine)
+        if precision in QUANT_LAYOUT:
             if engine not in ("auto", ENGINE):
                 raise ValueError(
-                    f"precision='fq' implies the packed symmetric engine; "
-                    f"engine={engine!r} is not combinable")
-            return DenseOperator.from_dense_fq(a, device=device)
-        if engine not in ("auto", ENGINE):
-            raise NotImplementedError(f"engine={engine!r} is not ported yet")
+                    f"precision={precision!r} implies the packed symmetric "
+                    f"engine; engine={engine!r} is not combinable")
+            return DenseOperator._from_dense_quantized(a, precision, True,
+                                                       device)
         dev = resolve_device(device)
         a = np.asarray(a, dtype=np.float64)
         if precision == "f64":
             return DenseOperator(_mv_f64_plain, _upload(a, dev), n, n,
                                  torch.float64, "f64", "plain", dev)
-        if not _verifies_symmetric(a):
+        if engine == "auto":
+            engine = ENGINE if _verifies_symmetric(a) else DENSE_ENGINE
+        elif engine == ENGINE and not _verifies_symmetric(a):
             raise ValueError(
                 f"engine={ENGINE!r} requires a symmetric matrix (the "
                 "lower-triangle kernel mirrors A's lower half); the "
-                "random-vector check found A v != A^T v (the "
-                "non-symmetric engine is not ported yet)")
+                "random-vector check found A v != A^T v; use "
+                f"engine={DENSE_ENGINE!r}")
         pad = layout.padded_size(n)
         if pad != n:
             a_p = np.zeros((pad, pad), dtype=np.float64)
             a_p[:n, :n] = a
             a = a_p
+        if engine == DENSE_ENGINE:
+            if precision == "f32":
+                return DenseOperator(_mv_f32_pallas,
+                                     _upload(a.astype(np.float32), dev), n,
+                                     pad, torch.float32, "f32",
+                                     DENSE_ENGINE, dev)
+            return DenseOperator._square_df64(*split_f64_host(a), n, dev)
         bufs = _host_pack_planes(a, precision, layout.SYMM_TB)
         return DenseOperator._plane_operator(precision, bufs, n, pad, dev)
+
+    @staticmethod
+    def _square_df64(hi, lo, n, dev):
+        """Full-square df64 operator over (n_p, n_p) host (hi, lo)
+        planes."""
+        n_p = hi.shape[0]
+        if hi.shape != (n_p, n_p) or lo.shape != (n_p, n_p):
+            raise ValueError("planes must be square and equal-shaped")
+        operand = (_upload(hi, dev), _upload(lo, dev))
+        return DenseOperator(_mv_df64_pallas, operand, n, n_p,
+                             torch.float64, "df64", DENSE_ENGINE, dev)
 
     @staticmethod
     def _plane_operator(precision, bufs, n, n_padded, dev):
@@ -337,40 +423,66 @@ class DenseOperator(LinearOperator):
     def _packed_operator(storage, bufs, n, n_padded, dev):
         """DenseOperator over host quantized packed-triangle buffers in
         operand order (`_host_pack_tri`, `pack_cache.load`)."""
-        if storage != "fq":
-            raise NotImplementedError(f"{storage!r} storage is not ported "
-                                      "yet")
-        q1, q2, q3, s1, s2, s3, dh, dl = bufs
-        layout.packed_geometry(q1.shape, n_padded, "DenseOperator",
-                               padded=True)
-        if q2.shape != q1.shape or q3.shape != q1.shape:
-            raise NotImplementedError(
-                "broadcast (tb, tb) q2/q3 tiles are not ported yet; pass "
-                "planes of the q1 plane's shape")
+        if storage not in QUANT_LAYOUT:
+            raise ValueError(f"not a quantized storage: {storage!r}")
+        n_planes = len(QUANT_LAYOUT[storage][0])
+        planes, scales = bufs[:n_planes], bufs[n_planes:-2]
+        _, _, T = layout.packed_geometry(planes[0].shape, n_padded,
+                                         "DenseOperator",
+                                         padded=storage == "fq")
+        for plane in planes[1:]:
+            if plane.shape == planes[0].shape:
+                continue
+            if storage == "fq":
+                raise NotImplementedError(
+                    "broadcast (tb, tb) q2/q3 tiles are not ported yet; "
+                    "pass planes of the q1 plane's shape")
+            raise ValueError(f"quantized lo plane shape {plane.shape} != "
+                             f"hi plane {planes[0].shape}")
+        for sc in scales:
+            if sc.shape != (T,):
+                raise ValueError(f"scale table shape {sc.shape} != ({T},)")
         operand = tuple(_upload(b, dev) for b in bufs)
-        return DenseOperator(_mv_fq_packed, operand, n, n_padded,
-                             torch.float64, "fq", ENGINE, dev)
+        return DenseOperator(_MV_QUANT[storage], operand, n, n_padded,
+                             torch.float64, storage, ENGINE, dev)
 
     @staticmethod
-    def from_dense_fq(a, check_symmetric=True, device="cuda"):
-        """Fully-quantized packed operator ("fq") from an (n, n) array:
-        the three-plane int16 cascade of the lower triangle plus the
-        diagonal as an exact (dh, dl) pair, padded to a multiple of the
-        512-wide tile. Built streaming by row tile (`a` may be a
-        np.memmap)."""
+    def _from_dense_quantized(a, storage, check_symmetric, device):
+        """Quantized packed operator of an (n, n) array, built streaming
+        by row tile (`a` may be a np.memmap), padded to a multiple of the
+        512-wide tile."""
         n = a.shape[0]
         if a.shape != (n, n):
             raise ValueError(f"matrix must be square, got {a.shape}")
         dev = resolve_device(device)
         if check_symmetric and not _verifies_symmetric(a):
             raise ValueError(
-                "precision='fq' requires a symmetric matrix (the "
+                f"precision={storage!r} requires a symmetric matrix (the "
                 "lower-triangle kernel mirrors A's lower half); the "
                 "random-vector check found A v != A^T v")
         tb = layout.SYMM_TB
-        bufs = _host_pack_tri(a, "fq", tb)
-        return DenseOperator._packed_operator("fq", bufs, n,
+        bufs = _host_pack_tri(a, storage, tb)
+        return DenseOperator._packed_operator(storage, bufs, n,
                                               layout.padded_size(n, tb), dev)
+
+    @staticmethod
+    def from_dense_dfq(a, check_symmetric=True, device="cuda"):
+        """Quantized-lo packed operator ("dfq") from an (n, n) array: the
+        f32 hi plane of the lower triangle, the lo plane as int16 tiles
+        against per-tile power-of-two scales (|A_stored - A| <= ~2^-39
+        of the tile's max) and the diagonal as an exact (dh, dl) pair,
+        padded to a multiple of the 512-wide tile."""
+        return DenseOperator._from_dense_quantized(a, "dfq", check_symmetric,
+                                                   device)
+
+    @staticmethod
+    def from_dense_fq(a, check_symmetric=True, device="cuda"):
+        """Fully-quantized packed operator ("fq") from an (n, n) array:
+        the three-plane int16 cascade of the lower triangle plus the
+        diagonal as an exact (dh, dl) pair, padded to a multiple of the
+        512-wide tile."""
+        return DenseOperator._from_dense_quantized(a, "fq", check_symmetric,
+                                                   device)
 
     @staticmethod
     def _from_file_packed(path, precision, check_symmetric, pack_cache,
@@ -394,13 +506,14 @@ class DenseOperator(LinearOperator):
         n = a.shape[0]
         tb = layout.SYMM_TB
         n_p = layout.padded_size(n, tb)
-        mk = (DenseOperator._packed_operator if precision == "fq"
+        quantized = precision in QUANT_LAYOUT
+        mk = (DenseOperator._packed_operator if quantized
               else DenseOperator._plane_operator)
         if pack_cache:
             hit = pc.load(path, precision)
             if hit is not None and hit[:3] == (n, n_p, tb):
                 return mk(precision, hit[3], n, n_p, dev)
-        if precision == "fq":
+        if quantized:
             bufs = _host_pack_tri(a, precision, tb)
         else:
             bufs = _host_pack_planes(a, precision, tb)
@@ -429,6 +542,15 @@ class DenseOperator(LinearOperator):
                                                device)
 
     @staticmethod
+    def from_file_dfq(path, check_symmetric=False, pack_cache=False,
+                      device="cuda"):
+        """Quantized-lo packed operator straight from a matrix file, as
+        from_file_f32 (cache `<file>.dfqpack`, which lam_tpu reads and
+        writes too)."""
+        return DenseOperator._from_file_packed(path, "dfq", check_symmetric,
+                                               pack_cache, device)
+
+    @staticmethod
     def from_file_fq(path, check_symmetric=False, pack_cache=False,
                      device="cuda"):
         """Fully-quantized packed operator straight from a matrix file,
@@ -448,6 +570,34 @@ class DenseOperator(LinearOperator):
                                              resolve_device(device))
 
     @staticmethod
+    def from_df64_planes(hi, lo, n, engine=DENSE_ENGINE, device="cuda"):
+        """Full-square df64 operator from pre-split, pre-padded (n_p, n_p)
+        f32 planes given as host arrays, e.g. `np.asarray` of a lam_tpu
+        engine='pallas' operator's `operand`: the state carried across
+        from the JAX package. The caller asserts they represent the
+        intended f64 matrix."""
+        if engine != DENSE_ENGINE:
+            check_engine(engine)
+            raise NotImplementedError(
+                f"from_df64_planes(engine={engine!r}) is not ported yet "
+                f"(only {DENSE_ENGINE!r})")
+        return DenseOperator._square_df64(np.asarray(hi, np.float32),
+                                          np.asarray(lo, np.float32), n,
+                                          resolve_device(device))
+
+    @staticmethod
+    def from_dfq_planes(hi, loq, sc, dh, dl, n, n_padded, device="cuda"):
+        """dfq operator from pre-packed buffers given as host arrays in
+        operand order, e.g. `np.asarray` of each entry of a lam_tpu dfq
+        operator's `operand`: the state carried across from the JAX
+        package. The caller asserts they represent a symmetric matrix."""
+        dtypes = (np.float32, np.int16, np.float32, np.float32, np.float32)
+        bufs = tuple(np.asarray(b, dt) for b, dt in
+                     zip((hi, loq, sc, dh, dl), dtypes))
+        return DenseOperator._packed_operator("dfq", bufs, n, n_padded,
+                                              resolve_device(device))
+
+    @staticmethod
     def from_fq_planes(q1, q2, q3, s1, s2, s3, dh, dl, n, n_padded,
                        device="cuda"):
         """fq operator from pre-packed buffers given as host arrays in
@@ -461,13 +611,18 @@ class DenseOperator(LinearOperator):
                                               resolve_device(device))
 
     def diagonal(self):
-        """The matrix diagonal as a padded f64 vector (fq: the exact
-        (dh, dl) pair the planes no longer carry)."""
-        if self.precision != "fq":
-            raise NotImplementedError(
-                f"diagonal() of a {self.precision!r} operator is not ported "
-                "yet")
-        return join_f64(self.operand[-2], self.operand[-1])
+        """The matrix diagonal as a padded vector: f64 for the quantized
+        storages (the exact (dh, dl) pair the planes no longer carry) and
+        a full-square df64 operator, f32 for a full-square f32 one."""
+        if self.precision in QUANT_LAYOUT:
+            return join_f64(self.operand[-2], self.operand[-1])
+        if self.engine == DENSE_ENGINE:
+            if self.precision == "f32":
+                return torch.diagonal(self.operand)
+            return join_f64(*(torch.diagonal(x) for x in self.operand))
+        raise NotImplementedError(
+            f"diagonal() of a {self.precision!r} {self.engine!r} operator "
+            "is not ported yet")
 
     def as_f32(self):
         """Sibling f32 operator SHARING this operator's device buffers
@@ -475,12 +630,21 @@ class DenseOperator(LinearOperator):
         cg_solve_ir, which holds one copy of the matrix."""
         if self.precision == "f32":
             return self
-        views = {"df64": _mv_f32_of_df64_packed, "fq": _mv_f32_of_fq_packed}
-        if self.precision not in views:
+        key = (self.precision, self.engine)
+        if key not in _MV_F32_OF:
             raise NotImplementedError(
-                f"as_f32() of a {self.precision!r} operator is not ported "
-                "yet")
-        return DenseOperator(views[self.precision], self.operand, self.n,
+                f"as_f32() of a {self.precision!r} {self.engine!r} "
+                "operator is not ported yet")
+        return DenseOperator(_MV_F32_OF[key], self.operand, self.n,
                              self.n_padded, torch.float32, "f32",
                              self.engine, self.device)
 
+
+def check_engine(engine):
+    """Raise for an engine the port does not take: NotImplementedError
+    for lam_tpu's engines still to port, ValueError for an unknown one."""
+    if engine in UNPORTED_ENGINES:
+        raise NotImplementedError(f"engine={engine!r} is not ported yet")
+    if engine not in ENGINES:
+        raise ValueError(f"unknown engine {engine!r} (one of "
+                         f"{ENGINES + UNPORTED_ENGINES})")

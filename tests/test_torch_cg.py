@@ -232,12 +232,13 @@ def test_facade_solves_and_records(tmp_path, system):
 def test_unported_options_raise(system):
     with pytest.raises(NotImplementedError):
         ConjugateGradient(backend="sharded", device="cpu")
-    with pytest.raises(NotImplementedError):
-        ConjugateGradient(precision="irq", device="cpu")
-    with pytest.raises(NotImplementedError):
-        DenseOperator.from_dense(system[0], engine="pallas", device="cpu")
-    with pytest.raises(NotImplementedError):
-        DenseOperator.from_dense(system[0], precision="dfq", device="cpu")
+    for engine in ("pallas_symm", "xla"):
+        with pytest.raises(NotImplementedError, match=engine):
+            ConjugateGradient(engine=engine, device="cpu")
+        with pytest.raises(NotImplementedError, match=engine):
+            DenseOperator.from_dense(system[0], engine=engine, device="cpu")
+        with pytest.raises(NotImplementedError, match=engine):
+            tcli.main(["--engine", engine, "--device", "cpu"])
     with pytest.raises(NotImplementedError, match="-s"):
         tcli.main(["-s", "100", "--device", "cpu"])
 
@@ -256,6 +257,9 @@ def test_cuda_request_raises_without_fallback(system):
 def test_import_leaves_jax_out():
     code = ("import sys, lam_tpu_torch, lam_tpu_torch.cli, "
             "lam_tpu_torch.generate, lam_tpu_torch.ops._build, "
+            "lam_tpu_torch.ops.gemv, lam_tpu_torch.ops.layout, "
+            "lam_tpu_torch.solver.api, lam_tpu_torch.solver.cg, "
+            "lam_tpu_torch.solver.operators, "
             "lam_tpu_torch.solver.pack_cache; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lam_tpu')]; "
