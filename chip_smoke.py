@@ -40,9 +40,25 @@
    converged. The launch counters are zeroed just before each run and
    read just after: each run's kernels must have launched, and no plain
    version may have run.
+   Phase 2 also holds the stencil kernel laplace5_f32_halo against its
+   plain version on the heat demo's padded grid (1024 x 1280, zero edges)
+   and on that grid as one shard of a row-sharded grid (non-zero edge
+   rows, a row limit below H and at H, columns cut below W): y bitwise
+   equal, padding exactly 0, p . y within 1e-6 relative of the plain
+   version and of a float64 oracle, bitwise repeats. It times it there
+   and at 4096 x 4096 (streamed from HBM) beside torch's conv2d with the
+   same 5-point weights (stencil only: no mask, no p . y).
+4. Runs the heat-equation demo through the port's `lam-heat` CLI, in
+   process, at its documented 1200 x 1000 plate: --precision ir (the
+   stencil kernel must launch, no gemv kernel and no plain version) and
+   --precision f64 (no stencil kernel, no plain version), each to a TRUE
+   relative residual of the 5-point system <= 2e-10 computed in f64 on
+   the host, the two grids within IR_F64_ATOL; Jacobi at 120 x 100, whose
+   sweep count and grid must equal a literal numpy loop; and the
+   `lam-heat-to-bmp` converter on the ir grid, a (1000, 1200, 3) image.
 
 Prints {"kernels": [...]} on the line before the last (each kernel's
-launches summed over the phase-3 runs) and, as the last line,
+launches summed over the phase-3 and phase-4 runs) and, as the last line,
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and no
 result line. Without a CUDA device it exits 1 at once.
 """
@@ -51,6 +67,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -68,6 +85,16 @@ SPIN_CYCLES = 6_000_000  # ~3 ms at the H100's clock: covers a batch's enqueue
 TRUE_GATE = 2e-9     # bench.py's acceptance of the TRUE residual
 SYMM_SOURCE = "lam_tpu_torch/csrc/gemv_symm.cu"
 DENSE_SOURCE = "lam_tpu_torch/csrc/gemv_dense.cu"
+STENCIL_SOURCE = "lam_tpu_torch/csrc/stencil.cu"
+HEAT_NX, HEAT_NY = 1200, 1000  # the heat demo's documented plate
+JAC_NX, JAC_NY = 120, 100
+HEAT_GATE = 2e-10    # TRUE residual of a rel_error=1e-10 heat solve
+# ir and f64 stop at a residual of 1e-10 each, and the Laplacian's
+# condition number grows as side^2: their grids part by more than the
+# 1e-6 of the 30 x 26 test (tests/test_heat.py:90) at 1200 x 1000
+# (2.04e-6 on an H100 80GB HBM3 at 700 W)
+IR_F64_ATOL = 1e-5
+STREAM_NI = 4000     # 4096 x 4096 padded: the stencil streamed from HBM
 # the card's least time for a call (bound_ms): H100 SXM data sheet, dense
 # rates at the 700 W limit: 3.35 TB/s of HBM, 67 TFLOP/s f32 outside the
 # tensor cores, 34 TFLOP/s f64
@@ -416,7 +443,221 @@ def dfq_kernel_vs_plain(gemv, layout, dfq, a_dev, ph, pl):
         (hi, loq, sc, ph, pl, yh, yl), 2 * (nblk * tb) ** 2, "f64")
 
 
-def solve_slice(gemv, generate, lio, cli):
+def _stencil_oracle(p, up, dn, nrows, nxi):
+    """The masked 5-point Laplacian and p . y in float64 on the card."""
+    g = p.double()
+    full = 4 * g
+    full[1:] -= g[:-1]
+    full[0] -= up[0].double()
+    full[:-1] -= g[1:]
+    full[-1] -= dn[0].double()
+    full[:, 1:] -= g[:, :-1]
+    full[:, :-1] -= g[:, 1:]
+    y = torch.zeros_like(full)
+    y[:nrows, :nxi] = full[:nrows, :nxi]
+    return y, float((g * y).sum())
+
+
+def _stencil_case(stencil, label, p, up, dn, nrows, nxi, tbr):
+    """One stencil case against its plain version; returns y's largest
+    difference from the plain version (0: they must be bitwise equal)."""
+    y, d = stencil.laplace5_f32_halo(p, up, dn, nrows, nxi=nxi, tbr=tbr)
+    y_plain, d_plain = stencil.laplace5_f32_halo_plain(p, up, dn, nrows,
+                                                       nxi=nxi)
+    y64, d64 = _stencil_oracle(p, up, dn, nrows, nxi)
+    y2, d2 = stencil.laplace5_f32_halo(p, up, dn, nrows, nxi=nxi, tbr=tbr)
+    torch.cuda.synchronize()
+    d, d_plain = float(d), float(d_plain)
+    errs = (abs(d - d_plain) / abs(d_plain), abs(d - d64) / abs(d64))
+    y_err = float((y - y_plain).abs().max())
+    print(f"laplace5 {label}: y-plain max {y_err:.3e} (== 0), y-f64 max "
+          f"{float((y.double() - y64).abs().max()):.3e}, p.y rel: "
+          f"kernel-plain {errs[0]:.3e} kernel-f64 {errs[1]:.3e} (<= 1e-6)")
+    _check(torch.equal(y, y_plain), f"laplace5 {label}: y != plain version")
+    _check(int(torch.count_nonzero(y[nrows:])) == 0
+           and int(torch.count_nonzero(y[:, nxi:])) == 0,
+           f"laplace5 {label}: padding != 0")
+    _check(max(errs) <= 1e-6, f"laplace5 {label}: p.y disagrees")
+    _check(torch.equal(y, y2) and float(d2) == d,
+           f"laplace5 {label}: not repeatable")
+    return y_err
+
+
+def _stencil_timed(stencil, name, p, zero, nyi, nxi, tbr, y_err):
+    """_timed_entry of the zero-edge stencil on grid p, with torch's
+    conv2d (5-point weights, padding 1; no mask, no p.y) as the library
+    call."""
+    H, W = p.shape
+    y, d = stencil.laplace5_f32(p, nyi=nyi, nxi=nxi, tbr=tbr)
+    weights = torch.tensor([[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0],
+                            [0.0, -1.0, 0.0]], device=p.device)
+    weights = weights.view(1, 1, 3, 3)
+    p4 = p.view(1, 1, H, W)
+    # 5 operations a valid cell for the stencil, 2 for the dot
+    return _timed_entry(
+        name, "lam_tpu/ops/stencil.py:92", STENCIL_SOURCE, y_err,
+        (lambda: stencil.laplace5_f32_halo(p, zero, zero, nyi, nxi=nxi,
+                                           tbr=tbr),
+         lambda: stencil.laplace5_f32_halo_plain(p, zero, zero, nyi,
+                                                 nxi=nxi),
+         lambda: torch.nn.functional.conv2d(p4, weights, padding=1)),
+        (p, zero, zero, y, d), 7 * nyi * nxi, "f32")
+
+
+def stencil_vs_plain(stencil):
+    """Phase 2, the stencil: laplace5_f32_halo against its plain version
+    on the heat demo's grid, zero-edged and as a halo shard; timed there
+    (the `kernels` line's entry) and at 4096 x 4096."""
+    rng = np.random.default_rng(11)
+    nyi, nxi = HEAT_NY - 2, HEAT_NX - 2
+    H, W, tbr = stencil.padded_hw(nyi, nxi)
+
+    def grid(h, w, rows, cols):
+        p = torch.zeros(h, w, device="cuda")
+        p[:rows, :cols] = torch.from_numpy(
+            rng.standard_normal((rows, cols)).astype(np.float32)).cuda()
+        return p
+
+    p = grid(H, W, nyi, nxi)
+    zero = torch.zeros(1, W, device="cuda")
+    y_err = _stencil_case(stencil, f"{H}x{W} zero edges", p, zero, zero,
+                          nyi, nxi, tbr)
+    full = grid(H, W, H, W)
+    up, dn = grid(1, W, 1, W), grid(1, W, 1, W)
+    for nrows, cols in ((H - 24, W - 82), (H, W - 82)):
+        y_err = max(y_err, _stencil_case(
+            stencil, f"{H}x{W} halo rows, nrows {nrows}, nxi {cols}",
+            full, up, dn, nrows, cols, tbr))
+    entry = _stencil_timed(stencil, "laplace5_f32_halo", p, zero, nyi, nxi,
+                           tbr, y_err)
+    del full
+    big_i = STREAM_NI
+    Hb, Wb, tbr_b = stencil.padded_hw(big_i, big_i)
+    pb = grid(Hb, Wb, big_i, big_i)
+    zb = torch.zeros(1, Wb, device="cuda")
+    yb_err = _stencil_case(stencil, f"{Hb}x{Wb} zero edges", pb, zb, zb,
+                           big_i, big_i, tbr_b)
+    big = _stencil_timed(stencil, f"laplace5 {Hb}x{Wb}", pb, zb, big_i,
+                         big_i, tbr_b, yb_err)
+    print("laplace5_f32_halo at the streaming shape: "
+          + json.dumps({k: big[k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "library_ms")}))
+    return entry
+
+
+def _heat_true_rel(grid):
+    """TRUE relative residual |b - A u| / |b| of the 5-point system whose
+    unknowns are the plate's interior, in float64 (b from the boundary,
+    as lam_tpu/apps/heat.py:340-344)."""
+    u = grid[1:-1, 1:-1]
+    b = np.zeros_like(u)
+    b[0, :] += grid[0, 1:-1]
+    b[-1, :] += grid[-1, 1:-1]
+    b[:, 0] += grid[1:-1, 0]
+    b[:, -1] += grid[1:-1, -1]
+    au = 4 * u
+    au[:-1] -= u[1:]
+    au[1:] -= u[:-1]
+    au[:, :-1] -= u[:, 1:]
+    au[:, 1:] -= u[:, :-1]
+    return float(np.linalg.norm(b - au) / np.linalg.norm(b))
+
+
+def _numpy_jacobi(grid, max_iters, eps):
+    """Literal numpy loop of the reference's solve_heat (as
+    tests/test_heat.py:8-19)."""
+    g = grid.copy()
+    for k in range(1, max_iters + 1):
+        new = g.copy()
+        new[1:-1, 1:-1] = (g[2:, 1:-1] + g[:-2, 1:-1]
+                           + g[1:-1, :-2] + g[1:-1, 2:]) / 4.0
+        diff = np.max(np.abs(new[1:-1, 1:-1] - g[1:-1, 1:-1]))
+        g = new
+        if diff < eps:
+            return g, k
+    return g, max_iters
+
+
+def heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio):
+    """Phase 4: the heat demo through the port's CLIs. Returns the kernel
+    launches summed over its runs."""
+    stencil_k, stencil_p = "laplace5_f32_halo", "laplace5_f32_halo_plain"
+    gemv_k = [fn.__name__ for fn in ops.KERNELS if fn.__name__ != stencil_k]
+    # (run, argv tail, kernels it must launch, kernels it must not launch)
+    runs = (("heat-ir", ["--precision", "ir"], (stencil_k,), gemv_k),
+            ("heat-f64", ["--precision", "f64"], (), [stencil_k]),
+            ("jacobi", ["--solver", "jacobi"], (), [stencil_k]))
+    total = {fn.__name__: 0 for fn in ops.KERNELS}
+    grids = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for run, extra, kernels, not_kernels in runs:
+            nx, ny, iters_max = ((JAC_NX, JAC_NY, "1000000")
+                                 if run == "jacobi"
+                                 else (HEAT_NX, HEAT_NY, "100000"))
+            path = os.path.join(tmp, f"{run}.bin")
+            out = io.StringIO()
+            ops.reset_counters()
+            with contextlib.redirect_stdout(out):
+                rc = heat_cli.main([str(nx), str(ny), path, iters_max,
+                                    *extra, "--device", "cuda"])
+            torch.cuda.synchronize()
+            counts = ops.counters()
+            text = out.getvalue()
+            _check(rc == 0, f"{run}: lam-heat exited {rc}")
+            m = re.search(r"Iterations converged in (\d+) iterations with "
+                          r"(\w+)=(\S+)", text)
+            _check(m is not None, f"{run} did not converge:\n{text}")
+            iters = int(m.group(1))
+            solve_s = float(re.search(r"Time elapsed: (\S+) s",
+                                      text).group(1))
+            warm_s = float(re.search(r"Warm-up \(compile \+ construction\) "
+                                     r"time: (\S+) s", text).group(1))
+            grid = lio.read_matrix(path)
+            _check(grid.shape == (ny, nx), f"{run}: grid {grid.shape}")
+            grids[run] = grid
+            launched = {k: v for k, v in counts.items() if v}
+            line = (f"{run} {nx}x{ny}: {iters} iterations, "
+                    f"{m.group(2)} {m.group(3)}, solve {solve_s:.4f} s, "
+                    f"warm-up {warm_s:.4f} s")
+            if run == "jacobi":
+                ref, k_ref = _numpy_jacobi(heat.initial_grid(nx, ny),
+                                           int(iters_max), 1e-3)
+                print(f"{line}, numpy loop {k_ref} sweeps, grid max abs "
+                      f"diff {float(np.abs(grid - ref).max()):.3e}, "
+                      f"launches {launched}")
+                _check(iters == k_ref, f"jacobi: {iters} sweeps, the numpy "
+                       f"loop {k_ref}")
+                np.testing.assert_allclose(grid, ref, rtol=1e-12)
+            else:
+                true_rel = _heat_true_rel(grid)
+                print(f"{line}, TRUE rel residual {true_rel:.3e} "
+                      f"(<= {HEAT_GATE:g}), launches {launched}")
+                _check(true_rel <= HEAT_GATE, f"{run} TRUE residual "
+                       f"{true_rel:.3e} above {HEAT_GATE:g}")
+            for k in kernels:
+                _check(counts[k] > 0, f"{run} never launched {k}")
+            for k in not_kernels:
+                _check(counts[k] == 0, f"{run} launched {k}")
+            _check(all(counts[fn.__name__] == 0 for fn in ops.PLAIN),
+                   f"a plain version ran on the {run} path")
+            for k in total:
+                total[k] += counts[k]
+        gap = float(np.abs(grids["heat-ir"] - grids["heat-f64"]).max())
+        print(f"heat ir vs f64 grids: max abs diff {gap:.3e} "
+              f"(<= {IR_F64_ATOL:g})")
+        _check(gap <= IR_F64_ATOL, "the ir and f64 heat grids disagree")
+        bmp_path = os.path.join(tmp, "heat.bmp")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = bmp_cli.main([os.path.join(tmp, "heat-ir.bin"), bmp_path])
+        _check(rc == 0, f"lam-heat-to-bmp exited {rc}")
+        img = bmp.read_bmp(bmp_path)
+        print(f"lam-heat-to-bmp: image {img.shape}")
+        _check(img.shape == (HEAT_NY, HEAT_NX, 3), "BMP has the wrong shape")
+    print(f"heat demo launches, summed over the runs: {total}")
+    return total
+
+
+def solve_slice(ops, generate, lio, cli):
     """Phase 3: the bench system through the port's CLI, one run per
     entry of RUNS. Returns the kernel launches summed over the runs."""
     t0 = time.perf_counter()
@@ -428,7 +669,7 @@ def solve_slice(gemv, generate, lio, cli):
         a_path, b_path = os.path.join(tmp, "A.bin"), os.path.join(tmp, "b.bin")
         lio.write_matrix(a_path, a)
         lio.write_matrix(b_path, b)
-        total = {fn.__name__: 0 for fn in gemv.KERNELS}
+        total = {fn.__name__: 0 for fn in ops.KERNELS}
         xs, iters_of = {}, {}
         for run, kernels, not_kernels in RUNS:
             precision = run.split("-")[0]
@@ -440,11 +681,11 @@ def solve_slice(gemv, generate, lio, cli):
             if run.endswith("-pallas"):
                 argv += ["--engine", "pallas"]
             csv = io.StringIO()
-            gemv.reset_counters()
+            ops.reset_counters()
             with contextlib.redirect_stdout(csv):
                 rc = cli.main(argv)
             torch.cuda.synchronize()
-            counts = gemv.counters()
+            counts = ops.counters()
             line = csv.getvalue().strip()
             print(f"{run} CSV (N,procs,threads,load_s,avg_gemv_s,"
                   f"avg_iter_s,num_iter,err,total_cg_s): {line}")
@@ -466,7 +707,7 @@ def solve_slice(gemv, generate, lio, cli):
             for k in not_kernels:
                 _check(counts[k] == 0, f"{run} launched {k}: the engine "
                        "was not honoured")
-            _check(all(counts[fn.__name__] == 0 for fn in gemv.PLAIN),
+            _check(all(counts[fn.__name__] == 0 for fn in ops.PLAIN),
                    f"a plain version ran on the {run} path")
             for k in total:
                 total[k] += counts[k]
@@ -489,9 +730,10 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from lam_tpu_torch import cli, generate
+    from lam_tpu_torch import cli, generate, ops
     from lam_tpu_torch import io as lio
-    from lam_tpu_torch.ops import _build, gemv, layout
+    from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
+    from lam_tpu_torch.ops import _build, gemv, layout, stencil
     from lam_tpu_torch.precision import split_f64_host
     from lam_tpu_torch.solver.operators import (_host_pack_planes,
                                                 _host_pack_tri)
@@ -503,6 +745,7 @@ def main():
     print(smi)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     torch.backends.cuda.matmul.allow_tf32 = False  # oracles in full f32/f64
+    torch.backends.cudnn.allow_tf32 = False  # conv2d's yardstick in full f32
 
     path, seconds, built = _build.build()
     _build.library()
@@ -511,13 +754,17 @@ def main():
 
     results = kernels_vs_plain(gemv, layout, _host_pack_planes,
                                _host_pack_tri, split_f64_host)
+    torch.cuda.empty_cache()
+    results.append(stencil_vs_plain(stencil))
     _check(sorted(r["name"] for r in results)
-           == sorted(fn.__name__ for fn in gemv.KERNELS),
+           == sorted(fn.__name__ for fn in ops.KERNELS),
            "phase 2 did not hold every kernel against its plain version")
     torch.cuda.empty_cache()
-    counts = solve_slice(gemv, generate, lio, cli)
+    counts = solve_slice(ops, generate, lio, cli)
+    torch.cuda.empty_cache()
+    heat_counts = heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio)
     for r in results:
-        r["launches"] = counts[r["name"]]
+        r["launches"] = counts[r["name"]] + heat_counts[r["name"]]
         _check(r["launches"] > 0, f"{r['name']} never launched on the "
                "main path")
     print(json.dumps({"kernels": results}))

@@ -11,7 +11,10 @@ stored as the fully-quantized fq cascade and solved by fq CG or by
 refinement whose inner loop reads only the 2-byte first plane ('irfq');
 or any square system stored as the full square (engine='pallas') and
 solved by f32, df64 or ir CG. The seven matvecs are hand-written CUDA
-kernels for sm_90a (lam_tpu_torch/csrc, built at first use).
+kernels for sm_90a (lam_tpu_torch/csrc, built at first use). The
+heat-equation demo (lam_tpu_torch.apps: Jacobi sweeps, and CG on the
+5-point Laplacian, whose 'ir' inner matvec is the hand-written stencil
+kernel) and its BMP converter run on the same engine.
 """
 
 from lam_tpu_torch.solver.api import ConjugateGradient

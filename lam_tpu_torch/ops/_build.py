@@ -34,8 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of csrc/gemv_symm.cu and csrc/gemv_dense.cu:
-# name -> argtypes (all return int)
+# C entry points of csrc/gemv_symm.cu, csrc/gemv_dense.cu and
+# csrc/stencil.cu: name -> argtypes (all return int)
 SIGNATURES = {
     "lam_symm_tile": (),
     "lam_symm_strips": (),
@@ -46,6 +46,8 @@ SIGNATURES = {
     "lam_gemv_fq_symm": (_P,) * 12 + (_I, _P),
     "lam_gemv_f32": (_P, _P, _P, _I, _I, _P),
     "lam_gemv_df64": (_P,) * 6 + (_I, _I, _P),
+    "lam_laplace5_blocks": (_I, _I),
+    "lam_laplace5_f32_halo": (_P,) * 6 + (_I,) * 4 + (_P,),
 }
 
 

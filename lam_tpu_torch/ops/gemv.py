@@ -30,7 +30,8 @@ kernel against on the card.
 
 Each wrapper counts its kernel launches in `.launches`, and each plain
 version its calls in `.calls`, so a run can show which path it took
-(`reset_counters`, `counters`).
+(`reset_counters`, `counters`: the registry of lam_tpu_torch.ops, which
+covers the stencil kernel too).
 """
 
 from __future__ import annotations
@@ -473,17 +474,12 @@ PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
 
 
 def reset_counters():
-    for fn in KERNELS:
-        fn.launches = 0
-    for fn in PLAIN:
-        fn.calls = 0
+    """Zero every kernel module's counters (lam_tpu_torch.ops)."""
+    from lam_tpu_torch import ops
+    ops.reset_counters()
 
 
 def counters():
-    """{name: count} of kernel launches and plain-version calls."""
-    out = {fn.__name__: fn.launches for fn in KERNELS}
-    out.update({fn.__name__: fn.calls for fn in PLAIN})
-    return out
-
-
-reset_counters()
+    """{name: count} over every kernel module (lam_tpu_torch.ops)."""
+    from lam_tpu_torch import ops
+    return ops.counters()

@@ -35,6 +35,11 @@ square: 'f32' as one f32 square, matvec by the dense f32 kernel; 'df64'
 as (hi, lo) f32 squares, matvec by the dense df64 kernel, whose
 `as_f32()` is the dense f32 kernel on the hi square.
 
+A `MatrixFreeOperator` applies a function instead of a stored matrix
+(the heat demo's 5-point Laplacian, lam_tpu_torch/apps/heat.py), and an
+operator may take a fused `matvec_dot_fn` whose kernel returns p . A p
+from the same pass.
+
 Padding: the matrix and vectors are zero-padded once, at construction,
 to the tile grid. Zero padding is exact for CG: padded entries of every
 vector stay 0 and no dot product changes.
@@ -274,11 +279,20 @@ _MV_F32_OF = {
 
 
 class LinearOperator:
-    """Anything with a matvec usable by the CG loop."""
+    """Anything with a matvec usable by the CG loop.
+
+    `matvec_fn(operand, p) -> A p`; or, for a kernel that takes the dot
+    in the same pass (lam_tpu's base takes only this form,
+    lam_tpu/solver/operators.py:521), `matvec_dot_fn(operand, p) ->
+    (A p, p . A p)`. Either may be None, not both."""
 
     def __init__(self, matvec_fn, operand, n, n_padded, vector_dtype,
-                 device):
+                 device, matvec_dot_fn=None):
+        if matvec_fn is None and matvec_dot_fn is None:
+            raise ValueError("a LinearOperator needs matvec_fn or "
+                             "matvec_dot_fn")
         self._matvec_fn = matvec_fn
+        self._matvec_dot_fn = matvec_dot_fn
         self.operand = operand
         self.n = n
         self.n_padded = n_padded
@@ -286,10 +300,14 @@ class LinearOperator:
         self.device = device
 
     def matvec(self, p_padded):
+        if self._matvec_fn is None:
+            return self._matvec_dot_fn(self.operand, p_padded)[0]
         return self._matvec_fn(self.operand, p_padded)
 
     def matvec_dot(self, p_padded):
         """(A p, p . A p): the CG loop's matvec step."""
+        if self._matvec_dot_fn is not None:
+            return self._matvec_dot_fn(self.operand, p_padded)
         ap = self._matvec_fn(self.operand, p_padded)
         return ap, vdot(p_padded, ap)
 
@@ -328,6 +346,17 @@ class LinearOperator:
                 "buffers would double the matrix footprint on the device")
         return _cg_ir_loop(op32.matvec_dot, self.matvec_dot, b_padded,
                            max_iters, rel_error, max_cycles, inner_floor)
+
+
+class MatrixFreeOperator(LinearOperator):
+    """Operator from an arbitrary matvec function (e.g. a stencil), as
+    lam_tpu's (lam_tpu/solver/operators.py:604-616): the heat demo's f64
+    5-point Laplacian, with no matrix stored and no padding."""
+
+    def __init__(self, matvec_fn, operand, n, vector_dtype=torch.float64,
+                 device="cuda"):
+        super().__init__(matvec_fn, operand, n, n, vector_dtype,
+                         resolve_device(device))
 
 
 class DenseOperator(LinearOperator):

@@ -11,14 +11,17 @@ are the main path's: tb=512 tiles, n=2048 (4 row tiles) and n=10240
 read the port's own fq pack, stored padded (T=10 -> 16 tiles at n=2048,
 T=210 -> 216 at n=10240); the dfq kernel the port's own dfq pack (exactly
 T tiles). The dense kernels take the full square and a row block of a
-matrix that is not symmetric.
+matrix that is not symmetric. The stencil kernel takes padded grids up
+to the heat demo's 998 x 1198 interior (1024 x 1280), with zero edges and
+with the non-zero edge rows of a row-sharded grid.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from lam_tpu_torch.ops import gemv, layout
+from lam_tpu_torch import ops
+from lam_tpu_torch.ops import gemv, layout, stencil
 from lam_tpu_torch.precision import split_f64_host
 from lam_tpu_torch.solver.operators import _host_pack_tri
 
@@ -288,3 +291,88 @@ def test_dense_kernel_rejects_unaligned_operand():
     p = torch.zeros(1025, device="cuda")[1:]
     with pytest.raises(ValueError, match="aligned"):
         gemv.gemv_f32(a, p)
+
+
+def _stencil_oracle(p, up, dn, nrows, nxi):
+    """The masked 5-point Laplacian and p . y in float64 on the card."""
+    g = p.double()
+    full = 4 * g
+    full[1:] -= g[:-1]
+    full[0] -= up[0].double()
+    full[:-1] -= g[1:]
+    full[-1] -= dn[0].double()
+    full[:, 1:] -= g[:, :-1]
+    full[:, :-1] -= g[:, 1:]
+    y = torch.zeros_like(full)
+    y[:nrows, :nxi] = full[:nrows, :nxi]
+    return y, float((g * y).sum())
+
+
+def _check_stencil_kernel(p, up, dn, nrows, nxi, tbr):
+    ops.reset_counters()
+    y, d = stencil.laplace5_f32_halo(p, up, dn, nrows, nxi=nxi, tbr=tbr)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts["laplace5_f32_halo"] == 1
+    assert counts["laplace5_f32_halo_plain"] == 0
+    assert y.shape == p.shape and d.dim() == 0 and d.is_cuda
+    y_plain, d_plain = stencil.laplace5_f32_halo_plain(p, up, dn, nrows,
+                                                       nxi=nxi)
+    # 4p is exact, so the fused first term rounds as the plain version's
+    # two steps do; the other three terms in the same order: bitwise
+    assert torch.equal(y, y_plain)
+    assert torch.count_nonzero(y[nrows:]) == 0
+    assert torch.count_nonzero(y[:, nxi:]) == 0
+    y64, d64 = _stencil_oracle(p, up, dn, nrows, nxi)
+    assert float((y.double() - y64).abs().max()) <= 1e-5
+    # the dot: the kernel's f64 partials against an f32 sum and f64
+    assert abs(float(d) - float(d_plain)) <= 1e-6 * abs(float(d_plain))
+    assert abs(float(d) - d64) <= 1e-6 * abs(d64)
+    # fixed-order partial sums: bitwise repeatable
+    y2, d2 = stencil.laplace5_f32_halo(p, up, dn, nrows, nxi=nxi, tbr=tbr)
+    assert torch.equal(y, y2) and torch.equal(d, d2)
+
+
+@pytest.mark.parametrize("nyi,nxi", [(7, 5), (98, 118), (998, 1198)])
+def test_laplace5_kernel_matches_plain(nyi, nxi):
+    H, W, tbr = stencil.padded_hw(nyi, nxi)
+    rng = np.random.default_rng(nyi + nxi)
+    p = torch.zeros(H, W, device="cuda")
+    p[:nyi, :nxi] = torch.from_numpy(
+        rng.standard_normal((nyi, nxi)).astype(np.float32)).cuda()
+    zero = torch.zeros(1, W, device="cuda")
+    _check_stencil_kernel(p, zero, zero, nyi, nxi, tbr)
+    ops.reset_counters()
+    y, _ = stencil.laplace5_f32(p, nyi=nyi, nxi=nxi, tbr=tbr)
+    assert ops.counters()["laplace5_f32_halo"] == 1
+    assert torch.equal(y, stencil.laplace5_f32_halo_plain(
+        p, zero, zero, nyi, nxi=nxi)[0])
+
+
+@pytest.mark.parametrize("nrows,nxi", [(1000, 1198), (1024, 1280)])
+def test_laplace5_kernel_halo_matches_plain(nrows, nxi):
+    """The demo's grid as one shard of a row-sharded grid: non-zero edge
+    rows, a row limit below H (up_edge live) or at H (dn_edge live), p
+    non-zero everywhere."""
+    H, W, tbr = 1024, 1280, 256
+    rng = np.random.default_rng(nrows)
+    p, up, dn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .cuda() for s in ((H, W), (1, W), (1, W)))
+    _check_stencil_kernel(p, up, dn, nrows, nxi, tbr)
+
+
+def test_laplace5_kernel_rejects_bad_inputs():
+    p = torch.zeros(64, 128, device="cuda")
+    e = torch.zeros(1, 128, device="cuda")
+    with pytest.raises(ValueError, match="float32"):
+        stencil.laplace5_f32_halo(p.double(), e, e, 64, nxi=128, tbr=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil.laplace5_f32_halo(torch.zeros(128, 64, device="cuda").t(),
+                                  e, e, 64, nxi=128, tbr=64)
+    with pytest.raises(ValueError, match="multiple"):
+        stencil.laplace5_f32_halo(torch.zeros(100, 128, device="cuda"), e, e,
+                                  100, nxi=128, tbr=64)
+    with pytest.raises(ValueError, match="aligned"):
+        stencil.laplace5_f32_halo(
+            p, torch.zeros(129, device="cuda")[1:].reshape(1, 128), e, 64,
+            nxi=128, tbr=64)
