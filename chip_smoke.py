@@ -5,10 +5,10 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the seven kernels against its plain PyTorch version at
-   the main path's shape, N=10000 padded to 10240 (20 row tiles of 512,
-   210 packed tiles; the fq planes stored padded to 216), on one random
-   symmetric matrix:
+2. Holds each of the twelve kernels against its plain PyTorch version at
+   the main path's shapes. The eight one-device kernels at N=10000 padded
+   to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
+   padded to 216), on one random symmetric matrix:
    - gemv_f32_symm, gemv_q16_symm and the dense gemv_f32 (the full
      10240^2 f32 square) and their plain versions agree to a relative
      l2 of 1e-5 and match a float64 oracle of their stored values to
@@ -20,13 +20,26 @@
    - padding rows of y are exactly 0; the dense and dfq kernels repeat
      bitwise.
    The fq and dfq planes are the port's own packs of the matrix with its
-   diagonal zeroed. Prints each kernel's median time per call, its plain
-   version's and, where one PyTorch call computes the same function
-   (torch.mv on the full f32 or f64 square), that call's (CUDA events
-   around batches of back-to-back calls, taken in turns and enqueued
-   behind a device-side spin so the host's launch rate cannot gap them),
-   the GB/s of the bytes moved and the bound: the larger of those bytes
-   at 3.35 TB/s and the flops at the H100's f32 or f64 peak.
+   diagonal zeroed. The four kernels of the sharded backends at the
+   shards of another random symmetric N=10000 matrix, each rank's part
+   built by the port's own operators without a process group: the ring's
+   gemv_f32_cols/gemv_df64_cols at G=2 (m=5120 rows of 10240, every block
+   of nb=5120), the band-pair gemv_f32_symm_slab/gemv_df64_symm_slab at
+   G=2 (tb=512, T=105 tiles a rank, ms=5120) and G=4 (n=12288, T=75),
+   slab and packed, every rank's tables; f32 to 1e-5, df64 to an f64
+   oracle at 1e-13, bitwise repeats; and the shards' parts summed (ring
+   blocks into rows; the slab parts placed by _scatter_bands) against the
+   one-device kernels gemv_f32/gemv_df64/gemv_f32_symm/gemv_df64_symm on
+   the same matrix, padding rows exactly 0. Prints each kernel's median
+   time per call, its plain version's and, where one PyTorch call
+   computes the same function (torch.mv on the full f32 or f64 square, or
+   on the strided column view for the ring's kernels; for the slab walks,
+   for scale only, torch.mv over the rank's (2m, n) slab of full rows,
+   twice the bytes), that call's (CUDA events around batches of
+   back-to-back calls, taken in turns and enqueued behind a device-side
+   spin so the host's launch rate cannot gap them), the GB/s of the bytes
+   moved and the bound: the larger of those bytes at 3.35 TB/s and the
+   flops at the H100's f32 or f64 peak.
 3. Writes the benchmark system (random_spd_matrix_fast(10000,
    seed=2024), random_rhs(10000, seed=2034)) in the binary format to a
    temporary directory and solves it through the port's CLI, in
@@ -56,9 +69,21 @@
    the host, the two grids within IR_F64_ATOL; Jacobi at 120 x 100, whose
    sweep count and grid must equal a literal numpy loop; and the
    `lam-heat-to-bmp` converter on the ir grid, a (1000, 1200, 3) image.
+5. Solves the benchmark system through the port's CLI with --backend
+   sharded, G rank processes of this script (`--rank r ...`, started with
+   subprocess, each killed if its cluster outlives CLUSTER_TIMEOUT_S)
+   sharing the one card over gloo, each running lam_tpu_torch.cli.main in
+   process: ring-ir, gather-df64, slab-ir and packed-ir at G=2, ring-ir-4
+   and packed-ir-4 at G=4 (SHARDED_RUNS). Each run must converge with a
+   TRUE relative residual <= 2e-9 on the host from rank 0's solution
+   file, x within 1e-6 relative of phase 3's one-device ir x, its kernels
+   launched and the others not in every rank, no plain version, one CSV
+   row (rank 0's) with procs = G, and the mesh must report gloo with every
+   rank on cuda:0. G ranks on one card measure the sharded program, not
+   multi-GPU scaling.
 
 Prints {"kernels": [...]} on the line before the last (each kernel's
-launches summed over the phase-3 and phase-4 runs) and, as the last line,
+launches summed over the runs of phases 3-5, every rank's) and, as the last line,
 {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and no
 result line. Without a CUDA device it exits 1 at once.
 """
@@ -114,6 +139,27 @@ RUNS = (("ir", ("gemv_f32_symm", "gemv_df64_symm"), ()),
         ("df64-pallas", ("gemv_df64",), ("gemv_df64_symm",)))
 # precisions run with --pack-cache -> the storage their cache holds
 PACK_CACHE = {"irfq": "fq", "irq": "dfq"}
+SHARD_G = (2, 4)     # rank counts of the sharded checks and runs
+_RING = ("gemv_f32_cols", "gemv_df64_cols")
+_SLAB = ("gemv_f32_symm_slab", "gemv_df64_symm_slab")
+_TRI = ("gemv_f32_symm", "gemv_df64_symm")
+# phase 5: (run, ranks, CLI flags, kernels it must launch, kernels it must
+# not launch)
+SHARDED_RUNS = (
+    ("ring-ir", 2, ["--precision", "ir", "--comm", "ring"], _RING,
+     ("gemv_f32", "gemv_df64")),
+    ("gather-df64", 2, ["--precision", "df64", "--comm", "gather"],
+     ("gemv_df64",), _RING),
+    ("slab-ir", 2, ["--precision", "ir", "--engine", "pallas_symm"], _SLAB,
+     _TRI),
+    ("packed-ir", 2, ["--precision", "ir", "--engine",
+                      "pallas_symm_packed"], _SLAB, _TRI),
+    ("ring-ir-4", 4, ["--precision", "ir", "--comm", "ring"], _RING,
+     ("gemv_f32", "gemv_df64")),
+    ("packed-ir-4", 4, ["--precision", "ir", "--engine",
+                        "pallas_symm_packed"], _SLAB, _TRI))
+CLUSTER_TIMEOUT_S = 300  # a cluster that takes longer is killed: a hang
+X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
 
 def _rel(y, ref):
@@ -443,6 +489,258 @@ def dfq_kernel_vs_plain(gemv, layout, dfq, a_dev, ph, pl):
         (hi, loq, sc, ph, pl, yh, yl), 2 * (nblk * tb) ** 2, "f64")
 
 
+def _shard_system():
+    """The matrix of the shard kernels' checks: a random symmetric N x N
+    f64 matrix and an operand vector p, from a numpy seed."""
+    rng = np.random.default_rng(13)
+    m = rng.uniform(-1, 1, size=(N, N))
+    a = m + m.T
+    del m
+    return a, rng.uniform(-1, 1, size=N)
+
+
+def _pair(p, n_p):
+    """p zero-padded to n_p, on the card: (hi, lo, hi + lo in f64)."""
+    v = np.zeros(n_p)
+    v[:p.shape[0]] = p
+    hi = torch.from_numpy(v.astype(np.float32)).cuda()
+    lo = torch.from_numpy((v - hi.cpu().numpy()).astype(np.float32)).cuda()
+    return hi, lo, hi.double() + lo.double()
+
+
+def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
+    """Phase 2, the ring's column-block kernels at the row shards of G=2
+    on the N=10000 system (m=5120 rows of n=10240, blocks of nb=5120):
+    every rank's rows against every block, then each rank's blocks summed
+    in the ring's order, which must give the single-device dense kernels'
+    matvec of the whole square."""
+    g = SHARD_G[0]
+    shards = [pcg.ShardedDenseOperator.from_row_block_fn(
+        lambda s, k: a[s:s + k], N, mesh=Mesh(c, g, "cuda"),
+        precision="df64") for c in range(g)]
+    n_p, m = shards[0].n_padded, shards[0].m
+    ph, pl, p64 = _pair(p, n_p)
+    ring32 = torch.empty(n_p, device="cuda")
+    ring64 = torch.empty(n_p, dtype=torch.float64, device="cuda")
+    errs32, errs64, diff32, diff64 = [], [], 0.0, 0.0
+    for c, op in enumerate(shards):
+        hi, lo = op.operand
+        a64 = hi.double() + lo.double()
+        acc32 = torch.zeros(m, device="cuda")
+        acc64 = torch.zeros(m, dtype=torch.float64, device="cuda")
+        for s in range(g):
+            blk = (c + s) % g
+            cols = slice(blk * m, (blk + 1) * m)
+            y = gemv.gemv_f32_cols(hi, ph[cols], blk)
+            y_plain = gemv.gemv_f32_cols_plain(hi, ph[cols], blk)
+            oracle = torch.mv(hi[:, cols].double(), ph[cols].double())
+            _check(torch.equal(y, gemv.gemv_f32_cols(hi, ph[cols], blk)),
+                   "gemv_f32_cols not repeatable")
+            errs32 += [_rel(y, y_plain), _rel(y.double(), oracle)]
+            diff32 = max(diff32, float((y - y_plain).abs().max()))
+            yh, yl = gemv.gemv_df64_cols(hi, lo, ph[cols], pl[cols], blk)
+            qh, ql = gemv.gemv_df64_cols_plain(hi, lo, ph[cols], pl[cols],
+                                               blk)
+            y64 = yh.double() + yl.double()
+            q64 = qh.double() + ql.double()
+            zh, zl = gemv.gemv_df64_cols(hi, lo, ph[cols], pl[cols], blk)
+            _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+                   "gemv_df64_cols not repeatable")
+            errs64 += [_rel(y64, q64),
+                       _rel(y64, torch.mv(a64[:, cols], p64[cols]))]
+            diff64 = max(diff64, float((y64 - q64).abs().max()))
+            acc32 += y
+            acc64 += y64
+        ring32[c * m:(c + 1) * m] = acc32
+        ring64[c * m:(c + 1) * m] = acc64
+        del a64
+    print(f"gemv_f32_cols  G={g}, {g} ranks x {g} blocks of ({m}, {m}) in "
+          f"({m}, {n_p}): rel l2 kernel-plain / kernel-f64 max "
+          f"{max(errs32):.3e} (<= 1e-5)")
+    print(f"gemv_df64_cols G={g}: rel l2 kernel-plain / kernel-f64 max "
+          f"{max(errs64):.3e} (<= 1e-13)")
+    _check(max(errs32) <= 1e-5, "gemv_f32_cols disagrees")
+    _check(max(errs64) <= 1e-13, "gemv_df64_cols disagrees")
+    # the ranks' ring sums against the one-device kernels on the square
+    hi_sq = torch.cat([op.operand[0] for op in shards])
+    lo_sq = torch.cat([op.operand[1] for op in shards])
+    y_one = gemv.gemv_f32(hi_sq, ph)
+    yh, yl = gemv.gemv_df64(hi_sq, lo_sq, ph, pl)
+    del lo_sq
+    e32, e64 = _rel(ring32, y_one), _rel(ring64, yh.double() + yl.double())
+    print(f"ring sums of the G={g} shards vs the one-device kernels: "
+          f"gemv_f32 rel l2 {e32:.3e} (<= 1e-5), gemv_df64 {e64:.3e} "
+          "(<= 1e-13)")
+    _check(e32 <= 1e-5 and e64 <= 1e-13,
+           "the ring's column blocks do not add up to the dense matvec")
+    _check(int(torch.count_nonzero(ring32[N:])) == 0
+           and int(torch.count_nonzero(ring64[N:])) == 0,
+           "ring padding rows != 0")
+    del hi_sq
+    # timed: rank 0's rows against block 1, beside torch.mv on the same
+    # strided column view
+    hi, lo = shards[0].operand
+    cols = slice(m, 2 * m)
+    p_blk, pl_blk = ph[cols].clone(), pl[cols].clone()
+    y = gemv.gemv_f32_cols(hi, p_blk, 1)
+    out = [_timed_entry(
+        "gemv_f32_cols", "lam_tpu/ops/gemv.py:216", DENSE_SOURCE, diff32,
+        (lambda: gemv.gemv_f32_cols(hi, p_blk, 1),
+         lambda: gemv.gemv_f32_cols_plain(hi, p_blk, 1),
+         lambda: torch.mv(hi[:, cols], p_blk)),
+        (hi[:, cols], p_blk, y), 2 * m * m, "f32")]
+    a64 = hi.double() + lo.double()
+    p64_blk = p_blk.double() + pl_blk.double()
+    yh, yl = gemv.gemv_df64_cols(hi, lo, p_blk, pl_blk, 1)
+    out.append(_timed_entry(
+        "gemv_df64_cols", "lam_tpu/ops/gemv.py:761", DENSE_SOURCE, diff64,
+        (lambda: gemv.gemv_df64_cols(hi, lo, p_blk, pl_blk, 1),
+         lambda: gemv.gemv_df64_cols_plain(hi, lo, p_blk, pl_blk, 1),
+         lambda: torch.mv(a64[:, cols], p64_blk)),
+        (hi[:, cols], lo[:, cols], p_blk, pl_blk, yh, yl), 2 * m * m,
+        "f64"))
+    return out
+
+
+def _slab_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
+    """The slab kernels over every rank's walk of one band-pair geometry
+    against their plain versions and an f64 oracle, and the ranks' parts
+    placed and summed against the one-device triangle kernels' results
+    `one` (f32 y, f64 y) on the whole triangle. Returns the largest
+    kernel-plain differences (f32, df64)."""
+    g, m, tb, packed = ops_[0].mesh.size, ops_[0].m, ops_[0].tb, \
+        ops_[0].packed
+    label = f"G={g} {'packed' if packed else 'slab'}"
+    sum32 = torch.zeros_like(ph)
+    sum64 = torch.zeros_like(p64)
+    errs32, errs64, diff32, diff64 = [], [], 0.0, 0.0
+    for c, op in enumerate(ops_):
+        hi, lo, it, kt, lt = op.operand
+        yd, yt = gemv.gemv_f32_symm_slab(hi, ph, it, kt, lt, ms=2 * m,
+                                         packed=packed)
+        qd, qt = gemv.gemv_f32_symm_slab_plain(hi, ph, it, kt, lt,
+                                               ms=2 * m, packed=packed)
+        od, ot = gemv._slab_parts(hi.double(), ph.double(), it, kt, lt,
+                                  2 * m, tb, packed)
+        y, q = torch.cat([yd, yt]), torch.cat([qd, qt])
+        errs32 += [_rel(y, q), _rel(y.double(), torch.cat([od, ot]))]
+        diff32 = max(diff32, float((y - q).abs().max()))
+        zd, zt = gemv.gemv_f32_symm_slab(hi, ph, it, kt, lt, ms=2 * m,
+                                         packed=packed)
+        _check(torch.equal(yd, zd) and torch.equal(yt, zt),
+               f"gemv_f32_symm_slab {label} not repeatable")
+        sum32 += pcg_symm._scatter_bands(yd, yt, c, g, m)
+        outs = gemv.gemv_df64_symm_slab(hi, lo, ph, pl, it, kt, lt,
+                                        ms=2 * m, packed=packed)
+        plain = gemv.gemv_df64_symm_slab_plain(hi, lo, ph, pl, it, kt, lt,
+                                               ms=2 * m, packed=packed)
+        od, ot = gemv._slab_parts(hi.double() + lo.double(), p64, it, kt,
+                                  lt, 2 * m, tb, packed)
+        y = torch.cat([outs[0].double() + outs[1].double(),
+                       outs[2].double() + outs[3].double()])
+        q = torch.cat([plain[0].double() + plain[1].double(),
+                       plain[2].double() + plain[3].double()])
+        errs64 += [_rel(y, q), _rel(y, torch.cat([od, ot]))]
+        diff64 = max(diff64, float((y - q).abs().max()))
+        again = gemv.gemv_df64_symm_slab(hi, lo, ph, pl, it, kt, lt,
+                                         ms=2 * m, packed=packed)
+        _check(all(torch.equal(u, v) for u, v in zip(outs, again)),
+               f"gemv_df64_symm_slab {label} not repeatable")
+        sum64 += pcg_symm._scatter_bands(y[:2 * m], y[2 * m:], c, g, m)
+    n1 = one[0].shape[0]
+    e32, e64 = _rel(sum32[:n1], one[0]), _rel(sum64[:n1], one[1])
+    print(f"slab walk {label} (tb={tb}, ms={2 * m}, n={ph.shape[0]}, "
+          f"T={ops_[0].operand[2].shape[0]} tiles a rank): rel l2 "
+          f"kernel-plain / kernel-f64 max f32 {max(errs32):.3e} (<= 1e-5), "
+          f"df64 {max(errs64):.3e} (<= 1e-13); ranks' parts summed vs the "
+          f"one-device kernels: gemv_f32_symm {e32:.3e} (<= 1e-5), "
+          f"gemv_df64_symm {e64:.3e} (<= 1e-13)")
+    _check(max(errs32) <= 1e-5, f"gemv_f32_symm_slab {label} disagrees")
+    _check(max(errs64) <= 1e-13, f"gemv_df64_symm_slab {label} disagrees")
+    _check(e32 <= 1e-5 and e64 <= 1e-13,
+           f"{label}: the ranks' parts do not add up to the matvec")
+    _check(int(torch.count_nonzero(sum32[N:])) == 0
+           and int(torch.count_nonzero(sum64[N:])) == 0,
+           f"{label}: padding rows != 0")
+    return diff32, diff64
+
+
+def slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, pack_planes, a, p):
+    """Phase 2, the band-pair walk kernels at the shards of G=2 (tb=512,
+    mt=5, T=105 tiles a rank, ms=5120, n=10240) and G=4 (n=12288, T=75),
+    slab and packed, every rank's tables."""
+    tb = layout.SYMM_TB
+    n1 = layout.padded_size(N, tb)
+    tri_hi, tri_lo = (torch.from_numpy(x).cuda()
+                      for x in pack_planes(a, "df64", tb))
+    ph1, pl1, _ = _pair(p, n1)
+    yh, yl = gemv.gemv_df64_symm(tri_hi, tri_lo, ph1, pl1)
+    one = (gemv.gemv_f32_symm(tri_hi, ph1), yh.double() + yl.double())
+    del tri_lo
+    del tri_hi
+    diffs = [0.0, 0.0]
+    timed = {}
+    for g in SHARD_G:
+        for packed in (False, True):
+            ops_ = [pcg_symm.SymmShardedOperator.from_row_block_fn(
+                lambda s, k: a[s:s + k], N, mesh=Mesh(c, g, "cuda"),
+                packed=packed) for c in range(g)]
+            ph, pl, p64 = _pair(p, ops_[0].n_padded)
+            d32, d64 = _slab_case(gemv, pcg_symm, ops_, ph, pl, p64, one)
+            diffs = [max(diffs[0], d32), max(diffs[1], d64)]
+            if g == SHARD_G[0]:
+                timed[packed] = (ops_[0], ph, pl, p64)
+            del ops_
+            torch.cuda.empty_cache()
+    # timed: rank 0 of G=2, packed (the entry) and slab; beside torch.mv
+    # over the rank's (2m, n) slab of full rows, twice the bytes
+    op, ph, pl, p64 = timed[True]
+    slab = timed[False][0]
+    hi, lo, it, kt, lt = op.operand
+    ms = 2 * op.m
+    T = it.shape[0]
+    flops = 2 * tb * tb * (T + int((kt < it).sum()))
+    sh, sl = slab.operand[:2]
+    s64 = sh.double() + sl.double()
+    yd, yt = gemv.gemv_f32_symm_slab(hi, ph, it, kt, lt, ms=ms, packed=True)
+    out = [_timed_entry(
+        "gemv_f32_symm_slab", "lam_tpu/ops/gemv.py:552", SYMM_SOURCE,
+        diffs[0],
+        (lambda: gemv.gemv_f32_symm_slab(hi, ph, it, kt, lt, ms=ms,
+                                         packed=True),
+         lambda: gemv.gemv_f32_symm_slab_plain(hi, ph, it, kt, lt, ms=ms,
+                                               packed=True),
+         lambda: torch.mv(sh, ph)), (hi, ph, it, kt, lt, yd, yt), flops,
+        "f32")]
+    outs = gemv.gemv_df64_symm_slab(hi, lo, ph, pl, it, kt, lt, ms=ms,
+                                    packed=True)
+    out.append(_timed_entry(
+        "gemv_df64_symm_slab", "lam_tpu/ops/gemv.py:1267", SYMM_SOURCE,
+        diffs[1],
+        (lambda: gemv.gemv_df64_symm_slab(hi, lo, ph, pl, it, kt, lt, ms=ms,
+                                          packed=True),
+         lambda: gemv.gemv_df64_symm_slab_plain(hi, lo, ph, pl, it, kt, lt,
+                                                ms=ms, packed=True),
+         lambda: torch.mv(s64, p64)), (hi, lo, ph, pl, it, kt, lt, *outs),
+        flops, "f64"))
+    # the slab storage walks the same tiles in place (no library call)
+    sit, skt, slt = slab.operand[2:]
+    _timed_entry(
+        "f32 slab walk", "lam_tpu/ops/gemv.py:552", SYMM_SOURCE, diffs[0],
+        (lambda: gemv.gemv_f32_symm_slab(sh, ph, sit, skt, slt, ms=ms),
+         lambda: gemv.gemv_f32_symm_slab_plain(sh, ph, sit, skt, slt,
+                                               ms=ms), None),
+        (hi, ph, it, kt, lt, yd, yt), flops, "f32")
+    _timed_entry(
+        "df64 slab walk", "lam_tpu/ops/gemv.py:1267", SYMM_SOURCE, diffs[1],
+        (lambda: gemv.gemv_df64_symm_slab(sh, sl, ph, pl, sit, skt, slt,
+                                          ms=ms),
+         lambda: gemv.gemv_df64_symm_slab_plain(sh, sl, ph, pl, sit, skt,
+                                                slt, ms=ms), None),
+        (hi, lo, ph, pl, it, kt, lt, *outs), flops, "f64")
+    return out
+
+
 def _stencil_oracle(p, up, dn, nrows, nxi):
     """The masked 5-point Laplacian and p . y in float64 on the card."""
     g = p.double()
@@ -657,64 +955,71 @@ def heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio):
     return total
 
 
-def solve_slice(ops, generate, lio, cli):
-    """Phase 3: the bench system through the port's CLI, one run per
-    entry of RUNS. Returns the kernel launches summed over the runs."""
+def bench_system(generate, lio, tmp):
+    """The benchmark system, written in the binary format into tmp:
+    (a, b, A.bin path, b.bin path)."""
     t0 = time.perf_counter()
     a = generate.random_spd_matrix_fast(N, seed=SEED_A)
     b = generate.random_rhs(N, seed=SEED_B)
     print(f"bench system N={N} generated in {time.perf_counter() - t0:.1f} s")
+    a_path, b_path = os.path.join(tmp, "A.bin"), os.path.join(tmp, "b.bin")
+    lio.write_matrix(a_path, a)
+    lio.write_matrix(b_path, b)
+    return a, b, a_path, b_path
+
+
+def solve_slice(ops, lio, cli, system, tmp):
+    """Phase 3: the bench system through the port's CLI, one run per
+    entry of RUNS. Returns the kernel launches summed over the runs and
+    the solution of the ir run."""
+    a, b, a_path, b_path = system
     bnorm = np.linalg.norm(b)
-    with tempfile.TemporaryDirectory() as tmp:
-        a_path, b_path = os.path.join(tmp, "A.bin"), os.path.join(tmp, "b.bin")
-        lio.write_matrix(a_path, a)
-        lio.write_matrix(b_path, b)
-        total = {fn.__name__: 0 for fn in ops.KERNELS}
-        xs, iters_of = {}, {}
-        for run, kernels, not_kernels in RUNS:
-            precision = run.split("-")[0]
-            x_path = os.path.join(tmp, f"x_{run}.bin")
-            argv = ["-A", a_path, "-b", b_path, "-o", x_path,
-                    "--precision", precision, "--device", "cuda"]
-            if precision in PACK_CACHE:
-                argv.append("--pack-cache")
-            if run.endswith("-pallas"):
-                argv += ["--engine", "pallas"]
-            csv = io.StringIO()
-            ops.reset_counters()
-            with contextlib.redirect_stdout(csv):
-                rc = cli.main(argv)
-            torch.cuda.synchronize()
-            counts = ops.counters()
-            line = csv.getvalue().strip()
-            print(f"{run} CSV (N,procs,threads,load_s,avg_gemv_s,"
-                  f"avg_iter_s,num_iter,err,total_cg_s): {line}")
-            _check(rc == 0, f"CLI --precision {precision} exited {rc}")
-            fields = line.split(",")
-            load_s, iters, solve_s = (float(fields[3]), int(fields[6]),
-                                      float(fields[8]))
-            x = lio.read_vector(x_path)
-            true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
-            launched = {k: v for k, v in counts.items() if v}
-            print(f"{run}: load {load_s:.3f} s, {iters} iterations, solve "
-                  f"{solve_s:.4f} s, TRUE rel residual {true_rel:.3e} "
-                  f"(<= {TRUE_GATE:g}), launches {launched}")
-            _check(iters <= 10000, f"{run} did not converge")
-            _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
-                   f"{true_rel:.3e} above {TRUE_GATE:g}")
-            for k in kernels:
-                _check(counts[k] > 0, f"{run} never launched {k}")
-            for k in not_kernels:
-                _check(counts[k] == 0, f"{run} launched {k}: the engine "
-                       "was not honoured")
-            _check(all(counts[fn.__name__] == 0 for fn in ops.PLAIN),
-                   f"a plain version ran on the {run} path")
-            for k in total:
-                total[k] += counts[k]
-            xs[run], iters_of[run] = x, iters
-        for precision, storage in PACK_CACHE.items():
-            _check(os.path.exists(f"{a_path}.{storage}pack"),
-                   f"{precision} --pack-cache wrote no A.bin.{storage}pack")
+    total = {fn.__name__: 0 for fn in ops.KERNELS}
+    xs, iters_of = {}, {}
+    for run, kernels, not_kernels in RUNS:
+        precision = run.split("-")[0]
+        x_path = os.path.join(tmp, f"x_{run}.bin")
+        argv = ["-A", a_path, "-b", b_path, "-o", x_path,
+                "--precision", precision, "--device", "cuda"]
+        if precision in PACK_CACHE:
+            argv.append("--pack-cache")
+        if run.endswith("-pallas"):
+            argv += ["--engine", "pallas"]
+        csv = io.StringIO()
+        ops.reset_counters()
+        with contextlib.redirect_stdout(csv):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        line = csv.getvalue().strip()
+        print(f"{run} CSV (N,procs,threads,load_s,avg_gemv_s,"
+              f"avg_iter_s,num_iter,err,total_cg_s): {line}")
+        _check(rc == 0, f"CLI --precision {precision} exited {rc}")
+        fields = line.split(",")
+        load_s, iters, solve_s = (float(fields[3]), int(fields[6]),
+                                  float(fields[8]))
+        x = lio.read_vector(x_path)
+        true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"{run}: load {load_s:.3f} s, {iters} iterations, solve "
+              f"{solve_s:.4f} s, TRUE rel residual {true_rel:.3e} "
+              f"(<= {TRUE_GATE:g}), launches {launched}")
+        _check(iters <= 10000, f"{run} did not converge")
+        _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
+               f"{true_rel:.3e} above {TRUE_GATE:g}")
+        for k in kernels:
+            _check(counts[k] > 0, f"{run} never launched {k}")
+        for k in not_kernels:
+            _check(counts[k] == 0, f"{run} launched {k}: the engine "
+                   "was not honoured")
+        _check(all(counts[fn.__name__] == 0 for fn in ops.PLAIN),
+               f"a plain version ran on the {run} path")
+        for k in total:
+            total[k] += counts[k]
+        xs[run], iters_of[run] = x, iters
+    for precision, storage in PACK_CACHE.items():
+        _check(os.path.exists(f"{a_path}.{storage}pack"),
+               f"{precision} --pack-cache wrote no A.bin.{storage}pack")
     for precision in PACK_CACHE:
         warm, cold = f"{precision}-warm", f"{precision}-cold"
         _check(iters_of[warm] == iters_of[cold]
@@ -722,6 +1027,169 @@ def solve_slice(ops, generate, lio, cli):
                f"{precision} from the cache differs from {precision} after "
                "a fresh pack")
     print(f"main path launches, summed over the runs: {total}")
+    return total, xs["ir"]
+
+
+def rank_main(argv):
+    """One rank of a phase-5 cluster (`chip_smoke.py --rank r --ranks G
+    --port P --jobs J --out D`): joins the process group, runs every job
+    of J through the port's CLI in process with --backend sharded, and
+    writes D/rank<r>.json with each job's exit code, output, launch
+    counts and the mesh's backend and device."""
+    import argparse
+
+    import torch.distributed as dist
+
+    from lam_tpu_torch import cli, ops
+    from lam_tpu_torch.parallel import mesh as pmesh
+
+    p = argparse.ArgumentParser()
+    for flag in ("--rank", "--ranks", "--port"):
+        p.add_argument(flag, type=int, required=True)
+    p.add_argument("--jobs", required=True)
+    p.add_argument("--out", required=True)
+    args = p.parse_args(argv)
+    address = f"127.0.0.1:{args.port}"
+    pmesh.distributed_init(address, args.ranks, args.rank, device="cuda",
+                           timeout_s=CLUSTER_TIMEOUT_S)
+    mesh = pmesh.make_mesh(device="cuda")
+    with open(args.jobs) as f:
+        jobs = json.load(f)
+    results = []
+    for job in jobs:
+        out = io.StringIO()
+        ops.reset_counters()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main(job["argv"] + [
+                "--backend", "sharded", "--device", "cuda", "--init-col",
+                "--coordinator", address, "--num-processes",
+                str(args.ranks), "--process-id", str(args.rank)])
+        torch.cuda.synchronize()
+        results.append({"run": job["run"], "rc": rc, "stdout": out.getvalue(),
+                        "counts": ops.counters(), "backend": mesh.backend,
+                        "device": str(mesh.device)})
+    with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
+        json.dump(results, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _cluster(g, jobs, tmp):
+    """Run the jobs in a cluster of g rank processes of this script on the
+    one card; returns each rank's records. Kills every rank and fails when
+    one fails or the cluster outlives CLUSTER_TIMEOUT_S."""
+    out = os.path.join(tmp, f"cluster{g}")
+    os.makedirs(out, exist_ok=True)
+    jobs_path = os.path.join(out, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    port = _free_port()
+    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(g)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+         "--ranks", str(g), "--port", str(port), "--jobs", jobs_path,
+         "--out", out], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(g)]
+    deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+    try:
+        for proc in procs:
+            proc.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for log in logs:
+            log.close()
+    codes = [proc.returncode for proc in procs]
+    if any(codes):
+        for r in range(g):
+            with open(os.path.join(out, f"rank{r}.log")) as f:
+                print(f"--- rank {r} of {g} (exit {codes[r]}):\n"
+                      + f.read()[-3000:])
+        raise AssertionError(f"the {g}-rank cluster failed: exit codes "
+                             f"{codes}")
+    records = []
+    for r in range(g):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    return records
+
+
+def sharded_runs(ops, lio, system, x_local, tmp):
+    """Phase 5: the bench system through the port's CLI with --backend
+    sharded, G rank processes on the one card over gloo, one cluster per
+    G running its entries of SHARDED_RUNS in order. Returns the kernel
+    launches summed over the runs and ranks."""
+    a, b, a_path, b_path = system
+    bnorm = np.linalg.norm(b)
+    total = {fn.__name__: 0 for fn in ops.KERNELS}
+    plain = [fn.__name__ for fn in ops.PLAIN]
+    for g in SHARD_G:
+        runs = [r for r in SHARDED_RUNS if r[1] == g]
+        jobs = [{"run": run, "argv": ["-A", a_path, "-b", b_path, "-o",
+                                      os.path.join(tmp, f"x_{run}.bin"),
+                                      *flags]}
+                for run, _, flags, _, _ in runs]
+        t0 = time.perf_counter()
+        records = _cluster(g, jobs, tmp)
+        print(f"{g}-rank cluster: {len(runs)} runs in "
+              f"{time.perf_counter() - t0:.1f} s of wall time")
+        for j, (run, _, flags, kernels, not_kernels) in enumerate(runs):
+            recs = [rank_recs[j] for rank_recs in records]
+            _check(all(rec["run"] == run and rec["rc"] == 0 for rec in recs),
+                   f"{run}: a rank's CLI failed: "
+                   f"{[rec['rc'] for rec in recs]}")
+            line = recs[0]["stdout"].strip()
+            _check(all(not rec["stdout"].strip() for rec in recs[1:]),
+                   f"{run}: a rank other than 0 printed")
+            print(f"{run} CSV (N,procs,threads,load_s,init_s,avg_gemv_s,"
+                  f"avg_iter_s,num_iter,err,total_cg_s): {line}")
+            fields = line.split(",")
+            _check(int(fields[1]) == g, f"{run}: procs {fields[1]} != {g}")
+            load_s, init_s, iters, solve_s = (
+                float(fields[3]), float(fields[4]), int(fields[7]),
+                float(fields[9]))
+            x = lio.read_vector(os.path.join(tmp, f"x_{run}.bin"))
+            true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
+            x_rel = float(np.linalg.norm(x - x_local)
+                          / np.linalg.norm(x_local))
+            meshes = sorted({(rec["backend"], rec["device"]) for rec in recs})
+            print(f"{run}: {g} ranks on {meshes}, load {load_s:.3f} s, "
+                  f"init {init_s:.3f} s, {iters} iterations, solve "
+                  f"{solve_s:.4f} s, TRUE rel residual {true_rel:.3e} "
+                  f"(<= {TRUE_GATE:g}), x vs one-device ir {x_rel:.3e} "
+                  f"(<= {X_GATE:g}), launches rank 0 "
+                  f"{ {k: v for k, v in recs[0]['counts'].items() if v} }")
+            _check(iters <= 10000, f"{run} did not converge")
+            _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
+                   f"{true_rel:.3e} above {TRUE_GATE:g}")
+            _check(x_rel <= X_GATE, f"{run}: x differs from the one-device "
+                   f"ir solve by {x_rel:.3e}")
+            _check(meshes == [("gloo", "cuda:0")],
+                   f"{run}: the mesh is {meshes}, not gloo on cuda:0")
+            for r, rec in enumerate(recs):
+                counts = rec["counts"]
+                for k in kernels:
+                    _check(counts[k] > 0, f"{run}: rank {r} never launched "
+                           f"{k}")
+                for k in not_kernels:
+                    _check(counts[k] == 0, f"{run}: rank {r} launched {k}")
+                _check(all(counts[k] == 0 for k in plain),
+                       f"{run}: a plain version ran on rank {r}")
+                for k in total:
+                    total[k] += counts[k]
+    print(f"sharded launches, summed over the runs and ranks: {total}")
     return total
 
 
@@ -734,6 +1202,8 @@ def main():
     from lam_tpu_torch import io as lio
     from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
     from lam_tpu_torch.ops import _build, gemv, layout, stencil
+    from lam_tpu_torch.parallel import pcg, pcg_symm
+    from lam_tpu_torch.parallel.mesh import Mesh
     from lam_tpu_torch.precision import split_f64_host
     from lam_tpu_torch.solver.operators import (_host_pack_planes,
                                                 _host_pack_tri)
@@ -756,15 +1226,29 @@ def main():
                                _host_pack_tri, split_f64_host)
     torch.cuda.empty_cache()
     results.append(stencil_vs_plain(stencil))
+    torch.cuda.empty_cache()
+    a, p = _shard_system()
+    results += cols_kernels_vs_plain(gemv, pcg, Mesh, a, p)
+    torch.cuda.empty_cache()
+    results += slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh,
+                                     _host_pack_planes, a, p)
+    del a
     _check(sorted(r["name"] for r in results)
            == sorted(fn.__name__ for fn in ops.KERNELS),
            "phase 2 did not hold every kernel against its plain version")
     torch.cuda.empty_cache()
-    counts = solve_slice(ops, generate, lio, cli)
-    torch.cuda.empty_cache()
-    heat_counts = heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio)
+    with tempfile.TemporaryDirectory() as tmp:
+        system = bench_system(generate, lio, tmp)
+        counts, x_ir = solve_slice(ops, lio, cli, system, tmp)
+        torch.cuda.empty_cache()
+        heat_counts = heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        shard_counts = sharded_runs(ops, lio, system, x_ir, tmp)
+        print(f"phase 5: {time.perf_counter() - t0:.1f} s")
     for r in results:
-        r["launches"] = counts[r["name"]] + heat_counts[r["name"]]
+        r["launches"] = (counts[r["name"]] + heat_counts[r["name"]]
+                         + shard_counts[r["name"]])
         _check(r["launches"] > 0, f"{r['name']} never launched on the "
                "main path")
     print(json.dumps({"kernels": results}))
@@ -775,4 +1259,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv else main())

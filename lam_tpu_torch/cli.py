@@ -1,5 +1,5 @@
 """`python -m lam_tpu_torch.cli`: the solver CLI of lam_tpu/cli.py, file
-mode on one device.
+mode, on one device or sharded over the ranks of a process group.
 
 Flags (the reference's getopt surface, file mode):
   -A <file>   read matrix                    -b <file>  read rhs
@@ -9,14 +9,23 @@ Flags (the reference's getopt surface, file mode):
   --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu (default cuda)
   --engine auto|pallas|pallas_symm_packed   (pallas: the full square)
   --pack-cache  publish/reuse the packed planes beside the matrix file
+  --backend local|sharded    --comm gather|ring    --devices N
+  --coordinator <host:port> --num-processes N --process-id i
+  --init-col    add the warm-up seconds after load_s in the CSV
 Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9.
+
+A sharded run starts one process per rank, each with the same flags and
+its own --process-id (lam_tpu/cli.py:108-120, :265-269); --device cuda
+puts rank r on cuda:{r % device_count}, --device cpu runs a CPU cluster
+over gloo. Only rank 0 prints and writes the solution.
 
 Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
-with num_iter = max_iters + 1 for an unconverged run, as the reference
-prints it. Every other lam_tpu flag (generate mode -s, positional
-arguments, --backend, --engine pallas_symm|xla, ...) raises
-NotImplementedError.
+with procs the ranks the backend uses and num_iter = max_iters + 1 for an
+unconverged run, as the reference prints it. Every other lam_tpu flag
+(generate mode -s, positional arguments, --backend sharded2d, --engine
+xla, ...) raises NotImplementedError; --local-devices (JAX's virtual CPU
+devices) has no counterpart and is refused with a message.
 """
 
 from __future__ import annotations
@@ -63,7 +72,11 @@ def build_parser():
                         "reads only the lower-triangle tiles of a "
                         "symmetric matrix; pallas stores the full square "
                         "(f32/df64/ir; any square matrix, symmetric or "
-                        "not). pallas_symm and xla are not ported yet")
+                        "not). With --backend sharded: auto/pallas split "
+                        "the rows, pallas_symm (slab) and "
+                        "pallas_symm_packed walk band pairs (df64/ir). "
+                        "pallas_symm on one device and xla are not "
+                        "ported yet")
     p.add_argument("--pack-cache", action="store_true",
                    help="File mode: publish/reuse the packed planes "
                         "beside the matrix file (<file>.dfqpack, "
@@ -73,6 +86,32 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda or cpu); cuda raises when no "
                         "card is present")
+    p.add_argument("--backend", default="local",
+                   choices=["local", "sharded", "sharded2d"],
+                   help="sharded = one rank per device of a process group "
+                        "(the reference's MPI/NCCL backends); sharded2d is "
+                        "not ported yet")
+    p.add_argument("--comm", default="gather", choices=["gather", "ring"],
+                   help="Sharded matvec communication: all_gather of p, "
+                        "or a ring of column-block matvecs")
+    p.add_argument("--devices", type=int, default=None,
+                   help="Number of mesh devices: must equal the process "
+                        "group's size (default: that size)")
+    p.add_argument("--coordinator", metavar="<host:port>", default=None,
+                   help="Multi-process mode: address of the TCP rendezvous "
+                        "of torch.distributed.init_process_group (rank 0 "
+                        "listens there). Launch one process per rank.")
+    p.add_argument("--num-processes", type=int, default=None,
+                   metavar="<int>", help="Total process count "
+                   "(multi-process mode)")
+    p.add_argument("--process-id", type=int, default=None,
+                   metavar="<int>", help="This process's rank "
+                   "(multi-process mode)")
+    p.add_argument("--local-devices", type=int, default=None,
+                   metavar="<int>", help=argparse.SUPPRESS)
+    p.add_argument("--init-col", action="store_true",
+                   help="Emit the warm-up seconds (init_s) as a CSV "
+                        "column after load_s")
     return p
 
 
@@ -93,7 +132,9 @@ def _cli_main(argv=None):
             f"lam-cg-torch: not ported yet: {' '.join(unported)}")
     if args.help:
         print("Usage: lam-cg-torch [ -A -b -o -e -i -h -v "
-              "--precision --engine --device --pack-cache ]")
+              "--precision --engine --device --pack-cache --backend --comm "
+              "--devices --coordinator --num-processes --process-id "
+              "--init-col ]")
         print("Options:")
         print("  -A <file>       Read matrix from file")
         print("  -b <file>       Read right hand side from file")
@@ -105,18 +146,60 @@ def _cli_main(argv=None):
         print("  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu")
         print("  --engine auto|pallas|pallas_symm_packed")
         print("  --pack-cache    Reuse/publish <matrix>.<storage>pack")
+        print("  --backend local|sharded  --comm gather|ring  --devices N")
+        print("  --coordinator <host:port> --num-processes N --process-id i")
         return 0
+    if args.local_devices is not None:
+        raise ValueError(
+            "--local-devices (JAX's virtual CPU devices) has no counterpart "
+            "in the port: start one process per rank with --coordinator, "
+            "--num-processes and --process-id (--device cpu for a CPU "
+            "cluster)")
+    if args.backend == "sharded2d":
+        raise NotImplementedError("lam-cg-torch: --backend sharded2d is not "
+                                  "ported yet")
 
+    import torch.distributed as dist
+
+    if args.coordinator:
+        # a caller that joined the group already (a launcher running
+        # several solves per process) keeps it; a group joined here is
+        # left here
+        owns_group = not dist.is_initialized()
+        from lam_tpu_torch.parallel.mesh import distributed_init
+        distributed_init(args.coordinator, args.num_processes,
+                         args.process_id, device=args.device)
+    elif args.num_processes is not None or args.process_id is not None:
+        raise ValueError("--num-processes and --process-id need "
+                         "--coordinator")
+    else:
+        owns_group = False
+    try:
+        rc = _solve(args)
+        if owns_group:
+            # the store's host (rank 0) must not leave while another rank
+            # still talks to it
+            dist.barrier()
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+    return rc
+
+
+def _solve(args):
     from lam_tpu_torch.solver.api import ConjugateGradient
 
-    verbose = args.verbose
+    cg = ConjugateGradient(backend=args.backend, precision=args.precision,
+                           engine=args.engine, device=args.device,
+                           pack_cache=args.pack_cache, comm=args.comm,
+                           n_devices=args.devices)
+    # rank-0-only output, like the reference's PRINT_RANK0 macros
+    rank0 = cg.rank == 0
+    verbose = args.verbose and rank0
 
     def vprint(*a):
         if verbose:
             print(*a)
-
-    cg = ConjugateGradient(precision=args.precision, engine=args.engine,
-                           device=args.device, pack_cache=args.pack_cache)
     vprint("Command line arguments:")
     vprint(f"  input_file_matrix: {args.matrix}")
     vprint(f"  input_file_rhs:    {args.rhs}")
@@ -125,6 +208,10 @@ def _cli_main(argv=None):
     vprint(f"  rel_error:         {args.rel_error:e}")
     vprint(f"  device:            {cg.device}")
     vprint(f"  precision={cg.precision} engine={cg.engine}")
+    if cg.backend == "sharded":
+        vprint(f"  backend=sharded comm={cg.comm}: {cg.mesh.size} rank(s), "
+               f"process group {cg.mesh.backend or 'none'}, rank 0 on "
+               f"{cg.device}")
     vprint("")
 
     t0 = time.perf_counter()
@@ -139,7 +226,9 @@ def _cli_main(argv=None):
     converged = cg.solve(args.max_iters, args.rel_error)
     avg_gemv = cg.measure_gemv()
     t = cg.timings
-    if verbose:
+    if not rank0:
+        pass  # every rank ran the collectives above; rank 0 reports
+    elif verbose:
         state = "Converged in" if converged else "Did not converge in"
         print(f"{state} {t['num_iters']} iterations, "
               f"relative error is {t['rel_residual']:e}")
@@ -149,8 +238,10 @@ def _cli_main(argv=None):
         print("")
         print("Writing solution to file ...")
     else:
-        print(f"{cg.n},1,1,{load_s:g},{avg_gemv:g},{t['avg_iter_s']:g},"
-              f"{t['csv_num_iters']},{t['rel_residual']:g},{t['solve_s']:g}")
+        init_col = f"{t['init_s']:g}," if args.init_col else ""
+        print(f"{cg.n},{cg.used_devices()},1,{load_s:g},{init_col}"
+              f"{avg_gemv:g},{t['avg_iter_s']:g},{t['csv_num_iters']},"
+              f"{t['rel_residual']:g},{t['solve_s']:g}")
     cg.save_result_to_file(args.output)
     vprint("Done\n")
     vprint("Finished successfully")

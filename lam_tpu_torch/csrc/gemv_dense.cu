@@ -1,16 +1,29 @@
 // Dense row-major matvec for Hopper (sm_90a): the full-square engine
-// (engine="pallas"), the only one for a matrix that is not symmetric.
+// (engine="pallas"), the only one for a matrix that is not symmetric, and
+// the row shards of the 1-D sharded backend (lam_tpu_torch/parallel/pcg.py).
 //
-//   lam_gemv_f32   replaces lam_tpu/ops/gemv.py:gemv_f32 (:143; Pallas
-//                  kernels _gemv_f32_kernel_dot and _gemv_f32_kernel_vpu,
-//                  which compute the same function)
-//   lam_gemv_df64  replaces lam_tpu/ops/gemv.py:gemv_df64 (:812; Pallas
-//                  kernel _df64_kernel_body)
+//   lam_gemv_f32        replaces lam_tpu/ops/gemv.py:gemv_f32 (:143; Pallas
+//                       kernels _gemv_f32_kernel_dot and
+//                       _gemv_f32_kernel_vpu, which compute the same
+//                       function)
+//   lam_gemv_df64       replaces lam_tpu/ops/gemv.py:gemv_df64 (:812;
+//                       Pallas kernel _df64_kernel_body)
+//   lam_gemv_f32_cols   replaces lam_tpu/ops/gemv.py:gemv_f32_cols (:216;
+//                       Pallas kernel _gemv_f32_cols_kernel): the ring's
+//                       partial matvec against one column block
+//   lam_gemv_df64_cols  replaces lam_tpu/ops/gemv.py:gemv_df64_cols (:761;
+//                       Pallas kernel _df64_cols_kernel)
 //
-// Contract: A is (m, n) row-major, m a multiple of ROWS_PER_WARP and n of
-// COLS_PER_STEP (the wrappers ask for multiples of 128, lam_tpu's rule);
-// A, p and the lo planes are 16-byte aligned. A may be a row block of a
-// larger matrix (m != n).
+// Contract: A is (m, lda) row-major, m a multiple of ROWS_PER_WARP and the
+// width n it reads of each row a multiple of COLS_PER_STEP (the wrappers
+// ask for multiples of 128, lam_tpu's rule); A, p and the lo planes are
+// 16-byte aligned. A may be a row block of a larger matrix (m != n). The
+// full-row kernels read all columns (n == lda). The column-block kernels
+// read the nb columns [blk*nb, (blk+1)*nb) of each row in place (n == nb,
+// lda the full width, A offset by blk*nb): the TPU kernel picked that
+// stripe with a scalar-prefetched block index in its index map; here the
+// block index is a host int, known when the ring step is issued, and the
+// stripe is never copied.
 //
 // What bounds it: every element of A is read exactly once, 4 B (f32) or
 // 8 B (df64: hi + lo planes), for 2 flops. At 0.5 (f32) or 0.25 (df64)
@@ -28,7 +41,9 @@
 // atomics and no second pass, so results repeat bitwise from run to run
 // (and with them CG iteration counts). The TPU kernels walked a
 // sequential (rows, cols) grid of VMEM tiles with lane accumulators; here
-// the column walk is the loop inside the warp.
+// the column walk is the loop inside the warp. A column block is the same
+// walk over a narrower width with the full row stride: each row's stripe
+// is still contiguous, so the loads stay whole 512-byte segments.
 //
 // f32: exact f32 products with f32 accumulation (no TF32, no bf16).
 // df64: on the TPU, which has no f64, the (hi, lo) float-float planes were
@@ -117,7 +132,7 @@ __device__ __forceinline__ T warp_sum(T v) {
 
 template <class Mat, class Vec, class Out>
 __global__ void __launch_bounds__(THREADS)
-dense_rows(Mat A, Vec P, Out Y, int m, int n) {
+dense_rows(Mat A, Vec P, Out Y, int m, int n, int lda) {
   using acc_t = typename Mat::acc_t;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -128,7 +143,7 @@ dense_rows(Mat A, Vec P, Out Y, int m, int n) {
 #pragma unroll
   for (int r = 0; r < ROWS_PER_WARP; ++r) acc[r] = acc_t(0);
 
-  const size_t row0 = (size_t)r0 * n;
+  const size_t row0 = (size_t)r0 * lda;
 #pragma unroll 2
   for (int c = lane * VEC; c < n; c += COLS_PER_STEP) {
     acc_t pv[VEC];
@@ -136,7 +151,7 @@ dense_rows(Mat A, Vec P, Out Y, int m, int n) {
 #pragma unroll
     for (int r = 0; r < ROWS_PER_WARP; ++r) {
       acc_t av[VEC];
-      A.load(row0 + (size_t)r * n + c, av);
+      A.load(row0 + (size_t)r * lda + c, av);
 #pragma unroll
       for (int j = 0; j < VEC; ++j) acc[r] += av[j] * pv[j];
     }
@@ -149,11 +164,19 @@ dense_rows(Mat A, Vec P, Out Y, int m, int n) {
 }
 
 template <class Mat, class Vec, class Out>
-int launch(Mat A, Vec P, Out Y, int m, int n, cudaStream_t stream) {
-  if (m % ROWS_PER_WARP || n % COLS_PER_STEP) return (int)cudaErrorInvalidValue;
+int launch(Mat A, Vec P, Out Y, int m, int n, int lda, cudaStream_t stream) {
+  if (m % ROWS_PER_WARP || n % COLS_PER_STEP || lda < n || lda % VEC)
+    return (int)cudaErrorInvalidValue;
   const int blocks = (m + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK;
-  dense_rows<Mat, Vec, Out><<<blocks, THREADS, 0, stream>>>(A, P, Y, m, n);
+  dense_rows<Mat, Vec, Out><<<blocks, THREADS, 0, stream>>>(A, P, Y, m, n, lda);
   return (int)cudaGetLastError();
+}
+
+// Element offset of column block blk of width nb in a row of n columns, or
+// -1 for a block outside the row.
+size_t column_block(int n, int nb, int blk) {
+  if (nb <= 0 || n % nb || blk < 0 || blk >= n / nb) return (size_t)-1;
+  return (size_t)blk * nb;
 }
 
 }  // namespace
@@ -162,7 +185,7 @@ int launch(Mat A, Vec P, Out Y, int m, int n, cudaStream_t stream) {
 // or cudaErrorInvalidValue for a shape outside the contract above.
 extern "C" int lam_gemv_f32(const float* a, const float* p, float* y, int m,
                             int n, void* stream) {
-  return launch(F32Mat{a}, F32Vec{p}, F32Out{y}, m, n, (cudaStream_t)stream);
+  return launch(F32Mat{a}, F32Vec{p}, F32Out{y}, m, n, n, (cudaStream_t)stream);
 }
 
 // (y_hi, y_lo) (m,) = (a_hi + a_lo) (m, n) @ (p_hi + p_lo) (n,), the f32
@@ -172,5 +195,26 @@ extern "C" int lam_gemv_df64(const float* a_hi, const float* a_lo,
                              float* y_hi, float* y_lo, int m, int n,
                              void* stream) {
   return launch(DF64Mat{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
-                DF64Out{y_hi, y_lo}, m, n, (cudaStream_t)stream);
+                DF64Out{y_hi, y_lo}, m, n, n, (cudaStream_t)stream);
+}
+
+// y (m,) = A[:, blk*nb:(blk+1)*nb] @ p_blk (nb,) for a row-major (m, n) A.
+extern "C" int lam_gemv_f32_cols(const float* a, const float* p_blk, float* y,
+                                 int m, int n, int nb, int blk, void* stream) {
+  const size_t c0 = column_block(n, nb, blk);
+  if (c0 == (size_t)-1) return (int)cudaErrorInvalidValue;
+  return launch(F32Mat{a + c0}, F32Vec{p_blk}, F32Out{y}, m, nb, n,
+                (cudaStream_t)stream);
+}
+
+// (y_hi, y_lo) (m,) = (a_hi + a_lo)[:, blk*nb:(blk+1)*nb] @ (p_hi + p_lo)
+// (nb,), the f32 split of the f64 result.
+extern "C" int lam_gemv_df64_cols(const float* a_hi, const float* a_lo,
+                                  const float* p_hi, const float* p_lo,
+                                  float* y_hi, float* y_lo, int m, int n,
+                                  int nb, int blk, void* stream) {
+  const size_t c0 = column_block(n, nb, blk);
+  if (c0 == (size_t)-1) return (int)cudaErrorInvalidValue;
+  return launch(DF64Mat{a_hi + c0, a_lo + c0}, DF64Vec{p_hi, p_lo},
+                DF64Out{y_hi, y_lo}, m, nb, n, (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
-// (sm_90a). Five kernels share one design:
+// (sm_90a). Seven kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -12,6 +12,10 @@
 //                       _gemv_q16_symm_multi_kernel)
 //   lam_gemv_fq_symm    replaces lam_tpu/ops/gemv.py:gemv_fq_symm
 //                       (_gemv_fq_symm_kernel)
+//   lam_gemv_f32_symm_slab   replaces lam_tpu/ops/gemv.py:gemv_f32_symm_slab
+//                            (:552; _gemv_f32_symm_slab_kernel)
+//   lam_gemv_df64_symm_slab  replaces lam_tpu/ops/gemv.py:gemv_df64_symm_slab
+//                            (:1267; _gemv_df64_symm_slab_kernel)
 //
 // Storage contract (lam_tpu_torch/ops/layout.py pack_tri_host): the matrix
 // is n x n with n = nblk * TB, and only its nblk(nblk+1)/2 lower-triangle
@@ -25,6 +29,15 @@
 // power-of-two scale per tile, stored padded to a multiple of 8 tiles; the
 // grid covers the T real tiles only and never reads the pad tiles.
 //
+// The slab kernels walk one rank's share of the band-pair decomposition
+// (lam_tpu_torch/parallel/pcg_symm.py) instead of the whole triangle: three
+// int32 tables give tile t's global row tile it[t], column tile kt[t] and
+// slab row tile lt[t]. The tile sits at rows t*TB of a (T*TB, TB) walk-order
+// buffer (packed) or at (lt[t]*TB, kt[t]*TB) of the rank's row-major (ms, n)
+// slab of full rows. Direct terms A p_kt go to yd (ms,) by lt, transpose
+// terms A^T p_it (kt < it only) to yt (n,) by kt; the caller places yd at the
+// rank's rows and sums the ranks' parts.
+//
 // What bounds it: a matvec does 2 (f32, q16) to 4 (df64, dfq, fq) flops
 // per stored element and reads each stored element exactly once: 2 B
 // (q16), 4 B (f32), 6 B (dfq: f32 hi + int16 lo; fq: three int16 planes)
@@ -34,6 +47,9 @@
 // per SM per clock at its byte floor, about half the card's I2F rate.
 //
 // How the design meets that:
+//  * A walk policy says where tile t lies and which block (i, k) it is: the
+//    closed-form triangle index for the whole-triangle kernels, the tables
+//    for the slab kernels. Pass 1 is the same code for both.
 //  * Pass 1 gives each (tile, 64-row strip) its own block, so T*8 blocks
 //    keep all SMs streaming (one block per 1 MB tile would leave the last
 //    wave mostly idle). Each warp walks 8 consecutive rows; each lane
@@ -49,7 +65,14 @@
 //  * Pass 2 sums, for every output row, its direct partials and the
 //    transpose partials of the tiles below it in a FIXED order. No float
 //    atomics: an order that changed from run to run would change CG
-//    iteration counts from run to run.
+//    iteration counts from run to run. For the slab kernels the tiles of
+//    an output tile are not contiguous in the walk (the transpose terms of
+//    column tile k come from every owned row tile below it), so pass 2
+//    reads two CSR lists the wrapper builds on the host once per walk:
+//    the tiles of each slab row tile (by lt) and the off-diagonal tiles of
+//    each column tile (by kt), each in walk order. A TPU grid carried yd
+//    and yt across its steps in VMEM; here the lists give the same sums in
+//    an order fixed by the tables.
 //  The TPU kernels carried the transpose sums across their sequential
 //  grid in VMEM scratch (acc_t / acct_*); Hopper's blocks run in no
 //  order, hence the two passes.
@@ -241,6 +264,38 @@ __device__ __forceinline__ int walk_row(int t) {
   return i;
 }
 
+// Walk policies: tile(t) gives the block (i, k) of walk position t, the
+// element offset of its first row and its row stride.
+struct TriangleWalk {
+  __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
+                                       int& ld) const {
+    i = walk_row(t);
+    k = t - i * (i + 1) / 2;
+    base = (size_t)t * TB * TB;
+    ld = TB;
+  }
+};
+
+struct TableWalk {
+  const int* __restrict__ it;
+  const int* __restrict__ kt;
+  const int* __restrict__ lt;
+  int n;       // row stride of the (ms, n) slab
+  int packed;  // 1: the (T*TB, TB) walk-order buffer; 0: the slab
+  __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
+                                       int& ld) const {
+    i = __ldg(it + t);
+    k = __ldg(kt + t);
+    if (packed) {
+      base = (size_t)t * TB * TB;
+      ld = TB;
+    } else {
+      base = (size_t)__ldg(lt + t) * TB * n + (size_t)k * TB;
+      ld = n;
+    }
+  }
+};
+
 template <class T>
 __device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
@@ -256,9 +311,9 @@ __device__ __forceinline__ int lane_col(int lane, int q) {
   return (q / VEC) * (32 * VEC) + lane * VEC + (q % VEC);
 }
 
-template <class Plane, class Vec>
+template <class Plane, class Vec, class Walk>
 __global__ void __launch_bounds__(THREADS)
-symm_pass1(Plane A, Vec P, typename Plane::acc_t* __restrict__ part_d,
+symm_pass1(Plane A, Vec P, Walk W, typename Plane::acc_t* __restrict__ part_d,
            typename Plane::acc_t* __restrict__ part_t) {
   using acc_t = typename Plane::acc_t;
   constexpr int VEC = Plane::VEC;
@@ -266,8 +321,9 @@ symm_pass1(Plane A, Vec P, typename Plane::acc_t* __restrict__ part_d,
 
   const int t = blockIdx.x / STRIPS;
   const int s = blockIdx.x % STRIPS;
-  const int i = walk_row(t);
-  const int k = t - i * (i + 1) / 2;
+  int i, k, ld;
+  size_t tile0;
+  W.tile(t, i, k, tile0, ld);
   const bool offdiag = k < i;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -286,7 +342,7 @@ symm_pass1(Plane A, Vec P, typename Plane::acc_t* __restrict__ part_d,
 #pragma unroll 2
   for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
     const int r = r0 + rr;
-    const size_t base = ((size_t)t * TB + r) * TB;
+    const size_t base = tile0 + (size_t)r * ld;
     acc_t a[COLS_PER_LANE];
 #pragma unroll
     for (int g = 0; g < COLS_PER_LANE / VEC; ++g)
@@ -356,15 +412,88 @@ symm_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
   }
 }
 
+// The slab walk's pass 2: yd[l*TB + r] sums part_d[t][r] over the tiles t
+// of slab row tile l (d_ids[d_ptr[l] .. d_ptr[l+1]]); yt[j*TB + c] sums
+// part_t[t][s][c] over the off-diagonal tiles t of column tile j
+// (t_ids[t_ptr[j] .. t_ptr[j+1]]) and their strips s. A block computes
+// P2_COLS consecutive outputs of yd (the first ms / P2_COLS blocks) or of
+// yt, each as P2_GROUPS strided partial sums combined in a fixed order.
+template <class acc_t, class Out>
+__global__ void __launch_bounds__(THREADS)
+slab_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
+           const int* __restrict__ d_ptr, const int* __restrict__ d_ids,
+           const int* __restrict__ t_ptr, const int* __restrict__ t_ids,
+           int ms, Out yd, Out yt) {
+  __shared__ acc_t red[P2_GROUPS][P2_COLS];
+  const int col = threadIdx.x % P2_COLS;
+  const int grp = threadIdx.x / P2_COLS;
+  const int d_blocks = ms / P2_COLS;
+  const bool direct = (int)blockIdx.x < d_blocks;  // uniform across the block
+  const int row =
+      (direct ? blockIdx.x : blockIdx.x - d_blocks) * P2_COLS + col;
+  const int tile = row / TB;
+  const int r = row % TB;
+
+  acc_t v = acc_t(0);
+  if (direct) {
+    const int end = __ldg(d_ptr + tile + 1);
+    for (int q = __ldg(d_ptr + tile) + grp; q < end; q += P2_GROUPS)
+      v += part_d[(size_t)__ldg(d_ids + q) * TB + r];
+  } else {
+    const int b = __ldg(t_ptr + tile);
+    const int n_terms = (__ldg(t_ptr + tile + 1) - b) * STRIPS;
+    for (int q = grp; q < n_terms; q += P2_GROUPS) {
+      const size_t tj = (size_t)__ldg(t_ids + b + q / STRIPS);
+      v += part_t[(tj * STRIPS + q % STRIPS) * TB + r];
+    }
+  }
+  red[grp][col] = v;
+  __syncthreads();
+  if (grp == 0) {
+    acc_t y = red[0][col];
+#pragma unroll
+    for (int g = 1; g < P2_GROUPS; ++g) y += red[g][col];
+    if (direct)
+      yd.put(row, y);
+    else
+      yt.put(row, y);
+  }
+}
+
 template <class Plane, class Vec, class Out>
 int launch(Plane A, Vec P, Out Y, typename Plane::acc_t* part_d,
            typename Plane::acc_t* part_t, int nblk, cudaStream_t stream) {
   const int T = nblk * (nblk + 1) / 2;
-  symm_pass1<Plane, Vec><<<T * STRIPS, THREADS, 0, stream>>>(A, P, part_d, part_t);
+  symm_pass1<Plane, Vec, TriangleWalk>
+      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, TriangleWalk{}, part_d, part_t);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   symm_pass2<typename Plane::acc_t, Out>
       <<<nblk * TB / P2_COLS, THREADS, 0, stream>>>(part_d, part_t, nblk, Y);
+  return (int)cudaGetLastError();
+}
+
+// The CSR lists of the slab walk's pass 2 (see slab_pass2).
+struct SlabLists {
+  const int* d_ptr;
+  const int* d_ids;
+  const int* t_ptr;
+  const int* t_ids;
+};
+
+template <class Plane, class Vec, class Out>
+int launch_slab(Plane A, Vec P, TableWalk W, SlabLists L, Out YD, Out YT,
+                typename Plane::acc_t* part_d, typename Plane::acc_t* part_t,
+                int T, int ms, cudaStream_t stream) {
+  if (T <= 0 || ms <= 0 || ms % TB || W.n <= 0 || W.n % TB)
+    return (int)cudaErrorInvalidValue;
+  symm_pass1<Plane, Vec, TableWalk>
+      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, W, part_d, part_t);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  slab_pass2<typename Plane::acc_t, Out>
+      <<<(ms + W.n) / P2_COLS, THREADS, 0, stream>>>(
+          part_d, part_t, L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, YD, YT);
   return (int)cudaGetLastError();
 }
 
@@ -420,4 +549,35 @@ extern "C" int lam_gemv_fq_symm(const short* q1, const short* q2,
   return launch(FQPlane{q1, q2, q3, s1, s2, s3, 0.0, 0.0, 0.0},
                 DF64Vec{p_hi, p_lo}, DF64Out{y_hi, y_lo}, part_d, part_t,
                 nblk, (cudaStream_t)stream);
+}
+
+// Slab walk over T tiles of one rank's band pair: a is the (T*TB, TB)
+// walk-order buffer (packed=1) or the rank's row-major (ms, n) slab
+// (packed=0); it/kt/lt the (T,) walk tables; d_ptr (ms/TB + 1,) and d_ids
+// (T,) the tiles of each slab row tile, t_ptr (n/TB + 1,) and t_ids the
+// off-diagonal tiles of each column tile, both in walk order. Outputs yd
+// (ms,) and yt (n,); scratch part_d T*TB and part_t T*STRIPS*TB elements.
+extern "C" int lam_gemv_f32_symm_slab(
+    const float* a, const float* p, const int* it, const int* kt,
+    const int* lt, const int* d_ptr, const int* d_ids, const int* t_ptr,
+    const int* t_ids, float* yd, float* yt, float* part_d, float* part_t,
+    int T, int ms, int n, int packed, void* stream) {
+  return launch_slab(F32Plane{a}, F32Vec{p}, TableWalk{it, kt, lt, n, packed},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids}, F32Out{yd},
+                     F32Out{yt}, part_d, part_t, T, ms, (cudaStream_t)stream);
+}
+
+// The df64 twin: (a_hi + a_lo) formed and walked in f64; yd and yt returned
+// as f32 (hi, lo) splits of the f64 sums.
+extern "C" int lam_gemv_df64_symm_slab(
+    const float* a_hi, const float* a_lo, const float* p_hi,
+    const float* p_lo, const int* it, const int* kt, const int* lt,
+    const int* d_ptr, const int* d_ids, const int* t_ptr, const int* t_ids,
+    float* yd_hi, float* yd_lo, float* yt_hi, float* yt_lo, double* part_d,
+    double* part_t, int T, int ms, int n, int packed, void* stream) {
+  return launch_slab(DF64Plane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
+                     TableWalk{it, kt, lt, n, packed},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+                     DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
+                     part_t, T, ms, (cudaStream_t)stream);
 }

@@ -80,6 +80,30 @@ def read_vector(path, dtype=np.float64):
     return read_matrix(path, dtype=dtype).reshape(rows)
 
 
+def read_matrix_rows(path, row_start, num_rows, dtype=np.float64):
+    """Read the row block [row_start, row_start+num_rows) of a matrix file
+    (lam_tpu/io.py:112): each rank of a sharded solve reads only its own
+    rows, the analog of the reference's per-rank MPI-IO seek and read."""
+    rows, cols = read_header(path)
+    if row_start + num_rows > rows:
+        raise ValueError(f"row block [{row_start}, {row_start + num_rows}) "
+                         f"out of range for {rows}-row matrix")
+    if _is_npy(path):
+        mm = _open_npy(path)
+        return np.ascontiguousarray(
+            np.array(mm[row_start:row_start + num_rows]).astype(
+                dtype, copy=False))
+    offset = _HEADER.size + row_start * cols * 8
+    data = np.fromfile(path, dtype=np.float64, count=num_rows * cols,
+                       offset=offset)
+    if data.size != num_rows * cols:
+        raise IOError(f"{path}: truncated payload "
+                      f"({data.size} of {num_rows * cols} elements in "
+                      f"row block [{row_start}, {row_start + num_rows}))")
+    return np.ascontiguousarray(
+        data.reshape(num_rows, cols).astype(dtype, copy=False))
+
+
 def open_matrix_memmap(path):
     """Memory-map a square f64 matrix file (.npy or the binary format)
     without reading it (lam_tpu/solver/operators.py:71-99)."""

@@ -46,6 +46,10 @@ SIGNATURES = {
     "lam_gemv_fq_symm": (_P,) * 12 + (_I, _P),
     "lam_gemv_f32": (_P, _P, _P, _I, _I, _P),
     "lam_gemv_df64": (_P,) * 6 + (_I, _I, _P),
+    "lam_gemv_f32_cols": (_P, _P, _P) + (_I,) * 4 + (_P,),
+    "lam_gemv_df64_cols": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "lam_gemv_f32_symm_slab": (_P,) * 13 + (_I,) * 4 + (_P,),
+    "lam_gemv_df64_symm_slab": (_P,) * 17 + (_I,) * 4 + (_P,),
     "lam_laplace5_blocks": (_I, _I),
     "lam_laplace5_f32_halo": (_P,) * 6 + (_I,) * 4 + (_P,),
 }

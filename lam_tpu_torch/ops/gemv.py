@@ -21,6 +21,18 @@ tiles (the pad tiles are never read). The dense ones take a row-major
     gemv_f32        <- gemv_f32 (both impls)        (gemv.py:143)
     gemv_df64       <- gemv_df64                    (gemv.py:812)
 
+The row shards of the 1-D sharded backends (lam_tpu_torch/parallel) add
+four. The ring's partial matvecs read one column block of a rank's row
+block in place; the band-pair slab walks read one rank's share of the
+triangle, steered by int32 walk tables (it, kt, lt), from its full-row
+slab or from its walk-order packed buffer, and return the direct terms
+yd over the rank's rows and the transpose terms yt over all columns:
+
+    gemv_f32_cols        <- gemv_f32_cols           (gemv.py:216)
+    gemv_df64_cols       <- gemv_df64_cols          (gemv.py:761)
+    gemv_f32_symm_slab   <- gemv_f32_symm_slab      (gemv.py:552)
+    gemv_df64_symm_slab  <- gemv_df64_symm_slab     (gemv.py:1267)
+
 On a CUDA tensor a wrapper launches the hand-written Hopper kernel of
 csrc/gemv_symm.cu or csrc/gemv_dense.cu (built at first use by
 `_build`) on the current stream, or raises. On a CPU tensor, and only
@@ -36,10 +48,31 @@ covers the stencil kernel too).
 
 from __future__ import annotations
 
+import operator
+
+import numpy as np
 import torch
 
 from lam_tpu_torch.ops import layout
 from lam_tpu_torch.precision import split_f64
+
+
+def _walk_into(yd, yt, tiles, p, it, kt, lt, scale=None):
+    """Plain walk of tiles (T, tb, tb) sitting at blocks (it, kt) of the
+    matrix, p (n,) in the tiles' dtype, tables int64: direct terms
+    A p_kt are added into the row tiles yd[lt], transpose terms A^T p_it
+    of the off-diagonal tiles into the column tiles yt[kt]. A per-tile
+    `scale` (T,) is folded into p."""
+    tb = tiles.shape[1]
+    pb = p.reshape(-1, tb)
+    pk, pi = pb[kt], pb[it]
+    if scale is not None:
+        pk, pi = pk * scale[:, None], pi * scale[:, None]
+    yd.index_add_(0, lt, torch.einsum("tij,tj->ti", tiles, pk))
+    off = torch.nonzero(kt < it).flatten()
+    if off.numel():
+        trans = torch.einsum("tij,ti->tj", tiles[off], pi[off])
+        yt.index_add_(0, kt[off], trans)
 
 
 def _walk(tiles, p, nblk, scale=None):
@@ -49,17 +82,8 @@ def _walk(tiles, p, nblk, scale=None):
     tb = tiles.shape[1]
     it, kt = (torch.as_tensor(x, dtype=torch.long, device=tiles.device)
               for x in layout._symm_tables(nblk))
-    pb = p.reshape(nblk, tb)
-    pk, pi = pb[kt], pb[it]
-    if scale is not None:
-        pk, pi = pk * scale[:, None], pi * scale[:, None]
-    direct = torch.einsum("tij,tj->ti", tiles, pk)
     y = torch.zeros(nblk, tb, dtype=p.dtype, device=p.device)
-    y.index_add_(0, it, direct)
-    off = torch.nonzero(kt < it).flatten()
-    if off.numel():
-        trans = torch.einsum("tij,ti->tj", tiles[off], pi[off])
-        y.index_add_(0, kt[off], trans)
+    _walk_into(y, y, tiles, p, it, kt, it, scale)
     return y.reshape(-1)
 
 
@@ -139,17 +163,78 @@ def gemv_df64_plain(a_hi, a_lo, p_hi, p_lo):
                               + p_lo.to(torch.float64)))
 
 
+def gemv_f32_cols_plain(a, p_blk, blk):
+    """Plain PyTorch y = A[:, blk*nb:(blk+1)*nb] @ p_blk in f32."""
+    gemv_f32_cols_plain.calls += 1
+    nb = p_blk.shape[0]
+    return torch.mv(a[:, blk * nb:(blk + 1) * nb], p_blk)
+
+
+def gemv_df64_cols_plain(a_hi, a_lo, p_hi, p_lo, blk):
+    """Plain PyTorch (y_hi, y_lo) = A[:, blk*nb:(blk+1)*nb] @ p for
+    A = a_hi + a_lo, computed in float64, returned as the f32 split."""
+    gemv_df64_cols_plain.calls += 1
+    nb = p_hi.shape[0]
+    cols = slice(blk * nb, (blk + 1) * nb)
+    a = a_hi[:, cols].to(torch.float64) + a_lo[:, cols].to(torch.float64)
+    return split_f64(torch.mv(a, p_hi.to(torch.float64)
+                              + p_lo.to(torch.float64)))
+
+
+def _slab_parts(a, p, it, kt, lt, ms, tb, packed):
+    """Plain slab walk in a's dtype: (yd (ms,), yt (n,)). `a` is the
+    (T*tb, tb) walk-order buffer (packed) or the (ms, n) slab, whose tile
+    t is then the block (lt[t], kt[t]) of its tile grid."""
+    it, kt, lt = (x.to(torch.long) for x in (it, kt, lt))
+    n = p.shape[0]
+    if packed:
+        tiles = a.reshape(-1, tb, tb)
+    else:
+        tiles = a.reshape(ms // tb, tb, n // tb, tb).permute(0, 2, 1, 3)[
+            lt, kt]
+    yd = torch.zeros(ms // tb, tb, dtype=p.dtype, device=p.device)
+    yt = torch.zeros(n // tb, tb, dtype=p.dtype, device=p.device)
+    _walk_into(yd, yt, tiles, p, it, kt, lt)
+    return yd.reshape(-1), yt.reshape(-1)
+
+
+def gemv_f32_symm_slab_plain(a_slab, p, it, kt, lt, *, ms=None,
+                             packed=False, tb=None):
+    """Plain PyTorch slab walk in f32: (yd (ms,), yt (n,))."""
+    gemv_f32_symm_slab_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_f32_symm_slab", a_slab, p, it, kt, lt,
+                            ms, packed, tb)
+    _check_walk(*_host_tables(it, kt, lt), p.shape[0] // tb, ms // tb)
+    return _slab_parts(a_slab, p, it, kt, lt, ms, tb, packed)
+
+
+def gemv_df64_symm_slab_plain(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *,
+                              ms=None, packed=False, tb=None):
+    """Plain PyTorch slab walk of A = a_hi + a_lo computed in float64:
+    (yd_hi, yd_lo, yt_hi, yt_lo), the f32 splits of yd and yt."""
+    gemv_df64_symm_slab_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_df64_symm_slab", a_hi, p_hi, it, kt, lt,
+                            ms, packed, tb)
+    _check_walk(*_host_tables(it, kt, lt), p_hi.shape[0] // tb, ms // tb)
+    a = a_hi.to(torch.float64) + a_lo.to(torch.float64)
+    p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
+    yd, yt = _slab_parts(a, p, it, kt, lt, ms, tb, packed)
+    return (*split_f64(yd), *split_f64(yt))
+
+
 _DTYPES = {"a": torch.float32, "q": torch.int16, "s": torch.float32,
-           "p": torch.float32}
+           "p": torch.float32, "t": torch.int32}
+_TABLES = ("it", "kt", "lt")
 
 
 def _check(what, tensors, device):
     """Raise ValueError unless every tensor is a contiguous tensor on
     `device` (cpu or cuda) of its kind's dtype: the planes (a*: f32;
     q* and *q, the quantized planes: int16) 2-D, the scale tables (s*:
-    f32) and vectors (p_*: f32) 1-D."""
+    f32), vectors (p*: f32) and walk tables (it, kt, lt: int32) 1-D."""
     for name, x in tensors.items():
-        kind = "q" if name.endswith("q") else name[0]
+        kind = ("t" if name in _TABLES else
+                "q" if name.endswith("q") else name[0])
         if x.dim() != (2 if kind in "aq" else 1):
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}")
         dtype = _DTYPES[kind]
@@ -466,11 +551,256 @@ def gemv_df64(a_hi, a_lo, p_hi, p_lo, *, comp=None):
     return y_hi, y_lo
 
 
+def _cols_geometry(what, a, blk, *ps):
+    """(m, n, nb) of a column-block matvec of a (m, n) matrix against
+    the (nb,) operand block(s) ps, block index blk (a host int); raises
+    lam_tpu's ValueError for a width that is not a whole number of
+    blocks, and the dense rules (multiples of 128, 16-byte aligned
+    operands) for the (m, nb) block that is read."""
+    m, n = a.shape
+    nb = ps[0].shape[0]
+    if nb == 0 or n % nb:
+        raise ValueError(f"cols={n} not divisible by block size nb={nb}")
+    if not 0 <= blk < n // nb:
+        raise ValueError(f"{what}: block index {blk} outside the "
+                         f"{n // nb} column blocks of width {nb}")
+    _dense_geometry(what, a[:, :nb], *ps)
+    return m, n, nb
+
+
+def gemv_f32_cols(a, p_blk, blk):
+    """y (m,) = A[:, blk*nb:(blk+1)*nb] @ p_blk for a row-major (m, n)
+    f32 A and p_blk (nb,) f32, n a multiple of nb; blk is a host int.
+    The kernel reads the column block in place; exact f32 products with
+    f32 accumulation (no TF32, no bf16)."""
+    what = "gemv_f32_cols"
+    _check(what, {"a": a, "p_blk": p_blk}, a.device)
+    blk = operator.index(blk)
+    m, n, nb = _cols_geometry(what, a, blk, p_blk)
+    if a.device.type == "cpu":
+        return gemv_f32_cols_plain(a, p_blk, blk)
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    y = torch.empty(m, dtype=torch.float32, device=a.device)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lam_gemv_f32_cols(a.data_ptr(), p_blk.data_ptr(),
+                                     y.data_ptr(), m, n, nb, blk, stream)
+    gemv_f32_cols.launches += 1
+    _raise_on(what, code)
+    return y
+
+
+def gemv_df64_cols(a_hi, a_lo, p_hi, p_lo, blk):
+    """(y_hi, y_lo) (m,) = A[:, blk*nb:(blk+1)*nb] @ p for a row-major
+    (m, n) A = a_hi + a_lo and the (nb,) operand block p = p_hi + p_lo;
+    blk is a host int. Formed and accumulated in native f64 and returned
+    as the f32 split."""
+    what = "gemv_df64_cols"
+    if a_lo.shape != a_hi.shape:
+        raise ValueError(f"{what}: a_lo {tuple(a_lo.shape)} and a_hi "
+                         f"{tuple(a_hi.shape)} differ")
+    if p_lo.shape != p_hi.shape:
+        raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
+                         f"{tuple(p_lo.shape)} differ")
+    _check(what, {"a_hi": a_hi, "a_lo": a_lo, "p_hi": p_hi, "p_lo": p_lo},
+           a_hi.device)
+    blk = operator.index(blk)
+    m, n, nb = _cols_geometry(what, a_hi, blk, p_hi, p_lo)
+    if a_hi.device.type == "cpu":
+        return gemv_df64_cols_plain(a_hi, a_lo, p_hi, p_lo, blk)
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    y_hi = torch.empty(m, dtype=torch.float32, device=a_hi.device)
+    y_lo = torch.empty(m, dtype=torch.float32, device=a_hi.device)
+    with torch.cuda.device(a_hi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lam_gemv_df64_cols(a_hi.data_ptr(), a_lo.data_ptr(),
+                                      p_hi.data_ptr(), p_lo.data_ptr(),
+                                      y_hi.data_ptr(), y_lo.data_ptr(), m, n,
+                                      nb, blk, stream)
+    gemv_df64_cols.launches += 1
+    _raise_on(what, code)
+    return y_hi, y_lo
+
+
+def _slab_geometry(what, a, p, it, kt, lt, ms, packed, tb):
+    """(tb, ms) of a slab walk; raises lam_tpu's ValueErrors. Packed: a
+    is (T*tb, tb) with T the tables' length and ms (the slab's row count)
+    given. Slab: a is (ms, n) and tb (default SYMM_TB) divides both."""
+    n = p.shape[0]
+    T = it.shape[0]
+    if kt.shape != it.shape or lt.shape != it.shape:
+        raise ValueError(f"{what}: walk tables it {tuple(it.shape)}, kt "
+                         f"{tuple(kt.shape)}, lt {tuple(lt.shape)} differ")
+    if packed:
+        tb = a.shape[1]
+        if tb < layout._LANES or tb & (tb - 1):
+            raise ValueError(f"{what}: packed tile width {tb} must be a "
+                             f"power-of-two multiple of {layout._LANES}")
+        if n % tb or a.shape[0] % tb:
+            raise ValueError(f"{what}: n={n} and packed rows "
+                             f"{a.shape[0]} must be multiples of tb={tb}")
+        if a.shape[0] // tb != T:
+            raise ValueError(f"packed slab has {a.shape[0] // tb} tiles but "
+                             f"the walk table has {T}")
+        if ms is None or ms % tb:
+            raise ValueError("packed slab needs ms (a multiple of tb)")
+        return tb, ms
+    tb = layout.SYMM_TB if tb is None else tb
+    ms_a, n_a = a.shape
+    if n_a != n:
+        raise ValueError(f"slab width {n_a} != p length {n}")
+    if ms is not None and ms != ms_a:
+        raise ValueError(f"{what}: ms={ms} but the slab has {ms_a} rows")
+    if tb < layout._LANES or tb & (tb - 1) or ms_a % tb or n % tb:
+        raise ValueError(
+            f"tb={tb} unusable for slab shape ({ms_a}, {n}): the tile "
+            "tables require tb to be a power-of-two multiple of 128 "
+            "dividing the band size")
+    return tb, ms_a
+
+
+def _host_tables(it, kt, lt):
+    return tuple(x.cpu().numpy().astype(np.int64) for x in (it, kt, lt))
+
+
+def _check_walk(it, kt, lt, nblk, mst):
+    """Raise ValueError unless every walk entry is a lower-triangle tile
+    of the nblk-tile grid (0 <= kt <= it < nblk) on one of the slab's mst
+    row tiles: the kernels read and write where the tables point."""
+    if it.size and (kt.min() < 0 or (kt > it).any() or it.max() >= nblk
+                    or lt.min() < 0 or lt.max() >= mst):
+        raise ValueError(f"walk tables out of range: need 0 <= kt <= it < "
+                         f"{nblk} and 0 <= lt < {mst}")
+
+
+def _csr(keys, ids, nkeys):
+    """(ptr (nkeys + 1,), ids grouped by key, walk order kept)."""
+    ptr = np.zeros(nkeys + 1, np.int64)
+    np.cumsum(np.bincount(keys, minlength=nkeys), out=ptr[1:])
+    return ptr, ids[np.argsort(keys, kind="stable")]
+
+
+def _slab_lists(it, kt, lt, nblk, mst):
+    """The second pass's lists of a slab walk, on the tables' device:
+    (d_ptr, d_ids) the tiles of each slab row tile, (t_ptr, t_ids) the
+    off-diagonal tiles of each column tile, in walk order. Built on the
+    host after checking the tables, once per set of table tensors (kept
+    on kt): the read-back synchronises once, not at every call."""
+    key = (it.data_ptr(), lt.data_ptr(), it._version, kt._version,
+           lt._version, nblk, mst)
+    got = getattr(kt, "_slab_lists", None)
+    if got is None or got[0] != key:
+        i, k, l = _host_tables(it, kt, lt)
+        _check_walk(i, k, l, nblk, mst)
+        off = np.flatnonzero(k < i)
+        lists = (*_csr(l, np.arange(i.size), mst), *_csr(k[off], off, nblk))
+        got = (key, tuple(torch.from_numpy(x.astype(np.int32)).to(kt.device)
+                          for x in lists))
+        kt._slab_lists = got
+    return got[1]
+
+
+def _slab_launch(what, lib, tb, it, kt, lt, ms, n, acc_dtype, device):
+    """(T, list pointers, part_d, part_t) of a slab kernel launch."""
+    if tb != lib.lam_symm_tile():
+        raise ValueError(f"{what}: the CUDA kernel takes tb="
+                         f"{lib.lam_symm_tile()} tiles, got tb={tb}")
+    T = it.shape[0]
+    lists = _slab_lists(it, kt, lt, n // tb, ms // tb)
+    part_d = torch.empty(T * tb, dtype=acc_dtype, device=device)
+    part_t = torch.empty(T * lib.lam_symm_strips() * tb, dtype=acc_dtype,
+                         device=device)
+    return T, [x.data_ptr() for x in lists], part_d, part_t
+
+
+def gemv_f32_symm_slab(a_slab, p, it, kt, lt, *, ms=None, packed=False,
+                       tb=None):
+    """Partial symmetric f32 matvec over one rank's band-pair walk:
+    returns (yd (ms,), yt (n,)), the direct terms over the slab's rows
+    and the transpose terms over all columns; the matvec is the sum over
+    ranks of yt plus yd placed at each rank's rows.
+
+    packed=False: a_slab is the rank's (ms, n) row-major slab of full
+    rows (only the walk's tiles are read; tb defaults to SYMM_TB).
+    packed=True: a_slab is the (T*tb, tb) walk-order buffer of those
+    tiles and ms (the slab's row count) must be given. it/kt/lt: (T,)
+    int32 tables of tile t's row tile, column tile and slab row tile.
+    Exact f32 products with f32 accumulation (no TF32, no bf16)."""
+    what = "gemv_f32_symm_slab"
+    _check(what, {"a_slab": a_slab, "p": p, "it": it, "kt": kt, "lt": lt},
+           a_slab.device)
+    tb, ms = _slab_geometry(what, a_slab, p, it, kt, lt, ms, packed, tb)
+    if a_slab.device.type == "cpu":
+        return gemv_f32_symm_slab_plain(a_slab, p, it, kt, lt, ms=ms,
+                                        packed=packed, tb=tb)
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    n = p.shape[0]
+    T, lists, part_d, part_t = _slab_launch(what, lib, tb, it, kt, lt, ms,
+                                            n, torch.float32, a_slab.device)
+    yd = torch.empty(ms, dtype=torch.float32, device=a_slab.device)
+    yt = torch.empty(n, dtype=torch.float32, device=a_slab.device)
+    with torch.cuda.device(a_slab.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lam_gemv_f32_symm_slab(
+            a_slab.data_ptr(), p.data_ptr(), it.data_ptr(), kt.data_ptr(),
+            lt.data_ptr(), *lists, yd.data_ptr(), yt.data_ptr(),
+            part_d.data_ptr(), part_t.data_ptr(), T, ms, n, int(packed),
+            stream)
+    gemv_f32_symm_slab.launches += 1
+    _raise_on(what, code)
+    return yd, yt
+
+
+def gemv_df64_symm_slab(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *, ms=None,
+                        packed=False, tb=None):
+    """The df64 twin of `gemv_f32_symm_slab` for A = a_hi + a_lo and
+    p = p_hi + p_lo: returns (yd_hi, yd_lo, yt_hi, yt_lo), formed and
+    accumulated in native f64. lam_tpu's single (tb, tb) broadcast-zero
+    lo tile of generate mode is not ported."""
+    what = "gemv_df64_symm_slab"
+    if a_lo.shape != a_hi.shape:
+        raise NotImplementedError(
+            f"{what}: lo plane {tuple(a_lo.shape)} must match the hi plane "
+            f"{tuple(a_hi.shape)}; the broadcast-zero lo tile is not "
+            "ported yet")
+    if p_lo.shape != p_hi.shape:
+        raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
+                         f"{tuple(p_lo.shape)} differ")
+    _check(what, {"a_hi": a_hi, "a_lo": a_lo, "p_hi": p_hi, "p_lo": p_lo,
+                  "it": it, "kt": kt, "lt": lt}, a_hi.device)
+    tb, ms = _slab_geometry(what, a_hi, p_hi, it, kt, lt, ms, packed, tb)
+    if a_hi.device.type == "cpu":
+        return gemv_df64_symm_slab_plain(a_hi, a_lo, p_hi, p_lo, it, kt, lt,
+                                         ms=ms, packed=packed, tb=tb)
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    n = p_hi.shape[0]
+    T, lists, part_d, part_t = _slab_launch(what, lib, tb, it, kt, lt, ms,
+                                            n, torch.float64, a_hi.device)
+    out = [torch.empty(size, dtype=torch.float32, device=a_hi.device)
+           for size in (ms, ms, n, n)]
+    with torch.cuda.device(a_hi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lam_gemv_df64_symm_slab(
+            a_hi.data_ptr(), a_lo.data_ptr(), p_hi.data_ptr(),
+            p_lo.data_ptr(), it.data_ptr(), kt.data_ptr(), lt.data_ptr(),
+            *lists, *(y.data_ptr() for y in out), part_d.data_ptr(),
+            part_t.data_ptr(), T, ms, n, int(packed), stream)
+    gemv_df64_symm_slab.launches += 1
+    _raise_on(what, code)
+    return tuple(out)
+
+
 KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
-           gemv_fq_symm, gemv_f32, gemv_df64)
+           gemv_fq_symm, gemv_f32, gemv_df64, gemv_f32_cols, gemv_df64_cols,
+           gemv_f32_symm_slab, gemv_df64_symm_slab)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
-         gemv_df64_plain)
+         gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
+         gemv_f32_symm_slab_plain, gemv_df64_symm_slab_plain)
 
 
 def reset_counters():

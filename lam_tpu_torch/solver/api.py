@@ -1,7 +1,7 @@
 """The solver facade of lam_tpu/solver/api.py, main-path subset.
 
-One device, file mode: an SPD system read from the binary format (or
-.npy) and solved by CG in one of seven precisions:
+File mode: an SPD system read from the binary format (or .npy) and
+solved by CG in one of seven precisions:
 
     'df64' f64-parity CG on the (hi, lo) pair (the default)
     'ir'   f32 inner CG on the hi plane, refined with the df64 matvec
@@ -22,6 +22,15 @@ packed planes from `<file>.<storage>pack` when that cache is usable and
 publishes a fresh pack there otherwise; the full-square engine ignores
 it with a notice.
 
+backend='local' solves on one device. backend='sharded' splits the
+system over the ranks of a torch.distributed process group, one rank per
+device (lam_tpu_torch/parallel; routed as lam_tpu/solver/api.py:154-189):
+engine 'auto' or 'pallas' with f32/df64/ir gives the row-sharded
+operator (comm 'gather' or 'ring'); 'pallas_symm' (slab) and
+'pallas_symm_packed' with df64/ir give the band-pair operator. Every
+rank calls the same methods in the same order: loads, solves and
+measurements are collective.
+
 Every other backend, precision or mode of the JAX facade raises
 NotImplementedError. The device is explicit; asking for CUDA where
 there is none raises.
@@ -34,37 +43,73 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
-from lam_tpu_torch.solver.operators import (DENSE_ENGINE, QUANT_LAYOUT,
-                                            DenseOperator, check_engine,
-                                            resolve_device)
+from lam_tpu_torch.solver.operators import (DENSE_ENGINE, ENGINES,
+                                            QUANT_LAYOUT, DenseOperator,
+                                            check_engine, resolve_device)
 
 PRECISIONS = ("df64", "ir", "f32", "dfq", "irq", "fq", "irfq")
 # refinement mode -> its storage
 _BASE = {"ir": "df64", "irq": "dfq", "irfq": "fq"}
 
 
+SYMM_ENGINES = ("pallas_symm", "pallas_symm_packed")
+
+
+def _check_sharded(precision, engine):
+    """Raise for a sharded configuration the port does not take, with
+    lam_tpu's messages (lam_tpu/solver/api.py:157-178)."""
+    base = _BASE.get(precision, precision)
+    if base in QUANT_LAYOUT:
+        raise NotImplementedError(
+            f"precision={precision!r} with backend='sharded' is not ported "
+            "yet: the dfq/fq band-pair kernels (10, 16, 17 of ROADMAP "
+            "Queue 2) are still to port")
+    if engine == "xla":
+        raise NotImplementedError(f"engine={engine!r} is not ported yet")
+    if engine not in ENGINES + ("pallas_symm",):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine in SYMM_ENGINES and base != "df64":
+        raise ValueError(
+            f"--backend sharded --engine {engine} supports precision "
+            "df64/ir/dfq/irq/fq/irfq (the df64 pair or a quantized form is "
+            "the storage layout)")
+
+
 class ConjugateGradient:
     def __init__(self, backend="local", precision="df64", engine="auto",
-                 device="cuda", pack_cache=False):
-        if backend != "local":
-            raise NotImplementedError(f"backend={backend!r} is not ported "
-                                      "yet (only 'local')")
+                 device="cuda", pack_cache=False, comm="gather",
+                 n_devices=None, mesh=None):
         if precision not in PRECISIONS:
             raise NotImplementedError(f"precision={precision!r} is not "
                                       f"ported yet (one of {PRECISIONS})")
-        check_engine(engine)
-        if (engine == DENSE_ENGINE
-                and _BASE.get(precision, precision) in QUANT_LAYOUT):
-            raise ValueError(
-                f"precision={precision!r} implies packed storage; use "
-                "engine='pallas_symm_packed' (or 'auto')")
+        if backend == "sharded":
+            _check_sharded(precision, engine)
+            if comm not in ("gather", "ring"):
+                raise ValueError(f"unknown comm strategy {comm!r}")
+            if mesh is None:
+                from lam_tpu_torch.parallel.mesh import make_mesh
+                mesh = make_mesh(n_devices, device=device)
+            self.device = mesh.device
+        elif backend == "local":
+            check_engine(engine)
+            if (engine == DENSE_ENGINE
+                    and _BASE.get(precision, precision) in QUANT_LAYOUT):
+                raise ValueError(
+                    f"precision={precision!r} implies packed storage; use "
+                    "engine='pallas_symm_packed' (or 'auto')")
+            self.device = resolve_device(device)
+        else:
+            raise NotImplementedError(f"backend={backend!r} is not ported "
+                                      "yet ('local' or 'sharded')")
         self.backend = backend
         self.precision = precision
         self.engine = engine
-        self.device = resolve_device(device)
+        self.comm = comm
+        self.mesh = mesh
         self.pack_cache = pack_cache
         self.op = None
         self.rhs = None
@@ -80,7 +125,9 @@ class ConjugateGradient:
             raise ValueError(f"{filename}: matrix must be square")
         self.n = rows
         storage = _BASE.get(self.precision, self.precision)
-        if self.engine == DENSE_ENGINE:
+        if self.backend == "sharded":
+            self.op = self._sharded_operator(filename, storage)
+        elif self.engine == DENSE_ENGINE:
             # the full square, as lam_tpu's file-mode fallback builds it
             if self.pack_cache:
                 print("lam-cg: --pack-cache only accelerates the packed "
@@ -97,6 +144,38 @@ class ConjugateGradient:
             torch.cuda.synchronize(self.device)
         self.timings["load_s"] = time.perf_counter() - t0
         return True
+
+    def _sharded_operator(self, filename, storage):
+        """This rank's part of the sharded operator, read from the file
+        (each rank reads only its own rows)."""
+        if self.pack_cache:
+            print("lam-cg: --pack-cache only accelerates "
+                  "backend=local f32/df64/ir/dfq/irq/fq/irfq and "
+                  "sharded/sharded2d dfq/irq/fq/irfq file loads; "
+                  "ignored for this backend/precision", file=sys.stderr)
+        if self.engine in SYMM_ENGINES:
+            from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator
+            return SymmShardedOperator.from_file(
+                filename, mesh=self.mesh,
+                packed=self.engine == "pallas_symm_packed")
+        from lam_tpu_torch.parallel.pcg import ShardedDenseOperator
+        return ShardedDenseOperator.from_file(
+            filename, mesh=self.mesh, precision=storage, engine=self.engine,
+            comm=self.comm)
+
+    def used_devices(self):
+        """Devices the backend uses: the CSV procs column (the mesh's
+        ranks for 'sharded', 1 for 'local')."""
+        return self.mesh.size if self.backend == "sharded" else 1
+
+    @property
+    def rank(self):
+        """This process's rank: in the mesh, else in the process group
+        when there is one (each rank of a 'local' multi-process run
+        solves alone), else 0."""
+        if self.mesh is not None:
+            return self.mesh.rank
+        return dist.get_rank() if dist.is_initialized() else 0
 
     def load_rhs_from_file(self, filename):
         b = lio.read_vector(filename)
@@ -150,10 +229,12 @@ class ConjugateGradient:
                         rel_error=rel_error)
 
     def save_result_to_file(self, filename):
-        """Write the solution (full row count) in the binary format."""
+        """Write the solution (full row count) in the binary format; with
+        several ranks only rank 0 writes, as lam_tpu's process 0 does."""
         if self.result is None:
             raise RuntimeError("solve first")
-        lio.write_matrix(filename, self.x)
+        if self.rank == 0:
+            lio.write_matrix(filename, self.x)
         return True
 
     def measure_gemv(self, repeats=20):

@@ -16,6 +16,15 @@ bitwise unchanged; p, rr and k keep their values), and the host reads
 one flag every CHUNK iterations to stop. A solve therefore runs up to
 CHUNK - 1 frozen iterations past convergence, and `num_iters` stays
 exact. The refinement loop reads one flag per cycle besides.
+
+Both loops take the reduction `dot` they use for every dot product
+(default: the one-device vdot). A row-sharded operator passes its mesh's
+dot, which all-reduces the ranks' partial sums, so each rank holds the
+same scalars and every host decision (the flag read every CHUNK
+iterations, the refinement-cycle test) is taken alike on every rank; a
+rank that decided alone would leave the others waiting in a collective.
+This replaces lam_tpu's separate per-shard loops (lam_tpu/parallel/
+pcg.py:108-156, :238-309), whose update order is the one above.
 """
 
 from __future__ import annotations
@@ -60,11 +69,11 @@ def default_inner_floor(precision):
     return IR_INNER_FLOOR
 
 
-def _cg_loop(matvec_dot, b, max_iters, rel_error):
+def _cg_loop(matvec_dot, b, max_iters, rel_error, dot=vdot):
     """CG on (possibly padded) vectors. matvec_dot(p) -> (Ap, p.Ap).
     max_iters and rel_error may be numbers or 0-dim device tensors."""
     dtype, dev = b.dtype, b.device
-    bb = vdot(b, b)
+    bb = dot(b, b)
     eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
     limit = torch.as_tensor(max_iters, device=dev)
     # x = 0, r = p = b
@@ -84,7 +93,7 @@ def _cg_loop(matvec_dot, b, max_iters, rel_error):
             alpha = torch.where(go, rr / p_ap, 0.0)
             x.addcmul_(alpha, p)
             r.addcmul_(alpha, ap, value=-1.0)
-            rr_new = vdot(r, r)
+            rr_new = dot(r, r)
             beta = rr_new / rr
             p = torch.where(go, r + beta * p, p)
             rr = torch.where(go, rr_new, rr)
@@ -108,7 +117,7 @@ def cg_solve(op, b, *, max_iters=1000, rel_error=1e-9):
 
 
 def _cg_ir_loop(matvec_dot32, matvec_dot_acc, b, max_iters, rel_error,
-                max_cycles, inner_floor):
+                max_cycles, inner_floor, dot=vdot):
     """Mixed-precision CG with iterative refinement.
 
     Outer loop (b's dtype): r = b - A x with the accurate matvec,
@@ -116,7 +125,7 @@ def _cg_ir_loop(matvec_dot32, matvec_dot_acc, b, max_iters, rel_error,
     to [floor, 0.99]; x += inner x * |r|. inner_floor may be a scalar or
     a per-cycle schedule (cycle c uses entry min(c, len-1))."""
     dtype, dev = b.dtype, b.device
-    bb = vdot(b, b)
+    bb = dot(b, b)
     eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
     floors = torch.atleast_1d(torch.as_tensor(inner_floor, dtype=dtype,
                                               device=dev))
@@ -126,10 +135,10 @@ def _cg_ir_loop(matvec_dot32, matvec_dot_acc, b, max_iters, rel_error,
     cyc = 0
 
     def rel_of(r):
-        return torch.sqrt(vdot(r, r) / bb)
+        return torch.sqrt(dot(r, r) / bb)
 
     while cyc < max_cycles and bool((k < max_iters) & (rel_of(r) >= eps)):
-        rnorm = torch.sqrt(vdot(r, r))
+        rnorm = torch.sqrt(dot(r, r))
         rel = rnorm / torch.sqrt(bb)
         # inner tolerance: enough to land under rel_error this cycle,
         # floored at what the inner operator can deliver
@@ -137,7 +146,7 @@ def _cg_ir_loop(matvec_dot32, matvec_dot_acc, b, max_iters, rel_error,
         inner_tol = torch.clamp(torch.maximum(eps / rel, floor), max=0.99)
         r32 = (r / rnorm).to(torch.float32)
         inner = _cg_loop(matvec_dot32, r32, max_iters - k,
-                         inner_tol.to(torch.float32))
+                         inner_tol.to(torch.float32), dot)
         x = x + inner.x.to(dtype) * rnorm
         r = b - matvec_dot_acc(x)[0]
         k = k + inner.num_iters

@@ -284,7 +284,11 @@ class LinearOperator:
     `matvec_fn(operand, p) -> A p`; or, for a kernel that takes the dot
     in the same pass (lam_tpu's base takes only this form,
     lam_tpu/solver/operators.py:521), `matvec_dot_fn(operand, p) ->
-    (A p, p . A p)`. Either may be None, not both."""
+    (A p, p . A p)`. Either may be None, not both. `dot` is the
+    reduction of the operator's vectors: vdot here, the mesh's
+    all-reduced dot for vectors split across ranks."""
+
+    dot = staticmethod(vdot)
 
     def __init__(self, matvec_fn, operand, n, n_padded, vector_dtype,
                  device, matvec_dot_fn=None):
@@ -309,7 +313,7 @@ class LinearOperator:
         if self._matvec_dot_fn is not None:
             return self._matvec_dot_fn(self.operand, p_padded)
         ap = self._matvec_fn(self.operand, p_padded)
-        return ap, vdot(p_padded, ap)
+        return ap, self.dot(p_padded, ap)
 
     def prepare_b(self, b):
         """Unpadded host/device vector -> padded vector on the device."""
@@ -330,11 +334,12 @@ class LinearOperator:
         v = p_padded
         for _ in range(repeats):
             w = self.matvec(v)
-            v = w / torch.sqrt(vdot(w, w))
+            v = w / torch.sqrt(self.dot(w, w))
         return v
 
     def run_cg(self, loop_fn, b_padded, max_iters, rel_error):
-        return loop_fn(self.matvec_dot, b_padded, max_iters, rel_error)
+        return loop_fn(self.matvec_dot, b_padded, max_iters, rel_error,
+                       self.dot)
 
     def run_cg_ir(self, op32, b_padded, max_iters, rel_error, max_cycles,
                   inner_floor):
@@ -345,7 +350,8 @@ class LinearOperator:
                 "the accurate operator (use op_acc.as_f32()); separate "
                 "buffers would double the matrix footprint on the device")
         return _cg_ir_loop(op32.matvec_dot, self.matvec_dot, b_padded,
-                           max_iters, rel_error, max_cycles, inner_floor)
+                           max_iters, rel_error, max_cycles, inner_floor,
+                           self.dot)
 
 
 class MatrixFreeOperator(LinearOperator):

@@ -231,7 +231,9 @@ def test_facade_solves_and_records(tmp_path, system):
 
 def test_unported_options_raise(system):
     with pytest.raises(NotImplementedError):
-        ConjugateGradient(backend="sharded", device="cpu")
+        ConjugateGradient(backend="sharded2d", device="cpu")
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        ConjugateGradient(backend="sharded", precision="irq", device="cpu")
     for engine in ("pallas_symm", "xla"):
         with pytest.raises(NotImplementedError, match=engine):
             ConjugateGradient(engine=engine, device="cpu")
@@ -260,7 +262,8 @@ def test_import_leaves_jax_out():
             "lam_tpu_torch.ops.gemv, lam_tpu_torch.ops.layout, "
             "lam_tpu_torch.solver.api, lam_tpu_torch.solver.cg, "
             "lam_tpu_torch.solver.operators, "
-            "lam_tpu_torch.solver.pack_cache; "
+            "lam_tpu_torch.solver.pack_cache, lam_tpu_torch.parallel.mesh, "
+            "lam_tpu_torch.parallel.pcg, lam_tpu_torch.parallel.pcg_symm; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lam_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -22,6 +22,8 @@ import torch
 
 from lam_tpu_torch import ops
 from lam_tpu_torch.ops import gemv, layout, stencil
+from lam_tpu_torch.parallel import mesh as pmesh
+from lam_tpu_torch.parallel import pcg, pcg_symm
 from lam_tpu_torch.precision import split_f64_host
 from lam_tpu_torch.solver.operators import _host_pack_tri
 
@@ -376,3 +378,198 @@ def test_laplace5_kernel_rejects_bad_inputs():
         stencil.laplace5_f32_halo(
             p, torch.zeros(129, device="cuda")[1:].reshape(1, 128), e, 64,
             nxi=128, tbr=64)
+
+
+# -- the 1-D sharded backends' kernels (rank by rank, no process group) ----
+
+SHARD_SIZES = [(1500, 2), (1500, 3), (10000, 2)]  # (n, ranks)
+
+
+def _shard_matrix(n, seed):
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(-1, 1, size=(n, n))
+    return m + m.T, rng.uniform(-1, 1, size=n)
+
+
+def _cuda_pair(p, n_p):
+    v = np.zeros(n_p)
+    v[:p.shape[0]] = p
+    return tuple(torch.from_numpy(x).cuda() for x in split_f64_host(v))
+
+
+@pytest.mark.parametrize("n,g", SHARD_SIZES)
+def test_cols_kernels_match_plain(n, g):
+    """Every rank's rows against every column block; the last rank's rows
+    past n are padding and must come out exactly 0."""
+    a, p = _shard_matrix(n, seed=n + g)
+    for c in range(g):
+        op = pcg.ShardedDenseOperator.from_dense(
+            a, mesh=pmesh.Mesh(c, g, "cuda"), precision="df64")
+        hi, lo = op.operand
+        m = op.m
+        ph, pl = _cuda_pair(p, op.n_padded)
+        pad = max(0, min(m, (c + 1) * m - n))  # this rank's padding rows
+        for blk in range(g):
+            cols = slice(blk * m, (blk + 1) * m)
+            ops.reset_counters()
+            y = gemv.gemv_f32_cols(hi, ph[cols], blk)
+            yh, yl = gemv.gemv_df64_cols(hi, lo, ph[cols], pl[cols], blk)
+            torch.cuda.synchronize()
+            counts = ops.counters()
+            assert counts["gemv_f32_cols"] == counts["gemv_df64_cols"] == 1
+            assert counts["gemv_f32_cols_plain"] == 0
+            y64 = yh.double() + yl.double()
+            a64 = hi[:, cols].double() + lo[:, cols].double()
+            oracle = torch.mv(a64, ph[cols].double() + pl[cols].double())
+            if not torch.any(oracle):
+                # padding only (n=1500, g=3: rank 2's rows, block 2's
+                # columns): exact zeros, where a relative error is 0/0
+                assert not torch.any(y) and not torch.any(y64)
+                continue
+            oracle32 = torch.mv(hi[:, cols].double(), ph[cols].double())
+            assert _rel(y, gemv.gemv_f32_cols_plain(hi, ph[cols], blk)) \
+                <= 1e-5
+            assert _rel(y.double(), oracle32) <= 1e-5
+            assert _rel(y64, oracle) <= 1e-13
+            qh, ql = gemv.gemv_df64_cols_plain(hi, lo, ph[cols], pl[cols],
+                                               blk)
+            assert _rel(qh.double() + ql.double(), oracle) <= 1e-13
+            if pad:
+                assert torch.count_nonzero(y[m - pad:]) == 0
+                assert torch.count_nonzero(yh[m - pad:]) == 0
+            assert torch.equal(y, gemv.gemv_f32_cols(hi, ph[cols], blk))
+            zh, zl = gemv.gemv_df64_cols(hi, lo, ph[cols], pl[cols], blk)
+            assert torch.equal(yh, zh) and torch.equal(yl, zl)
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("n,g", SHARD_SIZES)
+def test_slab_kernels_match_plain(n, g, packed):
+    """Every rank's walk; the ranks' parts, placed and summed, are the
+    matvec, exactly 0 on the padding rows."""
+    a, p = _shard_matrix(n, seed=n + 10 * g)
+    total = None
+    for c in range(g):
+        op = pcg_symm.SymmShardedOperator.from_dense(
+            a, mesh=pmesh.Mesh(c, g, "cuda"), packed=packed)
+        hi, lo, it, kt, lt = op.operand
+        ms, tb = 2 * op.m, op.tb
+        ph, pl = _cuda_pair(p, op.n_padded)
+        ops.reset_counters()
+        yd, yt = gemv.gemv_f32_symm_slab(hi, ph, it, kt, lt, ms=ms,
+                                         packed=packed)
+        outs = gemv.gemv_df64_symm_slab(hi, lo, ph, pl, it, kt, lt, ms=ms,
+                                        packed=packed)
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        assert counts["gemv_f32_symm_slab"] == 1
+        assert counts["gemv_df64_symm_slab"] == 1
+        assert counts["gemv_f32_symm_slab_plain"] == 0
+        qd, qt = gemv.gemv_f32_symm_slab_plain(hi, ph, it, kt, lt, ms=ms,
+                                               packed=packed)
+        od, ot = gemv._slab_parts(hi.double(), ph.double(), it, kt, lt, ms,
+                                  tb, packed)
+        y, q = torch.cat([yd, yt]), torch.cat([qd, qt])
+        assert _rel(y, q) <= 1e-5
+        assert _rel(y.double(), torch.cat([od, ot])) <= 1e-5
+        y64 = torch.cat([outs[0].double() + outs[1].double(),
+                         outs[2].double() + outs[3].double()])
+        od, ot = gemv._slab_parts(hi.double() + lo.double(),
+                                  ph.double() + pl.double(), it, kt, lt, ms,
+                                  tb, packed)
+        assert _rel(y64, torch.cat([od, ot])) <= 1e-13
+        again = gemv.gemv_df64_symm_slab(hi, lo, ph, pl, it, kt, lt, ms=ms,
+                                         packed=packed)
+        assert all(torch.equal(u, v) for u, v in zip(outs, again))
+        zd, zt = gemv.gemv_f32_symm_slab(hi, ph, it, kt, lt, ms=ms,
+                                         packed=packed)
+        assert torch.equal(yd, zd) and torch.equal(yt, zt)
+        part = pcg_symm._scatter_bands(y64[:ms], y64[ms:], c, g, op.m)
+        total = part if total is None else total + part
+    p64 = torch.from_numpy(p).cuda()
+    oracle = torch.mv(torch.from_numpy(a).cuda(), p64)
+    assert _rel(total[:n], oracle) <= 1e-13
+    assert torch.count_nonzero(total[n:]) == 0
+
+
+def test_slab_kernel_rejects_bad_tables():
+    op = pcg_symm.SymmShardedOperator.from_dense(
+        _shard_matrix(1500, 1)[0], mesh=pmesh.Mesh(0, 2, "cuda"), packed=True)
+    hi, lo, it, kt, lt = op.operand
+    p = torch.zeros(op.n_padded, device="cuda")
+    with pytest.raises(ValueError, match="out of range"):
+        gemv.gemv_f32_symm_slab(hi, p, it, it + 1, lt, ms=2 * op.m,
+                                packed=True)
+    with pytest.raises(ValueError, match="int32"):
+        gemv.gemv_f32_symm_slab(hi, p, it.long(), kt, lt, ms=2 * op.m,
+                                packed=True)
+    with pytest.raises(NotImplementedError, match="broadcast"):
+        gemv.gemv_df64_symm_slab(hi, lo[:512], p, p, it, kt, lt,
+                                 ms=2 * op.m, packed=True)
+
+
+def test_two_rank_gloo_solve_on_one_card(tmp_path):
+    """Two rank processes share the one card over gloo: the CLI's ring ir
+    solve and the packed band-pair ir solve run the shard kernels in both
+    ranks (no plain version) and give the one-device solution."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from lam_tpu_torch import DenseOperator, cg_solve_ir, generate
+    from lam_tpu_torch import io as tio
+
+    n = 3000
+    a = generate.random_spd_matrix_fast(n, seed=5)
+    b = generate.random_rhs(n, seed=6)
+    tio.write_matrix(tmp_path / "A.bin", a)
+    tio.write_matrix(tmp_path / "b.bin", b)
+    jobs = [{"kind": "cli", "name": "ring-ir", "argv": [
+        "-A", str(tmp_path / "A.bin"), "-b", str(tmp_path / "b.bin"),
+        "-o", str(tmp_path / "x.bin"), "--backend", "sharded",
+        "--precision", "ir", "--comm", "ring"]},
+        {"kind": "solve", "name": "packed-ir", "op": "symm",
+         "precision": "ir", "packed": True, "tb": 512,
+         "matrix": str(tmp_path / "A.bin"), "rhs": str(tmp_path / "b.bin"),
+         "rel_error": 1e-9}]
+    (tmp_path / "jobs.json").write_text(json.dumps(jobs))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(root, "tests", "torch_sharded_worker.py"),
+         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+         "--process-id", str(r), "--device", "cuda", "--jobs",
+         str(tmp_path / "jobs.json"), "--out", str(tmp_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    try:
+        logs = [proc.communicate(timeout=300)[0] for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    assert [proc.returncode for proc in procs] == [0, 0], "\n".join(logs)
+    local = DenseOperator.from_dense(a, precision="df64", device="cuda")
+    x_local = cg_solve_ir(local.as_f32(), local, b, max_iters=10000,
+                          rel_error=1e-9).x.cpu().numpy()
+    for r in range(2):
+        recs = {rec["name"]: rec for rec in json.loads(
+            (tmp_path / f"results.r{r}.json").read_text())}
+        ring, band = recs["ring-ir"], recs["packed-ir"]
+        assert ring["rc"] == 0 and band["converged"]
+        assert band["backend"] == "gloo" and band["device"] == "cuda:0"
+        for rec, kernels in ((ring, ("gemv_f32_cols", "gemv_df64_cols")),
+                             (band, ("gemv_f32_symm_slab",
+                                     "gemv_df64_symm_slab"))):
+            for k in kernels:
+                assert rec["counts"][k] > 0 and rec["counts"][k + "_plain"] == 0
+        x = np.load(tmp_path / f"packed-ir.r{r}.npy")
+        assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
+    x = tio.read_vector(tmp_path / "x.bin")
+    assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
+    assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)

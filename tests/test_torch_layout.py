@@ -97,3 +97,33 @@ def test_bad_headers_raise_like_lam_tpu(tmp_path, bad):
     with pytest.raises(IOError) as mine:
         tio.read_header(path)
     assert str(mine.value) == str(ref.value)
+
+
+@pytest.mark.parametrize("suffix", [".bin", ".npy"])
+@pytest.mark.parametrize("start,rows", [(0, 7), (5, 30), (64, 64), (127, 1)])
+def test_read_matrix_rows_byte_equal(tmp_path, suffix, start, rows):
+    """Each rank's row block, read alone (the MPI-IO analog)."""
+    a = tgen.random_spd_matrix_fast(128, seed=start + rows)
+    path = tmp_path / f"a{suffix}"
+    if suffix == ".npy":
+        np.save(path, a)
+    else:
+        tio.write_matrix(path, a)
+    mine = tio.read_matrix_rows(path, start, rows)
+    assert _same(mine, jio.read_matrix_rows(path, start, rows))
+    assert _same(mine, a[start:start + rows])
+    assert _same(tio.read_matrix_rows(path, start, rows, dtype=np.float32),
+                 jio.read_matrix_rows(path, start, rows, dtype=np.float32))
+
+
+def test_read_matrix_rows_raises_like_lam_tpu(tmp_path):
+    path = tmp_path / "a.bin"
+    tio.write_matrix(path, np.ones((16, 16)))
+    with pytest.raises(ValueError) as ref:
+        jio.read_matrix_rows(path, 10, 7)
+    with pytest.raises(ValueError) as mine:
+        tio.read_matrix_rows(path, 10, 7)
+    assert str(mine.value) == str(ref.value)
+    path.write_bytes(path.read_bytes()[:-8])  # cut the payload
+    with pytest.raises(IOError, match="truncated"):
+        tio.read_matrix_rows(path, 8, 8)
