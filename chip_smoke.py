@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the twelve kernels against its plain PyTorch version at
+2. Holds each of the fifteen kernels against its plain PyTorch version at
    the main path's shapes. The eight one-device kernels at N=10000 padded
    to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
    padded to 216), on one random symmetric matrix:
@@ -30,7 +30,18 @@
    oracle at 1e-13, bitwise repeats; and the shards' parts summed (ring
    blocks into rows; the slab parts placed by _scatter_bands) against the
    one-device kernels gemv_f32/gemv_df64/gemv_f32_symm/gemv_df64_symm on
-   the same matrix, padding rows exactly 0. Prints each kernel's median
+   the same matrix, padding rows exactly 0. The three band-pair walks of
+   the quantized storages (gemv_q16_symm_slab, gemv_fq_symm_slab,
+   gemv_dfq_symm_slab) at the same shards, G=2 and G=4, every rank's
+   tables and scales, each rank's dfq and fq pack built by the port's own
+   operator without a process group: q16 to 1e-5, fq and dfq to the f64
+   oracle of the stored values at 1e-13, bitwise repeats, and the ranks'
+   parts plus the owners' diagonal terms summed against the one-device
+   kernels gemv_q16_symm, gemv_fq_symm and gemv_dfq_symm on the same
+   matrix; timed at rank 0 of G=2 (the `kernels` entries) and of G=4
+   (printed), the q16 walk over three copies of its plane taken in turn,
+   because one 55.1 or 39.3 MB plane would stay in the 50 MB L2 between
+   calls. Prints each kernel's median
    time per call, its plain version's and, where one PyTorch call
    computes the same function (torch.mv on the full f32 or f64 square, or
    on the strided column view for the ring's kernels; for the slab walks,
@@ -74,13 +85,21 @@
    subprocess, each killed if its cluster outlives CLUSTER_TIMEOUT_S)
    sharing the one card over gloo, each running lam_tpu_torch.cli.main in
    process: ring-ir, gather-df64, slab-ir and packed-ir at G=2, ring-ir-4
-   and packed-ir-4 at G=4 (SHARDED_RUNS). Each run must converge with a
+   and packed-ir-4 at G=4; the quantized band-pair storages packed-irfq
+   twice with --pack-cache (cold writes A.bin.shardpack/fq.g2.s<rank>,
+   warm reads them: same iterations, bitwise-equal x), packed-irq,
+   packed-fq, packed-dfq at G=2 and packed-irfq-4 at G=4; and grid-ir-4,
+   --backend sharded2d --precision ir on the 2 x 2 grid of four ranks
+   (SHARDED_RUNS). Each run must converge with a
    TRUE relative residual <= 2e-9 on the host from rank 0's solution
    file, x within 1e-6 relative of phase 3's one-device ir x, its kernels
-   launched and the others not in every rank, no plain version, one CSV
+   launched and the others not in every rank (irfq: the q16 and fq walks
+   and neither the f32 nor the df64 one; irq: the f32 and dfq walks; the
+   grid: the dense kernels and no symmetric one), no plain version, its
+   iteration count printed beside the one-device run's, one CSV
    row (rank 0's) with procs = G, and the mesh must report gloo with every
    rank on cuda:0. G ranks on one card measure the sharded program, not
-   multi-GPU scaling.
+   multi-GPU scaling. No earlier phase was shortened for these.
 
 Prints {"kernels": [...]} on the line before the last (each kernel's
 launches summed over the runs of phases 3-5, every rank's) and, as the last line,
@@ -143,6 +162,8 @@ SHARD_G = (2, 4)     # rank counts of the sharded checks and runs
 _RING = ("gemv_f32_cols", "gemv_df64_cols")
 _SLAB = ("gemv_f32_symm_slab", "gemv_df64_symm_slab")
 _TRI = ("gemv_f32_symm", "gemv_df64_symm")
+_QFQ = ("gemv_q16_symm_slab", "gemv_fq_symm_slab")
+_LOCAL_Q = ("gemv_q16_symm", "gemv_fq_symm", "gemv_dfq_symm")
 # phase 5: (run, ranks, CLI flags, kernels it must launch, kernels it must
 # not launch)
 SHARDED_RUNS = (
@@ -157,7 +178,30 @@ SHARDED_RUNS = (
     ("ring-ir-4", 4, ["--precision", "ir", "--comm", "ring"], _RING,
      ("gemv_f32", "gemv_df64")),
     ("packed-ir-4", 4, ["--precision", "ir", "--engine",
-                        "pallas_symm_packed"], _SLAB, _TRI))
+                        "pallas_symm_packed"], _SLAB, _TRI),
+    # the quantized band-pair storages: engine auto -> the packed walk
+    ("packed-irfq-cold", 2, ["--precision", "irfq", "--pack-cache"], _QFQ,
+     _SLAB + _TRI + _LOCAL_Q),
+    ("packed-irfq-warm", 2, ["--precision", "irfq", "--pack-cache"], _QFQ,
+     _SLAB + _TRI + _LOCAL_Q),
+    ("packed-irq", 2, ["--precision", "irq"],
+     ("gemv_f32_symm_slab", "gemv_dfq_symm_slab"),
+     ("gemv_df64_symm_slab",) + _TRI + _LOCAL_Q),
+    ("packed-fq", 2, ["--precision", "fq"], ("gemv_fq_symm_slab",),
+     ("gemv_q16_symm_slab",) + _SLAB + _TRI + _LOCAL_Q),
+    ("packed-dfq", 2, ["--precision", "dfq"], ("gemv_dfq_symm_slab",),
+     _SLAB + _TRI + _LOCAL_Q),
+    ("packed-irfq-4", 4, ["--precision", "irfq"], _QFQ,
+     _SLAB + _TRI + _LOCAL_Q),
+    # the dense 2-D grid, R=2: the dense kernels on each rank's block
+    ("grid-ir-4", 4, ["--backend", "sharded2d", "--precision", "ir"],
+     ("gemv_f32", "gemv_df64"),
+     _RING + _SLAB + _TRI + _LOCAL_Q + _QFQ + ("gemv_dfq_symm_slab",)))
+# run -> the one-device run of phase 3 whose iteration count it should show
+ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
+                 "packed-irfq-warm": "irfq-warm", "packed-irq": "irq-cold",
+                 "packed-fq": "fq", "packed-dfq": "dfq",
+                 "packed-irfq-4": "irfq-cold", "grid-ir-4": "ir"}
 CLUSTER_TIMEOUT_S = 300  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
@@ -227,7 +271,7 @@ def _timed_entry(name, replaces, source, y_err, fns, in_out, flops, kind):
     gb = nbytes / 1e9
     lib = ("" if library_ms is None else
            f"  library {library_ms:.4f} ms ({gb / library_ms * 1e3:.0f} GB/s)")
-    print(f"{name:<15}kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s)  "
+    print(f"{name:<19} kernel {ms:.4f} ms ({gb / ms * 1e3:.0f} GB/s)  "
           f"plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms  "
           f"[{gb * 1e3:.1f} MB moved]")
     return {"name": name, "route": "cuda", "source": source,
@@ -741,6 +785,222 @@ def slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, pack_planes, a, p):
     return out
 
 
+def _quant_walks(gemv, op, ph, pl, plain=False):
+    """The two walks of a quantized band-pair operand: the inner f32 walk
+    (q16 on the fq storage's q1 plane; the f32 walk of the dfq hi plane)
+    and the accurate one (fq or dfq), kernels or their plain versions:
+    ((yd, yt) f32, (yd, yt) f64)."""
+    sfx = "_plain" if plain else ""
+    it, kt, lt = op.operand[-3:]
+    ms = 2 * op.m
+    if op.storage == "fq":
+        inner = getattr(gemv, "gemv_q16_symm_slab" + sfx)(
+            op.operand[0], op.operand[3], ph, it, kt, lt, ms=ms)
+        acc = getattr(gemv, "gemv_fq_symm_slab" + sfx)(
+            *op.operand[:6], ph, pl, it, kt, lt, ms=ms)
+    else:
+        inner = getattr(gemv, "gemv_f32_symm_slab" + sfx)(
+            op.operand[0], ph, it, kt, lt, ms=ms, packed=True)
+        acc = getattr(gemv, "gemv_dfq_symm_slab" + sfx)(
+            *op.operand[:3], ph, pl, it, kt, lt, ms=ms)
+    return inner, (acc[0].double() + acc[1].double(),
+                   acc[2].double() + acc[3].double())
+
+
+def _stored_tiles(op):
+    """(inner plane's stored values, the storage's stored values) of a
+    quantized band-pair operand as f64 (T*tb, tb) buffers."""
+    tb = op.tb
+    if op.storage == "fq":
+        terms = [q.double() * s.double().repeat_interleave(tb)[:, None]
+                 for q, s in zip(op.operand[:3], op.operand[3:6])]
+        return terms[0], terms[0] + terms[1] + terms[2]
+    hi, loq, sc = op.operand[:3]
+    return hi.double(), (hi.double() + loq.double()
+                         * sc.double().repeat_interleave(tb)[:, None])
+
+
+def _quant_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
+    """The quantized slab kernels over every rank's walk of one band-pair
+    geometry against their plain versions and the f64 oracle of the stored
+    values, and the ranks' parts plus the owners' diagonal terms summed
+    against the one-device kernels' matvecs `one` (inner f32 y, f64 y) of
+    the same storage. Returns the largest kernel-plain differences (inner,
+    accurate)."""
+    g, m, tb, storage = (ops_[0].mesh.size, ops_[0].m, ops_[0].tb,
+                         ops_[0].storage)
+    inner_name = "gemv_q16_symm_slab" if storage == "fq" else \
+        "gemv_f32_symm_slab (dfq hi plane)"
+    label = f"G={g} {storage}"
+    sum32 = torch.zeros_like(ph)
+    sum64 = torch.zeros_like(p64)
+    errs32, errs64, diff32, diff64 = [], [], 0.0, 0.0
+    for c, op in enumerate(ops_):
+        it, kt, lt = op.operand[-3:]
+        dh, dl = op.operand[-5], op.operand[-4]
+        (yd, yt), (ad, at) = _quant_walks(gemv, op, ph, pl)
+        (qd, qt), (bd, bt) = _quant_walks(gemv, op, ph, pl, plain=True)
+        (zd, zt), (cd, ct) = _quant_walks(gemv, op, ph, pl)
+        _check(torch.equal(yd, zd) and torch.equal(yt, zt)
+               and torch.equal(ad, cd) and torch.equal(at, ct),
+               f"{label}: a quantized slab kernel is not repeatable")
+        inner_t, acc_t = _stored_tiles(op)
+        od, ot = gemv._slab_parts(inner_t, ph.double(), it, kt, lt, 2 * m,
+                                  tb, True)
+        del inner_t
+        y, q = torch.cat([yd, yt]), torch.cat([qd, qt])
+        errs32 += [_rel(y, q), _rel(y.double(), torch.cat([od, ot]))]
+        diff32 = max(diff32, float((y - q).abs().max()))
+        od, ot = gemv._slab_parts(acc_t, p64, it, kt, lt, 2 * m, tb, True)
+        del acc_t
+        y, q = torch.cat([ad, at]), torch.cat([bd, bt])
+        errs64 += [_rel(y, q), _rel(y, torch.cat([od, ot]))]
+        diff64 = max(diff64, float((y - q).abs().max()))
+        # the owner's diagonal terms, as the operator adds them
+        own32 = pcg_symm._own_rows(ph, c, g, m)
+        own64 = pcg_symm._own_rows(p64, c, g, m)
+        sum32 += pcg_symm._scatter_bands(yd + dh * own32, yt, c, g, m)
+        sum64 += pcg_symm._scatter_bands(
+            ad + (dh.double() + dl.double()) * own64, at, c, g, m)
+    n1 = one[0].shape[0]
+    e32, e64 = _rel(sum32[:n1], one[0]), _rel(sum64[:n1], one[1])
+    print(f"quantized slab walk {label} (tb={tb}, ms={2 * m}, "
+          f"n={ph.shape[0]}, T={ops_[0].operand[-1].shape[0]} tiles a rank): "
+          f"rel l2 kernel-plain / kernel-f64 max {inner_name} "
+          f"{max(errs32):.3e} (<= 1e-5), gemv_{storage}_symm_slab "
+          f"{max(errs64):.3e} (<= 1e-13); ranks' parts + diagonal terms "
+          f"summed vs the one-device kernels: inner {e32:.3e} (<= 1e-5), "
+          f"gemv_{storage}_symm {e64:.3e} (<= 1e-13)")
+    _check(max(errs32) <= 1e-5, f"{inner_name} {label} disagrees")
+    _check(max(errs64) <= 1e-13, f"gemv_{storage}_symm_slab {label} "
+           "disagrees")
+    _check(e32 <= 1e-5 and e64 <= 1e-13,
+           f"{label}: the ranks' parts do not add up to the matvec")
+    _check(int(torch.count_nonzero(sum32[N:])) == 0
+           and int(torch.count_nonzero(sum64[N:])) == 0,
+           f"{label}: padding rows != 0")
+    return diff32, diff64
+
+
+def _rotating(fn, copies):
+    """fn(copy) over `copies` taken in turn, one per call: a plane that
+    fits the 50 MB L2 is read from HBM again when two other copies went
+    through the cache since its last read."""
+    state = [0]
+
+    def call():
+        state[0] = (state[0] + 1) % len(copies)
+        return fn(copies[state[0]])
+
+    return call
+
+
+def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, pack_tri, a,
+                                p):
+    """Phase 2, the band-pair walks of the quantized storages
+    (gemv_q16_symm_slab, gemv_fq_symm_slab, gemv_dfq_symm_slab) at the
+    shards of G=2 (tb=512, T=105 tiles a rank, ms=5120, n=10240) and G=4
+    (n=12288, T=75), every rank's tables and scales, built by the port's
+    own operator without a process group; the ranks' parts plus the
+    owners' diagonal terms against the one-device kernels gemv_q16_symm,
+    gemv_fq_symm and gemv_dfq_symm on the same matrix. Timed at rank 0 of
+    G=2 (the `kernels` entries) and of G=4 (printed); the q16 walk over
+    three copies of its plane taken in turn, so its GB/s is an HBM figure
+    (one 55.1 or 39.3 MB plane would stay in the 50 MB L2)."""
+    tb = layout.SYMM_TB
+    n1 = layout.padded_size(N, tb)
+    ph1, pl1, p641 = _pair(p, n1)
+    one = {}
+    for storage in ("fq", "dfq"):
+        bufs = [torch.from_numpy(x).cuda() for x in pack_tri(a, storage, tb)]
+        dh, dl = bufs[-2], bufs[-1]
+        if storage == "fq":
+            y32 = gemv.gemv_q16_symm(bufs[0], bufs[3], ph1)
+            yh, yl = gemv.gemv_fq_symm(*bufs[:6], ph1, pl1)
+        else:
+            y32 = gemv.gemv_f32_symm(bufs[0], ph1)
+            yh, yl = gemv.gemv_dfq_symm(*bufs[:3], ph1, pl1)
+        one[storage] = (y32 + dh * ph1, yh.double() + yl.double()
+                        + (dh.double() + dl.double()) * p641)
+        del bufs
+    torch.cuda.empty_cache()
+    diffs = {}
+    timed = {}
+    for g in SHARD_G:
+        for storage in ("fq", "dfq"):
+            t0 = time.perf_counter()
+            ops_ = [pcg_symm.SymmShardedOperator.from_row_block_fn(
+                lambda s, k: a[s:s + k], N, mesh=Mesh(c, g, "cuda"),
+                precision=storage) for c in range(g)]
+            pack_s = time.perf_counter() - t0
+            ph, pl, p64 = _pair(p, ops_[0].n_padded)
+            d = _quant_case(gemv, pcg_symm, ops_, ph, pl, p64, one[storage])
+            print(f"  ({g} rank packs of {storage} in {pack_s:.2f} s)")
+            old = diffs.get(storage, (0.0, 0.0))
+            diffs[storage] = (max(old[0], d[0]), max(old[1], d[1]))
+            timed[g, storage] = (ops_[0], ph, pl, p64)
+            del ops_
+            torch.cuda.empty_cache()
+    out = []
+    for g in SHARD_G:
+        fq, ph, pl, p64 = timed[g, "fq"]
+        dfq = timed[g, "dfq"][0]
+        # for scale only: torch.mv over the rank's (2m, n) slab of full rows
+        slab = pcg_symm.SymmShardedOperator.from_row_block_fn(
+            lambda s, k: a[s:s + k], N, mesh=Mesh(0, g, "cuda"))
+        sh = slab.operand[0]
+        s64 = sh.double() + slab.operand[1].double()
+        del slab
+        it, kt, lt = fq.operand[-3:]
+        ms, T = 2 * fq.m, it.shape[0]
+        flops = 2 * tb * tb * (T + int((kt < it).sum()))
+        q1, s1 = fq.operand[0], fq.operand[3]
+        copies = [q1, q1.clone(), q1.clone()]
+        yd, yt = gemv.gemv_q16_symm_slab(q1, s1, ph, it, kt, lt, ms=ms)
+        entries = [_timed_entry(
+            "gemv_q16_symm_slab" if g == SHARD_G[0] else f"q16 slab G={g}",
+            "lam_tpu/ops/gemv.py:2310", SYMM_SOURCE, diffs["fq"][0],
+            (_rotating(lambda q: gemv.gemv_q16_symm_slab(
+                q, s1, ph, it, kt, lt, ms=ms), copies),
+             _rotating(lambda q: gemv.gemv_q16_symm_slab_plain(
+                 q, s1, ph, it, kt, lt, ms=ms), copies),
+             lambda: torch.mv(sh, ph)), (q1, s1, ph, it, kt, lt, yd, yt),
+            flops, "f32")]
+        del copies
+        outs = gemv.gemv_fq_symm_slab(*fq.operand[:6], ph, pl, it, kt, lt,
+                                      ms=ms)
+        entries.append(_timed_entry(
+            "gemv_fq_symm_slab" if g == SHARD_G[0] else f"fq slab G={g}",
+            "lam_tpu/ops/gemv.py:2405", SYMM_SOURCE, diffs["fq"][1],
+            (lambda: gemv.gemv_fq_symm_slab(*fq.operand[:6], ph, pl, it, kt,
+                                            lt, ms=ms),
+             lambda: gemv.gemv_fq_symm_slab_plain(*fq.operand[:6], ph, pl,
+                                                  it, kt, lt, ms=ms),
+             lambda: torch.mv(s64, p64)),
+            (*fq.operand[:6], ph, pl, it, kt, lt, *outs), flops, "f64"))
+        dit, dkt, dlt = dfq.operand[-3:]
+        outs = gemv.gemv_dfq_symm_slab(*dfq.operand[:3], ph, pl, dit, dkt,
+                                       dlt, ms=ms)
+        entries.append(_timed_entry(
+            "gemv_dfq_symm_slab" if g == SHARD_G[0] else f"dfq slab G={g}",
+            "lam_tpu/ops/gemv.py:1386", SYMM_SOURCE, diffs["dfq"][1],
+            (lambda: gemv.gemv_dfq_symm_slab(*dfq.operand[:3], ph, pl, dit,
+                                             dkt, dlt, ms=ms),
+             lambda: gemv.gemv_dfq_symm_slab_plain(*dfq.operand[:3], ph, pl,
+                                                   dit, dkt, dlt, ms=ms),
+             lambda: torch.mv(s64, p64)),
+            (*dfq.operand[:3], ph, pl, dit, dkt, dlt, *outs), flops, "f64"))
+        if g == SHARD_G[0]:
+            out = entries
+        else:
+            print(f"quantized slab kernels at rank 0 of G={g}: " + json.dumps(
+                [{k: e[k] for k in ("name", "ms", "plain_ms", "bound_ms",
+                                    "library_ms")} for e in entries]))
+        del sh, s64
+        torch.cuda.empty_cache()
+    return out
+
+
 def _stencil_oracle(p, up, dn, nrows, nxi):
     """The masked 5-point Laplacian and p . y in float64 on the card."""
     g = p.double()
@@ -1027,13 +1287,14 @@ def solve_slice(ops, lio, cli, system, tmp):
                f"{precision} from the cache differs from {precision} after "
                "a fresh pack")
     print(f"main path launches, summed over the runs: {total}")
-    return total, xs["ir"]
+    return total, xs["ir"], iters_of
 
 
 def rank_main(argv):
     """One rank of a phase-5 cluster (`chip_smoke.py --rank r --ranks G
     --port P --jobs J --out D`): joins the process group, runs every job
-    of J through the port's CLI in process with --backend sharded, and
+    of J through the port's CLI in process with --backend sharded (or the
+    job's own --backend), and
     writes D/rank<r>.json with each job's exit code, output, launch
     counts and the mesh's backend and device."""
     import argparse
@@ -1060,8 +1321,10 @@ def rank_main(argv):
         out = io.StringIO()
         ops.reset_counters()
         with contextlib.redirect_stdout(out):
-            rc = cli.main(job["argv"] + [
-                "--backend", "sharded", "--device", "cuda", "--init-col",
+            backend = ([] if "--backend" in job["argv"]
+                       else ["--backend", "sharded"])
+            rc = cli.main(job["argv"] + backend + [
+                "--device", "cuda", "--init-col",
                 "--coordinator", address, "--num-processes",
                 str(args.ranks), "--process-id", str(args.rank)])
         torch.cuda.synchronize()
@@ -1126,7 +1389,7 @@ def _cluster(g, jobs, tmp):
     return records
 
 
-def sharded_runs(ops, lio, system, x_local, tmp):
+def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
     """Phase 5: the bench system through the port's CLI with --backend
     sharded, G rank processes on the one card over gloo, one cluster per
     G running its entries of SHARDED_RUNS in order. Returns the kernel
@@ -1135,6 +1398,7 @@ def sharded_runs(ops, lio, system, x_local, tmp):
     bnorm = np.linalg.norm(b)
     total = {fn.__name__: 0 for fn in ops.KERNELS}
     plain = [fn.__name__ for fn in ops.PLAIN]
+    xs, iters_of = {}, {}
     for g in SHARD_G:
         runs = [r for r in SHARDED_RUNS if r[1] == g]
         jobs = [{"run": run, "argv": ["-A", a_path, "-b", b_path, "-o",
@@ -1171,6 +1435,11 @@ def sharded_runs(ops, lio, system, x_local, tmp):
                   f"(<= {TRUE_GATE:g}), x vs one-device ir {x_rel:.3e} "
                   f"(<= {X_GATE:g}), launches rank 0 "
                   f"{ {k: v for k, v in recs[0]['counts'].items() if v} }")
+            if run in ONE_DEVICE_OF:
+                print(f"{run}: {iters} iterations; the one-device "
+                      f"{ONE_DEVICE_OF[run]} run took "
+                      f"{local_iters[ONE_DEVICE_OF[run]]}")
+            xs[run], iters_of[run] = x, iters
             _check(iters <= 10000, f"{run} did not converge")
             _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
                    f"{true_rel:.3e} above {TRUE_GATE:g}")
@@ -1189,6 +1458,14 @@ def sharded_runs(ops, lio, system, x_local, tmp):
                        f"{run}: a plain version ran on rank {r}")
                 for k in total:
                     total[k] += counts[k]
+    # --pack-cache: cold wrote one shard file per rank, warm read them
+    for c in range(2):
+        _check(os.path.exists(f"{a_path}.shardpack/fq.g2.s{c}"),
+               f"packed-irfq --pack-cache wrote no shard file of rank {c}")
+    _check(iters_of["packed-irfq-warm"] == iters_of["packed-irfq-cold"]
+           and np.array_equal(xs["packed-irfq-warm"],
+                              xs["packed-irfq-cold"]),
+           "sharded irfq from the shard cache differs from a fresh pack")
     print(f"sharded launches, summed over the runs and ranks: {total}")
     return total
 
@@ -1232,6 +1509,9 @@ def main():
     torch.cuda.empty_cache()
     results += slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh,
                                      _host_pack_planes, a, p)
+    torch.cuda.empty_cache()
+    results += quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh,
+                                           _host_pack_tri, a, p)
     del a
     _check(sorted(r["name"] for r in results)
            == sorted(fn.__name__ for fn in ops.KERNELS),
@@ -1239,12 +1519,13 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         system = bench_system(generate, lio, tmp)
-        counts, x_ir = solve_slice(ops, lio, cli, system, tmp)
+        counts, x_ir, local_iters = solve_slice(ops, lio, cli, system, tmp)
         torch.cuda.empty_cache()
         heat_counts = heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        shard_counts = sharded_runs(ops, lio, system, x_ir, tmp)
+        shard_counts = sharded_runs(ops, lio, system, x_ir, local_iters,
+                                    tmp)
         print(f"phase 5: {time.perf_counter() - t0:.1f} s")
     for r in results:
         r["launches"] = (counts[r["name"]] + heat_counts[r["name"]]

@@ -9,21 +9,27 @@ Flags (the reference's getopt surface, file mode):
   --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu (default cuda)
   --engine auto|pallas|pallas_symm_packed   (pallas: the full square)
   --pack-cache  publish/reuse the packed planes beside the matrix file
-  --backend local|sharded    --comm gather|ring    --devices N
+  --backend local|sharded|sharded2d  --comm gather|ring  --devices N
   --coordinator <host:port> --num-processes N --process-id i
   --init-col    add the warm-up seconds after load_s in the CSV
 Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9.
 
 A sharded run starts one process per rank, each with the same flags and
 its own --process-id (lam_tpu/cli.py:108-120, :265-269); --device cuda
-puts rank r on cuda:{r % device_count}, --device cpu runs a CPU cluster
-over gloo. Only rank 0 prints and writes the solution.
+puts rank r on cuda:{r % device_count} (the card of LOCAL_RANK where a
+launcher sets it), --device cpu runs a CPU cluster over gloo. Only rank 0
+prints and writes the solution. --backend sharded takes every precision:
+f32/df64/ir on row shards or the band-pair walk, dfq/irq/fq/irfq on the
+band-pair walk's quantized storages (with --pack-cache each rank keeps
+<matrix>.shardpack/<storage>.g<G>.s<rank>). --backend sharded2d runs
+f32/df64/ir on the largest R x R grid of the ranks (ranks beyond R^2 stay
+idle, said on stderr).
 
 Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
 with procs the ranks the backend uses and num_iter = max_iters + 1 for an
 unconverged run, as the reference prints it. Every other lam_tpu flag
-(generate mode -s, positional arguments, --backend sharded2d, --engine
+(generate mode -s, positional arguments, the symmetric 2-D grid, --engine
 xla, ...) raises NotImplementedError; --local-devices (JAX's virtual CPU
 devices) has no counterpart and is refused with a message.
 """
@@ -74,7 +80,9 @@ def build_parser():
                         "(f32/df64/ir; any square matrix, symmetric or "
                         "not). With --backend sharded: auto/pallas split "
                         "the rows, pallas_symm (slab) and "
-                        "pallas_symm_packed walk band pairs (df64/ir). "
+                        "pallas_symm_packed walk band pairs (df64/ir; "
+                        "dfq/irq/fq/irfq packed only, what auto picks for "
+                        "them). "
                         "pallas_symm on one device and xla are not "
                         "ported yet")
     p.add_argument("--pack-cache", action="store_true",
@@ -89,8 +97,9 @@ def build_parser():
     p.add_argument("--backend", default="local",
                    choices=["local", "sharded", "sharded2d"],
                    help="sharded = one rank per device of a process group "
-                        "(the reference's MPI/NCCL backends); sharded2d is "
-                        "not ported yet")
+                        "(the reference's MPI/NCCL backends); sharded2d = "
+                        "blocks over the largest R x R grid of the ranks "
+                        "(f32/df64/ir)")
     p.add_argument("--comm", default="gather", choices=["gather", "ring"],
                    help="Sharded matvec communication: all_gather of p, "
                         "or a ring of column-block matvecs")
@@ -146,7 +155,8 @@ def _cli_main(argv=None):
         print("  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu")
         print("  --engine auto|pallas|pallas_symm_packed")
         print("  --pack-cache    Reuse/publish <matrix>.<storage>pack")
-        print("  --backend local|sharded  --comm gather|ring  --devices N")
+        print("  --backend local|sharded|sharded2d  --comm gather|ring  "
+              "--devices N")
         print("  --coordinator <host:port> --num-processes N --process-id i")
         return 0
     if args.local_devices is not None:
@@ -155,9 +165,6 @@ def _cli_main(argv=None):
             "in the port: start one process per rank with --coordinator, "
             "--num-processes and --process-id (--device cpu for a CPU "
             "cluster)")
-    if args.backend == "sharded2d":
-        raise NotImplementedError("lam-cg-torch: --backend sharded2d is not "
-                                  "ported yet")
 
     import torch.distributed as dist
 
@@ -193,6 +200,8 @@ def _solve(args):
                            engine=args.engine, device=args.device,
                            pack_cache=args.pack_cache, comm=args.comm,
                            n_devices=args.devices)
+    if cg.mesh is not None and not cg.mesh.active:
+        return 0  # a rank outside the R x R grid takes no part
     # rank-0-only output, like the reference's PRINT_RANK0 macros
     rank0 = cg.rank == 0
     verbose = args.verbose and rank0
@@ -208,8 +217,9 @@ def _solve(args):
     vprint(f"  rel_error:         {args.rel_error:e}")
     vprint(f"  device:            {cg.device}")
     vprint(f"  precision={cg.precision} engine={cg.engine}")
-    if cg.backend == "sharded":
-        vprint(f"  backend=sharded comm={cg.comm}: {cg.mesh.size} rank(s), "
+    if cg.backend != "local":
+        vprint(f"  backend={cg.backend} comm={cg.comm}: {cg.mesh.size} "
+               f"rank(s), "
                f"process group {cg.mesh.backend or 'none'}, rank 0 on "
                f"{cg.device}")
     vprint("")

@@ -1,5 +1,5 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
-// (sm_90a). Seven kernels share one design:
+// (sm_90a). Ten kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -16,6 +16,12 @@
 //                            (:552; _gemv_f32_symm_slab_kernel)
 //   lam_gemv_df64_symm_slab  replaces lam_tpu/ops/gemv.py:gemv_df64_symm_slab
 //                            (:1267; _gemv_df64_symm_slab_kernel)
+//   lam_gemv_q16_symm_slab   replaces lam_tpu/ops/gemv.py:gemv_q16_symm_slab
+//                            (:2310; _gemv_q16_symm_slab_kernel)
+//   lam_gemv_fq_symm_slab    replaces lam_tpu/ops/gemv.py:gemv_fq_symm_slab
+//                            (:2405; _gemv_fq_symm_slab_kernel)
+//   lam_gemv_dfq_symm_slab   replaces lam_tpu/ops/gemv.py:gemv_dfq_symm_slab
+//                            (:1386; _gemv_dfq_symm_slab_kernel)
 //
 // Storage contract (lam_tpu_torch/ops/layout.py pack_tri_host): the matrix
 // is n x n with n = nblk * TB, and only its nblk(nblk+1)/2 lower-triangle
@@ -36,7 +42,16 @@
 // buffer (packed) or at (lt[t]*TB, kt[t]*TB) of the rank's row-major (ms, n)
 // slab of full rows. Direct terms A p_kt go to yd (ms,) by lt, transpose
 // terms A^T p_it (kt < it only) to yt (n,) by kt; the caller places yd at the
-// rank's rows and sums the ranks' parts.
+// rank's rows and sums the ranks' parts. The quantized slab kernels (q16,
+// fq, dfq) take the packed buffer only: a rank's planes hold exactly its T
+// walk tiles (no pad tiles) and each scale table has one entry per WALK
+// POSITION t of that rank, not per triangle index; the diagonal of each
+// it == kt tile is stored as zeros and its term is the operator's.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
+// --use_fast_math; nvcc contracts a*b + c into FMAs (-fmad=true), which
+// only removes roundings here: every int16 * power-of-two product below is
+// exact in f64 with or without contraction, so no cascade term can be lost.
 //
 // What bounds it: a matvec does 2 (f32, q16) to 4 (df64, dfq, fq) flops
 // per stored element and reads each stored element exactly once: 2 B
@@ -577,6 +592,48 @@ extern "C" int lam_gemv_df64_symm_slab(
     double* part_t, int T, int ms, int n, int packed, void* stream) {
   return launch_slab(DF64Plane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
                      TableWalk{it, kt, lt, n, packed},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+                     DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
+                     part_t, T, ms, (cudaStream_t)stream);
+}
+
+// The quantized twins, packed storage only (T tiles exactly, one scale per
+// walk position). q16: the int16 q1 plane against s1, f32 sums.
+extern "C" int lam_gemv_q16_symm_slab(
+    const short* q1, const float* s1, const float* p, const int* it,
+    const int* kt, const int* lt, const int* d_ptr, const int* d_ids,
+    const int* t_ptr, const int* t_ids, float* yd, float* yt, float* part_d,
+    float* part_t, int T, int ms, int n, void* stream) {
+  return launch_slab(Q16Plane{q1, s1, 0.0f}, F32Vec{p},
+                     TableWalk{it, kt, lt, n, 1},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids}, F32Out{yd},
+                     F32Out{yt}, part_d, part_t, T, ms, (cudaStream_t)stream);
+}
+
+// fq: q1*s1 + q2*s2 + q3*s3 formed and walked in f64.
+extern "C" int lam_gemv_fq_symm_slab(
+    const short* q1, const short* q2, const short* q3, const float* s1,
+    const float* s2, const float* s3, const float* p_hi, const float* p_lo,
+    const int* it, const int* kt, const int* lt, const int* d_ptr,
+    const int* d_ids, const int* t_ptr, const int* t_ids, float* yd_hi,
+    float* yd_lo, float* yt_hi, float* yt_lo, double* part_d, double* part_t,
+    int T, int ms, int n, void* stream) {
+  return launch_slab(FQPlane{q1, q2, q3, s1, s2, s3, 0.0, 0.0, 0.0},
+                     DF64Vec{p_hi, p_lo}, TableWalk{it, kt, lt, n, 1},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+                     DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
+                     part_t, T, ms, (cudaStream_t)stream);
+}
+
+// dfq: hi + loq * sc formed and walked in f64.
+extern "C" int lam_gemv_dfq_symm_slab(
+    const float* a_hi, const short* a_loq, const float* sc, const float* p_hi,
+    const float* p_lo, const int* it, const int* kt, const int* lt,
+    const int* d_ptr, const int* d_ids, const int* t_ptr, const int* t_ids,
+    float* yd_hi, float* yd_lo, float* yt_hi, float* yt_lo, double* part_d,
+    double* part_t, int T, int ms, int n, void* stream) {
+  return launch_slab(DFQPlane{a_hi, a_loq, sc, 0.0}, DF64Vec{p_hi, p_lo},
+                     TableWalk{it, kt, lt, n, 1},
                      SlabLists{d_ptr, d_ids, t_ptr, t_ids},
                      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
                      part_t, T, ms, (cudaStream_t)stream);

@@ -104,6 +104,28 @@ def read_matrix_rows(path, row_start, num_rows, dtype=np.float64):
         data.reshape(num_rows, cols).astype(dtype, copy=False))
 
 
+def read_matrix_block(path, row_start, col_start, num_rows, num_cols,
+                      dtype=np.float64):
+    """Read the (num_rows, num_cols) block at (row_start, col_start) of a
+    matrix file (lam_tpu/io.py:142): the column-windowed 2-D analog of
+    `read_matrix_rows` for the 2-D grid. Only the block's bytes are read
+    (a per-row window of a memory map); full-row reads would amplify the
+    I/O R times on an R x R grid."""
+    rows, cols = read_header(path)
+    if row_start + num_rows > rows or col_start + num_cols > cols:
+        raise ValueError(
+            f"block [{row_start}:{row_start + num_rows}, "
+            f"{col_start}:{col_start + num_cols}) out of range for "
+            f"{rows}x{cols} matrix")
+    mm = (_open_npy(path) if _is_npy(path) else
+          np.memmap(path, dtype=np.float64, mode="r", offset=_HEADER.size,
+                    shape=(rows, cols)))
+    block = np.array(mm[row_start:row_start + num_rows,
+                        col_start:col_start + num_cols])
+    del mm
+    return np.ascontiguousarray(block.astype(dtype, copy=False))
+
+
 def open_matrix_memmap(path):
     """Memory-map a square f64 matrix file (.npy or the binary format)
     without reading it (lam_tpu/solver/operators.py:71-99)."""

@@ -33,6 +33,14 @@ yd over the rank's rows and the transpose terms yt over all columns:
     gemv_f32_symm_slab   <- gemv_f32_symm_slab      (gemv.py:552)
     gemv_df64_symm_slab  <- gemv_df64_symm_slab     (gemv.py:1267)
 
+and the band-pair walks of the quantized storages, over a rank's packed
+walk-order planes of exactly T tiles (no Q16_P padding) with one scale
+per walk position, the diagonal term left to the operator:
+
+    gemv_q16_symm_slab   <- gemv_q16_symm_slab      (gemv.py:2310)
+    gemv_fq_symm_slab    <- gemv_fq_symm_slab       (gemv.py:2405)
+    gemv_dfq_symm_slab   <- gemv_dfq_symm_slab      (gemv.py:1386)
+
 On a CUDA tensor a wrapper launches the hand-written Hopper kernel of
 csrc/gemv_symm.cu or csrc/gemv_dense.cu (built at first use by
 `_build`) on the current stream, or raises. On a CPU tensor, and only
@@ -181,10 +189,11 @@ def gemv_df64_cols_plain(a_hi, a_lo, p_hi, p_lo, blk):
                               + p_lo.to(torch.float64)))
 
 
-def _slab_parts(a, p, it, kt, lt, ms, tb, packed):
+def _slab_parts(a, p, it, kt, lt, ms, tb, packed, scale=None):
     """Plain slab walk in a's dtype: (yd (ms,), yt (n,)). `a` is the
     (T*tb, tb) walk-order buffer (packed) or the (ms, n) slab, whose tile
-    t is then the block (lt[t], kt[t]) of its tile grid."""
+    t is then the block (lt[t], kt[t]) of its tile grid. A per-tile
+    `scale` (T,) is folded into p."""
     it, kt, lt = (x.to(torch.long) for x in (it, kt, lt))
     n = p.shape[0]
     if packed:
@@ -194,7 +203,7 @@ def _slab_parts(a, p, it, kt, lt, ms, tb, packed):
             lt, kt]
     yd = torch.zeros(ms // tb, tb, dtype=p.dtype, device=p.device)
     yt = torch.zeros(n // tb, tb, dtype=p.dtype, device=p.device)
-    _walk_into(yd, yt, tiles, p, it, kt, lt)
+    _walk_into(yd, yt, tiles, p, it, kt, lt, scale)
     return yd.reshape(-1), yt.reshape(-1)
 
 
@@ -220,6 +229,52 @@ def gemv_df64_symm_slab_plain(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *,
     p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
     yd, yt = _slab_parts(a, p, it, kt, lt, ms, tb, packed)
     return (*split_f64(yd), *split_f64(yt))
+
+
+def gemv_q16_symm_slab_plain(q1_slab, sc1, p, it, kt, lt, *, ms):
+    """Plain PyTorch q16 slab walk in f32 over the (T*tb, tb) int16 q1
+    plane, the per-tile scales sc1 (T,) folded into p: (yd (ms,),
+    yt (n,))."""
+    gemv_q16_symm_slab_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_q16_symm_slab", q1_slab, p, it, kt, lt,
+                            ms, True, None)
+    _check_walk(*_host_tables(it, kt, lt), p.shape[0] // tb, ms // tb)
+    return _slab_parts(q1_slab.to(torch.float32), p, it, kt, lt, ms, tb,
+                       True, sc1)
+
+
+def _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb):
+    """The f64 walk of dequantized (T*tb, tb) f64 tiles, as f32 pairs."""
+    p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
+    yd, yt = _slab_parts(tiles, p, it, kt, lt, ms, tb, True)
+    return (*split_f64(yd), *split_f64(yt))
+
+
+def gemv_fq_symm_slab_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt,
+                            *, ms):
+    """Plain PyTorch fq slab walk, computed in float64 from the cascade
+    q1*s1 + q2*s2 + q3*s3 (each product exact): (yd_hi, yd_lo, yt_hi,
+    yt_lo), the f32 splits of yd and yt."""
+    gemv_fq_symm_slab_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_fq_symm_slab", q1, p_hi, it, kt, lt, ms,
+                            True, None)
+    _check_walk(*_host_tables(it, kt, lt), p_hi.shape[0] // tb, ms // tb)
+    tiles = sum(q.to(torch.float64) * s.to(torch.float64).repeat_interleave(
+        tb)[:, None] for q, s in ((q1, s1), (q2, s2), (q3, s3)))
+    return _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb)
+
+
+def gemv_dfq_symm_slab_plain(ah_slab, alq_slab, sc, p_hi, p_lo, it, kt, lt,
+                             *, ms):
+    """Plain PyTorch dfq slab walk, computed in float64 from the tiles
+    hi + loq * sc (exact products): (yd_hi, yd_lo, yt_hi, yt_lo)."""
+    gemv_dfq_symm_slab_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_dfq_symm_slab", ah_slab, p_hi, it, kt, lt,
+                            ms, True, None)
+    _check_walk(*_host_tables(it, kt, lt), p_hi.shape[0] // tb, ms // tb)
+    tiles = (ah_slab.to(torch.float64) + alq_slab.to(torch.float64)
+             * sc.to(torch.float64).repeat_interleave(tb)[:, None])
+    return _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb)
 
 
 _DTYPES = {"a": torch.float32, "q": torch.int16, "s": torch.float32,
@@ -702,17 +757,37 @@ def _slab_lists(it, kt, lt, nblk, mst):
     return got[1]
 
 
-def _slab_launch(what, lib, tb, it, kt, lt, ms, n, acc_dtype, device):
-    """(T, list pointers, part_d, part_t) of a slab kernel launch."""
+def _slab_call(wrapper, entry, operands, it, kt, lt, ms, tb, pairs,
+               flags=()):
+    """Launch the slab kernel `entry` of csrc/gemv_symm.cu for `wrapper`
+    on the current stream: `operands` are the planes, scale tables and
+    operand vector(s) in the entry point's order (the last one a vector of
+    length n), `flags` its trailing int arguments. Returns (yd, yt) in
+    f32, or with pairs=True (an f64 walk) (yd_hi, yd_lo, yt_hi, yt_lo)."""
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    what = wrapper.__name__
+    device, n = operands[-1].device, operands[-1].shape[0]
     if tb != lib.lam_symm_tile():
         raise ValueError(f"{what}: the CUDA kernel takes tb="
                          f"{lib.lam_symm_tile()} tiles, got tb={tb}")
     T = it.shape[0]
     lists = _slab_lists(it, kt, lt, n // tb, ms // tb)
+    acc_dtype = torch.float64 if pairs else torch.float32
     part_d = torch.empty(T * tb, dtype=acc_dtype, device=device)
     part_t = torch.empty(T * lib.lam_symm_strips() * tb, dtype=acc_dtype,
                          device=device)
-    return T, [x.data_ptr() for x in lists], part_d, part_t
+    out = [torch.empty(size, dtype=torch.float32, device=device)
+           for size in ((ms, ms, n, n) if pairs else (ms, n))]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, entry)(
+            *(x.data_ptr() for x in (*operands, it, kt, lt, *lists, *out,
+                                     part_d, part_t)),
+            T, ms, n, *flags, stream)
+    wrapper.launches += 1
+    _raise_on(what, code)
+    return tuple(out)
 
 
 def gemv_f32_symm_slab(a_slab, p, it, kt, lt, *, ms=None, packed=False,
@@ -735,23 +810,9 @@ def gemv_f32_symm_slab(a_slab, p, it, kt, lt, *, ms=None, packed=False,
     if a_slab.device.type == "cpu":
         return gemv_f32_symm_slab_plain(a_slab, p, it, kt, lt, ms=ms,
                                         packed=packed, tb=tb)
-    from lam_tpu_torch.ops._build import library
-    lib = library()
-    n = p.shape[0]
-    T, lists, part_d, part_t = _slab_launch(what, lib, tb, it, kt, lt, ms,
-                                            n, torch.float32, a_slab.device)
-    yd = torch.empty(ms, dtype=torch.float32, device=a_slab.device)
-    yt = torch.empty(n, dtype=torch.float32, device=a_slab.device)
-    with torch.cuda.device(a_slab.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_gemv_f32_symm_slab(
-            a_slab.data_ptr(), p.data_ptr(), it.data_ptr(), kt.data_ptr(),
-            lt.data_ptr(), *lists, yd.data_ptr(), yt.data_ptr(),
-            part_d.data_ptr(), part_t.data_ptr(), T, ms, n, int(packed),
-            stream)
-    gemv_f32_symm_slab.launches += 1
-    _raise_on(what, code)
-    return yd, yt
+    return _slab_call(gemv_f32_symm_slab, "lam_gemv_f32_symm_slab",
+                      (a_slab, p), it, kt, lt, ms, tb, False,
+                      (int(packed),))
 
 
 def gemv_df64_symm_slab(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *, ms=None,
@@ -775,32 +836,114 @@ def gemv_df64_symm_slab(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *, ms=None,
     if a_hi.device.type == "cpu":
         return gemv_df64_symm_slab_plain(a_hi, a_lo, p_hi, p_lo, it, kt, lt,
                                          ms=ms, packed=packed, tb=tb)
-    from lam_tpu_torch.ops._build import library
-    lib = library()
-    n = p_hi.shape[0]
-    T, lists, part_d, part_t = _slab_launch(what, lib, tb, it, kt, lt, ms,
-                                            n, torch.float64, a_hi.device)
-    out = [torch.empty(size, dtype=torch.float32, device=a_hi.device)
-           for size in (ms, ms, n, n)]
-    with torch.cuda.device(a_hi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_gemv_df64_symm_slab(
-            a_hi.data_ptr(), a_lo.data_ptr(), p_hi.data_ptr(),
-            p_lo.data_ptr(), it.data_ptr(), kt.data_ptr(), lt.data_ptr(),
-            *lists, *(y.data_ptr() for y in out), part_d.data_ptr(),
-            part_t.data_ptr(), T, ms, n, int(packed), stream)
-    gemv_df64_symm_slab.launches += 1
-    _raise_on(what, code)
-    return tuple(out)
+    return _slab_call(gemv_df64_symm_slab, "lam_gemv_df64_symm_slab",
+                      (a_hi, a_lo, p_hi, p_lo), it, kt, lt, ms, tb, True,
+                      (int(packed),))
+
+
+def _comp_and_pairs(what, comp, p_hi, p_lo):
+    if comp not in (None, "nolow", "full"):
+        raise ValueError(f"comp={comp!r} must be one of ('full', 'nolow')")
+    if p_lo.shape != p_hi.shape:
+        raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
+                         f"{tuple(p_lo.shape)} differ")
+
+
+def gemv_q16_symm_slab(q1_slab, sc1, p, it, kt, lt, *, ms):
+    """Partial q16 matvec over one rank's band-pair walk, the fq twin of
+    `gemv_f32_symm_slab(packed=True)`: the rank's triangle tiles as the
+    int16 q1 plane (T*tb, tb) of the fq cascade against the per-tile
+    power-of-two scales sc1 (T,), one per walk position; 2 B per element
+    read. Returns (yd (ms,), yt (n,)) in f32; the caller places yd at the
+    rank's rows, adds the diagonal term the planes do not carry, and sums
+    the ranks' parts. Exact int16 -> f32 conversion, the scale folded
+    into p, exact f32 products with f32 accumulation (no TF32, no
+    bf16)."""
+    what = "gemv_q16_symm_slab"
+    _check(what, {"q1": q1_slab, "s1": sc1, "p": p, "it": it, "kt": kt,
+                  "lt": lt}, q1_slab.device)
+    tb, ms = _slab_geometry(what, q1_slab, p, it, kt, lt, ms, True, None)
+    _check_scales(what, it.shape[0], {"scale": sc1})
+    if q1_slab.device.type == "cpu":
+        return gemv_q16_symm_slab_plain(q1_slab, sc1, p, it, kt, lt, ms=ms)
+    return _slab_call(gemv_q16_symm_slab, "lam_gemv_q16_symm_slab",
+                      (q1_slab, sc1, p), it, kt, lt, ms, tb, False)
+
+
+def gemv_fq_symm_slab(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt, *,
+                      ms, comp=None):
+    """Partial fully-quantized matvec over one rank's band-pair walk, the
+    fq twin of `gemv_df64_symm_slab(packed=True)`: three int16 cascade
+    planes (T*tb, tb) against per-tile power-of-two scale tables (T,), 6 B
+    per element; p = p_hi + p_lo. Returns (yd_hi, yd_lo, yt_hi, yt_lo);
+    the diagonal term is not included (the operator holds it as an exact
+    slab-order pair).
+
+    The kernel forms the cascade and accumulates in native f64, so `comp`
+    selects nothing, as in `gemv_fq_symm`. lam_tpu's single (tb, tb)
+    broadcast q2/q3 tile of generate mode is not ported."""
+    what = "gemv_fq_symm_slab"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    for name, q in (("q2", q2), ("q3", q3)):
+        if q.shape != q1.shape:
+            tb = q1.shape[1]
+            if tuple(q.shape) == (tb, tb):
+                raise NotImplementedError(
+                    f"{what}: {name} is one broadcast ({tb}, {tb}) tile; "
+                    "the broadcast zero planes are not ported yet")
+            raise ValueError(f"{name} plane shape {tuple(q.shape)} != q1 "
+                             f"plane {tuple(q1.shape)} (or one broadcast "
+                             f"({tb}, {tb}) tile)")
+    _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
+                  "s3": s3, "p_hi": p_hi, "p_lo": p_lo, "it": it, "kt": kt,
+                  "lt": lt}, q1.device)
+    tb, ms = _slab_geometry(what, q1, p_hi, it, kt, lt, ms, True, None)
+    _check_scales(what, it.shape[0], {"s1": s1, "s2": s2, "s3": s3})
+    if q1.device.type == "cpu":
+        return gemv_fq_symm_slab_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo,
+                                       it, kt, lt, ms=ms)
+    return _slab_call(gemv_fq_symm_slab, "lam_gemv_fq_symm_slab",
+                      (q1, q2, q3, s1, s2, s3, p_hi, p_lo), it, kt, lt, ms,
+                      tb, True)
+
+
+def gemv_dfq_symm_slab(ah_slab, alq_slab, sc, p_hi, p_lo, it, kt, lt, *,
+                       ms, comp=None):
+    """Partial quantized-lo matvec over one rank's band-pair walk, the dfq
+    twin of `gemv_df64_symm_slab(packed=True)`: the f32 hi plane (T*tb,
+    tb) of the rank's walk-order triangle tiles plus the lo plane as int16
+    tiles against the per-tile power-of-two scales sc (T,), 6 B per
+    element; p = p_hi + p_lo. Returns (yd_hi, yd_lo, yt_hi, yt_lo); the
+    diagonal term is not included. Formed (hi + loq * sc) and accumulated
+    in native f64, so `comp` selects nothing."""
+    what = "gemv_dfq_symm_slab"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    if alq_slab.shape != ah_slab.shape:
+        raise ValueError(f"quantized lo plane shape {tuple(alq_slab.shape)} "
+                         f"!= hi plane {tuple(ah_slab.shape)}")
+    _check(what, {"a_hi": ah_slab, "a_loq": alq_slab, "sc": sc,
+                  "p_hi": p_hi, "p_lo": p_lo, "it": it, "kt": kt, "lt": lt},
+           ah_slab.device)
+    tb, ms = _slab_geometry(what, ah_slab, p_hi, it, kt, lt, ms, True, None)
+    _check_scales(what, it.shape[0], {"scale": sc})
+    if ah_slab.device.type == "cpu":
+        return gemv_dfq_symm_slab_plain(ah_slab, alq_slab, sc, p_hi, p_lo,
+                                        it, kt, lt, ms=ms)
+    return _slab_call(gemv_dfq_symm_slab, "lam_gemv_dfq_symm_slab",
+                      (ah_slab, alq_slab, sc, p_hi, p_lo), it, kt, lt, ms,
+                      tb, True)
 
 
 KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_fq_symm, gemv_f32, gemv_df64, gemv_f32_cols, gemv_df64_cols,
-           gemv_f32_symm_slab, gemv_df64_symm_slab)
+           gemv_f32_symm_slab, gemv_df64_symm_slab, gemv_q16_symm_slab,
+           gemv_fq_symm_slab, gemv_dfq_symm_slab)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
-         gemv_f32_symm_slab_plain, gemv_df64_symm_slab_plain)
+         gemv_f32_symm_slab_plain, gemv_df64_symm_slab_plain,
+         gemv_q16_symm_slab_plain, gemv_fq_symm_slab_plain,
+         gemv_dfq_symm_slab_plain)
 
 
 def reset_counters():

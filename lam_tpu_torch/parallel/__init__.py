@@ -1,3 +1,4 @@
-"""The 1-D sharded backends on torch.distributed: the process-group mesh
-(`mesh`), the row-sharded gather and ring operator (`pcg`) and the
-band-pair symmetric operator (`pcg_symm`)."""
+"""The sharded backends on torch.distributed: the process-group meshes
+(`mesh`: the 1-D `Mesh` and the R x R `Mesh2D`), the row-sharded gather
+and ring operator (`pcg`), the band-pair symmetric operator (`pcg_symm`:
+df64, dfq and fq storages) and the dense 2-D grid operator (`pcg2d`)."""

@@ -1,13 +1,17 @@
-"""Process groups and the 1-D mesh of the sharded backends.
+"""Process groups and the meshes of the sharded backends.
 
-The port of lam_tpu/parallel/mesh.py:22-91. lam_tpu builds a
-`jax.sharding.Mesh` and lets XLA emit the collectives; here each shard is
-a rank of a `torch.distributed` process group, one rank per device, and
-the collectives of the sharded solvers are methods of `Mesh`.
+The port of lam_tpu/parallel/mesh.py:22-91 and of the grid of
+lam_tpu/parallel/pcg2d.py:57-96. lam_tpu builds a `jax.sharding.Mesh`
+and lets XLA emit the collectives; here each shard is a rank of a
+`torch.distributed` process group, one rank per device, and the
+collectives of the sharded solvers are methods of `Mesh` (1-D) and
+`Mesh2D` (the R x R grid: rank i * R + j sits at grid row i, grid
+column j, with a process subgroup per grid row and per grid column).
 
 Backend: NCCL when every rank has a card of its own (a CUDA device and
-at most one rank per visible card), gloo when ranks share a card or the
-device is the CPU. Gloo's point-to-point operations take CPU tensors
+at most one rank of this host per visible card; the host's share of the
+ranks is torchrun's LOCAL_WORLD_SIZE where set), gloo when ranks share a
+card or the device is the CPU. Gloo's point-to-point operations take CPU tensors
 only, so under gloo every collective sends a CUDA tensor through the
 host (`Mesh._to_comm` / `_from_comm`, the one place that copies); the
 vectors and the matrix stay on the rank's card. Under NCCL the tensors
@@ -17,7 +21,9 @@ never leave the card.
 from __future__ import annotations
 
 import datetime
+import math
 import os
+import sys
 
 import torch
 import torch.distributed as dist
@@ -27,18 +33,35 @@ from lam_tpu_torch.solver.operators import resolve_device, vdot
 ROWS_AXIS = "rows"
 
 
+def _local_layout(rank, num_processes):
+    """(local rank, local world size) of this process on its host:
+    torchrun's LOCAL_RANK / LOCAL_WORLD_SIZE where set; else every rank
+    is taken to share this host (rank, num_processes)."""
+    local_size = os.environ.get("LOCAL_WORLD_SIZE")
+    if local_size is None:
+        return rank, num_processes
+    return int(os.environ.get("LOCAL_RANK", rank)), int(local_size)
+
+
 def _rank_device(dev_type, rank):
-    """The device of rank r: cuda:{r % device_count} or the CPU."""
+    """The device of rank r: the card of its LOCAL rank on a host whose
+    launcher says so (LOCAL_RANK), else cuda:{r % device_count}; or the
+    CPU."""
     if dev_type == "cuda":
-        return torch.device("cuda", rank % torch.cuda.device_count())
+        local_rank, _ = _local_layout(rank, None)
+        return torch.device("cuda", local_rank % torch.cuda.device_count())
     return torch.device("cpu")
 
 
 def choose_backend(device, num_processes):
-    """'nccl' when each of num_processes ranks has a card of its own,
-    else 'gloo' (ranks sharing a card, or the CPU)."""
+    """'nccl' when each rank of THIS host has a card of its own (the
+    host's LOCAL_WORLD_SIZE where set, else all num_processes ranks,
+    against the visible cards), else 'gloo' (ranks sharing a card, or
+    the CPU). With 2 hosts x 4 cards x 4 ranks each, the 8 ranks run
+    NCCL."""
+    _, local_size = _local_layout(0, num_processes)
     if (resolve_device(device).type == "cuda"
-            and num_processes <= torch.cuda.device_count()):
+            and local_size <= torch.cuda.device_count()):
         return "nccl"
     return "gloo"
 
@@ -91,6 +114,7 @@ class Mesh:
     process group: every collective is the identity."""
 
     axis = ROWS_AXIS
+    active = True  # every rank of a 1-D mesh takes part (see Mesh2D)
 
     def __init__(self, rank, size, device, backend=None, group=None):
         self.rank = rank
@@ -114,38 +138,47 @@ class Mesh:
     def _from_comm(self, x):
         return x.to(self.device)
 
-    def all_reduce(self, x):
-        """The sum of x over the ranks, on every rank."""
-        if self.size == 1:
+    def _reduce(self, x, group, size):
+        if size == 1:
             return x
         buf = self._to_comm(x)
-        dist.all_reduce(buf, group=self.group)
+        dist.all_reduce(buf, group=group)
         return self._from_comm(buf)
+
+    def _gather(self, x, group, size):
+        if size == 1:
+            return x
+        buf = self._to_comm(x)
+        parts = [torch.empty_like(buf) for _ in range(size)]
+        dist.all_gather(parts, buf, group=group)
+        return self._from_comm(torch.cat(parts))
+
+    def _exchange(self, x, dst, src):
+        """Send x to rank dst and return what rank src sent."""
+        buf = self._to_comm(x)
+        got = torch.empty_like(buf)
+        ops = [dist.P2POp(dist.isend, buf, dst, self.group),
+               dist.P2POp(dist.irecv, got, src, self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return self._from_comm(got)
+
+    def all_reduce(self, x):
+        """The sum of x over the ranks, on every rank."""
+        return self._reduce(x, self.group, self.size)
 
     def all_gather(self, x):
         """The ranks' x concatenated in rank order (tiled), on every rank
         (jax.lax.all_gather(tiled=True))."""
-        if self.size == 1:
-            return x
-        buf = self._to_comm(x)
-        parts = [torch.empty_like(buf) for _ in range(self.size)]
-        dist.all_gather(parts, buf, group=self.group)
-        return self._from_comm(torch.cat(parts))
+        return self._gather(x, self.group, self.size)
 
     def ppermute_prev(self, x):
         """Send x to rank - 1 and return what rank + 1 sent (the ring
         shift of lam_tpu/parallel/pcg.py:82)."""
         if self.size == 1:
             return x
-        buf = self._to_comm(x)
-        got = torch.empty_like(buf)
-        ops = [dist.P2POp(dist.isend, buf, (self.rank - 1) % self.size,
-                          self.group),
-               dist.P2POp(dist.irecv, got, (self.rank + 1) % self.size,
-                          self.group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return self._from_comm(got)
+        return self._exchange(x, (self.rank - 1) % self.size,
+                              (self.rank + 1) % self.size)
 
     def dot(self, u, v):
         """u . v over vectors split across the ranks: the local vdot,
@@ -174,3 +207,96 @@ def make_mesh(n_devices=None, device="cuda"):
             "rank(s): start one process per device (--coordinator, "
             "--num-processes, --process-id)")
     return Mesh(rank, size, _rank_device(dev_type, rank), backend, group)
+
+
+def transpose_perm(r):
+    """(source, destination) linear indices of the grid's transpose
+    exchange: rank (i, j) receives from (j, i); linear index = i * r + j
+    (lam_tpu/parallel/pcg2d.py:81-83)."""
+    return [(i * r + j, j * r + i) for i in range(r) for j in range(r)]
+
+
+class Mesh2D(Mesh):
+    """An R x R grid over the first R^2 ranks of the process group: this
+    process sits at grid row i = rank // R, grid column j = rank % R.
+    `row_group` joins the ranks of its grid row (lam_tpu's psum over
+    'cols'), `col_group` those of its grid column (psum over 'rows').
+    A rank beyond R^2 is outside the grid (`active` False) and takes no
+    part in any solve. A grid of one rank needs no process group."""
+
+    def __init__(self, rank, r, device, backend=None, group=None,
+                 row_group=None, col_group=None):
+        super().__init__(rank, r * r, device, backend, group)
+        self.r = r
+        self.active = rank < r * r
+        self.i, self.j = divmod(rank, r)
+        self.row_group = row_group
+        self.col_group = col_group
+
+    def __repr__(self):
+        return (f"Mesh2D(rank={self.rank}, grid={self.r}x{self.r}, "
+                f"device={self.device}, backend={self.backend})")
+
+    def transpose(self, x):
+        """Send x to rank (j, i) and return what it sent: the exchange
+        that hands rank (i, j) the vector block j."""
+        if self.i == self.j:
+            return x
+        peer = self.j * self.r + self.i
+        return self._exchange(x, peer, peer)
+
+    def all_reduce_row(self, x):
+        """The sum of x over this rank's grid row, on each of its ranks."""
+        return self._reduce(x, self.row_group, self.r)
+
+    def all_gather_col(self, x):
+        """The blocks of this rank's grid column in grid-row order: the
+        whole of a vector that is split over grid rows."""
+        return self._gather(x, self.col_group, self.r)
+
+    def dot(self, u, v):
+        """u . v over vectors split across grid rows and replicated
+        across grid columns: the local vdot summed over the grid column."""
+        return self._reduce(vdot(u, v), self.col_group, self.r)
+
+
+def make_mesh2d(r=None, device="cuda"):
+    """The R x R grid over the first R^2 ranks of the initialized process
+    group (default: the largest square; one rank without a group). Every
+    rank of the group calls this, the ranks left outside the grid too:
+    the row and column subgroups are created collectively. When the
+    default leaves ranks idle that is said on stderr (rank 0), and a grid
+    larger than the group raises, as lam_tpu's make_mesh2d does."""
+    dev_type = resolve_device(device).type
+    if dist.is_initialized():
+        rank, world, backend = (dist.get_rank(), dist.get_world_size(),
+                                dist.get_backend())
+        if backend == "nccl" and dev_type != "cuda":
+            raise ValueError("the process group runs NCCL: its ranks need "
+                             "CUDA devices")
+    else:
+        rank, world, backend = 0, 1, None
+    if r is None:
+        r = math.isqrt(world)
+        if r * r < world and rank == 0:
+            print(f"lam-cg: 2-D grid uses the largest square: "
+                  f"{r}x{r} = {r * r} of {world} devices "
+                  f"({world - r * r} idle; the 1-D sharded "
+                  f"backend uses all devices)", file=sys.stderr)
+    if r * r > world:
+        raise ValueError(f"need {r * r} devices for a {r}x{r} grid, "
+                         f"have {world}")
+    row_group = col_group = None
+    if r > 1:
+        # every rank creates every subgroup, in one order
+        for a in range(r):
+            grp = dist.new_group([a * r + b for b in range(r)])
+            if rank < r * r and rank // r == a:
+                row_group = grp
+        for b in range(r):
+            grp = dist.new_group([a * r + b for a in range(r)])
+            if rank < r * r and rank % r == b:
+                col_group = grp
+    group = dist.group.WORLD if dist.is_initialized() else None
+    return Mesh2D(rank, r, _rank_device(dev_type, rank), backend, group,
+                  row_group, col_group)

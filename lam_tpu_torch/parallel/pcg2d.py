@@ -1,0 +1,184 @@
+"""2-D sharded dense CG: (n_p/R, n_p/R) blocks over an R x R grid.
+
+The port of lam_tpu/parallel/pcg2d.py (`Sharded2DOperator` and its solve
+methods). Every 1-D backend moves O(N) vector entries per rank and
+matvec; on the grid the exchange is one transposed block plus one
+all-reduce of a block, O(N/R) per rank.
+
+  * grid: the first R^2 ranks of the process group, rank i * R + j at
+    grid row i, grid column j (`parallel.mesh.Mesh2D`);
+  * A: rank (i, j) holds block A_ij of the zero-padded matrix, as an f32
+    block or the (hi, lo) f32 pair of the f64 block;
+  * vectors: split over grid rows, REPLICATED over grid columns (rank
+    (i, j) holds block i), so all vector algebra is local and a dot is
+    the local dot all-reduced over the rank's grid column;
+  * matvec: rank (i, j) needs block j of p but holds block i: one
+    transpose exchange (i, j) <- (j, i) delivers it; the local dense
+    kernel (`gemv_f32` / `gemv_df64`) runs on the block; an all-reduce
+    over the rank's grid row sums the row's partial products and leaves
+    y split and replicated like p.
+
+lam_tpu runs one shard_map program; here every rank of the grid runs the
+one-device CG loops of lam_tpu_torch/solver/cg.py on its block of the
+vectors with the grid's dot. The blocks of a symmetric matrix are not
+symmetric, so engine 'pallas_symm' folds to the dense engine 'pallas',
+as in lam_tpu. Not ported yet: precision 'f64' and engine 'xla' (the
+plain f64 path), `from_gen_tridiagonal` (generate mode), the Jacobi
+preconditioner (`diagonal`, `run_pcg`) and the block matvec
+(`prepare_b_block`); the symmetric grid is lam_tpu/parallel/pcg2d_symm.py.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lam_tpu_torch import io as lio
+from lam_tpu_torch.ops import layout
+from lam_tpu_torch.parallel.mesh import make_mesh2d
+from lam_tpu_torch.parallel.pcg import MATVEC, TILE_K, TILE_M
+from lam_tpu_torch.precision import split_f64_host
+from lam_tpu_torch.solver import operators as ops
+
+
+def _make_apply2d(mv_local, mesh):
+    """The rank's matvec: its block of p -> its block of A p."""
+
+    def apply(operand, p_blk):
+        return mesh.all_reduce_row(mv_local(operand, mesh.transpose(p_blk)))
+
+    return apply
+
+
+class Sharded2DOperator(ops.LinearOperator):
+    """Dense matrix in (n_p/R, n_p/R) blocks over an R x R grid (lam_tpu's
+    Sharded2DOperator, engine 'pallas'): f32 or df64 storage of the
+    rank's block, vectors split over grid rows, dots all-reduced over the
+    grid column."""
+
+    def __init__(self, operand, n, n_padded, vector_dtype, precision, mesh):
+        super().__init__(_make_apply2d(MATVEC[precision][0], mesh), operand,
+                         n, n_padded, vector_dtype, mesh.device)
+        self.precision = "f32" if precision == "f32@df64" else precision
+        self.engine = ops.DENSE_ENGINE
+        self.mesh = mesh
+        self.dot = mesh.dot
+        self.m = n_padded // mesh.r
+
+    # -- construction ------------------------------------------------------
+
+    @staticmethod
+    def block_padded_size(n, r):
+        """Pad so each of the R block sides is a multiple of the dense
+        tiles (lam_tpu/parallel/pcg2d.py:203-211, engine 'pallas')."""
+        return layout.padded_size(n, r * max(TILE_K, TILE_M))
+
+    @staticmethod
+    def from_block_fn(block_fn, n, mesh=None, precision="df64",
+                      engine="auto", device="cuda"):
+        """Build from block_fn(row_start, col_start, rows, cols) -> that
+        f64 block of the UNPADDED matrix: this rank reads and stores only
+        its own block (the 2-D analog of the per-rank MPI-IO read),
+        zero-padded. precision 'f32' or 'df64'; engine 'auto', 'pallas' or
+        'pallas_symm' (blocks are not symmetric: the dense kernels)."""
+        if engine == "xla" or precision == "f64":
+            raise NotImplementedError(
+                "the plain f64 path of the 2-D grid (precision='f64', "
+                "engine='xla') is not ported yet (ROADMAP Queue 1 items 7 "
+                "and 8)")
+        if engine not in ("auto", ops.DENSE_ENGINE, "pallas_symm"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if precision not in ("f32", "df64"):
+            raise ValueError(f"unknown precision {precision!r}")
+        mesh = mesh or make_mesh2d(device=device)
+        if not mesh.active:
+            raise RuntimeError(f"rank {mesh.rank} is outside the "
+                               f"{mesh.r}x{mesh.r} grid and holds no block")
+        n_p = Sharded2DOperator.block_padded_size(n, mesh.r)
+        m = n_p // mesh.r
+        r0, c0 = mesh.i * m, mesh.j * m
+        block = np.zeros((m, m))
+        src_h = max(0, min(n - r0, m))
+        src_w = max(0, min(n - c0, m))
+        if src_h and src_w:
+            block[:src_h, :src_w] = block_fn(r0, c0, src_h, src_w)
+        if precision == "f32":
+            operand = ops._upload(block.astype(np.float32), mesh.device)
+            vdtype = torch.float32
+        else:
+            operand = tuple(ops._upload(x, mesh.device)
+                            for x in split_f64_host(block))
+            vdtype = torch.float64
+        return Sharded2DOperator(operand, n, n_p, vdtype, precision, mesh)
+
+    @staticmethod
+    def from_dense(a, mesh=None, precision="df64", engine="auto",
+                   device="cuda"):
+        a = np.asarray(a, dtype=np.float64)
+        n = a.shape[0]
+        if a.shape != (n, n):
+            raise ValueError(f"matrix must be square, got {a.shape}")
+        return Sharded2DOperator.from_block_fn(
+            lambda r0, c0, h, w: a[r0:r0 + h, c0:c0 + w], n, mesh=mesh,
+            precision=precision, engine=engine, device=device)
+
+    @staticmethod
+    def from_file(path, mesh=None, precision="df64", engine="auto",
+                  device="cuda"):
+        """Block-wise file load: only this rank's block's bytes are read
+        (a column-windowed read, `io.read_matrix_block`)."""
+        rows, cols = lio.read_header(path)
+        if rows != cols:
+            raise ValueError(f"{path}: matrix must be square "
+                             f"({rows}x{cols})")
+        return Sharded2DOperator.from_block_fn(
+            lambda r0, c0, h, w: lio.read_matrix_block(path, r0, c0, h, w),
+            rows, mesh=mesh, precision=precision, engine=engine,
+            device=device)
+
+    @staticmethod
+    def from_gen_tridiagonal(n, mesh=None, precision="df64", engine="auto"):
+        raise NotImplementedError(
+            "Sharded2DOperator.from_gen_tridiagonal (generate mode on the "
+            "device) is not ported yet (ROADMAP Queue 1 item 10)")
+
+    # -- solve path --------------------------------------------------------
+
+    def prepare_b(self, b):
+        """This rank's block (grid row i) of the zero-padded right-hand
+        side."""
+        b = torch.as_tensor(b, dtype=self.vector_dtype)
+        if b.shape != (self.n,):
+            raise ValueError(f"rhs has shape {tuple(b.shape)}, expected "
+                             f"({self.n},)")
+        b = torch.nn.functional.pad(b, (0, self.n_padded - self.n))
+        r0 = self.mesh.i * self.m
+        return b[r0:r0 + self.m].to(self.device)
+
+    def extract_x(self, x_blk):
+        """The whole solution on every rank of the grid (a collective
+        over the grid column)."""
+        return self.mesh.all_gather_col(x_blk)[:self.n]
+
+    def as_f32(self):
+        """f32 view SHARING this operator's buffers: the hi block of a
+        df64 operator (the inner engine of the refinement loop)."""
+        if self.precision == "f32":
+            return self
+        return Sharded2DOperator(self.operand, self.n, self.n_padded,
+                                 torch.float32, "f32@df64", self.mesh)
+
+    def diagonal(self):
+        raise NotImplementedError(
+            "Sharded2DOperator.diagonal (the Jacobi preconditioner) is not "
+            "ported yet (ROADMAP Queue 1 item 7)")
+
+    def run_pcg(self, b_padded, max_iters, rel_error):
+        raise NotImplementedError(
+            "preconditioned CG on the 2-D grid is not ported yet (ROADMAP "
+            "Queue 1 item 7)")
+
+    def prepare_b_block(self, b_block):
+        raise NotImplementedError(
+            "the multi-right-hand-side block matvec is not ported yet "
+            "(ROADMAP Queue 1 item 7)")

@@ -1,29 +1,54 @@
 """Band-pair sharded symmetric CG: each matrix byte read once per matvec.
 
-The port of lam_tpu/parallel/pcg_symm.py (df64 storage, slab and packed).
-The padded n_p x n_p symmetric matrix is cut into 2g bands of m rows; rank
-c owns the band pair (c, 2g-1-c), whose lower-triangle tile counts add up
-to the same number for every rank, so the walk is balanced by
-construction. The rank stores either its two bands as one (2m, n_p) SLAB
-of full rows (packed=False; only the walk's tiles are read) or only the
-walk's tiles, in walk order, as a (T*tb, tb) buffer (packed=True: half
-the memory). Both as the (hi, lo) f32 pair of the f64 matrix.
+The port of lam_tpu/parallel/pcg_symm.py: the df64 storage (slab and
+packed) and the quantized storages dfq and fq (packed only). The padded
+n_p x n_p symmetric matrix is cut into 2g bands of m rows; rank c owns
+the band pair (c, 2g-1-c), whose lower-triangle tile counts add up to the
+same number for every rank, so the walk is balanced by construction. The
+rank stores one of three things:
+
+  'df64' its two bands as one (2m, n_p) SLAB of full rows (packed=False;
+         only the walk's tiles are read) or only the walk's tiles, in
+         walk order, as a (T*tb, tb) buffer (packed=True: half the
+         memory), both as the (hi, lo) f32 pair of the f64 matrix;
+         operand (hi, lo, it, kt, lt).
+  'dfq'  the walk's tiles as the f32 hi plane plus the lo plane quantized
+         to int16 against one power-of-two scale per walk position (6 B
+         per element); operand (hi, loq, sc, dh, dl, it, kt, lt).
+  'fq'   the walk's tiles as the three-int16 cascade against three scale
+         tables (6 B per element), whose inner matvec reads only the
+         2-byte q1 plane; operand (q1, q2, q3, s1, s2, s3, dh, dl, it, kt,
+         lt). The planes hold exactly T tiles: the Q16_P padding of the
+         one-device fq planes does not apply to a shard.
+
+The quantized storages take the diagonal out of each i == k tile before
+quantizing it (it would set the tile's scale) and keep it exactly as the
+(dh, dl) f32 pair over the rank's 2m rows in slab order; the owner adds
+its diagonal term to the direct terms before the all-reduce. With a
+source file and `pack_cache_src` each rank publishes its pack to
+`<src>.shardpack/<storage>.g<g>.s<c>` and later runs on the same mesh
+read it back (lam_tpu_torch/solver/pack_cache.py; files byte-equal to
+lam_tpu's).
 
 Vectors are replicated on every rank: the one-device CG loops of
 lam_tpu_torch/solver/cg.py run unchanged on them with the local dot, and
-the matvec is the one collective: each rank walks its tiles with the slab
-kernel (`gemv_f32_symm_slab` for the f32 inner loop of 'ir', the df64
-twin for the accurate matvec), places the direct terms yd at its owned
-rows on top of the transpose terms yt (`_scatter_bands`) and all-reduces
-the n_p-vector. The all-reduce gives every rank the same bits, so every
-rank computes the same vectors and takes the same host decisions.
-lam_tpu runs XLA's f64 matmul off a TPU for the accurate matvec; the port
-runs its df64 slab kernel on the card and the plain version on the CPU.
+the matvec is the one collective: each rank walks its tiles with a slab
+kernel (`gemv_f32_symm_slab` for the f32 inner loop of 'ir' and 'irq',
+`gemv_q16_symm_slab` for that of 'irfq'; the df64, dfq or fq twin for the
+accurate matvec), places the direct terms yd at its owned rows on top of
+the transpose terms yt (`_scatter_bands`) and all-reduces the n_p-vector.
+The all-reduce gives every rank the same bits, so every rank computes the
+same vectors and takes the same host decisions. lam_tpu runs XLA's f64
+matmul off a TPU for the accurate matvec; the port runs its slab kernels
+on the card and their plain versions on the CPU. Generate mode
+(`from_gen_tridiagonal`, `from_gen_fq` and its broadcast (tb, tb) q2/q3
+tile) is not ported.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -33,8 +58,10 @@ from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.parallel.mesh import make_mesh
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
 from lam_tpu_torch.solver import operators as ops
+from lam_tpu_torch.solver import pack_cache as pc
 
 ENGINES = ("pallas_symm", "pallas_symm_packed")
+STORAGES = ("slab", "packed", "dfq", "fq")
 
 
 def band_padded_size(n, g, tb):
@@ -102,59 +129,93 @@ def _own_rows(p, c, g, m):
                       for r0, size in _slab_row_ranges(c, g, m)])
 
 
-def _make_mv32(mesh, m, tb, packed):
+def _make_mv32(mesh, m, tb, storage):
+    """The f32 inner matvec of a storage: the slab walk of the hi plane
+    ('slab', 'packed', 'dfq') or of the 2-byte q1 plane ('fq'). The
+    quantized planes carry a zeroed diagonal: the owner adds dh * p over
+    its rows (slab order) before the all-reduce."""
+    c, g = mesh.rank, mesh.size
+
     def mv(operand, p):
-        hi, _, it, kt, lt = operand
-        yd, yt = gemv.gemv_f32_symm_slab(hi, p, it, kt, lt, ms=2 * m,
-                                         packed=packed, tb=tb)
-        return mesh.all_reduce(
-            _scatter_bands(yd, yt, mesh.rank, mesh.size, m))
+        it, kt, lt = operand[-3:]
+        if storage == "fq":
+            yd, yt = gemv.gemv_q16_symm_slab(operand[0], operand[3], p, it,
+                                             kt, lt, ms=2 * m)
+        else:
+            yd, yt = gemv.gemv_f32_symm_slab(operand[0], p, it, kt, lt,
+                                             ms=2 * m,
+                                             packed=storage != "slab", tb=tb)
+        if storage in ops.QUANT_LAYOUT:
+            yd = yd + operand[-5] * _own_rows(p, c, g, m)
+        return mesh.all_reduce(_scatter_bands(yd, yt, c, g, m))
 
     return mv
 
 
-def _make_mv_acc(mesh, m, tb, packed):
+def _make_mv_acc(mesh, m, tb, storage):
+    """The accurate matvec of a storage, on f64 vectors: the df64, dfq or
+    fq slab walk. For the quantized storages the owner adds the exact
+    diagonal term (dh + dl) * p over its rows, in native f64 (lam_tpu
+    adds it with df_mul and two_sum), before the all-reduce."""
+    c, g = mesh.rank, mesh.size
+
     def mv(operand, p):
-        hi, lo, it, kt, lt = operand
+        it, kt, lt = operand[-3:]
         ph, pl = split_f64(p)
-        ydh, ydl, yth, ytl = gemv.gemv_df64_symm_slab(
-            hi, lo, ph, pl, it, kt, lt, ms=2 * m, packed=packed, tb=tb)
-        return mesh.all_reduce(_scatter_bands(
-            join_f64(ydh, ydl), join_f64(yth, ytl), mesh.rank, mesh.size, m))
+        if storage == "fq":
+            parts = gemv.gemv_fq_symm_slab(*operand[:6], ph, pl, it, kt, lt,
+                                           ms=2 * m)
+        elif storage == "dfq":
+            parts = gemv.gemv_dfq_symm_slab(*operand[:3], ph, pl, it, kt, lt,
+                                            ms=2 * m)
+        else:
+            parts = gemv.gemv_df64_symm_slab(
+                operand[0], operand[1], ph, pl, it, kt, lt, ms=2 * m,
+                packed=storage != "slab", tb=tb)
+        yd, yt = join_f64(*parts[:2]), join_f64(*parts[2:])
+        if storage in ops.QUANT_LAYOUT:
+            yd = yd + join_f64(operand[-5], operand[-4]) * _own_rows(p, c, g,
+                                                                    m)
+        return mesh.all_reduce(_scatter_bands(yd, yt, c, g, m))
 
     return mv
 
 
 class SymmShardedOperator(ops.LinearOperator):
-    """Band-pair sharded SYMMETRIC df64 matrix over a 1-D mesh: the
-    rank's slab or packed walk tiles as the (hi, lo) f32 pair plus its
-    walk tables, operand (hi, lo, it, kt, lt); vectors replicated."""
+    """Band-pair sharded SYMMETRIC matrix over a 1-D mesh, in one of the
+    storages 'slab' and 'packed' (the df64 pair: operand (hi, lo, it, kt,
+    lt)), 'dfq' ((hi, loq, sc, dh, dl, it, kt, lt)) and 'fq' ((q1, q2, q3,
+    s1, s2, s3, dh, dl, it, kt, lt)): this rank's walk tiles, its walk
+    tables and, for the quantized storages, its rows' diagonal; vectors
+    replicated."""
 
-    def __init__(self, operand, n, n_padded, mesh, m, tb, packed,
+    def __init__(self, operand, n, n_padded, mesh, m, tb, storage,
                  vector_dtype=torch.float64):
+        if storage not in STORAGES:
+            raise ValueError(f"unknown band-pair storage {storage!r}")
         make = _make_mv32 if vector_dtype == torch.float32 else _make_mv_acc
-        super().__init__(make(mesh, m, tb, packed), operand, n, n_padded,
+        super().__init__(make(mesh, m, tb, storage), operand, n, n_padded,
                          vector_dtype, mesh.device)
-        self.precision = "f32" if vector_dtype == torch.float32 else "df64"
-        self.engine = ENGINES[packed]
+        self.precision = ("f32" if vector_dtype == torch.float32 else
+                          storage if storage in ops.QUANT_LAYOUT else "df64")
+        self.engine = ENGINES[storage != "slab"]
         self.mesh = mesh
         self.m = m
         self.tb = tb
-        self.packed = packed
+        self.storage = storage
+        self.packed = storage != "slab"
 
     @staticmethod
     def from_row_block_fn(row_block_fn, n, mesh=None, tb=None, packed=False,
-                          precision="df64", device="cuda"):
+                          precision="df64", pack_cache_src=None,
+                          device="cuda"):
         """Build from per-row-block reads of a SYMMETRIC f64 matrix; this
         rank reads and stores only its two bands. packed=True stores only
-        the walk's tiles, in walk order (half the memory of the slab)."""
-        if precision in ("dfq", "fq"):
-            raise NotImplementedError(
-                f"precision={precision!r} on the band-pair mesh is not "
-                "ported yet: it needs the slab kernels gemv_dfq_symm_slab "
-                "(10), gemv_q16_symm_slab (16) and gemv_fq_symm_slab (17) "
-                "of ROADMAP Queue 2")
-        if precision != "df64":
+        the walk's tiles, in walk order (half the memory of the slab).
+        precision 'dfq' or 'fq' quantizes them (6 B per element; implies
+        packed storage). pack_cache_src (dfq/fq only): the path of the
+        source matrix file, which turns on the per-shard pack cache."""
+        if precision not in ("df64", "dfq", "fq"):
             raise ValueError(
                 f"SymmShardedOperator precision must be 'df64', 'dfq' or "
                 f"'fq', got {precision!r}")
@@ -164,6 +225,7 @@ class SymmShardedOperator(ops.LinearOperator):
         n_p = band_padded_size(n, g, tb)
         m = n_p // (2 * g)
         its, kts, lts = _band_tables(g, m // tb, tb)
+        tables = [ops._upload(x[c], mesh.device) for x in (its, kts, lts)]
 
         def rows_of(r0, count):
             out = np.zeros((count, n_p))
@@ -172,25 +234,86 @@ class SymmShardedOperator(ops.LinearOperator):
                 out[:src, :n] = row_block_fn(r0, src)
             return out
 
-        if packed:
-            tiles = np.empty((its.shape[1] * tb, tb))
+        def walk_tiles():
+            """(t, the f64 (tb, tb) tile at walk position t): one read of
+            each owned tile-row."""
             cur_i, rows = -1, None
             for t, (i, k) in enumerate(zip(its[c], kts[c])):
                 if i != cur_i:
                     cur_i, rows = i, rows_of(i * tb, tb)
-                tiles[t * tb:(t + 1) * tb] = rows[:, k * tb:(k + 1) * tb]
-            block = tiles
+                yield t, rows[:, k * tb:(k + 1) * tb]
+
+        if precision in ops.QUANT_LAYOUT:
+            bufs = SymmShardedOperator._quantized_pack(
+                walk_tiles, precision, c, g, n, n_p, m, tb, its, kts, lts,
+                pack_cache_src)
+            operand = (*(ops._upload(x, mesh.device) for x in bufs), *tables)
+            return SymmShardedOperator(operand, n, n_p, mesh, m, tb,
+                                       precision)
+        if packed:
+            block = np.empty((its.shape[1] * tb, tb))
+            for t, tile in walk_tiles():
+                block[t * tb:(t + 1) * tb] = tile
         else:
             block = np.concatenate([rows_of(r0, size) for r0, size
                                     in _slab_row_ranges(c, g, m)])
         planes = [ops._upload(x, mesh.device) for x in split_f64_host(block)]
-        tables = [ops._upload(x[c], mesh.device) for x in (its, kts, lts)]
         return SymmShardedOperator((*planes, *tables), n, n_p, mesh, m, tb,
-                                   packed)
+                                   STORAGES[packed])
+
+    @staticmethod
+    def _quantized_pack(walk_tiles, storage, c, g, n, n_p, m, tb, its, kts,
+                        lts, pack_cache_src):
+        """Rank c's quantized pack as host buffers in operand order
+        (planes..., scales..., dh, dl): read from the shard cache when
+        pack_cache_src names the source file and its cache is usable,
+        else packed from the walk's tiles (and published there). The
+        diagonal of each i == k tile, systematically the largest entries
+        of an SPD matrix, would set the tile's scale: it is taken out
+        exactly as the slab-order (dh, dl) pair and the zeroed tile is
+        quantized instead. Byte-equal to rank c's part of lam_tpu's
+        `_from_row_block_fn_quantized`."""
+        T = its.shape[1]
+        plane_dtypes, n_scales = ops.QUANT_LAYOUT[storage]
+        n_planes = len(plane_dtypes)
+        specs = ([(dt, (T * tb, tb)) for dt in plane_dtypes]
+                 + [(np.float32, (T,))] * n_scales
+                 + [(np.float32, (2 * m,))] * 2)
+        src_stat = None
+        if pack_cache_src is not None:
+            # the source's identity before the pack reads it
+            src_stat = os.stat(pack_cache_src)
+            hit = pc.load_shard(pack_cache_src, storage, "g", g, c, n, n_p,
+                                tb, specs)
+            if hit is not None:
+                return hit
+        planes = [np.empty((T * tb, tb), dt) for dt in plane_dtypes]
+        scales = [np.zeros((T,), np.float32) for _ in range(n_scales)]
+        dh = np.zeros((2 * m,), np.float32)
+        dl = np.zeros((2 * m,), np.float32)
+        for t, tile in walk_tiles():
+            if its[c, t] == kts[c, t]:
+                tile = tile.copy()
+                dv = np.diagonal(tile).copy()
+                dhi = dv.astype(np.float32)
+                own = slice(int(lts[c, t]) * tb, (int(lts[c, t]) + 1) * tb)
+                dh[own] = dhi
+                dl[own] = (dv - dhi.astype(np.float64)).astype(np.float32)
+                np.fill_diagonal(tile, 0.0)
+            out = ops.quantize_storage_tiles(storage, tile, tb)
+            for plane, val in zip(planes, out[:n_planes]):
+                plane[t * tb:(t + 1) * tb] = val
+            for sc, val in zip(scales, out[n_planes:]):
+                sc[t] = val[0]
+        bufs = (*planes, *scales, dh, dl)
+        if pack_cache_src is not None:
+            pc.save_shard(pack_cache_src, storage, "g", g, c, n, n_p, tb,
+                          bufs, src_stat=src_stat)
+        return bufs
 
     @staticmethod
     def from_dense(a, mesh=None, tb=None, packed=False, precision="df64",
-                   device="cuda"):
+                   pack_cache_src=None, device="cuda"):
         a = np.asarray(a, dtype=np.float64)
         n = a.shape[0]
         if a.shape != (n, n):
@@ -201,13 +324,16 @@ class SymmShardedOperator(ops.LinearOperator):
                 "band walk mirrors the lower triangle)")
         return SymmShardedOperator.from_row_block_fn(
             lambda s, rows: a[s:s + rows, :], n, mesh=mesh, tb=tb,
-            packed=packed, precision=precision, device=device)
+            packed=packed, precision=precision,
+            pack_cache_src=pack_cache_src, device=device)
 
     @staticmethod
     def from_file(path, mesh=None, tb=None, packed=False, precision="df64",
-                  device="cuda"):
+                  pack_cache=False, device="cuda"):
         """Band-wise file load: this rank reads only its bands' rows.
-        Symmetry is trusted (CG's contract), as lam_tpu does."""
+        Symmetry is trusted (CG's contract), as lam_tpu does.
+        pack_cache=True (dfq/fq) reuses and publishes this rank's shard
+        cache beside the file."""
         rows, cols = lio.read_header(path)
         if rows != cols:
             raise ValueError(f"{path}: matrix must be square "
@@ -215,13 +341,32 @@ class SymmShardedOperator(ops.LinearOperator):
         return SymmShardedOperator.from_row_block_fn(
             lambda s, count: lio.read_matrix_rows(path, s, count), rows,
             mesh=mesh, tb=tb, packed=packed, precision=precision,
+            pack_cache_src=(str(path) if pack_cache
+                            and precision in ops.QUANT_LAYOUT else None),
             device=device)
 
     def as_f32(self):
         """f32 triangle-walk view sharing this operator's buffers (the hi
-        plane): the inner engine of the refinement loop."""
+        plane; the q1 plane of 'fq'): the inner engine of the refinement
+        loop."""
         if self.precision == "f32":
             return self
         return SymmShardedOperator(self.operand, self.n, self.n_padded,
-                                   self.mesh, self.m, self.tb, self.packed,
+                                   self.mesh, self.m, self.tb, self.storage,
                                    torch.float32)
+
+    def diagonal(self):
+        """The matrix diagonal as a padded f64 vector, on every rank (a
+        collective): for the quantized storages the (dh, dl) pair the
+        operand carries, scattered to the owned rows and all-reduced
+        (lam_tpu/parallel/pcg_symm.py:841-853)."""
+        if self.storage not in ops.QUANT_LAYOUT:
+            raise NotImplementedError(
+                f"diagonal() of a {self.storage!r} band-pair operator is "
+                "not ported yet (it serves the Jacobi preconditioner, "
+                "ROADMAP Queue 1)")
+        dv = join_f64(self.operand[-5], self.operand[-4])
+        d = torch.zeros(self.n_padded, dtype=torch.float64,
+                        device=self.device)
+        return self.mesh.all_reduce(
+            _scatter_bands(dv, d, self.mesh.rank, self.mesh.size, self.m))

@@ -24,16 +24,24 @@ it with a notice.
 
 backend='local' solves on one device. backend='sharded' splits the
 system over the ranks of a torch.distributed process group, one rank per
-device (lam_tpu_torch/parallel; routed as lam_tpu/solver/api.py:154-189):
+device (lam_tpu_torch/parallel; routed as lam_tpu/solver/api.py:117-189):
 engine 'auto' or 'pallas' with f32/df64/ir gives the row-sharded
 operator (comm 'gather' or 'ring'); 'pallas_symm' (slab) and
-'pallas_symm_packed' with df64/ir give the band-pair operator. Every
-rank calls the same methods in the same order: loads, solves and
+'pallas_symm_packed' with df64/ir give the band-pair operator, and
+dfq/irq/fq/irfq its quantized packed storages ('auto' routes them there;
+pack_cache=True keeps one `<file>.shardpack/<storage>.g<g>.s<rank>` per
+rank). backend='sharded2d' splits it into blocks over an R x R grid of
+the first R^2 ranks (f32/df64/ir, the dense kernels on each block).
+Every rank calls the same methods in the same order: loads, solves and
 measurements are collective.
 
-Every other backend, precision or mode of the JAX facade raises
-NotImplementedError. The device is explicit; asking for CUDA where
-there is none raises.
+Still refused, with NotImplementedError: generate mode, precision
+'f64'/'auto', backend 'auto', engine 'xla', engine 'pallas_symm' on one
+device, the preconditioner, checkpoints, the host outer loop, and on
+'sharded2d' the symmetric grid (engines 'pallas_symm'/
+'pallas_symm_packed', precisions dfq/irq/fq/irfq: its dual kernels 11-13,
+18 and 19 are still to port). The device is explicit; asking for CUDA
+where there is none raises.
 """
 
 from __future__ import annotations
@@ -60,23 +68,51 @@ SYMM_ENGINES = ("pallas_symm", "pallas_symm_packed")
 
 
 def _check_sharded(precision, engine):
-    """Raise for a sharded configuration the port does not take, with
-    lam_tpu's messages (lam_tpu/solver/api.py:157-178)."""
+    """The engine a 1-D sharded configuration runs; raises for one the
+    port does not take, with lam_tpu's messages
+    (lam_tpu/solver/api.py:157-178)."""
     base = _BASE.get(precision, precision)
-    if base in QUANT_LAYOUT:
-        raise NotImplementedError(
-            f"precision={precision!r} with backend='sharded' is not ported "
-            "yet: the dfq/fq band-pair kernels (10, 16, 17 of ROADMAP "
-            "Queue 2) are still to port")
     if engine == "xla":
         raise NotImplementedError(f"engine={engine!r} is not ported yet")
     if engine not in ENGINES + ("pallas_symm",):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine in SYMM_ENGINES and base != "df64":
+    if base in QUANT_LAYOUT and engine == "auto":
+        # quantized storage exists only as packed triangle tiles
+        engine = "pallas_symm_packed"
+    if engine in SYMM_ENGINES:
+        if base not in ("df64",) + tuple(QUANT_LAYOUT):
+            raise ValueError(
+                f"--backend sharded --engine {engine} supports precision "
+                "df64/ir/dfq/irq/fq/irfq (the df64 pair or a quantized "
+                "form is the storage layout)")
+        if base in QUANT_LAYOUT and engine != "pallas_symm_packed":
+            raise ValueError(
+                "precision='dfq'/'irq'/'fq'/'irfq' implies packed storage; "
+                "use engine='pallas_symm_packed' (or 'auto')")
+    return engine
+
+
+def _check_sharded2d(precision, engine):
+    """Raise for a 2-D grid configuration the port does not take
+    (routing of lam_tpu/solver/api.py:117-153)."""
+    base = _BASE.get(precision, precision)
+    if engine == "xla":
+        raise NotImplementedError(f"engine={engine!r} is not ported yet")
+    if engine not in ENGINES + ("pallas_symm",):
+        raise ValueError(f"unknown engine {engine!r}")
+    if engine in SYMM_ENGINES or (base in QUANT_LAYOUT and engine == "auto"):
+        raise NotImplementedError(
+            f"--backend sharded2d with engine={engine!r} and precision="
+            f"{precision!r} is the symmetric 2-D grid, which is not ported "
+            "yet: its dual kernels gemv_f32_dual (11), gemv_df64_dual (12), "
+            "gemv_dfq_dual (13), gemv_q16_dual (18) and gemv_fq_dual (19) "
+            "are still to port")
+    if base in QUANT_LAYOUT:
         raise ValueError(
-            f"--backend sharded --engine {engine} supports precision "
-            "df64/ir/dfq/irq/fq/irfq (the df64 pair or a quantized form is "
-            "the storage layout)")
+            f"--backend sharded2d --engine {engine} supports precision "
+            "f64/f32/df64/ir; the quantized storages (dfq/irq/fq/irfq) "
+            "exist only on the symmetric grid (engine pallas_symm_packed "
+            "or auto)")
 
 
 class ConjugateGradient:
@@ -86,13 +122,24 @@ class ConjugateGradient:
         if precision not in PRECISIONS:
             raise NotImplementedError(f"precision={precision!r} is not "
                                       f"ported yet (one of {PRECISIONS})")
+        self._sharded_engine = None
         if backend == "sharded":
-            _check_sharded(precision, engine)
+            self._sharded_engine = _check_sharded(precision, engine)
             if comm not in ("gather", "ring"):
                 raise ValueError(f"unknown comm strategy {comm!r}")
             if mesh is None:
                 from lam_tpu_torch.parallel.mesh import make_mesh
                 mesh = make_mesh(n_devices, device=device)
+            self.device = mesh.device
+        elif backend == "sharded2d":
+            _check_sharded2d(precision, engine)
+            if mesh is None:
+                import math
+
+                from lam_tpu_torch.parallel.mesh import make_mesh2d
+                mesh = make_mesh2d(
+                    None if n_devices is None else math.isqrt(n_devices),
+                    device=device)
             self.device = mesh.device
         elif backend == "local":
             check_engine(engine)
@@ -104,7 +151,8 @@ class ConjugateGradient:
             self.device = resolve_device(device)
         else:
             raise NotImplementedError(f"backend={backend!r} is not ported "
-                                      "yet ('local' or 'sharded')")
+                                      "yet ('local', 'sharded' or "
+                                      "'sharded2d')")
         self.backend = backend
         self.precision = precision
         self.engine = engine
@@ -125,7 +173,7 @@ class ConjugateGradient:
             raise ValueError(f"{filename}: matrix must be square")
         self.n = rows
         storage = _BASE.get(self.precision, self.precision)
-        if self.backend == "sharded":
+        if self.backend in ("sharded", "sharded2d"):
             self.op = self._sharded_operator(filename, storage)
         elif self.engine == DENSE_ENGINE:
             # the full square, as lam_tpu's file-mode fallback builds it
@@ -147,26 +195,36 @@ class ConjugateGradient:
 
     def _sharded_operator(self, filename, storage):
         """This rank's part of the sharded operator, read from the file
-        (each rank reads only its own rows)."""
-        if self.pack_cache:
+        (each rank reads only its own rows or block)."""
+        shard_cached = (self.backend == "sharded"
+                        and storage in QUANT_LAYOUT)
+        if self.pack_cache and not shard_cached:
             print("lam-cg: --pack-cache only accelerates "
                   "backend=local f32/df64/ir/dfq/irq/fq/irfq and "
                   "sharded/sharded2d dfq/irq/fq/irfq file loads; "
                   "ignored for this backend/precision", file=sys.stderr)
-        if self.engine in SYMM_ENGINES:
+        if self.backend == "sharded2d":
+            from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator
+            return Sharded2DOperator.from_file(
+                filename, mesh=self.mesh, precision=storage,
+                engine=self.engine)
+        engine = self._sharded_engine
+        if engine in SYMM_ENGINES:
             from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator
             return SymmShardedOperator.from_file(
                 filename, mesh=self.mesh,
-                packed=self.engine == "pallas_symm_packed")
+                packed=engine == "pallas_symm_packed",
+                precision=storage if storage in QUANT_LAYOUT else "df64",
+                pack_cache=self.pack_cache)
         from lam_tpu_torch.parallel.pcg import ShardedDenseOperator
         return ShardedDenseOperator.from_file(
-            filename, mesh=self.mesh, precision=storage, engine=self.engine,
+            filename, mesh=self.mesh, precision=storage, engine=engine,
             comm=self.comm)
 
     def used_devices(self):
         """Devices the backend uses: the CSV procs column (the mesh's
-        ranks for 'sharded', 1 for 'local')."""
-        return self.mesh.size if self.backend == "sharded" else 1
+        ranks for 'sharded' and 'sharded2d', 1 for 'local')."""
+        return self.mesh.size if self.mesh is not None else 1
 
     @property
     def rank(self):

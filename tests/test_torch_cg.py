@@ -230,10 +230,14 @@ def test_facade_solves_and_records(tmp_path, system):
 
 
 def test_unported_options_raise(system):
-    with pytest.raises(NotImplementedError):
-        ConjugateGradient(backend="sharded2d", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        ConjugateGradient(backend="sharded", precision="irq", device="cpu")
+    # the symmetric 2-D grid waits for its dual kernels
+    with pytest.raises(NotImplementedError, match="gemv_dfq_dual"):
+        ConjugateGradient(backend="sharded2d", precision="irq", device="cpu")
+    with pytest.raises(NotImplementedError, match="symmetric 2-D grid"):
+        ConjugateGradient(backend="sharded2d", engine="pallas_symm_packed",
+                          device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        ConjugateGradient(backend="auto", device="cpu")
     for engine in ("pallas_symm", "xla"):
         with pytest.raises(NotImplementedError, match=engine):
             ConjugateGradient(engine=engine, device="cpu")

@@ -508,6 +508,111 @@ def test_slab_kernel_rejects_bad_tables():
                                  ms=2 * op.m, packed=True)
 
 
+QSHARD_SIZES = [(1500, 2), (1500, 3), (10000, 2), (10000, 4)]  # (n, ranks)
+
+
+@pytest.mark.parametrize("storage", ["fq", "dfq"])
+@pytest.mark.parametrize("n,g", QSHARD_SIZES)
+def test_quantized_slab_kernels_match_plain(n, g, storage):
+    """Every rank's walk, tables and scales of the quantized band-pair
+    storages: gemv_q16_symm_slab (fq) to 1e-5, gemv_fq_symm_slab and
+    gemv_dfq_symm_slab to the f64 oracle of the stored values at 1e-13,
+    bitwise repeats; the ranks' parts plus the owners' diagonal terms are
+    the matvec to the storage bound, exactly 0 on the padding rows."""
+    a, p = _shard_matrix(n, seed=n + 10 * g + 1)
+    total = None
+    for c in range(g):
+        op = pcg_symm.SymmShardedOperator.from_dense(
+            a, mesh=pmesh.Mesh(c, g, "cuda"), precision=storage)
+        it, kt, lt = op.operand[-3:]
+        dh, dl = op.operand[-5], op.operand[-4]
+        ms, tb = 2 * op.m, op.tb
+        T = it.shape[0]
+        assert op.operand[0].shape == (T * tb, tb)  # exactly T tiles
+        ph, pl = _cuda_pair(p, op.n_padded)
+        p64 = ph.double() + pl.double()
+        ops.reset_counters()
+        if storage == "fq":
+            planes, scales = op.operand[:3], op.operand[3:6]
+            yd, yt = gemv.gemv_q16_symm_slab(planes[0], scales[0], ph, it,
+                                             kt, lt, ms=ms)
+            outs = gemv.gemv_fq_symm_slab(*planes, *scales, ph, pl, it, kt,
+                                          lt, ms=ms)
+            torch.cuda.synchronize()
+            counts = ops.counters()
+            assert counts["gemv_q16_symm_slab"] == 1
+            assert counts["gemv_fq_symm_slab"] == 1
+            assert counts["gemv_q16_symm_slab_plain"] == 0
+            assert counts["gemv_fq_symm_slab_plain"] == 0
+            terms = [q.double() * sc.double().repeat_interleave(tb)[:, None]
+                     for q, sc in zip(planes, scales)]
+            qd, qt = gemv.gemv_q16_symm_slab_plain(planes[0], scales[0], ph,
+                                                   it, kt, lt, ms=ms)
+            od, ot = gemv._slab_parts(terms[0], ph.double(), it, kt, lt, ms,
+                                      tb, True)
+            y, q = torch.cat([yd, yt]), torch.cat([qd, qt])
+            assert _rel(y, q) <= 1e-5
+            assert _rel(y.double(), torch.cat([od, ot])) <= 1e-5
+            zd, zt = gemv.gemv_q16_symm_slab(planes[0], scales[0], ph, it,
+                                             kt, lt, ms=ms)
+            assert torch.equal(yd, zd) and torch.equal(yt, zt)
+            stored = terms[0] + terms[1] + terms[2]
+            plain = gemv.gemv_fq_symm_slab_plain(*planes, *scales, ph, pl,
+                                                 it, kt, lt, ms=ms)
+            again = gemv.gemv_fq_symm_slab(*planes, *scales, ph, pl, it, kt,
+                                           lt, ms=ms)
+        else:
+            hi, loq, sc = op.operand[:3]
+            outs = gemv.gemv_dfq_symm_slab(hi, loq, sc, ph, pl, it, kt, lt,
+                                           ms=ms)
+            torch.cuda.synchronize()
+            counts = ops.counters()
+            assert counts["gemv_dfq_symm_slab"] == 1
+            assert counts["gemv_dfq_symm_slab_plain"] == 0
+            stored = hi.double() + loq.double() \
+                * sc.double().repeat_interleave(tb)[:, None]
+            plain = gemv.gemv_dfq_symm_slab_plain(hi, loq, sc, ph, pl, it,
+                                                  kt, lt, ms=ms)
+            again = gemv.gemv_dfq_symm_slab(hi, loq, sc, ph, pl, it, kt, lt,
+                                            ms=ms)
+        assert all(torch.equal(u, v) for u, v in zip(outs, again))
+        y64 = torch.cat([outs[0].double() + outs[1].double(),
+                         outs[2].double() + outs[3].double()])
+        q64 = torch.cat([plain[0].double() + plain[1].double(),
+                         plain[2].double() + plain[3].double()])
+        od, ot = gemv._slab_parts(stored, p64, it, kt, lt, ms, tb, True)
+        assert _rel(y64, torch.cat([od, ot])) <= 1e-13
+        assert _rel(y64, q64) <= 1e-13
+        yd64 = y64[:ms] + (dh.double() + dl.double()) \
+            * pcg_symm._own_rows(p64, c, g, op.m)
+        part = pcg_symm._scatter_bands(yd64, y64[ms:], c, g, op.m)
+        total = part if total is None else total + part
+    oracle = torch.mv(torch.from_numpy(a).cuda(),
+                      torch.from_numpy(p).cuda())
+    assert _rel(total[:n], oracle) <= (1e-12 if storage == "fq" else 1e-11)
+    assert torch.count_nonzero(total[n:]) == 0
+
+
+def test_quantized_slab_kernels_reject_bad_inputs():
+    op = pcg_symm.SymmShardedOperator.from_dense(
+        _shard_matrix(1500, 1)[0], mesh=pmesh.Mesh(0, 2, "cuda"),
+        precision="fq")
+    q1, q2, q3, s1, s2, s3, _, _, it, kt, lt = op.operand
+    p, ms = torch.zeros(op.n_padded, device="cuda"), 2 * op.m
+    with pytest.raises(ValueError, match="out of range"):
+        gemv.gemv_q16_symm_slab(q1, s1, p, it, it + 1, lt, ms=ms)
+    with pytest.raises(ValueError, match="table shape"):
+        gemv.gemv_fq_symm_slab(q1, q2, q3, s1, s2[:-1], s3, p, p, it, kt, lt,
+                               ms=ms)
+    with pytest.raises(NotImplementedError, match="broadcast"):
+        gemv.gemv_fq_symm_slab(q1, q2[:512], q3, s1, s2, s3, p, p, it, kt,
+                               lt, ms=ms)
+    with pytest.raises(ValueError, match="int16"):
+        gemv.gemv_q16_symm_slab(q1.float(), s1, p, it, kt, lt, ms=ms)
+    with pytest.raises(ValueError, match="expected"):
+        gemv.gemv_q16_symm_slab(q1, s1.cpu(), p, it, kt, lt, ms=ms)
+
+
 def test_two_rank_gloo_solve_on_one_card(tmp_path):
     """Two rank processes share the one card over gloo: the CLI's ring ir
     solve and the packed band-pair ir solve run the shard kernels in both
@@ -532,6 +637,10 @@ def test_two_rank_gloo_solve_on_one_card(tmp_path):
         "--precision", "ir", "--comm", "ring"]},
         {"kind": "solve", "name": "packed-ir", "op": "symm",
          "precision": "ir", "packed": True, "tb": 512,
+         "matrix": str(tmp_path / "A.bin"), "rhs": str(tmp_path / "b.bin"),
+         "rel_error": 1e-9},
+        {"kind": "solve", "name": "packed-irfq", "op": "symm",
+         "precision": "irfq", "tb": 512, "pack_cache": True,
          "matrix": str(tmp_path / "A.bin"), "rhs": str(tmp_path / "b.bin"),
          "rel_error": 1e-9}]
     (tmp_path / "jobs.json").write_text(json.dumps(jobs))
@@ -570,6 +679,53 @@ def test_two_rank_gloo_solve_on_one_card(tmp_path):
                 assert rec["counts"][k] > 0 and rec["counts"][k + "_plain"] == 0
         x = np.load(tmp_path / f"packed-ir.r{r}.npy")
         assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
+        irfq = recs["packed-irfq"]
+        assert irfq["converged"]
+        for k in ("gemv_q16_symm_slab", "gemv_fq_symm_slab"):
+            assert irfq["counts"][k] > 0 and irfq["counts"][k + "_plain"] == 0
+        assert irfq["counts"]["gemv_f32_symm_slab"] == 0
+        x = np.load(tmp_path / f"packed-irfq.r{r}.npy")
+        assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
+        assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)
+        assert (tmp_path / "A.bin.shardpack" / f"fq.g2.s{r}").exists()
+    x = tio.read_vector(tmp_path / "x.bin")
+    assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
+    assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)
+
+
+def test_four_rank_grid_solve_on_one_card(tmp_path):
+    """Four rank processes share the one card over gloo as a 2 x 2 grid:
+    the CLI's --backend sharded2d ir solve runs the dense kernels on every
+    rank's block (no plain version, no symmetric kernel) and gives the
+    one-device solution."""
+    import json
+
+    from lam_tpu_torch import DenseOperator, cg_solve_ir, generate
+    from lam_tpu_torch import io as tio
+    from torch_sharded_worker import launch_cluster
+
+    n = 3000
+    a = generate.random_spd_matrix_fast(n, seed=7)
+    b = generate.random_rhs(n, seed=8)
+    tio.write_matrix(tmp_path / "A.bin", a)
+    tio.write_matrix(tmp_path / "b.bin", b)
+    jobs = [{"kind": "cli", "name": "grid-ir", "argv": [
+        "-A", str(tmp_path / "A.bin"), "-b", str(tmp_path / "b.bin"),
+        "-o", str(tmp_path / "x.bin"), "--backend", "sharded2d",
+        "--precision", "ir"]}]
+    records = launch_cluster(4, jobs, str(tmp_path / "run"), 300,
+                             device="cuda")
+    local = DenseOperator.from_dense(a, precision="df64", device="cuda")
+    x_local = cg_solve_ir(local.as_f32(), local, b, max_iters=10000,
+                          rel_error=1e-9).x.cpu().numpy()
+    for rank in records:
+        rec = rank["grid-ir"]
+        assert rec["rc"] == 0
+        for k in ("gemv_f32", "gemv_df64"):
+            assert rec["counts"][k] > 0 and rec["counts"][k + "_plain"] == 0
+        assert rec["counts"]["gemv_f32_symm"] == 0
+        assert rec["counts"]["gemv_f32_symm_slab"] == 0
+    assert int(records[0]["grid-ir"]["stdout"].split(",")[1]) == 4
     x = tio.read_vector(tmp_path / "x.bin")
     assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
     assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)

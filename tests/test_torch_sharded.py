@@ -9,7 +9,12 @@ walk tables of g = 1, 2, 3 ranks. Storage: the walk tables and every
 rank's slab, packed and row-block buffers byte-equal to lam_tpu's shards on
 the conftest's 8-device virtual mesh, built here rank by rank without a
 process group; the ranks' parts summed equal the port's one-device plain
-matvecs.
+matvecs. The quantized band-pair storages (dfq, fq) likewise: the plain
+q16/fq/dfq slab walks against lam_tpu's kernels (q16 to 1e-6; fq and dfq
+to the f64 oracle of the stored values at 1e-13 and to lam_tpu's pairs at
+1e-6), every rank's planes, scales and diagonal pair byte-equal to
+lam_tpu's shards, the ranks' parts plus the owners' diagonal terms summed
+equal to the one-device dfq/fq/q16 matvecs at the same tile width.
 
 Solves run in gloo CPU clusters of 2 and 4 rank processes
 (tests/torch_sharded_worker.py), one launch per rank count, each running
@@ -18,7 +23,11 @@ sharded solves on a virtual mesh of as many devices (f64 engine 'xla' for
 df64, its 'ir' for ir, f32 'xla' for f32): df64 iterations within 2 of
 lam_tpu's sharded count or of its one-device f64 count (the two part by 3
 at G=4 on this system), ir within 2%, f32 (to 1e-5) within 2%, x within 1e-6 (f32: 1e-3) of lam_tpu's
-and identical on every rank, TRUE residual <= 1e-8 (f32: 1e-4).
+and identical on every rank, TRUE residual <= 1e-8 (f32: 1e-4). The
+quantized solves (dfq and fq: the df64 class; irq and irfq: the refinement
+class) against lam_tpu's band-pair dfq/fq operators the same way; the CLI
+with --pack-cache writes one shard file per rank, and a second run reads
+them: same iterations, bitwise the same x.
 """
 
 import contextlib
@@ -26,9 +35,6 @@ import io
 import json
 import math
 import os
-import socket
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -40,21 +46,23 @@ from lam_tpu.ops import gemv as jgemv
 from lam_tpu.parallel import pcg_symm as jpcg_symm
 from lam_tpu.parallel.mesh import make_mesh as jmake_mesh
 from lam_tpu.parallel.pcg import ShardedDenseOperator as JDense
+from lam_tpu.solver import cg as jcg
 from lam_tpu_torch import ConjugateGradient, DenseOperator, cg_solve_ir
 from lam_tpu_torch import cli as tcli
 from lam_tpu_torch import io as tio
 from lam_tpu_torch.ops import gemv
 from lam_tpu_torch.parallel import mesh as pmesh
 from lam_tpu_torch.parallel import pcg, pcg_symm
+from lam_tpu_torch.ops import layout
 from lam_tpu_torch.precision import split_f64_host
+from torch_sharded_worker import launch_cluster
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-WORKER = os.path.join(ROOT, "tests", "torch_sharded_worker.py")
 N, SEED = 500, 41
 TB = 128
 RANKS = (2, 4)
 CLUSTER_TIMEOUT_S = 240
 DENSE_PRECISIONS = ("f32", "df64", "ir")
+QUANT_PRECISIONS = ("dfq", "irq", "fq", "irfq")
 F32_REL_ERROR = 1e-5
 
 
@@ -222,6 +230,123 @@ def test_df64_slab_refuses_the_broadcast_lo_tile():
                                  packed=True)
 
 
+QSLAB_CASES = [(1, 2), (2, 2), (3, 1)]
+
+
+def _quant_ranks(g, mt, storage, seed):
+    """(a, p, [rank operators]) of a g-rank band-pair geometry with mt
+    tile-rows per band in a quantized storage, built rank by rank."""
+    n = 2 * g * mt * TB
+    a, p = _symmetric(n, seed), np.random.default_rng(seed).uniform(-1, 1, n)
+    return a, p, [_rank_op(pcg_symm.SymmShardedOperator, a, c, g, tb=TB,
+                           precision=storage) for c in range(g)]
+
+
+def _dequantized(planes, scales):
+    """f64 (T, tb, tb) tiles of quantized planes: sum of plane * scale."""
+    out = 0.0
+    for q, sc in zip(planes, scales):
+        out = out + (q.numpy().astype(np.float64).reshape(-1, TB, TB)
+                     * sc.numpy().astype(np.float64)[:, None, None])
+    return out
+
+
+def _check_pairs_against(parts, tiles, p, it, kt, lt, ms, ref):
+    """(yd, yt) pairs against the f64 walk of the stored values (1e-13)
+    and against lam_tpu's pairs (1e-6: XLA:CPU defeats its in-kernel
+    compensation)."""
+    yd = parts[0].double().numpy() + parts[1].numpy()
+    yt = parts[2].double().numpy() + parts[3].numpy()
+    od, ot = _walk_oracle(tiles, p, it.numpy(), kt.numpy(), lt.numpy(), ms)
+    assert _rel(yd, od) <= 1e-13
+    assert (_rel(yt, ot) <= 1e-13) if np.any(ot) else not np.any(yt)
+    assert _rel(yd, np.asarray(ref[0], np.float64) + ref[1]) <= 1e-6
+    if np.any(ot):
+        assert _rel(yt, np.asarray(ref[2], np.float64) + ref[3]) <= 1e-6
+
+
+@pytest.mark.parametrize("g,mt", QSLAB_CASES)
+def test_gemv_q16_symm_slab_plain_matches_lam_tpu(g, mt):
+    a, p, ranks = _quant_ranks(g, mt, "fq", seed=g * 10 + mt + 1)
+    p32 = p.astype(np.float32)
+    for op in ranks:
+        q1, s1 = op.operand[0], op.operand[3]
+        it, kt, lt = op.operand[-3:]
+        ms = 2 * op.m
+        yd, yt = gemv.gemv_q16_symm_slab(q1, s1, torch.from_numpy(p32), it,
+                                         kt, lt, ms=ms)
+        rd, rt = jgemv.gemv_q16_symm_slab(q1.numpy(), s1.numpy(), p32,
+                                          it.numpy(), kt.numpy(), lt.numpy(),
+                                          ms=ms)
+        assert _rel(yd, np.asarray(rd)) <= 1e-6
+        rt = np.asarray(rt)
+        assert (_rel(yt, rt) <= 1e-6) if np.any(rt) else not torch.any(yt)
+        od, ot = _walk_oracle(_dequantized([q1], [s1]), p32.astype(np.float64),
+                              it.numpy(), kt.numpy(), lt.numpy(), ms)
+        assert _rel(yd, od) <= 1e-6
+
+
+@pytest.mark.parametrize("g,mt", QSLAB_CASES)
+def test_gemv_fq_symm_slab_plain_matches_f64(g, mt):
+    a, p, ranks = _quant_ranks(g, mt, "fq", seed=g * 10 + mt + 2)
+    ph, pl = _pair(p)
+    for op in ranks:
+        planes, scales = op.operand[:3], op.operand[3:6]
+        it, kt, lt = op.operand[-3:]
+        ms = 2 * op.m
+        parts = gemv.gemv_fq_symm_slab(*planes, *scales, ph, pl, it, kt, lt,
+                                       ms=ms)
+        ref = jgemv.gemv_fq_symm_slab(
+            *(x.numpy() for x in (*planes, *scales, ph, pl, it, kt, lt)),
+            ms=ms)
+        _check_pairs_against(parts, _dequantized(planes, scales),
+                             ph.double().numpy() + pl.numpy(), it, kt, lt,
+                             ms, ref)
+
+
+@pytest.mark.parametrize("g,mt", QSLAB_CASES)
+def test_gemv_dfq_symm_slab_plain_matches_f64(g, mt):
+    a, p, ranks = _quant_ranks(g, mt, "dfq", seed=g * 10 + mt + 3)
+    ph, pl = _pair(p)
+    for op in ranks:
+        hi, loq, sc = op.operand[:3]
+        it, kt, lt = op.operand[-3:]
+        ms = 2 * op.m
+        parts = gemv.gemv_dfq_symm_slab(hi, loq, sc, ph, pl, it, kt, lt,
+                                        ms=ms)
+        ref = jgemv.gemv_dfq_symm_slab(
+            *(x.numpy() for x in (hi, loq, sc, ph, pl, it, kt, lt)), ms=ms)
+        tiles = (hi.numpy().astype(np.float64).reshape(-1, TB, TB)
+                 + _dequantized([loq], [sc]))
+        _check_pairs_against(parts, tiles, ph.double().numpy() + pl.numpy(),
+                             it, kt, lt, ms, ref)
+
+
+def test_quantized_slab_walks_refuse_what_lam_tpu_refuses():
+    op = _rank_op(pcg_symm.SymmShardedOperator, _symmetric(512, 4), 0, 2,
+                  tb=TB, precision="fq")
+    q1, q2, q3, s1, s2, s3, _, _, it, kt, lt = op.operand
+    p, ms = torch.zeros(512), 2 * op.m
+    with pytest.raises(NotImplementedError, match="broadcast"):
+        gemv.gemv_fq_symm_slab(q1, q2[:TB], q3, s1, s2, s3, p, p, it, kt, lt,
+                               ms=ms)
+    with pytest.raises(ValueError, match="table shape"):
+        gemv.gemv_q16_symm_slab(q1, s1[:-1], p, it, kt, lt, ms=ms)
+    with pytest.raises(ValueError, match="walk table has"):
+        gemv.gemv_q16_symm_slab(q1, s1, p, it[:-1], kt[:-1], lt[:-1], ms=ms)
+    with pytest.raises(ValueError, match="needs ms"):
+        gemv.gemv_fq_symm_slab(q1, q2, q3, s1, s2, s3, p, p, it, kt, lt,
+                               ms=None)
+    dfq = _rank_op(pcg_symm.SymmShardedOperator, _symmetric(512, 4), 0, 2,
+                   tb=TB, precision="dfq")
+    hi, loq, sc = dfq.operand[:3]
+    with pytest.raises(ValueError, match="quantized lo plane shape"):
+        gemv.gemv_dfq_symm_slab(hi, loq[:TB], sc, p, p, it, kt, lt, ms=ms)
+    with pytest.raises(ValueError, match="comp="):
+        gemv.gemv_dfq_symm_slab(hi, loq, sc, p, p, it, kt, lt, ms=ms,
+                                comp="defer")
+
+
 # -- storage ---------------------------------------------------------------
 
 
@@ -330,6 +455,97 @@ def test_band_parts_sum_to_the_one_device_matvec(g, packed):
     assert not torch.any(y32[n:]) and not torch.any(y64[n:])
 
 
+@pytest.mark.parametrize("storage", ["dfq", "fq"])
+@pytest.mark.parametrize("g", [1, 2, 4])
+def test_quantized_band_shards_byte_equal_lam_tpu(g, storage):
+    """Rank c's operand is rank c's part of lam_tpu's global arrays:
+    planes (g*L, tb) -> rows [c*L, (c+1)*L), scales (g, T) -> row c,
+    dh/dl (n_p,) -> [c*2m, (c+1)*2m), tables (g, T) -> row c."""
+    a = _symmetric(700, 20 + g)
+    ref = jpcg_symm.SymmShardedOperator.from_dense(
+        a, mesh=jmake_mesh(g), tb=TB, precision=storage)
+    ref_shards = [_shards(x) for x in ref.operand]
+    for c in range(g):
+        op = _rank_op(pcg_symm.SymmShardedOperator, a, c, g, tb=TB,
+                      precision=storage)
+        assert (op.n_padded, op.precision) == (ref.n_padded, storage)
+        assert op.engine == ref.engine == "pallas_symm_packed"
+        assert len(op.operand) == len(ref.operand)
+        for mine, shards in zip(op.operand, ref_shards):
+            want = shards[c].reshape(mine.shape)
+            assert mine.numpy().dtype == want.dtype
+            assert np.array_equal(mine.numpy(), want)
+        assert op.as_f32().operand is op.operand
+        assert op.as_f32().precision == "f32"
+
+
+@pytest.mark.parametrize("storage", ["dfq", "fq"])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+def test_quantized_band_parts_sum_to_the_one_device_matvec(g, storage,
+                                                           monkeypatch):
+    """At one tile width the band-pair walk stores the one-device packed
+    triangle's tiles (per-tile quantization is order-free), so the ranks'
+    parts plus the owners' diagonal terms are the one-device matvec."""
+    monkeypatch.setattr(layout, "SYMM_TB", TB)
+    n = 900
+    a = _symmetric(n, 40 + g) + np.diag(np.full(n, 30.0))
+    ops_ = [_rank_op(pcg_symm.SymmShardedOperator, a, c, g, tb=TB,
+                     precision=storage) for c in range(g)]
+    n_p, m = ops_[0].n_padded, ops_[0].m
+    p = np.zeros(n_p)
+    p[:n] = np.random.default_rng(g).uniform(-1, 1, n)
+    ph, pl = _pair(p)
+    p64 = torch.from_numpy(p)
+    y32 = torch.zeros(n_p)
+    y64 = torch.zeros(n_p, dtype=torch.float64)
+    for c, op in enumerate(ops_):
+        it, kt, lt = op.operand[-3:]
+        dh, dl = op.operand[-5], op.operand[-4]
+        if storage == "fq":
+            yd, yt = gemv.gemv_q16_symm_slab(op.operand[0], op.operand[3],
+                                             ph, it, kt, lt, ms=2 * m)
+            parts = gemv.gemv_fq_symm_slab(*op.operand[:6], ph, pl, it, kt,
+                                           lt, ms=2 * m)
+        else:
+            yd, yt = gemv.gemv_f32_symm_slab(op.operand[0], ph, it, kt, lt,
+                                             ms=2 * m, packed=True)
+            parts = gemv.gemv_dfq_symm_slab(*op.operand[:3], ph, pl, it, kt,
+                                            lt, ms=2 * m)
+        yd = yd + dh * pcg_symm._own_rows(ph, c, g, m)
+        y32 += pcg_symm._scatter_bands(yd, yt, c, g, m)
+        yd64 = (parts[0].double() + parts[1].double()
+                + (dh.double() + dl.double())
+                * pcg_symm._own_rows(p64, c, g, m))
+        y64 += pcg_symm._scatter_bands(
+            yd64, parts[2].double() + parts[3].double(), c, g, m)
+    one = DenseOperator.from_dense(a, precision=storage, device="cpu")
+    n1 = one.n_padded  # <= n_p for every g here
+    assert one.operand[0].shape[1] == TB
+    ref64 = one.matvec(one.prepare_b(p[:n]))
+    assert _rel(y64[:n1], ref64) <= 1e-13
+    o32 = one.as_f32()
+    ref32 = o32.matvec(o32.prepare_b(p[:n].astype(np.float32)))
+    assert _rel(y32[:n1], ref32) <= 1e-6
+    a_p = np.zeros((n_p, n_p))
+    a_p[:n, :n] = a
+    assert _rel(y64, a_p @ p) <= (1e-12 if storage == "fq" else 1e-11)
+    assert not torch.any(y32[n:]) and not torch.any(y64[n:])
+
+
+@pytest.mark.parametrize("storage", ["dfq", "fq"])
+def test_quantized_diagonal_of_one_rank(storage):
+    a = _symmetric(300, 7) + np.diag(np.linspace(3.0, 90.0, 300))
+    op = _rank_op(pcg_symm.SymmShardedOperator, a, 0, 1, tb=TB,
+                  precision=storage)
+    d = op.diagonal().numpy()
+    # an f32 pair carries an f64 value to 2^-49 relative
+    np.testing.assert_allclose(d[:300], np.diag(a), rtol=2.0 ** -48, atol=0)
+    assert not d[300:].any()
+    slab = _rank_op(pcg_symm.SymmShardedOperator, a, 0, 1, tb=TB)
+    with pytest.raises(NotImplementedError, match="diagonal"):
+        slab.diagonal()
+
+
 def test_scatter_bands_is_the_dual_of_own_rows():
     g, m = 3, 4
     v = torch.arange(2 * g * m, dtype=torch.float64)
@@ -381,43 +597,10 @@ def test_one_rank_sharded_solve(system, engine, comm, capsys):
 # -- rank processes --------------------------------------------------------
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _launch(g, jobs, out):
     """Run the jobs in a gloo CPU cluster of g worker processes; returns
     each rank's records. Every rank is killed at the timeout."""
-    os.makedirs(out, exist_ok=True)
-    jobs_path = os.path.join(out, "jobs.json")
-    with open(jobs_path, "w") as f:
-        json.dump(jobs, f)
-    port = _free_port()
-    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
-    procs = [subprocess.Popen(
-        [sys.executable, WORKER, "--coordinator", f"127.0.0.1:{port}",
-         "--num-processes", str(g), "--process-id", str(r), "--device",
-         "cpu", "--jobs", jobs_path, "--out", out], env=env, cwd=ROOT,
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(g)]
-    logs = []
-    try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=CLUSTER_TIMEOUT_S)[0])
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    codes = [proc.returncode for proc in procs]
-    assert not any(codes), f"exit codes {codes}:\n" + "\n".join(logs)
-    records = []
-    for r in range(g):
-        with open(os.path.join(out, f"results.r{r}.json")) as f:
-            records.append({rec["name"]: rec for rec in json.load(f)})
-    return records
+    return launch_cluster(g, jobs, out, CLUSTER_TIMEOUT_S)
 
 
 def _jobs(g, a_path, b_path, p_path, out):
@@ -442,10 +625,33 @@ def _jobs(g, a_path, b_path, p_path, out):
         jobs.append({"kind": "matvec", "name": f"mv-{storage}",
                      "op": "symm", "precision": "df64", "packed": packed,
                      "tb": TB, "matrix": a_path, "p": p_path})
+    for precision in QUANT_PRECISIONS:
+        jobs.append({"kind": "solve", "name": f"packed-{precision}",
+                     "op": "symm", "precision": precision, "tb": TB,
+                     "matrix": a_path, "rhs": b_path, "rel_error": 1e-9})
+    for storage in ("dfq", "fq"):
+        jobs.append({"kind": "matvec", "name": f"mv-{storage}", "op": "symm",
+                     "precision": storage, "tb": TB, "matrix": a_path,
+                     "p": p_path})
+        jobs.append({"kind": "diagonal", "name": f"diag-{storage}",
+                     "op": "symm", "precision": storage, "tb": TB,
+                     "matrix": a_path})
     if g == 2:
         jobs.append({"kind": "cli", "name": "cli-ir", "argv": [
             "-A", a_path, "-b", b_path, "-o", os.path.join(out, "x_cli.bin"),
             "--backend", "sharded", "--precision", "ir", "--comm", "ring"]})
+    # the facade's routing (engine auto -> the packed walk) at the CLI's
+    # tile width; irfq twice with --pack-cache: cold writes the shard
+    # files, warm reads them
+    for name, precision, extra in (
+            ("cli-irfq-cold", "irfq", ["--pack-cache"]),
+            ("cli-irfq-warm", "irfq", ["--pack-cache"]),
+            ("cli-irq", "irq", []), ("cli-fq", "fq", []),
+            ("cli-dfq", "dfq", ["--engine", "pallas_symm_packed"])):
+        jobs.append({"kind": "cli", "name": name, "argv": [
+            "-A", a_path, "-b", b_path, "-o",
+            os.path.join(out, f"x_{name}.bin"), "--backend", "sharded",
+            "--precision", precision] + extra})
     return jobs
 
 
@@ -491,6 +697,14 @@ def lam_ref(system):
         out[g, "symm-ir"] = lam_tpu.cg_solve_ir(symm.as_f32(), symm, b,
                                                 max_iters=10000,
                                                 rel_error=1e-9)
+        for storage, ir in (("dfq", "irq"), ("fq", "irfq")):
+            quant = jpcg_symm.SymmShardedOperator.from_dense(
+                a, mesh=mesh, tb=TB, precision=storage)
+            out[g, f"symm-{storage}"] = lam_tpu.cg_solve(
+                quant, b, max_iters=10000, rel_error=1e-9)
+            out[g, f"symm-{ir}"] = lam_tpu.cg_solve_ir(
+                quant.as_f32(), quant, b, max_iters=10000, rel_error=1e-9,
+                inner_floor=jcg.default_inner_floor(ir))
     for key, res in out.items():
         assert bool(res.converged), key
     return {k: (int(r.num_iters), np.asarray(r.x)) for k, r in out.items()}
@@ -502,7 +716,7 @@ def _rank_xs(run_dir, name, g):
 
 
 def _check_solve(system, clusters, lam_ref, g, name, ref_key, precision,
-                 kernels):
+                 kernels, also=()):
     a, b = system[:2]
     records, run_dir = clusters[g]
     recs = [rank[name] for rank in records]
@@ -519,9 +733,10 @@ def _check_solve(system, clusters, lam_ref, g, name, ref_key, precision,
     if precision == "df64":
         # lam_tpu's own f64 counts part by 3 between one device and G=4
         # here: within 2 of either
-        one = lam_ref[1, "df64"][0]
-        assert min(abs(iters - ref_iters), abs(iters - one)) <= 2, \
-            (iters, ref_iters, one)
+        # (`also`: further lam_tpu counts of the same class)
+        refs = [ref_iters, lam_ref[1, "df64"][0],
+                *(lam_ref[key][0] for key in also)]
+        assert min(abs(iters - r) for r in refs) <= 2, (iters, refs)
     else:
         assert abs(iters - ref_iters) <= math.ceil(0.02 * ref_iters), \
             (iters, ref_iters)
@@ -560,6 +775,95 @@ def test_band_pair_solve_matches_lam_tpu(system, clusters, lam_ref, g,
                  f"symm-{precision}", precision, kernels)
 
 
+_QUANT_KERNELS = {"dfq": ["gemv_dfq_symm_slab"],
+                  "irq": ["gemv_f32_symm_slab", "gemv_dfq_symm_slab"],
+                  "fq": ["gemv_fq_symm_slab"],
+                  "irfq": ["gemv_q16_symm_slab", "gemv_fq_symm_slab"]}
+
+
+@pytest.mark.parametrize("precision", QUANT_PRECISIONS)
+@pytest.mark.parametrize("g", RANKS)
+def test_quantized_band_pair_solve_matches_lam_tpu(system, clusters, lam_ref,
+                                                   g, precision):
+    klass = "df64" if precision in ("dfq", "fq") else "ir"
+    # lam_tpu's own df64-class counts on this system spread over 320..324
+    # (f64 row shards at 4 ranks 320, at 2 ranks and on one device 323,
+    # its dfq/fq band pairs 324): within 2 of one of them
+    _check_solve(system, clusters, lam_ref, g, f"packed-{precision}",
+                 f"symm-{precision}", klass, _QUANT_KERNELS[precision],
+                 also=[(r, "df64") for r in RANKS])
+    counts = clusters[g][0][0][f"packed-{precision}"]["counts"]
+    if precision == "irfq":  # the inner loop read the 2-byte plane only
+        assert counts["gemv_f32_symm_slab_plain"] == 0
+    assert counts["gemv_df64_symm_slab_plain"] == 0
+
+
+@pytest.mark.parametrize("storage,bound", [("dfq", 1e-11), ("fq", 1e-12)])
+@pytest.mark.parametrize("g", RANKS)
+def test_quantized_sharded_matvec_within_the_storage_bound(system, clusters,
+                                                           g, storage,
+                                                           bound):
+    a = system[0]
+    p = np.random.default_rng(5).uniform(-1, 1, N)
+    ys = _rank_xs(clusters[g][1], f"mv-{storage}", g)
+    for y in ys:
+        assert _rel(y, a @ p) <= bound
+        assert np.array_equal(y, ys[0])
+
+
+@pytest.mark.parametrize("storage", ["dfq", "fq"])
+@pytest.mark.parametrize("g", RANKS)
+def test_quantized_sharded_diagonal(system, clusters, g, storage):
+    for d in _rank_xs(clusters[g][1], f"diag-{storage}", g):
+        np.testing.assert_allclose(d, np.diag(system[0]), rtol=2.0 ** -48,
+                                   atol=0)
+
+
+def _csv(rec):
+    lines = rec["stdout"].strip().splitlines()
+    assert len(lines) == 1, rec["stdout"]
+    return lines[0].split(",")
+
+
+@pytest.mark.parametrize("g", RANKS)
+def test_cli_quantized_precisions_and_shard_cache(system, clusters, lam_ref,
+                                                  g):
+    a, b, a_path, b_path = system
+    records, run_dir = clusters[g]
+    xs = {}
+    for name, ref_key, kernels in (
+            ("cli-irfq-cold", "symm-irfq", _QUANT_KERNELS["irfq"]),
+            ("cli-irfq-warm", "symm-irfq", _QUANT_KERNELS["irfq"]),
+            ("cli-irq", "symm-irq", _QUANT_KERNELS["irq"]),
+            ("cli-fq", "symm-fq", _QUANT_KERNELS["fq"]),
+            ("cli-dfq", "symm-dfq", _QUANT_KERNELS["dfq"])):
+        recs = [rank[name] for rank in records]
+        assert [rec["rc"] for rec in recs] == [0] * g
+        assert not any(rec["stdout"].strip() for rec in recs[1:])
+        fields = _csv(recs[0])
+        assert (int(fields[0]), int(fields[1])) == (N, g)
+        iters, ref_iters = int(fields[6]), lam_ref[g, ref_key][0]
+        # the CLI's 512-wide tiles quantize another operator than the
+        # reference's 128-wide ones: 2% for every class here
+        assert abs(iters - ref_iters) <= math.ceil(0.02 * ref_iters), \
+            (name, iters, ref_iters)
+        xs[name] = tio.read_vector(os.path.join(run_dir, f"x_{name}.bin"))
+        assert _true_rel(a, b, xs[name]) <= 1e-8
+        assert _rel(xs[name], lam_ref[g, ref_key][1]) <= 1e-6
+        for rec in recs:
+            for k in kernels:
+                assert rec["counts"][k + "_plain"] > 0, (name, k)
+    # cold wrote one shard file per rank, warm read them: same
+    # iterations, bitwise the same x
+    for c in range(g):
+        assert os.path.exists(f"{a_path}.shardpack/fq.g{g}.s{c}")
+    assert not os.path.exists(f"{a_path}.shardpack/dfq.g{g}.s0")
+    cold, warm = (_csv(records[0][n]) for n in ("cli-irfq-cold",
+                                                "cli-irfq-warm"))
+    assert cold[6] == warm[6]
+    assert np.array_equal(xs["cli-irfq-cold"], xs["cli-irfq-warm"])
+
+
 @pytest.mark.parametrize("name", ["mv-dense-gather", "mv-dense-ring",
                                   "mv-slab", "mv-packed"])
 @pytest.mark.parametrize("g", RANKS)
@@ -591,29 +895,59 @@ def test_cli_across_two_ranks(system, clusters):
 # -- what the backends refuse ----------------------------------------------
 
 
+def _tiny_matrix_file():
+    import tempfile
+    path = os.path.join(tempfile.mkdtemp(), "A.bin")
+    tio.write_matrix(path, _symmetric(64, 1))
+    return path
+
+
 def test_sharded_configurations_refused():
     with pytest.raises(ValueError, match="supports precision df64/ir"):
         ConjugateGradient(backend="sharded", precision="f32",
                           engine="pallas_symm", device="cpu")
-    for precision in ("dfq", "irq", "fq", "irfq"):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for precision in QUANT_PRECISIONS:
+        # quantized storage is packed: engine auto routes there, another
+        # engine is refused with lam_tpu's messages
+        cg = ConjugateGradient(backend="sharded", precision=precision,
+                               device="cpu")
+        assert cg._sharded_engine == "pallas_symm_packed"
+        with pytest.raises(ValueError, match="implies packed storage"):
             ConjugateGradient(backend="sharded", precision=precision,
+                              engine="pallas_symm", device="cpu")
+        with pytest.raises(ValueError, match="f32' or 'df64"):
+            ConjugateGradient(backend="sharded", precision=precision,
+                              engine="pallas", device="cpu"
+                              ).load_matrix_from_file(_tiny_matrix_file())
+        with pytest.raises(NotImplementedError, match="gemv_fq_dual"):
+            ConjugateGradient(backend="sharded2d", precision=precision,
                               device="cpu")
+        with pytest.raises(ValueError, match="only on the symmetric grid"):
+            ConjugateGradient(backend="sharded2d", precision=precision,
+                              engine="pallas", device="cpu")
     with pytest.raises(NotImplementedError, match="xla"):
         ConjugateGradient(backend="sharded", engine="xla", device="cpu")
     with pytest.raises(ValueError, match="comm"):
         ConjugateGradient(backend="sharded", comm="tree", device="cpu")
     with pytest.raises(ValueError, match="requested 2 devices"):
         ConjugateGradient(backend="sharded", n_devices=2, device="cpu")
+    for engine in ("pallas_symm", "pallas_symm_packed"):
+        with pytest.raises(NotImplementedError, match="symmetric 2-D grid"):
+            ConjugateGradient(backend="sharded2d", engine=engine,
+                              device="cpu")
+    with pytest.raises(NotImplementedError, match="xla"):
+        ConjugateGradient(backend="sharded2d", engine="xla", device="cpu")
     with pytest.raises(NotImplementedError):
-        ConjugateGradient(backend="sharded2d", device="cpu")
+        ConjugateGradient(backend="auto", device="cpu")
     if not torch.cuda.is_available():  # cuda is the default; no fallback
         with pytest.raises(RuntimeError, match="cuda"):
             ConjugateGradient(backend="sharded")
-    with pytest.raises(NotImplementedError, match="dfq"):
+    with pytest.raises(ValueError, match="'df64', 'dfq' or 'fq'"):
         pcg_symm.SymmShardedOperator.from_dense(_symmetric(256, 1),
-                                                precision="dfq",
+                                                precision="f32",
                                                 device="cpu")
+    for name in ("from_gen_tridiagonal", "from_gen_fq"):  # generate mode
+        assert not hasattr(pcg_symm.SymmShardedOperator, name)
     with pytest.raises(ValueError, match="symmetric"):
         pcg_symm.SymmShardedOperator.from_dense(
             np.triu(_symmetric(256, 1)), device="cpu")
@@ -631,8 +965,15 @@ def test_sharded_cli_flags_refused(capsys):
                       (["--process-id", "0"], "need --coordinator")):
         assert tcli.main(argv + ["--device", "cpu"]) == 1
         assert msg in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="sharded2d"):
-        tcli.main(["--backend", "sharded2d", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="symmetric 2-D grid"):
+        tcli.main(["--backend", "sharded2d", "--precision", "dfq",
+                   "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported yet: -s"):
+        tcli.main(["-s", "100", "--backend", "sharded", "--precision",
+                   "irfq", "--device", "cpu"])  # generate mode
+    assert tcli.main(["--backend", "sharded", "--precision", "dfq",
+                      "--engine", "pallas_symm", "--device", "cpu"]) == 1
+    assert "implies packed storage" in capsys.readouterr().err
     with pytest.raises(ValueError, match="outside"):
         pmesh.distributed_init("127.0.0.1:1", 2, 2, device="cpu")
 
@@ -649,9 +990,30 @@ def test_mesh_of_one_rank_is_the_identity():
         pmesh.make_mesh(3, device="cpu")
 
 
+def test_backend_and_device_follow_the_local_layout(monkeypatch):
+    """2 hosts x 4 cards x 4 ranks each: every rank has a card of its own,
+    so the group runs NCCL and a rank sits on the card of its LOCAL rank."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    monkeypatch.delenv("LOCAL_RANK", raising=False)
+    # no launcher variables: all ranks are taken to share this host
+    assert pmesh.choose_backend("cuda", 4) == "nccl"
+    assert pmesh.choose_backend("cuda", 8) == "gloo"
+    assert pmesh._rank_device("cuda", 6) == torch.device("cuda", 2)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert pmesh.choose_backend("cuda", 8) == "nccl"
+    assert pmesh._rank_device("cuda", 5) == torch.device("cuda", 1)
+    assert pmesh.choose_backend("cpu", 8) == "gloo"
+    assert pmesh._rank_device("cpu", 5) == torch.device("cpu")
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")  # two ranks per card
+    assert pmesh.choose_backend("cuda", 8) == "gloo"
+
+
 def test_help_names_the_sharded_flags():
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         assert tcli.main(["-h"]) == 0
-    assert "--backend local|sharded" in out.getvalue()
+    assert "--backend local|sharded|sharded2d" in out.getvalue()
     assert "--coordinator" in out.getvalue()

@@ -11,15 +11,21 @@ and left after the last. Jobs:
   {"kind": "cli", "name", "argv"}: lam_tpu_torch.cli.main(argv plus this
       rank's --coordinator/--num-processes/--process-id/--device, which
       find the group joined), its exit code and standard output;
-  {"kind": "solve", "name", "op": "dense"|"symm", "precision":
-      "f32"|"df64"|"ir", "comm", "packed", "tb", "matrix", "rhs",
-      "rel_error"}: the operator built from the matrix file, cg_solve or
-      cg_solve_ir; iterations, convergence, the recurrence residual, and
-      x saved as <dir>/<name>.r<rank>.npy;
+  {"kind": "solve", "name", "op": "dense"|"symm"|"grid", "precision":
+      "f32"|"df64"|"ir"|"dfq"|"irq"|"fq"|"irfq", "comm", "packed", "tb",
+      "pack_cache", "matrix", "rhs", "rel_error"}: the operator built from
+      the matrix file (row shards, the band-pair walk, or the R x R grid
+      over the largest square of the ranks), cg_solve or cg_solve_ir with
+      the precision's inner floor; iterations, convergence, the recurrence
+      residual, and x saved as <dir>/<name>.r<rank>.npy;
   {"kind": "matvec", "name", "op", "precision", "comm", "packed", "tb",
       "matrix", "p"}: the whole A @ p (np.load(p)) saved as
-      <dir>/<name>.r<rank>.npy.
-Imports nothing of JAX.
+      <dir>/<name>.r<rank>.npy;
+  {"kind": "diagonal", "name", "op": "symm", "precision", "tb",
+      "matrix"}: the operator's diagonal() saved the same way.
+A rank outside the grid records {"idle": true} for a grid job.
+`launch_cluster` is what the tests call: it starts the rank processes of
+one CPU cluster and returns their records. Imports nothing of JAX.
 """
 
 import argparse
@@ -27,6 +33,8 @@ import contextlib
 import io
 import json
 import os
+import socket
+import subprocess
 import sys
 
 import numpy as np
@@ -39,19 +47,69 @@ from lam_tpu_torch import cg_solve, cg_solve_ir, cli, ops  # noqa: E402
 from lam_tpu_torch import io as lio  # noqa: E402
 from lam_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from lam_tpu_torch.parallel.pcg import ShardedDenseOperator  # noqa: E402
+from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator  # noqa: E402
 from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator  # noqa: E402
+from lam_tpu_torch.solver.cg import default_inner_floor  # noqa: E402
+
+_BASE = {"ir": "df64", "irq": "dfq", "irfq": "fq"}
+
+
+def _free_port():
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch_cluster(g, jobs, out, timeout_s, device="cpu"):
+    """Run the jobs in a gloo cluster of g processes of this script (on
+    CPUs, or sharing the card with device="cuda"); returns each rank's
+    records as {job name: record}. Every rank is killed at the timeout."""
+    os.makedirs(out, exist_ok=True)
+    jobs_path = os.path.join(out, "jobs.json")
+    with open(jobs_path, "w") as f:
+        json.dump(jobs, f)
+    port = _free_port()
+    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", str(g), "--process-id",
+         str(r), "--device", device, "--jobs", jobs_path, "--out", out],
+        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(g)]
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=timeout_s)[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    codes = [proc.returncode for proc in procs]
+    assert not any(codes), f"exit codes {codes}:\n" + "\n".join(logs)
+    records = []
+    for r in range(g):
+        with open(os.path.join(out, f"results.r{r}.json")) as f:
+            records.append({rec["name"]: rec for rec in json.load(f)})
+    return records
 
 
 def _operator(job, mesh):
-    storage = "df64" if job["precision"] == "ir" else job["precision"]
+    storage = _BASE.get(job["precision"], job["precision"])
     if job["op"] == "dense":
         return ShardedDenseOperator.from_file(
             job["matrix"], mesh=mesh, precision=storage, comm=job["comm"])
-    return SymmShardedOperator.from_file(job["matrix"], mesh=mesh,
-                                         tb=job["tb"], packed=job["packed"])
+    if job["op"] == "grid":
+        return Sharded2DOperator.from_file(job["matrix"], mesh=mesh,
+                                           precision=storage)
+    return SymmShardedOperator.from_file(
+        job["matrix"], mesh=mesh, tb=job["tb"],
+        packed=job.get("packed", False), precision=storage,
+        pack_cache=job.get("pack_cache", False))
 
 
-def _run(job, args, out, mesh):
+def _run(job, args, out, meshes):
     name = job["name"]
     if job["kind"] == "cli":
         argv = job["argv"] + [
@@ -62,20 +120,28 @@ def _run(job, args, out, mesh):
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
         return {"rc": rc, "stdout": buf.getvalue()}
+    mesh = meshes[job["op"] == "grid"]
+    if not mesh.active:
+        return {"idle": True}
     op = _operator(job, mesh)
     rec = {"backend": mesh.backend, "device": str(mesh.device),
            "size": mesh.size}
+    if job["kind"] == "diagonal":
+        np.save(os.path.join(out, f"{name}.r{args.process_id}.npy"),
+                op.diagonal()[:op.n].cpu().numpy())
+        return rec
     if job["kind"] == "matvec":
         y = op.matvec(op.prepare_b(np.load(job["p"])))
-        if isinstance(op, ShardedDenseOperator):
+        if not isinstance(op, SymmShardedOperator):
             y = op.extract_x(y)
         np.save(os.path.join(out, f"{name}.r{args.process_id}.npy"),
                 y[:op.n].double().cpu().numpy())
         return rec
     b = lio.read_vector(job["rhs"])
-    if job["precision"] == "ir":
+    if job["precision"] in _BASE:
         res = cg_solve_ir(op.as_f32(), op, b, max_iters=10000,
-                          rel_error=job["rel_error"])
+                          rel_error=job["rel_error"],
+                          inner_floor=default_inner_floor(job["precision"]))
     else:
         res = cg_solve(op, b, max_iters=10000, rel_error=job["rel_error"])
     np.save(os.path.join(out, f"{name}.r{args.process_id}.npy"),
@@ -99,11 +165,13 @@ def main():
         jobs = json.load(f)
     pmesh.distributed_init(args.coordinator, args.num_processes,
                            args.process_id, device=args.device)
-    mesh = pmesh.make_mesh(device=args.device)
+    meshes = [pmesh.make_mesh(device=args.device), None]
+    if any(job.get("op") == "grid" for job in jobs):
+        meshes[1] = pmesh.make_mesh2d(device=args.device)
     results = []
     for job in jobs:
         ops.reset_counters()
-        rec = _run(job, args, args.out, mesh)
+        rec = _run(job, args, args.out, meshes)
         if args.device == "cuda":
             torch.cuda.synchronize()
         rec.update(name=job["name"], counts=ops.counters())
