@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the fifteen kernels against its plain PyTorch version at
+2. Holds each of the twenty kernels against its plain PyTorch version at
    the main path's shapes. The eight one-device kernels at N=10000 padded
    to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
    padded to 216), on one random symmetric matrix:
@@ -41,7 +41,19 @@
    matrix; timed at rank 0 of G=2 (the `kernels` entries) and of G=4
    (printed), the q16 walk over three copies of its plane taken in turn,
    because one 55.1 or 39.3 MB plane would stay in the 50 MB L2 between
-   calls. Prints each kernel's median
+   calls. The five dual kernels of the symmetric 2 x 2 grid (gemv_f32_dual,
+   gemv_df64_dual, gemv_dfq_dual, gemv_q16_dual, gemv_fq_dual) at the
+   half-slabs of the same matrix (n_p=10240, m=5120: a (2560, 5120)
+   rectangle of 50 real tiles plus 5 pad tiles a rank), every rank's df64,
+   dfq and fq pack built by the port's own operator with Mesh2D(rank, 2,
+   "cuda") and no process group: on both off-diagonal ranks against plain
+   and the f64 oracle of the stored values (f32, q16 1e-5; the others
+   1e-13), bitwise repeats, pad tiles and pad scales filled with garbage
+   and the result unchanged; the four ranks' (own, payload) exchanged by
+   hand and summed against the one-device kernels, padding rows exactly 0;
+   timed at rank (1, 0), the f32 and q16 kernels over three copies of their
+   plane in turn, beside two torch.mv calls over the dense rectangle (S p,
+   S^T q) for the f32 and df64 ones. Prints each kernel's median
    time per call, its plain version's and, where one PyTorch call
    computes the same function (torch.mv on the full f32 or f64 square, or
    on the strided column view for the ring's kernels; for the slab walks,
@@ -90,6 +102,13 @@
    warm reads them: same iterations, bitwise-equal x), packed-irq,
    packed-fq, packed-dfq at G=2 and packed-irfq-4 at G=4; and grid-ir-4,
    --backend sharded2d --precision ir on the 2 x 2 grid of four ranks
+   and the symmetric 2 x 2 grid in the same four rank processes:
+   symgrid-ir-4 and symgrid-df64-4 (--engine pallas_symm_packed),
+   symgrid-irfq twice with --pack-cache (cold writes
+   A.bin.shardpack/fq.r2.s0..s3, warm reads them: same iterations,
+   bitwise-equal x), symgrid-fq-4, symgrid-irq-4, symgrid-dfq-4: a diagonal
+   rank must launch its triangle kernels and no dual one, an off-diagonal
+   rank its dual kernels and no triangle one, and no rank anything else
    (SHARDED_RUNS). Each run must converge with a
    TRUE relative residual <= 2e-9 on the host from rank 0's solution
    file, x within 1e-6 relative of phase 3's one-device ir x, its kernels
@@ -164,6 +183,7 @@ _SLAB = ("gemv_f32_symm_slab", "gemv_df64_symm_slab")
 _TRI = ("gemv_f32_symm", "gemv_df64_symm")
 _QFQ = ("gemv_q16_symm_slab", "gemv_fq_symm_slab")
 _LOCAL_Q = ("gemv_q16_symm", "gemv_fq_symm", "gemv_dfq_symm")
+_SYMGRID = ["--backend", "sharded2d"]
 # phase 5: (run, ranks, CLI flags, kernels it must launch, kernels it must
 # not launch)
 SHARDED_RUNS = (
@@ -196,13 +216,40 @@ SHARDED_RUNS = (
     # the dense 2-D grid, R=2: the dense kernels on each rank's block
     ("grid-ir-4", 4, ["--backend", "sharded2d", "--precision", "ir"],
      ("gemv_f32", "gemv_df64"),
-     _RING + _SLAB + _TRI + _LOCAL_Q + _QFQ + ("gemv_dfq_symm_slab",)))
+     _RING + _SLAB + _TRI + _LOCAL_Q + _QFQ + ("gemv_dfq_symm_slab",)),
+    # the symmetric 2-D grid, R=2: (the diagonal ranks' kernels, the
+    # off-diagonal ranks'); every other kernel must stay at 0 on every rank
+    ("symgrid-ir-4", 4, _SYMGRID + ["--precision", "ir", "--engine",
+                                    "pallas_symm_packed"],
+     (_TRI, ("gemv_f32_dual", "gemv_df64_dual")), ()),
+    ("symgrid-df64-4", 4, _SYMGRID + ["--precision", "df64", "--engine",
+                                      "pallas_symm_packed"],
+     (("gemv_df64_symm",), ("gemv_df64_dual",)), ()),
+    ("symgrid-irfq-cold-4", 4, _SYMGRID + ["--precision", "irfq",
+                                           "--pack-cache"],
+     (("gemv_q16_symm", "gemv_fq_symm"),
+      ("gemv_q16_dual", "gemv_fq_dual")), ()),
+    ("symgrid-irfq-warm-4", 4, _SYMGRID + ["--precision", "irfq",
+                                           "--pack-cache"],
+     (("gemv_q16_symm", "gemv_fq_symm"),
+      ("gemv_q16_dual", "gemv_fq_dual")), ()),
+    ("symgrid-fq-4", 4, _SYMGRID + ["--precision", "fq"],
+     (("gemv_fq_symm",), ("gemv_fq_dual",)), ()),
+    ("symgrid-irq-4", 4, _SYMGRID + ["--precision", "irq"],
+     (("gemv_f32_symm", "gemv_dfq_symm"),
+      ("gemv_f32_dual", "gemv_dfq_dual")), ()),
+    ("symgrid-dfq-4", 4, _SYMGRID + ["--precision", "dfq"],
+     (("gemv_dfq_symm",), ("gemv_dfq_dual",)), ()))
 # run -> the one-device run of phase 3 whose iteration count it should show
 ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "packed-irfq-warm": "irfq-warm", "packed-irq": "irq-cold",
                  "packed-fq": "fq", "packed-dfq": "dfq",
-                 "packed-irfq-4": "irfq-cold", "grid-ir-4": "ir"}
-CLUSTER_TIMEOUT_S = 300  # a cluster that takes longer is killed: a hang
+                 "packed-irfq-4": "irfq-cold", "grid-ir-4": "ir",
+                 "symgrid-ir-4": "ir", "symgrid-df64-4": "df64",
+                 "symgrid-irfq-cold-4": "irfq-cold",
+                 "symgrid-irfq-warm-4": "irfq-warm", "symgrid-fq-4": "fq",
+                 "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq"}
+CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
 
@@ -709,19 +756,41 @@ def _slab_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
     return diff32, diff64
 
 
-def slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, pack_planes, a, p):
+def one_device_matvecs(gemv, layout, pack_planes, pack_tri, a, p):
+    """The one-device kernels' matvecs of the shard checks' matrix, which
+    every sharded layout's parts must add up to: {storage: (the f32 view's
+    y, the accurate y in f64)} over the 10240-padded triangle: 'df64'
+    gemv_f32_symm and gemv_df64_symm, 'fq' gemv_q16_symm and gemv_fq_symm,
+    'dfq' gemv_f32_symm on the dfq hi plane and gemv_dfq_symm, the
+    quantized ones with their diagonal terms."""
+    tb = layout.SYMM_TB
+    ph, pl, p64 = _pair(p, layout.padded_size(N, tb))
+    hi, lo = (torch.from_numpy(x).cuda() for x in pack_planes(a, "df64", tb))
+    yh, yl = gemv.gemv_df64_symm(hi, lo, ph, pl)
+    one = {"df64": (gemv.gemv_f32_symm(hi, ph), yh.double() + yl.double())}
+    del hi, lo
+    for storage in ("fq", "dfq"):
+        bufs = [torch.from_numpy(x).cuda() for x in pack_tri(a, storage, tb)]
+        dh, dl = bufs[-2], bufs[-1]
+        if storage == "fq":
+            y32 = gemv.gemv_q16_symm(bufs[0], bufs[3], ph)
+            yh, yl = gemv.gemv_fq_symm(*bufs[:6], ph, pl)
+        else:
+            y32 = gemv.gemv_f32_symm(bufs[0], ph)
+            yh, yl = gemv.gemv_dfq_symm(*bufs[:3], ph, pl)
+        one[storage] = (y32 + dh * ph, yh.double() + yl.double()
+                        + (dh.double() + dl.double()) * p64)
+        del bufs
+    torch.cuda.empty_cache()
+    return one
+
+
+def slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, one, a, p):
     """Phase 2, the band-pair walk kernels at the shards of G=2 (tb=512,
     mt=5, T=105 tiles a rank, ms=5120, n=10240) and G=4 (n=12288, T=75),
-    slab and packed, every rank's tables."""
+    slab and packed, every rank's tables; `one` is the one-device df64
+    entry of `one_device_matvecs`."""
     tb = layout.SYMM_TB
-    n1 = layout.padded_size(N, tb)
-    tri_hi, tri_lo = (torch.from_numpy(x).cuda()
-                      for x in pack_planes(a, "df64", tb))
-    ph1, pl1, _ = _pair(p, n1)
-    yh, yl = gemv.gemv_df64_symm(tri_hi, tri_lo, ph1, pl1)
-    one = (gemv.gemv_f32_symm(tri_hi, ph1), yh.double() + yl.double())
-    del tri_lo
-    del tri_hi
     diffs = [0.0, 0.0]
     timed = {}
     for g in SHARD_G:
@@ -895,35 +964,19 @@ def _rotating(fn, copies):
     return call
 
 
-def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, pack_tri, a,
-                                p):
+def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, one, a, p):
     """Phase 2, the band-pair walks of the quantized storages
     (gemv_q16_symm_slab, gemv_fq_symm_slab, gemv_dfq_symm_slab) at the
     shards of G=2 (tb=512, T=105 tiles a rank, ms=5120, n=10240) and G=4
     (n=12288, T=75), every rank's tables and scales, built by the port's
     own operator without a process group; the ranks' parts plus the
     owners' diagonal terms against the one-device kernels gemv_q16_symm,
-    gemv_fq_symm and gemv_dfq_symm on the same matrix. Timed at rank 0 of
+    gemv_fq_symm and gemv_dfq_symm on the same matrix (`one`, from
+    `one_device_matvecs`). Timed at rank 0 of
     G=2 (the `kernels` entries) and of G=4 (printed); the q16 walk over
     three copies of its plane taken in turn, so its GB/s is an HBM figure
     (one 55.1 or 39.3 MB plane would stay in the 50 MB L2)."""
     tb = layout.SYMM_TB
-    n1 = layout.padded_size(N, tb)
-    ph1, pl1, p641 = _pair(p, n1)
-    one = {}
-    for storage in ("fq", "dfq"):
-        bufs = [torch.from_numpy(x).cuda() for x in pack_tri(a, storage, tb)]
-        dh, dl = bufs[-2], bufs[-1]
-        if storage == "fq":
-            y32 = gemv.gemv_q16_symm(bufs[0], bufs[3], ph1)
-            yh, yl = gemv.gemv_fq_symm(*bufs[:6], ph1, pl1)
-        else:
-            y32 = gemv.gemv_f32_symm(bufs[0], ph1)
-            yh, yl = gemv.gemv_dfq_symm(*bufs[:3], ph1, pl1)
-        one[storage] = (y32 + dh * ph1, yh.double() + yl.double()
-                        + (dh.double() + dl.double()) * p641)
-        del bufs
-    torch.cuda.empty_cache()
     diffs = {}
     timed = {}
     for g in SHARD_G:
@@ -999,6 +1052,196 @@ def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, pack_tri, a,
         del sh, s64
         torch.cuda.empty_cache()
     return out
+
+
+# storage -> (inner dual kernel, accurate dual kernel, the operand entries
+# each reads): what lam_tpu_torch/parallel/pcg2d_symm.py runs on an
+# off-diagonal rank
+DUAL_KERNELS = {"df64": ("gemv_f32_dual", (0,), "gemv_df64_dual", (0, 1)),
+                "dfq": ("gemv_f32_dual", (0,), "gemv_dfq_dual", (0, 1, 2)),
+                "fq": ("gemv_q16_dual", (0, 3), "gemv_fq_dual",
+                       (0, 1, 2, 3, 4, 5))}
+DUAL_REPLACES = {"gemv_f32_dual": 1556, "gemv_df64_dual": 1682,
+                 "gemv_dfq_dual": 1763, "gemv_q16_dual": 2544,
+                 "gemv_fq_dual": 2624}
+
+
+def _stored_rect(bufs, mb, cb, tb):
+    """The f64 (mb*tb, cb*tb) rectangle that the real tiles of a dual
+    kernel's buffers hold: f32 planes summed, int16 planes against the
+    scale tables that follow them."""
+    rows, nt = mb * cb * tb, mb * cb
+    planes = [x for x in bufs if x.dim() == 2]
+    scales = [x for x in bufs if x.dim() == 1]
+    quant = [x for x in planes if x.dtype == torch.int16]
+    buf = sum(x[:rows].double() for x in planes if x.dtype != torch.int16)
+    buf = buf + sum(q[:rows].double()
+                    * sc[:nt].double().repeat_interleave(tb)[:, None]
+                    for q, sc in zip(quant, scales))
+    return buf.reshape(mb, cb, tb, tb).permute(0, 2, 1, 3).reshape(
+        mb * tb, cb * tb)
+
+
+def _with_garbage_pads(bufs, real_tiles, tb):
+    """Copies of a dual kernel's buffers whose pad tiles and pad scales
+    hold finite garbage: the kernel must not read them."""
+    out = []
+    for x in bufs:
+        y = x.clone()
+        if y.dim() == 2:
+            y[real_tiles * tb:] = 7
+        else:
+            y[real_tiles:] = 3.0
+        out.append(y)
+    return out
+
+
+def _cat_parts(parts):
+    """(yd, yt) or (yd_hi, yd_lo, yt_hi, yt_lo) as one vector [yd, yt]."""
+    if len(parts) == 2:
+        return torch.cat(parts)
+    return torch.cat([parts[0].double() + parts[1].double(),
+                      parts[2].double() + parts[3].double()])
+
+
+def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
+    """Phase 2, the five dual kernels (gemv_f32_dual, gemv_df64_dual,
+    gemv_dfq_dual, gemv_q16_dual, gemv_fq_dual) at the half-slabs of the
+    2 x 2 symmetric grid on the N=10000 system (n_p=10240, m=5120: a (2560,
+    5120) rectangle of 5 x 10 real tiles plus 5 pad tiles a rank), every
+    rank's df64, dfq and fq pack built by the port's own operator with
+    Mesh2D(rank, 2, "cuda") and no process group. On both off-diagonal
+    ranks, with the operands the routing gives them: kernel against plain
+    and the f64 oracle of the stored values (f32, q16 1e-5; df64, dfq, fq
+    1e-13), bitwise repeats, pad tiles and pad scales inert. Then the four
+    ranks' (own, payload) exchanged by hand and summed against the
+    one-device kernels' matvecs `one` of the same matrix, padding rows
+    exactly 0. Timed at rank (1, 0); the f32 and q16 kernels over three
+    copies of their plane in turn (the q1 half-slab's 26.2 MB would stay in
+    the 50 MB L2, and most of the f32 one's 52.4 MB); beside the f32 and
+    df64 kernels two torch.mv calls over the dense rectangle (S p and
+    S^T q)."""
+    tb, r = layout.SYMM_TB, 2
+    diffs, timed = {}, {}
+    for storage, (inner, inner_idx, acc, acc_idx) in DUAL_KERNELS.items():
+        t0 = time.perf_counter()
+        ops_ = [pcg2d_symm.Symm2DOperator.from_block_fn(
+            lambda r0, c0, h, w: a[r0:r0 + h, c0:c0 + w], N,
+            mesh=Mesh2D(k, r, "cuda"), precision=storage)
+            for k in range(r * r)]
+        pack_s = time.perf_counter() - t0
+        n_p, m = ops_[0].n_padded, ops_[0].m
+        m2, cb = m // 2, m // tb
+        mb = cb // 2
+        ph, pl, p64 = _pair(p, n_p)
+        errs = {inner: [], acc: []}
+        for k in (1, 2):  # the off-diagonal ranks (0, 1) and (1, 0)
+            i, j = divmod(k, r)
+            own, recv = slice(i * m, (i + 1) * m), slice(j * m, (j + 1) * m)
+            # the operands the routing hands the dual kernel
+            if i > j:
+                pv, qv = recv, slice(i * m, i * m + m2)
+            else:
+                pv, qv = own, slice(j * m + m2, (j + 1) * m)
+            for name, idx, vecs in (
+                    (inner, inner_idx, (ph[pv], ph[qv])),
+                    (acc, acc_idx, (ph[pv], pl[pv], ph[qv], pl[qv]))):
+                bufs = [ops_[k].operand[x] for x in idx]
+                kernel = getattr(gemv, name)
+                y = _cat_parts(kernel(*bufs, *vecs))
+                q = _cat_parts(getattr(gemv, name + "_plain")(*bufs, *vecs))
+                stored = _stored_rect(bufs, mb, cb, tb)
+                wide = name == acc
+                pd, qd = ((p64[pv], p64[qv]) if wide
+                          else (ph[pv].double(), ph[qv].double()))
+                oracle = torch.cat([stored @ pd, stored.T @ qd])
+                del stored
+                errs[name] += [_rel(y, q), _rel(y.double(), oracle)]
+                diffs[name] = max(diffs.get(name, 0.0),
+                                  float((y - q).abs().max()))
+                _check(torch.equal(y, _cat_parts(kernel(*bufs, *vecs))),
+                       f"{name} rank {k} not repeatable")
+                _check(torch.equal(y, _cat_parts(kernel(
+                    *_with_garbage_pads(bufs, mb * cb, tb), *vecs))),
+                    f"{name} rank {k} read a pad tile or a pad scale")
+        # the four ranks' parts, exchanged by hand, against one device
+        sums = []
+        for view in (lambda op: op.as_f32(), lambda op: op):
+            views = [view(op) for op in ops_]
+            vec = ph if views[0].vector_dtype == torch.float32 else p64
+            blk = [vec[(k // r) * m:(k // r + 1) * m] for k in range(r * r)]
+            pairs = [v.mv_pair(v.operand, blk[k], blk[(k % r) * r + k // r])
+                     for k, v in enumerate(views)]
+            sums.append(torch.cat([
+                sum(pairs[i * r + j][0] + pairs[j * r + i][1]
+                    for j in range(r)) for i in range(r)]))
+        n1 = one[storage][0].shape[0]
+        e32 = _rel(sums[0][:n1], one[storage][0])
+        e64 = _rel(sums[1][:n1], one[storage][1])
+        print(f"dual kernels, 2x2 grid {storage} (tb={tb}, half-slab ({m2}, "
+              f"{m}), {mb * cb} real + {mb} pad tiles a rank; 4 rank packs in "
+              f"{pack_s:.2f} s): rel l2 kernel-plain / kernel-f64 max {inner} "
+              f"{max(errs[inner]):.3e} (<= 1e-5), {acc} {max(errs[acc]):.3e} "
+              f"(<= 1e-13); ranks' (own, payload) summed vs the one-device "
+              f"kernels: inner {e32:.3e} (<= 1e-5), accurate {e64:.3e} "
+              f"(<= 1e-13)")
+        _check(max(errs[inner]) <= 1e-5, f"{inner} ({storage}) disagrees")
+        _check(max(errs[acc]) <= 1e-13, f"{acc} disagrees")
+        _check(e32 <= 1e-5 and e64 <= 1e-13,
+               f"2x2 grid {storage}: the ranks' parts do not add up to the "
+               "matvec")
+        _check(all(int(torch.count_nonzero(y[N:])) == 0 for y in sums),
+               f"2x2 grid {storage}: padding rows != 0")
+        timed[storage] = (ops_[2], ph, pl, p64)  # rank (1, 0)
+        del ops_
+        torch.cuda.empty_cache()
+
+    # timed at rank (1, 0): p = block 0, q = the top half of block 1
+    op, ph, pl, p64 = timed["df64"]
+    m = op.m
+    m2, cb = m // 2, m // tb
+    mb = cb // 2
+    real = mb * cb
+    pv, qv = slice(0, m), slice(m, m + m2)
+    vec32 = (ph[pv].clone(), ph[qv].clone())
+    vec64 = (ph[pv].clone(), pl[pv].clone(), ph[qv].clone(), pl[qv].clone())
+    hi, lo = op.operand
+    dense64 = _stored_rect([hi, lo], mb, cb, tb)
+    dense32 = dense64.float()
+    pd, qd = p64[pv].clone(), p64[qv].clone()
+    flops = 4 * m2 * m  # both products
+    entries = {}
+
+    def entry(name, bufs, vecs, library, kind, rotate=False):
+        idx = [k for k, x in enumerate(bufs) if x.dim() == 2]
+        kernel, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
+        if rotate:
+            copies = [bufs, [x.clone() for x in bufs],
+                      [x.clone() for x in bufs]]
+            fns = (_rotating(lambda b: kernel(*b, *vecs), copies),
+                   _rotating(lambda b: plain(*b, *vecs), copies), library)
+        else:
+            fns = (lambda: kernel(*bufs, *vecs),
+                   lambda: plain(*bufs, *vecs), library)
+        outs = kernel(*bufs, *vecs)
+        moved = [x[:real * tb] if k in idx else x[:real]
+                 for k, x in enumerate(bufs)]
+        entries[name] = _timed_entry(
+            name, f"lam_tpu/ops/gemv.py:{DUAL_REPLACES[name]}", SYMM_SOURCE,
+            diffs[name], fns, (*moved, *vecs, *outs), flops, kind)
+
+    entry("gemv_f32_dual", [hi], vec32,
+          lambda: (torch.mv(dense32, vec32[0]), torch.mv(dense32.T, vec32[1])),
+          "f32", rotate=True)
+    entry("gemv_df64_dual", [hi, lo], vec64,
+          lambda: (torch.mv(dense64, pd), torch.mv(dense64.T, qd)), "f64")
+    del dense32, dense64
+    dfq, fq = timed["dfq"][0], timed["fq"][0]
+    entry("gemv_dfq_dual", list(dfq.operand[:3]), vec64, None, "f64")
+    entry("gemv_q16_dual", [fq.operand[0], fq.operand[3]], vec32, None,
+          "f32", rotate=True)
+    entry("gemv_fq_dual", list(fq.operand[:6]), vec64, None, "f64")
+    return [entries[name] for name in DUAL_REPLACES]
 
 
 def _stencil_oracle(p, up, dn, nrows, nxi):
@@ -1421,9 +1664,9 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
                   f"avg_iter_s,num_iter,err,total_cg_s): {line}")
             fields = line.split(",")
             _check(int(fields[1]) == g, f"{run}: procs {fields[1]} != {g}")
-            load_s, init_s, iters, solve_s = (
-                float(fields[3]), float(fields[4]), int(fields[7]),
-                float(fields[9]))
+            load_s, init_s, gemv_s, iters, solve_s = (
+                float(fields[3]), float(fields[4]), float(fields[5]),
+                int(fields[7]), float(fields[9]))
             x = lio.read_vector(os.path.join(tmp, f"x_{run}.bin"))
             true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
             x_rel = float(np.linalg.norm(x - x_local)
@@ -1431,7 +1674,8 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
             meshes = sorted({(rec["backend"], rec["device"]) for rec in recs})
             print(f"{run}: {g} ranks on {meshes}, load {load_s:.3f} s, "
                   f"init {init_s:.3f} s, {iters} iterations, solve "
-                  f"{solve_s:.4f} s, TRUE rel residual {true_rel:.3e} "
+                  f"{solve_s:.4f} s, avg gemv {gemv_s * 1e3:.3f} ms, TRUE "
+                  f"rel residual {true_rel:.3e} "
                   f"(<= {TRUE_GATE:g}), x vs one-device ir {x_rel:.3e} "
                   f"(<= {X_GATE:g}), launches rank 0 "
                   f"{ {k: v for k, v in recs[0]['counts'].items() if v} }")
@@ -1449,10 +1693,17 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
                    f"{run}: the mesh is {meshes}, not gloo on cuda:0")
             for r, rec in enumerate(recs):
                 counts = rec["counts"]
-                for k in kernels:
+                ran, idle = kernels, not_kernels
+                if run.startswith("symgrid-"):
+                    # rank (i, j) of the 2 x 2 grid: a diagonal rank walks
+                    # its triangle, the others their half-slab, and nothing
+                    # else launches anywhere
+                    ran = kernels[r not in (0, 3)]
+                    idle = [k for k in total if k not in ran]
+                for k in ran:
                     _check(counts[k] > 0, f"{run}: rank {r} never launched "
                            f"{k}")
-                for k in not_kernels:
+                for k in idle:
                     _check(counts[k] == 0, f"{run}: rank {r} launched {k}")
                 _check(all(counts[k] == 0 for k in plain),
                        f"{run}: a plain version ran on rank {r}")
@@ -1466,6 +1717,14 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
            and np.array_equal(xs["packed-irfq-warm"],
                               xs["packed-irfq-cold"]),
            "sharded irfq from the shard cache differs from a fresh pack")
+    for k in range(4):
+        _check(os.path.exists(f"{a_path}.shardpack/fq.r2.s{k}"),
+               f"symgrid-irfq --pack-cache wrote no shard file of rank {k}")
+    _check(iters_of["symgrid-irfq-warm-4"] == iters_of["symgrid-irfq-cold-4"]
+           and np.array_equal(xs["symgrid-irfq-warm-4"],
+                              xs["symgrid-irfq-cold-4"]),
+           "the symmetric grid's irfq from the shard cache differs from a "
+           "fresh pack")
     print(f"sharded launches, summed over the runs and ranks: {total}")
     return total
 
@@ -1479,8 +1738,8 @@ def main():
     from lam_tpu_torch import io as lio
     from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
     from lam_tpu_torch.ops import _build, gemv, layout, stencil
-    from lam_tpu_torch.parallel import pcg, pcg_symm
-    from lam_tpu_torch.parallel.mesh import Mesh
+    from lam_tpu_torch.parallel import pcg, pcg2d_symm, pcg_symm
+    from lam_tpu_torch.parallel.mesh import Mesh, Mesh2D
     from lam_tpu_torch.precision import split_f64_host
     from lam_tpu_torch.solver.operators import (_host_pack_planes,
                                                 _host_pack_tri)
@@ -1507,12 +1766,17 @@ def main():
     a, p = _shard_system()
     results += cols_kernels_vs_plain(gemv, pcg, Mesh, a, p)
     torch.cuda.empty_cache()
+    one = one_device_matvecs(gemv, layout, _host_pack_planes, _host_pack_tri,
+                             a, p)
     results += slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh,
-                                     _host_pack_planes, a, p)
+                                     one["df64"], a, p)
     torch.cuda.empty_cache()
-    results += quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh,
-                                           _host_pack_tri, a, p)
-    del a
+    results += quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, one,
+                                           a, p)
+    torch.cuda.empty_cache()
+    results += dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one,
+                                     a, p)
+    del a, one
     _check(sorted(r["name"] for r in results)
            == sorted(fn.__name__ for fn in ops.KERNELS),
            "phase 2 did not hold every kernel against its plain version")

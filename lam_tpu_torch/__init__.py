@@ -13,8 +13,9 @@ or any square system stored as the full square (engine='pallas') and
 solved by f32, df64 or ir CG. The sharded backends
 (lam_tpu_torch.parallel) split a system over the ranks of a
 torch.distributed process group: row shards with a gathered or ringed
-operand, band pairs of the lower triangle (df64, dfq or fq storage), or
-blocks over an R x R grid. The matvecs are
+operand, band pairs of the lower triangle (df64, dfq or fq storage),
+dense blocks over an R x R grid, or the symmetric R x R grid that stores
+each element once (df64, dfq or fq storage). The matvecs are
 hand-written CUDA kernels for sm_90a (lam_tpu_torch/csrc, built at first
 use). The heat-equation demo (lam_tpu_torch.apps: Jacobi sweeps, and CG
 on the 5-point Laplacian, whose 'ir' inner matvec is the hand-written

@@ -21,16 +21,18 @@ launcher sets it), --device cpu runs a CPU cluster over gloo. Only rank 0
 prints and writes the solution. --backend sharded takes every precision:
 f32/df64/ir on row shards or the band-pair walk, dfq/irq/fq/irfq on the
 band-pair walk's quantized storages (with --pack-cache each rank keeps
-<matrix>.shardpack/<storage>.g<G>.s<rank>). --backend sharded2d runs
-f32/df64/ir on the largest R x R grid of the ranks (ranks beyond R^2 stay
-idle, said on stderr).
+<matrix>.shardpack/<storage>.g<G>.s<rank>). --backend sharded2d runs on
+the largest R x R grid of the ranks (ranks beyond R^2 stay idle, said on
+stderr): f32/df64/ir on dense blocks, and with --engine pallas_symm_packed
+df64/ir, or with --precision dfq/irq/fq/irfq, on the symmetric grid, which
+stores each element once (with --pack-cache each rank of a quantized
+storage keeps <matrix>.shardpack/<storage>.r<R>.s<rank>).
 
 Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
 with procs the ranks the backend uses and num_iter = max_iters + 1 for an
 unconverged run, as the reference prints it. Every other lam_tpu flag
-(generate mode -s, positional arguments, the symmetric 2-D grid, --engine
-xla, ...) raises NotImplementedError; --local-devices (JAX's virtual CPU
+(generate mode -s, positional arguments, --engine xla, ...) raises NotImplementedError; --local-devices (JAX's virtual CPU
 devices) has no counterpart and is refused with a message.
 """
 
@@ -82,7 +84,9 @@ def build_parser():
                         "the rows, pallas_symm (slab) and "
                         "pallas_symm_packed walk band pairs (df64/ir; "
                         "dfq/irq/fq/irfq packed only, what auto picks for "
-                        "them). "
+                        "them). With --backend sharded2d: auto/pallas give "
+                        "dense blocks, pallas_symm/pallas_symm_packed the "
+                        "symmetric grid (df64/ir/dfq/irq/fq/irfq). "
                         "pallas_symm on one device and xla are not "
                         "ported yet")
     p.add_argument("--pack-cache", action="store_true",
@@ -98,8 +102,9 @@ def build_parser():
                    choices=["local", "sharded", "sharded2d"],
                    help="sharded = one rank per device of a process group "
                         "(the reference's MPI/NCCL backends); sharded2d = "
-                        "blocks over the largest R x R grid of the ranks "
-                        "(f32/df64/ir)")
+                        "the largest R x R grid of the ranks: dense blocks "
+                        "(f32/df64/ir) or, with a symmetric engine or a "
+                        "quantized precision, each element stored once")
     p.add_argument("--comm", default="gather", choices=["gather", "ring"],
                    help="Sharded matvec communication: all_gather of p, "
                         "or a ring of column-block matvecs")

@@ -1,5 +1,6 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
-// (sm_90a). Ten kernels share one design:
+// (sm_90a), and the dual matvec over a dense rectangle of the same tiles.
+// Fifteen kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -22,6 +23,16 @@
 //                            (:2405; _gemv_fq_symm_slab_kernel)
 //   lam_gemv_dfq_symm_slab   replaces lam_tpu/ops/gemv.py:gemv_dfq_symm_slab
 //                            (:1386; _gemv_dfq_symm_slab_kernel)
+//   lam_gemv_f32_dual   replaces lam_tpu/ops/gemv.py:gemv_f32_dual
+//                       (:1556; _gemv_f32_dual_kernel)
+//   lam_gemv_df64_dual  replaces lam_tpu/ops/gemv.py:gemv_df64_dual
+//                       (:1682; _gemv_df64_dual_kernel)
+//   lam_gemv_dfq_dual   replaces lam_tpu/ops/gemv.py:gemv_dfq_dual
+//                       (:1763; _gemv_dfq_dual_kernel)
+//   lam_gemv_q16_dual   replaces lam_tpu/ops/gemv.py:gemv_q16_dual
+//                       (:2544; _gemv_q16_dual_kernel, its 'vpu' form)
+//   lam_gemv_fq_dual    replaces lam_tpu/ops/gemv.py:gemv_fq_dual
+//                       (:2624; _gemv_fq_dual_kernel)
 //
 // Storage contract (lam_tpu_torch/ops/layout.py pack_tri_host): the matrix
 // is n x n with n = nblk * TB, and only its nblk(nblk+1)/2 lower-triangle
@@ -48,6 +59,16 @@
 // POSITION t of that rank, not per triangle index; the diagonal of each
 // it == kt tile is stored as zeros and its term is the operator's.
 //
+// The dual kernels compute (S p, S^T q) for a dense rectangle S (ms, n) in
+// one pass over its tiles: the off-diagonal half-slabs of the symmetric 2-D
+// grid (lam_tpu_torch/parallel/pcg2d_symm.py). S is stored as mb x cb tiles
+// (mb = ms / TB, cb = n / TB) in row-major order, tile t = li * cb + k at
+// rows t*TB of a (T*TB, TB) buffer with T >= mb * cb; the trailing pad
+// tiles, which make the buffer as long as a diagonal rank's triangle, are
+// never read, and neither are their scales. Every tile has both terms:
+// S_lik p_k goes to yd (ms,) by li, S_lik^T q_li to yt (n,) by k. The scale
+// tables of the quantized planes are indexed by t.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3, no
 // --use_fast_math; nvcc contracts a*b + c into FMAs (-fmad=true), which
 // only removes roundings here: every int16 * power-of-two product below is
@@ -64,7 +85,11 @@
 // How the design meets that:
 //  * A walk policy says where tile t lies and which block (i, k) it is: the
 //    closed-form triangle index for the whole-triangle kernels, the tables
-//    for the slab kernels. Pass 1 is the same code for both.
+//    for the slab kernels, the row-major rectangle index for the dual
+//    kernels; it also says whether the tile has a transpose term (k < i in
+//    a triangle, always in a rectangle). Pass 1 is the same code for all
+//    three, with one operand vector for the direct terms and one for the
+//    transpose terms (the same vector in a symmetric walk).
 //  * Pass 1 gives each (tile, 64-row strip) its own block, so T*8 blocks
 //    keep all SMs streaming (one block per 1 MB tile would leave the last
 //    wave mostly idle). Each warp walks 8 consecutive rows; each lane
@@ -87,7 +112,9 @@
 //    the tiles of each slab row tile (by lt) and the off-diagonal tiles of
 //    each column tile (by kt), each in walk order. A TPU grid carried yd
 //    and yt across its steps in VMEM; here the lists give the same sums in
-//    an order fixed by the tables.
+//    an order fixed by the tables. The rectangle needs no lists: the tiles
+//    of row tile li are li*cb .. li*cb + cb - 1 and those of column tile k
+//    are k, k + cb, ...
 //  The TPU kernels carried the transpose sums across their sequential
 //  grid in VMEM scratch (acc_t / acct_*); Hopper's blocks run in no
 //  order, hence the two passes.
@@ -280,8 +307,12 @@ __device__ __forceinline__ int walk_row(int t) {
 }
 
 // Walk policies: tile(t) gives the block (i, k) of walk position t, the
-// element offset of its first row and its row stride.
+// element offset of its first row and its row stride; transposed(i, k)
+// says whether the tile also has a transpose term.
 struct TriangleWalk {
+  __device__ __forceinline__ bool transposed(int i, int k) const {
+    return k < i;
+  }
   __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
                                        int& ld) const {
     i = walk_row(t);
@@ -297,6 +328,9 @@ struct TableWalk {
   const int* __restrict__ lt;
   int n;       // row stride of the (ms, n) slab
   int packed;  // 1: the (T*TB, TB) walk-order buffer; 0: the slab
+  __device__ __forceinline__ bool transposed(int i, int k) const {
+    return k < i;
+  }
   __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
                                        int& ld) const {
     i = __ldg(it + t);
@@ -308,6 +342,20 @@ struct TableWalk {
       base = (size_t)__ldg(lt + t) * TB * n + (size_t)k * TB;
       ld = n;
     }
+  }
+};
+
+// The dense rectangle of cb column tiles in row-major tile order: a tile
+// of the upper half is as good as any, so every tile has both terms.
+struct RectWalk {
+  int cb;
+  __device__ __forceinline__ bool transposed(int, int) const { return true; }
+  __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
+                                       int& ld) const {
+    i = t / cb;
+    k = t - i * cb;
+    base = (size_t)t * TB * TB;
+    ld = TB;
   }
 };
 
@@ -326,9 +374,12 @@ __device__ __forceinline__ int lane_col(int lane, int q) {
   return (q / VEC) * (32 * VEC) + lane * VEC + (q % VEC);
 }
 
+// P is the operand of the direct terms (read at column tile k), Q that of
+// the transpose terms (read at row tile i).
 template <class Plane, class Vec, class Walk>
 __global__ void __launch_bounds__(THREADS)
-symm_pass1(Plane A, Vec P, Walk W, typename Plane::acc_t* __restrict__ part_d,
+symm_pass1(Plane A, Vec P, Vec Q, Walk W,
+           typename Plane::acc_t* __restrict__ part_d,
            typename Plane::acc_t* __restrict__ part_t) {
   using acc_t = typename Plane::acc_t;
   constexpr int VEC = Plane::VEC;
@@ -339,7 +390,7 @@ symm_pass1(Plane A, Vec P, Walk W, typename Plane::acc_t* __restrict__ part_d,
   int i, k, ld;
   size_t tile0;
   W.tile(t, i, k, tile0, ld);
-  const bool offdiag = k < i;
+  const bool offdiag = W.transposed(i, k);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   A.set_tile(t);
@@ -368,7 +419,7 @@ symm_pass1(Plane A, Vec P, Walk W, typename Plane::acc_t* __restrict__ part_d,
     d = warp_sum(d);
     if (lane == 0) part_d[(size_t)t * TB + r] = d;
     if (offdiag) {
-      const acc_t pi = P.get(i * TB + r) * sc;
+      const acc_t pi = Q.get(i * TB + r) * sc;
 #pragma unroll
       for (int q = 0; q < COLS_PER_LANE; ++q) tacc[q] += a[q] * pi;
     }
@@ -475,12 +526,54 @@ slab_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
   }
 }
 
+// The rectangle walk's pass 2: yd[li*TB + r] sums part_d[li*cb + k][r] over
+// the cb tiles of row tile li; yt[k*TB + c] sums part_t[li*cb + k][s][c]
+// over the mb tiles of column tile k and their strips. Blocks and partial
+// sums as in slab_pass2.
+template <class acc_t, class Out>
+__global__ void __launch_bounds__(THREADS)
+rect_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
+           int mb, int cb, Out yd, Out yt) {
+  __shared__ acc_t red[P2_GROUPS][P2_COLS];
+  const int col = threadIdx.x % P2_COLS;
+  const int grp = threadIdx.x / P2_COLS;
+  const int d_blocks = mb * TB / P2_COLS;
+  const bool direct = (int)blockIdx.x < d_blocks;  // uniform across the block
+  const int row =
+      (direct ? blockIdx.x : blockIdx.x - d_blocks) * P2_COLS + col;
+  const int tile = row / TB;
+  const int r = row % TB;
+
+  acc_t v = acc_t(0);
+  if (direct) {
+    for (int k = grp; k < cb; k += P2_GROUPS)
+      v += part_d[((size_t)tile * cb + k) * TB + r];
+  } else {
+    for (int q = grp; q < mb * STRIPS; q += P2_GROUPS) {
+      const size_t t = (size_t)(q / STRIPS) * cb + tile;
+      v += part_t[(t * STRIPS + q % STRIPS) * TB + r];
+    }
+  }
+  red[grp][col] = v;
+  __syncthreads();
+  if (grp == 0) {
+    acc_t y = red[0][col];
+#pragma unroll
+    for (int g = 1; g < P2_GROUPS; ++g) y += red[g][col];
+    if (direct)
+      yd.put(row, y);
+    else
+      yt.put(row, y);
+  }
+}
+
 template <class Plane, class Vec, class Out>
 int launch(Plane A, Vec P, Out Y, typename Plane::acc_t* part_d,
            typename Plane::acc_t* part_t, int nblk, cudaStream_t stream) {
   const int T = nblk * (nblk + 1) / 2;
   symm_pass1<Plane, Vec, TriangleWalk>
-      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, TriangleWalk{}, part_d, part_t);
+      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, P, TriangleWalk{}, part_d,
+                                           part_t);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   symm_pass2<typename Plane::acc_t, Out>
@@ -503,12 +596,27 @@ int launch_slab(Plane A, Vec P, TableWalk W, SlabLists L, Out YD, Out YT,
   if (T <= 0 || ms <= 0 || ms % TB || W.n <= 0 || W.n % TB)
     return (int)cudaErrorInvalidValue;
   symm_pass1<Plane, Vec, TableWalk>
-      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, W, part_d, part_t);
+      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, P, W, part_d, part_t);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   slab_pass2<typename Plane::acc_t, Out>
       <<<(ms + W.n) / P2_COLS, THREADS, 0, stream>>>(
           part_d, part_t, L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, YD, YT);
+  return (int)cudaGetLastError();
+}
+
+template <class Plane, class Vec, class Out>
+int launch_dual(Plane A, Vec P, Vec Q, Out YD, Out YT,
+                typename Plane::acc_t* part_d, typename Plane::acc_t* part_t,
+                int mb, int cb, cudaStream_t stream) {
+  if (mb <= 0 || cb <= 0) return (int)cudaErrorInvalidValue;
+  symm_pass1<Plane, Vec, RectWalk><<<mb * cb * STRIPS, THREADS, 0, stream>>>(
+      A, P, Q, RectWalk{cb}, part_d, part_t);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  rect_pass2<typename Plane::acc_t, Out>
+      <<<(mb + cb) * TB / P2_COLS, THREADS, 0, stream>>>(part_d, part_t, mb,
+                                                         cb, YD, YT);
   return (int)cudaGetLastError();
 }
 
@@ -637,4 +745,65 @@ extern "C" int lam_gemv_dfq_symm_slab(
                      SlabLists{d_ptr, d_ids, t_ptr, t_ids},
                      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
                      part_t, T, ms, (cudaStream_t)stream);
+}
+
+// Dual matvec (yd, yt) = (S p, S^T q) over the mb x cb row-major tiles of a
+// dense rectangle S (mb*TB, cb*TB) stored in a (T*TB, TB) buffer, T >= mb*cb
+// (the pad tiles and their scales are not read): p (cb*TB,), q (mb*TB,), yd
+// (mb*TB,), yt (cb*TB,); scratch part_d mb*cb*TB and part_t mb*cb*STRIPS*TB
+// elements, f32 for the f32 and q16 kernels, f64 for the others.
+extern "C" int lam_gemv_f32_dual(const float* a, const float* p,
+                                 const float* q, float* yd, float* yt,
+                                 float* part_d, float* part_t, int mb, int cb,
+                                 void* stream) {
+  return launch_dual(F32Plane{a}, F32Vec{p}, F32Vec{q}, F32Out{yd}, F32Out{yt},
+                     part_d, part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// The df64 twin: (a_hi + a_lo) formed and walked in f64; yd and yt returned
+// as f32 (hi, lo) splits of the f64 sums.
+extern "C" int lam_gemv_df64_dual(
+    const float* a_hi, const float* a_lo, const float* p_hi, const float* p_lo,
+    const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb, int cb,
+    void* stream) {
+  return launch_dual(DF64Plane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
+                     DF64Vec{q_hi, q_lo}, DF64Out{yd_hi, yd_lo},
+                     DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb,
+                     (cudaStream_t)stream);
+}
+
+// dfq: hi + loq * sc[t] formed and walked in f64.
+extern "C" int lam_gemv_dfq_dual(
+    const float* a_hi, const short* a_loq, const float* sc, const float* p_hi,
+    const float* p_lo, const float* q_hi, const float* q_lo, float* yd_hi,
+    float* yd_lo, float* yt_hi, float* yt_lo, double* part_d, double* part_t,
+    int mb, int cb, void* stream) {
+  return launch_dual(DFQPlane{a_hi, a_loq, sc, 0.0}, DF64Vec{p_hi, p_lo},
+                     DF64Vec{q_hi, q_lo}, DF64Out{yd_hi, yd_lo},
+                     DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb,
+                     (cudaStream_t)stream);
+}
+
+// q16: the int16 q1 plane against s1[t], the scale folded into p and q, f32
+// sums.
+extern "C" int lam_gemv_q16_dual(const short* q1, const float* s1,
+                                 const float* p, const float* q, float* yd,
+                                 float* yt, float* part_d, float* part_t,
+                                 int mb, int cb, void* stream) {
+  return launch_dual(Q16Plane{q1, s1, 0.0f}, F32Vec{p}, F32Vec{q}, F32Out{yd},
+                     F32Out{yt}, part_d, part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// fq: q1*s1[t] + q2*s2[t] + q3*s3[t] formed and walked in f64.
+extern "C" int lam_gemv_fq_dual(
+    const short* q1, const short* q2, const short* q3, const float* s1,
+    const float* s2, const float* s3, const float* p_hi, const float* p_lo,
+    const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb, int cb,
+    void* stream) {
+  return launch_dual(FQPlane{q1, q2, q3, s1, s2, s3, 0.0, 0.0, 0.0},
+                     DF64Vec{p_hi, p_lo}, DF64Vec{q_hi, q_lo},
+                     DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
+                     part_t, mb, cb, (cudaStream_t)stream);
 }

@@ -53,6 +53,11 @@ SIGNATURES = {
     "lam_gemv_q16_symm_slab": (_P,) * 14 + (_I,) * 3 + (_P,),
     "lam_gemv_fq_symm_slab": (_P,) * 21 + (_I,) * 3 + (_P,),
     "lam_gemv_dfq_symm_slab": (_P,) * 18 + (_I,) * 3 + (_P,),
+    "lam_gemv_f32_dual": (_P,) * 7 + (_I, _I, _P),
+    "lam_gemv_df64_dual": (_P,) * 12 + (_I, _I, _P),
+    "lam_gemv_dfq_dual": (_P,) * 13 + (_I, _I, _P),
+    "lam_gemv_q16_dual": (_P,) * 8 + (_I, _I, _P),
+    "lam_gemv_fq_dual": (_P,) * 16 + (_I, _I, _P),
     "lam_laplace5_blocks": (_I, _I),
     "lam_laplace5_f32_halo": (_P,) * 6 + (_I,) * 4 + (_P,),
 }

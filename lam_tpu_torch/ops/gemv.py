@@ -41,6 +41,19 @@ per walk position, the diagonal term left to the operator:
     gemv_fq_symm_slab    <- gemv_fq_symm_slab       (gemv.py:2405)
     gemv_dfq_symm_slab   <- gemv_dfq_symm_slab      (gemv.py:1386)
 
+The symmetric 2-D grid (lam_tpu_torch/parallel/pcg2d_symm.py) adds the
+five dual matvecs of its off-diagonal ranks: both products (S @ p,
+S^T @ q) of a dense rectangle S (ms, n) in one pass over its tiles, stored
+row-major (tile t = li * (n/tb) + k at rows t*tb of a (T*tb, tb) buffer,
+`layout.pack_rect_host`); T may exceed the rectangle's tile count, and the
+trailing pad tiles and their scales are never read:
+
+    gemv_f32_dual        <- gemv_f32_dual           (gemv.py:1556)
+    gemv_df64_dual       <- gemv_df64_dual          (gemv.py:1682)
+    gemv_dfq_dual        <- gemv_dfq_dual           (gemv.py:1763)
+    gemv_q16_dual        <- gemv_q16_dual           (gemv.py:2544)
+    gemv_fq_dual         <- gemv_fq_dual            (gemv.py:2624)
+
 On a CUDA tensor a wrapper launches the hand-written Hopper kernel of
 csrc/gemv_symm.cu or csrc/gemv_dense.cu (built at first use by
 `_build`) on the current stream, or raises. On a CPU tensor, and only
@@ -277,6 +290,104 @@ def gemv_dfq_symm_slab_plain(ah_slab, alq_slab, sc, p_hi, p_lo, it, kt, lt,
     return _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb)
 
 
+def _dual_geometry(buf, p, q, what):
+    """(tb, mb, cb) of a dual matvec: the rectangle of q.shape[0] rows
+    and p.shape[0] columns in tb-wide tiles; raises lam_tpu's ValueErrors
+    (lam_tpu/ops/gemv.py:1494-1509)."""
+    tb = buf.shape[1]
+    n, ms = p.shape[0], q.shape[0]
+    if tb < layout._LANES or tb & (tb - 1):
+        raise ValueError(f"{what}: packed tile width {tb} must be a "
+                         f"power-of-two multiple of {layout._LANES}")
+    if n % tb or ms % tb or buf.shape[0] % tb:
+        raise ValueError(f"{what}: n={n}, ms={ms} and packed rows "
+                         f"{buf.shape[0]} must be multiples of tb={tb}")
+    mb, cb = ms // tb, n // tb
+    if buf.shape[0] // tb < mb * cb:
+        raise ValueError(
+            f"{what}: packed buffer has {buf.shape[0] // tb} tiles, "
+            f"rectangle ({ms}, {n}) needs {mb * cb}")
+    return tb, mb, cb
+
+
+def _dual_parts(tiles, p, q, mb, cb, scale=None):
+    """Plain dual matvec of the first mb*cb row-major tiles of `tiles`
+    (T, tb, tb), p (n,) and q (ms,) in the tiles' dtype: (S @ p (ms,),
+    S^T @ q (n,)). A per-tile `scale` (T,) is folded into p and q."""
+    tb = tiles.shape[1]
+    t4 = tiles[:mb * cb].reshape(mb, cb, tb, tb)
+    pk = p.reshape(1, cb, tb).expand(mb, cb, tb)
+    ql = q.reshape(mb, 1, tb).expand(mb, cb, tb)
+    if scale is not None:
+        sc = scale[:mb * cb].reshape(mb, cb, 1)
+        pk, ql = pk * sc, ql * sc
+    yd = torch.einsum("lkij,lkj->li", t4, pk)
+    yt = torch.einsum("lkij,lki->kj", t4, ql)
+    return yd.reshape(-1), yt.reshape(-1)
+
+
+def _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb):
+    """The f64 dual matvec of f64 tiles (T, tb, tb), as f32 pairs."""
+    p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
+    q = q_hi.to(torch.float64) + q_lo.to(torch.float64)
+    yd, yt = _dual_parts(tiles, p, q, mb, cb)
+    return (*split_f64(yd), *split_f64(yt))
+
+
+def gemv_f32_dual_plain(buf, p, q):
+    """Plain PyTorch (S @ p, S^T @ q) in f32 over the row-major tiles of
+    buf (T*tb, tb)."""
+    gemv_f32_dual_plain.calls += 1
+    tb, mb, cb = _dual_geometry(buf, p, q, "gemv_f32_dual")
+    return _dual_parts(buf.reshape(-1, tb, tb), p, q, mb, cb)
+
+
+def gemv_df64_dual_plain(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo):
+    """Plain PyTorch dual matvec of S = buf_hi + buf_lo computed in
+    float64: (yd_hi, yd_lo, yt_hi, yt_lo), the f32 splits of S @ p and
+    S^T @ q."""
+    gemv_df64_dual_plain.calls += 1
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, "gemv_df64_dual")
+    rows = mb * cb * tb
+    tiles = (buf_hi[:rows].to(torch.float64)
+             + buf_lo[:rows].to(torch.float64)).reshape(-1, tb, tb)
+    return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
+
+
+def gemv_dfq_dual_plain(buf_hi, buf_loq, sc, p_hi, p_lo, q_hi, q_lo):
+    """Plain PyTorch dfq dual matvec, computed in float64 from the tiles
+    hi + loq * sc (exact products): (yd_hi, yd_lo, yt_hi, yt_lo)."""
+    gemv_dfq_dual_plain.calls += 1
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, "gemv_dfq_dual")
+    rows, nt = mb * cb * tb, mb * cb
+    tiles = (buf_hi[:rows].to(torch.float64).reshape(nt, tb, tb)
+             + buf_loq[:rows].to(torch.float64).reshape(nt, tb, tb)
+             * sc[:nt].to(torch.float64)[:, None, None])
+    return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
+
+
+def gemv_q16_dual_plain(q1buf, sc, p, q):
+    """Plain PyTorch q16 dual matvec in f32 over the int16 q1 tiles, the
+    per-tile scales sc folded into p and q: (S @ p, S^T @ q)."""
+    gemv_q16_dual_plain.calls += 1
+    tb, mb, cb = _dual_geometry(q1buf, p, q, "gemv_q16_dual")
+    tiles = q1buf[:mb * cb * tb].to(torch.float32).reshape(-1, tb, tb)
+    return _dual_parts(tiles, p, q, mb, cb, sc)
+
+
+def gemv_fq_dual_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
+    """Plain PyTorch fq dual matvec, computed in float64 from the cascade
+    q1*s1 + q2*s2 + q3*s3 (each product exact): (yd_hi, yd_lo, yt_hi,
+    yt_lo)."""
+    gemv_fq_dual_plain.calls += 1
+    tb, mb, cb = _dual_geometry(q1, p_hi, q_hi, "gemv_fq_dual")
+    rows, nt = mb * cb * tb, mb * cb
+    tiles = sum(q[:rows].to(torch.float64).reshape(nt, tb, tb)
+                * s[:nt].to(torch.float64)[:, None, None]
+                for q, s in ((q1, s1), (q2, s2), (q3, s3)))
+    return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
+
+
 _DTYPES = {"a": torch.float32, "q": torch.int16, "s": torch.float32,
            "p": torch.float32, "t": torch.int32}
 _TABLES = ("it", "kt", "lt")
@@ -286,9 +397,11 @@ def _check(what, tensors, device):
     """Raise ValueError unless every tensor is a contiguous tensor on
     `device` (cpu or cuda) of its kind's dtype: the planes (a*: f32;
     q* and *q, the quantized planes: int16) 2-D, the scale tables (s*:
-    f32), vectors (p*: f32) and walk tables (it, kt, lt: int32) 1-D."""
+    f32), vectors (p*, and q_* of the dual matvecs: f32) and walk tables
+    (it, kt, lt: int32) 1-D."""
     for name, x in tensors.items():
         kind = ("t" if name in _TABLES else
+                "p" if name.startswith("q_") else
                 "q" if name.endswith("q") else name[0])
         if x.dim() != (2 if kind in "aq" else 1):
             raise ValueError(f"{what}: {name} has shape {tuple(x.shape)}")
@@ -934,16 +1047,177 @@ def gemv_dfq_symm_slab(ah_slab, alq_slab, sc, p_hi, p_lo, it, kt, lt, *,
                       tb, True)
 
 
+_BROADCAST_TILE = ("the broadcast (tb, tb) tile of generate mode is not "
+                   "ported yet (ROADMAP Queue 1 items 8 and 10)")
+
+
+def _dual_call(wrapper, entry, operands, tb, mb, cb, pairs):
+    """Launch the dual kernel `entry` of csrc/gemv_symm.cu for `wrapper`
+    on the current stream: `operands` are the planes, scale tables and the
+    p and q vector(s) in the entry point's order. Returns (yd, yt) in f32,
+    or with pairs=True (an f64 walk) (yd_hi, yd_lo, yt_hi, yt_lo)."""
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    what = wrapper.__name__
+    device = operands[0].device
+    if tb != lib.lam_symm_tile():
+        raise ValueError(f"{what}: the CUDA kernel takes tb="
+                         f"{lib.lam_symm_tile()} tiles, got tb={tb}")
+    ms, n = mb * tb, cb * tb
+    acc_dtype = torch.float64 if pairs else torch.float32
+    part_d = torch.empty(mb * cb * tb, dtype=acc_dtype, device=device)
+    part_t = torch.empty(mb * cb * lib.lam_symm_strips() * tb,
+                         dtype=acc_dtype, device=device)
+    out = [torch.empty(size, dtype=torch.float32, device=device)
+           for size in ((ms, ms, n, n) if pairs else (ms, n))]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, entry)(
+            *(x.data_ptr() for x in (*operands, *out, part_d, part_t)),
+            mb, cb, stream)
+    wrapper.launches += 1
+    _raise_on(what, code)
+    return tuple(out)
+
+
+def _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo):
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    if q_lo.shape != q_hi.shape:
+        raise ValueError(f"{what}: q_hi {tuple(q_hi.shape)} and q_lo "
+                         f"{tuple(q_lo.shape)} differ")
+
+
+def gemv_f32_dual(buf, p, q):
+    """(S @ p, S^T @ q) for a dense f32 rectangle S (ms, n) stored as
+    the (T*tb, tb) row-major tile packing `buf` (T >= ms/tb * n/tb; the
+    trailing pad tiles are not read). p: (n,), q: (ms,), f32. One pass
+    over S; exact f32 products with f32 accumulation (no TF32, no
+    bf16)."""
+    what = "gemv_f32_dual"
+    _check(what, {"a": buf, "p": p, "q_": q}, buf.device)
+    tb, mb, cb = _dual_geometry(buf, p, q, what)
+    if buf.device.type == "cpu":
+        return gemv_f32_dual_plain(buf, p, q)
+    return _dual_call(gemv_f32_dual, "lam_gemv_f32_dual", (buf, p, q), tb,
+                      mb, cb, False)
+
+
+def gemv_df64_dual(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo, *, comp=None):
+    """The df64 twin of `gemv_f32_dual` for S = buf_hi + buf_lo, p = p_hi
+    + p_lo and q = q_hi + q_lo: returns (yd_hi, yd_lo, yt_hi, yt_lo), the
+    f32 splits of S @ p and S^T @ q, formed and accumulated in native f64,
+    so `comp` selects nothing. lam_tpu's single (tb, tb) broadcast-zero lo
+    tile of generate mode is not ported."""
+    what = "gemv_df64_dual"
+    _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
+    if buf_lo.shape != buf_hi.shape:
+        tb = buf_hi.shape[1]
+        if tuple(buf_lo.shape) == (tb, tb):
+            raise NotImplementedError(
+                f"{what}: the lo plane is one ({tb}, {tb}) tile; "
+                + _BROADCAST_TILE)
+        raise ValueError(
+            f"{what}: lo plane must match the hi plane "
+            f"{tuple(buf_hi.shape)} or be a single ({tb}, {tb}) broadcast "
+            f"tile, got {tuple(buf_lo.shape)}")
+    _check(what, {"a_hi": buf_hi, "a_lo": buf_lo, "p_hi": p_hi, "p_lo": p_lo,
+                  "q_hi": q_hi, "q_lo": q_lo}, buf_hi.device)
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, what)
+    if buf_hi.device.type == "cpu":
+        return gemv_df64_dual_plain(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo)
+    return _dual_call(gemv_df64_dual, "lam_gemv_df64_dual",
+                      (buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo), tb, mb, cb,
+                      True)
+
+
+def gemv_dfq_dual(buf_hi, buf_loq, sc, p_hi, p_lo, q_hi, q_lo, *,
+                  comp=None):
+    """The dfq twin of `gemv_df64_dual`: the f32 hi plane plus the lo
+    plane as int16 tiles against the per-tile power-of-two scales sc (T,),
+    one per tile of the buffer in row-major order (the pad tiles' scales
+    are not read); 6 B per element. Returns (yd_hi, yd_lo, yt_hi, yt_lo).
+    Formed (hi + loq * sc) and accumulated in native f64, so `comp`
+    selects nothing."""
+    what = "gemv_dfq_dual"
+    _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
+    if buf_loq.shape != buf_hi.shape:
+        raise ValueError(f"quantized lo plane shape {tuple(buf_loq.shape)} "
+                         f"!= hi plane {tuple(buf_hi.shape)}")
+    _check(what, {"a_hi": buf_hi, "a_loq": buf_loq, "sc": sc, "p_hi": p_hi,
+                  "p_lo": p_lo, "q_hi": q_hi, "q_lo": q_lo}, buf_hi.device)
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, what)
+    _check_scales(what, buf_hi.shape[0] // tb, {"scale": sc})
+    if buf_hi.device.type == "cpu":
+        return gemv_dfq_dual_plain(buf_hi, buf_loq, sc, p_hi, p_lo, q_hi,
+                                   q_lo)
+    return _dual_call(gemv_dfq_dual, "lam_gemv_dfq_dual",
+                      (buf_hi, buf_loq, sc, p_hi, p_lo, q_hi, q_lo), tb, mb,
+                      cb, True)
+
+
+def gemv_q16_dual(q1buf, sc, p, q):
+    """The q16 twin of `gemv_f32_dual`: S as the int16 q1 plane of the fq
+    cascade against the per-tile power-of-two scales sc (T,) (the pad
+    tiles' scales are not read); 2 B per element read. Returns (S @ p,
+    S^T @ q) in f32. Exact int16 -> f32 conversion, the scale folded into
+    both p and q, exact f32 products with f32 accumulation (no TF32, no
+    bf16)."""
+    what = "gemv_q16_dual"
+    _check(what, {"q1": q1buf, "s1": sc, "p": p, "q_": q}, q1buf.device)
+    tb, mb, cb = _dual_geometry(q1buf, p, q, what)
+    _check_scales(what, q1buf.shape[0] // tb, {"scale": sc})
+    if q1buf.device.type == "cpu":
+        return gemv_q16_dual_plain(q1buf, sc, p, q)
+    return _dual_call(gemv_q16_dual, "lam_gemv_q16_dual", (q1buf, sc, p, q),
+                      tb, mb, cb, False)
+
+
+def gemv_fq_dual(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
+                 comp=None):
+    """The fq twin of `gemv_df64_dual`: S as the three int16 cascade
+    planes against per-tile power-of-two scale tables (T,), 6 B per
+    element (the pad tiles' scales are not read). Returns (yd_hi, yd_lo,
+    yt_hi, yt_lo). The kernel forms the cascade and accumulates in native
+    f64, so `comp` selects nothing. lam_tpu's single (tb, tb) broadcast
+    q2/q3 tile of generate mode is not ported."""
+    what = "gemv_fq_dual"
+    _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
+    for name, qq in (("q2", q2), ("q3", q3)):
+        if qq.shape != q1.shape:
+            tb = q1.shape[1]
+            if tuple(qq.shape) == (tb, tb):
+                raise NotImplementedError(
+                    f"{what}: {name} is one ({tb}, {tb}) tile; "
+                    + _BROADCAST_TILE)
+            raise ValueError(f"{name} plane shape {tuple(qq.shape)} != q1 "
+                             f"plane {tuple(q1.shape)} (or one broadcast "
+                             f"({tb}, {tb}) tile)")
+    _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
+                  "s3": s3, "p_hi": p_hi, "p_lo": p_lo, "q_hi": q_hi,
+                  "q_lo": q_lo}, q1.device)
+    tb, mb, cb = _dual_geometry(q1, p_hi, q_hi, what)
+    _check_scales(what, q1.shape[0] // tb, {"s1": s1, "s2": s2, "s3": s3})
+    if q1.device.type == "cpu":
+        return gemv_fq_dual_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
+                                  q_lo)
+    return _dual_call(gemv_fq_dual, "lam_gemv_fq_dual",
+                      (q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo), tb,
+                      mb, cb, True)
+
+
 KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_fq_symm, gemv_f32, gemv_df64, gemv_f32_cols, gemv_df64_cols,
            gemv_f32_symm_slab, gemv_df64_symm_slab, gemv_q16_symm_slab,
-           gemv_fq_symm_slab, gemv_dfq_symm_slab)
+           gemv_fq_symm_slab, gemv_dfq_symm_slab, gemv_f32_dual,
+           gemv_df64_dual, gemv_dfq_dual, gemv_q16_dual, gemv_fq_dual)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
          gemv_f32_symm_slab_plain, gemv_df64_symm_slab_plain,
          gemv_q16_symm_slab_plain, gemv_fq_symm_slab_plain,
-         gemv_dfq_symm_slab_plain)
+         gemv_dfq_symm_slab_plain, gemv_f32_dual_plain,
+         gemv_df64_dual_plain, gemv_dfq_dual_plain, gemv_q16_dual_plain,
+         gemv_fq_dual_plain)
 
 
 def reset_counters():

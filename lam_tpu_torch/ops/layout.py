@@ -5,7 +5,8 @@ The layout half of lam_tpu/ops/gemv.py (`_symm_tables`,
 the fq additions `Q16_P`, `padded_tri_tile_count`,
 `_symm_tables_padded`, `_pow2_scale`, `quantize_fq_tiles`, gemv.py:300,
 :337-361, :1123, :1876; the dfq lo quantizer `quantize_lo_tiles`,
-gemv.py:1134) and the padding rule of
+gemv.py:1134; the dual kernels' rectangle pack `pack_rect_host`,
+gemv.py:1832) and the padding rule of
 lam_tpu/solver/operators.py (`PAD_MULTIPLE`, `padded_size`,
 operators.py:31-43), byte-for-byte. The values are fixed here as layout
 contracts: the port reads none of the JAX package's LAM_TPU_* tuning
@@ -143,6 +144,23 @@ def pack_tri_host(a, tb, it=None, kt=None):
     for t, (i, k) in enumerate(zip(it, kt)):
         out[t * tb:(t + 1) * tb] = a[i * tb:(i + 1) * tb,
                                      k * tb:(k + 1) * tb]
+    return out
+
+
+def pack_rect_host(s, tb, pad_tiles=0):
+    """Pack a dense host rectangle (ms, n) into the row-major (T*tb, tb)
+    tile layout of the dual kernels (tile t = li * (n/tb) + k holds block
+    (li, k)), plus `pad_tiles` trailing zero tiles, which make a half-slab's
+    buffer as long as a triangle's."""
+    s = np.asarray(s)
+    ms, n = s.shape
+    mb, cb = ms // tb, n // tb
+    out = np.zeros(((mb * cb + pad_tiles) * tb, tb), dtype=s.dtype)
+    for li in range(mb):
+        for k in range(cb):
+            t = li * cb + k
+            out[t * tb:(t + 1) * tb] = s[li * tb:(li + 1) * tb,
+                                         k * tb:(k + 1) * tb]
     return out
 
 

@@ -25,7 +25,8 @@ symmetric, so engine 'pallas_symm' folds to the dense engine 'pallas',
 as in lam_tpu. Not ported yet: precision 'f64' and engine 'xla' (the
 plain f64 path), `from_gen_tridiagonal` (generate mode), the Jacobi
 preconditioner (`diagonal`, `run_pcg`) and the block matvec
-(`prepare_b_block`); the symmetric grid is lam_tpu/parallel/pcg2d_symm.py.
+(`prepare_b_block`). The symmetric grid, which stores each element once,
+is lam_tpu_torch/parallel/pcg2d_symm.py.
 """
 
 from __future__ import annotations
@@ -50,7 +51,43 @@ def _make_apply2d(mv_local, mesh):
     return apply
 
 
-class Sharded2DOperator(ops.LinearOperator):
+class GridOperator(ops.LinearOperator):
+    """An operator on an R x R grid (`Mesh2D`): this rank holds block i
+    (its grid row's, `m` = n_p/R entries) of every vector, replicated over
+    the grid columns, and a dot is the grid's (`mesh.dot`)."""
+
+    def __init__(self, matvec_fn, operand, n, n_padded, vector_dtype, mesh):
+        super().__init__(matvec_fn, operand, n, n_padded, vector_dtype,
+                         mesh.device)
+        self.mesh = mesh
+        self.dot = mesh.dot
+        self.m = n_padded // mesh.r
+
+    def prepare_b(self, b):
+        """This rank's block (grid row i) of the zero-padded right-hand
+        side."""
+        b = torch.as_tensor(b, dtype=self.vector_dtype)
+        if b.shape != (self.n,):
+            raise ValueError(f"rhs has shape {tuple(b.shape)}, expected "
+                             f"({self.n},)")
+        b = torch.nn.functional.pad(b, (0, self.n_padded - self.n))
+        r0 = self.mesh.i * self.m
+        return b[r0:r0 + self.m].to(self.device)
+
+    def extract_x(self, x_blk):
+        """The whole solution on every rank of the grid (a collective
+        over the grid column)."""
+        return self.mesh.all_gather_col(x_blk)[:self.n]
+
+
+def check_active(mesh):
+    """Raise for a rank that is outside the grid: it holds no block."""
+    if not mesh.active:
+        raise RuntimeError(f"rank {mesh.rank} is outside the "
+                           f"{mesh.r}x{mesh.r} grid and holds no block")
+
+
+class Sharded2DOperator(GridOperator):
     """Dense matrix in (n_p/R, n_p/R) blocks over an R x R grid (lam_tpu's
     Sharded2DOperator, engine 'pallas'): f32 or df64 storage of the
     rank's block, vectors split over grid rows, dots all-reduced over the
@@ -58,12 +95,9 @@ class Sharded2DOperator(ops.LinearOperator):
 
     def __init__(self, operand, n, n_padded, vector_dtype, precision, mesh):
         super().__init__(_make_apply2d(MATVEC[precision][0], mesh), operand,
-                         n, n_padded, vector_dtype, mesh.device)
+                         n, n_padded, vector_dtype, mesh)
         self.precision = "f32" if precision == "f32@df64" else precision
         self.engine = ops.DENSE_ENGINE
-        self.mesh = mesh
-        self.dot = mesh.dot
-        self.m = n_padded // mesh.r
 
     # -- construction ------------------------------------------------------
 
@@ -91,9 +125,7 @@ class Sharded2DOperator(ops.LinearOperator):
         if precision not in ("f32", "df64"):
             raise ValueError(f"unknown precision {precision!r}")
         mesh = mesh or make_mesh2d(device=device)
-        if not mesh.active:
-            raise RuntimeError(f"rank {mesh.rank} is outside the "
-                               f"{mesh.r}x{mesh.r} grid and holds no block")
+        check_active(mesh)
         n_p = Sharded2DOperator.block_padded_size(n, mesh.r)
         m = n_p // mesh.r
         r0, c0 = mesh.i * m, mesh.j * m
@@ -143,22 +175,6 @@ class Sharded2DOperator(ops.LinearOperator):
             "device) is not ported yet (ROADMAP Queue 1 item 10)")
 
     # -- solve path --------------------------------------------------------
-
-    def prepare_b(self, b):
-        """This rank's block (grid row i) of the zero-padded right-hand
-        side."""
-        b = torch.as_tensor(b, dtype=self.vector_dtype)
-        if b.shape != (self.n,):
-            raise ValueError(f"rhs has shape {tuple(b.shape)}, expected "
-                             f"({self.n},)")
-        b = torch.nn.functional.pad(b, (0, self.n_padded - self.n))
-        r0 = self.mesh.i * self.m
-        return b[r0:r0 + self.m].to(self.device)
-
-    def extract_x(self, x_blk):
-        """The whole solution on every rank of the grid (a collective
-        over the grid column)."""
-        return self.mesh.all_gather_col(x_blk)[:self.n]
 
     def as_f32(self):
         """f32 view SHARING this operator's buffers: the hi block of a

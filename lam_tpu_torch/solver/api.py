@@ -30,18 +30,21 @@ operator (comm 'gather' or 'ring'); 'pallas_symm' (slab) and
 'pallas_symm_packed' with df64/ir give the band-pair operator, and
 dfq/irq/fq/irfq its quantized packed storages ('auto' routes them there;
 pack_cache=True keeps one `<file>.shardpack/<storage>.g<g>.s<rank>` per
-rank). backend='sharded2d' splits it into blocks over an R x R grid of
-the first R^2 ranks (f32/df64/ir, the dense kernels on each block).
+rank). backend='sharded2d' splits it over an R x R grid of the first R^2
+ranks (routed as lam_tpu/solver/api.py:117-153): engine 'auto' or 'pallas'
+with f32/df64/ir gives the dense grid (a block and the dense kernels on
+every rank); 'pallas_symm' and 'pallas_symm_packed' with df64/ir, and
+dfq/irq/fq/irfq (which 'auto' routes there), the symmetric grid, which
+stores each element once (lam_tpu_torch/parallel/pcg2d_symm.py;
+pack_cache=True keeps one `<file>.shardpack/<storage>.r<R>.s<rank>` per
+rank of a quantized storage).
 Every rank calls the same methods in the same order: loads, solves and
 measurements are collective.
 
 Still refused, with NotImplementedError: generate mode, precision
 'f64'/'auto', backend 'auto', engine 'xla', engine 'pallas_symm' on one
-device, the preconditioner, checkpoints, the host outer loop, and on
-'sharded2d' the symmetric grid (engines 'pallas_symm'/
-'pallas_symm_packed', precisions dfq/irq/fq/irfq: its dual kernels 11-13,
-18 and 19 are still to port). The device is explicit; asking for CUDA
-where there is none raises.
+device, the preconditioner, checkpoints and the host outer loop. The
+device is explicit; asking for CUDA where there is none raises.
 """
 
 from __future__ import annotations
@@ -93,26 +96,31 @@ def _check_sharded(precision, engine):
 
 
 def _check_sharded2d(precision, engine):
-    """Raise for a 2-D grid configuration the port does not take
-    (routing of lam_tpu/solver/api.py:117-153)."""
+    """The engine a 2-D grid configuration runs (a symmetric engine: the
+    symmetric grid; else the dense grid); raises for one the port does
+    not take, with lam_tpu's messages (lam_tpu/solver/api.py:117-153)."""
     base = _BASE.get(precision, precision)
     if engine == "xla":
         raise NotImplementedError(f"engine={engine!r} is not ported yet")
     if engine not in ENGINES + ("pallas_symm",):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine in SYMM_ENGINES or (base in QUANT_LAYOUT and engine == "auto"):
-        raise NotImplementedError(
-            f"--backend sharded2d with engine={engine!r} and precision="
-            f"{precision!r} is the symmetric 2-D grid, which is not ported "
-            "yet: its dual kernels gemv_f32_dual (11), gemv_df64_dual (12), "
-            "gemv_dfq_dual (13), gemv_q16_dual (18) and gemv_fq_dual (19) "
-            "are still to port")
+    if base in QUANT_LAYOUT and engine == "auto":
+        # quantized storage exists only on the symmetric grid
+        engine = "pallas_symm_packed"
+    if engine in SYMM_ENGINES:
+        if base not in ("df64",) + tuple(QUANT_LAYOUT):
+            raise ValueError(
+                f"--backend sharded2d --engine {engine} supports precision "
+                "df64/ir/dfq/irq/fq/irfq (the df64 pair or a quantized "
+                "form is the storage layout)")
+        return engine
     if base in QUANT_LAYOUT:
         raise ValueError(
             f"--backend sharded2d --engine {engine} supports precision "
             "f64/f32/df64/ir; the quantized storages (dfq/irq/fq/irfq) "
             "exist only on the symmetric grid (engine pallas_symm_packed "
             "or auto)")
+    return engine
 
 
 class ConjugateGradient:
@@ -132,7 +140,7 @@ class ConjugateGradient:
                 mesh = make_mesh(n_devices, device=device)
             self.device = mesh.device
         elif backend == "sharded2d":
-            _check_sharded2d(precision, engine)
+            self._sharded_engine = _check_sharded2d(precision, engine)
             if mesh is None:
                 import math
 
@@ -196,19 +204,22 @@ class ConjugateGradient:
     def _sharded_operator(self, filename, storage):
         """This rank's part of the sharded operator, read from the file
         (each rank reads only its own rows or block)."""
-        shard_cached = (self.backend == "sharded"
-                        and storage in QUANT_LAYOUT)
-        if self.pack_cache and not shard_cached:
+        if self.pack_cache and storage not in QUANT_LAYOUT:
             print("lam-cg: --pack-cache only accelerates "
                   "backend=local f32/df64/ir/dfq/irq/fq/irfq and "
                   "sharded/sharded2d dfq/irq/fq/irfq file loads; "
                   "ignored for this backend/precision", file=sys.stderr)
+        engine = self._sharded_engine
         if self.backend == "sharded2d":
+            if engine in SYMM_ENGINES:
+                from lam_tpu_torch.parallel.pcg2d_symm import Symm2DOperator
+                return Symm2DOperator.from_file(
+                    filename, mesh=self.mesh, precision=storage,
+                    pack_cache=self.pack_cache)
             from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator
             return Sharded2DOperator.from_file(
                 filename, mesh=self.mesh, precision=storage,
                 engine=self.engine)
-        engine = self._sharded_engine
         if engine in SYMM_ENGINES:
             from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator
             return SymmShardedOperator.from_file(

@@ -230,12 +230,15 @@ def test_facade_solves_and_records(tmp_path, system):
 
 
 def test_unported_options_raise(system):
-    # the symmetric 2-D grid waits for its dual kernels
-    with pytest.raises(NotImplementedError, match="gemv_dfq_dual"):
-        ConjugateGradient(backend="sharded2d", precision="irq", device="cpu")
-    with pytest.raises(NotImplementedError, match="symmetric 2-D grid"):
+    # the symmetric 2-D grid is routed, not refused
+    cg = ConjugateGradient(backend="sharded2d", precision="irq", device="cpu")
+    assert cg._sharded_engine == "pallas_symm_packed"
+    cg = ConjugateGradient(backend="sharded2d", engine="pallas_symm_packed",
+                           device="cpu")
+    assert cg._sharded_engine == "pallas_symm_packed"
+    with pytest.raises(ValueError, match="supports precision df64/ir"):
         ConjugateGradient(backend="sharded2d", engine="pallas_symm_packed",
-                          device="cpu")
+                          precision="f32", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         ConjugateGradient(backend="auto", device="cpu")
     for engine in ("pallas_symm", "xla"):

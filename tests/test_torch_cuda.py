@@ -729,3 +729,187 @@ def test_four_rank_grid_solve_on_one_card(tmp_path):
     x = tio.read_vector(tmp_path / "x.bin")
     assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
     assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)
+
+
+# -- the dual kernels of the symmetric 2-D grid ----------------------------
+
+DUAL_SHAPES = [(512, 1024, 0), (1024, 2048, 2), (2560, 5120, 5)]  # ms, n, pad
+
+
+def _dual_case(ms, n, pad, seed):
+    """A random (ms, n) rectangle packed at tb=512 with `pad` trailing pad
+    tiles, as df64, dfq and fq buffers on the card, the pad tiles and pad
+    scales overwritten with finite garbage (a kernel that read them would
+    show it), and p, q as (hi, lo) views at an element offset inside longer
+    vectors, as the operator hands them."""
+    from lam_tpu_torch.solver.operators import quantize_storage_tiles
+    tb = layout.SYMM_TB
+    rng = np.random.default_rng(seed)
+    s = rng.uniform(-1, 1, (ms, n))
+    buf = layout.pack_rect_host(s, tb, pad_tiles=pad)
+    real = (ms // tb) * (n // tb)
+
+    def up(x, scale=False):
+        x = np.array(x, copy=True)
+        if scale:
+            x[real:] = 3.0
+        else:
+            x[real * tb:] = 7
+        return torch.from_numpy(x).cuda()
+
+    packs = {"df64": [up(x) for x in split_f64_host(buf)]}
+    for storage, n_planes in (("dfq", 2), ("fq", 3)):
+        out = quantize_storage_tiles(storage, buf, tb)
+        packs[storage] = ([up(x) for x in out[:n_planes]]
+                          + [up(x, scale=True) for x in out[n_planes:]])
+    whole = rng.uniform(-1, 1, 2 * (n + ms))
+    wh, wl = (torch.from_numpy(x).cuda() for x in split_f64_host(whole))
+    vecs = (wh[n:2 * n], wl[n:2 * n], wh[2 * n + ms:], wl[2 * n + ms:])
+    assert all(v.storage_offset() > 0 and v.is_contiguous() for v in vecs)
+    return packs, vecs
+
+
+def _stored_rect(planes, scales, ms, n):
+    """The f64 (ms, n) rectangle a storage's buffers hold."""
+    tb = layout.SYMM_TB
+    mb, cb = ms // tb, n // tb
+    rows = mb * cb * tb
+    if scales:
+        buf = sum(q[:rows].double()
+                  * s[:mb * cb].double().repeat_interleave(tb)[:, None]
+                  for q, s in zip(planes[-len(scales):], scales))
+        if len(planes) > len(scales):  # dfq: the f32 hi plane beside it
+            buf = buf + planes[0][:rows].double()
+    else:
+        buf = sum(x[:rows].double() for x in planes)
+    return buf.reshape(mb, cb, tb, tb).permute(0, 2, 1, 3).reshape(ms, n)
+
+
+@pytest.mark.parametrize("ms,n,pad", DUAL_SHAPES)
+def test_f32_dual_kernels_match_plain(ms, n, pad):
+    packs, (ph, _, qh, _) = _dual_case(ms, n, pad, seed=ms)
+    hi = packs["df64"][0]
+    q1, s1 = packs["fq"][0], packs["fq"][3]
+    for name, args, stored in (
+            ("gemv_f32_dual", (hi, ph, qh), _stored_rect([hi], [], ms, n)),
+            ("gemv_q16_dual", (q1, s1, ph, qh),
+             _stored_rect([q1], [s1], ms, n))):
+        kernel, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
+        ops.reset_counters()
+        yd, yt = kernel(*args)
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        assert counts[name] == 1 and counts[name + "_plain"] == 0
+        assert yd.shape == (ms,) and yt.shape == (n,)
+        qd, qt = plain(*args)
+        y, q = torch.cat([yd, yt]), torch.cat([qd, qt])
+        oracle = torch.cat([stored @ ph.double(), stored.T @ qh.double()])
+        # exact f32 products, f32 sums in two different orders
+        assert _rel(y, q) <= 1e-5
+        assert _rel(y.double(), oracle) <= 1e-5
+        zd, zt = kernel(*args)  # fixed-order sums: bitwise repeatable
+        assert torch.equal(yd, zd) and torch.equal(yt, zt)
+
+
+@pytest.mark.parametrize("storage", ["df64", "dfq", "fq"])
+@pytest.mark.parametrize("ms,n,pad", DUAL_SHAPES)
+def test_f64_dual_kernels_match_f64(ms, n, pad, storage):
+    packs, vecs = _dual_case(ms, n, pad, seed=ms + 1)
+    bufs = packs[storage]
+    name = f"gemv_{storage}_dual"
+    n_scales = {"df64": 0, "dfq": 1, "fq": 3}[storage]
+    planes = bufs[:len(bufs) - n_scales]
+    stored = _stored_rect(planes, bufs[len(planes):], ms, n)
+    kernel, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
+    ops.reset_counters()
+    out = kernel(*bufs, *vecs)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts[name] == 1 and counts[name + "_plain"] == 0
+    ref = plain(*bufs, *vecs)
+    again = kernel(*bufs, *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+    def join(o):
+        return torch.cat([o[0].double() + o[1].double(),
+                          o[2].double() + o[3].double()])
+
+    p64 = vecs[0].double() + vecs[1].double()
+    q64 = vecs[2].double() + vecs[3].double()
+    oracle = torch.cat([stored @ p64, stored.T @ q64])
+    # native f64 sums; the f32 (hi, lo) split of the result keeps ~2^-48
+    assert _rel(join(out), oracle) <= 1e-13
+    assert _rel(join(out), join(ref)) <= 1e-13
+
+
+def test_dual_kernels_reject_bad_inputs():
+    tb = layout.SYMM_TB
+    dev = torch.device("cuda")
+    small = torch.zeros(2 * 128, 128, device=dev)
+    v = torch.zeros(128, device=dev)
+    with pytest.raises(ValueError, match="tb=512"):
+        gemv.gemv_f32_dual(small, v, v)
+    buf = torch.zeros(tb, tb, device=dev)
+    p = torch.zeros(2 * tb, device=dev)
+    q = torch.zeros(tb, device=dev)
+    with pytest.raises(ValueError, match="packed buffer has 1 tiles"):
+        gemv.gemv_f32_dual(buf, p, q)
+    with pytest.raises(ValueError, match="expected"):
+        gemv.gemv_f32_dual(buf, q.cpu(), q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        gemv.gemv_f32_dual(torch.zeros(tb * tb + 1, device=dev)[1:].view(
+            tb, tb), q, q)
+    with pytest.raises(NotImplementedError, match="items 8 and 10"):
+        gemv.gemv_df64_dual(torch.zeros(2 * tb, tb, device=dev), buf, q, q,
+                            q, q)
+
+
+def test_four_rank_symmetric_grid_solve_on_one_card(tmp_path):
+    """Four rank processes share the one card over gloo as a 2 x 2 grid:
+    the CLI's --backend sharded2d ir solve with --engine pallas_symm_packed
+    and its irfq solve run the triangle kernels on the diagonal ranks and
+    the dual kernels on the others (no plain version, no dense kernel) and
+    give the one-device solution."""
+    from lam_tpu_torch import DenseOperator, cg_solve_ir, generate
+    from lam_tpu_torch import io as tio
+    from torch_sharded_worker import launch_cluster
+
+    n = 3000
+    a = generate.random_spd_matrix_fast(n, seed=9)
+    b = generate.random_rhs(n, seed=10)
+    tio.write_matrix(tmp_path / "A.bin", a)
+    tio.write_matrix(tmp_path / "b.bin", b)
+    common = ["-A", str(tmp_path / "A.bin"), "-b", str(tmp_path / "b.bin"),
+              "--backend", "sharded2d"]
+    jobs = [{"kind": "cli", "name": "ir", "argv": common + [
+        "-o", str(tmp_path / "x_ir.bin"), "--precision", "ir", "--engine",
+        "pallas_symm_packed"]},
+        {"kind": "cli", "name": "irfq", "argv": common + [
+            "-o", str(tmp_path / "x_irfq.bin"), "--precision", "irfq",
+            "--pack-cache"]}]
+    records = launch_cluster(4, jobs, str(tmp_path / "run"), 300,
+                             device="cuda")
+    local = DenseOperator.from_dense(a, precision="df64", device="cuda")
+    x_local = cg_solve_ir(local.as_f32(), local, b, max_iters=10000,
+                          rel_error=1e-9).x.cpu().numpy()
+    kernels = {"ir": (("gemv_f32_symm", "gemv_df64_symm"),
+                      ("gemv_f32_dual", "gemv_df64_dual")),
+               "irfq": (("gemv_q16_symm", "gemv_fq_symm"),
+                        ("gemv_q16_dual", "gemv_fq_dual"))}
+    for name, (diag, off) in kernels.items():
+        for r, rank in enumerate(records):
+            rec = rank[name]
+            assert rec["rc"] == 0
+            ran, idle = (diag, off) if r in (0, 3) else (off, diag)
+            for k in ran:
+                assert rec["counts"][k] > 0
+            for k in idle + ("gemv_f32", "gemv_df64"):
+                assert rec["counts"][k] == 0
+            assert all(v == 0 for k, v in rec["counts"].items()
+                       if k.endswith("_plain"))
+        assert int(records[0][name]["stdout"].split(",")[1]) == 4
+        x = tio.read_vector(tmp_path / f"x_{name}.bin")
+        assert np.linalg.norm(x - x_local) <= 1e-6 * np.linalg.norm(x_local)
+        assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)
+    for k in range(4):
+        assert (tmp_path / "A.bin.shardpack" / f"fq.r2.s{k}").exists()

@@ -60,7 +60,9 @@ from torch_sharded_worker import launch_cluster
 N, SEED = 500, 41
 TB = 128
 RANKS = (2, 4)
-CLUSTER_TIMEOUT_S = 240
+# a guard against a hung cluster, not a speed claim: a 4-rank cluster of
+# ~30 jobs takes about a minute alone and several beside other test workers
+CLUSTER_TIMEOUT_S = 420
 DENSE_PRECISIONS = ("f32", "df64", "ir")
 QUANT_PRECISIONS = ("dfq", "irq", "fq", "irfq")
 F32_REL_ERROR = 1e-5
@@ -919,9 +921,9 @@ def test_sharded_configurations_refused():
             ConjugateGradient(backend="sharded", precision=precision,
                               engine="pallas", device="cpu"
                               ).load_matrix_from_file(_tiny_matrix_file())
-        with pytest.raises(NotImplementedError, match="gemv_fq_dual"):
-            ConjugateGradient(backend="sharded2d", precision=precision,
-                              device="cpu")
+        cg = ConjugateGradient(backend="sharded2d", precision=precision,
+                               device="cpu")  # auto: the symmetric grid
+        assert cg._sharded_engine == "pallas_symm_packed"
         with pytest.raises(ValueError, match="only on the symmetric grid"):
             ConjugateGradient(backend="sharded2d", precision=precision,
                               engine="pallas", device="cpu")
@@ -932,9 +934,12 @@ def test_sharded_configurations_refused():
     with pytest.raises(ValueError, match="requested 2 devices"):
         ConjugateGradient(backend="sharded", n_devices=2, device="cpu")
     for engine in ("pallas_symm", "pallas_symm_packed"):
-        with pytest.raises(NotImplementedError, match="symmetric 2-D grid"):
+        cg = ConjugateGradient(backend="sharded2d", engine=engine,
+                               device="cpu")  # the symmetric 2-D grid
+        assert cg._sharded_engine == engine
+        with pytest.raises(ValueError, match="supports precision df64/ir"):
             ConjugateGradient(backend="sharded2d", engine=engine,
-                              device="cpu")
+                              precision="f32", device="cpu")
     with pytest.raises(NotImplementedError, match="xla"):
         ConjugateGradient(backend="sharded2d", engine="xla", device="cpu")
     with pytest.raises(NotImplementedError):
@@ -965,9 +970,10 @@ def test_sharded_cli_flags_refused(capsys):
                       (["--process-id", "0"], "need --coordinator")):
         assert tcli.main(argv + ["--device", "cpu"]) == 1
         assert msg in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="symmetric 2-D grid"):
-        tcli.main(["--backend", "sharded2d", "--precision", "dfq",
-                   "--device", "cpu"])
+    assert tcli.main(["--backend", "sharded2d", "--precision", "f32",
+                      "--engine", "pallas_symm_packed", "--device",
+                      "cpu"]) == 1  # the symmetric 2-D grid stores a pair
+    assert "supports precision df64/ir" in capsys.readouterr().err
     with pytest.raises(NotImplementedError, match="not ported yet: -s"):
         tcli.main(["-s", "100", "--backend", "sharded", "--precision",
                    "irfq", "--device", "cpu"])  # generate mode

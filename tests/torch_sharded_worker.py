@@ -11,31 +11,37 @@ and left after the last. Jobs:
   {"kind": "cli", "name", "argv"}: lam_tpu_torch.cli.main(argv plus this
       rank's --coordinator/--num-processes/--process-id/--device, which
       find the group joined), its exit code and standard output;
-  {"kind": "solve", "name", "op": "dense"|"symm"|"grid", "precision":
-      "f32"|"df64"|"ir"|"dfq"|"irq"|"fq"|"irfq", "comm", "packed", "tb",
-      "pack_cache", "matrix", "rhs", "rel_error"}: the operator built from
-      the matrix file (row shards, the band-pair walk, or the R x R grid
-      over the largest square of the ranks), cg_solve or cg_solve_ir with
+  {"kind": "solve", "name", "op": "dense"|"symm"|"grid"|"symgrid",
+      "precision": "f32"|"df64"|"ir"|"dfq"|"irq"|"fq"|"irfq", "comm",
+      "packed", "tb", "pack_cache", "matrix", "rhs", "rel_error"}: the
+      operator built from the matrix file (row shards, the band-pair walk,
+      or the dense or the symmetric R x R grid over the largest square of
+      the ranks), cg_solve or cg_solve_ir with
       the precision's inner floor; iterations, convergence, the recurrence
       residual, and x saved as <dir>/<name>.r<rank>.npy;
   {"kind": "matvec", "name", "op", "precision", "comm", "packed", "tb",
       "matrix", "p"}: the whole A @ p (np.load(p)) saved as
       <dir>/<name>.r<rank>.npy;
-  {"kind": "diagonal", "name", "op": "symm", "precision", "tb",
-      "matrix"}: the operator's diagonal() saved the same way.
+  {"kind": "diagonal", "name", "op": "symm"|"symgrid", "precision", "tb",
+      "matrix"}: the operator's whole diagonal() saved the same way.
 A rank outside the grid records {"idle": true} for a grid job.
 `launch_cluster` is what the tests call: it starts the rank processes of
-one CPU cluster and returns their records. Imports nothing of JAX.
+one CPU cluster and returns their records. One cluster runs at a time on a
+host (a file lock): a solve is a chain of small collectives, and clusters
+of several test files sharing the cores stretch each other many times over.
+Imports nothing of JAX.
 """
 
 import argparse
 import contextlib
+import fcntl
 import io
 import json
 import os
 import socket
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import torch
@@ -48,10 +54,12 @@ from lam_tpu_torch import io as lio  # noqa: E402
 from lam_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from lam_tpu_torch.parallel.pcg import ShardedDenseOperator  # noqa: E402
 from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator  # noqa: E402
+from lam_tpu_torch.parallel.pcg2d_symm import Symm2DOperator  # noqa: E402
 from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator  # noqa: E402
 from lam_tpu_torch.solver.cg import default_inner_floor  # noqa: E402
 
 _BASE = {"ir": "df64", "irq": "dfq", "irfq": "fq"}
+_GRID_OPS = ("grid", "symgrid")
 
 
 def _free_port():
@@ -68,24 +76,29 @@ def launch_cluster(g, jobs, out, timeout_s, device="cpu"):
     jobs_path = os.path.join(out, "jobs.json")
     with open(jobs_path, "w") as f:
         json.dump(jobs, f)
-    port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--coordinator",
-         f"127.0.0.1:{port}", "--num-processes", str(g), "--process-id",
-         str(r), "--device", device, "--jobs", jobs_path, "--out", out],
-        env=env, cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-        text=True) for r in range(g)]
+    lock_path = os.path.join(tempfile.gettempdir(),
+                             f"lam_tpu_torch_cluster.{os.getuid()}.lock")
     logs = []
-    try:
-        for proc in procs:
-            logs.append(proc.communicate(timeout=timeout_s)[0])
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+    with open(lock_path, "w") as lock:
+        # held until this cluster has ended; the timeout runs from its start
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        port = _free_port()
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--coordinator",
+             f"127.0.0.1:{port}", "--num-processes", str(g), "--process-id",
+             str(r), "--device", device, "--jobs", jobs_path, "--out", out],
+            env=env, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for r in range(g)]
+        try:
+            for proc in procs:
+                logs.append(proc.communicate(timeout=timeout_s)[0])
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
     codes = [proc.returncode for proc in procs]
     assert not any(codes), f"exit codes {codes}:\n" + "\n".join(logs)
     records = []
@@ -103,6 +116,10 @@ def _operator(job, mesh):
     if job["op"] == "grid":
         return Sharded2DOperator.from_file(job["matrix"], mesh=mesh,
                                            precision=storage)
+    if job["op"] == "symgrid":
+        return Symm2DOperator.from_file(
+            job["matrix"], mesh=mesh, tb=job["tb"], precision=storage,
+            pack_cache=job.get("pack_cache", False))
     return SymmShardedOperator.from_file(
         job["matrix"], mesh=mesh, tb=job["tb"],
         packed=job.get("packed", False), precision=storage,
@@ -120,15 +137,18 @@ def _run(job, args, out, meshes):
         with contextlib.redirect_stdout(buf):
             rc = cli.main(argv)
         return {"rc": rc, "stdout": buf.getvalue()}
-    mesh = meshes[job["op"] == "grid"]
+    mesh = meshes[job["op"] in _GRID_OPS]
     if not mesh.active:
         return {"idle": True}
     op = _operator(job, mesh)
     rec = {"backend": mesh.backend, "device": str(mesh.device),
            "size": mesh.size}
     if job["kind"] == "diagonal":
+        d = op.diagonal()
+        if job["op"] in _GRID_OPS:  # a rank holds its grid row's block
+            d = op.extract_x(d)
         np.save(os.path.join(out, f"{name}.r{args.process_id}.npy"),
-                op.diagonal()[:op.n].cpu().numpy())
+                d[:op.n].cpu().numpy())
         return rec
     if job["kind"] == "matvec":
         y = op.matvec(op.prepare_b(np.load(job["p"])))
@@ -166,7 +186,7 @@ def main():
     pmesh.distributed_init(args.coordinator, args.num_processes,
                            args.process_id, device=args.device)
     meshes = [pmesh.make_mesh(device=args.device), None]
-    if any(job.get("op") == "grid" for job in jobs):
+    if any(job.get("op") in _GRID_OPS for job in jobs):
         meshes[1] = pmesh.make_mesh2d(device=args.device)
     results = []
     for job in jobs:
