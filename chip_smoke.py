@@ -5,8 +5,8 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the twenty kernels against its plain PyTorch version at
-   the main path's shapes. The eight one-device kernels at N=10000 padded
+2. Holds each of the twenty-three kernels against its plain PyTorch
+   version at the main path's shapes. The eight one-device kernels at N=10000 padded
    to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
    padded to 216), on one random symmetric matrix:
    - gemv_f32_symm, gemv_q16_symm and the dense gemv_f32 (the full
@@ -62,7 +62,28 @@
    back-to-back calls, taken in turns and enqueued behind a device-side
    spin so the host's launch rate cannot gap them), the GB/s of the bytes
    moved and the bound: the larger of those bytes at 3.35 TB/s and the
-   flops at the H100's f32 or f64 peak.
+   flops at the H100's f32, f64 or bf16 peak.
+   The bf16 product engine of the three q16 kernels (lam_tpu's
+   LAM_Q16_IMPL "mxu"; "auto" picks it at n >= 16384), each with the engine
+   forced where its phase-2 shape is below that: gemv_q16_symm_bf16 at
+   N=10240 on the fq pack, gemv_q16_symm_slab_bf16 at every rank's tables
+   and scales of G=2 and G=4, gemv_q16_dual_bf16 on both off-diagonal
+   ranks of the 2 x 2 grid with garbage pad tiles and pad scales: the
+   public wrapper routes to the bf16 kernel, which agrees with its plain
+   version to 1e-5, stands apart from the exact kernel (above 1e-5, within
+   1e-2), repeats bitwise, equals the f64 oracle bit for bit on
+   small-integer tiles (-3..3), scales 0.5/0.25 and operands -3..3, and the
+   ranks' parts summed agree to 1e-5 with the one-device bf16 kernel (the
+   band pairs) or, for the grid with the engine forced on every rank, with
+   one device's exact diagonal blocks plus bf16 off-diagonal blocks (its
+   diagonal ranks' exact-count triangles take the exact body, as in
+   lam_tpu). The bf16 triangle walk is
+   timed at N=20480 (820 tiles, a 432 MB plane) and the bf16 slab walk at
+   rank 0 of G=2, n=20480 (410 tiles), where phase 6 runs them, each beside
+   the exact body in turns. lam_stream_i16 (lam_tpu_torch/ops/probe.py), a
+   read-only stream of an int16 plane with a checksum, gives the card's
+   measured read floor of the q16 planes of kernels 14 (N=10240 and
+   20480), 16 and 18, printed beside each kernel's data-sheet bound.
 3. Writes the benchmark system (random_spd_matrix_fast(10000,
    seed=2024), random_rhs(10000, seed=2034)) in the binary format to a
    temporary directory and solves it through the port's CLI, in
@@ -109,7 +130,12 @@
    bitwise-equal x), symgrid-fq-4, symgrid-irq-4, symgrid-dfq-4: a diagonal
    rank must launch its triangle kernels and no dual one, an off-diagonal
    rank its dual kernels and no triangle one, and no rank anything else
-   (SHARDED_RUNS). Each run must converge with a
+   (SHARDED_RUNS); and symgrid-irfq-mxu-4, the same grid in four new rank
+   processes started with LAM_Q16_IMPL=mxu in their environment (MXU_RUNS:
+   the off-diagonal ranks launch gemv_q16_dual_bf16 and gemv_fq_dual, the
+   diagonal ranks gemv_q16_symm's exact body and gemv_fq_symm, since their
+   exact-count triangles take lam_tpu's one-tile grid, nothing else; x
+   within 5e-6 of the ir x, since its inner engine differs). Each run must converge with a
    TRUE relative residual <= 2e-9 on the host from rank 0's solution
    file, x within 1e-6 relative of phase 3's one-device ir x, its kernels
    launched and the others not in every rank (irfq: the q16 and fq walks
@@ -119,11 +145,22 @@
    row (rank 0's) with procs = G, and the mesh must report gloo with every
    rank on cuda:0. G ranks on one card measure the sharded program, not
    multi-GPU scaling. No earlier phase was shortened for these.
+6. Writes bench.py's system at its second size (random_spd_matrix_fast(
+   20000, seed=2024), random_rhs(20000, seed=2034), 3.2 GB) to a new
+   temporary directory, phase 3's freed, and solves it through the port's
+   CLI: irfq --pack-cache cold and warm under "auto" (gemv_q16_symm_bf16
+   and gemv_fq_symm, not the exact q16 body; warm: the same count and a
+   bitwise-equal x), irfq with the engine set to "vpu" (the exact body,
+   not the bf16 one), and packed-irfq with --backend sharded in a 2-rank
+   cluster (every rank gemv_q16_symm_slab_bf16 and gemv_fq_symm_slab, and
+   nothing else). Each must converge with TRUE <= 2e-9 on the host and x
+   within 5e-6 of the "vpu" run's x, no plain version; prints the bf16 and
+   exact runs' inner iterations side by side and the phase's seconds.
 
 Prints {"kernels": [...]} on the line before the last (each kernel's
-launches summed over the runs of phases 3-5, every rank's) and, as the last line,
-{"ok": true, "device": {...}}. Any failure raises: exit code != 0 and no
-result line. Without a CUDA device it exits 1 at once.
+launches summed over the runs of phases 3-6, every rank's) and, as the last
+line, {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and
+no result line. Without a CUDA device it exits 1 at once.
 """
 
 import contextlib
@@ -162,12 +199,23 @@ STREAM_NI = 4000     # 4096 x 4096 padded: the stencil streamed from HBM
 # rates at the 700 W limit: 3.35 TB/s of HBM, 67 TFLOP/s f32 outside the
 # tensor cores, 34 TFLOP/s f64
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"f32": 67e12, "f64": 34e12}
+PEAK_FLOPS = {"f32": 67e12, "f64": 34e12, "bf16": 989e12}
+# the bf16 product engine of the q16 kernels (lam_tpu's LAM_Q16_IMPL
+# "mxu"), which "auto" picks at n >= 16384
+_BF16 = ("gemv_q16_symm_bf16", "gemv_q16_symm_slab_bf16",
+         "gemv_q16_dual_bf16")
+BF16_REPLACES = {"gemv_q16_symm_bf16": "lam_tpu/ops/gemv.py:1955",
+                 "gemv_q16_symm_slab_bf16": "lam_tpu/ops/gemv.py:2266",
+                 "gemv_q16_dual_bf16": "lam_tpu/ops/gemv.py:2502"}
+N_LARGE = 20000      # bench.py's DEFAULT_SIZES[1]: 'auto' picks bf16 there
+# two solves to 1e-9 of a system of condition number up to e^7 ~ 1100 can
+# part by ~2.2e-6 in x: the bound for runs whose inner engine differs
+X_ENGINE_GATE = 5e-6
 # (run, kernels it must launch, kernels it must not launch)
 RUNS = (("ir", ("gemv_f32_symm", "gemv_df64_symm"), ()),
         ("df64", ("gemv_df64_symm",), ()),
-        ("irfq-cold", ("gemv_q16_symm", "gemv_fq_symm"), ()),
-        ("irfq-warm", ("gemv_q16_symm", "gemv_fq_symm"), ()),
+        ("irfq-cold", ("gemv_q16_symm", "gemv_fq_symm"), _BF16),
+        ("irfq-warm", ("gemv_q16_symm", "gemv_fq_symm"), _BF16),
         ("fq", ("gemv_fq_symm",), ()),
         ("irq-cold", ("gemv_f32_symm", "gemv_dfq_symm"), ()),
         ("irq-warm", ("gemv_f32_symm", "gemv_dfq_symm"), ()),
@@ -201,9 +249,9 @@ SHARDED_RUNS = (
                         "pallas_symm_packed"], _SLAB, _TRI),
     # the quantized band-pair storages: engine auto -> the packed walk
     ("packed-irfq-cold", 2, ["--precision", "irfq", "--pack-cache"], _QFQ,
-     _SLAB + _TRI + _LOCAL_Q),
+     _SLAB + _TRI + _LOCAL_Q + _BF16),
     ("packed-irfq-warm", 2, ["--precision", "irfq", "--pack-cache"], _QFQ,
-     _SLAB + _TRI + _LOCAL_Q),
+     _SLAB + _TRI + _LOCAL_Q + _BF16),
     ("packed-irq", 2, ["--precision", "irq"],
      ("gemv_f32_symm_slab", "gemv_dfq_symm_slab"),
      ("gemv_df64_symm_slab",) + _TRI + _LOCAL_Q),
@@ -212,7 +260,7 @@ SHARDED_RUNS = (
     ("packed-dfq", 2, ["--precision", "dfq"], ("gemv_dfq_symm_slab",),
      _SLAB + _TRI + _LOCAL_Q),
     ("packed-irfq-4", 4, ["--precision", "irfq"], _QFQ,
-     _SLAB + _TRI + _LOCAL_Q),
+     _SLAB + _TRI + _LOCAL_Q + _BF16),
     # the dense 2-D grid, R=2: the dense kernels on each rank's block
     ("grid-ir-4", 4, ["--backend", "sharded2d", "--precision", "ir"],
      ("gemv_f32", "gemv_df64"),
@@ -240,6 +288,19 @@ SHARDED_RUNS = (
       ("gemv_f32_dual", "gemv_dfq_dual")), ()),
     ("symgrid-dfq-4", 4, _SYMGRID + ["--precision", "dfq"],
      (("gemv_dfq_symm",), ("gemv_dfq_dual",)), ()))
+# the same 4 rank processes' layout started with LAM_Q16_IMPL=mxu in their
+# environment (lam_tpu's documented explicit value): the grid's half-slabs
+# (5120 and 10240 wide at N=20000) stay below 16384 under "auto". The
+# diagonal ranks hold exact-count triangles (55 tiles, not a multiple of
+# Q16_P), which lam_tpu walks on its one-tile grid with the exact body
+# under any engine (lam_tpu/ops/gemv.py:2089-2136): the off-diagonal ranks
+# carry the bf16 engine
+MXU_ENV = {"LAM_Q16_IMPL": "mxu"}
+MXU_RUNS = (
+    ("symgrid-irfq-mxu-4", 4, _SYMGRID + ["--precision", "irfq",
+                                          "--pack-cache"],
+     (("gemv_q16_symm", "gemv_fq_symm"),
+      ("gemv_q16_dual_bf16", "gemv_fq_dual")), ()),)
 # run -> the one-device run of phase 3 whose iteration count it should show
 ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "packed-irfq-warm": "irfq-warm", "packed-irq": "irq-cold",
@@ -248,7 +309,8 @@ ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "symgrid-ir-4": "ir", "symgrid-df64-4": "df64",
                  "symgrid-irfq-cold-4": "irfq-cold",
                  "symgrid-irfq-warm-4": "irfq-warm", "symgrid-fq-4": "fq",
-                 "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq"}
+                 "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq",
+                 "symgrid-irfq-mxu-4": "irfq-cold"}
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
@@ -502,6 +564,12 @@ def fq_kernels_vs_plain(gemv, layout, fq, a_dev, ph, pl):
         (lambda: gemv.gemv_q16_symm(q1, s1, ph),
          lambda: gemv.gemv_q16_symm_plain(q1, s1, ph), None),
         (q1[:T * tb], s1[:T], ph, y), flops, "f32"))
+    bf16_symm_vs_plain(gemv, layout, q1, s1, ph)
+    _floor_line(f"kernel 14's q1 plane at N={nblk * tb}", [q1[:T * tb]],
+                {"gemv_q16_symm": lambda: gemv.gemv_q16_symm(q1, s1, ph),
+                 "gemv_q16_symm_bf16":
+                 lambda: gemv.gemv_q16_symm_bf16(q1, s1, ph)},
+                _nbytes(q1[:T * tb], s1[:T], ph, y))
 
     # fq kernel: the three-plane cascade formed and accumulated in f64
     yh, yl = gemv.gemv_fq_symm(*fq[:6], ph, pl)
@@ -578,6 +646,226 @@ def dfq_kernel_vs_plain(gemv, layout, dfq, a_dev, ph, pl):
         (lambda: gemv.gemv_dfq_symm(hi, loq, sc, ph, pl),
          lambda: gemv.gemv_dfq_symm_plain(hi, loq, sc, ph, pl), None),
         (hi, loq, sc, ph, pl, yh, yl), 2 * (nblk * tb) ** 2, "f64")
+
+
+@contextlib.contextmanager
+def _engine(gemv, impl):
+    """The q16 product engine forced to `impl` (the module attribute that
+    lam_tpu_torch/ops/gemv.py reads at every call)."""
+    old = gemv._Q16_IMPL
+    gemv._Q16_IMPL = impl
+    try:
+        yield
+    finally:
+        gemv._Q16_IMPL = old
+
+
+def _launched(*names):
+    """{name: launches} of the kernels named, from the counter registry."""
+    from lam_tpu_torch import ops
+    counts = ops.counters()
+    return {name: counts[name] for name in names}
+
+
+def _small_q16(shape, real_rows, real_tiles, gen):
+    """Small-integer int16 tiles (-3..3) in the first real_rows rows (zeros
+    after), scales 0.5/0.25 on the first real_tiles entries (zeros after):
+    bf16 holds every value, so products and sums are exact."""
+    q = torch.zeros(shape, dtype=torch.int16, device="cuda")
+    q[:real_rows] = torch.randint(-3, 4, (real_rows, shape[1]), generator=gen,
+                                  device="cuda", dtype=torch.int16)
+    sc = torch.zeros(shape[0] // shape[1], device="cuda")
+    sc[:real_tiles] = torch.where(
+        torch.arange(real_tiles, device="cuda") % 2 == 1, 0.25, 0.5)
+    return q, sc
+
+
+def _small_vec(n, gen):
+    return torch.randint(-3, 4, (n,), generator=gen, device="cuda").float()
+
+
+def _floor_line(label, planes, kernels, nbytes):
+    """The card's measured read floor of a q16 plane: lam_stream_i16 over
+    `planes` (copies taken in turn where one plane would stay in the 50 MB
+    L2), timed in turns with its plain version, one PyTorch call that
+    computes the same checksum (torch.sum with an int64 accumulator) and
+    the kernels {name: fn} that read the plane, its checksum held against
+    the plain sum; printed beside the data-sheet bound of the kernel's
+    `nbytes` (each input read once, each output written once)."""
+    from lam_tpu_torch.ops import probe
+    for q in planes:
+        _check(int(probe.stream_i16(q)) == int(probe.stream_i16_plain(q)),
+               f"lam_stream_i16's checksum is wrong on {label}")
+    names = ["lam_stream_i16", "plain", "torch.sum"] + list(kernels)
+    fns = [_rotating(fn, planes) for fn in (
+        probe.stream_i16, probe.stream_i16_plain,
+        lambda q: torch.sum(q, dtype=torch.int64))]
+    times = _median_ms(fns + [kernels[k] for k in names[3:]])
+    plane = _nbytes(planes[0])
+    parts = ", ".join(
+        f"{k} {t:.4f} ms ({(plane if i < 3 else nbytes) / t / 1e6:.0f} "
+        "GB/s)" for i, (k, t) in enumerate(zip(names, times)))
+    print(f"read floor, {label} ({plane / 1e6:.1f} MB; the kernel's "
+          f"{nbytes / 1e6:.1f} MB at 3.35 TB/s: "
+          f"{nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms): {parts}")
+    return times
+
+
+def bf16_symm_vs_plain(gemv, layout, q1, s1, ph):
+    """Phase 2, kernel 14's bf16 engine at N=10240 on the port's fq pack,
+    the engine forced: gemv_q16_symm routes to gemv_q16_symm_bf16, which
+    agrees with its plain version to 1e-5 (the same bf16 operands and
+    exact products, f32 sums in another order), repeats bitwise, keeps the
+    padding rows 0 and stands visibly apart from the exact kernel (above
+    1e-5, within 1e-2); on small-integer tiles, scales 0.5/0.25 and
+    operands -3..3 it equals the f64 oracle bit for bit."""
+    from lam_tpu_torch import ops
+    tb = layout.SYMM_TB
+    nblk = ph.shape[0] // tb
+    T = layout.tri_tile_count(nblk)
+    ops.reset_counters()
+    with _engine(gemv, "mxu"):
+        y = gemv.gemv_q16_symm(q1, s1, ph)
+    torch.cuda.synchronize()
+    _check(_launched("gemv_q16_symm_bf16", "gemv_q16_symm")
+           == {"gemv_q16_symm_bf16": 1, "gemv_q16_symm": 0},
+           "mxu did not route gemv_q16_symm to its bf16 kernel")
+    y_plain = gemv.gemv_q16_symm_bf16_plain(q1, s1, ph)
+    err, gap = _rel(y, y_plain), _rel(y, gemv.gemv_q16_symm(q1, s1, ph))
+    _check(torch.equal(y, gemv.gemv_q16_symm_bf16(q1, s1, ph)),
+           "gemv_q16_symm_bf16 not repeatable")
+    _check(int(torch.count_nonzero(y[N:])) == 0, "bf16 padding rows != 0")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(17)
+    qs, ss = _small_q16(tuple(q1.shape), T * tb, T, gen)
+    ps = _small_vec(nblk * tb, gen)
+    ys = gemv.gemv_q16_symm_bf16(qs, ss, ps)
+    tiles = qs[:T * tb].double().reshape(T, tb, tb) * ss[:T].double()[
+        :, None, None]
+    exact = torch.equal(ys.double(), torch.mv(_dense_of(tiles, nblk, layout),
+                                              ps.double()))
+    del tiles
+    print(f"gemv_q16_symm_bf16 N={nblk * tb}: rel l2 kernel-plain {err:.3e} "
+          f"(<= 1e-5), kernel-exact kernel {gap:.3e} (in (1e-5, 1e-2]), "
+          f"small-integer data == f64 oracle: {exact}")
+    _check(err <= 1e-5, "gemv_q16_symm_bf16 disagrees with its plain version")
+    _check(1e-5 < gap <= 1e-2, "gemv_q16_symm_bf16 is not in the bf16 class")
+    _check(exact, "gemv_q16_symm_bf16 != the f64 oracle on exact data")
+
+
+def bf16_symm_large(gemv, layout):
+    """Phase 2, kernel 14 at N=20480 (bench.py's N=20000 padded: 40 row
+    tiles, 820 of 824 stored tiles, a 432 MB q1 plane from HBM), where
+    'auto' picks the bf16 engine: random int16 tiles within +-30000 against
+    2^-15 and a Gaussian p. gemv_q16_symm routes to gemv_q16_symm_bf16,
+    which agrees with its plain version to 1e-5; the exact and the bf16
+    bodies and the read floor are timed in turns. Returns the bf16
+    kernel's `kernels` entry."""
+    from lam_tpu_torch import ops
+    tb = layout.SYMM_TB
+    n = layout.padded_size(N_LARGE, tb)
+    nblk = n // tb
+    T, Ts = layout.tri_tile_count(nblk), layout.padded_tri_tile_count(nblk)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    q1 = torch.zeros(Ts * tb, tb, dtype=torch.int16, device="cuda")
+    q1[:T * tb] = torch.randint(-30000, 30001, (T * tb, tb), generator=gen,
+                                device="cuda", dtype=torch.int16)
+    s1 = torch.zeros(Ts, device="cuda")
+    s1[:T] = 2.0 ** -15
+    p = torch.randn(n, generator=gen, device="cuda")
+    ops.reset_counters()
+    y = gemv.gemv_q16_symm(q1, s1, p)
+    torch.cuda.synchronize()
+    _check(_launched("gemv_q16_symm_bf16", "gemv_q16_symm")
+           == {"gemv_q16_symm_bf16": 1, "gemv_q16_symm": 0},
+           f"'auto' did not pick the bf16 kernel at n={n}")
+    y_plain = gemv.gemv_q16_symm_bf16_plain(q1, s1, p)
+    with _engine(gemv, "vpu"):
+        gap = _rel(y, gemv.gemv_q16_symm(q1, s1, p))
+    err = _rel(y, y_plain)
+    print(f"gemv_q16_symm_bf16 N={n} ({T} tiles): rel l2 kernel-plain "
+          f"{err:.3e} (<= 1e-5), kernel-exact kernel {gap:.3e}")
+    _check(err <= 1e-5, f"gemv_q16_symm_bf16 disagrees at n={n}")
+    _check(1e-5 < gap <= 1e-2, f"gemv_q16_symm_bf16 at n={n} is not in the "
+           "bf16 class")
+    _check(torch.equal(y, gemv.gemv_q16_symm_bf16(q1, s1, p)),
+           f"gemv_q16_symm_bf16 not repeatable at n={n}")
+
+    def exact():
+        with _engine(gemv, "vpu"):
+            return gemv.gemv_q16_symm(q1, s1, p)
+
+    nbytes = _nbytes(q1[:T * tb], s1[:T], p, y)
+    _floor_line(f"kernel 14's q1 plane at N={n}", [q1[:T * tb]],
+                {"gemv_q16_symm (exact)": exact,
+                 "gemv_q16_symm_bf16": lambda: gemv.gemv_q16_symm_bf16(
+                     q1, s1, p)}, nbytes)
+    return _timed_entry(
+        "gemv_q16_symm_bf16", BF16_REPLACES["gemv_q16_symm_bf16"],
+        SYMM_SOURCE, float((y - y_plain).abs().max()),
+        (lambda: gemv.gemv_q16_symm_bf16(q1, s1, p),
+         lambda: gemv.gemv_q16_symm_bf16_plain(q1, s1, p), None),
+        (q1[:T * tb], s1[:T], p, y), 2 * n * n, "bf16")
+
+
+def bf16_slab_large(gemv, layout, pcg_symm):
+    """Phase 2, kernel 16's bf16 engine where phase 6 runs it: rank 0 of
+    the G=2 band pairs at n=20480 (mt=10 tile-rows a band, T=410 tiles, a
+    215 MB q1 plane from HBM), random int16 tiles within +-30000 against
+    2^-15 and a Gaussian p; 'auto' routes there; against its plain version
+    (1e-5) and apart from the exact walk; the exact and bf16 walks and the
+    read floor timed in turns. Returns the bf16 walk's `kernels` entry."""
+    from lam_tpu_torch import ops
+    tb, g = layout.SYMM_TB, SHARD_G[0]
+    n = layout.padded_size(N_LARGE, 2 * g * tb)
+    mt = n // tb // (2 * g)
+    it, kt, lt = (torch.from_numpy(np.asarray(x[0], np.int32)).cuda()
+                  for x in pcg_symm._band_tables(g, mt, tb))
+    T, ms = it.shape[0], 2 * mt * tb
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    q1 = torch.randint(-30000, 30001, (T * tb, tb), generator=gen,
+                       device="cuda", dtype=torch.int16)
+    sc = torch.full((T,), 2.0 ** -15, device="cuda")
+    p = torch.randn(n, generator=gen, device="cuda")
+    ops.reset_counters()
+    yd, yt = gemv.gemv_q16_symm_slab(q1, sc, p, it, kt, lt, ms=ms)
+    torch.cuda.synchronize()
+    _check(_launched("gemv_q16_symm_slab_bf16", "gemv_q16_symm_slab")
+           == {"gemv_q16_symm_slab_bf16": 1, "gemv_q16_symm_slab": 0},
+           f"'auto' did not pick the bf16 slab walk at n={n}")
+    y = torch.cat([yd, yt])
+    q = torch.cat(gemv.gemv_q16_symm_slab_bf16_plain(q1, sc, p, it, kt, lt,
+                                                      ms=ms))
+    with _engine(gemv, "vpu"):
+        gap = _rel(y, torch.cat(gemv.gemv_q16_symm_slab(q1, sc, p, it, kt,
+                                                         lt, ms=ms)))
+    err = _rel(y, q)
+    print(f"gemv_q16_symm_slab_bf16 G={g} n={n} rank 0 ({T} tiles): rel l2 "
+          f"kernel-plain {err:.3e} (<= 1e-5), kernel-exact walk {gap:.3e}")
+    _check(err <= 1e-5, f"gemv_q16_symm_slab_bf16 disagrees at n={n}")
+    _check(1e-5 < gap <= 1e-2, "gemv_q16_symm_slab_bf16 is not in the bf16 "
+           "class")
+
+    def exact():
+        with _engine(gemv, "vpu"):
+            return gemv.gemv_q16_symm_slab(q1, sc, p, it, kt, lt, ms=ms)
+
+    nbytes = _nbytes(q1, sc, p, it, kt, lt, yd, yt)
+    flops = 2 * tb * tb * (T + int((kt < it).sum()))
+    _floor_line(f"kernel 16's q1 plane at rank 0 of G={g}, n={n}", [q1],
+                {"gemv_q16_symm_slab (exact)": exact,
+                 "gemv_q16_symm_slab_bf16":
+                 lambda: gemv.gemv_q16_symm_slab_bf16(q1, sc, p, it, kt, lt,
+                                                      ms=ms)}, nbytes)
+    return _timed_entry(
+        "gemv_q16_symm_slab_bf16", BF16_REPLACES["gemv_q16_symm_slab_bf16"],
+        SYMM_SOURCE, float((y - q).abs().max()),
+        (lambda: gemv.gemv_q16_symm_slab_bf16(q1, sc, p, it, kt, lt, ms=ms),
+         lambda: gemv.gemv_q16_symm_slab_bf16_plain(q1, sc, p, it, kt, lt,
+                                                    ms=ms), None),
+        (q1, sc, p, it, kt, lt, yd, yt), flops, "bf16")
 
 
 def _shard_system():
@@ -762,9 +1050,19 @@ def one_device_matvecs(gemv, layout, pack_planes, pack_tri, a, p):
     y, the accurate y in f64)} over the 10240-padded triangle: 'df64'
     gemv_f32_symm and gemv_df64_symm, 'fq' gemv_q16_symm and gemv_fq_symm,
     'dfq' gemv_f32_symm on the dfq hi plane and gemv_dfq_symm, the
-    quantized ones with their diagonal terms."""
+    quantized ones with their diagonal terms; 'fq-bf16', the f32 view of
+    fq through gemv_q16_symm_bf16; and 'fq-grid-mxu', the engines the 2 x 2
+    symmetric grid runs under 'mxu' (lam_tpu's routing: a diagonal rank's
+    exact-count triangle takes the exact body, the off-diagonal rectangles
+    the bf16 one), as one-device matvecs of the plane with the other
+    blocks' tiles zeroed: gemv_q16_symm over the diagonal blocks plus
+    gemv_q16_symm_bf16 over the off-diagonal ones."""
+    from lam_tpu_torch.parallel.pcg2d_symm import sym2d_padded_size
     tb = layout.SYMM_TB
-    ph, pl, p64 = _pair(p, layout.padded_size(N, tb))
+    n_p = layout.padded_size(N, tb)
+    _check(sym2d_padded_size(N, 2, tb) == n_p,
+           "the 2 x 2 grid's blocks do not align with the one-device tiles")
+    ph, pl, p64 = _pair(p, n_p)
     hi, lo = (torch.from_numpy(x).cuda() for x in pack_planes(a, "df64", tb))
     yh, yl = gemv.gemv_df64_symm(hi, lo, ph, pl)
     one = {"df64": (gemv.gemv_f32_symm(hi, ph), yh.double() + yl.double())}
@@ -775,6 +1073,22 @@ def one_device_matvecs(gemv, layout, pack_planes, pack_tri, a, p):
         if storage == "fq":
             y32 = gemv.gemv_q16_symm(bufs[0], bufs[3], ph)
             yh, yl = gemv.gemv_fq_symm(*bufs[:6], ph, pl)
+            one["fq-bf16"] = gemv.gemv_q16_symm_bf16(bufs[0], bufs[3],
+                                                     ph) + dh * ph
+            nblk, half = n_p // tb, n_p // 2 // tb
+            it, kt = (torch.from_numpy(np.asarray(x)).cuda()
+                      for x in layout._symm_tables(nblk))
+            diag = torch.zeros(bufs[0].shape[0] // tb, dtype=torch.bool,
+                               device="cuda")
+            diag[:it.shape[0]] = it // half == kt // half
+            tiles = bufs[0].view(-1, tb, tb)
+            q_diag = (tiles * diag[:, None, None]).view(bufs[0].shape)
+            q_off = (tiles * ~diag[:, None, None]).view(bufs[0].shape)
+            with _engine(gemv, "vpu"):
+                y_diag = gemv.gemv_q16_symm(q_diag, bufs[3], ph)
+            one["fq-grid-mxu"] = (y_diag + gemv.gemv_q16_symm_bf16(
+                q_off, bufs[3], ph) + dh * ph)
+            del q_diag, q_off
         else:
             y32 = gemv.gemv_f32_symm(bufs[0], ph)
             yh, yl = gemv.gemv_dfq_symm(*bufs[:3], ph, pl)
@@ -951,6 +1265,65 @@ def _quant_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
     return diff32, diff64
 
 
+def _bf16_slab_case(gemv, pcg_symm, ops_, ph, one_bf16):
+    """Kernel 16's bf16 engine over every rank's walk, tables and scales of
+    one band-pair geometry of the fq storage, the engine forced: routed to
+    gemv_q16_symm_slab_bf16, against its plain version (1e-5), bitwise
+    repeats; on small-integer tiles, scales 0.5/0.25 and operands -3..3 at
+    the rank's own tables, bitwise equal to the f64 oracle; the ranks'
+    parts plus the owners' diagonal terms against the one-device bf16
+    kernel's matvec (1e-5: the same bf16 operands, f32 sums in another
+    order)."""
+    from lam_tpu_torch import ops
+    g, m, tb = ops_[0].mesh.size, ops_[0].m, ops_[0].tb
+    ms = 2 * m
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(29 + g)
+    total = torch.zeros_like(ph)
+    errs, exact = [], True
+    for c, op in enumerate(ops_):
+        q1, s1 = op.operand[0], op.operand[3]
+        it, kt, lt = op.operand[-3:]
+        ops.reset_counters()
+        with _engine(gemv, "mxu"):
+            yd, yt = gemv.gemv_q16_symm_slab(q1, s1, ph, it, kt, lt, ms=ms)
+        torch.cuda.synchronize()
+        _check(_launched("gemv_q16_symm_slab_bf16", "gemv_q16_symm_slab")
+               == {"gemv_q16_symm_slab_bf16": 1, "gemv_q16_symm_slab": 0},
+               f"G={g} rank {c}: mxu did not route to the bf16 slab walk")
+        qd, qt = gemv.gemv_q16_symm_slab_bf16_plain(q1, s1, ph, it, kt, lt,
+                                                    ms=ms)
+        errs.append(_rel(torch.cat([yd, yt]), torch.cat([qd, qt])))
+        zd, zt = gemv.gemv_q16_symm_slab_bf16(q1, s1, ph, it, kt, lt, ms=ms)
+        _check(torch.equal(yd, zd) and torch.equal(yt, zt),
+               f"gemv_q16_symm_slab_bf16 G={g} rank {c} not repeatable")
+        dh = op.operand[-5]
+        total += pcg_symm._scatter_bands(
+            yd + dh * pcg_symm._own_rows(ph, c, g, m), yt, c, g, m)
+        T = it.shape[0]
+        qs, ss = _small_q16(tuple(q1.shape), T * tb, T, gen)
+        ps = _small_vec(ph.shape[0], gen)
+        sd, st = gemv.gemv_q16_symm_slab_bf16(qs, ss, ps, it, kt, lt, ms=ms)
+        od, ot = gemv._slab_parts(
+            qs.double() * ss.double().repeat_interleave(tb)[:, None],
+            ps.double(), it, kt, lt, ms, tb, True)
+        exact = exact and torch.equal(sd.double(), od) and torch.equal(
+            st.double(), ot)
+    n1 = one_bf16.shape[0]
+    e_sum = _rel(total[:n1], one_bf16)
+    print(f"gemv_q16_symm_slab_bf16 G={g} (n={ph.shape[0]}, every rank): rel "
+          f"l2 kernel-plain max {max(errs):.3e} (<= 1e-5); small-integer data "
+          f"== f64 oracle: {exact}; ranks' parts + diagonal terms vs "
+          f"gemv_q16_symm_bf16 {e_sum:.3e} (<= 1e-5)")
+    _check(max(errs) <= 1e-5, f"gemv_q16_symm_slab_bf16 G={g} disagrees")
+    _check(exact, f"gemv_q16_symm_slab_bf16 G={g} != the f64 oracle on exact "
+           "data")
+    _check(e_sum <= 1e-5, f"G={g}: the bf16 slab parts do not add up to the "
+           "one-device bf16 matvec")
+    _check(int(torch.count_nonzero(total[N:])) == 0,
+           f"G={g}: bf16 padding rows != 0")
+
+
 def _rotating(fn, copies):
     """fn(copy) over `copies` taken in turn, one per call: a plane that
     fits the 50 MB L2 is read from HBM again when two other copies went
@@ -988,6 +1361,8 @@ def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, one, a, p):
             pack_s = time.perf_counter() - t0
             ph, pl, p64 = _pair(p, ops_[0].n_padded)
             d = _quant_case(gemv, pcg_symm, ops_, ph, pl, p64, one[storage])
+            if storage == "fq":
+                _bf16_slab_case(gemv, pcg_symm, ops_, ph, one["fq-bf16"])
             print(f"  ({g} rank packs of {storage} in {pack_s:.2f} s)")
             old = diffs.get(storage, (0.0, 0.0))
             diffs[storage] = (max(old[0], d[0]), max(old[1], d[1]))
@@ -1019,6 +1394,17 @@ def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, one, a, p):
                  q, s1, ph, it, kt, lt, ms=ms), copies),
              lambda: torch.mv(sh, ph)), (q1, s1, ph, it, kt, lt, yd, yt),
             flops, "f32")]
+        if g == SHARD_G[0]:
+            _floor_line(
+                f"kernel 16's q1 plane at rank 0 of G={g}, n={ph.shape[0]}, "
+                "three copies in turn", copies,
+                {"gemv_q16_symm_slab": _rotating(
+                    lambda q: gemv.gemv_q16_symm_slab(q, s1, ph, it, kt, lt,
+                                                      ms=ms), copies),
+                 "gemv_q16_symm_slab_bf16": _rotating(
+                     lambda q: gemv.gemv_q16_symm_slab_bf16(
+                         q, s1, ph, it, kt, lt, ms=ms), copies)},
+                _nbytes(q1, s1, ph, it, kt, lt, yd, yt))
         del copies
         outs = gemv.gemv_fq_symm_slab(*fq.operand[:6], ph, pl, it, kt, lt,
                                       ms=ms)
@@ -1063,7 +1449,7 @@ DUAL_KERNELS = {"df64": ("gemv_f32_dual", (0,), "gemv_df64_dual", (0, 1)),
                        (0, 1, 2, 3, 4, 5))}
 DUAL_REPLACES = {"gemv_f32_dual": 1556, "gemv_df64_dual": 1682,
                  "gemv_dfq_dual": 1763, "gemv_q16_dual": 2544,
-                 "gemv_fq_dual": 2624}
+                 "gemv_fq_dual": 2624, "gemv_q16_dual_bf16": 2502}
 
 
 def _stored_rect(bufs, mb, cb, tb):
@@ -1192,6 +1578,9 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
                "matvec")
         _check(all(int(torch.count_nonzero(y[N:])) == 0 for y in sums),
                f"2x2 grid {storage}: padding rows != 0")
+        if storage == "fq":
+            diffs["gemv_q16_dual_bf16"] = _bf16_dual_case(
+                gemv, ops_, ph, one["fq-grid-mxu"], mb, cb, m, tb)
         timed[storage] = (ops_[2], ph, pl, p64)  # rank (1, 0)
         del ops_
         torch.cuda.empty_cache()
@@ -1240,8 +1629,98 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
     entry("gemv_dfq_dual", list(dfq.operand[:3]), vec64, None, "f64")
     entry("gemv_q16_dual", [fq.operand[0], fq.operand[3]], vec32, None,
           "f32", rotate=True)
+    entry("gemv_q16_dual_bf16", [fq.operand[0], fq.operand[3]], vec32, None,
+          "bf16", rotate=True)
+    q1 = fq.operand[0][:real * tb]
+    copies = [q1, q1.clone(), q1.clone()]
+    bufs = [fq.operand[0], fq.operand[3]]
+    _floor_line(
+        f"kernel 18's q1 half-slab at rank (1, 0), ({m2}, {m}), three copies "
+        "in turn", copies,
+        {name: _rotating(lambda q, fn=getattr(gemv, name): fn(
+            q, bufs[1][:real], *vec32), copies)
+         for name in ("gemv_q16_dual", "gemv_q16_dual_bf16")},
+        _nbytes(q1, bufs[1][:real], *vec32, *gemv.gemv_q16_dual(*bufs,
+                                                                 *vec32)))
     entry("gemv_fq_dual", list(fq.operand[:6]), vec64, None, "f64")
     return [entries[name] for name in DUAL_REPLACES]
+
+
+def _bf16_dual_case(gemv, ops_, ph, one_mxu, mb, cb, m, tb):
+    """Kernel 18's bf16 engine on both off-diagonal ranks of the 2 x 2
+    grid, with the operands the routing gives them and the engine forced:
+    routed to gemv_q16_dual_bf16, against its plain version (1e-5), bitwise
+    repeats, garbage pad tiles and pad scales inert; on small-integer tiles
+    (-3..3, garbage pads), scales 0.5/0.25 and operands -3..3, bitwise
+    equal to the f64 oracle; the four ranks' (own, payload), exchanged by
+    hand with the engine forced on every rank, against the one-device
+    matvecs of the same engines (`one_mxu`): the diagonal ranks' exact-count
+    triangles take gemv_q16_symm's exact body, as lam_tpu's one-tile grid
+    does. Returns the largest kernel-plain difference."""
+    from lam_tpu_torch import ops
+    r, m2 = 2, m // 2
+    real = mb * cb
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    errs, exact, diff = [], True, 0.0
+    for k in (1, 2):  # the off-diagonal ranks (0, 1) and (1, 0)
+        i, j = divmod(k, r)
+        if i > j:
+            pv, qv = slice(j * m, (j + 1) * m), slice(i * m, i * m + m2)
+        else:
+            pv, qv = slice(i * m, (i + 1) * m), slice(j * m + m2, (j + 1) * m)
+        bufs = [ops_[k].operand[0], ops_[k].operand[3]]
+        ops.reset_counters()
+        with _engine(gemv, "mxu"):
+            y = torch.cat(gemv.gemv_q16_dual(*bufs, ph[pv], ph[qv]))
+        torch.cuda.synchronize()
+        _check(_launched("gemv_q16_dual_bf16", "gemv_q16_dual")
+               == {"gemv_q16_dual_bf16": 1, "gemv_q16_dual": 0},
+               f"rank {k}: mxu did not route to the bf16 dual kernel")
+        q = torch.cat(gemv.gemv_q16_dual_bf16_plain(*bufs, ph[pv], ph[qv]))
+        errs.append(_rel(y, q))
+        diff = max(diff, float((y - q).abs().max()))
+        _check(torch.equal(y, torch.cat(gemv.gemv_q16_dual_bf16(
+            *bufs, ph[pv], ph[qv]))), f"gemv_q16_dual_bf16 rank {k} not "
+            "repeatable")
+        _check(torch.equal(y, torch.cat(gemv.gemv_q16_dual_bf16(
+            *_with_garbage_pads(bufs, real, tb), ph[pv], ph[qv]))),
+            f"gemv_q16_dual_bf16 rank {k} read a pad tile or a pad scale")
+        qs, ss = _small_q16(tuple(bufs[0].shape), real * tb, real, gen)
+        qs, ss = _with_garbage_pads([qs, ss], real, tb)
+        pvs, qvs = _small_vec(m, gen), _small_vec(m2, gen)
+        stored = _stored_rect([qs, ss], mb, cb, tb)
+        got = torch.cat(gemv.gemv_q16_dual_bf16(qs, ss, pvs, qvs)).double()
+        exact = exact and torch.equal(got, torch.cat(
+            [stored @ pvs.double(), stored.T @ qvs.double()]))
+        del stored
+    blk = [ph[(k // r) * m:(k // r + 1) * m] for k in range(r * r)]
+    views = [op.as_f32() for op in ops_]
+    ops.reset_counters()
+    with _engine(gemv, "mxu"):
+        pairs = [v.mv_pair(v.operand, blk[k], blk[(k % r) * r + k // r])
+                 for k, v in enumerate(views)]
+    torch.cuda.synchronize()
+    launched = {k for k, v in ops.counters().items() if v}
+    total = torch.cat([sum(pairs[i * r + j][0] + pairs[j * r + i][1]
+                           for j in range(r)) for i in range(r)])
+    n1 = one_mxu.shape[0]
+    e_sum = _rel(total[:n1], one_mxu)
+    print(f"gemv_q16_dual_bf16, 2x2 grid (half-slab ({m2}, {m}), {real} real "
+          f"tiles + garbage pads): rel l2 kernel-plain max {max(errs):.3e} "
+          f"(<= 1e-5); small-integer data == f64 oracle: {exact}; four ranks' "
+          f"(own, payload) under mxu vs one device's exact diagonal blocks "
+          f"+ bf16 off-diagonal blocks {e_sum:.3e} "
+          f"(<= 1e-5), launched {sorted(launched)}")
+    _check(max(errs) <= 1e-5, "gemv_q16_dual_bf16 disagrees")
+    _check(exact, "gemv_q16_dual_bf16 != the f64 oracle on exact data")
+    _check(e_sum <= 1e-5, "the grid's parts under mxu do not add up to the "
+           "one-device matvec of the same engines")
+    _check(launched == {"gemv_q16_symm", "gemv_q16_dual_bf16"},
+           f"the grid's f32 view under mxu launched {sorted(launched)}")
+    _check(int(torch.count_nonzero(total[N:])) == 0,
+           "bf16 grid padding rows != 0")
+    return diff
 
 
 def _stencil_oracle(p, up, dn, nrows, nxi):
@@ -1588,11 +2067,12 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def _cluster(g, jobs, tmp):
+def _cluster(g, jobs, tmp, env=None, label=None):
     """Run the jobs in a cluster of g rank processes of this script on the
-    one card; returns each rank's records. Kills every rank and fails when
-    one fails or the cluster outlives CLUSTER_TIMEOUT_S."""
-    out = os.path.join(tmp, f"cluster{g}")
+    one card, with `env` added to their environment; returns each rank's
+    records. Kills every rank and fails when one fails or the cluster
+    outlives CLUSTER_TIMEOUT_S."""
+    out = os.path.join(tmp, label or f"cluster{g}")
     os.makedirs(out, exist_ok=True)
     jobs_path = os.path.join(out, "jobs.json")
     with open(jobs_path, "w") as f:
@@ -1602,7 +2082,8 @@ def _cluster(g, jobs, tmp):
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--rank", str(r),
          "--ranks", str(g), "--port", str(port), "--jobs", jobs_path,
-         "--out", out], stdout=logs[r], stderr=subprocess.STDOUT)
+         "--out", out], stdout=logs[r], stderr=subprocess.STDOUT,
+        env=None if env is None else {**os.environ, **env})
         for r in range(g)]
     deadline = time.monotonic() + CLUSTER_TIMEOUT_S
     try:
@@ -1642,16 +2123,19 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
     total = {fn.__name__: 0 for fn in ops.KERNELS}
     plain = [fn.__name__ for fn in ops.PLAIN]
     xs, iters_of = {}, {}
-    for g in SHARD_G:
-        runs = [r for r in SHARDED_RUNS if r[1] == g]
+    clusters = [(g, [r for r in SHARDED_RUNS if r[1] == g], None)
+                for g in SHARD_G] + [(4, MXU_RUNS, MXU_ENV)]
+    for g, runs, env in clusters:
         jobs = [{"run": run, "argv": ["-A", a_path, "-b", b_path, "-o",
                                       os.path.join(tmp, f"x_{run}.bin"),
                                       *flags]}
                 for run, _, flags, _, _ in runs]
         t0 = time.perf_counter()
-        records = _cluster(g, jobs, tmp)
-        print(f"{g}-rank cluster: {len(runs)} runs in "
-              f"{time.perf_counter() - t0:.1f} s of wall time")
+        records = _cluster(g, jobs, tmp, env,
+                           f"cluster{g}" + ("-mxu" if env else ""))
+        print(f"{g}-rank cluster{' with ' + str(env) if env else ''}: "
+              f"{len(runs)} runs in {time.perf_counter() - t0:.1f} s of wall "
+              "time")
         for j, (run, _, flags, kernels, not_kernels) in enumerate(runs):
             recs = [rank_recs[j] for rank_recs in records]
             _check(all(rec["run"] == run and rec["rc"] == 0 for rec in recs),
@@ -1671,13 +2155,14 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
             true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
             x_rel = float(np.linalg.norm(x - x_local)
                           / np.linalg.norm(x_local))
+            x_gate = X_ENGINE_GATE if env else X_GATE
             meshes = sorted({(rec["backend"], rec["device"]) for rec in recs})
             print(f"{run}: {g} ranks on {meshes}, load {load_s:.3f} s, "
                   f"init {init_s:.3f} s, {iters} iterations, solve "
                   f"{solve_s:.4f} s, avg gemv {gemv_s * 1e3:.3f} ms, TRUE "
                   f"rel residual {true_rel:.3e} "
                   f"(<= {TRUE_GATE:g}), x vs one-device ir {x_rel:.3e} "
-                  f"(<= {X_GATE:g}), launches rank 0 "
+                  f"(<= {x_gate:g}), launches rank 0 "
                   f"{ {k: v for k, v in recs[0]['counts'].items() if v} }")
             if run in ONE_DEVICE_OF:
                 print(f"{run}: {iters} iterations; the one-device "
@@ -1687,7 +2172,7 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
             _check(iters <= 10000, f"{run} did not converge")
             _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
                    f"{true_rel:.3e} above {TRUE_GATE:g}")
-            _check(x_rel <= X_GATE, f"{run}: x differs from the one-device "
+            _check(x_rel <= x_gate, f"{run}: x differs from the one-device "
                    f"ir solve by {x_rel:.3e}")
             _check(meshes == [("gloo", "cuda:0")],
                    f"{run}: the mesh is {meshes}, not gloo on cuda:0")
@@ -1726,6 +2211,123 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
            "the symmetric grid's irfq from the shard cache differs from a "
            "fresh pack")
     print(f"sharded launches, summed over the runs and ranks: {total}")
+    return total
+
+
+def large_system_runs(ops, gemv, generate, lio, cli, tmp):
+    """Phase 6: bench.py's system at its second size, N=20000 (padded to
+    20480: 'auto' picks the bf16 engine of the q16 kernels there), through
+    the port's CLI: irfq --pack-cache cold and warm under 'auto' (the bf16
+    triangle walk and the fq walk, not the exact q16 body; warm gives the
+    same count and a bitwise-equal x), irfq with the engine set to 'vpu'
+    (the exact body, not the bf16 one), and packed-irfq at G=2 (--backend
+    sharded, p the full 20480 vector: every rank the bf16 slab walk and the
+    fq slab walk, nothing else). Each converged, TRUE <= 2e-9 on the host,
+    x within X_ENGINE_GATE of the 'vpu' run's x, no plain version. Returns
+    the kernel launches summed over the runs and ranks."""
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    a = generate.random_spd_matrix_fast(N_LARGE, seed=SEED_A)
+    b = generate.random_rhs(N_LARGE, seed=SEED_B)
+    a_path, b_path = os.path.join(tmp, "A.bin"), os.path.join(tmp, "b.bin")
+    lio.write_matrix(a_path, a)
+    lio.write_matrix(b_path, b)
+    print(f"bench system N={N_LARGE} generated and written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    bnorm = np.linalg.norm(b)
+    total = {fn.__name__: 0 for fn in ops.KERNELS}
+    plain = [fn.__name__ for fn in ops.PLAIN]
+    bf16_run = (("gemv_q16_symm_bf16", "gemv_fq_symm"), ("gemv_q16_symm",))
+    runs = (("irfq-cold", "auto") + bf16_run, ("irfq-warm", "auto") + bf16_run,
+            ("irfq-vpu", "vpu", ("gemv_q16_symm", "gemv_fq_symm"),
+             ("gemv_q16_symm_bf16",)))
+    xs, iters_of = {}, {}
+
+    def gate(run, iters, err, x):
+        true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
+        _check(iters <= 10000 and err <= 1e-9, f"N={N_LARGE} {run} did not "
+               f"converge: {iters} iterations, residual {err:g}")
+        _check(true_rel <= TRUE_GATE, f"N={N_LARGE} {run} TRUE residual "
+               f"{true_rel:.3e} above {TRUE_GATE:g}")
+        return true_rel
+
+    for run, impl, kernels, not_kernels in runs:
+        x_path = os.path.join(tmp, f"x_{run}.bin")
+        csv = io.StringIO()
+        ops.reset_counters()
+        with _engine(gemv, impl), contextlib.redirect_stdout(csv):
+            rc = cli.main(["-A", a_path, "-b", b_path, "-o", x_path,
+                           "--precision", "irfq", "--device", "cuda",
+                           "--pack-cache"])
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        _check(rc == 0, f"N={N_LARGE} {run}: the CLI exited {rc}")
+        fields = csv.getvalue().strip().split(",")
+        load_s, gemv_s, iters, err, solve_s = (
+            float(fields[3]), float(fields[4]), int(fields[6]),
+            float(fields[7]), float(fields[8]))
+        x = lio.read_vector(x_path)
+        true_rel = gate(run, iters, err, x)
+        print(f"N={N_LARGE} {run} (engine {impl}): load {load_s:.3f} s, "
+              f"{iters} inner iterations, solve {solve_s:.4f} s, avg gemv "
+              f"{gemv_s * 1e3:.3f} ms, TRUE rel residual {true_rel:.3e}, "
+              f"launches {({k: v for k, v in counts.items() if v})}")
+        for k in kernels:
+            _check(counts[k] > 0, f"N={N_LARGE} {run} never launched {k}")
+        for k in not_kernels:
+            _check(counts[k] == 0, f"N={N_LARGE} {run} launched {k}")
+        _check(all(counts[k] == 0 for k in plain),
+               f"a plain version ran on the N={N_LARGE} {run} path")
+        for k in total:
+            total[k] += counts[k]
+        xs[run], iters_of[run] = x, iters
+    _check(os.path.exists(f"{a_path}.fqpack"), "irfq --pack-cache wrote no "
+           f"A.bin.fqpack at N={N_LARGE}")
+    _check(iters_of["irfq-warm"] == iters_of["irfq-cold"]
+           and np.array_equal(xs["irfq-warm"], xs["irfq-cold"]),
+           f"N={N_LARGE} irfq from the cache differs from a fresh pack")
+
+    run, g = "packed-irfq", SHARD_G[0]
+    t0 = time.perf_counter()
+    records = _cluster(g, [{"run": run, "argv": [
+        "-A", a_path, "-b", b_path, "-o", os.path.join(tmp, f"x_{run}.bin"),
+        "--precision", "irfq"]}], tmp, None, f"cluster{g}-n{N_LARGE}")
+    recs = [rank_recs[0] for rank_recs in records]
+    _check(all(rec["rc"] == 0 for rec in recs), f"N={N_LARGE} {run}: a "
+           f"rank's CLI failed: {[rec['rc'] for rec in recs]}")
+    fields = recs[0]["stdout"].strip().split(",")
+    _check(int(fields[1]) == g, f"N={N_LARGE} {run}: procs {fields[1]}")
+    load_s, iters, err, solve_s = (float(fields[3]), int(fields[7]),
+                                   float(fields[8]), float(fields[9]))
+    x = lio.read_vector(os.path.join(tmp, f"x_{run}.bin"))
+    true_rel = gate(run, iters, err, x)
+    xs[run], iters_of[run] = x, iters
+    print(f"N={N_LARGE} {run}-{g} ({time.perf_counter() - t0:.1f} s of wall "
+          f"time): load {load_s:.3f} s, {iters} inner iterations, solve "
+          f"{solve_s:.4f} s, TRUE rel residual {true_rel:.3e}, launches "
+          f"rank 0 {({k: v for k, v in recs[0]['counts'].items() if v})}")
+    walks = ("gemv_q16_symm_slab_bf16", "gemv_fq_symm_slab")
+    for r, rec in enumerate(recs):
+        counts = rec["counts"]
+        for k in total:
+            _check((counts[k] > 0) == (k in walks),
+                   f"N={N_LARGE} {run}: rank {r} launched {k} "
+                   f"{counts[k]} times")
+            total[k] += counts[k]
+        _check(all(counts[k] == 0 for k in plain),
+               f"N={N_LARGE} {run}: a plain version ran on rank {r}")
+    for run, x in xs.items():
+        x_rel = float(np.linalg.norm(x - xs["irfq-vpu"])
+                      / np.linalg.norm(xs["irfq-vpu"]))
+        print(f"N={N_LARGE} {run}: x vs the 'vpu' run's x {x_rel:.3e} "
+              f"(<= {X_ENGINE_GATE:g})")
+        _check(x_rel <= X_ENGINE_GATE, f"N={N_LARGE} {run}: x differs from "
+               f"the exact engine's by {x_rel:.3e}")
+    print(f"N={N_LARGE} inner iterations, bf16 engine against exact "
+          f"products: irfq {iters_of['irfq-cold']} (bf16) vs "
+          f"{iters_of['irfq-vpu']} (exact); packed-irfq G={g} "
+          f"{iters_of['packed-irfq']} (bf16)")
+    print(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
     return total
 
 
@@ -1777,6 +2379,10 @@ def main():
     results += dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one,
                                      a, p)
     del a, one
+    torch.cuda.empty_cache()
+    results.append(bf16_symm_large(gemv, layout))
+    torch.cuda.empty_cache()
+    results.append(bf16_slab_large(gemv, layout, pcg_symm))
     _check(sorted(r["name"] for r in results)
            == sorted(fn.__name__ for fn in ops.KERNELS),
            "phase 2 did not hold every kernel against its plain version")
@@ -1791,9 +2397,13 @@ def main():
         shard_counts = sharded_runs(ops, lio, system, x_ir, local_iters,
                                     tmp)
         print(f"phase 5: {time.perf_counter() - t0:.1f} s")
+        del system, x_ir
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        large_counts = large_system_runs(ops, gemv, generate, lio, cli, tmp)
     for r in results:
         r["launches"] = (counts[r["name"]] + heat_counts[r["name"]]
-                         + shard_counts[r["name"]])
+                         + shard_counts[r["name"]] + large_counts[r["name"]])
         _check(r["launches"] > 0, f"{r['name']} never launched on the "
                "main path")
     print(json.dumps({"kernels": results}))

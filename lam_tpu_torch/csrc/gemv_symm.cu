@@ -1,6 +1,6 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
 // (sm_90a), and the dual matvec over a dense rectangle of the same tiles.
-// Fifteen kernels share one design:
+// Eighteen kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -33,6 +33,16 @@
 //                       (:2544; _gemv_q16_dual_kernel, its 'vpu' form)
 //   lam_gemv_fq_dual    replaces lam_tpu/ops/gemv.py:gemv_fq_dual
 //                       (:2624; _gemv_fq_dual_kernel)
+//
+// and the bf16 product engine of the three q16 kernels (lam_tpu's
+// LAM_Q16_IMPL "mxu" bodies, chosen by ops/gemv.py `_q16_impl`):
+//
+//   lam_gemv_q16_symm_bf16       _gemv_q16_symm_multi_kernel, impl="mxu"
+//                                (:1955-1976, via _gemv_q16_symm_blocked)
+//   lam_gemv_q16_symm_slab_bf16  _gemv_q16_symm_slab_kernel, impl="mxu"
+//                                (:2266-2303)
+//   lam_gemv_q16_dual_bf16       _gemv_q16_dual_kernel, impl="mxu"
+//                                (:2502-2537)
 //
 // Storage contract (lam_tpu_torch/ops/layout.py pack_tri_host): the matrix
 // is n x n with n = nblk * TB, and only its nblk(nblk+1)/2 lower-triangle
@@ -146,8 +156,31 @@
 // is exact, the first sum is exact and the cascade spans ~48 bits, so it
 // costs at most one f64 rounding, far below the 2^-48 storage bound. The
 // rest is the df64 kernel's f64 walk.
+//
+// q16, bf16 engine: the TPU's "mxu" bodies run each tile's two products as
+// single-pass DEFAULT-precision dots, which round both operands to bf16
+// (the converted int16 value, and p * s) and sum the exact products in
+// f32: ~2^-9 operator error against the quantization's 2^-16, bought for
+// the MXU's rate at large n. Here the same function runs on the tensor
+// cores: q16_bf16_pass1 stages its 64-row strip of the tile in shared
+// memory as bf16 (__float2bfloat16_rn of each converted int16, 64 KB plus
+// a pad that keeps the fragment loads free of bank conflicts), and
+// bf16(p * s) of both operand slices (__fmul_rn, so no FMA can fuse the
+// multiply into anything before the rounding). Warps 0-3 take the direct
+// term S p_k, 16 strip rows each, as 32 mma.sync m16n8k16 bf16 products
+// with f32 accumulators: the strip is the A operand (row-major fragments,
+// 32-bit shared loads), p_k the B operand with one real column. Warps 4-7
+// take the transpose term S^T p_i, 128 columns each: A^T is read from the
+// strip as 16-bit pairs packed by hand, p_i (64 rows) is B. 7/8 of every
+// product is padding, which costs nothing at ~1 flop per byte. The pass
+// writes the exact kernel's part_d/part_t, so the three pass-2 kernels and
+// their fixed order of sums are shared: no float atomics, bitwise repeats.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -440,6 +473,181 @@ symm_pass1(Plane A, Vec P, Vec Q, Walk W,
   }
 }
 
+// The q16 planes under the bf16 product engine: pass 1 is q16_bf16_pass1.
+struct Q16Bf16Plane {
+  using acc_t = float;
+  const short* __restrict__ q;
+  const float* __restrict__ s;
+};
+
+constexpr int BF_LD = TB + 8;  // bf16 row stride of the staged strip
+constexpr int BF_SMEM =
+    (ROWS * BF_LD + TB + ROWS) * (int)sizeof(__nv_bfloat16);
+constexpr int BF_VECS = ROWS * TB / 8 / THREADS;  // 16-byte loads a thread
+
+__device__ __forceinline__ unsigned bf16_pair(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return (unsigned)__bfloat16_as_ushort(lo) |
+         ((unsigned)__bfloat16_as_ushort(hi) << 16);
+}
+
+// Eight int16 of one 16-byte load as eight bf16 (round to nearest even).
+__device__ __forceinline__ uint4 bf16x8_of_i16x8(const int4 x) {
+  const int w[4] = {x.x, x.y, x.z, x.w};
+  unsigned o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = bf16_pair(__float2bfloat16_rn((float)(int)(short)(w[j] & 0xffff)),
+                     __float2bfloat16_rn((float)(w[j] >> 16)));
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+__device__ __forceinline__ unsigned ld_bf16x2(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// d += a b over one m16n8k16 tile: bf16 operands, f32 accumulators. With
+// g = lane / 4, c = lane % 4: a[0] holds A(g, 2c..2c+1), a[1] A(g+8, 2c..),
+// a[2] A(g, 2c+8..), a[3] A(g+8, 2c+8..); b[0] B(2c..2c+1, g), b[1]
+// B(2c+8.., g); d[0..1] D(g, 2c..2c+1), d[2..3] D(g+8, 2c..2c+1); the lower
+// half of each register holds the element of the lower index.
+__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
+                                         const unsigned b[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Pass 1 of the bf16 engine, same blocks and outputs as symm_pass1: block
+// (t, s) writes part_d[t][s*ROWS .. +ROWS) and, for a tile with a transpose
+// term, part_t[t][s][0 .. TB).
+template <class Walk>
+__global__ void __launch_bounds__(THREADS)
+q16_bf16_pass1(Q16Bf16Plane A, F32Vec P, F32Vec Q, Walk W,
+               float* __restrict__ part_d, float* __restrict__ part_t) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  // strip [ROWS][BF_LD], then pk [TB], then pi [ROWS]
+  __nv_bfloat16* strip = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* pk = strip + ROWS * BF_LD;
+  __nv_bfloat16* pi = pk + TB;
+
+  const int t = blockIdx.x / STRIPS;
+  const int s = blockIdx.x % STRIPS;
+  int i, k, ld;
+  size_t tile0;
+  W.tile(t, i, k, tile0, ld);
+  const bool offdiag = W.transposed(i, k);
+  const float sc = __ldg(A.s + t);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+
+  // the strip as bf16: coalesced 16-byte streaming loads, half a thread's
+  // loads in flight at a time
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int4 raw[BF_VECS / 2];
+#pragma unroll
+    for (int u = 0; u < BF_VECS / 2; ++u) {
+      const int v = threadIdx.x + (h * BF_VECS / 2 + u) * THREADS;
+      raw[u] = __ldcs(reinterpret_cast<const int4*>(
+          A.q + tile0 + (size_t)(s * ROWS + v / (TB / 8)) * ld +
+          (v % (TB / 8)) * 8));
+    }
+#pragma unroll
+    for (int u = 0; u < BF_VECS / 2; ++u) {
+      const int v = threadIdx.x + (h * BF_VECS / 2 + u) * THREADS;
+      *reinterpret_cast<uint4*>(strip + (v / (TB / 8)) * BF_LD +
+                                (v % (TB / 8)) * 8) = bf16x8_of_i16x8(raw[u]);
+    }
+  }
+  for (int c = threadIdx.x; c < TB; c += THREADS)
+    pk[c] = __float2bfloat16_rn(__fmul_rn(P.get(k * TB + c), sc));
+  if (threadIdx.x < ROWS)
+    pi[threadIdx.x] = __float2bfloat16_rn(
+        __fmul_rn(Q.get(i * TB + s * ROWS + threadIdx.x), sc));
+  __syncthreads();
+
+  const int g = lane / 4;
+  const int c4 = lane % 4;
+  if (warp < 4) {
+    // direct: D(r, 0) = sum_c strip(16 warp + r, c) pk(c)
+    const __nv_bfloat16* row = strip + (16 * warp + g) * BF_LD + 2 * c4;
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+    for (int kc = 0; kc < TB; kc += 16) {
+      const unsigned a[4] = {ld_bf16x2(row + kc),
+                             ld_bf16x2(row + 8 * BF_LD + kc),
+                             ld_bf16x2(row + kc + 8),
+                             ld_bf16x2(row + 8 * BF_LD + kc + 8)};
+      const unsigned b[2] = {g == 0 ? ld_bf16x2(pk + kc + 2 * c4) : 0u,
+                             g == 0 ? ld_bf16x2(pk + kc + 2 * c4 + 8) : 0u};
+      mma_bf16(d, a, b);
+    }
+    if (c4 == 0) {
+      float* out = part_d + (size_t)t * TB + s * ROWS + 16 * warp + g;
+      out[0] = d[0];
+      out[8] = d[2];
+    }
+  } else if (offdiag) {  // uniform across the warp
+    // transpose: D(c, 0) = sum_r strip(r, c) pi(r), columns 128 (warp - 4) ..
+    unsigned b[ROWS / 16][2];
+#pragma unroll
+    for (int kr = 0; kr < ROWS / 16; ++kr) {
+      b[kr][0] = g == 0 ? ld_bf16x2(pi + 16 * kr + 2 * c4) : 0u;
+      b[kr][1] = g == 0 ? ld_bf16x2(pi + 16 * kr + 2 * c4 + 8) : 0u;
+    }
+    float* out = part_t + ((size_t)t * STRIPS + s) * TB;
+    for (int c0 = 128 * (warp - 4); c0 < 128 * (warp - 3); c0 += 16) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kr = 0; kr < ROWS / 16; ++kr) {
+        // A^T(m, j) = strip(16 kr + j, c0 + m)
+        const __nv_bfloat16* e = strip + (16 * kr + 2 * c4) * BF_LD + c0 + g;
+        const unsigned a[4] = {bf16_pair(e[0], e[BF_LD]),
+                               bf16_pair(e[8], e[BF_LD + 8]),
+                               bf16_pair(e[8 * BF_LD], e[9 * BF_LD]),
+                               bf16_pair(e[8 * BF_LD + 8], e[9 * BF_LD + 8])};
+        mma_bf16(d, a, b[kr]);
+      }
+      if (c4 == 0) {
+        out[c0 + g] = d[0];
+        out[c0 + g + 8] = d[2];
+      }
+    }
+  }
+}
+
+// Pass 1 of any walk: symm_pass1 with a tile reader, or q16_bf16_pass1.
+template <class Plane, class Vec, class Walk>
+int pass1(Plane A, Vec P, Vec Q, Walk W, int tiles,
+          typename Plane::acc_t* part_d, typename Plane::acc_t* part_t,
+          cudaStream_t stream) {
+  if constexpr (std::is_same_v<Plane, Q16Bf16Plane>) {
+    // the 64 KB strip needs the opt-in shared-memory size, set once for
+    // each instantiation and device (devices past 63 set it every call)
+    static std::atomic<unsigned long long> opted_in{0};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e != cudaSuccess) return (int)e;
+    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+    if (!(opted_in.load(std::memory_order_acquire) & bit)) {
+      e = cudaFuncSetAttribute(q16_bf16_pass1<Walk>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               BF_SMEM);
+      if (e != cudaSuccess) return (int)e;
+      opted_in.fetch_or(bit, std::memory_order_release);
+    }
+    q16_bf16_pass1<Walk><<<tiles * STRIPS, THREADS, BF_SMEM, stream>>>(
+        A, P, Q, W, part_d, part_t);
+  } else {
+    symm_pass1<Plane, Vec, Walk><<<tiles * STRIPS, THREADS, 0, stream>>>(
+        A, P, Q, W, part_d, part_t);
+  }
+  return (int)cudaGetLastError();
+}
+
 // y[i*TB + r] = sum_{k<=i} part_d[t(i,k)][r] + sum_{j>i} sum_s part_t[t(j,i)][s][r]
 // Block: P2_COLS consecutive outputs (one row-tile i, since P2_COLS divides
 // TB) x P2_GROUPS strided partial sums, combined in a fixed order.
@@ -571,11 +779,8 @@ template <class Plane, class Vec, class Out>
 int launch(Plane A, Vec P, Out Y, typename Plane::acc_t* part_d,
            typename Plane::acc_t* part_t, int nblk, cudaStream_t stream) {
   const int T = nblk * (nblk + 1) / 2;
-  symm_pass1<Plane, Vec, TriangleWalk>
-      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, P, TriangleWalk{}, part_d,
-                                           part_t);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = pass1(A, P, P, TriangleWalk{}, T, part_d, part_t, stream);
+  if (e != 0) return e;
   symm_pass2<typename Plane::acc_t, Out>
       <<<nblk * TB / P2_COLS, THREADS, 0, stream>>>(part_d, part_t, nblk, Y);
   return (int)cudaGetLastError();
@@ -595,10 +800,8 @@ int launch_slab(Plane A, Vec P, TableWalk W, SlabLists L, Out YD, Out YT,
                 int T, int ms, cudaStream_t stream) {
   if (T <= 0 || ms <= 0 || ms % TB || W.n <= 0 || W.n % TB)
     return (int)cudaErrorInvalidValue;
-  symm_pass1<Plane, Vec, TableWalk>
-      <<<T * STRIPS, THREADS, 0, stream>>>(A, P, P, W, part_d, part_t);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = pass1(A, P, P, W, T, part_d, part_t, stream);
+  if (e != 0) return e;
   slab_pass2<typename Plane::acc_t, Out>
       <<<(ms + W.n) / P2_COLS, THREADS, 0, stream>>>(
           part_d, part_t, L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, YD, YT);
@@ -610,10 +813,8 @@ int launch_dual(Plane A, Vec P, Vec Q, Out YD, Out YT,
                 typename Plane::acc_t* part_d, typename Plane::acc_t* part_t,
                 int mb, int cb, cudaStream_t stream) {
   if (mb <= 0 || cb <= 0) return (int)cudaErrorInvalidValue;
-  symm_pass1<Plane, Vec, RectWalk><<<mb * cb * STRIPS, THREADS, 0, stream>>>(
-      A, P, Q, RectWalk{cb}, part_d, part_t);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = pass1(A, P, Q, RectWalk{cb}, mb * cb, part_d, part_t, stream);
+  if (e != 0) return e;
   rect_pass2<typename Plane::acc_t, Out>
       <<<(mb + cb) * TB / P2_COLS, THREADS, 0, stream>>>(part_d, part_t, mb,
                                                          cb, YD, YT);
@@ -806,4 +1007,35 @@ extern "C" int lam_gemv_fq_dual(
                      DF64Vec{p_hi, p_lo}, DF64Vec{q_hi, q_lo},
                      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
                      part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// The bf16 product engine of the three q16 kernels: the same arguments,
+// scratch and outputs as lam_gemv_q16_symm, lam_gemv_q16_symm_slab and
+// lam_gemv_q16_dual; each tile value and each scaled operand value rounded
+// to bf16 (nearest even), tensor-core products, f32 sums.
+extern "C" int lam_gemv_q16_symm_bf16(const short* q1, const float* s1,
+                                      const float* p, float* y, float* part_d,
+                                      float* part_t, int nblk, void* stream) {
+  return launch(Q16Bf16Plane{q1, s1}, F32Vec{p}, F32Out{y}, part_d, part_t,
+                nblk, (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_q16_symm_slab_bf16(
+    const short* q1, const float* s1, const float* p, const int* it,
+    const int* kt, const int* lt, const int* d_ptr, const int* d_ids,
+    const int* t_ptr, const int* t_ids, float* yd, float* yt, float* part_d,
+    float* part_t, int T, int ms, int n, void* stream) {
+  return launch_slab(Q16Bf16Plane{q1, s1}, F32Vec{p},
+                     TableWalk{it, kt, lt, n, 1},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids}, F32Out{yd},
+                     F32Out{yt}, part_d, part_t, T, ms, (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_q16_dual_bf16(const short* q1, const float* s1,
+                                      const float* p, const float* q,
+                                      float* yd, float* yt, float* part_d,
+                                      float* part_t, int mb, int cb,
+                                      void* stream) {
+  return launch_dual(Q16Bf16Plane{q1, s1}, F32Vec{p}, F32Vec{q}, F32Out{yd},
+                     F32Out{yt}, part_d, part_t, mb, cb, (cudaStream_t)stream);
 }

@@ -85,6 +85,9 @@ def read_matrix_rows(path, row_start, num_rows, dtype=np.float64):
     (lam_tpu/io.py:112): each rank of a sharded solve reads only its own
     rows, the analog of the reference's per-rank MPI-IO seek and read."""
     rows, cols = read_header(path)
+    # Python ints: a numpy int32 row index (a walk table's) would overflow
+    # the byte offset of a file over 2 GiB
+    row_start, num_rows = int(row_start), int(num_rows)
     if row_start + num_rows > rows:
         raise ValueError(f"row block [{row_start}, {row_start + num_rows}) "
                          f"out of range for {rows}-row matrix")

@@ -34,8 +34,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of csrc/gemv_symm.cu, csrc/gemv_dense.cu and
-# csrc/stencil.cu: name -> argtypes (all return int)
+_L = ctypes.c_longlong
+# C entry points of csrc/gemv_symm.cu, csrc/gemv_dense.cu, csrc/stencil.cu
+# and csrc/probe.cu: name -> argtypes (all return int)
 SIGNATURES = {
     "lam_symm_tile": (),
     "lam_symm_strips": (),
@@ -58,8 +59,12 @@ SIGNATURES = {
     "lam_gemv_dfq_dual": (_P,) * 13 + (_I, _I, _P),
     "lam_gemv_q16_dual": (_P,) * 8 + (_I, _I, _P),
     "lam_gemv_fq_dual": (_P,) * 16 + (_I, _I, _P),
+    "lam_gemv_q16_symm_bf16": (_P, _P, _P, _P, _P, _P, _I, _P),
+    "lam_gemv_q16_symm_slab_bf16": (_P,) * 14 + (_I,) * 3 + (_P,),
+    "lam_gemv_q16_dual_bf16": (_P,) * 8 + (_I, _I, _P),
     "lam_laplace5_blocks": (_I, _I),
     "lam_laplace5_f32_halo": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "lam_stream_i16": (_P, _L, _I, _P, _P, _P),
 }
 
 

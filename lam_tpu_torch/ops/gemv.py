@@ -54,9 +54,32 @@ trailing pad tiles and their scales are never read:
     gemv_q16_dual        <- gemv_q16_dual           (gemv.py:2544)
     gemv_fq_dual         <- gemv_fq_dual            (gemv.py:2624)
 
+The three q16 matvecs have two product engines, as in lam_tpu, chosen
+per call by `_q16_impl` from the module attribute `_Q16_IMPL` (read from
+LAM_Q16_IMPL at import; "auto", the default, "mxu" or "vpu"; any other
+value raises ValueError) and the operand length: "vpu", exact f32
+products (the kernels above), below Q16_MXU_MIN_N under "auto"; "mxu",
+both operands of every product rounded to bf16 (the converted int16 tile
+value and p * s, nearest even) and the exact products summed in f32, the
+TPU's single-pass DEFAULT-precision MXU dots, at n >= Q16_MXU_MIN_N
+under "auto". The bf16 engine's wrappers are kernels of their own, with
+their own counters and plain versions:
+
+    gemv_q16_symm_bf16       <- _gemv_q16_symm_multi_kernel "mxu" (:1955)
+    gemv_q16_symm_slab_bf16  <- _gemv_q16_symm_slab_kernel "mxu"  (:2266)
+    gemv_q16_dual_bf16       <- _gemv_q16_dual_kernel "mxu"       (:2502)
+
+`gemv_q16_symm` and `gemv_q16_symm_slab` choose on p's length (the padded
+n), `gemv_q16_dual` on the larger of p's and q's. `gemv_q16_symm` takes
+the bf16 engine only on a plane of a multiple of Q16_P tiles with nblk >=
+2, where lam_tpu runs its blocked grid; other planes keep exact products
+under any engine, as lam_tpu's one-tile grid does. Tests and scripts flip
+the engine by assigning `_Q16_IMPL`.
+
 On a CUDA tensor a wrapper launches the hand-written Hopper kernel of
 csrc/gemv_symm.cu or csrc/gemv_dense.cu (built at first use by
-`_build`) on the current stream, or raises. On a CPU tensor, and only
+`_build`) on the current stream, or raises; no engine falls back to the
+other. On a CPU tensor, and only
 there, it runs the plain PyTorch version beside it (`*_plain`), which
 the CPU tests hold against the JAX package and chip_smoke.py holds the
 kernel against on the card.
@@ -70,6 +93,7 @@ covers the stencil kernel too).
 from __future__ import annotations
 
 import operator
+import os
 
 import numpy as np
 import torch
@@ -78,17 +102,50 @@ from lam_tpu_torch.ops import layout
 from lam_tpu_torch.precision import split_f64
 
 
-def _walk_into(yd, yt, tiles, p, it, kt, lt, scale=None):
+Q16_MXU_MIN_N = 16384
+_Q16_IMPLS = ("auto", "mxu", "vpu")
+
+
+def _checked_q16_impl(value):
+    if value not in _Q16_IMPLS:
+        raise ValueError(f"LAM_Q16_IMPL={value!r} must be one of "
+                         f"{_Q16_IMPLS}")
+    return value
+
+
+# the q16 product engine (module docstring); lam_tpu reads the same
+# variable (lam_tpu/ops/gemv.py:327)
+_Q16_IMPL = _checked_q16_impl(os.environ.get("LAM_Q16_IMPL", "auto"))
+
+
+def _q16_impl(n):
+    """'mxu' (bf16 products) or 'vpu' (exact f32 products) for an operand
+    of length n, by lam_tpu's rule (lam_tpu/ops/gemv.py:331-334)."""
+    impl = _checked_q16_impl(_Q16_IMPL)
+    if impl == "auto":
+        return "mxu" if n >= Q16_MXU_MIN_N else "vpu"
+    return impl
+
+
+def _bf16(x):
+    """f32 x rounded to bf16 (nearest even) and back: exact in f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _walk_into(yd, yt, tiles, p, it, kt, lt, scale=None, rounding=None):
     """Plain walk of tiles (T, tb, tb) sitting at blocks (it, kt) of the
     matrix, p (n,) in the tiles' dtype, tables int64: direct terms
     A p_kt are added into the row tiles yd[lt], transpose terms A^T p_it
     of the off-diagonal tiles into the column tiles yt[kt]. A per-tile
-    `scale` (T,) is folded into p."""
+    `scale` (T,) is folded into p, then `rounding` applied to the
+    operand slices."""
     tb = tiles.shape[1]
     pb = p.reshape(-1, tb)
     pk, pi = pb[kt], pb[it]
     if scale is not None:
         pk, pi = pk * scale[:, None], pi * scale[:, None]
+    if rounding is not None:
+        pk, pi = rounding(pk), rounding(pi)
     yd.index_add_(0, lt, torch.einsum("tij,tj->ti", tiles, pk))
     off = torch.nonzero(kt < it).flatten()
     if off.numel():
@@ -96,7 +153,7 @@ def _walk_into(yd, yt, tiles, p, it, kt, lt, scale=None):
         yt.index_add_(0, kt[off], trans)
 
 
-def _walk(tiles, p, nblk, scale=None):
+def _walk(tiles, p, nblk, scale=None, rounding=None):
     """Plain triangle walk: tiles (T, tb, tb) and p (n,) in one dtype.
     Direct terms scatter by row tile, transpose terms (off-diagonal tiles
     only) by column tile. A per-tile `scale` (T,) is folded into p."""
@@ -104,7 +161,7 @@ def _walk(tiles, p, nblk, scale=None):
     it, kt = (torch.as_tensor(x, dtype=torch.long, device=tiles.device)
               for x in layout._symm_tables(nblk))
     y = torch.zeros(nblk, tb, dtype=p.dtype, device=p.device)
-    _walk_into(y, y, tiles, p, it, kt, it, scale)
+    _walk_into(y, y, tiles, p, it, kt, it, scale, rounding)
     return y.reshape(-1)
 
 
@@ -152,6 +209,18 @@ def gemv_q16_symm_plain(q1, s1, p):
     T = layout.tri_tile_count(nblk)
     tiles = q1[:T * tb].to(torch.float32).reshape(T, tb, tb)
     return _walk(tiles, p, nblk, s1[:T])
+
+
+def gemv_q16_symm_bf16_plain(q1, s1, p):
+    """The bf16 engine of `gemv_q16_symm_plain`: each tile value and each
+    scaled operand value p * s rounded to bf16, exact products, f32
+    sums."""
+    gemv_q16_symm_bf16_plain.calls += 1
+    tb, nblk, _ = layout.packed_geometry(q1.shape, p.shape[0],
+                                         "gemv_q16_symm", padded=True)
+    T = layout.tri_tile_count(nblk)
+    tiles = _bf16(q1[:T * tb].to(torch.float32)).reshape(T, tb, tb)
+    return _walk(tiles, p, nblk, s1[:T], _bf16)
 
 
 def gemv_fq_symm_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
@@ -202,11 +271,12 @@ def gemv_df64_cols_plain(a_hi, a_lo, p_hi, p_lo, blk):
                               + p_lo.to(torch.float64)))
 
 
-def _slab_parts(a, p, it, kt, lt, ms, tb, packed, scale=None):
+def _slab_parts(a, p, it, kt, lt, ms, tb, packed, scale=None,
+                rounding=None):
     """Plain slab walk in a's dtype: (yd (ms,), yt (n,)). `a` is the
     (T*tb, tb) walk-order buffer (packed) or the (ms, n) slab, whose tile
     t is then the block (lt[t], kt[t]) of its tile grid. A per-tile
-    `scale` (T,) is folded into p."""
+    `scale` (T,) is folded into p, then `rounding` applied."""
     it, kt, lt = (x.to(torch.long) for x in (it, kt, lt))
     n = p.shape[0]
     if packed:
@@ -216,7 +286,7 @@ def _slab_parts(a, p, it, kt, lt, ms, tb, packed, scale=None):
             lt, kt]
     yd = torch.zeros(ms // tb, tb, dtype=p.dtype, device=p.device)
     yt = torch.zeros(n // tb, tb, dtype=p.dtype, device=p.device)
-    _walk_into(yd, yt, tiles, p, it, kt, lt, scale)
+    _walk_into(yd, yt, tiles, p, it, kt, lt, scale, rounding)
     return yd.reshape(-1), yt.reshape(-1)
 
 
@@ -254,6 +324,17 @@ def gemv_q16_symm_slab_plain(q1_slab, sc1, p, it, kt, lt, *, ms):
     _check_walk(*_host_tables(it, kt, lt), p.shape[0] // tb, ms // tb)
     return _slab_parts(q1_slab.to(torch.float32), p, it, kt, lt, ms, tb,
                        True, sc1)
+
+
+def gemv_q16_symm_slab_bf16_plain(q1_slab, sc1, p, it, kt, lt, *, ms):
+    """The bf16 engine of `gemv_q16_symm_slab_plain`: tile values and
+    scaled operand values rounded to bf16, exact products, f32 sums."""
+    gemv_q16_symm_slab_bf16_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_q16_symm_slab", q1_slab, p, it, kt, lt,
+                            ms, True, None)
+    _check_walk(*_host_tables(it, kt, lt), p.shape[0] // tb, ms // tb)
+    return _slab_parts(_bf16(q1_slab.to(torch.float32)), p, it, kt, lt, ms,
+                       tb, True, sc1, _bf16)
 
 
 def _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb):
@@ -310,10 +391,11 @@ def _dual_geometry(buf, p, q, what):
     return tb, mb, cb
 
 
-def _dual_parts(tiles, p, q, mb, cb, scale=None):
+def _dual_parts(tiles, p, q, mb, cb, scale=None, rounding=None):
     """Plain dual matvec of the first mb*cb row-major tiles of `tiles`
     (T, tb, tb), p (n,) and q (ms,) in the tiles' dtype: (S @ p (ms,),
-    S^T @ q (n,)). A per-tile `scale` (T,) is folded into p and q."""
+    S^T @ q (n,)). A per-tile `scale` (T,) is folded into p and q, then
+    `rounding` applied."""
     tb = tiles.shape[1]
     t4 = tiles[:mb * cb].reshape(mb, cb, tb, tb)
     pk = p.reshape(1, cb, tb).expand(mb, cb, tb)
@@ -321,6 +403,8 @@ def _dual_parts(tiles, p, q, mb, cb, scale=None):
     if scale is not None:
         sc = scale[:mb * cb].reshape(mb, cb, 1)
         pk, ql = pk * sc, ql * sc
+    if rounding is not None:
+        pk, ql = rounding(pk), rounding(ql)
     yd = torch.einsum("lkij,lkj->li", t4, pk)
     yt = torch.einsum("lkij,lki->kj", t4, ql)
     return yd.reshape(-1), yt.reshape(-1)
@@ -373,6 +457,15 @@ def gemv_q16_dual_plain(q1buf, sc, p, q):
     tb, mb, cb = _dual_geometry(q1buf, p, q, "gemv_q16_dual")
     tiles = q1buf[:mb * cb * tb].to(torch.float32).reshape(-1, tb, tb)
     return _dual_parts(tiles, p, q, mb, cb, sc)
+
+
+def gemv_q16_dual_bf16_plain(q1buf, sc, p, q):
+    """The bf16 engine of `gemv_q16_dual_plain`: tile values and scaled
+    operand values rounded to bf16, exact products, f32 sums."""
+    gemv_q16_dual_bf16_plain.calls += 1
+    tb, mb, cb = _dual_geometry(q1buf, p, q, "gemv_q16_dual")
+    tiles = _bf16(q1buf[:mb * cb * tb].to(torch.float32)).reshape(-1, tb, tb)
+    return _dual_parts(tiles, p, q, mb, cb, sc, _bf16)
 
 
 def gemv_fq_dual_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
@@ -562,15 +655,45 @@ def gemv_q16_symm(q1, s1, p):
     cascade: int16 walk-order triangle tiles (T or padded Ts tiles)
     against per-tile power-of-two scales s1, p (n,) f32. 2 B per stored
     element; ~2^-16 tile-relative operator error. Exact int16 -> f32
-    conversion, the scale folded into p, exact f32 products with f32
-    accumulation (no TF32, no bf16) at every n."""
+    conversion and the scale folded into p; the product engine is
+    `_q16_impl(n)`: exact f32 products with f32 accumulation (no TF32, no
+    bf16) under 'vpu', `gemv_q16_symm_bf16` under 'mxu'. As in lam_tpu,
+    'mxu' reaches only planes of a multiple of Q16_P tiles with nblk >= 2
+    (its blocked grid, lam_tpu/ops/gemv.py:2089); any other plane takes
+    the one-tile grid, whose body is exact (:2091-2136)."""
+    if _q16_impl(p.shape[0]) == "mxu" and _q16_blocked(q1, p):
+        return gemv_q16_symm_bf16(q1, s1, p)
+    return _q16_symm(gemv_q16_symm, gemv_q16_symm_plain,
+                     "lam_gemv_q16_symm", q1, s1, p)
+
+
+def gemv_q16_symm_bf16(q1, s1, p):
+    """The bf16 product engine of `gemv_q16_symm` (lam_tpu's 'mxu' body):
+    each tile value and each scaled operand value p * s rounded to bf16
+    (nearest even), the exact products summed in f32 on the tensor
+    cores; ~2^-9 operator error."""
+    return _q16_symm(gemv_q16_symm_bf16, gemv_q16_symm_bf16_plain,
+                     "lam_gemv_q16_symm_bf16", q1, s1, p)
+
+
+def _q16_blocked(q1, p):
+    """True where lam_tpu's gemv_q16_symm runs its blocked grid: a stored
+    tile count that is a multiple of Q16_P, and nblk >= 2."""
+    _, nblk, T = layout.packed_geometry(q1.shape, p.shape[0],
+                                        "gemv_q16_symm", padded=True)
+    return T % layout.Q16_P == 0 and nblk >= 2
+
+
+def _q16_symm(wrapper, plain, entry, q1, s1, p):
+    """The q16 triangle walk of one engine: checks, then the plain
+    version on a CPU tensor or the kernel `entry` on a CUDA one."""
     what = "gemv_q16_symm"
     _check(what, {"q1": q1, "s1": s1, "p": p}, q1.device)
     geometry = layout.packed_geometry(q1.shape, p.shape[0], what,
                                       padded=True)
     _check_scales(what, geometry[2], {"s1": s1})
     if q1.device.type == "cpu":
-        return gemv_q16_symm_plain(q1, s1, p)
+        return plain(q1, s1, p)
     from lam_tpu_torch.ops._build import library
     lib = library()
     nblk, n_d, n_t = _kernel_geometry(geometry, what, lib)
@@ -579,12 +702,12 @@ def gemv_q16_symm(q1, s1, p):
     part_t = torch.empty(n_t, dtype=torch.float32, device=q1.device)
     with torch.cuda.device(q1.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_gemv_q16_symm(q1.data_ptr(), s1.data_ptr(),
-                                     p.data_ptr(), y.data_ptr(),
-                                     part_d.data_ptr(), part_t.data_ptr(),
-                                     nblk, stream)
-    gemv_q16_symm.launches += 1
-    _raise_on(what, code)
+        code = getattr(lib, entry)(q1.data_ptr(), s1.data_ptr(),
+                                   p.data_ptr(), y.data_ptr(),
+                                   part_d.data_ptr(), part_t.data_ptr(),
+                                   nblk, stream)
+    wrapper.launches += 1
+    _raise_on(wrapper.__name__, code)
     return y
 
 
@@ -969,18 +1092,37 @@ def gemv_q16_symm_slab(q1_slab, sc1, p, it, kt, lt, *, ms):
     power-of-two scales sc1 (T,), one per walk position; 2 B per element
     read. Returns (yd (ms,), yt (n,)) in f32; the caller places yd at the
     rank's rows, adds the diagonal term the planes do not carry, and sums
-    the ranks' parts. Exact int16 -> f32 conversion, the scale folded
-    into p, exact f32 products with f32 accumulation (no TF32, no
-    bf16)."""
+    the ranks' parts. Exact int16 -> f32 conversion and the scale folded
+    into p; the product engine is `_q16_impl(n)`: exact f32 products with
+    f32 accumulation (no TF32, no bf16) under 'vpu',
+    `gemv_q16_symm_slab_bf16` under 'mxu'."""
+    if _q16_impl(p.shape[0]) == "mxu":
+        return gemv_q16_symm_slab_bf16(q1_slab, sc1, p, it, kt, lt, ms=ms)
+    return _q16_slab(gemv_q16_symm_slab, gemv_q16_symm_slab_plain,
+                     "lam_gemv_q16_symm_slab", q1_slab, sc1, p, it, kt, lt,
+                     ms)
+
+
+def gemv_q16_symm_slab_bf16(q1_slab, sc1, p, it, kt, lt, *, ms):
+    """The bf16 product engine of `gemv_q16_symm_slab` (lam_tpu's 'mxu'
+    body): tile values and scaled operand values rounded to bf16 (nearest
+    even), the exact products summed in f32 on the tensor cores."""
+    return _q16_slab(gemv_q16_symm_slab_bf16, gemv_q16_symm_slab_bf16_plain,
+                     "lam_gemv_q16_symm_slab_bf16", q1_slab, sc1, p, it, kt,
+                     lt, ms)
+
+
+def _q16_slab(wrapper, plain, entry, q1_slab, sc1, p, it, kt, lt, ms):
+    """The q16 slab walk of one engine (see `_q16_symm`)."""
     what = "gemv_q16_symm_slab"
     _check(what, {"q1": q1_slab, "s1": sc1, "p": p, "it": it, "kt": kt,
                   "lt": lt}, q1_slab.device)
     tb, ms = _slab_geometry(what, q1_slab, p, it, kt, lt, ms, True, None)
     _check_scales(what, it.shape[0], {"scale": sc1})
     if q1_slab.device.type == "cpu":
-        return gemv_q16_symm_slab_plain(q1_slab, sc1, p, it, kt, lt, ms=ms)
-    return _slab_call(gemv_q16_symm_slab, "lam_gemv_q16_symm_slab",
-                      (q1_slab, sc1, p), it, kt, lt, ms, tb, False)
+        return plain(q1_slab, sc1, p, it, kt, lt, ms=ms)
+    return _slab_call(wrapper, entry, (q1_slab, sc1, p), it, kt, lt, ms, tb,
+                      False)
 
 
 def gemv_fq_symm_slab(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt, *,
@@ -1159,17 +1301,34 @@ def gemv_q16_dual(q1buf, sc, p, q):
     """The q16 twin of `gemv_f32_dual`: S as the int16 q1 plane of the fq
     cascade against the per-tile power-of-two scales sc (T,) (the pad
     tiles' scales are not read); 2 B per element read. Returns (S @ p,
-    S^T @ q) in f32. Exact int16 -> f32 conversion, the scale folded into
-    both p and q, exact f32 products with f32 accumulation (no TF32, no
-    bf16)."""
+    S^T @ q) in f32. Exact int16 -> f32 conversion and the scale folded
+    into both p and q; the product engine is `_q16_impl` of the larger of
+    n and ms (lam_tpu/ops/gemv.py:2553-2556): exact f32 products with f32
+    accumulation (no TF32, no bf16) under 'vpu', `gemv_q16_dual_bf16`
+    under 'mxu'."""
+    if _q16_impl(max(p.shape[0], q.shape[0])) == "mxu":
+        return gemv_q16_dual_bf16(q1buf, sc, p, q)
+    return _q16_dual(gemv_q16_dual, gemv_q16_dual_plain, "lam_gemv_q16_dual",
+                     q1buf, sc, p, q)
+
+
+def gemv_q16_dual_bf16(q1buf, sc, p, q):
+    """The bf16 product engine of `gemv_q16_dual` (lam_tpu's 'mxu' body):
+    tile values and scaled operand values rounded to bf16 (nearest even),
+    the exact products summed in f32 on the tensor cores."""
+    return _q16_dual(gemv_q16_dual_bf16, gemv_q16_dual_bf16_plain,
+                     "lam_gemv_q16_dual_bf16", q1buf, sc, p, q)
+
+
+def _q16_dual(wrapper, plain, entry, q1buf, sc, p, q):
+    """The q16 dual matvec of one engine (see `_q16_symm`)."""
     what = "gemv_q16_dual"
     _check(what, {"q1": q1buf, "s1": sc, "p": p, "q_": q}, q1buf.device)
     tb, mb, cb = _dual_geometry(q1buf, p, q, what)
     _check_scales(what, q1buf.shape[0] // tb, {"scale": sc})
     if q1buf.device.type == "cpu":
-        return gemv_q16_dual_plain(q1buf, sc, p, q)
-    return _dual_call(gemv_q16_dual, "lam_gemv_q16_dual", (q1buf, sc, p, q),
-                      tb, mb, cb, False)
+        return plain(q1buf, sc, p, q)
+    return _dual_call(wrapper, entry, (q1buf, sc, p, q), tb, mb, cb, False)
 
 
 def gemv_fq_dual(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
@@ -1209,7 +1368,8 @@ KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_fq_symm, gemv_f32, gemv_df64, gemv_f32_cols, gemv_df64_cols,
            gemv_f32_symm_slab, gemv_df64_symm_slab, gemv_q16_symm_slab,
            gemv_fq_symm_slab, gemv_dfq_symm_slab, gemv_f32_dual,
-           gemv_df64_dual, gemv_dfq_dual, gemv_q16_dual, gemv_fq_dual)
+           gemv_df64_dual, gemv_dfq_dual, gemv_q16_dual, gemv_fq_dual,
+           gemv_q16_symm_bf16, gemv_q16_symm_slab_bf16, gemv_q16_dual_bf16)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
@@ -1217,7 +1377,8 @@ PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_slab_plain, gemv_fq_symm_slab_plain,
          gemv_dfq_symm_slab_plain, gemv_f32_dual_plain,
          gemv_df64_dual_plain, gemv_dfq_dual_plain, gemv_q16_dual_plain,
-         gemv_fq_dual_plain)
+         gemv_fq_dual_plain, gemv_q16_symm_bf16_plain,
+         gemv_q16_symm_slab_bf16_plain, gemv_q16_dual_bf16_plain)
 
 
 def reset_counters():

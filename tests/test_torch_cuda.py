@@ -913,3 +913,232 @@ def test_four_rank_symmetric_grid_solve_on_one_card(tmp_path):
         assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)
     for k in range(4):
         assert (tmp_path / "A.bin.shardpack" / f"fq.r2.s{k}").exists()
+
+
+# -- the bf16 product engine of the q16 kernels ------------------------------
+
+def _bf16_triangle(nblk, rng, small):
+    """A padded q1 triangle plane, scales and p on the card: small integers
+    against scales 0.5/0.25 (bf16 holds every value: exact products and
+    sums), or int16 within +-30000 against 2^-15 and Gaussian p."""
+    tb = layout.SYMM_TB
+    T, Ts = layout.tri_tile_count(nblk), layout.padded_tri_tile_count(nblk)
+    q1 = np.zeros((Ts * tb, tb), np.int16)
+    s1 = np.zeros(Ts, np.float32)
+    if small:
+        q1[:T * tb] = rng.integers(-3, 4, (T * tb, tb))
+        s1[:T] = np.where(np.arange(T) % 2, 0.25, 0.5)
+        p = rng.integers(-3, 4, nblk * tb).astype(np.float32)
+    else:
+        q1[:T * tb] = rng.integers(-30000, 30001, (T * tb, tb))
+        s1[:T] = 2.0 ** -15
+        p = rng.standard_normal(nblk * tb).astype(np.float32)
+    return tuple(torch.from_numpy(x).cuda() for x in (q1, s1, p))
+
+
+def _bf16_slab_ranks(g, mt, rng, small):
+    """Every rank's (q1, sc, it, kt, lt) of a g-rank band-pair walk at
+    tb=512, one scale per walk position, and p, on the card."""
+    tb = layout.SYMM_TB
+    tables = pcg_symm._band_tables(g, mt, tb)
+    n = 2 * g * mt * tb
+    ranks = []
+    for c in range(g):
+        it, kt, lt = (torch.from_numpy(np.asarray(x[c], np.int32)).cuda()
+                      for x in tables)
+        T = it.shape[0]
+        if small:
+            q1 = rng.integers(-3, 4, (T * tb, tb))
+            sc = np.where(np.arange(T) % 3, 0.5, 0.25)
+        else:
+            q1 = rng.integers(-30000, 30001, (T * tb, tb))
+            sc = np.full(T, 2.0 ** -15)
+        ranks.append((torch.from_numpy(q1.astype(np.int16)).cuda(),
+                      torch.from_numpy(sc.astype(np.float32)).cuda(),
+                      it, kt, lt))
+    p = rng.integers(-3, 4, n) if small else rng.standard_normal(n)
+    return ranks, torch.from_numpy(p.astype(np.float32)).cuda(), 2 * mt * tb
+
+
+def _bf16_rect(ms, n, pad, rng, small):
+    """A (ms, n) q1 rectangle of row-major tiles with `pad` garbage pad
+    tiles and garbage pad scales, and p (n,), q (ms,), on the card."""
+    tb = layout.SYMM_TB
+    real = (ms // tb) * (n // tb)
+    q1 = np.full(((real + pad) * tb, tb), 7, np.int16)
+    sc = np.full(real + pad, 3.0, np.float32)
+    if small:
+        q1[:real * tb] = rng.integers(-3, 4, (real * tb, tb))
+        sc[:real] = np.where(np.arange(real) % 2, 0.25, 0.5)
+        p, q = rng.integers(-3, 4, n), rng.integers(-3, 4, ms)
+    else:
+        q1[:real * tb] = rng.integers(-30000, 30001, (real * tb, tb))
+        sc[:real] = 2.0 ** -15
+        p, q = rng.standard_normal(n), rng.standard_normal(ms)
+    return tuple(torch.from_numpy(np.asarray(x, dt)).cuda() for x, dt in (
+        (q1, np.int16), (sc, np.float32), (p, np.float32), (q, np.float32)))
+
+
+def _f64_tri(q1, s1, p, nblk):
+    """f64 oracle of the triangle walk of stored values q1 * s1."""
+    tb = layout.SYMM_TB
+    T = layout.tri_tile_count(nblk)
+    tiles = q1[:T * tb].double().reshape(T, tb, tb) * s1[:T].double()[
+        :, None, None]
+    return torch.mv(_dense_of(tiles, nblk), p.double())
+
+
+def _f64_rect(q1, sc, ms, n):
+    tb = layout.SYMM_TB
+    mb, cb = ms // tb, n // tb
+    rows = mb * cb * tb
+    buf = q1[:rows].double() * sc[:mb * cb].double().repeat_interleave(
+        tb)[:, None]
+    return buf.reshape(mb, cb, tb, tb).permute(0, 2, 1, 3).reshape(ms, n)
+
+
+def _bf16_walks():
+    """(name, [(args, kwargs, f64 oracle or None)]) of the three bf16
+    kernels, general inputs first, then small-integer ones."""
+    rng = np.random.default_rng(51)
+    cases = {"gemv_q16_symm_bf16": [], "gemv_q16_symm_slab_bf16": [],
+             "gemv_q16_dual_bf16": []}
+    for small in (False, True):
+        for nblk in (4, 20):
+            q1, s1, p = _bf16_triangle(nblk, rng, small)
+            cases["gemv_q16_symm_bf16"].append(
+                ((q1, s1, p), {}, _f64_tri(q1, s1, p, nblk) if small
+                 else None))
+        for g, mt in ((2, 2), (4, 1)):
+            ranks, p, ms = _bf16_slab_ranks(g, mt, rng, small)
+            for q1, sc, it, kt, lt in ranks:
+                oracle = None
+                if small:
+                    tb = layout.SYMM_TB
+                    od, ot = gemv._slab_parts(
+                        q1.double() * sc.double().repeat_interleave(tb)[
+                            :, None], p.double(), it, kt, lt, ms, tb, True)
+                    oracle = torch.cat([od, ot])
+                cases["gemv_q16_symm_slab_bf16"].append(
+                    ((q1, sc, p, it, kt, lt), {"ms": ms}, oracle))
+        for ms, n, pad in ((512, 1024, 0), (2560, 5120, 5)):
+            q1, sc, p, q = _bf16_rect(ms, n, pad, rng, small)
+            oracle = None
+            if small:
+                s = _f64_rect(q1, sc, ms, n)
+                oracle = torch.cat([s @ p.double(), s.T @ q.double()])
+            cases["gemv_q16_dual_bf16"].append(((q1, sc, p, q), {}, oracle))
+    return cases
+
+
+def _flat(y):
+    return y if isinstance(y, torch.Tensor) else torch.cat(y)
+
+
+@pytest.mark.parametrize("name", ["gemv_q16_symm_bf16",
+                                  "gemv_q16_symm_slab_bf16",
+                                  "gemv_q16_dual_bf16"])
+def test_q16_bf16_kernels_match_plain(name):
+    """Each bf16 kernel against its plain version (the same bf16 operands
+    and exact products, f32 sums in another order: 1e-5), bitwise equal
+    to the f64 oracle on small-integer data, bitwise repeatable; the dual
+    walk's pad tiles and pad scales hold garbage."""
+    kernel, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
+    for args, kw, oracle in _bf16_walks()[name]:
+        ops.reset_counters()
+        y = _flat(kernel(*args, **kw))
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        assert counts[name] == 1 and counts[name + "_plain"] == 0
+        assert _rel(y, _flat(plain(*args, **kw))) <= 1e-5
+        if oracle is not None:
+            assert torch.equal(y.double(), oracle)
+        assert torch.equal(y, _flat(kernel(*args, **kw)))
+
+
+def test_q16_bf16_kernels_are_not_the_exact_ones():
+    """On general data the bf16 engine visibly rounds: its result differs
+    from the exact kernel's by more than 1e-5 and stays within 1e-2."""
+    for name, cases in _bf16_walks().items():
+        exact = getattr(gemv, name.replace("_bf16", ""))
+        for args, kw, oracle in cases:
+            if oracle is None:
+                y = _flat(getattr(gemv, name)(*args, **kw))
+                z = _flat(exact(*args, **kw))
+                assert 1e-5 < _rel(y, z) <= 1e-2
+
+
+def test_q16_engine_routes_to_the_bf16_kernels(monkeypatch):
+    """Under 'mxu' the public q16 wrappers launch the bf16 kernels and not
+    the exact ones; under 'auto' at these sizes (n < 16384) the reverse."""
+    rng = np.random.default_rng(52)
+    q1, s1, p = _bf16_triangle(4, rng, False)
+    ranks, ps, ms = _bf16_slab_ranks(2, 1, rng, False)
+    rect = _bf16_rect(512, 1024, 1, rng, False)
+    for impl, suffix in (("mxu", "_bf16"), ("auto", "")):
+        monkeypatch.setattr(gemv, "_Q16_IMPL", impl)
+        ops.reset_counters()
+        gemv.gemv_q16_symm(q1, s1, p)
+        gemv.gemv_q16_symm_slab(*ranks[0][:2], ps, *ranks[0][2:], ms=ms)
+        gemv.gemv_q16_dual(*rect)
+        torch.cuda.synchronize()
+        launched = {k for k, v in ops.counters().items() if v}
+        assert launched == {"gemv_q16_symm" + suffix,
+                            "gemv_q16_symm_slab" + suffix,
+                            "gemv_q16_dual" + suffix}
+
+
+def test_q16_mxu_keeps_exact_products_on_exact_count_triangles(monkeypatch):
+    """Under 'mxu' an exact-count triangle plane whose tile count is not a
+    multiple of Q16_P (the symmetric grid's diagonal ranks) launches the
+    exact kernel, as lam_tpu's one-tile grid runs its exact body there."""
+    rng = np.random.default_rng(55)
+    tb, nblk = layout.SYMM_TB, 4
+    T = layout.tri_tile_count(nblk)
+    q1, s1, p = _bf16_triangle(nblk, rng, False)
+    q1, s1 = q1[:T * tb].clone(), s1[:T].clone()
+    monkeypatch.setattr(gemv, "_Q16_IMPL", "mxu")
+    ops.reset_counters()
+    y = gemv.gemv_q16_symm(q1, s1, p)
+    torch.cuda.synchronize()
+    assert {k for k, v in ops.counters().items() if v} == {"gemv_q16_symm"}
+    assert _rel(y, gemv.gemv_q16_symm_plain(q1, s1, p)) <= 1e-5
+
+
+def test_q16_bf16_engine_has_no_fallback(monkeypatch):
+    """'mxu' with a kernel library that fails to build raises; nothing else
+    runs in its place (no exact kernel, no plain version)."""
+    from lam_tpu_torch.ops import _build
+
+    def broken():
+        raise RuntimeError("nvcc failed (exit 1)")
+
+    monkeypatch.setattr(gemv, "_Q16_IMPL", "mxu")
+    monkeypatch.setattr(_build, "library", broken)
+    rng = np.random.default_rng(53)
+    q1, s1, p = _bf16_triangle(4, rng, False)
+    ranks, ps, ms = _bf16_slab_ranks(2, 1, rng, False)
+    rect = _bf16_rect(512, 1024, 0, rng, False)
+    ops.reset_counters()
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        gemv.gemv_q16_symm(q1, s1, p)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        gemv.gemv_q16_symm_slab(*ranks[0][:2], ps, *ranks[0][2:], ms=ms)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        gemv.gemv_q16_dual(*rect)
+    assert not any(ops.counters().values())
+
+
+def test_stream_i16_checksum():
+    """The read-floor probe: its int64 checksum equals the plain sum."""
+    from lam_tpu_torch.ops import probe
+    rng = np.random.default_rng(54)
+    for rows in (1, 1000, 210 * 512):
+        plane = torch.from_numpy(rng.integers(
+            -32768, 32768, (rows, 512)).astype(np.int16)).cuda()
+        before = probe.stream_i16.launches
+        got = probe.stream_i16(plane)
+        torch.cuda.synchronize()
+        assert probe.stream_i16.launches == before + 1
+        assert int(got) == int(probe.stream_i16_plain(plane))
+        assert int(got) == int(plane.cpu().numpy().astype(np.int64).sum())
