@@ -5,7 +5,8 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the twenty-three kernels against its plain PyTorch
+2. Holds each of the thirty-one kernels (the solver's twenty-three and
+   the eight q16 probes) against its plain PyTorch
    version at the main path's shapes. The eight one-device kernels at N=10000 padded
    to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
    padded to 216), on one random symmetric matrix:
@@ -84,6 +85,19 @@
    read-only stream of an int16 plane with a checksum, gives the card's
    measured read floor of the q16 planes of kernels 14 (N=10240 and
    20480), 16 and 18, printed beside each kernel's data-sheet bound.
+   The q16 probes (lam_tpu_torch/ops/probe.py, csrc/q16_probe.cu and
+   csrc/probe.cu; lam_tpu's scripts/q16_probe*.py) at N=10240: the walks
+   gemv_q16_symm_magic, _sub8, _split, _hi and _hybrid on kernel 14's
+   plane (the fq pack's q1) against their plain versions (1e-5; hi and
+   hybrid 1e-6, beside the bf16 engine's gap), padding rows 0, bitwise
+   repeats, magic equal to kernel 14 bit for bit and its SASS free of
+   int -> f32 conversions (cuobjdump); gemv_q16_symm_tb1024 on a random
+   int16 plane of 1024-wide tiles against random power-of-two scales
+   (1e-5); stream_i16 (checksum = the plain one) and convert_f32_sum
+   (within its per-thread f32 rounding bound) on kernel 14's plane, both
+   exact on the probes' tridiagonal plane; each timed beside its plain
+   version (and, for the streams, torch.sum with an int64 or f64
+   accumulator).
 3. Writes the benchmark system (random_spd_matrix_fast(10000,
    seed=2024), random_rhs(10000, seed=2034)) in the binary format to a
    temporary directory and solves it through the port's CLI, in
@@ -157,8 +171,17 @@
    within 5e-6 of the "vpu" run's x, no plain version; prints the bf16 and
    exact runs' inner iterations side by side and the phase's seconds.
 
-Prints {"kernels": [...]} on the line before the last (each kernel's
-launches summed over the runs of phases 3-6, every rank's) and, as the last
+7. Runs the q16 probe tool (lam_tpu_torch.tools.q16_probe) in process:
+   probes 1-4 of scripts/q16_probe{,2,3,4}.py at their sizes (N=40960 at
+   tb=512 and 1024; N=114688 padded; N=57344; N=114688 at tb=1024), every
+   variant held to the closed form of the tridiagonal plane exactly, then
+   timed in turns with the read floor; prints each row and the phase's
+   seconds. The probe kernels' counters are zeroed just before it: each
+   must launch, and no plain version may run.
+
+Prints {"kernels": [...]} on the line before the last (each solver
+kernel's launches summed over the runs of phases 3-6, every rank's; each
+probe's over phase 7) and, as the last
 line, {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
 """
@@ -186,6 +209,25 @@ TRUE_GATE = 2e-9     # bench.py's acceptance of the TRUE residual
 SYMM_SOURCE = "lam_tpu_torch/csrc/gemv_symm.cu"
 DENSE_SOURCE = "lam_tpu_torch/csrc/gemv_dense.cu"
 STENCIL_SOURCE = "lam_tpu_torch/csrc/stencil.cu"
+PROBE_SOURCE = "lam_tpu_torch/csrc/q16_probe.cu"
+STREAM_SOURCE = "lam_tpu_torch/csrc/probe.cu"
+# the q16 probes (lam_tpu_torch/ops/probe.py): the TPU kernel each replaces,
+# and the relative l2 to which the kernel agrees with its plain version (the
+# exact f32 walks and split: f32 sums in another order; hi and hybrid:
+# tensor-core products held to f32 rounding)
+PROBE_REPLACES = {"stream_i16": "scripts/q16_probe.py:91",
+                  "convert_f32_sum": "scripts/q16_probe.py:110",
+                  "gemv_q16_symm_magic": "scripts/q16_probe.py:169",
+                  "gemv_q16_symm_tb1024": "scripts/q16_probe.py:342",
+                  "gemv_q16_symm_sub8": "scripts/q16_probe2.py:157",
+                  "gemv_q16_symm_split": "scripts/q16_probe4.py:63",
+                  "gemv_q16_symm_hi": "scripts/q16_probe4.py:63",
+                  "gemv_q16_symm_hybrid": "scripts/q16_probe4.py:63"}
+PROBE_TOL = {"magic": 1e-5, "sub8": 1e-5, "split": 1e-5, "hi": 1e-6,
+             "hybrid": 1e-6, "tb1024": 1e-5}
+# tensor-core products per stored element and term (hybrid: its direct
+# term's f32 FMAs bound it instead)
+MMA_PRODUCTS = {"split": 2, "hi": 5}
 HEAT_NX, HEAT_NY = 1200, 1000  # the heat demo's documented plate
 JAC_NX, JAC_NY = 120, 100
 HEAT_GATE = 2e-10    # TRUE residual of a rel_error=1e-10 heat solve
@@ -570,6 +612,7 @@ def fq_kernels_vs_plain(gemv, layout, fq, a_dev, ph, pl):
                  "gemv_q16_symm_bf16":
                  lambda: gemv.gemv_q16_symm_bf16(q1, s1, ph)},
                 _nbytes(q1[:T * tb], s1[:T], ph, y))
+    out += probe_kernels_vs_plain(gemv, layout, q1, s1, ph, y)
 
     # fq kernel: the three-plane cascade formed and accumulated in f64
     yh, yl = gemv.gemv_fq_symm(*fq[:6], ph, pl)
@@ -603,6 +646,127 @@ def fq_kernels_vs_plain(gemv, layout, fq, a_dev, ph, pl):
          lambda: gemv.gemv_fq_symm_plain(*fq[:6], ph, pl), None),
         (*(q[:T * tb] for q in fq[:3]), *(s[:T] for s in fq[3:6]), ph, pl,
          yh, yl), flops, "f64"))
+    return out
+
+
+def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
+    """Phase 2, the q16 probes (lam_tpu_torch/ops/probe.py) at N=10240: the
+    walks magic, sub8, split, hi and hybrid on kernel 14's plane (the fq
+    pack's q1) against their plain versions (PROBE_TOL), padding rows 0,
+    bitwise repeats; magic equal to kernel 14's exact result `exact` bit
+    for bit and its SASS free of int -> f32 conversions; hi and hybrid
+    printed beside the bf16 engine's gap; tb1024 on a random int16 plane
+    of 1024-wide tiles against random power-of-two scales; the two streams
+    on kernel 14's plane (stream_i16's checksum equal to the plain one,
+    convert_f32_sum's within its per-thread f32 rounding bound) and on the
+    probes' tridiagonal plane (both exact). Returns their `kernels`
+    entries, each timed in turns with its plain version."""
+    from lam_tpu_torch.ops import _build, probe
+    tb = layout.SYMM_TB
+    nblk = ph.shape[0] // tb
+    T = layout.tri_tile_count(nblk)
+    n = nblk * tb
+    out = []
+    plane = q1[:T * tb]
+
+    kernels = _build.sass()
+    magic = [k for k in kernels if "symm_pass1" in k and "Q16MagicPlane" in k]
+    plain_q16 = [k for k in kernels if "symm_pass1" in k and "8Q16Plane" in k]
+    conv = {k: probe.f32_conversions(kernels[k]) for k in magic + plain_q16}
+    ops_ = sorted({line.split("*/", 1)[1].split()[0]
+                   for k in plain_q16 for line in conv[k]})
+    print(f"SASS: {len(magic)} magic pass-1 kernel(s) with "
+          f"{[len(conv[k]) for k in magic]} int -> f32 conversions; "
+          f"{len(plain_q16)} exact q16 pass-1 kernels with "
+          f"{[len(conv[k]) for k in plain_q16]} ({', '.join(ops_)})")
+    _check(magic and all(not conv[k] for k in magic),
+           "the magic walk's SASS converts an integer to f32")
+    _check(plain_q16 and all(len(conv[k]) >= 8 for k in plain_q16),
+           "the exact q16 walk's SASS shows no int -> f32 conversion")
+
+    def entry(name, q, s, p, real):
+        kernel = getattr(probe, f"gemv_q16_symm_{name}")
+        plain = getattr(probe, f"gemv_q16_symm_{name}_plain")
+
+        def call():
+            return kernel(q, s, p)
+
+        def call_plain():
+            return plain(q, s, p)
+
+        y = call()
+        y_plain = call_plain()
+        torch.cuda.synchronize()
+        err = _rel(y, y_plain)
+        line = (f"gemv_q16_symm_{name} N={p.shape[0]} tb={q.shape[1]}: rel l2 "
+                f"kernel-plain {err:.3e} (<= {PROBE_TOL[name]:g})")
+        if name == "magic":
+            line += f", == kernel 14 bitwise: {torch.equal(y, exact)}"
+            _check(torch.equal(y, exact), "the magic walk != kernel 14")
+        if name in ("hi", "hybrid", "split"):
+            line += (", bf16 engine-plain "
+                     f"{_rel(gemv.gemv_q16_symm_bf16(q, s, p), y_plain):.3e}")
+        print(line)
+        _check(err <= PROBE_TOL[name], f"{kernel.__name__} disagrees")
+        _check(torch.equal(y, call()), f"{kernel.__name__} not repeatable")
+        if q is q1:
+            _check(int(torch.count_nonzero(y[N:])) == 0,
+                   f"{kernel.__name__} padding rows != 0")
+        m = p.shape[0]
+        flops, kind = ((2 * m * m * MMA_PRODUCTS[name], "bf16")
+                       if name in MMA_PRODUCTS else (2 * m * m, "f32"))
+        return _timed_entry(
+            kernel.__name__, PROBE_REPLACES[kernel.__name__], PROBE_SOURCE,
+            float((y - y_plain).abs().max()), (call, call_plain, None),
+            (real, s[:real.shape[0] // q.shape[1]], p, y), flops, kind)
+
+    for name in ("magic", "sub8", "split", "hi", "hybrid"):
+        out.append(entry(name, q1, s1, ph, plane))
+
+    nblk_k = n // 1024
+    T_k = layout.tri_tile_count(nblk_k)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(23)
+    qk = torch.randint(-32767, 32768, (T_k * 1024, 1024), generator=gen,
+                       device="cuda", dtype=torch.int16)
+    sk = 2.0 ** -torch.randint(8, 20, (T_k,), generator=gen, device="cuda"
+                               ).float()
+    pk = torch.randn(n, generator=gen, device="cuda")
+    out.append(entry("tb1024", qk, sk, pk, qk))
+    del qk, sk, pk
+
+    tri = probe.tridiag_q1(n, tb, device="cuda")[0]
+    closed = 16384 * (nblk * 2 * (tb - 1) + nblk - 1)
+    total = int(probe.stream_i16(plane))
+    conv_sum = float(probe.convert_f32_sum(plane))
+    vecs = -(-plane.numel() // 8 // probe.convert_threads(plane.device))
+    bound = 8 * vecs * 2.0 ** -24 * float(plane.double().abs().sum())
+    conv_err = abs(conv_sum - float(probe.convert_f32_sum_plain(plane)))
+    print(f"streams on kernel 14's plane: stream_i16 == plain: "
+          f"{total == int(probe.stream_i16_plain(plane))}; convert_f32_sum "
+          f"- f64 sum {conv_err:.3e} (<= {bound:.3e}); on the tridiagonal "
+          f"plane both == {closed}: {int(probe.stream_i16(tri)) == closed}, "
+          f"{float(probe.convert_f32_sum(tri)) == closed}")
+    _check(total == int(probe.stream_i16_plain(plane)),
+           "stream_i16's checksum is wrong")
+    _check(conv_err <= bound, "convert_f32_sum is off its rounding bound")
+    _check(int(probe.stream_i16(tri)) == closed
+           and float(probe.convert_f32_sum(tri)) == closed,
+           "the streams miss the tridiagonal plane's closed form")
+    _check(conv_sum == float(probe.convert_f32_sum(plane)),
+           "convert_f32_sum not repeatable")
+    del tri
+    for fn, plain, library, source, err in (
+            (probe.stream_i16, probe.stream_i16_plain,
+             lambda: torch.sum(plane, dtype=torch.int64), STREAM_SOURCE, 0.0),
+            (probe.convert_f32_sum, probe.convert_f32_sum_plain,
+             lambda: torch.sum(plane, dtype=torch.float64), STREAM_SOURCE,
+             conv_err)):
+        result = fn(plane)
+        out.append(_timed_entry(
+            fn.__name__, PROBE_REPLACES[fn.__name__], source, err,
+            (lambda fn=fn: fn(plane), lambda plain=plain: plain(plane),
+             library), (plane, result), plane.numel(), "f32"))
     return out
 
 
@@ -2331,6 +2495,22 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
     return total
 
 
+def probe_tool(q16_probe):
+    """Phase 7: the q16 probe tool (lam_tpu_torch.tools.q16_probe) in
+    process, probes 1-4 at the scripts' sizes: every variant validated
+    exactly, then timed in turns with the read floor. Returns the probe
+    kernels' launches in this run (each must be > 0, no plain version)."""
+    from lam_tpu_torch.ops import probe
+    t0 = time.perf_counter()
+    probe.reset_counters()
+    q16_probe.run((1, 2, 3, 4), device="cuda")
+    counts = probe.counters()
+    print(f"phase 7: {time.perf_counter() - t0:.1f} s")
+    _check(not any(counts[fn.__name__] for fn in probe.PROBES_PLAIN),
+           "phase 7 ran a probe's plain version")
+    return {fn.__name__: counts[fn.__name__] for fn in probe.PROBES}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -2339,12 +2519,13 @@ def main():
     from lam_tpu_torch import cli, generate, ops
     from lam_tpu_torch import io as lio
     from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
-    from lam_tpu_torch.ops import _build, gemv, layout, stencil
+    from lam_tpu_torch.ops import _build, gemv, layout, probe, stencil
     from lam_tpu_torch.parallel import pcg, pcg2d_symm, pcg_symm
     from lam_tpu_torch.parallel.mesh import Mesh, Mesh2D
     from lam_tpu_torch.precision import split_f64_host
     from lam_tpu_torch.solver.operators import (_host_pack_planes,
                                                 _host_pack_tri)
+    from lam_tpu_torch.tools import q16_probe
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2384,7 +2565,7 @@ def main():
     torch.cuda.empty_cache()
     results.append(bf16_slab_large(gemv, layout, pcg_symm))
     _check(sorted(r["name"] for r in results)
-           == sorted(fn.__name__ for fn in ops.KERNELS),
+           == sorted(fn.__name__ for fn in ops.KERNELS + probe.PROBES),
            "phase 2 did not hold every kernel against its plain version")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2401,9 +2582,11 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         large_counts = large_system_runs(ops, gemv, generate, lio, cli, tmp)
+    torch.cuda.empty_cache()
+    probe_counts = probe_tool(q16_probe)
     for r in results:
-        r["launches"] = (counts[r["name"]] + heat_counts[r["name"]]
-                         + shard_counts[r["name"]] + large_counts[r["name"]])
+        r["launches"] = sum(c.get(r["name"], 0) for c in (
+            counts, heat_counts, shard_counts, large_counts, probe_counts))
         _check(r["launches"] > 0, f"{r['name']} never launched on the "
                "main path")
     print(json.dumps({"kernels": results}))

@@ -175,653 +175,12 @@
 // product is padding, which costs nothing at ~1 flop per byte. The pass
 // writes the exact kernel's part_d/part_t, so the three pass-2 kernels and
 // their fixed order of sums are shared: no float atomics, bitwise repeats.
+//
+// The code of this design is csrc/symm_walk.cuh; csrc/q16_probe.cu
+// instantiates it for the q16 probes too (the triangle walk at tb=1024, with
+// unreduced transpose partials, and three more tensor-core modes).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <atomic>
-#include <type_traits>
-
-namespace {
-
-constexpr int TB = 512;                       // tile width (layout contract)
-constexpr int ROWS = 64;                      // rows of a tile per block
-constexpr int STRIPS = TB / ROWS;             // blocks per tile
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int ROWS_PER_WARP = ROWS / WARPS;   // 8
-constexpr int COLS_PER_LANE = TB / 32;        // 16
-constexpr int P2_COLS = 32;                   // outputs per pass-2 block
-constexpr int P2_GROUPS = THREADS / P2_COLS;  // partial sums per output
-
-// A plane type reads VEC elements of the current tile per 16-byte load
-// (load) after set_tile(t), and says by what each tile folds into p
-// (p_scale; 1 where the plane carries no scale).
-
-struct F32Plane {
-  using acc_t = float;
-  static constexpr int VEC = 4;
-  const float* __restrict__ a;
-  __device__ __forceinline__ void set_tile(int) {}
-  __device__ __forceinline__ acc_t p_scale() const { return 1.0f; }
-  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
-    const float4 x = __ldcs(reinterpret_cast<const float4*>(a + off));
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  }
-};
-
-struct DF64Plane {
-  using acc_t = double;
-  static constexpr int VEC = 4;
-  const float* __restrict__ hi;
-  const float* __restrict__ lo;
-  __device__ __forceinline__ void set_tile(int) {}
-  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
-  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
-    const float4 h = __ldcs(reinterpret_cast<const float4*>(hi + off));
-    const float4 l = __ldcs(reinterpret_cast<const float4*>(lo + off));
-    v[0] = (double)h.x + (double)l.x;
-    v[1] = (double)h.y + (double)l.y;
-    v[2] = (double)h.z + (double)l.z;
-    v[3] = (double)h.w + (double)l.w;
-  }
-};
-
-// Eight int16 of one 16-byte load, sign-extended.
-__device__ __forceinline__ void load_i16x8(const short* __restrict__ q,
-                                           size_t off, int e[8]) {
-  const int4 x = __ldcs(reinterpret_cast<const int4*>(q + off));
-  const int w[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    e[2 * j] = (int)(short)(w[j] & 0xffff);
-    e[2 * j + 1] = w[j] >> 16;
-  }
-}
-
-struct Q16Plane {
-  using acc_t = float;
-  static constexpr int VEC = 8;
-  const short* __restrict__ q;
-  const float* __restrict__ s;
-  float sc;
-  __device__ __forceinline__ void set_tile(int t) { sc = __ldg(s + t); }
-  __device__ __forceinline__ acc_t p_scale() const { return sc; }
-  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
-    int e[VEC];
-    load_i16x8(q, off, e);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = (float)e[j];
-  }
-};
-
-struct FQPlane {
-  using acc_t = double;
-  static constexpr int VEC = 8;
-  const short* __restrict__ q1;
-  const short* __restrict__ q2;
-  const short* __restrict__ q3;
-  const float* __restrict__ s1;
-  const float* __restrict__ s2;
-  const float* __restrict__ s3;
-  double c1, c2, c3;
-  __device__ __forceinline__ void set_tile(int t) {
-    c1 = __ldg(s1 + t);
-    c2 = __ldg(s2 + t);
-    c3 = __ldg(s3 + t);
-  }
-  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
-  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
-    int e1[VEC], e2[VEC], e3[VEC];
-    load_i16x8(q1, off, e1);
-    load_i16x8(q2, off, e2);
-    load_i16x8(q3, off, e3);
-#pragma unroll
-    for (int j = 0; j < VEC; ++j)
-      v[j] = ((double)e1[j] * c1 + (double)e2[j] * c2) + (double)e3[j] * c3;
-  }
-};
-
-struct DFQPlane {
-  using acc_t = double;
-  static constexpr int VEC = 4;
-  const float* __restrict__ hi;
-  const short* __restrict__ loq;
-  const float* __restrict__ sc;
-  double c;
-  __device__ __forceinline__ void set_tile(int t) { c = __ldg(sc + t); }
-  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
-  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
-    const float4 h = __ldcs(reinterpret_cast<const float4*>(hi + off));
-    const int2 q = __ldcs(reinterpret_cast<const int2*>(loq + off));
-    v[0] = (double)h.x + (double)(int)(short)(q.x & 0xffff) * c;
-    v[1] = (double)h.y + (double)(q.x >> 16) * c;
-    v[2] = (double)h.z + (double)(int)(short)(q.y & 0xffff) * c;
-    v[3] = (double)h.w + (double)(q.y >> 16) * c;
-  }
-};
-
-struct F32Vec {
-  using acc_t = float;
-  const float* __restrict__ p;
-  __device__ __forceinline__ acc_t get(int i) const { return __ldg(p + i); }
-};
-
-struct DF64Vec {
-  using acc_t = double;
-  const float* __restrict__ hi;
-  const float* __restrict__ lo;
-  __device__ __forceinline__ acc_t get(int i) const {
-    return (double)__ldg(hi + i) + (double)__ldg(lo + i);
-  }
-};
-
-struct F32Out {
-  float* __restrict__ y;
-  __device__ __forceinline__ void put(int i, float v) const { y[i] = v; }
-};
-
-struct DF64Out {
-  float* __restrict__ y_hi;
-  float* __restrict__ y_lo;
-  __device__ __forceinline__ void put(int i, double v) const {
-    const float h = (float)v;
-    y_hi[i] = h;
-    y_lo[i] = (float)(v - (double)h);
-  }
-};
-
-// Row-tile index i of walk position t = i(i+1)/2 + k, 0 <= k <= i.
-__device__ __forceinline__ int walk_row(int t) {
-  int i = (int)((sqrt(8.0 * (double)t + 1.0) - 1.0) * 0.5);
-  while ((i + 1) * (i + 2) / 2 <= t) ++i;
-  while (i * (i + 1) / 2 > t) --i;
-  return i;
-}
-
-// Walk policies: tile(t) gives the block (i, k) of walk position t, the
-// element offset of its first row and its row stride; transposed(i, k)
-// says whether the tile also has a transpose term.
-struct TriangleWalk {
-  __device__ __forceinline__ bool transposed(int i, int k) const {
-    return k < i;
-  }
-  __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
-                                       int& ld) const {
-    i = walk_row(t);
-    k = t - i * (i + 1) / 2;
-    base = (size_t)t * TB * TB;
-    ld = TB;
-  }
-};
-
-struct TableWalk {
-  const int* __restrict__ it;
-  const int* __restrict__ kt;
-  const int* __restrict__ lt;
-  int n;       // row stride of the (ms, n) slab
-  int packed;  // 1: the (T*TB, TB) walk-order buffer; 0: the slab
-  __device__ __forceinline__ bool transposed(int i, int k) const {
-    return k < i;
-  }
-  __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
-                                       int& ld) const {
-    i = __ldg(it + t);
-    k = __ldg(kt + t);
-    if (packed) {
-      base = (size_t)t * TB * TB;
-      ld = TB;
-    } else {
-      base = (size_t)__ldg(lt + t) * TB * n + (size_t)k * TB;
-      ld = n;
-    }
-  }
-};
-
-// The dense rectangle of cb column tiles in row-major tile order: a tile
-// of the upper half is as good as any, so every tile has both terms.
-struct RectWalk {
-  int cb;
-  __device__ __forceinline__ bool transposed(int, int) const { return true; }
-  __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
-                                       int& ld) const {
-    i = t / cb;
-    k = t - i * cb;
-    base = (size_t)t * TB * TB;
-    ld = TB;
-  }
-};
-
-template <class T>
-__device__ __forceinline__ T warp_sum(T v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Column of the tile that lane `lane` holds in slot q (0..15): groups of
-// VEC columns, 32*VEC columns apart, so each group is one coalesced
-// 512-byte segment across the warp.
-template <int VEC>
-__device__ __forceinline__ int lane_col(int lane, int q) {
-  return (q / VEC) * (32 * VEC) + lane * VEC + (q % VEC);
-}
-
-// P is the operand of the direct terms (read at column tile k), Q that of
-// the transpose terms (read at row tile i).
-template <class Plane, class Vec, class Walk>
-__global__ void __launch_bounds__(THREADS)
-symm_pass1(Plane A, Vec P, Vec Q, Walk W,
-           typename Plane::acc_t* __restrict__ part_d,
-           typename Plane::acc_t* __restrict__ part_t) {
-  using acc_t = typename Plane::acc_t;
-  constexpr int VEC = Plane::VEC;
-  __shared__ acc_t red[WARPS][TB];
-
-  const int t = blockIdx.x / STRIPS;
-  const int s = blockIdx.x % STRIPS;
-  int i, k, ld;
-  size_t tile0;
-  W.tile(t, i, k, tile0, ld);
-  const bool offdiag = W.transposed(i, k);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  A.set_tile(t);
-  const acc_t sc = A.p_scale();
-
-  acc_t pk[COLS_PER_LANE];
-  acc_t tacc[COLS_PER_LANE];
-#pragma unroll
-  for (int q = 0; q < COLS_PER_LANE; ++q) {
-    pk[q] = P.get(k * TB + lane_col<VEC>(lane, q)) * sc;
-    tacc[q] = acc_t(0);
-  }
-
-  const int r0 = s * ROWS + warp * ROWS_PER_WARP;
-#pragma unroll 2
-  for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
-    const int r = r0 + rr;
-    const size_t base = tile0 + (size_t)r * ld;
-    acc_t a[COLS_PER_LANE];
-#pragma unroll
-    for (int g = 0; g < COLS_PER_LANE / VEC; ++g)
-      A.load(base + g * 32 * VEC + lane * VEC, a + VEC * g);
-    acc_t d = acc_t(0);
-#pragma unroll
-    for (int q = 0; q < COLS_PER_LANE; ++q) d += a[q] * pk[q];
-    d = warp_sum(d);
-    if (lane == 0) part_d[(size_t)t * TB + r] = d;
-    if (offdiag) {
-      const acc_t pi = Q.get(i * TB + r) * sc;
-#pragma unroll
-      for (int q = 0; q < COLS_PER_LANE; ++q) tacc[q] += a[q] * pi;
-    }
-  }
-
-  if (offdiag) {  // uniform across the block
-#pragma unroll
-    for (int q = 0; q < COLS_PER_LANE; ++q)
-      red[warp][lane_col<VEC>(lane, q)] = tacc[q];
-    __syncthreads();
-    acc_t* out = part_t + ((size_t)t * STRIPS + s) * TB;
-    for (int c = threadIdx.x; c < TB; c += THREADS) {
-      acc_t v = red[0][c];
-#pragma unroll
-      for (int w = 1; w < WARPS; ++w) v += red[w][c];
-      out[c] = v;
-    }
-  }
-}
-
-// The q16 planes under the bf16 product engine: pass 1 is q16_bf16_pass1.
-struct Q16Bf16Plane {
-  using acc_t = float;
-  const short* __restrict__ q;
-  const float* __restrict__ s;
-};
-
-constexpr int BF_LD = TB + 8;  // bf16 row stride of the staged strip
-constexpr int BF_SMEM =
-    (ROWS * BF_LD + TB + ROWS) * (int)sizeof(__nv_bfloat16);
-constexpr int BF_VECS = ROWS * TB / 8 / THREADS;  // 16-byte loads a thread
-
-__device__ __forceinline__ unsigned bf16_pair(__nv_bfloat16 lo,
-                                              __nv_bfloat16 hi) {
-  return (unsigned)__bfloat16_as_ushort(lo) |
-         ((unsigned)__bfloat16_as_ushort(hi) << 16);
-}
-
-// Eight int16 of one 16-byte load as eight bf16 (round to nearest even).
-__device__ __forceinline__ uint4 bf16x8_of_i16x8(const int4 x) {
-  const int w[4] = {x.x, x.y, x.z, x.w};
-  unsigned o[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    o[j] = bf16_pair(__float2bfloat16_rn((float)(int)(short)(w[j] & 0xffff)),
-                     __float2bfloat16_rn((float)(w[j] >> 16)));
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
-__device__ __forceinline__ unsigned ld_bf16x2(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const unsigned*>(p);
-}
-
-// d += a b over one m16n8k16 tile: bf16 operands, f32 accumulators. With
-// g = lane / 4, c = lane % 4: a[0] holds A(g, 2c..2c+1), a[1] A(g+8, 2c..),
-// a[2] A(g, 2c+8..), a[3] A(g+8, 2c+8..); b[0] B(2c..2c+1, g), b[1]
-// B(2c+8.., g); d[0..1] D(g, 2c..2c+1), d[2..3] D(g+8, 2c..2c+1); the lower
-// half of each register holds the element of the lower index.
-__device__ __forceinline__ void mma_bf16(float d[4], const unsigned a[4],
-                                         const unsigned b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Pass 1 of the bf16 engine, same blocks and outputs as symm_pass1: block
-// (t, s) writes part_d[t][s*ROWS .. +ROWS) and, for a tile with a transpose
-// term, part_t[t][s][0 .. TB).
-template <class Walk>
-__global__ void __launch_bounds__(THREADS)
-q16_bf16_pass1(Q16Bf16Plane A, F32Vec P, F32Vec Q, Walk W,
-               float* __restrict__ part_d, float* __restrict__ part_t) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  // strip [ROWS][BF_LD], then pk [TB], then pi [ROWS]
-  __nv_bfloat16* strip = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* pk = strip + ROWS * BF_LD;
-  __nv_bfloat16* pi = pk + TB;
-
-  const int t = blockIdx.x / STRIPS;
-  const int s = blockIdx.x % STRIPS;
-  int i, k, ld;
-  size_t tile0;
-  W.tile(t, i, k, tile0, ld);
-  const bool offdiag = W.transposed(i, k);
-  const float sc = __ldg(A.s + t);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-
-  // the strip as bf16: coalesced 16-byte streaming loads, half a thread's
-  // loads in flight at a time
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    int4 raw[BF_VECS / 2];
-#pragma unroll
-    for (int u = 0; u < BF_VECS / 2; ++u) {
-      const int v = threadIdx.x + (h * BF_VECS / 2 + u) * THREADS;
-      raw[u] = __ldcs(reinterpret_cast<const int4*>(
-          A.q + tile0 + (size_t)(s * ROWS + v / (TB / 8)) * ld +
-          (v % (TB / 8)) * 8));
-    }
-#pragma unroll
-    for (int u = 0; u < BF_VECS / 2; ++u) {
-      const int v = threadIdx.x + (h * BF_VECS / 2 + u) * THREADS;
-      *reinterpret_cast<uint4*>(strip + (v / (TB / 8)) * BF_LD +
-                                (v % (TB / 8)) * 8) = bf16x8_of_i16x8(raw[u]);
-    }
-  }
-  for (int c = threadIdx.x; c < TB; c += THREADS)
-    pk[c] = __float2bfloat16_rn(__fmul_rn(P.get(k * TB + c), sc));
-  if (threadIdx.x < ROWS)
-    pi[threadIdx.x] = __float2bfloat16_rn(
-        __fmul_rn(Q.get(i * TB + s * ROWS + threadIdx.x), sc));
-  __syncthreads();
-
-  const int g = lane / 4;
-  const int c4 = lane % 4;
-  if (warp < 4) {
-    // direct: D(r, 0) = sum_c strip(16 warp + r, c) pk(c)
-    const __nv_bfloat16* row = strip + (16 * warp + g) * BF_LD + 2 * c4;
-    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-    for (int kc = 0; kc < TB; kc += 16) {
-      const unsigned a[4] = {ld_bf16x2(row + kc),
-                             ld_bf16x2(row + 8 * BF_LD + kc),
-                             ld_bf16x2(row + kc + 8),
-                             ld_bf16x2(row + 8 * BF_LD + kc + 8)};
-      const unsigned b[2] = {g == 0 ? ld_bf16x2(pk + kc + 2 * c4) : 0u,
-                             g == 0 ? ld_bf16x2(pk + kc + 2 * c4 + 8) : 0u};
-      mma_bf16(d, a, b);
-    }
-    if (c4 == 0) {
-      float* out = part_d + (size_t)t * TB + s * ROWS + 16 * warp + g;
-      out[0] = d[0];
-      out[8] = d[2];
-    }
-  } else if (offdiag) {  // uniform across the warp
-    // transpose: D(c, 0) = sum_r strip(r, c) pi(r), columns 128 (warp - 4) ..
-    unsigned b[ROWS / 16][2];
-#pragma unroll
-    for (int kr = 0; kr < ROWS / 16; ++kr) {
-      b[kr][0] = g == 0 ? ld_bf16x2(pi + 16 * kr + 2 * c4) : 0u;
-      b[kr][1] = g == 0 ? ld_bf16x2(pi + 16 * kr + 2 * c4 + 8) : 0u;
-    }
-    float* out = part_t + ((size_t)t * STRIPS + s) * TB;
-    for (int c0 = 128 * (warp - 4); c0 < 128 * (warp - 3); c0 += 16) {
-      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int kr = 0; kr < ROWS / 16; ++kr) {
-        // A^T(m, j) = strip(16 kr + j, c0 + m)
-        const __nv_bfloat16* e = strip + (16 * kr + 2 * c4) * BF_LD + c0 + g;
-        const unsigned a[4] = {bf16_pair(e[0], e[BF_LD]),
-                               bf16_pair(e[8], e[BF_LD + 8]),
-                               bf16_pair(e[8 * BF_LD], e[9 * BF_LD]),
-                               bf16_pair(e[8 * BF_LD + 8], e[9 * BF_LD + 8])};
-        mma_bf16(d, a, b[kr]);
-      }
-      if (c4 == 0) {
-        out[c0 + g] = d[0];
-        out[c0 + g + 8] = d[2];
-      }
-    }
-  }
-}
-
-// Pass 1 of any walk: symm_pass1 with a tile reader, or q16_bf16_pass1.
-template <class Plane, class Vec, class Walk>
-int pass1(Plane A, Vec P, Vec Q, Walk W, int tiles,
-          typename Plane::acc_t* part_d, typename Plane::acc_t* part_t,
-          cudaStream_t stream) {
-  if constexpr (std::is_same_v<Plane, Q16Bf16Plane>) {
-    // the 64 KB strip needs the opt-in shared-memory size, set once for
-    // each instantiation and device (devices past 63 set it every call)
-    static std::atomic<unsigned long long> opted_in{0};
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return (int)e;
-    const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-    if (!(opted_in.load(std::memory_order_acquire) & bit)) {
-      e = cudaFuncSetAttribute(q16_bf16_pass1<Walk>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               BF_SMEM);
-      if (e != cudaSuccess) return (int)e;
-      opted_in.fetch_or(bit, std::memory_order_release);
-    }
-    q16_bf16_pass1<Walk><<<tiles * STRIPS, THREADS, BF_SMEM, stream>>>(
-        A, P, Q, W, part_d, part_t);
-  } else {
-    symm_pass1<Plane, Vec, Walk><<<tiles * STRIPS, THREADS, 0, stream>>>(
-        A, P, Q, W, part_d, part_t);
-  }
-  return (int)cudaGetLastError();
-}
-
-// y[i*TB + r] = sum_{k<=i} part_d[t(i,k)][r] + sum_{j>i} sum_s part_t[t(j,i)][s][r]
-// Block: P2_COLS consecutive outputs (one row-tile i, since P2_COLS divides
-// TB) x P2_GROUPS strided partial sums, combined in a fixed order.
-template <class acc_t, class Out>
-__global__ void __launch_bounds__(THREADS)
-symm_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
-           int nblk, Out out) {
-  __shared__ acc_t red[P2_GROUPS][P2_COLS];
-  const int col = threadIdx.x % P2_COLS;
-  const int grp = threadIdx.x / P2_COLS;
-  const int row = blockIdx.x * P2_COLS + col;
-  const int i = row / TB;
-  const int r = row % TB;
-  const int n_direct = i + 1;
-  const int n_terms = n_direct + (nblk - 1 - i) * STRIPS;
-  const size_t tdiag0 = (size_t)i * (i + 1) / 2;
-
-  acc_t v = acc_t(0);
-  for (int m = grp; m < n_terms; m += P2_GROUPS) {
-    if (m < n_direct) {
-      v += part_d[(tdiag0 + m) * TB + r];
-    } else {
-      const int mt = m - n_direct;
-      const int j = i + 1 + mt / STRIPS;
-      const size_t tj = (size_t)j * (j + 1) / 2 + i;
-      v += part_t[(tj * STRIPS + mt % STRIPS) * TB + r];
-    }
-  }
-  red[grp][col] = v;
-  __syncthreads();
-  if (grp == 0) {
-    acc_t y = red[0][col];
-#pragma unroll
-    for (int g = 1; g < P2_GROUPS; ++g) y += red[g][col];
-    out.put(row, y);
-  }
-}
-
-// The slab walk's pass 2: yd[l*TB + r] sums part_d[t][r] over the tiles t
-// of slab row tile l (d_ids[d_ptr[l] .. d_ptr[l+1]]); yt[j*TB + c] sums
-// part_t[t][s][c] over the off-diagonal tiles t of column tile j
-// (t_ids[t_ptr[j] .. t_ptr[j+1]]) and their strips s. A block computes
-// P2_COLS consecutive outputs of yd (the first ms / P2_COLS blocks) or of
-// yt, each as P2_GROUPS strided partial sums combined in a fixed order.
-template <class acc_t, class Out>
-__global__ void __launch_bounds__(THREADS)
-slab_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
-           const int* __restrict__ d_ptr, const int* __restrict__ d_ids,
-           const int* __restrict__ t_ptr, const int* __restrict__ t_ids,
-           int ms, Out yd, Out yt) {
-  __shared__ acc_t red[P2_GROUPS][P2_COLS];
-  const int col = threadIdx.x % P2_COLS;
-  const int grp = threadIdx.x / P2_COLS;
-  const int d_blocks = ms / P2_COLS;
-  const bool direct = (int)blockIdx.x < d_blocks;  // uniform across the block
-  const int row =
-      (direct ? blockIdx.x : blockIdx.x - d_blocks) * P2_COLS + col;
-  const int tile = row / TB;
-  const int r = row % TB;
-
-  acc_t v = acc_t(0);
-  if (direct) {
-    const int end = __ldg(d_ptr + tile + 1);
-    for (int q = __ldg(d_ptr + tile) + grp; q < end; q += P2_GROUPS)
-      v += part_d[(size_t)__ldg(d_ids + q) * TB + r];
-  } else {
-    const int b = __ldg(t_ptr + tile);
-    const int n_terms = (__ldg(t_ptr + tile + 1) - b) * STRIPS;
-    for (int q = grp; q < n_terms; q += P2_GROUPS) {
-      const size_t tj = (size_t)__ldg(t_ids + b + q / STRIPS);
-      v += part_t[(tj * STRIPS + q % STRIPS) * TB + r];
-    }
-  }
-  red[grp][col] = v;
-  __syncthreads();
-  if (grp == 0) {
-    acc_t y = red[0][col];
-#pragma unroll
-    for (int g = 1; g < P2_GROUPS; ++g) y += red[g][col];
-    if (direct)
-      yd.put(row, y);
-    else
-      yt.put(row, y);
-  }
-}
-
-// The rectangle walk's pass 2: yd[li*TB + r] sums part_d[li*cb + k][r] over
-// the cb tiles of row tile li; yt[k*TB + c] sums part_t[li*cb + k][s][c]
-// over the mb tiles of column tile k and their strips. Blocks and partial
-// sums as in slab_pass2.
-template <class acc_t, class Out>
-__global__ void __launch_bounds__(THREADS)
-rect_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
-           int mb, int cb, Out yd, Out yt) {
-  __shared__ acc_t red[P2_GROUPS][P2_COLS];
-  const int col = threadIdx.x % P2_COLS;
-  const int grp = threadIdx.x / P2_COLS;
-  const int d_blocks = mb * TB / P2_COLS;
-  const bool direct = (int)blockIdx.x < d_blocks;  // uniform across the block
-  const int row =
-      (direct ? blockIdx.x : blockIdx.x - d_blocks) * P2_COLS + col;
-  const int tile = row / TB;
-  const int r = row % TB;
-
-  acc_t v = acc_t(0);
-  if (direct) {
-    for (int k = grp; k < cb; k += P2_GROUPS)
-      v += part_d[((size_t)tile * cb + k) * TB + r];
-  } else {
-    for (int q = grp; q < mb * STRIPS; q += P2_GROUPS) {
-      const size_t t = (size_t)(q / STRIPS) * cb + tile;
-      v += part_t[(t * STRIPS + q % STRIPS) * TB + r];
-    }
-  }
-  red[grp][col] = v;
-  __syncthreads();
-  if (grp == 0) {
-    acc_t y = red[0][col];
-#pragma unroll
-    for (int g = 1; g < P2_GROUPS; ++g) y += red[g][col];
-    if (direct)
-      yd.put(row, y);
-    else
-      yt.put(row, y);
-  }
-}
-
-template <class Plane, class Vec, class Out>
-int launch(Plane A, Vec P, Out Y, typename Plane::acc_t* part_d,
-           typename Plane::acc_t* part_t, int nblk, cudaStream_t stream) {
-  const int T = nblk * (nblk + 1) / 2;
-  const int e = pass1(A, P, P, TriangleWalk{}, T, part_d, part_t, stream);
-  if (e != 0) return e;
-  symm_pass2<typename Plane::acc_t, Out>
-      <<<nblk * TB / P2_COLS, THREADS, 0, stream>>>(part_d, part_t, nblk, Y);
-  return (int)cudaGetLastError();
-}
-
-// The CSR lists of the slab walk's pass 2 (see slab_pass2).
-struct SlabLists {
-  const int* d_ptr;
-  const int* d_ids;
-  const int* t_ptr;
-  const int* t_ids;
-};
-
-template <class Plane, class Vec, class Out>
-int launch_slab(Plane A, Vec P, TableWalk W, SlabLists L, Out YD, Out YT,
-                typename Plane::acc_t* part_d, typename Plane::acc_t* part_t,
-                int T, int ms, cudaStream_t stream) {
-  if (T <= 0 || ms <= 0 || ms % TB || W.n <= 0 || W.n % TB)
-    return (int)cudaErrorInvalidValue;
-  const int e = pass1(A, P, P, W, T, part_d, part_t, stream);
-  if (e != 0) return e;
-  slab_pass2<typename Plane::acc_t, Out>
-      <<<(ms + W.n) / P2_COLS, THREADS, 0, stream>>>(
-          part_d, part_t, L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, YD, YT);
-  return (int)cudaGetLastError();
-}
-
-template <class Plane, class Vec, class Out>
-int launch_dual(Plane A, Vec P, Vec Q, Out YD, Out YT,
-                typename Plane::acc_t* part_d, typename Plane::acc_t* part_t,
-                int mb, int cb, cudaStream_t stream) {
-  if (mb <= 0 || cb <= 0) return (int)cudaErrorInvalidValue;
-  const int e = pass1(A, P, Q, RectWalk{cb}, mb * cb, part_d, part_t, stream);
-  if (e != 0) return e;
-  rect_pass2<typename Plane::acc_t, Out>
-      <<<(mb + cb) * TB / P2_COLS, THREADS, 0, stream>>>(part_d, part_t, mb,
-                                                         cb, YD, YT);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "symm_walk.cuh"
 
 // Scratch sizes the caller allocates (elements): part_d T*TB, part_t
 // T*STRIPS*TB, with T = nblk(nblk+1)/2 (never a padded plane's count);

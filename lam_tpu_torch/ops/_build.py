@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (no JAX counterpart).
 
 Every `csrc/*.cu` file is compiled by its own nvcc, all started at
-once, for Hopper only, and the objects are linked into one shared
-library with a plain C interface, which is loaded with ctypes:
+once, for Hopper only (the `csrc/*.cuh` headers they include are not
+compiled alone), and the objects are linked into one shared library with
+a plain C interface, which is loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
          -Xcompiler -fPIC -Xptxas -v -c -o <obj> csrc/<file>.cu   (each)
@@ -10,10 +11,12 @@ library with a plain C interface, which is loaded with ctypes:
 
 No PyTorch header is compiled, so a build takes seconds, not minutes.
 The library goes into `lam_tpu_torch/_build/` (listed in .gitignore) at
-first use, under a name that carries a hash of the sources and flags, so
-an edited source is rebuilt and an unchanged one is reused. nvcc's
+first use, under a name that carries a hash of the sources, headers and
+flags, so an edited source is rebuilt and an unchanged one is reused. nvcc's
 output, including ptxas' register and spill report, is kept beside the
 library as `<lib>.log`. A failed build raises with nvcc's output.
+`sass()` lists the machine code of each kernel in the library
+(`cuobjdump -sass`).
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -35,8 +39,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-# C entry points of csrc/gemv_symm.cu, csrc/gemv_dense.cu, csrc/stencil.cu
-# and csrc/probe.cu: name -> argtypes (all return int)
+# C entry points of csrc/gemv_symm.cu, csrc/gemv_dense.cu, csrc/stencil.cu,
+# csrc/probe.cu and csrc/q16_probe.cu: name -> argtypes (all return int)
 SIGNATURES = {
     "lam_symm_tile": (),
     "lam_symm_strips": (),
@@ -65,6 +69,9 @@ SIGNATURES = {
     "lam_laplace5_blocks": (_I, _I),
     "lam_laplace5_f32_halo": (_P,) * 6 + (_I,) * 4 + (_P,),
     "lam_stream_i16": (_P, _L, _I, _P, _P, _P),
+    "lam_convert_i16": (_P, _L, _I, _P, _P, _P),
+    **{f"lam_gemv_q16_symm_{v}": (_P, _P, _P, _P, _P, _P, _I, _P)
+       for v in ("magic", "tb1024", "sub8", "split", "hi", "hybrid")},
 }
 
 
@@ -73,22 +80,27 @@ def sources():
 
 
 def library_path(srcs=None):
-    """Where the library for the current sources and flags lives."""
+    """Where the library for the current sources, headers and flags
+    lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs if srcs is not None else sources():
+    srcs = sources() if srcs is None else srcs
+    for src in [*srcs, *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"liblam_kernels_{h.hexdigest()[:16]}.so"
 
 
-def find_nvcc():
-    nvcc = shutil.which("nvcc")
-    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        nvcc = "/usr/local/cuda/bin/nvcc"
-    if nvcc is None:
-        raise RuntimeError("nvcc not found on PATH or in /usr/local/cuda/bin: "
-                           "the CUDA kernels cannot be built")
-    return nvcc
+def find_cuda_tool(tool="nvcc"):
+    """The CUDA toolkit's `tool` (nvcc, cuobjdump) on PATH or in
+    /usr/local/cuda/bin."""
+    path = shutil.which(tool)
+    if path is None and os.path.exists(f"/usr/local/cuda/bin/{tool}"):
+        path = f"/usr/local/cuda/bin/{tool}"
+    if path is None:
+        raise RuntimeError(f"{tool} not found on PATH or in "
+                           "/usr/local/cuda/bin: the CUDA kernels cannot be "
+                           "built")
+    return path
 
 
 def build(nvcc=None):
@@ -99,7 +111,7 @@ def build(nvcc=None):
     if out.exists():
         return out, 0.0, False
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = nvcc or find_nvcc()
+    nvcc = nvcc or find_cuda_tool()
     tag = f"{out.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in srcs]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
@@ -141,3 +153,20 @@ def library():
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
     return lib
+
+
+def sass(path=None):
+    """{mangled kernel name: [its SASS instruction lines]} of the library
+    (built at first use), from `cuobjdump -sass`."""
+    path = path or build()[0]
+    out = subprocess.run([find_cuda_tool("cuobjdump"), "-sass", str(path)],
+                         capture_output=True, text=True, check=True).stdout
+    kernels, name = {}, None
+    for line in out.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            kernels[name] = []
+        elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
+            kernels[name].append(line.strip())
+    return kernels

@@ -1142,3 +1142,100 @@ def test_stream_i16_checksum():
         assert probe.stream_i16.launches == before + 1
         assert int(got) == int(probe.stream_i16_plain(plane))
         assert int(got) == int(plane.cpu().numpy().astype(np.int64).sum())
+
+
+# -- the q16 probes (lam_tpu_torch/ops/probe.py, csrc/q16_probe.cu) ----------
+
+PROBE_WALKS = {"magic": 512, "tb1024": 1024, "sub8": 512, "split": 512,
+               "hi": 512, "hybrid": 512}
+# split rounds p * s to bf16 on both sides; the others are exact f32 walks:
+# hi and hybrid take tensor-core products held to f32 rounding
+PROBE_TOL = {"magic": 1e-5, "tb1024": 1e-5, "sub8": 1e-5, "split": 1e-5,
+             "hi": 1e-6, "hybrid": 1e-6}
+
+
+def _probe_plane(tb, n, seed):
+    """Random int16 tiles (full range) of an n x n triangle walk against
+    random power-of-two scales, and a Gaussian p, on the card."""
+    rng = np.random.default_rng(seed)
+    T = layout.tri_tile_count(n // tb)
+    q1 = rng.integers(-32767, 32768, (T * tb, tb)).astype(np.int16)
+    sc = (2.0 ** -rng.integers(8, 20, T)).astype(np.float32)
+    p = rng.standard_normal(n).astype(np.float32)
+    return tuple(torch.from_numpy(x).cuda() for x in (q1, sc, p))
+
+
+@pytest.mark.parametrize("name", list(PROBE_WALKS))
+def test_q16_probe_walks_match_plain(name):
+    """Each probe walk at n=10240 against its plain version, launching its
+    kernel once and no plain version, bitwise repeatable; magic equal to
+    kernel 14's exact body bit for bit."""
+    from lam_tpu_torch.ops import probe
+    kernel = getattr(probe, f"gemv_q16_symm_{name}")
+    plain = getattr(probe, f"gemv_q16_symm_{name}_plain")
+    q1, sc, p = _probe_plane(PROBE_WALKS[name], 10240, seed=61)
+    probe.reset_counters()
+    y = kernel(q1, sc, p)
+    torch.cuda.synchronize()
+    counts = probe.counters()
+    assert counts.pop(kernel.__name__) == 1
+    assert set(counts.values()) == {0}
+    assert _rel(y, plain(q1, sc, p)) <= PROBE_TOL[name]
+    assert torch.equal(y, kernel(q1, sc, p))
+    if name == "magic":
+        assert torch.equal(y, gemv._q16_symm(
+            gemv.gemv_q16_symm, gemv.gemv_q16_symm_plain,
+            "lam_gemv_q16_symm", q1, sc, p))
+
+
+def test_q16_probe_hi_is_f32_class_and_def_is_not():
+    """On the same random data hi and hybrid stay within 1e-6 of the exact
+    f32 plain walk, while the bf16 engine (mxu-def) stands above 1e-4."""
+    from lam_tpu_torch.ops import probe
+    q1, sc, p = _probe_plane(512, 10240, seed=62)
+    exact = probe.gemv_q16_symm_hi_plain(q1, sc, p)
+    assert _rel(probe.gemv_q16_symm_hi(q1, sc, p), exact) <= 1e-6
+    assert _rel(probe.gemv_q16_symm_hybrid(q1, sc, p), exact) <= 1e-6
+    assert _rel(gemv.gemv_q16_symm_bf16(q1, sc, p), exact) > 1e-4
+
+
+def test_q16_magic_kernel_converts_no_integer():
+    """The SASS of the magic walk has no int -> f32 conversion, where the
+    exact walk's has one per element it loads."""
+    from lam_tpu_torch.ops import _build, probe
+    kernels = _build.sass()
+    magic = [k for k in kernels if "symm_pass1" in k and "Q16MagicPlane" in k]
+    exact = [k for k in kernels if "symm_pass1" in k and "8Q16Plane" in k]
+    assert magic and exact
+    for k in magic:
+        assert probe.f32_conversions(kernels[k]) == []
+    assert all(len(probe.f32_conversions(kernels[k])) >= 8 for k in exact)
+
+
+def test_convert_sum_on_the_card():
+    """The converting stream: exact on the probes' tridiagonal plane, and
+    within its per-thread f32 rounding bound of the f64 sum elsewhere."""
+    from lam_tpu_torch.ops import probe
+    from lam_tpu_torch.tools import q16_probe as tool
+    q1 = probe.tridiag_q1(4096, 512, pad_to=8, device="cuda")[0]
+    assert float(probe.convert_f32_sum(q1)) == tool._stream_sum(q1, 512, 8)
+    q1 = _probe_plane(512, 10240, seed=63)[0]
+    got = float(probe.convert_f32_sum(q1))
+    vecs = -(-q1.numel() // 8 // probe.convert_threads(q1.device))
+    bound = 8 * vecs * 2.0 ** -24 * float(q1.double().abs().sum())
+    assert abs(got - float(probe.convert_f32_sum_plain(q1))) <= bound
+    assert got == float(probe.convert_f32_sum(q1))
+
+
+def test_q16_probe_tool_on_the_card(capsys):
+    """The tool's four probes at n=4096 on the card: every variant passes
+    its closed form and gets a time."""
+    from lam_tpu_torch.ops import probe
+    from lam_tpu_torch.tools import q16_probe as tool
+    probe.reset_counters()
+    rows = tool.run((1, 2, 3, 4), 4096, 2, "cuda")
+    assert all(r["ms"] > 0 and r["floor_ms"] > 0 for r in rows)
+    assert all(v > 0 for k, v in probe.counters().items()
+               if not k.endswith("_plain"))
+    assert not any(v for k, v in probe.counters().items()
+                   if k.endswith("_plain"))

@@ -1,0 +1,229 @@
+"""The port's q16 probes (lam_tpu_torch/ops/probe.py, the tool
+lam_tpu_torch/tools/q16_probe.py) against lam_tpu's probe scripts, on the
+CPU.
+
+scripts/q16_probe{,2,3,4}.py are imported by path and their Pallas kernels
+run unchanged inside `pltpu.force_tpu_interpret_mode()`, at n = 2048 (tb =
+512: 10 tiles, P = 1) and n = 2048 at tb = 1024 (3 tiles). Each script
+result is computed once per module (about a second a call). The inputs: a
+random int16 plane (full range) against random power-of-two scales and a
+random p, made with numpy. Tolerances: 1e-6 relative l2 for every walk
+(f32 sums in other orders; `split` rounds p * s to bf16 on both sides);
+the plane, the bit-trick dequantization and the closed forms exactly.
+"""
+
+import importlib.util
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from lam_tpu.ops import gemv as jgemv
+from lam_tpu_torch.ops import probe
+from lam_tpu_torch.tools import q16_probe as tool
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+N = 2048
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _script(name):
+    """scripts/<name>.py as a module (q16_probe3/4 import q16_probe2 from
+    the scripts directory)."""
+    if name in sys.modules:
+        return sys.modules[name]
+    scripts = str(ROOT / "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "scripts" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _rel(y, ref):
+    y, ref = np.asarray(y, np.float64), np.asarray(ref, np.float64)
+    return np.linalg.norm(y - ref) / np.linalg.norm(ref)
+
+
+def _random_plane(tb, seed):
+    """A walk-order plane of random int16 tiles against random power-of-two
+    scales, the walk tables and a random p."""
+    rng = np.random.default_rng(seed)
+    it, kt = (np.asarray(x) for x in jgemv._symm_tables(N // tb))
+    T = len(it)
+    q1 = rng.integers(-32767, 32768, (T * tb, tb)).astype(np.int16)
+    sc = (2.0 ** -rng.integers(8, 20, T)).astype(np.float32)
+    p = rng.standard_normal(N).astype(np.float32)
+    return q1, sc, it.astype(np.int32), kt.astype(np.int32), p
+
+
+@pytest.fixture(scope="module")
+def script_results():
+    """Each script kernel's result on the random planes, computed once."""
+    p1, p2, p4 = (_script(n) for n in ("q16_probe", "q16_probe2",
+                                        "q16_probe4"))
+    out = {}
+    q1, sc, it, kt, p = _random_plane(512, seed=91)
+    args = (jnp.asarray(q1), jnp.asarray(sc), jnp.asarray(it),
+            jnp.asarray(kt), jnp.asarray(p))
+    with pltpu.force_tpu_interpret_mode():
+        out["magic"] = p1.gemv_pair(p1.to_i32(args[0]), *args[1:],
+                                    magic=True)
+        out["sub8"] = p2.gemv_q16_multi(*args, P=1, sub=8)
+        for mode in ("split", "hi", "hybrid"):
+            out[mode] = p4.gemv_q16_mxu(*args, P=1, mode=mode)
+        out["convert"] = p1._micro_pass(p1._convert_kernel, args[2], args[3],
+                                        args[0], 512, 512, jnp.float32)
+    q1, sc, _, _, p = _random_plane(1024, seed=92)
+    out["tb1024"] = jgemv.gemv_q16_symm(jnp.asarray(q1), jnp.asarray(sc),
+                                        jnp.asarray(p))
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+# -- the plane and the bit trick ----------------------------------------------
+
+@pytest.mark.parametrize("tb", [512, 1024])
+@pytest.mark.parametrize("padded", [False, True])
+def test_tridiag_plane_is_the_scripts(tb, padded):
+    """tridiag_q1 is byte-equal to build_q1 of q16_probe.py (unpadded) and
+    q16_probe2.py (padded to 8 tiles), plane, scales and tables."""
+    if padded:
+        ref = _script("q16_probe2").build_q1(N, tb)[:4]
+    else:
+        ref = _script("q16_probe").build_q1(N, tb)
+    got = probe.tridiag_q1(N, tb, pad_to=8 if padded else None, device="cpu")
+    for g, r in zip(got, ref):
+        r = np.asarray(r)
+        assert g.numpy().dtype == r.dtype and g.shape == r.shape
+        assert g.numpy().tobytes() == r.tobytes()
+
+
+def test_magic_dequant_equals_conversion_for_every_int16():
+    q = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    got = probe.magic_f32(q)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, q.to(torch.float32))
+
+
+# -- each plain version against its script kernel -----------------------------
+
+WALKS = {"magic": probe.gemv_q16_symm_magic, "sub8": probe.gemv_q16_symm_sub8,
+         "split": probe.gemv_q16_symm_split, "hi": probe.gemv_q16_symm_hi,
+         "hybrid": probe.gemv_q16_symm_hybrid,
+         "tb1024": probe.gemv_q16_symm_tb1024}
+
+
+@pytest.mark.parametrize("name", list(WALKS))
+def test_walk_matches_script_kernel(name, script_results):
+    tb = 1024 if name == "tb1024" else 512
+    q1, sc, _, _, p = _random_plane(tb, seed=92 if tb == 1024 else 91)
+    probe.reset_counters()
+    y = WALKS[name](torch.from_numpy(q1), torch.from_numpy(sc),
+                    torch.from_numpy(p))
+    assert y.dtype == torch.float32 and y.shape == (N,)
+    assert _rel(y.numpy(), script_results[name]) <= 1e-6
+    counts = probe.counters()
+    assert counts.pop(f"gemv_q16_symm_{name}_plain") == 1
+    assert set(counts.values()) == {0}
+
+
+def test_split_rounds_only_the_operand():
+    """split stands apart from the exact walk by the bf16 class: it rounds
+    p * s to bf16 (and nothing else)."""
+    q1, sc, _, _, p = _random_plane(512, seed=91)
+    args = (torch.from_numpy(q1), torch.from_numpy(sc), torch.from_numpy(p))
+    gap = _rel(probe.gemv_q16_symm_split(*args).numpy(),
+               probe.gemv_q16_symm_hi(*args).numpy())
+    assert 1e-5 < gap <= 1e-2
+
+
+def test_convert_checksum_matches_script_kernel(script_results):
+    """The converted sum equals the sum of _convert_kernel's (tb, 128) f32
+    accumulator (exact on both sides at this size) and the integer sum."""
+    q1 = _random_plane(512, seed=91)[0]
+    got = probe.convert_f32_sum(torch.from_numpy(q1))
+    assert got.dtype == torch.float64
+    assert float(got) == script_results["convert"].astype(np.float64).sum()
+    assert float(got) == float(q1.astype(np.int64).sum())
+    assert int(probe.stream_i16(torch.from_numpy(q1))) == int(
+        q1.astype(np.int64).sum())
+
+
+# -- closed forms, the tool ---------------------------------------------------
+
+@pytest.mark.parametrize("variant", sorted(tool.WALKS) + sorted(tool.STREAMS))
+def test_plain_closed_form(variant):
+    """Every variant's plain version on the probes' plane: y + 2p = 4 (3 at
+    both ends) exactly; the streams' sums their closed form."""
+    tb = 1024 if "1024" in variant else 512
+    rows = tool._size(lambda line: None, N, tb, 8, [variant], 1,
+                      torch.device("cpu"))
+    assert [r["variant"] for r in rows] == [variant]
+    assert rows[0]["ms"] is None
+
+
+@pytest.mark.parametrize("k", ["1", "2", "3", "4"])
+def test_tool_cli_on_the_cpu(k, capsys):
+    assert tool.main(["--probe", k, "--n", str(N), "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert f"probe {k} (scripts/" in out
+    rows = [line for line in out.splitlines() if "closed form ok" in line]
+    assert len(rows) == sum(len(v) for *_, v in tool.PROBES[int(k)])
+
+
+def test_tool_refuses_cuda_without_a_card():
+    with pytest.raises(RuntimeError, match="cuda"):
+        tool.main(["--probe", "1", "--n", str(N), "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tool.run((1,), N, 1, "cuda")
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    q1, sc, _, _, p = (torch.from_numpy(x) for x in _random_plane(512, 93))
+    with pytest.raises(ValueError, match="int16"):
+        probe.gemv_q16_symm_magic(q1.float(), sc, p)
+    with pytest.raises(ValueError, match="tb=1024"):
+        probe.gemv_q16_symm_tb1024(q1, sc, p)
+    q1k, sck, _, _, pk = (torch.from_numpy(x)
+                          for x in _random_plane(1024, 94))
+    for fn in (probe.gemv_q16_symm_magic, probe.gemv_q16_symm_sub8,
+               probe.gemv_q16_symm_split, probe.gemv_q16_symm_hi,
+               probe.gemv_q16_symm_hybrid):
+        with pytest.raises(ValueError, match="tb=512"):
+            fn(q1k, sck, pk)
+    strided = torch.zeros(q1.shape[0], 2 * q1.shape[1],
+                          dtype=torch.int16)[:, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        probe.gemv_q16_symm_sub8(strided, sc, p)
+    with pytest.raises(ValueError, match="table shape"):
+        probe.gemv_q16_symm_hi(q1, sc[:-1], p)
+    for fn in (probe.stream_i16, probe.convert_f32_sum):
+        with pytest.raises(ValueError, match="int16"):
+            fn(q1.float())
+        with pytest.raises(ValueError, match="contiguous"):
+            fn(strided)
+
+
+def test_new_modules_import_no_jax():
+    code = ("import sys; import lam_tpu_torch.ops.probe, "
+            "lam_tpu_torch.tools.q16_probe; "
+            "print(sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'lam_tpu')))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.strip() == "[]"
