@@ -19,7 +19,16 @@
      oracle of their stored values to 1e-13; fq matches the original
      matrix to 1e-12 and dfq to 1e-11 (their storage bounds);
    - padding rows of y are exactly 0; the dense and dfq kernels repeat
-     bitwise.
+     bitwise;
+   - kernels 4 and 5 (gemv_df64, gemv_f32_cols) run the dense_stream walk
+     of csrc/gemv_dense.cu: their SASS holds the TMA bulk copy (UBLKCP)
+     and that of kernels 3 and 6 (dense_rows) none; each gives the bits of
+     the dense_rows walk on the same bytes (gemv_df64_cols with one block
+     of the full width; gemv_f32 on a contiguous copy of the column
+     block); each is timed against its library call LIBRARY_REPEATS more
+     times in turns, dense_rows beside, printing the spread of the
+     kernel/library ratio; kernel 5 also at rank 0's column block of G=4
+     (printed only).
    The fq and dfq planes are the port's own packs of the matrix with its
    diagonal zeroed. The four kernels of the sharded backends at the
    shards of another random symmetric N=10000 matrix, each rank's part
@@ -353,6 +362,12 @@ ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "symgrid-irfq-warm-4": "irfq-warm", "symgrid-fq-4": "fq",
                  "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq",
                  "symgrid-irfq-mxu-4": "irfq-cold"}
+# the runs through kernels 4 and 5 (gemv_df64, gemv_f32_cols: the
+# dense_stream walk) -> the iteration count every earlier chip run of their
+# precision gave (PERF.md section 2), printed beside this run's
+STREAM_RUN_ITERS = {"ir-pallas": 365, "df64-pallas": 358, "ring-ir": 365,
+                    "gather-df64": 358, "ring-ir-4": 365, "grid-ir-4": 365}
+LIBRARY_REPEATS = 3  # kernel-vs-library timings of kernels 4 and 5
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
@@ -430,6 +445,41 @@ def _timed_entry(name, replaces, source, y_err, fns, in_out, flops, kind):
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library_ms}
+
+
+def _against_library(name, kernel, library, earlier, earlier_label):
+    """Kernel against its library call, with the earlier dense_rows walk
+    on the same bytes beside them, timed in turns LIBRARY_REPEATS times
+    in this run: the spread of the kernel/library ratio says how far one
+    timing can be trusted (a few % drift between runs, PERF.md §6)."""
+    ratios = []
+    for r in range(LIBRARY_REPEATS):
+        ms, lib_ms, old_ms = _median_ms([kernel, library, earlier])
+        ratios.append(ms / lib_ms)
+        print(f"{name} repeat {r + 1}: kernel {ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, kernel/library {ms / lib_ms:.4f}; "
+              f"{earlier_label} {old_ms:.4f} ms (/library "
+              f"{old_ms / lib_ms:.4f})")
+    print(f"{name} kernel/library over {LIBRARY_REPEATS} repeats: min "
+          f"{min(ratios):.4f}, max {max(ratios):.4f}, spread "
+          f"{max(ratios) - min(ratios):.4f}")
+
+
+def stream_sass(build):
+    """The SASS of the dense_stream kernels (4 and 5) holds the TMA bulk
+    copy (UBLKCP); that of the dense_rows kernels (3 and 6) none."""
+    kernels = build.sass()
+    walks = {"dense_stream": [], "dense_rows": []}
+    for k, lines in kernels.items():
+        for walk, found in walks.items():
+            if walk in k:
+                found.append(sum("UBLKCP" in line for line in lines))
+    print(f"SASS bulk copies (UBLKCP) per kernel: {walks}")
+    _check(len(walks["dense_stream"]) == 2
+           and all(walks["dense_stream"]),
+           "a dense_stream kernel issues no TMA bulk copy")
+    _check(len(walks["dense_rows"]) == 2 and not any(walks["dense_rows"]),
+           "a dense_rows kernel issues a TMA bulk copy")
 
 
 def kernels_vs_plain(gemv, layout, pack_planes, pack_tri, split_f64_host):
@@ -564,6 +614,11 @@ def dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl):
     zh, zl = gemv.gemv_df64(ah, al, ph, pl)
     _check(torch.equal(yh, zh) and torch.equal(yl, zl),
            "gemv_df64 not repeatable")
+    # the earlier walk on the same square: gemv_df64_cols (dense_rows)
+    # with one column block of the full width gives the same bits
+    zh, zl = gemv.gemv_df64_cols(ah, al, ph, pl, 0)
+    _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+           "gemv_df64 (dense_stream) != the dense_rows walk")
     del oracle
     out.append(_timed_entry(
         "gemv_df64", "lam_tpu/ops/gemv.py:812", DENSE_SOURCE,
@@ -572,6 +627,10 @@ def dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl):
          lambda: gemv.gemv_df64_plain(ah, al, ph, pl),
          lambda: torch.mv(a_dev, p64)), (ah, al, ph, pl, yh, yl), flops,
         "f64"))
+    _against_library("gemv_df64", lambda: gemv.gemv_df64(ah, al, ph, pl),
+                     lambda: torch.mv(a_dev, p64),
+                     lambda: gemv.gemv_df64_cols(ah, al, ph, pl, 0),
+                     "dense_rows (gemv_df64_cols, one block)")
     return out
 
 
@@ -1079,6 +1138,9 @@ def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
             oracle = torch.mv(hi[:, cols].double(), ph[cols].double())
             _check(torch.equal(y, gemv.gemv_f32_cols(hi, ph[cols], blk)),
                    "gemv_f32_cols not repeatable")
+            _check(torch.equal(y, gemv.gemv_f32(hi[:, cols].contiguous(),
+                                                ph[cols])),
+                   "gemv_f32_cols (dense_stream) != the dense_rows walk")
             errs32 += [_rel(y, y_plain), _rel(y.double(), oracle)]
             diff32 = max(diff32, float((y - y_plain).abs().max()))
             yh, yl = gemv.gemv_df64_cols(hi, lo, ph[cols], pl[cols], blk)
@@ -1132,6 +1194,14 @@ def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
          lambda: gemv.gemv_f32_cols_plain(hi, p_blk, 1),
          lambda: torch.mv(hi[:, cols], p_blk)),
         (hi[:, cols], p_blk, y), 2 * m * m, "f32")]
+    block = hi[:, cols].contiguous()
+    _against_library("gemv_f32_cols",
+                     lambda: gemv.gemv_f32_cols(hi, p_blk, 1),
+                     lambda: torch.mv(hi[:, cols], p_blk),
+                     lambda: gemv.gemv_f32(block, p_blk),
+                     "dense_rows (gemv_f32 on a contiguous copy)")
+    del block
+    cols_g4(gemv, pcg, Mesh, a, p)
     a64 = hi.double() + lo.double()
     p64_blk = p_blk.double() + pl_blk.double()
     yh, yl = gemv.gemv_df64_cols(hi, lo, p_blk, pl_blk, 1)
@@ -1143,6 +1213,35 @@ def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
         (hi[:, cols], lo[:, cols], p_blk, pl_blk, yh, yl), 2 * m * m,
         "f64"))
     return out
+
+
+def cols_g4(gemv, pcg, Mesh, a, p):
+    """Kernel 5 at rank 0's column block 1 of the G=4 row shards (the
+    ring-ir-4 step): against its plain version, then timed beside torch.mv
+    on the strided view and dense_rows on a contiguous copy; printed
+    only."""
+    g = SHARD_G[1]
+    op = pcg.ShardedDenseOperator.from_row_block_fn(
+        lambda s, k: a[s:s + k], N, mesh=Mesh(0, g, "cuda"),
+        precision="df64")
+    hi, m = op.operand[0], op.m
+    cols = slice(m, 2 * m)
+    p_blk = _pair(p, op.n_padded)[0][cols].clone()
+    y = gemv.gemv_f32_cols(hi, p_blk, 1)
+    err = _rel(y, gemv.gemv_f32_cols_plain(hi, p_blk, 1))
+    print(f"gemv_f32_cols G={g}: ({m}, {m}) block of ({m}, {op.n_padded}), "
+          f"rel l2 kernel-plain {err:.3e} (<= 1e-5)")
+    _check(err <= 1e-5, "gemv_f32_cols disagrees at G=4")
+    block = hi[:, cols].contiguous()
+    ms, lib_ms, old_ms = _median_ms([
+        lambda: gemv.gemv_f32_cols(hi, p_blk, 1),
+        lambda: torch.mv(hi[:, cols], p_blk),
+        lambda: gemv.gemv_f32(block, p_blk)])
+    gb = _nbytes(hi[:, cols], p_blk, y) / 1e9
+    print(f"gemv_f32_cols G={g} [{gb * 1e3:.1f} MB]: kernel {ms:.4f} ms "
+          f"({gb / ms * 1e3:.0f} GB/s), library {lib_ms:.4f} ms, "
+          f"kernel/library {ms / lib_ms:.4f}; dense_rows (contiguous copy) "
+          f"{old_ms:.4f} ms; bound {gb / HBM_BYTES_PER_S * 1e12:.4f} ms")
 
 
 def _slab_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
@@ -2162,6 +2261,9 @@ def solve_slice(ops, lio, cli, system, tmp):
                f"a plain version ran on the {run} path")
         for k in total:
             total[k] += counts[k]
+        if run in STREAM_RUN_ITERS:
+            print(f"{run}: {iters} iterations through the dense_stream "
+                  f"walk; {STREAM_RUN_ITERS[run]} before it")
         xs[run], iters_of[run] = x, iters
     for precision, storage in PACK_CACHE.items():
         _check(os.path.exists(f"{a_path}.{storage}pack"),
@@ -2332,6 +2434,9 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
                 print(f"{run}: {iters} iterations; the one-device "
                       f"{ONE_DEVICE_OF[run]} run took "
                       f"{local_iters[ONE_DEVICE_OF[run]]}")
+            if run in STREAM_RUN_ITERS:
+                print(f"{run}: {iters} iterations through the dense_stream "
+                      f"walk; {STREAM_RUN_ITERS[run]} before it")
             xs[run], iters_of[run] = x, iters
             _check(iters <= 10000, f"{run} did not converge")
             _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
@@ -2540,6 +2645,7 @@ def main():
     _build.library()
     print(f"kernels {'built' if built else 'reused'} in {seconds:.1f} s: "
           f"{os.path.relpath(path)}")
+    stream_sass(_build)
 
     results = kernels_vs_plain(gemv, layout, _host_pack_planes,
                                _host_pack_tri, split_f64_host)

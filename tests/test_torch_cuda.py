@@ -11,7 +11,10 @@ are the main path's: tb=512 tiles, n=2048 (4 row tiles) and n=10240
 read the port's own fq pack, stored padded (T=10 -> 16 tiles at n=2048,
 T=210 -> 216 at n=10240); the dfq kernel the port's own dfq pack (exactly
 T tiles). The dense kernels take the full square and a row block of a
-matrix that is not symmetric. The stencil kernel takes padded grids up
+matrix that is not symmetric; kernels 4 and 5 (the dense_stream walk) also
+the edges of its row partition and the ring's column blocks, equal bit for
+bit to the dense_rows walk on the same bytes, and their SASS the TMA bulk
+copy. The stencil kernel takes padded grids up
 to the heat demo's 998 x 1198 interior (1024 x 1280), with zero edges and
 with the non-zero edge rows of a row-sharded grid.
 """
@@ -293,6 +296,89 @@ def test_dense_kernel_rejects_unaligned_operand():
     p = torch.zeros(1025, device="cuda")[1:]
     with pytest.raises(ValueError, match="aligned"):
         gemv.gemv_f32(a, p)
+
+
+# Kernels 5 and 4 run the dense_stream walk (csrc/gemv_dense.cu): a grid
+# of one or two blocks a SM, each a balanced range of rows. Edges of that
+# partition: fewer rows than blocks (m=128), row counts the grid does not
+# divide (1152, 3968), fewer column chunks than ring stages (nb=128), the
+# ring's G=2 and G=4 row shards of the N=10000 system (lda=10240 != nb,
+# every block), gather-df64's row block and the full 10240^2 square.
+STREAM_COLS = [(128, 1024, 512), (1152, 768, 384), (3968, 256, 128),
+               (5120, 10240, 5120), (2560, 10240, 2560)]  # (m, n, nb)
+STREAM_DF64 = [(128, 512), (1152, 1024), (3968, 128), (5120, 10240),
+               (10240, 10240)]  # (m, n)
+STREAM_PAD = 64  # zero rows at the end of each matrix
+
+
+def _zero_tail(m, n, seed):
+    """An (m, n) f64 matrix on the card whose last STREAM_PAD rows are 0,
+    and a numpy generator for its operands."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(-1, 1, size=(m, n))
+    a[m - STREAM_PAD:] = 0.0
+    return torch.from_numpy(a).cuda(), rng
+
+
+@pytest.mark.parametrize("m,n,nb", STREAM_COLS)
+def test_gemv_f32_cols_stream_walk(m, n, nb):
+    a64, rng = _zero_tail(m, n, seed=m + nb)
+    a = a64.float()
+    for blk in range(n // nb):
+        cols = slice(blk * nb, (blk + 1) * nb)
+        p = torch.from_numpy(rng.uniform(-1, 1, nb).astype(np.float32)).cuda()
+        ops.reset_counters()
+        y = gemv.gemv_f32_cols(a, p, blk)
+        torch.cuda.synchronize()
+        assert ops.counters()["gemv_f32_cols"] == 1 and y.shape == (m,)
+        oracle = torch.mv(a[:, cols].double(), p.double())
+        # f32 accumulation in two different orders: rounding-level agreement
+        assert _rel(y, gemv.gemv_f32_cols_plain(a, p, blk)) <= 1e-5
+        assert _rel(y.double(), oracle) <= 1e-5
+        assert torch.count_nonzero(y[m - STREAM_PAD:]) == 0
+        assert torch.equal(y, gemv.gemv_f32_cols(a, p, blk))
+        # the dense_rows walk sums each row in the same order
+        assert torch.equal(y, gemv.gemv_f32(a[:, cols].contiguous(), p))
+
+
+@pytest.mark.parametrize("m,n", STREAM_DF64)
+def test_gemv_df64_stream_walk(m, n):
+    a64, rng = _zero_tail(m, n, seed=m + n + 1)
+    ah, al = (torch.from_numpy(x).cuda()
+              for x in split_f64_host(a64.cpu().numpy()))
+    ph, pl = (torch.from_numpy(x).cuda()
+              for x in split_f64_host(rng.uniform(-1, 1, n)))
+    ops.reset_counters()
+    yh, yl = gemv.gemv_df64(ah, al, ph, pl)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_df64"] == 1 and yh.shape == (m,)
+    y = yh.double() + yl.double()
+    oracle = torch.mv(ah.double() + al.double(), ph.double() + pl.double())
+    assert _rel(y, oracle) <= 1e-13
+    qh, ql = gemv.gemv_df64_plain(ah, al, ph, pl)
+    assert _rel(qh.double() + ql.double(), oracle) <= 1e-13
+    assert torch.count_nonzero(yh[m - STREAM_PAD:]) == 0
+    assert torch.count_nonzero(yl[m - STREAM_PAD:]) == 0
+    zh, zl = gemv.gemv_df64(ah, al, ph, pl)
+    assert torch.equal(yh, zh) and torch.equal(yl, zl)
+    # the dense_rows walk (one column block of the full width): same bits
+    zh, zl = gemv.gemv_df64_cols(ah, al, ph, pl, 0)
+    assert torch.equal(yh, zh) and torch.equal(yl, zl)
+
+
+def test_dense_stream_kernels_hold_the_bulk_copy():
+    """The SASS of kernels 4 and 5 (dense_stream) issues TMA bulk copies
+    (UBLKCP); that of kernels 3 and 6 (dense_rows) none."""
+    from lam_tpu_torch.ops import _build
+    kernels = _build.sass()
+    stream = [k for k in kernels if "dense_stream" in k]
+    rows = [k for k in kernels if "dense_rows" in k]
+    assert sorted("DF64Stream" in k for k in stream) == [False, True]
+    assert sorted("DF64Mat" in k for k in rows) == [False, True]
+    for k in stream:
+        assert any("UBLKCP" in line for line in kernels[k])
+    for k in rows:
+        assert not any("UBLKCP" in line for line in kernels[k])
 
 
 def _stencil_oracle(p, up, dn, nrows, nxi):
