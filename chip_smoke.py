@@ -20,15 +20,24 @@
      matrix to 1e-12 and dfq to 1e-11 (their storage bounds);
    - padding rows of y are exactly 0; the dense and dfq kernels repeat
      bitwise;
-   - kernels 4 and 5 (gemv_df64, gemv_f32_cols) run the dense_stream walk
-     of csrc/gemv_dense.cu: their SASS holds the TMA bulk copy (UBLKCP)
-     and that of kernels 3 and 6 (dense_rows) none; each gives the bits of
-     the dense_rows walk on the same bytes (gemv_df64_cols with one block
-     of the full width; gemv_f32 on a contiguous copy of the column
-     block); each is timed against its library call LIBRARY_REPEATS more
-     times in turns, dense_rows beside, printing the spread of the
-     kernel/library ratio; kernel 5 also at rank 0's column block of G=4
-     (printed only).
+   - kernels 4, 5 and 6 (gemv_df64, gemv_f32_cols, gemv_df64_cols) run
+     the dense_stream walk of csrc/gemv_dense.cu: their SASS holds the TMA
+     bulk copy (UBLKCP) and that of the dense_rows kernels (kernel 3 and
+     the df64 control lam_gemv_df64_rows, lam_tpu_torch/ops/probe.py) none;
+     each gives the bits of the dense_rows walk on the same bytes
+     (gemv_df64_rows on the square and on every block of every G=2 rank;
+     gemv_f32 on a contiguous copy of the column block); each is timed
+     against its library call LIBRARY_REPEATS more times in turns,
+     dense_rows beside, printing the spread of the kernel/library ratio;
+     kernels 5 and 6 also at rank 0's column block of G=4 (printed only;
+     kernel 6 over three copies in turn);
+   - kernel 16 (gemv_q16_symm_slab) runs the strip walk of
+     csrc/strip_walk.cuh: its SASS holds UBLKCP and that of its control,
+     the two-pass walk gemv_q16_symm_slab_twopass, none; its (yd, yt)
+     equal the control's bit for bit on every rank's tables of G=2 and
+     G=4, and it is timed against the control LIBRARY_REPEATS times in
+     turns, the read floor beside, over three copies of its plane, at
+     rank 0 of G=2 and of G=4.
    The fq and dfq planes are the port's own packs of the matrix with its
    diagonal zeroed. The four kernels of the sharded backends at the
    shards of another random symmetric N=10000 matrix, each rank's part
@@ -362,12 +371,15 @@ ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "symgrid-irfq-warm-4": "irfq-warm", "symgrid-fq-4": "fq",
                  "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq",
                  "symgrid-irfq-mxu-4": "irfq-cold"}
-# the runs through kernels 4 and 5 (gemv_df64, gemv_f32_cols: the
-# dense_stream walk) -> the iteration count every earlier chip run of their
-# precision gave (PERF.md section 2), printed beside this run's
-STREAM_RUN_ITERS = {"ir-pallas": 365, "df64-pallas": 358, "ring-ir": 365,
-                    "gather-df64": 358, "ring-ir-4": 365, "grid-ir-4": 365}
-LIBRARY_REPEATS = 3  # kernel-vs-library timings of kernels 4 and 5
+# the runs through kernels 4, 5 and 6 (the dense_stream walk) and 16 (the
+# strip walk) -> the iteration count every earlier chip run of their
+# precision gave (PERF.md section 2): the walks keep the bits, so this
+# run's must be the same
+WALK_RUN_ITERS = {"ir-pallas": 365, "df64-pallas": 358, "ring-ir": 365,
+                  "gather-df64": 358, "ring-ir-4": 365, "grid-ir-4": 365,
+                  "packed-irfq-cold": 375, "packed-irfq-warm": 375,
+                  "packed-irfq-4": 375}
+LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6 and 16
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
@@ -447,39 +459,53 @@ def _timed_entry(name, replaces, source, y_err, fns, in_out, flops, kind):
             "library_ms": library_ms}
 
 
-def _against_library(name, kernel, library, earlier, earlier_label):
-    """Kernel against its library call, with the earlier dense_rows walk
-    on the same bytes beside them, timed in turns LIBRARY_REPEATS times
-    in this run: the spread of the kernel/library ratio says how far one
-    timing can be trusted (a few % drift between runs, PERF.md §6)."""
+def _against_library(name, kernel, library, earlier, earlier_label,
+                     library_label="library"):
+    """Kernel against its library call (or, where there is none, its
+    control: library_label names it), with the earlier walk on the same
+    bytes (or the read floor) beside them, timed in turns LIBRARY_REPEATS
+    times in this run: the spread of the kernel/library ratio says how far
+    one timing can be trusted (a few % drift between runs, PERF.md §6)."""
     ratios = []
     for r in range(LIBRARY_REPEATS):
         ms, lib_ms, old_ms = _median_ms([kernel, library, earlier])
         ratios.append(ms / lib_ms)
-        print(f"{name} repeat {r + 1}: kernel {ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, kernel/library {ms / lib_ms:.4f}; "
-              f"{earlier_label} {old_ms:.4f} ms (/library "
+        print(f"{name} repeat {r + 1}: kernel {ms:.4f} ms, {library_label} "
+              f"{lib_ms:.4f} ms, kernel/{library_label} {ms / lib_ms:.4f}; "
+              f"{earlier_label} {old_ms:.4f} ms (/{library_label} "
               f"{old_ms / lib_ms:.4f})")
-    print(f"{name} kernel/library over {LIBRARY_REPEATS} repeats: min "
-          f"{min(ratios):.4f}, max {max(ratios):.4f}, spread "
+    print(f"{name} kernel/{library_label} over {LIBRARY_REPEATS} repeats: "
+          f"min {min(ratios):.4f}, max {max(ratios):.4f}, spread "
           f"{max(ratios) - min(ratios):.4f}")
 
 
 def stream_sass(build):
-    """The SASS of the dense_stream kernels (4 and 5) holds the TMA bulk
-    copy (UBLKCP); that of the dense_rows kernels (3 and 6) none."""
+    """The SASS of the dense_stream kernels (4, 5 and 6) and of kernel 16's
+    strip walk holds the TMA bulk copy (UBLKCP); that of the dense_rows
+    kernels (3 and the df64 control) and of kernel 16's control (the
+    two-pass walk's pass 1 on the q16 slab tables) none."""
     kernels = build.sass()
-    walks = {"dense_stream": [], "dense_rows": []}
+    walks = {"dense_stream": [], "dense_rows": [], "strip_pass1": [],
+             "two-pass control": []}
     for k, lines in kernels.items():
+        copies = sum("UBLKCP" in line for line in lines)
         for walk, found in walks.items():
             if walk in k:
-                found.append(sum("UBLKCP" in line for line in lines))
+                found.append(copies)
+        if "symm_pass1" in k and "8Q16Plane" in k and "TableWalk" in k:
+            walks["two-pass control"].append(copies)
     print(f"SASS bulk copies (UBLKCP) per kernel: {walks}")
-    _check(len(walks["dense_stream"]) == 2
+    _check(len(walks["dense_stream"]) == 3
            and all(walks["dense_stream"]),
            "a dense_stream kernel issues no TMA bulk copy")
-    _check(len(walks["dense_rows"]) == 2 and not any(walks["dense_rows"]),
-           "a dense_rows kernel issues a TMA bulk copy")
+    _check(len(walks["strip_pass1"]) == 1 and all(walks["strip_pass1"]),
+           "kernel 16's strip walk issues no TMA bulk copy")
+    _check(len(walks["dense_rows"]) == 2
+           and len(walks["two-pass control"]) == 1,
+           "SASS: a dense_rows kernel or kernel 16's control is missing")
+    _check(not any(walks["dense_rows"] + walks["two-pass control"]),
+           "a dense_rows kernel or kernel 16's control issues a TMA bulk "
+           "copy")
 
 
 def kernels_vs_plain(gemv, layout, pack_planes, pack_tri, split_f64_host):
@@ -569,6 +595,7 @@ def kernels_vs_plain(gemv, layout, pack_planes, pack_tri, split_f64_host):
 def dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl):
     """Phase 2, the full-square engine: the dense f32 and df64 kernels on
     the 10240^2 square."""
+    from lam_tpu_torch.ops import probe
     n_p = a_dev.shape[0]
     flops = 2 * n_p * n_p
     p64 = ph.double() + pl.double()
@@ -614,9 +641,9 @@ def dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl):
     zh, zl = gemv.gemv_df64(ah, al, ph, pl)
     _check(torch.equal(yh, zh) and torch.equal(yl, zl),
            "gemv_df64 not repeatable")
-    # the earlier walk on the same square: gemv_df64_cols (dense_rows)
+    # the earlier walk on the same square: the df64 control (dense_rows)
     # with one column block of the full width gives the same bits
-    zh, zl = gemv.gemv_df64_cols(ah, al, ph, pl, 0)
+    zh, zl = probe.gemv_df64_rows(ah, al, ph, pl, 0)
     _check(torch.equal(yh, zh) and torch.equal(yl, zl),
            "gemv_df64 (dense_stream) != the dense_rows walk")
     del oracle
@@ -629,8 +656,8 @@ def dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl):
         "f64"))
     _against_library("gemv_df64", lambda: gemv.gemv_df64(ah, al, ph, pl),
                      lambda: torch.mv(a_dev, p64),
-                     lambda: gemv.gemv_df64_cols(ah, al, ph, pl, 0),
-                     "dense_rows (gemv_df64_cols, one block)")
+                     lambda: probe.gemv_df64_rows(ah, al, ph, pl, 0),
+                     "dense_rows (gemv_df64_rows, one block)")
     return out
 
 
@@ -1115,7 +1142,9 @@ def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
     on the N=10000 system (m=5120 rows of n=10240, blocks of nb=5120):
     every rank's rows against every block, then each rank's blocks summed
     in the ring's order, which must give the single-device dense kernels'
-    matvec of the whole square."""
+    matvec of the whole square; kernels 5 and 6 (dense_stream) bit for bit
+    equal to the dense_rows walk on every block."""
+    from lam_tpu_torch.ops import probe
     g = SHARD_G[0]
     shards = [pcg.ShardedDenseOperator.from_row_block_fn(
         lambda s, k: a[s:s + k], N, mesh=Mesh(c, g, "cuda"),
@@ -1151,6 +1180,9 @@ def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
             zh, zl = gemv.gemv_df64_cols(hi, lo, ph[cols], pl[cols], blk)
             _check(torch.equal(yh, zh) and torch.equal(yl, zl),
                    "gemv_df64_cols not repeatable")
+            zh, zl = probe.gemv_df64_rows(hi, lo, ph[cols], pl[cols], blk)
+            _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+                   "gemv_df64_cols (dense_stream) != the dense_rows walk")
             errs64 += [_rel(y64, q64),
                        _rel(y64, torch.mv(a64[:, cols], p64[cols]))]
             diff64 = max(diff64, float((y64 - q64).abs().max()))
@@ -1163,7 +1195,8 @@ def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
           f"({m}, {n_p}): rel l2 kernel-plain / kernel-f64 max "
           f"{max(errs32):.3e} (<= 1e-5)")
     print(f"gemv_df64_cols G={g}: rel l2 kernel-plain / kernel-f64 max "
-          f"{max(errs64):.3e} (<= 1e-13)")
+          f"{max(errs64):.3e} (<= 1e-13); bits == dense_rows "
+          "(gemv_df64_rows) on every block")
     _check(max(errs32) <= 1e-5, "gemv_f32_cols disagrees")
     _check(max(errs64) <= 1e-13, "gemv_df64_cols disagrees")
     # the ranks' ring sums against the one-device kernels on the square
@@ -1212,21 +1245,30 @@ def cols_kernels_vs_plain(gemv, pcg, Mesh, a, p):
          lambda: torch.mv(a64[:, cols], p64_blk)),
         (hi[:, cols], lo[:, cols], p_blk, pl_blk, yh, yl), 2 * m * m,
         "f64"))
+    _against_library("gemv_df64_cols",
+                     lambda: gemv.gemv_df64_cols(hi, lo, p_blk, pl_blk, 1),
+                     lambda: torch.mv(a64[:, cols], p64_blk),
+                     lambda: probe.gemv_df64_rows(hi, lo, p_blk, pl_blk, 1),
+                     "dense_rows (gemv_df64_rows)")
     return out
 
 
 def cols_g4(gemv, pcg, Mesh, a, p):
-    """Kernel 5 at rank 0's column block 1 of the G=4 row shards (the
-    ring-ir-4 step): against its plain version, then timed beside torch.mv
-    on the strided view and dense_rows on a contiguous copy; printed
-    only."""
+    """Kernels 5 and 6 at rank 0's column block 1 of the G=4 row shards
+    (the ring-ir-4 step): against their plain versions (kernel 6 also bit
+    for bit against dense_rows), then timed beside torch.mv on the strided
+    view and dense_rows (kernel 5: on a contiguous copy); kernel 6 over
+    three copies of the shard taken in turn (its 52.4 MB block would stay
+    in the 50 MB L2). Printed only."""
+    from lam_tpu_torch.ops import probe
     g = SHARD_G[1]
     op = pcg.ShardedDenseOperator.from_row_block_fn(
         lambda s, k: a[s:s + k], N, mesh=Mesh(0, g, "cuda"),
         precision="df64")
     hi, m = op.operand[0], op.m
     cols = slice(m, 2 * m)
-    p_blk = _pair(p, op.n_padded)[0][cols].clone()
+    ph, pl, _ = _pair(p, op.n_padded)
+    p_blk, pl_blk = ph[cols].clone(), pl[cols].clone()
     y = gemv.gemv_f32_cols(hi, p_blk, 1)
     err = _rel(y, gemv.gemv_f32_cols_plain(hi, p_blk, 1))
     print(f"gemv_f32_cols G={g}: ({m}, {m}) block of ({m}, {op.n_padded}), "
@@ -1242,6 +1284,31 @@ def cols_g4(gemv, pcg, Mesh, a, p):
           f"({gb / ms * 1e3:.0f} GB/s), library {lib_ms:.4f} ms, "
           f"kernel/library {ms / lib_ms:.4f}; dense_rows (contiguous copy) "
           f"{old_ms:.4f} ms; bound {gb / HBM_BYTES_PER_S * 1e12:.4f} ms")
+    del block
+    lo = op.operand[1]
+    yh, yl = gemv.gemv_df64_cols(hi, lo, p_blk, pl_blk, 1)
+    qh, ql = gemv.gemv_df64_cols_plain(hi, lo, p_blk, pl_blk, 1)
+    err = _rel(yh.double() + yl.double(), qh.double() + ql.double())
+    zh, zl = probe.gemv_df64_rows(hi, lo, p_blk, pl_blk, 1)
+    print(f"gemv_df64_cols G={g}: rel l2 kernel-plain {err:.3e} (<= 1e-13), "
+          f"bits == dense_rows: {torch.equal(yh, zh) and torch.equal(yl, zl)}")
+    _check(err <= 1e-13, "gemv_df64_cols disagrees at G=4")
+    _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+           "gemv_df64_cols (dense_stream) != the dense_rows walk at G=4")
+    p64_blk = p_blk.double() + pl_blk.double()
+    copies = [(h, l, h.double() + l.double()) for h, l in
+              [(hi, lo)] + [(hi.clone(), lo.clone()) for _ in range(2)]]
+    gb = _nbytes(hi[:, cols], lo[:, cols], p_blk, pl_blk, yh, yl) / 1e9
+    print(f"gemv_df64_cols G={g} [{gb * 1e3:.1f} MB, three copies in turn; "
+          f"bound {gb / HBM_BYTES_PER_S * 1e12:.4f} ms]:")
+    _against_library(
+        f"gemv_df64_cols G={g}",
+        _rotating(lambda c: gemv.gemv_df64_cols(c[0], c[1], p_blk, pl_blk, 1),
+                  copies),
+        _rotating(lambda c: torch.mv(c[2][:, cols], p64_blk), copies),
+        _rotating(lambda c: probe.gemv_df64_rows(c[0], c[1], p_blk, pl_blk,
+                                                 1), copies),
+        "dense_rows (gemv_df64_rows)")
 
 
 def _slab_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
@@ -1472,7 +1539,9 @@ def _quant_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
     values, and the ranks' parts plus the owners' diagonal terms summed
     against the one-device kernels' matvecs `one` (inner f32 y, f64 y) of
     the same storage. Returns the largest kernel-plain differences (inner,
-    accurate)."""
+    accurate). Kernel 16 (the fq storage's inner walk) is also held bit for
+    bit to its control, the two-pass walk, on every rank's tables."""
+    from lam_tpu_torch.ops import probe
     g, m, tb, storage = (ops_[0].mesh.size, ops_[0].m, ops_[0].tb,
                          ops_[0].storage)
     inner_name = "gemv_q16_symm_slab" if storage == "fq" else \
@@ -1490,6 +1559,12 @@ def _quant_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
         _check(torch.equal(yd, zd) and torch.equal(yt, zt)
                and torch.equal(ad, cd) and torch.equal(at, ct),
                f"{label}: a quantized slab kernel is not repeatable")
+        if storage == "fq":  # kernel 16's strip walk against its control
+            zd, zt = probe.gemv_q16_symm_slab_twopass(
+                op.operand[0], op.operand[3], ph, it, kt, lt, ms=2 * m)
+            _check(torch.equal(yd, zd) and torch.equal(yt, zt),
+                   f"{label} rank {c}: gemv_q16_symm_slab (strip walk) != "
+                   "the two-pass walk")
         inner_t, acc_t = _stored_tiles(op)
         od, ot = gemv._slab_parts(inner_t, ph.double(), it, kt, lt, 2 * m,
                                   tb, True)
@@ -1513,7 +1588,9 @@ def _quant_case(gemv, pcg_symm, ops_, ph, pl, p64, one):
     print(f"quantized slab walk {label} (tb={tb}, ms={2 * m}, "
           f"n={ph.shape[0]}, T={ops_[0].operand[-1].shape[0]} tiles a rank): "
           f"rel l2 kernel-plain / kernel-f64 max {inner_name} "
-          f"{max(errs32):.3e} (<= 1e-5), gemv_{storage}_symm_slab "
+          f"{max(errs32):.3e} (<= 1e-5"
+          f"{'; bits == the two-pass walk' if storage == 'fq' else ''}), "
+          f"gemv_{storage}_symm_slab "
           f"{max(errs64):.3e} (<= 1e-13); ranks' parts + diagonal terms "
           f"summed vs the one-device kernels: inner {e32:.3e} (<= 1e-5), "
           f"gemv_{storage}_symm {e64:.3e} (<= 1e-13)")
@@ -1611,7 +1688,9 @@ def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, one, a, p):
     `one_device_matvecs`). Timed at rank 0 of
     G=2 (the `kernels` entries) and of G=4 (printed); the q16 walk over
     three copies of its plane taken in turn, so its GB/s is an HBM figure
-    (one 55.1 or 39.3 MB plane would stay in the 50 MB L2)."""
+    (one 55.1 or 39.3 MB plane would stay in the 50 MB L2), and against its
+    control, the two-pass walk, in turns with the read floor."""
+    from lam_tpu_torch.ops import probe
     tb = layout.SYMM_TB
     diffs = {}
     timed = {}
@@ -1664,10 +1743,24 @@ def quant_slab_kernels_vs_plain(gemv, layout, pcg_symm, Mesh, one, a, p):
                 {"gemv_q16_symm_slab": _rotating(
                     lambda q: gemv.gemv_q16_symm_slab(q, s1, ph, it, kt, lt,
                                                       ms=ms), copies),
+                 "gemv_q16_symm_slab_twopass": _rotating(
+                     lambda q: probe.gemv_q16_symm_slab_twopass(
+                         q, s1, ph, it, kt, lt, ms=ms), copies),
                  "gemv_q16_symm_slab_bf16": _rotating(
                      lambda q: gemv.gemv_q16_symm_slab_bf16(
                          q, s1, ph, it, kt, lt, ms=ms), copies)},
                 _nbytes(q1, s1, ph, it, kt, lt, yd, yt))
+        print(f"gemv_q16_symm_slab (strip walk) at rank 0 of G={g} "
+              f"(T={T}), three copies in turn; bound "
+              f"{entries[0]['bound_ms']:.4f} ms:")
+        _against_library(
+            f"gemv_q16_symm_slab G={g}",
+            _rotating(lambda q: gemv.gemv_q16_symm_slab(
+                q, s1, ph, it, kt, lt, ms=ms), copies),
+            _rotating(lambda q: probe.gemv_q16_symm_slab_twopass(
+                q, s1, ph, it, kt, lt, ms=ms), copies),
+            _rotating(probe.stream_i16, copies), "read floor (lam_stream_i16)",
+            library_label="two-pass")
         del copies
         outs = gemv.gemv_fq_symm_slab(*fq.operand[:6], ph, pl, it, kt, lt,
                                       ms=ms)
@@ -2261,9 +2354,11 @@ def solve_slice(ops, lio, cli, system, tmp):
                f"a plain version ran on the {run} path")
         for k in total:
             total[k] += counts[k]
-        if run in STREAM_RUN_ITERS:
-            print(f"{run}: {iters} iterations through the dense_stream "
-                  f"walk; {STREAM_RUN_ITERS[run]} before it")
+        if run in WALK_RUN_ITERS:
+            print(f"{run}: {iters} iterations through the new "
+                  f"walks; {WALK_RUN_ITERS[run]} before them")
+            _check(iters == WALK_RUN_ITERS[run],
+                   f"{run}: the iteration count moved")
         xs[run], iters_of[run] = x, iters
     for precision, storage in PACK_CACHE.items():
         _check(os.path.exists(f"{a_path}.{storage}pack"),
@@ -2434,9 +2529,11 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
                 print(f"{run}: {iters} iterations; the one-device "
                       f"{ONE_DEVICE_OF[run]} run took "
                       f"{local_iters[ONE_DEVICE_OF[run]]}")
-            if run in STREAM_RUN_ITERS:
-                print(f"{run}: {iters} iterations through the dense_stream "
-                      f"walk; {STREAM_RUN_ITERS[run]} before it")
+            if run in WALK_RUN_ITERS:
+                print(f"{run}: {iters} iterations through the new "
+                      f"walks; {WALK_RUN_ITERS[run]} before them")
+                _check(iters == WALK_RUN_ITERS[run],
+                       f"{run}: the iteration count moved")
             xs[run], iters_of[run] = x, iters
             _check(iters <= 10000, f"{run} did not converge")
             _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
@@ -2671,7 +2768,8 @@ def main():
     torch.cuda.empty_cache()
     results.append(bf16_slab_large(gemv, layout, pcg_symm))
     _check(sorted(r["name"] for r in results)
-           == sorted(fn.__name__ for fn in ops.KERNELS + probe.PROBES),
+           == sorted(fn.__name__ for fn in ops.KERNELS + probe.PROBES
+                     if fn not in probe.CONTROLS),
            "phase 2 did not hold every kernel against its plain version")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:

@@ -13,7 +13,13 @@
 //                       partial matvec against one column block.
 //                                                          Walk: dense_stream.
 //   lam_gemv_df64_cols  replaces lam_tpu/ops/gemv.py:gemv_df64_cols (:761;
-//                       Pallas kernel _df64_cols_kernel). Walk: dense_rows.
+//                       Pallas kernel _df64_cols_kernel). Walk: dense_stream.
+//
+// and the df64 control, kept for the bit check and the in-turn timing of
+// kernels 4 and 6 on the same bytes (on no solver's path):
+//
+//   lam_gemv_df64_rows  kernel 6's function on dense_rows, rows of any
+//                       stride lda.
 //
 // Contract: A is (m, lda) row-major and the width n it reads of each row a
 // multiple of COLS_PER_STEP (the wrappers ask for multiples of 128 on both
@@ -42,17 +48,18 @@
 // The TPU kernels walked a sequential (rows, cols) grid of VMEM tiles with
 // lane accumulators; here the column walk is the loop inside the warp.
 //
-// dense_rows (kernels 3 and 6): a fixed grid of ROWS_PER_BLOCK-row blocks.
-// Each warp walks ROWS_PER_WARP rows together across the columns with
+// dense_rows (kernel 3, the df64 control): a fixed grid of
+// ROWS_PER_BLOCK-row blocks. Each warp walks ROWS_PER_WARP rows together
+// across the columns with
 // 16-byte streaming loads (__ldcs), so a warp's loads cover whole 512-byte
 // segments of every row and one load of p (__ldg) serves all its rows. The
 // bytes in flight are what the registers and the unroll allow.
 //
-// dense_stream (kernels 4 and 5): a persistent grid of BLOCKS_PER_SM blocks
-// on each SM (the SM count read once and cached), each owning a contiguous
-// range of whole rows, balanced to within one row (m=5120 on 132 SMs, two
-// blocks a SM: 19 or 20 rows a block, where 16-row blocks left 56 SMs with
-// 3 blocks and 76 with 2). The block's last warp is the producer: one
+// dense_stream (kernels 4, 5 and 6): a persistent grid of BLOCKS_PER_SM
+// blocks on each SM (the SM count read once and cached), each owning a
+// contiguous range of whole rows, balanced to within one row (m=5120 on 132
+// SMs, two blocks a SM: 19 or 20 rows a block, where 16-row blocks left 56
+// SMs with 3 blocks and 76 with 2). The block's last warp is the producer: one
 // thread fills a ring of STAGES stages in shared memory with TMA 1-D bulk
 // copies (cp.async.bulk ... mbarrier::complete_tx::bytes: UBLKCP in the
 // SASS), one copy per row and plane of a stage of STAGE_ROWS rows x
@@ -71,11 +78,17 @@
 // Sizes, from a sweep on an H100 (PERF.md section 6): f32 column block
 // STAGES=3, STAGE_ROWS=16, STAGE_COLS=512 (32 KB of A and 2 KB of p a
 // stage, 102 KB a block), two blocks a SM of 4 consumer warps: 204 KB a
-// SM; df64 STAGES=3, STAGE_ROWS=16, STAGE_COLS=512 (hi and lo: 64 KB of A
-// and 4 KB of p a stage, 204 KB a block), one block a SM of 8 consumer
-// warps. Smaller copies (1 KB and less) or fewer rows a stage were slower;
-// a deeper ring was not faster: past ~100 KB a SM the bytes in flight are
-// not what limits the walk.
+// SM; df64 square STAGES=3, STAGE_ROWS=16, STAGE_COLS=512 (hi and lo:
+// 64 KB of A and 4 KB of p a stage, 204 KB a block), one block a SM of 8
+// consumer warps; df64 column block STAGES=2, STAGE_ROWS=4, STAGE_COLS=512
+// (16 KB of A and 4 KB of p a stage, 40 KB a block), three blocks a SM of
+// 4 consumer warps. Smaller copies (1 KB and less) or fewer rows a stage
+// were slower; a deeper ring was not faster: past ~100 KB a SM the bytes
+// in flight are not what limits the walk. The df64 column block runs at
+// G=2 (5120 rows) and G=4 (2560 rows, four times the launches): its size
+// was the sweep's fastest at G=4, where every two-block size lost to
+// torch.mv, and beats torch.mv at G=2, where a two-block size was a little
+// faster still.
 //
 // f32: exact f32 products with f32 accumulation (no TF32, no bf16).
 // df64: on the TPU, which has no f64, the (hi, lo) float-float planes were
@@ -88,6 +101,8 @@
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "tma.cuh"
 
 namespace {
 
@@ -208,8 +223,6 @@ int launch(Mat A, Vec P, Out Y, int m, int n, int lda, cudaStream_t stream) {
 
 // ---- dense_stream: the persistent walk fed by TMA bulk copies -------------
 
-constexpr int MAX_DEVICES = 64;  // of the per-device caches
-
 template <int STAGES_, int STAGE_ROWS_, int STAGE_COLS_, int BLOCKS_PER_SM_,
           int WARPS_>
 struct StreamCfg {
@@ -251,70 +264,6 @@ struct DF64Stream {
     v[3] = (double)h.w + (double)l.w;
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(count) : "memory");
-}
-
-// Arrives once and adds `bytes` to the transactions the phase waits for.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-               :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Spins until the phase of parity `parity` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// L2 policies of the copies: A is read once (evict first), p by every
-// block (evict last).
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ uint64_t evict_last_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  return policy;
-}
-
-// TMA 1-D bulk copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device memory into this block's shared memory; completes
-// its bytes on `bar`.
-__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
-                                          uint32_t bytes, uint64_t* bar,
-                                          uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n"
-      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar)),
-         "l"(policy)
-      : "memory");
-}
 
 // A stage: the A planes, each STAGE_ROWS x STAGE_COLS floats (row r of
 // plane k at k * R * C + r * C), then the p planes of the same columns,
@@ -427,19 +376,6 @@ dense_stream(Mat A, Mat P, Out Y, int m, int n, int lda) {
   }
 }
 
-// The card's SM count, read once for each device.
-int sm_count(int dev, int* sms) {
-  static int cached[MAX_DEVICES];
-  if (dev >= 0 && dev < MAX_DEVICES && cached[dev]) {
-    *sms = cached[dev];
-    return (int)cudaSuccess;
-  }
-  const cudaError_t e =
-      cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess && dev >= 0 && dev < MAX_DEVICES) cached[dev] = *sms;
-  return (int)e;
-}
-
 template <class Cfg, class Mat, class Out>
 int launch_stream(Mat A, Mat P, Out Y, int m, int n, int lda,
                   cudaStream_t stream) {
@@ -452,19 +388,10 @@ int launch_stream(Mat A, Mat P, Out Y, int m, int n, int lda,
   constexpr size_t smem =
       (size_t)Cfg::STAGES * stage_floats<Cfg, Mat>() * sizeof(float);
   auto kernel = dense_stream<Cfg, Mat, Out>;
-  int dev, sms;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  const int se = sm_count(dev, &sms);
-  if (se != (int)cudaSuccess) return se;
   static bool sized[MAX_DEVICES];  // shared memory above 48 KB allowed
-  if (dev < 0 || dev >= MAX_DEVICES || !sized[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    if (dev >= 0 && dev < MAX_DEVICES) sized[dev] = true;
-  }
+  int dev, sms;
+  const int e = device_and_sms(kernel, smem, sized, &dev, &sms);
+  if (e != (int)cudaSuccess) return e;
   const int grid = sms * Cfg::BLOCKS_PER_SM;
   const int blocks = grid < m ? grid : m;
   kernel<<<blocks, Cfg::THREADS, smem, stream>>>(A, P, Y, m, n, lda);
@@ -474,6 +401,7 @@ int launch_stream(Mat A, Mat P, Out Y, int m, int n, int lda,
 // The sizes of dense_stream for each entry point (header).
 using F32ColsCfg = StreamCfg<3, 16, 512, 2, 4>;
 using DF64Cfg = StreamCfg<3, 16, 512, 1, 8>;
+using DF64ColsCfg = StreamCfg<2, 4, 512, 3, 4>;
 
 // Element offset of column block blk of width nb in a row of n columns, or
 // -1 for a block outside the row.
@@ -514,13 +442,27 @@ extern "C" int lam_gemv_f32_cols(const float* a, const float* p_blk, float* y,
 }
 
 // (y_hi, y_lo) (m,) = (a_hi + a_lo)[:, blk*nb:(blk+1)*nb] @ (p_hi + p_lo)
-// (nb,), the f32 split of the f64 result. Walk: dense_rows.
+// (nb,), the f32 split of the f64 result. Walk: dense_stream.
 extern "C" int lam_gemv_df64_cols(const float* a_hi, const float* a_lo,
                                   const float* p_hi, const float* p_lo,
                                   float* y_hi, float* y_lo, int m, int n,
                                   int nb, int blk, void* stream) {
   const size_t c0 = column_block(n, nb, blk);
   if (c0 == (size_t)-1) return (int)cudaErrorInvalidValue;
-  return launch(DF64Mat{a_hi + c0, a_lo + c0}, DF64Vec{p_hi, p_lo},
-                DF64Out{y_hi, y_lo}, m, nb, n, (cudaStream_t)stream);
+  return launch_stream<DF64ColsCfg>(
+      DF64Stream{{a_hi + c0, a_lo + c0}}, DF64Stream{{p_hi, p_lo}},
+      DF64Out{y_hi, y_lo}, m, nb, n, (cudaStream_t)stream);
+}
+
+// The df64 control on dense_rows: (y_hi, y_lo) (m,) = (a_hi + a_lo) (m, n)
+// @ (p_hi + p_lo) (n,) for rows of stride lda (a column block in place:
+// a_hi and a_lo offset by its first column, n its width), the bits of
+// lam_gemv_df64 and lam_gemv_df64_cols on the same bytes. Not on a
+// solver's path (lam_tpu_torch/ops/probe.py gemv_df64_rows).
+extern "C" int lam_gemv_df64_rows(const float* a_hi, const float* a_lo,
+                                  const float* p_hi, const float* p_lo,
+                                  float* y_hi, float* y_lo, int m, int n,
+                                  int lda, void* stream) {
+  return launch(DF64Mat{a_hi, a_lo}, DF64Vec{p_hi, p_lo}, DF64Out{y_hi, y_lo},
+                m, n, lda, (cudaStream_t)stream);
 }

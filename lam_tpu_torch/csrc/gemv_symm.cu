@@ -18,7 +18,8 @@
 //   lam_gemv_df64_symm_slab  replaces lam_tpu/ops/gemv.py:gemv_df64_symm_slab
 //                            (:1267; _gemv_df64_symm_slab_kernel)
 //   lam_gemv_q16_symm_slab   replaces lam_tpu/ops/gemv.py:gemv_q16_symm_slab
-//                            (:2310; _gemv_q16_symm_slab_kernel)
+//                            (:2310; _gemv_q16_symm_slab_kernel); pass 1
+//                            on the strip walk (below)
 //   lam_gemv_fq_symm_slab    replaces lam_tpu/ops/gemv.py:gemv_fq_symm_slab
 //                            (:2405; _gemv_fq_symm_slab_kernel)
 //   lam_gemv_dfq_symm_slab   replaces lam_tpu/ops/gemv.py:gemv_dfq_symm_slab
@@ -33,6 +34,12 @@
 //                       (:2544; _gemv_q16_dual_kernel, its 'vpu' form)
 //   lam_gemv_fq_dual    replaces lam_tpu/ops/gemv.py:gemv_fq_dual
 //                       (:2624; _gemv_fq_dual_kernel)
+//
+// with the control of the strip walk, kept for the bit check and the
+// in-turn timing on the same bytes (on no solver's path):
+//
+//   lam_gemv_q16_symm_slab_twopass  lam_gemv_q16_symm_slab on the two-pass
+//                                   walk below
 //
 // and the bf16 product engine of the three q16 kernels (lam_tpu's
 // LAM_Q16_IMPL "mxu" bodies, chosen by ops/gemv.py `_q16_impl`):
@@ -128,6 +135,18 @@
 //  The TPU kernels carried the transpose sums across their sequential
 //  grid in VMEM scratch (acc_t / acct_*); Hopper's blocks run in no
 //  order, hence the two passes.
+//  * Kernel 16, the q16 band-pair walk (2 B an element: a rank's 55 MB
+//    plane at G=2), is the one whose pass 1 paid most for one block a
+//    strip: around each 64 KB strip, dependent table and scale reads,
+//    the loads of p, a block-wide barrier, and a partly-filled last wave.
+//    Its pass 1 is the strip walk of csrc/strip_walk.cuh: a persistent
+//    grid, one producer warp streaming strips and their slices of p into
+//    a shared-memory ring with TMA bulk copies, the table reads done by
+//    the producer ahead of the consumers, the transpose reduction on a
+//    barrier of the consumer warps only, and pass 2 (slab_pass2) launched
+//    as a programmatic dependent. Inside a strip it sums in symm_pass1's
+//    order and writes the same partials, so its bits are the two-pass
+//    walk's (the control lam_gemv_q16_symm_slab_twopass).
 //
 // df64: on the TPU, which has no f64, the (hi, lo) float-float planes
 // were multiplied with Dekker two_prod and summed with Knuth two_sum
@@ -176,11 +195,12 @@
 // writes the exact kernel's part_d/part_t, so the three pass-2 kernels and
 // their fixed order of sums are shared: no float atomics, bitwise repeats.
 //
-// The code of this design is csrc/symm_walk.cuh; csrc/q16_probe.cu
-// instantiates it for the q16 probes too (the triangle walk at tb=1024, with
-// unreduced transpose partials, and three more tensor-core modes).
+// The code of this design is csrc/symm_walk.cuh (and csrc/strip_walk.cuh,
+// kernel 16's pass 1); csrc/q16_probe.cu instantiates symm_walk.cuh for the
+// q16 probes too (the triangle walk at tb=1024, with unreduced transpose
+// partials, and three more tensor-core modes).
 
-#include "symm_walk.cuh"
+#include "strip_walk.cuh"
 
 // Scratch sizes the caller allocates (elements): part_d T*TB, part_t
 // T*STRIPS*TB, with T = nblk(nblk+1)/2 (never a padded plane's count);
@@ -267,7 +287,21 @@ extern "C" int lam_gemv_df64_symm_slab(
 
 // The quantized twins, packed storage only (T tiles exactly, one scale per
 // walk position). q16: the int16 q1 plane against s1, f32 sums.
+// Walk: the strip walk (csrc/strip_walk.cuh); lt is not read (packed).
 extern "C" int lam_gemv_q16_symm_slab(
+    const short* q1, const float* s1, const float* p, const int* it,
+    const int* kt, const int* lt, const int* d_ptr, const int* d_ids,
+    const int* t_ptr, const int* t_ids, float* yd, float* yt, float* part_d,
+    float* part_t, int T, int ms, int n, void* stream) {
+  return launch_strip_slab(
+      q1, s1, p, it, kt, SlabLists{d_ptr, d_ids, t_ptr, t_ids}, yd, yt,
+      part_d, part_t, T, ms, n, (cudaStream_t)stream);
+}
+
+// The control of lam_gemv_q16_symm_slab: the same arguments and bits on the
+// two-pass walk of csrc/symm_walk.cuh. Not on a solver's path
+// (lam_tpu_torch/ops/probe.py gemv_q16_symm_slab_twopass).
+extern "C" int lam_gemv_q16_symm_slab_twopass(
     const short* q1, const float* s1, const float* p, const int* it,
     const int* kt, const int* lt, const int* d_ptr, const int* d_ids,
     const int* t_ptr, const int* t_ids, float* yd, float* yt, float* part_d,

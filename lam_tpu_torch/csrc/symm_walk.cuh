@@ -706,12 +706,15 @@ symm_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
 // (t_ids[t_ptr[j] .. t_ptr[j+1]]) and their strips s. A block computes
 // P2_COLS consecutive outputs of yd (the first ms / P2_COLS blocks) or of
 // yt, each as P2_GROUPS strided partial sums combined in a fixed order.
-template <class acc_t, class Out>
+// PDL: launched as a programmatic dependent of pass 1 (csrc/strip_walk.cuh),
+// it first waits for pass 1's writes.
+template <class acc_t, class Out, bool PDL = false>
 __global__ void __launch_bounds__(THREADS)
 slab_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
            const int* __restrict__ d_ptr, const int* __restrict__ d_ids,
            const int* __restrict__ t_ptr, const int* __restrict__ t_ids,
            int ms, Out yd, Out yt) {
+  if constexpr (PDL) asm volatile("griddepcontrol.wait;\n" ::: "memory");
   __shared__ acc_t red[P2_GROUPS][P2_COLS];
   const int col = threadIdx.x % P2_COLS;
   const int grp = threadIdx.x / P2_COLS;

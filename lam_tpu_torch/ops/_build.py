@@ -53,9 +53,11 @@ SIGNATURES = {
     "lam_gemv_df64": (_P,) * 6 + (_I, _I, _P),
     "lam_gemv_f32_cols": (_P, _P, _P) + (_I,) * 4 + (_P,),
     "lam_gemv_df64_cols": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "lam_gemv_df64_rows": (_P,) * 6 + (_I,) * 3 + (_P,),
     "lam_gemv_f32_symm_slab": (_P,) * 13 + (_I,) * 4 + (_P,),
     "lam_gemv_df64_symm_slab": (_P,) * 17 + (_I,) * 4 + (_P,),
     "lam_gemv_q16_symm_slab": (_P,) * 14 + (_I,) * 3 + (_P,),
+    "lam_gemv_q16_symm_slab_twopass": (_P,) * 14 + (_I,) * 3 + (_P,),
     "lam_gemv_fq_symm_slab": (_P,) * 21 + (_I,) * 3 + (_P,),
     "lam_gemv_dfq_symm_slab": (_P,) * 18 + (_I,) * 3 + (_P,),
     "lam_gemv_f32_dual": (_P,) * 7 + (_I, _I, _P),

@@ -264,6 +264,10 @@ def gemv_df64_cols_plain(a_hi, a_lo, p_hi, p_lo, blk):
     """Plain PyTorch (y_hi, y_lo) = A[:, blk*nb:(blk+1)*nb] @ p for
     A = a_hi + a_lo, computed in float64, returned as the f32 split."""
     gemv_df64_cols_plain.calls += 1
+    return _df64_cols(a_hi, a_lo, p_hi, p_lo, blk)
+
+
+def _df64_cols(a_hi, a_lo, p_hi, p_lo, blk):
     nb = p_hi.shape[0]
     cols = slice(blk * nb, (blk + 1) * nb)
     a = a_hi[:, cols].to(torch.float64) + a_lo[:, cols].to(torch.float64)
@@ -319,6 +323,10 @@ def gemv_q16_symm_slab_plain(q1_slab, sc1, p, it, kt, lt, *, ms):
     plane, the per-tile scales sc1 (T,) folded into p: (yd (ms,),
     yt (n,))."""
     gemv_q16_symm_slab_plain.calls += 1
+    return _q16_slab_parts(q1_slab, sc1, p, it, kt, lt, ms)
+
+
+def _q16_slab_parts(q1_slab, sc1, p, it, kt, lt, ms):
     tb, ms = _slab_geometry("gemv_q16_symm_slab", q1_slab, p, it, kt, lt,
                             ms, True, None)
     _check_walk(*_host_tables(it, kt, lt), p.shape[0] // tb, ms // tb)
@@ -882,12 +890,10 @@ def gemv_f32_cols(a, p_blk, blk):
     return y
 
 
-def gemv_df64_cols(a_hi, a_lo, p_hi, p_lo, blk):
-    """(y_hi, y_lo) (m,) = A[:, blk*nb:(blk+1)*nb] @ p for a row-major
-    (m, n) A = a_hi + a_lo and the (nb,) operand block p = p_hi + p_lo;
-    blk is a host int. Formed and accumulated in native f64 and returned
-    as the f32 split."""
-    what = "gemv_df64_cols"
+def _df64_cols_geometry(what, a_hi, a_lo, p_hi, p_lo, blk):
+    """(blk, m, n, nb) of a df64 column-block matvec; raises unless the
+    planes and operand halves match and pass `_check` and
+    `_cols_geometry`."""
     if a_lo.shape != a_hi.shape:
         raise ValueError(f"{what}: a_lo {tuple(a_lo.shape)} and a_hi "
                          f"{tuple(a_hi.shape)} differ")
@@ -897,7 +903,16 @@ def gemv_df64_cols(a_hi, a_lo, p_hi, p_lo, blk):
     _check(what, {"a_hi": a_hi, "a_lo": a_lo, "p_hi": p_hi, "p_lo": p_lo},
            a_hi.device)
     blk = operator.index(blk)
-    m, n, nb = _cols_geometry(what, a_hi, blk, p_hi, p_lo)
+    return (blk, *_cols_geometry(what, a_hi, blk, p_hi, p_lo))
+
+
+def gemv_df64_cols(a_hi, a_lo, p_hi, p_lo, blk):
+    """(y_hi, y_lo) (m,) = A[:, blk*nb:(blk+1)*nb] @ p for a row-major
+    (m, n) A = a_hi + a_lo and the (nb,) operand block p = p_hi + p_lo;
+    blk is a host int. Formed and accumulated in native f64 and returned
+    as the f32 split."""
+    what = "gemv_df64_cols"
+    blk, m, n, nb = _df64_cols_geometry(what, a_hi, a_lo, p_hi, p_lo, blk)
     if a_hi.device.type == "cpu":
         return gemv_df64_cols_plain(a_hi, a_lo, p_hi, p_lo, blk)
     from lam_tpu_torch.ops._build import library
@@ -1117,6 +1132,9 @@ def _q16_slab(wrapper, plain, entry, q1_slab, sc1, p, it, kt, lt, ms):
     what = "gemv_q16_symm_slab"
     _check(what, {"q1": q1_slab, "s1": sc1, "p": p, "it": it, "kt": kt,
                   "lt": lt}, q1_slab.device)
+    if p.is_cuda and p.data_ptr() % 16:
+        raise ValueError(f"{what}: p must be 16-byte aligned (the strip "
+                         "walk copies it with TMA)")
     tb, ms = _slab_geometry(what, q1_slab, p, it, kt, lt, ms, True, None)
     _check_scales(what, it.shape[0], {"scale": sc1})
     if q1_slab.device.type == "cpu":

@@ -43,6 +43,14 @@ three bf16 parts; hybrid: hi's transpose term, the direct term as f32
 FMAs). Their plain versions: the exact f32 walk, `split` with p * s
 rounded to bf16.
 
+Beside them, the earlier walks of two solver kernels that a later walk
+replaced, kept as controls: `gemv_df64_rows` is kernel 6's function
+(`gemv.gemv_df64_cols`) on the dense_rows walk of csrc/gemv_dense.cu, and
+`gemv_q16_symm_slab_twopass` kernel 16's (`gemv.gemv_q16_symm_slab`, exact
+products) on the two-pass walk of csrc/symm_walk.cuh. Each gives its
+kernel's bits on the same bytes; chip_smoke.py times each in turns with
+its kernel.
+
 These are measuring tools, not kernels of the solver's path: they stay out
 of the solver's registry (lam_tpu_torch.ops.KERNELS) and keep their own,
 `PROBES` (launches) and `PROBES_PLAIN` (calls), with `reset_counters()`
@@ -314,13 +322,67 @@ def gemv_q16_symm_hybrid(q1, s1, p):
                  q1, s1, p)
 
 
+# -- the controls -------------------------------------------------------------
+
+def gemv_df64_rows_plain(a_hi, a_lo, p_hi, p_lo, blk):
+    """Plain version of `gemv_df64_rows`: `gemv.gemv_df64_cols_plain`'s
+    f64 product."""
+    gemv_df64_rows_plain.calls += 1
+    return gemv._df64_cols(a_hi, a_lo, p_hi, p_lo, blk)
+
+
+def gemv_df64_rows(a_hi, a_lo, p_hi, p_lo, blk):
+    """`gemv.gemv_df64_cols` (the same arguments, checks and bits) on the
+    dense_rows walk: (y_hi, y_lo) (m,) = A[:, blk*nb:(blk+1)*nb] @ p for
+    A = a_hi + a_lo, p = p_hi + p_lo (nb,); with nb = n and blk = 0, the
+    bits of `gemv.gemv_df64` on the square or row block."""
+    what = "gemv_df64_rows"
+    blk, m, n, nb = gemv._df64_cols_geometry(what, a_hi, a_lo, p_hi, p_lo,
+                                             blk)
+    if a_hi.device.type == "cpu":
+        return gemv_df64_rows_plain(a_hi, a_lo, p_hi, p_lo, blk)
+    from lam_tpu_torch.ops._build import library
+    lib = library()
+    y_hi = torch.empty(m, dtype=torch.float32, device=a_hi.device)
+    y_lo = torch.empty(m, dtype=torch.float32, device=a_hi.device)
+    c0 = blk * nb * a_hi.element_size()  # the block's first column, bytes
+    with torch.cuda.device(a_hi.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.lam_gemv_df64_rows(a_hi.data_ptr() + c0,
+                                      a_lo.data_ptr() + c0, p_hi.data_ptr(),
+                                      p_lo.data_ptr(), y_hi.data_ptr(),
+                                      y_lo.data_ptr(), m, nb, n, stream)
+    gemv_df64_rows.launches += 1
+    gemv._raise_on(what, code)
+    return y_hi, y_lo
+
+
+def gemv_q16_symm_slab_twopass_plain(q1_slab, sc1, p, it, kt, lt, *, ms):
+    """Plain version of `gemv_q16_symm_slab_twopass`:
+    `gemv.gemv_q16_symm_slab_plain`'s f32 walk."""
+    gemv_q16_symm_slab_twopass_plain.calls += 1
+    return gemv._q16_slab_parts(q1_slab, sc1, p, it, kt, lt, ms)
+
+
+def gemv_q16_symm_slab_twopass(q1_slab, sc1, p, it, kt, lt, *, ms):
+    """`gemv.gemv_q16_symm_slab` with exact products (the same arguments,
+    checks and bits) on the two-pass walk: (yd (ms,), yt (n,))."""
+    return gemv._q16_slab(gemv_q16_symm_slab_twopass,
+                          gemv_q16_symm_slab_twopass_plain,
+                          "lam_gemv_q16_symm_slab_twopass", q1_slab, sc1, p,
+                          it, kt, lt, ms)
+
+
 PROBES = (stream_i16, convert_f32_sum, gemv_q16_symm_magic,
           gemv_q16_symm_tb1024, gemv_q16_symm_sub8, gemv_q16_symm_split,
-          gemv_q16_symm_hi, gemv_q16_symm_hybrid)
+          gemv_q16_symm_hi, gemv_q16_symm_hybrid, gemv_df64_rows,
+          gemv_q16_symm_slab_twopass)
 PROBES_PLAIN = (stream_i16_plain, convert_f32_sum_plain,
                 gemv_q16_symm_magic_plain, gemv_q16_symm_tb1024_plain,
                 gemv_q16_symm_sub8_plain, gemv_q16_symm_split_plain,
-                gemv_q16_symm_hi_plain, gemv_q16_symm_hybrid_plain)
+                gemv_q16_symm_hi_plain, gemv_q16_symm_hybrid_plain,
+                gemv_df64_rows_plain, gemv_q16_symm_slab_twopass_plain)
+CONTROLS = (gemv_df64_rows, gemv_q16_symm_slab_twopass)  # not TPU kernels
 
 
 def reset_counters():

@@ -11,10 +11,12 @@ are the main path's: tb=512 tiles, n=2048 (4 row tiles) and n=10240
 read the port's own fq pack, stored padded (T=10 -> 16 tiles at n=2048,
 T=210 -> 216 at n=10240); the dfq kernel the port's own dfq pack (exactly
 T tiles). The dense kernels take the full square and a row block of a
-matrix that is not symmetric; kernels 4 and 5 (the dense_stream walk) also
-the edges of its row partition and the ring's column blocks, equal bit for
-bit to the dense_rows walk on the same bytes, and their SASS the TMA bulk
-copy. The stencil kernel takes padded grids up
+matrix that is not symmetric; kernels 4, 5 and 6 (the dense_stream walk)
+also the edges of its row partition and the ring's column blocks, equal
+bit for bit to the dense_rows walk on the same bytes, and their SASS the
+TMA bulk copy. Kernel 16 (the strip walk) takes every rank's tables of the
+band pairs, a single-tile walk and misaligned operands, equal bit for bit
+to its control, the two-pass walk. The stencil kernel takes padded grids up
 to the heat demo's 998 x 1198 interior (1024 x 1280), with zero edges and
 with the non-zero edge rows of a row-sharded grid.
 """
@@ -24,7 +26,7 @@ import pytest
 import torch
 
 from lam_tpu_torch import ops
-from lam_tpu_torch.ops import gemv, layout, stencil
+from lam_tpu_torch.ops import gemv, layout, probe, stencil
 from lam_tpu_torch.parallel import mesh as pmesh
 from lam_tpu_torch.parallel import pcg, pcg_symm
 from lam_tpu_torch.precision import split_f64_host
@@ -362,22 +364,56 @@ def test_gemv_df64_stream_walk(m, n):
     zh, zl = gemv.gemv_df64(ah, al, ph, pl)
     assert torch.equal(yh, zh) and torch.equal(yl, zl)
     # the dense_rows walk (one column block of the full width): same bits
-    zh, zl = gemv.gemv_df64_cols(ah, al, ph, pl, 0)
+    zh, zl = probe.gemv_df64_rows(ah, al, ph, pl, 0)
     assert torch.equal(yh, zh) and torch.equal(yl, zl)
 
 
+@pytest.mark.parametrize("m,n,nb", STREAM_COLS)
+def test_gemv_df64_cols_stream_walk(m, n, nb):
+    a64, rng = _zero_tail(m, n, seed=m + nb + 2)
+    ah, al = (torch.from_numpy(x).cuda()
+              for x in split_f64_host(a64.cpu().numpy()))
+    for blk in range(n // nb):
+        cols = slice(blk * nb, (blk + 1) * nb)
+        ph, pl = (torch.from_numpy(x).cuda()
+                  for x in split_f64_host(rng.uniform(-1, 1, nb)))
+        ops.reset_counters()
+        yh, yl = gemv.gemv_df64_cols(ah, al, ph, pl, blk)
+        torch.cuda.synchronize()
+        assert ops.counters()["gemv_df64_cols"] == 1 and yh.shape == (m,)
+        y = yh.double() + yl.double()
+        oracle = torch.mv(ah[:, cols].double() + al[:, cols].double(),
+                          ph.double() + pl.double())
+        assert _rel(y, oracle) <= 1e-13
+        qh, ql = gemv.gemv_df64_cols_plain(ah, al, ph, pl, blk)
+        assert _rel(qh.double() + ql.double(), oracle) <= 1e-13
+        assert torch.count_nonzero(yh[m - STREAM_PAD:]) == 0
+        assert torch.count_nonzero(yl[m - STREAM_PAD:]) == 0
+        zh, zl = gemv.gemv_df64_cols(ah, al, ph, pl, blk)
+        assert torch.equal(yh, zh) and torch.equal(yl, zl)
+        # the dense_rows walk on the same bytes: same bits
+        zh, zl = probe.gemv_df64_rows(ah, al, ph, pl, blk)
+        assert torch.equal(yh, zh) and torch.equal(yl, zl)
+
+
 def test_dense_stream_kernels_hold_the_bulk_copy():
-    """The SASS of kernels 4 and 5 (dense_stream) issues TMA bulk copies
-    (UBLKCP); that of kernels 3 and 6 (dense_rows) none."""
+    """The SASS of kernels 4, 5 and 6 (dense_stream) and of kernel 16's
+    strip walk issues TMA bulk copies (UBLKCP); that of the dense_rows
+    kernels (3 and the df64 control) and of kernel 16's control (the
+    two-pass walk's pass 1 on the slab tables) none."""
     from lam_tpu_torch.ops import _build
     kernels = _build.sass()
     stream = [k for k in kernels if "dense_stream" in k]
     rows = [k for k in kernels if "dense_rows" in k]
-    assert sorted("DF64Stream" in k for k in stream) == [False, True]
+    strip = [k for k in kernels if "strip_pass1" in k]
+    twopass = [k for k in kernels if "symm_pass1" in k and "8Q16Plane" in k
+               and "TableWalk" in k]
+    assert sorted("DF64Stream" in k for k in stream) == [False, True, True]
     assert sorted("DF64Mat" in k for k in rows) == [False, True]
-    for k in stream:
+    assert len(strip) == 1 and len(twopass) == 1
+    for k in stream + strip:
         assert any("UBLKCP" in line for line in kernels[k])
-    for k in rows:
+    for k in rows + twopass:
         assert not any("UBLKCP" in line for line in kernels[k])
 
 
@@ -483,7 +519,7 @@ def _cuda_pair(p, n_p):
     return tuple(torch.from_numpy(x).cuda() for x in split_f64_host(v))
 
 
-@pytest.mark.parametrize("n,g", SHARD_SIZES)
+@pytest.mark.parametrize("n,g", SHARD_SIZES + [(10000, 4)])
 def test_cols_kernels_match_plain(n, g):
     """Every rank's rows against every column block; the last rank's rows
     past n are padding and must come out exactly 0."""
@@ -525,6 +561,9 @@ def test_cols_kernels_match_plain(n, g):
                 assert torch.count_nonzero(yh[m - pad:]) == 0
             assert torch.equal(y, gemv.gemv_f32_cols(hi, ph[cols], blk))
             zh, zl = gemv.gemv_df64_cols(hi, lo, ph[cols], pl[cols], blk)
+            assert torch.equal(yh, zh) and torch.equal(yl, zl)
+            # kernel 6 (dense_stream) gives the dense_rows walk's bits
+            zh, zl = probe.gemv_df64_rows(hi, lo, ph[cols], pl[cols], blk)
             assert torch.equal(yh, zh) and torch.equal(yl, zl)
 
 
@@ -594,7 +633,10 @@ def test_slab_kernel_rejects_bad_tables():
                                  ms=2 * op.m, packed=True)
 
 
-QSHARD_SIZES = [(1500, 2), (1500, 3), (10000, 2), (10000, 4)]  # (n, ranks)
+# (n, ranks); 2500 at G=4 walks 9 tiles a rank (72 strips, fewer than the
+# card's SMs) and 4000 at G=3 84 (672 strips, not a multiple of 132)
+QSHARD_SIZES = [(1500, 2), (1500, 3), (10000, 2), (10000, 4), (2500, 4),
+                (4000, 3)]
 
 
 @pytest.mark.parametrize("storage", ["fq", "dfq"])
@@ -642,6 +684,10 @@ def test_quantized_slab_kernels_match_plain(n, g, storage):
             zd, zt = gemv.gemv_q16_symm_slab(planes[0], scales[0], ph, it,
                                              kt, lt, ms=ms)
             assert torch.equal(yd, zd) and torch.equal(yt, zt)
+            # kernel 16 (the strip walk) gives the two-pass walk's bits
+            zd, zt = probe.gemv_q16_symm_slab_twopass(planes[0], scales[0],
+                                                      ph, it, kt, lt, ms=ms)
+            assert torch.equal(yd, zd) and torch.equal(yt, zt)
             stored = terms[0] + terms[1] + terms[2]
             plain = gemv.gemv_fq_symm_slab_plain(*planes, *scales, ph, pl,
                                                  it, kt, lt, ms=ms)
@@ -677,6 +723,57 @@ def test_quantized_slab_kernels_match_plain(n, g, storage):
                       torch.from_numpy(p).cuda())
     assert _rel(total[:n], oracle) <= (1e-12 if storage == "fq" else 1e-11)
     assert torch.count_nonzero(total[n:]) == 0
+
+
+@pytest.mark.parametrize("i", [0, 1])
+def test_q16_strip_walk_on_a_single_tile(i):
+    """A walk of one tile (T=1, 8 strips on a grid of 8 blocks): the
+    diagonal tile (0, 0), which has no transpose term, or the off-diagonal
+    tile (1, 0): the two-pass walk's bits, the plain version to 1e-5,
+    bitwise repeats."""
+    tb = layout.SYMM_TB
+    rng = np.random.default_rng(70 + i)
+    n = (i + 1) * tb
+    q1 = torch.from_numpy(rng.integers(-32767, 32768, (tb, tb)).astype(
+        np.int16)).cuda()
+    s1 = torch.tensor([2.0 ** -12], device="cuda")
+    p = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).cuda()
+    it, kt, lt = (torch.tensor([x], dtype=torch.int32, device="cuda")
+                  for x in (i, 0, 0))
+    ops.reset_counters()
+    yd, yt = gemv.gemv_q16_symm_slab(q1, s1, p, it, kt, lt, ms=tb)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_q16_symm_slab"] == 1
+    assert yd.shape == (tb,) and yt.shape == (n,)
+    qd, qt = gemv.gemv_q16_symm_slab_plain(q1, s1, p, it, kt, lt, ms=tb)
+    assert _rel(yd, qd) <= 1e-5
+    assert _rel(yt, qt) <= 1e-5 if i else not torch.any(yt)
+    zd, zt = probe.gemv_q16_symm_slab_twopass(q1, s1, p, it, kt, lt, ms=tb)
+    assert torch.equal(yd, zd) and torch.equal(yt, zt)
+    zd, zt = gemv.gemv_q16_symm_slab(q1, s1, p, it, kt, lt, ms=tb)
+    assert torch.equal(yd, zd) and torch.equal(yt, zt)
+
+
+def test_q16_strip_walk_refuses_misaligned_operands():
+    """The strip walk copies the plane and p with TMA, which needs 16-byte
+    alignment: a view that starts 2 bytes in is refused, not launched."""
+    op = pcg_symm.SymmShardedOperator.from_dense(
+        _shard_matrix(1500, 1)[0], mesh=pmesh.Mesh(0, 2, "cuda"),
+        precision="fq")
+    q1, s1 = op.operand[0], op.operand[3]
+    it, kt, lt = op.operand[-3:]
+    n, ms = op.n_padded, 2 * op.m
+    flat = torch.zeros(q1.numel() + 8, dtype=torch.int16, device="cuda")
+    q1_off = flat[1:1 + q1.numel()].view(q1.shape)
+    q1_off.copy_(q1)
+    p_buf = torch.zeros(n + 4, device="cuda")
+    p_off = p_buf[1:1 + n]
+    ops.reset_counters()
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_q16_symm_slab(q1_off, s1, p_buf[:n], it, kt, lt, ms=ms)
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_q16_symm_slab(q1, s1, p_off, it, kt, lt, ms=ms)
+    assert ops.counters()["gemv_q16_symm_slab"] == 0
 
 
 def test_quantized_slab_kernels_reject_bad_inputs():
@@ -1321,7 +1418,8 @@ def test_q16_probe_tool_on_the_card(capsys):
     probe.reset_counters()
     rows = tool.run((1, 2, 3, 4), 4096, 2, "cuda")
     assert all(r["ms"] > 0 and r["floor_ms"] > 0 for r in rows)
+    controls = {fn.__name__ for fn in probe.CONTROLS}  # not the tool's
     assert all(v > 0 for k, v in probe.counters().items()
-               if not k.endswith("_plain"))
+               if not k.endswith("_plain") and k not in controls)
     assert not any(v for k, v in probe.counters().items()
                    if k.endswith("_plain"))

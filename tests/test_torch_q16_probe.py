@@ -10,6 +10,13 @@ random int16 plane (full range) against random power-of-two scales and a
 random p, made with numpy. Tolerances: 1e-6 relative l2 for every walk
 (f32 sums in other orders; `split` rounds p * s to bf16 on both sides);
 the plane, the bit-trick dequantization and the closed forms exactly.
+
+The two controls of ops/probe.py (`gemv_df64_rows`, kernel 6's function on
+the dense_rows walk; `gemv_q16_symm_slab_twopass`, kernel 16's on the
+two-pass walk) take their plain versions on the CPU: against lam_tpu's
+`gemv_df64_cols` and `gemv_q16_symm_slab` (interpret mode; 1e-6, and the
+df64 one to an f64 oracle at 1e-13) and bit for bit against the port's
+kernel wrappers, whose plain versions compute the same.
 """
 
 import importlib.util
@@ -24,7 +31,10 @@ import torch
 from jax.experimental.pallas import tpu as pltpu
 
 from lam_tpu.ops import gemv as jgemv
-from lam_tpu_torch.ops import probe
+from lam_tpu_torch import ops
+from lam_tpu_torch.ops import gemv, probe
+from lam_tpu_torch.parallel import pcg_symm
+from lam_tpu_torch.precision import split_f64_host
 from lam_tpu_torch.tools import q16_probe as tool
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -227,3 +237,113 @@ def test_new_modules_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"
+
+
+# -- the controls of kernels 6 and 16 -----------------------------------------
+
+def _control_calls():
+    """{name: count} of the controls' launches and plain calls, and of the
+    two solver kernels' wrappers and plain versions."""
+    counts = probe.counters()
+    out = {fn.__name__: counts[fn.__name__] for fn in probe.CONTROLS}
+    out.update({f"{fn.__name__}_plain": counts[f"{fn.__name__}_plain"]
+                for fn in probe.CONTROLS})
+    solver = ops.counters()
+    out.update({k: solver[k] for k in (
+        "gemv_df64_cols", "gemv_df64_cols_plain", "gemv_q16_symm_slab",
+        "gemv_q16_symm_slab_plain")})
+    return out
+
+
+@pytest.mark.parametrize("blk", range(4))
+def test_df64_rows_control_matches_lam_tpu(blk):
+    rng = np.random.default_rng(40 + blk)
+    a = rng.uniform(-1, 1, size=(256, 512))
+    p = rng.uniform(-1, 1, size=128)
+    (ah, al), (ph, pl) = split_f64_host(a), split_f64_host(p)
+    args = [torch.from_numpy(x) for x in (ah, al, ph, pl)]
+    probe.reset_counters()
+    ops.reset_counters()
+    yh, yl = probe.gemv_df64_rows(*args, blk)
+    calls = _control_calls()
+    assert calls.pop("gemv_df64_rows_plain") == 1
+    assert set(calls.values()) == {0}
+    y = yh.double().numpy() + yl.double().numpy()
+    cols = slice(blk * 128, (blk + 1) * 128)
+    oracle = ((ah[:, cols].astype(np.float64) + al[:, cols])
+              @ (ph.astype(np.float64) + pl))
+    assert _rel(y, oracle) <= 1e-13
+    rh, rl = jgemv.gemv_df64_cols(ah, al, ph, pl, blk)
+    assert _rel(y, np.asarray(rh, np.float64) + np.asarray(rl)) <= 1e-6
+    zh, zl = gemv.gemv_df64_cols(*args, blk)
+    assert torch.equal(yh, zh) and torch.equal(yl, zl)
+
+
+@pytest.mark.parametrize("g,mt", [(1, 2), (2, 2), (3, 1)])
+def test_q16_slab_twopass_control_matches_lam_tpu(g, mt):
+    tb = 128
+    its, kts, lts = pcg_symm._band_tables(g, mt, tb)
+    n, ms = 2 * g * mt * tb, 2 * mt * tb
+    rng = np.random.default_rng(50 + 10 * g + mt)
+    p = rng.standard_normal(n).astype(np.float32)
+    for c in range(g):
+        it, kt, lt = (x[c].copy() for x in (its, kts, lts))
+        T = it.shape[0]
+        q1 = rng.integers(-32767, 32768, (T * tb, tb)).astype(np.int16)
+        sc = (2.0 ** -rng.integers(8, 20, T)).astype(np.float32)
+        args = [torch.from_numpy(x) for x in (q1, sc, p, it, kt, lt)]
+        probe.reset_counters()
+        ops.reset_counters()
+        yd, yt = probe.gemv_q16_symm_slab_twopass(*args, ms=ms)
+        calls = _control_calls()
+        assert calls.pop("gemv_q16_symm_slab_twopass_plain") == 1
+        assert set(calls.values()) == {0}
+        assert yd.shape == (ms,) and yt.shape == (n,)
+        rd, rt = (np.asarray(x) for x in jgemv.gemv_q16_symm_slab(
+            q1, sc, p, it, kt, lt, ms=ms))
+        assert _rel(yd.numpy(), rd) <= 1e-6
+        assert (_rel(yt.numpy(), rt) <= 1e-6) if np.any(rt) else \
+            not torch.any(yt)
+        zd, zt = gemv.gemv_q16_symm_slab(*args, ms=ms)
+        assert torch.equal(yd, zd) and torch.equal(yt, zt)
+
+
+def test_controls_refuse_what_their_kernels_refuse():
+    a = torch.zeros(256, 512)
+    p = torch.zeros(128)
+    with pytest.raises(ValueError, match="differ"):
+        probe.gemv_df64_rows(a, a[:128], p, p, 0)
+    with pytest.raises(ValueError, match="outside"):
+        probe.gemv_df64_rows(a, a, p, p, 4)
+    with pytest.raises(ValueError, match="float32"):
+        probe.gemv_df64_rows(a.double(), a, p, p, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        probe.gemv_df64_rows(a.t().contiguous().t(), a, p, p, 0)
+    its, kts, lts = pcg_symm._band_tables(2, 1, 128)
+    it, kt, lt = (torch.from_numpy(x[0].copy()) for x in (its, kts, lts))
+    T = it.shape[0]
+    q1 = torch.zeros(T * 128, 128, dtype=torch.int16)
+    sc, pv = torch.ones(T), torch.zeros(512)
+    with pytest.raises(ValueError, match="int16"):
+        probe.gemv_q16_symm_slab_twopass(q1.float(), sc, pv, it, kt, lt,
+                                         ms=256)
+    with pytest.raises(ValueError, match="table shape"):
+        probe.gemv_q16_symm_slab_twopass(q1, sc[:-1], pv, it, kt, lt, ms=256)
+    with pytest.raises(ValueError, match="out of range"):
+        probe.gemv_q16_symm_slab_twopass(q1, sc, pv, it, it + 1, lt, ms=256)
+    probe.reset_counters()
+    with pytest.raises(ValueError, match="expected"):
+        probe.gemv_q16_symm_slab_twopass(q1, sc, pv.to("meta"), it, kt, lt,
+                                         ms=256)
+    assert set(probe.counters().values()) == {0}
+
+
+def test_controls_stay_out_of_the_solver_registry():
+    names = {fn.__name__ for fn in probe.CONTROLS}
+    assert names == {"gemv_df64_rows", "gemv_q16_symm_slab_twopass"}
+    assert set(probe.CONTROLS) <= set(probe.PROBES)
+    assert not names & {fn.__name__ for fn in ops.KERNELS}
+    for fn in probe.CONTROLS:
+        fn.launches = 3
+    probe.reset_counters()
+    assert all(fn.launches == 0 for fn in probe.CONTROLS)
