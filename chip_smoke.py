@@ -31,13 +31,15 @@
      dense_rows beside, printing the spread of the kernel/library ratio;
      kernels 5 and 6 also at rank 0's column block of G=4 (printed only;
      kernel 6 over three copies in turn);
-   - kernel 16 (gemv_q16_symm_slab) runs the strip walk of
-     csrc/strip_walk.cuh: its SASS holds UBLKCP and that of its control,
-     the two-pass walk gemv_q16_symm_slab_twopass, none; its (yd, yt)
-     equal the control's bit for bit on every rank's tables of G=2 and
-     G=4, and it is timed against the control LIBRARY_REPEATS times in
-     turns, the read floor beside, over three copies of its plane, at
-     rank 0 of G=2 and of G=4.
+   - kernels 16, 18 and 19 (gemv_q16_symm_slab, gemv_q16_dual,
+     gemv_fq_dual) run the strip walk of csrc/strip_walk.cuh: their SASS
+     holds UBLKCP and that of their controls, the two-pass walks
+     gemv_q16_symm_slab_twopass, gemv_q16_dual_twopass and
+     gemv_fq_dual_twopass, none; ptxas reports no spill for them. Kernel
+     16's (yd, yt) equal its control's bit for bit on every rank's tables
+     of G=2 and G=4, and it is timed against the control LIBRARY_REPEATS
+     times in turns, the read floor beside, over three copies of its
+     plane, at rank 0 of G=2 and of G=4; kernels 18 and 19 below.
    The fq and dfq planes are the port's own packs of the matrix with its
    diagonal zeroed. The four kernels of the sharded backends at the
    shards of another random symmetric N=10000 matrix, each rank's part
@@ -70,9 +72,13 @@
    1e-13), bitwise repeats, pad tiles and pad scales filled with garbage
    and the result unchanged; the four ranks' (own, payload) exchanged by
    hand and summed against the one-device kernels, padding rows exactly 0;
+   kernels 18 and 19 equal their two-pass controls bit for bit on both
+   off-diagonal ranks, garbage pads too;
    timed at rank (1, 0), the f32 and q16 kernels over three copies of their
    plane in turn, beside two torch.mv calls over the dense rectangle (S p,
-   S^T q) for the f32 and df64 ones. Prints each kernel's median
+   S^T q) for the f32 and df64 ones; kernels 18 and 19 also against their
+   controls LIBRARY_REPEATS times in turns, beside the read floor of their
+   planes (kernel 19's: q1, q2 and q3 streamed one after another). Prints each kernel's median
    time per call, its plain version's and, where one PyTorch call
    computes the same function (torch.mv on the full f32 or f64 square, or
    on the strided column view for the ring's kernels; for the slab walks,
@@ -371,15 +377,16 @@ ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "symgrid-irfq-warm-4": "irfq-warm", "symgrid-fq-4": "fq",
                  "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq",
                  "symgrid-irfq-mxu-4": "irfq-cold"}
-# the runs through kernels 4, 5 and 6 (the dense_stream walk) and 16 (the
-# strip walk) -> the iteration count every earlier chip run of their
-# precision gave (PERF.md section 2): the walks keep the bits, so this
-# run's must be the same
+# the runs through kernels 4, 5 and 6 (the dense_stream walk) and 16, 18
+# and 19 (the strip walk) -> the iteration count every earlier chip run of
+# their precision gave (PERF.md section 2): the walks keep the bits, so
+# this run's must be the same
 WALK_RUN_ITERS = {"ir-pallas": 365, "df64-pallas": 358, "ring-ir": 365,
                   "gather-df64": 358, "ring-ir-4": 365, "grid-ir-4": 365,
                   "packed-irfq-cold": 375, "packed-irfq-warm": 375,
-                  "packed-irfq-4": 375}
-LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6 and 16
+                  "packed-irfq-4": 375, "symgrid-irfq-cold-4": 375,
+                  "symgrid-irfq-warm-4": 375, "symgrid-fq-4": 358}
+LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6, 16, 18 and 19
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
@@ -465,11 +472,13 @@ def _against_library(name, kernel, library, earlier, earlier_label,
     control: library_label names it), with the earlier walk on the same
     bytes (or the read floor) beside them, timed in turns LIBRARY_REPEATS
     times in this run: the spread of the kernel/library ratio says how far
-    one timing can be trusted (a few % drift between runs, PERF.md §6)."""
-    ratios = []
+    one timing can be trusted (a few % drift between runs, PERF.md §6).
+    Returns the kernel's times."""
+    ratios, times = [], []
     for r in range(LIBRARY_REPEATS):
         ms, lib_ms, old_ms = _median_ms([kernel, library, earlier])
         ratios.append(ms / lib_ms)
+        times.append(ms)
         print(f"{name} repeat {r + 1}: kernel {ms:.4f} ms, {library_label} "
               f"{lib_ms:.4f} ms, kernel/{library_label} {ms / lib_ms:.4f}; "
               f"{earlier_label} {old_ms:.4f} ms (/{library_label} "
@@ -477,13 +486,32 @@ def _against_library(name, kernel, library, earlier, earlier_label,
     print(f"{name} kernel/{library_label} over {LIBRARY_REPEATS} repeats: "
           f"min {min(ratios):.4f}, max {max(ratios):.4f}, spread "
           f"{max(ratios) - min(ratios):.4f}")
+    return times
+
+
+# the two-pass walks kept as the strip walk's controls: pass 1's
+# instantiation (plane, walk) in the mangled names
+TWOPASS_CONTROLS = {"kernel 16's": ("8Q16Plane", "TableWalk"),
+                    "kernel 18's": ("8Q16Plane", "8RectWalk"),
+                    "kernel 19's": ("7FQPlane", "8RectWalk")}
+# the strip walk's instantiations (planes, walk) -> their kernel
+STRIP_WALKS = {("StripPlanesILi1E", "TableWalk"): "kernel 16",
+               ("StripPlanesILi1E", "RectWalk"): "kernel 18",
+               ("StripPlanesILi3E", "RectWalk"): "kernel 19"}
+
+
+def _strip_walk_of(name):
+    return next((k for (planes, walk), k in STRIP_WALKS.items()
+                 if planes in name and walk in name), None)
 
 
 def stream_sass(build):
-    """The SASS of the dense_stream kernels (4, 5 and 6) and of kernel 16's
-    strip walk holds the TMA bulk copy (UBLKCP); that of the dense_rows
-    kernels (3 and the df64 control) and of kernel 16's control (the
-    two-pass walk's pass 1 on the q16 slab tables) none."""
+    """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
+    walks of kernels 16, 18 and 19 holds the TMA bulk copy (UBLKCP); that
+    of the dense_rows kernels (3 and the df64 control) and of the three
+    strip walks' controls (the two-pass walk's pass 1) none. Prints each
+    strip walk's registers from ptxas' report in the build log, which must
+    show no spill and no stack frame."""
     kernels = build.sass()
     walks = {"dense_stream": [], "dense_rows": [], "strip_pass1": [],
              "two-pass control": []}
@@ -492,20 +520,40 @@ def stream_sass(build):
         for walk, found in walks.items():
             if walk in k:
                 found.append(copies)
-        if "symm_pass1" in k and "8Q16Plane" in k and "TableWalk" in k:
+        if "symm_pass1" in k and any(
+                plane in k and walk in k
+                for plane, walk in TWOPASS_CONTROLS.values()):
             walks["two-pass control"].append(copies)
     print(f"SASS bulk copies (UBLKCP) per kernel: {walks}")
     _check(len(walks["dense_stream"]) == 3
            and all(walks["dense_stream"]),
            "a dense_stream kernel issues no TMA bulk copy")
-    _check(len(walks["strip_pass1"]) == 1 and all(walks["strip_pass1"]),
-           "kernel 16's strip walk issues no TMA bulk copy")
+    _check(sorted(filter(None, map(_strip_walk_of, (
+        k for k in kernels if "strip_pass1" in k))))
+           == sorted(STRIP_WALKS.values())
+           and len(walks["strip_pass1"]) == 3 and all(walks["strip_pass1"]),
+           "a strip walk (kernels 16, 18, 19) is missing or issues no TMA "
+           "bulk copy")
     _check(len(walks["dense_rows"]) == 2
-           and len(walks["two-pass control"]) == 1,
-           "SASS: a dense_rows kernel or kernel 16's control is missing")
+           and len(walks["two-pass control"]) == len(TWOPASS_CONTROLS),
+           "SASS: a dense_rows kernel or a strip walk's control is missing")
     _check(not any(walks["dense_rows"] + walks["two-pass control"]),
-           "a dense_rows kernel or kernel 16's control issues a TMA bulk "
+           "a dense_rows kernel or a strip walk's control issues a TMA bulk "
            "copy")
+    log = open(f"{build.build()[0]}.log").read()
+    name, report = None, {}
+    for line in log.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            name = _strip_walk_of(head.group(1)) if (
+                "strip_pass1" in head.group(1)) else None
+        elif name and ("registers" in line or "spill" in line):
+            report.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    print(f"ptxas, the strip walks: {report}")
+    _check(sorted(report) == sorted(STRIP_WALKS.values()) and all(
+        "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
+        in " ".join(lines) for lines in report.values()),
+        "a strip walk spills or has a stack frame")
 
 
 def kernels_vs_plain(gemv, layout, pack_planes, pack_tri, split_f64_host):
@@ -1803,6 +1851,10 @@ DUAL_KERNELS = {"df64": ("gemv_f32_dual", (0,), "gemv_df64_dual", (0, 1)),
                 "dfq": ("gemv_f32_dual", (0,), "gemv_dfq_dual", (0, 1, 2)),
                 "fq": ("gemv_q16_dual", (0, 3), "gemv_fq_dual",
                        (0, 1, 2, 3, 4, 5))}
+# the dual kernels on the strip walk -> their controls (ops/probe.py)
+DUAL_CONTROLS = {"gemv_q16_dual": "gemv_q16_dual_twopass",
+                 "gemv_fq_dual": "gemv_fq_dual_twopass"}
+KERNEL_TARGET_MS = {"gemv_q16_dual": 0.0156, "gemv_fq_dual": 0.0470}
 DUAL_REPLACES = {"gemv_f32_dual": 1556, "gemv_df64_dual": 1682,
                  "gemv_dfq_dual": 1763, "gemv_q16_dual": 2544,
                  "gemv_fq_dual": 2624, "gemv_q16_dual_bf16": 2502}
@@ -1862,7 +1914,15 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
     copies of their plane in turn (the q1 half-slab's 26.2 MB would stay in
     the 50 MB L2, and most of the f32 one's 52.4 MB); beside the f32 and
     df64 kernels two torch.mv calls over the dense rectangle (S p and
-    S^T q)."""
+    S^T q). Kernels 18 and 19 (gemv_q16_dual, gemv_fq_dual) run the strip
+    walk: on both off-diagonal ranks, with the pads as they are and with
+    garbage pads, their outputs equal their controls' (the two-pass walk,
+    ops/probe.py DUAL_CONTROLS) bit for bit; at rank (1, 0) each is timed
+    against its control in turns LIBRARY_REPEATS times, kernel 18 over the
+    three copies beside the read floor of its plane, kernel 19 beside the
+    read floor of its three planes (lam_stream_i16 over q1, q2 and q3, one
+    launch each)."""
+    from lam_tpu_torch.ops import probe
     tb, r = layout.SYMM_TB, 2
     diffs, timed = {}, {}
     for storage, (inner, inner_idx, acc, acc_idx) in DUAL_KERNELS.items():
@@ -1890,8 +1950,16 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
                     (acc, acc_idx, (ph[pv], pl[pv], ph[qv], pl[qv]))):
                 bufs = [ops_[k].operand[x] for x in idx]
                 kernel = getattr(gemv, name)
-                y = _cat_parts(kernel(*bufs, *vecs))
+                out = kernel(*bufs, *vecs)
+                y = _cat_parts(out)
                 q = _cat_parts(getattr(gemv, name + "_plain")(*bufs, *vecs))
+                garbage = _with_garbage_pads(bufs, mb * cb, tb)
+                if name in DUAL_CONTROLS:  # the strip walk's bits
+                    control = getattr(probe, DUAL_CONTROLS[name])
+                    for b in (bufs, garbage):
+                        _check(all(torch.equal(u, v) for u, v in zip(
+                            out, control(*b, *vecs))), f"{name} rank {k}: "
+                            "the strip walk != the two-pass walk")
                 stored = _stored_rect(bufs, mb, cb, tb)
                 wide = name == acc
                 pd, qd = ((p64[pv], p64[qv]) if wide
@@ -1903,9 +1971,9 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
                                   float((y - q).abs().max()))
                 _check(torch.equal(y, _cat_parts(kernel(*bufs, *vecs))),
                        f"{name} rank {k} not repeatable")
-                _check(torch.equal(y, _cat_parts(kernel(
-                    *_with_garbage_pads(bufs, mb * cb, tb), *vecs))),
-                    f"{name} rank {k} read a pad tile or a pad scale")
+                _check(torch.equal(y, _cat_parts(kernel(*garbage, *vecs))),
+                       f"{name} rank {k} read a pad tile or a pad scale")
+                del garbage
         # the four ranks' parts, exchanged by hand, against one device
         sums = []
         for view in (lambda op: op.as_f32(), lambda op: op):
@@ -1920,13 +1988,16 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
         n1 = one[storage][0].shape[0]
         e32 = _rel(sums[0][:n1], one[storage][0])
         e64 = _rel(sums[1][:n1], one[storage][1])
+        walks = [x for x in (inner, acc) if x in DUAL_CONTROLS]
         print(f"dual kernels, 2x2 grid {storage} (tb={tb}, half-slab ({m2}, "
               f"{m}), {mb * cb} real + {mb} pad tiles a rank; 4 rank packs in "
               f"{pack_s:.2f} s): rel l2 kernel-plain / kernel-f64 max {inner} "
               f"{max(errs[inner]):.3e} (<= 1e-5), {acc} {max(errs[acc]):.3e} "
               f"(<= 1e-13); ranks' (own, payload) summed vs the one-device "
               f"kernels: inner {e32:.3e} (<= 1e-5), accurate {e64:.3e} "
-              f"(<= 1e-13)")
+              f"(<= 1e-13)" + (f"; {', '.join(walks)} (strip walk) == the "
+                               "two-pass walk bit for bit on both ranks, "
+                               "garbage pads too" if walks else ""))
         _check(max(errs[inner]) <= 1e-5, f"{inner} ({storage}) disagrees")
         _check(max(errs[acc]) <= 1e-13, f"{acc} disagrees")
         _check(e32 <= 1e-5 and e64 <= 1e-13,
@@ -1993,13 +2064,52 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
     _floor_line(
         f"kernel 18's q1 half-slab at rank (1, 0), ({m2}, {m}), three copies "
         "in turn", copies,
-        {name: _rotating(lambda q, fn=getattr(gemv, name): fn(
-            q, bufs[1][:real], *vec32), copies)
-         for name in ("gemv_q16_dual", "gemv_q16_dual_bf16")},
+        {name: _rotating(lambda q, fn=fn: fn(q, bufs[1][:real], *vec32),
+                         copies)
+         for name, fn in (("gemv_q16_dual", gemv.gemv_q16_dual),
+                          ("gemv_q16_dual_bf16", gemv.gemv_q16_dual_bf16),
+                          ("gemv_q16_dual_twopass",
+                           probe.gemv_q16_dual_twopass))},
         _nbytes(q1, bufs[1][:real], *vec32, *gemv.gemv_q16_dual(*bufs,
                                                                  *vec32)))
-    entry("gemv_fq_dual", list(fq.operand[:6]), vec64, None, "f64")
+    _walk_against_control(
+        "gemv_q16_dual", entries["gemv_q16_dual"]["bound_ms"],
+        _rotating(lambda q: gemv.gemv_q16_dual(q, bufs[1][:real], *vec32),
+                  copies),
+        _rotating(lambda q: probe.gemv_q16_dual_twopass(
+            q, bufs[1][:real], *vec32), copies),
+        _rotating(probe.stream_i16, copies), "read floor (lam_stream_i16)")
+    del copies
+    fq6 = list(fq.operand[:6])
+    entry("gemv_fq_dual", fq6, vec64, None, "f64")
+    planes = [x[:real * tb] for x in fq6[:3]]
+    for x in planes:
+        _check(int(probe.stream_i16(x)) == int(probe.stream_i16_plain(x)),
+               "lam_stream_i16's checksum is wrong on an fq plane")
+    _walk_against_control(
+        "gemv_fq_dual", entries["gemv_fq_dual"]["bound_ms"],
+        lambda: gemv.gemv_fq_dual(*fq6, *vec64),
+        lambda: probe.gemv_fq_dual_twopass(*fq6, *vec64),
+        lambda: [probe.stream_i16(x) for x in planes],
+        "three-plane read floor (lam_stream_i16 over q1, q2, q3, summed)")
     return [entries[name] for name in DUAL_REPLACES]
+
+
+def _walk_against_control(name, bound_ms, kernel, control, floor,
+                          floor_label):
+    """A dual kernel's strip walk against its control, the two-pass walk,
+    in turns LIBRARY_REPEATS times with the read floor beside them, and its
+    time against KERNEL_TARGET_MS (half its bound; printed, not a gate)."""
+    print(f"{name} (strip walk) at rank (1, 0), against its two-pass "
+          f"control; bound {bound_ms:.4f} ms, target <= "
+          f"{KERNEL_TARGET_MS[name]:.4f} ms:")
+    times = _against_library(name, kernel, control, floor, floor_label,
+                             library_label="two-pass")
+    print(f"{name} over {LIBRARY_REPEATS} repeats: {min(times):.4f}-"
+          f"{max(times):.4f} ms, {bound_ms / max(times):.2f}-"
+          f"{bound_ms / min(times):.2f} of its bound; target <= "
+          f"{KERNEL_TARGET_MS[name]:.4f} ms "
+          f"{'met' if max(times) <= KERNEL_TARGET_MS[name] else 'missed'}")
 
 
 def _bf16_dual_case(gemv, ops_, ph, one_mxu, mb, cb, m, tb):

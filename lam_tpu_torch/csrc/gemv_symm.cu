@@ -31,15 +31,19 @@
 //   lam_gemv_dfq_dual   replaces lam_tpu/ops/gemv.py:gemv_dfq_dual
 //                       (:1763; _gemv_dfq_dual_kernel)
 //   lam_gemv_q16_dual   replaces lam_tpu/ops/gemv.py:gemv_q16_dual
-//                       (:2544; _gemv_q16_dual_kernel, its 'vpu' form)
+//                       (:2544; _gemv_q16_dual_kernel, its 'vpu' form);
+//                       pass 1 on the strip walk
 //   lam_gemv_fq_dual    replaces lam_tpu/ops/gemv.py:gemv_fq_dual
-//                       (:2624; _gemv_fq_dual_kernel)
+//                       (:2624; _gemv_fq_dual_kernel); pass 1 on the strip
+//                       walk
 //
-// with the control of the strip walk, kept for the bit check and the
-// in-turn timing on the same bytes (on no solver's path):
+// with the controls of the strip walk, kept for the bit check and the
+// in-turn timing on the same bytes (on no solver's path): each is its
+// kernel on the two-pass walk below
 //
-//   lam_gemv_q16_symm_slab_twopass  lam_gemv_q16_symm_slab on the two-pass
-//                                   walk below
+//   lam_gemv_q16_symm_slab_twopass  lam_gemv_q16_symm_slab
+//   lam_gemv_q16_dual_twopass       lam_gemv_q16_dual
+//   lam_gemv_fq_dual_twopass        lam_gemv_fq_dual
 //
 // and the bf16 product engine of the three q16 kernels (lam_tpu's
 // LAM_Q16_IMPL "mxu" bodies, chosen by ops/gemv.py `_q16_impl`):
@@ -135,18 +139,20 @@
 //  The TPU kernels carried the transpose sums across their sequential
 //  grid in VMEM scratch (acc_t / acct_*); Hopper's blocks run in no
 //  order, hence the two passes.
-//  * Kernel 16, the q16 band-pair walk (2 B an element: a rank's 55 MB
-//    plane at G=2), is the one whose pass 1 paid most for one block a
-//    strip: around each 64 KB strip, dependent table and scale reads,
-//    the loads of p, a block-wide barrier, and a partly-filled last wave.
-//    Its pass 1 is the strip walk of csrc/strip_walk.cuh: a persistent
-//    grid, one producer warp streaming strips and their slices of p into
-//    a shared-memory ring with TMA bulk copies, the table reads done by
-//    the producer ahead of the consumers, the transpose reduction on a
-//    barrier of the consumer warps only, and pass 2 (slab_pass2) launched
-//    as a programmatic dependent. Inside a strip it sums in symm_pass1's
-//    order and writes the same partials, so its bits are the two-pass
-//    walk's (the control lam_gemv_q16_symm_slab_twopass).
+//  * Kernels 16 (the q16 band-pair walk, a rank's 55 MB plane at G=2), 18
+//    (q16) and 19 (fq) (the dual walks of a (2560, 5120) half-slab, 400
+//    strips) are the ones whose pass 1 paid most for one block a strip:
+//    around each 64 KB strip of a plane, dependent table and scale reads,
+//    the loads of the operands, a block-wide barrier, and a partly-filled
+//    last wave. Their pass 1 is the strip walk of csrc/strip_walk.cuh: a
+//    persistent grid, one producer warp streaming strips (16-row stages of
+//    them for fq's three planes) and their slices of the operands into a
+//    shared-memory ring with TMA bulk copies, the table and scale reads
+//    done by the producer ahead of the consumers, the transpose reduction
+//    on a barrier of the consumer warps only, and pass 2 (slab_pass2,
+//    rect_pass2) launched as a programmatic dependent. Inside a strip it
+//    sums in symm_pass1's order and writes the same partials, so its bits
+//    are the two-pass walk's (the controls lam_gemv_*_twopass).
 //
 // df64: on the TPU, which has no f64, the (hi, lo) float-float planes
 // were multiplied with Dekker two_prod and summed with Knuth two_sum
@@ -196,7 +202,7 @@
 // their fixed order of sums are shared: no float atomics, bitwise repeats.
 //
 // The code of this design is csrc/symm_walk.cuh (and csrc/strip_walk.cuh,
-// kernel 16's pass 1); csrc/q16_probe.cu instantiates symm_walk.cuh for the
+// pass 1 of kernels 16, 18 and 19); csrc/q16_probe.cu instantiates symm_walk.cuh for the
 // q16 probes too (the triangle walk at tb=1024, with unreduced transpose
 // partials, and three more tensor-core modes).
 
@@ -380,17 +386,46 @@ extern "C" int lam_gemv_dfq_dual(
 }
 
 // q16: the int16 q1 plane against s1[t], the scale folded into p and q, f32
-// sums.
+// sums. Walk: the strip walk (csrc/strip_walk.cuh); every plane and vector
+// pointer 16-byte aligned (the bulk copies).
 extern "C" int lam_gemv_q16_dual(const short* q1, const float* s1,
                                  const float* p, const float* q, float* yd,
                                  float* yt, float* part_d, float* part_t,
                                  int mb, int cb, void* stream) {
+  return launch_strip_dual<DualQ16Cfg>(
+      StripPlanes<1>{{q1}, {s1}}, StripVecs<1>{{p}, {q}}, F32Out{yd},
+      F32Out{yt}, part_d, part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// The control of lam_gemv_q16_dual: the same arguments and bits on the
+// two-pass walk. Not on a solver's path (lam_tpu_torch/ops/probe.py
+// gemv_q16_dual_twopass).
+extern "C" int lam_gemv_q16_dual_twopass(const short* q1, const float* s1,
+                                         const float* p, const float* q,
+                                         float* yd, float* yt, float* part_d,
+                                         float* part_t, int mb, int cb,
+                                         void* stream) {
   return launch_dual(Q16Plane{q1, s1, 0.0f}, F32Vec{p}, F32Vec{q}, F32Out{yd},
                      F32Out{yt}, part_d, part_t, mb, cb, (cudaStream_t)stream);
 }
 
-// fq: q1*s1[t] + q2*s2[t] + q3*s3[t] formed and walked in f64.
+// fq: q1*s1[t] + q2*s2[t] + q3*s3[t] formed and walked in f64. Walk: the
+// strip walk; every plane and vector pointer 16-byte aligned.
 extern "C" int lam_gemv_fq_dual(
+    const short* q1, const short* q2, const short* q3, const float* s1,
+    const float* s2, const float* s3, const float* p_hi, const float* p_lo,
+    const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb, int cb,
+    void* stream) {
+  return launch_strip_dual<DualFQCfg>(
+      StripPlanes<3>{{q1, q2, q3}, {s1, s2, s3}},
+      StripVecs<2>{{p_hi, p_lo}, {q_hi, q_lo}}, DF64Out{yd_hi, yd_lo},
+      DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// The control of lam_gemv_fq_dual: the same arguments and bits on the
+// two-pass walk (lam_tpu_torch/ops/probe.py gemv_fq_dual_twopass).
+extern "C" int lam_gemv_fq_dual_twopass(
     const short* q1, const short* q2, const short* q3, const float* s1,
     const float* s2, const float* s3, const float* p_hi, const float* p_lo,
     const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,

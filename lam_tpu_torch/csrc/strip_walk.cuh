@@ -1,61 +1,102 @@
-// The strip walk: pass 1 of kernel 16 (lam_gemv_q16_symm_slab, one rank's
-// band-pair walk of the packed int16 q1 plane), a persistent grid fed by
-// TMA bulk copies. It replaces symm_pass1<Q16Plane, F32Vec, TableWalk> on
-// that kernel only; the two-pass walk of csrc/symm_walk.cuh stays the
-// control (lam_gemv_q16_symm_slab_twopass) and the walk of every other
-// kernel.
+// The strip walk: pass 1 of three kernels, a persistent grid fed by TMA
+// bulk copies, in place of symm_pass1 (csrc/symm_walk.cuh):
 //
-// What bounds it: bytes. Every stored element is read once, 2 B, for 4
-// flops (its direct and its transpose product): 55.05 MB at rank 0 of G=2
-// (105 tiles), 16.4 us at 3.35 TB/s. The unit of work is symm_pass1's
-// (tile, 64-row strip), 64 KB, about 2.6 us of one SM's share of the
-// card's bandwidth; symm_pass1 gives each strip its own block (840 at G=2,
-// a partly-filled last wave) and pays, around those 64 KB, fixed costs
-// that nothing overlaps: dependent reads of the walk tables and the scale,
-// sixteen loads of p a lane before the first byte of the tile is asked
-// for, and the transpose reduction behind a block-wide barrier.
+//   kernel 16  lam_gemv_q16_symm_slab  the q16 plane, one rank's band-pair
+//                                      tables (TableWalk), one operand p
+//   kernel 18  lam_gemv_q16_dual       the q16 plane, the rectangle
+//                                      (RectWalk), p and q
+//   kernel 19  lam_gemv_fq_dual        the fq cascade (three int16 planes,
+//                                      f64 sums), the rectangle, the (hi,
+//                                      lo) pairs of p and q
+//
+// Each keeps its two-pass walk as a control (lam_gemv_*_twopass), and
+// every other kernel runs the two-pass walk.
+//
+// What bounds them: bytes. Every stored element is read once, 2 B (q16) or
+// 6 B (fq), for 4 flops (its direct and its transpose product): kernel 16
+// 55.05 MB at rank 0 of G=2 (16.4 us at 3.35 TB/s), kernel 18 26.2 MB and
+// kernel 19 78.6 MB at the (2560, 5120) half-slab of the 2 x 2 grid (7.8
+// and 23.5 us). The unit of work is symm_pass1's (tile, 64-row strip):
+// 64 KB of each plane, about 2.6 us of one SM's share of the card's
+// bandwidth. symm_pass1 gives each strip its own block and pays, around
+// those bytes, fixed costs that nothing overlaps: dependent reads of the
+// walk tables and the scales, sixteen operand loads a lane before the
+// first byte of the tile is asked for, the transpose reduction behind a
+// block-wide barrier, and pass 2's launch gap. The fq cascade also spends
+// three int -> f64 conversions an element (16 a clock on an SM), which
+// must overlap the stream.
 //
 // What the design does about them:
 //  * A persistent grid of one block an SM (the SM count read once and
-//    cached); block b walks strips b, b + grid, ... (840 strips on 132
-//    SMs: 6 or 7 each).
+//    cached); block b walks strips b, b + grid, ... (840 strips at G=2 on
+//    132 SMs, 400 on the half-slab).
 //  * The block's last warp is the producer. One thread reads the next
-//    strip's table entries it/kt and scale s1 before it waits for a free
-//    stage, writes the scale and whether the tile has a transpose term
-//    into the stage's header, and fills the stage with TMA 1-D bulk copies
-//    (UBLKCP in the SASS): the strip as one 64 KB copy (a strip is
-//    contiguous in the (T*TB, TB) plane), evict-first in L2, and
-//    evict-last the 2 KB of p at column tile k and the 64 entries of p at
-//    the strip's rows of row tile i. So no consumer waits on a dependent
-//    global read at the start of a strip: the producer runs a stage ahead.
-//  * The WARPS consumer warps wait on a stage's full barrier, read their
-//    rows and p from shared memory as 16-byte vectors (a warp reads 512
-//    contiguous bytes of a row: no bank conflict), release the stage on
-//    its empty barrier as soon as their rows are summed, and reduce the
-//    transpose sums through shared memory on a named barrier of the
-//    consumer warps only (bar.sync 1, 256), while the producer streams the
-//    next strip.
-//  * Pass 2 is slab_pass2, launched as a programmatic dependent launch
+//    strip's tile (the table entries it/kt, or i, k of the rectangle) and
+//    its scales before it waits for a free stage, writes the scales and
+//    whether the tile has a transpose term into the stage's header, and
+//    fills the stage with TMA 1-D bulk copies (UBLKCP in the SASS): the
+//    stage's rows of each plane (contiguous in the (T*TB, TB) planes),
+//    evict-first in L2, and evict-last the direct operand at column tile k
+//    and the transpose operand at the stage's rows of row tile i. So no
+//    consumer waits on a dependent global read: the producer runs ahead.
+//  * A stage holds SR rows of a strip: the whole 64-row strip (64 KB) for
+//    kernel 16, 32 rows for kernels 18 (32 KB) and 19 (a 64-row strip of
+//    fq's three planes is 192 KB, more than the ring can hold twice; a
+//    stage of 32 rows is 96 KB). Stage j of a strip is read by the consumer
+//    warps that own its rows (warps 4j .. 4j+3 at SR = 32), which wait on
+//    its full barrier, read their rows and the operands from shared memory
+//    as 16-byte vectors (a warp reads 512 contiguous bytes of a plane's
+//    row: no bank conflict), and release it on its empty barrier as soon as
+//    their rows are summed, or (EARLY, kernel 18) as soon as they hold them
+//    in registers. The ring's counter runs on across strips, so the
+//    producer fills the next strip's stage j while this strip is summed.
+//  * The ring holds a multiple of a strip's stages, so each slot is read by
+//    one group of warps only, in order. An mbarrier's parity wait cannot
+//    tell the phase it waits for from the one two before: a group that
+//    waited on a slot whose previous fill it had not itself seen complete
+//    would pass at once, on the old bytes (the first layout tried for
+//    kernel 19, three 16-row stages, hung or faulted so).
+//  * The 8 consumer warps reduce the transpose sums through shared memory
+//    on a named barrier of their own (bar.sync 1, 256), in rounds of RW
+//    warps' rows, while the producer streams on.
+//  * Kernel 19 converts its int16 values to f64 by bits (BITS): the three
+//    conversions an element, at 16 a clock on an SM, were 3/8 of a strip's
+//    share of the card's bandwidth; by bits each is one add at 64 a clock.
+//  * Pass 2 (slab_pass2 or rect_pass2) is a programmatic dependent launch
 //    (cudaLaunchAttributeProgrammaticStreamSerialization): its blocks are
 //    scheduled while pass 1 drains its last strips and wait
-//    (griddepcontrol.wait) for pass 1's writes before they read part_d and
-//    part_t.
+//    (griddepcontrol.wait) for pass 1's writes before they read a partial.
 //
-// Sizes, from a sweep on an H100 (PERF.md section 6): two stages (136 KB
-// and a 16 KB reduction buffer). A third stage was slower, and so were two
-// blocks an SM of one stage each, the int16 -> f32 conversion by bits
-// (csrc/q16_probe.cu's magic), an earlier pass-2 trigger and pass 2 as an
-// ordinary launch. Eight 8 KB copies a strip, contiguous ranges of strips
-// and a double-buffered reduction were as fast as what is kept.
+// Sizes, from sweeps on an H100 (PERF.md section 6; the chosen ones at
+// SlabQ16Cfg, DualQ16Cfg and DualFQCfg below). Kernel 16: two
+// stages (136 KB) and a 16 KB reduction buffer; a third stage was slower,
+// and so were two blocks an SM of one stage each, the int16 -> f32
+// conversion by bits (csrc/q16_probe.cu's magic), an earlier pass-2
+// trigger and pass 2 as an ordinary launch; eight 8 KB copies a strip,
+// contiguous ranges of strips and a double-buffered reduction were as fast
+// as what is kept. Kernels 18 and 19: two, eight or four copies a
+// plane's stage, a grid of 100 blocks (4 strips each) and conversion by
+// bits for kernel 18 were as fast as what is kept; a grid of one block a
+// strip (400), 80 or 67 blocks, pass 2 as an ordinary launch, and for
+// kernel 18 a third 64 KB stage, 16-row stages or 32-row stages in a ring
+// of two were slower, and so was a pass 2 whose loads were unrolled to be
+// issued together; kernel 19's 16-row stages, four of them, were slower
+// than its two 32-row stages. EARLY brought kernel 18's pass 1 to the read
+// floor of its plane; conversion by bits made kernel 19 faster.
 //
 // The bits: inside a strip nothing of symm_pass1's order changes. Warp w
 // sums rows w*8 .. w*8+7 in that order, lane l holds columns lane_col<8>(l,
-// q), d is the sum over q then the warp butterfly, pk = p * sc and pi =
-// p * sc are rounded as there, and the transpose column sums are added
-// over the 8 warps in the order w = 0 .. 7. The int16 -> f32 conversion is
-// exact. Each block writes part_d[t][r] and part_t[t][s][c] as
-// symm_pass1 does, so slab_pass2 sums the same partials in the same order:
-// (yd, yt) equal the two-pass walk's bit for bit.
+// q), d is the sum over q then the warp butterfly; the consumers repeat
+// symm_pass1's expressions as written (pk = p * sc and pi = q * sc;
+// Q16Plane's exact int16 -> f32, FQPlane's ((e1*c1 + e2*c2) + e3*c3) in f64
+// with every product exact, on the same exact values whether converted by
+// instruction or by bits; DF64Vec's hi + lo in f64; d += a * pk and tacc
+// += a * pi), so nvcc contracts them into the same FMAs; the transpose
+// column sums are added over the 8 warps in the order w = 0 .. 7 (a round
+// of RW < 8 warps carries the sum on in registers, the same additions).
+// Each block writes part_d[t][r] and part_t[t][s][c] as symm_pass1 does, so
+// pass 2 sums the same partials in the same order: (yd, yt) equal the
+// two-pass walk's bit for bit.
 
 #pragma once
 
@@ -64,32 +105,175 @@
 
 namespace {
 
-// A stage: the strip (ROWS x TB int16), p at column tile k (TB f32), p at
-// the strip's rows of row tile i (ROWS f32), the header. The ring holds
-// STRIP_STAGES of them, then the transpose reduction buffer.
-constexpr int STRIP_STAGES = 2;
-constexpr int STRIP_BYTES = ROWS * TB * (int)sizeof(short);  // 64 KB
-constexpr int PK_OFF = STRIP_BYTES;
-constexpr int PI_OFF = PK_OFF + TB * (int)sizeof(float);
-constexpr int HDR_OFF = PI_OFF + ROWS * (int)sizeof(float);
-constexpr int STAGE_BYTES = HDR_OFF + 128;
-constexpr int RED_BYTES = WARPS * TB * (int)sizeof(float);
-constexpr int STRIP_SMEM = STRIP_STAGES * STAGE_BYTES + RED_BYTES;
 constexpr int STRIP_THREADS = (WARPS + 1) * 32;  // + the producer warp
 
-struct StripHeader {
-  float sc;     // the tile's scale
-  int offdiag;  // the tile has a transpose term
+// The planes of a strip walk: NP int16 planes of packed tiles, each against
+// one f32 scale per tile. NP = 1, the q16 plane: Q16Plane's exact int16 ->
+// f32, the scale folded into the operands, f32 sums. NP = 3, the fq
+// cascade: FQPlane's q1*s1 + q2*s2 + q3*s3 formed in f64, f64 sums.
+template <int NP_>
+struct StripPlanes {
+  static constexpr int NP = NP_;
+  static_assert(NP == 1 || NP == 3, "the q16 plane or the fq cascade");
+  using acc_t = std::conditional_t<NP == 1, float, double>;
+  const short* q[NP];
+  const float* s[NP];
 };
 
-// Eight int16 of one 16-byte vector as f32 (exact), as load_i16x8 does.
-__device__ __forceinline__ void f32x8_of_i16x8(const int4 x, float v[8]) {
-  const int w[4] = {x.x, x.y, x.z, x.w};
+// The operands: NV f32 arrays a vector (1: f32; 2: an (hi, lo) pair formed
+// in f64 as DF64Vec does), the direct one d read at column tile k and the
+// transpose one t at the strip's rows of row tile i (t = d in kernel 16's
+// symmetric walk).
+template <int NV_>
+struct StripVecs {
+  static constexpr int NV = NV_;
+  static_assert(NV == 1 || NV == 2, "f32 or an (hi, lo) pair");
+  using acc_t = std::conditional_t<NV == 1, float, double>;
+  const float* d[NV];
+  const float* t[NV];
+};
+
+template <int NP>
+struct StripHeader {
+  float sc[NP];  // the tile's scales
+  int offdiag;   // the tile has a transpose term
+};
+
+// A stage: SR rows of each plane (SR x TB int16 each), the direct operand
+// at column tile k (NV x TB f32), the transpose operand at the stage's rows
+// (NV x SR f32), the header. The ring holds S stages, then the transpose
+// reduction buffer of RW warps' rows. BITS: the consumers convert int16 to
+// f32 or f64 by bits (values8_of_i16x8), not with the conversion
+// instruction. EARLY (one plane only): each consumer warp takes its rows
+// and operand entries into registers and releases the stage before it sums
+// them.
+template <class Planes, class Vecs, int SR_, int S_, int RW_,
+          bool BITS_ = false, bool EARLY_ = false>
+struct StripCfg {
+  using acc_t = typename Planes::acc_t;
+  static_assert(std::is_same<acc_t, typename Vecs::acc_t>::value,
+                "the planes' sums and the operands are of one type");
+  static constexpr int NP = Planes::NP, NV = Vecs::NV;
+  static constexpr int SR = SR_, S = S_, RW = RW_;
+  static constexpr bool BITS = BITS_, EARLY = EARLY_;
+  static_assert(!EARLY || NP == 1, "one plane's rows fit the registers");
+  static constexpr int SPS = ROWS / SR;           // stages a strip
+  static constexpr int WPS = SR / ROWS_PER_WARP;  // consumer warps a stage
+  static constexpr int PLANE_BYTES = SR * TB * (int)sizeof(short);
+  static constexpr int PK_OFF = NP * PLANE_BYTES;
+  static constexpr int PI_OFF = PK_OFF + NV * TB * (int)sizeof(float);
+  static constexpr int HDR_OFF = PI_OFF + NV * SR * (int)sizeof(float);
+  static constexpr int STAGE_BYTES =
+      (HDR_OFF + (int)sizeof(StripHeader<NP>) + 127) / 128 * 128;
+  static constexpr int RED_BYTES = RW * TB * (int)sizeof(acc_t);
+  static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
+  static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
+                "a stage is whole warps' rows of one strip");
+  static_assert(S % SPS == 0, "each slot read by one group of warps");
+  static_assert(WARPS % RW == 0, "reduction rounds of whole warps");
+  static_assert(SMEM + 2 * S * 8 <= 232448, "a block's shared memory");
+};
+
+// The three kernels' sizes, from the sweeps (PERF.md section 6):
+//  * kernel 16: the 64 KB strip as one stage, two stages;
+//  * kernel 18: 32-row stages of 32 KB, six of them (four were as fast or
+//    a little slower), EARLY: with the stage released once the warps hold
+//    their rows, the ring refills while they sum, and pass 1 reads at the
+//    card's measured read floor;
+//  * kernel 19: 32-row stages of the three fq planes (96 KB and 4 KB of
+//    (hi, lo) operand each), two of them, the transpose sums reduced in two
+//    rounds of 4 warps' f64 rows (16 KB): 217 KB; BITS, since the three
+//    int16 -> f64 conversions an element held it back (at 16 a clock on an
+//    SM they are 3/8 of a strip's time; by bits, 3 adds at 64).
+using SlabQ16Cfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS>;
+using DualQ16Cfg =
+    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 6, WARPS, false, true>;
+using DualFQCfg = StripCfg<StripPlanes<3>, StripVecs<2>, 32, 2, WARPS / 2, true>;
+
+// Eight int16 of one 16-byte vector as T (float or double), exactly: with
+// the conversion instruction (I2F, 16 a clock on an SM), or by bits (BITS):
+// each value biased to unsigned u = e + 2^15 (a sign-bit xor of the pair)
+// and placed in the mantissa of 2^23 (f32) or 2^52 (f64), which is then
+// 2^23 + u or 2^52 + u exactly; one add of -(2^23 + 2^15) or -(2^52 +
+// 2^15) leaves e, exactly (csrc/q16_probe.cu's magic, with byte permutes).
+template <class T, bool BITS>
+__device__ __forceinline__ void values8_of_i16x8(const int4 x, T v[8]) {
+  if constexpr (BITS) {
+    const unsigned w[4] = {(unsigned)x.x, (unsigned)x.y, (unsigned)x.z,
+                           (unsigned)x.w};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    v[2 * j] = (float)(int)(short)(w[j] & 0xffff);
-    v[2 * j + 1] = (float)(w[j] >> 16);
+    for (int j = 0; j < 4; ++j) {
+      const unsigned u = w[j] ^ 0x80008000u;
+      if constexpr (sizeof(T) == 4) {
+        v[2 * j] = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5410)) -
+                   8421376.0f;
+        v[2 * j + 1] = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5432)) -
+                       8421376.0f;
+      } else {
+        v[2 * j] = __hiloint2double(0x43300000, (int)(u & 0xffffu)) -
+                   4503599627403264.0;
+        v[2 * j + 1] =
+            __hiloint2double(0x43300000, (int)(u >> 16)) - 4503599627403264.0;
+      }
+    }
+  } else {
+    int e[8];
+    i32x8_of_i16x8(x, e);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = (T)e[j];
   }
+}
+
+// Eight tile values of one row at byte offset `off` of each of the stage's
+// NP planes (PLANE_BYTES apart): Q16Plane::load's and FQPlane::load's
+// expressions on the same int16 values.
+template <int NP, bool BITS, class acc_t>
+__device__ __forceinline__ void tile_values8(const unsigned char* planes,
+                                             int plane_bytes, int off,
+                                             const acc_t c[NP], acc_t v[8]) {
+  const int4* x = reinterpret_cast<const int4*>(planes + off);
+  if constexpr (NP == 1) {
+    values8_of_i16x8<float, BITS>(x[0], v);
+  } else {
+    double e1[8], e2[8], e3[8];
+    values8_of_i16x8<double, BITS>(x[0], e1);
+    values8_of_i16x8<double, BITS>(x[plane_bytes / 16], e2);
+    values8_of_i16x8<double, BITS>(x[2 * plane_bytes / 16], e3);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v[j] = (e1[j] * c[0] + e2[j] * c[1]) + e3[j] * c[2];
+  }
+}
+
+// Operand entry i of a vector staged as NV arrays `stride` apart: F32Vec's
+// and DF64Vec's get.
+template <int NV>
+__device__ __forceinline__ typename StripVecs<NV>::acc_t vec_value(
+    const float* x, int i, int stride) {
+  if constexpr (NV == 1)
+    return x[i];
+  else
+    return (double)x[i] + (double)x[stride + i];
+}
+
+// Eight consecutive values from shared memory (16-byte aligned) into
+// registers, or out of them.
+__device__ __forceinline__ void load8(const float* x, float v[8]) {
+  const float4 a = reinterpret_cast<const float4*>(x)[0];
+  const float4 b = reinterpret_cast<const float4*>(x)[1];
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void store8(float* x, const float v[8]) {
+  reinterpret_cast<float4*>(x)[0] = make_float4(v[0], v[1], v[2], v[3]);
+  reinterpret_cast<float4*>(x)[1] = make_float4(v[4], v[5], v[6], v[7]);
+}
+
+__device__ __forceinline__ void store8(double* x, const double v[8]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    reinterpret_cast<double2*>(x)[j] = make_double2(v[2 * j], v[2 * j + 1]);
 }
 
 // The consumer warps' barrier; the producer warp takes no part.
@@ -97,27 +281,31 @@ __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
 }
 
-// Block b walks strips b, b + gridDim.x, ... of the T * STRIPS.
+// Block b walks strips b, b + gridDim.x, ... of the tiles * STRIPS of the
+// walk (tile t at rows t*TB of each plane).
+template <class Cfg, class Planes, class Vecs, class Walk>
 __global__ void __launch_bounds__(STRIP_THREADS, 1)
-strip_pass1(const short* __restrict__ q, const float* __restrict__ s1,
-            const float* __restrict__ p, const int* __restrict__ it,
-            const int* __restrict__ kt, int T, float* __restrict__ part_d,
-            float* __restrict__ part_t) {
-  constexpr int S = STRIP_STAGES;
+strip_pass1(Planes A, Vecs V, Walk W, int tiles,
+            typename Cfg::acc_t* __restrict__ part_d,
+            typename Cfg::acc_t* __restrict__ part_t) {
+  using acc_t = typename Cfg::acc_t;
+  constexpr int NP = Cfg::NP, NV = Cfg::NV, SR = Cfg::SR, S = Cfg::S;
+  constexpr int RW = Cfg::RW, SPS = Cfg::SPS, WPS = Cfg::WPS;
   constexpr int COLS_PER_LANE = cols_per_lane_of<TB>;  // 16
+  constexpr int COLS_PER_THREAD = TB / (WARPS * 32);   // of the reduction
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[S], empty[S];
-  float* red = reinterpret_cast<float*>(smem + S * STAGE_BYTES);
+  acc_t* red = reinterpret_cast<acc_t*>(smem + S * Cfg::STAGE_BYTES);
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int strips = T * STRIPS;
+  const int strips = tiles * STRIPS;
   const int step = gridDim.x;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WARPS);
+      mbar_init(&empty[s], WPS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -127,165 +315,276 @@ strip_pass1(const short* __restrict__ q, const float* __restrict__ s1,
     if (lane == 0) {
       const uint64_t once = evict_first_policy();
       const uint64_t keep = evict_last_policy();
-      int st = 0;
-      uint32_t phase = 0;
       int g = blockIdx.x;
-      int t = g / STRIPS;
-      int i = __ldg(it + t), k = __ldg(kt + t);
-      float sc = __ldg(s1 + t);
-      while (g < strips) {
+      int t = g / STRIPS, i, k, ld;
+      size_t base;
+      float sc[NP];
+      bool first = true;  // the first tile's scales are read behind its copies
+      W.tile(t, i, k, base, ld);
+      for (int pos = 0; g < strips;) {
         const int s = g % STRIPS;
         // the next strip's tile, read before this one waits
         const int gn = g + step;
         int tn = t, in = i, kn = k;
-        float scn = sc;
-        if (gn < strips && gn / STRIPS != t) {
+        float scn[NP];
+        const bool next_tile = gn < strips && gn / STRIPS != t;
+        if (next_tile) {
           tn = gn / STRIPS;
-          in = __ldg(it + tn);
-          kn = __ldg(kt + tn);
-          scn = __ldg(s1 + tn);
+          W.tile(tn, in, kn, base, ld);
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) scn[pl] = __ldg(A.s[pl] + tn);
         }
-        const bool off = k < i;
-        mbar_wait(&empty[st], phase ^ 1);  // the first pass finds it free
-        unsigned char* stage = smem + st * STAGE_BYTES;
-        StripHeader* hdr = reinterpret_cast<StripHeader*>(stage + HDR_OFF);
-        hdr->sc = sc;
-        hdr->offdiag = off;
-        // the arrive releases the header to the consumers' wait
-        mbar_expect_tx(&full[st], STRIP_BYTES + TB * (int)sizeof(float) +
-                                      (off ? ROWS * (int)sizeof(float) : 0));
-        bulk_copy(stage, q + ((size_t)t * TB + (size_t)s * ROWS) * TB,
-                  STRIP_BYTES, &full[st], once);
-        bulk_copy(stage + PK_OFF, p + (size_t)k * TB,
-                  TB * (int)sizeof(float), &full[st], keep);
-        if (off)
-          bulk_copy(stage + PI_OFF, p + (size_t)i * TB + s * ROWS,
-                    ROWS * (int)sizeof(float), &full[st], keep);
-        if (++st == S) { st = 0; phase ^= 1; }
-        g = gn; t = tn; i = in; k = kn; sc = scn;
+        const bool off = W.transposed(i, k);
+        for (int j = 0; j < SPS; ++j, ++pos) {
+          const int slot = pos % S;
+          // the first pass over the ring finds every stage free
+          mbar_wait(&empty[slot], ((pos / S) & 1) ^ 1);
+          unsigned char* stage = smem + slot * Cfg::STAGE_BYTES;
+          mbar_expect(&full[slot],
+                      NP * Cfg::PLANE_BYTES + NV * TB * (int)sizeof(float) +
+                          (off ? NV * SR * (int)sizeof(float) : 0));
+          const size_t row0 = (size_t)t * TB + s * ROWS + j * SR;
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl)
+            bulk_copy(stage + pl * Cfg::PLANE_BYTES, A.q[pl] + row0 * TB,
+                      Cfg::PLANE_BYTES, &full[slot], once);
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+            bulk_copy(stage + Cfg::PK_OFF + v * TB * (int)sizeof(float),
+                      V.d[v] + (size_t)k * TB, TB * (int)sizeof(float),
+                      &full[slot], keep);
+          if (off) {
+#pragma unroll
+            for (int v = 0; v < NV; ++v)
+              bulk_copy(stage + Cfg::PI_OFF + v * SR * (int)sizeof(float),
+                        V.t[v] + (size_t)i * TB + s * ROWS + j * SR,
+                        SR * (int)sizeof(float), &full[slot], keep);
+          }
+          if (first) {
+#pragma unroll
+            for (int pl = 0; pl < NP; ++pl) sc[pl] = __ldg(A.s[pl] + t);
+            first = false;
+          }
+          StripHeader<NP>* hdr =
+              reinterpret_cast<StripHeader<NP>*>(stage + Cfg::HDR_OFF);
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) hdr->sc[pl] = sc[pl];
+          hdr->offdiag = off;
+          // the arrive releases the header to the consumers' wait
+          mbar_arrive(&full[slot]);
+        }
+        g = gn;
+        if (next_tile) {
+          t = tn; i = in; k = kn;
+#pragma unroll
+          for (int pl = 0; pl < NP; ++pl) sc[pl] = scn[pl];
+        }
       }
     }
     return;
   }
 
-  // the consumers: warp w sums the strip's rows w*8 .. w*8+7
-  int st = 0;
-  uint32_t phase = 0;
-  for (int g = blockIdx.x; g < strips; g += step) {
+  // the consumers: warp w sums the strip's rows w*8 .. w*8+7, which are
+  // rows wr .. wr+7 of stage `j` of the strip
+  const int j = warp / WPS;
+  const int wr = (warp % WPS) * ROWS_PER_WARP;
+  for (int g = blockIdx.x, pos = j; g < strips; g += step, pos += SPS) {
     const int t = g / STRIPS;
     const int s = g % STRIPS;
     // pass 2 may be scheduled once every block is on its last strip; it
     // waits for this grid's end before it reads a partial
     if (g + step >= strips)
       asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-    mbar_wait(&full[st], phase);
-    const unsigned char* stage = smem + st * STAGE_BYTES;
-    const StripHeader hdr =
-        *reinterpret_cast<const StripHeader*>(stage + HDR_OFF);
-    const float sc = hdr.sc;
+    const int slot = pos % S;
+    mbar_wait(&full[slot], (pos / S) & 1);
+    const unsigned char* stage = smem + slot * Cfg::STAGE_BYTES;
+    const StripHeader<NP> hdr =
+        *reinterpret_cast<const StripHeader<NP>*>(stage + Cfg::HDR_OFF);
+    acc_t c[NP];
+#pragma unroll
+    for (int pl = 0; pl < NP; ++pl) c[pl] = hdr.sc[pl];
+    // Q16Plane::p_scale (the scale folded into p and q), FQPlane's 1
+    const acc_t sc = NP == 1 ? c[0] : acc_t(1);
     const bool off = hdr.offdiag != 0;  // uniform across the block
 
-    float pk[COLS_PER_LANE];
-    float tacc[COLS_PER_LANE];
-    const float* pks = reinterpret_cast<const float*>(stage + PK_OFF);
+    acc_t pk[COLS_PER_LANE];
+    acc_t tacc[COLS_PER_LANE];
+    const float* pks = reinterpret_cast<const float*>(stage + Cfg::PK_OFF);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {  // columns lane_col<8>(lane, 8h .. 8h+7)
-      const float4* v = reinterpret_cast<const float4*>(pks + h * 256 +
-                                                        lane * 8);
-      const float4 x0 = v[0], x1 = v[1];
-      pk[8 * h + 0] = x0.x * sc; pk[8 * h + 1] = x0.y * sc;
-      pk[8 * h + 2] = x0.z * sc; pk[8 * h + 3] = x0.w * sc;
-      pk[8 * h + 4] = x1.x * sc; pk[8 * h + 5] = x1.y * sc;
-      pk[8 * h + 6] = x1.z * sc; pk[8 * h + 7] = x1.w * sc;
+      float x[NV][8];
+#pragma unroll
+      for (int v = 0; v < NV; ++v) load8(pks + v * TB + h * 256 + lane * 8,
+                                         x[v]);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        if constexpr (NV == 1)
+          pk[8 * h + e] = x[0][e] * sc;
+        else
+          pk[8 * h + e] = ((double)x[0][e] + (double)x[1][e]) * sc;
+      }
     }
 #pragma unroll
-    for (int qq = 0; qq < COLS_PER_LANE; ++qq) tacc[qq] = 0.0f;
+    for (int qq = 0; qq < COLS_PER_LANE; ++qq) tacc[qq] = acc_t(0);
 
-    const short* rows = reinterpret_cast<const short*>(stage) +
-                        warp * ROWS_PER_WARP * TB;
-    const float* pis = reinterpret_cast<const float*>(stage + PI_OFF);
-#pragma unroll 2
+    const unsigned char* rows = stage + wr * TB * (int)sizeof(short);
+    const float* pis = reinterpret_cast<const float*>(stage + Cfg::PI_OFF);
+    constexpr int KEEP = Cfg::EARLY ? ROWS_PER_WARP : 1;
+    int4 raw[KEEP][2];  // EARLY: the warp's rows, then the release
+    acc_t pir[KEEP];
+    if constexpr (Cfg::EARLY) {
+#pragma unroll
+      for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          raw[rr][h] = *reinterpret_cast<const int4*>(
+              rows + (rr * TB + h * 256 + lane * 8) * (int)sizeof(short));
+        pir[rr] = vec_value<NV>(pis, wr + rr, SR) * sc;
+      }
+      __syncwarp();  // every lane's reads of the stage before the release
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+    constexpr int UNROLL = Cfg::EARLY ? ROWS_PER_WARP : 2;
+#pragma unroll UNROLL
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
       const int r = warp * ROWS_PER_WARP + rr;  // row of the strip
-      float a[COLS_PER_LANE];
+      acc_t a[COLS_PER_LANE];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
-        f32x8_of_i16x8(*reinterpret_cast<const int4*>(rows + rr * TB +
-                                                      h * 256 + lane * 8),
-                       a + 8 * h);
-      float d = 0.0f;
+      for (int h = 0; h < 2; ++h) {
+        if constexpr (Cfg::EARLY)
+          values8_of_i16x8<acc_t, Cfg::BITS>(raw[rr][h], a + 8 * h);
+        else
+          tile_values8<NP, Cfg::BITS>(
+              rows, Cfg::PLANE_BYTES,
+              (rr * TB + h * 256 + lane * 8) * (int)sizeof(short), c,
+              a + 8 * h);
+      }
+      acc_t d = acc_t(0);
 #pragma unroll
       for (int qq = 0; qq < COLS_PER_LANE; ++qq) d += a[qq] * pk[qq];
       d = warp_sum(d);
       if (lane == 0) part_d[(size_t)t * TB + s * ROWS + r] = d;
       if (off) {
-        const float pi = pis[r] * sc;
+        const acc_t pi = Cfg::EARLY ? pir[rr]
+                                    : vec_value<NV>(pis, wr + rr, SR) * sc;
 #pragma unroll
         for (int qq = 0; qq < COLS_PER_LANE; ++qq) tacc[qq] += a[qq] * pi;
       }
     }
-    __syncwarp();  // every lane's reads of the stage before the release
-    if (lane == 0) mbar_arrive(&empty[st]);
-    if (++st == S) { st = 0; phase ^= 1; }
+    if constexpr (!Cfg::EARLY) {
+      __syncwarp();  // every lane's reads of the stage before the release
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
 
     if (off) {
+      // rounds of RW warps' rows, each column's sum carried on in order
+      acc_t sum[COLS_PER_THREAD] = {};
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        float4* v = reinterpret_cast<float4*>(red + warp * TB + h * 256 +
-                                              lane * 8);
-        v[0] = make_float4(tacc[8 * h + 0], tacc[8 * h + 1], tacc[8 * h + 2],
-                           tacc[8 * h + 3]);
-        v[1] = make_float4(tacc[8 * h + 4], tacc[8 * h + 5], tacc[8 * h + 6],
-                           tacc[8 * h + 7]);
-      }
-      consumers_sync();
-      float* out = part_t + ((size_t)t * STRIPS + s) * TB;
-      for (int c = threadIdx.x; c < TB; c += WARPS * 32) {
-        float v = red[c];
+      for (int round = 0; round < WARPS / RW; ++round) {
+        if (warp / RW == round) {
 #pragma unroll
-        for (int w = 1; w < WARPS; ++w) v += red[w * TB + c];
-        out[c] = v;
+          for (int h = 0; h < 2; ++h)
+            store8(red + (warp % RW) * TB + h * 256 + lane * 8, tacc + 8 * h);
+        }
+        consumers_sync();
+#pragma unroll
+        for (int u = 0; u < COLS_PER_THREAD; ++u) {
+          const int col = threadIdx.x + u * WARPS * 32;
+#pragma unroll
+          for (int w = 0; w < RW; ++w) {
+            const acc_t x = red[w * TB + col];
+            sum[u] = round == 0 && w == 0 ? x : sum[u] + x;
+          }
+        }
+        consumers_sync();  // every read of red before its next writes
       }
-      consumers_sync();  // every read of red before the next strip's writes
+      acc_t* out = part_t + ((size_t)t * STRIPS + s) * TB;
+#pragma unroll
+      for (int u = 0; u < COLS_PER_THREAD; ++u)
+        out[threadIdx.x + u * WARPS * 32] = sum[u];
     }
   }
 }
 
+// Pass 1 on the strip walk over `tiles` tiles of W, configured by Cfg:
+// refuses operands the bulk copies cannot take (16-byte alignment).
+template <class Cfg, class Planes, class Vecs, class Walk>
+int launch_strip_pass1(Planes A, Vecs V, Walk W, int tiles,
+                       typename Cfg::acc_t* part_d,
+                       typename Cfg::acc_t* part_t, cudaStream_t stream) {
+  if (tiles <= 0) return (int)cudaErrorInvalidValue;
+  for (int pl = 0; pl < Planes::NP; ++pl)
+    if (reinterpret_cast<uintptr_t>(A.q[pl]) % 16)
+      return (int)cudaErrorInvalidValue;
+  for (int v = 0; v < Vecs::NV; ++v)
+    if (reinterpret_cast<uintptr_t>(V.d[v]) % 16 ||
+        reinterpret_cast<uintptr_t>(V.t[v]) % 16)
+      return (int)cudaErrorInvalidValue;
+  static bool sized[MAX_DEVICES];  // shared memory above 48 KB allowed
+  int dev, sms;
+  const int e = device_and_sms(strip_pass1<Cfg, Planes, Vecs, Walk>,
+                               Cfg::SMEM, sized, &dev, &sms);
+  if (e != (int)cudaSuccess) return e;
+  const int strips = tiles * STRIPS;
+  strip_pass1<Cfg, Planes, Vecs, Walk>
+      <<<sms < strips ? sms : strips, STRIP_THREADS, Cfg::SMEM, stream>>>(
+          A, V, W, tiles, part_d, part_t);
+  return (int)cudaGetLastError();
+}
+
+// A pass 2 of THREADS-thread blocks as a programmatic dependent of what the
+// stream ran last: it may be scheduled before that ends, and waits for it
+// (griddepcontrol.wait) before it reads.
+template <class... Params, class... Args>
+int launch_dependent(void (*kernel)(Params...), int blocks,
+                     cudaStream_t stream, Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
+}
+
 // Kernel 16 on the strip walk: pass 1 over the T packed tiles of the
-// rank's walk (tile t at rows t*TB of q), then slab_pass2 over the lists L
-// as a programmatic dependent launch.
+// rank's walk, then slab_pass2 over the lists L.
 int launch_strip_slab(const short* q, const float* s1, const float* p,
                       const int* it, const int* kt, SlabLists L, float* yd,
                       float* yt, float* part_d, float* part_t, int T, int ms,
                       int n, cudaStream_t stream) {
   if (T <= 0 || ms <= 0 || ms % TB || n <= 0 || n % TB)
     return (int)cudaErrorInvalidValue;
-  if (reinterpret_cast<uintptr_t>(q) % 16 ||
-      reinterpret_cast<uintptr_t>(p) % 16)
-    return (int)cudaErrorInvalidValue;  // the bulk copies' alignment
-  static bool sized[MAX_DEVICES];  // shared memory above 48 KB allowed
-  int dev, sms;
-  int e = device_and_sms(strip_pass1, STRIP_SMEM, sized, &dev, &sms);
+  const int e = launch_strip_pass1<SlabQ16Cfg>(
+      StripPlanes<1>{{q}, {s1}}, StripVecs<1>{{p}, {p}},
+      TableWalk{it, kt, nullptr, n, 1}, T, part_d, part_t, stream);
   if (e != (int)cudaSuccess) return e;
-  const int strips = T * STRIPS;
-  strip_pass1<<<sms < strips ? sms : strips, STRIP_THREADS, STRIP_SMEM,
-                stream>>>(q, s1, p, it, kt, T, part_d, part_t);
-  e = (int)cudaGetLastError();
+  return launch_dependent(slab_pass2<float, F32Out, true>, (ms + n) / P2_COLS,
+                          stream, (const float*)part_d, (const float*)part_t,
+                          L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, F32Out{yd},
+                          F32Out{yt});
+}
+
+// Kernels 18 and 19 on the strip walk: pass 1 over the mb x cb tiles of the
+// rectangle, then rect_pass2.
+template <class Cfg, class Planes, class Vecs, class Out>
+int launch_strip_dual(Planes A, Vecs V, Out YD, Out YT,
+                      typename Cfg::acc_t* part_d,
+                      typename Cfg::acc_t* part_t, int mb, int cb,
+                      cudaStream_t stream) {
+  using acc_t = typename Cfg::acc_t;
+  if (mb <= 0 || cb <= 0) return (int)cudaErrorInvalidValue;
+  const int e = launch_strip_pass1<Cfg>(A, V, RectWalk{cb}, mb * cb, part_d,
+                                        part_t, stream);
   if (e != (int)cudaSuccess) return e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((ms + n) / P2_COLS);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = 0;
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(
-      &cfg, slab_pass2<float, F32Out, true>, (const float*)part_d,
-      (const float*)part_t, L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms,
-      F32Out{yd}, F32Out{yt});
+  return launch_dependent(rect_pass2<acc_t, Out, true>,
+                          (mb + cb) * TB / P2_COLS, stream,
+                          (const acc_t*)part_d, (const acc_t*)part_t, mb, cb,
+                          YD, YT);
 }
 
 }  // namespace

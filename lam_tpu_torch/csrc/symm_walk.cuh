@@ -63,16 +63,20 @@ struct DF64Plane {
   }
 };
 
-// Eight int16 of one 16-byte load, sign-extended.
-__device__ __forceinline__ void load_i16x8(const short* __restrict__ q,
-                                           size_t off, int e[8]) {
-  const int4 x = __ldcs(reinterpret_cast<const int4*>(q + off));
+// Eight int16 of one 16-byte vector, sign-extended.
+__device__ __forceinline__ void i32x8_of_i16x8(const int4 x, int e[8]) {
   const int w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     e[2 * j] = (int)(short)(w[j] & 0xffff);
     e[2 * j + 1] = w[j] >> 16;
   }
+}
+
+// Eight int16 of one 16-byte load, sign-extended.
+__device__ __forceinline__ void load_i16x8(const short* __restrict__ q,
+                                           size_t off, int e[8]) {
+  i32x8_of_i16x8(__ldcs(reinterpret_cast<const int4*>(q + off)), e);
 }
 
 struct Q16Plane {
@@ -706,8 +710,8 @@ symm_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
 // (t_ids[t_ptr[j] .. t_ptr[j+1]]) and their strips s. A block computes
 // P2_COLS consecutive outputs of yd (the first ms / P2_COLS blocks) or of
 // yt, each as P2_GROUPS strided partial sums combined in a fixed order.
-// PDL: launched as a programmatic dependent of pass 1 (csrc/strip_walk.cuh),
-// it first waits for pass 1's writes.
+// PDL: launched as a programmatic dependent of pass 1 (csrc/strip_walk.cuh,
+// kernel 16), it first waits for pass 1's writes.
 template <class acc_t, class Out, bool PDL = false>
 __global__ void __launch_bounds__(THREADS)
 slab_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
@@ -754,11 +758,12 @@ slab_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
 // The rectangle walk's pass 2: yd[li*TB + r] sums part_d[li*cb + k][r] over
 // the cb tiles of row tile li; yt[k*TB + c] sums part_t[li*cb + k][s][c]
 // over the mb tiles of column tile k and their strips. Blocks and partial
-// sums as in slab_pass2.
-template <class acc_t, class Out>
+// sums as in slab_pass2; PDL as there (kernels 18 and 19).
+template <class acc_t, class Out, bool PDL = false>
 __global__ void __launch_bounds__(THREADS)
 rect_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
            int mb, int cb, Out yd, Out yt) {
+  if constexpr (PDL) asm volatile("griddepcontrol.wait;\n" ::: "memory");
   __shared__ acc_t red[P2_GROUPS][P2_COLS];
   const int col = threadIdx.x % P2_COLS;
   const int grp = threadIdx.x / P2_COLS;

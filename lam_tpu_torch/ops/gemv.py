@@ -462,6 +462,10 @@ def gemv_q16_dual_plain(q1buf, sc, p, q):
     """Plain PyTorch q16 dual matvec in f32 over the int16 q1 tiles, the
     per-tile scales sc folded into p and q: (S @ p, S^T @ q)."""
     gemv_q16_dual_plain.calls += 1
+    return _q16_dual_parts(q1buf, sc, p, q)
+
+
+def _q16_dual_parts(q1buf, sc, p, q):
     tb, mb, cb = _dual_geometry(q1buf, p, q, "gemv_q16_dual")
     tiles = q1buf[:mb * cb * tb].to(torch.float32).reshape(-1, tb, tb)
     return _dual_parts(tiles, p, q, mb, cb, sc)
@@ -481,6 +485,10 @@ def gemv_fq_dual_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
     q1*s1 + q2*s2 + q3*s3 (each product exact): (yd_hi, yd_lo, yt_hi,
     yt_lo)."""
     gemv_fq_dual_plain.calls += 1
+    return _fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo)
+
+
+def _fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
     tb, mb, cb = _dual_geometry(q1, p_hi, q_hi, "gemv_fq_dual")
     rows, nt = mb * cb * tb, mb * cb
     tiles = sum(q[:rows].to(torch.float64).reshape(nt, tb, tb)
@@ -540,6 +548,16 @@ def _check_scales(what, T, scales):
         if tuple(s.shape) != (T,):
             raise ValueError(f"{what}: {name} table shape "
                              f"{tuple(s.shape)} != ({T},)")
+
+
+def _check_tma(what, vectors):
+    """Raise ValueError unless every CUDA vector is 16-byte aligned: the
+    strip walk (csrc/strip_walk.cuh) copies its slices with TMA, which
+    takes no other address."""
+    for name, x in vectors.items():
+        if x.is_cuda and x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must be 16-byte aligned (the "
+                             "strip walk copies it with TMA)")
 
 
 def _raise_on(what, code):
@@ -1132,9 +1150,7 @@ def _q16_slab(wrapper, plain, entry, q1_slab, sc1, p, it, kt, lt, ms):
     what = "gemv_q16_symm_slab"
     _check(what, {"q1": q1_slab, "s1": sc1, "p": p, "it": it, "kt": kt,
                   "lt": lt}, q1_slab.device)
-    if p.is_cuda and p.data_ptr() % 16:
-        raise ValueError(f"{what}: p must be 16-byte aligned (the strip "
-                         "walk copies it with TMA)")
+    _check_tma(what, {"p": p})
     tb, ms = _slab_geometry(what, q1_slab, p, it, kt, lt, ms, True, None)
     _check_scales(what, it.shape[0], {"scale": sc1})
     if q1_slab.device.type == "cpu":
@@ -1322,8 +1338,8 @@ def gemv_q16_dual(q1buf, sc, p, q):
     S^T @ q) in f32. Exact int16 -> f32 conversion and the scale folded
     into both p and q; the product engine is `_q16_impl` of the larger of
     n and ms (lam_tpu/ops/gemv.py:2553-2556): exact f32 products with f32
-    accumulation (no TF32, no bf16) under 'vpu', `gemv_q16_dual_bf16`
-    under 'mxu'."""
+    accumulation (no TF32, no bf16) under 'vpu' (the strip walk: p and q
+    16-byte aligned on the card), `gemv_q16_dual_bf16` under 'mxu'."""
     if _q16_impl(max(p.shape[0], q.shape[0])) == "mxu":
         return gemv_q16_dual_bf16(q1buf, sc, p, q)
     return _q16_dual(gemv_q16_dual, gemv_q16_dual_plain, "lam_gemv_q16_dual",
@@ -1342,6 +1358,7 @@ def _q16_dual(wrapper, plain, entry, q1buf, sc, p, q):
     """The q16 dual matvec of one engine (see `_q16_symm`)."""
     what = "gemv_q16_dual"
     _check(what, {"q1": q1buf, "s1": sc, "p": p, "q_": q}, q1buf.device)
+    _check_tma(what, {"p": p, "q": q})
     tb, mb, cb = _dual_geometry(q1buf, p, q, what)
     _check_scales(what, q1buf.shape[0] // tb, {"scale": sc})
     if q1buf.device.type == "cpu":
@@ -1355,8 +1372,16 @@ def gemv_fq_dual(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
     planes against per-tile power-of-two scale tables (T,), 6 B per
     element (the pad tiles' scales are not read). Returns (yd_hi, yd_lo,
     yt_hi, yt_lo). The kernel forms the cascade and accumulates in native
-    f64, so `comp` selects nothing. lam_tpu's single (tb, tb) broadcast
-    q2/q3 tile of generate mode is not ported."""
+    f64, so `comp` selects nothing; the strip walk takes p and q 16-byte
+    aligned on the card. lam_tpu's single (tb, tb) broadcast q2/q3 tile of
+    generate mode is not ported."""
+    return _fq_dual(gemv_fq_dual, gemv_fq_dual_plain, "lam_gemv_fq_dual",
+                    q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, comp)
+
+
+def _fq_dual(wrapper, plain, entry, q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
+             q_lo, comp):
+    """The fq dual matvec on the walk of the C entry point `entry`."""
     what = "gemv_fq_dual"
     _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
     for name, qq in (("q2", q2), ("q3", q3)):
@@ -1372,12 +1397,13 @@ def gemv_fq_dual(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
     _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
                   "s3": s3, "p_hi": p_hi, "p_lo": p_lo, "q_hi": q_hi,
                   "q_lo": q_lo}, q1.device)
+    _check_tma(what, {"p_hi": p_hi, "p_lo": p_lo, "q_hi": q_hi,
+                      "q_lo": q_lo})
     tb, mb, cb = _dual_geometry(q1, p_hi, q_hi, what)
     _check_scales(what, q1.shape[0] // tb, {"s1": s1, "s2": s2, "s3": s3})
     if q1.device.type == "cpu":
-        return gemv_fq_dual_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
-                                  q_lo)
-    return _dual_call(gemv_fq_dual, "lam_gemv_fq_dual",
+        return plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo)
+    return _dual_call(wrapper, entry,
                       (q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo), tb,
                       mb, cb, True)
 

@@ -43,13 +43,15 @@ three bf16 parts; hybrid: hi's transpose term, the direct term as f32
 FMAs). Their plain versions: the exact f32 walk, `split` with p * s
 rounded to bf16.
 
-Beside them, the earlier walks of two solver kernels that a later walk
+Beside them, the earlier walks of four solver kernels that a later walk
 replaced, kept as controls: `gemv_df64_rows` is kernel 6's function
 (`gemv.gemv_df64_cols`) on the dense_rows walk of csrc/gemv_dense.cu, and
-`gemv_q16_symm_slab_twopass` kernel 16's (`gemv.gemv_q16_symm_slab`, exact
-products) on the two-pass walk of csrc/symm_walk.cuh. Each gives its
-kernel's bits on the same bytes; chip_smoke.py times each in turns with
-its kernel.
+on the two-pass walk of csrc/symm_walk.cuh `gemv_q16_symm_slab_twopass` is
+kernel 16's (`gemv.gemv_q16_symm_slab`, exact products),
+`gemv_q16_dual_twopass` kernel 18's (`gemv.gemv_q16_dual`, exact products)
+and `gemv_fq_dual_twopass` kernel 19's (`gemv.gemv_fq_dual`). Each gives its
+kernel's bits on the same bytes, takes its arguments and refuses what it
+refuses; chip_smoke.py times each in turns with its kernel.
 
 These are measuring tools, not kernels of the solver's path: they stay out
 of the solver's registry (lam_tpu_torch.ops.KERNELS) and keep their own,
@@ -373,16 +375,49 @@ def gemv_q16_symm_slab_twopass(q1_slab, sc1, p, it, kt, lt, *, ms):
                           it, kt, lt, ms)
 
 
+def gemv_q16_dual_twopass_plain(q1buf, sc, p, q):
+    """Plain version of `gemv_q16_dual_twopass`:
+    `gemv.gemv_q16_dual_plain`'s f32 walk."""
+    gemv_q16_dual_twopass_plain.calls += 1
+    return gemv._q16_dual_parts(q1buf, sc, p, q)
+
+
+def gemv_q16_dual_twopass(q1buf, sc, p, q):
+    """`gemv.gemv_q16_dual` with exact products (the same arguments,
+    checks and bits) on the two-pass walk: (S @ p, S^T @ q)."""
+    return gemv._q16_dual(gemv_q16_dual_twopass, gemv_q16_dual_twopass_plain,
+                          "lam_gemv_q16_dual_twopass", q1buf, sc, p, q)
+
+
+def gemv_fq_dual_twopass_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
+                               q_lo):
+    """Plain version of `gemv_fq_dual_twopass`:
+    `gemv.gemv_fq_dual_plain`'s f64 walk."""
+    gemv_fq_dual_twopass_plain.calls += 1
+    return gemv._fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
+                               q_lo)
+
+
+def gemv_fq_dual_twopass(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
+                         comp=None):
+    """`gemv.gemv_fq_dual` (the same arguments, checks and bits) on the
+    two-pass walk: (yd_hi, yd_lo, yt_hi, yt_lo)."""
+    return gemv._fq_dual(gemv_fq_dual_twopass, gemv_fq_dual_twopass_plain,
+                         "lam_gemv_fq_dual_twopass", q1, q2, q3, s1, s2, s3,
+                         p_hi, p_lo, q_hi, q_lo, comp)
+
+
+CONTROLS = (gemv_df64_rows, gemv_q16_symm_slab_twopass, gemv_q16_dual_twopass,
+            gemv_fq_dual_twopass)  # not TPU kernels
 PROBES = (stream_i16, convert_f32_sum, gemv_q16_symm_magic,
           gemv_q16_symm_tb1024, gemv_q16_symm_sub8, gemv_q16_symm_split,
-          gemv_q16_symm_hi, gemv_q16_symm_hybrid, gemv_df64_rows,
-          gemv_q16_symm_slab_twopass)
+          gemv_q16_symm_hi, gemv_q16_symm_hybrid) + CONTROLS
 PROBES_PLAIN = (stream_i16_plain, convert_f32_sum_plain,
                 gemv_q16_symm_magic_plain, gemv_q16_symm_tb1024_plain,
                 gemv_q16_symm_sub8_plain, gemv_q16_symm_split_plain,
                 gemv_q16_symm_hi_plain, gemv_q16_symm_hybrid_plain,
-                gemv_df64_rows_plain, gemv_q16_symm_slab_twopass_plain)
-CONTROLS = (gemv_df64_rows, gemv_q16_symm_slab_twopass)  # not TPU kernels
+                gemv_df64_rows_plain, gemv_q16_symm_slab_twopass_plain,
+                gemv_q16_dual_twopass_plain, gemv_fq_dual_twopass_plain)
 
 
 def reset_counters():

@@ -16,7 +16,10 @@ also the edges of its row partition and the ring's column blocks, equal
 bit for bit to the dense_rows walk on the same bytes, and their SASS the
 TMA bulk copy. Kernel 16 (the strip walk) takes every rank's tables of the
 band pairs, a single-tile walk and misaligned operands, equal bit for bit
-to its control, the two-pass walk. The stencil kernel takes padded grids up
+to its control, the two-pass walk; kernels 18 and 19 (the dual kernels on
+the strip walk) take rectangles of 1 x 1 to 7 x 3 tiles with garbage pads,
+equal bit for bit to their two-pass controls, and refuse misaligned
+operands and a broken library. The stencil kernel takes padded grids up
 to the heat demo's 998 x 1198 interior (1024 x 1280), with zero edges and
 with the non-zero edge rows of a row-sharded grid.
 """
@@ -397,20 +400,26 @@ def test_gemv_df64_cols_stream_walk(m, n, nb):
 
 
 def test_dense_stream_kernels_hold_the_bulk_copy():
-    """The SASS of kernels 4, 5 and 6 (dense_stream) and of kernel 16's
-    strip walk issues TMA bulk copies (UBLKCP); that of the dense_rows
-    kernels (3 and the df64 control) and of kernel 16's control (the
-    two-pass walk's pass 1 on the slab tables) none."""
+    """The SASS of kernels 4, 5 and 6 (dense_stream) and of the strip walks
+    of kernels 16, 18 and 19 issues TMA bulk copies (UBLKCP); that of the
+    dense_rows kernels (3 and the df64 control) and of the strip walks'
+    controls (the two-pass walk's pass 1 on the slab tables and on the q16
+    and fq rectangles) none."""
     from lam_tpu_torch.ops import _build
     kernels = _build.sass()
     stream = [k for k in kernels if "dense_stream" in k]
     rows = [k for k in kernels if "dense_rows" in k]
     strip = [k for k in kernels if "strip_pass1" in k]
-    twopass = [k for k in kernels if "symm_pass1" in k and "8Q16Plane" in k
-               and "TableWalk" in k]
+    twopass = [k for k in kernels if "symm_pass1" in k and any(
+        plane in k and walk in k for plane, walk in (
+            ("8Q16Plane", "TableWalk"), ("8Q16Plane", "8RectWalk"),
+            ("7FQPlane", "8RectWalk")))]
     assert sorted("DF64Stream" in k for k in stream) == [False, True, True]
     assert sorted("DF64Mat" in k for k in rows) == [False, True]
-    assert len(strip) == 1 and len(twopass) == 1
+    assert len(strip) == 3 and len(twopass) == 3
+    assert sorted(("StripPlanesILi3E" in k, "TableWalk" in k)
+                  for k in strip) == [(False, False), (False, True),
+                                      (True, False)]
     for k in stream + strip:
         assert any("UBLKCP" in line for line in kernels[k])
     for k in rows + twopass:
@@ -1045,6 +1054,90 @@ def test_dual_kernels_reject_bad_inputs():
     with pytest.raises(NotImplementedError, match="items 8 and 10"):
         gemv.gemv_df64_dual(torch.zeros(2 * tb, tb, device=dev), buf, q, q,
                             q, q)
+
+
+# (mb, cb) of the strip walk's rectangles: one tile (8 strips, fewer than
+# the card's SMs), 3 x 5, rank (1, 0)'s 5 x 10 at N=10000 and 7 x 3 (168
+# strips, not a multiple of 132)
+STRIP_RECTS = [(1, 1), (3, 5), (5, 10), (7, 3)]
+
+
+def _strip_walk_args(mb, cb, seed):
+    """{kernel name: its arguments} of kernels 18 and 19 on an fq-packed
+    (mb*512, cb*512) rectangle with two garbage pad tiles and pad scales."""
+    tb = layout.SYMM_TB
+    packs, (ph, pl, qh, ql) = _dual_case(mb * tb, cb * tb, 2, seed)
+    fq = packs["fq"]
+    return {"gemv_q16_dual": (fq[0], fq[3], ph, qh),
+            "gemv_fq_dual": (*fq, ph, pl, qh, ql)}
+
+
+@pytest.mark.parametrize("mb,cb", STRIP_RECTS)
+def test_dual_strip_walks_equal_their_controls(mb, cb, monkeypatch):
+    """Kernels 18 and 19 on the strip walk give their controls' bits (the
+    two-pass walk) with garbage pad tiles and pad scales, and repeat
+    bitwise."""
+    monkeypatch.setattr(gemv, "_Q16_IMPL", "vpu")
+    for name, args in _strip_walk_args(mb, cb, seed=90 + 10 * mb + cb).items():
+        kernel = getattr(gemv, name)
+        control = getattr(probe, f"{name}_twopass")
+        ops.reset_counters()
+        probe.reset_counters()
+        out = kernel(*args)
+        torch.cuda.synchronize()
+        assert ops.counters()[name] == 1
+        assert not any(probe.counters().values())
+        assert all(torch.equal(u, v) for u, v in zip(out, control(*args)))
+        assert probe.counters()[f"{name}_twopass"] == 1
+        assert all(torch.equal(u, v) for u, v in zip(out, kernel(*args)))
+        assert not any(v for k, v in ops.counters().items()
+                       if k.endswith("_plain"))
+
+
+def test_dual_strip_walks_refuse_misaligned_operands():
+    """The strip walk copies the planes and every operand with TMA, which
+    needs 16-byte alignment: a view that starts 4 bytes in is refused by the
+    kernels and by their controls, and nothing is launched."""
+    args = _strip_walk_args(1, 2, seed=95)
+
+    def off(x):
+        buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device="cuda")
+        buf[1:1 + x.numel()].copy_(x.flatten())
+        return buf[1:1 + x.numel()].view(x.shape)
+
+    ops.reset_counters()
+    probe.reset_counters()
+    for name, a in args.items():
+        for fn in (getattr(gemv, name), getattr(probe, f"{name}_twopass")):
+            vec0 = 2 if name == "gemv_q16_dual" else 6
+            for k in (0, *range(vec0, len(a))):
+                bad = list(a)
+                bad[k] = off(a[k])
+                with pytest.raises(ValueError, match="aligned"):
+                    fn(*bad)
+    assert not any(ops.counters().values())
+    assert not any(probe.counters().values())
+
+
+def test_dual_strip_walks_have_no_fallback(monkeypatch):
+    """A kernel library that fails to build raises from kernels 18 and 19
+    and their controls; nothing else runs in their place."""
+    from lam_tpu_torch.ops import _build
+
+    def broken():
+        raise RuntimeError("nvcc failed (exit 1)")
+
+    args = _strip_walk_args(1, 1, seed=96)
+    monkeypatch.setattr(gemv, "_Q16_IMPL", "vpu")
+    monkeypatch.setattr(_build, "library", broken)
+    ops.reset_counters()
+    probe.reset_counters()
+    for name, a in args.items():
+        for fn in (getattr(gemv, name), getattr(probe, f"{name}_twopass")):
+            with pytest.raises(RuntimeError, match="nvcc failed"):
+                fn(*a)
+    assert not any(ops.counters().values())
+    assert not any(probe.counters().values())
 
 
 def test_four_rank_symmetric_grid_solve_on_one_card(tmp_path):
