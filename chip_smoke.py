@@ -31,11 +31,13 @@
      dense_rows beside, printing the spread of the kernel/library ratio;
      kernels 5 and 6 also at rank 0's column block of G=4 (printed only;
      kernel 6 over three copies in turn);
-   - kernels 16, 18 and 19 (gemv_q16_symm_slab, gemv_q16_dual,
-     gemv_fq_dual) run the strip walk of csrc/strip_walk.cuh: their SASS
-     holds UBLKCP and that of their controls, the two-pass walks
-     gemv_q16_symm_slab_twopass, gemv_q16_dual_twopass and
-     gemv_fq_dual_twopass, none; ptxas reports no spill for them. Kernel
+   - kernels 16, 18, 18-bf16 and 19 (gemv_q16_symm_slab, gemv_q16_dual,
+     gemv_q16_dual_bf16, gemv_fq_dual) run the strip walk of
+     csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
+     controls, the two-pass walks gemv_q16_symm_slab_twopass,
+     gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass and
+     gemv_fq_dual_twopass, none (18-bf16's walk and its control hold HMMA);
+     ptxas reports no spill for them. Kernel
      16's (yd, yt) equal its control's bit for bit on every rank's tables
      of G=2 and G=4, and it is timed against the control LIBRARY_REPEATS
      times in turns, the read floor beside, over three copies of its
@@ -76,9 +78,11 @@
    off-diagonal ranks, garbage pads too;
    timed at rank (1, 0), the f32 and q16 kernels over three copies of their
    plane in turn, beside two torch.mv calls over the dense rectangle (S p,
-   S^T q) for the f32 and df64 ones; kernels 18 and 19 also against their
-   controls LIBRARY_REPEATS times in turns, beside the read floor of their
-   planes (kernel 19's: q1, q2 and q3 streamed one after another). Prints each kernel's median
+   S^T q) for the f32 and df64 ones; kernels 18, 18-bf16 and 19 also
+   against their controls LIBRARY_REPEATS times in turns, beside the read
+   floor of their planes (kernel 19's: q1, q2 and q3 streamed one after
+   another), each printed beside its target (KERNEL_TARGET_MS) and whether
+   it was below its control in every repeat. Prints each kernel's median
    time per call, its plain version's and, where one PyTorch call
    computes the same function (torch.mv on the full f32 or f64 square, or
    on the strided column view for the ring's kernels; for the slab walks,
@@ -96,7 +100,9 @@
    ranks of the 2 x 2 grid with garbage pad tiles and pad scales: the
    public wrapper routes to the bf16 kernel, which agrees with its plain
    version to 1e-5, stands apart from the exact kernel (above 1e-5, within
-   1e-2), repeats bitwise, equals the f64 oracle bit for bit on
+   1e-2), repeats bitwise, equals its control (gemv_q16_dual_bf16_twopass,
+   the two-pass walk) bit for bit, pads as they are and garbage, equals
+   the f64 oracle bit for bit on
    small-integer tiles (-3..3), scales 0.5/0.25 and operands -3..3, and the
    ranks' parts summed agree to 1e-5 with the one-device bf16 kernel (the
    band pairs) or, for the grid with the engine forced on every rank, with
@@ -140,15 +146,22 @@
    and on that grid as one shard of a row-sharded grid (non-zero edge
    rows, a row limit below H and at H, columns cut below W): y bitwise
    equal, padding exactly 0, p . y within 1e-6 relative of the plain
-   version and of a float64 oracle, bitwise repeats. It times it there
-   and at 4096 x 4096 (streamed from HBM) beside torch's conv2d with the
-   same 5-point weights (stencil only: no mask, no p . y).
+   version and of a float64 oracle, bitwise repeats, and (y, p . y) equal
+   to its control's (laplace5_f32_halo_twopass, the two ordinary launches
+   the kernel replaced) bit for bit, there and at 4096 x 4096. It times it
+   on both grids (4096 x 4096 is streamed from HBM) beside torch's conv2d
+   with the same 5-point weights (stencil only: no mask, no p . y), and
+   against its control LIBRARY_REPEATS times in turns, conv2d beside:
+   the demo grid's times beside its target, 4096 x 4096's ratio to the
+   control beside 3%.
 4. Runs the heat-equation demo through the port's `lam-heat` CLI, in
    process, at its documented 1200 x 1000 plate: --precision ir (the
    stencil kernel must launch, no gemv kernel and no plain version) and
    --precision f64 (no stencil kernel, no plain version), each to a TRUE
    relative residual of the 5-point system <= 2e-10 computed in f64 on
-   the host, the two grids within IR_F64_ATOL; Jacobi at 120 x 100, whose
+   the host, the two grids within IR_F64_ATOL, the ir run's inner
+   iterations HEAT_IR_ITERS (4448, every chip run of the ported stencil: the
+   stencil keeps its bits); Jacobi at 120 x 100, whose
    sweep count and grid must equal a literal numpy loop; and the
    `lam-heat-to-bmp` converter on the ir grid, a (1000, 1200, 3) image.
 5. Solves the benchmark system through the port's CLI with --backend
@@ -173,7 +186,9 @@
    the off-diagonal ranks launch gemv_q16_dual_bf16 and gemv_fq_dual, the
    diagonal ranks gemv_q16_symm's exact body and gemv_fq_symm, since their
    exact-count triangles take lam_tpu's one-tile grid, nothing else; x
-   within 5e-6 of the ir x, since its inner engine differs). Each run must converge with a
+   within 5e-6 of the ir x, since its inner engine differs; 394
+   iterations, its count on the card before kernel 18-bf16 moved to the
+   strip walk, WALK_RUN_ITERS). Each run must converge with a
    TRUE relative residual <= 2e-9 on the host from rank 0's solution
    file, x within 1e-6 relative of phase 3's one-device ir x, its kernels
    launched and the others not in every rank (irfq: the q16 and fq walks
@@ -377,16 +392,19 @@ ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "symgrid-irfq-warm-4": "irfq-warm", "symgrid-fq-4": "fq",
                  "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq",
                  "symgrid-irfq-mxu-4": "irfq-cold"}
-# the runs through kernels 4, 5 and 6 (the dense_stream walk) and 16, 18
-# and 19 (the strip walk) -> the iteration count every earlier chip run of
-# their precision gave (PERF.md section 2): the walks keep the bits, so
-# this run's must be the same
+# the runs through kernels 4, 5 and 6 (the dense_stream walk) and 16, 18,
+# 18-bf16 and 19 (the strip walk) -> the iteration count every earlier chip
+# run of their precision gave (PERF.md section 2; symgrid-irfq-mxu-4: its
+# count on the card before kernel 18-bf16 moved): the walks keep the
+# bits, so this run's must be the same
 WALK_RUN_ITERS = {"ir-pallas": 365, "df64-pallas": 358, "ring-ir": 365,
                   "gather-df64": 358, "ring-ir-4": 365, "grid-ir-4": 365,
                   "packed-irfq-cold": 375, "packed-irfq-warm": 375,
                   "packed-irfq-4": 375, "symgrid-irfq-cold-4": 375,
-                  "symgrid-irfq-warm-4": 375, "symgrid-fq-4": 358}
-LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6, 16, 18 and 19
+                  "symgrid-irfq-warm-4": 375, "symgrid-fq-4": 358,
+                  "symgrid-irfq-mxu-4": 394}
+LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6, 16, 18, 19, 20
+HEAT_IR_ITERS = 4448  # heat `ir` at 1200 x 1000, every chip run (PERF.md 5)
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 
@@ -473,12 +491,13 @@ def _against_library(name, kernel, library, earlier, earlier_label,
     bytes (or the read floor) beside them, timed in turns LIBRARY_REPEATS
     times in this run: the spread of the kernel/library ratio says how far
     one timing can be trusted (a few % drift between runs, PERF.md §6).
-    Returns the kernel's times."""
-    ratios, times = [], []
+    Returns the kernel's times and the library call's (or control's)."""
+    ratios, times, lib_times = [], [], []
     for r in range(LIBRARY_REPEATS):
         ms, lib_ms, old_ms = _median_ms([kernel, library, earlier])
         ratios.append(ms / lib_ms)
         times.append(ms)
+        lib_times.append(lib_ms)
         print(f"{name} repeat {r + 1}: kernel {ms:.4f} ms, {library_label} "
               f"{lib_ms:.4f} ms, kernel/{library_label} {ms / lib_ms:.4f}; "
               f"{earlier_label} {old_ms:.4f} ms (/{library_label} "
@@ -486,7 +505,7 @@ def _against_library(name, kernel, library, earlier, earlier_label,
     print(f"{name} kernel/{library_label} over {LIBRARY_REPEATS} repeats: "
           f"min {min(ratios):.4f}, max {max(ratios):.4f}, spread "
           f"{max(ratios) - min(ratios):.4f}")
-    return times
+    return times, lib_times
 
 
 # the two-pass walks kept as the strip walk's controls: pass 1's
@@ -507,12 +526,30 @@ def _strip_walk_of(name):
 
 def stream_sass(build):
     """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
-    walks of kernels 16, 18 and 19 holds the TMA bulk copy (UBLKCP); that
-    of the dense_rows kernels (3 and the df64 control) and of the three
-    strip walks' controls (the two-pass walk's pass 1) none. Prints each
-    strip walk's registers from ptxas' report in the build log, which must
-    show no spill and no stack frame."""
+    walks of kernels 16, 18, 18-bf16 and 19 holds the TMA bulk copy
+    (UBLKCP); that of the dense_rows kernels (3 and the df64 control) and of
+    the four strip walks' controls (the two-pass walk's pass 1) none; kernel
+    18-bf16's walk (strip_mma_pass1) and its control (q16_bf16_pass1 on the
+    rectangle) hold tensor-core products (HMMA). Prints each strip walk's
+    registers from ptxas' report in the build log, which must show no spill
+    and no stack frame."""
     kernels = build.sass()
+    mma = [k for k in kernels if "strip_mma_pass1" in k]
+    mma_ctl = [k for k in kernels
+               if "q16_bf16_pass1" in k and "RectWalk" in k]
+    _check(len(mma) == 1 and len(mma_ctl) == 1,
+           "SASS: kernel 18-bf16's strip walk or its control is missing")
+    hmma = {k: sum("HMMA" in line for line in kernels[k])
+            for k in mma + mma_ctl}
+    copies = {k: sum("UBLKCP" in line for line in kernels[k])
+              for k in mma + mma_ctl}
+    print(f"SASS kernel 18-bf16: strip walk {copies[mma[0]]} UBLKCP, "
+          f"{hmma[mma[0]]} HMMA; two-pass control {copies[mma_ctl[0]]} "
+          f"UBLKCP, {hmma[mma_ctl[0]]} HMMA")
+    _check(copies[mma[0]] > 0 and copies[mma_ctl[0]] == 0
+           and all(hmma.values()),
+           "SASS: kernel 18-bf16's strip walk lacks UBLKCP or HMMA, or its "
+           "control issues a bulk copy")
     walks = {"dense_stream": [], "dense_rows": [], "strip_pass1": [],
              "two-pass control": []}
     for k, lines in kernels.items():
@@ -545,12 +582,14 @@ def stream_sass(build):
     for line in log.splitlines():
         head = re.search(r"Compiling entry function '(\S+)'", line)
         if head:
-            name = _strip_walk_of(head.group(1)) if (
-                "strip_pass1" in head.group(1)) else None
+            name = ("kernel 18-bf16" if "strip_mma_pass1" in head.group(1)
+                    else _strip_walk_of(head.group(1)) if (
+                        "strip_pass1" in head.group(1)) else None)
         elif name and ("registers" in line or "spill" in line):
             report.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     print(f"ptxas, the strip walks: {report}")
-    _check(sorted(report) == sorted(STRIP_WALKS.values()) and all(
+    _check(sorted(report) == sorted([*STRIP_WALKS.values(),
+                                      "kernel 18-bf16"]) and all(
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
         in " ".join(lines) for lines in report.values()),
         "a strip walk spills or has a stack frame")
@@ -1853,8 +1892,10 @@ DUAL_KERNELS = {"df64": ("gemv_f32_dual", (0,), "gemv_df64_dual", (0, 1)),
                        (0, 1, 2, 3, 4, 5))}
 # the dual kernels on the strip walk -> their controls (ops/probe.py)
 DUAL_CONTROLS = {"gemv_q16_dual": "gemv_q16_dual_twopass",
-                 "gemv_fq_dual": "gemv_fq_dual_twopass"}
-KERNEL_TARGET_MS = {"gemv_q16_dual": 0.0156, "gemv_fq_dual": 0.0470}
+                 "gemv_fq_dual": "gemv_fq_dual_twopass",
+                 "gemv_q16_dual_bf16": "gemv_q16_dual_bf16_twopass"}
+KERNEL_TARGET_MS = {"gemv_q16_dual": 0.0156, "gemv_fq_dual": 0.0470,
+                    "gemv_q16_dual_bf16": 0.0156, "laplace5_f32_halo": 0.0062}
 DUAL_REPLACES = {"gemv_f32_dual": 1556, "gemv_df64_dual": 1682,
                  "gemv_dfq_dual": 1763, "gemv_q16_dual": 2544,
                  "gemv_fq_dual": 2624, "gemv_q16_dual_bf16": 2502}
@@ -2069,7 +2110,9 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
          for name, fn in (("gemv_q16_dual", gemv.gemv_q16_dual),
                           ("gemv_q16_dual_bf16", gemv.gemv_q16_dual_bf16),
                           ("gemv_q16_dual_twopass",
-                           probe.gemv_q16_dual_twopass))},
+                           probe.gemv_q16_dual_twopass),
+                          ("gemv_q16_dual_bf16_twopass",
+                           probe.gemv_q16_dual_bf16_twopass))},
         _nbytes(q1, bufs[1][:real], *vec32, *gemv.gemv_q16_dual(*bufs,
                                                                  *vec32)))
     _walk_against_control(
@@ -2079,6 +2122,20 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
         _rotating(lambda q: probe.gemv_q16_dual_twopass(
             q, bufs[1][:real], *vec32), copies),
         _rotating(probe.stream_i16, copies), "read floor (lam_stream_i16)")
+    _walk_against_control(
+        "gemv_q16_dual_bf16", entries["gemv_q16_dual_bf16"]["bound_ms"],
+        _rotating(lambda q: gemv.gemv_q16_dual_bf16(q, bufs[1][:real],
+                                                    *vec32), copies),
+        _rotating(lambda q: probe.gemv_q16_dual_bf16_twopass(
+            q, bufs[1][:real], *vec32), copies),
+        _rotating(probe.stream_i16, copies), "read floor (lam_stream_i16)")
+    _pass_split("gemv_q16_dual_bf16 at rank (1, 0), kernel and two-pass "
+                "control, three copies in turn", {
+                    "kernel": _rotating(lambda q: gemv.gemv_q16_dual_bf16(
+                        q, bufs[1][:real], *vec32), copies),
+                    "control": _rotating(
+                        lambda q: probe.gemv_q16_dual_bf16_twopass(
+                            q, bufs[1][:real], *vec32), copies)})
     del copies
     fq6 = list(fq.operand[:6])
     entry("gemv_fq_dual", fq6, vec64, None, "f64")
@@ -2095,21 +2152,53 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
     return [entries[name] for name in DUAL_REPLACES]
 
 
+def _pass_split(label, fns, calls=40):
+    """The device time of each kernel that the calls fns (name -> fn)
+    launch, from torch.profiler (CUPTI): its mean per launch, by kernel
+    name, so a call's time splits into its passes. A programmatically
+    dependent pass 2 starts before pass 1 ends and waits for it: its time
+    holds that wait. Returns {kernel name: ms}."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            for fn in fns.values():
+                fn()
+        torch.cuda.synchronize()
+    split = {}
+    for ev in prof.key_averages():
+        if ev.count and ev.device_time > 0:
+            name = re.sub(r"\(anonymous namespace\)::", "", ev.key)
+            split[name.split("(")[0]] = ev.device_time / 1e3
+    print(f"{label}, device time a launch (torch.profiler, {calls} calls "
+          "each): " + ", ".join(f"{k} {v:.4f} ms"
+                                for k, v in sorted(split.items())))
+    return split
+
+
 def _walk_against_control(name, bound_ms, kernel, control, floor,
-                          floor_label):
-    """A dual kernel's strip walk against its control, the two-pass walk,
-    in turns LIBRARY_REPEATS times with the read floor beside them, and its
-    time against KERNEL_TARGET_MS (half its bound; printed, not a gate)."""
-    print(f"{name} (strip walk) at rank (1, 0), against its two-pass "
-          f"control; bound {bound_ms:.4f} ms, target <= "
-          f"{KERNEL_TARGET_MS[name]:.4f} ms:")
-    times = _against_library(name, kernel, control, floor, floor_label,
-                             library_label="two-pass")
+                          floor_label, where="(strip walk) at rank (1, 0)",
+                          control_label="two-pass"):
+    """A kernel's new walk against its control, the walk it replaced, in
+    turns LIBRARY_REPEATS times with the read floor (or another yardstick)
+    beside them, and its time against KERNEL_TARGET_MS (half its bound) and
+    the control's (printed, not gates)."""
+    target = KERNEL_TARGET_MS.get(name)
+    goal = "" if target is None else f", target <= {target:.4f} ms"
+    print(f"{name} {where}, against its {control_label} control; bound "
+          f"{bound_ms:.4f} ms{goal}:")
+    times, ctl = _against_library(name, kernel, control, floor, floor_label,
+                                  library_label=control_label)
+    below = all(t < c for t, c in zip(times, ctl))
+    met = ("" if target is None else
+           f"; target {'met' if max(times) <= target else 'missed'}")
     print(f"{name} over {LIBRARY_REPEATS} repeats: {min(times):.4f}-"
           f"{max(times):.4f} ms, {bound_ms / max(times):.2f}-"
-          f"{bound_ms / min(times):.2f} of its bound; target <= "
-          f"{KERNEL_TARGET_MS[name]:.4f} ms "
-          f"{'met' if max(times) <= KERNEL_TARGET_MS[name] else 'missed'}")
+          f"{bound_ms / min(times):.2f} of its bound{met}; below the "
+          f"control in every repeat: {below}")
+    return times, ctl
 
 
 def _bf16_dual_case(gemv, ops_, ph, one_mxu, mb, cb, m, tb):
@@ -2124,6 +2213,8 @@ def _bf16_dual_case(gemv, ops_, ph, one_mxu, mb, cb, m, tb):
     triangles take gemv_q16_symm's exact body, as lam_tpu's one-tile grid
     does. Returns the largest kernel-plain difference."""
     from lam_tpu_torch import ops
+    from lam_tpu_torch.ops import probe
+    control = getattr(probe, DUAL_CONTROLS["gemv_q16_dual_bf16"])
     r, m2 = 2, m // 2
     real = mb * cb
     gen = torch.Generator(device="cuda")
@@ -2149,9 +2240,14 @@ def _bf16_dual_case(gemv, ops_, ph, one_mxu, mb, cb, m, tb):
         _check(torch.equal(y, torch.cat(gemv.gemv_q16_dual_bf16(
             *bufs, ph[pv], ph[qv]))), f"gemv_q16_dual_bf16 rank {k} not "
             "repeatable")
+        garbage = _with_garbage_pads(bufs, real, tb)
         _check(torch.equal(y, torch.cat(gemv.gemv_q16_dual_bf16(
-            *_with_garbage_pads(bufs, real, tb), ph[pv], ph[qv]))),
+            *garbage, ph[pv], ph[qv]))),
             f"gemv_q16_dual_bf16 rank {k} read a pad tile or a pad scale")
+        for b in (bufs, garbage):  # the strip walk's bits
+            _check(torch.equal(y, torch.cat(control(*b, ph[pv], ph[qv]))),
+                   f"gemv_q16_dual_bf16 rank {k}: the strip walk != the "
+                   "two-pass walk")
         qs, ss = _small_q16(tuple(bufs[0].shape), real * tb, real, gen)
         qs, ss = _with_garbage_pads([qs, ss], real, tb)
         pvs, qvs = _small_vec(m, gen), _small_vec(m2, gen)
@@ -2174,7 +2270,9 @@ def _bf16_dual_case(gemv, ops_, ph, one_mxu, mb, cb, m, tb):
     e_sum = _rel(total[:n1], one_mxu)
     print(f"gemv_q16_dual_bf16, 2x2 grid (half-slab ({m2}, {m}), {real} real "
           f"tiles + garbage pads): rel l2 kernel-plain max {max(errs):.3e} "
-          f"(<= 1e-5); small-integer data == f64 oracle: {exact}; four ranks' "
+          f"(<= 1e-5), == the two-pass walk bit for bit on both ranks, "
+          f"garbage pads too; small-integer data == f64 oracle: {exact}; "
+          f"four ranks' "
           f"(own, payload) under mxu vs one device's exact diagonal blocks "
           f"+ bf16 off-diagonal blocks {e_sum:.3e} "
           f"(<= 1e-5), launched {sorted(launched)}")
@@ -2205,9 +2303,13 @@ def _stencil_oracle(p, up, dn, nrows, nxi):
 
 
 def _stencil_case(stencil, label, p, up, dn, nrows, nxi, tbr):
-    """One stencil case against its plain version; returns y's largest
-    difference from the plain version (0: they must be bitwise equal)."""
+    """One stencil case against its plain version and its control (the
+    two-launch walk, ops/probe.py); returns y's largest difference from the
+    plain version (0: they must be bitwise equal)."""
+    from lam_tpu_torch.ops import probe
     y, d = stencil.laplace5_f32_halo(p, up, dn, nrows, nxi=nxi, tbr=tbr)
+    yc, dc = probe.laplace5_f32_halo_twopass(p, up, dn, nrows, nxi=nxi,
+                                             tbr=tbr)
     y_plain, d_plain = stencil.laplace5_f32_halo_plain(p, up, dn, nrows,
                                                        nxi=nxi)
     y64, d64 = _stencil_oracle(p, up, dn, nrows, nxi)
@@ -2218,8 +2320,12 @@ def _stencil_case(stencil, label, p, up, dn, nrows, nxi, tbr):
     y_err = float((y - y_plain).abs().max())
     print(f"laplace5 {label}: y-plain max {y_err:.3e} (== 0), y-f64 max "
           f"{float((y.double() - y64).abs().max()):.3e}, p.y rel: "
-          f"kernel-plain {errs[0]:.3e} kernel-f64 {errs[1]:.3e} (<= 1e-6)")
+          f"kernel-plain {errs[0]:.3e} kernel-f64 {errs[1]:.3e} (<= 1e-6); "
+          f"(y, p.y) == the two-launch control's bit for bit: "
+          f"{torch.equal(y, yc) and float(dc) == d}")
     _check(torch.equal(y, y_plain), f"laplace5 {label}: y != plain version")
+    _check(torch.equal(y, yc) and float(dc) == d,
+           f"laplace5 {label}: the kernel != its two-launch control")
     _check(int(torch.count_nonzero(y[nrows:])) == 0
            and int(torch.count_nonzero(y[:, nxi:])) == 0,
            f"laplace5 {label}: padding != 0")
@@ -2232,22 +2338,33 @@ def _stencil_case(stencil, label, p, up, dn, nrows, nxi, tbr):
 def _stencil_timed(stencil, name, p, zero, nyi, nxi, tbr, y_err):
     """_timed_entry of the zero-edge stencil on grid p, with torch's
     conv2d (5-point weights, padding 1; no mask, no p.y) as the library
-    call."""
+    call; then the kernel against its control (the two-launch walk) in
+    turns LIBRARY_REPEATS times, conv2d beside. Returns the entry and the
+    kernel's and the control's repeat times."""
+    from lam_tpu_torch.ops import probe
     H, W = p.shape
     y, d = stencil.laplace5_f32(p, nyi=nyi, nxi=nxi, tbr=tbr)
     weights = torch.tensor([[0.0, -1.0, 0.0], [-1.0, 4.0, -1.0],
                             [0.0, -1.0, 0.0]], device=p.device)
     weights = weights.view(1, 1, 3, 3)
     p4 = p.view(1, 1, H, W)
+    kernel = lambda: stencil.laplace5_f32_halo(p, zero, zero, nyi, nxi=nxi,
+                                               tbr=tbr)
+    conv = lambda: torch.nn.functional.conv2d(p4, weights, padding=1)
     # 5 operations a valid cell for the stencil, 2 for the dot
-    return _timed_entry(
+    entry = _timed_entry(
         name, "lam_tpu/ops/stencil.py:92", STENCIL_SOURCE, y_err,
-        (lambda: stencil.laplace5_f32_halo(p, zero, zero, nyi, nxi=nxi,
-                                           tbr=tbr),
+        (kernel,
          lambda: stencil.laplace5_f32_halo_plain(p, zero, zero, nyi,
-                                                 nxi=nxi),
-         lambda: torch.nn.functional.conv2d(p4, weights, padding=1)),
+                                                 nxi=nxi), conv),
         (p, zero, zero, y, d), 7 * nyi * nxi, "f32")
+    times = _walk_against_control(
+        name, entry["bound_ms"], kernel,
+        lambda: probe.laplace5_f32_halo_twopass(p, zero, zero, nyi, nxi=nxi,
+                                                tbr=tbr),
+        conv, "conv2d (stencil only)", where=f"on the {H}x{W} grid",
+        control_label="two-launch")
+    return entry, times
 
 
 def stencil_vs_plain(stencil):
@@ -2274,8 +2391,14 @@ def stencil_vs_plain(stencil):
         y_err = max(y_err, _stencil_case(
             stencil, f"{H}x{W} halo rows, nrows {nrows}, nxi {cols}",
             full, up, dn, nrows, cols, tbr))
-    entry = _stencil_timed(stencil, "laplace5_f32_halo", p, zero, nyi, nxi,
-                           tbr, y_err)
+    entry, _ = _stencil_timed(stencil, "laplace5_f32_halo", p, zero, nyi,
+                              nxi, tbr, y_err)
+    from lam_tpu_torch.ops import probe
+    _pass_split(f"laplace5 {H}x{W}, kernel and two-launch control", {
+        "kernel": lambda: stencil.laplace5_f32_halo(p, zero, zero, nyi,
+                                                    nxi=nxi, tbr=tbr),
+        "control": lambda: probe.laplace5_f32_halo_twopass(
+            p, zero, zero, nyi, nxi=nxi, tbr=tbr)})
     del full
     big_i = STREAM_NI
     Hb, Wb, tbr_b = stencil.padded_hw(big_i, big_i)
@@ -2283,11 +2406,14 @@ def stencil_vs_plain(stencil):
     zb = torch.zeros(1, Wb, device="cuda")
     yb_err = _stencil_case(stencil, f"{Hb}x{Wb} zero edges", pb, zb, zb,
                            big_i, big_i, tbr_b)
-    big = _stencil_timed(stencil, f"laplace5 {Hb}x{Wb}", pb, zb, big_i,
-                         big_i, tbr_b, yb_err)
+    big, (times, ctl) = _stencil_timed(stencil, f"laplace5 {Hb}x{Wb}", pb,
+                                       zb, big_i, big_i, tbr_b, yb_err)
+    worst = max(t / c for t, c in zip(times, ctl))
     print("laplace5_f32_halo at the streaming shape: "
           + json.dumps({k: big[k] for k in ("ms", "plain_ms", "bound_ms",
-                                            "library_ms")}))
+                                            "library_ms")})
+          + f"; against the two-launch control at most x{worst:.4f} over "
+          f"{LIBRARY_REPEATS} repeats (within 3%: {worst <= 1.03})")
     return entry
 
 
@@ -2380,6 +2506,11 @@ def heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio):
                       f"(<= {HEAT_GATE:g}), launches {launched}")
                 _check(true_rel <= HEAT_GATE, f"{run} TRUE residual "
                        f"{true_rel:.3e} above {HEAT_GATE:g}")
+                if run == "heat-ir":  # through the stencil kernel's bits
+                    print(f"heat-ir: {iters} inner iterations; "
+                          f"{HEAT_IR_ITERS} in every earlier chip run")
+                    _check(iters == HEAT_IR_ITERS, f"heat-ir took {iters} "
+                           f"iterations, not {HEAT_IR_ITERS}")
             for k in kernels:
                 _check(counts[k] > 0, f"{run} never launched {k}")
             for k in not_kernels:

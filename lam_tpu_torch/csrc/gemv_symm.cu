@@ -44,6 +44,7 @@
 //   lam_gemv_q16_symm_slab_twopass  lam_gemv_q16_symm_slab
 //   lam_gemv_q16_dual_twopass       lam_gemv_q16_dual
 //   lam_gemv_fq_dual_twopass        lam_gemv_fq_dual
+//   lam_gemv_q16_dual_bf16_twopass  lam_gemv_q16_dual_bf16
 //
 // and the bf16 product engine of the three q16 kernels (lam_tpu's
 // LAM_Q16_IMPL "mxu" bodies, chosen by ops/gemv.py `_q16_impl`):
@@ -53,7 +54,8 @@
 //   lam_gemv_q16_symm_slab_bf16  _gemv_q16_symm_slab_kernel, impl="mxu"
 //                                (:2266-2303)
 //   lam_gemv_q16_dual_bf16       _gemv_q16_dual_kernel, impl="mxu"
-//                                (:2502-2537)
+//                                (:2502-2537); pass 1 on the strip walk
+//                                with tensor-core consumers
 //
 // Storage contract (lam_tpu_torch/ops/layout.py pack_tri_host): the matrix
 // is n x n with n = nblk * TB, and only its nblk(nblk+1)/2 lower-triangle
@@ -153,6 +155,12 @@
 //    rect_pass2) launched as a programmatic dependent. Inside a strip it
 //    sums in symm_pass1's order and writes the same partials, so its bits
 //    are the two-pass walk's (the controls lam_gemv_*_twopass).
+//  * Kernel 18-bf16 (the bf16 engine of kernel 18) runs the same walk with
+//    tensor-core consumers (strip_mma_pass1): each stage is converted to
+//    bf16 into q16_bf16_pass1's padded strip layout, released, and
+//    multiplied with q16_bf16_pass1's mma.sync chains, its fragments taken
+//    with ldmatrix; the same products in the same order, so the bits of
+//    q16_bf16_pass1 and rect_pass2 (lam_gemv_q16_dual_bf16_twopass).
 //
 // df64: on the TPU, which has no f64, the (hi, lo) float-float planes
 // were multiplied with Dekker two_prod and summed with Knuth two_sum
@@ -202,9 +210,9 @@
 // their fixed order of sums are shared: no float atomics, bitwise repeats.
 //
 // The code of this design is csrc/symm_walk.cuh (and csrc/strip_walk.cuh,
-// pass 1 of kernels 16, 18 and 19); csrc/q16_probe.cu instantiates symm_walk.cuh for the
-// q16 probes too (the triangle walk at tb=1024, with unreduced transpose
-// partials, and three more tensor-core modes).
+// pass 1 of kernels 16, 18, 18-bf16 and 19); csrc/q16_probe.cu instantiates
+// symm_walk.cuh for the q16 probes too (the triangle walk at tb=1024, with
+// unreduced transpose partials, and three more tensor-core modes).
 
 #include "strip_walk.cuh"
 
@@ -459,11 +467,26 @@ extern "C" int lam_gemv_q16_symm_slab_bf16(
                      F32Out{yt}, part_d, part_t, T, ms, (cudaStream_t)stream);
 }
 
+// Walk: the strip walk with tensor-core consumers (csrc/strip_walk.cuh,
+// strip_mma_pass1); every plane and vector pointer 16-byte aligned.
 extern "C" int lam_gemv_q16_dual_bf16(const short* q1, const float* s1,
                                       const float* p, const float* q,
                                       float* yd, float* yt, float* part_d,
                                       float* part_t, int mb, int cb,
                                       void* stream) {
+  return launch_strip_dual<DualBf16Cfg>(
+      StripPlanes<1>{{q1}, {s1}}, StripVecs<1>{{p}, {q}}, F32Out{yd},
+      F32Out{yt}, part_d, part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// The control of lam_gemv_q16_dual_bf16: the same arguments and bits on the
+// two-pass walk (q16_bf16_pass1 and rect_pass2; lam_tpu_torch/ops/probe.py
+// gemv_q16_dual_bf16_twopass).
+extern "C" int lam_gemv_q16_dual_bf16_twopass(const short* q1, const float* s1,
+                                              const float* p, const float* q,
+                                              float* yd, float* yt,
+                                              float* part_d, float* part_t,
+                                              int mb, int cb, void* stream) {
   return launch_dual(Q16Bf16Plane{q1, s1}, F32Vec{p}, F32Vec{q}, F32Out{yd},
                      F32Out{yt}, part_d, part_t, mb, cb, (cudaStream_t)stream);
 }

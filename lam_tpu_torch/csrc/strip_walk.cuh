@@ -1,10 +1,15 @@
-// The strip walk: pass 1 of three kernels, a persistent grid fed by TMA
-// bulk copies, in place of symm_pass1 (csrc/symm_walk.cuh):
+// The strip walk: pass 1 of four kernels, a persistent grid fed by TMA
+// bulk copies, in place of symm_pass1 and q16_bf16_pass1
+// (csrc/symm_walk.cuh):
 //
 //   kernel 16  lam_gemv_q16_symm_slab  the q16 plane, one rank's band-pair
 //                                      tables (TableWalk), one operand p
 //   kernel 18  lam_gemv_q16_dual       the q16 plane, the rectangle
 //                                      (RectWalk), p and q
+//   kernel 18-bf16  lam_gemv_q16_dual_bf16  kernel 18's bf16 engine: the
+//                                      same plane and operands, bf16
+//                                      tensor-core products
+//                                      (strip_mma_pass1)
 //   kernel 19  lam_gemv_fq_dual        the fq cascade (three int16 planes,
 //                                      f64 sums), the rectangle, the (hi,
 //                                      lo) pairs of p and q
@@ -62,13 +67,27 @@
 //  * Kernel 19 converts its int16 values to f64 by bits (BITS): the three
 //    conversions an element, at 16 a clock on an SM, were 3/8 of a strip's
 //    share of the card's bandwidth; by bits each is one add at 64 a clock.
+//  * Kernel 18-bf16's consumers (strip_mma_pass1, MMA) run q16_bf16_pass1's
+//    tensor-core products. Its mma.sync fragments read 16-bit pairs of
+//    eight rows at once; on a raw stage, whose rows are 1024 bytes apart,
+//    the eight row groups fall in one bank. So every consumer warp converts
+//    its share of each stage (by bits: the exact f32 of each int16, then
+//    round to nearest even) into q16_bf16_pass1's bf16 strip, whose rows
+//    are padded to TB + 8, with the direct operand p_k * s and the
+//    transpose operand q_i * s (__fmul_rn, then bf16), and releases the
+//    stage; after a barrier of the consumers warps 0-3 run the direct term
+//    and warps 4-7 the transpose term, as q16_bf16_pass1 does, the A
+//    fragments taken with ldmatrix (.trans for the transpose term: one
+//    instruction where q16_bf16_pass1 issues four 32-bit or eight 16-bit
+//    loads); a second barrier guards the strip buffer until every warp has
+//    read it.
 //  * Pass 2 (slab_pass2 or rect_pass2) is a programmatic dependent launch
 //    (cudaLaunchAttributeProgrammaticStreamSerialization): its blocks are
 //    scheduled while pass 1 drains its last strips and wait
 //    (griddepcontrol.wait) for pass 1's writes before they read a partial.
 //
 // Sizes, from sweeps on an H100 (PERF.md section 6; the chosen ones at
-// SlabQ16Cfg, DualQ16Cfg and DualFQCfg below). Kernel 16: two
+// SlabQ16Cfg, DualQ16Cfg, DualFQCfg and DualBf16Cfg below). Kernel 16: two
 // stages (136 KB) and a 16 KB reduction buffer; a third stage was slower,
 // and so were two blocks an SM of one stage each, the int16 -> f32
 // conversion by bits (csrc/q16_probe.cu's magic), an earlier pass-2
@@ -82,7 +101,13 @@
 // of two were slower, and so was a pass 2 whose loads were unrolled to be
 // issued together; kernel 19's 16-row stages, four of them, were slower
 // than its two 32-row stages. EARLY brought kernel 18's pass 1 to the read
-// floor of its plane; conversion by bits made kernel 19 faster.
+// floor of its plane; conversion by bits made kernel 19 faster. Kernel
+// 18-bf16: two 32-row stages (one strip in flight), conversion by bits and
+// ldmatrix each made it faster; 64-row stages (two, or one), four 32-row
+// stages, 16-row stages (four or eight), a second bf16 buffer (the next
+// strip converted while this one is multiplied, one barrier a strip), the
+// transpose chains unrolled to interleave, and a grid of 100 blocks were
+// as fast or slower.
 //
 // The bits: inside a strip nothing of symm_pass1's order changes. Warp w
 // sums rows w*8 .. w*8+7 in that order, lane l holds columns lane_col<8>(l,
@@ -147,25 +172,35 @@ struct StripHeader {
 // instruction. EARLY (one plane only): each consumer warp takes its rows
 // and operand entries into registers and releases the stage before it sums
 // them.
+// MMA (one plane, f32 operands): the consumers are tensor-core ones
+// (strip_mma_pass1): every consumer warp converts its share of each stage
+// to bf16 into one padded strip buffer (MmaSmem<MMA_DEF>), in place of the
+// reduction buffer, releases the stage, and runs q16_bf16_pass1's products
+// on the buffer.
 template <class Planes, class Vecs, int SR_, int S_, int RW_,
-          bool BITS_ = false, bool EARLY_ = false>
+          bool BITS_ = false, bool EARLY_ = false, bool MMA_ = false>
 struct StripCfg {
   using acc_t = typename Planes::acc_t;
   static_assert(std::is_same<acc_t, typename Vecs::acc_t>::value,
                 "the planes' sums and the operands are of one type");
   static constexpr int NP = Planes::NP, NV = Vecs::NV;
   static constexpr int SR = SR_, S = S_, RW = RW_;
-  static constexpr bool BITS = BITS_, EARLY = EARLY_;
+  static constexpr bool BITS = BITS_, EARLY = EARLY_, MMA = MMA_;
   static_assert(!EARLY || NP == 1, "one plane's rows fit the registers");
+  static_assert(!MMA || (NP == 1 && NV == 1 && !EARLY && BITS),
+                "the tensor-core consumers take the q16 plane, f32 operands, "
+                "and convert by bits");
   static constexpr int SPS = ROWS / SR;           // stages a strip
   static constexpr int WPS = SR / ROWS_PER_WARP;  // consumer warps a stage
+  static constexpr int READERS = MMA ? WARPS : WPS;  // warps that read one
   static constexpr int PLANE_BYTES = SR * TB * (int)sizeof(short);
   static constexpr int PK_OFF = NP * PLANE_BYTES;
   static constexpr int PI_OFF = PK_OFF + NV * TB * (int)sizeof(float);
   static constexpr int HDR_OFF = PI_OFF + NV * SR * (int)sizeof(float);
   static constexpr int STAGE_BYTES =
       (HDR_OFF + (int)sizeof(StripHeader<NP>) + 127) / 128 * 128;
-  static constexpr int RED_BYTES = RW * TB * (int)sizeof(acc_t);
+  static constexpr int RED_BYTES =
+      MMA ? MmaSmem<MMA_DEF>::bytes : RW * TB * (int)sizeof(acc_t);
   static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
   static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
                 "a stage is whole warps' rows of one strip");
@@ -174,12 +209,16 @@ struct StripCfg {
   static_assert(SMEM + 2 * S * 8 <= 232448, "a block's shared memory");
 };
 
-// The three kernels' sizes, from the sweeps (PERF.md section 6):
+// The four kernels' sizes, from the sweeps (PERF.md section 6):
 //  * kernel 16: the 64 KB strip as one stage, two stages;
 //  * kernel 18: 32-row stages of 32 KB, six of them (four were as fast or
 //    a little slower), EARLY: with the stage released once the warps hold
 //    their rows, the ring refills while they sum, and pass 1 reads at the
 //    card's measured read floor;
+//  * kernel 18-bf16: 32-row stages of 32 KB, two of them (one strip in
+//    flight), conversion by bits, the transpose sums not reduced (the
+//    tensor cores sum each column over the strip) and one 66 KB bf16 strip
+//    buffer in the reduction buffer's place: 138 KB;
 //  * kernel 19: 32-row stages of the three fq planes (96 KB and 4 KB of
 //    (hi, lo) operand each), two of them, the transpose sums reduced in two
 //    rounds of 4 warps' f64 rows (16 KB): 217 KB; BITS, since the three
@@ -189,6 +228,8 @@ using SlabQ16Cfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS>;
 using DualQ16Cfg =
     StripCfg<StripPlanes<1>, StripVecs<1>, 32, 6, WARPS, false, true>;
 using DualFQCfg = StripCfg<StripPlanes<3>, StripVecs<2>, 32, 2, WARPS / 2, true>;
+using DualBf16Cfg =
+    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false, true>;
 
 // Eight int16 of one 16-byte vector as T (float or double), exactly: with
 // the conversion instruction (I2F, 16 a clock on an SM), or by bits (BITS):
@@ -276,113 +317,139 @@ __device__ __forceinline__ void store8(double* x, const double v[8]) {
     reinterpret_cast<double2*>(x)[j] = make_double2(v[2 * j], v[2 * j + 1]);
 }
 
+// Eight int16 of one 16-byte vector as eight bf16, each the value rounded
+// to nearest even: the exact f32 values made by bits (values8_of_i16x8),
+// then rounded, the bf16 of bf16x8_of_i16x8.
+__device__ __forceinline__ uint4 bf16x8_by_bits(const int4 x) {
+  float v[8];
+  values8_of_i16x8<float, true>(x, v);
+  unsigned o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = bf16_pair(__float2bfloat16_rn(v[2 * j]),
+                     __float2bfloat16_rn(v[2 * j + 1]));
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
 // The consumer warps' barrier; the producer warp takes no part.
 __device__ __forceinline__ void consumers_sync() {
   asm volatile("bar.sync 1, %0;\n" :: "n"(WARPS * 32) : "memory");
 }
 
-// Block b walks strips b, b + gridDim.x, ... of the tiles * STRIPS of the
-// walk (tile t at rows t*TB of each plane).
+// The ring's barriers: full[s] completes when stage s is filled (the
+// producer's arrive and the copies' bytes), empty[s] when its READERS
+// consumer warps have released it.
+template <class Cfg>
+__device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < Cfg::S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], Cfg::READERS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+}
+
+// The producer, one thread: block b's strips b, b + gridDim.x, ... of the
+// tiles * STRIPS of the walk (tile t at rows t*TB of each plane), each as
+// SPS stages of the ring.
 template <class Cfg, class Planes, class Vecs, class Walk>
-__global__ void __launch_bounds__(STRIP_THREADS, 1)
-strip_pass1(Planes A, Vecs V, Walk W, int tiles,
-            typename Cfg::acc_t* __restrict__ part_d,
-            typename Cfg::acc_t* __restrict__ part_t) {
+__device__ __forceinline__ void strip_producer(const Planes& A,
+                                               const Vecs& V, const Walk& W,
+                                               int tiles, unsigned char* smem,
+                                               uint64_t* full,
+                                               uint64_t* empty) {
+  constexpr int NP = Cfg::NP, NV = Cfg::NV, SR = Cfg::SR, S = Cfg::S;
+  constexpr int SPS = Cfg::SPS;
+  const int strips = tiles * STRIPS;
+  const int step = gridDim.x;
+  const uint64_t once = evict_first_policy();
+  const uint64_t keep = evict_last_policy();
+  int g = blockIdx.x;
+  int t = g / STRIPS, i, k, ld;
+  size_t base;
+  float sc[NP];
+  bool first = true;  // the first tile's scales are read behind its copies
+  W.tile(t, i, k, base, ld);
+  for (int pos = 0; g < strips;) {
+    const int s = g % STRIPS;
+    // the next strip's tile, read before this one waits
+    const int gn = g + step;
+    int tn = t, in = i, kn = k;
+    float scn[NP];
+    const bool next_tile = gn < strips && gn / STRIPS != t;
+    if (next_tile) {
+      tn = gn / STRIPS;
+      W.tile(tn, in, kn, base, ld);
+#pragma unroll
+      for (int pl = 0; pl < NP; ++pl) scn[pl] = __ldg(A.s[pl] + tn);
+    }
+    const bool off = W.transposed(i, k);
+    for (int j = 0; j < SPS; ++j, ++pos) {
+      const int slot = pos % S;
+      // the first pass over the ring finds every stage free
+      mbar_wait(&empty[slot], ((pos / S) & 1) ^ 1);
+      unsigned char* stage = smem + slot * Cfg::STAGE_BYTES;
+      mbar_expect(&full[slot],
+                  NP * Cfg::PLANE_BYTES + NV * TB * (int)sizeof(float) +
+                      (off ? NV * SR * (int)sizeof(float) : 0));
+      const size_t row0 = (size_t)t * TB + s * ROWS + j * SR;
+#pragma unroll
+      for (int pl = 0; pl < NP; ++pl)
+        bulk_copy(stage + pl * Cfg::PLANE_BYTES, A.q[pl] + row0 * TB,
+                  Cfg::PLANE_BYTES, &full[slot], once);
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        bulk_copy(stage + Cfg::PK_OFF + v * TB * (int)sizeof(float),
+                  V.d[v] + (size_t)k * TB, TB * (int)sizeof(float),
+                  &full[slot], keep);
+      if (off) {
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+          bulk_copy(stage + Cfg::PI_OFF + v * SR * (int)sizeof(float),
+                    V.t[v] + (size_t)i * TB + s * ROWS + j * SR,
+                    SR * (int)sizeof(float), &full[slot], keep);
+      }
+      if (first) {
+#pragma unroll
+        for (int pl = 0; pl < NP; ++pl) sc[pl] = __ldg(A.s[pl] + t);
+        first = false;
+      }
+      StripHeader<NP>* hdr =
+          reinterpret_cast<StripHeader<NP>*>(stage + Cfg::HDR_OFF);
+#pragma unroll
+      for (int pl = 0; pl < NP; ++pl) hdr->sc[pl] = sc[pl];
+      hdr->offdiag = off;
+      // the arrive releases the header to the consumers' wait
+      mbar_arrive(&full[slot]);
+    }
+    g = gn;
+    if (next_tile) {
+      t = tn; i = in; k = kn;
+#pragma unroll
+      for (int pl = 0; pl < NP; ++pl) sc[pl] = scn[pl];
+    }
+  }
+}
+
+// The summing consumers: warp w sums the strip's rows w*8 .. w*8+7 on the
+// CUDA cores.
+template <class Cfg>
+__device__ __forceinline__ void strip_sum_consumers(
+    int tiles, unsigned char* smem, uint64_t* full, uint64_t* empty,
+    typename Cfg::acc_t* __restrict__ part_d,
+    typename Cfg::acc_t* __restrict__ part_t) {
   using acc_t = typename Cfg::acc_t;
   constexpr int NP = Cfg::NP, NV = Cfg::NV, SR = Cfg::SR, S = Cfg::S;
   constexpr int RW = Cfg::RW, SPS = Cfg::SPS, WPS = Cfg::WPS;
   constexpr int COLS_PER_LANE = cols_per_lane_of<TB>;  // 16
   constexpr int COLS_PER_THREAD = TB / (WARPS * 32);   // of the reduction
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ __align__(8) uint64_t full[S], empty[S];
   acc_t* red = reinterpret_cast<acc_t*>(smem + S * Cfg::STAGE_BYTES);
-
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int strips = tiles * STRIPS;
   const int step = gridDim.x;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], WPS);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (warp == WARPS) {  // the producer: one thread issues every copy
-    if (lane == 0) {
-      const uint64_t once = evict_first_policy();
-      const uint64_t keep = evict_last_policy();
-      int g = blockIdx.x;
-      int t = g / STRIPS, i, k, ld;
-      size_t base;
-      float sc[NP];
-      bool first = true;  // the first tile's scales are read behind its copies
-      W.tile(t, i, k, base, ld);
-      for (int pos = 0; g < strips;) {
-        const int s = g % STRIPS;
-        // the next strip's tile, read before this one waits
-        const int gn = g + step;
-        int tn = t, in = i, kn = k;
-        float scn[NP];
-        const bool next_tile = gn < strips && gn / STRIPS != t;
-        if (next_tile) {
-          tn = gn / STRIPS;
-          W.tile(tn, in, kn, base, ld);
-#pragma unroll
-          for (int pl = 0; pl < NP; ++pl) scn[pl] = __ldg(A.s[pl] + tn);
-        }
-        const bool off = W.transposed(i, k);
-        for (int j = 0; j < SPS; ++j, ++pos) {
-          const int slot = pos % S;
-          // the first pass over the ring finds every stage free
-          mbar_wait(&empty[slot], ((pos / S) & 1) ^ 1);
-          unsigned char* stage = smem + slot * Cfg::STAGE_BYTES;
-          mbar_expect(&full[slot],
-                      NP * Cfg::PLANE_BYTES + NV * TB * (int)sizeof(float) +
-                          (off ? NV * SR * (int)sizeof(float) : 0));
-          const size_t row0 = (size_t)t * TB + s * ROWS + j * SR;
-#pragma unroll
-          for (int pl = 0; pl < NP; ++pl)
-            bulk_copy(stage + pl * Cfg::PLANE_BYTES, A.q[pl] + row0 * TB,
-                      Cfg::PLANE_BYTES, &full[slot], once);
-#pragma unroll
-          for (int v = 0; v < NV; ++v)
-            bulk_copy(stage + Cfg::PK_OFF + v * TB * (int)sizeof(float),
-                      V.d[v] + (size_t)k * TB, TB * (int)sizeof(float),
-                      &full[slot], keep);
-          if (off) {
-#pragma unroll
-            for (int v = 0; v < NV; ++v)
-              bulk_copy(stage + Cfg::PI_OFF + v * SR * (int)sizeof(float),
-                        V.t[v] + (size_t)i * TB + s * ROWS + j * SR,
-                        SR * (int)sizeof(float), &full[slot], keep);
-          }
-          if (first) {
-#pragma unroll
-            for (int pl = 0; pl < NP; ++pl) sc[pl] = __ldg(A.s[pl] + t);
-            first = false;
-          }
-          StripHeader<NP>* hdr =
-              reinterpret_cast<StripHeader<NP>*>(stage + Cfg::HDR_OFF);
-#pragma unroll
-          for (int pl = 0; pl < NP; ++pl) hdr->sc[pl] = sc[pl];
-          hdr->offdiag = off;
-          // the arrive releases the header to the consumers' wait
-          mbar_arrive(&full[slot]);
-        }
-        g = gn;
-        if (next_tile) {
-          t = tn; i = in; k = kn;
-#pragma unroll
-          for (int pl = 0; pl < NP; ++pl) sc[pl] = scn[pl];
-        }
-      }
-    }
-    return;
-  }
 
   // the consumers: warp w sums the strip's rows w*8 .. w*8+7, which are
   // rows wr .. wr+7 of stage `j` of the strip
@@ -506,6 +573,106 @@ strip_pass1(Planes A, Vecs V, Walk W, int tiles,
   }
 }
 
+// Block b walks strips b, b + gridDim.x, ... of the tiles * STRIPS of the
+// walk (tile t at rows t*TB of each plane): the last warp's first thread
+// fills the ring, the WARPS warps before it sum.
+template <class Cfg, class Planes, class Vecs, class Walk>
+__global__ void __launch_bounds__(STRIP_THREADS, 1)
+strip_pass1(Planes A, Vecs V, Walk W, int tiles,
+            typename Cfg::acc_t* __restrict__ part_d,
+            typename Cfg::acc_t* __restrict__ part_t) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[Cfg::S], empty[Cfg::S];
+  ring_init<Cfg>(full, empty);
+  if (threadIdx.x / 32 == WARPS) {
+    if (threadIdx.x % 32 == 0)
+      strip_producer<Cfg>(A, V, W, tiles, smem, full, empty);
+    return;
+  }
+  strip_sum_consumers<Cfg>(tiles, smem, full, empty, part_d, part_t);
+}
+
+// strip_pass1 with the tensor-core consumers (Cfg::MMA): for each strip,
+// every consumer warp waits for each of its stages, converts its share of
+// the stage's int16 rows to bf16 (by bits, then round to nearest even: the
+// bf16 of q16_bf16_pass1) into the strip's bf16 buffer, and with its first stage the direct
+// operand p_k * s and with each the transpose operand q_i * s
+// (__fmul_rn, then bf16), releases the stage, and then the warps run
+// q16_bf16_pass1's products on the buffer (mma_strip, its fragments taken
+// with ldmatrix): the same operands in the same fragments and the same
+// k-chunk order, so the same bits. The buffer is read by every warp and
+// rewritten for the next strip: a barrier of the consumers after the
+// conversion and one after the products.
+template <class Cfg, class Planes, class Vecs, class Walk>
+__global__ void __launch_bounds__(STRIP_THREADS, 1)
+strip_mma_pass1(Planes A, Vecs V, Walk W, int tiles,
+                float* __restrict__ part_d, float* __restrict__ part_t) {
+  static_assert(Cfg::MMA, "the tensor-core consumers");
+  using M = MmaSmem<MMA_DEF>;
+  constexpr int SR = Cfg::SR, S = Cfg::S, SPS = Cfg::SPS;
+  constexpr int VECS = SR * TB / 8 / THREADS;  // 16-byte vectors a thread
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[S], empty[S];
+  ring_init<Cfg>(full, empty);
+  if (threadIdx.x / 32 == WARPS) {
+    if (threadIdx.x % 32 == 0)
+      strip_producer<Cfg>(A, V, W, tiles, smem, full, empty);
+    return;
+  }
+
+  __nv_bfloat16* strip =
+      reinterpret_cast<__nv_bfloat16*>(smem + S * Cfg::STAGE_BYTES);
+  __nv_bfloat16* pk = strip + M::A * ROWS * BF_LD;
+  __nv_bfloat16* pi = pk + M::PK * TB;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int strips = tiles * STRIPS;
+  const int step = gridDim.x;
+  for (int g = blockIdx.x, pos = 0; g < strips; g += step) {
+    const int t = g / STRIPS;
+    const int s = g % STRIPS;
+    // pass 2 may be scheduled once every block is on its last strip
+    if (g + step >= strips)
+      asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    bool off = false;
+    for (int j = 0; j < SPS; ++j, ++pos) {
+      const int slot = pos % S;
+      mbar_wait(&full[slot], (pos / S) & 1);
+      const unsigned char* stage = smem + slot * Cfg::STAGE_BYTES;
+      const StripHeader<1> hdr =
+          *reinterpret_cast<const StripHeader<1>*>(stage + Cfg::HDR_OFF);
+      const float sc = hdr.sc[0];
+      off = hdr.offdiag != 0;  // uniform across the block
+      const int4* raw = reinterpret_cast<const int4*>(stage);
+#pragma unroll
+      for (int u = 0; u < VECS; ++u) {
+        const int v = threadIdx.x + u * THREADS;
+        const int at = (j * SR + v / (TB / 8)) * BF_LD + (v % (TB / 8)) * 8;
+        *reinterpret_cast<uint4*>(strip + at) = bf16x8_by_bits(raw[v]);
+      }
+      if (j == 0) {
+        const float* pks =
+            reinterpret_cast<const float*>(stage + Cfg::PK_OFF);
+        for (int c = threadIdx.x; c < TB; c += THREADS)
+          pk[c] = __float2bfloat16_rn(__fmul_rn(pks[c], sc));
+      }
+      if (off && threadIdx.x < SR) {
+        const float* pis =
+            reinterpret_cast<const float*>(stage + Cfg::PI_OFF);
+        pi[j * SR + threadIdx.x] =
+            __float2bfloat16_rn(__fmul_rn(pis[threadIdx.x], sc));
+      }
+      __syncwarp();  // every lane's reads of the stage before the release
+      if (lane == 0) mbar_arrive(&empty[slot]);
+    }
+    consumers_sync();  // the buffer complete
+    mma_strip<MMA_DEF, true>(strip, pk, pi, nullptr, off, warp, lane,
+                             part_d + (size_t)t * TB + s * ROWS,
+                             part_t + ((size_t)t * STRIPS + s) * TB);
+    consumers_sync();  // every read of the buffer before the next strip's
+  }
+}
+
 // Pass 1 on the strip walk over `tiles` tiles of W, configured by Cfg:
 // refuses operands the bulk copies cannot take (16-byte alignment).
 template <class Cfg, class Planes, class Vecs, class Walk>
@@ -521,14 +688,18 @@ int launch_strip_pass1(Planes A, Vecs V, Walk W, int tiles,
         reinterpret_cast<uintptr_t>(V.t[v]) % 16)
       return (int)cudaErrorInvalidValue;
   static bool sized[MAX_DEVICES];  // shared memory above 48 KB allowed
+  auto kernel = [] {
+    if constexpr (Cfg::MMA)
+      return strip_mma_pass1<Cfg, Planes, Vecs, Walk>;
+    else
+      return strip_pass1<Cfg, Planes, Vecs, Walk>;
+  }();
   int dev, sms;
-  const int e = device_and_sms(strip_pass1<Cfg, Planes, Vecs, Walk>,
-                               Cfg::SMEM, sized, &dev, &sms);
+  const int e = device_and_sms(kernel, Cfg::SMEM, sized, &dev, &sms);
   if (e != (int)cudaSuccess) return e;
   const int strips = tiles * STRIPS;
-  strip_pass1<Cfg, Planes, Vecs, Walk>
-      <<<sms < strips ? sms : strips, STRIP_THREADS, Cfg::SMEM, stream>>>(
-          A, V, W, tiles, part_d, part_t);
+  kernel<<<sms < strips ? sms : strips, STRIP_THREADS, Cfg::SMEM, stream>>>(
+      A, V, W, tiles, part_d, part_t);
   return (int)cudaGetLastError();
 }
 

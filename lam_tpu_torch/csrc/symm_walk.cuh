@@ -466,6 +466,164 @@ __device__ __forceinline__ void mma_parts(float d[4], float dc[4],
   }
 }
 
+// Four 8 x 8 bf16 matrices from shared memory into the fragment a[0..3]
+// (ldmatrix .x4): lane i gives the address of row i % 8 of matrix i / 8;
+// lane l gets row l / 4, columns 2 (l % 4) .. +1 of each (TRANS: column
+// l / 4, rows 2 (l % 4) .. +1), the lower index in the lower half, as
+// mma_bf16's A operand takes them.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(unsigned a[4],
+                                        const __nv_bfloat16* row) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+        : "r"(addr) : "memory");
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+        : "r"(addr) : "memory");
+}
+
+// The products of one staged strip: warps 0-3 the direct term of its rows
+// into out_d[0 .. ROWS), warps 4-7 (if offdiag) its transpose term into
+// out_t[0 .. TB), from the bf16 parts of the strip [A][ROWS][BF_LD] and of
+// the operands (MmaSmem<MODE>'s layout: pk, pi, and pkf for MMA_HYBRID).
+// LDSM (MMA_DEF): the A fragments by ldmatrix, one instruction where the
+// 32-bit and 16-bit loads take four and eight (the strip walk's
+// consumers); the same fragments, so the same products.
+template <int MODE, bool LDSM = false>
+__device__ __forceinline__ void mma_strip(const __nv_bfloat16* strip,
+                                          const __nv_bfloat16* pk,
+                                          const __nv_bfloat16* pi,
+                                          const float* pkf, bool offdiag,
+                                          int warp, int lane,
+                                          float* __restrict__ out_d,
+                                          float* __restrict__ out_t) {
+  using S = MmaSmem<MODE>;
+  static_assert(!LDSM || MODE == MMA_DEF, "ldmatrix takes the one A part");
+  const int g = lane / 4;
+  const int c4 = lane % 4;
+  const int lr = lane % 8;  // ldmatrix: the row of its matrix lane gives
+  const int lq = lane / 8;  // and the matrix
+  if (warp < 4) {
+    if constexpr (MODE == MMA_HYBRID) {
+      // direct on the CUDA cores: 16 strip rows a warp, each lane 8 column
+      // pairs 64 apart, f32 FMAs, then a warp sum
+      for (int rr = 0; rr < 16; ++rr) {
+        const int r = 16 * warp + rr;
+        const __nv_bfloat16* eh = strip + r * BF_LD + 2 * lane;
+        const __nv_bfloat16* el = eh + ROWS * BF_LD;
+        float d = 0.0f;
+#pragma unroll
+        for (int j = 0; j < TB / 64; ++j) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 64 * j + e;
+            const float a = __fadd_rn(__bfloat162float(eh[c]),
+                                      __bfloat162float(el[c]));
+            d = fmaf(a, pkf[c + 2 * lane], d);
+          }
+        }
+        d = warp_sum(d);
+        if (lane == 0) out_d[r] = d;
+      }
+    } else {
+      // direct: D(r, 0) = sum_c strip(16 warp + r, c) pk(c)
+      const __nv_bfloat16* row = strip + (16 * warp + g) * BF_LD + 2 * c4;
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float dc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll 4
+      for (int kc = 0; kc < TB; kc += 16) {
+        unsigned a[S::A][4];
+        unsigned b[S::P][2];
+        if constexpr (LDSM) {
+          // matrices (rows 0-7 | 8-15) x (columns kc | kc + 8)
+          ldsm_x4<false>(a[0], strip +
+                                   (16 * warp + lr + (lq & 1) * 8) * BF_LD +
+                                   kc + (lq >> 1) * 8);
+        } else {
+#pragma unroll
+          for (int ia = 0; ia < S::A; ++ia) {
+            const __nv_bfloat16* ra = row + ia * ROWS * BF_LD;
+            a[ia][0] = ld_bf16x2(ra + kc);
+            a[ia][1] = ld_bf16x2(ra + 8 * BF_LD + kc);
+            a[ia][2] = ld_bf16x2(ra + kc + 8);
+            a[ia][3] = ld_bf16x2(ra + 8 * BF_LD + kc + 8);
+          }
+        }
+#pragma unroll
+        for (int ip = 0; ip < S::P; ++ip) {
+          const __nv_bfloat16* pp = pk + ip * TB + kc + 2 * c4;
+          b[ip][0] = g == 0 ? ld_bf16x2(pp) : 0u;
+          b[ip][1] = g == 0 ? ld_bf16x2(pp + 8) : 0u;
+        }
+        mma_parts<MODE>(d, dc, a, b);
+      }
+      if (c4 == 0) {
+        float* out = out_d + 16 * warp + g;
+        if constexpr (MODE == MMA_DEF) {
+          out[0] = d[0];
+          out[8] = d[2];
+        } else {
+          out[0] = __fadd_rn(d[0], dc[0]);
+          out[8] = __fadd_rn(d[2], dc[2]);
+        }
+      }
+    }
+  } else if (offdiag) {  // uniform across the warp
+    // transpose: D(c, 0) = sum_r strip(r, c) pi(r), columns 128 (warp - 4) ..
+    unsigned b[ROWS / 16][S::P][2];
+#pragma unroll
+    for (int kr = 0; kr < ROWS / 16; ++kr)
+#pragma unroll
+      for (int ip = 0; ip < S::P; ++ip) {
+        const __nv_bfloat16* pp = pi + ip * ROWS + 16 * kr + 2 * c4;
+        b[kr][ip][0] = g == 0 ? ld_bf16x2(pp) : 0u;
+        b[kr][ip][1] = g == 0 ? ld_bf16x2(pp + 8) : 0u;
+      }
+    for (int c0 = 128 * (warp - 4); c0 < 128 * (warp - 3); c0 += 16) {
+      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float dc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int kr = 0; kr < ROWS / 16; ++kr) {
+        // A^T(m, j) = strip(16 kr + j, c0 + m)
+        unsigned a[S::A][4];
+        if constexpr (LDSM) {
+          // matrices (rows 16 kr + 0-7 | 8-15) x (columns c0 | c0 + 8),
+          // transposed
+          ldsm_x4<true>(a[0], strip +
+                                  (16 * kr + lr + (lq >> 1) * 8) * BF_LD +
+                                  c0 + (lq & 1) * 8);
+        } else {
+#pragma unroll
+          for (int ia = 0; ia < S::A; ++ia) {
+            const __nv_bfloat16* e = strip + ia * ROWS * BF_LD +
+                                     (16 * kr + 2 * c4) * BF_LD + c0 + g;
+            a[ia][0] = bf16_pair(e[0], e[BF_LD]);
+            a[ia][1] = bf16_pair(e[8], e[BF_LD + 8]);
+            a[ia][2] = bf16_pair(e[8 * BF_LD], e[9 * BF_LD]);
+            a[ia][3] = bf16_pair(e[8 * BF_LD + 8], e[9 * BF_LD + 8]);
+          }
+        }
+        mma_parts<MODE>(d, dc, a, b[kr]);
+      }
+      if (c4 == 0) {
+        if constexpr (MODE == MMA_DEF) {
+          out_t[c0 + g] = d[0];
+          out_t[c0 + g + 8] = d[2];
+        } else {
+          out_t[c0 + g] = __fadd_rn(d[0], dc[0]);
+          out_t[c0 + g + 8] = __fadd_rn(d[2], dc[2]);
+        }
+      }
+    }
+  }
+}
+
 // Pass 1 of the tensor-core engines, same blocks and outputs as symm_pass1:
 // block (t, s) writes part_d[t][s*ROWS .. +ROWS) and, for a tile with a
 // transpose term, part_t[t][s][0 .. TB). MMA_HYBRID takes the direct term
@@ -528,107 +686,9 @@ q16_bf16_pass1(Q16MmaPlane<MODE> A, F32Vec P, F32Vec Q, Walk W,
                      pi + threadIdx.x, ROWS);
   __syncthreads();
 
-  const int g = lane / 4;
-  const int c4 = lane % 4;
-  if (warp < 4) {
-    if constexpr (MODE == MMA_HYBRID) {
-      // direct on the CUDA cores: 16 strip rows a warp, each lane 8 column
-      // pairs 64 apart, f32 FMAs, then a warp sum
-      for (int rr = 0; rr < 16; ++rr) {
-        const int r = 16 * warp + rr;
-        const __nv_bfloat16* eh = strip + r * BF_LD + 2 * lane;
-        const __nv_bfloat16* el = eh + ROWS * BF_LD;
-        float d = 0.0f;
-#pragma unroll
-        for (int j = 0; j < TB / 64; ++j) {
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int c = 64 * j + e;
-            const float a = __fadd_rn(__bfloat162float(eh[c]),
-                                      __bfloat162float(el[c]));
-            d = fmaf(a, pkf[c + 2 * lane], d);
-          }
-        }
-        d = warp_sum(d);
-        if (lane == 0) part_d[(size_t)t * TB + s * ROWS + r] = d;
-      }
-    } else {
-      // direct: D(r, 0) = sum_c strip(16 warp + r, c) pk(c)
-      const __nv_bfloat16* row = strip + (16 * warp + g) * BF_LD + 2 * c4;
-      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float dc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll 4
-      for (int kc = 0; kc < TB; kc += 16) {
-        unsigned a[S::A][4];
-        unsigned b[S::P][2];
-#pragma unroll
-        for (int ia = 0; ia < S::A; ++ia) {
-          const __nv_bfloat16* ra = row + ia * ROWS * BF_LD;
-          a[ia][0] = ld_bf16x2(ra + kc);
-          a[ia][1] = ld_bf16x2(ra + 8 * BF_LD + kc);
-          a[ia][2] = ld_bf16x2(ra + kc + 8);
-          a[ia][3] = ld_bf16x2(ra + 8 * BF_LD + kc + 8);
-        }
-#pragma unroll
-        for (int ip = 0; ip < S::P; ++ip) {
-          const __nv_bfloat16* pp = pk + ip * TB + kc + 2 * c4;
-          b[ip][0] = g == 0 ? ld_bf16x2(pp) : 0u;
-          b[ip][1] = g == 0 ? ld_bf16x2(pp + 8) : 0u;
-        }
-        mma_parts<MODE>(d, dc, a, b);
-      }
-      if (c4 == 0) {
-        float* out = part_d + (size_t)t * TB + s * ROWS + 16 * warp + g;
-        if constexpr (MODE == MMA_DEF) {
-          out[0] = d[0];
-          out[8] = d[2];
-        } else {
-          out[0] = __fadd_rn(d[0], dc[0]);
-          out[8] = __fadd_rn(d[2], dc[2]);
-        }
-      }
-    }
-  } else if (offdiag) {  // uniform across the warp
-    // transpose: D(c, 0) = sum_r strip(r, c) pi(r), columns 128 (warp - 4) ..
-    unsigned b[ROWS / 16][S::P][2];
-#pragma unroll
-    for (int kr = 0; kr < ROWS / 16; ++kr)
-#pragma unroll
-      for (int ip = 0; ip < S::P; ++ip) {
-        const __nv_bfloat16* pp = pi + ip * ROWS + 16 * kr + 2 * c4;
-        b[kr][ip][0] = g == 0 ? ld_bf16x2(pp) : 0u;
-        b[kr][ip][1] = g == 0 ? ld_bf16x2(pp + 8) : 0u;
-      }
-    float* out = part_t + ((size_t)t * STRIPS + s) * TB;
-    for (int c0 = 128 * (warp - 4); c0 < 128 * (warp - 3); c0 += 16) {
-      float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      float dc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int kr = 0; kr < ROWS / 16; ++kr) {
-        // A^T(m, j) = strip(16 kr + j, c0 + m)
-        unsigned a[S::A][4];
-#pragma unroll
-        for (int ia = 0; ia < S::A; ++ia) {
-          const __nv_bfloat16* e =
-              strip + ia * ROWS * BF_LD + (16 * kr + 2 * c4) * BF_LD + c0 + g;
-          a[ia][0] = bf16_pair(e[0], e[BF_LD]);
-          a[ia][1] = bf16_pair(e[8], e[BF_LD + 8]);
-          a[ia][2] = bf16_pair(e[8 * BF_LD], e[9 * BF_LD]);
-          a[ia][3] = bf16_pair(e[8 * BF_LD + 8], e[9 * BF_LD + 8]);
-        }
-        mma_parts<MODE>(d, dc, a, b[kr]);
-      }
-      if (c4 == 0) {
-        if constexpr (MODE == MMA_DEF) {
-          out[c0 + g] = d[0];
-          out[c0 + g + 8] = d[2];
-        } else {
-          out[c0 + g] = __fadd_rn(d[0], dc[0]);
-          out[c0 + g + 8] = __fadd_rn(d[2], dc[2]);
-        }
-      }
-    }
-  }
+  mma_strip<MODE>(strip, pk, pi, pkf, offdiag, warp, lane,
+                  part_d + (size_t)t * TB + s * ROWS,
+                  part_t + ((size_t)t * STRIPS + s) * TB);
 }
 
 // Pass 1 of any walk: symm_pass1 with a tile reader (SUB transpose partial

@@ -70,8 +70,10 @@ SIGNATURES = {
     "lam_gemv_q16_symm_bf16": (_P, _P, _P, _P, _P, _P, _I, _P),
     "lam_gemv_q16_symm_slab_bf16": (_P,) * 14 + (_I,) * 3 + (_P,),
     "lam_gemv_q16_dual_bf16": (_P,) * 8 + (_I, _I, _P),
+    "lam_gemv_q16_dual_bf16_twopass": (_P,) * 8 + (_I, _I, _P),
     "lam_laplace5_blocks": (_I, _I),
     "lam_laplace5_f32_halo": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "lam_laplace5_f32_halo_twopass": (_P,) * 6 + (_I,) * 4 + (_P,),
     "lam_stream_i16": (_P, _L, _I, _P, _P, _P),
     "lam_convert_i16": (_P, _L, _I, _P, _P, _P),
     **{f"lam_gemv_q16_symm_{v}": (_P, _P, _P, _P, _P, _P, _I, _P)

@@ -475,6 +475,10 @@ def gemv_q16_dual_bf16_plain(q1buf, sc, p, q):
     """The bf16 engine of `gemv_q16_dual_plain`: tile values and scaled
     operand values rounded to bf16, exact products, f32 sums."""
     gemv_q16_dual_bf16_plain.calls += 1
+    return _q16_dual_bf16_parts(q1buf, sc, p, q)
+
+
+def _q16_dual_bf16_parts(q1buf, sc, p, q):
     tb, mb, cb = _dual_geometry(q1buf, p, q, "gemv_q16_dual")
     tiles = _bf16(q1buf[:mb * cb * tb].to(torch.float32)).reshape(-1, tb, tb)
     return _dual_parts(tiles, p, q, mb, cb, sc, _bf16)

@@ -43,15 +43,18 @@ three bf16 parts; hybrid: hi's transpose term, the direct term as f32
 FMAs). Their plain versions: the exact f32 walk, `split` with p * s
 rounded to bf16.
 
-Beside them, the earlier walks of four solver kernels that a later walk
+Beside them, the earlier walks of six solver kernels that a later walk
 replaced, kept as controls: `gemv_df64_rows` is kernel 6's function
-(`gemv.gemv_df64_cols`) on the dense_rows walk of csrc/gemv_dense.cu, and
-on the two-pass walk of csrc/symm_walk.cuh `gemv_q16_symm_slab_twopass` is
+(`gemv.gemv_df64_cols`) on the dense_rows walk of csrc/gemv_dense.cu; on
+the two-pass walk of csrc/symm_walk.cuh `gemv_q16_symm_slab_twopass` is
 kernel 16's (`gemv.gemv_q16_symm_slab`, exact products),
-`gemv_q16_dual_twopass` kernel 18's (`gemv.gemv_q16_dual`, exact products)
-and `gemv_fq_dual_twopass` kernel 19's (`gemv.gemv_fq_dual`). Each gives its
-kernel's bits on the same bytes, takes its arguments and refuses what it
-refuses; chip_smoke.py times each in turns with its kernel.
+`gemv_q16_dual_twopass` kernel 18's (`gemv.gemv_q16_dual`, exact products),
+`gemv_fq_dual_twopass` kernel 19's (`gemv.gemv_fq_dual`) and
+`gemv_q16_dual_bf16_twopass` kernel 18-bf16's (`gemv.gemv_q16_dual_bf16`,
+q16_bf16_pass1 and rect_pass2); `laplace5_f32_halo_twopass` is kernel 20's
+(`stencil.laplace5_f32_halo`) in csrc/stencil.cu's two launches. Each gives
+its kernel's bits on the same bytes, takes its arguments and refuses what
+it refuses; chip_smoke.py times each in turns with its kernel.
 
 These are measuring tools, not kernels of the solver's path: they stay out
 of the solver's registry (lam_tpu_torch.ops.KERNELS) and keep their own,
@@ -67,7 +70,7 @@ import re
 import numpy as np
 import torch
 
-from lam_tpu_torch.ops import gemv, layout
+from lam_tpu_torch.ops import gemv, layout, stencil
 
 BLOCKS_PER_SM = 8
 SCALE = 2.0 ** -14   # the probe plane's scale: q = 16384 holds 1.0
@@ -407,8 +410,43 @@ def gemv_fq_dual_twopass(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
                          p_hi, p_lo, q_hi, q_lo, comp)
 
 
+def gemv_q16_dual_bf16_twopass_plain(q1buf, sc, p, q):
+    """Plain version of `gemv_q16_dual_bf16_twopass`:
+    `gemv.gemv_q16_dual_bf16_plain`'s bf16 walk."""
+    gemv_q16_dual_bf16_twopass_plain.calls += 1
+    return gemv._q16_dual_bf16_parts(q1buf, sc, p, q)
+
+
+def gemv_q16_dual_bf16_twopass(q1buf, sc, p, q):
+    """`gemv.gemv_q16_dual_bf16` (the same arguments, checks and bits) on
+    the two-pass walk: (S @ p, S^T @ q) with bf16 tensor-core products."""
+    return gemv._q16_dual(gemv_q16_dual_bf16_twopass,
+                          gemv_q16_dual_bf16_twopass_plain,
+                          "lam_gemv_q16_dual_bf16_twopass", q1buf, sc, p, q)
+
+
+def laplace5_f32_halo_twopass_plain(p2d, up_edge, dn_edge, nrows_valid, *,
+                                    nxi):
+    """Plain version of `laplace5_f32_halo_twopass`:
+    `stencil.laplace5_f32_halo_plain`'s cells and sum."""
+    laplace5_f32_halo_twopass_plain.calls += 1
+    return stencil._laplace5_parts(p2d, up_edge, dn_edge, nrows_valid, nxi)
+
+
+def laplace5_f32_halo_twopass(p2d, up_edge, dn_edge, nrows_valid, *, nxi,
+                              tbr):
+    """`stencil.laplace5_f32_halo` (the same arguments, checks and bits) in
+    two launches: the stencil and its blocks' partial dots, then one block
+    that sums them."""
+    return stencil._laplace5(laplace5_f32_halo_twopass,
+                             laplace5_f32_halo_twopass_plain,
+                             "lam_laplace5_f32_halo_twopass", p2d, up_edge,
+                             dn_edge, nrows_valid, nxi, tbr)
+
+
 CONTROLS = (gemv_df64_rows, gemv_q16_symm_slab_twopass, gemv_q16_dual_twopass,
-            gemv_fq_dual_twopass)  # not TPU kernels
+            gemv_fq_dual_twopass, gemv_q16_dual_bf16_twopass,
+            laplace5_f32_halo_twopass)  # not TPU kernels
 PROBES = (stream_i16, convert_f32_sum, gemv_q16_symm_magic,
           gemv_q16_symm_tb1024, gemv_q16_symm_sub8, gemv_q16_symm_split,
           gemv_q16_symm_hi, gemv_q16_symm_hybrid) + CONTROLS
@@ -417,7 +455,9 @@ PROBES_PLAIN = (stream_i16_plain, convert_f32_sum_plain,
                 gemv_q16_symm_sub8_plain, gemv_q16_symm_split_plain,
                 gemv_q16_symm_hi_plain, gemv_q16_symm_hybrid_plain,
                 gemv_df64_rows_plain, gemv_q16_symm_slab_twopass_plain,
-                gemv_q16_dual_twopass_plain, gemv_fq_dual_twopass_plain)
+                gemv_q16_dual_twopass_plain, gemv_fq_dual_twopass_plain,
+                gemv_q16_dual_bf16_twopass_plain,
+                laplace5_f32_halo_twopass_plain)
 
 
 def reset_counters():

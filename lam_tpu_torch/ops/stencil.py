@@ -51,6 +51,10 @@ def laplace5_f32_halo_plain(p2d, up_edge, dn_edge, nrows_valid, *, nxi):
     (stencil.py:86), 4p - north - south - west - east, each rounded to
     f32, then the masked f32 sum of p * y."""
     laplace5_f32_halo_plain.calls += 1
+    return _laplace5_parts(p2d, up_edge, dn_edge, nrows_valid, nxi)
+
+
+def _laplace5_parts(p2d, up_edge, dn_edge, nrows_valid, nxi):
     H, W = p2d.shape
     north = torch.cat([up_edge, p2d[:-1]], dim=0)
     south = torch.cat([p2d[1:], dn_edge], dim=0)
@@ -106,25 +110,35 @@ def laplace5_f32_halo(p2d, up_edge, dn_edge, nrows_valid, *, nxi, tbr):
     same zero-padding invariant and p . y as a 0-dim f32 tensor on the
     grid's device. `tbr` is lam_tpu's row tile: checked, not used for
     tiling (the kernel picks its own)."""
-    what = "laplace5_f32_halo"
+    return _laplace5(laplace5_f32_halo, laplace5_f32_halo_plain,
+                     "lam_laplace5_f32_halo", p2d, up_edge, dn_edge,
+                     nrows_valid, nxi, tbr)
+
+
+def _laplace5(wrapper, plain, entry, p2d, up_edge, dn_edge, nrows_valid, nxi,
+              tbr):
+    """(y, p . y) for `wrapper`: checks, then `plain` on a CPU tensor or the
+    C entry point `entry` of csrc/stencil.cu on the current stream, which
+    counts a launch on `wrapper` and raises if it failed."""
+    what = wrapper.__name__
     H, W = _check(what, p2d, up_edge, dn_edge, tbr)
     nrows = min(max(int(nrows_valid), 0), H)
     ncols = min(max(int(nxi), 0), W)
     if p2d.device.type == "cpu":
-        return laplace5_f32_halo_plain(p2d, up_edge, dn_edge, nrows, nxi=ncols)
+        return plain(p2d, up_edge, dn_edge, nrows, nxi=ncols)
     from lam_tpu_torch.ops._build import library
     lib = library()
     y = torch.empty_like(p2d)
+    dot = torch.empty((), dtype=torch.float32, device=p2d.device)
     partials = torch.empty(lib.lam_laplace5_blocks(H, W), dtype=torch.float64,
                            device=p2d.device)
-    dot = torch.empty((), dtype=torch.float32, device=p2d.device)
     with torch.cuda.device(p2d.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_laplace5_f32_halo(
+        code = getattr(lib, entry)(
             p2d.data_ptr(), up_edge.data_ptr(), dn_edge.data_ptr(),
             y.data_ptr(), partials.data_ptr(), dot.data_ptr(), H, W, nrows,
             ncols, stream)
-    laplace5_f32_halo.launches += 1
+    wrapper.launches += 1
     _raise_on(what, code)
     return y, dot
 

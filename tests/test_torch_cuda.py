@@ -511,6 +511,86 @@ def test_laplace5_kernel_rejects_bad_inputs():
             nxi=128, tbr=64)
 
 
+# shards of a row-sharded grid (H a multiple of 8, not all of 32) and the
+# demo's width: (H, W, nrows, nxi)
+STENCIL_SHARDS = [(8, 128, 8, 100), (24, 128, 20, 128), (40, 128, 40, 90),
+                  (8, 1280, 5, 1280), (24, 1280, 24, 1198),
+                  (40, 1280, 33, 1100)]
+
+
+@pytest.mark.parametrize("H,W,nrows,nxi", STENCIL_SHARDS)
+def test_laplace5_kernel_equals_its_control(H, W, nrows, nxi):
+    """Kernel 20 (every load of a lane in flight, pass 2 a programmatic
+    dependent) gives its control's bits (the two ordinary launches) on
+    halo shards with live edge rows; each counts its own launch."""
+    rng = np.random.default_rng(H * W + nrows)
+    p, up, dn = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                 .cuda() for s in ((H, W), (1, W), (1, W)))
+    ops.reset_counters()
+    probe.reset_counters()
+    y, d = stencil.laplace5_f32_halo(p, up, dn, nrows, nxi=nxi, tbr=8)
+    yc, dc = probe.laplace5_f32_halo_twopass(p, up, dn, nrows, nxi=nxi,
+                                             tbr=8)
+    torch.cuda.synchronize()
+    assert ops.counters()["laplace5_f32_halo"] == 1
+    assert probe.counters()["laplace5_f32_halo_twopass"] == 1
+    assert not any(v for k, v in {**ops.counters(), **probe.counters()}
+                   .items() if k.endswith("_plain"))
+    assert torch.equal(y, yc) and torch.equal(d, dc)
+    assert torch.equal(y, stencil.laplace5_f32_halo_plain(
+        p, up, dn, nrows, nxi=nxi)[0])
+
+
+def test_laplace5_kernel_back_to_back_on_one_stream():
+    """Calls enqueued back to back with no synchronisation between them
+    (each pass 2 waits on its own pass 1 only), on the demo's grid and a
+    shard, in turns with the control: every result equals the control's."""
+    rng = np.random.default_rng(77)
+    grids = []
+    for H, W, nrows, nxi in ((1024, 1280, 998, 1198), (24, 1280, 20, 1200)):
+        p, up, dn = (torch.from_numpy(rng.standard_normal(s).astype(
+            np.float32)).cuda() for s in ((H, W), (1, W), (1, W)))
+        grids.append((p, up, dn, nrows, nxi))
+    torch.cuda.synchronize()
+    outs, ctl = [], []
+    for _ in range(4):
+        for p, up, dn, nrows, nxi in grids:
+            outs.append(stencil.laplace5_f32_halo(p, up, dn, nrows, nxi=nxi,
+                                                  tbr=8))
+            ctl.append(probe.laplace5_f32_halo_twopass(p, up, dn, nrows,
+                                                       nxi=nxi, tbr=8))
+    torch.cuda.synchronize()
+    for (y, d), (yc, dc) in zip(outs, ctl):
+        assert torch.equal(y, yc) and torch.equal(d, dc)
+
+
+def test_laplace5_control_refuses_and_has_no_fallback(monkeypatch):
+    """The control refuses what the kernel refuses, and a kernel library
+    that fails to build raises from both: nothing runs in their place."""
+    from lam_tpu_torch.ops import _build
+    p = torch.zeros(64, 128, device="cuda")
+    e = torch.zeros(1, 128, device="cuda")
+    ops.reset_counters()
+    probe.reset_counters()
+    for fn in (stencil.laplace5_f32_halo, probe.laplace5_f32_halo_twopass):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(p, torch.zeros(129, device="cuda")[1:].reshape(1, 128), e, 64,
+               nxi=128, tbr=64)
+        with pytest.raises(ValueError, match="multiple"):
+            fn(torch.zeros(100, 128, device="cuda"), e, e, 100, nxi=128,
+               tbr=64)
+
+    def broken():
+        raise RuntimeError("nvcc failed (exit 1)")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (stencil.laplace5_f32_halo, probe.laplace5_f32_halo_twopass):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(p, e, e, 64, nxi=128, tbr=64)
+    assert not any(ops.counters().values())
+    assert not any(probe.counters().values())
+
+
 # -- the 1-D sharded backends' kernels (rank by rank, no process group) ----
 
 SHARD_SIZES = [(1500, 2), (1500, 3), (10000, 2)]  # (n, ranks)
@@ -1138,6 +1218,73 @@ def test_dual_strip_walks_have_no_fallback(monkeypatch):
                 fn(*a)
     assert not any(ops.counters().values())
     assert not any(probe.counters().values())
+
+
+@pytest.mark.parametrize("mb,cb", STRIP_RECTS)
+def test_dual_bf16_strip_walk_equals_its_control(mb, cb):
+    """Kernel 18-bf16 on the strip walk (tensor-core consumers) gives its
+    control's bits (q16_bf16_pass1 and rect_pass2) with garbage pad tiles
+    and pad scales, and repeats bitwise."""
+    fq = _strip_walk_args(mb, cb, seed=70 + 10 * mb + cb)["gemv_q16_dual"]
+    ops.reset_counters()
+    probe.reset_counters()
+    out = gemv.gemv_q16_dual_bf16(*fq)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_q16_dual_bf16"] == 1
+    assert not any(probe.counters().values())
+    ref = probe.gemv_q16_dual_bf16_twopass(*fq)
+    assert probe.counters()["gemv_q16_dual_bf16_twopass"] == 1
+    assert all(torch.equal(u, v) for u, v in zip(out, ref))
+    assert all(torch.equal(u, v) for u, v in zip(
+        out, gemv.gemv_q16_dual_bf16(*fq)))
+    assert not any(v for k, v in {**ops.counters(), **probe.counters()}
+                   .items() if k.endswith("_plain"))
+
+
+def test_dual_bf16_strip_walk_refuses_and_has_no_fallback(monkeypatch):
+    """Misaligned operands are refused by kernel 18-bf16 and its control,
+    and a library that fails to build raises from both; nothing runs."""
+    from lam_tpu_torch.ops import _build
+    a = _strip_walk_args(1, 2, seed=97)["gemv_q16_dual"]
+
+    def off(x):
+        buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device="cuda")
+        buf[1:1 + x.numel()].copy_(x.flatten())
+        return buf[1:1 + x.numel()].view(x.shape)
+
+    ops.reset_counters()
+    probe.reset_counters()
+    for fn in (gemv.gemv_q16_dual_bf16, probe.gemv_q16_dual_bf16_twopass):
+        for k in (0, 2, 3):
+            bad = list(a)
+            bad[k] = off(a[k])
+            with pytest.raises(ValueError, match="aligned"):
+                fn(*bad)
+
+    def broken():
+        raise RuntimeError("nvcc failed (exit 1)")
+
+    monkeypatch.setattr(_build, "library", broken)
+    for fn in (gemv.gemv_q16_dual_bf16, probe.gemv_q16_dual_bf16_twopass):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(*a)
+    assert not any(ops.counters().values())
+    assert not any(probe.counters().values())
+
+
+def test_dual_bf16_strip_walk_holds_bulk_copies_and_mma():
+    """The SASS of kernel 18-bf16's pass 1 (strip_mma_pass1) issues TMA bulk
+    copies and tensor-core products (HMMA); its control's pass 1
+    (q16_bf16_pass1 on the rectangle) the products only."""
+    from lam_tpu_torch.ops import _build
+    kernels = _build.sass()
+    mma = [k for k in kernels if "strip_mma_pass1" in k]
+    ctl = [k for k in kernels if "q16_bf16_pass1" in k and "RectWalk" in k]
+    assert len(mma) == 1 and len(ctl) == 1
+    assert any("UBLKCP" in line for line in kernels[mma[0]])
+    assert not any("UBLKCP" in line for line in kernels[ctl[0]])
+    for k in mma + ctl:
+        assert any("HMMA" in line for line in kernels[k])
 
 
 def test_four_rank_symmetric_grid_solve_on_one_card(tmp_path):

@@ -477,6 +477,69 @@ def test_dual_general_inputs_bf16_class(lam_tpu_mxu):
             [np.asarray(rd), np.asarray(rt)]))
 
 
+# -- the control of kernel 18-bf16 (ops/probe.py) ----------------------------
+
+# (ms, n) of tests/test_torch_dual_walk.py: one tile, mb < cb, mb > cb and a
+# wider mb < cb; two garbage pad tiles and pad scales after the real ones
+CONTROL_SHAPES = [(128, 128), (256, 512), (384, 256), (256, 640)]
+
+
+def _garbage_rect(ms, n, seed):
+    rng = np.random.default_rng(seed)
+    mb, cb = ms // TB, n // TB
+    real = mb * cb
+    q1 = np.full(((real + 2) * TB, TB), 7, np.int16)
+    q1[:real * TB] = rng.integers(-30000, 30001, (real * TB, TB))
+    sc = np.full(real + 2, 3.0, np.float32)
+    sc[:real] = 2.0 ** rng.integers(-16, -13, real)
+    p = rng.standard_normal(n).astype(np.float32)
+    q = rng.standard_normal(ms).astype(np.float32)
+    return q1, sc, p, q, mb, cb
+
+
+@pytest.mark.parametrize("ms,n", CONTROL_SHAPES)
+def test_dual_bf16_control_matches_its_kernel_and_the_model(ms, n):
+    """On the card the control is kernel 18-bf16's two-pass walk; on the
+    CPU both take the plain bf16 walk: bitwise equal, and within 1e-5 of
+    the numpy round-to-nearest-even model (f32 sums against f64)."""
+    from lam_tpu_torch.ops import probe
+    q1, sc, p, q, mb, cb = _garbage_rect(ms, n, seed=ms * 7 + n)
+    args = tuple(map(_t, (q1, sc, p, q)))
+    probe.reset_counters()
+    gemv.reset_counters()
+    yd, yt = probe.gemv_q16_dual_bf16_twopass(*args)
+    counts = {**probe.counters(), **gemv.counters()}
+    assert counts["gemv_q16_dual_bf16_twopass_plain"] == 1
+    assert sum(counts.values()) == 1  # nothing launched, no other plain
+    assert yd.shape == (ms,) and yt.shape == (n,)
+    kd, kt = gemv.gemv_q16_dual_bf16(*args)
+    assert torch.equal(yd, kd) and torch.equal(yt, kt)
+    md, mt_ = _dual_model(q1, sc, p, q, mb, cb)
+    assert _rel(yd.numpy(), md) <= 1e-5
+    assert _rel(yt.numpy(), mt_) <= 1e-5
+
+
+@pytest.mark.parametrize("edit,match", [
+    (lambda a: (a[0].float(), *a[1:]), "int16"),
+    (lambda a: (a[0], a[1][:-1], *a[2:]), "table shape"),
+    (lambda a: (a[0][:TB], *a[1:]), "needs"),
+    (lambda a: (*a[:2], a[2].to("meta"), a[3]), "expected"),
+    (lambda a: (*a[:2], a[2].double(), a[3]), "float32"),
+    (lambda a: (*a[:3], a[3][:-1]), "multiples of tb"),
+])
+def test_dual_bf16_control_refuses_what_the_kernel_refuses(edit, match):
+    from lam_tpu_torch.ops import probe
+    q1, sc, p, q, _, _ = _garbage_rect(256, 512, seed=4)
+    args = edit(tuple(map(_t, (q1, sc, p, q))))
+    probe.reset_counters()
+    gemv.reset_counters()
+    for fn in (gemv.gemv_q16_dual_bf16, probe.gemv_q16_dual_bf16_twopass):
+        with pytest.raises(ValueError, match=match):
+            fn(*args)
+    assert not any(probe.counters().values())
+    assert not any(gemv.counters().values())
+
+
 # -- (e) irfq solves with the engine forced -----------------------------------
 
 def _well_conditioned_system(n, seed):

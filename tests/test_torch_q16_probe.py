@@ -341,7 +341,9 @@ def test_controls_refuse_what_their_kernels_refuse():
 def test_controls_stay_out_of_the_solver_registry():
     names = {fn.__name__ for fn in probe.CONTROLS}
     assert names == {"gemv_df64_rows", "gemv_q16_symm_slab_twopass",
-                     "gemv_q16_dual_twopass", "gemv_fq_dual_twopass"}
+                     "gemv_q16_dual_twopass", "gemv_fq_dual_twopass",
+                     "gemv_q16_dual_bf16_twopass",
+                     "laplace5_f32_halo_twopass"}
     assert set(probe.CONTROLS) <= set(probe.PROBES)
     assert not names & {fn.__name__ for fn in ops.KERNELS}
     for fn in probe.CONTROLS:
