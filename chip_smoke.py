@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the thirty-one kernels (the solver's twenty-three and
+2. Holds each of the thirty-five kernels (the solver's twenty-seven and
    the eight q16 probes) against its plain PyTorch
    version at the main path's shapes. The eight one-device kernels at N=10000 padded
    to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
@@ -20,6 +20,21 @@
      matrix to 1e-12 and dfq to 1e-11 (their storage bounds);
    - padding rows of y are exactly 0; the dense and dfq kernels repeat
      bitwise;
+   - the other storage modes of kernels 1, 2 and 15 (generate mode's and
+     lam_tpu's packed=False): gemv_f32_symm_square and
+     gemv_df64_symm_square on the full 10240^2 (hi, lo) squares, equal
+     bit for bit to the packed kernels on the same tiles;
+     gemv_df64_symm_bcast on the packed hi plane and one 512 x 512 lo
+     tile, and gemv_fq_symm_bcast on the fq pack's q1 and one q2 and one
+     q3 tile (and one tile beside a full q3 plane): zero tiles equal bit
+     for bit to the full-plane kernels over zero planes, non-zero tiles
+     against the plain version and the f64 oracle of the stored values
+     (1e-5 f32, 1e-13 the others), bitwise repeats; each timed on zero
+     tiles (the square walks on their squares) beside its library call
+     (torch.mv over the f32 or f64 square, or over the f64 hi square for
+     the df64 broadcast, which computes the same function) and, in turns,
+     beside its packed sibling (kernel 1 for the df64 broadcast: the same
+     plane streamed; kernels 15 and 14 for the fq broadcast);
    - kernels 4, 5 and 6 (gemv_df64, gemv_f32_cols, gemv_df64_cols) run
      the dense_stream walk of csrc/gemv_dense.cu: their SASS holds the TMA
      bulk copy (UBLKCP) and that of the dense_rows kernels (kernel 3 and
@@ -217,15 +232,36 @@
    timed in turns with the read floor; prints each row and the phase's
    seconds. The probe kernels' counters are zeroed just before it: each
    must launch, and no plain version may run.
+8. Generate mode (`-s N`, the reference's benchmark system: the dense
+   tridiagonal, 2 on the diagonal and 1 beside it, against ones) through
+   the port's CLI in process, every operator built on the card: at
+   N=10000 with -e 1e-9 (GEN_RUNS) df64, ir, fq, irfq, dfq and irq on the
+   packed engine (df64/ir: the packed hi plane and one zero lo tile,
+   kernel 2's broadcast mode; fq/irfq: the q1 plane and zero q2/q3 tiles,
+   kernel 15's), df64 and ir with --engine pallas_symm (the square walks)
+   and df64 with --engine pallas; each converged with a TRUE relative
+   residual <= 2e-9 computed on the host by the O(N) tridiagonal product
+   (no N^2 matrix is built on the host), its kernels launched and the
+   other storages' not, no plain version, and df64's count within 1% of a
+   host f64 CG's on the same system. Then the reference's gen-sweep
+   probes at N=150000 (-i 15, CSV num_iter 16), one at a time: df64 (the
+   45.16 GB hi plane and one lo tile), ir (kernel 1 on the same plane)
+   and irfq (the 22.58 GB q1 plane: kernel 14's bf16 engine, which `auto`
+   picks there, and kernel 15's broadcast mode); df64's x within 1e-10 of
+   the host f64 CG's after 15 iterations, every probe's residual equal to
+   the host's TRUE residual of its x within 1e-6; load_s (the device
+   build) and avg_gemv_s printed beside the plane's byte bound; the
+   phase's seconds.
 
 Prints {"kernels": [...]} on the line before the last (each solver
-kernel's launches summed over the runs of phases 3-6, every rank's; each
-probe's over phase 7) and, as the last
+kernel's launches summed over the runs of phases 3-6 and 8, every rank's;
+each probe's over phase 7) and, as the last
 line, {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
 """
 
 import contextlib
+import gc
 import io
 import json
 import os
@@ -407,6 +443,45 @@ LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6, 16, 18, 19, 20
 HEAT_IR_ITERS = 4448  # heat `ir` at 1200 x 1000, every chip run (PERF.md 5)
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
+GEN_N = 10000        # phase 8: generate mode's converged runs (-i 10000)
+GEN_COUNT_GATE = 0.01  # df64's count against the host f64 CG's, relative
+GEN_PROBE_N = 150000   # phase 8: the reference's gen sweep size, -i 15
+GEN_PROBE_ITERS = 15
+GEN_X_GATE = 1e-10   # the df64 probe's x against the host f64 CG's x
+GEN_ERR_GATE = 1e-6  # a probe's residual against the host TRUE residual
+_SQUARE = ("gemv_f32_symm_square", "gemv_df64_symm_square")
+_BCAST = ("gemv_df64_symm_bcast", "gemv_fq_symm_bcast")
+# phase 8: (run, CLI flags, kernels it must launch, kernels it must not
+# launch): what lam_tpu's _generate_fast builds on its device
+GEN_RUNS = (
+    ("gen-df64", ["--precision", "df64"], ("gemv_df64_symm_bcast",),
+     ("gemv_df64_symm",) + _SQUARE),
+    ("gen-ir", ["--precision", "ir"],
+     ("gemv_f32_symm", "gemv_df64_symm_bcast"), ("gemv_df64_symm",)
+     + _SQUARE),
+    ("gen-fq", ["--precision", "fq"], ("gemv_fq_symm_bcast",),
+     ("gemv_fq_symm",)),
+    ("gen-irfq", ["--precision", "irfq"],
+     ("gemv_q16_symm", "gemv_fq_symm_bcast"), ("gemv_fq_symm",)),
+    ("gen-dfq", ["--precision", "dfq"], ("gemv_dfq_symm",), _BCAST),
+    ("gen-irq", ["--precision", "irq"], ("gemv_f32_symm", "gemv_dfq_symm"),
+     _BCAST),
+    ("gen-df64-pallas_symm", ["--precision", "df64", "--engine",
+                              "pallas_symm"], ("gemv_df64_symm_square",),
+     ("gemv_df64_symm",) + _BCAST),
+    ("gen-ir-pallas_symm", ["--precision", "ir", "--engine", "pallas_symm"],
+     _SQUARE, ("gemv_f32_symm", "gemv_df64_symm") + _BCAST),
+    ("gen-df64-pallas", ["--precision", "df64", "--engine", "pallas"],
+     ("gemv_df64",), _TRI + _SQUARE + _BCAST),
+)
+# the N=150000 probes: (run, precision, kernels it must launch, the plane
+# its accurate matvec streams: "hi" f32 or "q1" int16)
+GEN_PROBES = (
+    ("gen-df64-150k", "df64", ("gemv_df64_symm_bcast",), "hi"),
+    ("gen-ir-150k", "ir", ("gemv_f32_symm", "gemv_df64_symm_bcast"), "hi"),
+    ("gen-irfq-150k", "irfq", ("gemv_q16_symm_bf16", "gemv_fq_symm_bcast"),
+     "q1"),
+)
 
 
 def _rel(y, ref):
@@ -667,6 +742,7 @@ def kernels_vs_plain(gemv, layout, pack_planes, pack_tri, split_f64_host):
          lambda: gemv.gemv_df64_symm_plain(hi, lo, ph, pl),
          lambda: torch.mv(a_dev, p64)), (hi, lo, ph, pl, yh, yl), flops,
         "f64"))
+    out += mode_kernels_vs_plain(gemv, layout, a_dev, a32, hi, lo, ph, pl)
     del hi, lo
     torch.cuda.empty_cache()
     out += dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl)
@@ -677,6 +753,204 @@ def kernels_vs_plain(gemv, layout, pack_planes, pack_tri, split_f64_host):
                                    pl))
     torch.cuda.synchronize()
     return out
+
+
+def _in_turns(label, kernel, sibling, sibling_label):
+    """A mode kernel timed in turns with its packed sibling, printed."""
+    ms, sib_ms = _median_ms([kernel, sibling])
+    print(f"{label} {ms:.4f} ms beside {sibling_label} {sib_ms:.4f} ms "
+          f"(x{ms / sib_ms:.4f})")
+
+
+def mode_kernels_vs_plain(gemv, layout, a_dev, a32, hi, lo, ph, pl):
+    """Phase 2, the square walk of kernels 1 and 2 (lam_tpu's
+    packed=False) on the full 10240^2 square and the broadcast lo tile of
+    kernel 2 on the packed hi plane: each against its plain version and
+    the f64 oracle of the stored values, bitwise repeats, the square walk
+    equal to the packed walk bit for bit, the zero tile equal to the full
+    plane of zeros bit for bit, a non-zero tile; timed beside the library
+    call and, in turns, its packed sibling."""
+    n_p = a_dev.shape[0]
+    nblk = n_p // layout.SYMM_TB
+    T = layout.tri_tile_count(nblk)
+    flops = 2 * n_p * n_p
+    p64 = ph.double() + pl.double()
+    sq_lo = (a_dev - a32.double()).float()
+    out = []
+
+    # 1-square: the f32 walk over the square's lower tiles, in place
+    y = gemv.gemv_f32_symm(a32, ph)
+    y_plain = gemv.gemv_f32_symm_square_plain(a32, ph)
+    oracle = torch.mv(a32.double(), ph.double())
+    torch.cuda.synchronize()
+    errs = (_rel(y, y_plain), _rel(y.double(), oracle),
+            _rel(y_plain.double(), oracle))
+    print(f"gemv_f32_symm_square  rel l2: kernel-plain {errs[0]:.3e}  "
+          f"kernel-f64 {errs[1]:.3e}  plain-f64 {errs[2]:.3e}  (<= 1e-5)")
+    _check(max(errs) <= 1e-5, "gemv_f32_symm_square disagrees")
+    _check(_launched("gemv_f32_symm_square")["gemv_f32_symm_square"] > 0,
+           "the square did not take the square walk")
+    _check(torch.equal(y, gemv.gemv_f32_symm(hi, ph)),
+           "square walk != packed walk, bit for bit")
+    _check(torch.equal(y, gemv.gemv_f32_symm_square(a32, ph)),
+           "gemv_f32_symm_square not repeatable")
+    _check(int(torch.count_nonzero(y[N:])) == 0, "square padding rows != 0")
+    del oracle
+    # the bytes the walk reads: the T lower tiles (the packed plane's)
+    out.append(_timed_entry(
+        "gemv_f32_symm_square", "lam_tpu/ops/gemv.py:455", SYMM_SOURCE,
+        float((y - y_plain).abs().max()),
+        (lambda: gemv.gemv_f32_symm_square(a32, ph),
+         lambda: gemv.gemv_f32_symm_square_plain(a32, ph),
+         lambda: torch.mv(a32, ph)), (hi, ph, y), flops, "f32"))
+    _in_turns("gemv_f32_symm_square",
+              lambda: gemv.gemv_f32_symm_square(a32, ph),
+              lambda: gemv.gemv_f32_symm(hi, ph), "packed gemv_f32_symm")
+
+    # 2-square: the df64 walk over the (hi, lo) squares' lower tiles
+    yh, yl = gemv.gemv_df64_symm(a32, sq_lo, ph, pl)
+    qh, ql = gemv.gemv_df64_symm_square_plain(a32, sq_lo, ph, pl)
+    y, y_plain = yh.double() + yl.double(), qh.double() + ql.double()
+    oracle = torch.mv(a_dev, p64)
+    torch.cuda.synchronize()
+    errs = (_rel(y, y_plain), _rel(y, oracle), _rel(y_plain, oracle))
+    print(f"gemv_df64_symm_square rel l2: kernel-plain {errs[0]:.3e}  "
+          f"kernel-f64 {errs[1]:.3e}  plain-f64 {errs[2]:.3e}  (<= 1e-13)")
+    _check(max(errs) <= 1e-13, "gemv_df64_symm_square disagrees")
+    zh, zl = gemv.gemv_df64_symm(hi, lo, ph, pl)
+    _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+           "df64 square walk != packed walk, bit for bit")
+    zh, zl = gemv.gemv_df64_symm_square(a32, sq_lo, ph, pl)
+    _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+           "gemv_df64_symm_square not repeatable")
+    _check(int(torch.count_nonzero(yh[N:])) == 0
+           and int(torch.count_nonzero(yl[N:])) == 0,
+           "df64 square padding rows != 0")
+    del oracle
+    out.append(_timed_entry(
+        "gemv_df64_symm_square", "lam_tpu/ops/gemv.py:1008", SYMM_SOURCE,
+        float((y - y_plain).abs().max()),
+        (lambda: gemv.gemv_df64_symm_square(a32, sq_lo, ph, pl),
+         lambda: gemv.gemv_df64_symm_square_plain(a32, sq_lo, ph, pl),
+         lambda: torch.mv(a_dev, p64)), (hi, lo, ph, pl, yh, yl), flops,
+        "f64"))
+    _in_turns("gemv_df64_symm_square",
+              lambda: gemv.gemv_df64_symm_square(a32, sq_lo, ph, pl),
+              lambda: gemv.gemv_df64_symm(hi, lo, ph, pl),
+              "packed gemv_df64_symm")
+    del sq_lo
+    torch.cuda.empty_cache()
+
+    # 2-bcast: the packed hi plane and ONE lo tile, generate mode's zero
+    # tile and a non-zero one
+    zero = torch.zeros(layout.SYMM_TB, layout.SYMM_TB, device="cuda")
+    yh, yl = gemv.gemv_df64_symm(hi, zero, ph, pl)
+    _check(_launched("gemv_df64_symm_bcast")["gemv_df64_symm_bcast"] > 0,
+           "the lo tile did not take the broadcast mode")
+    zh, zl = gemv.gemv_df64_symm(hi, torch.zeros_like(hi), ph, pl)
+    _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+           "zero-tile broadcast != the zero lo plane, bit for bit")
+    tile = (lo[layout.SYMM_TB:2 * layout.SYMM_TB] * 3.0).contiguous()
+    yh, yl = gemv.gemv_df64_symm_bcast(hi, tile, ph, pl)
+    qh, ql = gemv.gemv_df64_symm_bcast_plain(hi, tile, ph, pl)
+    y, y_plain = yh.double() + yl.double(), qh.double() + ql.double()
+    tiles = (hi.double().reshape(T, layout.SYMM_TB, layout.SYMM_TB)
+             + tile.double()[None])
+    oracle = torch.mv(_dense_of(tiles, nblk, layout), p64)
+    del tiles
+    torch.cuda.synchronize()
+    errs = (_rel(y, y_plain), _rel(y, oracle), _rel(y_plain, oracle))
+    print(f"gemv_df64_symm_bcast  rel l2 (a non-zero tile): kernel-plain "
+          f"{errs[0]:.3e}  kernel-f64 {errs[1]:.3e}  plain-f64 "
+          f"{errs[2]:.3e}  (<= 1e-13)")
+    _check(max(errs) <= 1e-13, "gemv_df64_symm_bcast disagrees")
+    zh, zl = gemv.gemv_df64_symm_bcast(hi, tile, ph, pl)
+    _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+           "gemv_df64_symm_bcast not repeatable")
+    del oracle
+    # timed on generate mode's zero tile; torch.mv over the f64 hi square
+    # computes the same function (hi + 0) p
+    hi64 = a32.double()
+    yh, yl = gemv.gemv_df64_symm_bcast(hi, zero, ph, pl)
+    qh, ql = gemv.gemv_df64_symm_bcast_plain(hi, zero, ph, pl)
+    out.append(_timed_entry(
+        "gemv_df64_symm_bcast", "lam_tpu/ops/gemv.py:991", SYMM_SOURCE,
+        float((yh.double() + yl.double() - qh.double() - ql.double())
+              .abs().max()),
+        (lambda: gemv.gemv_df64_symm_bcast(hi, zero, ph, pl),
+         lambda: gemv.gemv_df64_symm_bcast_plain(hi, zero, ph, pl),
+         lambda: torch.mv(hi64, p64)), (hi, zero, ph, pl, yh, yl), flops,
+        "f64"))
+    _in_turns("gemv_df64_symm_bcast",
+              lambda: gemv.gemv_df64_symm_bcast(hi, zero, ph, pl),
+              lambda: gemv.gemv_f32_symm(hi, ph), "packed gemv_f32_symm")
+    del hi64
+    torch.cuda.empty_cache()
+    return out
+
+
+def fq_bcast_vs_plain(gemv, layout, fq, ph, pl):
+    """Phase 2, kernel 15's broadcast q2/q3 tiles on the fq pack's q1:
+    zero tiles equal to the zero planes bit for bit, non-zero tiles (and
+    one tile beside a full plane) against the plain version and the f64
+    oracle of the stored values, bitwise repeats; timed on generate mode's
+    zero tiles, in turns beside kernel 15 (full planes) and kernel 14."""
+    tb = layout.SYMM_TB
+    nblk = layout.padded_size(N, tb) // tb
+    T = layout.tri_tile_count(nblk)
+    q1, q2, q3, s1, s2, s3 = fq[:6]
+    p = ph.double() + pl.double()
+    zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
+    yh, yl = gemv.gemv_fq_symm(q1, zt, zt, s1, s2, s3, ph, pl)
+    _check(_launched("gemv_fq_symm_bcast")["gemv_fq_symm_bcast"] > 0,
+           "the q2/q3 tiles did not take the broadcast mode")
+    zp = torch.zeros_like(q1)
+    zh, zl = gemv.gemv_fq_symm(q1, zp, zp, s1, s2, s3, ph, pl)
+    _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+           "zero-tile broadcast != the zero q2/q3 planes, bit for bit")
+    del zp
+    for t2, t3 in ((q2[tb:2 * tb].clone(), q3[:tb].clone()),
+                   (q2[:tb].clone(), q3)):
+        yh, yl = gemv.gemv_fq_symm_bcast(q1, t2, t3, s1, s2, s3, ph, pl)
+        qh, ql = gemv.gemv_fq_symm_bcast_plain(q1, t2, t3, s1, s2, s3, ph,
+                                                pl)
+        y, y_plain = yh.double() + yl.double(), qh.double() + ql.double()
+        tiles = sum(q.double().reshape(-1, tb, tb)[:T]
+                    * s[:T].double()[:, None, None]
+                    for q, s in ((q1, s1), (t2, s2), (t3, s3)))
+        oracle = torch.mv(_dense_of(tiles, nblk, layout), p)
+        del tiles
+        torch.cuda.synchronize()
+        errs = (_rel(y, y_plain), _rel(y, oracle), _rel(y_plain, oracle))
+        print(f"gemv_fq_symm_bcast    rel l2 (q3 {tuple(t3.shape)}): "
+              f"kernel-plain {errs[0]:.3e}  kernel-f64 {errs[1]:.3e}  "
+              f"plain-f64 {errs[2]:.3e}  (<= 1e-13)")
+        _check(max(errs) <= 1e-13, "gemv_fq_symm_bcast disagrees")
+        zh, zl = gemv.gemv_fq_symm_bcast(q1, t2, t3, s1, s2, s3, ph, pl)
+        _check(torch.equal(yh, zh) and torch.equal(yl, zl),
+               "gemv_fq_symm_bcast not repeatable")
+        del oracle
+    yh, yl = gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph, pl)
+    qh, ql = gemv.gemv_fq_symm_bcast_plain(q1, zt, zt, s1, s2, s3, ph, pl)
+    entry = _timed_entry(
+        "gemv_fq_symm_bcast", "lam_tpu/ops/gemv.py:2164", SYMM_SOURCE,
+        float((yh.double() + yl.double() - qh.double() - ql.double())
+              .abs().max()),
+        (lambda: gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph, pl),
+         lambda: gemv.gemv_fq_symm_bcast_plain(q1, zt, zt, s1, s2, s3, ph,
+                                               pl), None),
+        (q1[:T * tb], zt, zt, *(s[:T] for s in (s1, s2, s3)), ph, pl, yh,
+         yl), 2 * (nblk * tb) ** 2, "f64")
+    _in_turns("gemv_fq_symm_bcast",
+              lambda: gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph,
+                                              pl),
+              lambda: gemv.gemv_fq_symm(*fq[:6], ph, pl),
+              "gemv_fq_symm (full planes)")
+    _in_turns("gemv_fq_symm_bcast",
+              lambda: gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph,
+                                              pl),
+              lambda: gemv.gemv_q16_symm(q1, s1, ph), "gemv_q16_symm")
+    return entry
 
 
 def dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl):
@@ -819,6 +1093,7 @@ def fq_kernels_vs_plain(gemv, layout, fq, a_dev, ph, pl):
          lambda: gemv.gemv_fq_symm_plain(*fq[:6], ph, pl), None),
         (*(q[:T * tb] for q in fq[:3]), *(s[:T] for s in fq[3:6]), ph, pl,
          yh, yl), flops, "f64"))
+    out.append(fq_bcast_vs_plain(gemv, layout, fq, ph, pl))
     return out
 
 
@@ -2938,6 +3213,186 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
     return total
 
 
+def _tridiag_mv(x):
+    """Generate mode's tridiagonal (2 on the diagonal, 1 beside it) times
+    x, O(n), in f64 on the host: no N^2 matrix is built for a check."""
+    y = 2.0 * x
+    y[1:] += x[:-1]
+    y[:-1] += x[1:]
+    return y
+
+
+def _gen_true(x):
+    """TRUE |b - A x| / |b| of generate mode's system (b = ones)."""
+    return float(np.linalg.norm(1.0 - _tridiag_mv(x)) / np.sqrt(x.shape[0]))
+
+
+def _host_cg(n, max_iters, rel_error):
+    """f64 CG on the host over generate mode's system, with the port's
+    update order and stopping rule: (x, iterations)."""
+    b = np.ones(n)
+    x = np.zeros(n)
+    r, p = b.copy(), b.copy()
+    rr = bb = float(r @ r)
+    k = 0
+    while k < max_iters and np.sqrt(rr / bb) >= rel_error:
+        ap = _tridiag_mv(p)
+        alpha = rr / float(p @ ap)
+        x += alpha * p
+        r -= alpha * ap
+        rr_new = float(r @ r)
+        p = r + (rr_new / rr) * p
+        rr = rr_new
+        k += 1
+    return x, k
+
+
+@contextlib.contextmanager
+def _recorded_facades(api):
+    """The facades whose solves the CLI records, in order, so a run's
+    timings can be read unrounded (the CSV prints %g)."""
+    seen = []
+    orig = api.ConjugateGradient.record_result
+
+    def record(self, result, solve_s):
+        seen.append(self)
+        return orig(self, result, solve_s)
+    api.ConjugateGradient.record_result = record
+    try:
+        yield seen
+    finally:
+        api.ConjugateGradient.record_result = orig
+
+
+def _gen_cli(ops, cli, api, argv):
+    """One generate-mode run through the CLI in process: (CSV fields, the
+    facade's timings, launch counters), the facade released."""
+    csv = io.StringIO()
+    ops.reset_counters()
+    with _recorded_facades(api) as seen, contextlib.redirect_stdout(csv):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    _check(rc == 0, f"CLI {' '.join(argv)} exited {rc}")
+    timings = dict(seen[-1].timings)
+    seen.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return csv.getvalue().strip().split(","), timings, counts
+
+
+def _gen_counts(run, counts, kernels, not_kernels, total):
+    from lam_tpu_torch import ops
+    for k in kernels:
+        _check(counts[k] > 0, f"{run} never launched {k}")
+    for k in not_kernels:
+        _check(counts[k] == 0, f"{run} launched {k}: the storage or "
+               "engine was not honoured")
+    _check(all(counts[fn.__name__] == 0 for fn in ops.PLAIN),
+           f"a plain version ran on the {run} path")
+    for k in total:
+        total[k] += counts[k]
+
+
+def generate_runs(ops, lio, cli, tmp):
+    """Phase 8: generate mode (`-s N`) through the port's CLI on the card,
+    every system built on the device. At N=10000 (-e 1e-9) the runs of
+    GEN_RUNS, each converged with a TRUE |b - A x| / |b| <= 2e-9 on the
+    host (the O(N) tridiagonal product), its kernels launched and no plain
+    version, df64's count within 1% of the host f64 CG's; then the
+    reference's gen-sweep probes at N=150000 (-i 15, num_iter 16), one at
+    a time, each operator freed before the next: df64's x within 1e-10 of
+    the host f64 CG's after 15 iterations, and every probe's residual
+    equal to the host's TRUE residual of its x within 1e-6, load_s and
+    avg_gemv_s printed beside the plane's byte bound. Returns the kernel
+    launches summed over the runs."""
+    from lam_tpu_torch.ops import layout
+    from lam_tpu_torch.solver import api
+    t_phase = time.perf_counter()
+    total = {fn.__name__: 0 for fn in ops.KERNELS}
+    t0 = time.perf_counter()
+    _, host_iters = _host_cg(GEN_N, 10 ** 6, 1e-9)
+    print(f"gen N={GEN_N}: host f64 CG {host_iters} iterations "
+          f"({time.perf_counter() - t0:.2f} s)")
+    for run, flags, kernels, not_kernels in GEN_RUNS:
+        x_path = os.path.join(tmp, f"x_{run}.bin")
+        fields, timings, counts = _gen_cli(ops, cli, api, [
+            "-s", str(GEN_N), "-e", "1e-9", "-o", x_path, "--device",
+            "cuda"] + flags)
+        iters = int(fields[6])
+        x = lio.read_vector(x_path)
+        true_rel = _gen_true(x)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"{run} CSV: {','.join(fields)}")
+        print(f"{run}: load {timings['load_s']:.3f} s, {iters} iterations, "
+              f"solve {timings['solve_s']:.4f} s, TRUE rel residual "
+              f"{true_rel:.3e} (<= {TRUE_GATE:g}), launches {launched}")
+        _check(timings["num_iters"] == iters <= 10000
+               and timings["rel_residual"] < 1e-9, f"{run} did not converge")
+        _check(true_rel <= TRUE_GATE, f"{run} TRUE residual {true_rel:.3e} "
+               f"above {TRUE_GATE:g}")
+        _gen_counts(run, counts, kernels, not_kernels, total)
+        if run == "gen-df64":
+            print(f"{run}: {iters} iterations, host f64 CG {host_iters} "
+                  f"(within {GEN_COUNT_GATE:.0%})")
+            _check(abs(iters - host_iters) <= GEN_COUNT_GATE * host_iters,
+                   f"{run}: {iters} iterations against the host's "
+                   f"{host_iters}")
+        os.remove(x_path)
+    print(f"phase 8, N={GEN_N}: {time.perf_counter() - t_phase:.1f} s")
+
+    n_p = layout.padded_size(GEN_PROBE_N, layout.SYMM_TB)
+    nblk = n_p // layout.SYMM_TB
+    tile = layout.SYMM_TB * layout.SYMM_TB
+    plane_bytes = {"hi": 4 * tile * layout.tri_tile_count(nblk),
+                   "q1": 2 * tile * layout.padded_tri_tile_count(nblk)}
+    x_host, k_host = _host_cg(GEN_PROBE_N, GEN_PROBE_ITERS, 1e-9)
+    _check(k_host == GEN_PROBE_ITERS, "the host CG stopped early")
+    for run, precision, kernels, plane in GEN_PROBES:
+        t0 = time.perf_counter()
+        x_path = os.path.join(tmp, f"x_{run}.bin")
+        fields, timings, counts = _gen_cli(ops, cli, api, [
+            "-s", str(GEN_PROBE_N), "-i", str(GEN_PROBE_ITERS), "-o", x_path,
+            "--precision", precision, "--device", "cuda"])
+        print(f"{run} CSV: {','.join(fields)}")
+        _check(fields[6] == str(GEN_PROBE_ITERS + 1),
+               f"{run}: CSV num_iter {fields[6]}, not {GEN_PROBE_ITERS + 1}")
+        x = lio.read_vector(x_path)
+        true_rel = _gen_true(x)
+        err = timings["rel_residual"]
+        _check(fields[7] == f"{err:g}", f"{run}: CSV err {fields[7]}")
+        err_rel = abs(err - true_rel) / true_rel
+        bound_ms = plane_bytes[plane] / HBM_BYTES_PER_S * 1e3
+        gemv_ms = timings["avg_gemv_s"] * 1e3
+        acc = ""
+        if "avg_gemv_acc_s" in timings:  # ir, irfq: the outer matvec
+            acc_ms = timings["avg_gemv_acc_s"] * 1e3
+            acc = (f", accurate matvec {acc_ms:.3f} ms "
+                   f"(x{acc_ms / bound_ms:.3f})")
+        print(f"{run}: load_s {timings['load_s']:.3f} s (the device build), "
+              f"avg_gemv_s {gemv_ms:.3f} ms against the {bound_ms:.3f} ms "
+              f"byte bound of its {plane_bytes[plane] / 1e9:.2f} GB plane "
+              f"(x{gemv_ms / bound_ms:.3f}){acc}, solve_s "
+              f"{timings['solve_s']:.4f} s, residual {err:.6e} against the "
+              f"host TRUE {true_rel:.6e} (rel {err_rel:.2e} <= "
+              f"{GEN_ERR_GATE:g}), launches "
+              f"{ {k: v for k, v in counts.items() if v} }, "
+              f"{time.perf_counter() - t0:.1f} s")
+        _check(err_rel <= GEN_ERR_GATE, f"{run}: residual {err:.6e} against "
+               f"the host TRUE {true_rel:.6e}")
+        if precision == "df64":
+            x_rel = float(np.linalg.norm(x - x_host) / np.linalg.norm(x_host))
+            print(f"{run}: x against the host f64 CG's after "
+                  f"{GEN_PROBE_ITERS} iterations {x_rel:.3e} "
+                  f"(<= {GEN_X_GATE:g})")
+            _check(x_rel <= GEN_X_GATE, f"{run}: x differs from the host "
+                   f"CG's by {x_rel:.3e}")
+        _gen_counts(run, counts, kernels, (), total)
+        os.remove(x_path)
+    print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def probe_tool(q16_probe):
     """Phase 7: the q16 probe tool (lam_tpu_torch.tools.q16_probe) in
     process, probes 1-4 at the scripts' sizes: every variant validated
@@ -3029,9 +3484,13 @@ def main():
         large_counts = large_system_runs(ops, gemv, generate, lio, cli, tmp)
     torch.cuda.empty_cache()
     probe_counts = probe_tool(q16_probe)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        gen_counts = generate_runs(ops, lio, cli, tmp)
     for r in results:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
-            counts, heat_counts, shard_counts, large_counts, probe_counts))
+            counts, heat_counts, shard_counts, large_counts, probe_counts,
+            gen_counts))
         _check(r["launches"] > 0, f"{r['name']} never launched on the "
                "main path")
     print(json.dumps({"kernels": results}))

@@ -10,7 +10,11 @@ and solved by dfq CG or by refinement on its f32 hi plane ('irq'), or
 stored as the fully-quantized fq cascade and solved by fq CG or by
 refinement whose inner loop reads only the 2-byte first plane ('irfq');
 or any square system stored as the full square (engine='pallas') and
-solved by f32, df64 or ir CG. The sharded backends
+solved by f32, df64 or ir CG, or a symmetric one stored as the full
+square and read by its lower triangle (engine='pallas_symm'). Generate
+mode builds the reference's benchmark system, the dense tridiagonal
+against ones, on the device (`ConjugateGradient.generate_matrix`, the
+CLI's -s). The sharded backends
 (lam_tpu_torch.parallel) split a system over the ranks of a
 torch.distributed process group: row shards with a gathered or ringed
 operand, band pairs of the lower triangle (df64, dfq or fq storage),

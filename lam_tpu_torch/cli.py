@@ -1,18 +1,25 @@
 """`python -m lam_tpu_torch.cli`: the solver CLI of lam_tpu/cli.py, file
-mode, on one device or sharded over the ranks of a process group.
+mode on one device or sharded over the ranks of a process group, and
+generate mode on one device.
 
-Flags (the reference's getopt surface, file mode):
+Flags (the reference's getopt surface):
   -A <file>   read matrix                    -b <file>  read rhs
-  -o <file>   write solution                 -i <int>   max iterations
-  -e <float>  relative error                 -v         verbose
-  -h          help
+  -s <int>    generate the n x n system      -o <file>  write solution
+  -i <int>    max iterations                 -e <float> relative error
+  -v          verbose                        -h         help
   --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu (default cuda)
-  --engine auto|pallas|pallas_symm_packed   (pallas: the full square)
+  --engine auto|pallas|pallas_symm|pallas_symm_packed
+              (pallas: the full square; pallas_symm: the full square of a
+              symmetric matrix, its lower triangle read)
   --pack-cache  publish/reuse the packed planes beside the matrix file
   --backend local|sharded|sharded2d  --comm gather|ring  --devices N
   --coordinator <host:port> --num-processes N --process-id i
   --init-col    add the warm-up seconds after load_s in the CSV
-Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9.
+Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9. -s
+cannot be given with -A or -b ("Option -A and -b cannot be used with -s."
+on stderr, rc 1); it builds the reference's benchmark system, the dense
+tridiagonal (2 on the diagonal, 1 beside it) against a right-hand side of
+ones, on the device (lam_tpu_torch/solver/api.py).
 
 A sharded run starts one process per rank, each with the same flags and
 its own --process-id (lam_tpu/cli.py:108-120, :265-269); --device cuda
@@ -32,8 +39,9 @@ Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
 with procs the ranks the backend uses and num_iter = max_iters + 1 for an
 unconverged run, as the reference prints it. Every other lam_tpu flag
-(generate mode -s, positional arguments, --engine xla, ...) raises NotImplementedError; --local-devices (JAX's virtual CPU
-devices) has no counterpart and is refused with a message.
+(positional arguments, --engine xla, -s with a sharded backend, ...)
+raises NotImplementedError; --local-devices (JAX's virtual CPU devices)
+has no counterpart and is refused with a message.
 """
 
 from __future__ import annotations
@@ -47,10 +55,12 @@ def build_parser():
     p = argparse.ArgumentParser(
         prog="lam-cg-torch", add_help=False,
         description="Dense CG solver on PyTorch/CUDA (lam-cg parity)")
-    p.add_argument("-A", dest="matrix", metavar="<file>",
-                   default="io/matrix.bin", help="Read matrix from file")
-    p.add_argument("-b", dest="rhs", metavar="<file>", default="io/rhs.bin",
+    p.add_argument("-A", dest="matrix", metavar="<file>", default=None,
+                   help="Read matrix from file")
+    p.add_argument("-b", dest="rhs", metavar="<file>", default=None,
                    help="Read right hand side from file")
+    p.add_argument("-s", dest="size", type=int, default=None,
+                   metavar="<int>", help="Generate matrix of size n x n")
     p.add_argument("-o", dest="output", metavar="<file>",
                    default="io/sol.bin", help="Write solution to file")
     p.add_argument("-i", dest="max_iters", type=int, default=10000,
@@ -86,9 +96,10 @@ def build_parser():
                         "dfq/irq/fq/irfq packed only, what auto picks for "
                         "them). With --backend sharded2d: auto/pallas give "
                         "dense blocks, pallas_symm/pallas_symm_packed the "
-                        "symmetric grid (df64/ir/dfq/irq/fq/irfq). "
-                        "pallas_symm on one device and xla are not "
-                        "ported yet")
+                        "symmetric grid (df64/ir/dfq/irq/fq/irfq). On one "
+                        "device pallas_symm stores the full square of a "
+                        "symmetric matrix and reads its lower triangle "
+                        "(f32/df64/ir). xla is not ported yet")
     p.add_argument("--pack-cache", action="store_true",
                    help="File mode: publish/reuse the packed planes "
                         "beside the matrix file (<file>.dfqpack, "
@@ -145,7 +156,7 @@ def _cli_main(argv=None):
         raise NotImplementedError(
             f"lam-cg-torch: not ported yet: {' '.join(unported)}")
     if args.help:
-        print("Usage: lam-cg-torch [ -A -b -o -e -i -h -v "
+        print("Usage: lam-cg-torch [ (-A -b | -s) -o -e -i -h -v "
               "--precision --engine --device --pack-cache --backend --comm "
               "--devices --coordinator --num-processes --process-id "
               "--init-col ]")
@@ -155,15 +166,29 @@ def _cli_main(argv=None):
         print("  -o <file>       Write solution to file")
         print("  -i <int>        Maximum number of iterations")
         print("  -e <float>      Relative error")
+        print("  -s <int>        Generate matrix of size n x n")
         print("  -v              Verbose mode")
         print("  -h              Show this help message")
         print("  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu")
-        print("  --engine auto|pallas|pallas_symm_packed")
+        print("  --engine auto|pallas|pallas_symm|pallas_symm_packed")
         print("  --pack-cache    Reuse/publish <matrix>.<storage>pack")
         print("  --backend local|sharded|sharded2d  --comm gather|ring  "
               "--devices N")
         print("  --coordinator <host:port> --num-processes N --process-id i")
         return 0
+    generate = args.size is not None
+    if generate and (args.matrix is not None or args.rhs is not None):
+        print("Option -A and -b cannot be used with -s.", file=sys.stderr)
+        return 1
+    if generate and args.backend != "local":
+        # refused before the process group the sharded facade would join
+        raise NotImplementedError(
+            "lam-cg-torch: not ported yet: -s with --backend "
+            f"{args.backend} (generate mode on a mesh, ROADMAP Queue 1 item "
+            "10)")
+    if not generate:
+        args.matrix = args.matrix or "io/matrix.bin"
+        args.rhs = args.rhs or "io/rhs.bin"
     if args.local_devices is not None:
         raise ValueError(
             "--local-devices (JAX's virtual CPU devices) has no counterpart "
@@ -214,9 +239,15 @@ def _solve(args):
     def vprint(*a):
         if verbose:
             print(*a)
+    generate = args.size is not None
     vprint("Command line arguments:")
-    vprint(f"  input_file_matrix: {args.matrix}")
-    vprint(f"  input_file_rhs:    {args.rhs}")
+    if generate:
+        vprint(f"  rows/cols:         {args.size}")
+        size_gb = args.size * args.size * 8 / 1024**3
+        vprint(f"  size of the problem: {size_gb:f} GB")
+    else:
+        vprint(f"  input_file_matrix: {args.matrix}")
+        vprint(f"  input_file_rhs:    {args.rhs}")
     vprint(f"  output_file_sol:   {args.output}")
     vprint(f"  max_iters:         {args.max_iters}")
     vprint(f"  rel_error:         {args.rel_error:e}")
@@ -230,10 +261,15 @@ def _solve(args):
     vprint("")
 
     t0 = time.perf_counter()
-    vprint("Reading matrix from file ...")
-    cg.load_matrix_from_file(args.matrix)
-    vprint("Reading right hand side from file ...")
-    cg.load_rhs_from_file(args.rhs)
+    if generate:
+        vprint("Generating the system ...")
+        cg.generate_matrix(args.size)
+        cg.generate_rhs()
+    else:
+        vprint("Reading matrix from file ...")
+        cg.load_matrix_from_file(args.matrix)
+        vprint("Reading right hand side from file ...")
+        cg.load_rhs_from_file(args.rhs)
     load_s = time.perf_counter() - t0
     vprint("Done\n")
 

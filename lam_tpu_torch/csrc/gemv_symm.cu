@@ -1,6 +1,6 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
 // (sm_90a), and the dual matvec over a dense rectangle of the same tiles.
-// Eighteen kernels share one design:
+// Twenty-two kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -13,7 +13,14 @@
 //                       _gemv_q16_symm_multi_kernel)
 //   lam_gemv_fq_symm    replaces lam_tpu/ops/gemv.py:gemv_fq_symm
 //                       (_gemv_fq_symm_kernel)
-//   lam_gemv_f32_symm_slab   replaces lam_tpu/ops/gemv.py:gemv_f32_symm_slab
+//   lam_gemv_f32_symm_square   gemv_f32_symm(packed=False) (:455): the
+//                              walk over the full square, in place
+//   lam_gemv_df64_symm_square  gemv_df64_symm(packed=False) (:1008)
+//   lam_gemv_df64_symm_bcast   gemv_df64_symm's broadcast lo tile
+//                              (_lo_plane_map :991)
+//   lam_gemv_fq_symm_bcast     gemv_fq_symm's broadcast q2/q3 tiles
+//                              (:2182-2199)
+//   lam_gemv_f32_symm_slab  replaces lam_tpu/ops/gemv.py:gemv_f32_symm_slab
 //                            (:552; _gemv_f32_symm_slab_kernel)
 //   lam_gemv_df64_symm_slab  replaces lam_tpu/ops/gemv.py:gemv_df64_symm_slab
 //                            (:1267; _gemv_df64_symm_slab_kernel)
@@ -107,12 +114,14 @@
 //
 // How the design meets that:
 //  * A walk policy says where tile t lies and which block (i, k) it is: the
-//    closed-form triangle index for the whole-triangle kernels, the tables
-//    for the slab kernels, the row-major rectangle index for the dual
-//    kernels; it also says whether the tile has a transpose term (k < i in
-//    a triangle, always in a rectangle). Pass 1 is the same code for all
-//    three, with one operand vector for the direct terms and one for the
-//    transpose terms (the same vector in a symmetric walk).
+//    closed-form triangle index for the whole-triangle kernels (over the
+//    packed buffer, or over the full square in place for the square
+//    walk), the tables for the slab kernels, the row-major rectangle index
+//    for the dual kernels; it also says whether the tile has a transpose
+//    term (k < i in a triangle, always in a rectangle). Pass 1 is the same
+//    code for all of them, with one operand vector for the direct terms
+//    and one for the transpose terms (the same vector in a symmetric
+//    walk).
 //  * Pass 1 gives each (tile, 64-row strip) its own block, so T*8 blocks
 //    keep all SMs streaming (one block per 1 MB tile would leave the last
 //    wave mostly idle). Each warp walks 8 consecutive rows; each lane
@@ -264,6 +273,60 @@ extern "C" int lam_gemv_fq_symm(const short* q1, const short* q2,
                                 float* y_hi, float* y_lo, double* part_d,
                                 double* part_t, int nblk, void* stream) {
   return launch(FQPlane{q1, q2, q3, s1, s2, s3, 0.0, 0.0, 0.0},
+                DF64Vec{p_hi, p_lo}, DF64Out{y_hi, y_lo}, part_d, part_t,
+                nblk, (cudaStream_t)stream);
+}
+
+// The other storage modes of kernels 1, 2 and 15 (lam_tpu's packed=False
+// and the broadcast tiles of generate mode), each its own entry point with
+// the packed kernel's arguments, scratch and order of sums.
+//
+// Square walk: a (and a_hi, a_lo) is the row-major (n, n) square, n =
+// nblk*TB; only its lower-triangle tiles are read, in place. Gives the
+// packed kernel's bits on pack_tri_host of the same square.
+extern "C" int lam_gemv_f32_symm_square(const float* a, const float* p,
+                                        float* y, float* part_d,
+                                        float* part_t, int nblk,
+                                        void* stream) {
+  return launch(F32Plane{a}, F32Vec{p}, F32Out{y}, part_d, part_t, nblk,
+                (cudaStream_t)stream, SquareWalk<>{nblk * TB});
+}
+
+extern "C" int lam_gemv_df64_symm_square(const float* a_hi, const float* a_lo,
+                                         const float* p_hi, const float* p_lo,
+                                         float* y_hi, float* y_lo,
+                                         double* part_d, double* part_t,
+                                         int nblk, void* stream) {
+  return launch(DF64Plane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
+                DF64Out{y_hi, y_lo}, part_d, part_t, nblk,
+                (cudaStream_t)stream, SquareWalk<>{nblk * TB});
+}
+
+// Broadcast lo tile: a_hi the packed (T*TB, TB) plane, a_lo ONE (TB, TB)
+// tile read at every walk position. A zero tile gives lam_gemv_df64_symm's
+// bits over a zero lo plane.
+extern "C" int lam_gemv_df64_symm_bcast(const float* a_hi, const float* a_lo,
+                                        const float* p_hi, const float* p_lo,
+                                        float* y_hi, float* y_lo,
+                                        double* part_d, double* part_t,
+                                        int nblk, void* stream) {
+  return launch(DF64TilePlane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
+                DF64Out{y_hi, y_lo}, part_d, part_t, nblk,
+                (cudaStream_t)stream);
+}
+
+// Broadcast q2/q3 tiles: q2 (bcast2 != 0) and q3 (bcast3 != 0) each ONE
+// (TB, TB) tile, or the full plane; the scale tables per walk position as
+// in lam_gemv_fq_symm, whose bits a zero tile gives over a zero plane.
+extern "C" int lam_gemv_fq_symm_bcast(
+    const short* q1, const short* q2, const short* q3, const float* s1,
+    const float* s2, const float* s3, const float* p_hi, const float* p_lo,
+    float* y_hi, float* y_lo, double* part_d, double* part_t, int bcast2,
+    int bcast3, int nblk, void* stream) {
+  const size_t all = ~(size_t)0;
+  return launch(FQTilePlane{q1, q2, q3, s1, s2, s3,
+                            bcast2 ? TILE_MASK : all, bcast3 ? TILE_MASK : all,
+                            0.0, 0.0, 0.0},
                 DF64Vec{p_hi, p_lo}, DF64Out{y_hi, y_lo}, part_d, part_t,
                 nblk, (cudaStream_t)stream);
 }

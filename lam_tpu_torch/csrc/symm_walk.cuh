@@ -63,6 +63,35 @@ struct DF64Plane {
   }
 };
 
+// The broadcast planes of generate mode (lam_tpu's _lo_plane_map and
+// gemv_fq_symm's pinned block (0, 0)): an operand stored as ONE (TB, TB)
+// tile that every walk position reads, the element at row r, column c of
+// any tile reading the tile's (r, c). They go with the packed walk only,
+// where tile t starts at t*TB*TB, so off & TILE_MASK is the element's
+// offset within its tile. The tile is read with the read-only cache
+// (__ldg), not streamed: 1 MB (f32) or 0.5 MB (int16) stays in L2, and
+// the HBM stream is the hi or q1 plane alone. The sums are the full-plane
+// planes' expressions, so a zero tile gives their bits over a zero plane.
+constexpr size_t TILE_MASK = (size_t)TB * TB - 1;
+
+struct DF64TilePlane {
+  using acc_t = double;
+  static constexpr int VEC = 4;
+  const float* __restrict__ hi;
+  const float* __restrict__ lo;  // one (TB, TB) tile
+  __device__ __forceinline__ void set_tile(int) {}
+  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
+  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
+    const float4 h = __ldcs(reinterpret_cast<const float4*>(hi + off));
+    const float4 l =
+        __ldg(reinterpret_cast<const float4*>(lo + (off & TILE_MASK)));
+    v[0] = (double)h.x + (double)l.x;
+    v[1] = (double)h.y + (double)l.y;
+    v[2] = (double)h.z + (double)l.z;
+    v[3] = (double)h.w + (double)l.w;
+  }
+};
+
 // Eight int16 of one 16-byte vector, sign-extended.
 __device__ __forceinline__ void i32x8_of_i16x8(const int4 x, int e[8]) {
   const int w[4] = {x.x, x.y, x.z, x.w};
@@ -116,6 +145,37 @@ struct FQPlane {
     load_i16x8(q1, off, e1);
     load_i16x8(q2, off, e2);
     load_i16x8(q3, off, e3);
+#pragma unroll
+    for (int j = 0; j < VEC; ++j)
+      v[j] = ((double)e1[j] * c1 + (double)e2[j] * c2) + (double)e3[j] * c3;
+  }
+};
+
+// FQPlane with q2 and/or q3 as one broadcast (TB, TB) tile: m2, m3 are
+// TILE_MASK for a tile and ~0 for a full plane (every offset kept). The
+// scales stay per walk position.
+struct FQTilePlane {
+  using acc_t = double;
+  static constexpr int VEC = 8;
+  const short* __restrict__ q1;
+  const short* __restrict__ q2;
+  const short* __restrict__ q3;
+  const float* __restrict__ s1;
+  const float* __restrict__ s2;
+  const float* __restrict__ s3;
+  size_t m2, m3;
+  double c1, c2, c3;
+  __device__ __forceinline__ void set_tile(int t) {
+    c1 = __ldg(s1 + t);
+    c2 = __ldg(s2 + t);
+    c3 = __ldg(s3 + t);
+  }
+  __device__ __forceinline__ acc_t p_scale() const { return 1.0; }
+  __device__ __forceinline__ void load(size_t off, acc_t v[VEC]) const {
+    int e1[VEC], e2[VEC], e3[VEC];
+    load_i16x8(q1, off, e1);
+    i32x8_of_i16x8(__ldg(reinterpret_cast<const int4*>(q2 + (off & m2))), e2);
+    i32x8_of_i16x8(__ldg(reinterpret_cast<const int4*>(q3 + (off & m3))), e3);
 #pragma unroll
     for (int j = 0; j < VEC; ++j)
       v[j] = ((double)e1[j] * c1 + (double)e2[j] * c2) + (double)e3[j] * c3;
@@ -195,6 +255,26 @@ struct TriangleWalk {
     k = t - i * (i + 1) / 2;
     base = (size_t)t * W * W;
     ld = W;
+  }
+};
+
+// The triangle walk read in place from the row-major (n, n) square (lam_tpu's
+// packed=False): TriangleWalk's order and terms, tile (i, k) at rows i*W,
+// columns k*W, row stride n. Offsets are size_t: n*n passes 2^31 from
+// n ~ 46341.
+template <int W = TB>
+struct SquareWalk {
+  static constexpr int width = W;
+  int n;
+  __device__ __forceinline__ bool transposed(int i, int k) const {
+    return k < i;
+  }
+  __device__ __forceinline__ void tile(int t, int& i, int& k, size_t& base,
+                                       int& ld) const {
+    i = walk_row(t);
+    k = t - i * (i + 1) / 2;
+    base = (size_t)i * W * n + (size_t)k * W;
+    ld = n;
   }
 };
 
@@ -858,13 +938,17 @@ rect_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
 }
 
 // The triangle walk at tile width W with SUB transpose partial rows a
-// strip: part_d T*W, part_t T*strips_of<W>*SUB*W elements.
-template <int W = TB, int SUB = 1, class Plane, class Vec, class Out>
+// strip: part_d T*W, part_t T*strips_of<W>*SUB*W elements. The walk reads
+// the packed buffer (TriangleWalk) or the square in place (SquareWalk).
+template <int W = TB, int SUB = 1, class Plane, class Vec, class Out,
+          class Walk = TriangleWalk<W>>
 int launch(Plane A, Vec P, Out Y, typename Plane::acc_t* part_d,
-           typename Plane::acc_t* part_t, int nblk, cudaStream_t stream) {
+           typename Plane::acc_t* part_t, int nblk, cudaStream_t stream,
+           Walk walk = Walk{}) {
+  static_assert(Walk::width == W, "the walk's tile width is W");
   const int T = nblk * (nblk + 1) / 2;
-  const int e = pass1<Plane, Vec, TriangleWalk<W>, SUB>(
-      A, P, P, TriangleWalk<W>{}, T, part_d, part_t, stream);
+  const int e = pass1<Plane, Vec, Walk, SUB>(A, P, P, walk, T, part_d,
+                                             part_t, stream);
   if (e != 0) return e;
   symm_pass2<W, strips_of<W> * SUB, typename Plane::acc_t, Out>
       <<<nblk * W / P2_COLS, THREADS, 0, stream>>>(part_d, part_t, nblk, Y);

@@ -1,16 +1,128 @@
-"""Random SPD systems (numpy), bit-identical to lam_tpu.generate.
+"""Problem generators, bit-identical to lam_tpu.generate.
+
+Generate mode's system (the reference's fixture-free benchmark, `-s N`):
+the dense tridiagonal with 2 on the diagonal and 1 beside it, and a
+right-hand side of ones. On the host as numpy arrays
+(`tridiagonal_rows`, `tridiagonal_matrix`, `tridiagonal_hi_plane`,
+`ones_rhs`), and on a torch device as the f32 square
+(`tridiagonal_hi_plane_device`) or as one packed walk-order plane
+(`_tridiag_hi_packed_impl`, `_tridiag_q1_packed_impl`): plain torch
+programs, not kernels (lam_tpu builds them with jax.jit, outside any
+Pallas call), which write only the nonzero tiles into zeros.
 
 The reference's offline random-SPD-system tool: A = (Q sqrt(D)) (Q sqrt(D))^T
 with eigenvalues D = exp(3.5 * U(-1, 1)) and a random U(-1, 1) rhs, plus
 the O(k N^2) spectrum-exact Householder variant used for benchmark-scale
 systems. The same seed gives the same bytes as lam_tpu.generate
-(tests/test_torch_layout.py holds them equal); the port keeps its own
-copy because importing any lam_tpu module imports JAX.
+(tests/test_torch_layout.py and tests/test_torch_gen.py hold them equal);
+the port keeps its own copy because importing any lam_tpu module imports
+JAX.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def tridiagonal_rows(row_start, num_rows, n, dtype=np.float64):
+    """Dense row block of the generate-mode tridiagonal: entry (i, j) is 2
+    if i == j, 1 if |i - j| == 1, else 0."""
+    block = np.zeros((num_rows, n), dtype=dtype)
+    local = np.arange(num_rows)
+    i = row_start + local
+    block[local, i] = 2
+    sub = i > 0
+    block[local[sub], i[sub] - 1] = 1
+    sup = i + 1 < n
+    block[local[sup], i[sup] + 1] = 1
+    return block
+
+
+def tridiagonal_matrix(n, dtype=np.float64):
+    """Full dense generate-mode tridiagonal matrix."""
+    return tridiagonal_rows(0, n, n, dtype=dtype)
+
+
+def tridiagonal_hi_plane(n, n_padded=None):
+    """Zero-padded f32 square of the generate-mode tridiagonal: its
+    entries {0, 1, 2} are exact in f32, so this is the hi plane of its
+    df64 pair and the lo plane is zero."""
+    n_padded = n_padded or n
+    hi = np.zeros((n_padded, n_padded), dtype=np.float32)
+    i = np.arange(n)
+    hi[i, i] = 2
+    hi[i[1:], i[1:] - 1] = 1
+    hi[i[:-1], i[:-1] + 1] = 1
+    return hi
+
+
+def tridiagonal_hi_plane_device(n, n_padded=None, device="cuda"):
+    """`tridiagonal_hi_plane` built on `device`: zeros, then the three
+    diagonals written in place (no host matrix, no upload)."""
+    n_padded = n_padded or n
+    hi = torch.zeros((n_padded, n_padded), dtype=torch.float32,
+                     device=device)
+    i = torch.arange(n, device=device)
+    hi[i, i] = 2
+    hi[i[1:], i[1:] - 1] = 1
+    hi[i[:-1], i[:-1] + 1] = 1
+    return hi
+
+
+def _tridiag_packed(n, tb, it, kt, nblk, diag, band):
+    """The packed walk-order plane ((len(it)*tb, tb), walk position t =
+    tile (it[t], kt[t]); it, kt int tensors on the plane's device) of the
+    tridiagonal with `diag` on the diagonal and `band` beside it, in
+    band's dtype. Only the two kinds of nonzero tile are written into
+    zeros: the nblk diagonal tiles and the single top-right corner of the
+    nblk - 1 tiles just below them (it == kt + 1), as lam_tpu's scatter
+    does (lam_tpu/generate.py:137-145: the per-element form ran out of
+    memory). Inert pad entries of padded tables (k > i) match neither."""
+    out = torch.zeros((it.shape[0], tb, tb), dtype=band.dtype,
+                      device=it.device)
+    dpos = torch.nonzero(it == kt).flatten()
+    r = torch.arange(tb, device=it.device)
+    d = r[:, None] - r[None, :]
+    tile = torch.where(d == 0, diag, torch.where(d.abs() == 1, band,
+                                                 torch.zeros_like(band)))
+    rows_in = (it[dpos, None] * tb + r[None, :]) < n      # (nblk, tb)
+    out[dpos] = tile * (rows_in[:, :, None] & rows_in[:, None, :])
+    if nblk > 1:
+        cpos = torch.nonzero(it == kt + 1).flatten()
+        ic = it[cpos]
+        out[cpos, 0, tb - 1] = torch.where((ic * tb < n) & (ic > 0), band,
+                                           torch.zeros_like(band))
+    return out.reshape(-1, tb)
+
+
+def _tridiag_hi_packed_impl(n, tb, it, kt, nblk):
+    """f32 hi plane of the generate-mode tridiagonal in packed walk order
+    (lam_tpu/generate.py:130), built on the device of it and kt."""
+    one = torch.tensor(1.0, dtype=torch.float32, device=it.device)
+    return _tridiag_packed(n, tb, it, kt, nblk, 2 * one, one)
+
+
+# generate mode's fq quantization: the stored entries are {0, 1} (the
+# diagonal extracted), and the smallest power of two >= 1/32767 is 2^-14,
+# what quantize_fq_tiles picks for such a tile: the device-built q1 plane
+# is exact (q in {0, 16384})
+TRIDIAG_Q1_SCALE = 2.0 ** -14
+
+
+def _tridiag_q1_packed_impl(n, tb, it, kt, nblk):
+    """int16 q1 plane of the generate-mode tridiagonal in packed walk
+    order with the diagonal extracted (the fq layout of from_gen_fq,
+    lam_tpu/generate.py:185): the +-1 band quantized against
+    TRIDIAG_Q1_SCALE, built on the device of it and kt."""
+    qv = torch.tensor(round(1.0 / TRIDIAG_Q1_SCALE), dtype=torch.int16,
+                      device=it.device)
+    return _tridiag_packed(n, tb, it, kt, nblk, torch.zeros_like(qv), qv)
+
+
+def ones_rhs(n, dtype=np.float64):
+    """Generate mode's right-hand side: all ones."""
+    return np.ones(n, dtype=dtype)
 
 
 def random_eigenvalues(n, rng):

@@ -49,6 +49,10 @@ SIGNATURES = {
     "lam_gemv_dfq_symm": (_P,) * 9 + (_I, _P),
     "lam_gemv_q16_symm": (_P, _P, _P, _P, _P, _P, _I, _P),
     "lam_gemv_fq_symm": (_P,) * 12 + (_I, _P),
+    "lam_gemv_f32_symm_square": (_P, _P, _P, _P, _P, _I, _P),
+    "lam_gemv_df64_symm_square": (_P,) * 8 + (_I, _P),
+    "lam_gemv_df64_symm_bcast": (_P,) * 8 + (_I, _P),
+    "lam_gemv_fq_symm_bcast": (_P,) * 12 + (_I, _I, _I, _P),
     "lam_gemv_f32": (_P, _P, _P, _I, _I, _P),
     "lam_gemv_df64": (_P,) * 6 + (_I, _I, _P),
     "lam_gemv_f32_cols": (_P, _P, _P) + (_I,) * 4 + (_P,),

@@ -10,6 +10,18 @@ The symmetric ones work on the walk-order packed layout of
     gemv_q16_symm   <- gemv_q16_symm                (gemv.py:2065)
     gemv_fq_symm    <- gemv_fq_symm                 (gemv.py:2164)
 
+with the other storage modes of three of them, each a kernel of its own
+with its own counter and plain version, to which the public function
+routes by the operand's shape: the full (n, n) square read in place
+(lam_tpu's packed=False; a square of one 512-wide tile is its own packed
+buffer) and generate mode's broadcast tiles, one (tb, tb) tile that every
+walk position reads (lam_tpu's constant index map):
+
+    gemv_f32_symm_square   <- gemv_f32_symm(packed=False)       (:455)
+    gemv_df64_symm_square  <- gemv_df64_symm(packed=False)      (:1008)
+    gemv_df64_symm_bcast   <- gemv_df64_symm, (tb, tb) lo tile  (:991)
+    gemv_fq_symm_bcast     <- gemv_fq_symm, (tb, tb) q2/q3      (:2182)
+
 `gemv_dfq_symm` reads the dfq storage: the f32 hi plane plus the lo
 plane quantized to int16 against one power-of-two scale per tile
 (`layout.quantize_lo_tiles`), T tiles exactly. The q16 and fq kernels
@@ -228,12 +240,89 @@ def gemv_fq_symm_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
     three-plane fq cascade over the real triangle tiles and returned as
     the f32 split of the f64 result."""
     gemv_fq_symm_plain.calls += 1
+    return _fq_symm_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+
+
+def _fq_symm_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
+    """The f64 triangle walk of the fq cascade over the real tiles, each
+    of q2 and q3 a plane of q1's shape or one (tb, tb) tile that every
+    tile reads."""
     tb, nblk, _ = layout.packed_geometry(q1.shape, p_hi.shape[0],
                                          "gemv_fq_symm", padded=True)
     T = layout.tri_tile_count(nblk)
-    tiles = sum(q[:T * tb].to(torch.float64).reshape(T, tb, tb)
+    tiles = sum(q.reshape(-1, tb, tb)[:T].to(torch.float64)
                 * s[:T].to(torch.float64)[:, None, None]
                 for q, s in ((q1, s1), (q2, s2), (q3, s3)))
+    p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
+    return split_f64(_walk(tiles, p, nblk))
+
+
+def gemv_fq_symm_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
+    """`gemv_fq_symm_plain` with q2 and/or q3 one broadcast (tb, tb) tile
+    (lam_tpu's pinned block (0, 0), gemv.py:2182-2199), expanded over the
+    walk."""
+    gemv_fq_symm_bcast_plain.calls += 1
+    return _fq_symm_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+
+
+def _fit_tile(dim, preferred, name):
+    """Largest power-of-two tile <= preferred that divides dim, at least
+    128 (lam_tpu/ops/gemv.py:61-76)."""
+    t = 1 << (min(preferred, dim).bit_length() - 1)
+    while t >= layout._LANES:
+        if dim % t == 0:
+            return t
+        t //= 2
+    raise ValueError(
+        f"{name}={dim} is not a multiple of any usable tile (min "
+        f"{layout._LANES}); pad the operand (see "
+        "lam_tpu_torch/solver/operators.py)")
+
+
+def _square_geometry(n):
+    """(tb, nblk, T) of the square walk over an (n, n) square: lam_tpu's
+    tile for packed=False (SYMM_TB fitted to n)."""
+    tb = _fit_tile(n, layout.SYMM_TB, "rows")
+    nblk = n // tb
+    return tb, nblk, layout.tri_tile_count(nblk)
+
+
+def _square_tiles(a, n):
+    """The lower-triangle tiles (T, tb, tb) of an (n, n) square in walk
+    order, as pack_tri_host lays them out, and nblk."""
+    tb, nblk, _ = _square_geometry(n)
+    it, kt = (torch.as_tensor(x, dtype=torch.long, device=a.device)
+              for x in layout._symm_tables(nblk))
+    return a.reshape(nblk, tb, nblk, tb).permute(0, 2, 1, 3)[it, kt], nblk
+
+
+def gemv_f32_symm_square_plain(a, p):
+    """Plain PyTorch y = A @ p in f32 over the lower-triangle tiles of the
+    (n, n) square a: the packed walk of those tiles."""
+    gemv_f32_symm_square_plain.calls += 1
+    tiles, nblk = _square_tiles(a, p.shape[0])
+    return _walk(tiles, p, nblk)
+
+
+def gemv_df64_symm_square_plain(a_hi, a_lo, p_hi, p_lo):
+    """Plain PyTorch (y_hi, y_lo) = A @ p over the lower-triangle tiles of
+    the (n, n) squares a_hi + a_lo, in float64, as the f32 split."""
+    gemv_df64_symm_square_plain.calls += 1
+    n = p_hi.shape[0]
+    tiles, nblk = _square_tiles(a_hi.to(torch.float64)
+                                + a_lo.to(torch.float64), n)
+    p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
+    return split_f64(_walk(tiles, p, nblk))
+
+
+def gemv_df64_symm_bcast_plain(a_hi, a_lo, p_hi, p_lo):
+    """`gemv_df64_symm_plain` with the lo plane one broadcast (tb, tb)
+    tile (lam_tpu's _lo_plane_map, gemv.py:991), added to every tile."""
+    gemv_df64_symm_bcast_plain.calls += 1
+    tb, nblk, T = layout.packed_geometry(a_hi.shape, p_hi.shape[0],
+                                         "gemv_df64_symm")
+    tiles = (a_hi.to(torch.float64).reshape(T, tb, tb)
+             + a_lo.to(torch.float64).reshape(1, tb, tb))
     p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
     return split_f64(_walk(tiles, p, nblk))
 
@@ -569,72 +658,151 @@ def _raise_on(what, code):
         raise RuntimeError(f"{what}: CUDA launch failed with error {code}")
 
 
-def gemv_f32_symm(a, p):
-    """y = A @ p for symmetric f32 A stored as packed lower-triangle
-    tiles a (T*tb, tb); p (n,) f32. Exact f32 products with f32
-    accumulation (no TF32, no bf16)."""
-    what = "gemv_f32_symm"
-    _check(what, {"a": a, "p": p}, a.device)
-    if a.device.type == "cpu":
-        return gemv_f32_symm_plain(a, p)
+def _tri_call(wrapper, entry, operands, geometry, pairs, flags=()):
+    """Launch the triangle-walk kernel `entry` of csrc/gemv_symm.cu for
+    `wrapper` on the current stream: `operands` are the planes, scale
+    tables and operand vector(s) in the entry point's order (the last one
+    of length n), `flags` its int arguments before nblk. Returns y in
+    f32, or with pairs=True (an f64 walk) (y_hi, y_lo)."""
     from lam_tpu_torch.ops._build import library
     lib = library()
-    nblk, n_d, n_t = _kernel_geometry(
-        layout.packed_geometry(a.shape, p.shape[0], what), what, lib)
-    y = torch.empty_like(p)
-    part_d = torch.empty(n_d, dtype=torch.float32, device=a.device)
-    part_t = torch.empty(n_t, dtype=torch.float32, device=a.device)
-    with torch.cuda.device(a.device):
+    what = wrapper.__name__
+    nblk, n_d, n_t = _kernel_geometry(geometry, what, lib)
+    device = operands[-1].device
+    acc_dtype = torch.float64 if pairs else torch.float32
+    out = [torch.empty_like(operands[-1]) for _ in range(2 if pairs else 1)]
+    part_d = torch.empty(n_d, dtype=acc_dtype, device=device)
+    part_t = torch.empty(n_t, dtype=acc_dtype, device=device)
+    with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_gemv_f32_symm(a.data_ptr(), p.data_ptr(), y.data_ptr(),
-                                     part_d.data_ptr(), part_t.data_ptr(),
-                                     nblk, stream)
-    gemv_f32_symm.launches += 1
+        code = getattr(lib, entry)(
+            *(x.data_ptr() for x in (*operands, *out, part_d, part_t)),
+            *flags, nblk, stream)
+    wrapper.launches += 1
     _raise_on(what, code)
-    return y
+    return tuple(out) if pairs else out[0]
+
+
+def _square(a, n):
+    """True where `a` is the full (n, n) square of more than one 512-wide
+    tile: the square walk's operand (lam_tpu's packed=False). A square of
+    one tile is its own packed buffer, and either walk gives its
+    product."""
+    return tuple(a.shape) == (n, n) and n > layout.SYMM_TB
+
+
+def gemv_f32_symm(a, p):
+    """y = A @ p for symmetric f32 A stored as packed lower-triangle
+    tiles a (T*tb, tb), or as the full (n, n) square, of which only the
+    lower-triangle tiles are read (`gemv_f32_symm_square`); p (n,) f32.
+    Exact f32 products with f32 accumulation (no TF32, no bf16)."""
+    what = "gemv_f32_symm"
+    if _square(a, p.shape[0]):
+        return gemv_f32_symm_square(a, p)
+    _check(what, {"a": a, "p": p}, a.device)
+    geometry = layout.packed_geometry(a.shape, p.shape[0], what)
+    if a.device.type == "cpu":
+        return gemv_f32_symm_plain(a, p)
+    return _tri_call(gemv_f32_symm, "lam_gemv_f32_symm", (a, p), geometry,
+                     False)
+
+
+def gemv_f32_symm_square(a, p):
+    """y = A @ p for symmetric f32 A held as the row-major (n, n) square
+    (lam_tpu's gemv_f32_symm(packed=False)): the triangle walk reads the
+    lower-triangle tiles in place, half the bytes of a dense matvec and
+    the packed kernel's sums, in its order."""
+    what = "gemv_f32_symm_square"
+    _check(what, {"a": a, "p": p}, a.device)
+    n = p.shape[0]
+    if tuple(a.shape) != (n, n):
+        raise ValueError(f"symmetric gemv needs a square matrix, got "
+                         f"{tuple(a.shape)}")
+    geometry = _square_geometry(n)
+    if a.device.type == "cpu":
+        return gemv_f32_symm_square_plain(a, p)
+    return _tri_call(gemv_f32_symm_square, "lam_gemv_f32_symm_square",
+                     (a, p), geometry, False)
 
 
 def gemv_df64_symm(a_hi, a_lo, p_hi, p_lo, *, comp=None):
-    """(y_hi, y_lo) = A @ p for symmetric A = a_hi + a_lo stored as
-    packed lower-triangle (hi, lo) f32 planes, p = p_hi + p_lo.
+    """(y_hi, y_lo) = A @ p for symmetric A = a_hi + a_lo, p = p_hi + p_lo,
+    the (hi, lo) f32 planes stored as packed lower-triangle tiles; the lo
+    plane may be one (tb, tb) broadcast tile that every tile reads
+    (`gemv_df64_symm_bcast`: generate mode's zero lo plane, lam_tpu's
+    _lo_plane_map); or both planes full (n, n) squares, read in place
+    (`gemv_df64_symm_square`).
 
     The kernel accumulates in native f64 (csrc/gemv_symm.cu), so the
     TPU kernel's compensation budgets 'nolow' and 'full' are both met
-    and `comp` selects nothing; other values raise as in lam_tpu. The
-    single (tb, tb) broadcast-zero lo tile of lam_tpu's generate mode is
-    not ported."""
+    and `comp` selects nothing; other values raise as in lam_tpu."""
     what = "gemv_df64_symm"
-    if comp not in (None, "nolow", "full"):
-        raise ValueError(f"comp={comp!r} must be one of ('full', 'nolow')")
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    tb = a_hi.shape[-1]
+    if _square(a_hi, p_hi.shape[0]):
+        if a_lo.shape != a_hi.shape:
+            raise ValueError(
+                f"{what}: lo plane must match the hi plane "
+                f"{tuple(a_hi.shape)}, got {tuple(a_lo.shape)}: the single "
+                f"({tb}, {tb}) broadcast tile goes with the packed hi "
+                "plane only")
+        return gemv_df64_symm_square(a_hi, a_lo, p_hi, p_lo)
     if a_lo.shape != a_hi.shape:
-        raise NotImplementedError(
-            f"{what}: lo plane {tuple(a_lo.shape)} must match the hi plane "
-            f"{tuple(a_hi.shape)}; the broadcast-zero lo tile is not "
-            "ported yet")
-    if p_lo.shape != p_hi.shape:
-        raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
-                         f"{tuple(p_lo.shape)} differ")
+        if tuple(a_lo.shape) == (tb, tb):
+            return gemv_df64_symm_bcast(a_hi, a_lo, p_hi, p_lo)
+        raise ValueError(
+            f"{what}: lo plane must match the hi plane {tuple(a_hi.shape)} "
+            f"or be a single ({tb}, {tb}) broadcast tile, got "
+            f"{tuple(a_lo.shape)}")
     _check(what, {"a_hi": a_hi, "a_lo": a_lo, "p_hi": p_hi, "p_lo": p_lo},
            a_hi.device)
+    geometry = layout.packed_geometry(a_hi.shape, p_hi.shape[0], what)
     if a_hi.device.type == "cpu":
         return gemv_df64_symm_plain(a_hi, a_lo, p_hi, p_lo)
-    from lam_tpu_torch.ops._build import library
-    lib = library()
-    nblk, n_d, n_t = _kernel_geometry(
-        layout.packed_geometry(a_hi.shape, p_hi.shape[0], what), what, lib)
-    y_hi = torch.empty_like(p_hi)
-    y_lo = torch.empty_like(p_hi)
-    part_d = torch.empty(n_d, dtype=torch.float64, device=a_hi.device)
-    part_t = torch.empty(n_t, dtype=torch.float64, device=a_hi.device)
-    with torch.cuda.device(a_hi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_gemv_df64_symm(
-            a_hi.data_ptr(), a_lo.data_ptr(), p_hi.data_ptr(),
-            p_lo.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(),
-            part_d.data_ptr(), part_t.data_ptr(), nblk, stream)
-    gemv_df64_symm.launches += 1
-    _raise_on(what, code)
-    return y_hi, y_lo
+    return _tri_call(gemv_df64_symm, "lam_gemv_df64_symm",
+                     (a_hi, a_lo, p_hi, p_lo), geometry, True)
+
+
+def gemv_df64_symm_square(a_hi, a_lo, p_hi, p_lo, *, comp=None):
+    """The df64 twin of `gemv_f32_symm_square` (lam_tpu's
+    gemv_df64_symm(packed=False)): (hi, lo) full (n, n) squares, their
+    lower-triangle tiles read in place, formed and accumulated in native
+    f64 and returned as the f32 split."""
+    what = "gemv_df64_symm_square"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check(what, {"a_hi": a_hi, "a_lo": a_lo, "p_hi": p_hi, "p_lo": p_lo},
+           a_hi.device)
+    n = p_hi.shape[0]
+    if tuple(a_hi.shape) != (n, n) or a_lo.shape != a_hi.shape:
+        raise ValueError(f"symmetric df64 gemv needs square planes, got "
+                         f"{tuple(a_hi.shape)} and {tuple(a_lo.shape)}")
+    geometry = _square_geometry(n)
+    if a_hi.device.type == "cpu":
+        return gemv_df64_symm_square_plain(a_hi, a_lo, p_hi, p_lo)
+    return _tri_call(gemv_df64_symm_square, "lam_gemv_df64_symm_square",
+                     (a_hi, a_lo, p_hi, p_lo), geometry, True)
+
+
+def gemv_df64_symm_bcast(a_hi, a_lo, p_hi, p_lo, *, comp=None):
+    """`gemv_df64_symm` over the packed hi plane (T*tb, tb) and ONE
+    (tb, tb) lo tile that every walk position reads at the element's row
+    and column within its tile (lam_tpu's constant (0, 0) index map, any
+    tile, not only a zero one). Only the hi plane streams from memory; on
+    a zero tile the result is the full-plane kernel's over a zero plane,
+    bit for bit."""
+    what = "gemv_df64_symm_bcast"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check(what, {"a_hi": a_hi, "a_lo": a_lo, "p_hi": p_hi, "p_lo": p_lo},
+           a_hi.device)
+    tb = a_hi.shape[1]
+    if tuple(a_lo.shape) != (tb, tb):
+        raise ValueError(f"{what}: the lo tile must be ({tb}, {tb}), got "
+                         f"{tuple(a_lo.shape)}")
+    geometry = layout.packed_geometry(a_hi.shape, p_hi.shape[0], what)
+    if a_hi.device.type == "cpu":
+        return gemv_df64_symm_bcast_plain(a_hi, a_lo, p_hi, p_lo)
+    return _tri_call(gemv_df64_symm_bcast, "lam_gemv_df64_symm_bcast",
+                     (a_hi, a_lo, p_hi, p_lo), geometry, True)
 
 
 def gemv_dfq_symm(a_hi, a_loq, sc, p_hi, p_lo, *, comp=None):
@@ -647,37 +815,18 @@ def gemv_dfq_symm(a_hi, a_loq, sc, p_hi, p_lo, *, comp=None):
     The kernel forms hi + loq * sc and accumulates in native f64, so
     `comp` selects nothing, as in `gemv_df64_symm`."""
     what = "gemv_dfq_symm"
-    if comp not in (None, "nolow", "full"):
-        raise ValueError(f"comp={comp!r} must be one of ('full', 'nolow')")
+    _comp_and_pairs(what, comp, p_hi, p_lo)
     if a_loq.shape != a_hi.shape:
         raise ValueError(f"quantized lo plane shape {tuple(a_loq.shape)} != "
                          f"hi plane {tuple(a_hi.shape)}")
-    if p_lo.shape != p_hi.shape:
-        raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
-                         f"{tuple(p_lo.shape)} differ")
     _check(what, {"a_hi": a_hi, "a_loq": a_loq, "sc": sc, "p_hi": p_hi,
                   "p_lo": p_lo}, a_hi.device)
     geometry = layout.packed_geometry(a_hi.shape, p_hi.shape[0], what)
     _check_scales(what, geometry[2], {"sc": sc})
     if a_hi.device.type == "cpu":
         return gemv_dfq_symm_plain(a_hi, a_loq, sc, p_hi, p_lo)
-    from lam_tpu_torch.ops._build import library
-    lib = library()
-    nblk, n_d, n_t = _kernel_geometry(geometry, what, lib)
-    y_hi = torch.empty_like(p_hi)
-    y_lo = torch.empty_like(p_hi)
-    part_d = torch.empty(n_d, dtype=torch.float64, device=a_hi.device)
-    part_t = torch.empty(n_t, dtype=torch.float64, device=a_hi.device)
-    with torch.cuda.device(a_hi.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_gemv_dfq_symm(
-            a_hi.data_ptr(), a_loq.data_ptr(), sc.data_ptr(),
-            p_hi.data_ptr(), p_lo.data_ptr(), y_hi.data_ptr(),
-            y_lo.data_ptr(), part_d.data_ptr(), part_t.data_ptr(), nblk,
-            stream)
-    gemv_dfq_symm.launches += 1
-    _raise_on(what, code)
-    return y_hi, y_lo
+    return _tri_call(gemv_dfq_symm, "lam_gemv_dfq_symm",
+                     (a_hi, a_loq, sc, p_hi, p_lo), geometry, True)
 
 
 def gemv_q16_symm(q1, s1, p):
@@ -724,72 +873,61 @@ def _q16_symm(wrapper, plain, entry, q1, s1, p):
     _check_scales(what, geometry[2], {"s1": s1})
     if q1.device.type == "cpu":
         return plain(q1, s1, p)
-    from lam_tpu_torch.ops._build import library
-    lib = library()
-    nblk, n_d, n_t = _kernel_geometry(geometry, what, lib)
-    y = torch.empty_like(p)
-    part_d = torch.empty(n_d, dtype=torch.float32, device=q1.device)
-    part_t = torch.empty(n_t, dtype=torch.float32, device=q1.device)
-    with torch.cuda.device(q1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, entry)(q1.data_ptr(), s1.data_ptr(),
-                                   p.data_ptr(), y.data_ptr(),
-                                   part_d.data_ptr(), part_t.data_ptr(),
-                                   nblk, stream)
-    wrapper.launches += 1
-    _raise_on(wrapper.__name__, code)
-    return y
+    return _tri_call(wrapper, entry, (q1, s1, p), geometry, False)
+
+
+def _fq_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo):
+    """The fq triangle walk's checks; returns its packed geometry."""
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
+                  "s3": s3, "p_hi": p_hi, "p_lo": p_lo}, q1.device)
+    geometry = layout.packed_geometry(q1.shape, p_hi.shape[0], what,
+                                      padded=True)
+    _check_scales(what, geometry[2], {"s1": s1, "s2": s2, "s3": s3})
+    return geometry
 
 
 def gemv_fq_symm(q1, q2, q3, s1, s2, s3, p_hi, p_lo, *, comp=None):
     """(y_hi, y_lo) = A @ p for symmetric A in the fully-quantized fq
     storage: three int16 walk-order triangle planes (T or padded Ts
     tiles) against per-tile power-of-two scale tables, 6 B per stored
-    element, ~2^-48 tile-relative accuracy; p = p_hi + p_lo.
+    element, ~2^-48 tile-relative accuracy; p = p_hi + p_lo. q2 and q3 may
+    each be one (tb, tb) broadcast tile (`gemv_fq_symm_bcast`: generate
+    mode's zero residual planes).
 
     The kernel forms the cascade and accumulates in native f64, so
-    `comp` selects nothing, as in `gemv_df64_symm`. lam_tpu's single
-    (tb, tb) broadcast q2/q3 tile of generate mode is not ported."""
+    `comp` selects nothing, as in `gemv_df64_symm`."""
     what = "gemv_fq_symm"
-    if comp not in (None, "nolow", "full"):
-        raise ValueError(f"comp={comp!r} must be one of ('full', 'nolow')")
+    if q2.shape != q1.shape or q3.shape != q1.shape:
+        return gemv_fq_symm_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo,
+                                  comp=comp)
+    geometry = _fq_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+    if q1.device.type == "cpu":
+        return gemv_fq_symm_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+    return _tri_call(gemv_fq_symm, "lam_gemv_fq_symm",
+                     (q1, q2, q3, s1, s2, s3, p_hi, p_lo), geometry, True)
+
+
+def gemv_fq_symm_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo, *, comp=None):
+    """`gemv_fq_symm` with q2 and/or q3 ONE (tb, tb) tile that every walk
+    position reads at the element's row and column within its tile
+    (lam_tpu's pinned block (0, 0), any tile); the other one, if any, a
+    plane of q1's shape. The scale tables stay per tile. Only q1 streams
+    from memory where both are tiles; on zero tiles the result is the
+    full-plane kernel's over zero planes, bit for bit."""
+    what = "gemv_fq_symm_bcast"
+    tb = q1.shape[-1]
     for name, q in (("q2", q2), ("q3", q3)):
-        if q.shape != q1.shape:
-            tb = q1.shape[1]
-            if tuple(q.shape) == (tb, tb):
-                raise NotImplementedError(
-                    f"{what}: {name} is one broadcast ({tb}, {tb}) tile; "
-                    "the broadcast zero planes are not ported yet")
+        if q.shape != q1.shape and tuple(q.shape) != (tb, tb):
             raise ValueError(f"{name} plane shape {tuple(q.shape)} != q1 "
                              f"plane {tuple(q1.shape)} (or one broadcast "
                              f"({tb}, {tb}) tile)")
-    if p_lo.shape != p_hi.shape:
-        raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
-                         f"{tuple(p_lo.shape)} differ")
-    _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
-                  "s3": s3, "p_hi": p_hi, "p_lo": p_lo}, q1.device)
-    geometry = layout.packed_geometry(q1.shape, p_hi.shape[0], what,
-                                      padded=True)
-    _check_scales(what, geometry[2], {"s1": s1, "s2": s2, "s3": s3})
+    geometry = _fq_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo)
     if q1.device.type == "cpu":
-        return gemv_fq_symm_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
-    from lam_tpu_torch.ops._build import library
-    lib = library()
-    nblk, n_d, n_t = _kernel_geometry(geometry, what, lib)
-    y_hi = torch.empty_like(p_hi)
-    y_lo = torch.empty_like(p_hi)
-    part_d = torch.empty(n_d, dtype=torch.float64, device=q1.device)
-    part_t = torch.empty(n_t, dtype=torch.float64, device=q1.device)
-    with torch.cuda.device(q1.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.lam_gemv_fq_symm(
-            q1.data_ptr(), q2.data_ptr(), q3.data_ptr(), s1.data_ptr(),
-            s2.data_ptr(), s3.data_ptr(), p_hi.data_ptr(), p_lo.data_ptr(),
-            y_hi.data_ptr(), y_lo.data_ptr(), part_d.data_ptr(),
-            part_t.data_ptr(), nblk, stream)
-    gemv_fq_symm.launches += 1
-    _raise_on(what, code)
-    return y_hi, y_lo
+        return gemv_fq_symm_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+    return _tri_call(gemv_fq_symm_bcast, "lam_gemv_fq_symm_bcast",
+                     (q1, q2, q3, s1, s2, s3, p_hi, p_lo), geometry, True,
+                     (int(q2.shape != q1.shape), int(q3.shape != q1.shape)))
 
 
 def _dense_geometry(what, a, *ps):
@@ -1417,7 +1555,9 @@ KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_f32_symm_slab, gemv_df64_symm_slab, gemv_q16_symm_slab,
            gemv_fq_symm_slab, gemv_dfq_symm_slab, gemv_f32_dual,
            gemv_df64_dual, gemv_dfq_dual, gemv_q16_dual, gemv_fq_dual,
-           gemv_q16_symm_bf16, gemv_q16_symm_slab_bf16, gemv_q16_dual_bf16)
+           gemv_q16_symm_bf16, gemv_q16_symm_slab_bf16, gemv_q16_dual_bf16,
+           gemv_f32_symm_square, gemv_df64_symm_square, gemv_df64_symm_bcast,
+           gemv_fq_symm_bcast)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
@@ -1426,7 +1566,9 @@ PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_dfq_symm_slab_plain, gemv_f32_dual_plain,
          gemv_df64_dual_plain, gemv_dfq_dual_plain, gemv_q16_dual_plain,
          gemv_fq_dual_plain, gemv_q16_symm_bf16_plain,
-         gemv_q16_symm_slab_bf16_plain, gemv_q16_dual_bf16_plain)
+         gemv_q16_symm_slab_bf16_plain, gemv_q16_dual_bf16_plain,
+         gemv_f32_symm_square_plain, gemv_df64_symm_square_plain,
+         gemv_df64_symm_bcast_plain, gemv_fq_symm_bcast_plain)
 
 
 def reset_counters():

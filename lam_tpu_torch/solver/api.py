@@ -17,10 +17,23 @@ solved by CG in one of seven precisions:
 engine='auto' (and 'pallas_symm_packed') stores the packed lower
 triangle, trusting the file's symmetry (CG's contract); engine='pallas'
 reads the whole matrix and stores the full square (f32, df64 and ir
-only), for a matrix that is not symmetric. pack_cache=True reads the
-packed planes from `<file>.<storage>pack` when that cache is usable and
-publishes a fresh pack there otherwise; the full-square engine ignores
-it with a notice.
+only), for a matrix that is not symmetric; engine='pallas_symm' stores
+the full square of a symmetric matrix (checked) and reads only its
+lower-triangle tiles. pack_cache=True reads the packed planes from
+`<file>.<storage>pack` when that cache is usable and publishes a fresh
+pack there otherwise; the full-square engines ignore it with a notice.
+
+Generate mode (`generate_matrix`, `generate_rhs`; lam_tpu/solver/api.py:
+286-425): the dense tridiagonal (2 on the diagonal, 1 beside it) and a
+right-hand side of ones, built on the facade's device, CPU included, as
+lam_tpu builds it on its device: the packed f32 plane for 'f32'; the
+packed hi plane and ONE broadcast (tb, tb) zero lo tile for 'df64'/'ir'
+(engine 'auto' or 'pallas_symm_packed': a quarter of the full-square
+pair's memory); the full hi square and a zero lo square for 'df64'/'ir'
+with engine 'pallas_symm' or 'pallas'; the packed int16 q1 plane and one
+zero tile each for q2 and q3 for 'fq'/'irfq' (2 B per element). 'dfq'/
+'irq', and 'f32' with a full-square engine, build the matrix on the host
+(`from_dense`), as lam_tpu does.
 
 backend='local' solves on one device. backend='sharded' splits the
 system over the ranks of a torch.distributed process group, one rank per
@@ -41,10 +54,10 @@ rank of a quantized storage).
 Every rank calls the same methods in the same order: loads, solves and
 measurements are collective.
 
-Still refused, with NotImplementedError: generate mode, precision
-'f64'/'auto', backend 'auto', engine 'xla', engine 'pallas_symm' on one
-device, the preconditioner, checkpoints and the host outer loop. The
-device is explicit; asking for CUDA where there is none raises.
+Still refused, with NotImplementedError: generate mode on the sharded
+backends, precision 'f64'/'auto', backend 'auto', engine 'xla', the
+preconditioner, checkpoints and the host outer loop. The device is
+explicit; asking for CUDA where there is none raises.
 """
 
 from __future__ import annotations
@@ -56,11 +69,14 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from lam_tpu_torch import generate as gen
 from lam_tpu_torch import io as lio
+from lam_tpu_torch.ops import layout
 from lam_tpu_torch.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
-from lam_tpu_torch.solver.operators import (DENSE_ENGINE, ENGINES,
-                                            QUANT_LAYOUT, DenseOperator,
-                                            check_engine, resolve_device)
+from lam_tpu_torch.solver.operators import (DENSE_ENGINE, ENGINE, ENGINES,
+                                            QUANT_LAYOUT, SQUARE_ENGINE,
+                                            DenseOperator, check_engine,
+                                            resolve_device)
 
 PRECISIONS = ("df64", "ir", "f32", "dfq", "irq", "fq", "irfq")
 # refinement mode -> its storage
@@ -77,7 +93,7 @@ def _check_sharded(precision, engine):
     base = _BASE.get(precision, precision)
     if engine == "xla":
         raise NotImplementedError(f"engine={engine!r} is not ported yet")
-    if engine not in ENGINES + ("pallas_symm",):
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if base in QUANT_LAYOUT and engine == "auto":
         # quantized storage exists only as packed triangle tiles
@@ -102,7 +118,7 @@ def _check_sharded2d(precision, engine):
     base = _BASE.get(precision, precision)
     if engine == "xla":
         raise NotImplementedError(f"engine={engine!r} is not ported yet")
-    if engine not in ENGINES + ("pallas_symm",):
+    if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if base in QUANT_LAYOUT and engine == "auto":
         # quantized storage exists only on the symmetric grid
@@ -151,7 +167,7 @@ class ConjugateGradient:
             self.device = mesh.device
         elif backend == "local":
             check_engine(engine)
-            if (engine == DENSE_ENGINE
+            if (engine in (DENSE_ENGINE, SQUARE_ENGINE)
                     and _BASE.get(precision, precision) in QUANT_LAYOUT):
                 raise ValueError(
                     f"precision={precision!r} implies packed storage; use "
@@ -183,15 +199,15 @@ class ConjugateGradient:
         storage = _BASE.get(self.precision, self.precision)
         if self.backend in ("sharded", "sharded2d"):
             self.op = self._sharded_operator(filename, storage)
-        elif self.engine == DENSE_ENGINE:
+        elif self.engine in (DENSE_ENGINE, SQUARE_ENGINE):
             # the full square, as lam_tpu's file-mode fallback builds it
             if self.pack_cache:
                 print("lam-cg: --pack-cache only accelerates the packed "
                       "engine's f32/df64/ir/dfq/irq/fq/irfq file loads; "
-                      "ignored for --engine pallas", file=sys.stderr)
+                      f"ignored for --engine {self.engine}", file=sys.stderr)
             self.op = DenseOperator.from_dense(
                 lio.read_matrix(filename), precision=storage,
-                engine=DENSE_ENGINE, device=self.device)
+                engine=self.engine, device=self.device)
         else:
             ctor = getattr(DenseOperator, f"from_file_{storage}")
             self.op = ctor(filename, pack_cache=self.pack_cache,
@@ -231,6 +247,82 @@ class ConjugateGradient:
         return ShardedDenseOperator.from_file(
             filename, mesh=self.mesh, precision=storage, engine=engine,
             comm=self.comm)
+
+    def generate_matrix(self, rows, cols=None):
+        """Generate mode's dense tridiagonal, built on the device (see the
+        module docstring); times the build as load_s."""
+        if cols is not None and cols != rows:
+            raise ValueError("generated matrix must be square")
+        if self.backend != "local":
+            raise NotImplementedError(
+                "lam-cg-torch: not ported yet: -s with --backend "
+                f"{self.backend} (generate mode on a mesh, ROADMAP Queue 1 "
+                "item 10)")
+        if self.pack_cache:
+            # generate mode has no source file to key a cache on
+            print("lam-cg: --pack-cache only accelerates file-mode "
+                  "loads; ignored in generate mode", file=sys.stderr)
+        t0 = time.perf_counter()
+        self.n = rows
+        self.op = self._generate_operator(rows)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.timings["load_s"] = time.perf_counter() - t0
+        return True
+
+    def _packed_gen_plane(self, rows, impl, padded=False):
+        """One packed triangle plane of the tridiagonal built on the
+        device by `impl` (generate._tridiag_{hi,q1}_packed_impl): (plane,
+        n_p). padded=True walks the Q16_P-padded tables of the fq layout
+        (nblk >= 2), whose inert pad entries leave the pad tiles zero."""
+        tb = layout.SYMM_TB
+        n_p = layout.padded_size(rows, tb)
+        nblk = n_p // tb
+        tables = (layout._symm_tables_padded if padded and nblk >= 2
+                  else layout._symm_tables)
+        it, kt = (torch.as_tensor(x, dtype=torch.long, device=self.device)
+                  for x in tables(nblk))
+        return impl(rows, tb, it, kt, nblk), n_p
+
+    def _generate_operator(self, rows):
+        """The operator of lam_tpu's `_generate_fast` local branches
+        (lam_tpu/solver/api.py:339-418), or its host build."""
+        storage = _BASE.get(self.precision, self.precision)
+        packed = self.engine in ("auto", ENGINE)
+        dev = self.device
+        if storage == "fq" and packed:
+            q1, n_p = self._packed_gen_plane(
+                rows, gen._tridiag_q1_packed_impl, padded=True)
+            return DenseOperator.from_gen_fq(q1, rows, n_p, device=dev)
+        if storage == "f32" and packed:
+            hi, n_p = self._packed_gen_plane(rows,
+                                             gen._tridiag_hi_packed_impl)
+            return DenseOperator.from_packed_f32(hi, rows, n_p, device=dev)
+        if storage == "df64" and packed:
+            hi, n_p = self._packed_gen_plane(rows,
+                                             gen._tridiag_hi_packed_impl)
+            tb = layout.SYMM_TB
+            lo = torch.zeros((tb, tb), dtype=torch.float32, device=dev)
+            return DenseOperator.from_packed_planes(hi, lo, rows, n_p,
+                                                    device=dev)
+        if storage == "df64":
+            n_p = layout.padded_size(rows)
+            hi = gen.tridiagonal_hi_plane_device(rows, n_p, device=dev)
+            lo = torch.zeros_like(hi)  # exact: the entries are f32
+            return DenseOperator.from_df64_planes(hi, lo, rows,
+                                                  engine=self.engine,
+                                                  device=dev)
+        # dfq/irq, and f32 on a full-square engine: the host build
+        return DenseOperator.from_dense(gen.tridiagonal_matrix(rows),
+                                        precision=storage,
+                                        engine=self.engine, device=dev)
+
+    def generate_rhs(self):
+        """Generate mode's right-hand side of ones."""
+        if self.n is None:
+            raise RuntimeError("generate_matrix first")
+        self.rhs = gen.ones_rhs(self.n)
+        return True
 
     def used_devices(self):
         """Devices the backend uses: the CSV procs column (the mesh's

@@ -33,7 +33,16 @@ The full-square engine ('pallas', the only one for a matrix that is not
 symmetric, and what engine='auto' picks for one) stores the whole
 square: 'f32' as one f32 square, matvec by the dense f32 kernel; 'df64'
 as (hi, lo) f32 squares, matvec by the dense df64 kernel, whose
-`as_f32()` is the dense f32 kernel on the hi square.
+`as_f32()` is the dense f32 kernel on the hi square. The full-square
+symmetric engine ('pallas_symm', f32 and df64) stores the same squares
+and reads only their lower-triangle tiles, in place (the square walk of
+the symmetric kernels): half the bytes of a dense matvec, no capacity
+saved.
+
+Generate mode's operators (lam_tpu_torch/solver/api.py) are built on the
+device from packed planes: `from_packed_f32`, `from_packed_planes` with
+the lo plane as one broadcast (tb, tb) zero tile, `from_gen_fq` with q2
+and q3 as one zero tile each, and `from_df64_planes` over squares.
 
 A `MatrixFreeOperator` applies a function instead of a stored matrix
 (the heat demo's 5-point Laplacian, lam_tpu_torch/apps/heat.py), and an
@@ -45,7 +54,9 @@ to the tile grid. Zero padding is exact for CG: padded entries of every
 vector stay 0 and no dot product changes.
 
 Every constructor takes an explicit `device`. Asking for CUDA where
-there is none raises; nothing falls back to the CPU.
+there is none raises; nothing falls back to the CPU. The constructors of
+pre-built buffers take host arrays or tensors; a tensor already on the
+device is used as it is, not copied.
 """
 
 from __future__ import annotations
@@ -62,8 +73,9 @@ from lam_tpu_torch.solver import pack_cache as pc
 
 ENGINE = "pallas_symm_packed"  # lam_tpu's name for the packed layout
 DENSE_ENGINE = "pallas"        # lam_tpu's name for the full-square engine
-ENGINES = ("auto", ENGINE, DENSE_ENGINE)
-UNPORTED_ENGINES = ("pallas_symm", "xla")
+SQUARE_ENGINE = "pallas_symm"  # the full square, lower triangle read
+ENGINES = ("auto", ENGINE, DENSE_ENGINE, SQUARE_ENGINE)
+UNPORTED_ENGINES = ("xla",)
 
 # quantized-storage layouts: storage -> (per-plane dtypes, n_scales).
 # Operand order is (planes..., scales..., dh, dl).
@@ -91,7 +103,22 @@ def vdot(a, b):
 
 
 def _upload(x, dev):
+    """A host array as a new tensor on dev; a tensor moved there (kept as
+    it is when it is there already)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(dev)
     return torch.tensor(np.asarray(x), device=dev)
+
+
+_TORCH_DTYPE = {np.float32: torch.float32, np.int16: torch.int16}
+
+
+def _buffer(x, dtype):
+    """A pre-built buffer of numpy dtype `dtype`: a host array as numpy,
+    a tensor as a tensor of that dtype where it is."""
+    if isinstance(x, torch.Tensor):
+        return x.to(_TORCH_DTYPE[dtype])
+    return np.asarray(x, dtype)
 
 
 def _verifies_symmetric(a, tol=1e-12):
@@ -209,18 +236,21 @@ def _mv_f64_plain(a, p):
     return a @ p
 
 
-def _mv_f32_packed(a, p):
+# the symmetric kernels route by the operand's shape: the packed
+# triangle, the full square (the square walk) or a broadcast lo tile
+
+def _mv_f32_symm(a, p):
     return gemv.gemv_f32_symm(a, p)
 
 
-def _mv_df64_packed(operand, p):
+def _mv_df64_symm(operand, p):
     hi, lo = operand
     ph, pl = split_f64(p)
     yh, yl = gemv.gemv_df64_symm(hi, lo, ph, pl)
     return join_f64(yh, yl)
 
 
-def _mv_f32_of_df64_packed(operand, p):
+def _mv_f32_of_df64_symm(operand, p):
     # the hi plane of a symmetric matrix's df64 pair is symmetric too
     return gemv.gemv_f32_symm(operand[0], p)
 
@@ -271,10 +301,11 @@ def _mv_f32_of_df64_pallas(operand, p):
 # view over each (precision, engine) operand
 _MV_QUANT = {"dfq": _mv_dfq_packed, "fq": _mv_fq_packed}
 _MV_F32_OF = {
-    ("df64", ENGINE): _mv_f32_of_df64_packed,
+    ("df64", ENGINE): _mv_f32_of_df64_symm,
     ("dfq", ENGINE): _mv_f32_of_dfq_packed,
     ("fq", ENGINE): _mv_f32_of_fq_packed,
     ("df64", DENSE_ENGINE): _mv_f32_of_df64_pallas,
+    ("df64", SQUARE_ENGINE): _mv_f32_of_df64_symm,
 }
 
 
@@ -382,8 +413,10 @@ class DenseOperator(LinearOperator):
         'f32'/'df64' store the packed lower triangle (engine
         'pallas_symm_packed', which 'auto' picks after checking that A
         is symmetric) or the full square (engine 'pallas', which 'auto'
-        picks for a matrix that is not symmetric); 'dfq'/'fq' store the
-        packed triangle only; 'f64' is the plain oracle path."""
+        picks for a matrix that is not symmetric; engine 'pallas_symm',
+        for a symmetric one, reads only its lower-triangle tiles); 'dfq'/
+        'fq' store the packed triangle only; 'f64' is the plain oracle
+        path."""
         n = a.shape[0]
         if a.shape != (n, n):
             raise ValueError(f"matrix must be square, got {a.shape}")
@@ -407,9 +440,9 @@ class DenseOperator(LinearOperator):
                                  torch.float64, "f64", "plain", dev)
         if engine == "auto":
             engine = ENGINE if _verifies_symmetric(a) else DENSE_ENGINE
-        elif engine == ENGINE and not _verifies_symmetric(a):
+        elif engine in (ENGINE, SQUARE_ENGINE) and not _verifies_symmetric(a):
             raise ValueError(
-                f"engine={ENGINE!r} requires a symmetric matrix (the "
+                f"engine={engine!r} requires a symmetric matrix (the "
                 "lower-triangle kernel mirrors A's lower half); the "
                 "random-vector check found A v != A^T v; use "
                 f"engine={DENSE_ENGINE!r}")
@@ -418,65 +451,77 @@ class DenseOperator(LinearOperator):
             a_p = np.zeros((pad, pad), dtype=np.float64)
             a_p[:n, :n] = a
             a = a_p
-        if engine == DENSE_ENGINE:
+        if engine in (DENSE_ENGINE, SQUARE_ENGINE):
             if precision == "f32":
-                return DenseOperator(_mv_f32_pallas,
-                                     _upload(a.astype(np.float32), dev), n,
-                                     pad, torch.float32, "f32",
-                                     DENSE_ENGINE, dev)
-            return DenseOperator._square_df64(*split_f64_host(a), n, dev)
+                return DenseOperator(
+                    _mv_f32_pallas if engine == DENSE_ENGINE
+                    else _mv_f32_symm, _upload(a.astype(np.float32), dev),
+                    n, pad, torch.float32, "f32", engine, dev)
+            return DenseOperator._square_df64(*split_f64_host(a), n, dev,
+                                              engine)
         bufs = _host_pack_planes(a, precision, layout.SYMM_TB)
         return DenseOperator._plane_operator(precision, bufs, n, pad, dev)
 
     @staticmethod
-    def _square_df64(hi, lo, n, dev):
-        """Full-square df64 operator over (n_p, n_p) host (hi, lo)
-        planes."""
+    def _square_df64(hi, lo, n, dev, engine=DENSE_ENGINE):
+        """Full-square df64 operator over (n_p, n_p) (hi, lo) planes, host
+        arrays or tensors: the dense kernel ('pallas') or the square walk
+        of the symmetric one ('pallas_symm')."""
         n_p = hi.shape[0]
-        if hi.shape != (n_p, n_p) or lo.shape != (n_p, n_p):
+        if tuple(hi.shape) != (n_p, n_p) or tuple(lo.shape) != (n_p, n_p):
             raise ValueError("planes must be square and equal-shaped")
         operand = (_upload(hi, dev), _upload(lo, dev))
-        return DenseOperator(_mv_df64_pallas, operand, n, n_p,
-                             torch.float64, "df64", DENSE_ENGINE, dev)
+        return DenseOperator(
+            _mv_df64_pallas if engine == DENSE_ENGINE else _mv_df64_symm,
+            operand, n, n_p, torch.float64, "df64", engine, dev)
 
     @staticmethod
     def _plane_operator(precision, bufs, n, n_padded, dev):
-        """DenseOperator over host packed-triangle plane(s)."""
-        layout.packed_geometry(bufs[0].shape, n_padded, "DenseOperator")
+        """DenseOperator over packed-triangle plane(s), host arrays or
+        tensors; a df64 lo plane may be one broadcast (tb, tb) tile."""
+        tb = layout.packed_geometry(bufs[0].shape, n_padded,
+                                    "DenseOperator")[0]
         if precision == "f32":
-            return DenseOperator(_mv_f32_packed, _upload(bufs[0], dev), n,
+            return DenseOperator(_mv_f32_symm, _upload(bufs[0], dev), n,
                                  n_padded, torch.float32, "f32", ENGINE, dev)
-        if bufs[1].shape != bufs[0].shape:
-            raise NotImplementedError(
-                "a broadcast (tb, tb) lo tile is not ported yet; pass a lo "
-                "plane of the hi plane's shape")
+        shape, lo_shape = tuple(bufs[0].shape), tuple(bufs[1].shape)
+        if lo_shape not in (shape, (tb, tb)):
+            raise ValueError(
+                f"lo plane must match the hi plane {shape} or be a single "
+                f"({tb}, {tb}) broadcast tile, got {lo_shape}")
         operand = (_upload(bufs[0], dev), _upload(bufs[1], dev))
-        return DenseOperator(_mv_df64_packed, operand, n, n_padded,
+        return DenseOperator(_mv_df64_symm, operand, n, n_padded,
                              torch.float64, "df64", ENGINE, dev)
 
     @staticmethod
     def _packed_operator(storage, bufs, n, n_padded, dev):
-        """DenseOperator over host quantized packed-triangle buffers in
-        operand order (`_host_pack_tri`, `pack_cache.load`)."""
+        """DenseOperator over quantized packed-triangle buffers in operand
+        order (`_host_pack_tri`, `pack_cache.load`, `from_gen_fq`), host
+        arrays or tensors; the fq q2 and q3 planes may each be one
+        broadcast (tb, tb) tile."""
         if storage not in QUANT_LAYOUT:
             raise ValueError(f"not a quantized storage: {storage!r}")
         n_planes = len(QUANT_LAYOUT[storage][0])
         planes, scales = bufs[:n_planes], bufs[n_planes:-2]
-        _, _, T = layout.packed_geometry(planes[0].shape, n_padded,
-                                         "DenseOperator",
-                                         padded=storage == "fq")
-        for plane in planes[1:]:
-            if plane.shape == planes[0].shape:
+        tb, _, T = layout.packed_geometry(planes[0].shape, n_padded,
+                                          "DenseOperator",
+                                          padded=storage == "fq")
+        shape = tuple(planes[0].shape)
+        for name, plane in zip(("q2", "q3"), planes[1:]):
+            if tuple(plane.shape) == shape:
                 continue
             if storage == "fq":
-                raise NotImplementedError(
-                    "broadcast (tb, tb) q2/q3 tiles are not ported yet; "
-                    "pass planes of the q1 plane's shape")
-            raise ValueError(f"quantized lo plane shape {plane.shape} != "
-                             f"hi plane {planes[0].shape}")
+                if tuple(plane.shape) == (tb, tb):
+                    continue
+                raise ValueError(f"{name} plane shape {tuple(plane.shape)} "
+                                 f"!= q1 plane {shape} (or one broadcast "
+                                 f"({tb}, {tb}) tile)")
+            raise ValueError(f"quantized lo plane shape "
+                             f"{tuple(plane.shape)} != hi plane {shape}")
         for sc in scales:
-            if sc.shape != (T,):
-                raise ValueError(f"scale table shape {sc.shape} != ({T},)")
+            if tuple(sc.shape) != (T,):
+                raise ValueError(f"scale table shape {tuple(sc.shape)} != "
+                                 f"({T},)")
         operand = tuple(_upload(b, dev) for b in bufs)
         return DenseOperator(_MV_QUANT[storage], operand, n, n_padded,
                              torch.float64, storage, ENGINE, dev)
@@ -595,30 +640,75 @@ class DenseOperator(LinearOperator):
                                                pack_cache, device)
 
     @staticmethod
+    def from_packed_f32(a_packed, n, n_padded, device="cuda"):
+        """f32 operator from a pre-packed walk-order (T*tb, tb) triangle
+        plane (lam_tpu/solver/operators.py:1174): generate mode's f32
+        operator, whose entries {0, 1, 2} are exact in f32, so the hi
+        plane is the matrix."""
+        return DenseOperator._plane_operator(
+            "f32", (_buffer(a_packed, np.float32),), n, n_padded,
+            resolve_device(device))
+
+    @staticmethod
+    def from_gen_fq(q1, n, n_padded, diag_value=2.0, device="cuda"):
+        """fq operator from a pre-packed walk-order int16 q1 plane whose
+        quantization is exact (generate mode's tridiagonal: entries {0, 1}
+        against TRIDIAG_Q1_SCALE, the diagonal extracted;
+        generate._tridiag_q1_packed_impl), as lam_tpu's
+        (lam_tpu/solver/operators.py:1186): q2 and q3 are exactly zero and
+        stored as ONE broadcast (tb, tb) zero tile each, so the storage is
+        2 B per element; s1 is TRIDIAG_Q1_SCALE, s2 and s3 zero; the
+        diagonal rides as the exact pair dh = diag_value on the first n
+        entries, dl = 0."""
+        from lam_tpu_torch.generate import TRIDIAG_Q1_SCALE
+        tb = layout.SYMM_TB
+        T = q1.shape[0] // tb
+        dv = np.float32(diag_value)
+        if float(dv) != float(diag_value):
+            raise ValueError(f"diag_value {diag_value} is not exact "
+                             "in f32 (the gen pair carries dl == 0)")
+        dev = resolve_device(device)
+        dh = torch.zeros((n_padded,), dtype=torch.float32, device=dev)
+        dh[:n] = float(dv)
+        zero_tile = torch.zeros((tb, tb), dtype=torch.int16, device=dev)
+        zero_sc = torch.zeros((T,), dtype=torch.float32, device=dev)
+        s1 = torch.full((T,), TRIDIAG_Q1_SCALE, dtype=torch.float32,
+                        device=dev)
+        bufs = (_buffer(q1, np.int16), zero_tile, zero_tile, s1, zero_sc,
+                zero_sc, dh, torch.zeros_like(dh))
+        return DenseOperator._packed_operator("fq", bufs, n, n_padded, dev)
+
+    @staticmethod
     def from_packed_planes(hi, lo, n, n_padded, device="cuda"):
-        """df64 operator from pre-packed walk-order (T*tb, tb) planes
-        given as host arrays, e.g. `np.asarray` of a lam_tpu operator's
-        `operand`: the state carried across from the JAX package. The
+        """df64 operator from pre-packed walk-order (T*tb, tb) planes,
+        host arrays (e.g. `np.asarray` of a lam_tpu operator's `operand`:
+        the state carried across from the JAX package) or tensors. `lo`
+        may be one (tb, tb) broadcast tile: generate mode's zero lo plane
+        of a matrix whose entries are exact in f32, a quarter of the
+        full-square pair's memory (lam_tpu/solver/operators.py:1219). The
         caller asserts the planes represent a symmetric f64 matrix."""
-        bufs = (np.asarray(hi, np.float32), np.asarray(lo, np.float32))
+        bufs = (_buffer(hi, np.float32), _buffer(lo, np.float32))
         return DenseOperator._plane_operator("df64", bufs, n, n_padded,
                                              resolve_device(device))
 
     @staticmethod
     def from_df64_planes(hi, lo, n, engine=DENSE_ENGINE, device="cuda"):
         """Full-square df64 operator from pre-split, pre-padded (n_p, n_p)
-        f32 planes given as host arrays, e.g. `np.asarray` of a lam_tpu
-        engine='pallas' operator's `operand`: the state carried across
-        from the JAX package. The caller asserts they represent the
-        intended f64 matrix."""
-        if engine != DENSE_ENGINE:
+        f32 planes, host arrays (e.g. `np.asarray` of a lam_tpu engine=
+        'pallas' or 'pallas_symm' operator's `operand`: the state carried
+        across from the JAX package) or tensors (generate mode's planes):
+        engine 'pallas' (the dense kernel) or 'pallas_symm' (the square
+        walk of the symmetric kernel). The caller asserts they represent
+        the intended f64 matrix and, for 'pallas_symm', that it is
+        symmetric."""
+        if engine not in (DENSE_ENGINE, SQUARE_ENGINE):
             check_engine(engine)
-            raise NotImplementedError(
-                f"from_df64_planes(engine={engine!r}) is not ported yet "
-                f"(only {DENSE_ENGINE!r})")
-        return DenseOperator._square_df64(np.asarray(hi, np.float32),
-                                          np.asarray(lo, np.float32), n,
-                                          resolve_device(device))
+            raise ValueError(f"from_df64_planes takes engine "
+                             f"{DENSE_ENGINE!r} or {SQUARE_ENGINE!r}, got "
+                             f"{engine!r}")
+        return DenseOperator._square_df64(
+            _buffer(hi, np.float32), _buffer(lo, np.float32), n,
+            resolve_device(device), engine)
 
     @staticmethod
     def from_dfq_planes(hi, loq, sc, dh, dl, n, n_padded, device="cuda"):
@@ -627,7 +717,7 @@ class DenseOperator(LinearOperator):
         operator's `operand`: the state carried across from the JAX
         package. The caller asserts they represent a symmetric matrix."""
         dtypes = (np.float32, np.int16, np.float32, np.float32, np.float32)
-        bufs = tuple(np.asarray(b, dt) for b, dt in
+        bufs = tuple(_buffer(b, dt) for b, dt in
                      zip((hi, loq, sc, dh, dl), dtypes))
         return DenseOperator._packed_operator("dfq", bufs, n, n_padded,
                                               resolve_device(device))
@@ -638,9 +728,11 @@ class DenseOperator(LinearOperator):
         """fq operator from pre-packed buffers given as host arrays in
         operand order, e.g. `np.asarray` of each entry of a lam_tpu fq
         operator's `operand`: the state carried across from the JAX
-        package. The caller asserts they represent a symmetric matrix."""
+        package. q2 and q3 may each be one broadcast (tb, tb) tile (a
+        lam_tpu `from_gen_fq` operator). The caller asserts they represent
+        a symmetric matrix."""
         dtypes = (np.int16,) * 3 + (np.float32,) * 5
-        bufs = tuple(np.asarray(b, dt) for b, dt in
+        bufs = tuple(_buffer(b, dt) for b, dt in
                      zip((q1, q2, q3, s1, s2, s3, dh, dl), dtypes))
         return DenseOperator._packed_operator("fq", bufs, n, n_padded,
                                               resolve_device(device))
@@ -651,7 +743,7 @@ class DenseOperator(LinearOperator):
         a full-square df64 operator, f32 for a full-square f32 one."""
         if self.precision in QUANT_LAYOUT:
             return join_f64(self.operand[-2], self.operand[-1])
-        if self.engine == DENSE_ENGINE:
+        if self.engine in (DENSE_ENGINE, SQUARE_ENGINE):
             if self.precision == "f32":
                 return torch.diagonal(self.operand)
             return join_f64(*(torch.diagonal(x) for x in self.operand))

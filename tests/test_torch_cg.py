@@ -241,15 +241,23 @@ def test_unported_options_raise(system):
                           precision="f32", device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         ConjugateGradient(backend="auto", device="cpu")
-    for engine in ("pallas_symm", "xla"):
-        with pytest.raises(NotImplementedError, match=engine):
-            ConjugateGradient(engine=engine, device="cpu")
-        with pytest.raises(NotImplementedError, match=engine):
-            DenseOperator.from_dense(system[0], engine=engine, device="cpu")
-        with pytest.raises(NotImplementedError, match=engine):
-            tcli.main(["--engine", engine, "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="-s"):
-        tcli.main(["-s", "100", "--device", "cpu"])
+    engine = "xla"
+    with pytest.raises(NotImplementedError, match=engine):
+        ConjugateGradient(engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError, match=engine):
+        DenseOperator.from_dense(system[0], engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError, match=engine):
+        tcli.main(["--engine", engine, "--device", "cpu"])
+    # the full-square symmetric engine and generate mode now route on one
+    # device (tests/test_torch_gen.py holds them against lam_tpu)
+    assert ConjugateGradient(engine="pallas_symm",
+                             device="cpu").engine == "pallas_symm"
+    op = DenseOperator.from_dense(system[0], engine="pallas_symm",
+                                  device="cpu")
+    assert op.engine == "pallas_symm" and op.operand[0].shape == (1024, 1024)
+    fields = _run(tcli.main, ["-s", "100", "--device", "cpu", "-i", "15",
+                              "-o", os.devnull])
+    assert fields[0] == "100" and fields[6] == "16"
 
 
 def test_cuda_request_raises_without_fallback(system):

@@ -1663,3 +1663,191 @@ def test_q16_probe_tool_on_the_card(capsys):
                if not k.endswith("_plain") and k not in controls)
     assert not any(v for k, v in probe.counters().items()
                    if k.endswith("_plain"))
+
+
+# -- the square walk and the broadcast tiles (kernels 1, 2 and 15) ---------
+
+# (n, padded n): one tile (the square is its own packed buffer), a count
+# of tiles that is not a multiple of PAD_MULTIPLE's, the bench size
+MODE_SIZES = [(500, 512), (1500, 1536), (10000, 10240)]
+
+
+def _no_plain_ran():
+    return not any(v for k, v in gemv.counters().items()
+                   if k.endswith("_plain"))
+
+
+@pytest.mark.parametrize("n,n_p", MODE_SIZES)
+def test_square_walks_give_the_packed_bits(n, n_p):
+    a, (hi, lo), ph, pl = _system(n, n_p, seed=n + 40)
+    sq_hi, sq_lo = (torch.from_numpy(x).cuda() for x in split_f64_host(a))
+    gemv.reset_counters()
+    y = gemv.gemv_f32_symm(sq_hi, ph)
+    yh, yl = gemv.gemv_df64_symm(sq_hi, sq_lo, ph, pl)
+    torch.cuda.synchronize()
+    walk = "gemv_f32_symm" if n_p == 512 else "gemv_f32_symm_square"
+    assert gemv.counters()[walk] == 1 and _no_plain_ran()
+    # the same tiles summed in the same order: the packed kernel's bits
+    assert torch.equal(y, gemv.gemv_f32_symm(hi, ph))
+    ph2, pl2 = gemv.gemv_df64_symm(hi, lo, ph, pl)
+    assert torch.equal(yh, ph2) and torch.equal(yl, pl2)
+    y_plain = gemv.gemv_f32_symm_square_plain(sq_hi, ph)
+    oracle = torch.mv(sq_hi.double(), ph.double())
+    assert _rel(y, y_plain) <= 1e-5 and _rel(y.double(), oracle) <= 1e-5
+    p = ph.double() + pl.double()
+    oracle = torch.mv(torch.from_numpy(a).cuda(), p)
+    assert _rel(yh.double() + yl.double(), oracle) <= 1e-13
+    qh, ql = gemv.gemv_df64_symm_square_plain(sq_hi, sq_lo, ph, pl)
+    assert _rel(qh.double() + ql.double(), oracle) <= 1e-13
+    assert torch.count_nonzero(y[n:]) == 0
+    # fixed-order reduction: bitwise repeatable
+    assert torch.equal(y, gemv.gemv_f32_symm_square(sq_hi, ph)
+                       if n_p > 512 else gemv.gemv_f32_symm(sq_hi, ph))
+    if n_p > 512:
+        yh2, yl2 = gemv.gemv_df64_symm_square(sq_hi, sq_lo, ph, pl)
+        assert torch.equal(yh, yh2) and torch.equal(yl, yl2)
+
+
+def test_square_walk_past_2_31_elements():
+    """n = 47104: n^2 = 2.2e9 elements, so the tiles of the last row
+    tiles sit past 2^31 elements of the square (size_t offsets). Bits
+    equal to the packed walk over the same tiles, and the last row tile
+    against an f64 oracle of its rows."""
+    n = 92 * 512
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand(n, device="cuda", generator=gen) - 0.5
+    sq = torch.outer(x, x).cos_()  # symmetric by construction
+    p = torch.rand(n, device="cuda", generator=gen) - 0.5
+    tiles, _ = gemv._square_tiles(sq, n)
+    packed = tiles.reshape(-1, 512)
+    del tiles
+    y = gemv.gemv_f32_symm(sq, p)
+    assert torch.equal(y, gemv.gemv_f32_symm(packed, p))
+    tail = slice(n - 512, n)
+    oracle = torch.mv(sq[tail].double(), p.double())
+    assert _rel(y[tail].double(), oracle) <= 1e-5
+    lo = (sq * 2.0 ** -30).contiguous()
+    zero = torch.zeros_like(p)
+    yh, yl = gemv.gemv_df64_symm(sq, lo, p, zero)
+    lo_packed = gemv._square_tiles(lo, n)[0].reshape(-1, 512)
+    ph, pl = gemv.gemv_df64_symm(packed, lo_packed, p, zero)
+    assert torch.equal(yh, ph) and torch.equal(yl, pl)
+    del lo_packed
+    oracle = torch.mv(sq[tail].double() + lo[tail].double(), p.double())
+    assert _rel(yh[tail].double() + yl[tail].double(), oracle) <= 1e-13
+
+
+@pytest.mark.parametrize("n,n_p", MODE_SIZES[1:])
+def test_df64_broadcast_lo_tile(n, n_p):
+    a, (hi, lo), ph, pl = _system(n, n_p, seed=n + 41)
+    nblk = n_p // 512
+    T = layout.tri_tile_count(nblk)
+    zero = torch.zeros(512, 512, device="cuda")
+    gemv.reset_counters()
+    yh, yl = gemv.gemv_df64_symm(hi, zero, ph, pl)
+    torch.cuda.synchronize()
+    assert gemv.counters()["gemv_df64_symm_bcast"] == 1 and _no_plain_ran()
+    # a zero tile: the full-plane kernel's bits over a zero plane
+    zh, zl = gemv.gemv_df64_symm(hi, torch.zeros_like(hi), ph, pl)
+    assert torch.equal(yh, zh) and torch.equal(yl, zl)
+    # any tile, added to every stored tile
+    tile = lo[:512].clone() * 3.0
+    yh, yl = gemv.gemv_df64_symm_bcast(hi, tile, ph, pl)
+    tiles = (hi.double().reshape(T, 512, 512) + tile.double()[None])
+    p = ph.double() + pl.double()
+    oracle = torch.mv(_dense_of(tiles, nblk), p)
+    assert _rel(yh.double() + yl.double(), oracle) <= 1e-13
+    qh, ql = gemv.gemv_df64_symm_bcast_plain(hi, tile, ph, pl)
+    assert _rel(qh.double() + ql.double(), oracle) <= 1e-13
+    yh2, yl2 = gemv.gemv_df64_symm_bcast(hi, tile, ph, pl)
+    assert torch.equal(yh, yh2) and torch.equal(yl, yl2)
+
+
+@pytest.mark.parametrize("n,n_p", MODE_SIZES[1:])
+def test_fq_broadcast_tiles(n, n_p):
+    bufs, _, p = _fq_system(n, n_p, seed=n + 42)
+    nblk = n_p // 512
+    T = layout.tri_tile_count(nblk)
+    q1, q2, q3, s1, s2, s3 = bufs[:6]
+    ph, pl = (torch.from_numpy(x).cuda() for x in split_f64_host(p))
+    zt = torch.zeros(512, 512, dtype=torch.int16, device="cuda")
+    gemv.reset_counters()
+    yh, yl = gemv.gemv_fq_symm(q1, zt, zt, s1, s2, s3, ph, pl)
+    torch.cuda.synchronize()
+    assert gemv.counters()["gemv_fq_symm_bcast"] == 1 and _no_plain_ran()
+    zp = torch.zeros_like(q1)
+    zh, zl = gemv.gemv_fq_symm(q1, zp, zp, s1, s2, s3, ph, pl)
+    assert torch.equal(yh, zh) and torch.equal(yl, zl)
+    pp = ph.double() + pl.double()
+    # non-zero tiles, and one tile beside a full plane
+    for t2, t3 in ((q2[512:1024].clone(), q3[:512].clone()),
+                   (q2[:512].clone(), q3)):
+        yh, yl = gemv.gemv_fq_symm_bcast(q1, t2, t3, s1, s2, s3, ph, pl)
+        tiles = sum(q.double().reshape(-1, 512, 512)[:T]
+                    * s[:T].double()[:, None, None]
+                    for q, s in ((q1, s1), (t2, s2), (t3, s3)))
+        oracle = torch.mv(_dense_of(tiles, nblk), pp)
+        assert _rel(yh.double() + yl.double(), oracle) <= 1e-13
+        qh, ql = gemv.gemv_fq_symm_bcast_plain(q1, t2, t3, s1, s2, s3, ph,
+                                                pl)
+        assert _rel(qh.double() + ql.double(), oracle) <= 1e-13
+        yh2, yl2 = gemv.gemv_fq_symm_bcast(q1, t2, t3, s1, s2, s3, ph, pl)
+        assert torch.equal(yh, yh2) and torch.equal(yl, yl2)
+
+
+def test_mode_wrappers_refuse_and_have_no_fallback(monkeypatch):
+    _, (hi, _), ph, pl = _system(1500, 1536, seed=43)
+    sq = torch.zeros(1536, 1536, device="cuda")
+    with pytest.raises(ValueError, match="packed hi plane only"):
+        gemv.gemv_df64_symm(sq, torch.zeros(512, 512, device="cuda"), ph, pl)
+    with pytest.raises(ValueError, match="tb=512"):  # 768 fits 256 tiles
+        gemv.gemv_f32_symm(torch.zeros(768, 768, device="cuda"),
+                           torch.zeros(768, device="cuda"))
+    with pytest.raises(ValueError, match="broadcast"):
+        gemv.gemv_df64_symm(hi, torch.zeros(256, 512, device="cuda"), ph, pl)
+    from lam_tpu_torch.ops import _build
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(_build, "library", broken)
+    gemv.reset_counters()
+    for call in (lambda: gemv.gemv_f32_symm_square(sq, ph),
+                 lambda: gemv.gemv_df64_symm_bcast(
+                     hi, torch.zeros(512, 512, device="cuda"), ph, pl)):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    assert _no_plain_ran()
+
+
+GEN_RUNS = [("df64", "auto", "gemv_df64_symm_bcast"),
+            ("ir", "auto", "gemv_df64_symm_bcast"),
+            ("f32", "auto", "gemv_f32_symm"),
+            ("fq", "auto", "gemv_fq_symm_bcast"),
+            ("irfq", "auto", "gemv_fq_symm_bcast"),
+            ("dfq", "auto", "gemv_dfq_symm"),
+            ("df64", "pallas_symm", "gemv_df64_symm_square"),
+            ("ir", "pallas_symm", "gemv_f32_symm_square"),
+            ("df64", "pallas", "gemv_df64")]
+
+
+@pytest.mark.parametrize("precision,engine,kernel", GEN_RUNS)
+def test_generate_mode_solves_on_the_card(precision, engine, kernel):
+    """Generate mode at n=3000 (padded to 3072): the device-built
+    operator's solve to a TRUE 2e-9 on the host (the O(n) tridiagonal
+    matvec; f32: 1e-5, the f32 rounding of x), through its kernel and no
+    plain version."""
+    from lam_tpu_torch.solver.api import ConjugateGradient
+    n = 3000
+    cg = ConjugateGradient(precision=precision, engine=engine,
+                           device="cuda")
+    cg.generate_matrix(n)
+    cg.generate_rhs()
+    gemv.reset_counters()
+    assert cg.solve(max_iters=10000, rel_error=1e-9)
+    assert gemv.counters()[kernel] > 0 and _no_plain_ran()
+    x = cg.x
+    ax = 2 * x
+    ax[1:] += x[:-1]
+    ax[:-1] += x[1:]
+    gate = 1e-5 if precision == "f32" else 2e-9
+    assert np.linalg.norm(1 - ax) / np.sqrt(n) <= gate

@@ -209,8 +209,18 @@ def test_from_df64_planes_carries_lam_tpu_operand(system, op):
     yj = np.asarray(jop.matvec(jnp.asarray(p.numpy())))
     assert _rel(y, yj) <= 1e-6  # XLA:CPU's compensation, as above
     assert _rel(y[:N], a @ p.numpy()[:N]) <= 1e-13
-    with pytest.raises(NotImplementedError, match="pallas_symm"):
-        DenseOperator.from_df64_planes(hi, lo, N, engine="pallas_symm",
+    # the full-square symmetric engine on the same planes: the square
+    # walk reads their lower-triangle tiles (lam_tpu's engine='pallas_symm')
+    symm = DenseOperator.from_df64_planes(hi, lo, N, engine="pallas_symm",
+                                          device="cpu")
+    assert symm.engine == "pallas_symm"
+    for mine, theirs in zip(symm.operand, op.operand):
+        assert torch.equal(mine, theirs)
+    gemv.reset_counters()
+    assert _rel(symm.matvec(p).numpy()[:N], a @ p.numpy()[:N]) <= 1e-13
+    assert gemv.counters()["gemv_df64_symm_square_plain"] == 1
+    with pytest.raises(ValueError, match="takes engine"):
+        DenseOperator.from_df64_planes(hi, lo, N, engine="pallas_symm_packed",
                                        device="cpu")
     with pytest.raises(ValueError, match="square"):
         DenseOperator.from_df64_planes(hi[:512], lo[:512], N, device="cpu")
@@ -295,11 +305,18 @@ def test_engine_options_that_raise(tmp_path, system):
         with pytest.raises(ValueError, match="packed"):
             ConjugateGradient(precision=precision, engine="pallas",
                               device="cpu")
-    for engine in ("pallas_symm", "xla"):
-        with pytest.raises(NotImplementedError, match=engine):
-            ConjugateGradient(engine=engine, device="cpu")
-        with pytest.raises(NotImplementedError, match=engine):
-            DenseOperator.from_dense(system[0], engine=engine, device="cpu")
+    for precision in ("dfq", "irq", "fq", "irfq"):  # the square walk too
+        with pytest.raises(ValueError, match="packed"):
+            ConjugateGradient(precision=precision, engine="pallas_symm",
+                              device="cpu")
+    engine = "xla"
+    with pytest.raises(NotImplementedError, match=engine):
+        ConjugateGradient(engine=engine, device="cpu")
+    with pytest.raises(NotImplementedError, match=engine):
+        DenseOperator.from_dense(system[0], engine=engine, device="cpu")
+    with pytest.raises(ValueError, match="requires a symmetric matrix"):
+        DenseOperator.from_dense(_nonsymmetric(300, 3), engine="pallas_symm",
+                                 device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         ConjugateGradient(engine="mosaic", device="cpu")
     assert tcli.main(["--precision", "irq", "--engine", "pallas",

@@ -246,16 +246,25 @@ def test_tile_count_and_broadcast_checks():
         gemv.gemv_q16_symm(q[0], q[3][:3].contiguous(), pt)
     with pytest.raises(ValueError, match="s3 table shape"):
         gemv.gemv_fq_symm(*q[:5], q[5][:3].contiguous(), pt, pt)
-    with pytest.raises(NotImplementedError, match="broadcast"):
-        gemv.gemv_fq_symm(q[0], q[1][:TB].contiguous(), q[2], *q[3:6], pt, pt)
+    # a (tb, tb) q2 is the broadcast mode; any other shape is refused with
+    # lam_tpu's message (lam_tpu/ops/gemv.py:2185-2188)
+    gemv.reset_counters()
+    gemv.gemv_fq_symm(q[0], q[1][:TB].contiguous(), q[2], *q[3:6], pt, pt)
+    assert gemv.counters()["gemv_fq_symm_bcast_plain"] == 1
+    with pytest.raises(ValueError, match="or one broadcast"):
+        gemv.gemv_fq_symm(q[0], q[1][:2 * TB].contiguous(), q[2], *q[3:6],
+                          pt, pt)
     with pytest.raises(ValueError, match="int16"):
         gemv.gemv_q16_symm(q[0].float(), q[3], pt)
     # the f32/df64 planes keep the exact-count check
     with pytest.raises(ValueError, match="needs 3$"):
         gemv.gemv_f32_symm(torch.zeros(8 * TB, TB), pt)
-    with pytest.raises(NotImplementedError, match="broadcast"):
+    carried = tops.DenseOperator.from_fq_planes(
+        bufs[0], bufs[1][:TB], *bufs[2:], 1000, 1024, device="cpu")
+    assert tuple(carried.operand[1].shape) == (TB, TB)
+    with pytest.raises(ValueError, match="or one broadcast"):
         tops.DenseOperator.from_fq_planes(
-            bufs[0], bufs[1][:TB], *bufs[2:], 1000, 1024, device="cpu")
+            bufs[0], bufs[1][:2 * TB], *bufs[2:], 1000, 1024, device="cpu")
 
 
 # -- the fq operator --------------------------------------------------------

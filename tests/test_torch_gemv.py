@@ -103,8 +103,13 @@ def test_wrappers_validate_inputs():
         gemv.gemv_f32_symm(h, torch.from_numpy(np.repeat(ph, 2))[::2])
     with pytest.raises(ValueError, match="comp"):
         gemv.gemv_df64_symm(h, l_, p, q, comp="defer")
-    with pytest.raises(NotImplementedError, match="broadcast"):
-        gemv.gemv_df64_symm(h, l_[:TB], p, q)
+    # a (tb, tb) lo tile is the broadcast mode; any other shape is refused
+    # with lam_tpu's message (lam_tpu/ops/gemv.py:1001-1004)
+    gemv.reset_counters()
+    gemv.gemv_df64_symm(h, l_[:TB], p, q)
+    assert gemv.counters()["gemv_df64_symm_bcast_plain"] == 1
+    with pytest.raises(ValueError, match="single .* broadcast tile"):
+        gemv.gemv_df64_symm(h, l_[:2 * TB], p, q)
     with pytest.raises(ValueError, match="device"):
         gemv.gemv_f32_symm(h.to("meta"), p.to("meta"))
 
