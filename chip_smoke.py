@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the thirty-five kernels (the solver's twenty-seven and
+2. Holds each of the thirty-nine kernels (the solver's thirty-one and
    the eight q16 probes) against its plain PyTorch
    version at the main path's shapes. The eight one-device kernels at N=10000 padded
    to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
@@ -46,8 +46,9 @@
      dense_rows beside, printing the spread of the kernel/library ratio;
      kernels 5 and 6 also at rank 0's column block of G=4 (printed only;
      kernel 6 over three copies in turn);
-   - kernels 16, 18, 18-bf16 and 19 (gemv_q16_symm_slab, gemv_q16_dual,
-     gemv_q16_dual_bf16, gemv_fq_dual) run the strip walk of
+   - kernels 16, 18, 18-bf16, 19 and 19-bcast (gemv_q16_symm_slab,
+     gemv_q16_dual, gemv_q16_dual_bf16, gemv_fq_dual, gemv_fq_dual_bcast)
+     run the strip walk of
      csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
      controls, the two-pass walks gemv_q16_symm_slab_twopass,
      gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass and
@@ -143,6 +144,15 @@
    exact on the probes' tridiagonal plane; each timed beside its plain
    version (and, for the streams, torch.sum with an int64 or f64
    accumulator).
+   The broadcast modes of kernels 9, 17 (rank 0 of G=2, 105 tiles) and
+   12, 19 (rank (1, 0)'s (2560, 5120) half-slab), generate mode's one
+   512 x 512 tile for lo or for q2 and q3 on the meshes: zero tiles equal
+   bit for bit to the full-plane kernel over zero planes, non-zero tiles
+   (and a tile beside a full plane) against the plain version and the f64
+   oracle of the stored values (1e-13), bitwise repeats; timed on zero
+   tiles, the q1 planes and the half-slab's hi over three copies in turn,
+   in turns with the full-plane kernel and the f32 or q16 walk of the same
+   plane.
 3. Writes the benchmark system (random_spd_matrix_fast(10000,
    seed=2024), random_rhs(10000, seed=2034)) in the binary format to a
    temporary directory and solves it through the port's CLI, in
@@ -252,9 +262,30 @@
    the host's TRUE residual of its x within 1e-6; load_s (the device
    build) and avg_gemv_s printed beside the plane's byte bound; the
    phase's seconds.
+9. Generate mode on the meshes. First the four broadcast modes on the
+   N=4000 operands that the gen builders make on the card (rank 0 of
+   G=2's band walk, rank (1, 0)'s half-slab of R=2): zero tiles equal to
+   the full-plane kernels over zero planes bit for bit, the operands and
+   non-zero tiles against the plain versions and the f64 oracle at 1e-13,
+   bitwise repeats. Then G rank processes of this script on the
+   one card over gloo, as in phase 5, through the port's CLI. At N=4000
+   (-e 1e-9; padded to 4096, so the walks meet the within-rank and
+   cross-block corners) MESH_GEN_RUNS: ring-ir, slab-ir, packed-df64,
+   packed-ir and packed-irfq at G=2 (kernels 5/6; 8/9; 9's broadcast
+   mode; 8 and 9's; 16 and 17's), grid-ir-4 (3, 4) and, on the symmetric
+   grid, symgrid-df64-4, symgrid-ir-4 and symgrid-irfq-4 (diagonal ranks
+   1 and 2's broadcast mode or 14 and 15's, off-diagonal ranks 11 and
+   12's or 18 and 19's); each converged with a TRUE residual <= 2e-9 on
+   the host, procs = G, every rank's kernels launched and no other, no
+   plain version, df64's count within 1% of a host f64 CG's. Then, one at
+   a time after their cluster's runs, the N=150000 probes (-i 15):
+   packed-df64 and packed-irfq at G=2, symgrid-df64-4 and symgrid-irfq-4,
+   held as phase 8's probes; load_s, avg_gemv_s and the ranks' plane bytes
+   beside their bound, the q16 engine of each rank; the phase's seconds.
 
 Prints {"kernels": [...]} on the line before the last (each solver
-kernel's launches summed over the runs of phases 3-6 and 8, every rank's;
+kernel's launches summed over the runs of phases 3-6, 8 and 9, every
+rank's;
 each probe's over phase 7) and, as the last
 line, {"ok": true, "device": {...}}. Any failure raises: exit code != 0 and
 no result line. Without a CUDA device it exits 1 at once.
@@ -484,6 +515,61 @@ GEN_PROBES = (
 )
 
 
+# phase 9, generate mode on the meshes: N=4000 pads to 4096, two tiles a
+# band at G=2 and c = 4 tiles a block side at R=2, so the walks meet the
+# within-rank and the cross-block corners
+GEN_MESH_N = 4000
+_GEN_SYMGRID = _SYMGRID + ["--engine", "pallas_symm_packed"]
+# (run, ranks, CLI flags, kernels it must launch, kernels it must not
+# launch); a symmetric-grid run gives (the diagonal ranks' kernels, the
+# off-diagonal ranks'), and every other kernel stays at 0 on every rank
+MESH_GEN_RUNS = (
+    ("gen-ring-ir", 2, ["--precision", "ir", "--comm", "ring"], _RING,
+     ("gemv_f32", "gemv_df64")),
+    ("gen-slab-ir", 2, ["--precision", "ir", "--engine", "pallas_symm"],
+     _SLAB, ("gemv_df64_symm_slab_bcast",) + _TRI),
+    ("gen-packed-df64", 2, ["--precision", "df64", "--engine",
+                            "pallas_symm_packed"],
+     ("gemv_df64_symm_slab_bcast",), ("gemv_df64_symm_slab",)),
+    ("gen-packed-ir", 2, ["--precision", "ir", "--engine",
+                          "pallas_symm_packed"],
+     ("gemv_f32_symm_slab", "gemv_df64_symm_slab_bcast"),
+     ("gemv_df64_symm_slab",)),
+    ("gen-packed-irfq", 2, ["--precision", "irfq"],
+     ("gemv_q16_symm_slab", "gemv_fq_symm_slab_bcast"),
+     ("gemv_fq_symm_slab",) + _BF16),
+    ("gen-grid-ir-4", 4, _SYMGRID + ["--precision", "ir"],
+     ("gemv_f32", "gemv_df64"), _RING + _SLAB + _TRI),
+    ("gen-symgrid-df64-4", 4, _GEN_SYMGRID + ["--precision", "df64"],
+     (("gemv_df64_symm_bcast",), ("gemv_df64_dual_bcast",)), ()),
+    ("gen-symgrid-ir-4", 4, _GEN_SYMGRID + ["--precision", "ir"],
+     (("gemv_f32_symm", "gemv_df64_symm_bcast"),
+      ("gemv_f32_dual", "gemv_df64_dual_bcast")), ()),
+    ("gen-symgrid-irfq-4", 4, _SYMGRID + ["--precision", "irfq"],
+     (("gemv_q16_symm", "gemv_fq_symm_bcast"),
+      ("gemv_q16_dual", "gemv_fq_dual_bcast")), ()))
+# the N=150000 probes, after their cluster's converged runs, one at a time:
+# (run, ranks, CLI flags, kernels it must launch: every rank's, or the
+# diagonal ranks' and the off-diagonal ranks'). Under `auto` the q16 walks
+# take lam_tpu's engine: bf16 at n >= 16384, except on the diagonal ranks'
+# exact-count triangles (11026 tiles, not a multiple of 8)
+MESH_GEN_PROBES = (
+    ("gen-packed-df64-150k", 2, ["--precision", "df64", "--engine",
+                                 "pallas_symm_packed"],
+     ("gemv_df64_symm_slab_bcast",)),
+    ("gen-packed-irfq-150k", 2, ["--precision", "irfq"],
+     ("gemv_q16_symm_slab_bf16", "gemv_fq_symm_slab_bcast")),
+    ("gen-symgrid-df64-4-150k", 4, _GEN_SYMGRID + ["--precision", "df64"],
+     (("gemv_df64_symm_bcast",), ("gemv_df64_dual_bcast",))),
+    ("gen-symgrid-irfq-4-150k", 4, _SYMGRID + ["--precision", "irfq"],
+     (("gemv_q16_symm", "gemv_fq_symm_bcast"),
+      ("gemv_q16_dual_bf16", "gemv_fq_dual_bcast"))))
+# the q16 walks' kernels, by engine: which one each rank ran
+_Q16_WALKS = ("gemv_q16_symm", "gemv_q16_symm_bf16", "gemv_q16_symm_slab",
+              "gemv_q16_symm_slab_bf16", "gemv_q16_dual",
+              "gemv_q16_dual_bf16")
+
+
 def _rel(y, ref):
     return float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
 
@@ -591,7 +677,8 @@ TWOPASS_CONTROLS = {"kernel 16's": ("8Q16Plane", "TableWalk"),
 # the strip walk's instantiations (planes, walk) -> their kernel
 STRIP_WALKS = {("StripPlanesILi1E", "TableWalk"): "kernel 16",
                ("StripPlanesILi1E", "RectWalk"): "kernel 18",
-               ("StripPlanesILi3E", "RectWalk"): "kernel 19"}
+               ("StripPlanesILi3E", "RectWalk"): "kernel 19",
+               ("StripTilePlanes", "RectWalk"): "kernel 19-bcast"}
 
 
 def _strip_walk_of(name):
@@ -601,8 +688,8 @@ def _strip_walk_of(name):
 
 def stream_sass(build):
     """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
-    walks of kernels 16, 18, 18-bf16 and 19 holds the TMA bulk copy
-    (UBLKCP); that of the dense_rows kernels (3 and the df64 control) and of
+    walks of kernels 16, 18, 18-bf16, 19 and 19-bcast holds the TMA bulk
+    copy (UBLKCP); that of the dense_rows kernels (3 and the df64 control) and of
     the four strip walks' controls (the two-pass walk's pass 1) none; kernel
     18-bf16's walk (strip_mma_pass1) and its control (q16_bf16_pass1 on the
     rectangle) hold tensor-core products (HMMA). Prints each strip walk's
@@ -643,9 +730,10 @@ def stream_sass(build):
     _check(sorted(filter(None, map(_strip_walk_of, (
         k for k in kernels if "strip_pass1" in k))))
            == sorted(STRIP_WALKS.values())
-           and len(walks["strip_pass1"]) == 3 and all(walks["strip_pass1"]),
-           "a strip walk (kernels 16, 18, 19) is missing or issues no TMA "
-           "bulk copy")
+           and len(walks["strip_pass1"]) == len(STRIP_WALKS)
+           and all(walks["strip_pass1"]),
+           "a strip walk (kernels 16, 18, 19, 19-bcast) is missing or issues "
+           "no TMA bulk copy")
     _check(len(walks["dense_rows"]) == 2
            and len(walks["two-pass control"]) == len(TWOPASS_CONTROLS),
            "SASS: a dense_rows kernel or a strip walk's control is missing")
@@ -2427,6 +2515,334 @@ def dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one, a, p):
     return [entries[name] for name in DUAL_REPLACES]
 
 
+def _tile_checks(gemv, name, zero_args, cases, full, oracle, kw):
+    """One broadcast mode's checks on the card: the kernel `name` on
+    `zero_args` (zero tiles) equal, bit for bit, to `full()` (the
+    full-plane kernel over zero planes); on each of `cases` (non-zero
+    tiles) against its plain version and `oracle(*args)` (the f64 oracle
+    of the stored values) at 1e-13, and repeated bitwise; `kw` the
+    keyword arguments of every call. Returns the largest kernel-plain
+    difference on the zero tiles."""
+    kernel, plain = getattr(gemv, name), getattr(gemv, name + "_plain")
+    out = kernel(*zero_args, **kw)
+    _check(all(torch.equal(u, v) for u, v in zip(out, full())),
+           f"{name}: zero tiles != the full-plane kernel over zero planes, "
+           "bit for bit")
+    errs = []
+    for args in cases:
+        got = kernel(*args, **kw)
+        y, q = _cat_parts(got), _cat_parts(plain(*args, **kw))
+        want = oracle(*args)
+        errs += [_rel(y, q), _rel(y, want), _rel(q, want)]
+        _check(all(torch.equal(u, v) for u, v in zip(got, kernel(*args,
+                                                                  **kw))),
+               f"{name} not repeatable")
+    print(f"{name:<26} zero tiles == zero planes bit for bit; rel l2 on "
+          f"non-zero tiles (kernel-plain, kernel-f64, plain-f64) max "
+          f"{max(errs):.3e} (<= 1e-13)")
+    _check(max(errs) <= 1e-13, f"{name} disagrees")
+    return float((_cat_parts(out) - _cat_parts(plain(*zero_args, **kw)))
+                 .abs().max())
+
+
+def bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D, a, p):
+    """Phase 2, the broadcast modes of kernels 9, 17, 12 and 19 (generate
+    mode on the meshes: one 512 x 512 tile for lo, or for q2 and q3, that
+    every tile reads). At rank 0 of G=2 (105 tiles, where rows 9 and 17 are
+    timed) and rank (1, 0)'s (2560, 5120) half-slab (rows 12 and 19), on
+    the N=10000 system's packs: zero tiles equal to the full-plane kernel
+    over zero planes, bit for bit; non-zero tiles (and for the fq modes one
+    tile beside a full plane) against the plain version and the f64 oracle
+    of the stored values at 1e-13; bitwise repeats. Timed on zero tiles,
+    in turns with the full-plane sibling on the same hi or q1 plane; the
+    q1 planes (55.1 and 26.2 MB) and the half-slab's hi (52.4 MB) over
+    three copies taken in turn, which the 50 MB L2 cannot hold."""
+    tb, out = 512, []
+    # band pairs, rank 0 of G=2
+    mesh = Mesh(0, 2, "cuda")
+    df = pcg_symm.SymmShardedOperator.from_row_block_fn(
+        lambda s, k: a[s:s + k], N, mesh=mesh, packed=True)
+    fq = pcg_symm.SymmShardedOperator.from_row_block_fn(
+        lambda s, k: a[s:s + k], N, mesh=mesh, precision="fq")
+    ph, pl, p64 = _pair(p, df.n_padded)
+    hi, lo, it, kt, lt = df.operand
+    walk, ms, T = (it, kt, lt), 2 * df.m, it.shape[0]
+    kw = {"ms": ms}
+    zero = torch.zeros(tb, tb, device="cuda")
+    flops = 2 * tb * tb * (T + int((kt < it).sum()))
+
+    def slab_oracle(tiles):
+        return torch.cat(gemv._slab_parts(tiles, p64, *walk, ms, tb, True))
+
+    diff = _tile_checks(
+        gemv, "gemv_df64_symm_slab_bcast", (hi, zero, ph, pl, *walk),
+        [(hi, lo[:tb] * 3.0, ph, pl, *walk)],
+        lambda: gemv.gemv_df64_symm_slab(hi, torch.zeros_like(hi), ph, pl,
+                                         *walk, ms=ms, packed=True),
+        lambda h, t, *_: slab_oracle(h.double() + t.double().repeat(T, 1)),
+        kw)
+    outs = gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl, *walk, ms=ms)
+    out.append(_timed_entry(
+        "gemv_df64_symm_slab_bcast", "lam_tpu/ops/gemv.py:991", SYMM_SOURCE,
+        diff, (lambda: gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl,
+                                                      *walk, ms=ms),
+               lambda: gemv.gemv_df64_symm_slab_bcast_plain(
+                   hi, zero, ph, pl, *walk, ms=ms), None),
+        (hi, zero, ph, pl, *walk, *outs), flops, "f64"))
+    _in_turns("gemv_df64_symm_slab_bcast",
+              lambda: gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl, *walk,
+                                                     ms=ms),
+              lambda: gemv.gemv_df64_symm_slab(hi, lo, ph, pl, *walk, ms=ms,
+                                               packed=True),
+              "gemv_df64_symm_slab (full lo plane)")
+    _in_turns("gemv_df64_symm_slab_bcast",
+              lambda: gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl, *walk,
+                                                     ms=ms),
+              lambda: gemv.gemv_f32_symm_slab(hi, ph, *walk, ms=ms,
+                                              packed=True),
+              "gemv_f32_symm_slab on the same hi plane")
+    del df, hi, lo
+
+    q1, q2, q3, s1, s2, s3 = fq.operand[:6]
+    zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
+    zp = torch.zeros_like(q1)
+
+    def fq_tiles(a1, t2, t3):
+        return sum(gemv._tile_plane(q, a1).double()
+                   * s.double().repeat_interleave(tb)[:, None]
+                   for q, s in ((a1, s1), (t2, s2), (t3, s3)))
+
+    rest = (s1, s2, s3, ph, pl, *walk)
+    diff = _tile_checks(
+        gemv, "gemv_fq_symm_slab_bcast", (q1, zt, zt, *rest),
+        [(q1, q2[(T - 1) * tb:].clone(), q3[:tb].clone(), *rest),
+         (q1, q2[:tb].clone(), q3, *rest)],
+        lambda: gemv.gemv_fq_symm_slab(q1, zp, zp, *rest, ms=ms),
+        lambda a1, t2, t3, *_: slab_oracle(fq_tiles(a1, t2, t3)), kw)
+    del zp
+    copies = [q1, q1.clone(), q1.clone()]
+    outs = gemv.gemv_fq_symm_slab_bcast(q1, zt, zt, *rest, ms=ms)
+    out.append(_timed_entry(
+        "gemv_fq_symm_slab_bcast", "lam_tpu/ops/gemv.py:2405", SYMM_SOURCE,
+        diff, (_rotating(lambda q: gemv.gemv_fq_symm_slab_bcast(
+            q, zt, zt, *rest, ms=ms), copies),
+            _rotating(lambda q: gemv.gemv_fq_symm_slab_bcast_plain(
+                q, zt, zt, *rest, ms=ms), copies), None),
+        (q1, zt, zt, *rest, *outs), flops, "f64"))
+    _in_turns("gemv_fq_symm_slab_bcast (three q1 copies)",
+              _rotating(lambda q: gemv.gemv_fq_symm_slab_bcast(
+                  q, zt, zt, *rest, ms=ms), copies),
+              lambda: gemv.gemv_fq_symm_slab(q1, q2, q3, *rest, ms=ms),
+              "gemv_fq_symm_slab (full planes)")
+    _in_turns("gemv_fq_symm_slab_bcast (three q1 copies)",
+              _rotating(lambda q: gemv.gemv_fq_symm_slab_bcast(
+                  q, zt, zt, *rest, ms=ms), copies),
+              _rotating(lambda q: gemv.gemv_q16_symm_slab(
+                  q, s1, ph, *walk, ms=ms), copies),
+              "gemv_q16_symm_slab on the same q1 copies")
+    del fq, copies, q1, q2, q3
+    torch.cuda.empty_cache()
+
+    # the symmetric grid's half-slab at rank (1, 0): p = block 0, q = the
+    # top half of block 1
+    mesh = Mesh2D(2, 2, "cuda")
+    df = pcg2d_symm.Symm2DOperator.from_block_fn(
+        lambda r0, c0, h, w: a[r0:r0 + h, c0:c0 + w], N, mesh=mesh)
+    fq = pcg2d_symm.Symm2DOperator.from_block_fn(
+        lambda r0, c0, h, w: a[r0:r0 + h, c0:c0 + w], N, mesh=mesh,
+        precision="fq")
+    m = df.m
+    m2, cb = m // 2, m // tb
+    mb = cb // 2
+    real = mb * cb
+    ph, pl, p64 = _pair(p, df.n_padded)
+    vecs = (ph[:m].clone(), pl[:m].clone(), ph[m:m + m2].clone(),
+            pl[m:m + m2].clone())
+    pd, qd = p64[:m].clone(), p64[m:m + m2].clone()
+    flops = 4 * m2 * m
+
+    def dual_oracle(bufs):
+        stored = _stored_rect(bufs, mb, cb, tb)
+        return torch.cat([stored @ pd, stored.T @ qd])
+
+    hi, lo = df.operand
+    diff = _tile_checks(
+        gemv, "gemv_df64_dual_bcast", (hi, zero, *vecs),
+        [(hi, lo[:tb] * 3.0, *vecs)],
+        lambda: gemv.gemv_df64_dual(hi, torch.zeros_like(hi), *vecs),
+        lambda h, t, *_: dual_oracle([h, gemv._tile_plane(t, h)]), {})
+    dense64 = _stored_rect([hi], mb, cb, tb)
+    copies = [hi, hi.clone(), hi.clone()]
+    outs = gemv.gemv_df64_dual_bcast(hi, zero, *vecs)
+    out.append(_timed_entry(
+        "gemv_df64_dual_bcast", "lam_tpu/ops/gemv.py:1682", SYMM_SOURCE,
+        diff, (_rotating(lambda h: gemv.gemv_df64_dual_bcast(h, zero, *vecs),
+                         copies),
+               _rotating(lambda h: gemv.gemv_df64_dual_bcast_plain(
+                   h, zero, *vecs), copies),
+               lambda: (torch.mv(dense64, pd), torch.mv(dense64.T, qd))),
+        (hi[:real * tb], zero, *vecs, *outs), flops, "f64"))
+    _in_turns("gemv_df64_dual_bcast (three hi copies)",
+              _rotating(lambda h: gemv.gemv_df64_dual_bcast(h, zero, *vecs),
+                        copies),
+              lambda: gemv.gemv_df64_dual(hi, lo, *vecs),
+              "gemv_df64_dual (full lo plane)")
+    _in_turns("gemv_df64_dual_bcast (three hi copies)",
+              _rotating(lambda h: gemv.gemv_df64_dual_bcast(h, zero, *vecs),
+                        copies),
+              _rotating(lambda h: gemv.gemv_f32_dual(h, vecs[0], vecs[2]),
+                        copies),
+              "gemv_f32_dual on the same hi copies")
+    del dense64, copies, df, hi, lo
+
+    q1, q2, q3, s1, s2, s3 = fq.operand[:6]
+    zp = torch.zeros_like(q1)
+    rest = (s1, s2, s3, *vecs)
+    last = (real - 1) * tb
+    diff = _tile_checks(
+        gemv, "gemv_fq_dual_bcast", (q1, zt, zt, *rest),
+        [(q1, q2[last:last + tb].clone(), q3[:tb].clone(), *rest),
+         (q1, q2[:tb].clone(), q3, *rest)],
+        lambda: gemv.gemv_fq_dual(q1, zp, zp, *rest),
+        lambda a1, t2, t3, *_: dual_oracle(
+            [a1, gemv._tile_plane(t2, a1), gemv._tile_plane(t3, a1), s1, s2,
+             s3]), {})
+    del zp
+    copies = [q1, q1.clone(), q1.clone()]
+    outs = gemv.gemv_fq_dual_bcast(q1, zt, zt, *rest)
+    out.append(_timed_entry(
+        "gemv_fq_dual_bcast", "lam_tpu/ops/gemv.py:2624", SYMM_SOURCE, diff,
+        (_rotating(lambda q: gemv.gemv_fq_dual_bcast(q, zt, zt, *rest),
+                   copies),
+         _rotating(lambda q: gemv.gemv_fq_dual_bcast_plain(q, zt, zt, *rest),
+                   copies), None),
+        (q1[:real * tb], zt, zt, *(x[:real] for x in (s1, s2, s3)), *vecs,
+         *outs), flops, "f64"))
+    _in_turns("gemv_fq_dual_bcast (three q1 copies)",
+              _rotating(lambda q: gemv.gemv_fq_dual_bcast(q, zt, zt, *rest),
+                        copies),
+              lambda: gemv.gemv_fq_dual(q1, q2, q3, *rest),
+              "gemv_fq_dual (full planes)")
+    _in_turns("gemv_fq_dual_bcast (three q1 copies)",
+              _rotating(lambda q: gemv.gemv_fq_dual_bcast(q, zt, zt, *rest),
+                        copies),
+              _rotating(lambda q: gemv.gemv_q16_dual(q, s1, vecs[0],
+                                                     vecs[2]), copies),
+              "gemv_q16_dual on the same q1 copies")
+    return out
+
+
+def gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D):
+    """Phase 9, the four broadcast modes at the shapes generate mode gives
+    them at N=GEN_MESH_N, on operands that the CLI's builders make on the
+    card: rank 0 of G=2's packed band walk (`from_gen_tridiagonal(packed=
+    True)`, `from_gen_fq`) and rank (1, 0)'s half-slab of the R=2 grid
+    (`from_gen_tridiagonal`, `from_gen_fq`). Each mode on the operator's
+    own zero tiles equals its full-plane kernel over zero planes bit for
+    bit; on the operator's operands and on non-zero tiles (random, from a
+    seed) it agrees with its plain version and the f64 oracle of the stored
+    values at 1e-13, repeated bitwise. At GEN_PROBE_N a plain f64 expansion
+    of the planes does not fit on the card: there the probes' x and
+    residual gates hold the modes."""
+    tb = 512
+    rng = torch.Generator(device="cuda").manual_seed(15)
+    p = np.random.default_rng(15).uniform(-1, 1, size=GEN_MESH_N)
+
+    def lo_tile():
+        return torch.rand((tb, tb), generator=rng, device="cuda") * 2.0 ** -24
+
+    def q_tile():
+        return torch.randint(-32768, 32768, (tb, tb), generator=rng,
+                             device="cuda", dtype=torch.int16)
+
+    def q_scales(s1):
+        return s1 * 2.0 ** -16, s1 * 2.0 ** -32
+
+    # band pairs, rank 0 of G=2
+    mesh = Mesh(0, 2, "cuda")
+    df = pcg_symm.SymmShardedOperator.from_gen_tridiagonal(
+        GEN_MESH_N, mesh=mesh, packed=True)
+    hi, lo, it, kt, lt = df.operand
+    _check(lo.shape == (tb, tb), "the packed gen operator's lo is not a tile")
+    ph, pl, p64 = _pair(p, df.n_padded)
+    walk, ms, T = (it, kt, lt), 2 * df.m, it.shape[0]
+
+    def slab_oracle(tiles):
+        return torch.cat(gemv._slab_parts(tiles, p64, *walk, ms, tb, True))
+
+    _tile_checks(
+        gemv, "gemv_df64_symm_slab_bcast", (hi, lo, ph, pl, *walk),
+        [(hi, lo, ph, pl, *walk), (hi, lo_tile(), ph, pl, *walk)],
+        lambda: gemv.gemv_df64_symm_slab(hi, torch.zeros_like(hi), ph, pl,
+                                         *walk, ms=ms, packed=True),
+        lambda h, t, *_: slab_oracle(h.double() + t.double().repeat(T, 1)),
+        {"ms": ms})
+    fq = pcg_symm.SymmShardedOperator.from_gen_fq(GEN_MESH_N, mesh=mesh)
+    q1, q2, q3, s1, s2, s3 = fq.operand[:6]
+    _check(q2.shape == q3.shape == (tb, tb),
+           "the gen fq operator's q2/q3 are not tiles")
+    _check(all(torch.equal(x, y) for x, y in zip(fq.operand[-3:], walk)),
+           "the gen fq and df64 operators walk different tables")
+    vec = (ph, pl, *walk)
+
+    def fq_tiles(a1, t2, t3, *scales):
+        return sum(gemv._tile_plane(q, a1).double()
+                   * s.double().repeat_interleave(tb)[:, None]
+                   for q, s in zip((a1, t2, t3), scales))
+
+    _tile_checks(
+        gemv, "gemv_fq_symm_slab_bcast", (q1, q2, q3, s1, s2, s3, *vec),
+        [(q1, q2, q3, s1, s2, s3, *vec),
+         (q1, q_tile(), q_tile(), s1, *q_scales(s1), *vec)],
+        lambda: gemv.gemv_fq_symm_slab(q1, torch.zeros_like(q1),
+                                       torch.zeros_like(q1), s1, s2, s3,
+                                       *vec, ms=ms),
+        lambda a1, t2, t3, c1, c2, c3, *_: slab_oracle(
+            fq_tiles(a1, t2, t3, c1, c2, c3)), {"ms": ms})
+    del df, fq, hi, q1
+
+    # the symmetric grid's half-slab at rank (1, 0): p = block 0, q = the
+    # top half of block 1
+    mesh = Mesh2D(2, 2, "cuda")
+    df = pcg2d_symm.Symm2DOperator.from_gen_tridiagonal(GEN_MESH_N,
+                                                        mesh=mesh)
+    hi, lo = df.operand
+    _check(lo.shape == (tb, tb), "the gen grid operator's lo is not a tile")
+    m = df.m
+    m2, cb = m // 2, m // tb
+    mb = cb // 2
+    ph, pl, p64 = _pair(p, df.n_padded)
+    vecs = (ph[:m].clone(), pl[:m].clone(), ph[m:m + m2].clone(),
+            pl[m:m + m2].clone())
+    pd, qd = p64[:m].clone(), p64[m:m + m2].clone()
+
+    def dual_oracle(bufs):
+        stored = _stored_rect(bufs, mb, cb, tb)
+        return torch.cat([stored @ pd, stored.T @ qd])
+
+    _tile_checks(
+        gemv, "gemv_df64_dual_bcast", (hi, lo, *vecs),
+        [(hi, lo, *vecs), (hi, lo_tile(), *vecs)],
+        lambda: gemv.gemv_df64_dual(hi, torch.zeros_like(hi), *vecs),
+        lambda h, t, *_: dual_oracle([h, gemv._tile_plane(t, h)]), {})
+    fq = pcg2d_symm.Symm2DOperator.from_gen_fq(GEN_MESH_N, mesh=mesh)
+    q1, q2, q3, s1, s2, s3 = fq.operand[:6]
+    _check(q2.shape == q3.shape == (tb, tb),
+           "the gen grid's fq q2/q3 are not tiles")
+    _tile_checks(
+        gemv, "gemv_fq_dual_bcast", (q1, q2, q3, s1, s2, s3, *vecs),
+        [(q1, q2, q3, s1, s2, s3, *vecs),
+         (q1, q_tile(), q_tile(), s1, *q_scales(s1), *vecs)],
+        lambda: gemv.gemv_fq_dual(q1, torch.zeros_like(q1),
+                                  torch.zeros_like(q1), s1, s2, s3, *vecs),
+        lambda a1, t2, t3, c1, c2, c3, *_: dual_oracle(
+            [a1, gemv._tile_plane(t2, a1), gemv._tile_plane(t3, a1), c1, c2,
+             c3]), {})
+    print(f"gen N={GEN_MESH_N}: the four broadcast modes held on the "
+          f"builders' operands (band walk of {T} tiles at rank 0 of G=2, "
+          f"half-slab ({m2}, {m}) at rank (1, 0) of R=2)")
+
+
 def _pass_split(label, fns, calls=40):
     """The device time of each kernel that the calls fns (name -> fn)
     launch, from torch.profiler (CUPTI): its mean per launch, by kernel
@@ -2902,6 +3318,7 @@ def rank_main(argv):
 
     from lam_tpu_torch import cli, ops
     from lam_tpu_torch.parallel import mesh as pmesh
+    from lam_tpu_torch.solver import api
 
     p = argparse.ArgumentParser()
     for flag in ("--rank", "--ranks", "--port"):
@@ -2919,7 +3336,7 @@ def rank_main(argv):
     for job in jobs:
         out = io.StringIO()
         ops.reset_counters()
-        with contextlib.redirect_stdout(out):
+        with _recorded_facades(api) as seen, contextlib.redirect_stdout(out):
             backend = ([] if "--backend" in job["argv"]
                        else ["--backend", "sharded"])
             rc = cli.main(job["argv"] + backend + [
@@ -2927,9 +3344,26 @@ def rank_main(argv):
                 "--coordinator", address, "--num-processes",
                 str(args.ranks), "--process-id", str(args.rank)])
         torch.cuda.synchronize()
+        # the facade's unrounded timings and the bytes of its operand's
+        # planes of the first plane's shape (not a broadcast tile)
+        facade = seen[-1] if seen else None
+        planes = []
+        if facade is not None:
+            operand = facade.op.operand
+            operand = operand if isinstance(operand, tuple) else (operand,)
+            planes = [x.numel() * x.element_size() for x in operand
+                      if x.shape == operand[0].shape]
         results.append({"run": job["run"], "rc": rc, "stdout": out.getvalue(),
                         "counts": ops.counters(), "backend": mesh.backend,
-                        "device": str(mesh.device)})
+                        "device": str(mesh.device),
+                        "timings": {} if facade is None
+                        else dict(facade.timings),
+                        "plane_bytes": planes})
+        # the next job finds the card as this one did: nothing held
+        seen.clear()
+        del facade
+        gc.collect()
+        torch.cuda.empty_cache()
     with open(os.path.join(args.out, f"rank{args.rank}.json"), "w") as f:
         json.dump(results, f)
     dist.barrier()
@@ -3393,6 +3827,145 @@ def generate_runs(ops, lio, cli, tmp):
     return total
 
 
+def _mesh_kernels(run, r, kernels, not_kernels, names):
+    """(kernels rank r must launch, kernels it must not) of a phase-9 run:
+    on the symmetric grid a diagonal rank walks its triangle, the others
+    their half-slab, and nothing else launches anywhere."""
+    if "symgrid" in run:
+        ran = kernels[r not in (0, 3)]
+        return ran, [k for k in names if k not in ran]
+    return kernels, not_kernels
+
+
+def mesh_generate_runs(ops, lio, tmp):
+    """Phase 9: generate mode on the meshes through the port's CLI, G rank
+    processes of this script on the one card over gloo (phase 5's
+    clusters, one for G=2 and one for G=4). At N=4000 (-e 1e-9) the runs
+    of MESH_GEN_RUNS, each converged with a TRUE |b - A x| / |b| <= 2e-9
+    on the host (the O(N) tridiagonal product of rank 0's x), procs = G in
+    rank 0's CSV row, every rank's kernels launched and the others not, no
+    plain version; the df64-class counts within 1% of a host f64 CG's on
+    the same system, the refinement counts printed beside it. Then each
+    cluster's N=150000 probes (-i 15, num_iter 16): df64's x within 1e-10
+    of the host f64 CG's after 15 iterations, every probe's residual equal
+    to the host's TRUE residual of its x within 1e-6; load_s (the device
+    build), avg_gemv_s and the bytes of the ranks' planes (read from the
+    operators' tensors) beside their byte bound, and the q16 engine each
+    rank ran. Returns the kernel launches summed over the runs and ranks."""
+    t_phase = time.perf_counter()
+    names = [fn.__name__ for fn in ops.KERNELS]
+    plain = [fn.__name__ for fn in ops.PLAIN]
+    total = {k: 0 for k in names}
+    _, host_iters = _host_cg(GEN_MESH_N, 10 ** 6, 1e-9)
+    x_host, k_host = _host_cg(GEN_PROBE_N, GEN_PROBE_ITERS, 1e-9)
+    _check(k_host == GEN_PROBE_ITERS, "the host CG stopped early")
+    print(f"gen N={GEN_MESH_N}: host f64 CG {host_iters} iterations")
+    for g in SHARD_G:
+        runs = [r for r in MESH_GEN_RUNS if r[1] == g]
+        probes = [r for r in MESH_GEN_PROBES if r[1] == g]
+        jobs = [{"run": run, "argv": [
+            "-s", str(GEN_MESH_N), "-e", "1e-9", "-o",
+            os.path.join(tmp, f"x_{run}.bin"), *flags]}
+            for run, _, flags, _, _ in runs]
+        jobs += [{"run": run, "argv": [
+            "-s", str(GEN_PROBE_N), "-i", str(GEN_PROBE_ITERS), "-o",
+            os.path.join(tmp, f"x_{run}.bin"), *flags]}
+            for run, _, flags, _ in probes]
+        t0 = time.perf_counter()
+        records = _cluster(g, jobs, tmp, label=f"gen{g}")
+        print(f"{g}-rank generate-mode cluster: {len(jobs)} runs in "
+              f"{time.perf_counter() - t0:.1f} s of wall time")
+        cases = ([(r, k, n) for r, _, _, k, n in runs]
+                 + [(r, k, ()) for r, _, _, k in probes])
+        for j, (run, kernels, not_kernels) in enumerate(cases):
+            recs = [rank_recs[j] for rank_recs in records]
+            _check(all(rec["run"] == run and rec["rc"] == 0 for rec in recs),
+                   f"{run}: a rank's CLI failed: "
+                   f"{[rec['rc'] for rec in recs]}")
+            line = recs[0]["stdout"].strip()
+            _check(all(not rec["stdout"].strip() for rec in recs[1:]),
+                   f"{run}: a rank other than 0 printed")
+            print(f"{run} CSV (N,procs,threads,load_s,init_s,avg_gemv_s,"
+                  f"avg_iter_s,num_iter,err,total_cg_s): {line}")
+            fields = line.split(",")
+            _check(int(fields[1]) == g, f"{run}: procs {fields[1]} != {g}")
+            _check(sorted({(rec["backend"], rec["device"]) for rec in recs})
+                   == [("gloo", "cuda:0")], f"{run}: not gloo on cuda:0")
+            t = recs[0]["timings"]
+            iters = int(fields[7])
+            x = lio.read_vector(os.path.join(tmp, f"x_{run}.bin"))
+            true_rel = _gen_true(x)
+            engines = [[k for k in _Q16_WALKS if rec["counts"][k]]
+                       for rec in recs]
+            for r, rec in enumerate(recs):
+                ran, idle = _mesh_kernels(run, r, kernels, not_kernels,
+                                          names)
+                for k in ran:
+                    _check(rec["counts"][k] > 0,
+                           f"{run}: rank {r} never launched {k}")
+                for k in idle:
+                    _check(rec["counts"][k] == 0,
+                           f"{run}: rank {r} launched {k}")
+                _check(not any(rec["counts"][k] for k in plain),
+                       f"{run}: a plain version ran on rank {r}")
+                for k in names:
+                    total[k] += rec["counts"][k]
+            launched = {k: v for k, v in recs[0]["counts"].items() if v}
+            if run.endswith("150k"):
+                _check(fields[7] == str(GEN_PROBE_ITERS + 1),
+                       f"{run}: CSV num_iter {fields[7]}, not "
+                       f"{GEN_PROBE_ITERS + 1}")
+                err = t["rel_residual"]
+                err_rel = abs(err - true_rel) / true_rel
+                nbytes = sum(sum(rec["plane_bytes"]) for rec in recs)
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                gemv_ms = [rec["timings"]["avg_gemv_s"] * 1e3 for rec in recs]
+                acc = ""
+                if "avg_gemv_acc_s" in t:
+                    acc_ms = t["avg_gemv_acc_s"] * 1e3
+                    acc = f", rank 0's accurate matvec {acc_ms:.3f} ms"
+                load_s = max(rec["timings"]["load_s"] for rec in recs)
+                print(f"{run}: load_s {load_s:.3f} s (the slowest rank's "
+                      f"device build), avg_gemv_s "
+                      f"{min(gemv_ms):.3f}-{max(gemv_ms):.3f} ms over the "
+                      f"ranks against the {bound_ms:.3f} ms byte bound of "
+                      f"the ranks' {nbytes / 1e9:.2f} GB of planes on the "
+                      f"one card (x{gemv_ms[0] / bound_ms:.3f} at rank 0)"
+                      f"{acc}, solve_s {t['solve_s']:.4f} s, q16 engines "
+                      f"by rank {engines}, residual {err:.6e} against the "
+                      f"host TRUE {true_rel:.6e} (rel {err_rel:.2e} <= "
+                      f"{GEN_ERR_GATE:g}), launches rank 0 {launched}")
+                _check(err_rel <= GEN_ERR_GATE, f"{run}: residual {err:.6e} "
+                       f"against the host TRUE {true_rel:.6e}")
+                if "df64" in run:
+                    x_rel = float(np.linalg.norm(x - x_host)
+                                  / np.linalg.norm(x_host))
+                    print(f"{run}: x against the host f64 CG's after "
+                          f"{GEN_PROBE_ITERS} iterations {x_rel:.3e} (<= "
+                          f"{GEN_X_GATE:g})")
+                    _check(x_rel <= GEN_X_GATE, f"{run}: x differs from the "
+                           f"host CG's by {x_rel:.3e}")
+            else:
+                print(f"{run}: {g} ranks, load {t['load_s']:.3f} s, {iters} "
+                      f"iterations (host f64 CG {host_iters}), solve "
+                      f"{t['solve_s']:.4f} s, avg gemv "
+                      f"{t['avg_gemv_s'] * 1e3:.3f} ms, TRUE rel residual "
+                      f"{true_rel:.3e} (<= {TRUE_GATE:g}), q16 engines by "
+                      f"rank {engines}, launches rank 0 {launched}")
+                _check(t["num_iters"] <= 10000 and t["rel_residual"] < 1e-9,
+                       f"{run} did not converge")
+                _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
+                       f"{true_rel:.3e} above {TRUE_GATE:g}")
+                if "df64" in run:
+                    _check(abs(iters - host_iters)
+                           <= GEN_COUNT_GATE * host_iters,
+                           f"{run}: {iters} iterations against the host's "
+                           f"{host_iters}")
+            os.remove(os.path.join(tmp, f"x_{run}.bin"))
+    print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def probe_tool(q16_probe):
     """Phase 7: the q16 probe tool (lam_tpu_torch.tools.q16_probe) in
     process, probes 1-4 at the scripts' sizes: every variant validated
@@ -3458,6 +4031,9 @@ def main():
     torch.cuda.empty_cache()
     results += dual_kernels_vs_plain(gemv, layout, pcg2d_symm, Mesh2D, one,
                                      a, p)
+    torch.cuda.empty_cache()
+    results += bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D,
+                                    a, p)
     del a, one
     torch.cuda.empty_cache()
     results.append(bf16_symm_large(gemv, layout))
@@ -3487,10 +4063,15 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         gen_counts = generate_runs(ops, lio, cli, tmp)
+    torch.cuda.empty_cache()
+    gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_gen_counts = mesh_generate_runs(ops, lio, tmp)
     for r in results:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, heat_counts, shard_counts, large_counts, probe_counts,
-            gen_counts))
+            gen_counts, mesh_gen_counts))
         _check(r["launches"] > 0, f"{r['name']} never launched on the "
                "main path")
     print(json.dumps({"kernels": results}))

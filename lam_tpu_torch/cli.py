@@ -180,12 +180,6 @@ def _cli_main(argv=None):
     if generate and (args.matrix is not None or args.rhs is not None):
         print("Option -A and -b cannot be used with -s.", file=sys.stderr)
         return 1
-    if generate and args.backend != "local":
-        # refused before the process group the sharded facade would join
-        raise NotImplementedError(
-            "lam-cg-torch: not ported yet: -s with --backend "
-            f"{args.backend} (generate mode on a mesh, ROADMAP Queue 1 item "
-            "10)")
     if not generate:
         args.matrix = args.matrix or "io/matrix.bin"
         args.rhs = args.rhs or "io/rhs.bin"

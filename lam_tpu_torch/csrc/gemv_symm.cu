@@ -1,6 +1,6 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
 // (sm_90a), and the dual matvec over a dense rectangle of the same tiles.
-// Twenty-two kernels share one design:
+// Twenty-six kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -43,6 +43,14 @@
 //   lam_gemv_fq_dual    replaces lam_tpu/ops/gemv.py:gemv_fq_dual
 //                       (:2624; _gemv_fq_dual_kernel); pass 1 on the strip
 //                       walk
+//   lam_gemv_df64_symm_slab_bcast  gemv_df64_symm_slab's broadcast lo tile
+//                                  (_lo_plane_map :991, used at :1307)
+//   lam_gemv_fq_symm_slab_bcast    gemv_fq_symm_slab's broadcast q2/q3
+//                                  tiles (:2420-2427, :2434-2437)
+//   lam_gemv_df64_dual_bcast       gemv_df64_dual's broadcast lo tile
+//                                  (:1695-1696)
+//   lam_gemv_fq_dual_bcast         gemv_fq_dual's broadcast q2/q3 tiles
+//                                  (:2637-2644); the strip walk
 //
 // with the controls of the strip walk, kept for the bit check and the
 // in-turn timing on the same bytes (on no solver's path): each is its
@@ -323,10 +331,9 @@ extern "C" int lam_gemv_fq_symm_bcast(
     const float* s2, const float* s3, const float* p_hi, const float* p_lo,
     float* y_hi, float* y_lo, double* part_d, double* part_t, int bcast2,
     int bcast3, int nblk, void* stream) {
-  const size_t all = ~(size_t)0;
   return launch(FQTilePlane{q1, q2, q3, s1, s2, s3,
-                            bcast2 ? TILE_MASK : all, bcast3 ? TILE_MASK : all,
-                            0.0, 0.0, 0.0},
+                            bcast2 ? TILE_MASK : FULL_MASK,
+                            bcast3 ? TILE_MASK : FULL_MASK, 0.0, 0.0, 0.0},
                 DF64Vec{p_hi, p_lo}, DF64Out{y_hi, y_lo}, part_d, part_t,
                 nblk, (cudaStream_t)stream);
 }
@@ -404,6 +411,45 @@ extern "C" int lam_gemv_fq_symm_slab(
                      part_t, T, ms, (cudaStream_t)stream);
 }
 
+// The broadcast modes of kernels 9 and 17 (generate mode on the band
+// pairs): the packed walk-order buffer starts tile t at t*TB*TB, as the
+// packed triangle does, so DF64TilePlane and FQTilePlane read the tile
+// there too. df64: a_hi the packed (T*TB, TB) plane, a_lo ONE (TB, TB) tile
+// (the slab storage takes no tile: lam_tpu refuses it). A zero tile gives
+// lam_gemv_df64_symm_slab's bits over a zero lo plane.
+extern "C" int lam_gemv_df64_symm_slab_bcast(
+    const float* a_hi, const float* a_lo, const float* p_hi,
+    const float* p_lo, const int* it, const int* kt, const int* lt,
+    const int* d_ptr, const int* d_ids, const int* t_ptr, const int* t_ids,
+    float* yd_hi, float* yd_lo, float* yt_hi, float* yt_lo, double* part_d,
+    double* part_t, int T, int ms, int n, void* stream) {
+  return launch_slab(DF64TilePlane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
+                     TableWalk{it, kt, lt, n, 1},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+                     DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
+                     part_t, T, ms, (cudaStream_t)stream);
+}
+
+// fq: q2 (bcast2 != 0) and q3 (bcast3 != 0) each ONE (TB, TB) tile, or the
+// full plane; the scale tables per walk position as in lam_gemv_fq_symm_slab,
+// whose bits zero tiles give over zero planes.
+extern "C" int lam_gemv_fq_symm_slab_bcast(
+    const short* q1, const short* q2, const short* q3, const float* s1,
+    const float* s2, const float* s3, const float* p_hi, const float* p_lo,
+    const int* it, const int* kt, const int* lt, const int* d_ptr,
+    const int* d_ids, const int* t_ptr, const int* t_ids, float* yd_hi,
+    float* yd_lo, float* yt_hi, float* yt_lo, double* part_d, double* part_t,
+    int T, int ms, int n, int bcast2, int bcast3, void* stream) {
+  return launch_slab(FQTilePlane{q1, q2, q3, s1, s2, s3,
+                                 bcast2 ? TILE_MASK : FULL_MASK,
+                                 bcast3 ? TILE_MASK : FULL_MASK, 0.0, 0.0,
+                                 0.0},
+                     DF64Vec{p_hi, p_lo}, TableWalk{it, kt, lt, n, 1},
+                     SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+                     DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
+                     part_t, T, ms, (cudaStream_t)stream);
+}
+
 // dfq: hi + loq * sc formed and walked in f64.
 extern "C" int lam_gemv_dfq_symm_slab(
     const float* a_hi, const short* a_loq, const float* sc, const float* p_hi,
@@ -439,6 +485,21 @@ extern "C" int lam_gemv_df64_dual(
     float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb, int cb,
     void* stream) {
   return launch_dual(DF64Plane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
+                     DF64Vec{q_hi, q_lo}, DF64Out{yd_hi, yd_lo},
+                     DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb,
+                     (cudaStream_t)stream);
+}
+
+// The broadcast mode of kernel 12 (generate mode on the symmetric 2-D
+// grid): a_lo ONE (TB, TB) tile read at every tile of the rectangle, whose
+// tile t starts at t*TB*TB. A zero tile gives lam_gemv_df64_dual's bits
+// over a zero lo plane.
+extern "C" int lam_gemv_df64_dual_bcast(
+    const float* a_hi, const float* a_lo, const float* p_hi, const float* p_lo,
+    const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb, int cb,
+    void* stream) {
+  return launch_dual(DF64TilePlane{a_hi, a_lo}, DF64Vec{p_hi, p_lo},
                      DF64Vec{q_hi, q_lo}, DF64Out{yd_hi, yd_lo},
                      DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb,
                      (cudaStream_t)stream);
@@ -490,6 +551,26 @@ extern "C" int lam_gemv_fq_dual(
     void* stream) {
   return launch_strip_dual<DualFQCfg>(
       StripPlanes<3>{{q1, q2, q3}, {s1, s2, s3}},
+      StripVecs<2>{{p_hi, p_lo}, {q_hi, q_lo}}, DF64Out{yd_hi, yd_lo},
+      DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// The broadcast mode of kernel 19 (generate mode on the symmetric 2-D grid):
+// q2 (bcast2 != 0) and q3 (bcast3 != 0) each ONE (TB, TB) tile, or the full
+// plane. The producer copies a stage's rows of a tile plane from the tile,
+// at the stage's offset within its tile (StripTilePlanes::mask), kept in L2
+// (evict-last); the consumers are kernel 19's, so zero tiles give
+// lam_gemv_fq_dual's bits over zero planes.
+extern "C" int lam_gemv_fq_dual_bcast(
+    const short* q1, const short* q2, const short* q3, const float* s1,
+    const float* s2, const float* s3, const float* p_hi, const float* p_lo,
+    const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb, int cb,
+    int bcast2, int bcast3, void* stream) {
+  return launch_strip_dual<DualFQTileCfg>(
+      StripTilePlanes{{{q1, q2, q3}, {s1, s2, s3}},
+                      {FULL_MASK, bcast2 ? TILE_MASK : FULL_MASK,
+                       bcast3 ? TILE_MASK : FULL_MASK}},
       StripVecs<2>{{p_hi, p_lo}, {q_hi, q_lo}}, DF64Out{yd_hi, yd_lo},
       DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb, (cudaStream_t)stream);
 }

@@ -140,9 +140,19 @@ template <int NP_>
 struct StripPlanes {
   static constexpr int NP = NP_;
   static_assert(NP == 1 || NP == 3, "the q16 plane or the fq cascade");
+  static constexpr bool TILES = false;
   using acc_t = std::conditional_t<NP == 1, float, double>;
   const short* q[NP];
   const float* s[NP];
+};
+
+// The fq cascade of kernel 19's broadcast mode, its own type so that the
+// full-plane walks keep their code: mask[pl], as FQTilePlane's, FULL_MASK
+// for a plane of every tile, TILE_MASK for ONE (TB, TB) tile that every
+// tile reads (q2/q3): a stage's rows of tile t sit at (row0 * TB) & mask.
+struct StripTilePlanes : StripPlanes<3> {
+  static constexpr bool TILES = true;
+  size_t mask[NP];
 };
 
 // The operands: NV f32 arrays a vector (1: f32; 2: an (hi, lo) pair formed
@@ -204,6 +214,9 @@ struct StripCfg {
   static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
   static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
                 "a stage is whole warps' rows of one strip");
+  static_assert(TB % SR == 0,
+                "a stage never crosses a tile: a broadcast tile's stage is "
+                "one contiguous copy");
   static_assert(S % SPS == 0, "each slot read by one group of warps");
   static_assert(WARPS % RW == 0, "reduction rounds of whole warps");
   static_assert(SMEM + 2 * S * 8 <= 232448, "a block's shared memory");
@@ -228,6 +241,8 @@ using SlabQ16Cfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS>;
 using DualQ16Cfg =
     StripCfg<StripPlanes<1>, StripVecs<1>, 32, 6, WARPS, false, true>;
 using DualFQCfg = StripCfg<StripPlanes<3>, StripVecs<2>, 32, 2, WARPS / 2, true>;
+using DualFQTileCfg =
+    StripCfg<StripTilePlanes, StripVecs<2>, 32, 2, WARPS / 2, true>;
 using DualBf16Cfg =
     StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false, true>;
 
@@ -396,9 +411,17 @@ __device__ __forceinline__ void strip_producer(const Planes& A,
                       (off ? NV * SR * (int)sizeof(float) : 0));
       const size_t row0 = (size_t)t * TB + s * ROWS + j * SR;
 #pragma unroll
-      for (int pl = 0; pl < NP; ++pl)
-        bulk_copy(stage + pl * Cfg::PLANE_BYTES, A.q[pl] + row0 * TB,
-                  Cfg::PLANE_BYTES, &full[slot], once);
+      for (int pl = 0; pl < NP; ++pl) {
+        if constexpr (Planes::TILES)
+          // a broadcast tile is read at every tile: kept in L2, not
+          // streamed
+          bulk_copy(stage + pl * Cfg::PLANE_BYTES,
+                    A.q[pl] + ((row0 * TB) & A.mask[pl]), Cfg::PLANE_BYTES,
+                    &full[slot], A.mask[pl] == FULL_MASK ? once : keep);
+        else
+          bulk_copy(stage + pl * Cfg::PLANE_BYTES, A.q[pl] + row0 * TB,
+                    Cfg::PLANE_BYTES, &full[slot], once);
+      }
 #pragma unroll
       for (int v = 0; v < NV; ++v)
         bulk_copy(stage + Cfg::PK_OFF + v * TB * (int)sizeof(float),

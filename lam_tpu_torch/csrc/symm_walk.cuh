@@ -66,13 +66,17 @@ struct DF64Plane {
 // The broadcast planes of generate mode (lam_tpu's _lo_plane_map and
 // gemv_fq_symm's pinned block (0, 0)): an operand stored as ONE (TB, TB)
 // tile that every walk position reads, the element at row r, column c of
-// any tile reading the tile's (r, c). They go with the packed walk only,
-// where tile t starts at t*TB*TB, so off & TILE_MASK is the element's
-// offset within its tile. The tile is read with the read-only cache
-// (__ldg), not streamed: 1 MB (f32) or 0.5 MB (int16) stays in L2, and
-// the HBM stream is the hi or q1 plane alone. The sums are the full-plane
-// planes' expressions, so a zero tile gives their bits over a zero plane.
+// any tile reading the tile's (r, c). They go with the walks whose tile t
+// starts at t*TB*TB (the packed triangle, the packed band-pair buffer and
+// the rectangle; not the square or the slab read in place), so
+// off & TILE_MASK is the element's offset within its tile. The tile is
+// read with the read-only cache (__ldg), not streamed: 1 MB (f32) or
+// 0.5 MB (int16) stays in L2, and the HBM stream is the hi or q1 plane
+// alone. The sums are the full-plane planes' expressions, so a zero tile
+// gives their bits over a zero plane. FULL_MASK keeps every offset: a
+// plane of all the tiles.
 constexpr size_t TILE_MASK = (size_t)TB * TB - 1;
+constexpr size_t FULL_MASK = ~(size_t)0;
 
 struct DF64TilePlane {
   using acc_t = double;

@@ -5,10 +5,15 @@ the dense tridiagonal with 2 on the diagonal and 1 beside it, and a
 right-hand side of ones. On the host as numpy arrays
 (`tridiagonal_rows`, `tridiagonal_matrix`, `tridiagonal_hi_plane`,
 `ones_rhs`), and on a torch device as the f32 square
-(`tridiagonal_hi_plane_device`) or as one packed walk-order plane
-(`_tridiag_hi_packed_impl`, `_tridiag_q1_packed_impl`): plain torch
-programs, not kernels (lam_tpu builds them with jax.jit, outside any
-Pallas call), which write only the nonzero tiles into zeros.
+(`tridiagonal_hi_plane_device`), one packed walk-order plane
+(`_tridiag_hi_packed_impl`, `_tridiag_q1_packed_impl`, over one device's
+or one rank's walk tables), one rank's rows or block of the f32 square
+(`_tridiag_block`: a row shard, the band-pair slab, a 2-D grid block) or
+one rank's part of the band-pair diagonal (`_gen_diag_slab_rank`): plain
+torch programs, not kernels (lam_tpu builds them with jax.jit, outside any
+Pallas call, and lets out_shardings cut the global array into its shards;
+here each rank writes only its own shard), which write only the nonzero
+entries into zeros.
 
 The reference's offline random-SPD-system tool: A = (Q sqrt(D)) (Q sqrt(D))^T
 with eigenvalues D = exp(3.5 * U(-1, 1)) and a random U(-1, 1) rhs, plus
@@ -68,6 +73,41 @@ def tridiagonal_hi_plane_device(n, n_padded=None, device="cuda"):
     hi[i[1:], i[1:] - 1] = 1
     hi[i[:-1], i[:-1] + 1] = 1
     return hi
+
+
+def _tridiag_block(n, rows, c0, width, device):
+    """The f32 (len(rows), width) block of the tridiagonal's padded square
+    whose row k is original row rows[k] (a 1-D long tensor) and whose
+    columns are [c0, c0 + width): lam_tpu's per-element
+    `_tridiag_hi_device_impl` (lam_tpu/generate.py:88) and
+    `_tridiag_hi_slab_impl` (:106) restricted to one rank's shard, written
+    as the three bands into zeros, O(len(rows)) work (an index over a
+    rank's whole (75k, 150k) shard would take 90 GB at N=150000). Rows
+    and columns past n are padding (0)."""
+    out = torch.zeros((rows.shape[0], width), dtype=torch.float32,
+                      device=device)
+    k = torch.arange(rows.shape[0], device=device)
+    for off, val in ((0, 2.0), (-1, 1.0), (1, 1.0)):
+        col = rows + off
+        keep = ((rows < n) & (col >= 0) & (col < n) & (col >= c0)
+                & (col < c0 + width))
+        out[k[keep], col[keep] - c0] = val
+    return out
+
+
+def _slab_rows(g, m, c, device):
+    """Original rows of rank c's band-pair slab, in slab order: band c,
+    then band 2g-1-c (lam_tpu/parallel/pcg_symm.py's permutation)."""
+    r = torch.arange(m, device=device)
+    return torch.cat([c * m + r, (2 * g - 1 - c) * m + r])
+
+
+def _gen_diag_slab_rank(n, g, m, c, device, value=2.0):
+    """Rank c's (2m,) part of lam_tpu's slab-order diagonal
+    `_gen_diag_slab_impl` (lam_tpu/generate.py:222): `value` at slab rows
+    whose original row is < n, 0 on padding."""
+    rows = _slab_rows(g, m, c, device)
+    return torch.where(rows < n, value, 0.0).to(torch.float32)
 
 
 def _tridiag_packed(n, tb, it, kt, nblk, diag, band):

@@ -66,6 +66,17 @@ trailing pad tiles and their scales are never read:
     gemv_q16_dual        <- gemv_q16_dual           (gemv.py:2544)
     gemv_fq_dual         <- gemv_fq_dual            (gemv.py:2624)
 
+Generate mode on the meshes hands four of the shard kernels one (tb, tb)
+tile for the lo plane or for q2 and q3, as one device does kernels 2 and
+15: broadcast modes of their own, to which the public wrappers route by
+the operand's shape (the band pairs' slab storage takes no tile, as in
+lam_tpu):
+
+    gemv_df64_symm_slab_bcast  <- gemv_df64_symm_slab, lo tile (:991)
+    gemv_fq_symm_slab_bcast    <- gemv_fq_symm_slab, q2/q3 tiles (:2420)
+    gemv_df64_dual_bcast       <- gemv_df64_dual, lo tile      (:1695)
+    gemv_fq_dual_bcast         <- gemv_fq_dual, q2/q3 tiles    (:2637)
+
 The three q16 matvecs have two product engines, as in lam_tpu, chosen
 per call by `_q16_impl` from the module attribute `_Q16_IMPL` (read from
 LAM_Q16_IMPL at import; "auto", the default, "mxu" or "vpu"; any other
@@ -407,6 +418,28 @@ def gemv_df64_symm_slab_plain(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *,
     return (*split_f64(yd), *split_f64(yt))
 
 
+def _tile_plane(x, like):
+    """x as a plane of like's shape: x itself, or one (tb, tb) broadcast
+    tile repeated at every tile position (lam_tpu's constant (0, 0) index
+    map), so a broadcast mode's plain version is its full-plane one's."""
+    if x.shape == like.shape:
+        return x
+    return x.repeat(like.shape[0] // x.shape[0], 1)
+
+
+def gemv_df64_symm_slab_bcast_plain(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *,
+                                    ms):
+    """`gemv_df64_symm_slab_plain(packed=True)` with the lo plane one
+    broadcast (tb, tb) tile, expanded over the walk."""
+    gemv_df64_symm_slab_bcast_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_df64_symm_slab", a_hi, p_hi, it, kt, lt,
+                            ms, True, None)
+    _check_walk(*_host_tables(it, kt, lt), p_hi.shape[0] // tb, ms // tb)
+    tiles = a_hi.to(torch.float64) + _tile_plane(a_lo, a_hi).to(
+        torch.float64)
+    return _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb)
+
+
 def gemv_q16_symm_slab_plain(q1_slab, sc1, p, it, kt, lt, *, ms):
     """Plain PyTorch q16 slab walk in f32 over the (T*tb, tb) int16 q1
     plane, the per-tile scales sc1 (T,) folded into p: (yd (ms,),
@@ -447,6 +480,19 @@ def gemv_fq_symm_slab_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt,
     q1*s1 + q2*s2 + q3*s3 (each product exact): (yd_hi, yd_lo, yt_hi,
     yt_lo), the f32 splits of yd and yt."""
     gemv_fq_symm_slab_plain.calls += 1
+    return _fq_slab_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt, ms)
+
+
+def gemv_fq_symm_slab_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it,
+                                  kt, lt, *, ms):
+    """`gemv_fq_symm_slab_plain` with q2 and/or q3 one broadcast (tb, tb)
+    tile, expanded over the walk."""
+    gemv_fq_symm_slab_bcast_plain.calls += 1
+    return _fq_slab_parts(q1, _tile_plane(q2, q1), _tile_plane(q3, q1), s1,
+                          s2, s3, p_hi, p_lo, it, kt, lt, ms)
+
+
+def _fq_slab_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt, ms):
     tb, ms = _slab_geometry("gemv_fq_symm_slab", q1, p_hi, it, kt, lt, ms,
                             True, None)
     _check_walk(*_host_tables(it, kt, lt), p_hi.shape[0] // tb, ms // tb)
@@ -535,6 +581,16 @@ def gemv_df64_dual_plain(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo):
     return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
 
 
+def gemv_df64_dual_bcast_plain(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo):
+    """`gemv_df64_dual_plain` with the lo plane one broadcast (tb, tb)
+    tile, expanded over the rectangle."""
+    gemv_df64_dual_bcast_plain.calls += 1
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, "gemv_df64_dual")
+    tiles = (buf_hi.to(torch.float64) + _tile_plane(buf_lo, buf_hi).to(
+        torch.float64))[:mb * cb * tb].reshape(-1, tb, tb)
+    return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
+
+
 def gemv_dfq_dual_plain(buf_hi, buf_loq, sc, p_hi, p_lo, q_hi, q_lo):
     """Plain PyTorch dfq dual matvec, computed in float64 from the tiles
     hi + loq * sc (exact products): (yd_hi, yd_lo, yt_hi, yt_lo)."""
@@ -579,6 +635,15 @@ def gemv_fq_dual_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
     yt_lo)."""
     gemv_fq_dual_plain.calls += 1
     return _fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo)
+
+
+def gemv_fq_dual_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
+                             q_lo):
+    """`gemv_fq_dual_plain` with q2 and/or q3 one broadcast (tb, tb) tile,
+    expanded over the rectangle."""
+    gemv_fq_dual_bcast_plain.calls += 1
+    return _fq_dual_parts(q1, _tile_plane(q2, q1), _tile_plane(q3, q1), s1,
+                          s2, s3, p_hi, p_lo, q_hi, q_lo)
 
 
 def _fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
@@ -898,7 +963,7 @@ def gemv_fq_symm(q1, q2, q3, s1, s2, s3, p_hi, p_lo, *, comp=None):
     The kernel forms the cascade and accumulates in native f64, so
     `comp` selects nothing, as in `gemv_df64_symm`."""
     what = "gemv_fq_symm"
-    if q2.shape != q1.shape or q3.shape != q1.shape:
+    if _has_tile(q1, q2, q3):
         return gemv_fq_symm_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo,
                                   comp=comp)
     geometry = _fq_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo)
@@ -916,12 +981,7 @@ def gemv_fq_symm_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo, *, comp=None):
     from memory where both are tiles; on zero tiles the result is the
     full-plane kernel's over zero planes, bit for bit."""
     what = "gemv_fq_symm_bcast"
-    tb = q1.shape[-1]
-    for name, q in (("q2", q2), ("q3", q3)):
-        if q.shape != q1.shape and tuple(q.shape) != (tb, tb):
-            raise ValueError(f"{name} plane shape {tuple(q.shape)} != q1 "
-                             f"plane {tuple(q1.shape)} (or one broadcast "
-                             f"({tb}, {tb}) tile)")
+    _check_tiles(q1, q2, q3)
     geometry = _fq_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo)
     if q1.device.type == "cpu":
         return gemv_fq_symm_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
@@ -1230,14 +1290,22 @@ def gemv_df64_symm_slab(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *, ms=None,
                         packed=False, tb=None):
     """The df64 twin of `gemv_f32_symm_slab` for A = a_hi + a_lo and
     p = p_hi + p_lo: returns (yd_hi, yd_lo, yt_hi, yt_lo), formed and
-    accumulated in native f64. lam_tpu's single (tb, tb) broadcast-zero
-    lo tile of generate mode is not ported."""
+    accumulated in native f64. With packed=True the lo plane may be one
+    (tb, tb) broadcast tile (`gemv_df64_symm_slab_bcast`: generate mode's
+    zero lo plane); the slab storage takes none, as in lam_tpu."""
     what = "gemv_df64_symm_slab"
     if a_lo.shape != a_hi.shape:
-        raise NotImplementedError(
-            f"{what}: lo plane {tuple(a_lo.shape)} must match the hi plane "
-            f"{tuple(a_hi.shape)}; the broadcast-zero lo tile is not "
-            "ported yet")
+        if not packed:
+            raise ValueError(f"plane shapes differ: {tuple(a_hi.shape)} vs "
+                             f"{tuple(a_lo.shape)}")
+        tb = a_hi.shape[-1]
+        if tuple(a_lo.shape) == (tb, tb):
+            return gemv_df64_symm_slab_bcast(a_hi, a_lo, p_hi, p_lo, it, kt,
+                                             lt, ms=ms)
+        raise ValueError(
+            f"{what}: lo plane must match the hi plane {tuple(a_hi.shape)} "
+            f"or be a single ({tb}, {tb}) broadcast tile, got "
+            f"{tuple(a_lo.shape)}")
     if p_lo.shape != p_hi.shape:
         raise ValueError(f"{what}: p_hi {tuple(p_hi.shape)} and p_lo "
                          f"{tuple(p_lo.shape)} differ")
@@ -1250,6 +1318,30 @@ def gemv_df64_symm_slab(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *, ms=None,
     return _slab_call(gemv_df64_symm_slab, "lam_gemv_df64_symm_slab",
                       (a_hi, a_lo, p_hi, p_lo), it, kt, lt, ms, tb, True,
                       (int(packed),))
+
+
+def gemv_df64_symm_slab_bcast(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *, ms,
+                              comp=None):
+    """`gemv_df64_symm_slab(packed=True)` over the packed hi plane (T*tb,
+    tb) and ONE (tb, tb) lo tile that every walk position reads at the
+    element's row and column within its tile (lam_tpu's constant (0, 0)
+    index map, any tile). Only the hi plane streams from memory; on a zero
+    tile the result is the full-plane kernel's over a zero plane, bit for
+    bit."""
+    what = "gemv_df64_symm_slab_bcast"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check(what, {"a_hi": a_hi, "a_lo": a_lo, "p_hi": p_hi, "p_lo": p_lo,
+                  "it": it, "kt": kt, "lt": lt}, a_hi.device)
+    tb, ms = _slab_geometry(what, a_hi, p_hi, it, kt, lt, ms, True, None)
+    if tuple(a_lo.shape) != (tb, tb):
+        raise ValueError(f"{what}: the lo tile must be ({tb}, {tb}), got "
+                         f"{tuple(a_lo.shape)}")
+    if a_hi.device.type == "cpu":
+        return gemv_df64_symm_slab_bcast_plain(a_hi, a_lo, p_hi, p_lo, it,
+                                               kt, lt, ms=ms)
+    return _slab_call(gemv_df64_symm_slab_bcast,
+                      "lam_gemv_df64_symm_slab_bcast",
+                      (a_hi, a_lo, p_hi, p_lo), it, kt, lt, ms, tb, True)
 
 
 def _comp_and_pairs(what, comp, p_hi, p_lo):
@@ -1311,31 +1403,71 @@ def gemv_fq_symm_slab(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt, *,
     slab-order pair).
 
     The kernel forms the cascade and accumulates in native f64, so `comp`
-    selects nothing, as in `gemv_fq_symm`. lam_tpu's single (tb, tb)
-    broadcast q2/q3 tile of generate mode is not ported."""
+    selects nothing, as in `gemv_fq_symm`. q2 and q3 may each be one
+    (tb, tb) broadcast tile (`gemv_fq_symm_slab_bcast`: generate mode's
+    zero residual planes)."""
     what = "gemv_fq_symm_slab"
-    _comp_and_pairs(what, comp, p_hi, p_lo)
-    for name, q in (("q2", q2), ("q3", q3)):
-        if q.shape != q1.shape:
-            tb = q1.shape[1]
-            if tuple(q.shape) == (tb, tb):
-                raise NotImplementedError(
-                    f"{what}: {name} is one broadcast ({tb}, {tb}) tile; "
-                    "the broadcast zero planes are not ported yet")
-            raise ValueError(f"{name} plane shape {tuple(q.shape)} != q1 "
-                             f"plane {tuple(q1.shape)} (or one broadcast "
-                             f"({tb}, {tb}) tile)")
-    _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
-                  "s3": s3, "p_hi": p_hi, "p_lo": p_lo, "it": it, "kt": kt,
-                  "lt": lt}, q1.device)
-    tb, ms = _slab_geometry(what, q1, p_hi, it, kt, lt, ms, True, None)
-    _check_scales(what, it.shape[0], {"s1": s1, "s2": s2, "s3": s3})
+    if _has_tile(q1, q2, q3):
+        return gemv_fq_symm_slab_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo,
+                                       it, kt, lt, ms=ms, comp=comp)
+    tb, ms = _fq_slab_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo,
+                             it, kt, lt, ms)
     if q1.device.type == "cpu":
         return gemv_fq_symm_slab_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo,
                                        it, kt, lt, ms=ms)
     return _slab_call(gemv_fq_symm_slab, "lam_gemv_fq_symm_slab",
                       (q1, q2, q3, s1, s2, s3, p_hi, p_lo), it, kt, lt, ms,
                       tb, True)
+
+
+def _has_tile(q1, q2, q3):
+    """True where q2 or q3 is not a plane of q1's shape: the broadcast
+    mode's operands (which raise there unless one (tb, tb) tile each)."""
+    return q2.shape != q1.shape or q3.shape != q1.shape
+
+
+def _check_tiles(q1, q2, q3):
+    """Raise lam_tpu's ValueError unless q2 and q3 are each a plane of
+    q1's shape or one (tb, tb) tile."""
+    tb = q1.shape[-1]
+    for name, q in (("q2", q2), ("q3", q3)):
+        if q.shape != q1.shape and tuple(q.shape) != (tb, tb):
+            raise ValueError(f"{name} plane shape {tuple(q.shape)} != q1 "
+                             f"plane {tuple(q1.shape)} (or one broadcast "
+                             f"({tb}, {tb}) tile)")
+
+
+def _fq_slab_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt,
+                    lt, ms):
+    """The fq slab walk's checks; returns (tb, ms)."""
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check_tiles(q1, q2, q3)
+    _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
+                  "s3": s3, "p_hi": p_hi, "p_lo": p_lo, "it": it, "kt": kt,
+                  "lt": lt}, q1.device)
+    tb, ms = _slab_geometry(what, q1, p_hi, it, kt, lt, ms, True, None)
+    _check_scales(what, it.shape[0], {"s1": s1, "s2": s2, "s3": s3})
+    return tb, ms
+
+
+def gemv_fq_symm_slab_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt,
+                            *, ms, comp=None):
+    """`gemv_fq_symm_slab` with q2 and/or q3 ONE (tb, tb) tile that every
+    walk position reads at the element's row and column within its tile
+    (lam_tpu's pinned block (0, 0), any tile); the other one, if any, a
+    plane of q1's shape. The scale tables stay per walk position. Only q1
+    streams from memory where both are tiles; on zero tiles the result is
+    the full-plane kernel's over zero planes, bit for bit."""
+    what = "gemv_fq_symm_slab_bcast"
+    tb, ms = _fq_slab_checks(what, comp, q1, q2, q3, s1, s2, s3, p_hi, p_lo,
+                             it, kt, lt, ms)
+    if q1.device.type == "cpu":
+        return gemv_fq_symm_slab_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi,
+                                             p_lo, it, kt, lt, ms=ms)
+    return _slab_call(gemv_fq_symm_slab_bcast, "lam_gemv_fq_symm_slab_bcast",
+                      (q1, q2, q3, s1, s2, s3, p_hi, p_lo), it, kt, lt, ms,
+                      tb, True,
+                      (int(q2.shape != q1.shape), int(q3.shape != q1.shape)))
 
 
 def gemv_dfq_symm_slab(ah_slab, alq_slab, sc, p_hi, p_lo, it, kt, lt, *,
@@ -1365,15 +1497,12 @@ def gemv_dfq_symm_slab(ah_slab, alq_slab, sc, p_hi, p_lo, it, kt, lt, *,
                       tb, True)
 
 
-_BROADCAST_TILE = ("the broadcast (tb, tb) tile of generate mode is not "
-                   "ported yet (ROADMAP Queue 1 items 8 and 10)")
-
-
-def _dual_call(wrapper, entry, operands, tb, mb, cb, pairs):
+def _dual_call(wrapper, entry, operands, tb, mb, cb, pairs, flags=()):
     """Launch the dual kernel `entry` of csrc/gemv_symm.cu for `wrapper`
     on the current stream: `operands` are the planes, scale tables and the
-    p and q vector(s) in the entry point's order. Returns (yd, yt) in f32,
-    or with pairs=True (an f64 walk) (yd_hi, yd_lo, yt_hi, yt_lo)."""
+    p and q vector(s) in the entry point's order, `flags` its int
+    arguments after mb and cb. Returns (yd, yt) in f32, or with pairs=True
+    (an f64 walk) (yd_hi, yd_lo, yt_hi, yt_lo)."""
     from lam_tpu_torch.ops._build import library
     lib = library()
     what = wrapper.__name__
@@ -1392,7 +1521,7 @@ def _dual_call(wrapper, entry, operands, tb, mb, cb, pairs):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, entry)(
             *(x.data_ptr() for x in (*operands, *out, part_d, part_t)),
-            mb, cb, stream)
+            mb, cb, *flags, stream)
     wrapper.launches += 1
     _raise_on(what, code)
     return tuple(out)
@@ -1424,16 +1553,15 @@ def gemv_df64_dual(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo, *, comp=None):
     """The df64 twin of `gemv_f32_dual` for S = buf_hi + buf_lo, p = p_hi
     + p_lo and q = q_hi + q_lo: returns (yd_hi, yd_lo, yt_hi, yt_lo), the
     f32 splits of S @ p and S^T @ q, formed and accumulated in native f64,
-    so `comp` selects nothing. lam_tpu's single (tb, tb) broadcast-zero lo
-    tile of generate mode is not ported."""
+    so `comp` selects nothing. The lo plane may be one (tb, tb) broadcast
+    tile (`gemv_df64_dual_bcast`: generate mode's zero lo plane)."""
     what = "gemv_df64_dual"
     _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
     if buf_lo.shape != buf_hi.shape:
         tb = buf_hi.shape[1]
         if tuple(buf_lo.shape) == (tb, tb):
-            raise NotImplementedError(
-                f"{what}: the lo plane is one ({tb}, {tb}) tile; "
-                + _BROADCAST_TILE)
+            return gemv_df64_dual_bcast(buf_hi, buf_lo, p_hi, p_lo, q_hi,
+                                        q_lo)
         raise ValueError(
             f"{what}: lo plane must match the hi plane "
             f"{tuple(buf_hi.shape)} or be a single ({tb}, {tb}) broadcast "
@@ -1444,6 +1572,29 @@ def gemv_df64_dual(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo, *, comp=None):
     if buf_hi.device.type == "cpu":
         return gemv_df64_dual_plain(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo)
     return _dual_call(gemv_df64_dual, "lam_gemv_df64_dual",
+                      (buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo), tb, mb, cb,
+                      True)
+
+
+def gemv_df64_dual_bcast(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo, *,
+                         comp=None):
+    """`gemv_df64_dual` over the hi rectangle's tiles (T*tb, tb) and ONE
+    (tb, tb) lo tile that every tile reads at the element's row and column
+    within its tile (lam_tpu's constant (0, 0) index map, any tile). Only
+    the hi plane streams from memory; on a zero tile the result is the
+    full-plane kernel's over a zero plane, bit for bit."""
+    what = "gemv_df64_dual_bcast"
+    _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
+    _check(what, {"a_hi": buf_hi, "a_lo": buf_lo, "p_hi": p_hi, "p_lo": p_lo,
+                  "q_hi": q_hi, "q_lo": q_lo}, buf_hi.device)
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, what)
+    if tuple(buf_lo.shape) != (tb, tb):
+        raise ValueError(f"{what}: the lo tile must be ({tb}, {tb}), got "
+                         f"{tuple(buf_lo.shape)}")
+    if buf_hi.device.type == "cpu":
+        return gemv_df64_dual_bcast_plain(buf_hi, buf_lo, p_hi, p_lo, q_hi,
+                                          q_lo)
+    return _dual_call(gemv_df64_dual_bcast, "lam_gemv_df64_dual_bcast",
                       (buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo), tb, mb, cb,
                       True)
 
@@ -1515,27 +1666,42 @@ def gemv_fq_dual(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
     element (the pad tiles' scales are not read). Returns (yd_hi, yd_lo,
     yt_hi, yt_lo). The kernel forms the cascade and accumulates in native
     f64, so `comp` selects nothing; the strip walk takes p and q 16-byte
-    aligned on the card. lam_tpu's single (tb, tb) broadcast q2/q3 tile of
-    generate mode is not ported."""
+    aligned on the card. q2 and q3 may each be one (tb, tb) broadcast tile
+    (`gemv_fq_dual_bcast`: generate mode's zero residual planes), unless
+    q1 is one tile itself (lam_tpu's refusal)."""
+    if _has_tile(q1, q2, q3):
+        return gemv_fq_dual_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
+                                  q_lo, comp=comp)
     return _fq_dual(gemv_fq_dual, gemv_fq_dual_plain, "lam_gemv_fq_dual",
                     q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, comp)
 
 
+def gemv_fq_dual_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
+                       comp=None):
+    """`gemv_fq_dual` with q2 and/or q3 ONE (tb, tb) tile that every tile
+    of the rectangle reads at the element's row and column within its tile
+    (lam_tpu's pinned block (0, 0), any tile); the other one, if any, a
+    plane of q1's shape. The scale tables stay per tile. On the strip walk
+    a stage of a tile plane is copied from the tile, which stays in L2;
+    on zero tiles the result is the full-plane kernel's over zero planes,
+    bit for bit."""
+    return _fq_dual(gemv_fq_dual_bcast, gemv_fq_dual_bcast_plain,
+                    "lam_gemv_fq_dual_bcast", q1, q2, q3, s1, s2, s3, p_hi,
+                    p_lo, q_hi, q_lo, comp,
+                    (int(q2.shape != q1.shape), int(q3.shape != q1.shape)))
+
+
 def _fq_dual(wrapper, plain, entry, q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
-             q_lo, comp):
-    """The fq dual matvec on the walk of the C entry point `entry`."""
+             q_lo, comp, flags=()):
+    """The fq dual matvec on the walk of the C entry point `entry`, with
+    the broadcast flags `flags` where the entry point takes them."""
     what = "gemv_fq_dual"
     _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
-    for name, qq in (("q2", q2), ("q3", q3)):
-        if qq.shape != q1.shape:
-            tb = q1.shape[1]
-            if tuple(qq.shape) == (tb, tb):
-                raise NotImplementedError(
-                    f"{what}: {name} is one ({tb}, {tb}) tile; "
-                    + _BROADCAST_TILE)
-            raise ValueError(f"{name} plane shape {tuple(qq.shape)} != q1 "
-                             f"plane {tuple(q1.shape)} (or one broadcast "
-                             f"({tb}, {tb}) tile)")
+    # a (tb, tb) q1 takes no tile: any other shape of q2/q3 raises here
+    _check_tiles(q1, q2, q3)
+    if _has_tile(q1, q2, q3) and not flags:
+        raise ValueError(f"{wrapper.__name__} reads full q2/q3 planes; one "
+                         "broadcast tile takes gemv_fq_dual_bcast")
     _check(what, {"q1": q1, "q2": q2, "q3": q3, "s1": s1, "s2": s2,
                   "s3": s3, "p_hi": p_hi, "p_lo": p_lo, "q_hi": q_hi,
                   "q_lo": q_lo}, q1.device)
@@ -1547,7 +1713,7 @@ def _fq_dual(wrapper, plain, entry, q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
         return plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo)
     return _dual_call(wrapper, entry,
                       (q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo), tb,
-                      mb, cb, True)
+                      mb, cb, True, flags)
 
 
 KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
@@ -1557,7 +1723,8 @@ KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_df64_dual, gemv_dfq_dual, gemv_q16_dual, gemv_fq_dual,
            gemv_q16_symm_bf16, gemv_q16_symm_slab_bf16, gemv_q16_dual_bf16,
            gemv_f32_symm_square, gemv_df64_symm_square, gemv_df64_symm_bcast,
-           gemv_fq_symm_bcast)
+           gemv_fq_symm_bcast, gemv_df64_symm_slab_bcast,
+           gemv_fq_symm_slab_bcast, gemv_df64_dual_bcast, gemv_fq_dual_bcast)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
@@ -1568,7 +1735,9 @@ PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_fq_dual_plain, gemv_q16_symm_bf16_plain,
          gemv_q16_symm_slab_bf16_plain, gemv_q16_dual_bf16_plain,
          gemv_f32_symm_square_plain, gemv_df64_symm_square_plain,
-         gemv_df64_symm_bcast_plain, gemv_fq_symm_bcast_plain)
+         gemv_df64_symm_bcast_plain, gemv_fq_symm_bcast_plain,
+         gemv_df64_symm_slab_bcast_plain, gemv_fq_symm_slab_bcast_plain,
+         gemv_df64_dual_bcast_plain, gemv_fq_dual_bcast_plain)
 
 
 def reset_counters():

@@ -30,7 +30,7 @@ import math
 import numpy as np
 import torch
 
-from lam_tpu_torch import io as lio
+from lam_tpu_torch import generate as gen
 from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.parallel.mesh import make_mesh
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
@@ -114,6 +114,15 @@ class ShardedDenseOperator(ops.LinearOperator):
         return layout.padded_size(n, math.lcm(TILE_K, TILE_M * g))
 
     @staticmethod
+    def _check_config(engine, comm):
+        if engine == "xla":
+            raise NotImplementedError("engine='xla' is not ported yet")
+        if engine not in ("auto", ops.DENSE_ENGINE, "pallas_symm"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if comm not in ("gather", "ring"):
+            raise ValueError(f"unknown comm strategy {comm!r}")
+
+    @staticmethod
     def from_row_block_fn(row_block_fn, n, mesh=None, precision="df64",
                           engine="auto", comm="gather", device="cuda"):
         """Build from row_block_fn(row_start, num_rows) -> the (num_rows,
@@ -121,15 +130,10 @@ class ShardedDenseOperator(ops.LinearOperator):
         (the per-rank MPI-IO read of the reference), zero-padded.
         precision 'f32' or 'df64'; engine 'auto', 'pallas' or
         'pallas_symm' (row blocks are not symmetric: the dense kernels)."""
-        if engine == "xla":
-            raise NotImplementedError("engine='xla' is not ported yet")
-        if engine not in ("auto", ops.DENSE_ENGINE, "pallas_symm"):
-            raise ValueError(f"unknown engine {engine!r}")
+        ShardedDenseOperator._check_config(engine, comm)
         if precision not in ("f32", "df64"):
             raise ValueError(f"ShardedDenseOperator precision must be "
                              f"'f32' or 'df64', got {precision!r}")
-        if comm not in ("gather", "ring"):
-            raise ValueError(f"unknown comm strategy {comm!r}")
         mesh = mesh or make_mesh(device=device)
         n_p = ShardedDenseOperator.shard_padded_size(n, mesh.size)
         m = n_p // mesh.size
@@ -149,6 +153,25 @@ class ShardedDenseOperator(ops.LinearOperator):
                                     comm)
 
     @staticmethod
+    def from_gen_tridiagonal(n, mesh=None, engine="auto", comm="gather",
+                             device="cuda"):
+        """Generate mode's tridiagonal built on the rank's device, shard
+        by shard (lam_tpu/parallel/pcg.py:476-503): this rank's (m, n_p)
+        rows of the f32 hi plane and a zero lo plane of the same shape (the
+        entries {0, 1, 2} are exact in f32). engine 'auto', 'pallas' or
+        'pallas_symm' all take the dense kernels: row shards are
+        rectangular."""
+        ShardedDenseOperator._check_config(engine, comm)
+        mesh = mesh or make_mesh(device=device)
+        n_p = ShardedDenseOperator.shard_padded_size(n, mesh.size)
+        m = n_p // mesh.size
+        rows = torch.arange(mesh.rank * m, (mesh.rank + 1) * m,
+                            device=mesh.device)
+        hi = gen._tridiag_block(n, rows, 0, n_p, mesh.device)
+        return ShardedDenseOperator((hi, torch.zeros_like(hi)), n, n_p,
+                                    torch.float64, "df64", mesh, comm)
+
+    @staticmethod
     def from_dense(a, mesh=None, precision="df64", engine="auto",
                    comm="gather", device="cuda"):
         a = np.asarray(a, dtype=np.float64)
@@ -158,18 +181,6 @@ class ShardedDenseOperator(ops.LinearOperator):
         return ShardedDenseOperator.from_row_block_fn(
             lambda s, m: a[s:s + m, :], n, mesh=mesh, precision=precision,
             engine=engine, comm=comm, device=device)
-
-    @staticmethod
-    def from_file(path, mesh=None, precision="df64", engine="auto",
-                  comm="gather", device="cuda"):
-        """Shard-wise file load: this rank reads only its row block."""
-        rows, cols = lio.read_header(path)
-        if rows != cols:
-            raise ValueError(f"{path}: matrix must be square "
-                             f"({rows}x{cols})")
-        return ShardedDenseOperator.from_row_block_fn(
-            lambda s, m: lio.read_matrix_rows(path, s, m), rows, mesh=mesh,
-            precision=precision, engine=engine, comm=comm, device=device)
 
     # -- solve path --------------------------------------------------------
 

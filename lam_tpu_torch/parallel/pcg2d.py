@@ -22,11 +22,11 @@ lam_tpu runs one shard_map program; here every rank of the grid runs the
 one-device CG loops of lam_tpu_torch/solver/cg.py on its block of the
 vectors with the grid's dot. The blocks of a symmetric matrix are not
 symmetric, so engine 'pallas_symm' folds to the dense engine 'pallas',
-as in lam_tpu. Not ported yet: precision 'f64' and engine 'xla' (the
-plain f64 path), `from_gen_tridiagonal` (generate mode), the Jacobi
-preconditioner (`diagonal`, `run_pcg`) and the block matvec
-(`prepare_b_block`). The symmetric grid, which stores each element once,
-is lam_tpu_torch/parallel/pcg2d_symm.py.
+as in lam_tpu. Generate mode (`from_gen_tridiagonal`) builds the rank's
+block on its device. Not ported yet: precision 'f64' and engine 'xla' (the
+plain f64 path), the Jacobi preconditioner (`diagonal`, `run_pcg`) and the
+block matvec (`prepare_b_block`). The symmetric grid, which stores each
+element once, is lam_tpu_torch/parallel/pcg2d_symm.py.
 """
 
 from __future__ import annotations
@@ -34,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lam_tpu_torch import io as lio
+from lam_tpu_torch import generate as gen
 from lam_tpu_torch.ops import layout
 from lam_tpu_torch.parallel.mesh import make_mesh2d
 from lam_tpu_torch.parallel.pcg import MATVEC, TILE_K, TILE_M
@@ -108,13 +108,9 @@ class Sharded2DOperator(GridOperator):
         return layout.padded_size(n, r * max(TILE_K, TILE_M))
 
     @staticmethod
-    def from_block_fn(block_fn, n, mesh=None, precision="df64",
-                      engine="auto", device="cuda"):
-        """Build from block_fn(row_start, col_start, rows, cols) -> that
-        f64 block of the UNPADDED matrix: this rank reads and stores only
-        its own block (the 2-D analog of the per-rank MPI-IO read),
-        zero-padded. precision 'f32' or 'df64'; engine 'auto', 'pallas' or
-        'pallas_symm' (blocks are not symmetric: the dense kernels)."""
+    def _geometry(n, mesh, precision, engine, device):
+        """(mesh, n_p, m) of a configuration the port takes; raises for
+        the others."""
         if engine == "xla" or precision == "f64":
             raise NotImplementedError(
                 "the plain f64 path of the 2-D grid (precision='f64', "
@@ -127,7 +123,18 @@ class Sharded2DOperator(GridOperator):
         mesh = mesh or make_mesh2d(device=device)
         check_active(mesh)
         n_p = Sharded2DOperator.block_padded_size(n, mesh.r)
-        m = n_p // mesh.r
+        return mesh, n_p, n_p // mesh.r
+
+    @staticmethod
+    def from_block_fn(block_fn, n, mesh=None, precision="df64",
+                      engine="auto", device="cuda"):
+        """Build from block_fn(row_start, col_start, rows, cols) -> that
+        f64 block of the UNPADDED matrix: this rank reads and stores only
+        its own block (the 2-D analog of the per-rank MPI-IO read),
+        zero-padded. precision 'f32' or 'df64'; engine 'auto', 'pallas' or
+        'pallas_symm' (blocks are not symmetric: the dense kernels)."""
+        mesh, n_p, m = Sharded2DOperator._geometry(n, mesh, precision,
+                                                   engine, device)
         r0, c0 = mesh.i * m, mesh.j * m
         block = np.zeros((m, m))
         src_h = max(0, min(n - r0, m))
@@ -155,24 +162,20 @@ class Sharded2DOperator(GridOperator):
             precision=precision, engine=engine, device=device)
 
     @staticmethod
-    def from_file(path, mesh=None, precision="df64", engine="auto",
-                  device="cuda"):
-        """Block-wise file load: only this rank's block's bytes are read
-        (a column-windowed read, `io.read_matrix_block`)."""
-        rows, cols = lio.read_header(path)
-        if rows != cols:
-            raise ValueError(f"{path}: matrix must be square "
-                             f"({rows}x{cols})")
-        return Sharded2DOperator.from_block_fn(
-            lambda r0, c0, h, w: lio.read_matrix_block(path, r0, c0, h, w),
-            rows, mesh=mesh, precision=precision, engine=engine,
-            device=device)
-
-    @staticmethod
-    def from_gen_tridiagonal(n, mesh=None, precision="df64", engine="auto"):
-        raise NotImplementedError(
-            "Sharded2DOperator.from_gen_tridiagonal (generate mode on the "
-            "device) is not ported yet (ROADMAP Queue 1 item 10)")
+    def from_gen_tridiagonal(n, mesh=None, precision="df64", engine="auto",
+                             device="cuda"):
+        """Generate mode's tridiagonal built on the rank's device, block by
+        block (lam_tpu/parallel/pcg2d.py:294-327): this rank's (m, m) block
+        of the f32 square, and for 'df64' a zero lo block (the entries
+        {0, 1, 2} are exact in f32). precision 'f32' or 'df64'."""
+        mesh, n_p, m = Sharded2DOperator._geometry(n, mesh, precision,
+                                                   engine, device)
+        rows = torch.arange(mesh.i * m, (mesh.i + 1) * m, device=mesh.device)
+        hi = gen._tridiag_block(n, rows, mesh.j * m, m, mesh.device)
+        if precision == "f32":
+            return Sharded2DOperator(hi, n, n_p, torch.float32, "f32", mesh)
+        return Sharded2DOperator((hi, torch.zeros_like(hi)), n, n_p,
+                                 torch.float64, "df64", mesh)
 
     # -- solve path --------------------------------------------------------
 

@@ -44,9 +44,12 @@ of the same buffers. With a source file and `pack_cache_src` a quantized
 rank publishes its pack to `<src>.shardpack/<storage>.r<R>.s<i*R+j>`
 (lam_tpu_torch/solver/pack_cache.py; byte-equal to lam_tpu's). lam_tpu runs
 XLA's f64 matmul off a TPU for the accurate matvec; the port runs its
-kernels on the card and their plain versions on the CPU. Not ported yet:
-generate mode (`from_gen_tridiagonal`, `from_gen_fq` and their broadcast
-(tb, tb) tiles) and the Jacobi preconditioner (`run_pcg`).
+kernels on the card and their plain versions on the CPU. Generate mode
+(`from_gen_tridiagonal`, `from_gen_fq`) builds each rank's triangle or
+half-slab on its device, with ONE zero (tb, tb) tile for the lo plane or
+for each of q2 and q3 that every tile reads (the broadcast modes of
+kernels 2 and 15 on the diagonal ranks, 12 and 19 on the others). Not
+ported yet: the Jacobi preconditioner (`run_pcg`).
 """
 
 from __future__ import annotations
@@ -56,7 +59,7 @@ import os
 import numpy as np
 import torch
 
-from lam_tpu_torch import io as lio
+from lam_tpu_torch import generate as gen
 from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.parallel.mesh import make_mesh2d
 from lam_tpu_torch.parallel.pcg2d import GridOperator, check_active
@@ -309,36 +312,68 @@ class Symm2DOperator(GridOperator):
             tb=tb, precision=precision, device=device)
 
     @staticmethod
-    def from_file(path, mesh=None, tb=None, precision="df64",
-                  pack_cache=False, device="cuda"):
-        """Block-wise file load: this rank reads only its triangle's or
-        half-slab's bytes (`io.read_matrix_block`). Symmetry is trusted
-        (CG's contract), as lam_tpu does. pack_cache=True (dfq/fq) reuses
-        and publishes this rank's shard cache beside the file."""
-        rows, cols = lio.read_header(path)
-        if rows != cols:
-            raise ValueError(f"{path}: matrix must be square "
-                             f"({rows}x{cols})")
-        return Symm2DOperator.from_block_fn(
-            lambda r0, c0, h, w: lio.read_matrix_block(path, r0, c0, h, w),
-            rows, mesh=mesh, tb=tb, precision=precision,
-            pack_cache_src=(str(path) if pack_cache
-                            and precision in ops.QUANT_LAYOUT else None),
-            device=device)
+    def _gen_plane(n, mesh, tb, device, diag, band):
+        """(mesh, tb, n_p, m, T, this rank's (T*tb, tb) buffer of the
+        tridiagonal with `diag` on the diagonal and `band` beside it, in
+        band's dtype), lam_tpu's per-rank `local_build`
+        (lam_tpu/parallel/pcg2d_symm.py:701-764) written into zeros: the
+        diagonal rank (i, i) its c diagonal walk tiles and the corners of
+        its tiles at it == kt + 1 (the packed walk over its block's global
+        tiles i*c + (it, kt)); rank (i, i-1) the cross-block corner
+        A[i*m, i*m - 1] at its rectangle's tile (0, c-1), element (0,
+        tb-1); every other rank zeros."""
+        mesh = mesh or make_mesh2d(device=device)
+        check_active(mesh)
+        tb, n_p, m, c, T = _geometry(n, mesh.r, tb)
+        i, j, dev = mesh.i, mesh.j, mesh.device
+        if i == j:
+            it, kt = (torch.as_tensor(x, dtype=torch.long, device=dev) + i * c
+                      for x in layout._symm_tables(c))
+            buf = gen._tridiag_packed(n, tb, it, kt, n_p // tb,
+                                      diag.to(dev), band.to(dev))
+        else:
+            buf = torch.zeros((T * tb, tb), dtype=band.dtype, device=dev)
+            if i == j + 1 and i * m < n:
+                buf[(c - 1) * tb, tb - 1] = band.to(dev)
+        return mesh, tb, n_p, m, T, buf
 
     @staticmethod
-    def from_gen_tridiagonal(n, mesh=None, tb=None):
-        raise NotImplementedError(
-            "Symm2DOperator.from_gen_tridiagonal (generate mode on the "
-            "device, with its broadcast (tb, tb) lo tile) is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
+    def from_gen_tridiagonal(n, mesh=None, tb=None, device="cuda"):
+        """Generate mode's tridiagonal built on the rank's device
+        (`_gen_plane`): the rank's f32 hi buffer and ONE zero (tb, tb) lo
+        tile (the entries {0, 1, 2} are exact in f32), which the diagonal
+        rank's triangle kernel and the others' dual kernel read at every
+        tile (their broadcast modes)."""
+        one = torch.tensor(1.0, dtype=torch.float32)
+        mesh, tb, n_p, m, T, hi = Symm2DOperator._gen_plane(
+            n, mesh, tb, device, 2 * one, one)
+        lo = torch.zeros((tb, tb), dtype=torch.float32, device=mesh.device)
+        return Symm2DOperator((hi, lo), n, n_p, mesh, tb)
 
     @staticmethod
-    def from_gen_fq(n, mesh=None, tb=None):
-        raise NotImplementedError(
-            "Symm2DOperator.from_gen_fq (generate mode on the device, with "
-            "its broadcast (tb, tb) q2/q3 tiles) is not ported yet (ROADMAP "
-            "Queue 1 item 10)")
+    def from_gen_fq(n, mesh=None, tb=None, device="cuda"):
+        """Generate mode's fq operator built on the rank's device
+        (lam_tpu/parallel/pcg2d_symm.py:774-862): the rank's q1 buffer with
+        the diagonal extracted (`_gen_plane`, exact against the scale
+        TRIDIAG_Q1_SCALE), ONE zero (tb, tb) tile each for q2 and q3 with
+        zero scales, and the diagonal pair (dh = 2 on real rows, dl = 0) on
+        the diagonal rank, zeros on the others (this module's layout; lam_tpu
+        replicates the pair over the grid row)."""
+        qv = torch.tensor(round(1.0 / gen.TRIDIAG_Q1_SCALE),
+                          dtype=torch.int16)
+        mesh, tb, n_p, m, T, q1 = Symm2DOperator._gen_plane(
+            n, mesh, tb, device, torch.zeros_like(qv), qv)
+        dev = mesh.device
+        zq = torch.zeros((tb, tb), dtype=torch.int16, device=dev)
+        s1 = torch.full((T,), gen.TRIDIAG_Q1_SCALE, dtype=torch.float32,
+                        device=dev)
+        zs = torch.zeros((T,), dtype=torch.float32, device=dev)
+        dh = torch.zeros((m,), dtype=torch.float32, device=dev)
+        if mesh.i == mesh.j:
+            rows = mesh.i * m + torch.arange(m, device=dev)
+            dh = torch.where(rows < n, 2.0, 0.0).to(torch.float32)
+        operand = (q1, zq, zq, s1, zs, zs, dh, torch.zeros_like(dh))
+        return Symm2DOperator(operand, n, n_p, mesh, tb, "fq")
 
     # -- solve path --------------------------------------------------------
 
@@ -362,8 +397,10 @@ class Symm2DOperator(GridOperator):
         elif self.mesh.i == self.mesh.j:
             c = self.m // self.tb
             dpos = [li * (li + 1) // 2 + li for li in range(c)]
-            tiles = join_f64(*(x.reshape(-1, self.tb, self.tb)[dpos]
-                               for x in self.operand))
+            # a broadcast lo tile (generate mode) is every tile's lo
+            tiles = join_f64(*(x.reshape(-1, self.tb, self.tb)[
+                dpos if x.shape == self.operand[0].shape else [0] * c]
+                for x in self.operand))
             d = torch.diagonal(tiles, dim1=1, dim2=2).reshape(self.m)
         else:
             d = torch.zeros(self.m, dtype=torch.float64, device=self.device)

@@ -40,9 +40,13 @@ the transpose terms yt (`_scatter_bands`) and all-reduces the n_p-vector.
 The all-reduce gives every rank the same bits, so every rank computes the
 same vectors and takes the same host decisions. lam_tpu runs XLA's f64
 matmul off a TPU for the accurate matvec; the port runs its slab kernels
-on the card and their plain versions on the CPU. Generate mode
-(`from_gen_tridiagonal`, `from_gen_fq` and its broadcast (tb, tb) q2/q3
-tile) is not ported.
+on the card and their plain versions on the CPU.
+
+Generate mode (`from_gen_tridiagonal`, `from_gen_fq`) builds each rank's
+storage on its own device from the rank's own walk tables: the slab, or
+the packed hi plane with ONE zero (tb, tb) lo tile (kernel 9's broadcast
+mode reads it at every tile), or the packed q1 plane with one zero tile
+each for q2 and q3 (kernel 17's).
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ import os
 import numpy as np
 import torch
 
-from lam_tpu_torch import io as lio
+from lam_tpu_torch import generate as gen
 from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.parallel.mesh import make_mesh
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
@@ -262,6 +266,63 @@ class SymmShardedOperator(ops.LinearOperator):
                                    STORAGES[packed])
 
     @staticmethod
+    def _gen_geometry(n, mesh, tb, device):
+        """(mesh, tb, n_p, m, this rank's tables (it, kt, lt) on its
+        device) of generate mode's operator."""
+        mesh = mesh or make_mesh(device=device)
+        tb = _validate_tb(layout.SYMM_TB if tb is None else tb)
+        n_p = band_padded_size(n, mesh.size, tb)
+        m = n_p // (2 * mesh.size)
+        tables = [ops._upload(x[mesh.rank], mesh.device)
+                  for x in _band_tables(mesh.size, m // tb, tb)]
+        return mesh, tb, n_p, m, tables
+
+    @staticmethod
+    def from_gen_tridiagonal(n, mesh=None, tb=None, packed=False,
+                             device="cuda"):
+        """Generate mode's tridiagonal built on the rank's device
+        (lam_tpu/parallel/pcg_symm.py:686-718): the rank's (2m, n_p) slab of
+        the f32 hi plane in band-pair row order and a zero lo slab, or
+        (packed=True) its walk's tiles of the hi plane, written from the
+        rank's own tables, and ONE zero (tb, tb) lo tile: the entries
+        {0, 1, 2} are exact in f32, so the lo plane is zero."""
+        mesh, tb, n_p, m, tables = SymmShardedOperator._gen_geometry(
+            n, mesh, tb, device)
+        dev = mesh.device
+        if packed:
+            it, kt = (x.long() for x in tables[:2])
+            hi = gen._tridiag_hi_packed_impl(n, tb, it, kt, n_p // tb)
+            lo = torch.zeros((tb, tb), dtype=torch.float32, device=dev)
+        else:
+            hi = gen._tridiag_block(
+                n, gen._slab_rows(mesh.size, m, mesh.rank, dev), 0, n_p, dev)
+            lo = torch.zeros_like(hi)
+        return SymmShardedOperator((hi, lo, *tables), n, n_p, mesh, m, tb,
+                                   STORAGES[packed])
+
+    @staticmethod
+    def from_gen_fq(n, mesh=None, tb=None, device="cuda"):
+        """Generate mode's fq operator built on the rank's device
+        (lam_tpu/parallel/pcg_symm.py:720-760): the q1 plane of the rank's
+        walk, exact against the scale TRIDIAG_Q1_SCALE (s1), ONE zero
+        (tb, tb) tile each for q2 and q3 with zero scales, and the diagonal
+        as the rank's slab-order pair (dh = 2 on real rows, dl = 0)."""
+        mesh, tb, n_p, m, tables = SymmShardedOperator._gen_geometry(
+            n, mesh, tb, device)
+        dev = mesh.device
+        T = tables[0].shape[0]
+        it, kt = (x.long() for x in tables[:2])
+        q1 = gen._tridiag_q1_packed_impl(n, tb, it, kt, n_p // tb)
+        zq = torch.zeros((tb, tb), dtype=torch.int16, device=dev)
+        s1 = torch.full((T,), gen.TRIDIAG_Q1_SCALE, dtype=torch.float32,
+                        device=dev)
+        zs = torch.zeros((T,), dtype=torch.float32, device=dev)
+        dh = gen._gen_diag_slab_rank(n, mesh.size, m, mesh.rank, dev)
+        operand = (q1, zq, zq, s1, zs, zs, dh, torch.zeros_like(dh),
+                   *tables)
+        return SymmShardedOperator(operand, n, n_p, mesh, m, tb, "fq")
+
+    @staticmethod
     def _quantized_pack(walk_tiles, storage, c, g, n, n_p, m, tb, its, kts,
                         lts, pack_cache_src):
         """Rank c's quantized pack as host buffers in operand order
@@ -326,24 +387,6 @@ class SymmShardedOperator(ops.LinearOperator):
             lambda s, rows: a[s:s + rows, :], n, mesh=mesh, tb=tb,
             packed=packed, precision=precision,
             pack_cache_src=pack_cache_src, device=device)
-
-    @staticmethod
-    def from_file(path, mesh=None, tb=None, packed=False, precision="df64",
-                  pack_cache=False, device="cuda"):
-        """Band-wise file load: this rank reads only its bands' rows.
-        Symmetry is trusted (CG's contract), as lam_tpu does.
-        pack_cache=True (dfq/fq) reuses and publishes this rank's shard
-        cache beside the file."""
-        rows, cols = lio.read_header(path)
-        if rows != cols:
-            raise ValueError(f"{path}: matrix must be square "
-                             f"({rows}x{cols})")
-        return SymmShardedOperator.from_row_block_fn(
-            lambda s, count: lio.read_matrix_rows(path, s, count), rows,
-            mesh=mesh, tb=tb, packed=packed, precision=precision,
-            pack_cache_src=(str(path) if pack_cache
-                            and precision in ops.QUANT_LAYOUT else None),
-            device=device)
 
     def as_f32(self):
         """f32 triangle-walk view sharing this operator's buffers (the hi

@@ -54,10 +54,20 @@ rank of a quantized storage).
 Every rank calls the same methods in the same order: loads, solves and
 measurements are collective.
 
-Still refused, with NotImplementedError: generate mode on the sharded
-backends, precision 'f64'/'auto', backend 'auto', engine 'xla', the
-preconditioner, checkpoints and the host outer loop. The device is
-explicit; asking for CUDA where there is none raises.
+Generate mode on the meshes builds each rank's part on its device, routed
+as lam_tpu's `_generate_fast` (lam_tpu/solver/api.py:351-399): 'fq'/'irfq'
+on the band pairs (engine 'auto' or 'pallas_symm_packed') or the symmetric
+grid (any symmetric engine, or 'auto') as the q1 plane with zero q2/q3
+tiles; 'df64'/'ir' as the row shards (engine 'auto'/'pallas'), the band
+pairs' slab ('pallas_symm') or packed hi plane with one zero lo tile
+('pallas_symm_packed'), the dense grid's blocks, or the symmetric grid's
+triangle and half-slabs with one zero lo tile. 'dfq'/'irq', and 'f32' on
+any mesh, take the host build through the file path's constructors over
+`tridiagonal_rows`, as lam_tpu's fallback does (:297-300).
+
+Still refused, with NotImplementedError: precision 'f64'/'auto', backend
+'auto', engine 'xla', the preconditioner, checkpoints and the host outer
+loop. The device is explicit; asking for CUDA where there is none raises.
 """
 
 from __future__ import annotations
@@ -198,7 +208,17 @@ class ConjugateGradient:
         self.n = rows
         storage = _BASE.get(self.precision, self.precision)
         if self.backend in ("sharded", "sharded2d"):
-            self.op = self._sharded_operator(filename, storage)
+            if self.pack_cache and storage not in QUANT_LAYOUT:
+                print("lam-cg: --pack-cache only accelerates "
+                      "backend=local f32/df64/ir/dfq/irq/fq/irfq and "
+                      "sharded/sharded2d dfq/irq/fq/irfq file loads; "
+                      "ignored for this backend/precision", file=sys.stderr)
+            self.op = self._sharded_operator(
+                storage, rows,
+                lambda s, m: lio.read_matrix_rows(filename, s, m),
+                lambda r0, c0, h, w: lio.read_matrix_block(filename, r0, c0,
+                                                           h, w),
+                str(filename) if self.pack_cache else None)
         elif self.engine in (DENSE_ENGINE, SQUARE_ENGINE):
             # the full square, as lam_tpu's file-mode fallback builds it
             if self.pack_cache:
@@ -217,35 +237,35 @@ class ConjugateGradient:
         self.timings["load_s"] = time.perf_counter() - t0
         return True
 
-    def _sharded_operator(self, filename, storage):
-        """This rank's part of the sharded operator, read from the file
-        (each rank reads only its own rows or block)."""
-        if self.pack_cache and storage not in QUANT_LAYOUT:
-            print("lam-cg: --pack-cache only accelerates "
-                  "backend=local f32/df64/ir/dfq/irq/fq/irfq and "
-                  "sharded/sharded2d dfq/irq/fq/irfq file loads; "
-                  "ignored for this backend/precision", file=sys.stderr)
+    def _sharded_operator(self, storage, n, row_fn, block_fn,
+                          pack_cache_src=None):
+        """This rank's part of the sharded operator, from reads of the
+        source matrix (row_fn(r0, rows) -> f64 rows, block_fn(r0, c0, h,
+        w) -> an f64 block; each rank reads only its own rows or block):
+        lam_tpu's `_build_operator` (lam_tpu/solver/api.py:112-200).
+        pack_cache_src names the source file of a quantized storage's
+        shard cache (the df64 storage has none and ignores it)."""
         engine = self._sharded_engine
         if self.backend == "sharded2d":
             if engine in SYMM_ENGINES:
                 from lam_tpu_torch.parallel.pcg2d_symm import Symm2DOperator
-                return Symm2DOperator.from_file(
-                    filename, mesh=self.mesh, precision=storage,
-                    pack_cache=self.pack_cache)
+                return Symm2DOperator.from_block_fn(
+                    block_fn, n, mesh=self.mesh, precision=storage,
+                    pack_cache_src=pack_cache_src)
             from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator
-            return Sharded2DOperator.from_file(
-                filename, mesh=self.mesh, precision=storage,
+            return Sharded2DOperator.from_block_fn(
+                block_fn, n, mesh=self.mesh, precision=storage,
                 engine=self.engine)
         if engine in SYMM_ENGINES:
             from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator
-            return SymmShardedOperator.from_file(
-                filename, mesh=self.mesh,
+            return SymmShardedOperator.from_row_block_fn(
+                row_fn, n, mesh=self.mesh,
                 packed=engine == "pallas_symm_packed",
                 precision=storage if storage in QUANT_LAYOUT else "df64",
-                pack_cache=self.pack_cache)
+                pack_cache_src=pack_cache_src)
         from lam_tpu_torch.parallel.pcg import ShardedDenseOperator
-        return ShardedDenseOperator.from_file(
-            filename, mesh=self.mesh, precision=storage, engine=engine,
+        return ShardedDenseOperator.from_row_block_fn(
+            row_fn, n, mesh=self.mesh, precision=storage, engine=engine,
             comm=self.comm)
 
     def generate_matrix(self, rows, cols=None):
@@ -253,18 +273,22 @@ class ConjugateGradient:
         module docstring); times the build as load_s."""
         if cols is not None and cols != rows:
             raise ValueError("generated matrix must be square")
-        if self.backend != "local":
-            raise NotImplementedError(
-                "lam-cg-torch: not ported yet: -s with --backend "
-                f"{self.backend} (generate mode on a mesh, ROADMAP Queue 1 "
-                "item 10)")
         if self.pack_cache:
             # generate mode has no source file to key a cache on
             print("lam-cg: --pack-cache only accelerates file-mode "
                   "loads; ignored in generate mode", file=sys.stderr)
         t0 = time.perf_counter()
         self.n = rows
-        self.op = self._generate_operator(rows)
+        if self.backend == "local":
+            self.op = self._generate_operator(rows)
+        else:
+            self.op = self._generate_mesh_operator(rows)
+            if self.op is None:  # lam_tpu's host build (api.py:297-300)
+                self.op = self._sharded_operator(
+                    _BASE.get(self.precision, self.precision), rows,
+                    lambda s, m: gen.tridiagonal_rows(s, m, rows),
+                    lambda r0, c0, h, w: gen.tridiagonal_rows(
+                        r0, h, rows)[:, c0:c0 + w])
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timings["load_s"] = time.perf_counter() - t0
@@ -316,6 +340,39 @@ class ConjugateGradient:
         return DenseOperator.from_dense(gen.tridiagonal_matrix(rows),
                                         precision=storage,
                                         engine=self.engine, device=dev)
+
+    def _generate_mesh_operator(self, rows):
+        """This rank's part of the operator of lam_tpu's `_generate_fast`
+        mesh branches (lam_tpu/solver/api.py:351-399), built on its device,
+        or None where lam_tpu takes the host build: 'dfq'/'irq', 'f32',
+        and 'fq'/'irfq' on another engine."""
+        storage = _BASE.get(self.precision, self.precision)
+        mesh, engine = self.mesh, self.engine
+        grid = self.backend == "sharded2d"
+        if storage == "fq":
+            if grid and engine in ("auto",) + SYMM_ENGINES:
+                from lam_tpu_torch.parallel.pcg2d_symm import Symm2DOperator
+                return Symm2DOperator.from_gen_fq(rows, mesh=mesh)
+            if not grid and engine in ("auto", "pallas_symm_packed"):
+                from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator
+                return SymmShardedOperator.from_gen_fq(rows, mesh=mesh)
+            return None
+        if storage != "df64":
+            return None
+        if grid:
+            if engine in SYMM_ENGINES:
+                from lam_tpu_torch.parallel.pcg2d_symm import Symm2DOperator
+                return Symm2DOperator.from_gen_tridiagonal(rows, mesh=mesh)
+            from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator
+            return Sharded2DOperator.from_gen_tridiagonal(rows, mesh=mesh,
+                                                          engine=engine)
+        if engine in SYMM_ENGINES:
+            from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator
+            return SymmShardedOperator.from_gen_tridiagonal(
+                rows, mesh=mesh, packed=engine == "pallas_symm_packed")
+        from lam_tpu_torch.parallel.pcg import ShardedDenseOperator
+        return ShardedDenseOperator.from_gen_tridiagonal(
+            rows, mesh=mesh, engine=engine, comm=self.comm)
 
     def generate_rhs(self):
         """Generate mode's right-hand side of ones."""

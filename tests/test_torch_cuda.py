@@ -21,7 +21,10 @@ the strip walk) take rectangles of 1 x 1 to 7 x 3 tiles with garbage pads,
 equal bit for bit to their two-pass controls, and refuse misaligned
 operands and a broken library. The stencil kernel takes padded grids up
 to the heat demo's 998 x 1198 interior (1024 x 1280), with zero edges and
-with the non-zero edge rows of a row-sharded grid.
+with the non-zero edge rows of a row-sharded grid. The broadcast modes of
+kernels 9, 17 (every rank's walk, G = 1 to 3) and 12, 19 (rectangles of
+one tile to 7 x 3) give the full-plane kernel's bits on a zero tile and
+match the f64 oracle on non-zero ones.
 """
 
 import numpy as np
@@ -401,7 +404,8 @@ def test_gemv_df64_cols_stream_walk(m, n, nb):
 
 def test_dense_stream_kernels_hold_the_bulk_copy():
     """The SASS of kernels 4, 5 and 6 (dense_stream) and of the strip walks
-    of kernels 16, 18 and 19 issues TMA bulk copies (UBLKCP); that of the
+    of kernels 16, 18, 19 and 19-bcast (its own planes type,
+    StripTilePlanes) issues TMA bulk copies (UBLKCP); that of the
     dense_rows kernels (3 and the df64 control) and of the strip walks'
     controls (the two-pass walk's pass 1 on the slab tables and on the q16
     and fq rectangles) none."""
@@ -416,10 +420,11 @@ def test_dense_stream_kernels_hold_the_bulk_copy():
             ("7FQPlane", "8RectWalk")))]
     assert sorted("DF64Stream" in k for k in stream) == [False, True, True]
     assert sorted("DF64Mat" in k for k in rows) == [False, True]
-    assert len(strip) == 3 and len(twopass) == 3
-    assert sorted(("StripPlanesILi3E" in k, "TableWalk" in k)
-                  for k in strip) == [(False, False), (False, True),
-                                      (True, False)]
+    assert len(strip) == 4 and len(twopass) == 3
+    assert sorted(("StripPlanesILi3E" in k, "StripTilePlanes" in k,
+                   "TableWalk" in k) for k in strip) == [
+        (False, False, False), (False, False, True), (False, True, False),
+        (True, False, False)]
     for k in stream + strip:
         assert any("UBLKCP" in line for line in kernels[k])
     for k in rows + twopass:
@@ -717,8 +722,8 @@ def test_slab_kernel_rejects_bad_tables():
     with pytest.raises(ValueError, match="int32"):
         gemv.gemv_f32_symm_slab(hi, p, it.long(), kt, lt, ms=2 * op.m,
                                 packed=True)
-    with pytest.raises(NotImplementedError, match="broadcast"):
-        gemv.gemv_df64_symm_slab(hi, lo[:512], p, p, it, kt, lt,
+    with pytest.raises(ValueError, match="broadcast tile"):
+        gemv.gemv_df64_symm_slab(hi, lo[:256], p, p, it, kt, lt,
                                  ms=2 * op.m, packed=True)
 
 
@@ -876,8 +881,8 @@ def test_quantized_slab_kernels_reject_bad_inputs():
     with pytest.raises(ValueError, match="table shape"):
         gemv.gemv_fq_symm_slab(q1, q2, q3, s1, s2[:-1], s3, p, p, it, kt, lt,
                                ms=ms)
-    with pytest.raises(NotImplementedError, match="broadcast"):
-        gemv.gemv_fq_symm_slab(q1, q2[:512], q3, s1, s2, s3, p, p, it, kt,
+    with pytest.raises(ValueError, match="plane shape"):
+        gemv.gemv_fq_symm_slab(q1, q2[:256], q3, s1, s2, s3, p, p, it, kt,
                                lt, ms=ms)
     with pytest.raises(ValueError, match="int16"):
         gemv.gemv_q16_symm_slab(q1.float(), s1, p, it, kt, lt, ms=ms)
@@ -1131,9 +1136,9 @@ def test_dual_kernels_reject_bad_inputs():
     with pytest.raises(ValueError, match="16-byte aligned"):
         gemv.gemv_f32_dual(torch.zeros(tb * tb + 1, device=dev)[1:].view(
             tb, tb), q, q)
-    with pytest.raises(NotImplementedError, match="items 8 and 10"):
-        gemv.gemv_df64_dual(torch.zeros(2 * tb, tb, device=dev), buf, q, q,
-                            q, q)
+    with pytest.raises(ValueError, match="broadcast"):
+        gemv.gemv_df64_dual(torch.zeros(2 * tb, tb, device=dev), buf[:256],
+                            q, q, q, q)
 
 
 # (mb, cb) of the strip walk's rectangles: one tile (8 strips, fewer than
@@ -1851,3 +1856,194 @@ def test_generate_mode_solves_on_the_card(precision, engine, kernel):
     ax[:-1] += x[1:]
     gate = 1e-5 if precision == "f32" else 2e-9
     assert np.linalg.norm(1 - ax) / np.sqrt(n) <= gate
+
+
+# -- the broadcast modes of kernels 9, 17, 12 and 19 (generate mode on the
+# meshes) ------------------------------------------------------------------
+
+# (n, ranks): a 3-tile walk of a non-multiple n, the band pairs of G=2 and
+# the bench size, and G=3 (84 tiles a rank)
+BCAST_SLAB_SIZES = [(500, 1), (1500, 2), (10000, 2), (4000, 3)]
+
+
+def _bcast_counts(name):
+    """The launches of `name`'s broadcast mode and of its full-plane
+    kernel, and whether any plain version ran."""
+    counts = ops.counters()
+    return (counts[name + "_bcast"], counts[name],
+            any(v for k, v in counts.items() if k.endswith("_plain")))
+
+
+def _join(o):
+    return torch.cat([o[0].double() + o[1].double(),
+                      o[2].double() + o[3].double()])
+
+
+@pytest.mark.parametrize("n,g", BCAST_SLAB_SIZES)
+def test_slab_broadcast_tiles(n, g):
+    """Kernels 9 and 17 with one (512, 512) tile for lo, or for q2 and/or
+    q3, on every rank's walk: a zero tile gives the full-plane kernel's
+    bits over a zero plane; non-zero tiles (and one tile beside a full
+    plane) against the f64 oracle of the stored values and the plain
+    version at 1e-13; bitwise repeats."""
+    tb = layout.SYMM_TB
+    a, p = _shard_matrix(n, seed=n + 7 * g)
+    for c in range(g):
+        mesh = pmesh.Mesh(c, g, "cuda")
+        hi, lo, it, kt, lt = pcg_symm.SymmShardedOperator.from_dense(
+            a, mesh=mesh, packed=True).operand
+        fq = pcg_symm.SymmShardedOperator.from_dense(
+            a, mesh=mesh, precision="fq")
+        ms, T = 2 * fq.m, it.shape[0]
+        ph, pl = _cuda_pair(p, fq.n_padded)
+        p64 = ph.double() + pl.double()
+        walk = (it, kt, lt)
+
+        def oracle(tiles):
+            return torch.cat(gemv._slab_parts(tiles, p64, *walk, ms, tb,
+                                              True))
+
+        zero = torch.zeros(tb, tb, device="cuda")
+        ops.reset_counters()
+        out = gemv.gemv_df64_symm_slab(hi, zero, ph, pl, *walk, ms=ms,
+                                       packed=True)
+        torch.cuda.synchronize()
+        assert _bcast_counts("gemv_df64_symm_slab") == (1, 0, False)
+        full = gemv.gemv_df64_symm_slab(hi, torch.zeros_like(hi), ph, pl,
+                                        *walk, ms=ms, packed=True)
+        assert all(torch.equal(u, v) for u, v in zip(out, full))
+        tile = lo[:tb].clone() * 3.0
+        out = gemv.gemv_df64_symm_slab_bcast(hi, tile, ph, pl, *walk, ms=ms)
+        want = oracle(hi.double() + tile.double().repeat(T, 1))
+        assert _rel(_join(out), want) <= 1e-13
+        assert _rel(_join(gemv.gemv_df64_symm_slab_bcast_plain(
+            hi, tile, ph, pl, *walk, ms=ms)), want) <= 1e-13
+        again = gemv.gemv_df64_symm_slab_bcast(hi, tile, ph, pl, *walk, ms=ms)
+        assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+        q1, q2, q3, s1, s2, s3 = fq.operand[:6]
+        zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
+        ops.reset_counters()
+        out = gemv.gemv_fq_symm_slab(q1, zt, zt, s1, s2, s3, ph, pl, *walk,
+                                     ms=ms)
+        torch.cuda.synchronize()
+        assert _bcast_counts("gemv_fq_symm_slab") == (1, 0, False)
+        zp = torch.zeros_like(q1)
+        full = gemv.gemv_fq_symm_slab(q1, zp, zp, s1, s2, s3, ph, pl, *walk,
+                                      ms=ms)
+        assert all(torch.equal(u, v) for u, v in zip(out, full))
+        for t2, t3 in ((q2[(T - 1) * tb:].clone(), q3[:tb].clone()),
+                       (q2[:tb].clone(), q3)):
+            args = (q1, t2, t3, s1, s2, s3, ph, pl, *walk)
+            out = gemv.gemv_fq_symm_slab_bcast(*args, ms=ms)
+            tiles = sum(gemv._tile_plane(q, q1).double()
+                        * s.double().repeat_interleave(tb)[:, None]
+                        for q, s in ((q1, s1), (t2, s2), (t3, s3)))
+            want = oracle(tiles)
+            assert _rel(_join(out), want) <= 1e-13
+            assert _rel(_join(gemv.gemv_fq_symm_slab_bcast_plain(
+                *args, ms=ms)), want) <= 1e-13
+            again = gemv.gemv_fq_symm_slab_bcast(*args, ms=ms)
+            assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+
+@pytest.mark.parametrize("mb,cb", STRIP_RECTS)
+def test_dual_broadcast_tiles(mb, cb):
+    """Kernels 12 and 19 with one (512, 512) tile for lo, or for q2 and/or
+    q3, on rectangles of one tile to 7 x 3 with two garbage pad tiles (3 x
+    5 and up stream more 32-row stages than kernel 19's ring of two
+    holds): a zero tile gives the full-plane kernel's bits over a zero
+    plane; non-zero tiles (and one tile beside a full plane) against the
+    f64 oracle of the stored values and the plain version at 1e-13;
+    bitwise repeats."""
+    tb = layout.SYMM_TB
+    ms, n = mb * tb, cb * tb
+    packs, vecs = _dual_case(ms, n, 2, seed=300 + 10 * mb + cb)
+    hi, lo = packs["df64"]
+    p64 = vecs[0].double() + vecs[1].double()
+    q64 = vecs[2].double() + vecs[3].double()
+
+    def oracle(planes, scales):
+        stored = _stored_rect(planes, scales, ms, n)
+        return torch.cat([stored @ p64, stored.T @ q64])
+
+    zero = torch.zeros(tb, tb, device="cuda")
+    ops.reset_counters()
+    out = gemv.gemv_df64_dual(hi, zero, *vecs)
+    torch.cuda.synchronize()
+    assert _bcast_counts("gemv_df64_dual") == (1, 0, False)
+    full = gemv.gemv_df64_dual(hi, torch.zeros_like(hi), *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, full))
+    tile = lo[:tb].clone() * 3.0
+    out = gemv.gemv_df64_dual_bcast(hi, tile, *vecs)
+    want = oracle([hi, gemv._tile_plane(tile, hi)], [])
+    assert _rel(_join(out), want) <= 1e-13
+    assert _rel(_join(gemv.gemv_df64_dual_bcast_plain(hi, tile, *vecs)),
+                want) <= 1e-13
+    again = gemv.gemv_df64_dual_bcast(hi, tile, *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+    q1, q2, q3, s1, s2, s3 = packs["fq"]
+    zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
+    ops.reset_counters()
+    out = gemv.gemv_fq_dual(q1, zt, zt, s1, s2, s3, *vecs)
+    torch.cuda.synchronize()
+    assert _bcast_counts("gemv_fq_dual") == (1, 0, False)
+    zp = torch.zeros_like(q1)
+    full = gemv.gemv_fq_dual(q1, zp, zp, s1, s2, s3, *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, full))
+    last = (mb * cb - 1) * tb  # the rectangle's last real tile
+    for t2, t3 in ((q2[last:last + tb].clone(), q3[:tb].clone()),
+                   (q2[:tb].clone(), q3)):
+        args = (q1, t2, t3, s1, s2, s3, *vecs)
+        out = gemv.gemv_fq_dual_bcast(*args)
+        want = oracle([q1, gemv._tile_plane(t2, q1),
+                       gemv._tile_plane(t3, q1)], [s1, s2, s3])
+        assert _rel(_join(out), want) <= 1e-13
+        assert _rel(_join(gemv.gemv_fq_dual_bcast_plain(*args)), want) \
+            <= 1e-13
+        again = gemv.gemv_fq_dual_bcast(*args)
+        assert all(torch.equal(u, v) for u, v in zip(out, again))
+
+
+def test_broadcast_modes_refuse_and_have_no_fallback(monkeypatch):
+    """The slab storage takes no tile (lam_tpu's wording); kernel 19
+    refuses misaligned operands and its control the tiles; a broken
+    library raises, and no plain version runs."""
+    tb = layout.SYMM_TB
+    op = pcg_symm.SymmShardedOperator.from_dense(
+        _shard_matrix(1500, 1)[0], mesh=pmesh.Mesh(0, 2, "cuda"))
+    hi, lo, it, kt, lt = op.operand
+    p = torch.zeros(op.n_padded, device="cuda")
+    zero = torch.zeros(tb, tb, device="cuda")
+    with pytest.raises(ValueError, match="plane shapes differ"):
+        gemv.gemv_df64_symm_slab(hi, zero, p, p, it, kt, lt)
+    packs, vecs = _dual_case(tb, 2 * tb, 2, seed=400)
+    q1, q2, q3, s1, s2, s3 = packs["fq"]
+    zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
+    ops.reset_counters()
+    probe.reset_counters()
+    with pytest.raises(ValueError, match="gemv_fq_dual_bcast"):
+        probe.gemv_fq_dual_twopass(q1, zt, zt, s1, s2, s3, *vecs)
+    off = torch.zeros(2 * tb + 1, device="cuda")[1:]  # 4 bytes in
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_fq_dual(q1, zt, zt, s1, s2, s3, off, off, *vecs[2:])
+    assert not any(ops.counters().values())
+    assert not any(probe.counters().values())
+    from lam_tpu_torch.ops import _build
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(_build, "library", broken)
+    pk = pcg_symm.SymmShardedOperator.from_dense(
+        _shard_matrix(1500, 1)[0], mesh=pmesh.Mesh(0, 2, "cuda"),
+        packed=True).operand
+    for call in (
+            lambda: gemv.gemv_df64_symm_slab(pk[0], zero, p, p, *pk[2:],
+                                             ms=2 * op.m, packed=True),
+            lambda: gemv.gemv_df64_dual(packs["df64"][0], zero, *vecs),
+            lambda: gemv.gemv_fq_dual(q1, zt, zt, s1, s2, s3, *vecs)):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    assert not any(v for k, v in ops.counters().items()
+                   if k.endswith("_plain"))

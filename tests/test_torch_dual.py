@@ -290,18 +290,30 @@ def test_dual_kernels_reject_bad_planes_and_scales():
 
 def test_dual_kernels_refuse_the_broadcast_tile():
     """lam_tpu's generate mode hands the dual kernels ONE (tb, tb) zero
-    tile for the lo or q2/q3 plane; the port names the work that brings
-    it."""
+    tile for the lo or q2/q3 plane: routed to the broadcast modes (their
+    plain versions here). What they refuse, with lam_tpu's words: a shape
+    that is neither form, and tiles beside a q1 that is one tile itself."""
     two = _zeros((2 * TB, TB))
     twoq = _zeros((2 * TB, TB), torch.int16)
     tile, tileq = _zeros((TB, TB)), _zeros((TB, TB), torch.int16)
     v = _zeros(TB)
     pair = (v, v, v, v)
-    with pytest.raises(NotImplementedError, match="items 8 and 10"):
-        gemv.gemv_df64_dual(two, tile, *pair)
+    scales = (_zeros(2), _zeros(2), _zeros(2))
+    gemv.reset_counters()
+    gemv.gemv_df64_dual(two, tile, *pair)
     for planes in ((twoq, tileq, twoq), (twoq, twoq, tileq)):
-        with pytest.raises(NotImplementedError, match="items 8 and 10"):
-            gemv.gemv_fq_dual(*planes, _zeros(2), _zeros(2), _zeros(2), *pair)
+        gemv.gemv_fq_dual(*planes, *scales, *pair)
+    counts = gemv.counters()
+    assert counts["gemv_df64_dual_bcast_plain"] == 1
+    assert counts["gemv_fq_dual_bcast_plain"] == 2
+    with pytest.raises(ValueError, match="broadcast"):
+        gemv.gemv_df64_dual(two, _zeros((TB, TB // 2)), *pair)
+    with pytest.raises(ValueError, match="plane shape"):
+        gemv.gemv_fq_dual(twoq, _zeros((3 * TB, TB), torch.int16), twoq,
+                          *scales, *pair)
+    with pytest.raises(ValueError, match="plane shape"):
+        gemv.gemv_fq_dual(tileq, twoq, tileq, _zeros(1), _zeros(1),
+                          _zeros(1), *pair)
 
 
 def test_dual_kernels_are_registered():
@@ -313,7 +325,7 @@ def test_dual_kernels_are_registered():
     for name in names:
         assert name in kernels and name + "_plain" in plain
         assert name in ops.counters() and name + "_plain" in ops.counters()
-    assert len(gemv.KERNELS) == len(gemv.PLAIN) == 26
+    assert len(gemv.KERNELS) == len(gemv.PLAIN) == 30
     from lam_tpu_torch.ops import _build
     for name in names:
         assert "lam_" + name in _build.SIGNATURES

@@ -159,8 +159,8 @@ def _refusals(ms=256, n=512):
     ("q16", lambda a: (*a[:2], a[2].to("meta"), a[3]), ValueError,
      "expected"),
     ("q16", lambda a: (*a[:2], a[2].double(), a[3]), ValueError, "float32"),
-    ("fq", lambda a: (a[0], a[1][:TB], *a[2:]), NotImplementedError,
-     "broadcast"),
+    ("fq", lambda a: (a[0], a[1][:2 * TB], *a[2:]), ValueError,
+     "plane shape"),
     ("fq", lambda a: (*a[:4], a[4][:-1], *a[5:]), ValueError, "table shape"),
     ("fq", lambda a: (*a[:7], a[7][:-1], *a[8:]), ValueError, "differ"),
     ("fq", lambda a: (*a[:6], a[6][::2].contiguous(), *a[7:]), ValueError,
@@ -177,5 +177,22 @@ def test_controls_refuse_what_their_kernels_refuse(what, edit, error, match):
     for fn in (getattr(gemv, name), getattr(probe, f"{name}_twopass")):
         with pytest.raises(error, match=match):
             fn(*args)
+    assert not any(probe.counters().values())
+    assert not any(ops.counters().values())
+
+
+def test_fq_control_refuses_the_broadcast_tiles_its_kernel_routes():
+    """The two-pass control reads full q2/q3 planes only: one (tb, tb)
+    tile, which gemv_fq_dual hands to its broadcast mode, is refused there
+    and nothing runs."""
+    fq = list(_refusals()[1])
+    fq[1] = fq[1][:TB].contiguous()
+    probe.reset_counters()
+    ops.reset_counters()
+    gemv.gemv_fq_dual(*fq)
+    assert ops.counters()["gemv_fq_dual_bcast_plain"] == 1
+    ops.reset_counters()
+    with pytest.raises(ValueError, match="gemv_fq_dual_bcast"):
+        probe.gemv_fq_dual_twopass(*fq)
     assert not any(probe.counters().values())
     assert not any(ops.counters().values())

@@ -14,8 +14,8 @@
   `from_packed_f32`, `from_packed_planes` with the lo tile,
   `from_df64_planes(engine="pallas_symm")`), the facade and the CLI
   against lam_tpu's (the CSV contract, iteration counts, -s with -A, the
-  --pack-cache notice, file mode with --engine pallas_symm, the sharded
-  refusal).
+  --pack-cache notice, file mode with --engine pallas_symm, -s on a mesh
+  of one rank).
 
 On the tridiagonal the f32 recurrence of the refinement modes is
 sensitive to the order of f32 sums: at n=200 the port's ir count moves
@@ -472,15 +472,16 @@ def test_gen_cli_rules_match_lam_tpu(tmp_path, capsys):
                  "Generating the system ...",
                  "Did not converge in 5 iterations"):
         assert line in out.splitlines() or line in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tcli.main(["-s", "100", "--backend", "sharded", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        ConjugateGradient(backend="sharded2d", device="cpu",
-                          mesh=_FakeMesh()).generate_matrix(100)
-
-
-class _FakeMesh:
-    device = torch.device("cpu")
+    # the meshes take -s too: a mesh of one rank needs no process group
+    for backend in ("sharded", "sharded2d"):
+        row = _csv(tcli.main, ["-s", "100", "-i", "5", "--backend", backend,
+                               "-o", str(tmp_path / "x.bin"), "--device",
+                               "cpu"])
+        assert row[:2] == ["100", "1"] and row[6] == "6"
+    cg = ConjugateGradient(backend="sharded2d", engine="pallas_symm_packed",
+                           device="cpu")
+    cg.generate_matrix(100)
+    assert type(cg.op).__name__ == "Symm2DOperator"
 
 
 def test_file_mode_pallas_symm_matches_lam_tpu(tmp_path):

@@ -164,10 +164,14 @@ def test_plane_precisions_use_the_cache(src, matrix):
 SHARD_TB = 128
 
 
-def _shard_op(src, c, g, storage, pack_cache=True):
-    return pcg_symm.SymmShardedOperator.from_file(
-        src, mesh=pmesh.Mesh(c, g, "cpu"), tb=SHARD_TB, precision=storage,
-        pack_cache=pack_cache, device="cpu")
+def _shard_op(src, c, g, storage, pack_cache=True, packed=False):
+    """Rank c's operator read from the file, as the facade reads it: only
+    its bands' rows, with the shard cache where pack_cache is set."""
+    return pcg_symm.SymmShardedOperator.from_row_block_fn(
+        lambda s, count: tio.read_matrix_rows(src, s, count),
+        tio.read_header(src)[0], mesh=pmesh.Mesh(c, g, "cpu"), tb=SHARD_TB,
+        packed=packed, precision=storage,
+        pack_cache_src=src if pack_cache else None, device="cpu")
 
 
 def _shard_specs(op, storage):
@@ -259,7 +263,5 @@ def test_shard_cache_is_off_by_default_and_refuses_a_changed_source(src,
     assert pc.save_shard(src, "dfq", "g", 2, 0, N, op.n_padded, SHARD_TB,
                          bufs)
     # the df64 pair has no shard cache: pack_cache is ignored for it
-    pcg_symm.SymmShardedOperator.from_file(
-        src, mesh=pmesh.Mesh(0, 2, "cpu"), tb=SHARD_TB, packed=True,
-        pack_cache=True, device="cpu")
+    _shard_op(src, 0, 2, "df64", packed=True)
     assert os.listdir(f"{src}.shardpack") == ["dfq.g2.s0"]

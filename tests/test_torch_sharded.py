@@ -223,13 +223,25 @@ def test_gemv_df64_symm_slab_plain_matches_f64(g, mt, packed):
 
 
 def test_df64_slab_refuses_the_broadcast_lo_tile():
-    op = _rank_op(pcg_symm.SymmShardedOperator, _symmetric(512, 3), 0, 2,
-                  tb=TB, packed=True)
-    hi, lo, it, kt, lt = op.operand
+    """The slab storage takes no lo tile, in lam_tpu's words; the packed
+    storage routes one to kernel 9's broadcast mode (its plain version
+    here), and a shape that is neither form raises."""
+    a = _symmetric(512, 3)
+    hi, lo, it, kt, lt = _rank_op(pcg_symm.SymmShardedOperator, a, 0, 2,
+                                  tb=TB).operand
     p = torch.zeros(512)
-    with pytest.raises(NotImplementedError, match="broadcast"):
-        gemv.gemv_df64_symm_slab(hi, lo[:TB], p, p, it, kt, lt, ms=2 * op.m,
-                                 packed=True)
+    with pytest.raises(ValueError, match="plane shapes differ"):
+        gemv.gemv_df64_symm_slab(hi, lo[:TB, :TB].contiguous(), p, p, it, kt,
+                                 lt, tb=TB)
+    op = _rank_op(pcg_symm.SymmShardedOperator, a, 0, 2, tb=TB, packed=True)
+    hi, lo, it, kt, lt = op.operand
+    gemv.reset_counters()
+    gemv.gemv_df64_symm_slab(hi, lo[:TB], p, p, it, kt, lt, ms=2 * op.m,
+                             packed=True)
+    assert gemv.counters()["gemv_df64_symm_slab_bcast_plain"] == 1
+    with pytest.raises(ValueError, match="broadcast tile"):
+        gemv.gemv_df64_symm_slab(hi, lo[:2 * TB], p, p, it, kt, lt,
+                                 ms=2 * op.m, packed=True)
 
 
 QSLAB_CASES = [(1, 2), (2, 2), (3, 1)]
@@ -329,9 +341,9 @@ def test_quantized_slab_walks_refuse_what_lam_tpu_refuses():
                   tb=TB, precision="fq")
     q1, q2, q3, s1, s2, s3, _, _, it, kt, lt = op.operand
     p, ms = torch.zeros(512), 2 * op.m
-    with pytest.raises(NotImplementedError, match="broadcast"):
-        gemv.gemv_fq_symm_slab(q1, q2[:TB], q3, s1, s2, s3, p, p, it, kt, lt,
-                               ms=ms)
+    with pytest.raises(ValueError, match="plane shape"):
+        gemv.gemv_fq_symm_slab(q1, q2[:2 * TB], q3, s1, s2, s3, p, p, it, kt,
+                               lt, ms=ms)
     with pytest.raises(ValueError, match="table shape"):
         gemv.gemv_q16_symm_slab(q1, s1[:-1], p, it, kt, lt, ms=ms)
     with pytest.raises(ValueError, match="walk table has"):
@@ -952,7 +964,9 @@ def test_sharded_configurations_refused():
                                                 precision="f32",
                                                 device="cpu")
     for name in ("from_gen_tridiagonal", "from_gen_fq"):  # generate mode
-        assert not hasattr(pcg_symm.SymmShardedOperator, name)
+        with pytest.raises(ValueError, match="power-of-two"):
+            getattr(pcg_symm.SymmShardedOperator, name)(
+                256, mesh=pmesh.Mesh(0, 1, "cpu"), tb=192, device="cpu")
     with pytest.raises(ValueError, match="symmetric"):
         pcg_symm.SymmShardedOperator.from_dense(
             np.triu(_symmetric(256, 1)), device="cpu")
@@ -974,9 +988,9 @@ def test_sharded_cli_flags_refused(capsys):
                       "--engine", "pallas_symm_packed", "--device",
                       "cpu"]) == 1  # the symmetric 2-D grid stores a pair
     assert "supports precision df64/ir" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="not ported yet: -s"):
-        tcli.main(["-s", "100", "--backend", "sharded", "--precision",
-                   "irfq", "--device", "cpu"])  # generate mode
+    assert tcli.main(["-s", "100", "-A", "A.bin", "--backend", "sharded",
+                      "--precision", "irfq", "--device", "cpu"]) == 1
+    assert "cannot be used with -s" in capsys.readouterr().err
     assert tcli.main(["--backend", "sharded", "--precision", "dfq",
                       "--engine", "pallas_symm", "--device", "cpu"]) == 1
     assert "implies packed storage" in capsys.readouterr().err

@@ -184,8 +184,9 @@ def test_grid_refusals(system):
     with pytest.raises(ValueError, match="square"):
         pcg2d.Sharded2DOperator.from_dense(a[:, :10], mesh=mesh,
                                            device="cpu")
-    with pytest.raises(NotImplementedError, match="generate mode"):
-        pcg2d.Sharded2DOperator.from_gen_tridiagonal(100, mesh=mesh)
+    with pytest.raises(NotImplementedError, match="plain f64 path"):
+        pcg2d.Sharded2DOperator.from_gen_tridiagonal(100, mesh=mesh,
+                                                     precision="f64")
     op = pcg2d.Sharded2DOperator.from_dense(a, mesh=mesh, device="cpu")
     for call in (op.diagonal, lambda: op.run_pcg(None, 1, 1e-9),
                  lambda: op.prepare_b_block(None)):

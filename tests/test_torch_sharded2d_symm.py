@@ -155,6 +155,15 @@ def _no_pack(*_):
     raise AssertionError("the shard cache missed: a rank packed its block")
 
 
+def _from_file(src, mesh, tb, precision, pack_cache=False, device="cpu"):
+    """A rank's operator read from the file, as the facade reads it: only
+    its block's bytes, with the shard cache where pack_cache is set."""
+    return sym.Symm2DOperator.from_block_fn(
+        lambda r0, c0, h, w: tio.read_matrix_block(src, r0, c0, h, w),
+        tio.read_header(src)[0], mesh=mesh, tb=tb, precision=precision,
+        pack_cache_src=src if pack_cache else None, device=device)
+
+
 @pytest.mark.parametrize("storage", ["dfq", "fq"])
 def test_shard_files_interchangeable_with_lam_tpu(matrix_file, storage,
                                                   monkeypatch):
@@ -168,9 +177,9 @@ def test_shard_files_interchangeable_with_lam_tpu(matrix_file, storage,
     assert paths == [jpc.shard_cache_path(src, storage, "r", r, k)
                      for k in range(r * r)]
     # the port writes, lam_tpu reads every rank's pack without packing
-    mine = [sym.Symm2DOperator.from_file(
-        src, mesh=pmesh.Mesh2D(k, r, "cpu"), tb=TB, precision=storage,
-        pack_cache=True, device="cpu") for k in range(r * r)]
+    mine = [_from_file(src, mesh=pmesh.Mesh2D(k, r, "cpu"), tb=TB,
+                       precision=storage, pack_cache=True)
+            for k in range(r * r)]
     written = [open(p, "rb").read() for p in paths]
     jmesh = jpcg2d.make_mesh2d(r)
     ref = jsym.Symm2DOperator.from_block_fn(
@@ -192,31 +201,26 @@ def test_shard_files_interchangeable_with_lam_tpu(matrix_file, storage,
     assert [open(p, "rb").read() for p in paths] == written
     monkeypatch.setattr(sym, "_pack_chip_block", _no_pack)
     for k, op in enumerate(mine):
-        again = sym.Symm2DOperator.from_file(
-            src, mesh=pmesh.Mesh2D(k, r, "cpu"), tb=TB, precision=storage,
-            pack_cache=True, device="cpu")
+        again = _from_file(src, mesh=pmesh.Mesh2D(k, r, "cpu"), tb=TB,
+                           precision=storage, pack_cache=True)
         for x, y in zip(op.operand, again.operand):
             assert torch.equal(x, y)
     # another grid, storage or tile width is a miss, not an error
     with pytest.raises(AssertionError, match="cache missed"):
-        sym.Symm2DOperator.from_file(src, mesh=pmesh.Mesh2D(0, 1, "cpu"),
-                                     tb=TB, precision=storage,
-                                     pack_cache=True, device="cpu")
+        _from_file(src, mesh=pmesh.Mesh2D(0, 1, "cpu"), tb=TB,
+                   precision=storage, pack_cache=True)
     with pytest.raises(AssertionError, match="cache missed"):
-        sym.Symm2DOperator.from_file(src, mesh=pmesh.Mesh2D(0, r, "cpu"),
-                                     tb=256, precision=storage,
-                                     pack_cache=True, device="cpu")
+        _from_file(src, mesh=pmesh.Mesh2D(0, r, "cpu"), tb=256,
+                   precision=storage, pack_cache=True)
 
 
 def test_shard_cache_is_off_by_default(matrix_file):
     a, src = matrix_file
     shutil.rmtree(f"{src}.shardpack", ignore_errors=True)
-    sym.Symm2DOperator.from_file(src, mesh=pmesh.Mesh2D(1, 2, "cpu"), tb=TB,
-                                 precision="fq", device="cpu")
+    _from_file(src, mesh=pmesh.Mesh2D(1, 2, "cpu"), tb=TB, precision="fq")
     # the df64 storage has no shard cache, asked for or not
-    sym.Symm2DOperator.from_file(src, mesh=pmesh.Mesh2D(1, 2, "cpu"), tb=TB,
-                                 precision="df64", pack_cache=True,
-                                 device="cpu")
+    _from_file(src, mesh=pmesh.Mesh2D(1, 2, "cpu"), tb=TB, precision="df64",
+               pack_cache=True)
     assert not os.path.exists(f"{src}.shardpack")
 
 
@@ -326,8 +330,10 @@ def test_sym2d_refusals():
                                       tb=TB, device="cpu")
     for ctor in (sym.Symm2DOperator.from_gen_tridiagonal,
                  sym.Symm2DOperator.from_gen_fq):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-            ctor(100, mesh=mesh, tb=TB)
+        with pytest.raises(RuntimeError, match="outside the 2x2 grid"):
+            ctor(100, mesh=pmesh.Mesh2D(4, 2, "cpu"), tb=TB)
+        with pytest.raises(ValueError, match="power-of-two"):
+            ctor(100, mesh=mesh, tb=192)
     op = sym.Symm2DOperator.from_dense(a, mesh=mesh, tb=TB, device="cpu")
     with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
         op.run_pcg(None, 1, 1e-9)

@@ -109,21 +109,32 @@ def launch_cluster(g, jobs, out, timeout_s, device="cpu"):
 
 
 def _operator(job, mesh):
+    """This rank's part of the job's operator, read from its matrix file
+    (each rank reads only its own rows or block)."""
     storage = _BASE.get(job["precision"], job["precision"])
+    path = job["matrix"]
+    n = lio.read_header(path)[0]
+    src = path if job.get("pack_cache", False) else None
+
+    def rows(s, count):
+        return lio.read_matrix_rows(path, s, count)
+
+    def block(r0, c0, h, w):
+        return lio.read_matrix_block(path, r0, c0, h, w)
+
     if job["op"] == "dense":
-        return ShardedDenseOperator.from_file(
-            job["matrix"], mesh=mesh, precision=storage, comm=job["comm"])
+        return ShardedDenseOperator.from_row_block_fn(
+            rows, n, mesh=mesh, precision=storage, comm=job["comm"])
     if job["op"] == "grid":
-        return Sharded2DOperator.from_file(job["matrix"], mesh=mesh,
-                                           precision=storage)
+        return Sharded2DOperator.from_block_fn(block, n, mesh=mesh,
+                                               precision=storage)
     if job["op"] == "symgrid":
-        return Symm2DOperator.from_file(
-            job["matrix"], mesh=mesh, tb=job["tb"], precision=storage,
-            pack_cache=job.get("pack_cache", False))
-    return SymmShardedOperator.from_file(
-        job["matrix"], mesh=mesh, tb=job["tb"],
-        packed=job.get("packed", False), precision=storage,
-        pack_cache=job.get("pack_cache", False))
+        return Symm2DOperator.from_block_fn(
+            block, n, mesh=mesh, tb=job["tb"], precision=storage,
+            pack_cache_src=src)
+    return SymmShardedOperator.from_row_block_fn(
+        rows, n, mesh=mesh, tb=job["tb"], packed=job.get("packed", False),
+        precision=storage, pack_cache_src=src)
 
 
 def _run(job, args, out, meshes):
