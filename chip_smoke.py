@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the thirty-nine kernels (the solver's thirty-one and
+2. Holds each of the forty-one kernels (the solver's thirty-three and
    the eight q16 probes) against its plain PyTorch
    version at the main path's shapes. The eight one-device kernels at N=10000 padded
    to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
@@ -34,7 +34,15 @@
      (torch.mv over the f32 or f64 square, or over the f64 hi square for
      the df64 broadcast, which computes the same function) and, in turns,
      beside its packed sibling (kernel 1 for the df64 broadcast: the same
-     plane streamed; kernels 15 and 14 for the fq broadcast);
+     plane streamed; kernels 15 and 14 for the fq broadcast); the fq
+     broadcast's kernel for tiles of zeros, gemv_fq_symm_zero (the strip
+     walk over q1 alone, csrc/strip_walk.cuh, which generate mode's
+     operators take): bit for bit the zero planes' and the tile-reading
+     walk's (its control), timed so (its `kernels` entry, bound by the
+     bytes of q1, s1 and the vectors) and against the control
+     LIBRARY_REPEATS times in turns, kernel 15 over zero planes and
+     lam_stream_i16 on q1 beside, failing unless it is below the control
+     in every repeat, its passes split by torch.profiler;
    - kernels 4, 5 and 6 (gemv_df64, gemv_f32_cols, gemv_df64_cols) run
      the dense_stream walk of csrc/gemv_dense.cu: their SASS holds the TMA
      bulk copy (UBLKCP) and that of the dense_rows kernels (kernel 3 and
@@ -48,11 +56,13 @@
      kernel 6 over three copies in turn);
    - kernels 16, 18, 18-bf16, 19 and 19-bcast (gemv_q16_symm_slab,
      gemv_q16_dual, gemv_q16_dual_bf16, gemv_fq_dual, gemv_fq_dual_bcast)
-     run the strip walk of
+     and the zero-tile kernels of 15-bcast and 9-bcast (gemv_fq_symm_zero,
+     gemv_df64_symm_slab_zero) run the strip walk of
      csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
      controls, the two-pass walks gemv_q16_symm_slab_twopass,
-     gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass and
-     gemv_fq_dual_twopass, none (18-bf16's walk and its control hold HMMA);
+     gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass,
+     gemv_fq_dual_twopass and the tile-reading walks of 15-bcast and
+     9-bcast, none (18-bf16's walk and its control hold HMMA);
      ptxas reports no spill for them. Kernel
      16's (yd, yt) equal its control's bit for bit on every rank's tables
      of G=2 and G=4, and it is timed against the control LIBRARY_REPEATS
@@ -152,7 +162,14 @@
    oracle of the stored values (1e-13), bitwise repeats; timed on zero
    tiles, the q1 planes and the half-slab's hi over three copies in turn,
    in turns with the full-plane kernel and the f32 or q16 walk of the same
-   plane.
+   plane; kernel 9's kernel for a lo tile of zeros,
+   gemv_df64_symm_slab_zero (the strip walk over hi alone), bit for bit
+   the zero plane's and the tile-reading walk's (its control, on +0.0 and
+   -0.0 tiles), timed so over three hi copies in turn (its `kernels`
+   entry, bound by the bytes of hi, the tables and the vectors) and
+   against the control LIBRARY_REPEATS times in turns, kernel 9 over a
+   zero plane and lam_stream_i16 over hi's bytes beside, failing unless
+   it is below the control in every repeat.
 3. Writes the benchmark system (random_spd_matrix_fast(10000,
    seed=2024), random_rhs(10000, seed=2034)) in the binary format to a
    temporary directory and solves it through the port's CLI, in
@@ -248,16 +265,23 @@
    N=10000 with -e 1e-9 (GEN_RUNS) df64, ir, fq, irfq, dfq and irq on the
    packed engine (df64/ir: the packed hi plane and one zero lo tile,
    kernel 2's broadcast mode; fq/irfq: the q1 plane and zero q2/q3 tiles,
-   kernel 15's), df64 and ir with --engine pallas_symm (the square walks)
-   and df64 with --engine pallas; each converged with a TRUE relative
-   residual <= 2e-9 computed on the host by the O(N) tridiagonal product
-   (no N^2 matrix is built on the host), its kernels launched and the
-   other storages' not, no plain version, and df64's count within 1% of a
-   host f64 CG's on the same system. Then the reference's gen-sweep
+   kernel 15's kernel for tiles of zeros, gemv_fq_symm_zero, and never
+   its tile-reading walk), df64 and ir with --engine pallas_symm (the
+   square walks) and df64 with --engine pallas; each converged with a
+   TRUE relative residual <= 2e-9 computed on the host by the O(N)
+   tridiagonal product (no N^2 matrix is built on the host), its kernels
+   launched and the other storages' not, no plain version, and df64's
+   count within 1% of a host f64 CG's on the same system. Then the
+   tile-reading walks of kernels 15 and 9 on operators built from
+   generate mode's planes at TILES_N with a tile handed in that is not
+   zero (TILES_EPS * I), solved by cg_solve to 1e-9: each converged with
+   a TRUE residual <= 2e-9 of that system, the tile-reading walk launched
+   and the zero-tile kernel not (`handed_tiles_runs`). Then the
+   reference's gen-sweep
    probes at N=150000 (-i 15, CSV num_iter 16), one at a time: df64 (the
    45.16 GB hi plane and one lo tile), ir (kernel 1 on the same plane)
    and irfq (the 22.58 GB q1 plane: kernel 14's bf16 engine, which `auto`
-   picks there, and kernel 15's broadcast mode); df64's x within 1e-10 of
+   picks there, and gemv_fq_symm_zero); df64's x within 1e-10 of
    the host f64 CG's after 15 iterations, every probe's residual equal to
    the host's TRUE residual of its x within 1e-6; load_s (the device
    build) and avg_gemv_s printed beside the plane's byte bound; the
@@ -267,21 +291,35 @@
    G=2's band walk, rank (1, 0)'s half-slab of R=2): zero tiles equal to
    the full-plane kernels over zero planes bit for bit, the operands and
    non-zero tiles against the plain versions and the f64 oracle at 1e-13,
-   bitwise repeats. Then G rank processes of this script on the
+   bitwise repeats; one device's gen fq operator and the grid's diagonal
+   rank (0, 0) multiply by gemv_fq_symm_zero alone, bit for bit the
+   tile-reading walk's and the zero planes' product, and
+   gemv_df64_symm_slab_zero on the band walk's packed df64 gives the
+   tile-reading walk's bits. Then G rank processes of this script on the
    one card over gloo, as in phase 5, through the port's CLI. At N=4000
    (-e 1e-9; padded to 4096, so the walks meet the within-rank and
    cross-block corners) MESH_GEN_RUNS: ring-ir, slab-ir, packed-df64,
-   packed-ir and packed-irfq at G=2 (kernels 5/6; 8/9; 9's broadcast
-   mode; 8 and 9's; 16 and 17's), grid-ir-4 (3, 4) and, on the symmetric
-   grid, symgrid-df64-4, symgrid-ir-4 and symgrid-irfq-4 (diagonal ranks
-   1 and 2's broadcast mode or 14 and 15's, off-diagonal ranks 11 and
-   12's or 18 and 19's); each converged with a TRUE residual <= 2e-9 on
+   packed-ir and packed-irfq at G=2 (kernels 5/6; 8/9; 9's kernel for a
+   zero tile; 8 and 9's; 16 and 17's), grid-ir-4 (3, 4) and, on the
+   symmetric grid, symgrid-df64-4, symgrid-ir-4 and symgrid-irfq-4
+   (diagonal ranks 1 and 2's broadcast mode or 14 and 15's kernel for
+   zero tiles, off-diagonal ranks 11 and 12's or 18 and 19's); each
+   converged with a TRUE residual <= 2e-9 on
    the host, procs = G, every rank's kernels launched and no other, no
    plain version, df64's count within 1% of a host f64 CG's. Then, one at
    a time after their cluster's runs, the N=150000 probes (-i 15):
    packed-df64 and packed-irfq at G=2, symgrid-df64-4 and symgrid-irfq-4,
    held as phase 8's probes; load_s, avg_gemv_s and the ranks' plane bytes
-   beside their bound, the q16 engine of each rank; the phase's seconds.
+   beside their bound, the q16 engine of each rank; no rank launches a
+   tile-reading walk of kernels 15 or 9; the phase's seconds.
+10. Phase 2's kernel-against-plain checks again, without their timings,
+   in FRESH_CHECKS fresh processes of this script started together
+   (`chip_smoke.py --fresh-checks`) on this run's library: each must exit
+   0; one that fails prints the library's path (its hash) and the card's
+   name, power limit, temperature, SM clock and uncorrected ECC errors,
+   and fails the run: a check that held in phase 2 and fails in a fresh
+   process is a fault (one earlier chip call saw kernels disagree with
+   their plain versions in a fresh process, once, for no cause found).
 
 Prints {"kernels": [...]} on the line before the last (each solver
 kernel's launches summed over the runs of phases 3-6, 8 and 9, every
@@ -376,6 +414,7 @@ PACK_CACHE = {"irfq": "fq", "irq": "dfq"}
 SHARD_G = (2, 4)     # rank counts of the sharded checks and runs
 _RING = ("gemv_f32_cols", "gemv_df64_cols")
 _SLAB = ("gemv_f32_symm_slab", "gemv_df64_symm_slab")
+_SLAB_TILE = ("gemv_df64_symm_slab_bcast", "gemv_df64_symm_slab_zero")
 _TRI = ("gemv_f32_symm", "gemv_df64_symm")
 _QFQ = ("gemv_q16_symm_slab", "gemv_fq_symm_slab")
 _LOCAL_Q = ("gemv_q16_symm", "gemv_fq_symm", "gemv_dfq_symm")
@@ -471,6 +510,10 @@ WALK_RUN_ITERS = {"ir-pallas": 365, "df64-pallas": 358, "ring-ir": 365,
                   "symgrid-irfq-warm-4": 375, "symgrid-fq-4": 358,
                   "symgrid-irfq-mxu-4": 394}
 LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6, 16, 18, 19, 20
+# and of the zero-tile walks of 15-bcast and 9-bcast
+TIMED = True  # off in phase 10's fresh processes: checks only, no timing
+FRESH_CHECKS = 2  # phase 10: fresh processes that repeat phase 2's checks
+FRESH_TIMEOUT_S = 600  # a fresh process that takes longer is killed
 HEAT_IR_ITERS = 4448  # heat `ir` at 1200 x 1000, every chip run (PERF.md 5)
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
@@ -480,8 +523,13 @@ GEN_PROBE_N = 150000   # phase 8: the reference's gen sweep size, -i 15
 GEN_PROBE_ITERS = 15
 GEN_X_GATE = 1e-10   # the df64 probe's x against the host f64 CG's x
 GEN_ERR_GATE = 1e-6  # a probe's residual against the host TRUE residual
+TILES_N = 10240      # phase 8's operators over a tile handed in: no padding
+TILES_EPS = 2.0 ** -8  # their broadcast tile is TILES_EPS * I
 _SQUARE = ("gemv_f32_symm_square", "gemv_df64_symm_square")
-_BCAST = ("gemv_df64_symm_bcast", "gemv_fq_symm_bcast")
+_BCAST = ("gemv_df64_symm_bcast", "gemv_fq_symm_bcast", "gemv_fq_symm_zero")
+# the tile-reading walks of kernels 15 and 9, which generate mode's tiles
+# (zeros, counted when its operators are built) never take
+_TILE_WALKS = ("gemv_fq_symm_bcast", "gemv_df64_symm_slab_bcast")
 # phase 8: (run, CLI flags, kernels it must launch, kernels it must not
 # launch): what lam_tpu's _generate_fast builds on its device
 GEN_RUNS = (
@@ -490,10 +538,11 @@ GEN_RUNS = (
     ("gen-ir", ["--precision", "ir"],
      ("gemv_f32_symm", "gemv_df64_symm_bcast"), ("gemv_df64_symm",)
      + _SQUARE),
-    ("gen-fq", ["--precision", "fq"], ("gemv_fq_symm_bcast",),
-     ("gemv_fq_symm",)),
+    ("gen-fq", ["--precision", "fq"], ("gemv_fq_symm_zero",),
+     ("gemv_fq_symm", "gemv_fq_symm_bcast")),
     ("gen-irfq", ["--precision", "irfq"],
-     ("gemv_q16_symm", "gemv_fq_symm_bcast"), ("gemv_fq_symm",)),
+     ("gemv_q16_symm", "gemv_fq_symm_zero"),
+     ("gemv_fq_symm", "gemv_fq_symm_bcast")),
     ("gen-dfq", ["--precision", "dfq"], ("gemv_dfq_symm",), _BCAST),
     ("gen-irq", ["--precision", "irq"], ("gemv_f32_symm", "gemv_dfq_symm"),
      _BCAST),
@@ -510,7 +559,7 @@ GEN_RUNS = (
 GEN_PROBES = (
     ("gen-df64-150k", "df64", ("gemv_df64_symm_bcast",), "hi"),
     ("gen-ir-150k", "ir", ("gemv_f32_symm", "gemv_df64_symm_bcast"), "hi"),
-    ("gen-irfq-150k", "irfq", ("gemv_q16_symm_bf16", "gemv_fq_symm_bcast"),
+    ("gen-irfq-150k", "irfq", ("gemv_q16_symm_bf16", "gemv_fq_symm_zero"),
      "q1"),
 )
 
@@ -527,14 +576,15 @@ MESH_GEN_RUNS = (
     ("gen-ring-ir", 2, ["--precision", "ir", "--comm", "ring"], _RING,
      ("gemv_f32", "gemv_df64")),
     ("gen-slab-ir", 2, ["--precision", "ir", "--engine", "pallas_symm"],
-     _SLAB, ("gemv_df64_symm_slab_bcast",) + _TRI),
+     _SLAB, _SLAB_TILE + _TRI),
     ("gen-packed-df64", 2, ["--precision", "df64", "--engine",
                             "pallas_symm_packed"],
-     ("gemv_df64_symm_slab_bcast",), ("gemv_df64_symm_slab",)),
+     ("gemv_df64_symm_slab_zero",),
+     ("gemv_df64_symm_slab", "gemv_df64_symm_slab_bcast")),
     ("gen-packed-ir", 2, ["--precision", "ir", "--engine",
                           "pallas_symm_packed"],
-     ("gemv_f32_symm_slab", "gemv_df64_symm_slab_bcast"),
-     ("gemv_df64_symm_slab",)),
+     ("gemv_f32_symm_slab", "gemv_df64_symm_slab_zero"),
+     ("gemv_df64_symm_slab", "gemv_df64_symm_slab_bcast")),
     ("gen-packed-irfq", 2, ["--precision", "irfq"],
      ("gemv_q16_symm_slab", "gemv_fq_symm_slab_bcast"),
      ("gemv_fq_symm_slab",) + _BF16),
@@ -546,7 +596,7 @@ MESH_GEN_RUNS = (
      (("gemv_f32_symm", "gemv_df64_symm_bcast"),
       ("gemv_f32_dual", "gemv_df64_dual_bcast")), ()),
     ("gen-symgrid-irfq-4", 4, _SYMGRID + ["--precision", "irfq"],
-     (("gemv_q16_symm", "gemv_fq_symm_bcast"),
+     (("gemv_q16_symm", "gemv_fq_symm_zero"),
       ("gemv_q16_dual", "gemv_fq_dual_bcast")), ()))
 # the N=150000 probes, after their cluster's converged runs, one at a time:
 # (run, ranks, CLI flags, kernels it must launch: every rank's, or the
@@ -556,13 +606,13 @@ MESH_GEN_RUNS = (
 MESH_GEN_PROBES = (
     ("gen-packed-df64-150k", 2, ["--precision", "df64", "--engine",
                                  "pallas_symm_packed"],
-     ("gemv_df64_symm_slab_bcast",)),
+     ("gemv_df64_symm_slab_zero",)),
     ("gen-packed-irfq-150k", 2, ["--precision", "irfq"],
      ("gemv_q16_symm_slab_bf16", "gemv_fq_symm_slab_bcast")),
     ("gen-symgrid-df64-4-150k", 4, _GEN_SYMGRID + ["--precision", "df64"],
      (("gemv_df64_symm_bcast",), ("gemv_df64_dual_bcast",))),
     ("gen-symgrid-irfq-4-150k", 4, _SYMGRID + ["--precision", "irfq"],
-     (("gemv_q16_symm", "gemv_fq_symm_bcast"),
+     (("gemv_q16_symm", "gemv_fq_symm_zero"),
       ("gemv_q16_dual_bf16", "gemv_fq_dual_bcast"))))
 # the q16 walks' kernels, by engine: which one each rank ran
 _Q16_WALKS = ("gemv_q16_symm", "gemv_q16_symm_bf16", "gemv_q16_symm_slab",
@@ -584,9 +634,14 @@ def _median_ms(fns):
     of BATCH back-to-back calls, taken in turns so all see the same card
     state. Each batch is enqueued behind a ~3 ms device-side spin, so the
     card runs it without waiting on the host: a wrapper call can cost the
-    host more time than the q16 kernel takes on the card (PERF.md §5)."""
+    host more time than the q16 kernel takes on the card (PERF.md §5).
+    Where TIMED is off (phase 10's fresh processes), each fn runs once and
+    every time is nan: no time is taken."""
     for fn in fns:
         fn()
+    if not TIMED:
+        torch.cuda.synchronize()
+        return [float("nan")] * len(fns)
     times = [[] for _ in fns]
     for _ in range(TIMED_CALLS):
         for fn, ts in zip(fns, times):
@@ -673,12 +728,16 @@ def _against_library(name, kernel, library, earlier, earlier_label,
 # instantiation (plane, walk) in the mangled names
 TWOPASS_CONTROLS = {"kernel 16's": ("8Q16Plane", "TableWalk"),
                     "kernel 18's": ("8Q16Plane", "8RectWalk"),
-                    "kernel 19's": ("7FQPlane", "8RectWalk")}
+                    "kernel 19's": ("7FQPlane", "8RectWalk"),
+                    "kernel 15-bcast's": ("11FQTilePlane", "TriangleWalk"),
+                    "kernel 9-bcast's": ("13DF64TilePlane", "TableWalk")}
 # the strip walk's instantiations (planes, walk) -> their kernel
 STRIP_WALKS = {("StripPlanesILi1E", "TableWalk"): "kernel 16",
                ("StripPlanesILi1E", "RectWalk"): "kernel 18",
                ("StripPlanesILi3E", "RectWalk"): "kernel 19",
-               ("StripTilePlanes", "RectWalk"): "kernel 19-bcast"}
+               ("StripTilePlanes", "RectWalk"): "kernel 19-bcast",
+               ("StripQ1Planes", "TriangleWalk"): "kernel 15-bcast",
+               ("StripHiPlanes", "TableWalk"): "kernel 9-bcast"}
 
 
 def _strip_walk_of(name):
@@ -688,9 +747,10 @@ def _strip_walk_of(name):
 
 def stream_sass(build):
     """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
-    walks of kernels 16, 18, 18-bf16, 19 and 19-bcast holds the TMA bulk
-    copy (UBLKCP); that of the dense_rows kernels (3 and the df64 control) and of
-    the four strip walks' controls (the two-pass walk's pass 1) none; kernel
+    walks of kernels 16, 18, 18-bf16, 19, 19-bcast and the zero-tile walks
+    of 15-bcast and 9-bcast holds the TMA bulk copy (UBLKCP); that of the
+    dense_rows kernels (3 and the df64 control) and of the strip walks'
+    controls (the two-pass walk's pass 1) none; kernel
     18-bf16's walk (strip_mma_pass1) and its control (q16_bf16_pass1 on the
     rectangle) hold tensor-core products (HMMA). Prints each strip walk's
     registers from ptxas' report in the build log, which must show no spill
@@ -732,8 +792,8 @@ def stream_sass(build):
            == sorted(STRIP_WALKS.values())
            and len(walks["strip_pass1"]) == len(STRIP_WALKS)
            and all(walks["strip_pass1"]),
-           "a strip walk (kernels 16, 18, 19, 19-bcast) is missing or issues "
-           "no TMA bulk copy")
+           "a strip walk (kernels 16, 18, 19, 19-bcast, 15-bcast and 9-bcast "
+           "on zero tiles) is missing or issues no TMA bulk copy")
     _check(len(walks["dense_rows"]) == 2
            and len(walks["two-pass control"]) == len(TWOPASS_CONTROLS),
            "SASS: a dense_rows kernel or a strip walk's control is missing")
@@ -977,15 +1037,47 @@ def mode_kernels_vs_plain(gemv, layout, a_dev, a32, hi, lo, ph, pl):
     return out
 
 
+def _zero_walk_in_turns(name, bound_ms, kernel, control, sibling,
+                       sibling_label, floor, floor_label):
+    """A zero-tile kernel against its control (the tile-reading walk on
+    the same zero tiles) in turns, LIBRARY_REPEATS times, with its
+    full-plane sibling over zero planes and the read floor of the plane
+    it streams beside them; prints each repeat and fails unless the walk
+    is below its control in every repeat. Returns the walk's times."""
+    times, below = [], True
+    for r in range(LIBRARY_REPEATS):
+        ms, ctl, sib, fl = _median_ms([kernel, control, sibling, floor])
+        times.append(ms)
+        below = below and ms < ctl
+        print(f"{name} repeat {r + 1}: zero-tile walk {ms:.4f} ms, "
+              f"tile-reading control {ctl:.4f} ms (x{ms / ctl:.4f}), "
+              f"{sibling_label} {sib:.4f} ms, {floor_label} {fl:.4f} ms; "
+              f"bound {bound_ms:.4f} ms ({bound_ms / ms:.2f} of it)")
+    print(f"{name} zero-tile walk over {LIBRARY_REPEATS} repeats: "
+          f"{min(times):.4f}-{max(times):.4f} ms; below its control in "
+          f"every repeat: {below}")
+    _check(below or not TIMED, f"{name}: the zero-tile walk is not faster "
+           "than its control in every repeat")
+    return times
+
+
 def fq_bcast_vs_plain(gemv, layout, fq, ph, pl):
-    """Phase 2, kernel 15's broadcast q2/q3 tiles on the fq pack's q1:
-    zero tiles equal to the zero planes bit for bit, non-zero tiles (and
-    one tile beside a full plane) against the plain version and the f64
-    oracle of the stored values, bitwise repeats; timed on generate mode's
-    zero tiles, in turns beside kernel 15 (full planes) and kernel 14."""
+    """Phase 2, kernel 15's broadcast q2/q3 tiles on the fq pack's q1: the
+    tile-reading walk (gemv_fq_symm_bcast) and the kernel for tiles of
+    zeros (gemv_fq_symm_zero, the strip walk over q1 alone). Zero tiles
+    equal to the zero planes bit for bit, the zero kernel's too (with the
+    pack's own non-zero s2 and s3); non-zero tiles (and one tile beside a
+    full plane) against the plain version and the f64 oracle of the stored
+    values, bitwise repeats; each timed on generate mode's zero tiles (its
+    `kernels` entry), the zero kernel in turns LIBRARY_REPEATS times with
+    the tile-reading walk (its control), kernel 15 over zero planes and
+    lam_stream_i16 on q1, and once beside kernel 15 (full planes) and
+    kernel 14. Returns both entries."""
+    from lam_tpu_torch.ops import probe
     tb = layout.SYMM_TB
     nblk = layout.padded_size(N, tb) // tb
     T = layout.tri_tile_count(nblk)
+    flops = 2 * (nblk * tb) ** 2
     q1, q2, q3, s1, s2, s3 = fq[:6]
     p = ph.double() + pl.double()
     zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
@@ -996,6 +1088,11 @@ def fq_bcast_vs_plain(gemv, layout, fq, ph, pl):
     zh, zl = gemv.gemv_fq_symm(q1, zp, zp, s1, s2, s3, ph, pl)
     _check(torch.equal(yh, zh) and torch.equal(yl, zl),
            "zero-tile broadcast != the zero q2/q3 planes, bit for bit")
+    wh, wl = gemv.gemv_fq_symm_zero(q1, s1, ph, pl)
+    _check(torch.equal(wh, zh) and torch.equal(wl, zl),
+           "gemv_fq_symm_zero != the zero q2/q3 planes, bit for bit")
+    print("gemv_fq_symm_bcast    zero tiles, and gemv_fq_symm_zero (q1 "
+          "alone), == zero planes bit for bit")
     del zp
     for t2, t3 in ((q2[tb:2 * tb].clone(), q3[:tb].clone()),
                    (q2[:tb].clone(), q3)):
@@ -1018,27 +1115,48 @@ def fq_bcast_vs_plain(gemv, layout, fq, ph, pl):
         _check(torch.equal(yh, zh) and torch.equal(yl, zl),
                "gemv_fq_symm_bcast not repeatable")
         del oracle
-    yh, yl = gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph, pl)
-    qh, ql = gemv.gemv_fq_symm_bcast_plain(q1, zt, zt, s1, s2, s3, ph, pl)
-    entry = _timed_entry(
+    zero_args = (q1, zt, zt, s1, s2, s3, ph, pl)
+    yh, yl = gemv.gemv_fq_symm_bcast(*zero_args)
+    qh, ql = gemv.gemv_fq_symm_bcast_plain(*zero_args)
+    out = [_timed_entry(
         "gemv_fq_symm_bcast", "lam_tpu/ops/gemv.py:2164", SYMM_SOURCE,
         float((yh.double() + yl.double() - qh.double() - ql.double())
               .abs().max()),
-        (lambda: gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph, pl),
-         lambda: gemv.gemv_fq_symm_bcast_plain(q1, zt, zt, s1, s2, s3, ph,
-                                               pl), None),
+        (lambda: gemv.gemv_fq_symm_bcast(*zero_args),
+         lambda: gemv.gemv_fq_symm_bcast_plain(*zero_args), None),
         (q1[:T * tb], zt, zt, *(s[:T] for s in (s1, s2, s3)), ph, pl, yh,
-         yl), 2 * (nblk * tb) ** 2, "f64")
-    _in_turns("gemv_fq_symm_bcast",
-              lambda: gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph,
-                                              pl),
+         yl), flops, "f64")]
+    wh, wl = gemv.gemv_fq_symm_zero(q1, s1, ph, pl)
+    qh, ql = gemv.gemv_fq_symm_zero_plain(q1, s1, ph, pl)
+    out.append(_timed_entry(
+        "gemv_fq_symm_zero", "lam_tpu/ops/gemv.py:2164",
+        "lam_tpu_torch/csrc/strip_walk.cuh",
+        float((wh.double() + wl.double() - qh.double() - ql.double())
+              .abs().max()),
+        (lambda: gemv.gemv_fq_symm_zero(q1, s1, ph, pl),
+         lambda: gemv.gemv_fq_symm_zero_plain(q1, s1, ph, pl), None),
+        (q1[:T * tb], s1[:T], ph, pl, wh, wl), flops, "f64"))
+    zp = torch.zeros_like(q1)
+    _zero_walk_in_turns(
+        "gemv_fq_symm_zero", out[-1]["bound_ms"],
+        lambda: gemv.gemv_fq_symm_zero(q1, s1, ph, pl),
+        lambda: gemv.gemv_fq_symm_bcast(*zero_args),
+        lambda: gemv.gemv_fq_symm(q1, zp, zp, s1, s2, s3, ph, pl),
+        "gemv_fq_symm over zero planes",
+        lambda: probe.stream_i16(q1[:T * tb]), "lam_stream_i16 on q1")
+    del zp
+    _pass_split("gemv_fq_symm_zero and its control (gemv_fq_symm_bcast on "
+                "zero tiles)", {
+                    "walk": lambda: gemv.gemv_fq_symm_zero(q1, s1, ph, pl),
+                    "control": lambda: gemv.gemv_fq_symm_bcast(*zero_args)})
+    _in_turns("gemv_fq_symm_zero",
+              lambda: gemv.gemv_fq_symm_zero(q1, s1, ph, pl),
               lambda: gemv.gemv_fq_symm(*fq[:6], ph, pl),
               "gemv_fq_symm (full planes)")
-    _in_turns("gemv_fq_symm_bcast",
-              lambda: gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph,
-                                              pl),
+    _in_turns("gemv_fq_symm_zero",
+              lambda: gemv.gemv_fq_symm_zero(q1, s1, ph, pl),
               lambda: gemv.gemv_q16_symm(q1, s1, ph), "gemv_q16_symm")
-    return entry
+    return out
 
 
 def dense_kernels_vs_plain(gemv, a_dev, a32, ph, pl):
@@ -1181,7 +1299,7 @@ def fq_kernels_vs_plain(gemv, layout, fq, a_dev, ph, pl):
          lambda: gemv.gemv_fq_symm_plain(*fq[:6], ph, pl), None),
         (*(q[:T * tb] for q in fq[:3]), *(s[:T] for s in fq[3:6]), ph, pl,
          yh, yl), flops, "f64"))
-    out.append(fq_bcast_vs_plain(gemv, layout, fq, ph, pl))
+    out += fq_bcast_vs_plain(gemv, layout, fq, ph, pl)
     return out
 
 
@@ -2555,8 +2673,14 @@ def bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D, a, p):
     tile beside a full plane) against the plain version and the f64 oracle
     of the stored values at 1e-13; bitwise repeats. Timed on zero tiles,
     in turns with the full-plane sibling on the same hi or q1 plane; the
-    q1 planes (55.1 and 26.2 MB) and the half-slab's hi (52.4 MB) over
-    three copies taken in turn, which the 50 MB L2 cannot hold."""
+    q1 planes (55.1 and 26.2 MB) and the hi planes (110.1 and 52.4 MB)
+    over three copies taken in turn, which the 50 MB L2 cannot hold.
+    Kernel 9's kernel for a lo tile of zeros (gemv_df64_symm_slab_zero,
+    the strip walk over hi alone): equal bit for bit to the zero plane and
+    to its control, the tile-reading walk (on a +0.0 and a -0.0 tile),
+    timed so and in turns LIBRARY_REPEATS times with the control, kernel 9
+    over a zero plane and lam_stream_i16 over hi's bytes."""
+    from lam_tpu_torch.ops import probe
     tb, out = 512, []
     # band pairs, rank 0 of G=2
     mesh = Mesh(0, 2, "cuda")
@@ -2581,27 +2705,72 @@ def bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D, a, p):
                                          *walk, ms=ms, packed=True),
         lambda h, t, *_: slab_oracle(h.double() + t.double().repeat(T, 1)),
         kw)
+    copies = [hi, hi.clone(), hi.clone()]
     outs = gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl, *walk, ms=ms)
     out.append(_timed_entry(
         "gemv_df64_symm_slab_bcast", "lam_tpu/ops/gemv.py:991", SYMM_SOURCE,
-        diff, (lambda: gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl,
-                                                      *walk, ms=ms),
-               lambda: gemv.gemv_df64_symm_slab_bcast_plain(
-                   hi, zero, ph, pl, *walk, ms=ms), None),
+        diff, (_rotating(lambda h: gemv.gemv_df64_symm_slab_bcast(
+            h, zero, ph, pl, *walk, ms=ms), copies),
+            _rotating(lambda h: gemv.gemv_df64_symm_slab_bcast_plain(
+                h, zero, ph, pl, *walk, ms=ms), copies), None),
         (hi, zero, ph, pl, *walk, *outs), flops, "f64"))
-    _in_turns("gemv_df64_symm_slab_bcast",
-              lambda: gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl, *walk,
-                                                     ms=ms),
-              lambda: gemv.gemv_df64_symm_slab(hi, lo, ph, pl, *walk, ms=ms,
-                                               packed=True),
+    # the kernel for a lo tile of zeros, hi alone: the zero plane's bits
+    # and the tile-reading walk's on a +0.0 and a -0.0 tile
+    full = gemv.gemv_df64_symm_slab(hi, torch.zeros_like(hi), ph, pl, *walk,
+                                    ms=ms, packed=True)
+    outs = gemv.gemv_df64_symm_slab_zero(hi, ph, pl, *walk, ms=ms)
+    for got in (outs, gemv.gemv_df64_symm_slab_bcast(
+            hi, torch.full_like(zero, -0.0), ph, pl, *walk, ms=ms)):
+        _check(all(torch.equal(u, v) for u, v in zip(got, full)),
+               "gemv_df64_symm_slab_zero or the tile-reading walk on a "
+               "-0.0 tile != the zero lo plane, bit for bit")
+    print("gemv_df64_symm_slab_zero (hi alone), and the tile-reading walk on "
+          "+0.0 and -0.0 tiles, == zero plane bit for bit")
+    del full
+    diff = float((_cat_parts(outs) - _cat_parts(
+        gemv.gemv_df64_symm_slab_zero_plain(hi, ph, pl, *walk, ms=ms)))
+        .abs().max())
+    entry = _timed_entry(
+        "gemv_df64_symm_slab_zero", "lam_tpu/ops/gemv.py:991",
+        "lam_tpu_torch/csrc/strip_walk.cuh", diff,
+        (_rotating(lambda h: gemv.gemv_df64_symm_slab_zero(
+            h, ph, pl, *walk, ms=ms), copies),
+         _rotating(lambda h: gemv.gemv_df64_symm_slab_zero_plain(
+             h, ph, pl, *walk, ms=ms), copies), None),
+        (hi, ph, pl, *walk, *outs), flops, "f64")
+    out.append(entry)
+    zlo = torch.zeros_like(hi)
+    _zero_walk_in_turns(
+        "gemv_df64_symm_slab_zero (three hi copies)", entry["bound_ms"],
+        _rotating(lambda h: gemv.gemv_df64_symm_slab_zero(
+            h, ph, pl, *walk, ms=ms), copies),
+        _rotating(lambda h: gemv.gemv_df64_symm_slab_bcast(
+            h, zero, ph, pl, *walk, ms=ms), copies),
+        _rotating(lambda h: gemv.gemv_df64_symm_slab(
+            h, zlo, ph, pl, *walk, ms=ms, packed=True), copies),
+        "gemv_df64_symm_slab over a zero lo plane",
+        _rotating(lambda h: probe.stream_i16(h.view(torch.int16)), copies),
+        "lam_stream_i16 over hi's bytes")
+    del zlo
+    _pass_split("gemv_df64_symm_slab_zero and its control "
+                "(gemv_df64_symm_slab_bcast on a zero tile)", {
+                    "walk": lambda: gemv.gemv_df64_symm_slab_zero(
+                        hi, ph, pl, *walk, ms=ms),
+                    "control": lambda: gemv.gemv_df64_symm_slab_bcast(
+                        hi, zero, ph, pl, *walk, ms=ms)})
+    _in_turns("gemv_df64_symm_slab_zero (three hi copies)",
+              _rotating(lambda h: gemv.gemv_df64_symm_slab_zero(
+                  h, ph, pl, *walk, ms=ms), copies),
+              _rotating(lambda h: gemv.gemv_df64_symm_slab(
+                  h, lo, ph, pl, *walk, ms=ms, packed=True), copies),
               "gemv_df64_symm_slab (full lo plane)")
-    _in_turns("gemv_df64_symm_slab_bcast",
-              lambda: gemv.gemv_df64_symm_slab_bcast(hi, zero, ph, pl, *walk,
-                                                     ms=ms),
-              lambda: gemv.gemv_f32_symm_slab(hi, ph, *walk, ms=ms,
-                                              packed=True),
-              "gemv_f32_symm_slab on the same hi plane")
-    del df, hi, lo
+    _in_turns("gemv_df64_symm_slab_zero (three hi copies)",
+              _rotating(lambda h: gemv.gemv_df64_symm_slab_zero(
+                  h, ph, pl, *walk, ms=ms), copies),
+              _rotating(lambda h: gemv.gemv_f32_symm_slab(
+                  h, ph, *walk, ms=ms, packed=True), copies),
+              "gemv_f32_symm_slab on the same hi copies")
+    del df, hi, lo, copies
 
     q1, q2, q3, s1, s2, s3 = fq.operand[:6]
     zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
@@ -2743,10 +2912,49 @@ def gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D):
     seed) it agrees with its plain version and the f64 oracle of the stored
     values at 1e-13, repeated bitwise. At GEN_PROBE_N a plain f64 expansion
     of the planes does not fit on the card: there the probes' x and
-    residual gates hold the modes."""
+    residual gates hold the modes. The operators that hold kernels 15's
+    and 9's tiles count them zero when built and take the zero-tile
+    kernels: one device's fq operator (the facade's) and the grid's
+    diagonal rank (0, 0) multiply by gemv_fq_symm_zero and never by the
+    tile-reading walk, bit for bit its result and the zero planes'; the
+    band walk's packed df64 tiles give gemv_df64_symm_slab_zero the
+    tile-reading walk's bits (phase 9's runs hold its routing)."""
+    from lam_tpu_torch import ops
+    from lam_tpu_torch.precision import join_f64, split_f64
+    from lam_tpu_torch.solver.api import ConjugateGradient
     tb = 512
     rng = torch.Generator(device="cuda").manual_seed(15)
     p = np.random.default_rng(15).uniform(-1, 1, size=GEN_MESH_N)
+
+    # kernel 15's mode on the triangles generate mode builds
+    cg = ConjugateGradient(precision="fq", device="cuda")
+    cg.generate_matrix(GEN_MESH_N)
+    grid = pcg2d_symm.Symm2DOperator.from_gen_fq(GEN_MESH_N,
+                                                 mesh=Mesh2D(0, 2, "cuda"))
+    for label, op, n in (("one device", cg.op, cg.op.n_padded),
+                         ("grid rank (0, 0)", grid, grid.m)):
+        _, _, x = _pair(p[:n], n)
+        ops.reset_counters()
+        y = op.matvec(x) if op is cg.op else op.mv_pair(op.operand, x, x)[0]
+        torch.cuda.synchronize()
+        ran = _launched("gemv_fq_symm_zero", "gemv_fq_symm_bcast")
+        _check(ran == {"gemv_fq_symm_zero": 1, "gemv_fq_symm_bcast": 0},
+               f"gen fq operator ({label}): launches {ran}, not the "
+               "zero-tile kernel alone")
+        planes, diag = op.operand[:6], op.operand[6:8]
+        ph, pl = split_f64(x)
+        zq = torch.zeros_like(planes[0])
+        for other in (gemv.gemv_fq_symm_bcast(*planes, ph, pl),
+                      gemv.gemv_fq_symm(planes[0], zq, zq, *planes[3:], ph,
+                                        pl)):
+            _check(torch.equal(y, join_f64(*other) + join_f64(*diag) * x),
+                   f"gen fq operator ({label}): the zero-tile kernel != "
+                   "the tile-reading walk or the zero planes, bit for bit")
+        del zq
+    print(f"gen N={GEN_MESH_N}: the gen fq operators (one device, grid rank "
+          "(0, 0)) multiply by gemv_fq_symm_zero alone, == the tile-reading "
+          "walk and the zero planes bit for bit")
+    del cg, grid
 
     def lo_tile():
         return torch.rand((tb, tb), generator=rng, device="cuda") * 2.0 ** -24
@@ -2766,6 +2974,11 @@ def gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D):
     _check(lo.shape == (tb, tb), "the packed gen operator's lo is not a tile")
     ph, pl, p64 = _pair(p, df.n_padded)
     walk, ms, T = (it, kt, lt), 2 * df.m, it.shape[0]
+    outs = (gemv.gemv_df64_symm_slab_zero(hi, ph, pl, *walk, ms=ms),
+            gemv.gemv_df64_symm_slab_bcast(hi, lo, ph, pl, *walk, ms=ms))
+    _check(all(torch.equal(u, v) for u, v in zip(*outs)),
+           "the packed gen operator: gemv_df64_symm_slab_zero != the "
+           "tile-reading walk, bit for bit")
 
     def slab_oracle(tiles):
         return torch.cat(gemv._slab_parts(tiles, p64, *walk, ms, tb, True))
@@ -2848,8 +3061,10 @@ def _pass_split(label, fns, calls=40):
     launch, from torch.profiler (CUPTI): its mean per launch, by kernel
     name, so a call's time splits into its passes. A programmatically
     dependent pass 2 starts before pass 1 ends and waits for it: its time
-    holds that wait. Returns {kernel name: ms}."""
+    holds that wait. Returns {kernel name: ms} ({} where TIMED is off)."""
     from torch.profiler import ProfilerActivity, profile
+    if not TIMED:
+        return {}
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -3728,6 +3943,71 @@ def _gen_counts(run, counts, kernels, not_kernels, total):
         total[k] += counts[k]
 
 
+def _tiles_mv(x, tb):
+    """Generate mode's tridiagonal plus TILES_EPS * I in every (tb, tb)
+    block (the walk's tiles each read TILES_EPS * I, the mirror of an
+    off-diagonal one too), times x: O(n), in f64 on the host."""
+    return _tridiag_mv(x) + TILES_EPS * np.tile(x.reshape(-1, tb).sum(0),
+                                                x.shape[0] // tb)
+
+
+def handed_tiles_runs(ops, api, pcg_symm, Mesh):
+    """Phase 8, the tile-reading walks of kernels 15 and 9 on the main
+    path: operators built from generate mode's planes at TILES_N with a
+    broadcast tile handed in that is not zero, TILES_EPS * I (fq: q2 = I
+    with s2 = TILES_EPS, q3 zero; df64: the lo tile), through
+    `DenseOperator.from_fq_planes` and the `SymmShardedOperator`
+    constructor on a mesh of one rank, solved by `cg_solve` to 1e-9. Each
+    converged with a TRUE residual <= 2e-9 of the system with the tile (the
+    O(n) host product `_tiles_mv`), far above it for the tridiagonal alone
+    (the tile was read), its tile-reading walk launched and the zero-tile
+    kernel not, no plain version. Returns the launches."""
+    from lam_tpu_torch import DenseOperator, cg_solve
+    t_phase = time.perf_counter()
+    tb = 512
+    total = {fn.__name__: 0 for fn in ops.KERNELS}
+    cg = api.ConjugateGradient(precision="fq", device="cuda")
+    cg.generate_matrix(TILES_N)
+    q1, _, zq, s1, _, s3, dh, dl = cg.op.operand
+    eye = torch.eye(tb, device="cuda")
+    fq = DenseOperator.from_fq_planes(
+        q1, eye.to(torch.int16), zq, s1, torch.full_like(s1, TILES_EPS), s3,
+        dh, dl, TILES_N, cg.op.n_padded, device="cuda")
+    band = pcg_symm.SymmShardedOperator.from_gen_tridiagonal(
+        TILES_N, mesh=Mesh(0, 1, "cuda"), packed=True)
+    hi, _, *tables = band.operand
+    df = pcg_symm.SymmShardedOperator(
+        (hi, eye * TILES_EPS, *tables), TILES_N, band.n_padded, band.mesh,
+        band.m, tb, "packed")
+    del cg, band
+    b = np.ones(TILES_N)
+    for run, op, walk, zero in (
+            ("tiles-fq", fq, "gemv_fq_symm_bcast", "gemv_fq_symm_zero"),
+            ("tiles-packed-df64", df, "gemv_df64_symm_slab_bcast",
+             "gemv_df64_symm_slab_zero")):
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        res = cg_solve(op, b, max_iters=4 * TILES_N, rel_error=1e-9)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        counts = ops.counters()
+        x = res.x.cpu().numpy()
+        true_rel = float(np.linalg.norm(b - _tiles_mv(x, tb))
+                         / np.linalg.norm(b))
+        tri_rel = _gen_true(x)
+        print(f"{run}: {int(res.num_iters)} iterations in {solve_s:.3f} s, "
+              f"TRUE rel residual {true_rel:.3e} (<= {TRUE_GATE:g}), "
+              f"{tri_rel:.3e} against the tridiagonal alone, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        _check(bool(res.converged) and true_rel <= TRUE_GATE,
+               f"{run}: TRUE residual {true_rel:.3e}")
+        _check(tri_rel > 1e3 * TRUE_GATE, f"{run}: the tile made no "
+               "difference")
+        _gen_counts(run, counts, (walk,), (zero,), total)
+    print(f"phase 8, tiles handed in: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def generate_runs(ops, lio, cli, tmp):
     """Phase 8: generate mode (`-s N`) through the port's CLI on the card,
     every system built on the device. At N=10000 (-e 1e-9) the runs of
@@ -3738,9 +4018,12 @@ def generate_runs(ops, lio, cli, tmp):
     a time, each operator freed before the next: df64's x within 1e-10 of
     the host f64 CG's after 15 iterations, and every probe's residual
     equal to the host's TRUE residual of its x within 1e-6, load_s and
-    avg_gemv_s printed beside the plane's byte bound. Returns the kernel
-    launches summed over the runs."""
+    avg_gemv_s printed beside the plane's byte bound. Between them,
+    `handed_tiles_runs`. Returns the kernel launches summed over the
+    runs."""
     from lam_tpu_torch.ops import layout
+    from lam_tpu_torch.parallel import pcg_symm
+    from lam_tpu_torch.parallel.mesh import Mesh
     from lam_tpu_torch.solver import api
     t_phase = time.perf_counter()
     total = {fn.__name__: 0 for fn in ops.KERNELS}
@@ -3774,6 +4057,8 @@ def generate_runs(ops, lio, cli, tmp):
                    f"{host_iters}")
         os.remove(x_path)
     print(f"phase 8, N={GEN_N}: {time.perf_counter() - t_phase:.1f} s")
+    for k, v in handed_tiles_runs(ops, api, pcg_symm, Mesh).items():
+        total[k] += v
 
     n_p = layout.padded_size(GEN_PROBE_N, layout.SYMM_TB)
     nblk = n_p // layout.SYMM_TB
@@ -3821,7 +4106,7 @@ def generate_runs(ops, lio, cli, tmp):
                   f"(<= {GEN_X_GATE:g})")
             _check(x_rel <= GEN_X_GATE, f"{run}: x differs from the host "
                    f"CG's by {x_rel:.3e}")
-        _gen_counts(run, counts, kernels, (), total)
+        _gen_counts(run, counts, kernels, _TILE_WALKS, total)
         os.remove(x_path)
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
     return total
@@ -3876,7 +4161,7 @@ def mesh_generate_runs(ops, lio, tmp):
         print(f"{g}-rank generate-mode cluster: {len(jobs)} runs in "
               f"{time.perf_counter() - t0:.1f} s of wall time")
         cases = ([(r, k, n) for r, _, _, k, n in runs]
-                 + [(r, k, ()) for r, _, _, k in probes])
+                 + [(r, k, _TILE_WALKS) for r, _, _, k in probes])
         for j, (run, kernels, not_kernels) in enumerate(cases):
             recs = [rank_recs[j] for rank_recs in records]
             _check(all(rec["run"] == run and rec["rc"] == 0 for rec in recs),
@@ -3982,37 +4267,18 @@ def probe_tool(q16_probe):
     return {fn.__name__: counts[fn.__name__] for fn in probe.PROBES}
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this run "
-              "needs an NVIDIA GPU", file=sys.stderr)
-        return 1
-    from lam_tpu_torch import cli, generate, ops
-    from lam_tpu_torch import io as lio
-    from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
-    from lam_tpu_torch.ops import _build, gemv, layout, probe, stencil
+def kernel_checks():
+    """Phase 2 (after the build and the SASS checks): every kernel against
+    its plain version, with its timings where TIMED is on. Returns the
+    `kernels` entries."""
+    from lam_tpu_torch import ops
+    from lam_tpu_torch.ops import gemv, layout, probe, stencil
     from lam_tpu_torch.parallel import pcg, pcg2d_symm, pcg_symm
     from lam_tpu_torch.parallel.mesh import Mesh, Mesh2D
     from lam_tpu_torch.precision import split_f64_host
     from lam_tpu_torch.solver.operators import (_host_pack_planes,
                                                 _host_pack_tri)
-    from lam_tpu_torch.tools import q16_probe
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(smi)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    torch.backends.cuda.matmul.allow_tf32 = False  # oracles in full f32/f64
-    torch.backends.cudnn.allow_tf32 = False  # conv2d's yardstick in full f32
-
-    path, seconds, built = _build.build()
-    _build.library()
-    print(f"kernels {'built' if built else 'reused'} in {seconds:.1f} s: "
-          f"{os.path.relpath(path)}")
-    stream_sass(_build)
-
+    t0 = time.perf_counter()
     results = kernels_vs_plain(gemv, layout, _host_pack_planes,
                                _host_pack_tri, split_f64_host)
     torch.cuda.empty_cache()
@@ -4043,6 +4309,103 @@ def main():
            == sorted(fn.__name__ for fn in ops.KERNELS + probe.PROBES
                      if fn not in probe.CONTROLS),
            "phase 2 did not hold every kernel against its plain version")
+    print(f"phase 2: {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+SMI_STATE = ("nvidia-smi", "--query-gpu=name,power.limit,temperature.gpu,"
+             "clocks.sm,ecc.errors.uncorrected.volatile.total",
+             "--format=csv")
+
+
+def fresh_main():
+    """One of phase 10's fresh processes (`chip_smoke.py --fresh-checks`):
+    phase 2's checks with TIMED off, in a process that has run nothing
+    else. On a failed check it prints the kernel library's path (its name
+    carries the hash of the sources, headers and flags) and the card's
+    state, and exits 1."""
+    global TIMED
+    TIMED = False
+    if not torch.cuda.is_available():
+        return 1
+    from lam_tpu_torch.ops import _build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    path = _build.library_path()
+    print(f"fresh process {os.getpid()}: library {os.path.relpath(path)}")
+    try:
+        kernel_checks()
+    except AssertionError as e:
+        print(f"FRESH CHECK FAILED in process {os.getpid()}: {e}")
+        print(f"library {path}")
+        print(subprocess.run(SMI_STATE, capture_output=True,
+                             text=True).stdout.strip())
+        return 1
+    print(f"fresh process {os.getpid()}: every check held")
+    return 0
+
+
+def fresh_checks():
+    """Phase 10: phase 2's kernel-against-plain checks, without their
+    timings, in FRESH_CHECKS fresh processes of this script started
+    together (`--fresh-checks`), on the library this run built: a check
+    that fails there and held in phase 2 is a fault (one earlier chip
+    call's kernels disagreed with their plain versions in a fresh process,
+    once). Each is killed after FRESH_TIMEOUT_S; the run fails unless
+    every one exits 0."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--fresh-checks"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for _ in range(FRESH_CHECKS)]
+    outs, codes = [], []
+    for proc in procs:
+        try:
+            out, _ = proc.communicate(
+                timeout=max(1.0, t0 + FRESH_TIMEOUT_S - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        outs.append(out)
+        codes.append(proc.returncode)
+    for k, (out, code) in enumerate(zip(outs, codes)):
+        lines = out.strip().splitlines()
+        keep = lines[-3:] if code == 0 else lines[-40:]
+        print(f"phase 10, fresh process {k + 1} (exit {code}):\n"
+              + "\n".join(keep))
+    print(f"phase 10: {time.perf_counter() - t0:.1f} s")
+    _check(not any(codes), f"phase 10: a fresh process failed or was "
+           f"killed: exit codes {codes}")
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    from lam_tpu_torch import cli, generate, ops
+    from lam_tpu_torch import io as lio
+    from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
+    from lam_tpu_torch.ops import _build, gemv
+    from lam_tpu_torch.parallel import pcg2d_symm, pcg_symm
+    from lam_tpu_torch.parallel.mesh import Mesh, Mesh2D
+    from lam_tpu_torch.tools import q16_probe
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+    torch.backends.cuda.matmul.allow_tf32 = False  # oracles in full f32/f64
+    torch.backends.cudnn.allow_tf32 = False  # conv2d's yardstick in full f32
+
+    path, seconds, built = _build.build()
+    _build.library()
+    print(f"kernels {'built' if built else 'reused'} in {seconds:.1f} s: "
+          f"{os.path.relpath(path)}")
+    stream_sass(_build)
+    results = kernel_checks()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         system = bench_system(generate, lio, tmp)
@@ -4068,6 +4431,8 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         mesh_gen_counts = mesh_generate_runs(ops, lio, tmp)
+    torch.cuda.empty_cache()
+    fresh_checks()
     for r in results:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, heat_counts, shard_counts, large_counts, probe_counts,
@@ -4082,4 +4447,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv else main())
+    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv else
+             fresh_main() if "--fresh-checks" in sys.argv else main())

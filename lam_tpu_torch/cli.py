@@ -1,6 +1,6 @@
 """`python -m lam_tpu_torch.cli`: the solver CLI of lam_tpu/cli.py, file
-mode on one device or sharded over the ranks of a process group, and
-generate mode on one device.
+mode and generate mode, on one device or sharded over the ranks of a
+process group.
 
 Flags (the reference's getopt surface):
   -A <file>   read matrix                    -b <file>  read rhs
@@ -19,7 +19,8 @@ Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9. -s
 cannot be given with -A or -b ("Option -A and -b cannot be used with -s."
 on stderr, rc 1); it builds the reference's benchmark system, the dense
 tridiagonal (2 on the diagonal, 1 beside it) against a right-hand side of
-ones, on the device (lam_tpu_torch/solver/api.py).
+ones, on the device (lam_tpu_torch/solver/api.py); on a sharded backend
+each rank builds its own part on its device.
 
 A sharded run starts one process per rank, each with the same flags and
 its own --process-id (lam_tpu/cli.py:108-120, :265-269); --device cuda
@@ -39,9 +40,9 @@ Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
 with procs the ranks the backend uses and num_iter = max_iters + 1 for an
 unconverged run, as the reference prints it. Every other lam_tpu flag
-(positional arguments, --engine xla, -s with a sharded backend, ...)
-raises NotImplementedError; --local-devices (JAX's virtual CPU devices)
-has no counterpart and is refused with a message.
+(positional arguments, --engine xla, ...) raises NotImplementedError;
+--local-devices (JAX's virtual CPU devices) has no counterpart and is
+refused with a message.
 """
 
 from __future__ import annotations

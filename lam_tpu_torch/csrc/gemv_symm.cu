@@ -1,6 +1,6 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
 // (sm_90a), and the dual matvec over a dense rectangle of the same tiles.
-// Twenty-six kernels share one design:
+// Twenty-eight kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -20,6 +20,10 @@
 //                              (_lo_plane_map :991)
 //   lam_gemv_fq_symm_bcast     gemv_fq_symm's broadcast q2/q3 tiles
 //                              (:2182-2199)
+//   lam_gemv_fq_symm_zero      the same, q2/q3 zero tiles (generate
+//                              mode's, lam_tpu's "exact-zero residual
+//                              planes" :2183-2185): q1 alone on the strip
+//                              walk
 //   lam_gemv_f32_symm_slab  replaces lam_tpu/ops/gemv.py:gemv_f32_symm_slab
 //                            (:552; _gemv_f32_symm_slab_kernel)
 //   lam_gemv_df64_symm_slab  replaces lam_tpu/ops/gemv.py:gemv_df64_symm_slab
@@ -45,6 +49,8 @@
 //                       walk
 //   lam_gemv_df64_symm_slab_bcast  gemv_df64_symm_slab's broadcast lo tile
 //                                  (_lo_plane_map :991, used at :1307)
+//   lam_gemv_df64_symm_slab_zero   the same, lo a zero tile (generate
+//                                  mode's): hi alone on the strip walk
 //   lam_gemv_fq_symm_slab_bcast    gemv_fq_symm_slab's broadcast q2/q3
 //                                  tiles (:2420-2427, :2434-2437)
 //   lam_gemv_df64_dual_bcast       gemv_df64_dual's broadcast lo tile
@@ -60,6 +66,10 @@
 //   lam_gemv_q16_dual_twopass       lam_gemv_q16_dual
 //   lam_gemv_fq_dual_twopass        lam_gemv_fq_dual
 //   lam_gemv_q16_dual_bf16_twopass  lam_gemv_q16_dual_bf16
+//   lam_gemv_fq_symm_bcast          lam_gemv_fq_symm_zero
+//   lam_gemv_df64_symm_slab_bcast   lam_gemv_df64_symm_slab_zero
+//
+// (the last two are kernels too: the walks of a tile that is not zero)
 //
 // and the bf16 product engine of the three q16 kernels (lam_tpu's
 // LAM_Q16_IMPL "mxu" bodies, chosen by ops/gemv.py `_q16_impl`):
@@ -172,6 +182,14 @@
 //    rect_pass2) launched as a programmatic dependent. Inside a strip it
 //    sums in symm_pass1's order and writes the same partials, so its bits
 //    are the two-pass walk's (the controls lam_gemv_*_twopass).
+//  * The broadcast modes of kernels 15 and 9 on zero tiles (generate
+//    mode's only tiles, known zero when the operator is built) run the
+//    strip walk over the one plane that is not zero, q1 or hi: the
+//    tile-reading walks spent an int -> f64 conversion a value (three for
+//    fq), read the tile from L2 as often as they streamed the plane, and
+//    paid the two-pass walk's fixed costs. The dropped zero terms never
+//    change a sum's bits (csrc/strip_walk.cuh), so they give the
+//    full-plane kernels' bits over zero planes.
 //  * Kernel 18-bf16 (the bf16 engine of kernel 18) runs the same walk with
 //    tensor-core consumers (strip_mma_pass1): each stage is converted to
 //    bf16 into q16_bf16_pass1's padded strip layout, released, and
@@ -227,7 +245,8 @@
 // their fixed order of sums are shared: no float atomics, bitwise repeats.
 //
 // The code of this design is csrc/symm_walk.cuh (and csrc/strip_walk.cuh,
-// pass 1 of kernels 16, 18, 18-bf16 and 19); csrc/q16_probe.cu instantiates
+// pass 1 of kernels 16, 18, 18-bf16, 19 and the zero-tile walks of 15-bcast
+// and 9-bcast); csrc/q16_probe.cu instantiates
 // symm_walk.cuh for the q16 probes too (the triangle walk at tb=1024, with
 // unreduced transpose partials, and three more tensor-core modes).
 
@@ -338,6 +357,21 @@ extern "C" int lam_gemv_fq_symm_bcast(
                 nblk, (cudaStream_t)stream);
 }
 
+// Broadcast q2/q3 tiles that hold only zeros (generate mode's, counted
+// when its operator was built): lam_gemv_fq_symm_bcast's arguments without
+// q2, q3, s2 and s3, none of which is read. q1 streams through the strip
+// walk (csrc/strip_walk.cuh, StripQ1Planes) and gives lam_gemv_fq_symm's
+// bits over zero planes, for any finite s2, s3.
+extern "C" int lam_gemv_fq_symm_zero(const short* q1, const float* s1,
+                                     const float* p_hi, const float* p_lo,
+                                     float* y_hi, float* y_lo,
+                                     double* part_d, double* part_t,
+                                     int nblk, void* stream) {
+  return launch_strip_tri<SymmQ1Cfg>(
+      StripQ1Planes{{q1}, {s1}}, StripVecs<2>{{p_hi, p_lo}, {p_hi, p_lo}},
+      DF64Out{y_hi, y_lo}, part_d, part_t, nblk, (cudaStream_t)stream);
+}
+
 // Slab walk over T tiles of one rank's band pair: a is the (T*TB, TB)
 // walk-order buffer (packed=1) or the rank's row-major (ms, n) slab
 // (packed=0); it/kt/lt the (T,) walk tables; d_ptr (ms/TB + 1,) and d_ids
@@ -377,9 +411,10 @@ extern "C" int lam_gemv_q16_symm_slab(
     const int* kt, const int* lt, const int* d_ptr, const int* d_ids,
     const int* t_ptr, const int* t_ids, float* yd, float* yt, float* part_d,
     float* part_t, int T, int ms, int n, void* stream) {
-  return launch_strip_slab(
-      q1, s1, p, it, kt, SlabLists{d_ptr, d_ids, t_ptr, t_ids}, yd, yt,
-      part_d, part_t, T, ms, n, (cudaStream_t)stream);
+  return launch_strip_slab<SlabQ16Cfg>(
+      StripPlanes<1>{{q1}, {s1}}, StripVecs<1>{{p}, {p}},
+      TableWalk{it, kt, lt, n, 1}, SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+      F32Out{yd}, F32Out{yt}, part_d, part_t, T, ms, (cudaStream_t)stream);
 }
 
 // The control of lam_gemv_q16_symm_slab: the same arguments and bits on the
@@ -428,6 +463,24 @@ extern "C" int lam_gemv_df64_symm_slab_bcast(
                      SlabLists{d_ptr, d_ids, t_ptr, t_ids},
                      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d,
                      part_t, T, ms, (cudaStream_t)stream);
+}
+
+// A lo tile that holds only zeros (generate mode's, counted when its
+// operator was built): lam_gemv_df64_symm_slab_bcast's arguments
+// without a_lo, which is not read. a_hi streams through the strip walk
+// (csrc/strip_walk.cuh, StripHiPlanes) and gives lam_gemv_df64_symm_slab's
+// bits over a zero lo plane.
+extern "C" int lam_gemv_df64_symm_slab_zero(
+    const float* a_hi, const float* p_hi, const float* p_lo, const int* it,
+    const int* kt, const int* lt, const int* d_ptr, const int* d_ids,
+    const int* t_ptr, const int* t_ids, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int T, int ms,
+    int n, void* stream) {
+  return launch_strip_slab<SlabHiCfg>(
+      StripHiPlanes{{a_hi}}, StripVecs<2>{{p_hi, p_lo}, {p_hi, p_lo}},
+      TableWalk{it, kt, lt, n, 1}, SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d, part_t, T, ms,
+      (cudaStream_t)stream);
 }
 
 // fq: q2 (bcast2 != 0) and q3 (bcast3 != 0) each ONE (TB, TB) tile, or the

@@ -1,4 +1,4 @@
-// The strip walk: pass 1 of four kernels, a persistent grid fed by TMA
+// The strip walk: pass 1 of six kernels, a persistent grid fed by TMA
 // bulk copies, in place of symm_pass1 and q16_bf16_pass1
 // (csrc/symm_walk.cuh):
 //
@@ -13,9 +13,19 @@
 //   kernel 19  lam_gemv_fq_dual        the fq cascade (three int16 planes,
 //                                      f64 sums), the rectangle, the (hi,
 //                                      lo) pairs of p and q
+//   kernel 15-bcast on zero tiles  lam_gemv_fq_symm_zero  the fq
+//                                      cascade whose q2/q3 tiles are zero:
+//                                      q1 alone, f64 sums, the packed
+//                                      triangle (TriangleWalk), symm_pass2
+//   kernel 9-bcast on a zero tile  lam_gemv_df64_symm_slab_zero  the
+//                                      df64 pair whose lo tile is zero: the
+//                                      f32 hi plane alone, f64 sums, the
+//                                      band-pair tables
 //
-// Each keeps its two-pass walk as a control (lam_gemv_*_twopass), and
-// every other kernel runs the two-pass walk.
+// Each keeps its two-pass walk as a control (lam_gemv_*_twopass; the two
+// zero-tile walks: the tile-reading entry points lam_gemv_fq_symm_bcast and
+// lam_gemv_df64_symm_slab_bcast, which a non-zero tile takes), and every
+// other kernel runs the two-pass walk.
 //
 // What bounds them: bytes. Every stored element is read once, 2 B (q16) or
 // 6 B (fq), for 4 flops (its direct and its transpose product): kernel 16
@@ -67,6 +77,16 @@
 //  * Kernel 19 converts its int16 values to f64 by bits (BITS): the three
 //    conversions an element, at 16 a clock on an SM, were 3/8 of a strip's
 //    share of the card's bandwidth; by bits each is one add at 64 a clock.
+//  * The two zero-tile walks (generate mode's broadcast tiles, known zero
+//    when the operator is built) read only the plane that is not zero: 15-
+//    bcast's q1 (32-row stages of 32 KB, four of them, EARLY; the
+//    triangle's (i, k) from walk_row in the producer) converted by bits
+//    and multiplied by its f64 scale, 9-bcast's f32 hi (32-row stages of
+//    64 KB, as kernel 19's) formed as (double)h + 0.0, DF64TilePlane's
+//    element with l = +0.0. The tile-reading walks spent an I2F.F64 a value (three for
+//    15-bcast) and read the tile from L2 as often as they streamed the
+//    plane (PERF.md section 6). symm_pass2 is the triangle's pass 2, a
+//    programmatic dependent as slab_pass2 is.
 //  * Kernel 18-bf16's consumers (strip_mma_pass1, MMA) run q16_bf16_pass1's
 //    tensor-core products. Its mma.sync fragments read 16-bit pairs of
 //    eight rows at once; on a raw stage, whose rows are 1024 bytes apart,
@@ -87,7 +107,8 @@
 //    (griddepcontrol.wait) for pass 1's writes before they read a partial.
 //
 // Sizes, from sweeps on an H100 (PERF.md section 6; the chosen ones at
-// SlabQ16Cfg, DualQ16Cfg, DualFQCfg and DualBf16Cfg below). Kernel 16: two
+// SlabQ16Cfg, DualQ16Cfg, DualFQCfg, DualBf16Cfg, SymmQ1Cfg and SlabHiCfg
+// below). Kernel 16: two
 // stages (136 KB) and a 16 KB reduction buffer; a third stage was slower,
 // and so were two blocks an SM of one stage each, the int16 -> f32
 // conversion by bits (csrc/q16_probe.cu's magic), an earlier pass-2
@@ -107,7 +128,10 @@
 // stages, 16-row stages (four or eight), a second bf16 buffer (the next
 // strip converted while this one is multiplied, one barrier a strip), the
 // transpose chains unrolled to interleave, and a grid of 100 blocks were
-// as fast or slower.
+// as fast or slower. The summing walks (all but 18-bf16's): summing a row
+// one 16-byte vector at a time into both sums (half the values live), not
+// its whole 16 values first, made kernels 16, 18, 19 and the two zero-tile
+// walks faster, and let 15-bcast's f64 walk take EARLY without a spill.
 //
 // The bits: inside a strip nothing of symm_pass1's order changes. Warp w
 // sums rows w*8 .. w*8+7 in that order, lane l holds columns lane_col<8>(l,
@@ -121,7 +145,21 @@
 // of RW < 8 warps carries the sum on in registers, the same additions).
 // Each block writes part_d[t][r] and part_t[t][s][c] as symm_pass1 does, so
 // pass 2 sums the same partials in the same order: (yd, yt) equal the
-// two-pass walk's bit for bit.
+// two-pass walk's bit for bit. The f32 plane of 9-bcast is read as
+// DF64TilePlane reads it, four columns a 16-byte vector (lane_col<4>).
+//
+// The zero-tile walks drop terms, and keep the bits all the same. With e2 =
+// e3 = 0, FQPlane's element (e1*c1 + 0*c2) + 0*c3 (every product exact)
+// equals e1*c1 unless e1*c1 is a zero, and then it is a zero too; so is
+// (double)h + l against (double)h + 0.0 with l = +-0. Two such elements
+// differ at most in the sign of a zero. An element enters the sums only
+// as a product a * pk or a * pi added to an accumulator that starts at
+// +0.0 (d, tacc; the warp sums, the reduction and pass 2 add such sums): in
+// round-to-nearest x + y is -0.0 only where x and y are both -0.0, so no
+// accumulator is ever -0.0, a zero term leaves it as it was (a +0.0 one
+// too, and a fused multiply-add of a zero product the same), and the sign
+// of a zero term never reaches a sum. Any finite scales: zero, -0.0 and
+// negative ones give such zero terms; a non-finite scale would not.
 
 #pragma once
 
@@ -131,120 +169,6 @@
 namespace {
 
 constexpr int STRIP_THREADS = (WARPS + 1) * 32;  // + the producer warp
-
-// The planes of a strip walk: NP int16 planes of packed tiles, each against
-// one f32 scale per tile. NP = 1, the q16 plane: Q16Plane's exact int16 ->
-// f32, the scale folded into the operands, f32 sums. NP = 3, the fq
-// cascade: FQPlane's q1*s1 + q2*s2 + q3*s3 formed in f64, f64 sums.
-template <int NP_>
-struct StripPlanes {
-  static constexpr int NP = NP_;
-  static_assert(NP == 1 || NP == 3, "the q16 plane or the fq cascade");
-  static constexpr bool TILES = false;
-  using acc_t = std::conditional_t<NP == 1, float, double>;
-  const short* q[NP];
-  const float* s[NP];
-};
-
-// The fq cascade of kernel 19's broadcast mode, its own type so that the
-// full-plane walks keep their code: mask[pl], as FQTilePlane's, FULL_MASK
-// for a plane of every tile, TILE_MASK for ONE (TB, TB) tile that every
-// tile reads (q2/q3): a stage's rows of tile t sit at (row0 * TB) & mask.
-struct StripTilePlanes : StripPlanes<3> {
-  static constexpr bool TILES = true;
-  size_t mask[NP];
-};
-
-// The operands: NV f32 arrays a vector (1: f32; 2: an (hi, lo) pair formed
-// in f64 as DF64Vec does), the direct one d read at column tile k and the
-// transpose one t at the strip's rows of row tile i (t = d in kernel 16's
-// symmetric walk).
-template <int NV_>
-struct StripVecs {
-  static constexpr int NV = NV_;
-  static_assert(NV == 1 || NV == 2, "f32 or an (hi, lo) pair");
-  using acc_t = std::conditional_t<NV == 1, float, double>;
-  const float* d[NV];
-  const float* t[NV];
-};
-
-template <int NP>
-struct StripHeader {
-  float sc[NP];  // the tile's scales
-  int offdiag;   // the tile has a transpose term
-};
-
-// A stage: SR rows of each plane (SR x TB int16 each), the direct operand
-// at column tile k (NV x TB f32), the transpose operand at the stage's rows
-// (NV x SR f32), the header. The ring holds S stages, then the transpose
-// reduction buffer of RW warps' rows. BITS: the consumers convert int16 to
-// f32 or f64 by bits (values8_of_i16x8), not with the conversion
-// instruction. EARLY (one plane only): each consumer warp takes its rows
-// and operand entries into registers and releases the stage before it sums
-// them.
-// MMA (one plane, f32 operands): the consumers are tensor-core ones
-// (strip_mma_pass1): every consumer warp converts its share of each stage
-// to bf16 into one padded strip buffer (MmaSmem<MMA_DEF>), in place of the
-// reduction buffer, releases the stage, and runs q16_bf16_pass1's products
-// on the buffer.
-template <class Planes, class Vecs, int SR_, int S_, int RW_,
-          bool BITS_ = false, bool EARLY_ = false, bool MMA_ = false>
-struct StripCfg {
-  using acc_t = typename Planes::acc_t;
-  static_assert(std::is_same<acc_t, typename Vecs::acc_t>::value,
-                "the planes' sums and the operands are of one type");
-  static constexpr int NP = Planes::NP, NV = Vecs::NV;
-  static constexpr int SR = SR_, S = S_, RW = RW_;
-  static constexpr bool BITS = BITS_, EARLY = EARLY_, MMA = MMA_;
-  static_assert(!EARLY || NP == 1, "one plane's rows fit the registers");
-  static_assert(!MMA || (NP == 1 && NV == 1 && !EARLY && BITS),
-                "the tensor-core consumers take the q16 plane, f32 operands, "
-                "and convert by bits");
-  static constexpr int SPS = ROWS / SR;           // stages a strip
-  static constexpr int WPS = SR / ROWS_PER_WARP;  // consumer warps a stage
-  static constexpr int READERS = MMA ? WARPS : WPS;  // warps that read one
-  static constexpr int PLANE_BYTES = SR * TB * (int)sizeof(short);
-  static constexpr int PK_OFF = NP * PLANE_BYTES;
-  static constexpr int PI_OFF = PK_OFF + NV * TB * (int)sizeof(float);
-  static constexpr int HDR_OFF = PI_OFF + NV * SR * (int)sizeof(float);
-  static constexpr int STAGE_BYTES =
-      (HDR_OFF + (int)sizeof(StripHeader<NP>) + 127) / 128 * 128;
-  static constexpr int RED_BYTES =
-      MMA ? MmaSmem<MMA_DEF>::bytes : RW * TB * (int)sizeof(acc_t);
-  static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
-  static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
-                "a stage is whole warps' rows of one strip");
-  static_assert(TB % SR == 0,
-                "a stage never crosses a tile: a broadcast tile's stage is "
-                "one contiguous copy");
-  static_assert(S % SPS == 0, "each slot read by one group of warps");
-  static_assert(WARPS % RW == 0, "reduction rounds of whole warps");
-  static_assert(SMEM + 2 * S * 8 <= 232448, "a block's shared memory");
-};
-
-// The four kernels' sizes, from the sweeps (PERF.md section 6):
-//  * kernel 16: the 64 KB strip as one stage, two stages;
-//  * kernel 18: 32-row stages of 32 KB, six of them (four were as fast or
-//    a little slower), EARLY: with the stage released once the warps hold
-//    their rows, the ring refills while they sum, and pass 1 reads at the
-//    card's measured read floor;
-//  * kernel 18-bf16: 32-row stages of 32 KB, two of them (one strip in
-//    flight), conversion by bits, the transpose sums not reduced (the
-//    tensor cores sum each column over the strip) and one 66 KB bf16 strip
-//    buffer in the reduction buffer's place: 138 KB;
-//  * kernel 19: 32-row stages of the three fq planes (96 KB and 4 KB of
-//    (hi, lo) operand each), two of them, the transpose sums reduced in two
-//    rounds of 4 warps' f64 rows (16 KB): 217 KB; BITS, since the three
-//    int16 -> f64 conversions an element held it back (at 16 a clock on an
-//    SM they are 3/8 of a strip's time; by bits, 3 adds at 64).
-using SlabQ16Cfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS>;
-using DualQ16Cfg =
-    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 6, WARPS, false, true>;
-using DualFQCfg = StripCfg<StripPlanes<3>, StripVecs<2>, 32, 2, WARPS / 2, true>;
-using DualFQTileCfg =
-    StripCfg<StripTilePlanes, StripVecs<2>, 32, 2, WARPS / 2, true>;
-using DualBf16Cfg =
-    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false, true>;
 
 // Eight int16 of one 16-byte vector as T (float or double), exactly: with
 // the conversion instruction (I2F, 16 a clock on an SM), or by bits (BITS):
@@ -280,26 +204,225 @@ __device__ __forceinline__ void values8_of_i16x8(const int4 x, T v[8]) {
   }
 }
 
-// Eight tile values of one row at byte offset `off` of each of the stage's
-// NP planes (PLANE_BYTES apart): Q16Plane::load's and FQPlane::load's
-// expressions on the same int16 values.
-template <int NP, bool BITS, class acc_t>
-__device__ __forceinline__ void tile_values8(const unsigned char* planes,
-                                             int plane_bytes, int off,
-                                             const acc_t c[NP], acc_t v[8]) {
-  const int4* x = reinterpret_cast<const int4*>(planes + off);
-  if constexpr (NP == 1) {
-    values8_of_i16x8<float, BITS>(x[0], v);
-  } else {
-    double e1[8], e2[8], e3[8];
-    values8_of_i16x8<double, BITS>(x[0], e1);
-    values8_of_i16x8<double, BITS>(x[plane_bytes / 16], e2);
-    values8_of_i16x8<double, BITS>(x[2 * plane_bytes / 16], e3);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-      v[j] = (e1[j] * c[0] + e2[j] * c[1]) + e3[j] * c[2];
+// The planes of a strip walk: NP planes of packed tiles (elem_t: int16
+// against one f32 scale per tile, SCALED; or f32), each read VEC values a
+// 16-byte vector at the columns lane_col<VEC> of the two-pass walk's plane
+// type. values() gives a lane's VEC tile values of one row from the stage
+// (x: the first plane's vector, the others plane_bytes apart; c: the
+// tile's scales), the two-pass plane type's expressions on the same
+// values; FOLD: the scale is folded into the operands (pk = p * c, pi = q
+// * c), as Q16Plane::p_scale does, and not into the values.
+//
+// NP = 1, the q16 plane: Q16Plane's exact int16 -> f32, f32 sums. NP = 3,
+// the fq cascade: FQPlane's q1*s1 + q2*s2 + q3*s3 formed in f64, f64 sums.
+template <int NP_>
+struct StripPlanes {
+  static constexpr int NP = NP_;
+  static_assert(NP == 1 || NP == 3, "the q16 plane or the fq cascade");
+  static constexpr bool TILES = false, SCALED = true, FOLD = NP == 1;
+  static constexpr int VEC = 8;
+  using elem_t = short;
+  using acc_t = std::conditional_t<NP == 1, float, double>;
+  const short* q[NP];
+  const float* s[NP];
+
+  // one plane's values from a vector held in registers (EARLY)
+  template <bool BITS>
+  __device__ __forceinline__ static void values_of(const int4 x,
+                                                   const acc_t*,
+                                                   acc_t v[VEC]) {
+    static_assert(NP == 1, "one plane's vector");
+    values8_of_i16x8<float, BITS>(x, v);
   }
-}
+
+  template <bool BITS>
+  __device__ __forceinline__ static void values(const unsigned char* x,
+                                                int plane_bytes,
+                                                const acc_t c[NP],
+                                                acc_t v[VEC]) {
+    const int4* w = reinterpret_cast<const int4*>(x);
+    if constexpr (NP == 1) {
+      values_of<BITS>(w[0], c, v);
+    } else {
+      double e1[8], e2[8], e3[8];
+      values8_of_i16x8<double, BITS>(w[0], e1);
+      values8_of_i16x8<double, BITS>(w[plane_bytes / 16], e2);
+      values8_of_i16x8<double, BITS>(w[2 * plane_bytes / 16], e3);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        v[j] = (e1[j] * c[0] + e2[j] * c[1]) + e3[j] * c[2];
+    }
+  }
+};
+
+// The fq cascade of kernel 19's broadcast mode, its own type so that the
+// full-plane walks keep their code: mask[pl], as FQTilePlane's, FULL_MASK
+// for a plane of every tile, TILE_MASK for ONE (TB, TB) tile that every
+// tile reads (q2/q3): a stage's rows of tile t sit at (row0 * TB) & mask.
+struct StripTilePlanes : StripPlanes<3> {
+  static constexpr bool TILES = true;
+  size_t mask[NP];
+};
+
+// The fq cascade whose q2 and q3 are zero tiles (kernel 15-bcast in
+// generate mode): q1 alone against s1, each value e1 * c1 in f64 (exact),
+// f64 sums; the zero terms e2 * c2 and e3 * c3 dropped (the bits: see the
+// top of this file).
+struct StripQ1Planes {
+  static constexpr int NP = 1, VEC = 8;
+  static constexpr bool TILES = false, SCALED = true, FOLD = false;
+  using elem_t = short;
+  using acc_t = double;
+  const short* q[NP];
+  const float* s[NP];
+
+  template <bool BITS>
+  __device__ __forceinline__ static void values_of(const int4 x,
+                                                   const double c[NP],
+                                                   double v[VEC]) {
+    double e[8];
+    values8_of_i16x8<double, BITS>(x, e);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) v[j] = e[j] * c[0];
+  }
+
+  template <bool BITS>
+  __device__ __forceinline__ static void values(const unsigned char* x, int,
+                                                const double c[NP],
+                                                double v[VEC]) {
+    values_of<BITS>(*reinterpret_cast<const int4*>(x), c, v);
+  }
+};
+
+// The df64 pair whose lo is a zero tile (kernel 9-bcast in generate mode):
+// the f32 hi plane alone, no scale, each value DF64TilePlane's (double)h +
+// (double)l with l = +0.0, kept as written (it turns -0.0 into +0.0; x +
+// 0.0 is not x, so nvcc keeps the add), f64 sums.
+struct StripHiPlanes {
+  static constexpr int NP = 1, VEC = 4;
+  static constexpr bool TILES = false, SCALED = false, FOLD = false;
+  using elem_t = float;
+  using acc_t = double;
+  const float* q[NP];
+
+  template <bool BITS>
+  __device__ __forceinline__ static void values(const unsigned char* x, int,
+                                                const double*,
+                                                double v[VEC]) {
+    const float4 h = *reinterpret_cast<const float4*>(x);
+    v[0] = (double)h.x + 0.0;
+    v[1] = (double)h.y + 0.0;
+    v[2] = (double)h.z + 0.0;
+    v[3] = (double)h.w + 0.0;
+  }
+};
+
+// The operands: NV f32 arrays a vector (1: f32; 2: an (hi, lo) pair formed
+// in f64 as DF64Vec does), the direct one d read at column tile k and the
+// transpose one t at the strip's rows of row tile i (t = d in kernel 16's
+// symmetric walk).
+template <int NV_>
+struct StripVecs {
+  static constexpr int NV = NV_;
+  static_assert(NV == 1 || NV == 2, "f32 or an (hi, lo) pair");
+  using acc_t = std::conditional_t<NV == 1, float, double>;
+  const float* d[NV];
+  const float* t[NV];
+};
+
+template <int NP>
+struct StripHeader {
+  float sc[NP];  // the tile's scales
+  int offdiag;   // the tile has a transpose term
+};
+
+// A stage: SR rows of each plane (SR x TB elem_t each), the direct operand
+// at column tile k (NV x TB f32), the transpose operand at the stage's rows
+// (NV x SR f32), the header. The ring holds S stages, then the transpose
+// reduction buffer of RW warps' rows. BITS: the consumers convert int16 to
+// f32 or f64 by bits (values8_of_i16x8), not with the conversion
+// instruction. EARLY (one plane only): each consumer warp takes its rows
+// and operand entries into registers and releases the stage before it sums
+// them.
+// MMA (one plane, f32 operands): the consumers are tensor-core ones
+// (strip_mma_pass1): every consumer warp converts its share of each stage
+// to bf16 into one padded strip buffer (MmaSmem<MMA_DEF>), in place of the
+// reduction buffer, releases the stage, and runs q16_bf16_pass1's products
+// on the buffer.
+template <class Planes, class Vecs, int SR_, int S_, int RW_,
+          bool BITS_ = false, bool EARLY_ = false, bool MMA_ = false>
+struct StripCfg {
+  using acc_t = typename Planes::acc_t;
+  static_assert(std::is_same<acc_t, typename Vecs::acc_t>::value,
+                "the planes' sums and the operands are of one type");
+  using planes_t = Planes;
+  static constexpr int NP = Planes::NP, NV = Vecs::NV, VEC = Planes::VEC;
+  static constexpr int SR = SR_, S = S_, RW = RW_;
+  static constexpr bool BITS = BITS_, EARLY = EARLY_, MMA = MMA_;
+  static_assert(!EARLY || (NP == 1 && VEC == 8),
+                "one int16 plane's rows fit the registers");
+  static_assert(!MMA || (NP == 1 && NV == 1 && Planes::FOLD && !EARLY && BITS),
+                "the tensor-core consumers take the q16 plane, f32 operands, "
+                "and convert by bits");
+  static constexpr int SPS = ROWS / SR;           // stages a strip
+  static constexpr int WPS = SR / ROWS_PER_WARP;  // consumer warps a stage
+  static constexpr int READERS = MMA ? WARPS : WPS;  // warps that read one
+  static constexpr int PLANE_BYTES =
+      SR * TB * (int)sizeof(typename Planes::elem_t);
+  static constexpr int PK_OFF = NP * PLANE_BYTES;
+  static constexpr int PI_OFF = PK_OFF + NV * TB * (int)sizeof(float);
+  static constexpr int HDR_OFF = PI_OFF + NV * SR * (int)sizeof(float);
+  static constexpr int STAGE_BYTES =
+      (HDR_OFF + (int)sizeof(StripHeader<NP>) + 127) / 128 * 128;
+  static constexpr int RED_BYTES =
+      MMA ? MmaSmem<MMA_DEF>::bytes : RW * TB * (int)sizeof(acc_t);
+  static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
+  static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
+                "a stage is whole warps' rows of one strip");
+  static_assert(TB % SR == 0,
+                "a stage never crosses a tile: a broadcast tile's stage is "
+                "one contiguous copy");
+  static_assert(S % SPS == 0, "each slot read by one group of warps");
+  static_assert(WARPS % RW == 0, "reduction rounds of whole warps");
+  static_assert(SMEM + 2 * S * 8 <= 232448, "a block's shared memory");
+};
+
+// The six kernels' sizes, from the sweeps (PERF.md section 6):
+//  * kernel 16: the 64 KB strip as one stage, two stages;
+//  * kernel 18: 32-row stages of 32 KB, six of them (four were as fast or
+//    a little slower), EARLY: with the stage released once the warps hold
+//    their rows, the ring refills while they sum, and pass 1 reads at the
+//    card's measured read floor;
+//  * kernel 18-bf16: 32-row stages of 32 KB, two of them (one strip in
+//    flight), conversion by bits, the transpose sums not reduced (the
+//    tensor cores sum each column over the strip) and one 66 KB bf16 strip
+//    buffer in the reduction buffer's place: 138 KB;
+//  * kernel 19: 32-row stages of the three fq planes (96 KB and 4 KB of
+//    (hi, lo) operand each), two of them, the transpose sums reduced in two
+//    rounds of 4 warps' f64 rows (16 KB): 217 KB; BITS, since the three
+//    int16 -> f64 conversions an element held it back (at 16 a clock on an
+//    SM they are 3/8 of a strip's time; by bits, 3 adds at 64);
+//  * kernel 15-bcast on zero tiles: 32-row stages of the q1 plane (32 KB
+//    and 4 KB of (hi, lo) operand each), four of them, EARLY, BITS, the
+//    f64 transpose sums in one round (32 KB): 177 KB; EARLY made it
+//    faster (64-row stages, two of them, and 16-row stages, eight, were as
+//    fast; six 32-row stages in two reduction rounds, and conversion by
+//    instruction, slower);
+//  * kernel 9-bcast on a zero tile: 32-row stages of the f32 hi plane (64
+//    KB and 4 KB of (hi, lo) operand each), two of them, the f64 transpose
+//    sums in one round (32 KB): 169 KB (16-row stages, four or eight, as
+//    fast or slower; EARLY would hold 128 registers of raw f32 rows).
+using SlabQ16Cfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS>;
+using DualQ16Cfg =
+    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 6, WARPS, false, true>;
+using DualFQCfg = StripCfg<StripPlanes<3>, StripVecs<2>, 32, 2, WARPS / 2, true>;
+using DualFQTileCfg =
+    StripCfg<StripTilePlanes, StripVecs<2>, 32, 2, WARPS / 2, true>;
+using DualBf16Cfg =
+    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false, true>;
+using SymmQ1Cfg =
+    StripCfg<StripQ1Planes, StripVecs<2>, 32, 4, WARPS, true, true>;
+using SlabHiCfg = StripCfg<StripHiPlanes, StripVecs<2>, 32, 2, WARPS>;
 
 // Operand entry i of a vector staged as NV arrays `stride` apart: F32Vec's
 // and DF64Vec's get.
@@ -330,6 +453,30 @@ __device__ __forceinline__ void store8(double* x, const double v[8]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j)
     reinterpret_cast<double2*>(x)[j] = make_double2(v[2 * j], v[2 * j + 1]);
+}
+
+// VEC consecutive values (VEC = 8, or 4 for an f32 plane's columns) into
+// registers or out of them.
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* x, float v[VEC]) {
+  if constexpr (VEC == 8) {
+    load8(x, v);
+  } else {
+    static_assert(VEC == 4, "8 or 4 values");
+    const float4 a = *reinterpret_cast<const float4*>(x);
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  }
+}
+
+template <int VEC, class T>
+__device__ __forceinline__ void store_vec(T* x, const T v[VEC]) {
+  if constexpr (VEC == 8) {
+    store8(x, v);
+  } else {
+    static_assert(VEC == 4 && sizeof(T) == 8, "8 values, or 4 f64");
+    reinterpret_cast<double2*>(x)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(x)[1] = make_double2(v[2], v[3]);
+  }
 }
 
 // Eight int16 of one 16-byte vector as eight bf16, each the value rounded
@@ -384,8 +531,11 @@ __device__ __forceinline__ void strip_producer(const Planes& A,
   int g = blockIdx.x;
   int t = g / STRIPS, i, k, ld;
   size_t base;
-  float sc[NP];
-  bool first = true;  // the first tile's scales are read behind its copies
+  float sc[NP];  // an unscaled plane's header carries 1
+#pragma unroll
+  for (int pl = 0; pl < NP; ++pl) sc[pl] = 1.0f;
+  bool first = Planes::SCALED;  // the first tile's scales are read behind
+                                // its copies
   W.tile(t, i, k, base, ld);
   for (int pos = 0; g < strips;) {
     const int s = g % STRIPS;
@@ -397,8 +547,10 @@ __device__ __forceinline__ void strip_producer(const Planes& A,
     if (next_tile) {
       tn = gn / STRIPS;
       W.tile(tn, in, kn, base, ld);
+      if constexpr (Planes::SCALED) {
 #pragma unroll
-      for (int pl = 0; pl < NP; ++pl) scn[pl] = __ldg(A.s[pl] + tn);
+        for (int pl = 0; pl < NP; ++pl) scn[pl] = __ldg(A.s[pl] + tn);
+      }
     }
     const bool off = W.transposed(i, k);
     for (int j = 0; j < SPS; ++j, ++pos) {
@@ -434,10 +586,12 @@ __device__ __forceinline__ void strip_producer(const Planes& A,
                     V.t[v] + (size_t)i * TB + s * ROWS + j * SR,
                     SR * (int)sizeof(float), &full[slot], keep);
       }
-      if (first) {
+      if constexpr (Planes::SCALED) {
+        if (first) {
 #pragma unroll
-        for (int pl = 0; pl < NP; ++pl) sc[pl] = __ldg(A.s[pl] + t);
-        first = false;
+          for (int pl = 0; pl < NP; ++pl) sc[pl] = __ldg(A.s[pl] + t);
+          first = false;
+        }
       }
       StripHeader<NP>* hdr =
           reinterpret_cast<StripHeader<NP>*>(stage + Cfg::HDR_OFF);
@@ -450,8 +604,10 @@ __device__ __forceinline__ void strip_producer(const Planes& A,
     g = gn;
     if (next_tile) {
       t = tn; i = in; k = kn;
+      if constexpr (Planes::SCALED) {
 #pragma unroll
-      for (int pl = 0; pl < NP; ++pl) sc[pl] = scn[pl];
+        for (int pl = 0; pl < NP; ++pl) sc[pl] = scn[pl];
+      }
     }
   }
 }
@@ -464,9 +620,13 @@ __device__ __forceinline__ void strip_sum_consumers(
     typename Cfg::acc_t* __restrict__ part_d,
     typename Cfg::acc_t* __restrict__ part_t) {
   using acc_t = typename Cfg::acc_t;
+  using Planes = typename Cfg::planes_t;
   constexpr int NP = Cfg::NP, NV = Cfg::NV, SR = Cfg::SR, S = Cfg::S;
   constexpr int RW = Cfg::RW, SPS = Cfg::SPS, WPS = Cfg::WPS;
+  constexpr int VEC = Cfg::VEC;
+  constexpr int ELEM = (int)sizeof(typename Planes::elem_t);
   constexpr int COLS_PER_LANE = cols_per_lane_of<TB>;  // 16
+  constexpr int GROUPS = COLS_PER_LANE / VEC;  // 16-byte vectors a row
   constexpr int COLS_PER_THREAD = TB / (WARPS * 32);   // of the reduction
   acc_t* red = reinterpret_cast<acc_t*>(smem + S * Cfg::STAGE_BYTES);
   const int warp = threadIdx.x / 32;
@@ -493,31 +653,32 @@ __device__ __forceinline__ void strip_sum_consumers(
     acc_t c[NP];
 #pragma unroll
     for (int pl = 0; pl < NP; ++pl) c[pl] = hdr.sc[pl];
-    // Q16Plane::p_scale (the scale folded into p and q), FQPlane's 1
-    const acc_t sc = NP == 1 ? c[0] : acc_t(1);
+    // Q16Plane::p_scale (the scale folded into p and q), FQPlane's and
+    // DF64TilePlane's 1
+    const acc_t sc = Planes::FOLD ? c[0] : acc_t(1);
     const bool off = hdr.offdiag != 0;  // uniform across the block
 
     acc_t pk[COLS_PER_LANE];
     acc_t tacc[COLS_PER_LANE];
     const float* pks = reinterpret_cast<const float*>(stage + Cfg::PK_OFF);
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {  // columns lane_col<8>(lane, 8h .. 8h+7)
-      float x[NV][8];
+    for (int h = 0; h < GROUPS; ++h) {  // columns lane_col<VEC>(lane, VEC h ..)
+      float x[NV][VEC];
 #pragma unroll
-      for (int v = 0; v < NV; ++v) load8(pks + v * TB + h * 256 + lane * 8,
-                                         x[v]);
+      for (int v = 0; v < NV; ++v)
+        load_vec<VEC>(pks + v * TB + h * 32 * VEC + lane * VEC, x[v]);
 #pragma unroll
-      for (int e = 0; e < 8; ++e) {
+      for (int e = 0; e < VEC; ++e) {
         if constexpr (NV == 1)
-          pk[8 * h + e] = x[0][e] * sc;
+          pk[VEC * h + e] = x[0][e] * sc;
         else
-          pk[8 * h + e] = ((double)x[0][e] + (double)x[1][e]) * sc;
+          pk[VEC * h + e] = ((double)x[0][e] + (double)x[1][e]) * sc;
       }
     }
 #pragma unroll
     for (int qq = 0; qq < COLS_PER_LANE; ++qq) tacc[qq] = acc_t(0);
 
-    const unsigned char* rows = stage + wr * TB * (int)sizeof(short);
+    const unsigned char* rows = stage + wr * TB * ELEM;
     const float* pis = reinterpret_cast<const float*>(stage + Cfg::PI_OFF);
     constexpr int KEEP = Cfg::EARLY ? ROWS_PER_WARP : 1;
     int4 raw[KEEP][2];  // EARLY: the warp's rows, then the release
@@ -538,28 +699,31 @@ __device__ __forceinline__ void strip_sum_consumers(
 #pragma unroll UNROLL
     for (int rr = 0; rr < ROWS_PER_WARP; ++rr) {
       const int r = warp * ROWS_PER_WARP + rr;  // row of the strip
-      acc_t a[COLS_PER_LANE];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if constexpr (Cfg::EARLY)
-          values8_of_i16x8<acc_t, Cfg::BITS>(raw[rr][h], a + 8 * h);
-        else
-          tile_values8<NP, Cfg::BITS>(
-              rows, Cfg::PLANE_BYTES,
-              (rr * TB + h * 256 + lane * 8) * (int)sizeof(short), c,
-              a + 8 * h);
-      }
+      // a row's 16-byte vectors one at a time, each into both sums: the
+      // same terms in the same order as a whole row's values first (d
+      // over q = 0 .. 15, tacc[q] over the rows), with half the values
+      // live (faster on every strip walk, none spilling)
+      const acc_t pi =
+          Cfg::EARLY ? pir[rr] : vec_value<NV>(pis, wr + rr, SR) * sc;
       acc_t d = acc_t(0);
 #pragma unroll
-      for (int qq = 0; qq < COLS_PER_LANE; ++qq) d += a[qq] * pk[qq];
+      for (int h = 0; h < GROUPS; ++h) {
+        acc_t a[VEC];
+        if constexpr (Cfg::EARLY)
+          Planes::template values_of<Cfg::BITS>(raw[rr][h], c, a);
+        else
+          Planes::template values<Cfg::BITS>(
+              rows + (rr * TB + h * 32 * VEC + lane * VEC) * ELEM,
+              Cfg::PLANE_BYTES, c, a);
+#pragma unroll
+        for (int qq = 0; qq < VEC; ++qq) d += a[qq] * pk[VEC * h + qq];
+        if (off) {
+#pragma unroll
+          for (int qq = 0; qq < VEC; ++qq) tacc[VEC * h + qq] += a[qq] * pi;
+        }
+      }
       d = warp_sum(d);
       if (lane == 0) part_d[(size_t)t * TB + s * ROWS + r] = d;
-      if (off) {
-        const acc_t pi = Cfg::EARLY ? pir[rr]
-                                    : vec_value<NV>(pis, wr + rr, SR) * sc;
-#pragma unroll
-        for (int qq = 0; qq < COLS_PER_LANE; ++qq) tacc[qq] += a[qq] * pi;
-      }
     }
     if constexpr (!Cfg::EARLY) {
       __syncwarp();  // every lane's reads of the stage before the release
@@ -573,8 +737,9 @@ __device__ __forceinline__ void strip_sum_consumers(
       for (int round = 0; round < WARPS / RW; ++round) {
         if (warp / RW == round) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h)
-            store8(red + (warp % RW) * TB + h * 256 + lane * 8, tacc + 8 * h);
+          for (int h = 0; h < GROUPS; ++h)
+            store_vec<VEC>(red + (warp % RW) * TB + h * 32 * VEC + lane * VEC,
+                           tacc + VEC * h);
         }
         consumers_sync();
 #pragma unroll
@@ -745,22 +910,39 @@ int launch_dependent(void (*kernel)(Params...), int blocks,
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// Kernel 16 on the strip walk: pass 1 over the T packed tiles of the
-// rank's walk, then slab_pass2 over the lists L.
-int launch_strip_slab(const short* q, const float* s1, const float* p,
-                      const int* it, const int* kt, SlabLists L, float* yd,
-                      float* yt, float* part_d, float* part_t, int T, int ms,
-                      int n, cudaStream_t stream) {
-  if (T <= 0 || ms <= 0 || ms % TB || n <= 0 || n % TB)
+// Kernels 16 and 9-bcast (zero tile) on the strip walk: pass 1 over the T
+// packed tiles of the rank's walk (W.packed), then slab_pass2 over the
+// lists L.
+template <class Cfg, class Planes, class Vecs, class Out>
+int launch_strip_slab(Planes A, Vecs V, TableWalk W, SlabLists L, Out YD,
+                      Out YT, typename Cfg::acc_t* part_d,
+                      typename Cfg::acc_t* part_t, int T, int ms,
+                      cudaStream_t stream) {
+  using acc_t = typename Cfg::acc_t;
+  if (T <= 0 || ms <= 0 || ms % TB || W.n <= 0 || W.n % TB || !W.packed)
     return (int)cudaErrorInvalidValue;
-  const int e = launch_strip_pass1<SlabQ16Cfg>(
-      StripPlanes<1>{{q}, {s1}}, StripVecs<1>{{p}, {p}},
-      TableWalk{it, kt, nullptr, n, 1}, T, part_d, part_t, stream);
+  const int e = launch_strip_pass1<Cfg>(A, V, W, T, part_d, part_t, stream);
   if (e != (int)cudaSuccess) return e;
-  return launch_dependent(slab_pass2<float, F32Out, true>, (ms + n) / P2_COLS,
-                          stream, (const float*)part_d, (const float*)part_t,
-                          L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, F32Out{yd},
-                          F32Out{yt});
+  return launch_dependent(slab_pass2<acc_t, Out, true>, (ms + W.n) / P2_COLS,
+                          stream, (const acc_t*)part_d, (const acc_t*)part_t,
+                          L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, YD, YT);
+}
+
+// Kernel 15-bcast (zero tiles) on the strip walk: pass 1 over the T =
+// nblk(nblk+1)/2 tiles of the packed triangle, then symm_pass2.
+template <class Cfg, class Planes, class Vecs, class Out>
+int launch_strip_tri(Planes A, Vecs V, Out Y, typename Cfg::acc_t* part_d,
+                     typename Cfg::acc_t* part_t, int nblk,
+                     cudaStream_t stream) {
+  using acc_t = typename Cfg::acc_t;
+  if (nblk <= 0) return (int)cudaErrorInvalidValue;
+  const int e = launch_strip_pass1<Cfg>(A, V, TriangleWalk<>{},
+                                        nblk * (nblk + 1) / 2, part_d,
+                                        part_t, stream);
+  if (e != (int)cudaSuccess) return e;
+  return launch_dependent(symm_pass2<TB, STRIPS, acc_t, Out, true>,
+                          nblk * TB / P2_COLS, stream, (const acc_t*)part_d,
+                          (const acc_t*)part_t, nblk, Y);
 }
 
 // Kernels 18 and 19 on the strip walk: pass 1 over the mb x cb tiles of the

@@ -812,11 +812,14 @@ int pass1(Plane A, Vec P, Vec Q, Walk W, int tiles,
 // y[i*W + r] = sum_{k<=i} part_d[t(i,k)][r] + sum_{j>i} sum_s part_t[t(j,i)][s][r]
 // over the PARTS transpose partial rows s of each tile, at tile width W.
 // Block: P2_COLS consecutive outputs (one row-tile i, since P2_COLS divides
-// W) x P2_GROUPS strided partial sums, combined in a fixed order.
-template <int W, int PARTS, class acc_t, class Out>
+// W) x P2_GROUPS strided partial sums, combined in a fixed order. PDL:
+// launched as a programmatic dependent of pass 1 (csrc/strip_walk.cuh,
+// kernel 15-bcast on zero tiles), it first waits for pass 1's writes.
+template <int W, int PARTS, class acc_t, class Out, bool PDL = false>
 __global__ void __launch_bounds__(THREADS)
 symm_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
            int nblk, Out out) {
+  if constexpr (PDL) asm volatile("griddepcontrol.wait;\n" ::: "memory");
   __shared__ acc_t red[P2_GROUPS][P2_COLS];
   const int col = threadIdx.x % P2_COLS;
   const int grp = threadIdx.x / P2_COLS;

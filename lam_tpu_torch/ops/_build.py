@@ -53,6 +53,7 @@ SIGNATURES = {
     "lam_gemv_df64_symm_square": (_P,) * 8 + (_I, _P),
     "lam_gemv_df64_symm_bcast": (_P,) * 8 + (_I, _P),
     "lam_gemv_fq_symm_bcast": (_P,) * 12 + (_I, _I, _I, _P),
+    "lam_gemv_fq_symm_zero": (_P,) * 8 + (_I, _P),
     "lam_gemv_f32": (_P, _P, _P, _I, _I, _P),
     "lam_gemv_df64": (_P,) * 6 + (_I, _I, _P),
     "lam_gemv_f32_cols": (_P, _P, _P) + (_I,) * 4 + (_P,),
@@ -65,6 +66,7 @@ SIGNATURES = {
     "lam_gemv_fq_symm_slab": (_P,) * 21 + (_I,) * 3 + (_P,),
     "lam_gemv_dfq_symm_slab": (_P,) * 18 + (_I,) * 3 + (_P,),
     "lam_gemv_df64_symm_slab_bcast": (_P,) * 17 + (_I,) * 3 + (_P,),
+    "lam_gemv_df64_symm_slab_zero": (_P,) * 16 + (_I,) * 3 + (_P,),
     "lam_gemv_fq_symm_slab_bcast": (_P,) * 21 + (_I,) * 5 + (_P,),
     "lam_gemv_f32_dual": (_P,) * 7 + (_I, _I, _P),
     "lam_gemv_df64_dual": (_P,) * 12 + (_I, _I, _P),

@@ -77,6 +77,17 @@ lam_tpu):
     gemv_df64_dual_bcast       <- gemv_df64_dual, lo tile      (:1695)
     gemv_fq_dual_bcast         <- gemv_fq_dual, q2/q3 tiles    (:2637)
 
+Generate mode's tiles hold only zeros ("exact-zero residual planes",
+lam_tpu :2183-2185). Two of the broadcast modes have a kernel of their own
+for such tiles, which reads only the plane that is not zero and gives
+the full-plane kernel's bits over zero planes. The operators choose it
+when they are built, where their tiles are counted zero
+(`solver.operators.zero_tiles_of`), never by a read at a matvec; any
+other tile keeps the tile-reading mode:
+
+    gemv_fq_symm_zero          <- gemv_fq_symm, zero q2/q3 tiles (:2182)
+    gemv_df64_symm_slab_zero   <- gemv_df64_symm_slab, zero lo tile (:991)
+
 The three q16 matvecs have two product engines, as in lam_tpu, chosen
 per call by `_q16_impl` from the module attribute `_Q16_IMPL` (read from
 LAM_Q16_IMPL at import; "auto", the default, "mxu" or "vpu"; any other
@@ -251,19 +262,19 @@ def gemv_fq_symm_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
     three-plane fq cascade over the real triangle tiles and returned as
     the f32 split of the f64 result."""
     gemv_fq_symm_plain.calls += 1
-    return _fq_symm_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+    return _fq_symm_parts(((q1, s1), (q2, s2), (q3, s3)), p_hi, p_lo)
 
 
-def _fq_symm_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
-    """The f64 triangle walk of the fq cascade over the real tiles, each
-    of q2 and q3 a plane of q1's shape or one (tb, tb) tile that every
-    tile reads."""
-    tb, nblk, _ = layout.packed_geometry(q1.shape, p_hi.shape[0],
+def _fq_symm_parts(planes, p_hi, p_lo):
+    """The f64 triangle walk of the fq cascade over the real tiles:
+    `planes` the (plane, scale table) pairs, q1's first, each later plane
+    of q1's shape or one (tb, tb) tile that every tile reads."""
+    tb, nblk, _ = layout.packed_geometry(planes[0][0].shape, p_hi.shape[0],
                                          "gemv_fq_symm", padded=True)
     T = layout.tri_tile_count(nblk)
     tiles = sum(q.reshape(-1, tb, tb)[:T].to(torch.float64)
                 * s[:T].to(torch.float64)[:, None, None]
-                for q, s in ((q1, s1), (q2, s2), (q3, s3)))
+                for q, s in planes)
     p = p_hi.to(torch.float64) + p_lo.to(torch.float64)
     return split_f64(_walk(tiles, p, nblk))
 
@@ -273,7 +284,14 @@ def gemv_fq_symm_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo):
     (lam_tpu's pinned block (0, 0), gemv.py:2182-2199), expanded over the
     walk."""
     gemv_fq_symm_bcast_plain.calls += 1
-    return _fq_symm_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo)
+    return _fq_symm_parts(((q1, s1), (q2, s2), (q3, s3)), p_hi, p_lo)
+
+
+def gemv_fq_symm_zero_plain(q1, s1, p_hi, p_lo):
+    """`gemv_fq_symm_bcast_plain` over zero q2/q3 tiles, which are not
+    taken: the f64 walk of q1 against s1."""
+    gemv_fq_symm_zero_plain.calls += 1
+    return _fq_symm_parts(((q1, s1),), p_hi, p_lo)
 
 
 def _fit_tile(dim, preferred, name):
@@ -438,6 +456,17 @@ def gemv_df64_symm_slab_bcast_plain(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *,
     tiles = a_hi.to(torch.float64) + _tile_plane(a_lo, a_hi).to(
         torch.float64)
     return _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb)
+
+
+def gemv_df64_symm_slab_zero_plain(a_hi, p_hi, p_lo, it, kt, lt, *, ms):
+    """`gemv_df64_symm_slab_bcast_plain` over a zero lo tile, which is
+    not taken: the f64 walk of the hi plane."""
+    gemv_df64_symm_slab_zero_plain.calls += 1
+    tb, ms = _slab_geometry("gemv_df64_symm_slab", a_hi, p_hi, it, kt, lt,
+                            ms, True, None)
+    _check_walk(*_host_tables(it, kt, lt), p_hi.shape[0] // tb, ms // tb)
+    return _df64_slab_parts(a_hi.to(torch.float64), p_hi, p_lo, it, kt, lt,
+                            ms, tb)
 
 
 def gemv_q16_symm_slab_plain(q1_slab, sc1, p, it, kt, lt, *, ms):
@@ -990,6 +1019,26 @@ def gemv_fq_symm_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo, *, comp=None):
                      (int(q2.shape != q1.shape), int(q3.shape != q1.shape)))
 
 
+def gemv_fq_symm_zero(q1, s1, p_hi, p_lo, *, comp=None):
+    """`gemv_fq_symm_bcast` over q2 and q3 tiles that hold only zeros
+    (generate mode's), which it does not take: (y_hi, y_lo) = A @ p for
+    A = q1 * s1, q1 alone streamed through the strip walk
+    (csrc/strip_walk.cuh), with the bits of `gemv_fq_symm` over zero
+    q2/q3 planes and any finite s2, s3."""
+    what = "gemv_fq_symm_zero"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check(what, {"q1": q1, "s1": s1, "p_hi": p_hi, "p_lo": p_lo},
+           q1.device)
+    geometry = layout.packed_geometry(q1.shape, p_hi.shape[0], what,
+                                      padded=True)
+    _check_scales(what, geometry[2], {"s1": s1})
+    if q1.device.type == "cpu":
+        return gemv_fq_symm_zero_plain(q1, s1, p_hi, p_lo)
+    _check_tma(what, {"p_hi": p_hi, "p_lo": p_lo})
+    return _tri_call(gemv_fq_symm_zero, "lam_gemv_fq_symm_zero",
+                     (q1, s1, p_hi, p_lo), geometry, True)
+
+
 def _dense_geometry(what, a, *ps):
     """(m, n) of a row-major matrix and its operand vector(s). Raises
     unless both sides are multiples of 128, the rule of lam_tpu's
@@ -1342,6 +1391,27 @@ def gemv_df64_symm_slab_bcast(a_hi, a_lo, p_hi, p_lo, it, kt, lt, *, ms,
     return _slab_call(gemv_df64_symm_slab_bcast,
                       "lam_gemv_df64_symm_slab_bcast",
                       (a_hi, a_lo, p_hi, p_lo), it, kt, lt, ms, tb, True)
+
+
+def gemv_df64_symm_slab_zero(a_hi, p_hi, p_lo, it, kt, lt, *, ms,
+                             comp=None):
+    """`gemv_df64_symm_slab_bcast` over a lo tile that holds only zeros
+    (generate mode's), which it does not take: (yd_hi, yd_lo, yt_hi,
+    yt_lo) of the packed hi plane alone, streamed through the strip walk
+    (csrc/strip_walk.cuh), with the bits of `gemv_df64_symm_slab(packed=
+    True)` over a zero lo plane."""
+    what = "gemv_df64_symm_slab_zero"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check(what, {"a_hi": a_hi, "p_hi": p_hi, "p_lo": p_lo, "it": it,
+                  "kt": kt, "lt": lt}, a_hi.device)
+    tb, ms = _slab_geometry(what, a_hi, p_hi, it, kt, lt, ms, True, None)
+    if a_hi.device.type == "cpu":
+        return gemv_df64_symm_slab_zero_plain(a_hi, p_hi, p_lo, it, kt, lt,
+                                              ms=ms)
+    _check_tma(what, {"p_hi": p_hi, "p_lo": p_lo})
+    return _slab_call(gemv_df64_symm_slab_zero,
+                      "lam_gemv_df64_symm_slab_zero", (a_hi, p_hi, p_lo), it,
+                      kt, lt, ms, tb, True)
 
 
 def _comp_and_pairs(what, comp, p_hi, p_lo):
@@ -1724,7 +1794,8 @@ KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_q16_symm_bf16, gemv_q16_symm_slab_bf16, gemv_q16_dual_bf16,
            gemv_f32_symm_square, gemv_df64_symm_square, gemv_df64_symm_bcast,
            gemv_fq_symm_bcast, gemv_df64_symm_slab_bcast,
-           gemv_fq_symm_slab_bcast, gemv_df64_dual_bcast, gemv_fq_dual_bcast)
+           gemv_fq_symm_slab_bcast, gemv_df64_dual_bcast, gemv_fq_dual_bcast,
+           gemv_fq_symm_zero, gemv_df64_symm_slab_zero)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
@@ -1737,7 +1808,8 @@ PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_f32_symm_square_plain, gemv_df64_symm_square_plain,
          gemv_df64_symm_bcast_plain, gemv_fq_symm_bcast_plain,
          gemv_df64_symm_slab_bcast_plain, gemv_fq_symm_slab_bcast_plain,
-         gemv_df64_dual_bcast_plain, gemv_fq_dual_bcast_plain)
+         gemv_df64_dual_bcast_plain, gemv_fq_dual_bcast_plain,
+         gemv_fq_symm_zero_plain, gemv_df64_symm_slab_zero_plain)
 
 
 def reset_counters():

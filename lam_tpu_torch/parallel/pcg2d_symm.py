@@ -48,8 +48,11 @@ kernels on the card and their plain versions on the CPU. Generate mode
 (`from_gen_tridiagonal`, `from_gen_fq`) builds each rank's triangle or
 half-slab on its device, with ONE zero (tb, tb) tile for the lo plane or
 for each of q2 and q3 that every tile reads (the broadcast modes of
-kernels 2 and 15 on the diagonal ranks, 12 and 19 on the others). Not
-ported yet: the Jacobi preconditioner (`run_pcg`).
+kernels 2 and 15 on the diagonal ranks, 12 and 19 on the others). An fq
+diagonal rank whose q2 and q3 tiles hold only zeros, counted once when
+its operator is built, runs the triangle kernel that reads q1 alone
+(`gemv.gemv_fq_symm_zero`). Not ported yet: the Jacobi preconditioner
+(`run_pcg`).
 """
 
 from __future__ import annotations
@@ -131,29 +134,34 @@ def _route_mv_pair(mesh, m, diag_mv, dual_mv, p_own, p_recv):
     return t, _scatter_half(d, m, top=False)
 
 
-def _make_mv_pair(mesh, m, storage, which):
+def _make_mv_pair(mesh, m, storage, which, zero_fq=False):
     """The rank's matvec (operand, p_own, p_recv) -> (own partial, mirror
     payload): only the tile math of the storage is chosen here, the
     routing is `_route_mv_pair`'s. which='f32' is the inner view on f32
-    vectors, 'acc' the accurate matvec on f64 vectors. The quantized
-    planes carry a zero diagonal: the diagonal rank adds dh * p (f32) or
-    (dh + dl) * p in native f64 (lam_tpu adds it with df_mul and
-    two_sum)."""
+    vectors, 'acc' the accurate matvec on f64 vectors; `zero_fq` puts
+    the triangle kernel that reads q1 and s1 alone in the fq one's place
+    (q2 and q3 tiles of zeros). The quantized planes carry a zero
+    diagonal: the diagonal rank adds dh * p (f32) or (dh + dl) * p in
+    native f64 (lam_tpu adds it with df_mul and two_sum)."""
     tri, dual, idx = _TILE_MATH[storage][which == "acc"]
+    tri_idx = idx
+    if zero_fq:
+        tri, tri_idx = gemv.gemv_fq_symm_zero, (0, 3)
     quant = storage in ops.QUANT_LAYOUT
 
     def mv_pair(operand, p_own, p_recv):
         planes = [operand[k] for k in idx]
+        tri_planes = [operand[k] for k in tri_idx]
         if which == "f32":
             def diag_mv(p):
-                y = tri(*planes, p)
+                y = tri(*tri_planes, p)
                 return y + operand[-2] * p if quant else y
 
             def dual_mv(pf, qh):
                 return dual(*planes, pf, qh)
         else:
             def diag_mv(p):
-                y = join_f64(*tri(*planes, *split_f64(p)))
+                y = join_f64(*tri(*tri_planes, *split_f64(p)))
                 if quant:
                     y = y + join_f64(operand[-2], operand[-1]) * p
                 return y
@@ -217,8 +225,10 @@ class Symm2DOperator(GridOperator):
         if storage not in STORAGES:
             raise ValueError(f"unknown symmetric-grid storage {storage!r}")
         which = "f32" if vector_dtype == torch.float32 else "acc"
+        zero_fq = (storage == "fq" and which == "acc" and mesh.i == mesh.j
+                   and ops.zero_tiles_of(operand[:3]))
         self.mv_pair = _make_mv_pair(mesh, n_padded // mesh.r, storage,
-                                     which)
+                                     which, zero_fq)
         super().__init__(_make_apply_sym2d(self.mv_pair, mesh), operand, n,
                          n_padded, vector_dtype, mesh)
         self.precision = "f32" if which == "f32" else storage

@@ -46,7 +46,9 @@ Generate mode (`from_gen_tridiagonal`, `from_gen_fq`) builds each rank's
 storage on its own device from the rank's own walk tables: the slab, or
 the packed hi plane with ONE zero (tb, tb) lo tile (kernel 9's broadcast
 mode reads it at every tile), or the packed q1 plane with one zero tile
-each for q2 and q3 (kernel 17's).
+each for q2 and q3 (kernel 17's). A packed df64 operator whose lo tile
+holds only zeros, counted once when it is built, multiplies by the kernel
+that reads hi alone (`gemv.gemv_df64_symm_slab_zero`).
 """
 
 from __future__ import annotations
@@ -156,9 +158,10 @@ def _make_mv32(mesh, m, tb, storage):
     return mv
 
 
-def _make_mv_acc(mesh, m, tb, storage):
+def _make_mv_acc(mesh, m, tb, storage, zero_lo):
     """The accurate matvec of a storage, on f64 vectors: the df64, dfq or
-    fq slab walk. For the quantized storages the owner adds the exact
+    fq slab walk, or the hi plane's alone where `zero_lo` (a packed lo
+    tile of zeros). For the quantized storages the owner adds the exact
     diagonal term (dh + dl) * p over its rows, in native f64 (lam_tpu
     adds it with df_mul and two_sum), before the all-reduce."""
     c, g = mesh.rank, mesh.size
@@ -172,6 +175,9 @@ def _make_mv_acc(mesh, m, tb, storage):
         elif storage == "dfq":
             parts = gemv.gemv_dfq_symm_slab(*operand[:3], ph, pl, it, kt, lt,
                                             ms=2 * m)
+        elif zero_lo:
+            parts = gemv.gemv_df64_symm_slab_zero(operand[0], ph, pl, it, kt,
+                                                  lt, ms=2 * m)
         else:
             parts = gemv.gemv_df64_symm_slab(
                 operand[0], operand[1], ph, pl, it, kt, lt, ms=2 * m,
@@ -197,9 +203,13 @@ class SymmShardedOperator(ops.LinearOperator):
                  vector_dtype=torch.float64):
         if storage not in STORAGES:
             raise ValueError(f"unknown band-pair storage {storage!r}")
-        make = _make_mv32 if vector_dtype == torch.float32 else _make_mv_acc
-        super().__init__(make(mesh, m, tb, storage), operand, n, n_padded,
-                         vector_dtype, mesh.device)
+        if vector_dtype == torch.float32:
+            mv = _make_mv32(mesh, m, tb, storage)
+        else:
+            mv = _make_mv_acc(mesh, m, tb, storage, storage == "packed"
+                              and ops.zero_tiles_of(operand[:2]))
+        super().__init__(mv, operand, n, n_padded, vector_dtype,
+                         mesh.device)
         self.precision = ("f32" if vector_dtype == torch.float32 else
                           storage if storage in ops.QUANT_LAYOUT else "df64")
         self.engine = ENGINES[storage != "slab"]

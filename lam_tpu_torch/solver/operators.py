@@ -42,7 +42,10 @@ saved.
 Generate mode's operators (lam_tpu_torch/solver/api.py) are built on the
 device from packed planes: `from_packed_f32`, `from_packed_planes` with
 the lo plane as one broadcast (tb, tb) zero tile, `from_gen_fq` with q2
-and q3 as one zero tile each, and `from_df64_planes` over squares.
+and q3 as one zero tile each, and `from_df64_planes` over squares. An
+fq operator whose q2 and q3 tiles hold only zeros, counted once when it is
+built (`zero_tiles_of`), never at a matvec, multiplies by the kernel that
+reads q1 alone (`gemv.gemv_fq_symm_zero`).
 
 A `MatrixFreeOperator` applies a function instead of a stored matrix
 (the heat demo's 5-point Laplacian, lam_tpu_torch/apps/heat.py), and an
@@ -277,6 +280,14 @@ def _mv_fq_packed(operand, p):
     return join_f64(yh, yl) + join_f64(dh, dl) * p
 
 
+def _mv_fq_zero(operand, p):
+    # q2 and q3 are tiles of zeros: q1 alone, then the diagonal term
+    q1, _, _, s1, _, _, dh, dl = operand
+    ph, pl = split_f64(p)
+    yh, yl = gemv.gemv_fq_symm_zero(q1, s1, ph, pl)
+    return join_f64(yh, yl) + join_f64(dh, dl) * p
+
+
 def _mv_f32_of_fq_packed(operand, p):
     # inner view: the 2-byte q1 plane plus the f32 diagonal term
     return gemv.gemv_q16_symm(operand[0], operand[3], p) + operand[6] * p
@@ -396,6 +407,17 @@ class MatrixFreeOperator(LinearOperator):
                          resolve_device(device))
 
 
+def zero_tiles_of(planes):
+    """True where every plane after the first (the df64 lo plane, or the
+    fq q2 and q3 planes) is a broadcast tile, not of the first plane's
+    shape, holding only zeros (-0.0 counts: its terms never change a sum's
+    bits, csrc/strip_walk.cuh). One count on the device, read when an
+    operator is built."""
+    tiles = planes[1:]
+    return all(t.shape != planes[0].shape for t in tiles) and all(
+        int(torch.count_nonzero(t)) == 0 for t in tiles)
+
+
 class DenseOperator(LinearOperator):
     """Device-resident dense matrix with a precision and an engine."""
 
@@ -498,7 +520,8 @@ class DenseOperator(LinearOperator):
         """DenseOperator over quantized packed-triangle buffers in operand
         order (`_host_pack_tri`, `pack_cache.load`, `from_gen_fq`), host
         arrays or tensors; the fq q2 and q3 planes may each be one
-        broadcast (tb, tb) tile."""
+        broadcast (tb, tb) tile. Where both are tiles of zeros, the matvec
+        reads q1 alone."""
         if storage not in QUANT_LAYOUT:
             raise ValueError(f"not a quantized storage: {storage!r}")
         n_planes = len(QUANT_LAYOUT[storage][0])
@@ -523,8 +546,10 @@ class DenseOperator(LinearOperator):
                 raise ValueError(f"scale table shape {tuple(sc.shape)} != "
                                  f"({T},)")
         operand = tuple(_upload(b, dev) for b in bufs)
-        return DenseOperator(_MV_QUANT[storage], operand, n, n_padded,
-                             torch.float64, storage, ENGINE, dev)
+        matvec = (_mv_fq_zero if storage == "fq"
+                  and zero_tiles_of(operand[:3]) else _MV_QUANT[storage])
+        return DenseOperator(matvec, operand, n, n_padded, torch.float64,
+                             storage, ENGINE, dev)
 
     @staticmethod
     def _from_dense_quantized(a, storage, check_symmetric, device):

@@ -24,7 +24,11 @@ to the heat demo's 998 x 1198 interior (1024 x 1280), with zero edges and
 with the non-zero edge rows of a row-sharded grid. The broadcast modes of
 kernels 9, 17 (every rank's walk, G = 1 to 3) and 12, 19 (rectangles of
 one tile to 7 x 3) give the full-plane kernel's bits on a zero tile and
-match the f64 oracle on non-zero ones.
+match the f64 oracle on non-zero ones. The kernels of kernels 15's and
+9's modes for tiles of zeros (the strip walk over q1 or hi alone) give the
+full-plane kernels' and the tile-reading walks' bits with signed zeros in
+the planes, the operands and the scales; generate mode's operators take
+them, and an operator handed a tile that is not zero does not.
 """
 
 import numpy as np
@@ -404,11 +408,13 @@ def test_gemv_df64_cols_stream_walk(m, n, nb):
 
 def test_dense_stream_kernels_hold_the_bulk_copy():
     """The SASS of kernels 4, 5 and 6 (dense_stream) and of the strip walks
-    of kernels 16, 18, 19 and 19-bcast (its own planes type,
-    StripTilePlanes) issues TMA bulk copies (UBLKCP); that of the
-    dense_rows kernels (3 and the df64 control) and of the strip walks'
-    controls (the two-pass walk's pass 1 on the slab tables and on the q16
-    and fq rectangles) none."""
+    of kernels 16, 18, 19, 19-bcast (its own planes type,
+    StripTilePlanes) and the zero-tile walks of 15-bcast and 9-bcast
+    (StripQ1Planes, StripHiPlanes) issues TMA bulk copies (UBLKCP); that of
+    the dense_rows kernels (3 and the df64 control) and of the strip
+    walks' controls (the two-pass walk's pass 1 on the slab tables and on
+    the q16 and fq rectangles, and the tile-reading walks of 15-bcast and
+    9-bcast) none."""
     from lam_tpu_torch.ops import _build
     kernels = _build.sass()
     stream = [k for k in kernels if "dense_stream" in k]
@@ -417,14 +423,19 @@ def test_dense_stream_kernels_hold_the_bulk_copy():
     twopass = [k for k in kernels if "symm_pass1" in k and any(
         plane in k and walk in k for plane, walk in (
             ("8Q16Plane", "TableWalk"), ("8Q16Plane", "8RectWalk"),
-            ("7FQPlane", "8RectWalk")))]
+            ("7FQPlane", "8RectWalk"), ("11FQTilePlane", "TriangleWalk"),
+            ("13DF64TilePlane", "TableWalk")))]
     assert sorted("DF64Stream" in k for k in stream) == [False, True, True]
     assert sorted("DF64Mat" in k for k in rows) == [False, True]
-    assert len(strip) == 4 and len(twopass) == 3
-    assert sorted(("StripPlanesILi3E" in k, "StripTilePlanes" in k,
-                   "TableWalk" in k) for k in strip) == [
-        (False, False, False), (False, False, True), (False, True, False),
-        (True, False, False)]
+    assert len(strip) == 6 and len(twopass) == 5
+    planes = ("StripPlanesILi1E", "StripPlanesILi3E", "StripTilePlanes",
+              "StripQ1Planes", "StripHiPlanes")
+    walks = ("TableWalk", "RectWalk", "TriangleWalk")
+    assert sorted((next(p for p in planes if p in k),
+                   next(w for w in walks if w in k)) for k in strip) == [
+        ("StripHiPlanes", "TableWalk"), ("StripPlanesILi1E", "RectWalk"),
+        ("StripPlanesILi1E", "TableWalk"), ("StripPlanesILi3E", "RectWalk"),
+        ("StripQ1Planes", "TriangleWalk"), ("StripTilePlanes", "RectWalk")]
     for k in stream + strip:
         assert any("UBLKCP" in line for line in kernels[k])
     for k in rows + twopass:
@@ -1827,8 +1838,8 @@ def test_mode_wrappers_refuse_and_have_no_fallback(monkeypatch):
 GEN_RUNS = [("df64", "auto", "gemv_df64_symm_bcast"),
             ("ir", "auto", "gemv_df64_symm_bcast"),
             ("f32", "auto", "gemv_f32_symm"),
-            ("fq", "auto", "gemv_fq_symm_bcast"),
-            ("irfq", "auto", "gemv_fq_symm_bcast"),
+            ("fq", "auto", "gemv_fq_symm_zero"),
+            ("irfq", "auto", "gemv_fq_symm_zero"),
             ("dfq", "auto", "gemv_dfq_symm"),
             ("df64", "pallas_symm", "gemv_df64_symm_square"),
             ("ir", "pallas_symm", "gemv_f32_symm_square"),
@@ -2047,3 +2058,216 @@ def test_broadcast_modes_refuse_and_have_no_fallback(monkeypatch):
             call()
     assert not any(v for k, v in ops.counters().items()
                    if k.endswith("_plain"))
+
+
+# -- the zero-tile walks of kernels 15-bcast and 9-bcast (generate mode's
+# tiles, known zero when the operator is built) ---------------------------
+
+def _signed_zeros(x, seed, share=0.25):
+    """x (a card tensor) with -0.0 written over a share of its entries
+    and +0.0 over as many: the zeros whose sign the dropped terms may
+    change, and must not change in a sum."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    u = torch.rand(x.shape, generator=gen, device="cuda")
+    x = x.clone()
+    x[u < share] = -0.0
+    x[(u >= share) & (u < 2 * share)] = 0.0
+    return x
+
+
+def _odd_scales(s, seed):
+    """A scale table with zero, -0.0, negative and positive entries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    pick = torch.randint(0, 4, s.shape, generator=gen, device="cuda")
+    vals = torch.tensor([0.0, -0.0, -(2.0 ** -14), 2.0 ** -20],
+                        device="cuda")
+    return vals[pick].contiguous()
+
+
+@pytest.mark.parametrize("n,n_p", MODE_SIZES[1:])
+def test_fq_zero_tiles_walk(n, n_p):
+    """Kernel 15-bcast's kernel for tiles of zeros (gemv_fq_symm_zero: the
+    strip walk over q1 alone) equals bit for bit kernel 15 over zero planes
+    and its control (the tile-reading walk on zero tiles), with -0.0 and
+    +0.0 operand entries, zero entries of q1 and zero, -0.0 and negative
+    scales in all three tables; against the f64 oracle at 1e-13; bitwise
+    repeats. A non-zero tile keeps the tile-reading walk, at 1e-13 from its
+    plain version."""
+    bufs, _, p = _fq_system(n, n_p, seed=n + 60)
+    nblk = n_p // 512
+    T = layout.tri_tile_count(nblk)
+    q1, q2, q3, s1, s2, s3 = bufs[:6]
+    q1 = q1.clone()
+    q1[q1.abs() < 2000] = 0  # e1 = 0 entries against every scale
+    s1 = _odd_scales(s1, n) if n_p == 10240 else s1
+    s2, s3 = _odd_scales(s2, n + 1), _odd_scales(s3, n + 2)
+    ph, pl = (_signed_zeros(torch.from_numpy(x).cuda(), n + k)
+              for k, x in enumerate(split_f64_host(p)))
+    zt = torch.zeros(512, 512, dtype=torch.int16, device="cuda")
+    gemv.reset_counters()
+    yh, yl = gemv.gemv_fq_symm_zero(q1, s1, ph, pl)
+    torch.cuda.synchronize()
+    assert gemv.counters()["gemv_fq_symm_zero"] == 1 and _no_plain_ran()
+    zp = torch.zeros_like(q1)
+    zh, zl = gemv.gemv_fq_symm(q1, zp, zp, s1, s2, s3, ph, pl)
+    assert torch.equal(yh, zh) and torch.equal(yl, zl)
+    ch, cl = gemv.gemv_fq_symm_bcast(q1, zt, zt, s1, s2, s3, ph, pl)
+    assert torch.equal(yh, ch) and torch.equal(yl, cl)
+    yh2, yl2 = gemv.gemv_fq_symm_zero(q1, s1, ph, pl)
+    assert torch.equal(yh, yh2) and torch.equal(yl, yl2)
+    tiles = (q1.double().reshape(-1, 512, 512)[:T]
+             * s1[:T].double()[:, None, None])
+    pp = ph.double() + pl.double()
+    oracle = torch.mv(_dense_of(tiles, nblk), pp)
+    assert _rel(yh.double() + yl.double(), oracle) <= 1e-13
+    t2, t3 = q2[512:1024].clone(), q3[:512].clone()
+    gemv.reset_counters()
+    got = gemv.gemv_fq_symm(q1, t2, t3, s1, s2, s3, ph, pl)
+    assert gemv.counters()["gemv_fq_symm_bcast"] == 1
+    qh, ql = gemv.gemv_fq_symm_bcast_plain(q1, t2, t3, s1, s2, s3, ph, pl)
+    assert _rel(got[0].double() + got[1].double(),
+                qh.double() + ql.double()) <= 1e-13
+
+
+@pytest.mark.parametrize("n,g", BCAST_SLAB_SIZES)
+def test_df64_slab_zero_tile_walk(n, g):
+    """Kernel 9-bcast's kernel for a lo tile of zeros
+    (gemv_df64_symm_slab_zero: the strip walk over hi alone), on every
+    rank's walk: equal bit for bit to kernel 9 over a zero lo plane and to
+    its control (the tile-reading walk) on a +0.0 and on a -0.0 tile, with
+    -0.0 and +0.0 entries in hi and p; against the f64 oracle at 1e-13;
+    bitwise repeats. A non-zero tile keeps the tile-reading walk, at 1e-13
+    from its plain version."""
+    tb = layout.SYMM_TB
+    a, p = _shard_matrix(n, seed=n + 9 * g)
+    for c in range(g):
+        op = pcg_symm.SymmShardedOperator.from_dense(
+            a, mesh=pmesh.Mesh(c, g, "cuda"), packed=True)
+        hi, lo, it, kt, lt = op.operand
+        ms = 2 * op.m
+        hi = _signed_zeros(hi, n + c)
+        ph, pl = (_signed_zeros(x, n + c + k)
+                  for k, x in enumerate(_cuda_pair(p, op.n_padded)))
+        walk = (it, kt, lt)
+        ops.reset_counters()
+        out = gemv.gemv_df64_symm_slab_zero(hi, ph, pl, *walk, ms=ms)
+        torch.cuda.synchronize()
+        assert ops.counters()["gemv_df64_symm_slab_zero"] == 1
+        assert _no_plain_ran()
+        full = gemv.gemv_df64_symm_slab(hi, torch.zeros_like(hi), ph, pl,
+                                        *walk, ms=ms, packed=True)
+        assert all(torch.equal(u, v) for u, v in zip(out, full))
+        for fill in (0.0, -0.0):
+            ctl = gemv.gemv_df64_symm_slab_bcast(
+                hi, torch.full((tb, tb), fill, device="cuda"), ph, pl,
+                *walk, ms=ms)
+            assert all(torch.equal(u, v) for u, v in zip(out, ctl))
+        again = gemv.gemv_df64_symm_slab_zero(hi, ph, pl, *walk, ms=ms)
+        assert all(torch.equal(u, v) for u, v in zip(out, again))
+        p64 = ph.double() + pl.double()
+        want = torch.cat(gemv._slab_parts(hi.double(), p64, *walk, ms, tb,
+                                          True))
+        assert _rel(_join(out), want) <= 1e-13
+        tile = lo[:tb].clone() * 3.0
+        ops.reset_counters()
+        got = gemv.gemv_df64_symm_slab(hi, tile, ph, pl, *walk, ms=ms,
+                                       packed=True)
+        assert _bcast_counts("gemv_df64_symm_slab") == (1, 0, False)
+        want = _join(gemv.gemv_df64_symm_slab_bcast_plain(
+            hi, tile, ph, pl, *walk, ms=ms))
+        assert _rel(_join(got), want) <= 1e-13
+
+
+def test_gen_operators_take_the_zero_tile_walks():
+    """Generate mode's operators count their tiles zero when built and
+    multiply by the zero-tile kernels alone, never the tile-reading walks:
+    one device's fq (gemv_fq_symm_zero) and one rank's packed df64
+    (gemv_df64_symm_slab_zero, a mesh of one rank), each equal bit for bit
+    to the tile-reading walk's product, no plain version. Handed a tile
+    that is not zero, the same constructors keep the tile-reading walk."""
+    from lam_tpu_torch import DenseOperator
+    from lam_tpu_torch.precision import join_f64, split_f64
+    from lam_tpu_torch.solver.api import ConjugateGradient
+    cg = ConjugateGradient(precision="fq", device="cuda")
+    cg.generate_matrix(3000)
+    op = cg.op
+    q1, q2, q3, s1, s2, s3, dh, dl = op.operand
+    x = torch.rand(op.n_padded, dtype=torch.float64, device="cuda")
+    ops.reset_counters()
+    y = op.matvec(x)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts["gemv_fq_symm_zero"] == 1
+    assert counts["gemv_fq_symm_bcast"] == 0 and _no_plain_ran()
+    ph, pl = split_f64(x)
+    want = (join_f64(*gemv.gemv_fq_symm_bcast(q1, q2, q3, s1, s2, s3, ph,
+                                              pl))
+            + join_f64(dh, dl) * x)
+    assert torch.equal(y, want)
+    one = q2.clone()
+    one[3, 5] = 1
+    other = DenseOperator.from_fq_planes(q1, one, q3, s1, s2, s3, dh, dl,
+                                         3000, op.n_padded, device="cuda")
+    ops.reset_counters()
+    other.matvec(x)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_fq_symm_bcast"] == 1
+    assert ops.counters()["gemv_fq_symm_zero"] == 0
+
+    band = pcg_symm.SymmShardedOperator.from_gen_tridiagonal(
+        4000, mesh=pmesh.Mesh(0, 1, "cuda"), packed=True)
+    hi, lo, it, kt, lt = band.operand
+    x = torch.rand(band.n_padded, dtype=torch.float64, device="cuda")
+    ops.reset_counters()
+    y = band.matvec(x)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts["gemv_df64_symm_slab_zero"] == 1
+    assert counts["gemv_df64_symm_slab_bcast"] == 0 and _no_plain_ran()
+    ph, pl = split_f64(x)
+    parts = gemv.gemv_df64_symm_slab_bcast(hi, lo, ph, pl, it, kt, lt,
+                                           ms=2 * band.m)
+    assert torch.equal(y, pcg_symm._scatter_bands(
+        join_f64(*parts[:2]), join_f64(*parts[2:]), 0, 1, band.m))
+    tile = lo.clone()
+    tile[0, 0] = 2.0 ** -30
+    other = pcg_symm.SymmShardedOperator(
+        (hi, tile, it, kt, lt), 4000, band.n_padded, band.mesh, band.m, 512,
+        "packed")
+    ops.reset_counters()
+    other.matvec(x)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_df64_symm_slab_bcast"] == 1
+    assert ops.counters()["gemv_df64_symm_slab_zero"] == 0
+
+
+def test_zero_tile_walks_refuse_and_have_no_fallback(monkeypatch):
+    """Misaligned operands raise before a launch; a broken library raises,
+    and no plain version runs."""
+    bufs, _, p = _fq_system(1500, 1536, seed=61)
+    q1, s1 = bufs[0], bufs[3]
+    ph, pl = (torch.from_numpy(x).cuda() for x in split_f64_host(p))
+    pk = pcg_symm.SymmShardedOperator.from_gen_tridiagonal(
+        1500, mesh=pmesh.Mesh(0, 2, "cuda"), packed=True)
+    hi, _, it, kt, lt = pk.operand
+    v = torch.zeros(pk.n_padded, device="cuda")
+    gemv.reset_counters()
+    off = torch.zeros(1536 + 1, device="cuda")[1:]  # 4 bytes in
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_fq_symm_zero(q1, s1, off, off)
+    off = torch.zeros(pk.n_padded + 1, device="cuda")[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_df64_symm_slab_zero(hi, off, off, it, kt, lt, ms=2 * pk.m)
+    assert not any(gemv.counters().values())
+    from lam_tpu_torch.ops import _build
+
+    def broken():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(_build, "library", broken)
+    for call in (
+            lambda: gemv.gemv_fq_symm_zero(q1, s1, ph, pl),
+            lambda: gemv.gemv_df64_symm_slab_zero(hi, v, v, it, kt, lt,
+                                                  ms=2 * pk.m)):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            call()
+    assert _no_plain_ran()

@@ -317,7 +317,8 @@ def test_gen_constructors_match_lam_tpu(n):
     _matvecs(mine, theirs, n, 2, 1e-6)
     assert gemv.counters()["gemv_df64_symm_plain" if one_tile
                            else "gemv_df64_symm_bcast_plain"] == 1
-    # fq: the exact q1 plane, zero q2/q3 tiles, the exact diagonal pair
+    # fq: the exact q1 plane, zero q2/q3 tiles (which the matvec does not
+    # read: kernel 15's zero-tile walk), the exact diagonal pair
     q1, n_pq = _gen_planes(n, padded=True)
     mine = DenseOperator.from_gen_fq(q1, n, n_pq, device="cpu")
     theirs = jops.DenseOperator.from_gen_fq(jnp.asarray(q1.numpy()), n, n_pq)
@@ -327,7 +328,7 @@ def test_gen_constructors_match_lam_tpu(n):
     gemv.reset_counters()
     _matvecs(mine, theirs, n, 3, 1e-6)
     assert gemv.counters()["gemv_fq_symm_plain" if one_tile
-                           else "gemv_fq_symm_bcast_plain"] == 1
+                           else "gemv_fq_symm_zero_plain"] == 1
     with pytest.raises(ValueError, match="not exact"):
         DenseOperator.from_gen_fq(q1, n, n_pq, diag_value=0.1, device="cpu")
 

@@ -465,7 +465,7 @@ SHARDED_RUNS = [
     ("fq", "fq", [], "gemv_fq_symm_slab_bcast_plain"),
     ("irfq", "irfq", [], "gemv_fq_symm_slab_bcast_plain"),
     ("df64-packed", "df64", ["--engine", "pallas_symm_packed"],
-     "gemv_df64_symm_slab_bcast_plain"),
+     "gemv_df64_symm_slab_zero_plain"),
     ("ir-slab", "ir", ["--engine", "pallas_symm"],
      "gemv_df64_symm_slab_plain"),
     ("ir-ring", "ir", ["--comm", "ring"], "gemv_df64_cols_plain"),
@@ -473,9 +473,9 @@ SHARDED_RUNS = [
 GRID_RUNS = [
     ("df64", "df64", [], "gemv_df64_plain"),
     ("ir", "ir", [], "gemv_df64_plain"),
-    ("fq", "fq", [], ("gemv_fq_symm_bcast_plain",
+    ("fq", "fq", [], ("gemv_fq_symm_zero_plain",
                       "gemv_fq_dual_bcast_plain")),
-    ("irfq", "irfq", [], ("gemv_fq_symm_bcast_plain",
+    ("irfq", "irfq", [], ("gemv_fq_symm_zero_plain",
                           "gemv_fq_dual_bcast_plain")),
     ("df64-symgrid", "df64", ["--engine", "pallas_symm_packed"],
      ("gemv_df64_symm_bcast_plain", "gemv_df64_dual_bcast_plain")),
