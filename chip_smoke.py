@@ -5,10 +5,10 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the forty-one kernels (the solver's thirty-three and
-   the eight q16 probes) against its plain PyTorch
-   version at the main path's shapes. The eight one-device kernels at N=10000 padded
-   to 10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
+2. Holds each of the forty-three kernels (the solver's thirty-five and
+   the eight q16 probes) against its plain PyTorch version at the main
+   path's shapes. The eight one-device kernels at N=10000 padded to
+   10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
    padded to 216), on one random symmetric matrix:
    - gemv_f32_symm, gemv_q16_symm and the dense gemv_f32 (the full
      10240^2 f32 square) and their plain versions agree to a relative
@@ -56,13 +56,14 @@
      kernel 6 over three copies in turn);
    - kernels 16, 18, 18-bf16, 19 and 19-bcast (gemv_q16_symm_slab,
      gemv_q16_dual, gemv_q16_dual_bf16, gemv_fq_dual, gemv_fq_dual_bcast)
-     and the zero-tile kernels of 15-bcast and 9-bcast (gemv_fq_symm_zero,
-     gemv_df64_symm_slab_zero) run the strip walk of
+     and the zero-tile kernels of 15-, 9-, 12- and 17-bcast
+     (gemv_fq_symm_zero, gemv_df64_symm_slab_zero, gemv_df64_dual_zero,
+     gemv_fq_symm_slab_zero) run the strip walk of
      csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
      controls, the two-pass walks gemv_q16_symm_slab_twopass,
      gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass,
-     gemv_fq_dual_twopass and the tile-reading walks of 15-bcast and
-     9-bcast, none (18-bf16's walk and its control hold HMMA);
+     gemv_fq_dual_twopass and the tile-reading walks of 15-, 9-, 12- and
+     17-bcast, none (18-bf16's walk and its control hold HMMA);
      ptxas reports no spill for them. Kernel
      16's (yd, yt) equal its control's bit for bit on every rank's tables
      of G=2 and G=4, and it is timed against the control LIBRARY_REPEATS
@@ -169,7 +170,18 @@
    entry, bound by the bytes of hi, the tables and the vectors) and
    against the control LIBRARY_REPEATS times in turns, kernel 9 over a
    zero plane and lam_stream_i16 over hi's bytes beside, failing unless
-   it is below the control in every repeat.
+   it is below the control in every repeat. Kernels 17's and 12's
+   kernels for tiles of zeros, gemv_fq_symm_slab_zero (the strip walk
+   over q1 alone, its scales per walk position) and gemv_df64_dual_zero
+   (over the hi rectangle alone), each bit for bit the zero planes' and
+   the tile-reading walk's (its control; 12's on a +0.0 and a -0.0 tile)
+   and within 1e-13 of its plain version, timed so over three q1 or hi
+   copies in turn (their `kernels` entries, bound by the bytes of q1 and
+   s1 or of hi's real tiles, with the tables and the vectors; 12's beside
+   two torch.mv over the f64 hi rectangle) and against the control
+   LIBRARY_REPEATS times in turns, their siblings on the same copies
+   (kernel 16, kernel 11) and lam_stream_i16 over the plane's bytes
+   beside, failing unless each is below its control in every repeat.
 3. Writes the benchmark system (random_spd_matrix_fast(10000,
    seed=2024), random_rhs(10000, seed=2034)) in the binary format to a
    temporary directory and solves it through the port's CLI, in
@@ -276,7 +288,9 @@
    generate mode's planes at TILES_N with a tile handed in that is not
    zero (TILES_EPS * I), solved by cg_solve to 1e-9: each converged with
    a TRUE residual <= 2e-9 of that system, the tile-reading walk launched
-   and the zero-tile kernel not (`handed_tiles_runs`). Then the
+   and the zero-tile kernel not (`handed_tiles_runs`); and kernel 17's on
+   the packed fq band pair of a one-rank mesh, q2 = I with s2 =
+   TILES_EPS, the same way. Then the
    reference's gen-sweep
    probes at N=150000 (-i 15, CSV num_iter 16), one at a time: df64 (the
    45.16 GB hi plane and one lo tile), ir (kernel 1 on the same plane)
@@ -293,17 +307,21 @@
    non-zero tiles against the plain versions and the f64 oracle at 1e-13,
    bitwise repeats; one device's gen fq operator and the grid's diagonal
    rank (0, 0) multiply by gemv_fq_symm_zero alone, bit for bit the
-   tile-reading walk's and the zero planes' product, and
-   gemv_df64_symm_slab_zero on the band walk's packed df64 gives the
-   tile-reading walk's bits. Then G rank processes of this script on the
-   one card over gloo, as in phase 5, through the port's CLI. At N=4000
+   tile-reading walk's and the zero planes' product, one rank's gen fq
+   band pair by gemv_fq_symm_slab_zero and the grid's rank (1, 0) at df64
+   by gemv_df64_dual_zero alone, bit for bit the tile-reading walk's, and
+   gemv_df64_symm_slab_zero and gemv_fq_symm_slab_zero on the band walk's
+   packed tiles give the tile-reading walk's bits. Then G rank processes
+   of this script on the one card over gloo, as in phase 5, through the
+   port's CLI. At N=4000
    (-e 1e-9; padded to 4096, so the walks meet the within-rank and
    cross-block corners) MESH_GEN_RUNS: ring-ir, slab-ir, packed-df64,
    packed-ir and packed-irfq at G=2 (kernels 5/6; 8/9; 9's kernel for a
-   zero tile; 8 and 9's; 16 and 17's), grid-ir-4 (3, 4) and, on the
-   symmetric grid, symgrid-df64-4, symgrid-ir-4 and symgrid-irfq-4
-   (diagonal ranks 1 and 2's broadcast mode or 14 and 15's kernel for
-   zero tiles, off-diagonal ranks 11 and 12's or 18 and 19's); each
+   zero tile; 8 and 9's; 16 and 17's kernel for zero tiles), grid-ir-4
+   (3, 4) and, on the symmetric grid, symgrid-df64-4, symgrid-ir-4 and
+   symgrid-irfq-4 (diagonal ranks 1 and 2's broadcast mode or 14 and
+   15's kernel for zero tiles, off-diagonal ranks 11 and 12's kernel for
+   a zero tile or 18 and 19's broadcast mode); each
    converged with a TRUE residual <= 2e-9 on
    the host, procs = G, every rank's kernels launched and no other, no
    plain version, df64's count within 1% of a host f64 CG's. Then, one at
@@ -311,7 +329,13 @@
    packed-df64 and packed-irfq at G=2, symgrid-df64-4 and symgrid-irfq-4,
    held as phase 8's probes; load_s, avg_gemv_s and the ranks' plane bytes
    beside their bound, the q16 engine of each rank; no rank launches a
-   tile-reading walk of kernels 15 or 9; the phase's seconds.
+   tile-reading walk of kernels 15, 9, 12 or 17. Last in the 4-rank
+   cluster, MESH_TILES_RUNS: tiles-symgrid-df64-4, the grid's gen df64
+   operator at TILES_GRID_N (no padding at R=2) rebuilt on every rank with
+   the lo tile TILES_EPS * I, solved by cg_solve to 1e-9: converged, a
+   TRUE residual <= 2e-9 of that system, the off-diagonal ranks' tile-
+   reading walk (12-bcast) launched and their zero-tile kernel not. The
+   phase's seconds.
 10. Phase 2's kernel-against-plain checks again, without their timings,
    in FRESH_CHECKS fresh processes of this script started together
    (`chip_smoke.py --fresh-checks`) on this run's library: each must exit
@@ -415,6 +439,7 @@ SHARD_G = (2, 4)     # rank counts of the sharded checks and runs
 _RING = ("gemv_f32_cols", "gemv_df64_cols")
 _SLAB = ("gemv_f32_symm_slab", "gemv_df64_symm_slab")
 _SLAB_TILE = ("gemv_df64_symm_slab_bcast", "gemv_df64_symm_slab_zero")
+_FQ_SLAB_TILE = ("gemv_fq_symm_slab_bcast", "gemv_fq_symm_slab_zero")
 _TRI = ("gemv_f32_symm", "gemv_df64_symm")
 _QFQ = ("gemv_q16_symm_slab", "gemv_fq_symm_slab")
 _LOCAL_Q = ("gemv_q16_symm", "gemv_fq_symm", "gemv_dfq_symm")
@@ -525,11 +550,13 @@ GEN_X_GATE = 1e-10   # the df64 probe's x against the host f64 CG's x
 GEN_ERR_GATE = 1e-6  # a probe's residual against the host TRUE residual
 TILES_N = 10240      # phase 8's operators over a tile handed in: no padding
 TILES_EPS = 2.0 ** -8  # their broadcast tile is TILES_EPS * I
+TILES_GRID_N = 4096  # phase 9's grid over a tile handed in: no padding at R=2
 _SQUARE = ("gemv_f32_symm_square", "gemv_df64_symm_square")
 _BCAST = ("gemv_df64_symm_bcast", "gemv_fq_symm_bcast", "gemv_fq_symm_zero")
-# the tile-reading walks of kernels 15 and 9, which generate mode's tiles
-# (zeros, counted when its operators are built) never take
-_TILE_WALKS = ("gemv_fq_symm_bcast", "gemv_df64_symm_slab_bcast")
+# the tile-reading walks of kernels 15, 9, 12 and 17, which generate mode's
+# tiles (zeros, counted when its operators are built) never take
+_TILE_WALKS = ("gemv_fq_symm_bcast", "gemv_df64_symm_slab_bcast",
+               "gemv_df64_dual_bcast", "gemv_fq_symm_slab_bcast")
 # phase 8: (run, CLI flags, kernels it must launch, kernels it must not
 # launch): what lam_tpu's _generate_fast builds on its device
 GEN_RUNS = (
@@ -586,15 +613,15 @@ MESH_GEN_RUNS = (
      ("gemv_f32_symm_slab", "gemv_df64_symm_slab_zero"),
      ("gemv_df64_symm_slab", "gemv_df64_symm_slab_bcast")),
     ("gen-packed-irfq", 2, ["--precision", "irfq"],
-     ("gemv_q16_symm_slab", "gemv_fq_symm_slab_bcast"),
-     ("gemv_fq_symm_slab",) + _BF16),
+     ("gemv_q16_symm_slab", "gemv_fq_symm_slab_zero"),
+     ("gemv_fq_symm_slab", "gemv_fq_symm_slab_bcast") + _BF16),
     ("gen-grid-ir-4", 4, _SYMGRID + ["--precision", "ir"],
      ("gemv_f32", "gemv_df64"), _RING + _SLAB + _TRI),
     ("gen-symgrid-df64-4", 4, _GEN_SYMGRID + ["--precision", "df64"],
-     (("gemv_df64_symm_bcast",), ("gemv_df64_dual_bcast",)), ()),
+     (("gemv_df64_symm_bcast",), ("gemv_df64_dual_zero",)), ()),
     ("gen-symgrid-ir-4", 4, _GEN_SYMGRID + ["--precision", "ir"],
      (("gemv_f32_symm", "gemv_df64_symm_bcast"),
-      ("gemv_f32_dual", "gemv_df64_dual_bcast")), ()),
+      ("gemv_f32_dual", "gemv_df64_dual_zero")), ()),
     ("gen-symgrid-irfq-4", 4, _SYMGRID + ["--precision", "irfq"],
      (("gemv_q16_symm", "gemv_fq_symm_zero"),
       ("gemv_q16_dual", "gemv_fq_dual_bcast")), ()))
@@ -608,12 +635,19 @@ MESH_GEN_PROBES = (
                                  "pallas_symm_packed"],
      ("gemv_df64_symm_slab_zero",)),
     ("gen-packed-irfq-150k", 2, ["--precision", "irfq"],
-     ("gemv_q16_symm_slab_bf16", "gemv_fq_symm_slab_bcast")),
+     ("gemv_q16_symm_slab_bf16", "gemv_fq_symm_slab_zero")),
     ("gen-symgrid-df64-4-150k", 4, _GEN_SYMGRID + ["--precision", "df64"],
-     (("gemv_df64_symm_bcast",), ("gemv_df64_dual_bcast",))),
+     (("gemv_df64_symm_bcast",), ("gemv_df64_dual_zero",))),
     ("gen-symgrid-irfq-4-150k", 4, _SYMGRID + ["--precision", "irfq"],
      (("gemv_q16_symm", "gemv_fq_symm_zero"),
       ("gemv_q16_dual_bf16", "gemv_fq_dual_bcast"))))
+# phase 9's runs over a tile handed in (TILES_EPS * I for lo, every rank),
+# after the cluster's probes: (run, ranks, N, (the diagonal ranks' kernels,
+# the off-diagonal ranks'), kernels no rank may launch)
+MESH_TILES_RUNS = (
+    ("tiles-symgrid-df64-4", 4, TILES_GRID_N,
+     (("gemv_df64_symm_bcast",), ("gemv_df64_dual_bcast",)),
+     ("gemv_df64_dual_zero",)),)
 # the q16 walks' kernels, by engine: which one each rank ran
 _Q16_WALKS = ("gemv_q16_symm", "gemv_q16_symm_bf16", "gemv_q16_symm_slab",
               "gemv_q16_symm_slab_bf16", "gemv_q16_dual",
@@ -730,14 +764,18 @@ TWOPASS_CONTROLS = {"kernel 16's": ("8Q16Plane", "TableWalk"),
                     "kernel 18's": ("8Q16Plane", "8RectWalk"),
                     "kernel 19's": ("7FQPlane", "8RectWalk"),
                     "kernel 15-bcast's": ("11FQTilePlane", "TriangleWalk"),
-                    "kernel 9-bcast's": ("13DF64TilePlane", "TableWalk")}
+                    "kernel 9-bcast's": ("13DF64TilePlane", "TableWalk"),
+                    "kernel 12-bcast's": ("13DF64TilePlane", "8RectWalk"),
+                    "kernel 17-bcast's": ("11FQTilePlane", "TableWalk")}
 # the strip walk's instantiations (planes, walk) -> their kernel
 STRIP_WALKS = {("StripPlanesILi1E", "TableWalk"): "kernel 16",
                ("StripPlanesILi1E", "RectWalk"): "kernel 18",
                ("StripPlanesILi3E", "RectWalk"): "kernel 19",
                ("StripTilePlanes", "RectWalk"): "kernel 19-bcast",
                ("StripQ1Planes", "TriangleWalk"): "kernel 15-bcast",
-               ("StripHiPlanes", "TableWalk"): "kernel 9-bcast"}
+               ("StripHiPlanes", "TableWalk"): "kernel 9-bcast",
+               ("StripHiPlanes", "RectWalk"): "kernel 12-bcast",
+               ("StripQ1Planes", "TableWalk"): "kernel 17-bcast"}
 
 
 def _strip_walk_of(name):
@@ -748,7 +786,8 @@ def _strip_walk_of(name):
 def stream_sass(build):
     """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
     walks of kernels 16, 18, 18-bf16, 19, 19-bcast and the zero-tile walks
-    of 15-bcast and 9-bcast holds the TMA bulk copy (UBLKCP); that of the
+    of 15-bcast, 9-bcast, 12-bcast and 17-bcast holds the TMA bulk copy
+    (UBLKCP); that of the
     dense_rows kernels (3 and the df64 control) and of the strip walks'
     controls (the two-pass walk's pass 1) none; kernel
     18-bf16's walk (strip_mma_pass1) and its control (q16_bf16_pass1 on the
@@ -792,8 +831,8 @@ def stream_sass(build):
            == sorted(STRIP_WALKS.values())
            and len(walks["strip_pass1"]) == len(STRIP_WALKS)
            and all(walks["strip_pass1"]),
-           "a strip walk (kernels 16, 18, 19, 19-bcast, 15-bcast and 9-bcast "
-           "on zero tiles) is missing or issues no TMA bulk copy")
+           "a strip walk (kernels 16, 18, 19, 19-bcast, and 15-, 9-, 12- and "
+           "17-bcast on zero tiles) is missing or issues no TMA bulk copy")
     _check(len(walks["dense_rows"]) == 2
            and len(walks["two-pass control"]) == len(TWOPASS_CONTROLS),
            "SASS: a dense_rows kernel or a strip walk's control is missing")
@@ -2679,7 +2718,11 @@ def bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D, a, p):
     the strip walk over hi alone): equal bit for bit to the zero plane and
     to its control, the tile-reading walk (on a +0.0 and a -0.0 tile),
     timed so and in turns LIBRARY_REPEATS times with the control, kernel 9
-    over a zero plane and lam_stream_i16 over hi's bytes."""
+    over a zero plane and lam_stream_i16 over hi's bytes. Kernels 17's and
+    12's kernels for tiles of zeros (gemv_fq_symm_slab_zero over q1 alone,
+    gemv_df64_dual_zero over the hi rectangle alone) the same way, with
+    kernels 16 and 11 on the same copies as their siblings and, for 12, two
+    torch.mv over the f64 hi rectangle as its library call."""
     from lam_tpu_torch.ops import probe
     tb, out = 512, []
     # band pairs, rank 0 of G=2
@@ -2809,6 +2852,58 @@ def bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D, a, p):
               _rotating(lambda q: gemv.gemv_q16_symm_slab(
                   q, s1, ph, *walk, ms=ms), copies),
               "gemv_q16_symm_slab on the same q1 copies")
+    # the kernel for q2/q3 tiles of zeros, q1 alone: the zero planes' bits
+    # and the tile-reading walk's
+    zp = torch.zeros_like(q1)
+    full = gemv.gemv_fq_symm_slab(q1, zp, zp, *rest, ms=ms)
+    del zp
+    outs = gemv.gemv_fq_symm_slab_zero(q1, s1, ph, pl, *walk, ms=ms)
+    for got in (outs, gemv.gemv_fq_symm_slab_bcast(q1, zt, zt, *rest,
+                                                    ms=ms)):
+        _check(all(torch.equal(u, v) for u, v in zip(got, full)),
+               "gemv_fq_symm_slab_zero or the tile-reading walk != the zero "
+               "q2/q3 planes, bit for bit")
+    del full
+    zero_plain = _cat_parts(gemv.gemv_fq_symm_slab_zero_plain(
+        q1, s1, ph, pl, *walk, ms=ms))
+    err = _rel(_cat_parts(outs), zero_plain)
+    print(f"gemv_fq_symm_slab_zero (q1 alone) == zero planes and the "
+          f"tile-reading walk bit for bit; rel l2 to plain {err:.3e} "
+          f"(<= 1e-13)")
+    _check(err <= 1e-13, "gemv_fq_symm_slab_zero disagrees with its plain "
+           "version")
+    diff = float((_cat_parts(outs) - zero_plain).abs().max())
+    entry = _timed_entry(
+        "gemv_fq_symm_slab_zero", "lam_tpu/ops/gemv.py:2405",
+        "lam_tpu_torch/csrc/strip_walk.cuh", diff,
+        (_rotating(lambda q: gemv.gemv_fq_symm_slab_zero(
+            q, s1, ph, pl, *walk, ms=ms), copies),
+         _rotating(lambda q: gemv.gemv_fq_symm_slab_zero_plain(
+             q, s1, ph, pl, *walk, ms=ms), copies), None),
+        (q1, s1, ph, pl, *walk, *outs), flops, "f64")
+    out.append(entry)
+    _zero_walk_in_turns(
+        "gemv_fq_symm_slab_zero (three q1 copies)", entry["bound_ms"],
+        _rotating(lambda q: gemv.gemv_fq_symm_slab_zero(
+            q, s1, ph, pl, *walk, ms=ms), copies),
+        _rotating(lambda q: gemv.gemv_fq_symm_slab_bcast(
+            q, zt, zt, *rest, ms=ms), copies),
+        _rotating(lambda q: gemv.gemv_q16_symm_slab(
+            q, s1, ph, *walk, ms=ms), copies),
+        "gemv_q16_symm_slab (#16) on the same q1 copies",
+        _rotating(lambda q: probe.stream_i16(q), copies),
+        "lam_stream_i16 over q1")
+    _pass_split("gemv_fq_symm_slab_zero and its control "
+                "(gemv_fq_symm_slab_bcast on zero tiles)", {
+                    "walk": lambda: gemv.gemv_fq_symm_slab_zero(
+                        q1, s1, ph, pl, *walk, ms=ms),
+                    "control": lambda: gemv.gemv_fq_symm_slab_bcast(
+                        q1, zt, zt, *rest, ms=ms)})
+    _in_turns("gemv_fq_symm_slab_zero (three q1 copies)",
+              _rotating(lambda q: gemv.gemv_fq_symm_slab_zero(
+                  q, s1, ph, pl, *walk, ms=ms), copies),
+              lambda: gemv.gemv_fq_symm_slab(q1, q2, q3, *rest, ms=ms),
+              "gemv_fq_symm_slab (full planes)")
     del fq, copies, q1, q2, q3
     torch.cuda.empty_cache()
 
@@ -2862,6 +2957,54 @@ def bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D, a, p):
               _rotating(lambda h: gemv.gemv_f32_dual(h, vecs[0], vecs[2]),
                         copies),
               "gemv_f32_dual on the same hi copies")
+    # the kernel for a lo tile of zeros, hi alone: the zero plane's bits
+    # and the tile-reading walk's on a +0.0 and a -0.0 tile
+    full = gemv.gemv_df64_dual(hi, torch.zeros_like(hi), *vecs)
+    outs = gemv.gemv_df64_dual_zero(hi, *vecs)
+    for got in (outs, gemv.gemv_df64_dual_bcast(
+            hi, torch.full_like(zero, -0.0), *vecs)):
+        _check(all(torch.equal(u, v) for u, v in zip(got, full)),
+               "gemv_df64_dual_zero or the tile-reading walk on a -0.0 tile "
+               "!= the zero lo plane, bit for bit")
+    del full
+    zero_plain = _cat_parts(gemv.gemv_df64_dual_zero_plain(hi, *vecs))
+    err = _rel(_cat_parts(outs), zero_plain)
+    print(f"gemv_df64_dual_zero (hi alone), and the tile-reading walk on "
+          f"+0.0 and -0.0 tiles, == zero plane bit for bit; rel l2 to plain "
+          f"{err:.3e} (<= 1e-13)")
+    _check(err <= 1e-13, "gemv_df64_dual_zero disagrees with its plain "
+           "version")
+    diff = float((_cat_parts(outs) - zero_plain).abs().max())
+    entry = _timed_entry(
+        "gemv_df64_dual_zero", "lam_tpu/ops/gemv.py:1682",
+        "lam_tpu_torch/csrc/strip_walk.cuh", diff,
+        (_rotating(lambda h: gemv.gemv_df64_dual_zero(h, *vecs), copies),
+         _rotating(lambda h: gemv.gemv_df64_dual_zero_plain(h, *vecs),
+                   copies),
+         lambda: (torch.mv(dense64, pd), torch.mv(dense64.T, qd))),
+        (hi[:real * tb], *vecs, *outs), flops, "f64")
+    out.append(entry)
+    _zero_walk_in_turns(
+        "gemv_df64_dual_zero (three hi copies)", entry["bound_ms"],
+        _rotating(lambda h: gemv.gemv_df64_dual_zero(h, *vecs), copies),
+        _rotating(lambda h: gemv.gemv_df64_dual_bcast(h, zero, *vecs),
+                  copies),
+        _rotating(lambda h: gemv.gemv_f32_dual(h, vecs[0], vecs[2]),
+                  copies),
+        "gemv_f32_dual (#11) on the same hi copies",
+        _rotating(lambda h: probe.stream_i16(
+            h[:real * tb].view(torch.int16)), copies),
+        "lam_stream_i16 over hi's bytes")
+    _pass_split("gemv_df64_dual_zero and its control "
+                "(gemv_df64_dual_bcast on a zero tile)", {
+                    "walk": lambda: gemv.gemv_df64_dual_zero(hi, *vecs),
+                    "control": lambda: gemv.gemv_df64_dual_bcast(
+                        hi, zero, *vecs)})
+    _in_turns("gemv_df64_dual_zero (three hi copies)",
+              _rotating(lambda h: gemv.gemv_df64_dual_zero(h, *vecs),
+                        copies),
+              lambda: gemv.gemv_df64_dual(hi, lo, *vecs),
+              "gemv_df64_dual (full lo plane)")
     del dense64, copies, df, hi, lo
 
     q1, q2, q3, s1, s2, s3 = fq.operand[:6]
@@ -2912,13 +3055,16 @@ def gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D):
     seed) it agrees with its plain version and the f64 oracle of the stored
     values at 1e-13, repeated bitwise. At GEN_PROBE_N a plain f64 expansion
     of the planes does not fit on the card: there the probes' x and
-    residual gates hold the modes. The operators that hold kernels 15's
-    and 9's tiles count them zero when built and take the zero-tile
-    kernels: one device's fq operator (the facade's) and the grid's
-    diagonal rank (0, 0) multiply by gemv_fq_symm_zero and never by the
-    tile-reading walk, bit for bit its result and the zero planes'; the
-    band walk's packed df64 tiles give gemv_df64_symm_slab_zero the
-    tile-reading walk's bits (phase 9's runs hold its routing)."""
+    residual gates hold the modes. The operators that hold kernels 15's,
+    9's, 12's and 17's tiles count them zero when built and take the
+    zero-tile kernels: one device's fq operator (the facade's) and the
+    grid's diagonal rank (0, 0) multiply by gemv_fq_symm_zero, one rank's
+    fq band pair by gemv_fq_symm_slab_zero and the grid's rank (1, 0) at
+    df64 by gemv_df64_dual_zero, never by the tile-reading walk, bit for
+    bit its result (and, for gemv_fq_symm_zero, the zero planes'); the
+    band walk's packed df64 and fq tiles give gemv_df64_symm_slab_zero and
+    gemv_fq_symm_slab_zero the tile-reading walk's bits (phase 9's runs
+    hold their routing on the meshes)."""
     from lam_tpu_torch import ops
     from lam_tpu_torch.precision import join_f64, split_f64
     from lam_tpu_torch.solver.api import ConjugateGradient
@@ -3012,7 +3158,39 @@ def gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D):
                                        *vec, ms=ms),
         lambda a1, t2, t3, c1, c2, c3, *_: slab_oracle(
             fq_tiles(a1, t2, t3, c1, c2, c3)), {"ms": ms})
-    del df, fq, hi, q1
+    outs = (gemv.gemv_fq_symm_slab_zero(q1, s1, *vec, ms=ms),
+            gemv.gemv_fq_symm_slab_bcast(q1, q2, q3, s1, s2, s3, *vec,
+                                         ms=ms))
+    _check(all(torch.equal(u, v) for u, v in zip(*outs)),
+           "the gen fq band walk: gemv_fq_symm_slab_zero != the "
+           "tile-reading walk, bit for bit")
+    del df, fq, hi, q1, outs
+    # one rank's gen fq band pair (a mesh of one rank: no collective)
+    # counts its tiles zero when built and takes the zero walk alone
+    band = pcg_symm.SymmShardedOperator.from_gen_fq(GEN_MESH_N,
+                                                    mesh=Mesh(0, 1, "cuda"))
+    _, _, x = _pair(p, band.n_padded)
+    ops.reset_counters()
+    y = band.matvec(x)
+    torch.cuda.synchronize()
+    ran = _launched("gemv_fq_symm_slab_zero", "gemv_fq_symm_slab_bcast")
+    _check(ran == {"gemv_fq_symm_slab_zero": 1, "gemv_fq_symm_slab_bcast": 0},
+           f"gen fq band pair: launches {ran}, not the zero-tile kernel "
+           "alone")
+    q1, q2, q3, s1, s2, s3, dh, dl, *walk1 = band.operand
+    parts = gemv.gemv_fq_symm_slab_bcast(q1, q2, q3, s1, s2, s3,
+                                         *split_f64(x), *walk1,
+                                         ms=2 * band.m)
+    yd = join_f64(*parts[:2]) + join_f64(dh, dl) * pcg_symm._own_rows(
+        x, 0, 1, band.m)
+    _check(torch.equal(y, pcg_symm._scatter_bands(
+        yd, join_f64(*parts[2:]), 0, 1, band.m)),
+        "gen fq band pair: the zero-tile kernel's matvec != the "
+        "tile-reading walk's, bit for bit")
+    print(f"gen N={GEN_MESH_N}: the gen fq band pair multiplies by "
+          "gemv_fq_symm_slab_zero alone, == the tile-reading walk bit for "
+          "bit")
+    del band, q1, x, y
 
     # the symmetric grid's half-slab at rank (1, 0): p = block 0, q = the
     # top half of block 1
@@ -3032,6 +3210,28 @@ def gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D):
     def dual_oracle(bufs):
         stored = _stored_rect(bufs, mb, cb, tb)
         return torch.cat([stored @ pd, stored.T @ qd])
+
+    # the rank counts its lo tile zero when built and takes the zero walk
+    # alone: rank (1, 0) multiplies p-block 0 and the top half of block 1
+    p_own, p_recv = p64[m:2 * m].clone(), p64[:m].clone()
+    ops.reset_counters()
+    own, payload = df.mv_pair(df.operand, p_own, p_recv)
+    torch.cuda.synchronize()
+    ran = _launched("gemv_df64_dual_zero", "gemv_df64_dual_bcast")
+    _check(ran == {"gemv_df64_dual_zero": 1, "gemv_df64_dual_bcast": 0},
+           f"gen grid rank (1, 0) at df64: launches {ran}, not the "
+           "zero-tile kernel alone")
+    parts = gemv.gemv_df64_dual_bcast(hi, lo, *split_f64(p_recv),
+                                      *split_f64(p_own[:m2]))
+    _check(torch.equal(own[:m2], join_f64(*parts[:2]))
+           and not own[m2:].any()
+           and torch.equal(payload, join_f64(*parts[2:])),
+           "gen grid rank (1, 0): the zero-tile kernel's parts != the "
+           "tile-reading walk's, bit for bit")
+    print(f"gen N={GEN_MESH_N}: the gen grid's rank (1, 0) at df64 "
+          "multiplies by gemv_df64_dual_zero alone, == the tile-reading "
+          "walk bit for bit")
+    del own, payload, parts
 
     _tile_checks(
         gemv, "gemv_df64_dual_bcast", (hi, lo, *vecs),
@@ -3551,6 +3751,17 @@ def rank_main(argv):
     for job in jobs:
         out = io.StringIO()
         ops.reset_counters()
+        if "tiles" in job:
+            timings = _tiles_grid_solve(job)
+            torch.cuda.synchronize()
+            results.append({"run": job["run"], "rc": 0, "stdout": "",
+                            "counts": ops.counters(),
+                            "backend": mesh.backend,
+                            "device": str(mesh.device), "timings": timings,
+                            "plane_bytes": []})
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
         with _recorded_facades(api) as seen, contextlib.redirect_stdout(out):
             backend = ([] if "--backend" in job["argv"]
                        else ["--backend", "sharded"])
@@ -3584,6 +3795,34 @@ def rank_main(argv):
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def _tiles_grid_solve(job):
+    """One rank of a phase-9 run over a tile handed in: the symmetric R=2
+    grid's gen df64 operator at N=job["tiles"] rebuilt with the lo tile
+    TILES_EPS * I on every rank (the diagonal ranks' triangle kernel and
+    the others' dual kernel read it at every tile), solved by cg_solve to
+    1e-9; rank 0 saves x to job["x"] (.npy). Returns the solve's
+    timings."""
+    from lam_tpu_torch import cg_solve
+    from lam_tpu_torch.parallel import pcg2d_symm
+    from lam_tpu_torch.parallel.mesh import make_mesh2d
+    n, tb = job["tiles"], 512
+    mesh = make_mesh2d(device="cuda")
+    gen = pcg2d_symm.Symm2DOperator.from_gen_tridiagonal(n, mesh=mesh)
+    op = pcg2d_symm.Symm2DOperator(
+        (gen.operand[0], torch.eye(tb, device="cuda") * TILES_EPS), n,
+        gen.n_padded, mesh, tb)
+    del gen
+    t0 = time.perf_counter()
+    res = cg_solve(op, np.ones(n), max_iters=4 * n, rel_error=1e-9)
+    x = res.x.cpu().numpy()
+    solve_s = time.perf_counter() - t0
+    if mesh.rank == 0:
+        np.save(job["x"], x)
+    return {"num_iters": int(res.num_iters),
+            "converged": bool(res.converged),
+            "rel_residual": float(res.rel_residual), "solve_s": solve_s}
 
 
 def _free_port():
@@ -3952,12 +4191,13 @@ def _tiles_mv(x, tb):
 
 
 def handed_tiles_runs(ops, api, pcg_symm, Mesh):
-    """Phase 8, the tile-reading walks of kernels 15 and 9 on the main
+    """Phase 8, the tile-reading walks of kernels 15, 9 and 17 on the main
     path: operators built from generate mode's planes at TILES_N with a
     broadcast tile handed in that is not zero, TILES_EPS * I (fq: q2 = I
     with s2 = TILES_EPS, q3 zero; df64: the lo tile), through
     `DenseOperator.from_fq_planes` and the `SymmShardedOperator`
-    constructor on a mesh of one rank, solved by `cg_solve` to 1e-9. Each
+    constructor (packed df64 and fq) on a mesh of one rank, solved by
+    `cg_solve` to 1e-9 (kernel 12's: phase 9, `MESH_TILES_RUNS`). Each
     converged with a TRUE residual <= 2e-9 of the system with the tile (the
     O(n) host product `_tiles_mv`), far above it for the tridiagonal alone
     (the tile was read), its tile-reading walk launched and the zero-tile
@@ -3979,12 +4219,20 @@ def handed_tiles_runs(ops, api, pcg_symm, Mesh):
     df = pcg_symm.SymmShardedOperator(
         (hi, eye * TILES_EPS, *tables), TILES_N, band.n_padded, band.mesh,
         band.m, tb, "packed")
+    band = pcg_symm.SymmShardedOperator.from_gen_fq(
+        TILES_N, mesh=Mesh(0, 1, "cuda"))
+    b1, _, bq3, b_s1, _, b_s3, *rest = band.operand
+    band_fq = pcg_symm.SymmShardedOperator(
+        (b1, eye.to(torch.int16), bq3, b_s1, torch.full_like(b_s1, TILES_EPS),
+         b_s3, *rest), TILES_N, band.n_padded, band.mesh, band.m, tb, "fq")
     del cg, band
     b = np.ones(TILES_N)
     for run, op, walk, zero in (
             ("tiles-fq", fq, "gemv_fq_symm_bcast", "gemv_fq_symm_zero"),
             ("tiles-packed-df64", df, "gemv_df64_symm_slab_bcast",
-             "gemv_df64_symm_slab_zero")):
+             "gemv_df64_symm_slab_zero"),
+            ("tiles-packed-fq", band_fq, "gemv_fq_symm_slab_bcast",
+             "gemv_fq_symm_slab_zero")):
         ops.reset_counters()
         t0 = time.perf_counter()
         res = cg_solve(op, b, max_iters=4 * TILES_N, rel_error=1e-9)
@@ -4156,6 +4404,10 @@ def mesh_generate_runs(ops, lio, tmp):
             "-s", str(GEN_PROBE_N), "-i", str(GEN_PROBE_ITERS), "-o",
             os.path.join(tmp, f"x_{run}.bin"), *flags]}
             for run, _, flags, _ in probes]
+        tiles = [r for r in MESH_TILES_RUNS if r[1] == g]
+        jobs += [{"run": run, "tiles": n,
+                  "x": os.path.join(tmp, f"x_{run}.npy")}
+                 for run, _, n, _, _ in tiles]
         t0 = time.perf_counter()
         records = _cluster(g, jobs, tmp, label=f"gen{g}")
         print(f"{g}-rank generate-mode cluster: {len(jobs)} runs in "
@@ -4247,6 +4499,40 @@ def mesh_generate_runs(ops, lio, tmp):
                            f"{run}: {iters} iterations against the host's "
                            f"{host_iters}")
             os.remove(os.path.join(tmp, f"x_{run}.bin"))
+        for j, (run, _, n, kernels, not_kernels) in enumerate(
+                tiles, start=len(cases)):
+            recs = [rank_recs[j] for rank_recs in records]
+            _check(all(rec["run"] == run and rec["rc"] == 0 for rec in recs),
+                   f"{run}: a rank failed")
+            t = recs[0]["timings"]
+            path = os.path.join(tmp, f"x_{run}.npy")
+            x = np.load(path)
+            os.remove(path)
+            b = np.ones(n)
+            true_rel = float(np.linalg.norm(b - _tiles_mv(x, 512))
+                             / np.linalg.norm(b))
+            tri_rel = _gen_true(x)
+            launched = [{k: v for k, v in rec["counts"].items() if v}
+                        for rec in recs]
+            print(f"{run}: {g} ranks, {t['num_iters']} iterations in "
+                  f"{t['solve_s']:.3f} s, TRUE rel residual {true_rel:.3e} "
+                  f"(<= {TRUE_GATE:g}), {tri_rel:.3e} against the "
+                  f"tridiagonal alone, launches by rank {launched}")
+            _check(t["converged"] and true_rel <= TRUE_GATE,
+                   f"{run}: TRUE residual {true_rel:.3e}")
+            _check(tri_rel > 1e3 * TRUE_GATE, f"{run}: the tile made no "
+                   "difference")
+            for r, rec in enumerate(recs):
+                for k in kernels[r not in (0, 3)]:
+                    _check(rec["counts"][k] > 0,
+                           f"{run}: rank {r} never launched {k}")
+                for k in not_kernels:
+                    _check(rec["counts"][k] == 0,
+                           f"{run}: rank {r} launched {k}")
+                _check(not any(rec["counts"][k] for k in plain),
+                       f"{run}: a plain version ran on rank {r}")
+                for k in names:
+                    total[k] += rec["counts"][k]
     print(f"phase 9: {time.perf_counter() - t_phase:.1f} s")
     return total
 

@@ -1,6 +1,6 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
 // (sm_90a), and the dual matvec over a dense rectangle of the same tiles.
-// Twenty-eight kernels share one design:
+// Thirty kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -53,8 +53,12 @@
 //                                  mode's): hi alone on the strip walk
 //   lam_gemv_fq_symm_slab_bcast    gemv_fq_symm_slab's broadcast q2/q3
 //                                  tiles (:2420-2427, :2434-2437)
+//   lam_gemv_fq_symm_slab_zero     the same, q2/q3 zero tiles (generate
+//                                  mode's): q1 alone on the strip walk
 //   lam_gemv_df64_dual_bcast       gemv_df64_dual's broadcast lo tile
 //                                  (:1695-1696)
+//   lam_gemv_df64_dual_zero        the same, lo a zero tile (generate
+//                                  mode's): hi alone on the strip walk
 //   lam_gemv_fq_dual_bcast         gemv_fq_dual's broadcast q2/q3 tiles
 //                                  (:2637-2644); the strip walk
 //
@@ -68,8 +72,10 @@
 //   lam_gemv_q16_dual_bf16_twopass  lam_gemv_q16_dual_bf16
 //   lam_gemv_fq_symm_bcast          lam_gemv_fq_symm_zero
 //   lam_gemv_df64_symm_slab_bcast   lam_gemv_df64_symm_slab_zero
+//   lam_gemv_df64_dual_bcast        lam_gemv_df64_dual_zero
+//   lam_gemv_fq_symm_slab_bcast     lam_gemv_fq_symm_slab_zero
 //
-// (the last two are kernels too: the walks of a tile that is not zero)
+// (the last four are kernels too: the walks of a tile that is not zero)
 //
 // and the bf16 product engine of the three q16 kernels (lam_tpu's
 // LAM_Q16_IMPL "mxu" bodies, chosen by ops/gemv.py `_q16_impl`):
@@ -182,7 +188,7 @@
 //    rect_pass2) launched as a programmatic dependent. Inside a strip it
 //    sums in symm_pass1's order and writes the same partials, so its bits
 //    are the two-pass walk's (the controls lam_gemv_*_twopass).
-//  * The broadcast modes of kernels 15 and 9 on zero tiles (generate
+//  * The broadcast modes of kernels 15, 9, 12 and 17 on zero tiles (generate
 //    mode's only tiles, known zero when the operator is built) run the
 //    strip walk over the one plane that is not zero, q1 or hi: the
 //    tile-reading walks spent an int -> f64 conversion a value (three for
@@ -245,8 +251,8 @@
 // their fixed order of sums are shared: no float atomics, bitwise repeats.
 //
 // The code of this design is csrc/symm_walk.cuh (and csrc/strip_walk.cuh,
-// pass 1 of kernels 16, 18, 18-bf16, 19 and the zero-tile walks of 15-bcast
-// and 9-bcast); csrc/q16_probe.cu instantiates
+// pass 1 of kernels 16, 18, 18-bf16, 19 and the zero-tile walks of 15-bcast,
+// 9-bcast, 12-bcast and 17-bcast); csrc/q16_probe.cu instantiates
 // symm_walk.cuh for the q16 probes too (the triangle walk at tb=1024, with
 // unreduced transpose partials, and three more tensor-core modes).
 
@@ -503,6 +509,25 @@ extern "C" int lam_gemv_fq_symm_slab_bcast(
                      part_t, T, ms, (cudaStream_t)stream);
 }
 
+// q2 and q3 tiles that hold only zeros (generate mode's, counted when its
+// operator was built): lam_gemv_fq_symm_slab_bcast's arguments without q2,
+// q3, s2, s3 and the flags, none of which is read. q1 streams through the
+// strip walk (csrc/strip_walk.cuh, StripQ1Planes) against s1 per walk
+// position and gives lam_gemv_fq_symm_slab's bits over zero planes, for any
+// finite s2, s3.
+extern "C" int lam_gemv_fq_symm_slab_zero(
+    const short* q1, const float* s1, const float* p_hi, const float* p_lo,
+    const int* it, const int* kt, const int* lt, const int* d_ptr,
+    const int* d_ids, const int* t_ptr, const int* t_ids, float* yd_hi,
+    float* yd_lo, float* yt_hi, float* yt_lo, double* part_d, double* part_t,
+    int T, int ms, int n, void* stream) {
+  return launch_strip_slab<SlabQ1Cfg>(
+      StripQ1Planes{{q1}, {s1}}, StripVecs<2>{{p_hi, p_lo}, {p_hi, p_lo}},
+      TableWalk{it, kt, lt, n, 1}, SlabLists{d_ptr, d_ids, t_ptr, t_ids},
+      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d, part_t, T, ms,
+      (cudaStream_t)stream);
+}
+
 // dfq: hi + loq * sc formed and walked in f64.
 extern "C" int lam_gemv_dfq_symm_slab(
     const float* a_hi, const short* a_loq, const float* sc, const float* p_hi,
@@ -556,6 +581,23 @@ extern "C" int lam_gemv_df64_dual_bcast(
                      DF64Vec{q_hi, q_lo}, DF64Out{yd_hi, yd_lo},
                      DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb,
                      (cudaStream_t)stream);
+}
+
+// A lo tile that holds only zeros (generate mode's, counted when its
+// operator was built): lam_gemv_df64_dual_bcast's arguments without a_lo,
+// which is not read. a_hi streams through the strip walk
+// (csrc/strip_walk.cuh, StripHiPlanes on RectWalk), p read at each tile's
+// column tile and q at its row tile, and gives lam_gemv_df64_dual's bits
+// over a zero lo plane.
+extern "C" int lam_gemv_df64_dual_zero(
+    const float* a_hi, const float* p_hi, const float* p_lo,
+    const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb,
+    int cb, void* stream) {
+  return launch_strip_dual<DualHiCfg>(
+      StripHiPlanes{{a_hi}}, StripVecs<2>{{p_hi, p_lo}, {q_hi, q_lo}},
+      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb,
+      (cudaStream_t)stream);
 }
 
 // dfq: hi + loq * sc[t] formed and walked in f64.

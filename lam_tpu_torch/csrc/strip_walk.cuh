@@ -1,4 +1,4 @@
-// The strip walk: pass 1 of six kernels, a persistent grid fed by TMA
+// The strip walk: pass 1 of eight kernels, a persistent grid fed by TMA
 // bulk copies, in place of symm_pass1 and q16_bf16_pass1
 // (csrc/symm_walk.cuh):
 //
@@ -21,10 +21,19 @@
 //                                      df64 pair whose lo tile is zero: the
 //                                      f32 hi plane alone, f64 sums, the
 //                                      band-pair tables
+//   kernel 12-bcast on a zero tile  lam_gemv_df64_dual_zero  the df64
+//                                      pair of the rectangle whose lo tile
+//                                      is zero: the f32 hi plane alone, f64
+//                                      sums, the (hi, lo) pairs of p and q
+//   kernel 17-bcast on zero tiles  lam_gemv_fq_symm_slab_zero  the fq
+//                                      cascade of the band-pair tables
+//                                      whose q2/q3 tiles are zero: q1
+//                                      alone, f64 sums
 //
-// Each keeps its two-pass walk as a control (lam_gemv_*_twopass; the two
-// zero-tile walks: the tile-reading entry points lam_gemv_fq_symm_bcast and
-// lam_gemv_df64_symm_slab_bcast, which a non-zero tile takes), and every
+// Each keeps its two-pass walk as a control (lam_gemv_*_twopass; the four
+// zero-tile walks: the tile-reading entry points lam_gemv_fq_symm_bcast,
+// lam_gemv_df64_symm_slab_bcast, lam_gemv_df64_dual_bcast and
+// lam_gemv_fq_symm_slab_bcast, which a non-zero tile takes), and every
 // other kernel runs the two-pass walk.
 //
 // What bounds them: bytes. Every stored element is read once, 2 B (q16) or
@@ -77,16 +86,24 @@
 //  * Kernel 19 converts its int16 values to f64 by bits (BITS): the three
 //    conversions an element, at 16 a clock on an SM, were 3/8 of a strip's
 //    share of the card's bandwidth; by bits each is one add at 64 a clock.
-//  * The two zero-tile walks (generate mode's broadcast tiles, known zero
-//    when the operator is built) read only the plane that is not zero: 15-
-//    bcast's q1 (32-row stages of 32 KB, four of them, EARLY; the
-//    triangle's (i, k) from walk_row in the producer) converted by bits
-//    and multiplied by its f64 scale, 9-bcast's f32 hi (32-row stages of
-//    64 KB, as kernel 19's) formed as (double)h + 0.0, DF64TilePlane's
-//    element with l = +0.0. The tile-reading walks spent an I2F.F64 a value (three for
-//    15-bcast) and read the tile from L2 as often as they streamed the
-//    plane (PERF.md section 6). symm_pass2 is the triangle's pass 2, a
-//    programmatic dependent as slab_pass2 is.
+//  * The four zero-tile walks (generate mode's broadcast tiles, known zero
+//    when the operator is built) read only the plane that is not zero: the
+//    q1 of 15-bcast (the triangle's (i, k) from walk_row in the producer)
+//    and of 17-bcast (the band-pair tables, the scales per walk position
+//    of the rank's own table), in 32-row stages of 32 KB, four of them
+//    (two for 17-bcast), EARLY, converted by bits and multiplied by its
+//    f64 scale; the f32 hi of 9-bcast (the band-pair tables) and of
+//    12-bcast (the rectangle, the direct operand p and the transpose
+//    operand q), in 32-row stages of 64 KB (9-bcast, as kernel 19's) or
+//    16-row stages of 32 KB, four of them (12-bcast), formed as (double)h
+//    + 0.0, DF64TilePlane's element with l = +0.0. EARLY is not tried on
+//    an f32 plane: a warp's raw rows would hold 128 registers (StripCfg
+//    takes it only for an int16 plane). The tile-reading walks spent an
+//    I2F.F64 a
+//    value (three for the fq cascade) and read the tile from L2 as often
+//    as they streamed the plane (PERF.md section 6). symm_pass2 is the
+//    triangle's pass 2, a programmatic dependent as slab_pass2 and
+//    rect_pass2 are.
 //  * Kernel 18-bf16's consumers (strip_mma_pass1, MMA) run q16_bf16_pass1's
 //    tensor-core products. Its mma.sync fragments read 16-bit pairs of
 //    eight rows at once; on a raw stage, whose rows are 1024 bytes apart,
@@ -107,8 +124,8 @@
 //    (griddepcontrol.wait) for pass 1's writes before they read a partial.
 //
 // Sizes, from sweeps on an H100 (PERF.md section 6; the chosen ones at
-// SlabQ16Cfg, DualQ16Cfg, DualFQCfg, DualBf16Cfg, SymmQ1Cfg and SlabHiCfg
-// below). Kernel 16: two
+// SlabQ16Cfg, DualQ16Cfg, DualFQCfg, DualBf16Cfg, SymmQ1Cfg, SlabHiCfg,
+// DualHiCfg and SlabQ1Cfg below). Kernel 16: two
 // stages (136 KB) and a 16 KB reduction buffer; a third stage was slower,
 // and so were two blocks an SM of one stage each, the int16 -> f32
 // conversion by bits (csrc/q16_probe.cu's magic), an earlier pass-2
@@ -130,8 +147,9 @@
 // transpose chains unrolled to interleave, and a grid of 100 blocks were
 // as fast or slower. The summing walks (all but 18-bf16's): summing a row
 // one 16-byte vector at a time into both sums (half the values live), not
-// its whole 16 values first, made kernels 16, 18, 19 and the two zero-tile
-// walks faster, and let 15-bcast's f64 walk take EARLY without a spill.
+// its whole 16 values first, made kernels 16, 18, 19 and the zero-tile
+// walks of 15-bcast and 9-bcast faster, and let 15-bcast's f64 walk take
+// EARLY without a spill.
 //
 // The bits: inside a strip nothing of symm_pass1's order changes. Warp w
 // sums rows w*8 .. w*8+7 in that order, lane l holds columns lane_col<8>(l,
@@ -145,8 +163,12 @@
 // of RW < 8 warps carries the sum on in registers, the same additions).
 // Each block writes part_d[t][r] and part_t[t][s][c] as symm_pass1 does, so
 // pass 2 sums the same partials in the same order: (yd, yt) equal the
-// two-pass walk's bit for bit. The f32 plane of 9-bcast is read as
-// DF64TilePlane reads it, four columns a 16-byte vector (lane_col<4>).
+// two-pass walk's bit for bit. The f32 plane of 9-bcast and 12-bcast is
+// read as DF64TilePlane reads it, four columns a 16-byte vector
+// (lane_col<4>); on the rectangle symm_pass1 reads pk = P.get(k*TB + c) * 1
+// and pi = Q.get(i*TB + r) * 1 from the two (hi, lo) pairs, the strip walk
+// the same sums from the stage, and both write part_d[i*cb + k][r] and
+// part_t[i*cb + k][s][c], which rect_pass2 sums.
 //
 // The zero-tile walks drop terms, and keep the bits all the same. With e2 =
 // e3 = 0, FQPlane's element (e1*c1 + 0*c2) + 0*c3 (every product exact)
@@ -387,7 +409,7 @@ struct StripCfg {
   static_assert(SMEM + 2 * S * 8 <= 232448, "a block's shared memory");
 };
 
-// The six kernels' sizes, from the sweeps (PERF.md section 6):
+// The eight kernels' sizes, from the sweeps (PERF.md section 6):
 //  * kernel 16: the 64 KB strip as one stage, two stages;
 //  * kernel 18: 32-row stages of 32 KB, six of them (four were as fast or
 //    a little slower), EARLY: with the stage released once the warps hold
@@ -423,6 +445,19 @@ using DualBf16Cfg =
 using SymmQ1Cfg =
     StripCfg<StripQ1Planes, StripVecs<2>, 32, 4, WARPS, true, true>;
 using SlabHiCfg = StripCfg<StripHiPlanes, StripVecs<2>, 32, 2, WARPS>;
+//  * kernel 12-bcast on a zero tile: 16-row stages of the f32 hi plane
+//    (32 KB and 4 KB of (hi, lo) operand each), four of them, the f64
+//    transpose sums in one round: 177 KB (9-bcast's two 32-row stages, and
+//    four 16-row stages reduced in two or four rounds, were 1-2% slower, a
+//    single 64-row stage 34%; RectWalk: every tile has a transpose term);
+//  * kernel 17-bcast on zero tiles: 32-row stages of the q1 plane, two of
+//    them, EARLY, BITS, the transpose sums in one round: 105 KB (15-bcast's
+//    four stages 6% slower, as were six in four rounds or a single 64-row
+//    stage; four 16-row stages, or two 32-row ones in two or four rounds,
+//    1-3%; EARLY off 12% and conversion by instruction 6% slower).
+using DualHiCfg = StripCfg<StripHiPlanes, StripVecs<2>, 16, 4, WARPS>;
+using SlabQ1Cfg =
+    StripCfg<StripQ1Planes, StripVecs<2>, 32, 2, WARPS, true, true>;
 
 // Operand entry i of a vector staged as NV arrays `stride` apart: F32Vec's
 // and DF64Vec's get.
@@ -910,9 +945,9 @@ int launch_dependent(void (*kernel)(Params...), int blocks,
   return (int)cudaLaunchKernelEx(&cfg, kernel, args...);
 }
 
-// Kernels 16 and 9-bcast (zero tile) on the strip walk: pass 1 over the T
-// packed tiles of the rank's walk (W.packed), then slab_pass2 over the
-// lists L.
+// Kernels 16, 9-bcast and 17-bcast (zero tiles) on the strip walk: pass 1
+// over the T packed tiles of the rank's walk (W.packed), then slab_pass2
+// over the lists L.
 template <class Cfg, class Planes, class Vecs, class Out>
 int launch_strip_slab(Planes A, Vecs V, TableWalk W, SlabLists L, Out YD,
                       Out YT, typename Cfg::acc_t* part_d,
@@ -945,8 +980,8 @@ int launch_strip_tri(Planes A, Vecs V, Out Y, typename Cfg::acc_t* part_d,
                           (const acc_t*)part_t, nblk, Y);
 }
 
-// Kernels 18 and 19 on the strip walk: pass 1 over the mb x cb tiles of the
-// rectangle, then rect_pass2.
+// Kernels 18, 19 and 12-bcast (zero tile) on the strip walk: pass 1 over the
+// mb x cb tiles of the rectangle, then rect_pass2.
 template <class Cfg, class Planes, class Vecs, class Out>
 int launch_strip_dual(Planes A, Vecs V, Out YD, Out YT,
                       typename Cfg::acc_t* part_d,

@@ -68,6 +68,7 @@ SIGNATURES = {
     "lam_gemv_df64_symm_slab_bcast": (_P,) * 17 + (_I,) * 3 + (_P,),
     "lam_gemv_df64_symm_slab_zero": (_P,) * 16 + (_I,) * 3 + (_P,),
     "lam_gemv_fq_symm_slab_bcast": (_P,) * 21 + (_I,) * 5 + (_P,),
+    "lam_gemv_fq_symm_slab_zero": (_P,) * 17 + (_I,) * 3 + (_P,),
     "lam_gemv_f32_dual": (_P,) * 7 + (_I, _I, _P),
     "lam_gemv_df64_dual": (_P,) * 12 + (_I, _I, _P),
     "lam_gemv_dfq_dual": (_P,) * 13 + (_I, _I, _P),
@@ -76,6 +77,7 @@ SIGNATURES = {
     "lam_gemv_fq_dual": (_P,) * 16 + (_I, _I, _P),
     "lam_gemv_fq_dual_twopass": (_P,) * 16 + (_I, _I, _P),
     "lam_gemv_df64_dual_bcast": (_P,) * 12 + (_I, _I, _P),
+    "lam_gemv_df64_dual_zero": (_P,) * 11 + (_I, _I, _P),
     "lam_gemv_fq_dual_bcast": (_P,) * 16 + (_I,) * 4 + (_P,),
     "lam_gemv_q16_symm_bf16": (_P, _P, _P, _P, _P, _P, _I, _P),
     "lam_gemv_q16_symm_slab_bf16": (_P,) * 14 + (_I,) * 3 + (_P,),

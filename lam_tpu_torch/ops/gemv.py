@@ -78,15 +78,18 @@ lam_tpu):
     gemv_fq_dual_bcast         <- gemv_fq_dual, q2/q3 tiles    (:2637)
 
 Generate mode's tiles hold only zeros ("exact-zero residual planes",
-lam_tpu :2183-2185). Two of the broadcast modes have a kernel of their own
-for such tiles, which reads only the plane that is not zero and gives
-the full-plane kernel's bits over zero planes. The operators choose it
+lam_tpu :2183-2185). Four of the broadcast modes (all but kernel 2's and
+19's) have a kernel of their own for such tiles, which reads only the
+plane that is not zero and gives the full-plane kernel's bits over zero
+planes. The operators choose it
 when they are built, where their tiles are counted zero
 (`solver.operators.zero_tiles_of`), never by a read at a matvec; any
 other tile keeps the tile-reading mode:
 
     gemv_fq_symm_zero          <- gemv_fq_symm, zero q2/q3 tiles (:2182)
     gemv_df64_symm_slab_zero   <- gemv_df64_symm_slab, zero lo tile (:991)
+    gemv_df64_dual_zero        <- gemv_df64_dual, zero lo tile (:1695)
+    gemv_fq_symm_slab_zero     <- gemv_fq_symm_slab, zero q2/q3 tiles (:2420)
 
 The three q16 matvecs have two product engines, as in lam_tpu, chosen
 per call by `_q16_impl` from the module attribute `_Q16_IMPL` (read from
@@ -509,7 +512,8 @@ def gemv_fq_symm_slab_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt,
     q1*s1 + q2*s2 + q3*s3 (each product exact): (yd_hi, yd_lo, yt_hi,
     yt_lo), the f32 splits of yd and yt."""
     gemv_fq_symm_slab_plain.calls += 1
-    return _fq_slab_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt, ms)
+    return _fq_slab_parts(((q1, s1), (q2, s2), (q3, s3)), p_hi, p_lo, it, kt,
+                          lt, ms)
 
 
 def gemv_fq_symm_slab_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it,
@@ -517,16 +521,27 @@ def gemv_fq_symm_slab_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it,
     """`gemv_fq_symm_slab_plain` with q2 and/or q3 one broadcast (tb, tb)
     tile, expanded over the walk."""
     gemv_fq_symm_slab_bcast_plain.calls += 1
-    return _fq_slab_parts(q1, _tile_plane(q2, q1), _tile_plane(q3, q1), s1,
-                          s2, s3, p_hi, p_lo, it, kt, lt, ms)
+    return _fq_slab_parts(((q1, s1), (_tile_plane(q2, q1), s2),
+                           (_tile_plane(q3, q1), s3)), p_hi, p_lo, it, kt,
+                          lt, ms)
 
 
-def _fq_slab_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt, ms):
+def gemv_fq_symm_slab_zero_plain(q1, s1, p_hi, p_lo, it, kt, lt, *, ms):
+    """`gemv_fq_symm_slab_bcast_plain` over zero q2/q3 tiles, which are
+    not taken: the f64 slab walk of q1 against s1."""
+    gemv_fq_symm_slab_zero_plain.calls += 1
+    return _fq_slab_parts(((q1, s1),), p_hi, p_lo, it, kt, lt, ms)
+
+
+def _fq_slab_parts(planes, p_hi, p_lo, it, kt, lt, ms):
+    """The f64 slab walk of the fq cascade: `planes` the (plane, scale
+    table) pairs, q1's first, each of q1's shape."""
+    q1 = planes[0][0]
     tb, ms = _slab_geometry("gemv_fq_symm_slab", q1, p_hi, it, kt, lt, ms,
                             True, None)
     _check_walk(*_host_tables(it, kt, lt), p_hi.shape[0] // tb, ms // tb)
     tiles = sum(q.to(torch.float64) * s.to(torch.float64).repeat_interleave(
-        tb)[:, None] for q, s in ((q1, s1), (q2, s2), (q3, s3)))
+        tb)[:, None] for q, s in planes)
     return _df64_slab_parts(tiles, p_hi, p_lo, it, kt, lt, ms, tb)
 
 
@@ -617,6 +632,15 @@ def gemv_df64_dual_bcast_plain(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo):
     tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, "gemv_df64_dual")
     tiles = (buf_hi.to(torch.float64) + _tile_plane(buf_lo, buf_hi).to(
         torch.float64))[:mb * cb * tb].reshape(-1, tb, tb)
+    return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
+
+
+def gemv_df64_dual_zero_plain(buf_hi, p_hi, p_lo, q_hi, q_lo):
+    """`gemv_df64_dual_bcast_plain` over a zero lo tile, which is not
+    taken: the f64 dual matvec of the hi rectangle."""
+    gemv_df64_dual_zero_plain.calls += 1
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, "gemv_df64_dual")
+    tiles = buf_hi[:mb * cb * tb].to(torch.float64).reshape(-1, tb, tb)
     return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
 
 
@@ -1540,6 +1564,27 @@ def gemv_fq_symm_slab_bcast(q1, q2, q3, s1, s2, s3, p_hi, p_lo, it, kt, lt,
                       (int(q2.shape != q1.shape), int(q3.shape != q1.shape)))
 
 
+def gemv_fq_symm_slab_zero(q1, s1, p_hi, p_lo, it, kt, lt, *, ms,
+                           comp=None):
+    """`gemv_fq_symm_slab_bcast` over q2 and q3 tiles that hold only zeros
+    (generate mode's), which it does not take: (yd_hi, yd_lo, yt_hi,
+    yt_lo) of A = q1 * s1 (s1 per walk position), q1 alone streamed
+    through the strip walk (csrc/strip_walk.cuh), with the bits of
+    `gemv_fq_symm_slab` over zero q2/q3 planes and any finite s2, s3."""
+    what = "gemv_fq_symm_slab_zero"
+    _comp_and_pairs(what, comp, p_hi, p_lo)
+    _check(what, {"q1": q1, "s1": s1, "p_hi": p_hi, "p_lo": p_lo, "it": it,
+                  "kt": kt, "lt": lt}, q1.device)
+    tb, ms = _slab_geometry(what, q1, p_hi, it, kt, lt, ms, True, None)
+    _check_scales(what, it.shape[0], {"s1": s1})
+    if q1.device.type == "cpu":
+        return gemv_fq_symm_slab_zero_plain(q1, s1, p_hi, p_lo, it, kt, lt,
+                                            ms=ms)
+    _check_tma(what, {"p_hi": p_hi, "p_lo": p_lo})
+    return _slab_call(gemv_fq_symm_slab_zero, "lam_gemv_fq_symm_slab_zero",
+                      (q1, s1, p_hi, p_lo), it, kt, lt, ms, tb, True)
+
+
 def gemv_dfq_symm_slab(ah_slab, alq_slab, sc, p_hi, p_lo, it, kt, lt, *,
                        ms, comp=None):
     """Partial quantized-lo matvec over one rank's band-pair walk, the dfq
@@ -1669,6 +1714,25 @@ def gemv_df64_dual_bcast(buf_hi, buf_lo, p_hi, p_lo, q_hi, q_lo, *,
                       True)
 
 
+def gemv_df64_dual_zero(buf_hi, p_hi, p_lo, q_hi, q_lo, *, comp=None):
+    """`gemv_df64_dual_bcast` over a lo tile that holds only zeros
+    (generate mode's), which it does not take: (yd_hi, yd_lo, yt_hi,
+    yt_lo) of the hi rectangle alone, streamed through the strip walk
+    (csrc/strip_walk.cuh), with the bits of `gemv_df64_dual` over a zero
+    lo plane."""
+    what = "gemv_df64_dual_zero"
+    _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
+    _check(what, {"a_hi": buf_hi, "p_hi": p_hi, "p_lo": p_lo, "q_hi": q_hi,
+                  "q_lo": q_lo}, buf_hi.device)
+    tb, mb, cb = _dual_geometry(buf_hi, p_hi, q_hi, what)
+    if buf_hi.device.type == "cpu":
+        return gemv_df64_dual_zero_plain(buf_hi, p_hi, p_lo, q_hi, q_lo)
+    _check_tma(what, {"p_hi": p_hi, "p_lo": p_lo, "q_hi": q_hi,
+                      "q_lo": q_lo})
+    return _dual_call(gemv_df64_dual_zero, "lam_gemv_df64_dual_zero",
+                      (buf_hi, p_hi, p_lo, q_hi, q_lo), tb, mb, cb, True)
+
+
 def gemv_dfq_dual(buf_hi, buf_loq, sc, p_hi, p_lo, q_hi, q_lo, *,
                   comp=None):
     """The dfq twin of `gemv_df64_dual`: the f32 hi plane plus the lo
@@ -1795,7 +1859,8 @@ KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_f32_symm_square, gemv_df64_symm_square, gemv_df64_symm_bcast,
            gemv_fq_symm_bcast, gemv_df64_symm_slab_bcast,
            gemv_fq_symm_slab_bcast, gemv_df64_dual_bcast, gemv_fq_dual_bcast,
-           gemv_fq_symm_zero, gemv_df64_symm_slab_zero)
+           gemv_fq_symm_zero, gemv_df64_symm_slab_zero, gemv_df64_dual_zero,
+           gemv_fq_symm_slab_zero)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
@@ -1809,7 +1874,8 @@ PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_df64_symm_bcast_plain, gemv_fq_symm_bcast_plain,
          gemv_df64_symm_slab_bcast_plain, gemv_fq_symm_slab_bcast_plain,
          gemv_df64_dual_bcast_plain, gemv_fq_dual_bcast_plain,
-         gemv_fq_symm_zero_plain, gemv_df64_symm_slab_zero_plain)
+         gemv_fq_symm_zero_plain, gemv_df64_symm_slab_zero_plain,
+         gemv_df64_dual_zero_plain, gemv_fq_symm_slab_zero_plain)
 
 
 def reset_counters():

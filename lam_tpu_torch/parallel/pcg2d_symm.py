@@ -49,10 +49,11 @@ kernels on the card and their plain versions on the CPU. Generate mode
 half-slab on its device, with ONE zero (tb, tb) tile for the lo plane or
 for each of q2 and q3 that every tile reads (the broadcast modes of
 kernels 2 and 15 on the diagonal ranks, 12 and 19 on the others). An fq
-diagonal rank whose q2 and q3 tiles hold only zeros, counted once when
-its operator is built, runs the triangle kernel that reads q1 alone
-(`gemv.gemv_fq_symm_zero`). Not ported yet: the Jacobi preconditioner
-(`run_pcg`).
+diagonal rank whose q2 and q3 tiles hold only zeros, and a df64
+off-diagonal rank whose lo tile does, counted once when its operator is
+built, run the accurate matvec's kernel that reads q1 or hi alone
+(`gemv.gemv_fq_symm_zero`, `gemv.gemv_df64_dual_zero`). Not ported yet:
+the Jacobi preconditioner (`run_pcg`).
 """
 
 from __future__ import annotations
@@ -83,6 +84,15 @@ _TILE_MATH = {
             (gemv.gemv_dfq_symm, gemv.gemv_dfq_dual, (0, 1, 2))),
     "fq": ((gemv.gemv_q16_symm, gemv.gemv_q16_dual, (0, 3)),
            (gemv.gemv_fq_symm, gemv.gemv_fq_dual, (0, 1, 2, 3, 4, 5))),
+}
+
+# storage -> the accurate matvec's kernel over broadcast tiles of zeros:
+# (True where the diagonal ranks take it and False where the others do, the
+# kernel, the operand entries it reads, the planes whose tiles are
+# counted); the other ranks keep _TILE_MATH's
+_ZERO_MATH = {
+    "fq": (True, gemv.gemv_fq_symm_zero, (0, 3), 3),
+    "df64": (False, gemv.gemv_df64_dual_zero, (0,), 2),
 }
 
 
@@ -134,23 +144,39 @@ def _route_mv_pair(mesh, m, diag_mv, dual_mv, p_own, p_recv):
     return t, _scatter_half(d, m, top=False)
 
 
-def _make_mv_pair(mesh, m, storage, which, zero_fq=False):
+def _zero_tiles(mesh, operand, storage, which):
+    """True where the rank's accurate matvec has a kernel for its
+    broadcast tiles and they hold only zeros: one count on the device,
+    when the operator is built (`ops.zero_tiles_of`)."""
+    if which != "acc" or storage not in _ZERO_MATH:
+        return False
+    diagonal, _, _, planes = _ZERO_MATH[storage]
+    return ((mesh.i == mesh.j) == diagonal
+            and ops.zero_tiles_of(operand[:planes]))
+
+
+def _make_mv_pair(mesh, m, storage, which, zero=False):
     """The rank's matvec (operand, p_own, p_recv) -> (own partial, mirror
     payload): only the tile math of the storage is chosen here, the
     routing is `_route_mv_pair`'s. which='f32' is the inner view on f32
-    vectors, 'acc' the accurate matvec on f64 vectors; `zero_fq` puts
-    the triangle kernel that reads q1 and s1 alone in the fq one's place
-    (q2 and q3 tiles of zeros). The quantized planes carry a zero
-    diagonal: the diagonal rank adds dh * p (f32) or (dh + dl) * p in
-    native f64 (lam_tpu adds it with df_mul and two_sum)."""
+    vectors, 'acc' the accurate matvec on f64 vectors; `zero` puts the
+    kernel that reads q1 and s1 (fq, diagonal rank) or hi (df64,
+    off-diagonal rank) alone in the tile-reading one's place
+    (`_ZERO_MATH`). The quantized planes carry a zero diagonal: the
+    diagonal rank adds dh * p (f32) or (dh + dl) * p in native f64
+    (lam_tpu adds it with df_mul and two_sum)."""
     tri, dual, idx = _TILE_MATH[storage][which == "acc"]
-    tri_idx = idx
-    if zero_fq:
-        tri, tri_idx = gemv.gemv_fq_symm_zero, (0, 3)
+    tri_idx = dual_idx = idx
+    if zero:
+        diagonal, kernel, zero_idx, _ = _ZERO_MATH[storage]
+        if diagonal:
+            tri, tri_idx = kernel, zero_idx
+        else:
+            dual, dual_idx = kernel, zero_idx
     quant = storage in ops.QUANT_LAYOUT
 
     def mv_pair(operand, p_own, p_recv):
-        planes = [operand[k] for k in idx]
+        dual_planes = [operand[k] for k in dual_idx]
         tri_planes = [operand[k] for k in tri_idx]
         if which == "f32":
             def diag_mv(p):
@@ -158,7 +184,7 @@ def _make_mv_pair(mesh, m, storage, which, zero_fq=False):
                 return y + operand[-2] * p if quant else y
 
             def dual_mv(pf, qh):
-                return dual(*planes, pf, qh)
+                return dual(*dual_planes, pf, qh)
         else:
             def diag_mv(p):
                 y = join_f64(*tri(*tri_planes, *split_f64(p)))
@@ -167,7 +193,7 @@ def _make_mv_pair(mesh, m, storage, which, zero_fq=False):
                 return y
 
             def dual_mv(pf, qh):
-                out = dual(*planes, *split_f64(pf), *split_f64(qh))
+                out = dual(*dual_planes, *split_f64(pf), *split_f64(qh))
                 return join_f64(*out[:2]), join_f64(*out[2:])
 
         return _route_mv_pair(mesh, m, diag_mv, dual_mv, p_own, p_recv)
@@ -225,10 +251,9 @@ class Symm2DOperator(GridOperator):
         if storage not in STORAGES:
             raise ValueError(f"unknown symmetric-grid storage {storage!r}")
         which = "f32" if vector_dtype == torch.float32 else "acc"
-        zero_fq = (storage == "fq" and which == "acc" and mesh.i == mesh.j
-                   and ops.zero_tiles_of(operand[:3]))
-        self.mv_pair = _make_mv_pair(mesh, n_padded // mesh.r, storage,
-                                     which, zero_fq)
+        self.mv_pair = _make_mv_pair(
+            mesh, n_padded // mesh.r, storage, which,
+            _zero_tiles(mesh, operand, storage, which))
         super().__init__(_make_apply_sym2d(self.mv_pair, mesh), operand, n,
                          n_padded, vector_dtype, mesh)
         self.precision = "f32" if which == "f32" else storage

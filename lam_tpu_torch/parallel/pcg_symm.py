@@ -47,8 +47,9 @@ storage on its own device from the rank's own walk tables: the slab, or
 the packed hi plane with ONE zero (tb, tb) lo tile (kernel 9's broadcast
 mode reads it at every tile), or the packed q1 plane with one zero tile
 each for q2 and q3 (kernel 17's). A packed df64 operator whose lo tile
-holds only zeros, counted once when it is built, multiplies by the kernel
-that reads hi alone (`gemv.gemv_df64_symm_slab_zero`).
+holds only zeros, or an fq one whose q2 and q3 tiles do, counted once when
+it is built, multiplies by the kernel that reads hi or q1 alone
+(`gemv.gemv_df64_symm_slab_zero`, `gemv.gemv_fq_symm_slab_zero`).
 """
 
 from __future__ import annotations
@@ -158,24 +159,28 @@ def _make_mv32(mesh, m, tb, storage):
     return mv
 
 
-def _make_mv_acc(mesh, m, tb, storage, zero_lo):
+def _make_mv_acc(mesh, m, tb, storage, zero_tiles):
     """The accurate matvec of a storage, on f64 vectors: the df64, dfq or
-    fq slab walk, or the hi plane's alone where `zero_lo` (a packed lo
-    tile of zeros). For the quantized storages the owner adds the exact
-    diagonal term (dh + dl) * p over its rows, in native f64 (lam_tpu
-    adds it with df_mul and two_sum), before the all-reduce."""
+    fq slab walk, or where `zero_tiles` (the packed lo tile, or the q2 and
+    q3 tiles, of zeros) the walk of the hi or q1 plane alone. For the
+    quantized storages the owner adds the exact diagonal term (dh + dl) *
+    p over its rows, in native f64 (lam_tpu adds it with df_mul and
+    two_sum), before the all-reduce."""
     c, g = mesh.rank, mesh.size
 
     def mv(operand, p):
         it, kt, lt = operand[-3:]
         ph, pl = split_f64(p)
-        if storage == "fq":
+        if storage == "fq" and zero_tiles:
+            parts = gemv.gemv_fq_symm_slab_zero(operand[0], operand[3], ph,
+                                                pl, it, kt, lt, ms=2 * m)
+        elif storage == "fq":
             parts = gemv.gemv_fq_symm_slab(*operand[:6], ph, pl, it, kt, lt,
                                            ms=2 * m)
         elif storage == "dfq":
             parts = gemv.gemv_dfq_symm_slab(*operand[:3], ph, pl, it, kt, lt,
                                             ms=2 * m)
-        elif zero_lo:
+        elif zero_tiles:
             parts = gemv.gemv_df64_symm_slab_zero(operand[0], ph, pl, it, kt,
                                                   lt, ms=2 * m)
         else:
@@ -206,8 +211,9 @@ class SymmShardedOperator(ops.LinearOperator):
         if vector_dtype == torch.float32:
             mv = _make_mv32(mesh, m, tb, storage)
         else:
-            mv = _make_mv_acc(mesh, m, tb, storage, storage == "packed"
-                              and ops.zero_tiles_of(operand[:2]))
+            planes = {"packed": 2, "fq": 3}.get(storage)
+            mv = _make_mv_acc(mesh, m, tb, storage, planes is not None
+                              and ops.zero_tiles_of(operand[:planes]))
         super().__init__(mv, operand, n, n_padded, vector_dtype,
                          mesh.device)
         self.precision = ("f32" if vector_dtype == torch.float32 else

@@ -24,11 +24,12 @@ to the heat demo's 998 x 1198 interior (1024 x 1280), with zero edges and
 with the non-zero edge rows of a row-sharded grid. The broadcast modes of
 kernels 9, 17 (every rank's walk, G = 1 to 3) and 12, 19 (rectangles of
 one tile to 7 x 3) give the full-plane kernel's bits on a zero tile and
-match the f64 oracle on non-zero ones. The kernels of kernels 15's and
-9's modes for tiles of zeros (the strip walk over q1 or hi alone) give the
-full-plane kernels' and the tile-reading walks' bits with signed zeros in
-the planes, the operands and the scales; generate mode's operators take
-them, and an operator handed a tile that is not zero does not.
+match the f64 oracle on non-zero ones. The kernels of kernels 15's, 9's,
+12's and 17's modes for tiles of zeros (the strip walk over q1 or hi
+alone) give the full-plane kernels' and the tile-reading walks' bits with
+signed zeros in the planes, the operands and the scales; generate mode's
+operators take them, and an operator handed a tile that is not zero does
+not.
 """
 
 import numpy as np
@@ -409,12 +410,12 @@ def test_gemv_df64_cols_stream_walk(m, n, nb):
 def test_dense_stream_kernels_hold_the_bulk_copy():
     """The SASS of kernels 4, 5 and 6 (dense_stream) and of the strip walks
     of kernels 16, 18, 19, 19-bcast (its own planes type,
-    StripTilePlanes) and the zero-tile walks of 15-bcast and 9-bcast
+    StripTilePlanes) and the zero-tile walks of 15-, 9-, 12- and 17-bcast
     (StripQ1Planes, StripHiPlanes) issues TMA bulk copies (UBLKCP); that of
     the dense_rows kernels (3 and the df64 control) and of the strip
     walks' controls (the two-pass walk's pass 1 on the slab tables and on
-    the q16 and fq rectangles, and the tile-reading walks of 15-bcast and
-    9-bcast) none."""
+    the q16 and fq rectangles, and the tile-reading walks of 15-, 9-, 12-
+    and 17-bcast) none."""
     from lam_tpu_torch.ops import _build
     kernels = _build.sass()
     stream = [k for k in kernels if "dense_stream" in k]
@@ -424,17 +425,19 @@ def test_dense_stream_kernels_hold_the_bulk_copy():
         plane in k and walk in k for plane, walk in (
             ("8Q16Plane", "TableWalk"), ("8Q16Plane", "8RectWalk"),
             ("7FQPlane", "8RectWalk"), ("11FQTilePlane", "TriangleWalk"),
-            ("13DF64TilePlane", "TableWalk")))]
+            ("13DF64TilePlane", "TableWalk"), ("13DF64TilePlane", "8RectWalk"),
+            ("11FQTilePlane", "TableWalk")))]
     assert sorted("DF64Stream" in k for k in stream) == [False, True, True]
     assert sorted("DF64Mat" in k for k in rows) == [False, True]
-    assert len(strip) == 6 and len(twopass) == 5
+    assert len(strip) == 8 and len(twopass) == 7
     planes = ("StripPlanesILi1E", "StripPlanesILi3E", "StripTilePlanes",
               "StripQ1Planes", "StripHiPlanes")
     walks = ("TableWalk", "RectWalk", "TriangleWalk")
     assert sorted((next(p for p in planes if p in k),
                    next(w for w in walks if w in k)) for k in strip) == [
-        ("StripHiPlanes", "TableWalk"), ("StripPlanesILi1E", "RectWalk"),
-        ("StripPlanesILi1E", "TableWalk"), ("StripPlanesILi3E", "RectWalk"),
+        ("StripHiPlanes", "RectWalk"), ("StripHiPlanes", "TableWalk"),
+        ("StripPlanesILi1E", "RectWalk"), ("StripPlanesILi1E", "TableWalk"),
+        ("StripPlanesILi3E", "RectWalk"), ("StripQ1Planes", "TableWalk"),
         ("StripQ1Planes", "TriangleWalk"), ("StripTilePlanes", "RectWalk")]
     for k in stream + strip:
         assert any("UBLKCP" in line for line in kernels[k])
@@ -2242,8 +2245,8 @@ def test_gen_operators_take_the_zero_tile_walks():
 
 
 def test_zero_tile_walks_refuse_and_have_no_fallback(monkeypatch):
-    """Misaligned operands raise before a launch; a broken library raises,
-    and no plain version runs."""
+    """The four zero-tile kernels: misaligned operands raise before a
+    launch; a broken library raises, and no plain version runs."""
     bufs, _, p = _fq_system(1500, 1536, seed=61)
     q1, s1 = bufs[0], bufs[3]
     ph, pl = (torch.from_numpy(x).cuda() for x in split_f64_host(p))
@@ -2251,6 +2254,12 @@ def test_zero_tile_walks_refuse_and_have_no_fallback(monkeypatch):
         1500, mesh=pmesh.Mesh(0, 2, "cuda"), packed=True)
     hi, _, it, kt, lt = pk.operand
     v = torch.zeros(pk.n_padded, device="cuda")
+    tb = layout.SYMM_TB
+    packs, vecs = _dual_case(tb, 2 * tb, 2, seed=501)
+    rect = packs["df64"][0]
+    fq = pcg_symm.SymmShardedOperator.from_gen_fq(
+        1500, mesh=pmesh.Mesh(0, 2, "cuda"))
+    bq1, bs1 = fq.operand[0], fq.operand[3]
     gemv.reset_counters()
     off = torch.zeros(1536 + 1, device="cuda")[1:]  # 4 bytes in
     with pytest.raises(ValueError, match="aligned"):
@@ -2258,6 +2267,15 @@ def test_zero_tile_walks_refuse_and_have_no_fallback(monkeypatch):
     off = torch.zeros(pk.n_padded + 1, device="cuda")[1:]
     with pytest.raises(ValueError, match="aligned"):
         gemv.gemv_df64_symm_slab_zero(hi, off, off, it, kt, lt, ms=2 * pk.m)
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_fq_symm_slab_zero(bq1, bs1, off, off, *fq.operand[-3:],
+                                    ms=2 * fq.m)
+    off = torch.zeros(2 * tb + 1, device="cuda")[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_df64_dual_zero(rect, off, off, *vecs[2:])
+    off = torch.zeros(tb + 1, device="cuda")[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_df64_dual_zero(rect, *vecs[:2], off, off)
     assert not any(gemv.counters().values())
     from lam_tpu_torch.ops import _build
 
@@ -2267,7 +2285,167 @@ def test_zero_tile_walks_refuse_and_have_no_fallback(monkeypatch):
     for call in (
             lambda: gemv.gemv_fq_symm_zero(q1, s1, ph, pl),
             lambda: gemv.gemv_df64_symm_slab_zero(hi, v, v, it, kt, lt,
-                                                  ms=2 * pk.m)):
+                                                  ms=2 * pk.m),
+            lambda: gemv.gemv_fq_symm_slab_zero(bq1, bs1, v, v,
+                                                *fq.operand[-3:],
+                                                ms=2 * fq.m),
+            lambda: gemv.gemv_df64_dual_zero(rect, *vecs)):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             call()
     assert _no_plain_ran()
+
+
+# -- the zero-tile walks of kernels 12-bcast and 17-bcast ------------------
+
+@pytest.mark.parametrize("mb,cb", STRIP_RECTS)
+def test_df64_dual_zero_tile_walk(mb, cb):
+    """Kernel 12-bcast's kernel for a lo tile of zeros
+    (gemv_df64_dual_zero: the strip walk over the hi rectangle alone) on
+    rectangles of one tile to 7 x 3 with two garbage pad tiles: equal bit
+    for bit to kernel 12 over a zero lo plane and to its control (the
+    tile-reading walk) on a +0.0 and on a -0.0 tile, with -0.0 and +0.0
+    entries in hi, p and q; against the f64 oracle at 1e-13; bitwise
+    repeats."""
+    tb = layout.SYMM_TB
+    ms, n = mb * tb, cb * tb
+    packs, vecs = _dual_case(ms, n, 2, seed=500 + 10 * mb + cb)
+    hi = _signed_zeros(packs["df64"][0], mb * cb)
+    vecs = tuple(_signed_zeros(v, mb + cb + k) for k, v in enumerate(vecs))
+    ops.reset_counters()
+    out = gemv.gemv_df64_dual_zero(hi, *vecs)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_df64_dual_zero"] == 1 and _no_plain_ran()
+    full = gemv.gemv_df64_dual(hi, torch.zeros_like(hi), *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, full))
+    for fill in (0.0, -0.0):
+        ctl = gemv.gemv_df64_dual_bcast(
+            hi, torch.full((tb, tb), fill, device="cuda"), *vecs)
+        assert all(torch.equal(u, v) for u, v in zip(out, ctl))
+    again = gemv.gemv_df64_dual_zero(hi, *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    stored = _stored_rect([hi], [], ms, n)
+    p64 = vecs[0].double() + vecs[1].double()
+    q64 = vecs[2].double() + vecs[3].double()
+    want = torch.cat([stored @ p64, stored.T @ q64])
+    assert _rel(_join(out), want) <= 1e-13
+    assert _rel(_join(gemv.gemv_df64_dual_zero_plain(hi, *vecs)), want) \
+        <= 1e-13
+
+
+@pytest.mark.parametrize("n,g", BCAST_SLAB_SIZES)
+def test_fq_slab_zero_tiles_walk(n, g):
+    """Kernel 17-bcast's kernel for q2/q3 tiles of zeros
+    (gemv_fq_symm_slab_zero: the strip walk over q1 alone, its scales per
+    walk position), on every rank's walk: equal bit for bit to kernel 17
+    over zero planes and to its control (the tile-reading walk on zero
+    tiles), with -0.0 and +0.0 operand entries, zero entries of q1 and
+    zero, -0.0 and negative scales in all three tables (rank 0; the
+    pack's own s1 on the others); against the f64 oracle at 1e-13;
+    bitwise repeats."""
+    tb = layout.SYMM_TB
+    a, p = _shard_matrix(n, seed=n + 17 * g)
+    for c in range(g):
+        fq = pcg_symm.SymmShardedOperator.from_dense(
+            a, mesh=pmesh.Mesh(c, g, "cuda"), precision="fq")
+        q1, _, _, s1, s2, s3 = fq.operand[:6]
+        it, kt, lt = fq.operand[-3:]
+        walk, ms = (it, kt, lt), 2 * fq.m
+        q1 = q1.clone()
+        q1[q1.abs() < 2000] = 0  # e1 = 0 entries against every scale
+        s1 = _odd_scales(s1, n + c) if c == 0 else s1
+        s2, s3 = _odd_scales(s2, n + c + 1), _odd_scales(s3, n + c + 2)
+        ph, pl = (_signed_zeros(x, n + c + k)
+                  for k, x in enumerate(_cuda_pair(p, fq.n_padded)))
+        ops.reset_counters()
+        out = gemv.gemv_fq_symm_slab_zero(q1, s1, ph, pl, *walk, ms=ms)
+        torch.cuda.synchronize()
+        assert ops.counters()["gemv_fq_symm_slab_zero"] == 1
+        assert _no_plain_ran()
+        zp = torch.zeros_like(q1)
+        full = gemv.gemv_fq_symm_slab(q1, zp, zp, s1, s2, s3, ph, pl, *walk,
+                                      ms=ms)
+        assert all(torch.equal(u, v) for u, v in zip(out, full))
+        zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
+        ctl = gemv.gemv_fq_symm_slab_bcast(q1, zt, zt, s1, s2, s3, ph, pl,
+                                           *walk, ms=ms)
+        assert all(torch.equal(u, v) for u, v in zip(out, ctl))
+        again = gemv.gemv_fq_symm_slab_zero(q1, s1, ph, pl, *walk, ms=ms)
+        assert all(torch.equal(u, v) for u, v in zip(out, again))
+        tiles = q1.double() * s1.double().repeat_interleave(tb)[:, None]
+        want = torch.cat(gemv._slab_parts(tiles, ph.double() + pl.double(),
+                                          *walk, ms, tb, True))
+        plain = _join(gemv.gemv_fq_symm_slab_zero_plain(q1, s1, ph, pl,
+                                                        *walk, ms=ms))
+        if want.abs().max() > 0:
+            assert _rel(_join(out), want) <= 1e-13
+            assert _rel(plain, want) <= 1e-13
+        else:
+            assert not _join(out).any() and not plain.any()
+
+
+def test_mesh_gen_operators_take_the_zero_tile_walks():
+    """The symmetric grid's off-diagonal rank (1, 0) at df64 and one
+    rank's packed fq band pair, built by generate mode's constructors,
+    count their tiles zero when built and multiply by
+    gemv_df64_dual_zero or gemv_fq_symm_slab_zero alone, never the
+    tile-reading walks, each equal bit for bit to the tile-reading walk's
+    product, no plain version. Handed a tile that is not zero, the same
+    operators keep the tile-reading walk."""
+    from lam_tpu_torch.parallel import pcg2d_symm
+    from lam_tpu_torch.precision import join_f64, split_f64
+    grid = pcg2d_symm.Symm2DOperator.from_gen_tridiagonal(
+        4000, mesh=pmesh.Mesh2D(2, 2, "cuda"))
+    hi, lo = grid.operand
+    m = grid.m
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    p_own, p_recv = (torch.rand(m, dtype=torch.float64, device="cuda",
+                                generator=gen) for _ in range(2))
+    ops.reset_counters()
+    own, payload = grid.mv_pair(grid.operand, p_own, p_recv)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts["gemv_df64_dual_zero"] == 1
+    assert counts["gemv_df64_dual_bcast"] == 0 and _no_plain_ran()
+    parts = gemv.gemv_df64_dual_bcast(hi, lo, *split_f64(p_recv),
+                                      *split_f64(p_own[:m // 2]))
+    assert torch.equal(own[:m // 2], join_f64(*parts[:2]))
+    assert not own[m // 2:].any()
+    assert torch.equal(payload, join_f64(*parts[2:]))
+    tile = lo.clone()
+    tile[0, 0] = 2.0 ** -30
+    other = pcg2d_symm.Symm2DOperator((hi, tile), 4000, grid.n_padded,
+                                      grid.mesh, 512)
+    ops.reset_counters()
+    other.mv_pair(other.operand, p_own, p_recv)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_df64_dual_bcast"] == 1
+    assert ops.counters()["gemv_df64_dual_zero"] == 0
+
+    band = pcg_symm.SymmShardedOperator.from_gen_fq(
+        4000, mesh=pmesh.Mesh(0, 1, "cuda"))
+    q1, q2, q3, s1, s2, s3, dh, dl, it, kt, lt = band.operand
+    x = torch.rand(band.n_padded, dtype=torch.float64, device="cuda",
+                   generator=gen)
+    ops.reset_counters()
+    y = band.matvec(x)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts["gemv_fq_symm_slab_zero"] == 1
+    assert counts["gemv_fq_symm_slab_bcast"] == 0 and _no_plain_ran()
+    ph, pl = split_f64(x)
+    parts = gemv.gemv_fq_symm_slab_bcast(q1, q2, q3, s1, s2, s3, ph, pl, it,
+                                         kt, lt, ms=2 * band.m)
+    yd = join_f64(*parts[:2]) + join_f64(dh, dl) * pcg_symm._own_rows(
+        x, 0, 1, band.m)
+    assert torch.equal(y, pcg_symm._scatter_bands(
+        yd, join_f64(*parts[2:]), 0, 1, band.m))
+    one = q2.clone()
+    one[3, 5] = 1
+    other = pcg_symm.SymmShardedOperator(
+        (q1, one, q3, s1, s2, s3, dh, dl, it, kt, lt), 4000, band.n_padded,
+        band.mesh, band.m, 512, "fq")
+    ops.reset_counters()
+    other.matvec(x)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_fq_symm_slab_bcast"] == 1
+    assert ops.counters()["gemv_fq_symm_slab_zero"] == 0

@@ -462,8 +462,8 @@ def test_gen_constructors_refuse_what_lam_tpu_refuses():
 SHARDED_RUNS = [
     ("df64", "df64", [], "gemv_df64_plain"),
     ("ir", "ir", [], "gemv_df64_plain"),
-    ("fq", "fq", [], "gemv_fq_symm_slab_bcast_plain"),
-    ("irfq", "irfq", [], "gemv_fq_symm_slab_bcast_plain"),
+    ("fq", "fq", [], "gemv_fq_symm_slab_zero_plain"),
+    ("irfq", "irfq", [], "gemv_fq_symm_slab_zero_plain"),
     ("df64-packed", "df64", ["--engine", "pallas_symm_packed"],
      "gemv_df64_symm_slab_zero_plain"),
     ("ir-slab", "ir", ["--engine", "pallas_symm"],
@@ -478,9 +478,9 @@ GRID_RUNS = [
     ("irfq", "irfq", [], ("gemv_fq_symm_zero_plain",
                           "gemv_fq_dual_bcast_plain")),
     ("df64-symgrid", "df64", ["--engine", "pallas_symm_packed"],
-     ("gemv_df64_symm_bcast_plain", "gemv_df64_dual_bcast_plain")),
+     ("gemv_df64_symm_bcast_plain", "gemv_df64_dual_zero_plain")),
     ("ir-symgrid", "ir", ["--engine", "pallas_symm"],
-     ("gemv_df64_symm_bcast_plain", "gemv_df64_dual_bcast_plain"))]
+     ("gemv_df64_symm_bcast_plain", "gemv_df64_dual_zero_plain"))]
 
 
 def _cluster_jobs(backend, runs, out):
