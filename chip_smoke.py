@@ -5,7 +5,7 @@
 
 1. Prints the card's name and power limit and builds the CUDA kernels
    from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
-2. Holds each of the forty-three kernels (the solver's thirty-five and
+2. Holds each of the forty-four kernels (the solver's thirty-six and
    the eight q16 probes) against its plain PyTorch version at the main
    path's shapes. The eight one-device kernels at N=10000 padded to
    10240 (20 row tiles of 512, 210 packed tiles; the fq planes stored
@@ -55,15 +55,17 @@
      kernels 5 and 6 also at rank 0's column block of G=4 (printed only;
      kernel 6 over three copies in turn);
    - kernels 16, 18, 18-bf16, 19 and 19-bcast (gemv_q16_symm_slab,
-     gemv_q16_dual, gemv_q16_dual_bf16, gemv_fq_dual, gemv_fq_dual_bcast)
-     and the zero-tile kernels of 15-, 9-, 12- and 17-bcast
+     gemv_q16_dual, gemv_q16_dual_bf16, gemv_fq_dual, gemv_fq_dual_bcast),
+     the zero-tile kernels of 15-, 9-, 12-, 17- and 19-bcast
      (gemv_fq_symm_zero, gemv_df64_symm_slab_zero, gemv_df64_dual_zero,
-     gemv_fq_symm_slab_zero) run the strip walk of
+     gemv_fq_symm_slab_zero, gemv_fq_dual_zero) and probe P5s
+     (gemv_q16_symm_split) run the strip walk of
      csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
      controls, the two-pass walks gemv_q16_symm_slab_twopass,
      gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass,
-     gemv_fq_dual_twopass and the tile-reading walks of 15-, 9-, 12- and
-     17-bcast, none (18-bf16's walk and its control hold HMMA);
+     gemv_fq_dual_twopass, gemv_q16_symm_split_twopass and the
+     tile-reading walks of 15-, 9-, 12- and 17-bcast, none (18-bf16's and
+     P5s's walks and their controls hold HMMA);
      ptxas reports no spill for them. Kernel
      16's (yd, yt) equal its control's bit for bit on every rank's tables
      of G=2 and G=4, and it is timed against the control LIBRARY_REPEATS
@@ -148,7 +150,11 @@
    plane (the fq pack's q1) against their plain versions (1e-5; hi and
    hybrid 1e-6, beside the bf16 engine's gap), padding rows 0, bitwise
    repeats, magic equal to kernel 14 bit for bit and its SASS free of
-   int -> f32 conversions (cuobjdump); gemv_q16_symm_tb1024 on a random
+   int -> f32 conversions (cuobjdump), split (the strip walk with
+   tensor-core consumers) equal to its two-pass control
+   (gemv_q16_symm_split_twopass) bit for bit and timed against it
+   LIBRARY_REPEATS times in turns, the read floor beside, its passes
+   split by torch.profiler; gemv_q16_symm_tb1024 on a random
    int16 plane of 1024-wide tiles against random power-of-two scales
    (1e-5); stream_i16 (checksum = the plain one) and convert_f32_sum
    (within its per-thread f32 rounding bound) on kernel 14's plane, both
@@ -182,6 +188,15 @@
    LIBRARY_REPEATS times in turns, their siblings on the same copies
    (kernel 16, kernel 11) and lam_stream_i16 over the plane's bytes
    beside, failing unless each is below its control in every repeat.
+   Kernel 19's kernel for tiles of zeros, gemv_fq_dual_zero (the strip
+   walk over the q1 rectangle alone), the same way at rank (1, 0): bit
+   for bit the zero planes', the tile-reading walk's and its repeat's,
+   within 1e-13 of its plain version and the f64 oracle, timed over three
+   q1 copies in turn (its `kernels` entry, bound by the bytes of q1's and
+   s1's real tiles and the vectors) and against its control
+   LIBRARY_REPEATS times in turns, kernel 18 on the same copies and
+   lam_stream_i16 over q1 beside, failing unless it is below its control
+   in every repeat, its passes split by torch.profiler.
 3. Writes the benchmark system (random_spd_matrix_fast(10000,
    seed=2024), random_rhs(10000, seed=2034)) in the binary format to a
    temporary directory and solves it through the port's CLI, in
@@ -309,7 +324,8 @@
    rank (0, 0) multiply by gemv_fq_symm_zero alone, bit for bit the
    tile-reading walk's and the zero planes' product, one rank's gen fq
    band pair by gemv_fq_symm_slab_zero and the grid's rank (1, 0) at df64
-   by gemv_df64_dual_zero alone, bit for bit the tile-reading walk's, and
+   and at fq by gemv_df64_dual_zero and gemv_fq_dual_zero alone, bit for
+   bit the tile-reading walks', and
    gemv_df64_symm_slab_zero and gemv_fq_symm_slab_zero on the band walk's
    packed tiles give the tile-reading walk's bits. Then G rank processes
    of this script on the one card over gloo, as in phase 5, through the
@@ -321,7 +337,7 @@
    (3, 4) and, on the symmetric grid, symgrid-df64-4, symgrid-ir-4 and
    symgrid-irfq-4 (diagonal ranks 1 and 2's broadcast mode or 14 and
    15's kernel for zero tiles, off-diagonal ranks 11 and 12's kernel for
-   a zero tile or 18 and 19's broadcast mode); each
+   a zero tile or 18 and 19's kernel for zero tiles); each
    converged with a TRUE residual <= 2e-9 on
    the host, procs = G, every rank's kernels launched and no other, no
    plain version, df64's count within 1% of a host f64 CG's. Then, one at
@@ -329,13 +345,14 @@
    packed-df64 and packed-irfq at G=2, symgrid-df64-4 and symgrid-irfq-4,
    held as phase 8's probes; load_s, avg_gemv_s and the ranks' plane bytes
    beside their bound, the q16 engine of each rank; no rank launches a
-   tile-reading walk of kernels 15, 9, 12 or 17. Last in the 4-rank
-   cluster, MESH_TILES_RUNS: tiles-symgrid-df64-4, the grid's gen df64
-   operator at TILES_GRID_N (no padding at R=2) rebuilt on every rank with
-   the lo tile TILES_EPS * I, solved by cg_solve to 1e-9: converged, a
-   TRUE residual <= 2e-9 of that system, the off-diagonal ranks' tile-
-   reading walk (12-bcast) launched and their zero-tile kernel not. The
-   phase's seconds.
+   tile-reading walk of kernels 15, 9, 12, 17 or 19. Last in the 4-rank
+   cluster, MESH_TILES_RUNS: tiles-symgrid-df64-4 and tiles-symgrid-fq-4,
+   the grid's gen df64 or fq operator at TILES_GRID_N (no padding at R=2)
+   rebuilt on every rank with the lo tile TILES_EPS * I or the q2 tile I
+   against s2 = TILES_EPS, solved by cg_solve to 1e-9: converged, a TRUE
+   residual <= 2e-9 of that system, the tile-reading walks (2- and
+   12-bcast, or 15- and 19-bcast) launched and the zero-tile kernels
+   not. The phase's seconds.
 10. Phase 2's kernel-against-plain checks again, without their timings,
    in FRESH_CHECKS fresh processes of this script started together
    (`chip_smoke.py --fresh-checks`) on this run's library: each must exit
@@ -534,8 +551,8 @@ WALK_RUN_ITERS = {"ir-pallas": 365, "df64-pallas": 358, "ring-ir": 365,
                   "packed-irfq-4": 375, "symgrid-irfq-cold-4": 375,
                   "symgrid-irfq-warm-4": 375, "symgrid-fq-4": 358,
                   "symgrid-irfq-mxu-4": 394}
-LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6, 16, 18, 19, 20
-# and of the zero-tile walks of 15-bcast and 9-bcast
+LIBRARY_REPEATS = 3  # in-turn timings of kernels 4, 5, 6, 16, 18, 19, 20,
+# of the zero-tile walks and of probe P5s
 TIMED = True  # off in phase 10's fresh processes: checks only, no timing
 FRESH_CHECKS = 2  # phase 10: fresh processes that repeat phase 2's checks
 FRESH_TIMEOUT_S = 600  # a fresh process that takes longer is killed
@@ -553,10 +570,11 @@ TILES_EPS = 2.0 ** -8  # their broadcast tile is TILES_EPS * I
 TILES_GRID_N = 4096  # phase 9's grid over a tile handed in: no padding at R=2
 _SQUARE = ("gemv_f32_symm_square", "gemv_df64_symm_square")
 _BCAST = ("gemv_df64_symm_bcast", "gemv_fq_symm_bcast", "gemv_fq_symm_zero")
-# the tile-reading walks of kernels 15, 9, 12 and 17, which generate mode's
-# tiles (zeros, counted when its operators are built) never take
+# the tile-reading walks of kernels 15, 9, 12, 17 and 19, which generate
+# mode's tiles (zeros, counted when its operators are built) never take
 _TILE_WALKS = ("gemv_fq_symm_bcast", "gemv_df64_symm_slab_bcast",
-               "gemv_df64_dual_bcast", "gemv_fq_symm_slab_bcast")
+               "gemv_df64_dual_bcast", "gemv_fq_symm_slab_bcast",
+               "gemv_fq_dual_bcast")
 # phase 8: (run, CLI flags, kernels it must launch, kernels it must not
 # launch): what lam_tpu's _generate_fast builds on its device
 GEN_RUNS = (
@@ -624,7 +642,7 @@ MESH_GEN_RUNS = (
       ("gemv_f32_dual", "gemv_df64_dual_zero")), ()),
     ("gen-symgrid-irfq-4", 4, _SYMGRID + ["--precision", "irfq"],
      (("gemv_q16_symm", "gemv_fq_symm_zero"),
-      ("gemv_q16_dual", "gemv_fq_dual_bcast")), ()))
+      ("gemv_q16_dual", "gemv_fq_dual_zero")), ()))
 # the N=150000 probes, after their cluster's converged runs, one at a time:
 # (run, ranks, CLI flags, kernels it must launch: every rank's, or the
 # diagonal ranks' and the off-diagonal ranks'). Under `auto` the q16 walks
@@ -640,14 +658,18 @@ MESH_GEN_PROBES = (
      (("gemv_df64_symm_bcast",), ("gemv_df64_dual_zero",))),
     ("gen-symgrid-irfq-4-150k", 4, _SYMGRID + ["--precision", "irfq"],
      (("gemv_q16_symm", "gemv_fq_symm_zero"),
-      ("gemv_q16_dual_bf16", "gemv_fq_dual_bcast"))))
-# phase 9's runs over a tile handed in (TILES_EPS * I for lo, every rank),
-# after the cluster's probes: (run, ranks, N, (the diagonal ranks' kernels,
-# the off-diagonal ranks'), kernels no rank may launch)
+      ("gemv_q16_dual_bf16", "gemv_fq_dual_zero"))))
+# phase 9's runs over a tile handed in (TILES_EPS * I for lo, or I for q2
+# against s2 = TILES_EPS, every rank), after the cluster's probes: (run,
+# ranks, N, (the diagonal ranks' kernels, the off-diagonal ranks'), kernels
+# no rank may launch)
 MESH_TILES_RUNS = (
     ("tiles-symgrid-df64-4", 4, TILES_GRID_N,
      (("gemv_df64_symm_bcast",), ("gemv_df64_dual_bcast",)),
-     ("gemv_df64_dual_zero",)),)
+     ("gemv_df64_dual_zero",)),
+    ("tiles-symgrid-fq-4", 4, TILES_GRID_N,
+     (("gemv_fq_symm_bcast",), ("gemv_fq_dual_bcast",)),
+     ("gemv_fq_symm_zero", "gemv_fq_dual_zero")),)
 # the q16 walks' kernels, by engine: which one each rank ran
 _Q16_WALKS = ("gemv_q16_symm", "gemv_q16_symm_bf16", "gemv_q16_symm_slab",
               "gemv_q16_symm_slab_bf16", "gemv_q16_dual",
@@ -775,7 +797,13 @@ STRIP_WALKS = {("StripPlanesILi1E", "TableWalk"): "kernel 16",
                ("StripQ1Planes", "TriangleWalk"): "kernel 15-bcast",
                ("StripHiPlanes", "TableWalk"): "kernel 9-bcast",
                ("StripHiPlanes", "RectWalk"): "kernel 12-bcast",
-               ("StripQ1Planes", "TableWalk"): "kernel 17-bcast"}
+               ("StripQ1Planes", "TableWalk"): "kernel 17-bcast",
+               ("StripQ1Planes", "RectWalk"): "kernel 19-bcast zero"}
+# the strip walk with tensor-core consumers (strip_mma_pass1), by walk ->
+# its kernel, and the mangled (engine, walk) of its two-pass control,
+# q16_bf16_pass1<MODE, Walk>
+MMA_WALKS = {"RectWalk": ("kernel 18-bf16", ("ILi0E", "RectWalk")),
+             "TriangleWalk": ("probe P5s", ("ILi1E", "TriangleWalk"))}
 
 
 def _strip_walk_of(name):
@@ -785,32 +813,34 @@ def _strip_walk_of(name):
 
 def stream_sass(build):
     """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
-    walks of kernels 16, 18, 18-bf16, 19, 19-bcast and the zero-tile walks
-    of 15-bcast, 9-bcast, 12-bcast and 17-bcast holds the TMA bulk copy
-    (UBLKCP); that of the
+    walks of kernels 16, 18, 18-bf16, 19, 19-bcast, the zero-tile walks
+    of 15-bcast, 9-bcast, 12-bcast, 17-bcast and 19-bcast and probe P5s
+    holds the TMA bulk copy (UBLKCP); that of the
     dense_rows kernels (3 and the df64 control) and of the strip walks'
-    controls (the two-pass walk's pass 1) none; kernel
-    18-bf16's walk (strip_mma_pass1) and its control (q16_bf16_pass1 on the
-    rectangle) hold tensor-core products (HMMA). Prints each strip walk's
-    registers from ptxas' report in the build log, which must show no spill
-    and no stack frame."""
+    controls (the two-pass walk's pass 1) none; the walks with
+    tensor-core consumers (strip_mma_pass1: kernel 18-bf16 on the
+    rectangle, P5s on the triangle) and their controls (q16_bf16_pass1)
+    hold tensor-core products (HMMA). Prints each strip walk's registers
+    from ptxas' report in the build log, which must show no spill and no
+    stack frame."""
     kernels = build.sass()
-    mma = [k for k in kernels if "strip_mma_pass1" in k]
-    mma_ctl = [k for k in kernels
-               if "q16_bf16_pass1" in k and "RectWalk" in k]
-    _check(len(mma) == 1 and len(mma_ctl) == 1,
-           "SASS: kernel 18-bf16's strip walk or its control is missing")
-    hmma = {k: sum("HMMA" in line for line in kernels[k])
-            for k in mma + mma_ctl}
-    copies = {k: sum("UBLKCP" in line for line in kernels[k])
-              for k in mma + mma_ctl}
-    print(f"SASS kernel 18-bf16: strip walk {copies[mma[0]]} UBLKCP, "
-          f"{hmma[mma[0]]} HMMA; two-pass control {copies[mma_ctl[0]]} "
-          f"UBLKCP, {hmma[mma_ctl[0]]} HMMA")
-    _check(copies[mma[0]] > 0 and copies[mma_ctl[0]] == 0
-           and all(hmma.values()),
-           "SASS: kernel 18-bf16's strip walk lacks UBLKCP or HMMA, or its "
-           "control issues a bulk copy")
+    for walk, (label, (mode, ctl_walk)) in MMA_WALKS.items():
+        mma = [k for k in kernels if "strip_mma_pass1" in k and walk in k]
+        mma_ctl = [k for k in kernels if "q16_bf16_pass1" + mode in k
+                   and ctl_walk in k]
+        _check(len(mma) == 1 and len(mma_ctl) == 1,
+               f"SASS: {label}'s strip walk or its control is missing")
+        hmma = {k: sum("HMMA" in line for line in kernels[k])
+                for k in mma + mma_ctl}
+        copies = {k: sum("UBLKCP" in line for line in kernels[k])
+                  for k in mma + mma_ctl}
+        print(f"SASS {label}: strip walk {copies[mma[0]]} UBLKCP, "
+              f"{hmma[mma[0]]} HMMA; two-pass control {copies[mma_ctl[0]]} "
+              f"UBLKCP, {hmma[mma_ctl[0]]} HMMA")
+        _check(copies[mma[0]] > 0 and copies[mma_ctl[0]] == 0
+               and all(hmma.values()),
+               f"SASS: {label}'s strip walk lacks UBLKCP or HMMA, or its "
+               "control issues a bulk copy")
     walks = {"dense_stream": [], "dense_rows": [], "strip_pass1": [],
              "two-pass control": []}
     for k, lines in kernels.items():
@@ -831,8 +861,9 @@ def stream_sass(build):
            == sorted(STRIP_WALKS.values())
            and len(walks["strip_pass1"]) == len(STRIP_WALKS)
            and all(walks["strip_pass1"]),
-           "a strip walk (kernels 16, 18, 19, 19-bcast, and 15-, 9-, 12- and "
-           "17-bcast on zero tiles) is missing or issues no TMA bulk copy")
+           "a strip walk (kernels 16, 18, 19, 19-bcast, and 15-, 9-, 12-, "
+           "17- and 19-bcast on zero tiles) is missing or issues no TMA bulk "
+           "copy")
     _check(len(walks["dense_rows"]) == 2
            and len(walks["two-pass control"]) == len(TWOPASS_CONTROLS),
            "SASS: a dense_rows kernel or a strip walk's control is missing")
@@ -844,14 +875,16 @@ def stream_sass(build):
     for line in log.splitlines():
         head = re.search(r"Compiling entry function '(\S+)'", line)
         if head:
-            name = ("kernel 18-bf16" if "strip_mma_pass1" in head.group(1)
-                    else _strip_walk_of(head.group(1)) if (
-                        "strip_pass1" in head.group(1)) else None)
+            k = head.group(1)
+            name = (next(label for walk, (label, _) in MMA_WALKS.items()
+                         if walk in k) if "strip_mma_pass1" in k
+                    else _strip_walk_of(k) if "strip_pass1" in k else None)
         elif name and ("registers" in line or "spill" in line):
             report.setdefault(name, []).append(line.split(":", 1)[-1].strip())
     print(f"ptxas, the strip walks: {report}")
-    _check(sorted(report) == sorted([*STRIP_WALKS.values(),
-                                      "kernel 18-bf16"]) and all(
+    _check(sorted(report) == sorted([
+        *STRIP_WALKS.values(), *(label for label, _ in MMA_WALKS.values())])
+        and all(
         "0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads"
         in " ".join(lines) for lines in report.values()),
         "a strip walk spills or has a stack frame")
@@ -1399,6 +1432,10 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
         if name in ("hi", "hybrid", "split"):
             line += (", bf16 engine-plain "
                      f"{_rel(gemv.gemv_q16_symm_bf16(q, s, p), y_plain):.3e}")
+        if name == "split":  # the strip walk: its two-pass control's bits
+            same = torch.equal(y, probe.gemv_q16_symm_split_twopass(q, s, p))
+            line += f", == its two-pass control bitwise: {same}"
+            _check(same, "the split walk != its two-pass control")
         print(line)
         _check(err <= PROBE_TOL[name], f"{kernel.__name__} disagrees")
         _check(torch.equal(y, call()), f"{kernel.__name__} not repeatable")
@@ -1415,6 +1452,16 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
 
     for name in ("magic", "sub8", "split", "hi", "hybrid"):
         out.append(entry(name, q1, s1, ph, plane))
+    split = next(e for e in out if e["name"] == "gemv_q16_symm_split")
+    _walk_against_control(
+        "gemv_q16_symm_split", split["bound_ms"],
+        lambda: probe.gemv_q16_symm_split(q1, s1, ph),
+        lambda: probe.gemv_q16_symm_split_twopass(q1, s1, ph),
+        lambda: probe.stream_i16(plane), "read floor (lam_stream_i16)",
+        where="(strip walk, tensor-core consumers) at N=10240")
+    _pass_split("gemv_q16_symm_split and its two-pass control", {
+        "walk": lambda: probe.gemv_q16_symm_split(q1, s1, ph),
+        "control": lambda: probe.gemv_q16_symm_split_twopass(q1, s1, ph)})
 
     nblk_k = n // 1024
     T_k = layout.tri_tile_count(nblk_k)
@@ -3041,6 +3088,50 @@ def bcast_modes_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D, a, p):
               _rotating(lambda q: gemv.gemv_q16_dual(q, s1, vecs[0],
                                                      vecs[2]), copies),
               "gemv_q16_dual on the same q1 copies")
+    # the kernel for q2/q3 tiles of zeros, q1 alone: the zero planes' bits
+    # and the tile-reading walk's
+    zp = torch.zeros_like(q1)
+    full = gemv.gemv_fq_dual(q1, zp, zp, *rest)
+    del zp
+    outs = gemv.gemv_fq_dual_zero(q1, s1, *vecs)
+    for got in (outs, gemv.gemv_fq_dual_bcast(q1, zt, zt, *rest),
+                gemv.gemv_fq_dual_zero(q1, s1, *vecs)):
+        _check(all(torch.equal(u, v) for u, v in zip(got, full)),
+               "gemv_fq_dual_zero (or a repeat) or the tile-reading walk != "
+               "the zero q2/q3 planes, bit for bit")
+    del full
+    zero_plain = _cat_parts(gemv.gemv_fq_dual_zero_plain(q1, s1, *vecs))
+    y = _cat_parts(outs)
+    err, err_f64 = _rel(y, zero_plain), _rel(y, dual_oracle([q1, s1]))
+    print(f"gemv_fq_dual_zero (q1 alone) == zero planes, the tile-reading "
+          f"walk and its repeat bit for bit; rel l2 to plain {err:.3e}, to "
+          f"the f64 oracle {err_f64:.3e} (<= 1e-13)")
+    _check(max(err, err_f64) <= 1e-13, "gemv_fq_dual_zero disagrees with "
+           "its plain version or the f64 oracle")
+    diff = float((y - zero_plain).abs().max())
+    entry = _timed_entry(
+        "gemv_fq_dual_zero", "lam_tpu/ops/gemv.py:2624",
+        "lam_tpu_torch/csrc/strip_walk.cuh", diff,
+        (_rotating(lambda q: gemv.gemv_fq_dual_zero(q, s1, *vecs), copies),
+         _rotating(lambda q: gemv.gemv_fq_dual_zero_plain(q, s1, *vecs),
+                   copies), None),
+        (q1[:real * tb], s1[:real], *vecs, *outs), flops, "f64")
+    out.append(entry)
+    _zero_walk_in_turns(
+        "gemv_fq_dual_zero (three q1 copies)", entry["bound_ms"],
+        _rotating(lambda q: gemv.gemv_fq_dual_zero(q, s1, *vecs), copies),
+        _rotating(lambda q: gemv.gemv_fq_dual_bcast(q, zt, zt, *rest),
+                  copies),
+        _rotating(lambda q: gemv.gemv_q16_dual(q, s1, vecs[0], vecs[2]),
+                  copies),
+        "gemv_q16_dual (#18) on the same q1 copies",
+        _rotating(lambda q: probe.stream_i16(q[:real * tb]), copies),
+        "lam_stream_i16 over q1")
+    _pass_split("gemv_fq_dual_zero and its control (gemv_fq_dual_bcast on "
+                "zero tiles)", {
+                    "walk": lambda: gemv.gemv_fq_dual_zero(q1, s1, *vecs),
+                    "control": lambda: gemv.gemv_fq_dual_bcast(
+                        q1, zt, zt, *rest)})
     return out
 
 
@@ -3251,6 +3342,25 @@ def gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D):
         lambda a1, t2, t3, c1, c2, c3, *_: dual_oracle(
             [a1, gemv._tile_plane(t2, a1), gemv._tile_plane(t3, a1), c1, c2,
              c3]), {})
+    # at fq the rank counts its q2/q3 tiles zero when built and takes the
+    # zero walk alone
+    ops.reset_counters()
+    own, payload = fq.mv_pair(fq.operand, p_own, p_recv)
+    torch.cuda.synchronize()
+    ran = _launched("gemv_fq_dual_zero", "gemv_fq_dual_bcast")
+    _check(ran == {"gemv_fq_dual_zero": 1, "gemv_fq_dual_bcast": 0},
+           f"gen grid rank (1, 0) at fq: launches {ran}, not the zero-tile "
+           "kernel alone")
+    parts = gemv.gemv_fq_dual_bcast(q1, q2, q3, s1, s2, s3,
+                                    *split_f64(p_recv),
+                                    *split_f64(p_own[:m2]))
+    _check(torch.equal(own[:m2], join_f64(*parts[:2]))
+           and not own[m2:].any()
+           and torch.equal(payload, join_f64(*parts[2:])),
+           "gen grid rank (1, 0) at fq: the zero-tile kernel's parts != the "
+           "tile-reading walk's, bit for bit")
+    print(f"gen N={GEN_MESH_N}: the gen grid's rank (1, 0) at fq multiplies "
+          "by gemv_fq_dual_zero alone, == the tile-reading walk bit for bit")
     print(f"gen N={GEN_MESH_N}: the four broadcast modes held on the "
           f"builders' operands (band walk of {T} tiles at rank 0 of G=2, "
           f"half-slab ({m2}, {m}) at rank (1, 0) of R=2)")
@@ -3799,8 +3909,9 @@ def rank_main(argv):
 
 def _tiles_grid_solve(job):
     """One rank of a phase-9 run over a tile handed in: the symmetric R=2
-    grid's gen df64 operator at N=job["tiles"] rebuilt with the lo tile
-    TILES_EPS * I on every rank (the diagonal ranks' triangle kernel and
+    grid's gen operator of job["storage"] at N=job["tiles"] rebuilt on
+    every rank with the lo tile TILES_EPS * I (df64) or the q2 tile I
+    against s2 = TILES_EPS (fq; the diagonal ranks' triangle kernel and
     the others' dual kernel read it at every tile), solved by cg_solve to
     1e-9; rank 0 saves x to job["x"] (.npy). Returns the solve's
     timings."""
@@ -3809,10 +3920,17 @@ def _tiles_grid_solve(job):
     from lam_tpu_torch.parallel.mesh import make_mesh2d
     n, tb = job["tiles"], 512
     mesh = make_mesh2d(device="cuda")
-    gen = pcg2d_symm.Symm2DOperator.from_gen_tridiagonal(n, mesh=mesh)
-    op = pcg2d_symm.Symm2DOperator(
-        (gen.operand[0], torch.eye(tb, device="cuda") * TILES_EPS), n,
-        gen.n_padded, mesh, tb)
+    eye = torch.eye(tb, device="cuda")
+    if job["storage"] == "fq":
+        gen = pcg2d_symm.Symm2DOperator.from_gen_fq(n, mesh=mesh)
+        q1, _, q3, s1, _, s3, dh, dl = gen.operand
+        operand = (q1, eye.to(torch.int16), q3, s1,
+                   torch.full_like(s1, TILES_EPS), s3, dh, dl)
+    else:
+        gen = pcg2d_symm.Symm2DOperator.from_gen_tridiagonal(n, mesh=mesh)
+        operand = (gen.operand[0], eye * TILES_EPS)
+    op = pcg2d_symm.Symm2DOperator(operand, n, gen.n_padded, mesh, tb,
+                                   job["storage"])
     del gen
     t0 = time.perf_counter()
     res = cg_solve(op, np.ones(n), max_iters=4 * n, rel_error=1e-9)
@@ -4406,6 +4524,7 @@ def mesh_generate_runs(ops, lio, tmp):
             for run, _, flags, _ in probes]
         tiles = [r for r in MESH_TILES_RUNS if r[1] == g]
         jobs += [{"run": run, "tiles": n,
+                  "storage": "fq" if "-fq-" in run else "df64",
                   "x": os.path.join(tmp, f"x_{run}.npy")}
                  for run, _, n, _, _ in tiles]
         t0 = time.perf_counter()

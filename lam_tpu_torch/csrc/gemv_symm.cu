@@ -1,6 +1,6 @@
 // Symmetric matvec over walk-order packed lower-triangle tiles, for Hopper
 // (sm_90a), and the dual matvec over a dense rectangle of the same tiles.
-// Thirty kernels share one design:
+// Thirty-one kernels share one design:
 //
 //   lam_gemv_f32_symm   replaces lam_tpu/ops/gemv.py:gemv_f32_symm
 //                       (packed=True; Pallas kernel _gemv_f32_symm_kernel)
@@ -61,6 +61,8 @@
 //                                  mode's): hi alone on the strip walk
 //   lam_gemv_fq_dual_bcast         gemv_fq_dual's broadcast q2/q3 tiles
 //                                  (:2637-2644); the strip walk
+//   lam_gemv_fq_dual_zero          the same, q2/q3 zero tiles (generate
+//                                  mode's): q1 alone on the strip walk
 //
 // with the controls of the strip walk, kept for the bit check and the
 // in-turn timing on the same bytes (on no solver's path): each is its
@@ -74,8 +76,9 @@
 //   lam_gemv_df64_symm_slab_bcast   lam_gemv_df64_symm_slab_zero
 //   lam_gemv_df64_dual_bcast        lam_gemv_df64_dual_zero
 //   lam_gemv_fq_symm_slab_bcast     lam_gemv_fq_symm_slab_zero
+//   lam_gemv_fq_dual_bcast          lam_gemv_fq_dual_zero
 //
-// (the last four are kernels too: the walks of a tile that is not zero)
+// (the last five are kernels too: the walks of a tile that is not zero)
 //
 // and the bf16 product engine of the three q16 kernels (lam_tpu's
 // LAM_Q16_IMPL "mxu" bodies, chosen by ops/gemv.py `_q16_impl`):
@@ -188,7 +191,7 @@
 //    rect_pass2) launched as a programmatic dependent. Inside a strip it
 //    sums in symm_pass1's order and writes the same partials, so its bits
 //    are the two-pass walk's (the controls lam_gemv_*_twopass).
-//  * The broadcast modes of kernels 15, 9, 12 and 17 on zero tiles (generate
+//  * The broadcast modes of kernels 15, 9, 12, 17 and 19 on zero tiles (generate
 //    mode's only tiles, known zero when the operator is built) run the
 //    strip walk over the one plane that is not zero, q1 or hi: the
 //    tile-reading walks spent an int -> f64 conversion a value (three for
@@ -668,6 +671,23 @@ extern "C" int lam_gemv_fq_dual_bcast(
                        bcast3 ? TILE_MASK : FULL_MASK}},
       StripVecs<2>{{p_hi, p_lo}, {q_hi, q_lo}}, DF64Out{yd_hi, yd_lo},
       DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb, (cudaStream_t)stream);
+}
+
+// q2 and q3 tiles that hold only zeros (generate mode's, counted when its
+// operator was built): lam_gemv_fq_dual_bcast's arguments without q2, q3,
+// s2, s3 and the flags, none of which is read. q1 streams through the
+// strip walk (csrc/strip_walk.cuh, StripQ1Planes) against s1 and gives
+// lam_gemv_fq_dual_bcast's bits over zero tiles, which are
+// lam_gemv_fq_dual's over zero planes, for any finite s2, s3.
+extern "C" int lam_gemv_fq_dual_zero(
+    const short* q1, const float* s1, const float* p_hi, const float* p_lo,
+    const float* q_hi, const float* q_lo, float* yd_hi, float* yd_lo,
+    float* yt_hi, float* yt_lo, double* part_d, double* part_t, int mb, int cb,
+    void* stream) {
+  return launch_strip_dual<DualQ1Cfg>(
+      StripQ1Planes{{q1}, {s1}}, StripVecs<2>{{p_hi, p_lo}, {q_hi, q_lo}},
+      DF64Out{yd_hi, yd_lo}, DF64Out{yt_hi, yt_lo}, part_d, part_t, mb, cb,
+      (cudaStream_t)stream);
 }
 
 // The control of lam_gemv_fq_dual: the same arguments and bits on the

@@ -43,6 +43,17 @@
 //                             FMAs on the CUDA cores and the transpose term as
 //                             hi does.
 //
+// split runs on the strip walk with tensor-core consumers
+// (csrc/strip_walk.cuh, strip_mma_pass1 over the packed triangle, the
+// split made by bits, fragments taken with ldmatrix, symm_pass2 as a
+// programmatic dependent launch); its two-pass walk (q16_bf16_pass1 and
+// symm_pass2) stays as its control with the same arguments and bits,
+//
+//   lam_gemv_q16_symm_split_twopass   lam_gemv_q16_symm_split
+//
+// which no solver runs (lam_tpu_torch/ops/probe.py CONTROLS). The split's
+// p must be 16-byte aligned (the bulk copies).
+//
 // The TPU scripts' P (tiles a grid step, the DMA block size) has no
 // counterpart: blocks run in no order on 132 SMs, and P=8 is kernel 14's
 // blocked form. What bounds each: bytes, as kernel 14 (2 B a stored element
@@ -53,7 +64,7 @@
 // T = nblk(nblk+1)/2 of the plane's tile width tb (1024 for tb1024, else
 // 512). Returns cudaGetLastError() after the launches.
 
-#include "symm_walk.cuh"
+#include "strip_walk.cuh"
 
 namespace {
 
@@ -108,6 +119,17 @@ extern "C" int lam_gemv_q16_symm_split(const short* q1, const float* s1,
                                        const float* p, float* y,
                                        float* part_d, float* part_t, int nblk,
                                        void* stream) {
+  return launch_strip_tri<SymmSplitCfg>(StripPlanes<1>{{q1}, {s1}},
+                                        StripVecs<1>{{p}, {p}}, F32Out{y},
+                                        part_d, part_t, nblk,
+                                        (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_q16_symm_split_twopass(const short* q1,
+                                               const float* s1,
+                                               const float* p, float* y,
+                                               float* part_d, float* part_t,
+                                               int nblk, void* stream) {
   return launch(Q16MmaPlane<MMA_SPLIT>{q1, s1}, F32Vec{p}, F32Out{y}, part_d,
                 part_t, nblk, (cudaStream_t)stream);
 }

@@ -1,4 +1,4 @@
-// The strip walk: pass 1 of eight kernels, a persistent grid fed by TMA
+// The strip walk: pass 1 of ten kernels, a persistent grid fed by TMA
 // bulk copies, in place of symm_pass1 and q16_bf16_pass1
 // (csrc/symm_walk.cuh):
 //
@@ -29,12 +29,20 @@
 //                                      cascade of the band-pair tables
 //                                      whose q2/q3 tiles are zero: q1
 //                                      alone, f64 sums
+//   kernel 19-bcast on zero tiles  lam_gemv_fq_dual_zero  the fq cascade
+//                                      of the rectangle whose q2/q3 tiles
+//                                      are zero: q1 alone, f64 sums, the
+//                                      (hi, lo) pairs of p and q
+//   probe P5s  lam_gemv_q16_symm_split  (csrc/q16_probe.cu) the q16 plane
+//                                      of the packed triangle, each value
+//                                      split into bf16 ah + al, tensor-core
+//                                      products (strip_mma_pass1), symm_pass2
 //
-// Each keeps its two-pass walk as a control (lam_gemv_*_twopass; the four
+// Each keeps its two-pass walk as a control (lam_gemv_*_twopass; the five
 // zero-tile walks: the tile-reading entry points lam_gemv_fq_symm_bcast,
-// lam_gemv_df64_symm_slab_bcast, lam_gemv_df64_dual_bcast and
-// lam_gemv_fq_symm_slab_bcast, which a non-zero tile takes), and every
-// other kernel runs the two-pass walk.
+// lam_gemv_df64_symm_slab_bcast, lam_gemv_df64_dual_bcast,
+// lam_gemv_fq_symm_slab_bcast and lam_gemv_fq_dual_bcast, which a non-zero
+// tile takes), and every other kernel runs the two-pass walk.
 //
 // What bounds them: bytes. Every stored element is read once, 2 B (q16) or
 // 6 B (fq), for 4 flops (its direct and its transpose product): kernel 16
@@ -86,13 +94,14 @@
 //  * Kernel 19 converts its int16 values to f64 by bits (BITS): the three
 //    conversions an element, at 16 a clock on an SM, were 3/8 of a strip's
 //    share of the card's bandwidth; by bits each is one add at 64 a clock.
-//  * The four zero-tile walks (generate mode's broadcast tiles, known zero
+//  * The five zero-tile walks (generate mode's broadcast tiles, known zero
 //    when the operator is built) read only the plane that is not zero: the
-//    q1 of 15-bcast (the triangle's (i, k) from walk_row in the producer)
-//    and of 17-bcast (the band-pair tables, the scales per walk position
-//    of the rank's own table), in 32-row stages of 32 KB, four of them
-//    (two for 17-bcast), EARLY, converted by bits and multiplied by its
-//    f64 scale; the f32 hi of 9-bcast (the band-pair tables) and of
+//    q1 of 15-bcast (the triangle's (i, k) from walk_row in the producer),
+//    of 17-bcast (the band-pair tables, the scales per walk position of
+//    the rank's own table) and of 19-bcast (the rectangle, the direct
+//    operand p and the transpose operand q), in 32-row stages of 32 KB,
+//    four of them (two for 17- and 19-bcast), EARLY, converted by bits and
+//    multiplied by its f64 scale; the f32 hi of 9-bcast (the band-pair tables) and of
 //    12-bcast (the rectangle, the direct operand p and the transpose
 //    operand q), in 32-row stages of 64 KB (9-bcast, as kernel 19's) or
 //    16-row stages of 32 KB, four of them (12-bcast), formed as (double)h
@@ -117,7 +126,10 @@
 //    fragments taken with ldmatrix (.trans for the transpose term: one
 //    instruction where q16_bf16_pass1 issues four 32-bit or eight 16-bit
 //    loads); a second barrier guards the strip buffer until every warp has
-//    read it.
+//    read it. Probe P5s's consumers (MMA_SPLIT, on the triangle) split
+//    each value by bits into bf16 ah + al, into the two parts of
+//    q16_bf16_pass1<MMA_SPLIT>'s strip, and take both parts' fragments
+//    with ldmatrix.
 //  * Pass 2 (slab_pass2 or rect_pass2) is a programmatic dependent launch
 //    (cudaLaunchAttributeProgrammaticStreamSerialization): its blocks are
 //    scheduled while pass 1 drains its last strips and wait
@@ -125,7 +137,7 @@
 //
 // Sizes, from sweeps on an H100 (PERF.md section 6; the chosen ones at
 // SlabQ16Cfg, DualQ16Cfg, DualFQCfg, DualBf16Cfg, SymmQ1Cfg, SlabHiCfg,
-// DualHiCfg and SlabQ1Cfg below). Kernel 16: two
+// DualHiCfg, SlabQ1Cfg, DualQ1Cfg and SymmSplitCfg below). Kernel 16: two
 // stages (136 KB) and a 16 KB reduction buffer; a third stage was slower,
 // and so were two blocks an SM of one stage each, the int16 -> f32
 // conversion by bits (csrc/q16_probe.cu's magic), an earlier pass-2
@@ -149,7 +161,14 @@
 // one 16-byte vector at a time into both sums (half the values live), not
 // its whole 16 values first, made kernels 16, 18, 19 and the zero-tile
 // walks of 15-bcast and 9-bcast faster, and let 15-bcast's f64 walk take
-// EARLY without a spill.
+// EARLY without a spill. 19-bcast's zero-tile walk: 17-bcast's sizes were
+// the fastest; four 32-row stages (in one or two reduction rounds) and
+// 16-row stages (four or eight) were 1-4% slower, 64-row stages (two, or
+// one) 5-10%, two reduction rounds of two stages as fast, EARLY off 10%
+// and conversion by instruction 7% slower; grids of 100-126 blocks (the
+// half-slab's 400 strips in whole rounds or fewer) 0.5-1.5% and 80 blocks
+// 13% slower than one block an SM. P5s: two 32-row stages and one 64-row
+// stage were as fast, 16- and 8-row stages 7% and 15% slower.
 //
 // The bits: inside a strip nothing of symm_pass1's order changes. Warp w
 // sums rows w*8 .. w*8+7 in that order, lane l holds columns lane_col<8>(l,
@@ -366,26 +385,30 @@ struct StripHeader {
 // instruction. EARLY (one plane only): each consumer warp takes its rows
 // and operand entries into registers and releases the stage before it sums
 // them.
-// MMA (one plane, f32 operands): the consumers are tensor-core ones
-// (strip_mma_pass1): every consumer warp converts its share of each stage
-// to bf16 into one padded strip buffer (MmaSmem<MMA_DEF>), in place of the
-// reduction buffer, releases the stage, and runs q16_bf16_pass1's products
-// on the buffer.
+// MODE (one plane, f32 operands): the consumers are tensor-core ones
+// (strip_mma_pass1) of the product engine MODE (MMA_DEF or MMA_SPLIT;
+// NO_MMA: the summing consumers): every consumer warp converts its share
+// of each stage to bf16 into one padded strip buffer (MmaSmem<MODE>), in
+// place of the reduction buffer, releases the stage, and runs
+// q16_bf16_pass1<MODE>'s products on the buffer.
+constexpr int NO_MMA = -1;
+
 template <class Planes, class Vecs, int SR_, int S_, int RW_,
-          bool BITS_ = false, bool EARLY_ = false, bool MMA_ = false>
+          bool BITS_ = false, bool EARLY_ = false, int MODE_ = NO_MMA>
 struct StripCfg {
   using acc_t = typename Planes::acc_t;
   static_assert(std::is_same<acc_t, typename Vecs::acc_t>::value,
                 "the planes' sums and the operands are of one type");
   using planes_t = Planes;
   static constexpr int NP = Planes::NP, NV = Vecs::NV, VEC = Planes::VEC;
-  static constexpr int SR = SR_, S = S_, RW = RW_;
-  static constexpr bool BITS = BITS_, EARLY = EARLY_, MMA = MMA_;
+  static constexpr int SR = SR_, S = S_, RW = RW_, MODE = MODE_;
+  static constexpr bool BITS = BITS_, EARLY = EARLY_, MMA = MODE != NO_MMA;
   static_assert(!EARLY || (NP == 1 && VEC == 8),
                 "one int16 plane's rows fit the registers");
-  static_assert(!MMA || (NP == 1 && NV == 1 && Planes::FOLD && !EARLY && BITS),
-                "the tensor-core consumers take the q16 plane, f32 operands, "
-                "and convert by bits");
+  static_assert(!MMA || (NP == 1 && NV == 1 && Planes::FOLD && !EARLY && BITS
+                         && (MODE == MMA_DEF || MODE == MMA_SPLIT)),
+                "the tensor-core consumers take the q16 plane, f32 operands "
+                "and the engines def or split, and convert by bits");
   static constexpr int SPS = ROWS / SR;           // stages a strip
   static constexpr int WPS = SR / ROWS_PER_WARP;  // consumer warps a stage
   static constexpr int READERS = MMA ? WARPS : WPS;  // warps that read one
@@ -397,7 +420,7 @@ struct StripCfg {
   static constexpr int STAGE_BYTES =
       (HDR_OFF + (int)sizeof(StripHeader<NP>) + 127) / 128 * 128;
   static constexpr int RED_BYTES =
-      MMA ? MmaSmem<MMA_DEF>::bytes : RW * TB * (int)sizeof(acc_t);
+      MMA ? MmaSmem<MODE>::bytes : RW * TB * (int)sizeof(acc_t);
   static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
   static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
                 "a stage is whole warps' rows of one strip");
@@ -441,7 +464,7 @@ using DualFQCfg = StripCfg<StripPlanes<3>, StripVecs<2>, 32, 2, WARPS / 2, true>
 using DualFQTileCfg =
     StripCfg<StripTilePlanes, StripVecs<2>, 32, 2, WARPS / 2, true>;
 using DualBf16Cfg =
-    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false, true>;
+    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false, MMA_DEF>;
 using SymmQ1Cfg =
     StripCfg<StripQ1Planes, StripVecs<2>, 32, 4, WARPS, true, true>;
 using SlabHiCfg = StripCfg<StripHiPlanes, StripVecs<2>, 32, 2, WARPS>;
@@ -458,6 +481,16 @@ using SlabHiCfg = StripCfg<StripHiPlanes, StripVecs<2>, 32, 2, WARPS>;
 using DualHiCfg = StripCfg<StripHiPlanes, StripVecs<2>, 16, 4, WARPS>;
 using SlabQ1Cfg =
     StripCfg<StripQ1Planes, StripVecs<2>, 32, 2, WARPS, true, true>;
+//  * kernel 19-bcast on zero tiles: 32-row stages of the q1 plane (32 KB
+//    and 4 KB of (hi, lo) operand each), two of them, EARLY, BITS, the
+//    transpose sums in one round: 105 KB, 17-bcast's sizes on the
+//    rectangle;
+//  * probe P5s (split): kernel 18-bf16's sizes, two 32-row stages, and the
+//    two-part strip buffer of MmaSmem<MMA_SPLIT> (131 KB): 200 KB.
+using DualQ1Cfg = SlabQ1Cfg;
+using SymmSplitCfg =
+    StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false,
+             MMA_SPLIT>;
 
 // Operand entry i of a vector staged as NV arrays `stride` apart: F32Vec's
 // and DF64Vec's get.
@@ -526,6 +559,29 @@ __device__ __forceinline__ uint4 bf16x8_by_bits(const int4 x) {
     o[j] = bf16_pair(__float2bfloat16_rn(v[2 * j]),
                      __float2bfloat16_rn(v[2 * j + 1]));
   return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Eight int16 of one 16-byte vector split exactly into bf16 ah + al, by
+// bits: the exact f32 values (values8_of_i16x8), ah each rounded to
+// nearest even, al = a - ah in f32, exact and of at most 8 significant bits
+// (|al| <= 128), whose bf16 is the top half of its f32. The values of
+// bf16x8_split_i16x8, without its conversion instructions.
+__device__ __forceinline__ void bf16x8_split_by_bits(const int4 x, uint4& hi,
+                                                     uint4& lo) {
+  float v[8];
+  values8_of_i16x8<float, true>(x, v);
+  unsigned h[4], l[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    h[j] = bf16_pair(__float2bfloat16_rn(v[2 * j]),
+                     __float2bfloat16_rn(v[2 * j + 1]));
+    const float r0 = __fsub_rn(v[2 * j], __uint_as_float(h[j] << 16));
+    const float r1 =
+        __fsub_rn(v[2 * j + 1], __uint_as_float(h[j] & 0xffff0000u));
+    l[j] = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
+  }
+  hi = make_uint4(h[0], h[1], h[2], h[3]);
+  lo = make_uint4(l[0], l[1], l[2], l[3]);
 }
 
 // The consumer warps' barrier; the producer warp takes no part.
@@ -815,23 +871,25 @@ strip_pass1(Planes A, Vecs V, Walk W, int tiles,
   strip_sum_consumers<Cfg>(tiles, smem, full, empty, part_d, part_t);
 }
 
-// strip_pass1 with the tensor-core consumers (Cfg::MMA): for each strip,
-// every consumer warp waits for each of its stages, converts its share of
-// the stage's int16 rows to bf16 (by bits, then round to nearest even: the
-// bf16 of q16_bf16_pass1) into the strip's bf16 buffer, and with its first stage the direct
-// operand p_k * s and with each the transpose operand q_i * s
-// (__fmul_rn, then bf16), releases the stage, and then the warps run
-// q16_bf16_pass1's products on the buffer (mma_strip, its fragments taken
-// with ldmatrix): the same operands in the same fragments and the same
-// k-chunk order, so the same bits. The buffer is read by every warp and
-// rewritten for the next strip: a barrier of the consumers after the
-// conversion and one after the products.
+// strip_pass1 with the tensor-core consumers (Cfg::MMA) of the engine
+// Cfg::MODE: for each strip, every consumer warp waits for each of its
+// stages, converts its share of the stage's int16 rows to bf16 (by bits:
+// MMA_DEF rounds to nearest even, the bf16 of q16_bf16_pass1; MMA_SPLIT
+// splits each value exactly into ah + al, the parts of
+// bf16x8_split_i16x8) into the strip's bf16 buffer, and with its first
+// stage the direct operand p_k * s and with each the transpose operand
+// q_i * s (__fmul_rn, then bf16), releases the stage, and then the warps
+// run q16_bf16_pass1<MODE>'s products on the buffer (mma_strip, its
+// fragments taken with ldmatrix): the same operands in the same fragments
+// and the same k-chunk order, so the same bits. The buffer is read by
+// every warp and rewritten for the next strip: a barrier of the consumers
+// after the conversion and one after the products.
 template <class Cfg, class Planes, class Vecs, class Walk>
 __global__ void __launch_bounds__(STRIP_THREADS, 1)
 strip_mma_pass1(Planes A, Vecs V, Walk W, int tiles,
                 float* __restrict__ part_d, float* __restrict__ part_t) {
   static_assert(Cfg::MMA, "the tensor-core consumers");
-  using M = MmaSmem<MMA_DEF>;
+  using M = MmaSmem<Cfg::MODE>;
   constexpr int SR = Cfg::SR, S = Cfg::S, SPS = Cfg::SPS;
   constexpr int VECS = SR * TB / 8 / THREADS;  // 16-byte vectors a thread
   extern __shared__ __align__(128) unsigned char smem[];
@@ -871,7 +929,12 @@ strip_mma_pass1(Planes A, Vecs V, Walk W, int tiles,
       for (int u = 0; u < VECS; ++u) {
         const int v = threadIdx.x + u * THREADS;
         const int at = (j * SR + v / (TB / 8)) * BF_LD + (v % (TB / 8)) * 8;
-        *reinterpret_cast<uint4*>(strip + at) = bf16x8_by_bits(raw[v]);
+        if constexpr (M::A == 1)
+          *reinterpret_cast<uint4*>(strip + at) = bf16x8_by_bits(raw[v]);
+        else
+          bf16x8_split_by_bits(
+              raw[v], *reinterpret_cast<uint4*>(strip + at),
+              *reinterpret_cast<uint4*>(strip + ROWS * BF_LD + at));
       }
       if (j == 0) {
         const float* pks =
@@ -889,9 +952,9 @@ strip_mma_pass1(Planes A, Vecs V, Walk W, int tiles,
       if (lane == 0) mbar_arrive(&empty[slot]);
     }
     consumers_sync();  // the buffer complete
-    mma_strip<MMA_DEF, true>(strip, pk, pi, nullptr, off, warp, lane,
-                             part_d + (size_t)t * TB + s * ROWS,
-                             part_t + ((size_t)t * STRIPS + s) * TB);
+    mma_strip<Cfg::MODE, true>(strip, pk, pi, nullptr, off, warp, lane,
+                               part_d + (size_t)t * TB + s * ROWS,
+                               part_t + ((size_t)t * STRIPS + s) * TB);
     consumers_sync();  // every read of the buffer before the next strip's
   }
 }
@@ -963,8 +1026,9 @@ int launch_strip_slab(Planes A, Vecs V, TableWalk W, SlabLists L, Out YD,
                           L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, YD, YT);
 }
 
-// Kernel 15-bcast (zero tiles) on the strip walk: pass 1 over the T =
-// nblk(nblk+1)/2 tiles of the packed triangle, then symm_pass2.
+// Kernel 15-bcast (zero tiles) and probe P5s on the strip walk: pass 1
+// over the T = nblk(nblk+1)/2 tiles of the packed triangle, then
+// symm_pass2.
 template <class Cfg, class Planes, class Vecs, class Out>
 int launch_strip_tri(Planes A, Vecs V, Out Y, typename Cfg::acc_t* part_d,
                      typename Cfg::acc_t* part_t, int nblk,
@@ -980,8 +1044,8 @@ int launch_strip_tri(Planes A, Vecs V, Out Y, typename Cfg::acc_t* part_d,
                           (const acc_t*)part_t, nblk, Y);
 }
 
-// Kernels 18, 19 and 12-bcast (zero tile) on the strip walk: pass 1 over the
-// mb x cb tiles of the rectangle, then rect_pass2.
+// Kernels 18, 19, 12-bcast and 19-bcast (zero tiles) on the strip walk:
+// pass 1 over the mb x cb tiles of the rectangle, then rect_pass2.
 template <class Cfg, class Planes, class Vecs, class Out>
 int launch_strip_dual(Planes A, Vecs V, Out YD, Out YT,
                       typename Cfg::acc_t* part_d,

@@ -576,7 +576,7 @@ __device__ __forceinline__ void ldsm_x4(unsigned a[4],
 // into out_d[0 .. ROWS), warps 4-7 (if offdiag) its transpose term into
 // out_t[0 .. TB), from the bf16 parts of the strip [A][ROWS][BF_LD] and of
 // the operands (MmaSmem<MODE>'s layout: pk, pi, and pkf for MMA_HYBRID).
-// LDSM (MMA_DEF): the A fragments by ldmatrix, one instruction where the
+// LDSM: each A part's fragments by ldmatrix, one instruction where the
 // 32-bit and 16-bit loads take four and eight (the strip walk's
 // consumers); the same fragments, so the same products.
 template <int MODE, bool LDSM = false>
@@ -588,7 +588,6 @@ __device__ __forceinline__ void mma_strip(const __nv_bfloat16* strip,
                                           float* __restrict__ out_d,
                                           float* __restrict__ out_t) {
   using S = MmaSmem<MODE>;
-  static_assert(!LDSM || MODE == MMA_DEF, "ldmatrix takes the one A part");
   const int g = lane / 4;
   const int c4 = lane % 4;
   const int lr = lane % 8;  // ldmatrix: the row of its matrix lane gives
@@ -626,9 +625,11 @@ __device__ __forceinline__ void mma_strip(const __nv_bfloat16* strip,
         unsigned b[S::P][2];
         if constexpr (LDSM) {
           // matrices (rows 0-7 | 8-15) x (columns kc | kc + 8)
-          ldsm_x4<false>(a[0], strip +
-                                   (16 * warp + lr + (lq & 1) * 8) * BF_LD +
-                                   kc + (lq >> 1) * 8);
+#pragma unroll
+          for (int ia = 0; ia < S::A; ++ia)
+            ldsm_x4<false>(a[ia], strip + ia * ROWS * BF_LD +
+                                      (16 * warp + lr + (lq & 1) * 8) * BF_LD +
+                                      kc + (lq >> 1) * 8);
         } else {
 #pragma unroll
           for (int ia = 0; ia < S::A; ++ia) {
@@ -679,9 +680,11 @@ __device__ __forceinline__ void mma_strip(const __nv_bfloat16* strip,
         if constexpr (LDSM) {
           // matrices (rows 16 kr + 0-7 | 8-15) x (columns c0 | c0 + 8),
           // transposed
-          ldsm_x4<true>(a[0], strip +
-                                  (16 * kr + lr + (lq >> 1) * 8) * BF_LD +
-                                  c0 + (lq & 1) * 8);
+#pragma unroll
+          for (int ia = 0; ia < S::A; ++ia)
+            ldsm_x4<true>(a[ia], strip + ia * ROWS * BF_LD +
+                                     (16 * kr + lr + (lq >> 1) * 8) * BF_LD +
+                                     c0 + (lq & 1) * 8);
         } else {
 #pragma unroll
           for (int ia = 0; ia < S::A; ++ia) {

@@ -79,6 +79,7 @@ SIGNATURES = {
     "lam_gemv_df64_dual_bcast": (_P,) * 12 + (_I, _I, _P),
     "lam_gemv_df64_dual_zero": (_P,) * 11 + (_I, _I, _P),
     "lam_gemv_fq_dual_bcast": (_P,) * 16 + (_I,) * 4 + (_P,),
+    "lam_gemv_fq_dual_zero": (_P,) * 12 + (_I, _I, _P),
     "lam_gemv_q16_symm_bf16": (_P, _P, _P, _P, _P, _P, _I, _P),
     "lam_gemv_q16_symm_slab_bf16": (_P,) * 14 + (_I,) * 3 + (_P,),
     "lam_gemv_q16_dual_bf16": (_P,) * 8 + (_I, _I, _P),
@@ -89,7 +90,8 @@ SIGNATURES = {
     "lam_stream_i16": (_P, _L, _I, _P, _P, _P),
     "lam_convert_i16": (_P, _L, _I, _P, _P, _P),
     **{f"lam_gemv_q16_symm_{v}": (_P, _P, _P, _P, _P, _P, _I, _P)
-       for v in ("magic", "tb1024", "sub8", "split", "hi", "hybrid")},
+       for v in ("magic", "tb1024", "sub8", "split", "split_twopass", "hi",
+                 "hybrid")},
 }
 
 

@@ -78,9 +78,9 @@ lam_tpu):
     gemv_fq_dual_bcast         <- gemv_fq_dual, q2/q3 tiles    (:2637)
 
 Generate mode's tiles hold only zeros ("exact-zero residual planes",
-lam_tpu :2183-2185). Four of the broadcast modes (all but kernel 2's and
-19's) have a kernel of their own for such tiles, which reads only the
-plane that is not zero and gives the full-plane kernel's bits over zero
+lam_tpu :2183-2185). Five of the broadcast modes (all but kernel 2's)
+have a kernel of their own for such tiles, which reads only the plane
+that is not zero and gives the full-plane kernel's bits over zero
 planes. The operators choose it
 when they are built, where their tiles are counted zero
 (`solver.operators.zero_tiles_of`), never by a read at a matvec; any
@@ -90,6 +90,7 @@ other tile keeps the tile-reading mode:
     gemv_df64_symm_slab_zero   <- gemv_df64_symm_slab, zero lo tile (:991)
     gemv_df64_dual_zero        <- gemv_df64_dual, zero lo tile (:1695)
     gemv_fq_symm_slab_zero     <- gemv_fq_symm_slab, zero q2/q3 tiles (:2420)
+    gemv_fq_dual_zero          <- gemv_fq_dual, zero q2/q3 tiles (:2637)
 
 The three q16 matvecs have two product engines, as in lam_tpu, chosen
 per call by `_q16_impl` from the module attribute `_Q16_IMPL` (read from
@@ -687,7 +688,8 @@ def gemv_fq_dual_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
     q1*s1 + q2*s2 + q3*s3 (each product exact): (yd_hi, yd_lo, yt_hi,
     yt_lo)."""
     gemv_fq_dual_plain.calls += 1
-    return _fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo)
+    return _fq_dual_parts(((q1, s1), (q2, s2), (q3, s3)), p_hi, p_lo, q_hi,
+                          q_lo)
 
 
 def gemv_fq_dual_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
@@ -695,16 +697,27 @@ def gemv_fq_dual_bcast_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
     """`gemv_fq_dual_plain` with q2 and/or q3 one broadcast (tb, tb) tile,
     expanded over the rectangle."""
     gemv_fq_dual_bcast_plain.calls += 1
-    return _fq_dual_parts(q1, _tile_plane(q2, q1), _tile_plane(q3, q1), s1,
-                          s2, s3, p_hi, p_lo, q_hi, q_lo)
+    return _fq_dual_parts(((q1, s1), (_tile_plane(q2, q1), s2),
+                           (_tile_plane(q3, q1), s3)), p_hi, p_lo, q_hi, q_lo)
 
 
-def _fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo):
+def gemv_fq_dual_zero_plain(q1, s1, p_hi, p_lo, q_hi, q_lo):
+    """`gemv_fq_dual_bcast_plain` over zero q2/q3 tiles, which are not
+    taken: the f64 dual matvec of q1 against s1."""
+    gemv_fq_dual_zero_plain.calls += 1
+    return _fq_dual_parts(((q1, s1),), p_hi, p_lo, q_hi, q_lo)
+
+
+def _fq_dual_parts(planes, p_hi, p_lo, q_hi, q_lo):
+    """The f64 dual walk of the fq cascade over the rectangle's real
+    tiles: `planes` the (plane, scale table) pairs, q1's first, each of
+    q1's shape."""
+    q1 = planes[0][0]
     tb, mb, cb = _dual_geometry(q1, p_hi, q_hi, "gemv_fq_dual")
     rows, nt = mb * cb * tb, mb * cb
     tiles = sum(q[:rows].to(torch.float64).reshape(nt, tb, tb)
                 * s[:nt].to(torch.float64)[:, None, None]
-                for q, s in ((q1, s1), (q2, s2), (q3, s3)))
+                for q, s in planes)
     return _dual_df64_parts(tiles, p_hi, p_lo, q_hi, q_lo, mb, cb)
 
 
@@ -1850,6 +1863,26 @@ def _fq_dual(wrapper, plain, entry, q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
                       mb, cb, True, flags)
 
 
+def gemv_fq_dual_zero(q1, s1, p_hi, p_lo, q_hi, q_lo, *, comp=None):
+    """`gemv_fq_dual_bcast` over q2 and q3 tiles that hold only zeros
+    (generate mode's), which it does not take: (yd_hi, yd_lo, yt_hi,
+    yt_lo) of S = q1 * s1, q1 alone streamed through the strip walk
+    (csrc/strip_walk.cuh), with the bits of `gemv_fq_dual` over zero
+    q2/q3 planes and any finite s2, s3."""
+    what = "gemv_fq_dual_zero"
+    _check_pairs(what, comp, p_hi, p_lo, q_hi, q_lo)
+    _check(what, {"q1": q1, "s1": s1, "p_hi": p_hi, "p_lo": p_lo,
+                  "q_hi": q_hi, "q_lo": q_lo}, q1.device)
+    tb, mb, cb = _dual_geometry(q1, p_hi, q_hi, what)
+    _check_scales(what, q1.shape[0] // tb, {"s1": s1})
+    if q1.device.type == "cpu":
+        return gemv_fq_dual_zero_plain(q1, s1, p_hi, p_lo, q_hi, q_lo)
+    _check_tma(what, {"p_hi": p_hi, "p_lo": p_lo, "q_hi": q_hi,
+                      "q_lo": q_lo})
+    return _dual_call(gemv_fq_dual_zero, "lam_gemv_fq_dual_zero",
+                      (q1, s1, p_hi, p_lo, q_hi, q_lo), tb, mb, cb, True)
+
+
 KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_fq_symm, gemv_f32, gemv_df64, gemv_f32_cols, gemv_df64_cols,
            gemv_f32_symm_slab, gemv_df64_symm_slab, gemv_q16_symm_slab,
@@ -1860,7 +1893,7 @@ KERNELS = (gemv_f32_symm, gemv_df64_symm, gemv_dfq_symm, gemv_q16_symm,
            gemv_fq_symm_bcast, gemv_df64_symm_slab_bcast,
            gemv_fq_symm_slab_bcast, gemv_df64_dual_bcast, gemv_fq_dual_bcast,
            gemv_fq_symm_zero, gemv_df64_symm_slab_zero, gemv_df64_dual_zero,
-           gemv_fq_symm_slab_zero)
+           gemv_fq_symm_slab_zero, gemv_fq_dual_zero)
 PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_q16_symm_plain, gemv_fq_symm_plain, gemv_f32_plain,
          gemv_df64_plain, gemv_f32_cols_plain, gemv_df64_cols_plain,
@@ -1875,7 +1908,8 @@ PLAIN = (gemv_f32_symm_plain, gemv_df64_symm_plain, gemv_dfq_symm_plain,
          gemv_df64_symm_slab_bcast_plain, gemv_fq_symm_slab_bcast_plain,
          gemv_df64_dual_bcast_plain, gemv_fq_dual_bcast_plain,
          gemv_fq_symm_zero_plain, gemv_df64_symm_slab_zero_plain,
-         gemv_df64_dual_zero_plain, gemv_fq_symm_slab_zero_plain)
+         gemv_df64_dual_zero_plain, gemv_fq_symm_slab_zero_plain,
+         gemv_fq_dual_zero_plain)
 
 
 def reset_counters():

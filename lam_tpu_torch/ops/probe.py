@@ -43,6 +43,11 @@ three bf16 parts; hybrid: hi's transpose term, the direct term as f32
 FMAs). Their plain versions: the exact f32 walk, `split` with p * s
 rounded to bf16.
 
+`split` runs on the strip walk with tensor-core consumers
+(csrc/strip_walk.cuh), its p 16-byte aligned on the card; its two-pass
+walk is its control, `gemv_q16_symm_split_twopass`, with the same
+arguments, checks and bits.
+
 Beside them, the earlier walks of six solver kernels that a later walk
 replaced, kept as controls: `gemv_df64_rows` is kernel 6's function
 (`gemv.gemv_df64_cols`) on the dense_rows walk of csrc/gemv_dense.cu; on
@@ -251,12 +256,15 @@ def gemv_q16_symm_hybrid_plain(q1, s1, p):
     return _walk_plain(q1, s1, p, "gemv_q16_symm_hybrid")
 
 
-def _walk(wrapper, plain, tb, sub, q1, s1, p):
+def _walk(wrapper, plain, tb, sub, q1, s1, p, tma=False):
     """A probe walk: checks, then the plain version on a CPU tensor or the
     kernel lam_<wrapper name> on a CUDA one (sub: transpose partial rows
-    a strip kept apart)."""
+    a strip kept apart; tma: p must be 16-byte aligned on the card, as
+    the strip walk's bulk copies take it)."""
     what = wrapper.__name__
     gemv._check(what, {"q1": q1, "s1": s1, "p": p}, q1.device)
+    if tma:
+        gemv._check_tma(what, {"p": p})
     geometry = layout.packed_geometry(q1.shape, p.shape[0], what,
                                       padded=True)
     if geometry[0] != tb:
@@ -307,9 +315,11 @@ def gemv_q16_symm_sub8(q1, s1, p):
 
 def gemv_q16_symm_split(q1, s1, p):
     """The q16 walk (tb=512) on the tensor cores: tile a = ah + al split
-    exactly into bf16, p * s rounded once to bf16, f32 sums."""
+    exactly into bf16, p * s rounded once to bf16, f32 sums. The strip
+    walk with tensor-core consumers (csrc/strip_walk.cuh): p 16-byte
+    aligned on the card."""
     return _walk(gemv_q16_symm_split, gemv_q16_symm_split_plain, 512, 1,
-                 q1, s1, p)
+                 q1, s1, p, tma=True)
 
 
 def gemv_q16_symm_hi(q1, s1, p):
@@ -397,8 +407,8 @@ def gemv_fq_dual_twopass_plain(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
     """Plain version of `gemv_fq_dual_twopass`:
     `gemv.gemv_fq_dual_plain`'s f64 walk."""
     gemv_fq_dual_twopass_plain.calls += 1
-    return gemv._fq_dual_parts(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi,
-                               q_lo)
+    return gemv._fq_dual_parts(((q1, s1), (q2, s2), (q3, s3)), p_hi, p_lo,
+                               q_hi, q_lo)
 
 
 def gemv_fq_dual_twopass(q1, q2, q3, s1, s2, s3, p_hi, p_lo, q_hi, q_lo, *,
@@ -425,6 +435,22 @@ def gemv_q16_dual_bf16_twopass(q1buf, sc, p, q):
                           "lam_gemv_q16_dual_bf16_twopass", q1buf, sc, p, q)
 
 
+def gemv_q16_symm_split_twopass_plain(q1, s1, p):
+    """Plain version of `gemv_q16_symm_split_twopass`:
+    `gemv_q16_symm_split_plain`'s walk."""
+    gemv_q16_symm_split_twopass_plain.calls += 1
+    return _walk_plain(q1, s1, p, "gemv_q16_symm_split_twopass",
+                       rounding=gemv._bf16)
+
+
+def gemv_q16_symm_split_twopass(q1, s1, p):
+    """`gemv_q16_symm_split` (the same arguments, checks and bits) on the
+    two-pass walk, q16_bf16_pass1 and symm_pass2."""
+    return _walk(gemv_q16_symm_split_twopass,
+                 gemv_q16_symm_split_twopass_plain, 512, 1, q1, s1, p,
+                 tma=True)
+
+
 def laplace5_f32_halo_twopass_plain(p2d, up_edge, dn_edge, nrows_valid, *,
                                     nxi):
     """Plain version of `laplace5_f32_halo_twopass`:
@@ -446,7 +472,8 @@ def laplace5_f32_halo_twopass(p2d, up_edge, dn_edge, nrows_valid, *, nxi,
 
 CONTROLS = (gemv_df64_rows, gemv_q16_symm_slab_twopass, gemv_q16_dual_twopass,
             gemv_fq_dual_twopass, gemv_q16_dual_bf16_twopass,
-            laplace5_f32_halo_twopass)  # not TPU kernels
+            laplace5_f32_halo_twopass,
+            gemv_q16_symm_split_twopass)  # not TPU kernels
 PROBES = (stream_i16, convert_f32_sum, gemv_q16_symm_magic,
           gemv_q16_symm_tb1024, gemv_q16_symm_sub8, gemv_q16_symm_split,
           gemv_q16_symm_hi, gemv_q16_symm_hybrid) + CONTROLS
@@ -457,7 +484,8 @@ PROBES_PLAIN = (stream_i16_plain, convert_f32_sum_plain,
                 gemv_df64_rows_plain, gemv_q16_symm_slab_twopass_plain,
                 gemv_q16_dual_twopass_plain, gemv_fq_dual_twopass_plain,
                 gemv_q16_dual_bf16_twopass_plain,
-                laplace5_f32_halo_twopass_plain)
+                laplace5_f32_halo_twopass_plain,
+                gemv_q16_symm_split_twopass_plain)
 
 
 def reset_counters():

@@ -48,12 +48,13 @@ kernels on the card and their plain versions on the CPU. Generate mode
 (`from_gen_tridiagonal`, `from_gen_fq`) builds each rank's triangle or
 half-slab on its device, with ONE zero (tb, tb) tile for the lo plane or
 for each of q2 and q3 that every tile reads (the broadcast modes of
-kernels 2 and 15 on the diagonal ranks, 12 and 19 on the others). An fq
-diagonal rank whose q2 and q3 tiles hold only zeros, and a df64
-off-diagonal rank whose lo tile does, counted once when its operator is
-built, run the accurate matvec's kernel that reads q1 or hi alone
-(`gemv.gemv_fq_symm_zero`, `gemv.gemv_df64_dual_zero`). Not ported yet:
-the Jacobi preconditioner (`run_pcg`).
+kernels 2 and 15 on the diagonal ranks, 12 and 19 on the others). A rank
+whose tiles hold only zeros, counted once when its operator is built,
+runs the accurate matvec's kernel that reads q1 or hi alone: an fq
+diagonal rank `gemv.gemv_fq_symm_zero`, an fq off-diagonal rank
+`gemv.gemv_fq_dual_zero`, a df64 off-diagonal rank
+`gemv.gemv_df64_dual_zero` (a df64 diagonal rank keeps kernel 2's
+broadcast mode). Not ported yet: the Jacobi preconditioner (`run_pcg`).
 """
 
 from __future__ import annotations
@@ -86,13 +87,14 @@ _TILE_MATH = {
            (gemv.gemv_fq_symm, gemv.gemv_fq_dual, (0, 1, 2, 3, 4, 5))),
 }
 
-# storage -> the accurate matvec's kernel over broadcast tiles of zeros:
-# (True where the diagonal ranks take it and False where the others do, the
-# kernel, the operand entries it reads, the planes whose tiles are
-# counted); the other ranks keep _TILE_MATH's
+# storage -> the accurate matvec's kernels over broadcast tiles of zeros,
+# by rank: {True: the diagonal ranks', False: the off-diagonal ranks'},
+# each (the kernel, the operand entries it reads, the planes whose tiles
+# are counted); a rank without one keeps _TILE_MATH's
 _ZERO_MATH = {
-    "fq": (True, gemv.gemv_fq_symm_zero, (0, 3), 3),
-    "df64": (False, gemv.gemv_df64_dual_zero, (0,), 2),
+    "fq": {True: (gemv.gemv_fq_symm_zero, (0, 3), 3),
+           False: (gemv.gemv_fq_dual_zero, (0, 3), 3)},
+    "df64": {False: (gemv.gemv_df64_dual_zero, (0,), 2)},
 }
 
 
@@ -148,11 +150,10 @@ def _zero_tiles(mesh, operand, storage, which):
     """True where the rank's accurate matvec has a kernel for its
     broadcast tiles and they hold only zeros: one count on the device,
     when the operator is built (`ops.zero_tiles_of`)."""
-    if which != "acc" or storage not in _ZERO_MATH:
+    zero = _ZERO_MATH.get(storage, {}).get(mesh.i == mesh.j)
+    if which != "acc" or zero is None:
         return False
-    diagonal, _, _, planes = _ZERO_MATH[storage]
-    return ((mesh.i == mesh.j) == diagonal
-            and ops.zero_tiles_of(operand[:planes]))
+    return ops.zero_tiles_of(operand[:zero[2]])
 
 
 def _make_mv_pair(mesh, m, storage, which, zero=False):
@@ -160,16 +161,16 @@ def _make_mv_pair(mesh, m, storage, which, zero=False):
     payload): only the tile math of the storage is chosen here, the
     routing is `_route_mv_pair`'s. which='f32' is the inner view on f32
     vectors, 'acc' the accurate matvec on f64 vectors; `zero` puts the
-    kernel that reads q1 and s1 (fq, diagonal rank) or hi (df64,
-    off-diagonal rank) alone in the tile-reading one's place
-    (`_ZERO_MATH`). The quantized planes carry a zero diagonal: the
+    rank's kernel that reads q1 and s1 (fq) or hi (df64, off-diagonal
+    rank) alone in the tile-reading one's place (`_ZERO_MATH`). The
+    quantized planes carry a zero diagonal: the
     diagonal rank adds dh * p (f32) or (dh + dl) * p in native f64
     (lam_tpu adds it with df_mul and two_sum)."""
     tri, dual, idx = _TILE_MATH[storage][which == "acc"]
     tri_idx = dual_idx = idx
     if zero:
-        diagonal, kernel, zero_idx, _ = _ZERO_MATH[storage]
-        if diagonal:
+        kernel, zero_idx, _ = _ZERO_MATH[storage][mesh.i == mesh.j]
+        if mesh.i == mesh.j:
             tri, tri_idx = kernel, zero_idx
         else:
             dual, dual_idx = kernel, zero_idx

@@ -29,7 +29,9 @@ match the f64 oracle on non-zero ones. The kernels of kernels 15's, 9's,
 alone) give the full-plane kernels' and the tile-reading walks' bits with
 signed zeros in the planes, the operands and the scales; generate mode's
 operators take them, and an operator handed a tile that is not zero does
-not.
+not. Kernel 19's mode for tiles of zeros (the strip walk over q1 alone on
+the rectangle) the same way, and probe P5s (split) on the strip walk's
+tensor-core consumers gives its two-pass control's bits; neither spills.
 """
 
 import numpy as np
@@ -410,8 +412,9 @@ def test_gemv_df64_cols_stream_walk(m, n, nb):
 def test_dense_stream_kernels_hold_the_bulk_copy():
     """The SASS of kernels 4, 5 and 6 (dense_stream) and of the strip walks
     of kernels 16, 18, 19, 19-bcast (its own planes type,
-    StripTilePlanes) and the zero-tile walks of 15-, 9-, 12- and 17-bcast
-    (StripQ1Planes, StripHiPlanes) issues TMA bulk copies (UBLKCP); that of
+    StripTilePlanes) and the zero-tile walks of 15-, 9-, 12-, 17- and
+    19-bcast (StripQ1Planes, StripHiPlanes) issues TMA bulk copies
+    (UBLKCP); that of
     the dense_rows kernels (3 and the df64 control) and of the strip
     walks' controls (the two-pass walk's pass 1 on the slab tables and on
     the q16 and fq rectangles, and the tile-reading walks of 15-, 9-, 12-
@@ -429,7 +432,7 @@ def test_dense_stream_kernels_hold_the_bulk_copy():
             ("11FQTilePlane", "TableWalk")))]
     assert sorted("DF64Stream" in k for k in stream) == [False, True, True]
     assert sorted("DF64Mat" in k for k in rows) == [False, True]
-    assert len(strip) == 8 and len(twopass) == 7
+    assert len(strip) == 9 and len(twopass) == 7
     planes = ("StripPlanesILi1E", "StripPlanesILi3E", "StripTilePlanes",
               "StripQ1Planes", "StripHiPlanes")
     walks = ("TableWalk", "RectWalk", "TriangleWalk")
@@ -437,8 +440,9 @@ def test_dense_stream_kernels_hold_the_bulk_copy():
                    next(w for w in walks if w in k)) for k in strip) == [
         ("StripHiPlanes", "RectWalk"), ("StripHiPlanes", "TableWalk"),
         ("StripPlanesILi1E", "RectWalk"), ("StripPlanesILi1E", "TableWalk"),
-        ("StripPlanesILi3E", "RectWalk"), ("StripQ1Planes", "TableWalk"),
-        ("StripQ1Planes", "TriangleWalk"), ("StripTilePlanes", "RectWalk")]
+        ("StripPlanesILi3E", "RectWalk"), ("StripQ1Planes", "RectWalk"),
+        ("StripQ1Planes", "TableWalk"), ("StripQ1Planes", "TriangleWalk"),
+        ("StripTilePlanes", "RectWalk")]
     for k in stream + strip:
         assert any("UBLKCP" in line for line in kernels[k])
     for k in rows + twopass:
@@ -1297,7 +1301,7 @@ def test_dual_bf16_strip_walk_holds_bulk_copies_and_mma():
     (q16_bf16_pass1 on the rectangle) the products only."""
     from lam_tpu_torch.ops import _build
     kernels = _build.sass()
-    mma = [k for k in kernels if "strip_mma_pass1" in k]
+    mma = [k for k in kernels if "strip_mma_pass1" in k and "RectWalk" in k]
     ctl = [k for k in kernels if "q16_bf16_pass1" in k and "RectWalk" in k]
     assert len(mma) == 1 and len(ctl) == 1
     assert any("UBLKCP" in line for line in kernels[mma[0]])
@@ -2449,3 +2453,129 @@ def test_mesh_gen_operators_take_the_zero_tile_walks():
     torch.cuda.synchronize()
     assert ops.counters()["gemv_fq_symm_slab_bcast"] == 1
     assert ops.counters()["gemv_fq_symm_slab_zero"] == 0
+
+
+# -- the zero-tile walk of kernel 19-bcast and probe P5s on the strip walk -
+
+@pytest.mark.parametrize("mb,cb", STRIP_RECTS)
+def test_fq_dual_zero_tiles_walk(mb, cb):
+    """Kernel 19-bcast's kernel for q2/q3 tiles of zeros
+    (gemv_fq_dual_zero: the strip walk over the q1 rectangle alone) on
+    rectangles of one tile to 7 x 3 with two garbage pad tiles: equal bit
+    for bit to kernel 19 over zero planes and to its control (the
+    tile-reading walk on zero tiles), with -0.0 and +0.0 entries in p and
+    q, zero entries of q1 and zero, -0.0 and negative scales in all three
+    tables; against the f64 oracle at 1e-13; bitwise repeats."""
+    tb = layout.SYMM_TB
+    ms, n = mb * tb, cb * tb
+    packs, vecs = _dual_case(ms, n, 2, seed=600 + 10 * mb + cb)
+    q1, _, _, s1, s2, s3 = packs["fq"]
+    q1 = q1.clone()
+    q1[q1.abs() < 2000] = 0  # e1 = 0 entries against every scale
+    s1 = _odd_scales(s1, mb + cb) if mb > 1 else s1
+    s2, s3 = _odd_scales(s2, mb + cb + 1), _odd_scales(s3, mb + cb + 2)
+    vecs = tuple(_signed_zeros(v, mb + cb + k) for k, v in enumerate(vecs))
+    ops.reset_counters()
+    out = gemv.gemv_fq_dual_zero(q1, s1, *vecs)
+    torch.cuda.synchronize()
+    assert ops.counters()["gemv_fq_dual_zero"] == 1 and _no_plain_ran()
+    zp = torch.zeros_like(q1)
+    full = gemv.gemv_fq_dual(q1, zp, zp, s1, s2, s3, *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, full))
+    zt = torch.zeros(tb, tb, dtype=torch.int16, device="cuda")
+    ctl = gemv.gemv_fq_dual_bcast(q1, zt, zt, s1, s2, s3, *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, ctl))
+    again = gemv.gemv_fq_dual_zero(q1, s1, *vecs)
+    assert all(torch.equal(u, v) for u, v in zip(out, again))
+    stored = _stored_rect([q1], [s1], ms, n)
+    p64 = vecs[0].double() + vecs[1].double()
+    q64 = vecs[2].double() + vecs[3].double()
+    want = torch.cat([stored @ p64, stored.T @ q64])
+    plain = _join(gemv.gemv_fq_dual_zero_plain(q1, s1, *vecs))
+    if want.abs().max() > 0:
+        assert _rel(_join(out), want) <= 1e-13
+        assert _rel(plain, want) <= 1e-13
+    else:
+        assert not _join(out).any() and not plain.any()
+
+
+@pytest.mark.parametrize("n", [512, 2048, 10240])
+def test_split_strip_walk_equals_its_control(n):
+    """Probe P5s (split) on the strip walk with tensor-core consumers over
+    the packed triangle gives its two-pass control's bits (q16_bf16_pass1
+    and symm_pass2), repeats bitwise and agrees with its plain version at
+    PROBE_TOL; one tile, 10 and 210 tiles."""
+    q1, sc, p = _probe_plane(512, n, seed=70 + n)
+    probe.reset_counters()
+    y = probe.gemv_q16_symm_split(q1, sc, p)
+    torch.cuda.synchronize()
+    counts = probe.counters()
+    assert counts.pop("gemv_q16_symm_split") == 1
+    assert set(counts.values()) == {0}
+    assert torch.equal(y, probe.gemv_q16_symm_split_twopass(q1, sc, p))
+    assert torch.equal(y, probe.gemv_q16_symm_split(q1, sc, p))
+    assert _rel(y, probe.gemv_q16_symm_split_plain(q1, sc, p)) \
+        <= PROBE_TOL["split"]
+
+
+def test_fq_dual_zero_and_split_refuse_misaligned_operands():
+    """gemv_fq_dual_zero and the split walk (and its control) refuse an
+    operand that starts 4 bytes into its buffer (the strip walk's bulk
+    copies), before any launch."""
+    tb = layout.SYMM_TB
+    packs, vecs = _dual_case(tb, 2 * tb, 2, seed=610)
+    q1, s1 = packs["fq"][0], packs["fq"][3]
+
+    def off(x):
+        buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device="cuda")
+        buf[1:1 + x.numel()].copy_(x.flatten())
+        return buf[1:1 + x.numel()].view(x.shape)
+
+    ops.reset_counters()
+    probe.reset_counters()
+    for k in range(4):
+        bad = list(vecs)
+        bad[k] = off(vecs[k])
+        with pytest.raises(ValueError, match="aligned"):
+            gemv.gemv_fq_dual_zero(q1, s1, *bad)
+    with pytest.raises(ValueError, match="aligned"):
+        gemv.gemv_fq_dual_zero(off(q1), s1, *vecs)
+    pq, psc, pp = _probe_plane(512, 2048, seed=611)
+    for fn in (probe.gemv_q16_symm_split, probe.gemv_q16_symm_split_twopass):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(pq, psc, off(pp))
+        with pytest.raises(ValueError, match="aligned"):
+            fn(off(pq), psc, pp)
+    assert not any(ops.counters().values())
+    assert not any(probe.counters().values())
+
+
+def test_fq_dual_zero_and_split_walks_do_not_spill():
+    """ptxas' report of the two new strip-walk instantiations (kernel
+    19-bcast's zero-tile walk, StripQ1Planes on RectWalk; P5s's
+    strip_mma_pass1 over the triangle) shows no spill and no stack frame;
+    the split walk's SASS holds bulk copies and tensor-core products."""
+    import re
+
+    from lam_tpu_torch.ops import _build
+    log = open(f"{_build.build()[0]}.log").read()
+    name, report = None, {}
+    for line in log.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            k = head.group(1)
+            name = ("zero" if "strip_pass1" in k and "StripQ1Planes" in k
+                    and "RectWalk" in k else "split" if
+                    "strip_mma_pass1" in k and "TriangleWalk" in k else None)
+        elif name and ("registers" in line or "spill" in line):
+            report.setdefault(name, []).append(line)
+    assert sorted(report) == ["split", "zero"]
+    for lines in report.values():
+        assert ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads") in " ".join(lines)
+    kernels = _build.sass()
+    split = [k for k in kernels
+             if "strip_mma_pass1" in k and "TriangleWalk" in k]
+    assert len(split) == 1
+    assert any("UBLKCP" in line for line in kernels[split[0]])
+    assert any("HMMA" in line for line in kernels[split[0]])

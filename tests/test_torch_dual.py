@@ -325,7 +325,7 @@ def test_dual_kernels_are_registered():
     for name in names:
         assert name in kernels and name + "_plain" in plain
         assert name in ops.counters() and name + "_plain" in ops.counters()
-    assert len(gemv.KERNELS) == len(gemv.PLAIN) == 34
+    assert len(gemv.KERNELS) == len(gemv.PLAIN) == 35
     from lam_tpu_torch.ops import _build
     for name in names:
         assert "lam_" + name in _build.SIGNATURES

@@ -474,9 +474,9 @@ GRID_RUNS = [
     ("df64", "df64", [], "gemv_df64_plain"),
     ("ir", "ir", [], "gemv_df64_plain"),
     ("fq", "fq", [], ("gemv_fq_symm_zero_plain",
-                      "gemv_fq_dual_bcast_plain")),
+                      "gemv_fq_dual_zero_plain")),
     ("irfq", "irfq", [], ("gemv_fq_symm_zero_plain",
-                          "gemv_fq_dual_bcast_plain")),
+                          "gemv_fq_dual_zero_plain")),
     ("df64-symgrid", "df64", ["--engine", "pallas_symm_packed"],
      ("gemv_df64_symm_bcast_plain", "gemv_df64_dual_zero_plain")),
     ("ir-symgrid", "ir", ["--engine", "pallas_symm"],

@@ -135,21 +135,35 @@ def test_magic_dequant_equals_conversion_for_every_int16():
 WALKS = {"magic": probe.gemv_q16_symm_magic, "sub8": probe.gemv_q16_symm_sub8,
          "split": probe.gemv_q16_symm_split, "hi": probe.gemv_q16_symm_hi,
          "hybrid": probe.gemv_q16_symm_hybrid,
-         "tb1024": probe.gemv_q16_symm_tb1024}
+         "tb1024": probe.gemv_q16_symm_tb1024,
+         "split_twopass": probe.gemv_q16_symm_split_twopass}
 
 
 @pytest.mark.parametrize("name", list(WALKS))
 def test_walk_matches_script_kernel(name, script_results):
+    """Each walk (and split's two-pass control) against its script
+    kernel."""
     tb = 1024 if name == "tb1024" else 512
     q1, sc, _, _, p = _random_plane(tb, seed=92 if tb == 1024 else 91)
     probe.reset_counters()
     y = WALKS[name](torch.from_numpy(q1), torch.from_numpy(sc),
                     torch.from_numpy(p))
     assert y.dtype == torch.float32 and y.shape == (N,)
-    assert _rel(y.numpy(), script_results[name]) <= 1e-6
+    assert _rel(y.numpy(),
+                script_results[name.removesuffix("_twopass")]) <= 1e-6
     counts = probe.counters()
     assert counts.pop(f"gemv_q16_symm_{name}_plain") == 1
     assert set(counts.values()) == {0}
+
+
+@pytest.mark.parametrize("seed", [91, 95])
+def test_split_control_gives_the_split_walks_result(seed):
+    """The two-pass control of split computes split's function: its plain
+    version equals split's bit for bit (on the card, the kernels' bits)."""
+    args = [torch.from_numpy(x) for x in _random_plane(512, seed)[::4]]
+    args.insert(1, torch.from_numpy(_random_plane(512, seed)[1]))
+    assert torch.equal(probe.gemv_q16_symm_split_twopass(*args),
+                       probe.gemv_q16_symm_split(*args))
 
 
 def test_split_rounds_only_the_operand():
@@ -213,7 +227,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                           for x in _random_plane(1024, 94))
     for fn in (probe.gemv_q16_symm_magic, probe.gemv_q16_symm_sub8,
                probe.gemv_q16_symm_split, probe.gemv_q16_symm_hi,
-               probe.gemv_q16_symm_hybrid):
+               probe.gemv_q16_symm_hybrid, probe.gemv_q16_symm_split_twopass):
         with pytest.raises(ValueError, match="tb=512"):
             fn(q1k, sck, pk)
     strided = torch.zeros(q1.shape[0], 2 * q1.shape[1],
@@ -335,6 +349,36 @@ def test_controls_refuse_what_their_kernels_refuse():
     with pytest.raises(ValueError, match="expected"):
         probe.gemv_q16_symm_slab_twopass(q1, sc, pv.to("meta"), it, kt, lt,
                                          ms=256)
+    q1s, scs, _, _, ps = (torch.from_numpy(x)
+                          for x in _random_plane(512, 98))
+    with pytest.raises(ValueError, match="table shape"):
+        probe.gemv_q16_symm_split_twopass(q1s, scs[:-1], ps)
+    with pytest.raises(ValueError, match="int16"):
+        probe.gemv_q16_symm_split_twopass(q1s.int(), scs, ps)
+    assert set(probe.counters().values()) == {0}
+
+
+@pytest.mark.parametrize("walk", ["split", "split_twopass"])
+@pytest.mark.parametrize("case,match", [
+    ("dtype", "int16"), ("tb", "tb=512"), ("contiguous", "contiguous"),
+    ("scales", "table shape"), ("p-dtype", "float32"),
+    ("device", "expected")])
+def test_split_walk_and_its_control_refuse_the_same(walk, case, match):
+    """split and its two-pass control refuse the same operands, before any
+    launch or plain call."""
+    fn = WALKS[walk]
+    q1, sc, _, _, p = (torch.from_numpy(x) for x in _random_plane(512, 96))
+    q1k, sck, _, _, pk = (torch.from_numpy(x)
+                          for x in _random_plane(1024, 97))
+    strided = torch.zeros(q1.shape[0], 2 * q1.shape[1],
+                          dtype=torch.int16)[:, ::2]
+    args = {"dtype": (q1.float(), sc, p), "tb": (q1k, sck, pk),
+            "contiguous": (strided, sc, p), "scales": (q1, sc[:-1], p),
+            "p-dtype": (q1, sc, p.double()),
+            "device": (q1, sc, p.to("meta"))}[case]
+    probe.reset_counters()
+    with pytest.raises(ValueError, match=match):
+        fn(*args)
     assert set(probe.counters().values()) == {0}
 
 
@@ -343,7 +387,8 @@ def test_controls_stay_out_of_the_solver_registry():
     assert names == {"gemv_df64_rows", "gemv_q16_symm_slab_twopass",
                      "gemv_q16_dual_twopass", "gemv_fq_dual_twopass",
                      "gemv_q16_dual_bf16_twopass",
-                     "laplace5_f32_halo_twopass"}
+                     "laplace5_f32_halo_twopass",
+                     "gemv_q16_symm_split_twopass"}
     assert set(probe.CONTROLS) <= set(probe.PROBES)
     assert not names & {fn.__name__ for fn in ops.KERNELS}
     for fn in probe.CONTROLS:

@@ -1,13 +1,14 @@
 """Generate mode's zero broadcast tiles, counted when the operator is built.
 
-Kernels 15-bcast, 9-bcast, 12-bcast and 17-bcast have a kernel of their
-own for broadcast tiles that hold only zeros, `gemv_fq_symm_zero` and
-`gemv_fq_symm_slab_zero` (q1 alone), `gemv_df64_symm_slab_zero` and
-`gemv_df64_dual_zero` (hi alone), with their own counters and plain
-versions (csrc/strip_walk.cuh on the card). On the CPU:
+Kernels 15-bcast, 9-bcast, 12-bcast, 17-bcast and 19-bcast have a kernel
+of their own for broadcast tiles that hold only zeros,
+`gemv_fq_symm_zero`, `gemv_fq_symm_slab_zero` and `gemv_fq_dual_zero`
+(q1 alone), `gemv_df64_symm_slab_zero` and `gemv_df64_dual_zero` (hi
+alone), with their own counters and plain versions (csrc/strip_walk.cuh
+on the card). On the CPU:
 
 - the operators choose it once, when they are built: generate mode's fq
-  operator (one device, the symmetric grid's diagonal ranks), packed
+  operator (one device, every rank of the symmetric grid), packed
   band-pair df64 and fq operators and the symmetric grid's off-diagonal
   df64 ranks multiply by it, as does an operator handed tiles of zeros; a
   non-zero tile, a tile beside a plane and full planes keep the
@@ -21,13 +22,15 @@ versions (csrc/strip_walk.cuh on the card). On the CPU:
   entries, -0.0 operand entries and zero, -0.0 and negative scales, though
   the elements themselves differ in the sign of a zero; and so are the
   walks' partials summed as pass 2 sums them, over the rectangle (every
-  tile both terms) and over a rank's band-pair tables (scales per walk
-  position, transpose terms off the diagonal only);
+  tile both terms; the df64 pair and the fq cascade with a scale per
+  tile) and over a rank's band-pair tables (scales per walk position,
+  transpose terms off the diagonal only);
 - the operators' matvecs and solves still match lam_tpu's: the grid's
-  off-diagonal df64 parts against lam_tpu's `gemv_df64_dual` and the
-  band-pair fq parts against its `gemv_fq_symm_slab`, both in Pallas
-  interpret mode (the port within 2^-48 of the f64 oracle), and one short
-  solve of each operator at lam_tpu's iteration count.
+  off-diagonal df64 and fq parts against lam_tpu's `gemv_df64_dual` and
+  `gemv_fq_dual` and the band-pair fq parts against its
+  `gemv_fq_symm_slab`, all in Pallas interpret mode (the port within
+  2^-48 of the f64 oracle), and one short solve of each operator at
+  lam_tpu's iteration count.
 """
 
 import jax.numpy as jnp
@@ -123,7 +126,8 @@ def test_gen_band_pair_operators_walks(storage, plain):
 @pytest.mark.parametrize("rank,storage,plain", [
     (0, "fq", "gemv_fq_symm_zero_plain"),
     (3, "fq", "gemv_fq_symm_zero_plain"),
-    (2, "fq", "gemv_fq_dual_bcast_plain"),  # kernel 19's: no zero walk
+    (2, "fq", "gemv_fq_dual_zero_plain"),
+    (1, "fq", "gemv_fq_dual_zero_plain"),
     (0, "df64", "gemv_df64_symm_bcast_plain"),  # kernel 2's: no zero walk
     (3, "df64", "gemv_df64_symm_bcast_plain"),
     (1, "df64", "gemv_df64_dual_zero_plain"),
@@ -215,6 +219,34 @@ def test_grid_df64_tile_handed_in_is_counted_once(rank, lo):
             == {want}
 
 
+@pytest.mark.parametrize("rank", [1, 2])
+@pytest.mark.parametrize("case", ["zero", "zero-q2", "zero-q3", "plane"])
+def test_grid_fq_tiles_handed_in_are_counted_once(rank, case):
+    """An off-diagonal rank of the R=2 symmetric grid with q2 and q3
+    handed in: tiles of zeros take the dual zero walk, a non-zero tile the
+    tile-reading walk, planes the full-plane kernel; the f32 view reads q1
+    alone whatever q2 and q3."""
+    mesh = pmesh.Mesh2D(rank, 2, "cpu")
+    gen = pcg2d_symm.Symm2DOperator.from_gen_fq(1000, mesh=mesh, tb=TB,
+                                                device="cpu")
+    q1, q2, q3, *rest = gen.operand
+    one = torch.zeros(TB, TB, dtype=torch.int16)
+    one[3, 5] = 1
+    q2, q3 = {"zero": (q2, q3), "zero-q2": (q2, one), "zero-q3": (one, q3),
+              "plane": (torch.zeros_like(q1), torch.zeros_like(q1))}[case]
+    p = torch.zeros(gen.n_padded // 2, dtype=torch.float64)
+    for dtype, want in ((torch.float64, {
+            "zero": "gemv_fq_dual_zero_plain",
+            "plane": "gemv_fq_dual_plain"}.get(
+                case, "gemv_fq_dual_bcast_plain")),
+            (torch.float32, "gemv_q16_dual_plain")):
+        op = pcg2d_symm.Symm2DOperator((q1, q2, q3, *rest), 1000,
+                                       gen.n_padded, mesh, TB, "fq",
+                                       vector_dtype=dtype)
+        assert _ran(op.mv_pair, op.operand, p.to(dtype), p.to(dtype)) \
+            == {want}
+
+
 @pytest.mark.parametrize("case", ["zero", "zero-q2", "zero-q3", "plane"])
 def test_band_pair_fq_tiles_handed_in_are_counted_once(case):
     """A band pair's packed fq storage with q2 and q3 handed in: tiles of
@@ -289,6 +321,34 @@ def test_df64_dual_zero_plain_equals_the_tile_walk_over_a_zero_tile():
         assert all(torch.equal(u, v) for u, v in zip(mine, full))
 
 
+@pytest.mark.parametrize("scales", ["gen", "odd", "large"])
+def test_fq_dual_zero_plain_equals_the_tile_walk_over_zero_tiles(scales):
+    """Rank (1, 0)'s fq half-slab of the gen grid, e1 = 0 entries in q1,
+    -0.0 entries in the operands and, beside generate mode's own scales,
+    zero, -0.0 and negative ones, or large finite s2 and s3."""
+    gen = pcg2d_symm.Symm2DOperator.from_gen_fq(
+        1000, mesh=pmesh.Mesh2D(2, 2, "cpu"), tb=TB, device="cpu")
+    q1, zq2, zq3, s1, s2, s3 = gen.operand[:6]
+    rng = np.random.default_rng(18)
+    q1 = torch.from_numpy(rng.integers(-3, 4, q1.shape).astype(np.int16))
+    if scales == "odd":
+        odd = np.array([0.0, -0.0, -(2.0 ** -14), 2.0 ** -20], np.float32)
+        s1, s2, s3 = (torch.from_numpy(odd[rng.integers(0, 4, s.shape[0])])
+                      for s in (s1, s2, s3))
+    elif scales == "large":
+        s2, s3 = torch.full_like(s2, 2.0 ** 100), torch.full_like(s3, -3e38)
+    m = gen.m
+    vecs = (_signed(rng, m), _signed(rng, m), _signed(rng, m // 2),
+            _signed(rng, m // 2))
+    mine = gemv.gemv_fq_dual_zero(q1, s1, *vecs)
+    zp = torch.zeros_like(q1)
+    for full in (gemv.gemv_fq_dual_bcast(q1, zq2, zq3, s1, s2, s3, *vecs),
+                 gemv.gemv_fq_dual_bcast(q1, torch.full_like(zq2, 0), zp,
+                                         s1, s2, s3, *vecs),
+                 gemv.gemv_fq_dual(q1, zp, zp, s1, s2, s3, *vecs)):
+        assert all(torch.equal(u, v) for u, v in zip(mine, full))
+
+
 @pytest.mark.parametrize("scales", ["gen", "odd"])
 def test_fq_slab_zero_plain_equals_the_tile_walk_over_zero_tiles(scales):
     gen = pcg_symm.SymmShardedOperator.from_gen_fq(
@@ -326,7 +386,9 @@ def _zero_args():
             "walk": gen.operand[2:], "v": torch.zeros(gen.n_padded),
             "ms": 2 * gen.m, "bq1": band.operand[0], "bs1": band.operand[3],
             "bwalk": band.operand[-3:], "ghi": grid.operand[0],
-            "gp": torch.zeros(grid.m), "gq": torch.zeros(grid.m // 2)}
+            "gp": torch.zeros(grid.m), "gq": torch.zeros(grid.m // 2),
+            "gq1": torch.zeros(grid.operand[0].shape, dtype=torch.int16),
+            "gs1": torch.ones(grid.operand[0].shape[0] // TB)}
 
 
 @pytest.mark.parametrize("case,match", [
@@ -347,13 +409,20 @@ def _zero_args():
     ("slab-dtype", "int16"),
     ("slab-pair", "differ"),
     ("slab-comp", "comp="),
-    ("slab-ms", "multiple of tb")])
+    ("slab-ms", "multiple of tb"),
+    ("fqdual-scales", r"s1 table shape"),
+    ("fqdual-dtype", "int16"),
+    ("fqdual-pair", "differ"),
+    ("fqdual-q-pair", "differ"),
+    ("fqdual-comp", "comp="),
+    ("fqdual-rows", "multiples of tb"),
+    ("fqdual-tiles", "needs")])
 def test_zero_walks_check_their_operands(case, match):
     a = _zero_args()
     q1, s1, p, hi, walk, v, ms = (a[k] for k in (
         "q1", "s1", "p", "hi", "walk", "v", "ms"))
-    bq1, bs1, bwalk, ghi, gp, gq = (a[k] for k in (
-        "bq1", "bs1", "bwalk", "ghi", "gp", "gq"))
+    bq1, bs1, bwalk, ghi, gp, gq, gq1, gs1 = (a[k] for k in (
+        "bq1", "bs1", "bwalk", "ghi", "gp", "gq", "gq1", "gs1"))
     calls = {
         "fq-scales": lambda: gemv.gemv_fq_symm_zero(q1, s1[:3].clone(), p,
                                                     p),
@@ -386,7 +455,21 @@ def test_zero_walks_check_their_operands(case, match):
         "slab-comp": lambda: gemv.gemv_fq_symm_slab_zero(
             bq1, bs1, v, v, *bwalk, ms=ms, comp="x"),
         "slab-ms": lambda: gemv.gemv_fq_symm_slab_zero(
-            bq1, bs1, v, v, *bwalk, ms=ms + 7)}
+            bq1, bs1, v, v, *bwalk, ms=ms + 7),
+        "fqdual-scales": lambda: gemv.gemv_fq_dual_zero(
+            gq1, gs1[:3].clone(), gp, gp, gq, gq),
+        "fqdual-dtype": lambda: gemv.gemv_fq_dual_zero(
+            gq1.float(), gs1, gp, gp, gq, gq),
+        "fqdual-pair": lambda: gemv.gemv_fq_dual_zero(
+            gq1, gs1, gp, gp[:-128], gq, gq),
+        "fqdual-q-pair": lambda: gemv.gemv_fq_dual_zero(
+            gq1, gs1, gp, gp, gq, gq[:-128]),
+        "fqdual-comp": lambda: gemv.gemv_fq_dual_zero(
+            gq1, gs1, gp, gp, gq, gq, comp="x"),
+        "fqdual-rows": lambda: gemv.gemv_fq_dual_zero(
+            gq1, gs1, gp, gp, gq[:-7], gq[:-7]),
+        "fqdual-tiles": lambda: gemv.gemv_fq_dual_zero(
+            gq1, gs1, gp, gp, gp, gp)}
     gemv.reset_counters()
     with pytest.raises(ValueError, match=match):
         calls[case]()
@@ -506,6 +589,31 @@ def test_df64_dual_dropped_tile_keeps_the_sums_bits(lo_zero):
     else:
         lo = np.full(h.shape, lo_zero)
     full, dropped = h + lo, h + 0.0
+    assert np.array_equal(full, dropped)
+    p = _signed_zeros(rng, cb * tb)
+    q = _signed_zeros(rng, mb * tb)
+    for a, b in zip(_rect_sums(full, p, q, mb, cb, tb),
+                    _rect_sums(dropped, p, q, mb, cb, tb)):
+        assert np.array_equal(_bits(a), _bits(b))
+        assert not np.signbit(a[a == 0]).any()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_fq_dual_dropped_terms_keep_the_sums_bits(seed):
+    """Kernel 19-bcast's zero walk: e1 * c1 against (e1*c1 + 0*c2) + 0*c3
+    over the rectangle's tiles, a scale of each table per tile drawn from
+    zero, -0.0, negative and positive ones, +-0 entries in p and q."""
+    mb, cb, tb = 2, 3, 8
+    rng = np.random.default_rng(seed + 19)
+    e1 = rng.integers(-3, 4, size=(mb * tb, cb * tb)).astype(np.float64)
+    e1[rng.uniform(size=e1.shape) < 0.5] = 0.0
+    e1[:, 5] = 0.0  # a column of zeros: its transpose sums are zeros
+    pick = np.array(SCALES)
+    c1, c2, c3 = (np.kron(pick[rng.integers(0, len(SCALES), (mb, cb))],
+                          np.ones((tb, tb))) for _ in range(3))
+    zero = np.zeros_like(e1)
+    full = (e1 * c1 + zero * c2) + zero * c3
+    dropped = e1 * c1
     assert np.array_equal(full, dropped)
     p = _signed_zeros(rng, cb * tb)
     q = _signed_zeros(rng, mb * tb)
@@ -655,6 +763,36 @@ def test_df64_dual_zero_matches_lam_tpu():
         hi, torch.zeros(TB, TB), *vecs)))
     y = _pairs(out)
     oracle = _rect_oracle(hi, vecs, ms // TB, n // TB)
+    assert _rel(y, oracle) <= 2.0 ** -48
+    assert _rel(y, _pairs([torch.from_numpy(np.array(x, np.float32))
+                           for x in ref])) <= 1e-6
+
+
+def test_fq_dual_zero_matches_lam_tpu():
+    """The grid's off-diagonal fq part: a seeded (256, 512) rectangle of
+    int16 tiles against power-of-two scales, with 3 pad tiles, against
+    lam_tpu's gemv_fq_dual over (tb, tb) zero q2/q3 tiles in Pallas
+    interpret mode (1e-6, as the df64 dual above) and the f64 oracle of the
+    stored values (2^-48)."""
+    ms, n = 256, 512
+    mb, cb = ms // TB, n // TB
+    rng = np.random.default_rng(19)
+    T = mb * cb + 3
+    q1 = torch.from_numpy(rng.integers(-32767, 32768, (T * TB, TB))
+                          .astype(np.int16))
+    s1 = torch.from_numpy((2.0 ** -rng.integers(8, 20, T)).astype(np.float32))
+    vecs = tuple(torch.from_numpy(x) for v in (rng.uniform(-1, 1, n),
+                                               rng.uniform(-1, 1, ms))
+                 for x in split_f64_host(v))
+    gemv.reset_counters()
+    out = gemv.gemv_fq_dual_zero(q1, s1, *vecs)
+    assert gemv.counters()["gemv_fq_dual_zero_plain"] == 1
+    zt = np.zeros((TB, TB), np.int16)
+    ref = jgemv.gemv_fq_dual(q1.numpy(), zt, zt, s1.numpy(), s1.numpy(),
+                             s1.numpy(), *(x.numpy() for x in vecs))
+    y = _pairs(out)
+    tiles = q1.double() * s1.double().repeat_interleave(TB)[:, None]
+    oracle = _rect_oracle(tiles, vecs, mb, cb)
     assert _rel(y, oracle) <= 2.0 ** -48
     assert _rel(y, _pairs([torch.from_numpy(np.array(x, np.float32))
                            for x in ref])) <= 1e-6
