@@ -58,14 +58,15 @@
      gemv_q16_dual, gemv_q16_dual_bf16, gemv_fq_dual, gemv_fq_dual_bcast),
      the zero-tile kernels of 15-, 9-, 12-, 17- and 19-bcast
      (gemv_fq_symm_zero, gemv_df64_symm_slab_zero, gemv_df64_dual_zero,
-     gemv_fq_symm_slab_zero, gemv_fq_dual_zero) and probe P5s
-     (gemv_q16_symm_split) run the strip walk of
+     gemv_fq_symm_slab_zero, gemv_fq_dual_zero) and probes P5s, P5h and
+     P5y (gemv_q16_symm_split, _hi, _hybrid) run the strip walk of
      csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
      controls, the two-pass walks gemv_q16_symm_slab_twopass,
      gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass,
-     gemv_fq_dual_twopass, gemv_q16_symm_split_twopass and the
-     tile-reading walks of 15-, 9-, 12- and 17-bcast, none (18-bf16's and
-     P5s's walks and their controls hold HMMA);
+     gemv_fq_dual_twopass, gemv_q16_symm_split_twopass, _hi_twopass,
+     _hybrid_twopass and the tile-reading walks of 15-, 9-, 12- and
+     17-bcast, none (18-bf16's, P5s's, P5h's and P5y's walks, each keyed
+     by its engine and walk, and their controls hold HMMA);
      ptxas reports no spill for them. Kernel
      16's (yd, yt) equal its control's bit for bit on every rank's tables
      of G=2 and G=4, and it is timed against the control LIBRARY_REPEATS
@@ -150,10 +151,11 @@
    plane (the fq pack's q1) against their plain versions (1e-5; hi and
    hybrid 1e-6, beside the bf16 engine's gap), padding rows 0, bitwise
    repeats, magic equal to kernel 14 bit for bit and its SASS free of
-   int -> f32 conversions (cuobjdump), split (the strip walk with
-   tensor-core consumers) equal to its two-pass control
-   (gemv_q16_symm_split_twopass) bit for bit and timed against it
-   LIBRARY_REPEATS times in turns, the read floor beside, its passes
+   int -> f32 conversions (cuobjdump), split, hi and hybrid (the strip
+   walk with tensor-core consumers) each equal to its two-pass control
+   (gemv_q16_symm_split_twopass, _hi_twopass, _hybrid_twopass) bit for
+   bit and timed against it LIBRARY_REPEATS times in turns (failing
+   unless below it in every repeat), the read floor beside, its passes
    split by torch.profiler; gemv_q16_symm_tb1024 on a random
    int16 plane of 1024-wide tiles against random power-of-two scales
    (1e-5); stream_i16 (checksum = the plain one) and convert_f32_sum
@@ -413,6 +415,9 @@ PROBE_TOL = {"magic": 1e-5, "sub8": 1e-5, "split": 1e-5, "hi": 1e-6,
 # tensor-core products per stored element and term (hybrid: its direct
 # term's f32 FMAs bound it instead)
 MMA_PRODUCTS = {"split": 2, "hi": 5}
+# the probe walks on the strip walk's tensor-core consumers, each held to
+# its two-pass control (gemv_q16_symm_<name>_twopass)
+TC_WALKS = ("split", "hi", "hybrid")
 HEAT_NX, HEAT_NY = 1200, 1000  # the heat demo's documented plate
 JAC_NX, JAC_NY = 120, 100
 HEAT_GATE = 2e-10    # TRUE residual of a rel_error=1e-10 heat solve
@@ -799,11 +804,14 @@ STRIP_WALKS = {("StripPlanesILi1E", "TableWalk"): "kernel 16",
                ("StripHiPlanes", "RectWalk"): "kernel 12-bcast",
                ("StripQ1Planes", "TableWalk"): "kernel 17-bcast",
                ("StripQ1Planes", "RectWalk"): "kernel 19-bcast zero"}
-# the strip walk with tensor-core consumers (strip_mma_pass1), by walk ->
-# its kernel, and the mangled (engine, walk) of its two-pass control,
-# q16_bf16_pass1<MODE, Walk>
-MMA_WALKS = {"RectWalk": ("kernel 18-bf16", ("ILi0E", "RectWalk")),
-             "TriangleWalk": ("probe P5s", ("ILi1E", "TriangleWalk"))}
+# the strip walk with tensor-core consumers (strip_mma_pass1), by (engine,
+# walk) -> its kernel, and the mangled (engine, walk) of its two-pass
+# control, q16_bf16_pass1<MODE, Walk>; the engine is MmaMode's value, the
+# MODE of its StripCfg
+MMA_WALKS = {(0, "RectWalk"): ("kernel 18-bf16", ("ILi0E", "RectWalk")),
+             (1, "TriangleWalk"): ("probe P5s", ("ILi1E", "TriangleWalk")),
+             (2, "TriangleWalk"): ("probe P5h", ("ILi2E", "TriangleWalk")),
+             (3, "TriangleWalk"): ("probe P5y", ("ILi3E", "TriangleWalk"))}
 
 
 def _strip_walk_of(name):
@@ -811,21 +819,30 @@ def _strip_walk_of(name):
                  if planes in name and walk in name), None)
 
 
+def _mma_walk_of(name):
+    """The (engine, walk) key of MMA_WALKS of a strip_mma_pass1 kernel."""
+    from lam_tpu_torch.ops import _build
+    engine = _build.mma_engine(name)
+    return next(((m, walk) for m, walk in MMA_WALKS
+                 if engine == m and walk in name), None)
+
+
 def stream_sass(build):
     """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
     walks of kernels 16, 18, 18-bf16, 19, 19-bcast, the zero-tile walks
-    of 15-bcast, 9-bcast, 12-bcast, 17-bcast and 19-bcast and probe P5s
-    holds the TMA bulk copy (UBLKCP); that of the
+    of 15-bcast, 9-bcast, 12-bcast, 17-bcast and 19-bcast and probes P5s,
+    P5h and P5y holds the TMA bulk copy (UBLKCP); that of the
     dense_rows kernels (3 and the df64 control) and of the strip walks'
     controls (the two-pass walk's pass 1) none; the walks with
     tensor-core consumers (strip_mma_pass1: kernel 18-bf16 on the
-    rectangle, P5s on the triangle) and their controls (q16_bf16_pass1)
-    hold tensor-core products (HMMA). Prints each strip walk's registers
-    from ptxas' report in the build log, which must show no spill and no
-    stack frame."""
+    rectangle, P5s, P5h and P5y on the triangle, each of its own engine)
+    and their controls (q16_bf16_pass1) hold tensor-core products (HMMA).
+    Prints each strip walk's registers from ptxas' report in the build
+    log, which must show no spill and no stack frame."""
     kernels = build.sass()
-    for walk, (label, (mode, ctl_walk)) in MMA_WALKS.items():
-        mma = [k for k in kernels if "strip_mma_pass1" in k and walk in k]
+    for key, (label, (mode, ctl_walk)) in MMA_WALKS.items():
+        mma = [k for k in kernels
+               if "strip_mma_pass1" in k and _mma_walk_of(k) == key]
         mma_ctl = [k for k in kernels if "q16_bf16_pass1" + mode in k
                    and ctl_walk in k]
         _check(len(mma) == 1 and len(mma_ctl) == 1,
@@ -876,8 +893,7 @@ def stream_sass(build):
         head = re.search(r"Compiling entry function '(\S+)'", line)
         if head:
             k = head.group(1)
-            name = (next(label for walk, (label, _) in MMA_WALKS.items()
-                         if walk in k) if "strip_mma_pass1" in k
+            name = (MMA_WALKS[_mma_walk_of(k)][0] if "strip_mma_pass1" in k
                     else _strip_walk_of(k) if "strip_pass1" in k else None)
         elif name and ("registers" in line or "spill" in line):
             report.setdefault(name, []).append(line.split(":", 1)[-1].strip())
@@ -1380,8 +1396,12 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
     walks magic, sub8, split, hi and hybrid on kernel 14's plane (the fq
     pack's q1) against their plain versions (PROBE_TOL), padding rows 0,
     bitwise repeats; magic equal to kernel 14's exact result `exact` bit
-    for bit and its SASS free of int -> f32 conversions; hi and hybrid
-    printed beside the bf16 engine's gap; tb1024 on a random int16 plane
+    for bit and its SASS free of int -> f32 conversions; split, hi and
+    hybrid (the strip walk's tensor-core consumers) equal to their
+    two-pass controls bit for bit, printed beside the bf16 engine's gap,
+    and timed against their controls in turns with the read floor, their
+    passes split by torch.profiler, each failing unless below its
+    control in every repeat; tb1024 on a random int16 plane
     of 1024-wide tiles against random power-of-two scales; the two streams
     on kernel 14's plane (stream_i16's checksum equal to the plain one,
     convert_f32_sum's within its per-thread f32 rounding bound) and on the
@@ -1429,13 +1449,14 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
         if name == "magic":
             line += f", == kernel 14 bitwise: {torch.equal(y, exact)}"
             _check(torch.equal(y, exact), "the magic walk != kernel 14")
-        if name in ("hi", "hybrid", "split"):
+        if name in TC_WALKS:
             line += (", bf16 engine-plain "
                      f"{_rel(gemv.gemv_q16_symm_bf16(q, s, p), y_plain):.3e}")
-        if name == "split":  # the strip walk: its two-pass control's bits
-            same = torch.equal(y, probe.gemv_q16_symm_split_twopass(q, s, p))
+            # the strip walk: its two-pass control's bits
+            control = getattr(probe, f"gemv_q16_symm_{name}_twopass")
+            same = torch.equal(y, control(q, s, p))
             line += f", == its two-pass control bitwise: {same}"
-            _check(same, "the split walk != its two-pass control")
+            _check(same, f"the {name} walk != its two-pass control")
         print(line)
         _check(err <= PROBE_TOL[name], f"{kernel.__name__} disagrees")
         _check(torch.equal(y, call()), f"{kernel.__name__} not repeatable")
@@ -1450,18 +1471,23 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
             float((y - y_plain).abs().max()), (call, call_plain, None),
             (real, s[:real.shape[0] // q.shape[1]], p, y), flops, kind)
 
-    for name in ("magic", "sub8", "split", "hi", "hybrid"):
+    for name in ("magic", "sub8", *TC_WALKS):
         out.append(entry(name, q1, s1, ph, plane))
-    split = next(e for e in out if e["name"] == "gemv_q16_symm_split")
-    _walk_against_control(
-        "gemv_q16_symm_split", split["bound_ms"],
-        lambda: probe.gemv_q16_symm_split(q1, s1, ph),
-        lambda: probe.gemv_q16_symm_split_twopass(q1, s1, ph),
-        lambda: probe.stream_i16(plane), "read floor (lam_stream_i16)",
-        where="(strip walk, tensor-core consumers) at N=10240")
-    _pass_split("gemv_q16_symm_split and its two-pass control", {
-        "walk": lambda: probe.gemv_q16_symm_split(q1, s1, ph),
-        "control": lambda: probe.gemv_q16_symm_split_twopass(q1, s1, ph)})
+    for name in TC_WALKS:
+        walk = getattr(probe, f"gemv_q16_symm_{name}")
+        control = getattr(probe, f"gemv_q16_symm_{name}_twopass")
+        e = next(e for e in out if e["name"] == walk.__name__)
+        times, ctl = _walk_against_control(
+            walk.__name__, e["bound_ms"], lambda w=walk: w(q1, s1, ph),
+            lambda c=control: c(q1, s1, ph),
+            lambda: probe.stream_i16(plane), "read floor (lam_stream_i16)",
+            where="(strip walk, tensor-core consumers) at N=10240")
+        _check(all(t < c for t, c in zip(times, ctl)) or not TIMED,
+               f"{walk.__name__}: the strip walk is not faster than its "
+               "two-pass control in every repeat")
+        _pass_split(f"{walk.__name__} and its two-pass control", {
+            "walk": lambda w=walk: w(q1, s1, ph),
+            "control": lambda c=control: c(q1, s1, ph)})
 
     nblk_k = n // 1024
     T_k = layout.tri_tile_count(nblk_k)

@@ -43,22 +43,28 @@
 //                             FMAs on the CUDA cores and the transpose term as
 //                             hi does.
 //
-// split runs on the strip walk with tensor-core consumers
+// split, hi and hybrid run on the strip walk with tensor-core consumers
 // (csrc/strip_walk.cuh, strip_mma_pass1 over the packed triangle, the
 // split made by bits, fragments taken with ldmatrix, symm_pass2 as a
-// programmatic dependent launch); its two-pass walk (q16_bf16_pass1 and
-// symm_pass2) stays as its control with the same arguments and bits,
+// programmatic dependent launch; split converts each stage into a bf16
+// strip buffer, SymmSplitCfg; hi and hybrid split raw int16 fragments in
+// registers, SymmHiCfg and SymmHybridCfg); each one's two-pass walk
+// (q16_bf16_pass1 and symm_pass2) stays as its control with the same
+// arguments and bits,
 //
-//   lam_gemv_q16_symm_split_twopass   lam_gemv_q16_symm_split
+//   lam_gemv_q16_symm_split_twopass    lam_gemv_q16_symm_split
+//   lam_gemv_q16_symm_hi_twopass       lam_gemv_q16_symm_hi
+//   lam_gemv_q16_symm_hybrid_twopass   lam_gemv_q16_symm_hybrid
 //
-// which no solver runs (lam_tpu_torch/ops/probe.py CONTROLS). The split's
-// p must be 16-byte aligned (the bulk copies).
+// which no solver runs (lam_tpu_torch/ops/probe.py CONTROLS). Their p
+// must be 16-byte aligned (the bulk copies).
 //
 // The TPU scripts' P (tiles a grid step, the DMA block size) has no
 // counterpart: blocks run in no order on 132 SMs, and P=8 is kernel 14's
 // blocked form. What bounds each: bytes, as kernel 14 (2 B a stored element
-// read once; sub8 also writes and reads its 8x partials). The tensor-core
-// modes stage 2 x 66.5 KB of strip: one block an SM.
+// read once; sub8 also writes and reads its 8x partials, 8 rows of TB f32
+// a strip of an off-diagonal tile). The tensor-core walks run one block an
+// SM (csrc/strip_walk.cuh).
 //
 // Scratch (elements): part_d T*tb, part_t T*(tb/64)*tb (sub8: 8x that), f32,
 // T = nblk(nblk+1)/2 of the plane's tile width tb (1024 for tb1024, else
@@ -137,6 +143,16 @@ extern "C" int lam_gemv_q16_symm_split_twopass(const short* q1,
 extern "C" int lam_gemv_q16_symm_hi(const short* q1, const float* s1,
                                     const float* p, float* y, float* part_d,
                                     float* part_t, int nblk, void* stream) {
+  return launch_strip_tri<SymmHiCfg>(StripPlanes<1>{{q1}, {s1}},
+                                     StripVecs<1>{{p}, {p}}, F32Out{y},
+                                     part_d, part_t, nblk,
+                                     (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_q16_symm_hi_twopass(const short* q1, const float* s1,
+                                            const float* p, float* y,
+                                            float* part_d, float* part_t,
+                                            int nblk, void* stream) {
   return launch(Q16MmaPlane<MMA_HI>{q1, s1}, F32Vec{p}, F32Out{y}, part_d,
                 part_t, nblk, (cudaStream_t)stream);
 }
@@ -145,6 +161,17 @@ extern "C" int lam_gemv_q16_symm_hybrid(const short* q1, const float* s1,
                                         const float* p, float* y,
                                         float* part_d, float* part_t,
                                         int nblk, void* stream) {
+  return launch_strip_tri<SymmHybridCfg>(StripPlanes<1>{{q1}, {s1}},
+                                         StripVecs<1>{{p}, {p}}, F32Out{y},
+                                         part_d, part_t, nblk,
+                                         (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_q16_symm_hybrid_twopass(const short* q1,
+                                                const float* s1,
+                                                const float* p, float* y,
+                                                float* part_d, float* part_t,
+                                                int nblk, void* stream) {
   return launch(Q16MmaPlane<MMA_HYBRID>{q1, s1}, F32Vec{p}, F32Out{y}, part_d,
                 part_t, nblk, (cudaStream_t)stream);
 }

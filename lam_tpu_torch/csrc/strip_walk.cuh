@@ -1,4 +1,4 @@
-// The strip walk: pass 1 of ten kernels, a persistent grid fed by TMA
+// The strip walk: pass 1 of twelve kernels, a persistent grid fed by TMA
 // bulk copies, in place of symm_pass1 and q16_bf16_pass1
 // (csrc/symm_walk.cuh):
 //
@@ -37,6 +37,11 @@
 //                                      of the packed triangle, each value
 //                                      split into bf16 ah + al, tensor-core
 //                                      products (strip_mma_pass1), symm_pass2
+//   probe P5h  lam_gemv_q16_symm_hi     the same plane and split, p * s in
+//                                      three bf16 parts, five products
+//                                      (strip_mma_pass1 from the raw stage)
+//   probe P5y  lam_gemv_q16_symm_hybrid  P5h's transpose term, the direct
+//                                      term as f32 FMAs on the CUDA cores
 //
 // Each keeps its two-pass walk as a control (lam_gemv_*_twopass; the five
 // zero-tile walks: the tile-reading entry points lam_gemv_fq_symm_bcast,
@@ -130,6 +135,22 @@
 //    each value by bits into bf16 ah + al, into the two parts of
 //    q16_bf16_pass1<MMA_SPLIT>'s strip, and take both parts' fragments
 //    with ldmatrix.
+//  * Probes P5h and P5y (MMA_HI, MMA_HYBRID; RAW) keep no bf16 strip: the
+//    producer lands each 1 KB row of the strip in a row padded to TB + 8
+//    int16 (one bulk copy a row, 64 a strip; ldmatrix's eight rows then
+//    fall in eight bank groups), and the consumers take raw int16
+//    fragments with ldmatrix and split them by bits in registers into the
+//    control's ah + al, in the same fragment positions. Warps 0-3 run the
+//    direct term of their 16 rows (hi: the chain of mma_parts over the 32
+//    k-chunks, each chunk's fragment asked for before the products of the
+//    one before; hybrid: mma_strip's f32 FMAs on each value by bits, which
+//    is exactly ah + al); warps 4-7 the transpose term of their 128
+//    columns in two halves of four 16-column blocks, the four blocks'
+//    chains interleaved over the strip's four 16-row chunks (32
+//    accumulators). Each warp makes the operand parts (bf16_parts of p_k *
+//    s and q_i * s) it needs: a direct warp p_k's in a buffer of its own,
+//    a transpose warp q_i's in registers. No barrier joins the consumers:
+//    each releases the stage when it has read it.
 //  * Pass 2 (slab_pass2 or rect_pass2) is a programmatic dependent launch
 //    (cudaLaunchAttributeProgrammaticStreamSerialization): its blocks are
 //    scheduled while pass 1 drains its last strips and wait
@@ -137,7 +158,8 @@
 //
 // Sizes, from sweeps on an H100 (PERF.md section 6; the chosen ones at
 // SlabQ16Cfg, DualQ16Cfg, DualFQCfg, DualBf16Cfg, SymmQ1Cfg, SlabHiCfg,
-// DualHiCfg, SlabQ1Cfg, DualQ1Cfg and SymmSplitCfg below). Kernel 16: two
+// DualHiCfg, SlabQ1Cfg, DualQ1Cfg, SymmSplitCfg, SymmHiCfg and
+// SymmHybridCfg below). Kernel 16: two
 // stages (136 KB) and a 16 KB reduction buffer; a third stage was slower,
 // and so were two blocks an SM of one stage each, the int16 -> f32
 // conversion by bits (csrc/q16_probe.cu's magic), an earlier pass-2
@@ -168,7 +190,15 @@
 // and conversion by instruction 7% slower; grids of 100-126 blocks (the
 // half-slab's 400 strips in whole rounds or fewer) 0.5-1.5% and 80 blocks
 // 13% slower than one block an SM. P5s: two 32-row stages and one 64-row
-// stage were as fast, 16- and 8-row stages 7% and 15% slower.
+// stage were as fast, 16- and 8-row stages 7% and 15% slower. P5h and
+// P5y: through a bf16 strip buffer (the converting consumers, 32- or
+// 64-row stages) 3-7% (hi) and 33-38% (hybrid) slower than the raw
+// stage; all eight transpose blocks at once (64 accumulators: 16-row
+// stages fit in 168 registers, 32- and 64-row ones spilled) 6-11% slower
+// than two halves of four; a third stage as fast; the direct fragments
+// two chunks ahead, the B fragments one ahead, a hand-interleaved direct
+// chain and all eight warps taking transpose blocks beside the direct
+// chains 1-31% slower; the packed split conversion 2-4% faster.
 //
 // The bits: inside a strip nothing of symm_pass1's order changes. Warp w
 // sums rows w*8 .. w*8+7 in that order, lane l holds columns lane_col<8>(l,
@@ -386,11 +416,15 @@ struct StripHeader {
 // and operand entries into registers and releases the stage before it sums
 // them.
 // MODE (one plane, f32 operands): the consumers are tensor-core ones
-// (strip_mma_pass1) of the product engine MODE (MMA_DEF or MMA_SPLIT;
-// NO_MMA: the summing consumers): every consumer warp converts its share
-// of each stage to bf16 into one padded strip buffer (MmaSmem<MODE>), in
-// place of the reduction buffer, releases the stage, and runs
-// q16_bf16_pass1<MODE>'s products on the buffer.
+// (strip_mma_pass1) of the product engine MODE (NO_MMA: the summing
+// consumers). MMA_DEF and MMA_SPLIT: every consumer warp converts its
+// share of each stage to bf16 into one padded strip buffer
+// (MmaSmem<MODE>), in place of the reduction buffer, releases the stage,
+// and runs q16_bf16_pass1<MODE>'s products on the buffer. MMA_HI and
+// MMA_HYBRID (RAW, one stage a strip): no strip buffer; the producer lands
+// each row of the stage in a row padded to TB + 8 int16, and the consumers
+// take raw int16 fragments with ldmatrix and split them in registers
+// (strip_raw_consumers).
 constexpr int NO_MMA = -1;
 
 template <class Planes, class Vecs, int SR_, int S_, int RW_,
@@ -403,24 +437,38 @@ struct StripCfg {
   static constexpr int NP = Planes::NP, NV = Vecs::NV, VEC = Planes::VEC;
   static constexpr int SR = SR_, S = S_, RW = RW_, MODE = MODE_;
   static constexpr bool BITS = BITS_, EARLY = EARLY_, MMA = MODE != NO_MMA;
+  // the engines hi and hybrid from the raw stage, def and split through
+  // the bf16 strip buffer
+  static constexpr bool RAW = MODE == MMA_HI || MODE == MMA_HYBRID;
   static_assert(!EARLY || (NP == 1 && VEC == 8),
                 "one int16 plane's rows fit the registers");
   static_assert(!MMA || (NP == 1 && NV == 1 && Planes::FOLD && !EARLY && BITS
-                         && (MODE == MMA_DEF || MODE == MMA_SPLIT)),
-                "the tensor-core consumers take the q16 plane, f32 operands "
-                "and the engines def or split, and convert by bits");
+                         && (RAW || MODE == MMA_DEF || MODE == MMA_SPLIT)),
+                "the tensor-core consumers take the q16 plane and f32 "
+                "operands and convert by bits: the engines def or split "
+                "through the bf16 strip buffer, hi or hybrid from the raw "
+                "stage (RAW)");
+  static_assert(!RAW || (MMA && SR == ROWS),
+                "raw fragments: the tensor-core consumers, one stage a "
+                "strip");
   static constexpr int SPS = ROWS / SR;           // stages a strip
   static constexpr int WPS = SR / ROWS_PER_WARP;  // consumer warps a stage
   static constexpr int READERS = MMA ? WARPS : WPS;  // warps that read one
-  static constexpr int PLANE_BYTES =
+  static constexpr int ROW_LD = RAW ? BF_LD : TB;  // a staged row, elements
+  static constexpr int COPY_BYTES =  // a plane's rows of a stage
       SR * TB * (int)sizeof(typename Planes::elem_t);
+  static constexpr int PLANE_BYTES =
+      SR * ROW_LD * (int)sizeof(typename Planes::elem_t);
   static constexpr int PK_OFF = NP * PLANE_BYTES;
   static constexpr int PI_OFF = PK_OFF + NV * TB * (int)sizeof(float);
   static constexpr int HDR_OFF = PI_OFF + NV * SR * (int)sizeof(float);
   static constexpr int STAGE_BYTES =
       (HDR_OFF + (int)sizeof(StripHeader<NP>) + 127) / 128 * 128;
+  // RAW: each direct warp's bf16 parts of the direct operand
   static constexpr int RED_BYTES =
-      MMA ? MmaSmem<MODE>::bytes : RW * TB * (int)sizeof(acc_t);
+      RAW   ? WARPS / 2 * MmaSmem<MODE>::PK * TB * 2
+      : MMA ? MmaSmem<MODE>::bytes
+            : RW * TB * (int)sizeof(acc_t);
   static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
   static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
                 "a stage is whole warps' rows of one strip");
@@ -486,11 +534,18 @@ using SlabQ1Cfg =
 //    transpose sums in one round: 105 KB, 17-bcast's sizes on the
 //    rectangle;
 //  * probe P5s (split): kernel 18-bf16's sizes, two 32-row stages, and the
-//    two-part strip buffer of MmaSmem<MMA_SPLIT> (131 KB): 200 KB.
+//    two-part strip buffer of MmaSmem<MMA_SPLIT> (131 KB): 200 KB;
+//  * probes P5h and P5y (RAW): one padded 64-row stage a strip (69 KB),
+//    two of them, and for hi the direct warps' operand parts (12 KB):
+//    150 KB (hi), 138 KB (hybrid).
 using DualQ1Cfg = SlabQ1Cfg;
 using SymmSplitCfg =
     StripCfg<StripPlanes<1>, StripVecs<1>, 32, 2, WARPS, true, false,
              MMA_SPLIT>;
+using SymmHiCfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS, true,
+                           false, MMA_HI>;
+using SymmHybridCfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS,
+                               true, false, MMA_HYBRID>;
 
 // Operand entry i of a vector staged as NV arrays `stride` apart: F32Vec's
 // and DF64Vec's get.
@@ -650,12 +705,19 @@ __device__ __forceinline__ void strip_producer(const Planes& A,
       mbar_wait(&empty[slot], ((pos / S) & 1) ^ 1);
       unsigned char* stage = smem + slot * Cfg::STAGE_BYTES;
       mbar_expect(&full[slot],
-                  NP * Cfg::PLANE_BYTES + NV * TB * (int)sizeof(float) +
+                  NP * Cfg::COPY_BYTES + NV * TB * (int)sizeof(float) +
                       (off ? NV * SR * (int)sizeof(float) : 0));
       const size_t row0 = (size_t)t * TB + s * ROWS + j * SR;
 #pragma unroll
       for (int pl = 0; pl < NP; ++pl) {
-        if constexpr (Planes::TILES)
+        if constexpr (Cfg::RAW)
+          // one copy a row, into a row padded to ROW_LD: ldmatrix's eight
+          // rows of a fragment then fall in eight bank groups
+          for (int r = 0; r < SR; ++r)
+            bulk_copy(stage + r * Cfg::ROW_LD * (int)sizeof(short),
+                      A.q[pl] + (row0 + r) * TB, TB * (int)sizeof(short),
+                      &full[slot], once);
+        else if constexpr (Planes::TILES)
           // a broadcast tile is read at every tile: kept in L2, not
           // streamed
           bulk_copy(stage + pl * Cfg::PLANE_BYTES,
@@ -871,6 +933,200 @@ strip_pass1(Planes A, Vecs V, Walk W, int tiles,
   strip_sum_consumers<Cfg>(tiles, smem, full, empty, part_d, part_t);
 }
 
+// The two int16 of a 32-bit word as exact f32 by bits (values8_of_i16x8's
+// expressions): v0 from the lower half, v1 from the upper.
+__device__ __forceinline__ void pair_by_bits(unsigned w, float& v0,
+                                             float& v1) {
+  const unsigned u = w ^ 0x80008000u;
+  v0 = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5410)) - 8421376.0f;
+  v1 = __uint_as_float(__byte_perm(u, 0x4B00u, 0x5432)) - 8421376.0f;
+}
+
+// Four raw int16 fragment registers (ldmatrix of the padded stage rows)
+// split by bits into the A parts a[0] = ah and a[1] = al, each element in
+// its own position: the fragments ldmatrix gives of q16_bf16_pass1's two
+// bf16 buffers. bf16x8_split_by_bits' values (the exact f32 by bits, ah
+// rounded to nearest even, al = a - ah exact and its f32's top half), with
+// each pair rounded by one packed conversion (cvt.rn.bf16x2.f32).
+__device__ __forceinline__ void split_fragment(const unsigned r[4],
+                                               unsigned a[2][4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float v0, v1;
+    pair_by_bits(r[e], v0, v1);
+    const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);  // v0 low
+    const unsigned hb = *reinterpret_cast<const unsigned*>(&h);
+    const float r0 = __fsub_rn(v0, __uint_as_float(hb << 16));
+    const float r1 = __fsub_rn(v1, __uint_as_float(hb & 0xffff0000u));
+    a[0][e] = hb;
+    a[1][e] = __byte_perm(__float_as_uint(r0), __float_as_uint(r1), 0x7632);
+  }
+}
+
+// The B fragment of one 16-deep k-chunk from the f32 operand x[0 .. 16)
+// (shared memory): lanes with g = lane / 4 == 0 hold the P bf16 parts of
+// x[2c .. 2c+1] and x[2c+8 .. 2c+9] (c = lane % 4), as mma_strip loads them
+// from q16_bf16_pass1's parts; every other lane zeros.
+template <int P>
+__device__ __forceinline__ void operand_fragment(const float* x, float sc,
+                                                 int lane, unsigned b[][2]) {
+  const int c4 = lane % 4;
+  __nv_bfloat16 v[4][3];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    bf16_parts<P>(__fmul_rn(x[2 * c4 + (e & 1) + (e >> 1) * 8], sc), v[e], 1);
+#pragma unroll
+  for (int ip = 0; ip < P; ++ip) {
+    b[ip][0] = lane < 4 ? bf16_pair(v[0][ip], v[1][ip]) : 0u;
+    b[ip][1] = lane < 4 ? bf16_pair(v[2][ip], v[3][ip]) : 0u;
+  }
+}
+
+// The tensor-core consumers of a RAW configuration (engines hi, hybrid):
+// q16_bf16_pass1's products straight from the raw int16 strip,
+// one stage a strip. Warp w < 4 takes the direct term of the strip's rows
+// 16w .. 16w+15: for hi, each 16-deep k-chunk's A fragment by
+// ldmatrix (the next one asked for before this one's products), split by
+// bits, against its own copy of the direct operand's bf16 parts
+// (bf16_parts of p_k * s, written once a strip), the products of
+// mma_parts in mma_strip's order; for hybrid, mma_strip's f32 FMAs on each
+// value by bits (exactly ah + al) against p_k * s. Warps 4-7 take the
+// transpose term of columns 128 (w - 4) .. +128, in two halves of four
+// 16-column blocks: each block its own accumulator chain over the strip's
+// four 16-row chunks in mma_strip's order (the chains are independent, so
+// the four interleave), the A fragments by ldmatrix .trans, the operand
+// parts of q_i * s made in registers. Each warp releases the stage when it
+// has read it; no barrier joins the warps.
+template <class Cfg>
+__device__ __forceinline__ void strip_raw_consumers(
+    int tiles, unsigned char* smem, uint64_t* full, uint64_t* empty,
+    float* __restrict__ part_d, float* __restrict__ part_t) {
+  constexpr int MODE = Cfg::MODE, S = Cfg::S, LD = Cfg::ROW_LD;
+  using M = MmaSmem<MODE>;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, c4 = lane % 4;
+  const int lr = lane % 8, lq = lane / 8;  // ldmatrix's row and matrix
+  const int strips = tiles * STRIPS;
+  const int step = gridDim.x;
+  for (int gs = blockIdx.x, pos = 0; gs < strips; gs += step, ++pos) {
+    const int t = gs / STRIPS;
+    const int s = gs % STRIPS;
+    // pass 2 may be scheduled once every block is on its last strip
+    if (gs + step >= strips)
+      asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    const int slot = pos % S;
+    mbar_wait(&full[slot], (pos / S) & 1);
+    const unsigned char* stage = smem + slot * Cfg::STAGE_BYTES;
+    const StripHeader<1> hdr =
+        *reinterpret_cast<const StripHeader<1>*>(stage + Cfg::HDR_OFF);
+    const float sc = hdr.sc[0];
+    const short* raw = reinterpret_cast<const short*>(stage);
+    if (warp < WARPS / 2) {
+      const float* pks = reinterpret_cast<const float*>(stage + Cfg::PK_OFF);
+      const short* rows = raw + 16 * warp * LD;
+      float* out = part_d + (size_t)t * TB + s * ROWS + 16 * warp;
+      if constexpr (MODE == MMA_HYBRID) {
+        // mma_strip's direct term on the CUDA cores: lane l holds the
+        // column pairs 64 jj + 2 l (+1), d over jj, then e, as there
+        float pkf[TB / 32];
+#pragma unroll
+        for (int jj = 0; jj < TB / 64; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            pkf[2 * jj + e] = __fmul_rn(pks[64 * jj + e + 2 * lane], sc);
+#pragma unroll 4
+        for (int rr = 0; rr < 16; ++rr) {
+          const unsigned* row =
+              reinterpret_cast<const unsigned*>(rows + rr * LD) + lane;
+          float d = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < TB / 64; ++jj) {
+            float a0, a1;
+            pair_by_bits(row[32 * jj], a0, a1);
+            d = fmaf(a0, pkf[2 * jj], d);
+            d = fmaf(a1, pkf[2 * jj + 1], d);
+          }
+          d = warp_sum(d);
+          if (lane == 0) out[rr] = d;
+        }
+      } else {
+        __nv_bfloat16* pkw =
+            reinterpret_cast<__nv_bfloat16*>(smem + S * Cfg::STAGE_BYTES) +
+            warp * M::PK * TB;
+        for (int c = lane; c < TB; c += 32)
+          bf16_parts<M::PK>(__fmul_rn(pks[c], sc), pkw + c, TB);
+        __syncwarp();  // the parts before any lane reads them
+        float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float dc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        // matrices (rows 0-7 | 8-15) x (columns kc | kc + 8)
+        const __nv_bfloat16* frag = reinterpret_cast<const __nv_bfloat16*>(
+            rows + (lr + (lq & 1) * 8) * LD + (lq >> 1) * 8);
+        unsigned r[4];
+        ldsm_x4<false>(r, frag);
+#pragma unroll 4
+        for (int kc = 0; kc < TB; kc += 16) {
+          unsigned a[2][4], b[M::P][2];
+          split_fragment(r, a);
+          if (kc + 16 < TB) ldsm_x4<false>(r, frag + kc + 16);
+#pragma unroll
+          for (int ip = 0; ip < M::P; ++ip) {
+            const __nv_bfloat16* pp = pkw + ip * TB + kc + 2 * c4;
+            b[ip][0] = g == 0 ? ld_bf16x2(pp) : 0u;
+            b[ip][1] = g == 0 ? ld_bf16x2(pp + 8) : 0u;
+          }
+          mma_parts<MODE>(d, dc, a, b);
+        }
+        if (c4 == 0) {
+          out[g] = __fadd_rn(d[0], dc[0]);
+          out[g + 8] = __fadd_rn(d[2], dc[2]);
+        }
+      }
+    } else if (hdr.offdiag) {  // uniform across the block
+      constexpr int CB = TB / (WARPS / 2) / 16 / 2;  // 16-column blocks a half
+      const float* pis = reinterpret_cast<const float*>(stage + Cfg::PI_OFF);
+#pragma unroll 1
+      for (int h = 0; h < 2; ++h) {
+        const int c0 = (warp - WARPS / 2) * 2 * CB * 16 + h * CB * 16;
+        float d[CB][4], dc[CB][4];
+#pragma unroll
+        for (int cb = 0; cb < CB; ++cb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) d[cb][e] = dc[cb][e] = 0.0f;
+#pragma unroll
+        for (int kr = 0; kr < ROWS / 16; ++kr) {
+          unsigned b[M::P][2];
+          operand_fragment<M::P>(pis + 16 * kr, sc, lane, b);
+          // A^T(m, j) = strip(16 kr + j, c0 + 16 cb + m): matrices (rows
+          // 0-7 | 8-15) x (columns | + 8), transposed; each block's
+          // fragment asked for before the products of the one before
+          const __nv_bfloat16* frag = reinterpret_cast<const __nv_bfloat16*>(
+              raw + (16 * kr + lr + (lq >> 1) * 8) * LD + c0 + (lq & 1) * 8);
+          unsigned r[4];
+          ldsm_x4<true>(r, frag);
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) {
+            unsigned a[2][4];
+            split_fragment(r, a);
+            if (cb + 1 < CB) ldsm_x4<true>(r, frag + 16 * (cb + 1));
+            mma_parts<MODE>(d[cb], dc[cb], a, b);
+          }
+        }
+        if (c4 == 0) {
+          float* out = part_t + ((size_t)t * STRIPS + s) * TB + c0;
+#pragma unroll
+          for (int cb = 0; cb < CB; ++cb) {
+            out[16 * cb + g] = __fadd_rn(d[cb][0], dc[cb][0]);
+            out[16 * cb + g + 8] = __fadd_rn(d[cb][2], dc[cb][2]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // every lane's reads of the stage before the release
+    if (lane == 0) mbar_arrive(&empty[slot]);
+  }
+}
+
 // strip_pass1 with the tensor-core consumers (Cfg::MMA) of the engine
 // Cfg::MODE: for each strip, every consumer warp waits for each of its
 // stages, converts its share of the stage's int16 rows to bf16 (by bits:
@@ -901,6 +1157,10 @@ strip_mma_pass1(Planes A, Vecs V, Walk W, int tiles,
     return;
   }
 
+  if constexpr (Cfg::RAW) {
+    strip_raw_consumers<Cfg>(tiles, smem, full, empty, part_d, part_t);
+    return;
+  }
   __nv_bfloat16* strip =
       reinterpret_cast<__nv_bfloat16*>(smem + S * Cfg::STAGE_BYTES);
   __nv_bfloat16* pk = strip + M::A * ROWS * BF_LD;

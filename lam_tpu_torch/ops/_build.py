@@ -91,7 +91,7 @@ SIGNATURES = {
     "lam_convert_i16": (_P, _L, _I, _P, _P, _P),
     **{f"lam_gemv_q16_symm_{v}": (_P, _P, _P, _P, _P, _P, _I, _P)
        for v in ("magic", "tb1024", "sub8", "split", "split_twopass", "hi",
-                 "hybrid")},
+                 "hi_twopass", "hybrid", "hybrid_twopass")},
 }
 
 
@@ -190,3 +190,12 @@ def sass(path=None):
         elif name is not None and re.match(r"\s*/\*[0-9a-f]{4,}\*/", line):
             kernels[name].append(line.strip())
     return kernels
+
+
+def mma_engine(kernel):
+    """The engine (csrc/symm_walk.cuh's MmaMode: 0 def, 1 split, 2 hi, 3
+    hybrid) of a strip_mma_pass1 kernel, from the MODE that ends its mangled
+    StripCfg<..., bool BITS, bool EARLY, int MODE>; None for any other
+    kernel."""
+    m = re.search(r"Lb[01]ELb[01]ELi(\d)EE", kernel)
+    return int(m.group(1)) if m and "strip_mma_pass1" in kernel else None

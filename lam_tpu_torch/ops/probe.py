@@ -43,10 +43,11 @@ three bf16 parts; hybrid: hi's transpose term, the direct term as f32
 FMAs). Their plain versions: the exact f32 walk, `split` with p * s
 rounded to bf16.
 
-`split` runs on the strip walk with tensor-core consumers
-(csrc/strip_walk.cuh), its p 16-byte aligned on the card; its two-pass
-walk is its control, `gemv_q16_symm_split_twopass`, with the same
-arguments, checks and bits.
+`split`, `hi` and `hybrid` run on the strip walk with tensor-core
+consumers (csrc/strip_walk.cuh), their p 16-byte aligned on the card;
+their two-pass walks are their controls, `gemv_q16_symm_split_twopass`,
+`gemv_q16_symm_hi_twopass` and `gemv_q16_symm_hybrid_twopass`, with the
+same arguments, checks and bits.
 
 Beside them, the earlier walks of six solver kernels that a later walk
 replaced, kept as controls: `gemv_df64_rows` is kernel 6's function
@@ -325,16 +326,18 @@ def gemv_q16_symm_split(q1, s1, p):
 def gemv_q16_symm_hi(q1, s1, p):
     """The q16 walk (tb=512) on the tensor cores with f32-faithful
     products: ah + al against p * s split into three bf16 parts, the five
-    products above f32 rounding, f32 sums."""
+    products above f32 rounding, f32 sums. The strip walk with
+    tensor-core consumers: p 16-byte aligned on the card."""
     return _walk(gemv_q16_symm_hi, gemv_q16_symm_hi_plain, 512, 1,
-                 q1, s1, p)
+                 q1, s1, p, tma=True)
 
 
 def gemv_q16_symm_hybrid(q1, s1, p):
     """The q16 walk (tb=512): the direct term as f32 FMAs on the CUDA
-    cores, the transpose term on the tensor cores as in `hi`."""
+    cores, the transpose term on the tensor cores as in `hi`. The strip
+    walk with tensor-core consumers: p 16-byte aligned on the card."""
     return _walk(gemv_q16_symm_hybrid, gemv_q16_symm_hybrid_plain, 512, 1,
-                 q1, s1, p)
+                 q1, s1, p, tma=True)
 
 
 # -- the controls -------------------------------------------------------------
@@ -451,6 +454,35 @@ def gemv_q16_symm_split_twopass(q1, s1, p):
                  tma=True)
 
 
+def gemv_q16_symm_hi_twopass_plain(q1, s1, p):
+    """Plain version of `gemv_q16_symm_hi_twopass`:
+    `gemv_q16_symm_hi_plain`'s exact f32 walk."""
+    gemv_q16_symm_hi_twopass_plain.calls += 1
+    return _walk_plain(q1, s1, p, "gemv_q16_symm_hi_twopass")
+
+
+def gemv_q16_symm_hi_twopass(q1, s1, p):
+    """`gemv_q16_symm_hi` (the same arguments, checks and bits) on the
+    two-pass walk, q16_bf16_pass1 and symm_pass2."""
+    return _walk(gemv_q16_symm_hi_twopass, gemv_q16_symm_hi_twopass_plain,
+                 512, 1, q1, s1, p, tma=True)
+
+
+def gemv_q16_symm_hybrid_twopass_plain(q1, s1, p):
+    """Plain version of `gemv_q16_symm_hybrid_twopass`:
+    `gemv_q16_symm_hybrid_plain`'s exact f32 walk."""
+    gemv_q16_symm_hybrid_twopass_plain.calls += 1
+    return _walk_plain(q1, s1, p, "gemv_q16_symm_hybrid_twopass")
+
+
+def gemv_q16_symm_hybrid_twopass(q1, s1, p):
+    """`gemv_q16_symm_hybrid` (the same arguments, checks and bits) on the
+    two-pass walk, q16_bf16_pass1 and symm_pass2."""
+    return _walk(gemv_q16_symm_hybrid_twopass,
+                 gemv_q16_symm_hybrid_twopass_plain, 512, 1, q1, s1, p,
+                 tma=True)
+
+
 def laplace5_f32_halo_twopass_plain(p2d, up_edge, dn_edge, nrows_valid, *,
                                     nxi):
     """Plain version of `laplace5_f32_halo_twopass`:
@@ -472,8 +504,9 @@ def laplace5_f32_halo_twopass(p2d, up_edge, dn_edge, nrows_valid, *, nxi,
 
 CONTROLS = (gemv_df64_rows, gemv_q16_symm_slab_twopass, gemv_q16_dual_twopass,
             gemv_fq_dual_twopass, gemv_q16_dual_bf16_twopass,
-            laplace5_f32_halo_twopass,
-            gemv_q16_symm_split_twopass)  # not TPU kernels
+            laplace5_f32_halo_twopass, gemv_q16_symm_split_twopass,
+            gemv_q16_symm_hi_twopass,
+            gemv_q16_symm_hybrid_twopass)  # not TPU kernels
 PROBES = (stream_i16, convert_f32_sum, gemv_q16_symm_magic,
           gemv_q16_symm_tb1024, gemv_q16_symm_sub8, gemv_q16_symm_split,
           gemv_q16_symm_hi, gemv_q16_symm_hybrid) + CONTROLS
@@ -485,7 +518,9 @@ PROBES_PLAIN = (stream_i16_plain, convert_f32_sum_plain,
                 gemv_q16_dual_twopass_plain, gemv_fq_dual_twopass_plain,
                 gemv_q16_dual_bf16_twopass_plain,
                 laplace5_f32_halo_twopass_plain,
-                gemv_q16_symm_split_twopass_plain)
+                gemv_q16_symm_split_twopass_plain,
+                gemv_q16_symm_hi_twopass_plain,
+                gemv_q16_symm_hybrid_twopass_plain)
 
 
 def reset_counters():

@@ -30,8 +30,9 @@ alone) give the full-plane kernels' and the tile-reading walks' bits with
 signed zeros in the planes, the operands and the scales; generate mode's
 operators take them, and an operator handed a tile that is not zero does
 not. Kernel 19's mode for tiles of zeros (the strip walk over q1 alone on
-the rectangle) the same way, and probe P5s (split) on the strip walk's
-tensor-core consumers gives its two-pass control's bits; neither spills.
+the rectangle) the same way, and probes P5s (split), P5h (hi) and P5y
+(hybrid) on the strip walk's tensor-core consumers give their two-pass
+controls' bits; none spills.
 """
 
 import numpy as np
@@ -2564,9 +2565,9 @@ def test_fq_dual_zero_and_split_walks_do_not_spill():
         head = re.search(r"Compiling entry function '(\S+)'", line)
         if head:
             k = head.group(1)
+            split = _build.mma_engine(k) == 1 and "TriangleWalk" in k
             name = ("zero" if "strip_pass1" in k and "StripQ1Planes" in k
-                    and "RectWalk" in k else "split" if
-                    "strip_mma_pass1" in k and "TriangleWalk" in k else None)
+                    and "RectWalk" in k else "split" if split else None)
         elif name and ("registers" in line or "spill" in line):
             report.setdefault(name, []).append(line)
     assert sorted(report) == ["split", "zero"]
@@ -2575,7 +2576,112 @@ def test_fq_dual_zero_and_split_walks_do_not_spill():
                 "loads") in " ".join(lines)
     kernels = _build.sass()
     split = [k for k in kernels
-             if "strip_mma_pass1" in k and "TriangleWalk" in k]
+             if _build.mma_engine(k) == 1 and "TriangleWalk" in k]
     assert len(split) == 1
     assert any("UBLKCP" in line for line in kernels[split[0]])
     assert any("HMMA" in line for line in kernels[split[0]])
+
+
+TC_WALKS = {"hi": 2, "hybrid": 3}  # the walks of this section, by engine
+
+
+@pytest.mark.parametrize("walk", list(TC_WALKS))
+@pytest.mark.parametrize("n", [512, 2048, 10240])
+def test_hi_hybrid_strip_walks_equal_their_controls(walk, n):
+    """Probes P5h (hi) and P5y (hybrid) on the strip walk with tensor-core
+    consumers over the packed triangle give their two-pass controls' bits
+    (q16_bf16_pass1 and symm_pass2), repeat bitwise, launch once and no
+    plain version, and agree with their plain versions at PROBE_TOL; one
+    tile, 10 and 210 tiles of a random plane."""
+    kernel = getattr(probe, f"gemv_q16_symm_{walk}")
+    control = getattr(probe, f"gemv_q16_symm_{walk}_twopass")
+    q1, sc, p = _probe_plane(512, n, seed=80 + n)
+    probe.reset_counters()
+    y = kernel(q1, sc, p)
+    torch.cuda.synchronize()
+    counts = probe.counters()
+    assert counts.pop(kernel.__name__) == 1
+    assert set(counts.values()) == {0}
+    assert torch.equal(y, control(q1, sc, p))
+    assert torch.equal(y, kernel(q1, sc, p))
+    plain = getattr(probe, f"gemv_q16_symm_{walk}_plain")
+    assert _rel(y, plain(q1, sc, p)) <= PROBE_TOL[walk]
+
+
+@pytest.mark.parametrize("walk", list(TC_WALKS))
+def test_hi_hybrid_strip_walks_on_a_padded_plane(walk):
+    """On the probe tool's tridiagonal plane at n=10240 with its tile
+    count padded to 8 (pad tiles of scale 0 past the walk's 210), each
+    walk gives its control's bits on a random p and the closed form on p
+    = 1: y + 2p = 4, and 3 at both ends, exactly."""
+    kernel = getattr(probe, f"gemv_q16_symm_{walk}")
+    control = getattr(probe, f"gemv_q16_symm_{walk}_twopass")
+    n = 10240
+    q1, sc, _, _ = probe.tridiag_q1(n, 512, pad_to=8, device="cuda")
+    assert q1.shape[0] // 512 > layout.tri_tile_count(n // 512)
+    p = torch.from_numpy(
+        np.random.default_rng(85).standard_normal(n).astype(np.float32)
+    ).cuda()
+    y = kernel(q1, sc, p)
+    assert torch.equal(y, control(q1, sc, p))
+    assert torch.equal(y, kernel(q1, sc, p))
+    ones = torch.ones(n, device="cuda")
+    expect = torch.full_like(ones, 4.0)
+    expect[0] = expect[-1] = 3.0
+    assert torch.equal(kernel(q1, sc, ones) + 2.0 * ones, expect)
+
+
+def test_hi_hybrid_walks_and_controls_refuse_misaligned_operands():
+    """hi and hybrid and their two-pass controls refuse a p or a plane
+    that starts 4 bytes into its buffer (the strip walk's bulk copies),
+    before any launch."""
+    def off(x):
+        buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device="cuda")
+        buf[1:1 + x.numel()].copy_(x.flatten())
+        return buf[1:1 + x.numel()].view(x.shape)
+
+    q1, sc, p = _probe_plane(512, 2048, seed=612)
+    probe.reset_counters()
+    for walk in TC_WALKS:
+        for name in (walk, f"{walk}_twopass"):
+            fn = getattr(probe, f"gemv_q16_symm_{name}")
+            with pytest.raises(ValueError, match="aligned"):
+                fn(q1, sc, off(p))
+            with pytest.raises(ValueError, match="aligned"):
+                fn(off(q1), sc, p)
+    assert not any(probe.counters().values())
+
+
+def test_hi_hybrid_strip_walks_do_not_spill():
+    """ptxas' report of the hi and hybrid strip walks (strip_mma_pass1 over
+    the triangle, engines 2 and 3) shows no spill and no stack frame; their
+    SASS holds bulk copies and tensor-core products, their controls'
+    (q16_bf16_pass1) tensor-core products and no bulk copy."""
+    import re
+
+    from lam_tpu_torch.ops import _build
+    log = open(f"{_build.build()[0]}.log").read()
+    engine, report = None, {}
+    for line in log.splitlines():
+        head = re.search(r"Compiling entry function '(\S+)'", line)
+        if head:
+            k = head.group(1)
+            engine = _build.mma_engine(k) if "TriangleWalk" in k else None
+        elif engine in TC_WALKS.values() and ("registers" in line
+                                              or "spill" in line):
+            report.setdefault(engine, []).append(line)
+    assert sorted(report) == sorted(TC_WALKS.values())
+    for lines in report.values():
+        assert ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+                "loads") in " ".join(lines)
+    kernels = _build.sass()
+    for engine in TC_WALKS.values():
+        walk = [k for k in kernels
+                if _build.mma_engine(k) == engine and "TriangleWalk" in k]
+        ctl = [k for k in kernels
+               if f"q16_bf16_pass1ILi{engine}E" in k and "TriangleWalk" in k]
+        assert len(walk) == 1 and len(ctl) == 1
+        assert any("UBLKCP" in line for line in kernels[walk[0]])
+        assert any("HMMA" in line for line in kernels[walk[0]])
+        assert any("HMMA" in line for line in kernels[ctl[0]])
+        assert not any("UBLKCP" in line for line in kernels[ctl[0]])

@@ -136,13 +136,15 @@ WALKS = {"magic": probe.gemv_q16_symm_magic, "sub8": probe.gemv_q16_symm_sub8,
          "split": probe.gemv_q16_symm_split, "hi": probe.gemv_q16_symm_hi,
          "hybrid": probe.gemv_q16_symm_hybrid,
          "tb1024": probe.gemv_q16_symm_tb1024,
-         "split_twopass": probe.gemv_q16_symm_split_twopass}
+         "split_twopass": probe.gemv_q16_symm_split_twopass,
+         "hi_twopass": probe.gemv_q16_symm_hi_twopass,
+         "hybrid_twopass": probe.gemv_q16_symm_hybrid_twopass}
 
 
 @pytest.mark.parametrize("name", list(WALKS))
 def test_walk_matches_script_kernel(name, script_results):
-    """Each walk (and split's two-pass control) against its script
-    kernel."""
+    """Each walk (and the two-pass controls of split, hi and hybrid)
+    against its script kernel."""
     tb = 1024 if name == "tb1024" else 512
     q1, sc, _, _, p = _random_plane(tb, seed=92 if tb == 1024 else 91)
     probe.reset_counters()
@@ -164,6 +166,30 @@ def test_split_control_gives_the_split_walks_result(seed):
     args.insert(1, torch.from_numpy(_random_plane(512, seed)[1]))
     assert torch.equal(probe.gemv_q16_symm_split_twopass(*args),
                        probe.gemv_q16_symm_split(*args))
+
+
+def test_split_by_bits_model_for_every_int16():
+    """A numpy model of the split that the strip walk's tensor-core
+    consumers make by bits (bf16x8_split_by_bits, on a staged vector or on
+    raw ldmatrix fragments): for every int16 q, a = f32 of (q ^ 0x8000) |
+    0x4B000000 less 2^23 + 2^15 equals q, ah = a rounded to bf16 (nearest
+    even) and al = a - ah in f32 hold a exactly, al's f32 has a zero lower
+    half (its bf16 is its top half), and ah + al in f32 is a (hybrid's
+    direct term takes a by bits for the control's ah + al)."""
+    q = np.arange(-32768, 32768, dtype=np.int32)
+    u = ((q & 0xFFFF) ^ 0x8000).astype(np.uint32)
+    a = (u | np.uint32(0x4B000000)).view(np.float32) - np.float32(8421376.0)
+    assert np.array_equal(a, q.astype(np.float32))
+    bits = a.view(np.uint32)
+    ah = ((bits + np.uint32(0x7FFF) + ((bits >> 16) & 1))
+          & np.uint32(0xFFFF0000)).view(np.float32)
+    assert np.array_equal(
+        ah, torch.from_numpy(a).to(torch.bfloat16).float().numpy())
+    al = ah.dtype.type(0) + (a - ah)
+    assert al.dtype == np.float32
+    assert not np.any(al.view(np.uint32) & np.uint32(0xFFFF))
+    assert np.array_equal(ah.astype(np.float64) + al, q.astype(np.float64))
+    assert np.array_equal(ah + al, a)
 
 
 def test_split_rounds_only_the_operand():
@@ -227,7 +253,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                           for x in _random_plane(1024, 94))
     for fn in (probe.gemv_q16_symm_magic, probe.gemv_q16_symm_sub8,
                probe.gemv_q16_symm_split, probe.gemv_q16_symm_hi,
-               probe.gemv_q16_symm_hybrid, probe.gemv_q16_symm_split_twopass):
+               probe.gemv_q16_symm_hybrid, probe.gemv_q16_symm_split_twopass,
+               probe.gemv_q16_symm_hi_twopass,
+               probe.gemv_q16_symm_hybrid_twopass):
         with pytest.raises(ValueError, match="tb=512"):
             fn(q1k, sck, pk)
     strided = torch.zeros(q1.shape[0], 2 * q1.shape[1],
@@ -366,6 +394,10 @@ def test_controls_refuse_what_their_kernels_refuse():
 def test_split_walk_and_its_control_refuse_the_same(walk, case, match):
     """split and its two-pass control refuse the same operands, before any
     launch or plain call."""
+    _refuse(walk, case, match)
+
+
+def _refuse(walk, case, match):
     fn = WALKS[walk]
     q1, sc, _, _, p = (torch.from_numpy(x) for x in _random_plane(512, 96))
     q1k, sck, _, _, pk = (torch.from_numpy(x)
@@ -382,13 +414,44 @@ def test_split_walk_and_its_control_refuse_the_same(walk, case, match):
     assert set(probe.counters().values()) == {0}
 
 
+@pytest.mark.parametrize("walk", ["hi", "hi_twopass", "hybrid",
+                                  "hybrid_twopass"])
+@pytest.mark.parametrize("case,match", [
+    ("dtype", "int16"), ("tb", "tb=512"), ("contiguous", "contiguous"),
+    ("scales", "table shape"), ("p-dtype", "float32"),
+    ("device", "expected")])
+def test_hi_and_hybrid_walks_and_their_controls_refuse_the_same(walk, case,
+                                                                match):
+    """hi and hybrid and their two-pass controls refuse the same operands,
+    before any launch or plain call (a misaligned p only on the card:
+    tests/test_torch_cuda.py)."""
+    _refuse(walk, case, match)
+
+
+@pytest.mark.parametrize("walk", ["split", "hi", "hybrid"])
+def test_walks_and_controls_take_an_unaligned_p_on_the_cpu(walk):
+    """The 16-byte alignment of p is asked only of a CUDA tensor: on the
+    CPU a p that starts 4 bytes into its buffer gives each walk and its
+    control the plain versions' result."""
+    q1, sc, _, _, p = (torch.from_numpy(x) for x in _random_plane(512, 99))
+    buf = torch.zeros(p.numel() + 1)
+    off = buf[1:]
+    off.copy_(p)
+    assert off.data_ptr() % 16
+    y = WALKS[walk](q1, sc, off)
+    assert torch.equal(y, WALKS[walk](q1, sc, p))
+    assert torch.equal(y, WALKS[f"{walk}_twopass"](q1, sc, off))
+
+
 def test_controls_stay_out_of_the_solver_registry():
     names = {fn.__name__ for fn in probe.CONTROLS}
     assert names == {"gemv_df64_rows", "gemv_q16_symm_slab_twopass",
                      "gemv_q16_dual_twopass", "gemv_fq_dual_twopass",
                      "gemv_q16_dual_bf16_twopass",
                      "laplace5_f32_halo_twopass",
-                     "gemv_q16_symm_split_twopass"}
+                     "gemv_q16_symm_split_twopass",
+                     "gemv_q16_symm_hi_twopass",
+                     "gemv_q16_symm_hybrid_twopass"}
     assert set(probe.CONTROLS) <= set(probe.PROBES)
     assert not names & {fn.__name__ for fn in ops.KERNELS}
     for fn in probe.CONTROLS:
