@@ -58,13 +58,13 @@
      gemv_q16_dual, gemv_q16_dual_bf16, gemv_fq_dual, gemv_fq_dual_bcast),
      the zero-tile kernels of 15-, 9-, 12-, 17- and 19-bcast
      (gemv_fq_symm_zero, gemv_df64_symm_slab_zero, gemv_df64_dual_zero,
-     gemv_fq_symm_slab_zero, gemv_fq_dual_zero) and probes P5s, P5h and
-     P5y (gemv_q16_symm_split, _hi, _hybrid) run the strip walk of
-     csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
+     gemv_fq_symm_slab_zero, gemv_fq_dual_zero) and probes P4s, P5s, P5h
+     and P5y (gemv_q16_symm_sub8, _split, _hi, _hybrid) run the strip walk
+     of csrc/strip_walk.cuh: their SASS holds UBLKCP and that of their
      controls, the two-pass walks gemv_q16_symm_slab_twopass,
      gemv_q16_dual_twopass, gemv_q16_dual_bf16_twopass,
-     gemv_fq_dual_twopass, gemv_q16_symm_split_twopass, _hi_twopass,
-     _hybrid_twopass and the tile-reading walks of 15-, 9-, 12- and
+     gemv_fq_dual_twopass, gemv_q16_symm_sub8_twopass, _split_twopass,
+     _hi_twopass, _hybrid_twopass and the tile-reading walks of 15-, 9-, 12- and
      17-bcast, none (18-bf16's, P5s's, P5h's and P5y's walks, each keyed
      by its engine and walk, and their controls hold HMMA);
      ptxas reports no spill for them. Kernel
@@ -151,12 +151,15 @@
    plane (the fq pack's q1) against their plain versions (1e-5; hi and
    hybrid 1e-6, beside the bf16 engine's gap), padding rows 0, bitwise
    repeats, magic equal to kernel 14 bit for bit and its SASS free of
-   int -> f32 conversions (cuobjdump), split, hi and hybrid (the strip
-   walk with tensor-core consumers) each equal to its two-pass control
-   (gemv_q16_symm_split_twopass, _hi_twopass, _hybrid_twopass) bit for
-   bit and timed against it LIBRARY_REPEATS times in turns (failing
-   unless below it in every repeat), the read floor beside, its passes
-   split by torch.profiler; gemv_q16_symm_tb1024 on a random
+   int -> f32 conversions (cuobjdump), sub8 (the strip walk, each
+   consumer warp's transpose row kept) and split, hi and hybrid (the
+   strip walk with tensor-core consumers) each equal to its two-pass
+   control (gemv_q16_symm_sub8_twopass, _split_twopass, _hi_twopass,
+   _hybrid_twopass) bit for bit and timed against it LIBRARY_REPEATS
+   times in turns (failing unless below it in every repeat), the read
+   floor beside, its passes split by torch.profiler, its `kernels` entry
+   naming the control and its median time in those turns
+   ("control", "control_ms"); gemv_q16_symm_tb1024 on a random
    int16 plane of 1024-wide tiles against random power-of-two scales
    (1e-5); stream_i16 (checksum = the plain one) and convert_f32_sum
    (within its per-thread f32 rounding bound) on kernel 14's plane, both
@@ -416,8 +419,10 @@ PROBE_TOL = {"magic": 1e-5, "sub8": 1e-5, "split": 1e-5, "hi": 1e-6,
 # term's f32 FMAs bound it instead)
 MMA_PRODUCTS = {"split": 2, "hi": 5}
 # the probe walks on the strip walk's tensor-core consumers, each held to
-# its two-pass control (gemv_q16_symm_<name>_twopass)
+# its two-pass control (gemv_q16_symm_<name>_twopass), and all the probe
+# walks on the strip walk: P4s's summing consumers too
 TC_WALKS = ("split", "hi", "hybrid")
+STRIP_PROBES = ("sub8", *TC_WALKS)
 HEAT_NX, HEAT_NY = 1200, 1000  # the heat demo's documented plate
 JAC_NX, JAC_NY = 120, 100
 HEAT_GATE = 2e-10    # TRUE residual of a rel_error=1e-10 heat solve
@@ -803,7 +808,8 @@ STRIP_WALKS = {("StripPlanesILi1E", "TableWalk"): "kernel 16",
                ("StripHiPlanes", "TableWalk"): "kernel 9-bcast",
                ("StripHiPlanes", "RectWalk"): "kernel 12-bcast",
                ("StripQ1Planes", "TableWalk"): "kernel 17-bcast",
-               ("StripQ1Planes", "RectWalk"): "kernel 19-bcast zero"}
+               ("StripQ1Planes", "RectWalk"): "kernel 19-bcast zero",
+               ("StripPlanesILi1E", "TriangleWalk"): "probe P4s"}
 # the strip walk with tensor-core consumers (strip_mma_pass1), by (engine,
 # walk) -> its kernel, and the mangled (engine, walk) of its two-pass
 # control, q16_bf16_pass1<MODE, Walk>; the engine is MmaMode's value, the
@@ -830,8 +836,8 @@ def _mma_walk_of(name):
 def stream_sass(build):
     """The SASS of the dense_stream kernels (4, 5 and 6) and of the strip
     walks of kernels 16, 18, 18-bf16, 19, 19-bcast, the zero-tile walks
-    of 15-bcast, 9-bcast, 12-bcast, 17-bcast and 19-bcast and probes P5s,
-    P5h and P5y holds the TMA bulk copy (UBLKCP); that of the
+    of 15-bcast, 9-bcast, 12-bcast, 17-bcast and 19-bcast and probes P4s,
+    P5s, P5h and P5y holds the TMA bulk copy (UBLKCP); that of the
     dense_rows kernels (3 and the df64 control) and of the strip walks'
     controls (the two-pass walk's pass 1) none; the walks with
     tensor-core consumers (strip_mma_pass1: kernel 18-bf16 on the
@@ -878,9 +884,9 @@ def stream_sass(build):
            == sorted(STRIP_WALKS.values())
            and len(walks["strip_pass1"]) == len(STRIP_WALKS)
            and all(walks["strip_pass1"]),
-           "a strip walk (kernels 16, 18, 19, 19-bcast, and 15-, 9-, 12-, "
-           "17- and 19-bcast on zero tiles) is missing or issues no TMA bulk "
-           "copy")
+           "a strip walk (kernels 16, 18, 19, 19-bcast, 15-, 9-, 12-, 17- "
+           "and 19-bcast on zero tiles, probe P4s) is missing or issues no "
+           "TMA bulk copy")
     _check(len(walks["dense_rows"]) == 2
            and len(walks["two-pass control"]) == len(TWOPASS_CONTROLS),
            "SASS: a dense_rows kernel or a strip walk's control is missing")
@@ -1396,12 +1402,13 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
     walks magic, sub8, split, hi and hybrid on kernel 14's plane (the fq
     pack's q1) against their plain versions (PROBE_TOL), padding rows 0,
     bitwise repeats; magic equal to kernel 14's exact result `exact` bit
-    for bit and its SASS free of int -> f32 conversions; split, hi and
-    hybrid (the strip walk's tensor-core consumers) equal to their
-    two-pass controls bit for bit, printed beside the bf16 engine's gap,
-    and timed against their controls in turns with the read floor, their
-    passes split by torch.profiler, each failing unless below its
-    control in every repeat; tb1024 on a random int16 plane
+    for bit and its SASS free of int -> f32 conversions; sub8 (the strip
+    walk's summing consumers, each warp's transpose row kept) and split,
+    hi and hybrid (its tensor-core consumers, printed beside the bf16
+    engine's gap) equal to their two-pass controls bit for bit and timed
+    against them in turns with the read floor, their passes split by
+    torch.profiler, each failing unless below its control in every
+    repeat; tb1024 on a random int16 plane
     of 1024-wide tiles against random power-of-two scales; the two streams
     on kernel 14's plane (stream_i16's checksum equal to the plain one,
     convert_f32_sum's within its per-thread f32 rounding bound) and on the
@@ -1452,7 +1459,7 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
         if name in TC_WALKS:
             line += (", bf16 engine-plain "
                      f"{_rel(gemv.gemv_q16_symm_bf16(q, s, p), y_plain):.3e}")
-            # the strip walk: its two-pass control's bits
+        if name in STRIP_PROBES:  # the strip walk: its control's bits
             control = getattr(probe, f"gemv_q16_symm_{name}_twopass")
             same = torch.equal(y, control(q, s, p))
             line += f", == its two-pass control bitwise: {same}"
@@ -1471,20 +1478,24 @@ def probe_kernels_vs_plain(gemv, layout, q1, s1, ph, exact):
             float((y - y_plain).abs().max()), (call, call_plain, None),
             (real, s[:real.shape[0] // q.shape[1]], p, y), flops, kind)
 
-    for name in ("magic", "sub8", *TC_WALKS):
+    for name in ("magic", *STRIP_PROBES):
         out.append(entry(name, q1, s1, ph, plane))
-    for name in TC_WALKS:
+    for name in STRIP_PROBES:
         walk = getattr(probe, f"gemv_q16_symm_{name}")
         control = getattr(probe, f"gemv_q16_symm_{name}_twopass")
         e = next(e for e in out if e["name"] == walk.__name__)
+        consumers = ("tensor-core consumers" if name in TC_WALKS else
+                     "each warp's transpose row kept")
         times, ctl = _walk_against_control(
             walk.__name__, e["bound_ms"], lambda w=walk: w(q1, s1, ph),
             lambda c=control: c(q1, s1, ph),
             lambda: probe.stream_i16(plane), "read floor (lam_stream_i16)",
-            where="(strip walk, tensor-core consumers) at N=10240")
+            where=f"(strip walk, {consumers}) at N=10240")
         _check(all(t < c for t, c in zip(times, ctl)) or not TIMED,
                f"{walk.__name__}: the strip walk is not faster than its "
                "two-pass control in every repeat")
+        e["control"] = control.__name__
+        e["control_ms"] = statistics.median(ctl)
         _pass_split(f"{walk.__name__} and its two-pass control", {
             "walk": lambda w=walk: w(q1, s1, ph),
             "control": lambda c=control: c(q1, s1, ph)})

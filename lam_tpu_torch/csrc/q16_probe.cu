@@ -29,7 +29,10 @@
 //                             row, 8 rows a strip, with no shared-memory
 //                             pass or barrier, and pass 2 sums 64 partial
 //                             rows a tile in a fixed order. part_t is 8x
-//                             kernel 14's.
+//                             kernel 14's. On the strip walk with exact
+//                             summing consumers (SymmSub8Cfg): each
+//                             consumer warp stores its row and goes on to
+//                             its next strip, with no consumer barrier.
 //   lam_gemv_q16_symm_split   replace scripts/q16_probe4.py:_mxu_kernel
 //   lam_gemv_q16_symm_hi      (:63; gemv_q16_mxu :156, pallas_call :206) in
 //   lam_gemv_q16_symm_hybrid  its modes split, hi and hybrid (mode def is
@@ -43,15 +46,18 @@
 //                             FMAs on the CUDA cores and the transpose term as
 //                             hi does.
 //
-// split, hi and hybrid run on the strip walk with tensor-core consumers
-// (csrc/strip_walk.cuh, strip_mma_pass1 over the packed triangle, the
-// split made by bits, fragments taken with ldmatrix, symm_pass2 as a
-// programmatic dependent launch; split converts each stage into a bf16
-// strip buffer, SymmSplitCfg; hi and hybrid split raw int16 fragments in
-// registers, SymmHiCfg and SymmHybridCfg); each one's two-pass walk
-// (q16_bf16_pass1 and symm_pass2) stays as its control with the same
-// arguments and bits,
+// sub8 runs on the strip walk (csrc/strip_walk.cuh, strip_pass1 over the
+// packed triangle, symm_pass2 over 64 rows a tile as a programmatic
+// dependent launch); split, hi and hybrid on the strip walk with
+// tensor-core consumers (strip_mma_pass1 over the packed triangle, the
+// split made by bits, fragments taken with ldmatrix; split converts each
+// stage into a bf16 strip buffer, SymmSplitCfg; hi and hybrid split raw
+// int16 fragments in registers, SymmHiCfg and SymmHybridCfg). Each one's
+// two-pass walk (symm_pass1<..., WARPS> for sub8, q16_bf16_pass1 for the
+// others, then symm_pass2) stays as its control with the same arguments
+// and bits,
 //
+//   lam_gemv_q16_symm_sub8_twopass     lam_gemv_q16_symm_sub8
 //   lam_gemv_q16_symm_split_twopass    lam_gemv_q16_symm_split
 //   lam_gemv_q16_symm_hi_twopass       lam_gemv_q16_symm_hi
 //   lam_gemv_q16_symm_hybrid_twopass   lam_gemv_q16_symm_hybrid
@@ -62,9 +68,11 @@
 // The TPU scripts' P (tiles a grid step, the DMA block size) has no
 // counterpart: blocks run in no order on 132 SMs, and P=8 is kernel 14's
 // blocked form. What bounds each: bytes, as kernel 14 (2 B a stored element
-// read once; sub8 also writes and reads its 8x partials, 8 rows of TB f32
-// a strip of an off-diagonal tile). The tensor-core walks run one block an
-// SM (csrc/strip_walk.cuh).
+// read once, the scales, p and y; the bound counts only the function's
+// bytes, so sub8's 8x partials, 8 rows of TB f32 a strip of an
+// off-diagonal tile written and read back, are the walk's own cost and
+// not the bound's). The strip walks run one block an SM
+// (csrc/strip_walk.cuh).
 //
 // Scratch (elements): part_d T*tb, part_t T*(tb/64)*tb (sub8: 8x that), f32,
 // T = nblk(nblk+1)/2 of the plane's tile width tb (1024 for tb1024, else
@@ -117,6 +125,17 @@ extern "C" int lam_gemv_q16_symm_tb1024(const short* q1, const float* s1,
 extern "C" int lam_gemv_q16_symm_sub8(const short* q1, const float* s1,
                                       const float* p, float* y, float* part_d,
                                       float* part_t, int nblk, void* stream) {
+  return launch_strip_tri<SymmSub8Cfg>(StripPlanes<1>{{q1}, {s1}},
+                                       StripVecs<1>{{p}, {p}}, F32Out{y},
+                                       part_d, part_t, nblk,
+                                       (cudaStream_t)stream);
+}
+
+extern "C" int lam_gemv_q16_symm_sub8_twopass(const short* q1,
+                                              const float* s1, const float* p,
+                                              float* y, float* part_d,
+                                              float* part_t, int nblk,
+                                              void* stream) {
   return launch<TB, WARPS>(Q16Plane{q1, s1, 0.0f}, F32Vec{p}, F32Out{y},
                            part_d, part_t, nblk, (cudaStream_t)stream);
 }

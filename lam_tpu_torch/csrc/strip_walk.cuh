@@ -1,4 +1,4 @@
-// The strip walk: pass 1 of twelve kernels, a persistent grid fed by TMA
+// The strip walk: pass 1 of thirteen kernels, a persistent grid fed by TMA
 // bulk copies, in place of symm_pass1 and q16_bf16_pass1
 // (csrc/symm_walk.cuh):
 //
@@ -33,6 +33,12 @@
 //                                      of the rectangle whose q2/q3 tiles
 //                                      are zero: q1 alone, f64 sums, the
 //                                      (hi, lo) pairs of p and q
+//   probe P4s  lam_gemv_q16_symm_sub8   (csrc/q16_probe.cu) the q16 plane
+//                                      of the packed triangle, exact
+//                                      products, each summing warp's
+//                                      transpose row kept (SUB = WARPS:
+//                                      8 rows a strip, no reduction, no
+//                                      consumer barrier), symm_pass2
 //   probe P5s  lam_gemv_q16_symm_split  (csrc/q16_probe.cu) the q16 plane
 //                                      of the packed triangle, each value
 //                                      split into bf16 ah + al, tensor-core
@@ -95,7 +101,11 @@
 //    kernel 19, three 16-row stages, hung or faulted so).
 //  * The 8 consumer warps reduce the transpose sums through shared memory
 //    on a named barrier of their own (bar.sync 1, 256), in rounds of RW
-//    warps' rows, while the producer streams on.
+//    warps' rows, while the producer streams on. Probe P4s (SUB = WARPS)
+//    does not: each warp stores its own transpose row to global memory
+//    where symm_pass1<..., WARPS> stores it and goes on to its next strip,
+//    so no consumer waits for another (the TPU probe's transpose tree
+//    stopped at 8 sublanes, each summed once at the end).
 //  * Kernel 19 converts its int16 values to f64 by bits (BITS): the three
 //    conversions an element, at 16 a clock on an SM, were 3/8 of a strip's
 //    share of the card's bandwidth; by bits each is one add at 64 a clock.
@@ -158,8 +168,8 @@
 //
 // Sizes, from sweeps on an H100 (PERF.md section 6; the chosen ones at
 // SlabQ16Cfg, DualQ16Cfg, DualFQCfg, DualBf16Cfg, SymmQ1Cfg, SlabHiCfg,
-// DualHiCfg, SlabQ1Cfg, DualQ1Cfg, SymmSplitCfg, SymmHiCfg and
-// SymmHybridCfg below). Kernel 16: two
+// DualHiCfg, SlabQ1Cfg, DualQ1Cfg, SymmSplitCfg, SymmHiCfg,
+// SymmHybridCfg and SymmSub8Cfg below). Kernel 16: two
 // stages (136 KB) and a 16 KB reduction buffer; a third stage was slower,
 // and so were two blocks an SM of one stage each, the int16 -> f32
 // conversion by bits (csrc/q16_probe.cu's magic), an earlier pass-2
@@ -198,7 +208,15 @@
 // than two halves of four; a third stage as fast; the direct fragments
 // two chunks ahead, the B fragments one ahead, a hand-interleaved direct
 // chain and all eight warps taking transpose blocks beside the direct
-// chains 1-31% slower; the packed split conversion 2-4% faster.
+// chains 1-31% slower; the packed split conversion 2-4% faster. P4s:
+// EARLY 32-row stages, four (or two) of them, 2% faster than kernel 16's
+// two 64-row stages; 16-row stages, six 32-row stages, a third 64-row
+// stage, conversion by bits and part_t stored with an L2 evict-last hint
+// as fast or up to 1% slower; its pass 2 (symm_pass2 over 64 rows a tile)
+// took ~40% of its time, and asking for 8 terms a thread at once (AHEAD)
+// made the walk 13% faster (4 or 16-32 at once, and an L2 bulk prefetch
+// of each block's partials, slower; blocks of 16 outputs, not 32, 1%
+// faster, not taken: symm_pass2's blocks are every triangle walk's).
 //
 // The bits: inside a strip nothing of symm_pass1's order changes. Warp w
 // sums rows w*8 .. w*8+7 in that order, lane l holds columns lane_col<8>(l,
@@ -209,11 +227,13 @@
 // instruction or by bits; DF64Vec's hi + lo in f64; d += a * pk and tacc
 // += a * pi), so nvcc contracts them into the same FMAs; the transpose
 // column sums are added over the 8 warps in the order w = 0 .. 7 (a round
-// of RW < 8 warps carries the sum on in registers, the same additions).
-// Each block writes part_d[t][r] and part_t[t][s][c] as symm_pass1 does, so
-// pass 2 sums the same partials in the same order: (yd, yt) equal the
-// two-pass walk's bit for bit. The f32 plane of 9-bcast and 12-bcast is
-// read as DF64TilePlane reads it, four columns a 16-byte vector
+// of RW < 8 warps carries the sum on in registers, the same additions),
+// or (SUB = WARPS) kept apart, each warp's row the two-pass walk's row.
+// Each block writes part_d[t][r] and part_t[t][s][c] (part_t[t][s][w][c] at
+// SUB = WARPS) as symm_pass1 does, so pass 2 sums the same partials in the
+// same order: (yd, yt) equal the two-pass walk's bit for bit. The f32
+// plane of 9-bcast and 12-bcast is read as DF64TilePlane reads it, four
+// columns a 16-byte vector
 // (lane_col<4>); on the rectangle symm_pass1 reads pk = P.get(k*TB + c) * 1
 // and pi = Q.get(i*TB + r) * 1 from the two (hi, lo) pairs, the strip walk
 // the same sums from the stage, and both write part_d[i*cb + k][r] and
@@ -428,7 +448,8 @@ struct StripHeader {
 constexpr int NO_MMA = -1;
 
 template <class Planes, class Vecs, int SR_, int S_, int RW_,
-          bool BITS_ = false, bool EARLY_ = false, int MODE_ = NO_MMA>
+          bool BITS_ = false, bool EARLY_ = false, int MODE_ = NO_MMA,
+          int SUB_ = 1>
 struct StripCfg {
   using acc_t = typename Planes::acc_t;
   static_assert(std::is_same<acc_t, typename Vecs::acc_t>::value,
@@ -436,6 +457,7 @@ struct StripCfg {
   using planes_t = Planes;
   static constexpr int NP = Planes::NP, NV = Vecs::NV, VEC = Planes::VEC;
   static constexpr int SR = SR_, S = S_, RW = RW_, MODE = MODE_;
+  static constexpr int SUB = SUB_;  // transpose partial rows a strip
   static constexpr bool BITS = BITS_, EARLY = EARLY_, MMA = MODE != NO_MMA;
   // the engines hi and hybrid from the raw stage, def and split through
   // the bf16 strip buffer
@@ -451,6 +473,9 @@ struct StripCfg {
   static_assert(!RAW || (MMA && SR == ROWS),
                 "raw fragments: the tensor-core consumers, one stage a "
                 "strip");
+  static_assert(SUB == 1 || (SUB == WARPS && !MMA),
+                "the transpose sums reduced over the warps (1), or each "
+                "summing warp's own row kept (WARPS)");
   static constexpr int SPS = ROWS / SR;           // stages a strip
   static constexpr int WPS = SR / ROWS_PER_WARP;  // consumer warps a stage
   static constexpr int READERS = MMA ? WARPS : WPS;  // warps that read one
@@ -464,11 +489,13 @@ struct StripCfg {
   static constexpr int HDR_OFF = PI_OFF + NV * SR * (int)sizeof(float);
   static constexpr int STAGE_BYTES =
       (HDR_OFF + (int)sizeof(StripHeader<NP>) + 127) / 128 * 128;
-  // RAW: each direct warp's bf16 parts of the direct operand
+  // RAW: each direct warp's bf16 parts of the direct operand; SUB =
+  // WARPS: no reduction
   static constexpr int RED_BYTES =
-      RAW   ? WARPS / 2 * MmaSmem<MODE>::PK * TB * 2
-      : MMA ? MmaSmem<MODE>::bytes
-            : RW * TB * (int)sizeof(acc_t);
+      RAW            ? WARPS / 2 * MmaSmem<MODE>::PK * TB * 2
+      : MMA          ? MmaSmem<MODE>::bytes
+      : SUB == WARPS ? 0
+                     : RW * TB * (int)sizeof(acc_t);
   static constexpr int SMEM = S * STAGE_BYTES + RED_BYTES;
   static_assert(SR % ROWS_PER_WARP == 0 && ROWS % SR == 0,
                 "a stage is whole warps' rows of one strip");
@@ -546,6 +573,11 @@ using SymmHiCfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS, true,
                            false, MMA_HI>;
 using SymmHybridCfg = StripCfg<StripPlanes<1>, StripVecs<1>, ROWS, 2, WARPS,
                                true, false, MMA_HYBRID>;
+//  * probe P4s (sub8): 32-row stages of 32 KB, four of them, EARLY, each
+//    summing warp's transpose row kept (SUB = WARPS: no reduction buffer):
+//    137 KB.
+using SymmSub8Cfg = StripCfg<StripPlanes<1>, StripVecs<1>, 32, 4, WARPS,
+                             false, true, NO_MMA, WARPS>;
 
 // Operand entry i of a vector staged as NV arrays `stride` apart: F32Vec's
 // and DF64Vec's get.
@@ -883,7 +915,18 @@ __device__ __forceinline__ void strip_sum_consumers(
       if (lane == 0) mbar_arrive(&empty[slot]);
     }
 
-    if (off) {
+    if constexpr (Cfg::SUB == WARPS) {
+      // each warp's own transpose row, at symm_pass1<..., SUB = WARPS>'s
+      // place and columns: no shared-memory pass and no barrier, so the
+      // warp goes on to its next strip at once
+      if (off) {
+        acc_t* out =
+            part_t + (((size_t)t * STRIPS + s) * WARPS + warp) * TB;
+#pragma unroll
+        for (int h = 0; h < GROUPS; ++h)
+          store_vec<VEC>(out + h * 32 * VEC + lane * VEC, tacc + VEC * h);
+      }
+    } else if (off) {
       // rounds of RW warps' rows, each column's sum carried on in order
       acc_t sum[COLS_PER_THREAD] = {};
 #pragma unroll
@@ -1286,9 +1329,9 @@ int launch_strip_slab(Planes A, Vecs V, TableWalk W, SlabLists L, Out YD,
                           L.d_ptr, L.d_ids, L.t_ptr, L.t_ids, ms, YD, YT);
 }
 
-// Kernel 15-bcast (zero tiles) and probe P5s on the strip walk: pass 1
-// over the T = nblk(nblk+1)/2 tiles of the packed triangle, then
-// symm_pass2.
+// Kernel 15-bcast (zero tiles) and probes P4s, P5s, P5h and P5y on the
+// strip walk: pass 1 over the T = nblk(nblk+1)/2 tiles of the packed
+// triangle, then symm_pass2 over the Cfg's SUB transpose rows a strip.
 template <class Cfg, class Planes, class Vecs, class Out>
 int launch_strip_tri(Planes A, Vecs V, Out Y, typename Cfg::acc_t* part_d,
                      typename Cfg::acc_t* part_t, int nblk,
@@ -1299,9 +1342,13 @@ int launch_strip_tri(Planes A, Vecs V, Out Y, typename Cfg::acc_t* part_d,
                                         nblk * (nblk + 1) / 2, part_d,
                                         part_t, stream);
   if (e != (int)cudaSuccess) return e;
-  return launch_dependent(symm_pass2<TB, STRIPS, acc_t, Out, true>,
-                          nblk * TB / P2_COLS, stream, (const acc_t*)part_d,
-                          (const acc_t*)part_t, nblk, Y);
+  // P4s's 64 rows a tile: each of row tile 0's threads sums ~150 of them,
+  // asked for 8 at a time (one at a time took 40% longer)
+  constexpr int AHEAD = Cfg::SUB == 1 ? 1 : 8;
+  return launch_dependent(
+      symm_pass2<TB, STRIPS * Cfg::SUB, acc_t, Out, true, AHEAD>,
+      nblk * TB / P2_COLS, stream, (const acc_t*)part_d, (const acc_t*)part_t,
+      nblk, Y);
 }
 
 // Kernels 18, 19, 12-bcast and 19-bcast (zero tiles) on the strip walk:

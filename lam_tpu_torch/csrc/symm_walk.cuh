@@ -818,7 +818,11 @@ int pass1(Plane A, Vec P, Vec Q, Walk W, int tiles,
 // W) x P2_GROUPS strided partial sums, combined in a fixed order. PDL:
 // launched as a programmatic dependent of pass 1 (csrc/strip_walk.cuh,
 // kernel 15-bcast on zero tiles), it first waits for pass 1's writes.
-template <int W, int PARTS, class acc_t, class Out, bool PDL = false>
+// AHEAD: a thread asks for AHEAD of its terms at once, then adds them in
+// the same order (the same bits): with PARTS = 64 (probe P4s) row tile 0's
+// threads sum ~150 terms each, a chain of dependent loads one at a time.
+template <int W, int PARTS, class acc_t, class Out, bool PDL = false,
+          int AHEAD = 1>
 __global__ void __launch_bounds__(THREADS)
 symm_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
            int nblk, Out out) {
@@ -834,7 +838,25 @@ symm_pass2(const acc_t* __restrict__ part_d, const acc_t* __restrict__ part_t,
   const size_t tdiag0 = (size_t)i * (i + 1) / 2;
 
   acc_t v = acc_t(0);
-  for (int m = grp; m < n_terms; m += P2_GROUPS) {
+  int m = grp;
+  if constexpr (AHEAD > 1) {
+    for (; m + (AHEAD - 1) * P2_GROUPS < n_terms; m += AHEAD * P2_GROUPS) {
+      acc_t x[AHEAD];
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) {
+        const int mu = m + u * P2_GROUPS;
+        const int mt = mu - n_direct;
+        const int j = i + 1 + mt / PARTS;
+        x[u] = mu < n_direct
+                   ? part_d[(tdiag0 + mu) * W + r]
+                   : part_t[(((size_t)j * (j + 1) / 2 + i) * PARTS +
+                             mt % PARTS) * W + r];
+      }
+#pragma unroll
+      for (int u = 0; u < AHEAD; ++u) v += x[u];
+    }
+  }
+  for (; m < n_terms; m += P2_GROUPS) {
     if (m < n_direct) {
       v += part_d[(tdiag0 + m) * W + r];
     } else {

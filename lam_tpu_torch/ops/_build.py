@@ -90,8 +90,9 @@ SIGNATURES = {
     "lam_stream_i16": (_P, _L, _I, _P, _P, _P),
     "lam_convert_i16": (_P, _L, _I, _P, _P, _P),
     **{f"lam_gemv_q16_symm_{v}": (_P, _P, _P, _P, _P, _P, _I, _P)
-       for v in ("magic", "tb1024", "sub8", "split", "split_twopass", "hi",
-                 "hi_twopass", "hybrid", "hybrid_twopass")},
+       for v in ("magic", "tb1024", "sub8", "sub8_twopass", "split",
+                 "split_twopass", "hi", "hi_twopass", "hybrid",
+                 "hybrid_twopass")},
 }
 
 
@@ -194,8 +195,8 @@ def sass(path=None):
 
 def mma_engine(kernel):
     """The engine (csrc/symm_walk.cuh's MmaMode: 0 def, 1 split, 2 hi, 3
-    hybrid) of a strip_mma_pass1 kernel, from the MODE that ends its mangled
-    StripCfg<..., bool BITS, bool EARLY, int MODE>; None for any other
-    kernel."""
-    m = re.search(r"Lb[01]ELb[01]ELi(\d)EE", kernel)
+    hybrid) of a strip_mma_pass1 kernel, from the MODE near the end of its
+    mangled StripCfg<..., bool BITS, bool EARLY, int MODE, int SUB>; None
+    for any other kernel."""
+    m = re.search(r"Lb[01]ELb[01]ELi(\d)ELi\d+EE", kernel)
     return int(m.group(1)) if m and "strip_mma_pass1" in kernel else None

@@ -43,11 +43,13 @@ three bf16 parts; hybrid: hi's transpose term, the direct term as f32
 FMAs). Their plain versions: the exact f32 walk, `split` with p * s
 rounded to bf16.
 
-`split`, `hi` and `hybrid` run on the strip walk with tensor-core
-consumers (csrc/strip_walk.cuh), their p 16-byte aligned on the card;
-their two-pass walks are their controls, `gemv_q16_symm_split_twopass`,
-`gemv_q16_symm_hi_twopass` and `gemv_q16_symm_hybrid_twopass`, with the
-same arguments, checks and bits.
+`sub8` runs on the strip walk (csrc/strip_walk.cuh) with exact summing
+consumers, each warp storing its own transpose row with no barrier;
+`split`, `hi` and `hybrid` on the strip walk with tensor-core consumers.
+Their p must be 16-byte aligned on the card. Their two-pass walks are
+their controls, `gemv_q16_symm_sub8_twopass`,
+`gemv_q16_symm_split_twopass`, `gemv_q16_symm_hi_twopass` and
+`gemv_q16_symm_hybrid_twopass`, with the same arguments, checks and bits.
 
 Beside them, the earlier walks of six solver kernels that a later walk
 replaced, kept as controls: `gemv_df64_rows` is kernel 6's function
@@ -309,9 +311,10 @@ def gemv_q16_symm_tb1024(q1, s1, p):
 
 def gemv_q16_symm_sub8(q1, s1, p):
     """Kernel 14's exact walk (tb=512) with each warp's transpose partial
-    row kept: 8 a strip, summed by pass 2 (8x the partial bytes)."""
+    row kept: 8 a strip, summed by pass 2 (8x the partial bytes). The
+    strip walk: p 16-byte aligned on the card."""
     return _walk(gemv_q16_symm_sub8, gemv_q16_symm_sub8_plain, 512, 8,
-                 q1, s1, p)
+                 q1, s1, p, tma=True)
 
 
 def gemv_q16_symm_split(q1, s1, p):
@@ -438,6 +441,22 @@ def gemv_q16_dual_bf16_twopass(q1buf, sc, p, q):
                           "lam_gemv_q16_dual_bf16_twopass", q1buf, sc, p, q)
 
 
+def gemv_q16_symm_sub8_twopass_plain(q1, s1, p):
+    """Plain version of `gemv_q16_symm_sub8_twopass`:
+    `gemv_q16_symm_sub8_plain`'s exact f32 walk."""
+    gemv_q16_symm_sub8_twopass_plain.calls += 1
+    return _walk_plain(q1, s1, p, "gemv_q16_symm_sub8_twopass")
+
+
+def gemv_q16_symm_sub8_twopass(q1, s1, p):
+    """`gemv_q16_symm_sub8` (the same arguments, checks and bits) on the
+    two-pass walk, symm_pass1 with 8 transpose rows a strip and
+    symm_pass2."""
+    return _walk(gemv_q16_symm_sub8_twopass,
+                 gemv_q16_symm_sub8_twopass_plain, 512, 8, q1, s1, p,
+                 tma=True)
+
+
 def gemv_q16_symm_split_twopass_plain(q1, s1, p):
     """Plain version of `gemv_q16_symm_split_twopass`:
     `gemv_q16_symm_split_plain`'s walk."""
@@ -504,8 +523,8 @@ def laplace5_f32_halo_twopass(p2d, up_edge, dn_edge, nrows_valid, *, nxi,
 
 CONTROLS = (gemv_df64_rows, gemv_q16_symm_slab_twopass, gemv_q16_dual_twopass,
             gemv_fq_dual_twopass, gemv_q16_dual_bf16_twopass,
-            laplace5_f32_halo_twopass, gemv_q16_symm_split_twopass,
-            gemv_q16_symm_hi_twopass,
+            laplace5_f32_halo_twopass, gemv_q16_symm_sub8_twopass,
+            gemv_q16_symm_split_twopass, gemv_q16_symm_hi_twopass,
             gemv_q16_symm_hybrid_twopass)  # not TPU kernels
 PROBES = (stream_i16, convert_f32_sum, gemv_q16_symm_magic,
           gemv_q16_symm_tb1024, gemv_q16_symm_sub8, gemv_q16_symm_split,
@@ -518,6 +537,7 @@ PROBES_PLAIN = (stream_i16_plain, convert_f32_sum_plain,
                 gemv_q16_dual_twopass_plain, gemv_fq_dual_twopass_plain,
                 gemv_q16_dual_bf16_twopass_plain,
                 laplace5_f32_halo_twopass_plain,
+                gemv_q16_symm_sub8_twopass_plain,
                 gemv_q16_symm_split_twopass_plain,
                 gemv_q16_symm_hi_twopass_plain,
                 gemv_q16_symm_hybrid_twopass_plain)

@@ -31,7 +31,8 @@ signed zeros in the planes, the operands and the scales; generate mode's
 operators take them, and an operator handed a tile that is not zero does
 not. Kernel 19's mode for tiles of zeros (the strip walk over q1 alone on
 the rectangle) the same way, and probes P5s (split), P5h (hi) and P5y
-(hybrid) on the strip walk's tensor-core consumers give their two-pass
+(hybrid) on the strip walk's tensor-core consumers and P4s (sub8) on its
+summing consumers, each warp's transpose row kept, give their two-pass
 controls' bits; none spills.
 """
 
@@ -413,9 +414,9 @@ def test_gemv_df64_cols_stream_walk(m, n, nb):
 def test_dense_stream_kernels_hold_the_bulk_copy():
     """The SASS of kernels 4, 5 and 6 (dense_stream) and of the strip walks
     of kernels 16, 18, 19, 19-bcast (its own planes type,
-    StripTilePlanes) and the zero-tile walks of 15-, 9-, 12-, 17- and
-    19-bcast (StripQ1Planes, StripHiPlanes) issues TMA bulk copies
-    (UBLKCP); that of
+    StripTilePlanes), the zero-tile walks of 15-, 9-, 12-, 17- and
+    19-bcast (StripQ1Planes, StripHiPlanes) and probe P4s (the q16 plane
+    on the triangle) issues TMA bulk copies (UBLKCP); that of
     the dense_rows kernels (3 and the df64 control) and of the strip
     walks' controls (the two-pass walk's pass 1 on the slab tables and on
     the q16 and fq rectangles, and the tile-reading walks of 15-, 9-, 12-
@@ -433,7 +434,7 @@ def test_dense_stream_kernels_hold_the_bulk_copy():
             ("11FQTilePlane", "TableWalk")))]
     assert sorted("DF64Stream" in k for k in stream) == [False, True, True]
     assert sorted("DF64Mat" in k for k in rows) == [False, True]
-    assert len(strip) == 9 and len(twopass) == 7
+    assert len(strip) == 10 and len(twopass) == 7
     planes = ("StripPlanesILi1E", "StripPlanesILi3E", "StripTilePlanes",
               "StripQ1Planes", "StripHiPlanes")
     walks = ("TableWalk", "RectWalk", "TriangleWalk")
@@ -441,9 +442,9 @@ def test_dense_stream_kernels_hold_the_bulk_copy():
                    next(w for w in walks if w in k)) for k in strip) == [
         ("StripHiPlanes", "RectWalk"), ("StripHiPlanes", "TableWalk"),
         ("StripPlanesILi1E", "RectWalk"), ("StripPlanesILi1E", "TableWalk"),
-        ("StripPlanesILi3E", "RectWalk"), ("StripQ1Planes", "RectWalk"),
-        ("StripQ1Planes", "TableWalk"), ("StripQ1Planes", "TriangleWalk"),
-        ("StripTilePlanes", "RectWalk")]
+        ("StripPlanesILi1E", "TriangleWalk"), ("StripPlanesILi3E", "RectWalk"),
+        ("StripQ1Planes", "RectWalk"), ("StripQ1Planes", "TableWalk"),
+        ("StripQ1Planes", "TriangleWalk"), ("StripTilePlanes", "RectWalk")]
     for k in stream + strip:
         assert any("UBLKCP" in line for line in kernels[k])
     for k in rows + twopass:
@@ -2552,10 +2553,12 @@ def test_fq_dual_zero_and_split_refuse_misaligned_operands():
 
 
 def test_fq_dual_zero_and_split_walks_do_not_spill():
-    """ptxas' report of the two new strip-walk instantiations (kernel
+    """ptxas' report of three strip-walk instantiations (kernel
     19-bcast's zero-tile walk, StripQ1Planes on RectWalk; P5s's
-    strip_mma_pass1 over the triangle) shows no spill and no stack frame;
-    the split walk's SASS holds bulk copies and tensor-core products."""
+    strip_mma_pass1 over the triangle; P4s's strip_pass1 over the
+    triangle, StripPlanes<1> on TriangleWalk) shows no spill and no stack
+    frame at the walk's 9 warps; the split walk's SASS holds bulk copies
+    and tensor-core products."""
     import re
 
     from lam_tpu_torch.ops import _build
@@ -2567,10 +2570,13 @@ def test_fq_dual_zero_and_split_walks_do_not_spill():
             k = head.group(1)
             split = _build.mma_engine(k) == 1 and "TriangleWalk" in k
             name = ("zero" if "strip_pass1" in k and "StripQ1Planes" in k
-                    and "RectWalk" in k else "split" if split else None)
+                    and "RectWalk" in k else "split" if split else
+                    "sub8" if "strip_pass1" in k
+                    and "StripPlanesILi1E" in k and "TriangleWalk" in k
+                    else None)
         elif name and ("registers" in line or "spill" in line):
             report.setdefault(name, []).append(line)
-    assert sorted(report) == ["split", "zero"]
+    assert sorted(report) == ["split", "sub8", "zero"]
     for lines in report.values():
         assert ("0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
                 "loads") in " ".join(lines)
@@ -2685,3 +2691,67 @@ def test_hi_hybrid_strip_walks_do_not_spill():
         assert any("HMMA" in line for line in kernels[walk[0]])
         assert any("HMMA" in line for line in kernels[ctl[0]])
         assert not any("UBLKCP" in line for line in kernels[ctl[0]])
+
+
+# -- probe P4s (sub8) on the strip walk's summing consumers -------------------
+
+@pytest.mark.parametrize("n", [512, 2048, 10240])
+def test_sub8_strip_walk_equals_its_control(n):
+    """Probe P4s (sub8) on the strip walk over the packed triangle, each
+    consumer warp storing its own transpose row, gives its two-pass
+    control's bits (symm_pass1 with 8 rows a strip, symm_pass2 over 64 a
+    tile), repeats bitwise, launches once and no plain version, and agrees
+    with its plain version at PROBE_TOL: one tile (no off-diagonal tile,
+    part_t never read), 10 tiles (80 strips, fewer than the SMs) and 210
+    tiles of a random plane."""
+    q1, sc, p = _probe_plane(512, n, seed=90 + n)
+    probe.reset_counters()
+    y = probe.gemv_q16_symm_sub8(q1, sc, p)
+    torch.cuda.synchronize()
+    counts = probe.counters()
+    assert counts.pop("gemv_q16_symm_sub8") == 1
+    assert set(counts.values()) == {0}
+    assert torch.equal(y, probe.gemv_q16_symm_sub8_twopass(q1, sc, p))
+    assert torch.equal(y, probe.gemv_q16_symm_sub8(q1, sc, p))
+    assert _rel(y, probe.gemv_q16_symm_sub8_plain(q1, sc, p)) \
+        <= PROBE_TOL["sub8"]
+
+
+def test_sub8_strip_walk_on_a_padded_plane():
+    """On the probe tool's tridiagonal plane at n=10240 with its tile count
+    padded to 8 (pad tiles of scale 0 past the walk's 210), the walk gives
+    its control's bits on a random p and the closed form on p = 1: y + 2p
+    = 4, and 3 at both ends, exactly."""
+    n = 10240
+    q1, sc, _, _ = probe.tridiag_q1(n, 512, pad_to=8, device="cuda")
+    assert q1.shape[0] // 512 > layout.tri_tile_count(n // 512)
+    p = torch.from_numpy(
+        np.random.default_rng(95).standard_normal(n).astype(np.float32)
+    ).cuda()
+    y = probe.gemv_q16_symm_sub8(q1, sc, p)
+    assert torch.equal(y, probe.gemv_q16_symm_sub8_twopass(q1, sc, p))
+    assert torch.equal(y, probe.gemv_q16_symm_sub8(q1, sc, p))
+    ones = torch.ones(n, device="cuda")
+    expect = torch.full_like(ones, 4.0)
+    expect[0] = expect[-1] = 3.0
+    assert torch.equal(probe.gemv_q16_symm_sub8(q1, sc, ones) + 2.0 * ones,
+                       expect)
+
+
+def test_sub8_walk_and_control_refuse_misaligned_operands():
+    """The sub8 walk and its two-pass control refuse a p or a plane that
+    starts 4 bytes into its buffer (the strip walk's bulk copies), before
+    any launch."""
+    def off(x):
+        buf = torch.zeros(x.numel() + 4, dtype=x.dtype, device="cuda")
+        buf[1:1 + x.numel()].copy_(x.flatten())
+        return buf[1:1 + x.numel()].view(x.shape)
+
+    q1, sc, p = _probe_plane(512, 2048, seed=613)
+    probe.reset_counters()
+    for fn in (probe.gemv_q16_symm_sub8, probe.gemv_q16_symm_sub8_twopass):
+        with pytest.raises(ValueError, match="aligned"):
+            fn(q1, sc, off(p))
+        with pytest.raises(ValueError, match="aligned"):
+            fn(off(q1), sc, p)
+    assert not any(probe.counters().values())

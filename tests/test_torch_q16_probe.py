@@ -136,6 +136,7 @@ WALKS = {"magic": probe.gemv_q16_symm_magic, "sub8": probe.gemv_q16_symm_sub8,
          "split": probe.gemv_q16_symm_split, "hi": probe.gemv_q16_symm_hi,
          "hybrid": probe.gemv_q16_symm_hybrid,
          "tb1024": probe.gemv_q16_symm_tb1024,
+         "sub8_twopass": probe.gemv_q16_symm_sub8_twopass,
          "split_twopass": probe.gemv_q16_symm_split_twopass,
          "hi_twopass": probe.gemv_q16_symm_hi_twopass,
          "hybrid_twopass": probe.gemv_q16_symm_hybrid_twopass}
@@ -143,7 +144,7 @@ WALKS = {"magic": probe.gemv_q16_symm_magic, "sub8": probe.gemv_q16_symm_sub8,
 
 @pytest.mark.parametrize("name", list(WALKS))
 def test_walk_matches_script_kernel(name, script_results):
-    """Each walk (and the two-pass controls of split, hi and hybrid)
+    """Each walk (and the two-pass controls of sub8, split, hi and hybrid)
     against its script kernel."""
     tb = 1024 if name == "tb1024" else 512
     q1, sc, _, _, p = _random_plane(tb, seed=92 if tb == 1024 else 91)
@@ -428,7 +429,19 @@ def test_hi_and_hybrid_walks_and_their_controls_refuse_the_same(walk, case,
     _refuse(walk, case, match)
 
 
-@pytest.mark.parametrize("walk", ["split", "hi", "hybrid"])
+@pytest.mark.parametrize("walk", ["sub8", "sub8_twopass"])
+@pytest.mark.parametrize("case,match", [
+    ("dtype", "int16"), ("tb", "tb=512"), ("contiguous", "contiguous"),
+    ("scales", "table shape"), ("p-dtype", "float32"),
+    ("device", "expected")])
+def test_sub8_walk_and_its_control_refuse_the_same(walk, case, match):
+    """sub8 and its two-pass control refuse the same operands, before any
+    launch or plain call (a misaligned p only on the card:
+    tests/test_torch_cuda.py)."""
+    _refuse(walk, case, match)
+
+
+@pytest.mark.parametrize("walk", ["sub8", "split", "hi", "hybrid"])
 def test_walks_and_controls_take_an_unaligned_p_on_the_cpu(walk):
     """The 16-byte alignment of p is asked only of a CUDA tensor: on the
     CPU a p that starts 4 bytes into its buffer gives each walk and its
@@ -449,6 +462,7 @@ def test_controls_stay_out_of_the_solver_registry():
                      "gemv_q16_dual_twopass", "gemv_fq_dual_twopass",
                      "gemv_q16_dual_bf16_twopass",
                      "laplace5_f32_halo_twopass",
+                     "gemv_q16_symm_sub8_twopass",
                      "gemv_q16_symm_split_twopass",
                      "gemv_q16_symm_hi_twopass",
                      "gemv_q16_symm_hybrid_twopass"}
