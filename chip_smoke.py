@@ -4,7 +4,10 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit and builds the CUDA kernels
-   from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source).
+   from lam_tpu_torch/csrc (nvcc, sm_90a, one nvcc per source) and, beside
+   them, the native host library from lam_tpu_torch/native/lam_native.cpp
+   (g++; its path and g++'s version printed): the file packs, row reads
+   and host splits of phases 3-6 take it.
 2. Holds each of the forty-four kernels (the solver's thirty-six and
    the eight q16 probes) against its plain PyTorch version at the main
    path's shapes. The eight one-device kernels at N=10000 padded to
@@ -214,7 +217,23 @@
    computed in f64 on the host must be <= 2e-9 (the benchmark's gate),
    converged. The launch counters are zeroed just before each run and
    read just after: each run's kernels must have launched, and no plain
-   version may have run.
+   version may have run. The native library's call counters likewise:
+   every packing run (ir, df64, fq, dfq and the cold irfq and irq) must
+   have packed natively (irfq-cold by the streamed range pack, pinned
+   uploads while it packs), the warm runs not at all. Then the cache files
+   the native packs wrote, A.bin.fqpack and A.bin.dfqpack, are held byte
+   for byte against the files the port's numpy pack writes for the same
+   source, each numpy load timed (pack, upload and publish: the cold
+   load_s of the numpy pack, printed beside the native one). Then irfq
+   --outer host twice on a fresh copy of the file (HOST_RUNS; cold: the
+   native pack, published, then only q1, s1, dh and dl uploaded; warm:
+   the partial read of the cache): converged, a TRUE residual <= 2e-9 by
+   an independent blocked pass a[s:s+blk] @ x over the memory map in
+   extended precision, the reported residual equal to it within 1e-6
+   relative, gemv_q16_symm and no fq walk, no bf16 body and no plain
+   version launched, the device grown across the load by no more than
+   1.05 x the four buffers' bytes, warm x bitwise the cold x, the inner
+   iterations printed beside irfq-cold's.
    Phase 2 also holds the stencil kernel laplace5_f32_halo against its
    plain version on the heat demo's padded grid (1024 x 1280, zero edges)
    and on that grid as one shard of a row-sharded grid (non-zero edge
@@ -283,6 +302,14 @@
    nothing else). Each must converge with TRUE <= 2e-9 on the host and x
    within 5e-6 of the "vpu" run's x, no plain version; prints the bf16 and
    exact runs' inner iterations side by side and the phase's seconds.
+   Then one cold fq load by the numpy pack, timed beside the native
+   one, and irfq --outer host cold (a fresh copy of the file) and warm
+   under "auto", held as phase 3's host runs and besides: the bf16 body
+   gemv_q16_symm_bf16 and not the exact one, x within 5e-6 of the "vpu"
+   run's, inner iterations within 2% of irfq-cold's; load_s, solve_s, the
+   cycles and the iterations printed beside the device-outer runs'. Then
+   the q1 plane of A.bin.fqpack to the card in turns, through the pinned
+   ring and by plain copies, bit for bit equal (upload_turns).
 
 7. Runs the q16 probe tool (lam_tpu_torch.tools.q16_probe) in process:
    probes 1-4 of scripts/q16_probe{,2,3,4}.py at their sizes (N=40960 at
@@ -376,11 +403,13 @@ no result line. Without a CUDA device it exits 1 at once.
 """
 
 import contextlib
+import filecmp
 import gc
 import io
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -462,6 +491,17 @@ RUNS = (("ir", ("gemv_f32_symm", "gemv_df64_symm"), ()),
         ("df64-pallas", ("gemv_df64",), ("gemv_df64_symm",)))
 # precisions run with --pack-cache -> the storage their cache holds
 PACK_CACHE = {"irfq": "fq", "irq": "dfq"}
+# phase 3 runs that pack the file -> the native binding that must pack it
+# (the full-square runs read the whole file and split it on the host)
+NATIVE_PACK_OF = {"ir": "pack_df64", "df64": "pack_df64",
+                  "irfq-cold": "pack_fq_range", "fq": "pack_fq_range",
+                  "irq-cold": "pack_dfq", "dfq": "pack_dfq",
+                  "ir-pallas": "split_f64", "df64-pallas": "split_f64"}
+# irfq --outer host on a fresh copy of the file: (run, packs natively)
+HOST_RUNS = (("host-cold", True), ("host-warm", False))
+HOST_ITERS_GATE = 0.02   # host-outer inner iterations vs irfq-cold's
+HOST_MEM_GATE = 1.05     # device growth across the load / q1+s1+dh+dl
+HOST_ERR_GATE = 1e-6     # reported residual vs the independent pass
 SHARD_G = (2, 4)     # rank counts of the sharded checks and runs
 _RING = ("gemv_f32_cols", "gemv_df64_cols")
 _SLAB = ("gemv_f32_symm_slab", "gemv_df64_symm_slab")
@@ -3802,12 +3842,15 @@ def bench_system(generate, lio, tmp):
 
 def solve_slice(ops, lio, cli, system, tmp):
     """Phase 3: the bench system through the port's CLI, one run per
-    entry of RUNS. Returns the kernel launches summed over the runs and
-    the solution of the ir run."""
+    entry of RUNS, the native packs' cache files against the numpy
+    pack's, and the host outer loop (HOST_RUNS). Returns the kernel
+    launches summed over the runs and the solution of the ir run."""
+    from lam_tpu_torch import _native_io
+    from lam_tpu_torch.solver import api
     a, b, a_path, b_path = system
     bnorm = np.linalg.norm(b)
     total = {fn.__name__: 0 for fn in ops.KERNELS}
-    xs, iters_of = {}, {}
+    xs, iters_of, load_of = {}, {}, {}
     for run, kernels, not_kernels in RUNS:
         precision = run.split("-")[0]
         x_path = os.path.join(tmp, f"x_{run}.bin")
@@ -3819,13 +3862,23 @@ def solve_slice(ops, lio, cli, system, tmp):
             argv += ["--engine", "pallas"]
         csv = io.StringIO()
         ops.reset_counters()
+        _native_io.reset_calls()
         with contextlib.redirect_stdout(csv):
             rc = cli.main(argv)
         torch.cuda.synchronize()
         counts = ops.counters()
+        native = _native_io.calls()
         line = csv.getvalue().strip()
         print(f"{run} CSV (N,procs,threads,load_s,avg_gemv_s,"
               f"avg_iter_s,num_iter,err,total_cg_s): {line}")
+        print(f"{run}: native library calls {native}")
+        if run in NATIVE_PACK_OF:
+            _check(native.get(NATIVE_PACK_OF[run], 0) > 0,
+                   f"{run} did not take the native "
+                   f"{NATIVE_PACK_OF[run]}")
+        else:
+            _check(not any(k.startswith("pack_") for k in native),
+                   f"{run} packed ({native}): the cache was not read")
         _check(rc == 0, f"CLI --precision {precision} exited {rc}")
         fields = line.split(",")
         load_s, iters, solve_s = (float(fields[3]), int(fields[6]),
@@ -3853,18 +3906,215 @@ def solve_slice(ops, lio, cli, system, tmp):
                   f"walks; {WALK_RUN_ITERS[run]} before them")
             _check(iters == WALK_RUN_ITERS[run],
                    f"{run}: the iteration count moved")
-        xs[run], iters_of[run] = x, iters
+        xs[run], iters_of[run], load_of[run] = x, iters, load_s
     for precision, storage in PACK_CACHE.items():
         _check(os.path.exists(f"{a_path}.{storage}pack"),
                f"{precision} --pack-cache wrote no A.bin.{storage}pack")
+        numpy_cache_file(_native_io, a_path, storage,
+                         load_of[f"{precision}-cold"])
     for precision in PACK_CACHE:
         warm, cold = f"{precision}-warm", f"{precision}-cold"
         _check(iters_of[warm] == iters_of[cold]
                and np.array_equal(xs[warm], xs[cold]),
                f"{precision} from the cache differs from {precision} after "
                "a fresh pack")
+    host = host_outer_runs(ops, api, cli, lio, a_path, b_path, tmp, N,
+                           ("gemv_q16_symm",), ("gemv_q16_symm_bf16",),
+                           load_of["irfq-cold"], load_of["irfq-warm"],
+                           iters_of["irfq-cold"], total)
+    _check(np.linalg.norm(host["host-cold"] - xs["irfq-cold"])
+           <= X_ENGINE_GATE * np.linalg.norm(xs["irfq-cold"]),
+           f"N={N} irfq --outer host: x differs from irfq's")
     print(f"main path launches, summed over the runs: {total}")
     return total, xs["ir"], iters_of
+
+
+def numpy_cache_file(_native_io, a_path, storage, native_load_s):
+    """The cache file a native cold pack wrote against the one the port's
+    numpy pack writes for the same source, byte for byte; the numpy
+    pack's cold load (pack, upload, publish) timed beside the native
+    run's load_s."""
+    from lam_tpu_torch.solver import operators as tops
+    from lam_tpu_torch.solver import pack_cache as pc
+    cache = pc.cache_path(a_path, storage)
+    os.replace(cache, cache + ".native")
+    available = _native_io.available
+    _native_io.available = lambda: False
+    try:
+        _native_io.reset_calls()
+        t0 = time.perf_counter()
+        op = getattr(tops.DenseOperator, f"from_file_{storage}")(
+            a_path, pack_cache=True, device="cuda")
+        torch.cuda.synchronize()
+        numpy_s = time.perf_counter() - t0
+    finally:
+        _native_io.available = available
+    _check(not _native_io.calls(), f"the numpy {storage} pack called the "
+           f"native library: {_native_io.calls()}")
+    del op
+    same = filecmp.cmp(cache, cache + ".native", shallow=False)
+    size = os.path.getsize(cache)
+    os.remove(cache + ".native")
+    print(f"N={N} {storage}: cold load {native_load_s:.3f} s by the native "
+          f"pack (its CLI load_s) vs {numpy_s:.3f} s by the numpy pack "
+          f"(pack, upload, publish); A.bin.{storage}pack ({size} bytes) "
+          f"byte-equal: {same}")
+    _check(same, f"A.bin.{storage}pack from the native pack differs from "
+           "the numpy pack's")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def _load_memory(api):
+    """(bytes allocated before, after, peak) of the card across each
+    facade load in the block."""
+    seen = []
+    orig = api.ConjugateGradient.load_matrix_from_file
+
+    def load(self, filename):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = orig(self, filename)
+        torch.cuda.synchronize()
+        seen.append((before, torch.cuda.memory_allocated(),
+                     torch.cuda.max_memory_allocated()))
+        return out
+    api.ConjugateGradient.load_matrix_from_file = load
+    try:
+        yield seen
+    finally:
+        api.ConjugateGradient.load_matrix_from_file = orig
+
+
+@contextlib.contextmanager
+def _host_cycles():
+    """The seconds of each host matvec the host outer loop runs in the
+    block: one a refinement cycle."""
+    from lam_tpu_torch.solver import host_outer
+    seen = []
+    orig = host_outer.host_matvec
+
+    def timed(a):
+        mv = orig(a)
+
+        def run(x):
+            t0 = time.perf_counter()
+            y = mv(x)
+            seen.append(time.perf_counter() - t0)
+            return y
+        return run
+    host_outer.host_matvec = timed
+    try:
+        yield seen
+    finally:
+        host_outer.host_matvec = orig
+
+
+def _exact_true_rel(path, lio, b, blk=1024):
+    """|b - A x| / |b| by an independent blocked pass a[s:s+blk] @ x over
+    the file's memory map in extended precision (np.longdouble): no
+    dsymv, and its own rounding far below the f64 products it checks."""
+    am = lio.open_matrix_memmap(path)
+    ld = np.longdouble
+
+    def rel(x):
+        xl = x.astype(ld)
+        rr = ld(0)
+        for s0 in range(0, am.shape[0], blk):
+            r = b[s0:s0 + blk].astype(ld) - np.asarray(
+                am[s0:s0 + blk]).astype(ld) @ xl
+            rr += np.sum(r * r)
+        return float(np.sqrt(rr) / ld(np.linalg.norm(b)))
+    return rel
+
+
+def host_outer_runs(ops, api, cli, lio, a_path, b_path, tmp, n, kernels,
+                    not_kernels, device_cold_s, device_warm_s, device_iters,
+                    total):
+    """irfq --outer host on a fresh copy of the matrix file, cold (the
+    native pack, published, four buffers uploaded) and warm (the partial
+    q1 read), through the CLI in process (HOST_RUNS), held as the module
+    docstring's phase 3 says. Adds the launches to `total`; returns {run:
+    x}."""
+    from lam_tpu_torch import _native_io
+    host_path = os.path.join(tmp, "A_host.bin")
+    shutil.copyfile(a_path, host_path)
+    b = lio.read_vector(b_path)
+    true_rel = _exact_true_rel(host_path, lio, b)
+    plain = [fn.__name__ for fn in ops.PLAIN]
+    xs, iters_of = {}, {}
+    for run, packs in HOST_RUNS:
+        x_path = os.path.join(tmp, f"x_{run}.bin")
+        argv = ["-A", host_path, "-b", b_path, "-o", x_path, "--precision",
+                "irfq", "--outer", "host", "--pack-cache", "--device", "cuda"]
+        csv = io.StringIO()
+        ops.reset_counters()
+        _native_io.reset_calls()
+        with _recorded_facades(api) as seen, _load_memory(api) as mem, \
+                _host_cycles() as cycles, contextlib.redirect_stdout(csv):
+            rc = cli.main(argv)
+        torch.cuda.synchronize()
+        counts, native = ops.counters(), _native_io.calls()
+        _check(rc == 0, f"N={n} irfq {run}: the CLI exited {rc}")
+        facade = seen[-1]
+        t = dict(facade.timings)
+        operand = facade.op.operand
+        need = sum(operand[i].numel() * operand[i].element_size()
+                   for i in (0, 3, 6, 7))
+        del facade, operand
+        seen.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        before, after, peak = mem[0]
+        x = lio.read_vector(x_path)
+        rel = true_rel(x)
+        iters = t["num_iters"]
+        print(f"N={n} irfq {run} CSV: {csv.getvalue().strip()}")
+        print(f"N={n} irfq {run}: load {t['load_s']:.3f} s (device outer: "
+              f"cold {device_cold_s:.3f} s, warm {device_warm_s:.3f} s), "
+              f"solve {t['solve_s']:.4f} s, {len(cycles)} cycles (host "
+              f"matvecs {sum(cycles):.3f} s), {iters} inner iterations "
+              f"(device outer {device_iters}), reported residual "
+              f"{t['rel_residual']:.6e}, independent TRUE residual "
+              f"{rel:.6e}; device +{after - before} B across the load "
+              f"(peak +{peak - before} B) for {need} B of q1, s1, dh, dl; "
+              f"native calls {native}; launches "
+              f"{({k: v for k, v in counts.items() if v})}")
+        _check(t["rel_residual"] <= 1e-9 and iters <= 10000,
+               f"N={n} irfq {run} did not converge")
+        _check(rel <= TRUE_GATE, f"N={n} irfq {run}: TRUE residual "
+               f"{rel:.3e} above {TRUE_GATE:g}")
+        _check(abs(t["rel_residual"] - rel) <= HOST_ERR_GATE * rel,
+               f"N={n} irfq {run}: reported residual {t['rel_residual']:.6e}"
+               f" is not the TRUE residual {rel:.6e}")
+        _check(max(after, peak) - before <= HOST_MEM_GATE * need,
+               f"N={n} irfq {run}: the device grew by {after - before} B "
+               f"(peak {peak - before} B) for {need} B of q1 buffers")
+        _check(abs(iters - device_iters) <= HOST_ITERS_GATE * device_iters,
+               f"N={n} irfq {run}: {iters} inner iterations, device outer "
+               f"{device_iters}")
+        if packs:
+            _check(native.get("pack_fq", 0) > 0,
+                   f"N={n} irfq {run} did not pack natively: {native}")
+        else:
+            _check(not any(k.startswith("pack_") for k in native),
+                   f"N={n} irfq {run} packed ({native}): no partial read")
+        for k in kernels:
+            _check(counts[k] > 0, f"N={n} irfq {run} never launched {k}")
+        for k in not_kernels + ("gemv_fq_symm", "gemv_fq_symm_zero"):
+            _check(counts[k] == 0, f"N={n} irfq {run} launched {k}")
+        _check(all(counts[k] == 0 for k in plain),
+               f"a plain version ran on the N={n} irfq {run} path")
+        for k in total:
+            total[k] += counts[k]
+        xs[run], iters_of[run] = x, iters
+    _check(np.array_equal(xs["host-warm"], xs["host-cold"])
+           and iters_of["host-warm"] == iters_of["host-cold"],
+           f"N={n} irfq --outer host from the cache differs from a cold "
+           "pack")
+    return xs
 
 
 def rank_main(argv):
@@ -4148,8 +4398,13 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
     (the exact body, not the bf16 one), and packed-irfq at G=2 (--backend
     sharded, p the full 20480 vector: every rank the bf16 slab walk and the
     fq slab walk, nothing else). Each converged, TRUE <= 2e-9 on the host,
-    x within X_ENGINE_GATE of the 'vpu' run's x, no plain version. Returns
-    the kernel launches summed over the runs and ranks."""
+    x within X_ENGINE_GATE of the 'vpu' run's x, no plain version. Then one
+    cold fq load by the numpy pack, timed, and irfq --outer host cold and
+    warm (host_outer_runs: the bf16 body). Returns the kernel launches
+    summed over the runs and ranks."""
+    from lam_tpu_torch import _native_io
+    from lam_tpu_torch.solver import api
+    from lam_tpu_torch.solver import operators as tops
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
     a = generate.random_spd_matrix_fast(N_LARGE, seed=SEED_A)
@@ -4166,7 +4421,7 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
     runs = (("irfq-cold", "auto") + bf16_run, ("irfq-warm", "auto") + bf16_run,
             ("irfq-vpu", "vpu", ("gemv_q16_symm", "gemv_fq_symm"),
              ("gemv_q16_symm_bf16",)))
-    xs, iters_of = {}, {}
+    xs, iters_of, load_of = {}, {}, {}
 
     def gate(run, iters, err, x):
         true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
@@ -4205,7 +4460,7 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
                f"a plain version ran on the N={N_LARGE} {run} path")
         for k in total:
             total[k] += counts[k]
-        xs[run], iters_of[run] = x, iters
+        xs[run], iters_of[run], load_of[run] = x, iters, load_s
     _check(os.path.exists(f"{a_path}.fqpack"), "irfq --pack-cache wrote no "
            f"A.bin.fqpack at N={N_LARGE}")
     _check(iters_of["irfq-warm"] == iters_of["irfq-cold"]
@@ -4241,6 +4496,28 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
             total[k] += counts[k]
         _check(all(counts[k] == 0 for k in plain),
                f"N={N_LARGE} {run}: a plain version ran on rank {r}")
+    available = _native_io.available
+    _native_io.available = lambda: False
+    try:
+        t0 = time.perf_counter()
+        op = tops.DenseOperator.from_file_fq(a_path, device="cuda")
+        torch.cuda.synchronize()
+        numpy_s = time.perf_counter() - t0
+    finally:
+        _native_io.available = available
+    del op
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"N={N_LARGE} fq: cold load {load_of['irfq-cold']:.3f} s by the "
+          f"native streamed pack (irfq-cold's load_s, published too) vs "
+          f"{numpy_s:.3f} s by the numpy pack (pack and upload)")
+    del a
+    gc.collect()
+    xs.update(host_outer_runs(
+        ops, api, cli, lio, a_path, b_path, tmp, N_LARGE,
+        ("gemv_q16_symm_bf16",), ("gemv_q16_symm",), load_of["irfq-cold"],
+        load_of["irfq-warm"], iters_of["irfq-cold"], total))
+    upload_turns(a_path)
     for run, x in xs.items():
         x_rel = float(np.linalg.norm(x - xs["irfq-vpu"])
                       / np.linalg.norm(xs["irfq-vpu"]))
@@ -4254,6 +4531,56 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
           f"{iters_of['packed-irfq']} (bf16)")
     print(f"phase 6: {time.perf_counter() - t_phase:.1f} s")
     return total
+
+
+def upload_turns(a_path, turns=3):
+    """Phase 6: the q1 plane of A.bin.fqpack (432 MB at N=20000) to the
+    card in turns, through the pinned ring (stream_file_to_device from the
+    file, to_device from memory) and by plain copies (np.fromfile then
+    .to(), torch.from_numpy(...).to()), each result bit for bit the
+    plain one's; the file is in the page cache (warm)."""
+    from lam_tpu_torch.ops import transfer
+    from lam_tpu_torch.solver import pack_cache as pc
+    path = pc.cache_path(a_path, "fq")
+    with open(path, "rb") as fh:
+        _, _, _, specs, offs = pc._offsets(fh, a_path, "fq")
+    dtype, shape = specs[0]
+    count = int(np.prod(shape))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    host = np.fromfile(path, dtype, count, offset=offs[0]).reshape(shape)
+    rows = {k: [] for k in ("stream", "fromfile", "to_device", "plain")}
+    for _ in range(turns):
+        for k, fn in (
+                ("stream", lambda: transfer.stream_file_to_device(
+                    path, offs[0], dtype, shape, "cuda")),
+                ("fromfile", lambda: torch.from_numpy(np.fromfile(
+                    path, dtype, count, offset=offs[0]).reshape(shape)).to(
+                        "cuda")),
+                ("to_device", lambda: transfer.to_device(host, "cuda")),
+                ("plain", lambda: torch.from_numpy(host).to("cuda"))):
+            dt, out = timed(fn)
+            rows[k].append(dt)
+            if k == "stream":
+                ref = out
+            else:
+                _check(torch.equal(out, ref), f"upload {k} differs")
+            del out
+        del ref
+    print(f"N={N_LARGE} q1 plane upload ({host.nbytes} B, warm), {turns} "
+          f"turns: stream_file_to_device "
+          f"{[round(x, 4) for x in rows['stream']]} s vs np.fromfile + "
+          f".to() {[round(x, 4) for x in rows['fromfile']]} s; to_device "
+          f"{[round(x, 4) for x in rows['to_device']]} s vs "
+          f"torch.from_numpy(...).to() {[round(x, 4) for x in rows['plain']]}"
+          " s")
+    torch.cuda.empty_cache()
 
 
 def _tridiag_mv(x):
@@ -4846,6 +5173,15 @@ def main():
     _build.library()
     print(f"kernels {'built' if built else 'reused'} in {seconds:.1f} s: "
           f"{os.path.relpath(path)}")
+    from lam_tpu_torch import _native_io
+    t0 = time.perf_counter()
+    native = _native_io.build()
+    _check(native is not None and _native_io.available(),
+           "the native host library did not build (no g++?)")
+    gpp = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True, check=True).stdout.splitlines()[0]
+    print(f"native host library built in {time.perf_counter() - t0:.1f} s "
+          f"by {gpp}: {os.path.relpath(native)}")
     stream_sass(_build)
     results = kernel_checks()
     torch.cuda.empty_cache()

@@ -8,7 +8,10 @@ packed lower-triangle tiles, solved by df64 CG or by f32 CG with
 iterative refinement ('ir'), or stored with a quantized lo plane ('dfq')
 and solved by dfq CG or by refinement on its f32 hi plane ('irq'), or
 stored as the fully-quantized fq cascade and solved by fq CG or by
-refinement whose inner loop reads only the 2-byte first plane ('irfq');
+refinement whose inner loop reads only the 2-byte first plane ('irfq',
+its outer residuals on the card or, with outer='host', exact on the
+host against the f64 source while the card holds only that plane:
+`cg_solve_ir_host`);
 or any square system stored as the full square (engine='pallas') and
 solved by f32, df64 or ir CG, or a symmetric one stored as the full
 square and read by its lower triangle (engine='pallas_symm'). Generate
@@ -28,12 +31,14 @@ stencil kernel) and its BMP converter run on the same engine.
 
 from lam_tpu_torch.solver.api import ConjugateGradient
 from lam_tpu_torch.solver.cg import CGResult, cg_solve, cg_solve_ir
+from lam_tpu_torch.solver.host_outer import cg_solve_ir_host
 from lam_tpu_torch.solver.operators import DenseOperator, LinearOperator
 
 __all__ = [
     "CGResult",
     "cg_solve",
     "cg_solve_ir",
+    "cg_solve_ir_host",
     "DenseOperator",
     "LinearOperator",
     "ConjugateGradient",

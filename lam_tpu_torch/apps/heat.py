@@ -217,8 +217,8 @@ def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
                 "--devices")
         raise NotImplementedError(
             f"solve_heat_cg(devices={devices}): the row-sharded halo path "
-            "is not ported yet (ROADMAP Queue 1 item 13, the sharded "
-            "backends)")
+            "is not ported yet (ROADMAP Queue 1 item 4, the row-sharded "
+            "heat path)")
     dev = resolve_device(device)
     if precision == "auto":
         precision = "ir" if dev.type == "cuda" else "f64"

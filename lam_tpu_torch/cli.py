@@ -12,15 +12,21 @@ Flags (the reference's getopt surface):
               (pallas: the full square; pallas_symm: the full square of a
               symmetric matrix, its lower triangle read)
   --pack-cache  publish/reuse the packed planes beside the matrix file
+  --outer device|host  where irfq forms its outer residuals: on the device
+              over the fq cascade (default), or on the host against the
+              f64 source file with only the q1 plane on the device
   --backend local|sharded|sharded2d  --comm gather|ring  --devices N
   --coordinator <host:port> --num-processes N --process-id i
   --init-col    add the warm-up seconds after load_s in the CSV
 Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9. -s
 cannot be given with -A or -b ("Option -A and -b cannot be used with -s."
-on stderr, rc 1); it builds the reference's benchmark system, the dense
-tridiagonal (2 on the diagonal, 1 beside it) against a right-hand side of
-ones, on the device (lam_tpu_torch/solver/api.py); on a sharded backend
-each rank builds its own part on its device.
+on stderr, rc 1) nor with --outer host (one line on stderr, rc 1: the
+host outer loop needs the source file); it builds the reference's
+benchmark system, the dense tridiagonal (2 on the diagonal, 1 beside it)
+against a right-hand side of ones, on the device
+(lam_tpu_torch/solver/api.py); on a sharded backend each rank builds its
+own part on its device. With --outer host the CSV row is the same, its
+avg_gemv_s the inner q1 matvec.
 
 A sharded run starts one process per rank, each with the same flags and
 its own --process-id (lam_tpu/cli.py:108-120, :265-269); --device cuda
@@ -107,6 +113,19 @@ def build_parser():
                         ".fqpack, .f32pack, .df64pack) so reloads skip "
                         "the pack; ignored with a notice by --engine "
                         "pallas")
+    p.add_argument("--outer", default="device",
+                   choices=["device", "host"],
+                   help="Where --precision irfq computes its outer "
+                        "refinement residuals. 'device' (default): the "
+                        "full 6 B/element fq cascade is uploaded and "
+                        "r = b - A x runs on-device — fastest once "
+                        "resident. 'host' (file mode, backend=local): "
+                        "only the 2 B/element q1 inner plane is "
+                        "uploaded and the host streams the exact f64 "
+                        "source for each outer residual — ~3x less "
+                        "link traffic, the fastest time-to-answer from "
+                        "cold storage on transfer-bound links "
+                        "(solver/host_outer.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda or cpu); cuda raises when no "
                         "card is present")
@@ -158,8 +177,8 @@ def _cli_main(argv=None):
             f"lam-cg-torch: not ported yet: {' '.join(unported)}")
     if args.help:
         print("Usage: lam-cg-torch [ (-A -b | -s) -o -e -i -h -v "
-              "--precision --engine --device --pack-cache --backend --comm "
-              "--devices --coordinator --num-processes --process-id "
+              "--precision --engine --device --pack-cache --outer --backend "
+              "--comm --devices --coordinator --num-processes --process-id "
               "--init-col ]")
         print("Options:")
         print("  -A <file>       Read matrix from file")
@@ -173,6 +192,8 @@ def _cli_main(argv=None):
         print("  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu")
         print("  --engine auto|pallas|pallas_symm|pallas_symm_packed")
         print("  --pack-cache    Reuse/publish <matrix>.<storage>pack")
+        print("  --outer device|host  irfq's outer residuals on the device "
+              "or, file mode, on the host")
         print("  --backend local|sharded|sharded2d  --comm gather|ring  "
               "--devices N")
         print("  --coordinator <host:port> --num-processes N --process-id i")
@@ -180,6 +201,11 @@ def _cli_main(argv=None):
     generate = args.size is not None
     if generate and (args.matrix is not None or args.rhs is not None):
         print("Option -A and -b cannot be used with -s.", file=sys.stderr)
+        return 1
+    if generate and args.outer == "host":
+        print("lam-cg: --outer host solves against the f64 source file "
+              "(-A); generate mode (-s) has no file to stream the outer "
+              "residuals from", file=sys.stderr)
         return 1
     if not generate:
         args.matrix = args.matrix or "io/matrix.bin"
@@ -224,7 +250,7 @@ def _solve(args):
     cg = ConjugateGradient(backend=args.backend, precision=args.precision,
                            engine=args.engine, device=args.device,
                            pack_cache=args.pack_cache, comm=args.comm,
-                           n_devices=args.devices)
+                           n_devices=args.devices, outer=args.outer)
     if cg.mesh is not None and not cg.mesh.active:
         return 0  # a rank outside the R x R grid takes no part
     # rank-0-only output, like the reference's PRINT_RANK0 macros

@@ -32,7 +32,12 @@ import torch
 
 def tridiagonal_rows(row_start, num_rows, n, dtype=np.float64):
     """Dense row block of the generate-mode tridiagonal: entry (i, j) is 2
-    if i == j, 1 if |i - j| == 1, else 0."""
+    if i == j, 1 if |i - j| == 1, else 0. In f64 the native library fills
+    it where it is built (lam_tpu/generate.py:35-36), the same bytes."""
+    if dtype == np.float64:
+        from lam_tpu_torch import _native_io
+        if _native_io.available():
+            return _native_io.tridiagonal_rows(row_start, num_rows, n)
     block = np.zeros((num_rows, n), dtype=dtype)
     local = np.arange(num_rows)
     i = row_start + local

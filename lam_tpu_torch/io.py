@@ -7,8 +7,9 @@ Format (the reference generator's, read and written by lam_tpu.io):
     float64 data[num_rows * num_cols]   (row-major)
 
 Vectors are (N, 1) columns. `.npy` float64 files are accepted wherever
-the binary format is. The JAX package's optional native reader is not
-used: everything here is numpy.
+the binary format is. A row block of a binary file is read by the
+native library's threads where it is built (lam_tpu_torch/_native_io.py),
+else by numpy, the same bytes.
 """
 
 from __future__ import annotations
@@ -97,12 +98,23 @@ def read_matrix_rows(path, row_start, num_rows, dtype=np.float64):
             np.array(mm[row_start:row_start + num_rows]).astype(
                 dtype, copy=False))
     offset = _HEADER.size + row_start * cols * 8
-    data = np.fromfile(path, dtype=np.float64, count=num_rows * cols,
-                       offset=offset)
-    if data.size != num_rows * cols:
-        raise IOError(f"{path}: truncated payload "
-                      f"({data.size} of {num_rows * cols} elements in "
-                      f"row block [{row_start}, {row_start + num_rows}))")
+    count = num_rows * cols
+
+    def truncated(present):
+        return IOError(f"{path}: truncated payload ({present} of {count} "
+                       f"elements in row block [{row_start}, "
+                       f"{row_start + num_rows}))")
+    if dtype == np.float64:
+        from lam_tpu_torch import _native_io
+        if _native_io.available():
+            # the numpy branch's error, from the file's size
+            present = (os.path.getsize(path) - offset) // 8
+            if present < count:
+                raise truncated(max(0, present))
+            return _native_io.read_rows(path, row_start, num_rows, cols)
+    data = np.fromfile(path, dtype=np.float64, count=count, offset=offset)
+    if data.size != count:
+        raise truncated(data.size)
     return np.ascontiguousarray(
         data.reshape(num_rows, cols).astype(dtype, copy=False))
 
@@ -131,7 +143,11 @@ def read_matrix_block(path, row_start, col_start, num_rows, num_cols,
 
 def open_matrix_memmap(path):
     """Memory-map a square f64 matrix file (.npy or the binary format)
-    without reading it (lam_tpu/solver/operators.py:71-99)."""
+    without reading it (lam_tpu/solver/operators.py:71-99). The map's
+    `offset` is the byte where the row-major data starts (16, or the
+    .npy header's length): the native packs read the file from there. It
+    is C-ordered, so its transpose is the F-ordered view that BLAS's
+    dsymv takes without a copy (solver/host_outer.py)."""
     path = str(path)
     if _is_npy(path):
         a = np.load(path, mmap_mode="r")

@@ -10,8 +10,9 @@ transforms are kept for parity with the JAX package; they assume IEEE
 round-to-nearest f32 adds and multiplies with no FMA contraction, which
 PyTorch's eager elementwise ops provide.
 
-`split_f64_host` is the numpy split of lam_tpu/solver/operators.py:124-134
-(its numpy branch; the port has no native library).
+`split_f64_host` is the host split of lam_tpu/solver/operators.py:124-134:
+the native library's threaded split where it is built, else numpy's, the
+same bits.
 """
 
 from __future__ import annotations
@@ -90,7 +91,11 @@ def df_neg(x):
 
 
 def split_f64_host(a):
-    """Host-side f64 -> (hi, lo) f32 split of a numpy array."""
+    """Host-side f64 -> (hi, lo) f32 split of a numpy array: threaded C++
+    where the native library is built, else numpy."""
+    from lam_tpu_torch import _native_io
+    if _native_io.available():
+        return _native_io.split_f64(a)
     hi = a.astype(np.float32)
     lo = (a - hi.astype(np.float64)).astype(np.float32)
     return hi, lo

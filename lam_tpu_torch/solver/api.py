@@ -65,9 +65,16 @@ triangle and half-slabs with one zero lo tile. 'dfq'/'irq', and 'f32' on
 any mesh, take the host build through the file path's constructors over
 `tridiagonal_rows`, as lam_tpu's fallback does (:297-300).
 
+outer='host' (lam_tpu/solver/api.py:37-54; precision 'irfq', backend
+'local', file mode only) uploads only the q1 plane, its scales and the
+diagonal pair (`DenseOperator.from_file_fq_q1`) and keeps the f64 source
+memory-mapped on the host, which computes each outer residual exactly
+(solver/host_outer.py); `avg_gemv_s` is then the inner q1 matvec.
+Generate mode refuses it at once, before anything is built.
+
 Still refused, with NotImplementedError: precision 'f64'/'auto', backend
-'auto', engine 'xla', the preconditioner, checkpoints and the host outer
-loop. The device is explicit; asking for CUDA where there is none raises.
+'auto', engine 'xla', the preconditioner and checkpoints. The device is
+explicit; asking for CUDA where there is none raises.
 """
 
 from __future__ import annotations
@@ -83,6 +90,7 @@ from lam_tpu_torch import generate as gen
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import layout
 from lam_tpu_torch.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
+from lam_tpu_torch.solver.host_outer import cg_solve_ir_host
 from lam_tpu_torch.solver.operators import (DENSE_ENGINE, ENGINE, ENGINES,
                                             QUANT_LAYOUT, SQUARE_ENGINE,
                                             DenseOperator, check_engine,
@@ -152,10 +160,22 @@ def _check_sharded2d(precision, engine):
 class ConjugateGradient:
     def __init__(self, backend="local", precision="df64", engine="auto",
                  device="cuda", pack_cache=False, comm="gather",
-                 n_devices=None, mesh=None):
+                 n_devices=None, mesh=None, outer="device"):
         if precision not in PRECISIONS:
             raise NotImplementedError(f"precision={precision!r} is not "
                                       f"ported yet (one of {PRECISIONS})")
+        if outer not in ("device", "host"):
+            raise ValueError(f"outer must be 'device' or 'host', "
+                             f"got {outer!r}")
+        if outer == "host" and (precision != "irfq" or backend != "local"):
+            # lam_tpu's check and words (lam_tpu/solver/api.py:41-52)
+            raise ValueError(
+                "outer='host' requires precision='irfq' and "
+                "backend='local' (file mode): the host computes "
+                "r = b - A x against the f64 source file while the "
+                "device holds only the q1 inner plane")
+        self.outer = outer
+        self._host_a = None
         self._sharded_engine = None
         if backend == "sharded":
             self._sharded_engine = _check_sharded(precision, engine)
@@ -228,6 +248,12 @@ class ConjugateGradient:
             self.op = DenseOperator.from_dense(
                 lio.read_matrix(filename), precision=storage,
                 engine=self.engine, device=self.device)
+        elif self.outer == "host":
+            # the q1 plane, its scales and the diagonal pair on the
+            # device; the f64 source stays mapped for the outer residuals
+            self.op = DenseOperator.from_file_fq_q1(
+                filename, pack_cache=self.pack_cache, device=self.device)
+            self._host_a = lio.open_matrix_memmap(filename)
         else:
             ctor = getattr(DenseOperator, f"from_file_{storage}")
             self.op = ctor(filename, pack_cache=self.pack_cache,
@@ -273,6 +299,13 @@ class ConjugateGradient:
         module docstring); times the build as load_s."""
         if cols is not None and cols != rows:
             raise ValueError("generated matrix must be square")
+        if self.outer == "host":
+            # lam_tpu raises this only at the solve, after generating
+            # (lam_tpu/solver/api.py:494-498)
+            raise ValueError(
+                "outer='host' solves against the f64 source file: call "
+                "load_matrix_from_file first (generate mode has no file "
+                "to stream the outer residuals from)")
         if self.pack_cache:
             # generate mode has no source file to key a cache on
             print("lam-cg: --pack-cache only accelerates file-mode "
@@ -410,12 +443,14 @@ class ConjugateGradient:
         iterations, frozen after the first, and for 'ir'/'irq'/'irfq' one
         refinement cycle), so the kernel build, first launches and the
         allocator's first requests are timed as init_s, not in the
-        solve."""
+        solve. outer='host' warms up as lam_tpu does, with max_iters=0:
+        one inner matvec, no cycle and no host matvec."""
         if self.op is None or self.rhs is None:
             raise RuntimeError("load a system first")
         if warmup:
             t_init = time.perf_counter()
-            float(self._solve_once(1, rel_error).rel_residual)
+            float(self._solve_once(0 if self.outer == "host" else 1,
+                                   rel_error).rel_residual)
             self.timings["init_s"] = time.perf_counter() - t_init
         t0 = time.perf_counter()
         result = self._solve_once(max_iters, rel_error)
@@ -438,6 +473,10 @@ class ConjugateGradient:
         return bool(result.converged)
 
     def _solve_once(self, max_iters, rel_error):
+        if self.outer == "host":
+            return cg_solve_ir_host(
+                self._host_a, self.op, self.rhs, max_iters=max_iters,
+                rel_error=rel_error, inner_floor=default_inner_floor("irfq"))
         if self.precision in _BASE:
             return cg_solve_ir(self.op.as_f32(), self.op, self.rhs,
                                max_iters=max_iters, rel_error=rel_error,
@@ -460,7 +499,12 @@ class ConjugateGradient:
         and 'irfq' that is the inner f32 matvec (nearly all of a solve's
         matvecs: f32 or q16); the accurate one (df64, dfq or fq) is kept
         as avg_gemv_acc_s. On CUDA it is timed with CUDA events over
-        `repeats` chained matvecs."""
+        `repeats` chained matvecs. outer='host' times the inner q1 matvec
+        alone: the accurate one is the host's."""
+        if self.outer == "host":
+            dt = self._time_matvec(self.op.as_f32(), repeats)
+            self.timings["avg_gemv_s"] = dt
+            return dt
         dt = self._time_matvec(self.op, repeats)
         if self.precision in _BASE:
             self.timings["avg_gemv_acc_s"] = dt
@@ -487,4 +531,7 @@ class ConjugateGradient:
     def x(self):
         if self.result is None:
             return None
-        return np.asarray(self.result.x.detach().cpu())
+        x = self.result.x
+        if isinstance(x, torch.Tensor):  # host_outer's x is numpy already
+            x = x.detach().cpu()
+        return np.asarray(x)

@@ -56,21 +56,34 @@ Padding: the matrix and vectors are zero-padded once, at construction,
 to the tile grid. Zero padding is exact for CG: padded entries of every
 vector stay 0 and no dot product changes.
 
+File mode (`from_file_*`) takes its buffers from the cheapest source, in
+lam_tpu's order (lam_tpu/solver/operators.py:970-1018): the pack cache
+beside the file, streamed to the device as it is read
+(`pack_cache.load_device`); for fq, the native range pack on a worker
+thread while the main thread uploads each finished window of the planes
+(`_pack_fq_streamed`); the fused native pack (`_native_io.pack_*`); the
+streaming numpy pack over a memory map. `from_file_fq_q1` uploads only
+the q1 plane, its scales and the diagonal pair: the inner engine of the
+host outer loop (solver/host_outer.py), whose accurate matvec refuses.
+
 Every constructor takes an explicit `device`. Asking for CUDA where
 there is none raises; nothing falls back to the CPU. The constructors of
 pre-built buffers take host arrays or tensors; a tensor already on the
-device is used as it is, not copied.
+device is used as it is, not copied. Host arrays go to the device
+through pinned staging memory (ops/transfer.py).
 """
 
 from __future__ import annotations
 
 import os
+import threading
 
 import numpy as np
 import torch
 
+from lam_tpu_torch import _native_io
 from lam_tpu_torch import io as lio
-from lam_tpu_torch.ops import gemv, layout
+from lam_tpu_torch.ops import gemv, layout, transfer
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
 from lam_tpu_torch.solver import pack_cache as pc
 
@@ -79,6 +92,10 @@ DENSE_ENGINE = "pallas"        # lam_tpu's name for the full-square engine
 SQUARE_ENGINE = "pallas_symm"  # the full square, lower triangle read
 ENGINES = ("auto", ENGINE, DENSE_ENGINE, SQUARE_ENGINE)
 UNPORTED_ENGINES = ("xla",)
+
+# tiles a call of the cold fq pipeline's range pack fills: fine enough that
+# uploads start early, coarse enough that a call's overhead vanishes
+PACK_CHUNK_TILES = 512
 
 # quantized-storage layouts: storage -> (per-plane dtypes, n_scales).
 # Operand order is (planes..., scales..., dh, dl).
@@ -105,12 +122,9 @@ def vdot(a, b):
     return torch.sum(a * b)
 
 
-def _upload(x, dev):
-    """A host array as a new tensor on dev; a tensor moved there (kept as
-    it is when it is there already)."""
-    if isinstance(x, torch.Tensor):
-        return x.to(dev)
-    return torch.tensor(np.asarray(x), device=dev)
+# a host array as a new tensor on dev (through pinned staging memory when
+# it is large); a tensor moved there, kept as it is when it is there already
+_upload = transfer.to_device
 
 
 _TORCH_DTYPE = {np.float32: torch.float32, np.int16: torch.int16}
@@ -232,7 +246,28 @@ def _host_pack_tri(a, storage, tb):
     return (*planes, *scales, dh, dl)
 
 
+def _file_pack(path, a, precision, n_p, tb):
+    """The host buffers of a matrix file's pack (`a` its memory map): the
+    fused native pack where the library is built, else numpy's, the same
+    bytes."""
+    if _native_io.has_pack(precision):
+        return getattr(_native_io, f"pack_{precision}")(
+            path, a.offset, a.shape[0], n_p, tb)
+    if precision in QUANT_LAYOUT:
+        return _host_pack_tri(a, precision, tb)
+    return _host_pack_planes(a, precision, tb)
+
+
 # matvec implementations: fn(operand, p) -> A @ p
+
+def _no_accurate_matvec(operand, p):
+    # the q1-only operator (from_file_fq_q1): lam_tpu's words
+    raise NotImplementedError(
+        "q1-only fq operator: the accurate cascade matvec is unavailable "
+        "(q2/q3 were never loaded). Use .as_f32() as the inner engine of "
+        "solver/host_outer.cg_solve_ir_host, or load the full operator "
+        "with DenseOperator.from_file_fq")
+
 
 def _mv_f64_plain(a, p):
     # the oracle path: plain torch on the full f64 square
@@ -590,13 +625,78 @@ class DenseOperator(LinearOperator):
                                                    device)
 
     @staticmethod
+    def _pack_fq_streamed(path, data_off, n, n_p, tb, dev):
+        """The cold fq pipeline (lam_tpu/solver/operators.py:876-950): a
+        worker thread runs the native range pack over tile rows, about
+        PACK_CHUNK_TILES tiles a call (ctypes drops the GIL), while the
+        main thread advances one transfer.Folder a q plane over the rows
+        already final, so reading, quantizing and uploading overlap. Rows [0,
+        avail) of a plane are final once every tile row below them is
+        packed; the pad tiles are zeroed up front, so the last window
+        takes the whole padded plane. A worker's exception is raised
+        here. Returns (host buffers, for pack_cache.save; device buffers
+        in operand order)."""
+        nblk = n_p // tb
+        bufs = _native_io.alloc_fq_buffers(n_p, tb)
+        bounds, acc = [0], 0
+        for i in range(nblk):
+            acc += i + 1
+            if acc >= PACK_CHUNK_TILES:
+                bounds.append(i + 1)
+                acc = 0
+        if bounds[-1] != nblk:
+            bounds.append(nblk)
+        progress = {"rows": 0, "err": None}
+        cv = threading.Condition()
+
+        def worker():
+            try:
+                for r0, r1 in zip(bounds, bounds[1:]):
+                    _native_io.pack_fq_range(path, data_off, n, n_p, tb, r0,
+                                             r1, bufs)
+                    with cv:
+                        progress["rows"] = r1
+                        cv.notify()
+            except BaseException as e:  # raised by the main thread
+                with cv:
+                    progress["err"] = e
+                    cv.notify()
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            planes = bufs[:3]
+            folders = [transfer.Folder(q.shape, q.dtype, dev) for q in planes]
+            done = 0
+            while done < nblk:
+                with cv:
+                    while (progress["rows"] == done
+                           and progress["err"] is None):
+                        cv.wait()
+                    if progress["err"] is not None:
+                        raise progress["err"]
+                    done = progress["rows"]
+                avail = (planes[0].shape[0] if done == nblk
+                         else layout.tri_tile_count(done) * tb)
+                for f, q in zip(folders, planes):
+                    f.advance(q, avail)
+        finally:
+            t.join()
+        dev_bufs = (tuple(f.result() for f in folders)
+                    + tuple(transfer.to_device(b, dev) for b in bufs[3:]))
+        return bufs, dev_bufs
+
+    @staticmethod
     def _from_file_packed(path, precision, check_symmetric, pack_cache,
                           device):
-        """Shared body of the from_file_* constructors: the buffers come
-        from the pack cache beside the file (pack_cache=True and a usable
-        cache), else from the streaming numpy pack over a memory map,
-        which is then published to the cache (pack_cache=True; atomic,
-        best-effort). Symmetry is trusted by default (CG's contract)."""
+        """Shared body of the from_file_* constructors: the buffers come,
+        in lam_tpu's order, from the pack cache beside the file streamed
+        to the device (pack_cache=True and a usable cache); for fq from
+        the streamed native range pack; from the fused native pack; else
+        from the streaming numpy pack over a memory map. A fresh pack is
+        published to the cache from its host buffers (pack_cache=True;
+        atomic, best-effort). Symmetry is trusted by default (CG's
+        contract)."""
         dev = resolve_device(device)
         path = str(path)
         # the source's identity before the memory map binds to it: a
@@ -615,25 +715,27 @@ class DenseOperator(LinearOperator):
         mk = (DenseOperator._packed_operator if quantized
               else DenseOperator._plane_operator)
         if pack_cache:
-            hit = pc.load(path, precision)
+            hit = pc.load_device(path, precision, dev)
             if hit is not None and hit[:3] == (n, n_p, tb):
                 return mk(precision, hit[3], n, n_p, dev)
-        if quantized:
-            bufs = _host_pack_tri(a, precision, tb)
+        if _native_io.has_range_pack(precision):
+            bufs, dev_bufs = DenseOperator._pack_fq_streamed(
+                path, a.offset, n, n_p, tb, dev)
         else:
-            bufs = _host_pack_planes(a, precision, tb)
+            bufs = dev_bufs = _file_pack(path, a, precision, n_p, tb)
         del a
         if pack_cache:
             pc.save(path, precision, n, n_p, tb, bufs, src_stat=src_stat)
-        return mk(precision, bufs, n, n_p, dev)
+        return mk(precision, dev_bufs, n, n_p, dev)
 
     @staticmethod
     def from_file_f32(path, check_symmetric=False, pack_cache=False,
                       device="cuda"):
         """f32 packed-triangle operator straight from a matrix file
-        (binary format or .npy), by the streaming numpy pack or, with
-        pack_cache=True, from `<file>.f32pack` (published after a
-        fresh pack). Symmetry is trusted by default (CG's contract)."""
+        (binary format or .npy), by the fused native pack (the streaming
+        numpy pack where the library is not built) or, with
+        pack_cache=True, from `<file>.f32pack` (published after a fresh
+        pack). Symmetry is trusted by default (CG's contract)."""
         return DenseOperator._from_file_packed(path, "f32", check_symmetric,
                                                pack_cache, device)
 
@@ -663,6 +765,63 @@ class DenseOperator(LinearOperator):
         writes too)."""
         return DenseOperator._from_file_packed(path, "fq", check_symmetric,
                                                pack_cache, device)
+
+    @staticmethod
+    def from_file_fq_q1(path, pack_cache=True, device="cuda"):
+        """The q1-only fq operator of the host outer loop
+        (lam_tpu/solver/operators.py:1076-1146): only the buffers the irfq
+        inner matvec reads go to the device, the 2-byte q1 plane, its
+        scales and the diagonal pair (a third of the cascade's bytes), q2
+        and q3 riding as one zero tile each (`from_gen_fq`'s layout). The
+        host computes the outer residuals against the f64 source
+        (solver/host_outer.cg_solve_ir_host).
+
+        Only its `as_f32()` view serves (kernel 14, gemv_q16_symm or its
+        bf16 body); its accurate matvec raises, since over zero q2/q3 it
+        would apply the coarse q1 reconstruction as if it were the
+        cascade.
+
+        Warm (pack_cache=True and a usable cache): the partial read of
+        `<file>.fqpack` (pack_cache.load_device_fq_q1). Cold: the full
+        pack (native where built), published to the cache when
+        pack_cache, then the four buffers uploaded."""
+        dev = resolve_device(device)
+        path = str(path)
+        src_stat = os.stat(path)
+        if pack_cache:
+            hit = pc.load_device_fq_q1(path, dev)
+            if hit is not None:
+                n, n_p, _, (q1, s1, dh, dl) = hit
+                return DenseOperator._q1_only_operator(q1, s1, dh, dl, n,
+                                                       n_p, dev)
+        a = lio.open_matrix_memmap(path)
+        n = a.shape[0]
+        tb = layout.SYMM_TB
+        n_p = layout.padded_size(n, tb)
+        bufs = _file_pack(path, a, "fq", n_p, tb)
+        del a
+        if pack_cache:
+            pc.save(path, "fq", n, n_p, tb, bufs, src_stat=src_stat)
+        q1, s1, dh, dl = (transfer.to_device(bufs[i], dev)
+                          for i in (0, 3, 6, 7))
+        return DenseOperator._q1_only_operator(q1, s1, dh, dl, n, n_p, dev)
+
+    @staticmethod
+    def _q1_only_operator(q1, s1, dh, dl, n, n_p, dev):
+        """fq operator over device q1, s1, dh and dl, with q2 and q3 one
+        zero tile each and zero s2, s3, whose accurate matvec raises. It
+        is built here, not by _packed_operator, which would route zero
+        q2/q3 tiles to gemv_fq_symm_zero."""
+        tb, _, T = layout.packed_geometry(tuple(q1.shape), n_p,
+                                          "DenseOperator", padded=True)
+        if tuple(s1.shape) != (T,):
+            raise ValueError(f"scale table shape {tuple(s1.shape)} != "
+                             f"({T},)")
+        zero_tile = torch.zeros((tb, tb), dtype=torch.int16, device=dev)
+        zero_sc = torch.zeros_like(s1)
+        operand = (q1, zero_tile, zero_tile, s1, zero_sc, zero_sc, dh, dl)
+        return DenseOperator(_no_accurate_matvec, operand, n, n_p,
+                             torch.float64, "fq", ENGINE, dev)
 
     @staticmethod
     def from_packed_f32(a_packed, n, n_padded, device="cuda"):

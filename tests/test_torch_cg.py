@@ -278,7 +278,10 @@ def test_import_leaves_jax_out():
             "lam_tpu_torch.solver.api, lam_tpu_torch.solver.cg, "
             "lam_tpu_torch.solver.operators, "
             "lam_tpu_torch.solver.pack_cache, lam_tpu_torch.parallel.mesh, "
-            "lam_tpu_torch.parallel.pcg, lam_tpu_torch.parallel.pcg_symm; "
+            "lam_tpu_torch.parallel.pcg, lam_tpu_torch.parallel.pcg_symm, "
+            "lam_tpu_torch._native_io, lam_tpu_torch.ops.transfer, "
+            "lam_tpu_torch.solver.host_outer; "
+            "lam_tpu_torch._native_io.available(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lam_tpu')]; "
             "print(bad); sys.exit(1 if bad else 0)")

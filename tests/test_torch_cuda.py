@@ -2755,3 +2755,94 @@ def test_sub8_walk_and_control_refuse_misaligned_operands():
         with pytest.raises(ValueError, match="aligned"):
             fn(off(q1), sc, p)
     assert not any(probe.counters().values())
+
+
+# -- staged uploads and the q1-only operator (ops/transfer.py) -------------
+
+def _host_plane(rows, cols, dtype, seed):
+    rng = np.random.default_rng(seed)
+    if dtype == np.int16:
+        return rng.integers(-32767, 32768, (rows, cols)).astype(np.int16)
+    return rng.standard_normal((rows, cols)).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.int16, np.float32, np.float64])
+def test_pinned_uploads_equal_a_plain_copy(tmp_path, dtype):
+    """to_device, stream_file_to_device and Folder through the pinned ring
+    give `.to("cuda")`'s bits on a plane of many more chunks than the
+    ring has slots (1 MB slots, ~24 MB plane, the last chunk short), and
+    at the default 64 MB slots on a plane larger than the whole ring."""
+    from lam_tpu_torch.ops import transfer
+    host = _host_plane(23 * 1024 + 77, 512, dtype, seed=701)
+    ref = torch.from_numpy(host).to("cuda")
+    cb = 1 << 20
+    assert host.nbytes > 7 * transfer.RING_DEPTH * cb
+    up = transfer.to_device(host, "cuda", chunk_bytes=cb)
+    path = tmp_path / "plane.bin"
+    with open(path, "wb") as fh:
+        fh.write(b"\0" * 16)
+        host.tofile(fh)
+    streamed = transfer.stream_file_to_device(str(path), 16, dtype,
+                                              host.shape, "cuda",
+                                              chunk_bytes=cb)
+    fill = np.zeros_like(host)
+    folder = transfer.Folder(host.shape, dtype, "cuda", chunk_bytes=cb)
+    for avail in (0, 3000, 3001, 12000, host.shape[0] - 1, host.shape[0]):
+        fill[:avail] = host[:avail]
+        folder.advance(fill, avail)
+        fill[avail:] = 7     # rows not final yet: must not have been sent
+    for out in (up, streamed, folder.result()):
+        assert out.is_cuda and out.dtype == ref.dtype
+        assert torch.equal(out, ref)
+    rows = transfer.RING_DEPTH * transfer.CHUNK_BYTES // 2048 + 999
+    big = _host_plane(rows, 1024, np.int16, seed=702)   # 2 KB rows
+    assert big.nbytes > transfer.RING_DEPTH * transfer.CHUNK_BYTES
+    assert torch.equal(transfer.to_device(big, "cuda"),
+                       torch.from_numpy(big).to("cuda"))
+
+
+def _fq_file(tmp_path, n, seed):
+    rng = np.random.default_rng(seed)
+    m = rng.uniform(-1, 1, size=(n, n))
+    a = m + m.T + n * np.eye(n)
+    path = str(tmp_path / "A.bin")
+    from lam_tpu_torch import io as tio
+    tio.write_matrix(path, a)
+    return path, a
+
+
+def test_q1_only_operator_cold_warm_and_its_one_kernel(tmp_path):
+    """from_file_fq_q1 cold (native pack, four buffers uploaded) and warm
+    (the partial cache read) give equal device buffers, the full fq
+    operator's; the device grows by those buffers alone; the inner
+    matvec launches gemv_q16_symm and nothing else; the accurate one
+    launches nothing and raises."""
+    from lam_tpu_torch.solver.operators import DenseOperator
+    path, a = _fq_file(tmp_path, 10000, seed=703)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    cold = DenseOperator.from_file_fq_q1(path, pack_cache=True,
+                                         device="cuda")
+    grown = torch.cuda.memory_allocated() - before
+    need = sum(cold.operand[i].numel() * cold.operand[i].element_size()
+               for i in (0, 3, 6, 7))
+    assert need <= grown <= 1.05 * need
+    warm = DenseOperator.from_file_fq_q1(path, pack_cache=True,
+                                         device="cuda")
+    full = DenseOperator.from_file_fq(path, pack_cache=True, device="cuda")
+    for i in (0, 3, 6, 7):
+        assert torch.equal(cold.operand[i], warm.operand[i])
+        assert torch.equal(warm.operand[i], full.operand[i])
+    p = warm.prepare_b(np.random.default_rng(704).uniform(-1, 1, 10000))
+    p32 = p.to(torch.float32)
+    ops.reset_counters()
+    y = warm.as_f32().matvec(p32)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts["gemv_q16_symm"] == 1
+    assert {k for k, v in counts.items() if v} == {"gemv_q16_symm"}
+    assert torch.equal(y, full.as_f32().matvec(p32))
+    ops.reset_counters()
+    with pytest.raises(NotImplementedError, match="q1-only"):
+        warm.matvec(p)
+    assert not any(ops.counters().values())

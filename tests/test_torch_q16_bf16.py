@@ -607,7 +607,10 @@ def test_row_reads_past_2_gib_keep_their_offset(monkeypatch, tmp_path):
     """A rank of the band pairs reads its tile-rows at row indices taken
     from the int32 walk tables; at N=20000 the byte offset of row 15360
     (2.46e9) overflows int32 arithmetic. read_matrix_rows computes it in
-    Python ints."""
+    Python ints. This is its numpy branch; the native reader's offset is
+    a uint64 (tests/test_torch_native.py)."""
+    from lam_tpu_torch import _native_io
+    monkeypatch.setattr(_native_io, "available", lambda: False)
     path = str(tmp_path / "A.bin")
     with open(path, "wb") as f:
         f.write(tio._HEADER.pack(20000, 20000))
