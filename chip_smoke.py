@@ -233,7 +233,16 @@
    relative, gemv_q16_symm and no fq walk, no bf16 body and no plain
    version launched, the device grown across the load by no more than
    1.05 x the four buffers' bytes, warm x bitwise the cold x, the inner
-   iterations printed beside irfq-cold's.
+   iterations printed beside irfq-cold's. Then Jacobi-preconditioned CG
+   (--preconditioner jacobi, JACOBI_RUNS): df64, ir and irfq on the
+   benchmark system, each converged to a TRUE residual <= 2e-9, launching
+   the kernels of its run without a preconditioner and no plain version,
+   its iterations and solve time printed beside that run's; and a badly
+   scaled system (random_spd_matrix_fast(4096, seed=2024) * outer(s, s), s
+   = exp(linspace(0, 4, n)), as tests/test_cli.py:244-270 builds it at
+   n=96) through df64 without a preconditioner (-i 5000; it may stop
+   there) and with Jacobi, which must converge <= 2e-9 in fewer
+   iterations.
    Phase 2 also holds the stencil kernel laplace5_f32_halo against its
    plain version on the heat demo's padded grid (1024 x 1280, zero edges)
    and on that grid as one shard of a row-sharded grid (non-zero edge
@@ -246,7 +255,12 @@
    with the same 5-point weights (stencil only: no mask, no p . y), and
    against its control LIBRARY_REPEATS times in turns, conv2d beside:
    the demo grid's times beside its target, 4096 x 4096's ratio to the
-   control beside 3%.
+   control beside 3%. And on each of the 4 shards of the plate padded for
+   a 4-rank row-sharded grid (1024 x 1280, 256 rows a shard, the last 230
+   of them valid), its edges the rows the halo exchange delivers (zeros
+   past the mesh's edges), held so against its plain version; the shards'
+   y concatenated equal the one-device y bit for bit, and their p . y
+   partials summed the one-device p . y within 1e-6.
 4. Runs the heat-equation demo through the port's `lam-heat` CLI, in
    process, at its documented 1200 x 1000 plate: --precision ir (the
    stencil kernel must launch, no gemv kernel and no plain version) and
@@ -257,6 +271,15 @@
    stencil keeps its bits); Jacobi at 120 x 100, whose
    sweep count and grid must equal a literal numpy loop; and the
    `lam-heat-to-bmp` converter on the ir grid, a (1000, 1200, 3) image.
+   Then the row-sharded heat path at the same plate, through lam-heat
+   with --devices 2 and --devices 4 (HEAT_DEVICES), G rank processes of
+   this script sharing the card over gloo, as phase 5 starts them: each
+   converged to a TRUE residual <= 2e-10 on the host from rank 0's grid,
+   within IR_F64_ATOL of the f64 grid, every rank launching
+   laplace5_f32_halo and nothing else (no gemv kernel, no plain version),
+   the mesh reporting gloo with every rank on cuda:0; its inner
+   iterations printed beside the one device's 4448 with its solve time.
+   G ranks on one card measure the sharded program, not scaling.
 5. Solves the benchmark system through the port's CLI with --backend
    sharded, G rank processes of this script (`--rank r ...`, started with
    subprocess, each killed if its cluster outlives CLUSTER_TIMEOUT_S)
@@ -290,7 +313,12 @@
    iteration count printed beside the one-device run's, one CSV
    row (rank 0's) with procs = G, and the mesh must report gloo with every
    rank on cuda:0. G ranks on one card measure the sharded program, not
-   multi-GPU scaling. No earlier phase was shortened for these.
+   multi-GPU scaling. No earlier phase was shortened for these. Last in
+   their clusters, Jacobi-preconditioned runs (--preconditioner jacobi):
+   ring-ir-jacobi and packed-irfq-jacobi at G=2, grid-ir-4-jacobi and
+   symgrid-ir-4-jacobi at G=4, each held to the gates of its run without
+   a preconditioner, its x against phase 3's one-device Jacobi x of the
+   same mode (JACOBI_OF), its iterations printed beside that run's.
 6. Writes bench.py's system at its second size (random_spd_matrix_fast(
    20000, seed=2024), random_rhs(20000, seed=2034), 3.2 GB) to a new
    temporary directory, phase 3's freed, and solves it through the port's
@@ -454,6 +482,8 @@ TC_WALKS = ("split", "hi", "hybrid")
 STRIP_PROBES = ("sub8", *TC_WALKS)
 HEAT_NX, HEAT_NY = 1200, 1000  # the heat demo's documented plate
 JAC_NX, JAC_NY = 120, 100
+HEAT_SHARDS = 4  # phase 2's shards of the plate, the largest phase-4 mesh
+HEAT_DEVICES = (2, 4)  # phase 4's row-sharded runs, rank processes
 HEAT_GATE = 2e-10    # TRUE residual of a rel_error=1e-10 heat solve
 # ir and f64 stop at a residual of 1e-10 each, and the Laplacian's
 # condition number grows as side^2: their grids part by more than the
@@ -489,6 +519,16 @@ RUNS = (("ir", ("gemv_f32_symm", "gemv_df64_symm"), ()),
         ("ir-pallas", ("gemv_f32", "gemv_df64"),
          ("gemv_f32_symm", "gemv_df64_symm")),
         ("df64-pallas", ("gemv_df64",), ("gemv_df64_symm",)))
+# phase 3's Jacobi runs (--preconditioner jacobi): (run, the run without a
+# preconditioner beside it, kernels it must launch, kernels it must not)
+JACOBI_RUNS = (("df64-jacobi", "df64", ("gemv_df64_symm",), ()),
+               ("ir-jacobi", "ir", ("gemv_f32_symm", "gemv_df64_symm"), ()),
+               ("irfq-jacobi", "irfq-warm", ("gemv_q16_symm", "gemv_fq_symm"),
+                _BF16))
+# phase 3's badly scaled system: a * outer(s, s), s = exp(linspace(0, 4, n))
+# (tests/test_cli.py:244-270 at n=96), df64 with and without Jacobi; the
+# run without gets this cap and may end there unconverged
+SCALED_N, SCALED_SPAN, SCALED_CAP = 4096, 4.0, 5000
 # precisions run with --pack-cache -> the storage their cache holds
 PACK_CACHE = {"irfq": "fq", "irq": "dfq"}
 # phase 3 runs that pack the file -> the native binding that must pack it
@@ -566,7 +606,29 @@ SHARDED_RUNS = (
      (("gemv_f32_symm", "gemv_dfq_symm"),
       ("gemv_f32_dual", "gemv_dfq_dual")), ()),
     ("symgrid-dfq-4", 4, _SYMGRID + ["--precision", "dfq"],
-     (("gemv_dfq_symm",), ("gemv_dfq_dual",)), ()))
+     (("gemv_dfq_symm",), ("gemv_dfq_dual",)), ()),
+    # Jacobi-preconditioned, last in their clusters: the gates of the same
+    # runs without a preconditioner, x against phase 3's one-device Jacobi
+    # x of the same mode (JACOBI_OF)
+    ("ring-ir-jacobi", 2, ["--precision", "ir", "--comm", "ring",
+                           "--preconditioner", "jacobi"], _RING,
+     ("gemv_f32", "gemv_df64")),
+    ("packed-irfq-jacobi", 2, ["--precision", "irfq", "--preconditioner",
+                               "jacobi"], _QFQ,
+     _SLAB + _TRI + _LOCAL_Q + _BF16),
+    ("grid-ir-4-jacobi", 4, ["--backend", "sharded2d", "--precision", "ir",
+                             "--preconditioner", "jacobi"],
+     ("gemv_f32", "gemv_df64"),
+     _RING + _SLAB + _TRI + _LOCAL_Q + _QFQ + ("gemv_dfq_symm_slab",)),
+    ("symgrid-ir-4-jacobi", 4, _SYMGRID + [
+        "--precision", "ir", "--engine", "pallas_symm_packed",
+        "--preconditioner", "jacobi"],
+     (_TRI, ("gemv_f32_dual", "gemv_df64_dual")), ()))
+# phase 5's Jacobi runs -> phase 3's one-device Jacobi run of their mode
+JACOBI_OF = {"ring-ir-jacobi": "ir-jacobi",
+             "packed-irfq-jacobi": "irfq-jacobi",
+             "grid-ir-4-jacobi": "ir-jacobi",
+             "symgrid-ir-4-jacobi": "ir-jacobi"}
 # the same 4 rank processes' layout started with LAM_Q16_IMPL=mxu in their
 # environment (lam_tpu's documented explicit value): the grid's half-slabs
 # (5120 and 10240 wide at N=20000) stay below 16384 under "auto". The
@@ -589,7 +651,7 @@ ONE_DEVICE_OF = {"packed-irfq-cold": "irfq-cold",
                  "symgrid-irfq-cold-4": "irfq-cold",
                  "symgrid-irfq-warm-4": "irfq-warm", "symgrid-fq-4": "fq",
                  "symgrid-irq-4": "irq-cold", "symgrid-dfq-4": "dfq",
-                 "symgrid-irfq-mxu-4": "irfq-cold"}
+                 "symgrid-irfq-mxu-4": "irfq-cold", **JACOBI_OF}
 # the runs through kernels 4, 5 and 6 (the dense_stream walk) and 16, 18,
 # 18-bf16 and 19 (the strip walk) -> the iteration count every earlier chip
 # run of their precision gave (PERF.md section 2; symgrid-irfq-mxu-4: its
@@ -3710,6 +3772,47 @@ def stencil_vs_plain(stencil):
     return entry
 
 
+def stencil_shards(stencil):
+    """Phase 2, the row-sharded heat path's stencil: laplace5_f32_halo on
+    each of the HEAT_SHARDS shards of the demo's 1200 x 1000 plate (padded
+    with row_groups=HEAT_SHARDS), its up/dn edges the neighbour rows the
+    halo exchange delivers (zeros past the mesh's edges), held against its
+    plain version (_stencil_case); the shards' y concatenated must be the
+    one-device zero-edged y bit for bit, and their p . y partials summed
+    the one-device p . y."""
+    rng = np.random.default_rng(12)
+    nyi, nxi = HEAT_NY - 2, HEAT_NX - 2
+    H, W, tbr = stencil.padded_hw(nyi, nxi, row_groups=HEAT_SHARDS)
+    hs = H // HEAT_SHARDS
+    p = torch.zeros(H, W, device="cuda")
+    p[:nyi, :nxi] = torch.from_numpy(
+        rng.standard_normal((nyi, nxi)).astype(np.float32)).cuda()
+    zero = torch.zeros(1, W, device="cuda")
+    y1, d1 = stencil.laplace5_f32_halo(p, zero, zero, nyi, nxi=nxi, tbr=tbr)
+    ys, parts = [], []
+    for c in range(HEAT_SHARDS):
+        shard = p[c * hs:(c + 1) * hs]
+        up = p[c * hs - 1:c * hs] if c else zero
+        dn = p[(c + 1) * hs:(c + 1) * hs + 1] if c < HEAT_SHARDS - 1 else zero
+        nrows = min(max(nyi - c * hs, 0), hs)
+        _stencil_case(stencil, f"shard {c} of {HEAT_SHARDS} ({hs}x{W}, "
+                      f"nrows {nrows})", shard, up, dn, nrows, nxi, tbr)
+        y, d = stencil.laplace5_f32_halo(shard, up, dn, nrows, nxi=nxi,
+                                         tbr=tbr)
+        ys.append(y)
+        parts.append(float(d))
+    torch.cuda.synchronize()
+    exact = float((p.double() * y1.double()).sum())
+    rel = abs(sum(parts) - exact) / abs(exact)
+    same = torch.equal(torch.cat(ys), y1)
+    print(f"laplace5 over {HEAT_SHARDS} halo shards of the {H}x{W} plate: "
+          f"y == the one-device y bit for bit: {same}; the shards' p.y "
+          f"summed vs the one-device f64 p.y rel {rel:.3e} (<= 1e-6), the "
+          f"one-device kernel's {abs(float(d1) - exact) / abs(exact):.3e}")
+    _check(same, "the stencil's shards differ from the one-device grid")
+    _check(rel <= 1e-6, "the shards' p.y partials do not sum to p.y")
+
+
 def _heat_true_rel(grid):
     """TRUE relative residual |b - A u| / |b| of the 5-point system whose
     unknowns are the plate's interior, in float64 (b from the boundary,
@@ -3823,8 +3926,66 @@ def heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio):
         img = bmp.read_bmp(bmp_path)
         print(f"lam-heat-to-bmp: image {img.shape}")
         _check(img.shape == (HEAT_NY, HEAT_NX, 3), "BMP has the wrong shape")
+        sharded_heat_runs(ops, lio, grids["heat-f64"], tmp, total)
     print(f"heat demo launches, summed over the runs: {total}")
     return total
+
+
+def sharded_heat_runs(ops, lio, grid_f64, tmp, total):
+    """Phase 4, the row-sharded heat path: the plate through the port's
+    lam-heat CLI with --devices G for each G of HEAT_DEVICES, G rank
+    processes of this script sharing the card over gloo (as phase 5 starts
+    them). Each run must converge with a TRUE residual <= HEAT_GATE on the
+    host from rank 0's grid, lie within IR_F64_ATOL of the one-device f64
+    grid, launch laplace5_f32_halo on every rank and no other kernel and
+    no plain version, and report gloo with every rank on cuda:0; its inner
+    iterations are printed beside the one-device HEAT_IR_ITERS, with its
+    solve time. Adds the launches to total."""
+    stencil_k = "laplace5_f32_halo"
+    for g in HEAT_DEVICES:
+        run = f"heat-ir-{g}"
+        path = os.path.join(tmp, f"{run}.bin")
+        t0 = time.perf_counter()
+        records = _cluster(g, [{"run": run, "app": "heat", "argv": [
+            str(HEAT_NX), str(HEAT_NY), path, "100000", "--devices",
+            str(g)]}], tmp, label=f"heat{g}")
+        wall = time.perf_counter() - t0
+        recs = [rank_recs[0] for rank_recs in records]
+        _check(all(rec["rc"] == 0 for rec in recs),
+               f"{run}: a rank's lam-heat failed: "
+               f"{[rec['rc'] for rec in recs]}")
+        _check(all(not rec["stdout"].strip() for rec in recs[1:]),
+               f"{run}: a rank other than 0 printed")
+        text = recs[0]["stdout"]
+        m = re.search(r"Iterations converged in (\d+) iterations with "
+                      r"rel_residual=(\S+)", text)
+        _check(m is not None, f"{run} did not converge:\n{text}")
+        iters = int(m.group(1))
+        solve_s = float(re.search(r"Time elapsed: (\S+) s", text).group(1))
+        grid = lio.read_matrix(path)
+        true_rel = _heat_true_rel(grid)
+        gap = float(np.abs(grid - grid_f64).max())
+        meshes = sorted({(rec["backend"], rec["device"]) for rec in recs})
+        print(f"{run} {HEAT_NX}x{HEAT_NY}: {g} ranks on {meshes}, {iters} "
+              f"inner iterations (one device: {HEAT_IR_ITERS}), "
+              f"rel_residual {m.group(2)}, solve {solve_s:.4f} s, cluster "
+              f"{wall:.1f} s of wall time, TRUE rel residual {true_rel:.3e} "
+              f"(<= {HEAT_GATE:g}), grid vs f64 max abs {gap:.3e} "
+              f"(<= {IR_F64_ATOL:g}), launches rank 0 "
+              f"{ {k: v for k, v in recs[0]['counts'].items() if v} }")
+        _check(true_rel <= HEAT_GATE, f"{run} TRUE residual {true_rel:.3e}")
+        _check(gap <= IR_F64_ATOL, f"{run}: the grid differs from f64's")
+        _check(meshes == [("gloo", "cuda:0")],
+               f"{run}: the mesh is {meshes}, not gloo on cuda:0")
+        for r, rec in enumerate(recs):
+            counts = rec["counts"]
+            _check(counts[stencil_k] > 0, f"{run}: rank {r} never launched "
+                   f"{stencil_k}")
+            others = {k: v for k, v in counts.items() if v and k != stencil_k}
+            _check(not others, f"{run}: rank {r} launched another kernel or "
+                   f"a plain version: {others}")
+            for k in total:
+                total[k] += counts.get(k, 0)
 
 
 def bench_system(generate, lio, tmp):
@@ -3918,6 +4079,7 @@ def solve_slice(ops, lio, cli, system, tmp):
                and np.array_equal(xs[warm], xs[cold]),
                f"{precision} from the cache differs from {precision} after "
                "a fresh pack")
+    jacobi_runs(ops, lio, cli, system, tmp, xs, iters_of, total)
     host = host_outer_runs(ops, api, cli, lio, a_path, b_path, tmp, N,
                            ("gemv_q16_symm",), ("gemv_q16_symm_bf16",),
                            load_of["irfq-cold"], load_of["irfq-warm"],
@@ -3926,7 +4088,97 @@ def solve_slice(ops, lio, cli, system, tmp):
            <= X_ENGINE_GATE * np.linalg.norm(xs["irfq-cold"]),
            f"N={N} irfq --outer host: x differs from irfq's")
     print(f"main path launches, summed over the runs: {total}")
-    return total, xs["ir"], iters_of
+    return total, xs, iters_of
+
+
+def _cli_run(ops, cli, argv):
+    """The port's CLI in process on the card: (exit code, its CSV fields,
+    the launch counts)."""
+    csv = io.StringIO()
+    ops.reset_counters()
+    with contextlib.redirect_stdout(csv):
+        rc = cli.main(argv + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    return rc, csv.getvalue().strip().split(","), ops.counters()
+
+
+def jacobi_runs(ops, lio, cli, system, tmp, xs, iters_of, total):
+    """Phase 3, Jacobi-preconditioned CG (--preconditioner jacobi): the
+    bench system through df64, ir and irfq (JACOBI_RUNS; irfq reads the
+    fq cache of irfq-cold), each converged to a TRUE residual <= 2e-9 on
+    the host, launching the kernels of its run without a preconditioner
+    and no plain version, its iterations and solve time printed beside
+    that run's; then the badly scaled system (SCALED_N), df64 without a
+    preconditioner (capped at SCALED_CAP) and with Jacobi, which must
+    converge <= 2e-9 in fewer iterations. Adds to xs, iters_of and
+    total."""
+    a, b, a_path, b_path = system
+    bnorm = np.linalg.norm(b)
+    for run, plain_run, kernels, not_kernels in JACOBI_RUNS:
+        precision = run.split("-")[0]
+        x_path = os.path.join(tmp, f"x_{run}.bin")
+        argv = ["-A", a_path, "-b", b_path, "-o", x_path, "--precision",
+                precision, "--preconditioner", "jacobi"]
+        if precision in PACK_CACHE:
+            argv.append("--pack-cache")
+        rc, fields, counts = _cli_run(ops, cli, argv)
+        _check(rc == 0, f"{run}: the CLI exited {rc}")
+        iters, solve_s = int(fields[6]), float(fields[8])
+        x = lio.read_vector(x_path)
+        true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"{run} CSV: {','.join(fields)}")
+        print(f"{run}: {iters} iterations (without a preconditioner "
+              f"{iters_of[plain_run]}), solve {solve_s:.4f} s, TRUE rel "
+              f"residual {true_rel:.3e} (<= {TRUE_GATE:g}), launches "
+              f"{launched}")
+        _check(iters <= 10000, f"{run} did not converge")
+        _check(true_rel <= TRUE_GATE, f"{run} TRUE residual {true_rel:.3e}")
+        for k in kernels:
+            _check(counts[k] > 0, f"{run} never launched {k}")
+        for k in not_kernels:
+            _check(counts[k] == 0, f"{run} launched {k}")
+        _check(all(counts[fn.__name__] == 0 for fn in ops.PLAIN),
+               f"a plain version ran on the {run} path")
+        for k in total:
+            total[k] += counts[k]
+        xs[run], iters_of[run] = x, iters
+    from lam_tpu_torch import generate
+    n = SCALED_N
+    sv = np.exp(np.linspace(0.0, SCALED_SPAN, n))
+    a_s = generate.random_spd_matrix_fast(n, seed=SEED_A) * np.outer(sv, sv)
+    b_s = generate.random_rhs(n, seed=SEED_B)
+    paths = [os.path.join(tmp, f) for f in ("A_scaled.bin", "b_scaled.bin",
+                                            "x_scaled.bin")]
+    lio.write_matrix(paths[0], a_s)
+    lio.write_matrix(paths[1], b_s)
+    got = {}
+    for run, extra in (("scaled-df64", []),
+                       ("scaled-df64-jacobi", ["--preconditioner", "jacobi"])):
+        rc, fields, counts = _cli_run(ops, cli, [
+            "-A", paths[0], "-b", paths[1], "-o", paths[2], "--precision",
+            "df64", "-i", str(SCALED_CAP), *extra])
+        _check(rc == 0, f"{run}: the CLI exited {rc}")
+        x = lio.read_vector(paths[2])
+        true_rel = float(np.linalg.norm(b_s - a_s @ x)
+                         / np.linalg.norm(b_s))
+        got[run] = int(fields[6])
+        print(f"{run} N={n}: CSV num_iter {fields[6]} (cap {SCALED_CAP}: "
+              f"{SCALED_CAP + 1} = unconverged), solve {float(fields[8]):.4f}"
+              f" s, TRUE rel residual {true_rel:.3e}")
+        _check(counts["gemv_df64_symm"] > 0, f"{run} never launched "
+               "gemv_df64_symm")
+        _check(all(counts[fn.__name__] == 0 for fn in ops.PLAIN),
+               f"a plain version ran on the {run} path")
+        if extra:
+            _check(got[run] <= SCALED_CAP and true_rel <= TRUE_GATE,
+                   f"{run} did not converge to {TRUE_GATE:g}")
+        for k in total:
+            total[k] += counts[k]
+    print(f"scaled system N={n}: df64 {got['scaled-df64']} iterations, "
+          f"with Jacobi {got['scaled-df64-jacobi']}")
+    _check(got["scaled-df64-jacobi"] < got["scaled-df64"],
+           "Jacobi did not cut the scaled system's iterations")
 
 
 def numpy_cache_file(_native_io, a_path, storage, native_load_s):
@@ -4148,6 +4400,20 @@ def rank_main(argv):
     for job in jobs:
         out = io.StringIO()
         ops.reset_counters()
+        if job.get("app") == "heat":
+            from lam_tpu_torch.apps import heat_cli
+            with contextlib.redirect_stdout(out):
+                rc = heat_cli.main(job["argv"] + [
+                    "--device", "cuda", "--coordinator", address,
+                    "--num-processes", str(args.ranks), "--process-id",
+                    str(args.rank)])
+            torch.cuda.synchronize()
+            results.append({"run": job["run"], "rc": rc,
+                            "stdout": out.getvalue(),
+                            "counts": ops.counters(),
+                            "backend": mesh.backend,
+                            "device": str(mesh.device)})
+            continue
         if "tiles" in job:
             timings = _tiles_grid_solve(job)
             torch.cuda.synchronize()
@@ -4283,12 +4549,13 @@ def _cluster(g, jobs, tmp, env=None, label=None):
     return records
 
 
-def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
+def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
     """Phase 5: the bench system through the port's CLI with --backend
     sharded, G rank processes on the one card over gloo, one cluster per
     G running its entries of SHARDED_RUNS in order. Returns the kernel
     launches summed over the runs and ranks."""
     a, b, a_path, b_path = system
+    x_local = local_xs["ir"]
     bnorm = np.linalg.norm(b)
     total = {fn.__name__: 0 for fn in ops.KERNELS}
     plain = [fn.__name__ for fn in ops.PLAIN]
@@ -4323,15 +4590,16 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
                 int(fields[7]), float(fields[9]))
             x = lio.read_vector(os.path.join(tmp, f"x_{run}.bin"))
             true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
-            x_rel = float(np.linalg.norm(x - x_local)
-                          / np.linalg.norm(x_local))
+            x_ref = local_xs[JACOBI_OF.get(run, "ir")]
+            x_rel = float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
             x_gate = X_ENGINE_GATE if env else X_GATE
             meshes = sorted({(rec["backend"], rec["device"]) for rec in recs})
             print(f"{run}: {g} ranks on {meshes}, load {load_s:.3f} s, "
                   f"init {init_s:.3f} s, {iters} iterations, solve "
                   f"{solve_s:.4f} s, avg gemv {gemv_s * 1e3:.3f} ms, TRUE "
                   f"rel residual {true_rel:.3e} "
-                  f"(<= {TRUE_GATE:g}), x vs one-device ir {x_rel:.3e} "
+                  f"(<= {TRUE_GATE:g}), x vs one-device "
+                  f"{JACOBI_OF.get(run, 'ir')} {x_rel:.3e} "
                   f"(<= {x_gate:g}), launches rank 0 "
                   f"{ {k: v for k, v in recs[0]['counts'].items() if v} }")
             if run in ONE_DEVICE_OF:
@@ -4348,7 +4616,7 @@ def sharded_runs(ops, lio, system, x_local, local_iters, tmp):
             _check(true_rel <= TRUE_GATE, f"{run} TRUE residual "
                    f"{true_rel:.3e} above {TRUE_GATE:g}")
             _check(x_rel <= x_gate, f"{run}: x differs from the one-device "
-                   f"ir solve by {x_rel:.3e}")
+                   f"{JACOBI_OF.get(run, 'ir')} solve by {x_rel:.3e}")
             _check(meshes == [("gloo", "cuda:0")],
                    f"{run}: the mesh is {meshes}, not gloo on cuda:0")
             for r, rec in enumerate(recs):
@@ -5052,6 +5320,7 @@ def kernel_checks():
                                _host_pack_tri, split_f64_host)
     torch.cuda.empty_cache()
     results.append(stencil_vs_plain(stencil))
+    stencil_shards(stencil)
     torch.cuda.empty_cache()
     a, p = _shard_system()
     results += cols_kernels_vs_plain(gemv, pcg, Mesh, a, p)
@@ -5187,15 +5456,16 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         system = bench_system(generate, lio, tmp)
-        counts, x_ir, local_iters = solve_slice(ops, lio, cli, system, tmp)
+        counts, local_xs, local_iters = solve_slice(ops, lio, cli, system,
+                                                    tmp)
         torch.cuda.empty_cache()
         heat_counts = heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        shard_counts = sharded_runs(ops, lio, system, x_ir, local_iters,
-                                    tmp)
+        shard_counts = sharded_runs(ops, lio, system, local_xs,
+                                    local_iters, tmp)
         print(f"phase 5: {time.perf_counter() - t0:.1f} s")
-        del system, x_ir
+        del system, local_xs
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         large_counts = large_system_runs(ops, gemv, generate, lio, cli, tmp)

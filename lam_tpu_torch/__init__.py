@@ -22,11 +22,13 @@ CLI's -s). The sharded backends
 torch.distributed process group: row shards with a gathered or ringed
 operand, band pairs of the lower triangle (df64, dfq or fq storage),
 dense blocks over an R x R grid, or the symmetric R x R grid that stores
-each element once (df64, dfq or fq storage). The matvecs are
+each element once (df64, dfq or fq storage). Every backend takes Jacobi
+preconditioning (`preconditioner="jacobi"`). The matvecs are
 hand-written CUDA kernels for sm_90a (lam_tpu_torch/csrc, built at first
 use). The heat-equation demo (lam_tpu_torch.apps: Jacobi sweeps, and CG
 on the 5-point Laplacian, whose 'ir' inner matvec is the hand-written
-stencil kernel) and its BMP converter run on the same engine.
+stencil kernel, on one device or row-sharded over ranks) and its BMP
+converter run on the same engine.
 """
 
 from lam_tpu_torch.solver.api import ConjugateGradient

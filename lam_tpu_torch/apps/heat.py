@@ -11,10 +11,11 @@ solvers are here:
     free: `precision="ir"` runs the f32 inner CG on the hand-written
     stencil kernel (ops/stencil.py, csrc/stencil.cu) on the 2-D padded
     grid with f64 refinement restarts; `precision="f64"` runs plain f64
-    CG on the plain PyTorch stencil.
-
-The row-sharded halo-exchange variant of `solve_heat_cg` (lam_tpu's
-devices > 1) comes with the sharded backends and raises here.
+    CG on the plain PyTorch stencil. `devices=G > 1` splits the padded
+    grid's rows over the G ranks of a process group
+    (`_ShardedStencilOperator`): every matvec exchanges one edge row with
+    each neighbour (`parallel.mesh.Mesh.halo`) and runs the stencil
+    kernel on the rank's shard, always with refinement ('ir').
 """
 
 from __future__ import annotations
@@ -24,7 +25,8 @@ import functools
 import numpy as np
 import torch
 
-from lam_tpu_torch.solver.cg import CHUNK, cg_solve, cg_solve_ir
+from lam_tpu_torch.solver.cg import (CHUNK, _cg_ir_loop, cg_solve,
+                                     cg_solve_ir)
 from lam_tpu_torch.solver.operators import (LinearOperator,
                                             MatrixFreeOperator,
                                             resolve_device)
@@ -181,6 +183,98 @@ class _StencilOperator(LinearOperator):
         return x_padded.reshape(H, W)[:nyi, :nxi].reshape(-1)
 
 
+# -- the row-sharded stencil over a 1-D mesh ----------------------------------
+#
+# Rank c holds rows [c*Hs, (c+1)*Hs) of the padded (H, W) grid, Hs = H / G
+# (`padded_hw(..., row_groups=G)`: every shard a whole number of row
+# tiles), as every vector's flat (Hs*W,) part. Each matvec exchanges the
+# shard's first and last rows with its neighbours and runs the stencil on
+# the shard with the received rows as its up/dn edges; the refinement
+# loop of solver/cg.py runs on the parts with the mesh's all-reduced dot
+# (lam_tpu/apps/heat.py:161-309).
+
+
+def _sharded_stencil_applies(mesh, nyi, nxi, Hs, W, tbr):
+    """(apply32_dot, apply_acc) of this rank's shard: the f32 stencil
+    kernel with the f32 halo, returning y and the shard's LOCAL p . y
+    (its caller all-reduces it), and the masked f64 stencil with the f64
+    halo (an f32 halo would cap the refinement near 1e-7). A rank whose
+    rows are all padding (nrows 0) still exchanges its rows and joins
+    every collective."""
+    from lam_tpu_torch.ops.stencil import laplace5_f32_halo, laplace5_masked
+    nrows = min(max(nyi - mesh.rank * Hs, 0), Hs)
+
+    def halo(u):
+        up, dn = mesh.halo(u[0], u[-1])
+        return up.reshape(1, W), dn.reshape(1, W)
+
+    def apply32_dot(operand, p):
+        del operand
+        u = p.reshape(Hs, W)
+        y, d = laplace5_f32_halo(u, *halo(u), nrows, nxi=nxi, tbr=tbr)
+        return y.reshape(-1), d
+
+    def apply_acc(operand, p):
+        del operand
+        u = p.reshape(Hs, W)
+        return laplace5_masked(u, *halo(u), nrows, nxi).reshape(-1)
+
+    return apply32_dot, apply_acc
+
+
+class _ShardedStencilOperator(LinearOperator):
+    """Row-sharded padded-grid operator (the twin of _StencilOperator):
+    f64 vectors split by rows over the mesh, the mesh's dot, the f64
+    stencil as its matvec and the f32 kernel with its fused p . y,
+    all-reduced, as the inner engine of `run_cg_ir`."""
+
+    def __init__(self, nyi, nxi, H, W, tbr, mesh):
+        self.mesh = mesh
+        self._dims = (nyi, nxi, H, W)
+        self._hs = H // mesh.size
+        apply32_dot, apply_acc = _sharded_stencil_applies(
+            mesh, nyi, nxi, self._hs, W, tbr)
+        super().__init__(apply_acc, None, nyi * nxi, H * W, torch.float64,
+                         mesh.device)
+        self.dot = mesh.dot
+        self._apply32_dot = apply32_dot
+
+    def _matvec_dot32(self, p):
+        # the kernel's p . y is the shard's: summed over the ranks before
+        # alpha, or each rank would take its own step
+        y, d = self._apply32_dot(None, p)
+        return y, self.mesh.all_reduce(d)
+
+    def prepare_b(self, b):
+        """This rank's rows of the padded right-hand side, flat, f64."""
+        nyi, nxi, H, W = self._dims
+        b = torch.as_tensor(b, dtype=torch.float64)
+        if b.shape != (self.n,):
+            raise ValueError(f"rhs has shape {tuple(b.shape)}, expected "
+                             f"({self.n},)")
+        bp = torch.nn.functional.pad(b.reshape(nyi, nxi),
+                                     (0, W - nxi, 0, H - nyi))
+        r0 = self.mesh.rank * self._hs
+        return bp[r0:r0 + self._hs].reshape(-1).to(self.device)
+
+    def extract_x(self, x_local):
+        """The whole interior on every rank (a collective)."""
+        nyi, nxi, H, W = self._dims
+        full = self.mesh.all_gather(x_local).reshape(H, W)
+        return full[:nyi, :nxi].reshape(-1)
+
+    def run_cg_ir(self, op32, b_padded, max_iters, rel_error, max_cycles,
+                  inner_floor, inv_diag32=None):
+        del op32  # the f32 stencil is the shard's kernel, not a view
+        if inv_diag32 is not None:
+            raise NotImplementedError(
+                "the Laplacian stencil has a constant diagonal (4); "
+                "Jacobi preconditioning is a no-op — run without it")
+        return _cg_ir_loop(self._matvec_dot32, self.matvec_dot, b_padded,
+                           max_iters, rel_error, max_cycles, inner_floor,
+                           self.dot)
+
+
 def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
                   precision="auto", devices=None, device="cuda"):
     """Steady state via CG on the 5-point Laplacian system, as lam_tpu's.
@@ -196,8 +290,14 @@ def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
     the masked f64 stencil on the same vector space, up to 40 refinement
     cycles (the Laplacian's condition number grows as side^2). 'auto' is
     'ir' on a CUDA device and 'f64' on the CPU (lam_tpu's accelerator
-    rule). devices > 1 (lam_tpu's row-sharded halo path) is not ported
-    yet and raises."""
+    rule).
+
+    devices=G > 1 splits the grid's rows over the G ranks of the process
+    group (one process per rank, `parallel.mesh.distributed_init`; the
+    group must have G ranks): one edge row exchanged with each neighbour
+    per matvec, the stencil kernel on the rank's shard, vectors split end
+    to end. It implies 'ir' (an explicit 'f64' raises, as in lam_tpu) and
+    returns the whole grid on every rank."""
     grid = np.asarray(grid, dtype=np.float64)
     ny, nx = grid.shape
     nyi, nxi = ny - 2, nx - 2
@@ -215,10 +315,20 @@ def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
                 "the row-sharded heat path implements only the "
                 "mixed-precision ir solver; drop --precision f64 or "
                 "--devices")
-        raise NotImplementedError(
-            f"solve_heat_cg(devices={devices}): the row-sharded halo path "
-            "is not ported yet (ROADMAP Queue 1 item 4, the row-sharded "
-            "heat path)")
+        if precision not in ("auto", "ir"):
+            raise ValueError(f"unknown precision {precision!r} (auto, f64 "
+                             "or ir)")
+        from lam_tpu_torch.ops.stencil import padded_hw
+        from lam_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(devices, device=device)
+        H, W, tbr = padded_hw(nyi, nxi, row_groups=mesh.size)
+        if mesh.device.type == "cuda":
+            from lam_tpu_torch.ops._build import library
+            library()
+        op = _ShardedStencilOperator(nyi, nxi, H, W, tbr, mesh)
+        res = cg_solve_ir(op, op, b.reshape(-1), max_iters=max_iters,
+                          rel_error=rel_error, max_cycles=40)
+        return _result(grid, res)
     dev = resolve_device(device)
     if precision == "auto":
         precision = "ir" if dev.type == "cuda" else "f64"
@@ -249,6 +359,11 @@ def solve_heat_cg(grid, max_iters=100_000, rel_error=1e-10,
                        rel_error=rel_error)
     else:
         raise ValueError(f"unknown precision {precision!r} (auto, f64 or ir)")
+    return _result(grid, res)
+
+
+def _result(grid, res):
+    """(grid with the solved interior, iterations, rel_residual)."""
     out = grid.copy()
-    out[1:ny - 1, 1:nx - 1] = res.x.cpu().numpy().reshape(nyi, nxi)
+    out[1:-1, 1:-1] = res.x.cpu().numpy().reshape(out[1:-1, 1:-1].shape)
     return out, int(res.num_iters), float(res.rel_residual)

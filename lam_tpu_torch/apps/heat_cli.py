@@ -7,14 +7,21 @@ reference defaults. Flags:
   --epsilon              Jacobi stop threshold (default 1e-3)
   --rel-error            CG stop threshold (default 1e-10)
   --precision auto|f64|ir  (auto: ir on a CUDA device, f64 on the CPU)
-  --devices              > 1 is lam_tpu's row-sharded path: not ported yet
+  --devices G            row-shard the grid over G ranks (halo exchange;
+                         implies ir): one process per rank, each started
+                         with the same flags and its own --process-id
+  --coordinator <host:port> --num-processes G --process-id r
+                         the process group of a --devices run (as lam-cg's)
   --device cuda|cpu      (default cuda; cuda raises when no card is present)
-The printed lines are lam_tpu's, so one parser reads both CLIs' output.
+The printed lines are lam_tpu's, so one parser reads both CLIs' output;
+with --devices only rank 0 prints and writes the output file.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import sys
 import time
 
@@ -39,8 +46,20 @@ def _cli_main(argv=None):
     p.add_argument("--epsilon", type=float, default=1e-3)
     p.add_argument("--rel-error", type=float, default=1e-10)
     p.add_argument("--devices", type=int, default=None,
-                   help="Row-shard the grid over this many devices (not "
-                        "ported yet: > 1 raises)")
+                   help="Row-shard the grid over this many devices: one "
+                        "edge-row exchange with each neighbour per matvec "
+                        "(implies the ir solver); the process group must "
+                        "have this many ranks")
+    p.add_argument("--coordinator", metavar="<host:port>", default=None,
+                   help="Multi-process mode: address of the TCP rendezvous "
+                        "of torch.distributed.init_process_group (rank 0 "
+                        "listens there). Launch one process per rank.")
+    p.add_argument("--num-processes", type=int, default=None,
+                   metavar="<int>", help="Total process count "
+                   "(multi-process mode)")
+    p.add_argument("--process-id", type=int, default=None,
+                   metavar="<int>", help="This process's rank "
+                   "(multi-process mode)")
     p.add_argument("--precision", choices=["auto", "f64", "ir"],
                    default="auto",
                    help="CG solver precision: ir = f32 inner on the stencil "
@@ -55,6 +74,37 @@ def _cli_main(argv=None):
         print("Wrong argument value", file=sys.stderr)
         return 1
 
+    import torch.distributed as dist
+
+    if args.coordinator:
+        # a caller that joined the group already keeps it; a group joined
+        # here is left here
+        owns_group = not dist.is_initialized()
+        from lam_tpu_torch.parallel.mesh import distributed_init
+        distributed_init(args.coordinator, args.num_processes,
+                         args.process_id, device=args.device)
+    elif args.num_processes is not None or args.process_id is not None:
+        raise ValueError("--num-processes and --process-id need "
+                         "--coordinator")
+    else:
+        owns_group = False
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    try:
+        # only rank 0 prints and writes the file
+        with (contextlib.redirect_stdout(io.StringIO()) if rank
+              else contextlib.nullcontext()):
+            rc = _demo(args, rank)
+        if owns_group:
+            # the store's host (rank 0) must not leave while another rank
+            # still talks to it
+            dist.barrier()
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+    return rc
+
+
+def _demo(args, rank):
     print("Command line arguments:")
     print(f"  nx:             {args.nx}")
     print(f"  ny:             {args.ny}")
@@ -108,7 +158,8 @@ def _cli_main(argv=None):
     print("Done\n")
 
     print("Writing matrix to file ...")
-    lio.write_matrix(args.output_file, grid)  # (ny, nx) header
+    if rank == 0:
+        lio.write_matrix(args.output_file, grid)  # (ny, nx) header
     print("Done\n")
     print("Finished successfully")
     return 0

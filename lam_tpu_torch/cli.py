@@ -17,7 +17,16 @@ Flags (the reference's getopt surface):
               f64 source file with only the q1 plane on the device
   --backend local|sharded|sharded2d  --comm gather|ring  --devices N
   --coordinator <host:port> --num-processes N --process-id i
+  --preconditioner jacobi  Jacobi-preconditioned CG on every backend (with
+              ir/irq/irfq it scales the inner f32 loop)
+  --check-symmetric  verify A v == A^T v on the matrix file first
+  --no-warmup   time the first solve with the kernel build in it
+  --profile <dir>  a torch.profiler trace of the timed solve, one file per
+              rank: <dir>/lam-cg.rank<r>.json
   --init-col    add the warm-up seconds after load_s in the CSV
+Legacy positional form (lam_tpu/cli.py:17-21): `matrix rhs sol iters err`,
+any prefix of them; explicit flags win, -i defaults to 1000 there, and
+more than five positionals is refused.
 Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9. -s
 cannot be given with -A or -b ("Option -A and -b cannot be used with -s."
 on stderr, rc 1) nor with --outer host (one line on stderr, rc 1: the
@@ -45,15 +54,19 @@ storage keeps <matrix>.shardpack/<storage>.r<R>.s<rank>).
 Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
 with procs the ranks the backend uses and num_iter = max_iters + 1 for an
-unconverged run, as the reference prints it. Every other lam_tpu flag
-(positional arguments, --engine xla, ...) raises NotImplementedError;
---local-devices (JAX's virtual CPU devices) has no counterpart and is
-refused with a message.
+unconverged run, as the reference prints it. Still refused, with one
+line on stderr and rc 1: --engine xla (ROADMAP Queue 1 item 8, with
+lam_tpu's --precision f64/auto, which the parser does not offer),
+--checkpoint, --checkpoint-every and --resume (item 9), --platform (JAX's
+platform: the port takes --device) and --local-devices (JAX's virtual CPU
+devices: start one process per rank).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -69,11 +82,14 @@ def build_parser():
     p.add_argument("-s", dest="size", type=int, default=None,
                    metavar="<int>", help="Generate matrix of size n x n")
     p.add_argument("-o", dest="output", metavar="<file>",
-                   default="io/sol.bin", help="Write solution to file")
-    p.add_argument("-i", dest="max_iters", type=int, default=10000,
-                   metavar="<int>", help="Maximum number of iterations")
-    p.add_argument("-e", dest="rel_error", type=float, default=1e-9,
+                   default=None, help="Write solution to file")
+    p.add_argument("-i", dest="max_iters", type=int, default=None,
+                   metavar="<int>", help="Maximum number of iterations "
+                   "(default 10000; 1000 in positional form)")
+    p.add_argument("-e", dest="rel_error", type=float, default=None,
                    metavar="<float>", help="Relative error")
+    p.add_argument("pos", nargs="*", metavar="matrix rhs sol iters err",
+                   help="Legacy positional form (lam_tpu/cli.py:17-21)")
     p.add_argument("-v", dest="verbose", action="store_true",
                    help="Verbose mode")
     p.add_argument("-h", dest="help", action="store_true",
@@ -154,9 +170,36 @@ def build_parser():
                    "(multi-process mode)")
     p.add_argument("--local-devices", type=int, default=None,
                    metavar="<int>", help=argparse.SUPPRESS)
+    p.add_argument("--platform", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--preconditioner", default=None,
+                   choices=["jacobi"],
+                   help="Preconditioned CG (surplus over the reference; "
+                        "works on every backend and composes with "
+                        "--precision ir/irq/irfq — there it scales the "
+                        "inner f32 loop)")
+    p.add_argument("--check-symmetric", action="store_true",
+                   help="File mode: verify A v == A^T v on the matrix "
+                        "file before building the operator (two "
+                        "streamed passes over the file). The "
+                        "lower-triangle engines otherwise TRUST "
+                        "symmetry (CG's contract) and would silently "
+                        "solve with the mirrored lower half of a "
+                        "non-symmetric input")
+    p.add_argument("--no-warmup", action="store_true",
+                   help="Include the kernel build and first launches in "
+                        "the solve timing")
     p.add_argument("--init-col", action="store_true",
                    help="Emit the warm-up seconds (init_s) as a CSV "
                         "column after load_s")
+    p.add_argument("--profile", metavar="<dir>", default=None,
+                   help="Capture a torch.profiler trace of the timed "
+                        "solve, one file per rank: "
+                        "<dir>/lam-cg.rank<r>.json")
+    p.add_argument("--checkpoint", metavar="<dir>", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--checkpoint-every", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
     return p
 
 
@@ -165,21 +208,19 @@ def main(argv=None):
     return 1, as lam_tpu.cli does."""
     try:
         return _cli_main(argv)
-    except (OSError, ValueError) as e:
+    except (OSError, ValueError, NotImplementedError) as e:
         print(f"lam-cg: {e}", file=sys.stderr)
         return 1
 
 
 def _cli_main(argv=None):
-    args, unported = build_parser().parse_known_args(argv)
-    if unported:
-        raise NotImplementedError(
-            f"lam-cg-torch: not ported yet: {' '.join(unported)}")
+    args = build_parser().parse_args(argv)
     if args.help:
         print("Usage: lam-cg-torch [ (-A -b | -s) -o -e -i -h -v "
               "--precision --engine --device --pack-cache --outer --backend "
               "--comm --devices --coordinator --num-processes --process-id "
-              "--init-col ]")
+              "--preconditioner --check-symmetric --no-warmup --profile "
+              "--init-col ] | [matrix rhs sol iters err]")
         print("Options:")
         print("  -A <file>       Read matrix from file")
         print("  -b <file>       Read right hand side from file")
@@ -197,7 +238,41 @@ def _cli_main(argv=None):
         print("  --backend local|sharded|sharded2d  --comm gather|ring  "
               "--devices N")
         print("  --coordinator <host:port> --num-processes N --process-id i")
+        print("  --preconditioner jacobi  --check-symmetric  --no-warmup  "
+              "--profile <dir>")
         return 0
+    for flag, value in (("--checkpoint", args.checkpoint),
+                        ("--checkpoint-every", args.checkpoint_every),
+                        ("--resume", args.resume or None)):
+        if value is not None:
+            raise NotImplementedError(
+                f"{flag}: checkpoints are not ported yet (ROADMAP Queue 1 "
+                "item 9)")
+    if args.platform is not None:
+        raise NotImplementedError(
+            "--platform picks JAX's platform; the port takes --device "
+            "cuda|cpu")
+    # the legacy positional form (lam_tpu/cli.py:215-235): explicit flags
+    # win; unset slots take the positional drivers' defaults (-i 1000)
+    positional = bool(args.pos)
+    if positional:
+        if len(args.pos) > 5:
+            print("Too many positional arguments.", file=sys.stderr)
+            return 1
+        slots = args.pos + [None] * (5 - len(args.pos))
+        args.matrix = args.matrix or slots[0]
+        args.rhs = args.rhs or slots[1]
+        args.output = args.output or slots[2]
+        if args.max_iters is None and slots[3] is not None:
+            args.max_iters = int(slots[3])
+        if args.rel_error is None and slots[4] is not None:
+            args.rel_error = float(slots[4])
+    if args.max_iters is None:
+        args.max_iters = 1000 if positional else 10000
+    if args.rel_error is None:
+        args.rel_error = 1e-9
+    if args.output is None:
+        args.output = "io/sol.bin"
     generate = args.size is not None
     if generate and (args.matrix is not None or args.rhs is not None):
         print("Option -A and -b cannot be used with -s.", file=sys.stderr)
@@ -250,7 +325,8 @@ def _solve(args):
     cg = ConjugateGradient(backend=args.backend, precision=args.precision,
                            engine=args.engine, device=args.device,
                            pack_cache=args.pack_cache, comm=args.comm,
-                           n_devices=args.devices, outer=args.outer)
+                           n_devices=args.devices, outer=args.outer,
+                           check_symmetric=args.check_symmetric)
     if cg.mesh is not None and not cg.mesh.active:
         return 0  # a rank outside the R x R grid takes no part
     # rank-0-only output, like the reference's PRINT_RANK0 macros
@@ -295,7 +371,10 @@ def _solve(args):
     vprint("Done\n")
 
     vprint("Solving the system ...")
-    converged = cg.solve(args.max_iters, args.rel_error)
+    with _profiled(args.profile, cg.rank):
+        converged = cg.solve(args.max_iters, args.rel_error,
+                             warmup=not args.no_warmup,
+                             preconditioner=args.preconditioner)
     avg_gemv = cg.measure_gemv()
     t = cg.timings
     if not rank0:
@@ -310,7 +389,7 @@ def _solve(args):
         print("")
         print("Writing solution to file ...")
     else:
-        init_col = f"{t['init_s']:g}," if args.init_col else ""
+        init_col = f"{t.get('init_s', 0.0):g}," if args.init_col else ""
         print(f"{cg.n},{cg.used_devices()},1,{load_s:g},{init_col}"
               f"{avg_gemv:g},{t['avg_iter_s']:g},{t['csv_num_iters']},"
               f"{t['rel_residual']:g},{t['solve_s']:g}")
@@ -318,6 +397,26 @@ def _solve(args):
     vprint("Done\n")
     vprint("Finished successfully")
     return 0
+
+
+@contextlib.contextmanager
+def _profiled(directory, rank):
+    """A torch.profiler trace of the block (the CPU and, on a card, its
+    CUDA activity), written to <directory>/lam-cg.rank<rank>.json: one
+    file per rank; no directory, no trace."""
+    if directory is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(directory, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(directory,
+                                          f"lam-cg.rank{rank}.json"))
 
 
 if __name__ == "__main__":

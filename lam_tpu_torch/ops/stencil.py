@@ -51,10 +51,15 @@ def laplace5_f32_halo_plain(p2d, up_edge, dn_edge, nrows_valid, *, nxi):
     (stencil.py:86), 4p - north - south - west - east, each rounded to
     f32, then the masked f32 sum of p * y."""
     laplace5_f32_halo_plain.calls += 1
-    return _laplace5_parts(p2d, up_edge, dn_edge, nrows_valid, nxi)
+    y = laplace5_masked(p2d, up_edge, dn_edge, nrows_valid, nxi)
+    return y, torch.sum(p2d * y)
 
 
-def _laplace5_parts(p2d, up_edge, dn_edge, nrows_valid, nxi):
+def laplace5_masked(p2d, up_edge, dn_edge, nrows_valid, nxi):
+    """The masked 5-point Laplacian y alone, in p2d's dtype, with the
+    kernel's order of terms: the plain version's y, and the f64 stencil of
+    the row-sharded heat path's refinement (lam_tpu/apps/heat.py:199-212),
+    which has no kernel in lam_tpu either."""
     H, W = p2d.shape
     north = torch.cat([up_edge, p2d[:-1]], dim=0)
     south = torch.cat([p2d[1:], dn_edge], dim=0)
@@ -64,8 +69,7 @@ def _laplace5_parts(p2d, up_edge, dn_edge, nrows_valid, nxi):
     rows = torch.arange(H, device=p2d.device)[:, None]
     cols = torch.arange(W, device=p2d.device)[None, :]
     mask = (rows < nrows_valid) & (cols < nxi)
-    y = torch.where(mask, 4.0 * p2d - north - south - west - east, 0.0)
-    return y, torch.sum(p2d * y)
+    return torch.where(mask, 4.0 * p2d - north - south - west - east, 0.0)
 
 
 def _check(what, p2d, up_edge, dn_edge, tbr):

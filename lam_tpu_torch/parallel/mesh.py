@@ -180,6 +180,34 @@ class Mesh:
         return self._exchange(x, (self.rank - 1) % self.size,
                               (self.rank + 1) % self.size)
 
+    def halo(self, first, last):
+        """The halo exchange of a row-sharded grid (lam_tpu/apps/heat.py:
+        183-192): send this rank's `first` row to rank - 1 and its `last`
+        row to rank + 1; returns (up, dn), the last row of rank - 1 and
+        the first row of rank + 1, zeros on the mesh's edges (rank 0's
+        up, rank size-1's dn), whatever the ring delivers there. Every
+        rank posts the same four operations in one batch, the sends and
+        receives of each direction under a tag of its own, so they pair
+        up in the same order on every rank (two ranks are each other's
+        both neighbours)."""
+        if self.size == 1:
+            return torch.zeros_like(first), torch.zeros_like(last)
+        buf = self._to_comm(torch.stack([first, last]))
+        got = torch.empty_like(buf)
+        prev, nxt = (self.rank - 1) % self.size, (self.rank + 1) % self.size
+        ops = [dist.P2POp(dist.isend, buf[1], nxt, self.group, tag=0),
+               dist.P2POp(dist.isend, buf[0], prev, self.group, tag=1),
+               dist.P2POp(dist.irecv, got[0], prev, self.group, tag=0),
+               dist.P2POp(dist.irecv, got[1], nxt, self.group, tag=1)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if self.rank == 0:
+            got[0].zero_()
+        if self.rank == self.size - 1:
+            got[1].zero_()
+        up, dn = self._from_comm(got)
+        return up, dn
+
     def dot(self, u, v):
         """u . v over vectors split across the ranks: the local vdot,
         all-reduced, so every rank holds the same value."""

@@ -20,7 +20,10 @@ the mesh's all-reduced dot (`LinearOperator.dot`), and the matvec:
     two is later work.
 
 Per iteration: one all-gather of p (or g - 1 shifts of a block) and two
-scalar all-reduces (p.Ap, r.r), as in lam_tpu.
+scalar all-reduces (p.Ap, r.r), as in lam_tpu; Jacobi-preconditioned CG
+(`run_pcg`, and the refinement loop's `inv_diag32`) adds r.z, and scales
+by the rank's rows of the inverse diagonal (`diagonal()`, no
+communication).
 """
 
 from __future__ import annotations
@@ -197,6 +200,17 @@ class ShardedDenseOperator(ops.LinearOperator):
     def extract_x(self, x_local):
         """The whole solution on every rank (a collective)."""
         return self.mesh.all_gather(x_local)[:self.n]
+
+    def diagonal(self):
+        """This rank's rows of the matrix diagonal, with no communication
+        (lam_tpu/parallel/pcg.py:593-618): rank i holds rows [i*m, (i+1)*m)
+        and every column, so its part is the diagonal of its columns
+        [i*m, (i+1)*m). f64 for df64, f32 for f32."""
+        pair = self.precision == "df64"
+        c0 = self.mesh.rank * self.m
+        d = [torch.diagonal(x[:, c0:c0 + self.m])
+             for x in (self.operand if pair else (self.operand,))]
+        return join_f64(*d) if pair else d[0].to(self.vector_dtype)
 
     def as_f32(self):
         """f32 view SHARING this operator's buffers: the hi plane of a

@@ -23,10 +23,11 @@ one-device CG loops of lam_tpu_torch/solver/cg.py on its block of the
 vectors with the grid's dot. The blocks of a symmetric matrix are not
 symmetric, so engine 'pallas_symm' folds to the dense engine 'pallas',
 as in lam_tpu. Generate mode (`from_gen_tridiagonal`) builds the rank's
-block on its device. Not ported yet: precision 'f64' and engine 'xla' (the
-plain f64 path), the Jacobi preconditioner (`diagonal`, `run_pcg`) and the
-block matvec (`prepare_b_block`). The symmetric grid, which stores each
-element once, is lam_tpu_torch/parallel/pcg2d_symm.py.
+block on its device. `diagonal()` serves the Jacobi preconditioner
+(`run_pcg`, and `inv_diag32` of the refinement loop). Not ported yet
+(ROADMAP Queue 1 item 8): precision 'f64' and engine 'xla' (the plain f64
+path) and the block matvec (`prepare_b_block`). The symmetric grid, which
+stores each element once, is lam_tpu_torch/parallel/pcg2d_symm.py.
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ from lam_tpu_torch import generate as gen
 from lam_tpu_torch.ops import layout
 from lam_tpu_torch.parallel.mesh import make_mesh2d
 from lam_tpu_torch.parallel.pcg import MATVEC, TILE_K, TILE_M
-from lam_tpu_torch.precision import split_f64_host
+from lam_tpu_torch.precision import join_f64, split_f64_host
 from lam_tpu_torch.solver import operators as ops
 
 
@@ -114,8 +115,7 @@ class Sharded2DOperator(GridOperator):
         if engine == "xla" or precision == "f64":
             raise NotImplementedError(
                 "the plain f64 path of the 2-D grid (precision='f64', "
-                "engine='xla') is not ported yet (ROADMAP Queue 1 items 7 "
-                "and 8)")
+                "engine='xla') is not ported yet (ROADMAP Queue 1 item 8)")
         if engine not in ("auto", ops.DENSE_ENGINE, "pallas_symm"):
             raise ValueError(f"unknown engine {engine!r}")
         if precision not in ("f32", "df64"):
@@ -188,16 +188,20 @@ class Sharded2DOperator(GridOperator):
                                  torch.float32, "f32@df64", self.mesh)
 
     def diagonal(self):
-        raise NotImplementedError(
-            "Sharded2DOperator.diagonal (the Jacobi preconditioner) is not "
-            "ported yet (ROADMAP Queue 1 item 7)")
-
-    def run_pcg(self, b_padded, max_iters, rel_error):
-        raise NotImplementedError(
-            "preconditioned CG on the 2-D grid is not ported yet (ROADMAP "
-            "Queue 1 item 7)")
+        """This rank's block (grid row i) of the matrix diagonal (a
+        collective over the grid row; lam_tpu/parallel/pcg2d.py:379-405):
+        only the diagonal rank (i, i) holds it, the diagonal of its
+        block; the other ranks of the grid row add zeros. f64 for df64,
+        f32 for f32."""
+        pair = self.precision == "df64"
+        blocks = self.operand if pair else (self.operand,)
+        d = [torch.diagonal(x) for x in blocks]
+        d = join_f64(*d) if pair else d[0].to(self.vector_dtype)
+        if self.mesh.i != self.mesh.j:
+            d = torch.zeros_like(d)
+        return self.mesh.all_reduce_row(d)
 
     def prepare_b_block(self, b_block):
         raise NotImplementedError(
             "the multi-right-hand-side block matvec is not ported yet "
-            "(ROADMAP Queue 1 item 7)")
+            "(ROADMAP Queue 1 item 8)")

@@ -54,7 +54,8 @@ runs the accurate matvec's kernel that reads q1 or hi alone: an fq
 diagonal rank `gemv.gemv_fq_symm_zero`, an fq off-diagonal rank
 `gemv.gemv_fq_dual_zero`, a df64 off-diagonal rank
 `gemv.gemv_df64_dual_zero` (a df64 diagonal rank keeps kernel 2's
-broadcast mode). Not ported yet: the Jacobi preconditioner (`run_pcg`).
+broadcast mode). `diagonal()` serves the Jacobi preconditioner (`run_pcg`,
+and `inv_diag32` of the refinement loop).
 """
 
 from __future__ import annotations
@@ -441,8 +442,3 @@ class Symm2DOperator(GridOperator):
         else:
             d = torch.zeros(self.m, dtype=torch.float64, device=self.device)
         return self.mesh.all_reduce_row(d)
-
-    def run_pcg(self, b_padded, max_iters, rel_error):
-        raise NotImplementedError(
-            "preconditioned CG on the symmetric 2-D grid is not ported yet "
-            "(ROADMAP Queue 1 item 7)")

@@ -416,16 +416,30 @@ class SymmShardedOperator(ops.LinearOperator):
 
     def diagonal(self):
         """The matrix diagonal as a padded f64 vector, on every rank (a
-        collective): for the quantized storages the (dh, dl) pair the
-        operand carries, scattered to the owned rows and all-reduced
-        (lam_tpu/parallel/pcg_symm.py:841-853)."""
-        if self.storage not in ops.QUANT_LAYOUT:
-            raise NotImplementedError(
-                f"diagonal() of a {self.storage!r} band-pair operator is "
-                "not ported yet (it serves the Jacobi preconditioner, "
-                "ROADMAP Queue 1)")
-        dv = join_f64(self.operand[-5], self.operand[-4])
+        collective; lam_tpu/parallel/pcg_symm.py:837-899): the rank's 2m
+        values in slab order, scattered to its owned rows and
+        all-reduced. The quantized storages carry them as the (dh, dl)
+        pair; the df64 slab holds them at (row, its own column) of each
+        band; the packed walk in its diagonal tiles (it == kt), one at
+        the end of each owned tile row, so in slab order, with a
+        broadcast lo tile's diagonal added to every one of them."""
+        c, g, m, tb = self.mesh.rank, self.mesh.size, self.m, self.tb
+        if self.storage in ops.QUANT_LAYOUT:
+            dv = join_f64(self.operand[-5], self.operand[-4])
+        elif self.storage == "slab":
+            dv = torch.cat([
+                join_f64(*(torch.diagonal(x[h * m:(h + 1) * m,
+                                            r0:r0 + size])
+                           for x in self.operand[:2]))
+                for h, (r0, size) in enumerate(_slab_row_ranges(c, g, m))])
+        else:
+            it, kt = self.operand[-3:-1]
+            pos = torch.nonzero(it == kt).reshape(-1)
+            tiles = [x.reshape(-1, tb, tb)[pos if x.shape[0] > tb
+                                           else torch.zeros_like(pos)]
+                     for x in self.operand[:2]]
+            dv = torch.diagonal(join_f64(*tiles), dim1=1,
+                                dim2=2).reshape(-1)
         d = torch.zeros(self.n_padded, dtype=torch.float64,
                         device=self.device)
-        return self.mesh.all_reduce(
-            _scatter_bands(dv, d, self.mesh.rank, self.mesh.size, self.m))
+        return self.mesh.all_reduce(_scatter_bands(dv, d, c, g, m))

@@ -72,9 +72,18 @@ memory-mapped on the host, which computes each outer residual exactly
 (solver/host_outer.py); `avg_gemv_s` is then the inner q1 matvec.
 Generate mode refuses it at once, before anything is built.
 
+`solve(preconditioner="jacobi")` runs Jacobi-preconditioned CG on every
+backend (the operator's `diagonal()`, split like its vectors); with
+'ir'/'irq'/'irfq' it scales the inner f32 loop and leaves the outer
+refinement recurrence as it is. outer='host' does not compose with it
+(lam_tpu's ValueError). `check_symmetric=True` checks A v == A^T v over
+the file's memory map before anything is built (lam_tpu's up-front check
+and words). `solve(warmup=False)` times the first solve with the kernel
+build and first launches in it, and records no init_s.
+
 Still refused, with NotImplementedError: precision 'f64'/'auto', backend
-'auto', engine 'xla', the preconditioner and checkpoints. The device is
-explicit; asking for CUDA where there is none raises.
+'auto' and engine 'xla' (ROADMAP Queue 1 item 8), and checkpoints (item
+9). The device is explicit; asking for CUDA where there is none raises.
 """
 
 from __future__ import annotations
@@ -93,8 +102,9 @@ from lam_tpu_torch.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
 from lam_tpu_torch.solver.host_outer import cg_solve_ir_host
 from lam_tpu_torch.solver.operators import (DENSE_ENGINE, ENGINE, ENGINES,
                                             QUANT_LAYOUT, SQUARE_ENGINE,
-                                            DenseOperator, check_engine,
-                                            resolve_device)
+                                            DenseOperator,
+                                            _verifies_symmetric,
+                                            check_engine, resolve_device)
 
 PRECISIONS = ("df64", "ir", "f32", "dfq", "irq", "fq", "irfq")
 # refinement mode -> its storage
@@ -160,7 +170,8 @@ def _check_sharded2d(precision, engine):
 class ConjugateGradient:
     def __init__(self, backend="local", precision="df64", engine="auto",
                  device="cuda", pack_cache=False, comm="gather",
-                 n_devices=None, mesh=None, outer="device"):
+                 n_devices=None, mesh=None, outer="device",
+                 check_symmetric=False):
         if precision not in PRECISIONS:
             raise NotImplementedError(f"precision={precision!r} is not "
                                       f"ported yet (one of {PRECISIONS})")
@@ -213,6 +224,7 @@ class ConjugateGradient:
         self.comm = comm
         self.mesh = mesh
         self.pack_cache = pack_cache
+        self.check_symmetric = check_symmetric
         self.op = None
         self.rhs = None
         self.result = None
@@ -226,6 +238,17 @@ class ConjugateGradient:
         if rows != cols:
             raise ValueError(f"{filename}: matrix must be square")
         self.n = rows
+        if self.check_symmetric:
+            # one check up front covers every path below
+            a_map = lio.open_matrix_memmap(filename)
+            if not _verifies_symmetric(a_map):
+                raise ValueError(
+                    f"{filename}: matrix is not symmetric (A v != A^T v "
+                    "on a random vector) — the lower-triangle engines "
+                    "would silently solve with its mirrored lower half; "
+                    "use --engine pallas/xla with a full-square "
+                    "precision (f64/f32/df64) for non-symmetric input")
+            del a_map
         storage = _BASE.get(self.precision, self.precision)
         if self.backend in ("sharded", "sharded2d"):
             if self.pack_cache and storage not in QUANT_LAYOUT:
@@ -436,7 +459,8 @@ class ConjugateGradient:
         self.rhs = b
         return True
 
-    def solve(self, max_iters=1000, rel_error=1e-9, warmup=True):
+    def solve(self, max_iters=1000, rel_error=1e-9, warmup=True,
+              preconditioner=None):
         """Run CG; returns True iff converged.
 
         warmup first runs the solve with max_iters=1 (one chunk of CG
@@ -444,16 +468,22 @@ class ConjugateGradient:
         refinement cycle), so the kernel build, first launches and the
         allocator's first requests are timed as init_s, not in the
         solve. outer='host' warms up as lam_tpu does, with max_iters=0:
-        one inner matvec, no cycle and no host matvec."""
+        one inner matvec, no cycle and no host matvec.
+        preconditioner="jacobi" runs diagonal-scaled CG (any backend);
+        with 'ir'/'irq'/'irfq' it scales the INNER f32 loop."""
         if self.op is None or self.rhs is None:
             raise RuntimeError("load a system first")
+        if self.outer == "host" and preconditioner is not None:
+            raise ValueError(
+                "outer='host' does not compose with a "
+                "preconditioner yet; drop one of the two")
         if warmup:
             t_init = time.perf_counter()
             float(self._solve_once(0 if self.outer == "host" else 1,
-                                   rel_error).rel_residual)
+                                   rel_error, preconditioner).rel_residual)
             self.timings["init_s"] = time.perf_counter() - t_init
         t0 = time.perf_counter()
-        result = self._solve_once(max_iters, rel_error)
+        result = self._solve_once(max_iters, rel_error, preconditioner)
         float(result.rel_residual)  # waits for the device
         return self.record_result(result, time.perf_counter() - t0)
 
@@ -472,7 +502,7 @@ class ConjugateGradient:
         self.timings["rel_residual"] = float(result.rel_residual)
         return bool(result.converged)
 
-    def _solve_once(self, max_iters, rel_error):
+    def _solve_once(self, max_iters, rel_error, preconditioner=None):
         if self.outer == "host":
             return cg_solve_ir_host(
                 self._host_a, self.op, self.rhs, max_iters=max_iters,
@@ -481,9 +511,10 @@ class ConjugateGradient:
             return cg_solve_ir(self.op.as_f32(), self.op, self.rhs,
                                max_iters=max_iters, rel_error=rel_error,
                                inner_floor=default_inner_floor(
-                                   self.precision))
+                                   self.precision),
+                               preconditioner=preconditioner)
         return cg_solve(self.op, self.rhs, max_iters=max_iters,
-                        rel_error=rel_error)
+                        rel_error=rel_error, preconditioner=preconditioner)
 
     def save_result_to_file(self, filename):
         """Write the solution (full row count) in the binary format; with

@@ -419,7 +419,7 @@ class LinearOperator:
                        self.dot)
 
     def run_cg_ir(self, op32, b_padded, max_iters, rel_error, max_cycles,
-                  inner_floor):
+                  inner_floor, inv_diag32=None):
         from lam_tpu_torch.solver.cg import _cg_ir_loop
         if op32.operand is not self.operand:
             raise ValueError(
@@ -428,7 +428,23 @@ class LinearOperator:
                 "buffers would double the matrix footprint on the device")
         return _cg_ir_loop(op32.matvec_dot, self.matvec_dot, b_padded,
                            max_iters, rel_error, max_cycles, inner_floor,
-                           self.dot)
+                           self.dot, inv_diag32)
+
+    def diagonal(self):
+        """The matrix diagonal in the vector dtype, split like the
+        vectors (for preconditioning). Operators that cannot provide one
+        raise, as lam_tpu's base does."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not expose a diagonal")
+
+    def run_pcg(self, b_padded, max_iters, rel_error):
+        """Jacobi-preconditioned CG (lam_tpu/solver/operators.py:594-601):
+        the padding's d == 0 takes an inverse of 1, never inf."""
+        from lam_tpu_torch.solver.cg import _pcg_loop
+        d = self.diagonal()
+        inv_d = torch.where(d == 0, torch.ones_like(d), 1.0 / d)
+        return _pcg_loop(self.matvec_dot, b_padded, inv_d, max_iters,
+                         rel_error, self.dot)
 
 
 class MatrixFreeOperator(LinearOperator):
@@ -440,6 +456,20 @@ class MatrixFreeOperator(LinearOperator):
                  device="cuda"):
         super().__init__(matvec_fn, operand, n, n, vector_dtype,
                          resolve_device(device))
+
+
+def _packed_diagonal(buf, nblk):
+    """The diagonal of a walk-order packed triangle buffer of nblk row
+    tiles (lam_tpu/solver/operators.py:403-425): row tile i's diagonal
+    tile sits at walk position i(i+1)/2 + i, its diagonal at buf[t*tb + s,
+    s]. A broadcast (tb, tb) buffer (generate mode's zero lo tile) adds
+    its own diagonal to every row tile."""
+    tb = buf.shape[1]
+    if buf.shape[0] == tb and nblk > 1:
+        return torch.diagonal(buf).repeat(nblk)
+    i = torch.arange(nblk, device=buf.device)
+    tiles = buf.reshape(-1, tb, tb)[i * (i + 1) // 2 + i]
+    return torch.diagonal(tiles, dim1=1, dim2=2).reshape(-1)
 
 
 def zero_tiles_of(planes):
@@ -922,18 +952,23 @@ class DenseOperator(LinearOperator):
                                               resolve_device(device))
 
     def diagonal(self):
-        """The matrix diagonal as a padded vector: f64 for the quantized
-        storages (the exact (dh, dl) pair the planes no longer carry) and
-        a full-square df64 operator, f32 for a full-square f32 one."""
+        """The matrix diagonal as a padded vector (lam_tpu/solver/
+        operators.py:1255-1270): f64 for the quantized storages (the exact
+        (dh, dl) pair the planes no longer carry), for df64 (hi + lo, a
+        broadcast lo tile counted at every row tile) and for the f64
+        oracle square, f32 for f32. The packed planes give theirs at the
+        diagonal tiles, the full squares theirs."""
         if self.precision in QUANT_LAYOUT:
             return join_f64(self.operand[-2], self.operand[-1])
-        if self.engine in (DENSE_ENGINE, SQUARE_ENGINE):
-            if self.precision == "f32":
-                return torch.diagonal(self.operand)
-            return join_f64(*(torch.diagonal(x) for x in self.operand))
-        raise NotImplementedError(
-            f"diagonal() of a {self.precision!r} {self.engine!r} operator "
-            "is not ported yet")
+        if self.engine == ENGINE:
+            planes = (self.operand if self.precision == "df64"
+                      else (self.operand,))
+            nblk = self.n_padded // planes[0].shape[1]
+            d = [_packed_diagonal(x, nblk) for x in planes]
+            return d[0] if self.precision == "f32" else join_f64(*d)
+        if self.precision in ("f32", "f64"):
+            return torch.diagonal(self.operand)
+        return join_f64(*(torch.diagonal(x) for x in self.operand))
 
     def as_f32(self):
         """Sibling f32 operator SHARING this operator's device buffers

@@ -229,7 +229,7 @@ def test_facade_solves_and_records(tmp_path, system):
     assert _true_rel(a, b, cg.x) <= 1e-9
 
 
-def test_unported_options_raise(system):
+def test_unported_options_raise(system, capsys):
     # the symmetric 2-D grid is routed, not refused
     cg = ConjugateGradient(backend="sharded2d", precision="irq", device="cpu")
     assert cg._sharded_engine == "pallas_symm_packed"
@@ -246,8 +246,11 @@ def test_unported_options_raise(system):
         ConjugateGradient(engine=engine, device="cpu")
     with pytest.raises(NotImplementedError, match=engine):
         DenseOperator.from_dense(system[0], engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match=engine):
-        tcli.main(["--engine", engine, "--device", "cpu"])
+    # the CLI says it on one stderr line, rc 1 (lam_tpu's error surface)
+    assert tcli.main(["--engine", engine, "--device", "cpu"]) == 1
+    err = capsys.readouterr().err
+    assert err.startswith("lam-cg: ") and engine in err
+    assert len(err.strip().splitlines()) == 1
     # the full-square symmetric engine and generate mode now route on one
     # device (tests/test_torch_gen.py holds them against lam_tpu)
     assert ConjugateGradient(engine="pallas_symm",
@@ -280,7 +283,9 @@ def test_import_leaves_jax_out():
             "lam_tpu_torch.solver.pack_cache, lam_tpu_torch.parallel.mesh, "
             "lam_tpu_torch.parallel.pcg, lam_tpu_torch.parallel.pcg_symm, "
             "lam_tpu_torch._native_io, lam_tpu_torch.ops.transfer, "
-            "lam_tpu_torch.solver.host_outer; "
+            "lam_tpu_torch.solver.host_outer, lam_tpu_torch.apps.heat, "
+            "lam_tpu_torch.apps.heat_cli, lam_tpu_torch.parallel.pcg2d, "
+            "lam_tpu_torch.parallel.pcg2d_symm; "
             "lam_tpu_torch._native_io.available(); "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'lam_tpu')]; "

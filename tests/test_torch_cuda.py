@@ -33,7 +33,10 @@ not. Kernel 19's mode for tiles of zeros (the strip walk over q1 alone on
 the rectangle) the same way, and probes P5s (split), P5h (hi) and P5y
 (hybrid) on the strip walk's tensor-core consumers and P4s (sub8) on its
 summing consumers, each warp's transpose row kept, give their two-pass
-controls' bits; none spills.
+controls' bits; none spills. The stencil on each row shard of a
+row-sharded grid, its edges the rows the halo exchange delivers, gives its
+plain version's bits and the one-device grid's; local Jacobi PCG (df64,
+irfq) launches the kernels of CG and no plain version.
 """
 
 import numpy as np
@@ -2846,3 +2849,92 @@ def test_q1_only_operator_cold_warm_and_its_one_kernel(tmp_path):
     with pytest.raises(NotImplementedError, match="q1-only"):
         warm.matvec(p)
     assert not any(ops.counters().values())
+
+
+# -- the row-sharded heat path and Jacobi PCG --------------------------------
+
+
+@pytest.mark.parametrize("g,nyi,nxi", [(4, 998, 1198), (4, 34, 120),
+                                       (3, 50, 100)])
+def test_laplace5_halo_shards_match_plain(g, nyi, nxi):
+    """The stencil on each of G row shards, its edges the neighbour rows
+    the halo exchange delivers (zeros past the mesh's edges): each shard
+    bit for bit its plain version, the shards' y the one-device y."""
+    from lam_tpu_torch.apps import heat
+    H, W, tbr = stencil.padded_hw(nyi, nxi, row_groups=g)
+    hs = H // g
+    rng = np.random.default_rng(g * 1000 + nyi)
+    p = torch.zeros(H, W, device="cuda")
+    p[:nyi, :nxi] = torch.from_numpy(
+        rng.standard_normal((nyi, nxi)).astype(np.float32)).cuda()
+    zero = torch.zeros(1, W, device="cuda")
+    y1, _ = stencil.laplace5_f32_halo(p, zero, zero, nyi, nxi=nxi, tbr=tbr)
+    ys = []
+    for c in range(g):
+        shard = p[c * hs:(c + 1) * hs]
+        up = p[c * hs - 1:c * hs] if c else zero
+        dn = p[(c + 1) * hs:(c + 1) * hs + 1] if c < g - 1 else zero
+        nrows = min(max(nyi - c * hs, 0), hs)
+        _check_stencil_kernel(shard, up, dn, nrows, nxi, tbr)
+
+        class _Mesh:  # the rows the exchange delivers to rank c
+            rank, size = c, g
+
+            @staticmethod
+            def halo(first, last):
+                return up[0].clone(), dn[0].clone()
+
+        apply32_dot, _ = heat._sharded_stencil_applies(_Mesh, nyi, nxi, hs,
+                                                       W, tbr)
+        ops.reset_counters()
+        y, _ = apply32_dot(None, shard.reshape(-1))
+        torch.cuda.synchronize()
+        assert ops.counters()["laplace5_f32_halo"] == 1
+        ys.append(y.reshape(hs, W))
+    assert torch.equal(torch.cat(ys), y1)
+
+
+@pytest.mark.parametrize("precision", ["df64", "irfq"])
+def test_jacobi_pcg_launches_the_kernels_of_cg(precision):
+    """Local Jacobi PCG on the card: the kernels of the same run without a
+    preconditioner, no plain version, fewer iterations on a badly scaled
+    system, a TRUE residual <= 1e-9."""
+    from lam_tpu_torch import DenseOperator, cg_solve, cg_solve_ir, generate
+    from lam_tpu_torch.solver.cg import default_inner_floor
+    n = 2000
+    s = np.exp(np.linspace(0.0, 1.0, n))
+    a = generate.random_spd_matrix_fast(n, seed=6) * np.outer(s, s)
+    b = generate.random_rhs(n, seed=16)
+    kernels = {"df64": ("gemv_df64_symm",),
+               "irfq": ("gemv_q16_symm", "gemv_fq_symm")}[precision]
+    if precision == "df64":
+        op = DenseOperator.from_dense(a, precision="df64", device="cuda")
+
+        def solve(pre):
+            return cg_solve(op, b, max_iters=20000, rel_error=5e-10,
+                            preconditioner=pre)
+    else:
+        op = DenseOperator.from_dense_fq(a, device="cuda")
+
+        def solve(pre):
+            return cg_solve_ir(op.as_f32(), op, b, max_iters=20000,
+                               rel_error=5e-10,
+                               inner_floor=default_inner_floor("irfq"),
+                               preconditioner=pre)
+    launched = []
+    for pre in (None, "jacobi"):
+        ops.reset_counters()
+        res = solve(pre)
+        torch.cuda.synchronize()
+        counts = ops.counters()
+        launched.append({k for k, v in counts.items() if v})
+        assert bool(res.converged)
+        x = res.x.cpu().numpy()
+        assert np.linalg.norm(b - a @ x) <= 1e-9 * np.linalg.norm(b)
+        for k in kernels:
+            assert counts[k] > 0, (pre, k)
+        assert not any(counts[fn.__name__] for fn in ops.PLAIN)
+        if pre is None:
+            plain_iters = int(res.num_iters)
+    assert launched[0] == launched[1]
+    assert int(res.num_iters) < plain_iters

@@ -307,10 +307,12 @@ def test_stencil_operator_pads_in_two_dimensions():
 
 
 def test_sharded_heat_path_raises():
+    # the row-sharded path runs (tests/test_torch_heat_sharded.py); here
+    # it needs a process group of as many ranks as devices
     g0 = heat.initial_grid(10, 10)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4,"):
+    with pytest.raises(ValueError, match="requested 2 devices"):
         heat.solve_heat_cg(g0, devices=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4,"):
+    with pytest.raises(ValueError, match="requested 2 devices"):
         heat.solve_heat_cg(g0, devices=2, precision="ir", device="cpu")
     with pytest.raises(ValueError, match="ir solver") as mine:
         heat.solve_heat_cg(g0, devices=2, precision="f64", device="cpu")
@@ -396,10 +398,12 @@ def test_heat_cli_errors(tmp_path, capsys):
         assert heat_cli.main(["10", "10", str(tmp_path / "h.bin"),
                               "--devices", "2", "--precision", "f64",
                               "--device", "cpu"]) == 1
-        with pytest.raises(NotImplementedError):
-            heat_cli.main(["10", "10", str(tmp_path / "h.bin"),
-                           "--devices", "2", "--device", "cpu"])
-    assert "ir solver" in capsys.readouterr().err
+        assert "ir solver" in capsys.readouterr().err
+        # --devices 2 runs as two rank processes
+        # (tests/test_torch_heat_sharded.py); one process alone is refused
+        assert heat_cli.main(["10", "10", str(tmp_path / "h.bin"),
+                              "--devices", "2", "--device", "cpu"]) == 1
+    assert "requested 2 devices" in capsys.readouterr().err
     assert bmp_cli.main([str(tmp_path / "missing.bin"),
                          str(tmp_path / "x.bmp")]) == 1
     assert "lam-heat-to-bmp" in capsys.readouterr().err

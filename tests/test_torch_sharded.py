@@ -64,6 +64,19 @@ RANKS = (2, 4)
 # ~30 jobs takes about a minute alone and several beside other test workers
 CLUSTER_TIMEOUT_S = 420
 DENSE_PRECISIONS = ("f32", "df64", "ir")
+# Jacobi-preconditioned solves, by mesh operator: (op, precision, the
+# operator's "comm" or "packed"); they stop at half the TRUE gate of 1e-9
+JACOBI = {"gather": ("dense", "df64", "gather"),
+          "ring": ("dense", "ir", "ring"),
+          "slab": ("symm", "df64", False),
+          "packed": ("symm", "ir", True)}
+JACOBI_REL = 5e-10
+# the diagonals held against lam_tpu's: (op, precision, comm or packed)
+DIAGONALS = {"gather": ("dense", "df64", "gather"),
+             "ring-f32": ("dense", "f32", "ring"),
+             "slab": ("symm", "df64", False),
+             "packed": ("symm", "df64", True),
+             "dfq": ("symm", "dfq", True), "fq": ("symm", "fq", True)}
 QUANT_PRECISIONS = ("dfq", "irq", "fq", "irfq")
 F32_REL_ERROR = 1e-5
 
@@ -555,9 +568,15 @@ def test_quantized_diagonal_of_one_rank(storage):
     # an f32 pair carries an f64 value to 2^-49 relative
     np.testing.assert_allclose(d[:300], np.diag(a), rtol=2.0 ** -48, atol=0)
     assert not d[300:].any()
-    slab = _rank_op(pcg_symm.SymmShardedOperator, a, 0, 1, tb=TB)
-    with pytest.raises(NotImplementedError, match="diagonal"):
-        slab.diagonal()
+    # the df64 storages give theirs too (the Jacobi preconditioner), from
+    # the (hi, lo) pair of each diagonal element
+    for packed in (False, True):
+        op = _rank_op(pcg_symm.SymmShardedOperator, a, 0, 1, tb=TB,
+                      packed=packed)
+        d = op.diagonal().numpy()
+        np.testing.assert_allclose(d[:300], np.diag(a), rtol=2.0 ** -48,
+                                   atol=0)
+        assert not d[300:].any()
 
 
 def test_scatter_bands_is_the_dual_of_own_rows():
@@ -647,13 +666,26 @@ def _jobs(g, a_path, b_path, p_path, out):
         jobs.append({"kind": "matvec", "name": f"mv-{storage}", "op": "symm",
                      "precision": storage, "tb": TB, "matrix": a_path,
                      "p": p_path})
-        jobs.append({"kind": "diagonal", "name": f"diag-{storage}",
-                     "op": "symm", "precision": storage, "tb": TB,
-                     "matrix": a_path})
+    for label, (op, precision, how) in DIAGONALS.items():
+        jobs.append({"kind": "diagonal", "name": f"diag-{label}", "op": op,
+                     "precision": precision, "comm": how, "packed": how,
+                     "tb": TB, "matrix": a_path})
+    for label, (op, precision, how) in JACOBI.items():
+        jobs.append({"kind": "solve", "name": f"jacobi-{label}", "op": op,
+                     "precision": precision, "comm": how, "packed": how,
+                     "tb": TB, "matrix": a_path, "rhs": b_path,
+                     "rel_error": JACOBI_REL, "preconditioner": "jacobi"})
     if g == 2:
         jobs.append({"kind": "cli", "name": "cli-ir", "argv": [
             "-A", a_path, "-b", b_path, "-o", os.path.join(out, "x_cli.bin"),
             "--backend", "sharded", "--precision", "ir", "--comm", "ring"]})
+        # tests/test_cli.py:244-270's sharded run, df64 for lam_tpu's f64,
+        # with a trace of each rank's solve
+        jobs.append({"kind": "cli", "name": "cli-jacobi", "argv": [
+            "-A", a_path, "-b", b_path, "-o",
+            os.path.join(out, "x_cli_jacobi.bin"), "--backend", "sharded",
+            "--precision", "df64", "--preconditioner", "jacobi", "-e",
+            str(JACOBI_REL), "--profile", os.path.join(out, "profile")]})
     # the facade's routing (engine auto -> the packed walk) at the CLI's
     # tile width; irfq twice with --pack-cache: cold writes the shard
     # files, warm reads them
@@ -719,9 +751,45 @@ def lam_ref(system):
             out[g, f"symm-{ir}"] = lam_tpu.cg_solve_ir(
                 quant.as_f32(), quant, b, max_iters=10000, rel_error=1e-9,
                 inner_floor=jcg.default_inner_floor(ir))
+    out[1, "jacobi-df64"] = lam_tpu.cg_solve(
+        lam_tpu.DenseOperator.from_dense(a, precision="f64"), b,
+        max_iters=10000, rel_error=JACOBI_REL, preconditioner="jacobi")
+    for g in RANKS:
+        mesh = jmake_mesh(g)
+        f64 = JDense.from_dense(a, mesh=mesh, precision="f64", engine="xla")
+        out[g, "jacobi-df64"] = lam_tpu.cg_solve(
+            f64, b, max_iters=10000, rel_error=JACOBI_REL,
+            preconditioner="jacobi")
+        df64 = JDense.from_dense(a, mesh=mesh, precision="df64",
+                                 engine="xla")
+        out[g, "jacobi-ir"] = lam_tpu.cg_solve_ir(
+            df64.as_f32(), df64, b, max_iters=10000, rel_error=JACOBI_REL,
+            preconditioner="jacobi")
     for key, res in out.items():
         assert bool(res.converged), key
     return {k: (int(r.num_iters), np.asarray(r.x)) for k, r in out.items()}
+
+
+@pytest.fixture(scope="module")
+def lam_diag(system):
+    """lam_tpu's diagonal() and _inv_diag_f32 of its sharded operators on
+    the virtual meshes: {(g, label): (d, inv)}."""
+    a = system[0]
+    out = {}
+    for g in RANKS:
+        mesh = jmake_mesh(g)
+        for label, (op, precision, how) in DIAGONALS.items():
+            if op == "dense":
+                jop = JDense.from_dense(a, mesh=mesh, precision=precision,
+                                        engine="xla")
+            else:
+                jop = jpcg_symm.SymmShardedOperator.from_dense(
+                    a, mesh=mesh, tb=TB, packed=how,
+                    **({} if precision == "df64" else
+                       {"precision": precision}))
+            out[g, label] = (np.asarray(jop.diagonal()),
+                             np.asarray(jcg._inv_diag_f32(jop)))
+    return out
 
 
 def _rank_xs(run_dir, name, g):
@@ -730,7 +798,7 @@ def _rank_xs(run_dir, name, g):
 
 
 def _check_solve(system, clusters, lam_ref, g, name, ref_key, precision,
-                 kernels, also=()):
+                 kernels, also=(), one_device=(1, "df64")):
     a, b = system[:2]
     records, run_dir = clusters[g]
     recs = [rank[name] for rank in records]
@@ -748,7 +816,7 @@ def _check_solve(system, clusters, lam_ref, g, name, ref_key, precision,
         # lam_tpu's own f64 counts part by 3 between one device and G=4
         # here: within 2 of either
         # (`also`: further lam_tpu counts of the same class)
-        refs = [ref_iters, lam_ref[1, "df64"][0],
+        refs = [ref_iters, lam_ref[one_device][0],
                 *(lam_ref[key][0] for key in also)]
         assert min(abs(iters - r) for r in refs) <= 2, (iters, refs)
     else:
@@ -831,6 +899,66 @@ def test_quantized_sharded_diagonal(system, clusters, g, storage):
     for d in _rank_xs(clusters[g][1], f"diag-{storage}", g):
         np.testing.assert_allclose(d, np.diag(system[0]), rtol=2.0 ** -48,
                                    atol=0)
+
+
+@pytest.mark.parametrize("label", list(DIAGONALS))
+@pytest.mark.parametrize("g", RANKS)
+def test_mesh_diagonal_matches_lam_tpu(clusters, lam_diag, g, label):
+    """Every rank's whole diagonal() and the preconditioner's f32 inverse
+    diagonal, bit for bit lam_tpu's (the row shards' with no
+    communication, the band pairs' all-reduced)."""
+    ref_d, ref_inv = lam_diag[g, label]
+    run_dir = clusters[g][1]
+    for d, inv in zip(_rank_xs(run_dir, f"diag-{label}", g),
+                      _rank_xs(run_dir, f"diag-{label}.inv", g)):
+        assert d.dtype == ref_d.dtype and inv.dtype == np.float32
+        np.testing.assert_array_equal(d, ref_d[:N])
+        np.testing.assert_array_equal(inv, ref_inv[:N])
+
+
+_JACOBI_KERNELS = {"gather": ["gemv_df64"],
+                   "ring": ["gemv_f32_cols", "gemv_df64_cols"],
+                   "slab": ["gemv_df64_symm_slab"],
+                   "packed": ["gemv_f32_symm_slab", "gemv_df64_symm_slab"]}
+
+
+@pytest.mark.parametrize("label", list(JACOBI))
+@pytest.mark.parametrize("g", RANKS)
+def test_mesh_jacobi_solve_matches_lam_tpu(system, clusters, lam_ref, g,
+                                           label):
+    """Jacobi PCG (plain, or in ir's inner loop) on the row shards and the
+    band pairs: every rank the same count and x, lam_tpu's count (df64
+    class: within 2 of its one-device or G-device f64 count; ir: 2%)."""
+    precision = JACOBI[label][1]
+    name = f"jacobi-{label}"
+    _check_solve(system, clusters, lam_ref, g, name, f"jacobi-{precision}",
+                 precision, _JACOBI_KERNELS[label],
+                 one_device=(1, "jacobi-df64"))
+    x = _rank_xs(clusters[g][1], name, g)[0]
+    assert _true_rel(*system[:2], x) < 1e-9
+
+
+def test_cli_jacobi_across_two_ranks(system, clusters, lam_ref):
+    a, b = system[:2]
+    records, run_dir = clusters[2]
+    recs = [rank["cli-jacobi"] for rank in records]
+    assert [rec["rc"] for rec in recs] == [0, 0]
+    assert not recs[1]["stdout"].strip()
+    fields = recs[0]["stdout"].strip().split(",")
+    assert (int(fields[0]), int(fields[1])) == (N, 2)
+    assert float(fields[7]) < JACOBI_REL
+    refs = [lam_ref[k][0] for k in ((1, "jacobi-df64"),
+                                    (2, "jacobi-df64"))]
+    assert min(abs(int(fields[6]) - r) for r in refs) <= 2, (fields, refs)
+    x = tio.read_vector(os.path.join(run_dir, "x_cli_jacobi.bin"))
+    assert _true_rel(a, b, x) < 1e-9
+    # --profile: one trace per rank
+    prof = os.path.join(run_dir, "profile")
+    assert sorted(os.listdir(prof)) == ["lam-cg.rank0.json",
+                                        "lam-cg.rank1.json"]
+    for name in os.listdir(prof):
+        with open(os.path.join(prof, name)) as f:
+            assert json.load(f)["traceEvents"]
 
 
 def _csv(rec):

@@ -25,6 +25,7 @@ import lam_tpu
 from lam_tpu import generate as jgen
 from lam_tpu import io as jio
 from lam_tpu.parallel import pcg2d as jpcg2d
+from lam_tpu.solver import cg as jcg
 from lam_tpu_torch import ConjugateGradient
 from lam_tpu_torch import cli as tcli
 from lam_tpu_torch import io as tio
@@ -36,6 +37,7 @@ N, SEED = 500, 43
 CLUSTER_TIMEOUT_S = 240
 PRECISIONS = ("f32", "df64", "ir")
 F32_REL_ERROR = 1e-5
+JACOBI_REL = 5e-10  # half the TRUE gate of the Jacobi solves, 1e-9
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -188,10 +190,17 @@ def test_grid_refusals(system):
         pcg2d.Sharded2DOperator.from_gen_tridiagonal(100, mesh=mesh,
                                                      precision="f64")
     op = pcg2d.Sharded2DOperator.from_dense(a, mesh=mesh, device="cpu")
-    for call in (op.diagonal, lambda: op.run_pcg(None, 1, 1e-9),
-                 lambda: op.prepare_b_block(None)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-            call()
+    # the Jacobi preconditioner runs (one rank: the whole diagonal); the
+    # block matvec stays refused
+    d = op.diagonal()
+    assert d.dtype == torch.float64
+    np.testing.assert_allclose(d[:a.shape[0]].numpy(), np.diag(a),
+                               rtol=2.0 ** -48, atol=0)
+    res = op.run_pcg(op.prepare_b(system[1]), 10000, 1e-9)
+    assert bool(res.converged)
+    assert _true_rel(a, system[1], op.extract_x(res.x).numpy()) <= 1e-9
+    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+        op.prepare_b_block(None)
     assert op.as_f32().operand is op.operand
     assert op.as_f32().as_f32().precision == "f32"
     with pytest.raises(ValueError, match="rhs has shape"):
@@ -212,6 +221,15 @@ def _jobs(a_path, b_path, p_path, out):
         "-A", a_path, "-b", b_path, "-o", os.path.join(out, "x_cli.bin"),
         "--backend", "sharded2d", "--precision", "ir", "--engine",
         "pallas"]})
+    # the Jacobi preconditioner: the grid's diagonal, PCG and ir's inner PCG
+    for precision in ("f32", "df64"):
+        jobs.append({"kind": "diagonal", "name": f"diag-{precision}",
+                     "op": "grid", "precision": precision, "matrix": a_path})
+    for precision in ("df64", "ir"):
+        jobs.append({"kind": "solve", "name": f"jacobi-{precision}",
+                     "op": "grid", "precision": precision, "matrix": a_path,
+                     "rhs": b_path, "rel_error": JACOBI_REL,
+                     "preconditioner": "jacobi"})
     return jobs
 
 
@@ -248,6 +266,15 @@ def lam_ref(system):
             mk(a, mesh=mesh, precision="f32", engine="xla"), b,
             max_iters=10000, rel_error=F32_REL_ERROR),
     }
+    out["jacobi-one"] = lam_tpu.cg_solve(
+        lam_tpu.DenseOperator.from_dense(a, precision="f64"), b,
+        max_iters=10000, rel_error=JACOBI_REL, preconditioner="jacobi")
+    out["jacobi-df64"] = lam_tpu.cg_solve(
+        mk(a, mesh=mesh, precision="f64", engine="xla"), b,
+        max_iters=10000, rel_error=JACOBI_REL, preconditioner="jacobi")
+    out["jacobi-ir"] = lam_tpu.cg_solve_ir(
+        df64.as_f32(), df64, b, max_iters=10000, rel_error=JACOBI_REL,
+        preconditioner="jacobi")
     for key, res in out.items():
         assert bool(res.converged), key
     return {k: (int(r.num_iters), np.asarray(r.x)[:N])
@@ -319,3 +346,48 @@ def test_cli_names_the_grid(capsys):
     assert tcli.main(["--backend", "sharded2d", "--devices", "4", "--device",
                       "cpu"]) == 1  # no process group: one rank
     assert "need 4 devices for a 2x2 grid" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("precision", ["f32", "df64"])
+def test_grid_diagonal_matches_lam_tpu(system, cluster, precision):
+    """Every rank's whole diagonal (its grid row's block, from the
+    diagonal rank, gathered over the grid column) and the f32 inverse
+    diagonal, bit for bit lam_tpu's."""
+    jop = jpcg2d.Sharded2DOperator.from_dense(
+        system[0], mesh=jpcg2d.make_mesh2d(2), precision=precision,
+        engine="xla")
+    ref_d = np.asarray(jop.diagonal())[:N]
+    ref_inv = np.asarray(jcg._inv_diag_f32(jop))[:N]
+    for r in range(4):
+        d = np.load(os.path.join(cluster[1], f"diag-{precision}.r{r}.npy"))
+        inv = np.load(os.path.join(cluster[1],
+                                   f"diag-{precision}.inv.r{r}.npy"))
+        assert d.dtype == ref_d.dtype
+        np.testing.assert_array_equal(d, ref_d)
+        np.testing.assert_array_equal(inv, ref_inv)
+
+
+@pytest.mark.parametrize("precision", ["df64", "ir"])
+def test_grid_jacobi_solve_matches_lam_tpu(system, cluster, lam_ref,
+                                           precision):
+    a, b = system[:2]
+    records, run_dir = cluster
+    name = f"jacobi-{precision}"
+    recs = [rank[name] for rank in records]
+    xs = [np.load(os.path.join(run_dir, f"{name}.r{r}.npy"))
+          for r in range(4)]
+    for rec, x in zip(recs, xs):
+        assert rec["converged"] and rec["iters"] == recs[0]["iters"]
+        assert np.array_equal(x, xs[0])
+        for k in _KERNELS[precision]:
+            assert rec["counts"][k + "_plain"] > 0, (k, rec["counts"])
+    iters, (ref_iters, ref_x) = recs[0]["iters"], lam_ref[name]
+    if precision == "df64":
+        one = lam_ref["jacobi-one"][0]
+        assert min(abs(iters - ref_iters), abs(iters - one)) <= 2, \
+            (iters, ref_iters, one)
+    else:
+        assert abs(iters - ref_iters) <= math.ceil(0.02 * ref_iters), \
+            (iters, ref_iters)
+    assert _rel(xs[0], ref_x) <= 1e-6
+    assert _true_rel(a, b, xs[0]) < 1e-9

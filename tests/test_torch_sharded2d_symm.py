@@ -44,6 +44,8 @@ from lam_tpu_torch.solver import pack_cache as pc
 from lam_tpu_torch.solver.operators import QUANT_LAYOUT
 from torch_sharded_worker import launch_cluster
 
+JACOBI = ("df64", "ir")   # the Jacobi-preconditioned solves
+JACOBI_REL = 5e-10  # half their TRUE gate, 1e-9
 TB = 128
 N, SEED = 500, 47
 CLUSTER_TIMEOUT_S = 240
@@ -335,8 +337,13 @@ def test_sym2d_refusals():
         with pytest.raises(ValueError, match="power-of-two"):
             ctor(100, mesh=mesh, tb=192)
     op = sym.Symm2DOperator.from_dense(a, mesh=mesh, tb=TB, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        op.run_pcg(None, 1, 1e-9)
+    # the Jacobi preconditioner runs (one rank: the whole diagonal)
+    b = np.random.default_rng(106).uniform(-1, 1, 48)
+    res = op.run_pcg(op.prepare_b(b), 10000, 1e-9)
+    x = op.extract_x(res.x).numpy()
+    assert bool(res.converged)
+    assert (np.linalg.norm(b - np.asarray(a) @ x)
+            <= 1e-9 * np.linalg.norm(b))
     with pytest.raises(ValueError, match="rhs has shape"):
         op.prepare_b(np.zeros(3))
     with pytest.raises(ValueError, match="unknown symmetric-grid storage"):
@@ -433,6 +440,9 @@ def _jobs(a_path, b_path, p_path, out):
     jobs.append({"kind": "cli", "name": "cli-irq", "argv": [
         "-A", a_path, "-b", b_path, "-o", os.path.join(out, "x_cli.bin"),
         "--backend", "sharded2d", "--precision", "irq"]})
+    for precision in JACOBI:
+        jobs.append(solve(f"jacobi-{precision}", precision,
+                          rel_error=JACOBI_REL, preconditioner="jacobi"))
     return jobs
 
 
@@ -465,6 +475,16 @@ def lam_ref(system):
         out[ir] = lam_tpu.cg_solve_ir(
             op.as_f32(), op, b, max_iters=10000, rel_error=1e-9,
             inner_floor=jcg.default_inner_floor(ir))
+    out["jacobi-one"] = lam_tpu.cg_solve(
+        lam_tpu.DenseOperator.from_dense(a, precision="f64"), b,
+        max_iters=10000, rel_error=JACOBI_REL, preconditioner="jacobi")
+    op = jsym.Symm2DOperator.from_dense(a, mesh=mesh, tb=TB)
+    out["jacobi-df64"] = lam_tpu.cg_solve(
+        op, b, max_iters=10000, rel_error=JACOBI_REL,
+        preconditioner="jacobi")
+    out["jacobi-ir"] = lam_tpu.cg_solve_ir(
+        op.as_f32(), op, b, max_iters=10000, rel_error=JACOBI_REL,
+        preconditioner="jacobi")
     for key, res in out.items():
         assert bool(res.converged), key
     return {k: (int(r.num_iters), np.asarray(r.x)[:N])
@@ -572,3 +592,50 @@ def test_cli_on_the_symmetric_grid(system, cluster, lam_ref):
     assert _rel(x, lam_ref["irq"][1]) <= 1e-6
     for r, rec in enumerate(recs):
         _check_counts(rec["counts"], r, "irq")
+
+
+@pytest.mark.parametrize("storage", STORAGES)
+def test_symmetric_grid_diagonal_matches_lam_tpu(system, cluster, storage):
+    """Every rank's whole diagonal and the preconditioner's f32 inverse
+    diagonal, bit for bit lam_tpu's."""
+    jop = jsym.Symm2DOperator.from_dense(
+        system[0], mesh=jpcg2d.make_mesh2d(2), tb=TB, precision=storage)
+    ref_d = np.asarray(jop.diagonal())[:N]
+    ref_inv = np.asarray(jcg._inv_diag_f32(jop))[:N]
+    for r in range(4):
+        d = np.load(os.path.join(cluster[1], f"diag-{storage}.r{r}.npy"))
+        inv = np.load(os.path.join(cluster[1],
+                                   f"diag-{storage}.inv.r{r}.npy"))
+        np.testing.assert_array_equal(d, ref_d)
+        np.testing.assert_array_equal(inv, ref_inv)
+
+
+@pytest.mark.parametrize("precision", JACOBI)
+def test_symmetric_grid_jacobi_solve_matches_lam_tpu(system, cluster,
+                                                     lam_ref, precision):
+    a, b = system[:2]
+    records, run_dir = cluster
+    name = f"jacobi-{precision}"
+    recs = [rank[name] for rank in records]
+    xs = [np.load(os.path.join(run_dir, f"{name}.r{r}.npy"))
+          for r in range(4)]
+    for r, (rec, x) in enumerate(zip(recs, xs)):
+        assert rec["converged"] and rec["iters"] == recs[0]["iters"]
+        assert np.array_equal(x, xs[0])
+        _check_counts(rec["counts"], r, precision)
+    iters, (ref_iters, ref_x) = recs[0]["iters"], lam_ref[name]
+    if precision == "df64":
+        one = lam_ref["jacobi-one"][0]
+        assert min(abs(iters - ref_iters), abs(iters - one)) <= 2, \
+            (iters, ref_iters, one)
+    else:
+        # the preconditioned inner loop stops on the UNpreconditioned
+        # r.r, which PCG does not minimise: near ir's inner floor it jumps
+        # by 2-5x from one iteration to the next, so the f32 sums' order
+        # moves the cycle's last iteration by up to ~10 (here 121 against
+        # lam_tpu's 131 on this grid; the dense grid and one device give
+        # 130-131): within 10%, where the unpreconditioned runs hold 2%
+        assert abs(iters - ref_iters) <= math.ceil(0.1 * ref_iters), \
+            (iters, ref_iters)
+    assert _rel(xs[0][:N], ref_x) <= 1e-6
+    assert _true_rel(a, b, xs[0][:N]) < 1e-9

@@ -17,13 +17,23 @@ and left after the last. Jobs:
       operator built from the matrix file (row shards, the band-pair walk,
       or the dense or the symmetric R x R grid over the largest square of
       the ranks), cg_solve or cg_solve_ir with
-      the precision's inner floor; iterations, convergence, the recurrence
-      residual, and x saved as <dir>/<name>.r<rank>.npy;
+      the precision's inner floor (and the job's "preconditioner", if
+      any); iterations, convergence, the recurrence residual, and x saved
+      as <dir>/<name>.r<rank>.npy;
   {"kind": "matvec", "name", "op", "precision", "comm", "packed", "tb",
       "matrix", "p"}: the whole A @ p (np.load(p)) saved as
       <dir>/<name>.r<rank>.npy;
-  {"kind": "diagonal", "name", "op": "symm"|"symgrid", "precision", "tb",
-      "matrix"}: the operator's whole diagonal() saved the same way.
+  {"kind": "diagonal", "name", "op", "precision", "comm", "packed", "tb",
+      "matrix"}: the operator's whole diagonal() saved the same way, and
+      the whole f32 inverse diagonal of the preconditioned inner loop
+      (`_inv_diag_f32`) as <dir>/<name>.inv.r<rank>.npy;
+  {"kind": "heat", "name", "nx", "ny", "rel_error"}: the row-sharded heat
+      solve (`solve_heat_cg(devices=G)`) of the nx x ny demo plate; its
+      inner iterations, residual, and the grid saved as above;
+  {"kind": "heat-cli", "name", "argv"}: lam_tpu_torch.apps.heat_cli.main
+      as the "cli" job runs lam_tpu_torch.cli.main;
+  {"kind": "halo", "name"}: Mesh.halo of the rows rank+1 and -(rank+1)
+      (4 wide); the (up, dn) it returns saved as above.
 A rank outside the grid records {"idle": true} for a grid job.
 `launch_cluster` is what the tests call: it starts the rank processes of
 one CPU cluster and returns their records. One cluster runs at a time on a
@@ -51,12 +61,14 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from lam_tpu_torch import cg_solve, cg_solve_ir, cli, ops  # noqa: E402
 from lam_tpu_torch import io as lio  # noqa: E402
+from lam_tpu_torch.apps import heat, heat_cli  # noqa: E402
 from lam_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from lam_tpu_torch.parallel.pcg import ShardedDenseOperator  # noqa: E402
 from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator  # noqa: E402
 from lam_tpu_torch.parallel.pcg2d_symm import Symm2DOperator  # noqa: E402
 from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator  # noqa: E402
-from lam_tpu_torch.solver.cg import default_inner_floor  # noqa: E402
+from lam_tpu_torch.solver.cg import (_inv_diag_f32,  # noqa: E402
+                                     default_inner_floor)
 
 _BASE = {"ir": "df64", "irq": "dfq", "irfq": "fq"}
 _GRID_OPS = ("grid", "symgrid")
@@ -137,17 +149,36 @@ def _operator(job, mesh):
         precision=storage, pack_cache_src=src)
 
 
+def _save(out, name, rank, x):
+    np.save(os.path.join(out, f"{name}.r{rank}.npy"), x)
+
+
 def _run(job, args, out, meshes):
     name = job["name"]
-    if job["kind"] == "cli":
+    if job["kind"] in ("cli", "heat-cli"):
         argv = job["argv"] + [
             "--coordinator", args.coordinator, "--num-processes",
             str(args.num_processes), "--process-id", str(args.process_id),
             "--device", args.device]
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            rc = cli.main(argv)
-        return {"rc": rc, "stdout": buf.getvalue()}
+        buf, err = io.StringIO(), io.StringIO()
+        main = cli.main if job["kind"] == "cli" else heat_cli.main
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        return {"rc": rc, "stdout": buf.getvalue(), "stderr": err.getvalue()}
+    if job["kind"] == "heat":
+        grid, iters, rel = heat.solve_heat_cg(
+            heat.initial_grid(job["nx"], job["ny"]), devices=meshes[0].size,
+            rel_error=job["rel_error"], device=args.device)
+        _save(out, name, args.process_id, grid)
+        return {"iters": iters, "rel": rel, "backend": meshes[0].backend,
+                "device": str(meshes[0].device)}
+    if job["kind"] == "halo":
+        first = torch.full((4,), args.process_id + 1.0,
+                           device=meshes[0].device)
+        up, dn = meshes[0].halo(first, -first)
+        _save(out, name, args.process_id,
+              torch.stack([up, dn]).cpu().numpy())
+        return {}
     mesh = meshes[job["op"] in _GRID_OPS]
     if not mesh.active:
         return {"idle": True}
@@ -155,28 +186,31 @@ def _run(job, args, out, meshes):
     rec = {"backend": mesh.backend, "device": str(mesh.device),
            "size": mesh.size}
     if job["kind"] == "diagonal":
-        d = op.diagonal()
-        if job["op"] in _GRID_OPS:  # a rank holds its grid row's block
-            d = op.extract_x(d)
-        np.save(os.path.join(out, f"{name}.r{args.process_id}.npy"),
-                d[:op.n].cpu().numpy())
+        d, inv = op.diagonal(), _inv_diag_f32(op)
+        if not isinstance(op, SymmShardedOperator):
+            # a rank holds its rows (or its grid row's block)
+            d, inv = op.extract_x(d), op.extract_x(inv)
+        _save(out, name, args.process_id, d[:op.n].cpu().numpy())
+        _save(out, f"{name}.inv", args.process_id,
+              inv[:op.n].cpu().numpy())
         return rec
     if job["kind"] == "matvec":
         y = op.matvec(op.prepare_b(np.load(job["p"])))
         if not isinstance(op, SymmShardedOperator):
             y = op.extract_x(y)
-        np.save(os.path.join(out, f"{name}.r{args.process_id}.npy"),
-                y[:op.n].double().cpu().numpy())
+        _save(out, name, args.process_id, y[:op.n].double().cpu().numpy())
         return rec
     b = lio.read_vector(job["rhs"])
+    pre = job.get("preconditioner")
     if job["precision"] in _BASE:
         res = cg_solve_ir(op.as_f32(), op, b, max_iters=10000,
                           rel_error=job["rel_error"],
-                          inner_floor=default_inner_floor(job["precision"]))
+                          inner_floor=default_inner_floor(job["precision"]),
+                          preconditioner=pre)
     else:
-        res = cg_solve(op, b, max_iters=10000, rel_error=job["rel_error"])
-    np.save(os.path.join(out, f"{name}.r{args.process_id}.npy"),
-            res.x.double().cpu().numpy())
+        res = cg_solve(op, b, max_iters=10000, rel_error=job["rel_error"],
+                       preconditioner=pre)
+    _save(out, name, args.process_id, res.x.double().cpu().numpy())
     rec.update(iters=int(res.num_iters), converged=bool(res.converged),
                rel=float(res.rel_residual))
     return rec
