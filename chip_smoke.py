@@ -421,6 +421,25 @@
    and fails the run: a check that held in phase 2 and fails in a fresh
    process is a fault (one earlier chip call saw kernels disagree with
    their plain versions in a fresh process, once, for no cause found).
+11. Resumable solves and the plain-torch engines on phase 3's file
+   (run after phase 5, while the file is there), through the CLI: df64
+   --checkpoint --checkpoint-every 100 -i 200 (CSV 201), then --resume:
+   358 iterations in all and x bitwise equal to an uninterrupted
+   --checkpoint run's; ir and irfq stopped after their first refinement
+   cycle through the API (cg_solve_ir_resumable(max_cycles=1) on the
+   operator the CLI builds; a small -i would cut the first cycle's inner
+   loop and change the trajectory), then resumed with --resume: 365 and
+   375 inner iterations, x bitwise equal to an uninterrupted --checkpoint
+   run's; Jacobi df64 -i 20 (CSV 21), then resumed: 39; packed-irfq at
+   G=2 (two rank processes, the phase-5 shard cache) stopped after its
+   first cycle through the API and resumed with the CLI: phase 5's 375;
+   --engine xla df64 and --precision f64, each within 2 of 358; and
+   cg_solve_block of 4 right-hand sides on the packed df64 operator. Each
+   run prints load_s, solve_s, its launch counts and its TRUE residual
+   (<= 2e-9 on the host); the kernel runs launch their kernels and no
+   plain version, the xla, f64 and block runs no port kernel and no plain
+   version. The phase's seconds. Its launches stay out of the kernels
+   line.
 
 Prints {"kernels": [...]} on the line before the last (each solver
 kernel's launches summed over the runs of phases 3-6, 8 and 9, every
@@ -670,6 +689,11 @@ FRESH_CHECKS = 2  # phase 10: fresh processes that repeat phase 2's checks
 FRESH_TIMEOUT_S = 600  # a fresh process that takes longer is killed
 HEAT_IR_ITERS = 4448  # heat `ir` at 1200 x 1000, every chip run (PERF.md 5)
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
+# phase 11: the iteration counts of phase 3's runs (PERF.md section 2),
+# which a stopped and resumed run must give in all
+CKPT_ITERS = {"df64": 358, "ir": 365, "irfq": 375, "df64-jacobi": 39}
+CKPT_STOP = {"df64": 200, "df64-jacobi": 20}  # -i of the stopped CG runs
+BLOCK_K = 4  # right-hand sides of phase 11's cg_solve_block
 X_GATE = 1e-6        # a sharded x against the one-device ir x, relative
 GEN_N = 10000        # phase 8: generate mode's converged runs (-i 10000)
 GEN_COUNT_GATE = 0.01  # df64's count against the host f64 CG's, relative
@@ -4414,6 +4438,17 @@ def rank_main(argv):
                             "backend": mesh.backend,
                             "device": str(mesh.device)})
             continue
+        if "ckpt_stop" in job:
+            timings = _ckpt_stop(job["ckpt_stop"])
+            torch.cuda.synchronize()
+            results.append({"run": job["run"], "rc": 0, "stdout": "",
+                            "counts": ops.counters(),
+                            "backend": mesh.backend,
+                            "device": str(mesh.device), "timings": timings,
+                            "plane_bytes": []})
+            gc.collect()
+            torch.cuda.empty_cache()
+            continue
         if "tiles" in job:
             timings = _tiles_grid_solve(job)
             torch.cuda.synchronize()
@@ -4655,6 +4690,190 @@ def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
            "fresh pack")
     print(f"sharded launches, summed over the runs and ranks: {total}")
     return total
+
+
+def _ckpt_stop(spec):
+    """One rank of phase 11's stopped mesh run: the facade's operator
+    (--backend sharded, the phase-5 shard cache), cg_solve_ir_resumable
+    stopped after its first refinement cycle with its state in
+    spec["dir"]. Returns the cycle's inner iterations and seconds."""
+    from lam_tpu_torch.solver import api
+    from lam_tpu_torch.solver import checkpoint as ckpt
+    from lam_tpu_torch.solver.cg import default_inner_floor
+    cg = api.ConjugateGradient(backend="sharded", precision=spec["precision"],
+                               device="cuda", pack_cache=True)
+    cg.load_matrix_from_file(spec["a"])
+    cg.load_rhs_from_file(spec["b"])
+    _, cycles = ckpt.cg_solve_ir_resumable(
+        cg.op.as_f32(), cg.op, cg.rhs, max_iters=10000, rel_error=1e-9,
+        inner_floor=default_inner_floor(spec["precision"]), max_cycles=1,
+        checkpoint_path=spec["dir"])
+    return {"inner": [k for k, _ in cycles], "cycle_s": [t for _, t in cycles],
+            "load_s": cg.timings["load_s"]}
+
+
+def checkpoint_runs(ops, lio, cli, system, tmp):
+    """Phase 11: resumable solves and the plain-torch engines on phase 3's
+    file (see the module docstring). Returns nothing: its launches stay
+    out of the kernels line."""
+    from lam_tpu_torch import cg_solve_block
+    from lam_tpu_torch.solver import checkpoint as ckpt
+    from lam_tpu_torch.solver.cg import default_inner_floor
+    from lam_tpu_torch.solver.operators import DenseOperator
+    t_phase = time.perf_counter()
+    a, b, a_path, b_path = system
+    bnorm = np.linalg.norm(b)
+    plain = [fn.__name__ for fn in ops.PLAIN]
+    ck = os.path.join(tmp, "ckpt")
+
+    def run(label, flags, kernels, iters=None):
+        x_path = os.path.join(tmp, f"x_ck_{label}.bin")
+        rc, fields, counts = _cli_run(ops, cli, ["-A", a_path, "-b", b_path,
+                                                 "-o", x_path, *flags])
+        _check(rc == 0, f"phase 11 {label}: the CLI exited {rc}")
+        got = int(fields[6])
+        x = lio.read_vector(x_path)
+        true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
+        launched = {k: v for k, v in counts.items() if v}
+        print(f"phase 11 {label}: load_s {float(fields[3]):.3f}, solve_s "
+              f"{float(fields[8]):.4f}, CSV num_iter {got}, TRUE rel "
+              f"residual {true_rel:.3e}, launches {launched}")
+        _check(all(counts[k] == 0 for k in plain),
+               f"phase 11 {label}: a plain version ran")
+        if kernels:
+            for k in kernels:
+                _check(counts[k] > 0, f"phase 11 {label} never launched {k}")
+        else:
+            _check(not launched, f"phase 11 {label} launched a port kernel")
+        if iters is not None:
+            _check(got == iters, f"phase 11 {label}: {got} iterations, "
+                   f"not {iters}")
+        if not label.endswith("-stop"):
+            _check(true_rel <= TRUE_GATE, f"phase 11 {label}: TRUE "
+                   f"residual {true_rel:.3e} above {TRUE_GATE:g}")
+        return got, x
+
+    # CG and Jacobi PCG: stopped by -i, resumed, against a whole run
+    for label, flags, kernels in (
+            ("df64", ["--precision", "df64"], ("gemv_df64_symm",)),
+            ("df64-jacobi", ["--precision", "df64", "--preconditioner",
+                             "jacobi"], ("gemv_df64_symm",))):
+        d = os.path.join(ck, label)
+        stop = CKPT_STOP[label]
+        run(f"{label}-stop", flags + ["--checkpoint", d, "-i", str(stop),
+                                      "--checkpoint-every", "100"],
+            kernels, stop + 1)
+        _, x_res = run(f"{label}-resume", flags + ["--checkpoint", d,
+                                                   "--resume"],
+                       kernels, CKPT_ITERS[label])
+        _, x_whole = run(f"{label}-whole", flags + [
+            "--checkpoint", d + "-whole", "--checkpoint-every", "100"],
+            kernels, CKPT_ITERS[label])
+        _check(np.array_equal(x_res, x_whole),
+               f"phase 11 {label}: the resumed x differs from the "
+               "uninterrupted run's")
+        print(f"phase 11 {label}: stopped at {stop}, resumed to "
+              f"{CKPT_ITERS[label]}, x bitwise the uninterrupted run's")
+    # ir and irfq: stopped after the first cycle through the API
+    for precision, ctor, flags, kernels in (
+            ("ir", DenseOperator.from_file_df64, [],
+             ("gemv_f32_symm", "gemv_df64_symm")),
+            ("irfq", DenseOperator.from_file_fq, ["--pack-cache"],
+             ("gemv_q16_symm", "gemv_fq_symm"))):
+        d = os.path.join(ck, precision)
+        op = ctor(a_path, pack_cache=bool(flags), device="cuda")
+        ops.reset_counters()
+        t0 = time.perf_counter()
+        _, cycles = ckpt.cg_solve_ir_resumable(
+            op.as_f32(), op, b, max_iters=10000, rel_error=1e-9,
+            inner_floor=default_inner_floor(precision), max_cycles=1,
+            checkpoint_path=d)
+        counts = ops.counters()
+        print(f"phase 11 {precision}-stop (API, max_cycles=1): "
+              f"{cycles[0][0]} inner iterations in "
+              f"{time.perf_counter() - t0:.3f} s, launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
+        _check(all(counts[k] > 0 for k in kernels)
+               and all(counts[k] == 0 for k in plain),
+               f"phase 11 {precision}-stop: not the kernels of its path")
+        del op
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = ["--precision", precision, *flags]
+        _, x_res = run(f"{precision}-resume", base + ["--checkpoint", d,
+                                                      "--resume"],
+                       kernels, CKPT_ITERS[precision])
+        _, x_whole = run(f"{precision}-whole",
+                         base + ["--checkpoint", d + "-whole"], kernels,
+                         CKPT_ITERS[precision])
+        _check(np.array_equal(x_res, x_whole),
+               f"phase 11 {precision}: the resumed x differs from the "
+               "uninterrupted run's")
+    # packed-irfq at G=2: stopped after its first cycle, resumed
+    d = os.path.join(ck, "packed-irfq")
+    jobs = [{"run": "ck-packed-irfq-stop",
+             "ckpt_stop": {"precision": "irfq", "a": a_path, "b": b_path,
+                           "dir": d}},
+            {"run": "ck-packed-irfq-resume",
+             "argv": ["-A", a_path, "-b", b_path, "-o",
+                      os.path.join(tmp, "x_ck_packed.bin"), "--precision",
+                      "irfq", "--pack-cache", "--checkpoint", d,
+                      "--resume"]}]
+    t0 = time.perf_counter()
+    records = _cluster(2, jobs, tmp, label="cluster2-ckpt")
+    print(f"phase 11 2-rank cluster: {time.perf_counter() - t0:.1f} s of "
+          "wall time")
+    for j, job in enumerate(jobs):
+        recs = [rank_recs[j] for rank_recs in records]
+        _check(all(rec["rc"] == 0 for rec in recs),
+               f"{job['run']}: a rank failed")
+        for rec in recs:
+            launched = {k: v for k, v in rec["counts"].items() if v}
+            _check(all(rec["counts"][k] > 0 for k in _QFQ)
+                   and all(rec["counts"][k] == 0 for k in plain),
+                   f"{job['run']}: not the kernels of its path: {launched}")
+        print(f"phase 11 {job['run']}: rank 0 timings "
+              f"{recs[0].get('timings')}, rank 0 launches "
+              f"{ {k: v for k, v in recs[0]['counts'].items() if v} }")
+    fields = records[0][1]["stdout"].strip().split(",")
+    x = lio.read_vector(os.path.join(tmp, "x_ck_packed.bin"))
+    true_rel = float(np.linalg.norm(b - a @ x) / bnorm)
+    print(f"phase 11 ck-packed-irfq-resume CSV: {','.join(fields)}; TRUE "
+          f"rel residual {true_rel:.3e}")
+    _check(int(fields[7]) == WALK_RUN_ITERS["packed-irfq-cold"]
+           and true_rel <= TRUE_GATE,
+           "phase 11 packed-irfq G=2: the resumed run's count or residual")
+    # the plain-torch engines: no port kernel
+    for label, flags in (("xla-df64", ["--precision", "df64", "--engine",
+                                       "xla"]),
+                         ("f64", ["--precision", "f64"])):
+        got, _ = run(label, flags, ())
+        _check(abs(got - CKPT_ITERS["df64"]) <= 2,
+               f"phase 11 {label}: {got} iterations, not within 2 of "
+               f"{CKPT_ITERS['df64']}")
+    # block CG on the packed df64 operator: the triangle's block walk
+    op = DenseOperator.from_file_df64(a_path, device="cuda")
+    rhs = np.column_stack([b] + [np.random.default_rng(SEED_B + j).uniform(
+        -1, 1, N) for j in range(1, BLOCK_K)])
+    ops.reset_counters()
+    t0 = time.perf_counter()
+    res = cg_solve_block(op, rhs, max_iters=10000, rel_error=1e-9)
+    x = res.x.cpu().numpy()
+    solve_s = time.perf_counter() - t0
+    counts = ops.counters()
+    rels = [float(np.linalg.norm(rhs[:, j] - a @ x[:, j])
+                  / np.linalg.norm(rhs[:, j])) for j in range(BLOCK_K)]
+    print(f"phase 11 block-df64 (k={BLOCK_K}): solve_s {solve_s:.4f}, "
+          f"iterations {res.num_iters.tolist()}, TRUE rel residuals "
+          f"{[f'{r:.3e}' for r in rels]}, launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    _check(bool(res.converged.all()) and max(rels) <= TRUE_GATE,
+           "phase 11 block-df64: a column did not converge")
+    _check(not any(counts.values()), "phase 11 block-df64 launched a port "
+           "kernel")
+    del op, res
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s")
 
 
 def large_system_runs(ops, gemv, generate, lio, cli, tmp):
@@ -5465,7 +5684,10 @@ def main():
         shard_counts = sharded_runs(ops, lio, system, local_xs,
                                     local_iters, tmp)
         print(f"phase 5: {time.perf_counter() - t0:.1f} s")
-        del system, local_xs
+        del local_xs
+        torch.cuda.empty_cache()
+        checkpoint_runs(ops, lio, cli, system, tmp)
+        del system
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         large_counts = large_system_runs(ops, gemv, generate, lio, cli, tmp)

@@ -23,27 +23,35 @@ torch.distributed process group: row shards with a gathered or ringed
 operand, band pairs of the lower triangle (df64, dfq or fq storage),
 dense blocks over an R x R grid, or the symmetric R x R grid that stores
 each element once (df64, dfq or fq storage). Every backend takes Jacobi
-preconditioning (`preconditioner="jacobi"`). The matvecs are
-hand-written CUDA kernels for sm_90a (lam_tpu_torch/csrc, built at first
-use). The heat-equation demo (lam_tpu_torch.apps: Jacobi sweeps, and CG
+preconditioning (`preconditioner="jacobi"`) and checkpointed, resumable
+solves (`lam_tpu_torch.solver.checkpoint`, whose files lam_tpu reads and
+writes too); lam_tpu's oracle engine 'xla' (plain torch products, what
+precision 'f64' runs) and block CG over several right-hand sides
+(`cg_solve_block`) run on one device, the row shards and the dense grid.
+The other matvecs are hand-written CUDA kernels for sm_90a
+(lam_tpu_torch/csrc, built at first use). The heat-equation demo (lam_tpu_torch.apps: Jacobi sweeps, and CG
 on the 5-point Laplacian, whose 'ir' inner matvec is the hand-written
 stencil kernel, on one device or row-sharded over ranks) and its BMP
 converter run on the same engine.
 """
 
+from lam_tpu_torch.solver import checkpoint
 from lam_tpu_torch.solver.api import ConjugateGradient
-from lam_tpu_torch.solver.cg import CGResult, cg_solve, cg_solve_ir
+from lam_tpu_torch.solver.cg import (CGResult, cg_solve, cg_solve_block,
+                                     cg_solve_ir)
 from lam_tpu_torch.solver.host_outer import cg_solve_ir_host
 from lam_tpu_torch.solver.operators import DenseOperator, LinearOperator
 
 __all__ = [
     "CGResult",
     "cg_solve",
+    "cg_solve_block",
     "cg_solve_ir",
     "cg_solve_ir_host",
     "DenseOperator",
     "LinearOperator",
     "ConjugateGradient",
+    "checkpoint",
 ]
 
 __version__ = "0.1.0"

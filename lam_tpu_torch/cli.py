@@ -7,15 +7,19 @@ Flags (the reference's getopt surface):
   -s <int>    generate the n x n system      -o <file>  write solution
   -i <int>    max iterations                 -e <float> relative error
   -v          verbose                        -h         help
-  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu (default cuda)
-  --engine auto|pallas|pallas_symm|pallas_symm_packed
+  --precision auto|df64|ir|f32|dfq|irq|fq|irfq|f64 (auto: df64 on a card,
+              f64 on the CPU)   --device cuda|cpu (default cuda)
+  --engine auto|pallas|pallas_symm|pallas_symm_packed|xla
               (pallas: the full square; pallas_symm: the full square of a
-              symmetric matrix, its lower triangle read)
+              symmetric matrix, its lower triangle read; xla: the unpadded
+              square and plain torch products, lam_tpu's oracle engine,
+              which f64 forces)
   --pack-cache  publish/reuse the packed planes beside the matrix file
   --outer device|host  where irfq forms its outer residuals: on the device
               over the fq cascade (default), or on the host against the
               f64 source file with only the q1 plane on the device
-  --backend local|sharded|sharded2d  --comm gather|ring  --devices N
+  --backend local|sharded|sharded2d|auto (auto, the default: sharded
+              with more than one rank)  --comm gather|ring  --devices N
   --coordinator <host:port> --num-processes N --process-id i
   --preconditioner jacobi  Jacobi-preconditioned CG on every backend (with
               ir/irq/irfq it scales the inner f32 loop)
@@ -24,13 +28,22 @@ Flags (the reference's getopt surface):
   --profile <dir>  a torch.profiler trace of the timed solve, one file per
               rank: <dir>/lam-cg.rank<r>.json
   --init-col    add the warm-up seconds after load_s in the CSV
+  --checkpoint <dir>  persist the solver state in <dir> (lam_tpu's files:
+              x.bin, r.bin, p.bin and state.json, or x.bin, r.bin and
+              ir_state.json), every --checkpoint-every iterations (default
+              100) or, with ir/irq/irfq, at every refinement cycle; no
+              warm-up solve
+  --resume    continue from the state in --checkpoint <dir>, written by the
+              port or by lam_tpu for the same operator layout
 Legacy positional form (lam_tpu/cli.py:17-21): `matrix rhs sol iters err`,
 any prefix of them; explicit flags win, -i defaults to 1000 there, and
 more than five positionals is refused.
 Defaults: io/matrix.bin io/rhs.bin io/sol.bin, -i 10000, -e 1e-9. -s
 cannot be given with -A or -b ("Option -A and -b cannot be used with -s."
 on stderr, rc 1) nor with --outer host (one line on stderr, rc 1: the
-host outer loop needs the source file); it builds the reference's
+host outer loop needs the source file). --resume without --checkpoint,
+and --checkpoint with --outer host, are refused before anything is read
+(one line on stderr, rc 1); it builds the reference's
 benchmark system, the dense tridiagonal (2 on the diagonal, 1 beside it)
 against a right-hand side of ones, on the device
 (lam_tpu_torch/solver/api.py); on a sharded backend each rank builds its
@@ -54,10 +67,8 @@ storage keeps <matrix>.shardpack/<storage>.r<R>.s<rank>).
 Default output is lam_tpu's one-line CSV:
   N,procs,threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s
 with procs the ranks the backend uses and num_iter = max_iters + 1 for an
-unconverged run, as the reference prints it. Still refused, with one
-line on stderr and rc 1: --engine xla (ROADMAP Queue 1 item 8, with
-lam_tpu's --precision f64/auto, which the parser does not offer),
---checkpoint, --checkpoint-every and --resume (item 9), --platform (JAX's
+unconverged run, as the reference prints it (a checkpointed run's row
+too). Still refused, with one line on stderr and rc 1: --platform (JAX's
 platform: the port takes --device) and --local-devices (JAX's virtual CPU
 devices: start one process per rank).
 """
@@ -94,10 +105,13 @@ def build_parser():
                    help="Verbose mode")
     p.add_argument("-h", dest="help", action="store_true",
                    help="Show this help message")
-    p.add_argument("--precision", default="df64",
+    p.add_argument("--precision", default="auto",
                    choices=["df64", "ir", "f32", "dfq", "irq", "fq",
-                            "irfq"],
-                   help="df64 = f64-parity CG on the (hi, lo) pair; ir = "
+                            "irfq", "f64", "auto"],
+                   help="auto (default) = df64 on a card, f64 on the CPU; "
+                        "f64 = CG on the f64 square with plain torch "
+                        "products (engine xla, the oracle path); "
+                        "df64 = f64-parity CG on the (hi, lo) pair; ir = "
                         "f32 iterations refined with the df64 matvec; "
                         "f32 = f32 CG; dfq = CG on packed storage with the "
                         "lo plane quantized to int16 (6 B/element); irq = "
@@ -122,7 +136,9 @@ def build_parser():
                         "symmetric grid (df64/ir/dfq/irq/fq/irfq). On one "
                         "device pallas_symm stores the full square of a "
                         "symmetric matrix and reads its lower triangle "
-                        "(f32/df64/ir). xla is not ported yet")
+                        "(f32/df64/ir). xla stores the unpadded square "
+                        "(row shards, grid blocks) and multiplies by plain "
+                        "torch products (f64/f32/df64/ir; f64 forces it)")
     p.add_argument("--pack-cache", action="store_true",
                    help="File mode: publish/reuse the packed planes "
                         "beside the matrix file (<file>.dfqpack, "
@@ -145,9 +161,11 @@ def build_parser():
     p.add_argument("--device", default="cuda",
                    help="torch device (cuda or cpu); cuda raises when no "
                         "card is present")
-    p.add_argument("--backend", default="local",
-                   choices=["local", "sharded", "sharded2d"],
-                   help="sharded = one rank per device of a process group "
+    p.add_argument("--backend", default="auto",
+                   choices=["local", "sharded", "sharded2d", "auto"],
+                   help="auto (default) = sharded when the run has more "
+                        "than one rank, else local; "
+                        "sharded = one rank per device of a process group "
                         "(the reference's MPI/NCCL backends); sharded2d = "
                         "the largest R x R grid of the ranks: dense blocks "
                         "(f32/df64/ir) or, with a symmetric engine or a "
@@ -196,10 +214,15 @@ def build_parser():
                         "solve, one file per rank: "
                         "<dir>/lam-cg.rank<r>.json")
     p.add_argument("--checkpoint", metavar="<dir>", default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--checkpoint-every", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--resume", action="store_true", help=argparse.SUPPRESS)
+                   help="Persist solver state every --checkpoint-every "
+                        "iterations, or at each refinement cycle with "
+                        "ir/irq/irfq (resumable with --resume)")
+    p.add_argument("--checkpoint-every", type=int, default=100,
+                   metavar="<int>",
+                   help="Iterations between checkpoints (default 100; not "
+                        "used by ir/irq/irfq)")
+    p.add_argument("--resume", action="store_true",
+                   help="Resume from the state in --checkpoint <dir>")
     return p
 
 
@@ -220,7 +243,8 @@ def _cli_main(argv=None):
               "--precision --engine --device --pack-cache --outer --backend "
               "--comm --devices --coordinator --num-processes --process-id "
               "--preconditioner --check-symmetric --no-warmup --profile "
-              "--init-col ] | [matrix rhs sol iters err]")
+              "--init-col --checkpoint --checkpoint-every --resume ] | "
+              "[matrix rhs sol iters err]")
         print("Options:")
         print("  -A <file>       Read matrix from file")
         print("  -b <file>       Read right hand side from file")
@@ -230,24 +254,31 @@ def _cli_main(argv=None):
         print("  -s <int>        Generate matrix of size n x n")
         print("  -v              Verbose mode")
         print("  -h              Show this help message")
-        print("  --precision df64|ir|f32|dfq|irq|fq|irfq   --device cuda|cpu")
-        print("  --engine auto|pallas|pallas_symm|pallas_symm_packed")
+        print("  --precision auto|df64|ir|f32|dfq|irq|fq|irfq|f64   "
+              "--device cuda|cpu")
+        print("  --engine auto|pallas|pallas_symm|pallas_symm_packed|xla")
         print("  --pack-cache    Reuse/publish <matrix>.<storage>pack")
         print("  --outer device|host  irfq's outer residuals on the device "
               "or, file mode, on the host")
-        print("  --backend local|sharded|sharded2d  --comm gather|ring  "
+        print("  --backend local|sharded|sharded2d|auto  --comm gather|ring  "
               "--devices N")
         print("  --coordinator <host:port> --num-processes N --process-id i")
         print("  --preconditioner jacobi  --check-symmetric  --no-warmup  "
               "--profile <dir>")
+        print("  --checkpoint <dir>  --checkpoint-every N  --resume")
         return 0
-    for flag, value in (("--checkpoint", args.checkpoint),
-                        ("--checkpoint-every", args.checkpoint_every),
-                        ("--resume", args.resume or None)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag}: checkpoints are not ported yet (ROADMAP Queue 1 "
-                "item 9)")
+    if args.resume and not args.checkpoint:
+        print("lam-cg: --resume needs --checkpoint <dir>, the state to "
+              "resume from", file=sys.stderr)
+        return 1
+    if args.checkpoint and args.outer == "host":
+        # lam_tpu fails only mid-run here: its q1-only operator refuses
+        # the accurate matvec that a checkpointed refinement cycle runs
+        print("lam-cg: --checkpoint does not compose with --outer host "
+              "(the device holds only the q1 inner plane, not the "
+              "accurate operator a checkpointed cycle runs)",
+              file=sys.stderr)
+        return 1
     if args.platform is not None:
         raise NotImplementedError(
             "--platform picks JAX's platform; the port takes --device "
@@ -372,9 +403,12 @@ def _solve(args):
 
     vprint("Solving the system ...")
     with _profiled(args.profile, cg.rank):
-        converged = cg.solve(args.max_iters, args.rel_error,
-                             warmup=not args.no_warmup,
-                             preconditioner=args.preconditioner)
+        if args.checkpoint:
+            converged = _checkpointed_solve(cg, args)
+        else:
+            converged = cg.solve(args.max_iters, args.rel_error,
+                                 warmup=not args.no_warmup,
+                                 preconditioner=args.preconditioner)
     avg_gemv = cg.measure_gemv()
     t = cg.timings
     if not rank0:
@@ -397,6 +431,29 @@ def _solve(args):
     vprint("Done\n")
     vprint("Finished successfully")
     return 0
+
+
+def _checkpointed_solve(cg, args):
+    """The resumable solve of --checkpoint (lam_tpu/cli.py:328-353), no
+    warm-up: ir/irq/irfq checkpoint at refinement-cycle boundaries, the
+    other precisions every --checkpoint-every iterations. The result
+    goes through the facade's record_result, so the CSV row is a plain
+    solve's."""
+    from lam_tpu_torch.solver import checkpoint as ckpt
+    from lam_tpu_torch.solver.cg import default_inner_floor
+    kw = dict(max_iters=args.max_iters, rel_error=args.rel_error,
+              checkpoint_path=args.checkpoint, resume=args.resume,
+              preconditioner=args.preconditioner)
+    t0 = time.perf_counter()
+    if cg.precision in ("ir", "irq", "irfq"):
+        result, _ = ckpt.cg_solve_ir_resumable(
+            cg.op.as_f32(), cg.op, cg.rhs,
+            inner_floor=default_inner_floor(cg.precision), **kw)
+    else:
+        result, _ = ckpt.cg_solve_resumable(
+            cg.op, cg.rhs, segment=args.checkpoint_every, **kw)
+    float(result.rel_residual)  # waits for the device
+    return cg.record_result(result, time.perf_counter() - t0)
 
 
 @contextlib.contextmanager

@@ -213,6 +213,11 @@ class Mesh:
         all-reduced, so every rank holds the same value."""
         return self.all_reduce(vdot(u, v))
 
+    def barrier(self):
+        """Return once every rank of the mesh has called it (an
+        all-reduce of a zero: the ranks outside a grid take no part)."""
+        self.all_reduce(torch.zeros(1, device=self.device))
+
 
 def make_mesh(n_devices=None, device="cuda"):
     """The 1-D mesh of this process: every rank of the initialized
@@ -286,6 +291,13 @@ class Mesh2D(Mesh):
         """u . v over vectors split across grid rows and replicated
         across grid columns: the local vdot summed over the grid column."""
         return self._reduce(vdot(u, v), self.col_group, self.r)
+
+    def barrier(self):
+        """Return once every rank of the grid has called it: a reduction
+        over the grid column, then one over the grid row, which meets a
+        rank of every column."""
+        zero = torch.zeros(1, device=self.device)
+        self.all_reduce_row(self._reduce(zero, self.col_group, self.r))
 
 
 def make_mesh2d(r=None, device="cuda"):

@@ -1,9 +1,12 @@
 """The solver facade of lam_tpu/solver/api.py, main-path subset.
 
 File mode: an SPD system read from the binary format (or .npy) and
-solved by CG in one of seven precisions:
+solved by CG in one of eight precisions, or 'auto' (the default: df64 on
+a card, f64 on the CPU, lam_tpu's rule with the card in the TPU's place):
 
-    'df64' f64-parity CG on the (hi, lo) pair (the default)
+    'df64' f64-parity CG on the (hi, lo) pair
+    'f64'  CG on the f64 square with plain torch products (engine 'xla',
+           which 'f64' forces: the oracle path, no kernel)
     'ir'   f32 inner CG on the hi plane, refined with the df64 matvec
     'f32'  f32 CG on an f32 plane
     'dfq'  CG on the quantized-lo storage (f32 hi + int16 lo, f64
@@ -19,7 +22,10 @@ triangle, trusting the file's symmetry (CG's contract); engine='pallas'
 reads the whole matrix and stores the full square (f32, df64 and ir
 only), for a matrix that is not symmetric; engine='pallas_symm' stores
 the full square of a symmetric matrix (checked) and reads only its
-lower-triangle tiles. pack_cache=True reads the packed planes from
+lower-triangle tiles; engine='xla' stores the unpadded square (f64, f32,
+df64 and ir) and multiplies by plain torch products, as lam_tpu's oracle
+engine does. engine='auto' keeps the kernel engines on the CPU too (their
+plain versions): lam_tpu picks 'xla' off a TPU. pack_cache=True reads the packed planes from
 `<file>.<storage>pack` when that cache is usable and publishes a fresh
 pack there otherwise; the full-square engines ignore it with a notice.
 
@@ -38,21 +44,25 @@ zero tile each for q2 and q3 for 'fq'/'irfq' (2 B per element). 'dfq'/
 backend='local' solves on one device. backend='sharded' splits the
 system over the ranks of a torch.distributed process group, one rank per
 device (lam_tpu_torch/parallel; routed as lam_tpu/solver/api.py:117-189):
-engine 'auto' or 'pallas' with f32/df64/ir gives the row-sharded
-operator (comm 'gather' or 'ring'); 'pallas_symm' (slab) and
+engine 'auto' or 'pallas' with f32/df64/ir, or 'xla' with f64/f32/df64/
+ir, gives the row-sharded operator (comm 'gather' or 'ring'); 'pallas_symm' (slab) and
 'pallas_symm_packed' with df64/ir give the band-pair operator, and
 dfq/irq/fq/irfq its quantized packed storages ('auto' routes them there;
 pack_cache=True keeps one `<file>.shardpack/<storage>.g<g>.s<rank>` per
 rank). backend='sharded2d' splits it over an R x R grid of the first R^2
 ranks (routed as lam_tpu/solver/api.py:117-153): engine 'auto' or 'pallas'
 with f32/df64/ir gives the dense grid (a block and the dense kernels on
-every rank); 'pallas_symm' and 'pallas_symm_packed' with df64/ir, and
+every rank), 'xla' with f64/f32/df64/ir the same grid with plain torch
+products; 'pallas_symm' and 'pallas_symm_packed' with df64/ir, and
 dfq/irq/fq/irfq (which 'auto' routes there), the symmetric grid, which
 stores each element once (lam_tpu_torch/parallel/pcg2d_symm.py;
 pack_cache=True keeps one `<file>.shardpack/<storage>.r<R>.s<rank>` per
 rank of a quantized storage).
 Every rank calls the same methods in the same order: loads, solves and
-measurements are collective.
+measurements are collective. backend='auto' (the default) is 'sharded'
+when the run has more than one rank (a process group larger than one,
+or n_devices > 1), else 'local': lam_tpu's "more than one device
+visible" for a port whose ranks are processes.
 
 Generate mode on the meshes builds each rank's part on its device, routed
 as lam_tpu's `_generate_fast` (lam_tpu/solver/api.py:351-399): 'fq'/'irfq'
@@ -81,9 +91,10 @@ the file's memory map before anything is built (lam_tpu's up-front check
 and words). `solve(warmup=False)` times the first solve with the kernel
 build and first launches in it, and records no init_s.
 
-Still refused, with NotImplementedError: precision 'f64'/'auto', backend
-'auto' and engine 'xla' (ROADMAP Queue 1 item 8), and checkpoints (item
-9). The device is explicit; asking for CUDA where there is none raises.
+Checkpointed solves (lam_tpu_torch/solver/checkpoint.py) run on the
+facade's operator: the CLI's --checkpoint drives them and stores their
+result through `record_result`. The device is explicit; asking for CUDA
+where there is none raises.
 """
 
 from __future__ import annotations
@@ -102,11 +113,13 @@ from lam_tpu_torch.solver.cg import cg_solve, cg_solve_ir, default_inner_floor
 from lam_tpu_torch.solver.host_outer import cg_solve_ir_host
 from lam_tpu_torch.solver.operators import (DENSE_ENGINE, ENGINE, ENGINES,
                                             QUANT_LAYOUT, SQUARE_ENGINE,
-                                            DenseOperator,
+                                            XLA_ENGINE, DenseOperator,
                                             _verifies_symmetric,
-                                            check_engine, resolve_device)
+                                            auto_precision, check_engine,
+                                            resolve_device)
 
-PRECISIONS = ("df64", "ir", "f32", "dfq", "irq", "fq", "irfq")
+PRECISIONS = ("df64", "ir", "f32", "dfq", "irq", "fq", "irfq", "f64",
+              "auto")
 # refinement mode -> its storage
 _BASE = {"ir": "df64", "irq": "dfq", "irfq": "fq"}
 
@@ -119,8 +132,6 @@ def _check_sharded(precision, engine):
     port does not take, with lam_tpu's messages
     (lam_tpu/solver/api.py:157-178)."""
     base = _BASE.get(precision, precision)
-    if engine == "xla":
-        raise NotImplementedError(f"engine={engine!r} is not ported yet")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if base in QUANT_LAYOUT and engine == "auto":
@@ -144,8 +155,6 @@ def _check_sharded2d(precision, engine):
     symmetric grid; else the dense grid); raises for one the port does
     not take, with lam_tpu's messages (lam_tpu/solver/api.py:117-153)."""
     base = _BASE.get(precision, precision)
-    if engine == "xla":
-        raise NotImplementedError(f"engine={engine!r} is not ported yet")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}")
     if base in QUANT_LAYOUT and engine == "auto":
@@ -167,14 +176,26 @@ def _check_sharded2d(precision, engine):
     return engine
 
 
+def auto_backend(n_devices=None):
+    """backend='auto' (lam_tpu/solver/api.py:38-40): 'sharded' when the
+    run has more than one rank, n_devices or else the process group's
+    size, else 'local'."""
+    n = n_devices or (dist.get_world_size() if dist.is_initialized() else 1)
+    return "sharded" if n > 1 else "local"
+
+
 class ConjugateGradient:
-    def __init__(self, backend="local", precision="df64", engine="auto",
+    def __init__(self, backend="auto", precision="auto", engine="auto",
                  device="cuda", pack_cache=False, comm="gather",
                  n_devices=None, mesh=None, outer="device",
                  check_symmetric=False):
         if precision not in PRECISIONS:
-            raise NotImplementedError(f"precision={precision!r} is not "
-                                      f"ported yet (one of {PRECISIONS})")
+            raise ValueError(f"unknown precision {precision!r} (one of "
+                             f"{PRECISIONS})")
+        if precision == "auto":
+            precision = auto_precision(device)
+        if backend == "auto":
+            backend = auto_backend(n_devices)
         if outer not in ("device", "host"):
             raise ValueError(f"outer must be 'device' or 'host', "
                              f"got {outer!r}")
@@ -208,16 +229,15 @@ class ConjugateGradient:
             self.device = mesh.device
         elif backend == "local":
             check_engine(engine)
-            if (engine in (DENSE_ENGINE, SQUARE_ENGINE)
+            if (engine in (DENSE_ENGINE, SQUARE_ENGINE, XLA_ENGINE)
                     and _BASE.get(precision, precision) in QUANT_LAYOUT):
                 raise ValueError(
                     f"precision={precision!r} implies packed storage; use "
                     "engine='pallas_symm_packed' (or 'auto')")
             self.device = resolve_device(device)
         else:
-            raise NotImplementedError(f"backend={backend!r} is not ported "
-                                      "yet ('local', 'sharded' or "
-                                      "'sharded2d')")
+            raise ValueError(f"unknown backend {backend!r} ('local', "
+                             "'sharded', 'sharded2d' or 'auto')")
         self.backend = backend
         self.precision = precision
         self.engine = engine
@@ -262,12 +282,15 @@ class ConjugateGradient:
                 lambda r0, c0, h, w: lio.read_matrix_block(filename, r0, c0,
                                                            h, w),
                 str(filename) if self.pack_cache else None)
-        elif self.engine in (DENSE_ENGINE, SQUARE_ENGINE):
+        elif (self.engine in (DENSE_ENGINE, SQUARE_ENGINE, XLA_ENGINE)
+              or storage == "f64"):
             # the full square, as lam_tpu's file-mode fallback builds it
             if self.pack_cache:
+                what = ("--precision f64" if storage == "f64"
+                        else f"--engine {self.engine}")
                 print("lam-cg: --pack-cache only accelerates the packed "
                       "engine's f32/df64/ir/dfq/irq/fq/irfq file loads; "
-                      f"ignored for --engine {self.engine}", file=sys.stderr)
+                      f"ignored for {what}", file=sys.stderr)
             self.op = DenseOperator.from_dense(
                 lio.read_matrix(filename), precision=storage,
                 engine=self.engine, device=self.device)

@@ -77,26 +77,33 @@ def default_inner_floor(precision):
     return IR_INNER_FLOOR
 
 
-def _cg_loop(matvec_dot, b, max_iters, rel_error, dot=vdot):
-    """CG on (possibly padded) vectors. matvec_dot(p) -> (Ap, p.Ap).
-    max_iters and rel_error may be numbers or 0-dim device tensors."""
-    dtype, dev = b.dtype, b.device
-    bb = dot(b, b)
-    eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
-    limit = torch.as_tensor(max_iters, device=dev)
-    # x = 0, r = p = b
-    x = torch.zeros_like(b)
-    r = b.clone()
-    p = b.clone()
-    rr = bb
-    k = torch.zeros((), dtype=torch.int64, device=dev)
-
+def _active(limit, eps, bb):
+    """The continue test of a CG loop: k < limit and sqrt(rr / bb) >= eps."""
     def active(rr, k):
         return (k < limit) & (torch.sqrt(rr / bb) >= eps)
 
+    return active
+
+
+def _chunks(k_budget):
+    """Iterations between flag reads: CHUNK, or fewer where a segment's
+    host-known budget (`k_budget`, the iterations it may still take) ends
+    first, so that it stops at its limit with no frozen iterations past
+    it."""
+    return CHUNK if k_budget is None else max(1, min(CHUNK, k_budget))
+
+
+def _cg_run(matvec_dot, state, limit, eps, dot, k_budget=None):
+    """Continue the CG recurrence from state (x, r, p, rr, bb, k) until
+    k == limit or convergence; returns the new state. x is updated in
+    place. k_budget (a segment's host-known iteration budget, else None)
+    shortens the last chunk to end at the limit."""
+    x, r, p, rr, bb, k = state
+    active = _active(limit, eps, bb)
     go = active(rr, k)
     while bool(go):
-        for _ in range(CHUNK):
+        steps = _chunks(k_budget)
+        for _ in range(steps):
             ap, p_ap = matvec_dot(p)
             alpha = torch.where(go, rr / p_ap, 0.0)
             x.addcmul_(alpha, p)
@@ -107,36 +114,20 @@ def _cg_loop(matvec_dot, b, max_iters, rel_error, dot=vdot):
             rr = torch.where(go, rr_new, rr)
             k = k + go
             go = active(rr, k)
-    rel = torch.sqrt(rr / bb)
-    converged = rel < eps
-    num_iters = torch.where(converged, k, limit)
-    return CGResult(x=x, num_iters=num_iters, rel_residual=rel,
-                    converged=converged)
+        if k_budget is not None:
+            k_budget -= steps
+    return x, r, p, rr, bb, k
 
 
-def _pcg_loop(matvec_dot, b, inv_diag, max_iters, rel_error, dot=vdot):
-    """Jacobi-preconditioned CG: lam_tpu's recurrence (alpha = rz / p.Ap,
-    z = inv_diag * r, beta = rz_new / rz, p = z + beta p), p.Ap from the
-    fused matvec_dot, the stopping test on the UNpreconditioned sqrt(rr /
-    bb), finished states frozen and the flag read every CHUNK iterations
-    as in _cg_loop."""
-    dtype, dev = b.dtype, b.device
-    bb = dot(b, b)
-    eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
-    limit = torch.as_tensor(max_iters, device=dev)
-    x = torch.zeros_like(b)
-    r = b.clone()
-    p = inv_diag * b
-    rz = dot(b, p)
-    rr = bb
-    k = torch.zeros((), dtype=torch.int64, device=dev)
-
-    def active(rr, k):
-        return (k < limit) & (torch.sqrt(rr / bb) >= eps)
-
+def _pcg_run(matvec_dot, state, inv_diag, limit, eps, dot, k_budget=None):
+    """Continue the Jacobi-PCG recurrence from state (x, r, p, rz, rr,
+    bb, k), as _cg_run does."""
+    x, r, p, rz, rr, bb, k = state
+    active = _active(limit, eps, bb)
     go = active(rr, k)
     while bool(go):
-        for _ in range(CHUNK):
+        steps = _chunks(k_budget)
+        for _ in range(steps):
             ap, p_ap = matvec_dot(p)
             alpha = torch.where(go, rz / p_ap, 0.0)
             x.addcmul_(alpha, p)
@@ -150,11 +141,51 @@ def _pcg_loop(matvec_dot, b, inv_diag, max_iters, rel_error, dot=vdot):
             rr = torch.where(go, rr_new, rr)
             k = k + go
             go = active(rr, k)
+        if k_budget is not None:
+            k_budget -= steps
+    return x, r, p, rz, rr, bb, k
+
+
+def _result(x, rr, bb, k, eps, limit):
     rel = torch.sqrt(rr / bb)
     converged = rel < eps
     num_iters = torch.where(converged, k, limit)
     return CGResult(x=x, num_iters=num_iters, rel_residual=rel,
                     converged=converged)
+
+
+def _cg_loop(matvec_dot, b, max_iters, rel_error, dot=vdot):
+    """CG on (possibly padded) vectors from x = 0, r = p = b.
+    matvec_dot(p) -> (Ap, p.Ap). max_iters and rel_error may be numbers
+    or 0-dim device tensors."""
+    dtype, dev = b.dtype, b.device
+    bb = dot(b, b)
+    eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
+    limit = torch.as_tensor(max_iters, device=dev)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    x, _, _, rr, _, k = _cg_run(
+        matvec_dot, (torch.zeros_like(b), b.clone(), b.clone(), bb, bb, k),
+        limit, eps, dot)
+    return _result(x, rr, bb, k, eps, limit)
+
+
+def _pcg_loop(matvec_dot, b, inv_diag, max_iters, rel_error, dot=vdot):
+    """Jacobi-preconditioned CG: lam_tpu's recurrence (alpha = rz / p.Ap,
+    z = inv_diag * r, beta = rz_new / rz, p = z + beta p), p.Ap from the
+    fused matvec_dot, the stopping test on the UNpreconditioned sqrt(rr /
+    bb), finished states frozen and the flag read every CHUNK iterations
+    as in _cg_loop."""
+    dtype, dev = b.dtype, b.device
+    bb = dot(b, b)
+    eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
+    limit = torch.as_tensor(max_iters, device=dev)
+    p = inv_diag * b
+    rz = dot(b, p)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+    x, _, _, _, rr, _, k = _pcg_run(
+        matvec_dot, (torch.zeros_like(b), b.clone(), p, rz, bb, bb, k),
+        inv_diag, limit, eps, dot)
+    return _result(x, rr, bb, k, eps, limit)
 
 
 def _check_preconditioner(preconditioner):
@@ -179,57 +210,145 @@ def cg_solve(op, b, *, max_iters=1000, rel_error=1e-9,
     return res._replace(x=op.extract_x(res.x))
 
 
+def _dot_cols(dot, u, v):
+    """Per-column dots of two (n, k) blocks: the operator's `dot` applied
+    to each column, so a mesh all-reduces each and every rank holds the
+    same (k,) values."""
+    return torch.stack([dot(u[:, j], v[:, j]) for j in range(u.shape[1])])
+
+
+def _cg_block_loop(matvec, b, max_iters, rel_error, dot=vdot):
+    """Block CG (lam_tpu/solver/cg.py:163-206): k independent recurrences
+    sharing each read of A, matvec(P) -> A P on (n, k) blocks. Columns
+    converge independently: a converged column freezes (alpha = beta =
+    0) and keeps the iteration count of its last active step, k + 1.
+    As in _cg_loop, the host reads one flag every CHUNK iterations, and
+    every column freezes once k reaches max_iters."""
+    dtype, dev = b.dtype, b.device
+    bb = _dot_cols(dot, b, b)
+    eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
+    limit = torch.as_tensor(max_iters, device=dev)
+    x = torch.zeros_like(b)
+    r, p, rr = b, b, bb
+    iters = torch.zeros(b.shape[1], dtype=torch.int64, device=dev)
+    k = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def active_mask(rr, k):
+        return (torch.sqrt(rr / bb) >= eps) & (k < limit)
+
+    active = active_mask(rr, k)
+    while bool(active.any()):
+        for _ in range(CHUNK):
+            ap = matvec(p)
+            pap = _dot_cols(dot, p, ap)
+            alpha = torch.where(active, rr / pap, 0.0)
+            x = x + alpha * p
+            r = r - alpha * ap
+            rr_new = _dot_cols(dot, r, r)
+            beta = torch.where(active, rr_new / rr, 0.0)
+            rr = torch.where(active, rr_new, rr)
+            p = torch.where(active, r + beta * p, p)
+            iters = torch.where(active, k + 1, iters)
+            k = k + active.any()
+            active = active_mask(rr, k)
+    rel = torch.sqrt(rr / bb)
+    return CGResult(x=x, num_iters=iters, rel_residual=rel,
+                    converged=rel < eps)
+
+
+def cg_solve_block(op, b_block, *, max_iters=1000, rel_error=1e-9):
+    """Solve A X = B for an (n, k) block of right-hand sides
+    (lam_tpu/solver/cg.py:209-218): per-column CGResult fields
+    (num_iters, rel_residual and converged are (k,) tensors). The
+    operator's block matvec is a plain torch product over its storage
+    (a matmul, or the packed triangle's walk), as lam_tpu's is an XLA
+    product: the single-vector kernels do not apply."""
+    b_dev = op.prepare_b_block(b_block)
+    res = op.run_cg_block(b_dev, max_iters, rel_error)
+    return res._replace(x=op.extract_x(res.x))
+
+
+def _ir_floors(inner_floor, dtype, dev):
+    """inner_floor, a scalar or a per-cycle schedule, as a 1-D tensor:
+    cycle c uses entry min(c, len - 1)."""
+    return torch.atleast_1d(torch.as_tensor(inner_floor, dtype=dtype,
+                                            device=dev))
+
+
+def _ir_cycle(matvec_dot32, matvec_dot_acc, b, bb, x, r, k_left, eps, floor,
+              dot=vdot, inv_diag32=None):
+    """One refinement cycle from (x, r) (lam_tpu/solver/checkpoint.py:
+    252-278): the inner tolerance from the current relative residual,
+    floored at `floor` and capped at 0.99; the normalized residual
+    solved in f32 for at most k_left iterations; x += inner x * |r| and
+    the TRUE residual r = b - A x with the accurate matvec. Returns (x',
+    r', inner iterations). _cg_ir_loop runs it, so a resumed solve
+    follows the fused loop's trajectory bit for bit."""
+    dtype = b.dtype
+    rnorm = torch.sqrt(dot(r, r))
+    rel = rnorm / torch.sqrt(bb)
+    # inner tolerance: enough to land under rel_error this cycle,
+    # floored at what the inner operator can deliver
+    inner_tol = torch.clamp(torch.maximum(eps / rel, floor), max=0.99)
+    r32 = (r / rnorm).to(torch.float32)
+    if inv_diag32 is None:
+        inner = _cg_loop(matvec_dot32, r32, k_left,
+                         inner_tol.to(torch.float32), dot)
+    else:
+        inner = _pcg_loop(matvec_dot32, r32, inv_diag32, k_left,
+                          inner_tol.to(torch.float32), dot)
+    x = x + inner.x.to(dtype) * rnorm
+    r = b - matvec_dot_acc(x)[0]
+    return x, r, inner.num_iters
+
+
+def _ir_active(r, bb, eps, dot):
+    """The refinement loop's continue test on the residual alone:
+    sqrt(r.r / bb) >= eps (the decision every rank takes alike)."""
+    return torch.sqrt(dot(r, r) / bb) >= eps
+
+
 def _cg_ir_loop(matvec_dot32, matvec_dot_acc, b, max_iters, rel_error,
                 max_cycles, inner_floor, dot=vdot, inv_diag32=None):
     """Mixed-precision CG with iterative refinement.
 
     Outer loop (b's dtype): r = b - A x with the accurate matvec,
     normalized and handed to an inner f32 CG whose tolerance is clipped
-    to [floor, 0.99]; x += inner x * |r|. inner_floor may be a scalar or
-    a per-cycle schedule (cycle c uses entry min(c, len-1)). inv_diag32
-    (f32, optional) Jacobi-preconditions the inner loop (`_pcg_loop`)."""
+    to [floor, 0.99]; x += inner x * |r| (`_ir_cycle`). inner_floor may
+    be a scalar or a per-cycle schedule (cycle c uses entry min(c,
+    len-1)). inv_diag32 (f32, optional) Jacobi-preconditions the inner
+    loop (`_pcg_loop`)."""
     dtype, dev = b.dtype, b.device
     bb = dot(b, b)
     eps = torch.as_tensor(rel_error, dtype=dtype, device=dev)
-    floors = torch.atleast_1d(torch.as_tensor(inner_floor, dtype=dtype,
-                                              device=dev))
+    floors = _ir_floors(inner_floor, dtype, dev)
     x = torch.zeros_like(b)
     r = b
     k = torch.zeros((), dtype=torch.int64, device=dev)
     cyc = 0
-
-    def rel_of(r):
-        return torch.sqrt(dot(r, r) / bb)
-
-    while cyc < max_cycles and bool((k < max_iters) & (rel_of(r) >= eps)):
-        rnorm = torch.sqrt(dot(r, r))
-        rel = rnorm / torch.sqrt(bb)
-        # inner tolerance: enough to land under rel_error this cycle,
-        # floored at what the inner operator can deliver
-        floor = floors[min(cyc, floors.shape[0] - 1)]
-        inner_tol = torch.clamp(torch.maximum(eps / rel, floor), max=0.99)
-        r32 = (r / rnorm).to(torch.float32)
-        if inv_diag32 is None:
-            inner = _cg_loop(matvec_dot32, r32, max_iters - k,
-                             inner_tol.to(torch.float32), dot)
-        else:
-            inner = _pcg_loop(matvec_dot32, r32, inv_diag32, max_iters - k,
-                              inner_tol.to(torch.float32), dot)
-        x = x + inner.x.to(dtype) * rnorm
-        r = b - matvec_dot_acc(x)[0]
-        k = k + inner.num_iters
+    while cyc < max_cycles and bool((k < max_iters)
+                                    & _ir_active(r, bb, eps, dot)):
+        x, r, inner_iters = _ir_cycle(
+            matvec_dot32, matvec_dot_acc, b, bb, x, r, max_iters - k, eps,
+            floors[min(cyc, floors.shape[0] - 1)], dot, inv_diag32)
+        k = k + inner_iters
         cyc += 1
-    rel = rel_of(r)
+    rel = torch.sqrt(dot(r, r) / bb)
     return CGResult(x=x, num_iters=k, rel_residual=rel, converged=rel < eps)
 
 
-def _inv_diag_f32(op):
-    """The f32 inverse diagonal that preconditions an inner loop: 1 where
-    d == 0 (the padding, whose residual is 0: any finite inverse works,
-    and 1 avoids inf * 0), 1 / d elsewhere, taken from the ACCURATE
-    operator's diagonal and split like its vectors."""
+def _inv_diag(op):
+    """Jacobi's inverse diagonal, split like the operator's vectors: 1
+    where d == 0 (the padding, whose residual is 0: any finite inverse
+    works, and 1 avoids inf * 0), 1 / d elsewhere."""
     d = op.diagonal()
-    return torch.where(d == 0, torch.ones_like(d), 1.0 / d).to(torch.float32)
+    return torch.where(d == 0, torch.ones_like(d), 1.0 / d)
+
+
+def _inv_diag_f32(op):
+    """The f32 inverse diagonal that preconditions an inner loop, taken
+    from the ACCURATE operator's diagonal."""
+    return _inv_diag(op).to(torch.float32)
 
 
 def cg_solve_ir(op32, op_acc, b, *, max_iters=10000, rel_error=1e-9,

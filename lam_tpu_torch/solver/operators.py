@@ -26,8 +26,13 @@ the lower triangle of a symmetric matrix as walk-order tiles:
          the diagonal term, in f64. `as_f32()` is the q16 kernel on the
          q1 plane alone (2 B per element) plus dh * p in f32: the inner
          engine of 'irfq'.
-  'f64'  the full square in float64 with a plain torch matvec: the
-         oracle path (lam_tpu's engine='xla'), not a kernel path.
+
+Engine 'xla' (lam_tpu's oracle engine; what precision 'f64' forces)
+stores the unpadded square and multiplies by a plain torch product, not
+a kernel: 'f64' the f64 square, 'f32' the f32 square, 'df64' the (hi, lo)
+f32 squares cast to f64 at every matvec, as lam_tpu's XLA does.
+precision='auto' is df64 on a card and f64 on the CPU (lam_tpu's rule,
+the card in the TPU's place).
 
 The full-square engine ('pallas', the only one for a matrix that is not
 symmetric, and what engine='auto' picks for one) stores the whole
@@ -90,8 +95,8 @@ from lam_tpu_torch.solver import pack_cache as pc
 ENGINE = "pallas_symm_packed"  # lam_tpu's name for the packed layout
 DENSE_ENGINE = "pallas"        # lam_tpu's name for the full-square engine
 SQUARE_ENGINE = "pallas_symm"  # the full square, lower triangle read
-ENGINES = ("auto", ENGINE, DENSE_ENGINE, SQUARE_ENGINE)
-UNPORTED_ENGINES = ("xla",)
+XLA_ENGINE = "xla"             # the plain torch products: the oracle path
+ENGINES = ("auto", ENGINE, DENSE_ENGINE, SQUARE_ENGINE, XLA_ENGINE)
 
 # tiles a call of the cold fq pipeline's range pack fills: fine enough that
 # uploads start early, coarse enough that a call's overhead vanishes
@@ -269,9 +274,108 @@ def _no_accurate_matvec(operand, p):
         "with DenseOperator.from_file_fq")
 
 
-def _mv_f64_plain(a, p):
-    # the oracle path: plain torch on the full f64 square
+# engine 'xla' (lam_tpu/solver/operators.py:163-174, :294-302): plain
+# torch products, a vector or an (n, k) block alike
+
+def _mv_xla(a, p):
+    # the f64 or f32 square, or a rank's rows or block of it
     return a @ p
+
+
+def _mv_df64_xla(operand, p):
+    # both planes cast to p's f64 at every call, as lam_tpu's XLA does
+    hi, lo = operand
+    return hi.to(p.dtype) @ p + lo.to(p.dtype) @ p
+
+
+def _mv_f32_of_df64_xla(operand, p):
+    return operand[0] @ p
+
+
+def _mv_f32_of_f64_xla(a32):
+    """The f32 view of an f64 square: `a32`, the square cast to f32 ONCE
+    per operator (DenseOperator.as_f32 keeps it), as lam_tpu's XLA hoists
+    the loop-invariant cast out of its loop, not once a matvec."""
+    def mv(_operand, p):
+        return a32 @ p
+
+    return mv
+
+
+# block matvecs of the packed triangle (lam_tpu/solver/operators.py:
+# 426-501): plain torch products in the block's dtype (f64 for df64, dfq
+# and fq), the index_add_ of the walk tables in place of segment_sum
+
+def _packed_block_walk(buf_hi, buf_lo, p_block):
+    """(n, k) block matvec over a walk-order packed triangle buffer:
+    direct terms added by row tile, transpose terms (off the diagonal
+    only, kt < it) by column tile. A (tb, tb) lo buffer is one broadcast
+    tile added to every tile; planes padded past the triangle (fq) are
+    cut to its tiles."""
+    tb = buf_hi.shape[1]
+    T = buf_hi.shape[0] // tb
+    n, k = p_block.shape
+    nblk = n // tb
+    dt, dev = p_block.dtype, p_block.device
+    it, kt = (torch.as_tensor(t, dtype=torch.long, device=dev)
+              for t in layout._symm_tables(nblk))
+    tiles = buf_hi.reshape(T, tb, tb)[:len(it)].to(dt)
+    if buf_lo is not None:
+        if buf_lo.shape[0] == tb:
+            tiles = tiles + buf_lo.to(dt)[None]
+        else:
+            tiles = tiles + buf_lo.reshape(T, tb, tb)[:len(it)].to(dt)
+    pb = p_block.reshape(nblk, tb, k)
+    y = torch.zeros((nblk, tb, k), dtype=dt, device=dev)
+    y.index_add_(0, it, torch.einsum("tij,tjk->tik", tiles, pb[kt]))
+    trans = torch.einsum("tij,tik->tjk", tiles, pb[it])
+    trans = trans * (kt < it)[:, None, None]
+    y.index_add_(0, kt, trans)
+    return y.reshape(n, k)
+
+
+def _mv_block_packed_f32(a, p):
+    return _packed_block_walk(a, None, p)
+
+
+def _mv_block_packed_df64(operand, p):
+    return _packed_block_walk(operand[0], operand[1], p)
+
+
+def _diag_term(dh, dl, p):
+    return (dh.to(p.dtype) + dl.to(p.dtype))[:, None] * p
+
+
+def _mv_block_packed_dfq(operand, p):
+    hi, loq, sc, dh, dl = operand
+    tb = hi.shape[1]
+    T = hi.shape[0] // tb
+    lo = (loq.reshape(T, tb, tb).to(torch.float32)
+          * sc[:, None, None]).reshape(T * tb, tb)
+    return _packed_block_walk(hi, lo, p) + _diag_term(dh, dl, p)
+
+
+def _mv_block_packed_fq(operand, p):
+    # the planes summed in p's f64 (an f32 sum would round q2 and q3
+    # away); a (tb, tb) plane is one broadcast zero tile: skipped
+    q1, q2, q3, s1, s2, s3, dh, dl = operand
+    tb = q1.shape[1]
+    T = q1.shape[0] // tb
+    rec = sum((q.reshape(T, tb, tb).to(p.dtype)
+               * s.to(p.dtype)[:, None, None]).reshape(T * tb, tb)
+              for q, s in ((q1, s1), (q2, s2), (q3, s3))
+              if q.shape == q1.shape)
+    return _packed_block_walk(rec, None, p) + _diag_term(dh, dl, p)
+
+
+_MV_BLOCK_PACKED = {
+    "f32": _mv_block_packed_f32,
+    "df64": _mv_block_packed_df64,
+    "dfq": _mv_block_packed_dfq,
+    "fq": _mv_block_packed_fq,
+}
+# the block matvec of a square (engine 'xla', 'pallas', 'pallas_symm')
+_MV_BLOCK_SQUARE = {"f64": _mv_xla, "f32": _mv_xla, "df64": _mv_df64_xla}
 
 
 # the symmetric kernels route by the operand's shape: the packed
@@ -352,6 +456,7 @@ _MV_F32_OF = {
     ("fq", ENGINE): _mv_f32_of_fq_packed,
     ("df64", DENSE_ENGINE): _mv_f32_of_df64_pallas,
     ("df64", SQUARE_ENGINE): _mv_f32_of_df64_symm,
+    ("df64", XLA_ENGINE): _mv_f32_of_df64_xla,
 }
 
 
@@ -366,6 +471,9 @@ class LinearOperator:
     all-reduced dot for vectors split across ranks."""
 
     dot = staticmethod(vdot)
+    # block matvec fn(operand, P) -> A P on (n_p, k) blocks, where the
+    # storage has one (lam_tpu's `_mv_block`); None: run_cg_block raises
+    _mv_block = None
 
     def __init__(self, matvec_fn, operand, n, n_padded, vector_dtype,
                  device, matvec_dot_fn=None):
@@ -405,6 +513,38 @@ class LinearOperator:
     def extract_x(self, x_padded):
         return x_padded[: self.n]
 
+    def to_global(self, v):
+        """The whole padded vector of this operator's vector `v`, in
+        lam_tpu's order, on every rank: a checkpoint's vector. A
+        collective on a mesh whose vectors are split; here v itself."""
+        return v
+
+    def from_global(self, v_padded):
+        """This rank's part of a whole padded vector (or (n_p, k) block),
+        on the device in the vector dtype: the inverse of to_global."""
+        return torch.as_tensor(v_padded, dtype=self.vector_dtype).to(
+            self.device)
+
+    def prepare_b_block(self, b_block):
+        """(n, k) block of right-hand sides -> this rank's part of the
+        padded block on the device (lam_tpu/solver/operators.py:
+        567-575)."""
+        b = torch.as_tensor(b_block, dtype=self.vector_dtype)
+        if b.ndim != 2 or b.shape[0] != self.n:
+            raise ValueError(f"rhs block must be ({self.n}, k), "
+                             f"got {tuple(b.shape)}")
+        b = torch.nn.functional.pad(b, (0, 0, 0, self.n_padded - self.n))
+        return self.from_global(b)
+
+    def run_cg_block(self, b_block_padded, max_iters, rel_error):
+        from lam_tpu_torch.solver.cg import _cg_block_loop
+        mv = self._mv_block
+        if mv is None:
+            raise NotImplementedError(
+                f"{type(self).__name__} has no block matvec")
+        return _cg_block_loop(lambda p: mv(self.operand, p), b_block_padded,
+                              max_iters, rel_error, self.dot)
+
     def matvec_chain(self, p_padded, repeats):
         """`repeats` back-to-back matvecs, normalized each step to stay
         bounded: for timing the matvec."""
@@ -440,11 +580,9 @@ class LinearOperator:
     def run_pcg(self, b_padded, max_iters, rel_error):
         """Jacobi-preconditioned CG (lam_tpu/solver/operators.py:594-601):
         the padding's d == 0 takes an inverse of 1, never inf."""
-        from lam_tpu_torch.solver.cg import _pcg_loop
-        d = self.diagonal()
-        inv_d = torch.where(d == 0, torch.ones_like(d), 1.0 / d)
-        return _pcg_loop(self.matvec_dot, b_padded, inv_d, max_iters,
-                         rel_error, self.dot)
+        from lam_tpu_torch.solver.cg import _inv_diag, _pcg_loop
+        return _pcg_loop(self.matvec_dot, b_padded, _inv_diag(self),
+                         max_iters, rel_error, self.dot)
 
 
 class MatrixFreeOperator(LinearOperator):
@@ -487,11 +625,13 @@ class DenseOperator(LinearOperator):
     """Device-resident dense matrix with a precision and an engine."""
 
     def __init__(self, matvec_fn, operand, n, n_padded, vector_dtype,
-                 precision, engine, device):
+                 precision, engine, device, mv_block=None):
         super().__init__(matvec_fn, operand, n, n_padded, vector_dtype,
                          device)
         self.precision = precision
         self.engine = engine
+        self._mv_block = mv_block
+        self._a32 = None  # an f64 square's f32 cast, made by as_f32()
 
     @staticmethod
     def from_dense(a, precision="df64", engine="auto", device="cuda"):
@@ -502,15 +642,15 @@ class DenseOperator(LinearOperator):
         is symmetric) or the full square (engine 'pallas', which 'auto'
         picks for a matrix that is not symmetric; engine 'pallas_symm',
         for a symmetric one, reads only its lower-triangle tiles); 'dfq'/
-        'fq' store the packed triangle only; 'f64' is the plain oracle
-        path."""
+        'fq' store the packed triangle only. Engine 'xla' stores the
+        unpadded square for a plain torch product (f64, f32, df64); 'f64'
+        forces it. precision='auto' is df64 on a card, f64 on the CPU."""
         n = a.shape[0]
         if a.shape != (n, n):
             raise ValueError(f"matrix must be square, got {a.shape}")
+        if precision == "auto":
+            precision = auto_precision(device)
         if precision not in ("f32", "df64", "dfq", "fq", "f64"):
-            if precision == "auto":
-                raise NotImplementedError(
-                    f"precision={precision!r} is not ported yet")
             raise ValueError(f"unknown precision {precision!r}")
         check_engine(engine)
         if precision in QUANT_LAYOUT:
@@ -522,9 +662,9 @@ class DenseOperator(LinearOperator):
                                                        device)
         dev = resolve_device(device)
         a = np.asarray(a, dtype=np.float64)
-        if precision == "f64":
-            return DenseOperator(_mv_f64_plain, _upload(a, dev), n, n,
-                                 torch.float64, "f64", "plain", dev)
+        if precision == "f64" or engine == XLA_ENGINE:
+            # no f64 kernel: f64 is the xla answer, as in lam_tpu
+            return DenseOperator._xla_operator(a, precision, dev)
         if engine == "auto":
             engine = ENGINE if _verifies_symmetric(a) else DENSE_ENGINE
         elif engine in (ENGINE, SQUARE_ENGINE) and not _verifies_symmetric(a):
@@ -543,24 +683,42 @@ class DenseOperator(LinearOperator):
                 return DenseOperator(
                     _mv_f32_pallas if engine == DENSE_ENGINE
                     else _mv_f32_symm, _upload(a.astype(np.float32), dev),
-                    n, pad, torch.float32, "f32", engine, dev)
+                    n, pad, torch.float32, "f32", engine, dev, _mv_xla)
             return DenseOperator._square_df64(*split_f64_host(a), n, dev,
                                               engine)
         bufs = _host_pack_planes(a, precision, layout.SYMM_TB)
         return DenseOperator._plane_operator(precision, bufs, n, pad, dev)
 
     @staticmethod
+    def _xla_operator(a, precision, dev):
+        """Engine 'xla' over the unpadded (n, n) f64 array `a`: the f64
+        square, the f32 square or the (hi, lo) f32 squares."""
+        n = a.shape[0]
+        if precision == "df64":
+            operand = tuple(_upload(x, dev) for x in split_f64_host(a))
+            mv, vdtype = _mv_df64_xla, torch.float64
+        else:
+            np_dtype = np.float64 if precision == "f64" else np.float32
+            operand = _upload(a.astype(np_dtype), dev)
+            mv = _mv_xla
+            vdtype = torch.float64 if precision == "f64" else torch.float32
+        return DenseOperator(mv, operand, n, n, vdtype, precision,
+                             XLA_ENGINE, dev, _MV_BLOCK_SQUARE[precision])
+
+    @staticmethod
     def _square_df64(hi, lo, n, dev, engine=DENSE_ENGINE):
         """Full-square df64 operator over (n_p, n_p) (hi, lo) planes, host
-        arrays or tensors: the dense kernel ('pallas') or the square walk
-        of the symmetric one ('pallas_symm')."""
+        arrays or tensors: the dense kernel ('pallas'), the square walk
+        of the symmetric one ('pallas_symm') or plain torch products
+        ('xla')."""
         n_p = hi.shape[0]
         if tuple(hi.shape) != (n_p, n_p) or tuple(lo.shape) != (n_p, n_p):
             raise ValueError("planes must be square and equal-shaped")
         operand = (_upload(hi, dev), _upload(lo, dev))
-        return DenseOperator(
-            _mv_df64_pallas if engine == DENSE_ENGINE else _mv_df64_symm,
-            operand, n, n_p, torch.float64, "df64", engine, dev)
+        mv = {DENSE_ENGINE: _mv_df64_pallas, SQUARE_ENGINE: _mv_df64_symm,
+              XLA_ENGINE: _mv_df64_xla}[engine]
+        return DenseOperator(mv, operand, n, n_p, torch.float64, "df64",
+                             engine, dev, _mv_df64_xla)
 
     @staticmethod
     def _plane_operator(precision, bufs, n, n_padded, dev):
@@ -570,7 +728,8 @@ class DenseOperator(LinearOperator):
                                     "DenseOperator")[0]
         if precision == "f32":
             return DenseOperator(_mv_f32_symm, _upload(bufs[0], dev), n,
-                                 n_padded, torch.float32, "f32", ENGINE, dev)
+                                 n_padded, torch.float32, "f32", ENGINE, dev,
+                                 _mv_block_packed_f32)
         shape, lo_shape = tuple(bufs[0].shape), tuple(bufs[1].shape)
         if lo_shape not in (shape, (tb, tb)):
             raise ValueError(
@@ -578,7 +737,8 @@ class DenseOperator(LinearOperator):
                 f"({tb}, {tb}) broadcast tile, got {lo_shape}")
         operand = (_upload(bufs[0], dev), _upload(bufs[1], dev))
         return DenseOperator(_mv_df64_symm, operand, n, n_padded,
-                             torch.float64, "df64", ENGINE, dev)
+                             torch.float64, "df64", ENGINE, dev,
+                             _mv_block_packed_df64)
 
     @staticmethod
     def _packed_operator(storage, bufs, n, n_padded, dev):
@@ -614,7 +774,7 @@ class DenseOperator(LinearOperator):
         matvec = (_mv_fq_zero if storage == "fq"
                   and zero_tiles_of(operand[:3]) else _MV_QUANT[storage])
         return DenseOperator(matvec, operand, n, n_padded, torch.float64,
-                             storage, ENGINE, dev)
+                             storage, ENGINE, dev, _MV_BLOCK_PACKED[storage])
 
     @staticmethod
     def _from_dense_quantized(a, storage, check_symmetric, device):
@@ -911,15 +1071,15 @@ class DenseOperator(LinearOperator):
         f32 planes, host arrays (e.g. `np.asarray` of a lam_tpu engine=
         'pallas' or 'pallas_symm' operator's `operand`: the state carried
         across from the JAX package) or tensors (generate mode's planes):
-        engine 'pallas' (the dense kernel) or 'pallas_symm' (the square
-        walk of the symmetric kernel). The caller asserts they represent
-        the intended f64 matrix and, for 'pallas_symm', that it is
-        symmetric."""
-        if engine not in (DENSE_ENGINE, SQUARE_ENGINE):
+        engine 'pallas' (the dense kernel), 'pallas_symm' (the square walk
+        of the symmetric kernel) or 'xla' (plain torch products). The
+        caller asserts they represent the intended f64 matrix and, for
+        'pallas_symm', that it is symmetric."""
+        if engine not in (DENSE_ENGINE, SQUARE_ENGINE, XLA_ENGINE):
             check_engine(engine)
             raise ValueError(f"from_df64_planes takes engine "
-                             f"{DENSE_ENGINE!r} or {SQUARE_ENGINE!r}, got "
-                             f"{engine!r}")
+                             f"{DENSE_ENGINE!r}, {SQUARE_ENGINE!r} or "
+                             f"{XLA_ENGINE!r}, got {engine!r}")
         return DenseOperator._square_df64(
             _buffer(hi, np.float32), _buffer(lo, np.float32), n,
             resolve_device(device), engine)
@@ -972,25 +1132,30 @@ class DenseOperator(LinearOperator):
 
     def as_f32(self):
         """Sibling f32 operator SHARING this operator's device buffers
-        (the same operand object, not a cast copy): the inner engine of
-        cg_solve_ir, which holds one copy of the matrix."""
+        (the same operand object): the inner engine of cg_solve_ir, which
+        holds one copy of the matrix. The f32 view of an f64 square is
+        the one exception: it multiplies by the square cast to f32, made
+        at the first call and kept by this operator (lam_tpu's XLA
+        materializes the same cast once per loop)."""
         if self.precision == "f32":
             return self
-        key = (self.precision, self.engine)
-        if key not in _MV_F32_OF:
-            raise NotImplementedError(
-                f"as_f32() of a {self.precision!r} {self.engine!r} "
-                "operator is not ported yet")
-        return DenseOperator(_MV_F32_OF[key], self.operand, self.n,
-                             self.n_padded, torch.float32, "f32",
-                             self.engine, self.device)
+        if self.precision == "f64":
+            if self._a32 is None:
+                self._a32 = self.operand.to(torch.float32)
+            mv = _mv_f32_of_f64_xla(self._a32)
+        else:
+            mv = _MV_F32_OF[(self.precision, self.engine)]
+        return DenseOperator(mv, self.operand, self.n, self.n_padded,
+                             torch.float32, "f32", self.engine, self.device)
 
 
 def check_engine(engine):
-    """Raise for an engine the port does not take: NotImplementedError
-    for lam_tpu's engines still to port, ValueError for an unknown one."""
-    if engine in UNPORTED_ENGINES:
-        raise NotImplementedError(f"engine={engine!r} is not ported yet")
+    """Raise ValueError for an engine neither package knows."""
     if engine not in ENGINES:
-        raise ValueError(f"unknown engine {engine!r} (one of "
-                         f"{ENGINES + UNPORTED_ENGINES})")
+        raise ValueError(f"unknown engine {engine!r} (one of {ENGINES})")
+
+
+def auto_precision(device):
+    """precision='auto' (lam_tpu/solver/operators.py:670-671, the card in
+    the TPU's place): 'df64' on a CUDA device, 'f64' on the CPU."""
+    return "df64" if torch.device(device).type == "cuda" else "f64"

@@ -88,7 +88,7 @@ def test_operator_layout(op):
 def test_f64_oracle_path_matches_lam_tpu(system, jax_ref):
     a, b = system
     op64 = DenseOperator.from_dense(a, precision="f64", device="cpu")
-    assert (op64.n_padded, op64.engine) == (N, "plain")
+    assert (op64.n_padded, op64.engine) == (N, "xla")
     res = cg_solve(op64, b, max_iters=10000, rel_error=1e-9)
     # two f64 CGs that sum in different orders: the count near the 1e-9
     # threshold moves by a few (torch's BLAS matvec gave 332-334 against
@@ -234,26 +234,28 @@ def test_unported_options_raise(system, capsys):
     cg = ConjugateGradient(backend="sharded2d", precision="irq", device="cpu")
     assert cg._sharded_engine == "pallas_symm_packed"
     cg = ConjugateGradient(backend="sharded2d", engine="pallas_symm_packed",
-                           device="cpu")
+                           precision="df64", device="cpu")
     assert cg._sharded_engine == "pallas_symm_packed"
     with pytest.raises(ValueError, match="supports precision df64/ir"):
         ConjugateGradient(backend="sharded2d", engine="pallas_symm_packed",
                           precision="f32", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ConjugateGradient(backend="auto", device="cpu")
+    # backend and precision 'auto' (the defaults) and engine 'xla' route:
+    # one process is one device, and the CPU's auto precision is f64
+    cg = ConjugateGradient(backend="auto", device="cpu")
+    assert (cg.backend, cg.precision) == ("local", "f64")
     engine = "xla"
-    with pytest.raises(NotImplementedError, match=engine):
-        ConjugateGradient(engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match=engine):
-        DenseOperator.from_dense(system[0], engine=engine, device="cpu")
-    # the CLI says it on one stderr line, rc 1 (lam_tpu's error surface)
-    assert tcli.main(["--engine", engine, "--device", "cpu"]) == 1
-    err = capsys.readouterr().err
-    assert err.startswith("lam-cg: ") and engine in err
-    assert len(err.strip().splitlines()) == 1
+    assert ConjugateGradient(engine=engine, device="cpu").engine == engine
+    op = DenseOperator.from_dense(system[0], engine=engine, device="cpu")
+    assert (op.engine, op.precision, op.n_padded) == (engine, "df64", N)
+    fields = _run(tcli.main, ["-s", "100", "--device", "cpu", "-i", "15",
+                              "--engine", engine, "-o", os.devnull])
+    assert fields[0] == "100" and fields[6] == "16"
+    # an engine neither package knows: one stderr line, rc 1
+    with pytest.raises(ValueError, match="unknown engine"):
+        DenseOperator.from_dense(system[0], engine="mosaic", device="cpu")
     # the full-square symmetric engine and generate mode now route on one
     # device (tests/test_torch_gen.py holds them against lam_tpu)
-    assert ConjugateGradient(engine="pallas_symm",
+    assert ConjugateGradient(engine="pallas_symm", precision="df64",
                              device="cpu").engine == "pallas_symm"
     op = DenseOperator.from_dense(system[0], engine="pallas_symm",
                                   device="cpu")

@@ -2938,3 +2938,93 @@ def test_jacobi_pcg_launches_the_kernels_of_cg(precision):
             plain_iters = int(res.num_iters)
     assert launched[0] == launched[1]
     assert int(res.num_iters) < plain_iters
+
+
+@pytest.mark.parametrize("precision", ["df64", "irfq"])
+def test_checkpoint_round_trip_on_the_card(tmp_path, precision):
+    """A resumable solve on the card stopped (df64 after 40 iterations,
+    irfq after one refinement cycle) with its state on disk and resumed:
+    bitwise the uninterrupted resumable run, which is bitwise cg_solve's
+    (df64) or the fused cg_solve_ir's (irfq), through the kernels of the
+    path and no plain version."""
+    from lam_tpu_torch import DenseOperator, cg_solve, cg_solve_ir, generate
+    from lam_tpu_torch.solver import checkpoint as ckpt
+    from lam_tpu_torch.solver.cg import default_inner_floor
+    n = 2000
+    a = generate.random_spd_matrix_fast(n, seed=8)
+    b = generate.random_rhs(n, seed=18)
+    ck = str(tmp_path / "ck")
+    ops.reset_counters()
+    if precision == "df64":
+        op = DenseOperator.from_dense(a, precision="df64", device="cuda")
+        kw = dict(max_iters=10000, rel_error=1e-9)
+        full, _ = ckpt.cg_solve_resumable(op, b, segment=100, **kw)
+        ckpt.cg_solve_resumable(op, b, max_iters=40, rel_error=1e-9,
+                                segment=15, checkpoint_path=ck)
+        res, _ = ckpt.cg_solve_resumable(op, b, checkpoint_path=ck,
+                                         resume=True, **kw)
+        ref = cg_solve(op, b, **kw)
+        kernels = ("gemv_df64_symm",)
+    else:
+        op = DenseOperator.from_dense_fq(a, device="cuda")
+        kw = dict(max_iters=10000, rel_error=1e-9,
+                  inner_floor=default_inner_floor("irfq"))
+        full, _ = ckpt.cg_solve_ir_resumable(op.as_f32(), op, b, **kw)
+        ckpt.cg_solve_ir_resumable(op.as_f32(), op, b, max_cycles=1,
+                                   checkpoint_path=ck, **kw)
+        res, _ = ckpt.cg_solve_ir_resumable(op.as_f32(), op, b,
+                                            checkpoint_path=ck, resume=True,
+                                            **kw)
+        ref = cg_solve_ir(op.as_f32(), op, b, **kw)
+        kernels = ("gemv_q16_symm", "gemv_fq_symm")
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert bool(res.converged) and torch.equal(res.x, full.x)
+    assert torch.equal(full.x, ref.x)
+    assert int(res.num_iters) == int(full.num_iters) == int(ref.num_iters)
+    x = res.x.cpu().numpy()
+    assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)
+    for k in kernels:
+        assert counts[k] > 0
+    assert not any(counts[fn.__name__] for fn in ops.PLAIN)
+
+
+def test_xla_df64_matvec_against_the_f64_oracle():
+    """Engine xla on the card: the (hi, lo) squares cast to f64 at the
+    call, against the f64 square's product, at 1e-13; no kernel."""
+    from lam_tpu_torch import DenseOperator, generate
+    n = 10000
+    a = generate.random_spd_matrix_fast(n, seed=9)
+    p = np.random.default_rng(19).standard_normal(n)
+    ops.reset_counters()
+    op = DenseOperator.from_dense(a, precision="df64", engine="xla",
+                                  device="cuda")
+    oracle = DenseOperator.from_dense(a, precision="f64", device="cuda")
+    assert (op.engine, oracle.engine, op.n_padded) == ("xla", "xla", n)
+    y = op.matvec(op.prepare_b(p))
+    ref = oracle.matvec(oracle.prepare_b(p))
+    rel = float(torch.linalg.norm(y - ref) / torch.linalg.norm(ref))
+    assert rel <= 1e-13, rel
+    torch.cuda.synchronize()
+    assert not any(ops.counters().values())
+
+
+def test_block_cg_on_the_card():
+    """cg_solve_block over 4 right-hand sides on the packed df64 operator
+    (the triangle's block walk, plain torch) and on the xla f64 square:
+    each column's TRUE residual on the host, no kernel launched."""
+    from lam_tpu_torch import DenseOperator, cg_solve_block, generate
+    n = 3000
+    a = generate.random_spd_matrix_fast(n, seed=10)
+    bb = np.random.default_rng(20).uniform(-1, 1, (n, 4))
+    ops.reset_counters()
+    for op in (DenseOperator.from_dense(a, precision="df64", device="cuda"),
+               DenseOperator.from_dense(a, precision="f64", device="cuda")):
+        res = cg_solve_block(op, bb, max_iters=10000, rel_error=1e-9)
+        assert bool(res.converged.all()) and res.x.shape == (n, 4)
+        x = res.x.cpu().numpy()
+        for j in range(4):
+            assert (np.linalg.norm(bb[:, j] - a @ x[:, j])
+                    <= 2e-9 * np.linalg.norm(bb[:, j])), j
+    torch.cuda.synchronize()
+    assert not any(ops.counters().values())

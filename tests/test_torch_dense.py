@@ -296,7 +296,8 @@ def test_cli_verbose_prints_the_engine(tmp_path):
     tio.write_matrix(tmp_path / "b.bin", b)
     lines = _run(["-A", str(tmp_path / "A.bin"), "-b",
                   str(tmp_path / "b.bin"), "-o", str(tmp_path / "x.bin"),
-                  "--engine", "pallas", "--device", "cpu", "-v"])
+                  "--engine", "pallas", "--precision", "df64", "--device",
+                  "cpu", "-v"])
     assert "  precision=df64 engine=pallas" in lines
 
 
@@ -309,11 +310,21 @@ def test_engine_options_that_raise(tmp_path, system):
         with pytest.raises(ValueError, match="packed"):
             ConjugateGradient(precision=precision, engine="pallas_symm",
                               device="cpu")
-    engine = "xla"
-    with pytest.raises(NotImplementedError, match=engine):
-        ConjugateGradient(engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match=engine):
-        DenseOperator.from_dense(system[0], engine=engine, device="cpu")
+    engine = "xla"  # the quantized storages are packed on it too
+    for precision in ("dfq", "irq", "fq", "irfq"):
+        with pytest.raises(ValueError, match="packed"):
+            ConjugateGradient(precision=precision, engine=engine,
+                              device="cpu")
+    with pytest.raises(ValueError, match="not combinable"):
+        DenseOperator.from_dense(system[0], precision="fq", engine=engine,
+                                 device="cpu")
+    # the xla square takes a matrix that is not symmetric as it is
+    a = _nonsymmetric(300, 3)
+    op = DenseOperator.from_dense(a, precision="df64", engine=engine,
+                                  device="cpu")
+    p = np.random.default_rng(2).standard_normal(300)
+    y = op.matvec(torch.from_numpy(p)).numpy()
+    assert np.linalg.norm(y - a @ p) <= 1e-15 * np.linalg.norm(a @ p)
     with pytest.raises(ValueError, match="requires a symmetric matrix"):
         DenseOperator.from_dense(_nonsymmetric(300, 3), engine="pallas_symm",
                                  device="cpu")

@@ -480,7 +480,7 @@ def test_gen_cli_rules_match_lam_tpu(tmp_path, capsys):
                                "cpu"])
         assert row[:2] == ["100", "1"] and row[6] == "6"
     cg = ConjugateGradient(backend="sharded2d", engine="pallas_symm_packed",
-                           device="cpu")
+                           precision="df64", device="cpu")
     cg.generate_matrix(100)
     assert type(cg.op).__name__ == "Symm2DOperator"
 

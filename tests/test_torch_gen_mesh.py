@@ -42,6 +42,7 @@ import numpy as np
 import pytest
 import torch
 
+from lam_tpu import generate as jgen
 from lam_tpu.ops import gemv as jgemv
 from lam_tpu.parallel import pcg as jpcg
 from lam_tpu.parallel import pcg2d as jpcg2d
@@ -442,9 +443,14 @@ def test_gen_rank_parts_sum_to_the_one_device_matvec(kind, size):
 
 
 def test_gen_constructors_refuse_what_lam_tpu_refuses():
-    with pytest.raises(NotImplementedError, match="xla"):
-        pcg.ShardedDenseOperator.from_gen_tridiagonal(
-            100, mesh=pmesh.Mesh(0, 1, "cpu"), engine="xla")
+    # engine xla: the tridiagonal rows, padded only to the ranks, with
+    # plain torch products
+    op = pcg.ShardedDenseOperator.from_gen_tridiagonal(
+        100, mesh=pmesh.Mesh(0, 1, "cpu"), engine="xla")
+    assert (op.engine, op.n_padded, op.precision) == ("xla", 100, "df64")
+    p = torch.arange(100, dtype=torch.float64)
+    y = op.matvec(p).numpy()
+    assert np.array_equal(y, jgen.tridiagonal_matrix(100) @ p.numpy())
     with pytest.raises(ValueError, match="comm"):
         pcg.ShardedDenseOperator.from_gen_tridiagonal(
             100, mesh=pmesh.Mesh(0, 1, "cpu"), comm="tree")

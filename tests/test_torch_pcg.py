@@ -527,9 +527,11 @@ def test_cli_no_warmup_and_profile(files, tmp_path):
 
 
 @pytest.mark.parametrize("argv,words", [
-    (["--checkpoint", "ck"], "item 9"),
-    (["--checkpoint-every", "5"], "item 9"),
-    (["--resume"], "item 9"),
+    (["--checkpoint", "ck", "--precision", "irfq", "--outer", "host"],
+     "--outer host"),
+    (["--checkpoint", "ck", "--checkpoint-every", "0"],
+     "segment must be a positive"),
+    (["--resume"], "--resume needs --checkpoint"),
     (["--platform", "cpu"], "--device")])
 def test_cli_still_refused_flags(files, argv, words, capsys):
     a_path, b_path, _ = files

@@ -686,6 +686,32 @@ def _jobs(g, a_path, b_path, p_path, out):
             os.path.join(out, "x_cli_jacobi.bin"), "--backend", "sharded",
             "--precision", "df64", "--preconditioner", "jacobi", "-e",
             str(JACOBI_REL), "--profile", os.path.join(out, "profile")]})
+        # resumable solves: the row shards on engine xla (f64) and the
+        # packed band pairs' ir, each stopped, checkpointed and resumed;
+        # and the CLI's --checkpoint then --resume on the row shards
+        for name, op, precision, how in (
+                ("ck-dense-xla", "dense", "f64", "gather"),
+                ("ck-packed-ir", "symm", "ir", True)):
+            jobs.append({"kind": "checkpoint", "name": name, "op": op,
+                         "precision": precision, "engine": "xla",
+                         "comm": how, "packed": how, "tb": TB,
+                         "matrix": a_path, "rhs": b_path, "rel_error": 1e-9,
+                         "dir": os.path.join(out, name)})
+        ck_argv = ["-A", a_path, "-b", b_path, "--backend", "sharded",
+                   "--precision", "df64", "--checkpoint",
+                   os.path.join(out, "cli-ck")]
+        jobs.append({"kind": "cli", "name": "cli-ck", "argv": ck_argv + [
+            "-o", os.path.join(out, "x_ck.bin"), "-i", "30",
+            "--checkpoint-every", "10"]})
+        jobs.append({"kind": "cli", "name": "cli-resume", "argv": ck_argv + [
+            "-o", os.path.join(out, "x_resume.bin"), "--resume"]})
+        # block CG over the row shards, the dense kernels' storage and xla
+        for engine in ("auto", "xla"):
+            jobs.append({"kind": "block", "name": f"block-dense-{engine}",
+                         "op": "dense", "precision": "df64",
+                         "engine": engine, "comm": "gather",
+                         "matrix": a_path, "rhs_block": p_path[:-4]
+                         + "_block.npy", "rel_error": 1e-9})
     # the facade's routing (engine auto -> the packed walk) at the CLI's
     # tile width; irfq twice with --pack-cache: cold writes the shard
     # files, warm reads them
@@ -709,6 +735,7 @@ def clusters(system, tmp_path_factory):
     d = tmp_path_factory.mktemp("clusters")
     p_path = str(d / "p.npy")
     np.save(p_path, np.random.default_rng(5).uniform(-1, 1, N))
+    np.save(str(d / "p_block.npy"), _rhs_block())
     out = {}
     for g in RANKS:
         run_dir = str(d / f"g{g}")
@@ -1016,6 +1043,85 @@ def test_sharded_matvec_matches_f64(system, clusters, g, name):
         assert _rel(y, a @ p) <= 1e-13
 
 
+def _rhs_block():
+    return np.random.default_rng(6).uniform(-1, 1, (N, 3))
+
+
+@pytest.mark.parametrize("name", ["ck-dense-xla", "ck-packed-ir"])
+def test_checkpoint_resume_across_two_ranks(system, clusters, lam_ref,
+                                            name):
+    """A resumable solve stopped with its state on disk and resumed lands
+    bitwise on the uninterrupted one (CG also on cg_solve's x), on every
+    rank; the refinement run is bitwise the fused cg_solve_ir's."""
+    a, b = system[:2]
+    records, run_dir = clusters[2]
+    recs = [rank[name] for rank in records]
+    xs = _rank_xs(run_dir, name, 2)
+    for rec in recs:
+        assert rec["converged"] and rec["bitwise"]
+        assert not rec["part_converged"]
+        assert rec["resumed_iters"] == rec["iters"] == recs[0]["iters"]
+        assert rec["mono_bitwise"] in (None, True)
+    assert np.array_equal(xs[0], xs[1])
+    assert _true_rel(a, b, xs[0]) <= 1e-8
+    if name == "ck-packed-ir":
+        assert recs[0]["part_iters"] < recs[0]["iters"]
+        assert np.array_equal(xs[0], _rank_xs(run_dir, "packed-ir", 2)[0])
+        assert recs[0]["iters"] == records[0]["packed-ir"]["iters"]
+        assert recs[0]["counts"]["gemv_f32_symm_slab_plain"] > 0
+    else:
+        assert recs[0]["part_iters"] == 30
+        # lam_tpu's f64 row shards on the virtual 2-device mesh
+        assert abs(recs[0]["iters"] - lam_ref[2, "df64"][0]) <= 2
+        assert _rel(xs[0], lam_ref[2, "df64"][1]) <= 1e-6
+        assert not any(recs[0]["counts"].values())  # no kernel: xla
+
+
+def test_cli_checkpoint_across_two_ranks(system, clusters):
+    """--checkpoint -i 30 then --resume on the row shards: rank 0 alone
+    prints, the stopped run's CSV says 31 (max_iters + 1), the resumed
+    one the uninterrupted count and x of the same operator's solve."""
+    a, b = system[:2]
+    records, run_dir = clusters[2]
+    rows = {}
+    for name in ("cli-ck", "cli-resume"):
+        recs = [rank[name] for rank in records]
+        assert [rec["rc"] for rec in recs] == [0, 0]
+        assert not recs[1]["stdout"].strip()
+        rows[name] = recs[0]["stdout"].strip().split(",")
+    assert rows["cli-ck"][6] == "31"
+    assert int(rows["cli-resume"][6]) == records[0]["dense-gather-df64"][
+        "iters"]
+    x = tio.read_vector(os.path.join(run_dir, "x_resume.bin"))
+    np.testing.assert_array_equal(
+        x, _rank_xs(run_dir, "dense-gather-df64", 2)[0])
+    with open(os.path.join(run_dir, "cli-ck", "state.json")) as f:
+        meta = json.load(f)
+    assert (meta["n"], meta["n_padded"]) == (
+        N, pcg.ShardedDenseOperator.shard_padded_size(N, 2))
+
+
+@pytest.mark.parametrize("engine", ["auto", "xla"])
+def test_block_cg_across_two_ranks(system, clusters, engine):
+    a = system[0]
+    records, run_dir = clusters[2]
+    bb = _rhs_block()
+    xs = _rank_xs(run_dir, f"block-dense-{engine}", 2)
+    assert np.array_equal(xs[0], xs[1])
+    iters = records[0][f"block-dense-{engine}"]["iters"]
+    ref = lam_tpu.cg_solve_block(
+        lam_tpu.DenseOperator.from_dense(a, precision="f64"), bb,
+        max_iters=10000, rel_error=1e-9)
+    for j in range(3):
+        # f64 recurrences that sum in other orders part by up to ~2% on
+        # this spectrum near 1e-9 (tests/test_torch_block.py holds the
+        # counts to 2 on a steeper one)
+        ref_j = int(ref.num_iters[j])
+        assert abs(iters[j] - ref_j) <= math.ceil(0.02 * ref_j)
+        assert _true_rel(a, bb[:, j], xs[0][:, j]) <= 1e-8
+    assert records[1][f"block-dense-{engine}"]["iters"] == iters
+
+
 def test_cli_across_two_ranks(system, clusters):
     a, b, a_path, b_path = system
     records, run_dir = clusters[2]
@@ -1067,23 +1173,34 @@ def test_sharded_configurations_refused():
         with pytest.raises(ValueError, match="only on the symmetric grid"):
             ConjugateGradient(backend="sharded2d", precision=precision,
                               engine="pallas", device="cpu")
-    with pytest.raises(NotImplementedError, match="xla"):
-        ConjugateGradient(backend="sharded", engine="xla", device="cpu")
+    # engine xla: the row shards with plain torch products; f64 forces it
+    for precision in ("df64", "f64"):
+        cg = ConjugateGradient(backend="sharded", engine="xla",
+                               precision=precision, device="cpu")
+        cg.load_matrix_from_file(_tiny_matrix_file())
+        assert (cg.op.engine, cg.op.precision, cg.op.n_padded) == (
+            "xla", precision, 64)
+    with pytest.raises(NotImplementedError, match="rebuild with df64"):
+        cg.op.as_f32()  # f64: lam_tpu's words, ir runs on the df64 pair
     with pytest.raises(ValueError, match="comm"):
         ConjugateGradient(backend="sharded", comm="tree", device="cpu")
     with pytest.raises(ValueError, match="requested 2 devices"):
         ConjugateGradient(backend="sharded", n_devices=2, device="cpu")
     for engine in ("pallas_symm", "pallas_symm_packed"):
         cg = ConjugateGradient(backend="sharded2d", engine=engine,
+                               precision="df64",
                                device="cpu")  # the symmetric 2-D grid
         assert cg._sharded_engine == engine
         with pytest.raises(ValueError, match="supports precision df64/ir"):
             ConjugateGradient(backend="sharded2d", engine=engine,
                               precision="f32", device="cpu")
-    with pytest.raises(NotImplementedError, match="xla"):
-        ConjugateGradient(backend="sharded2d", engine="xla", device="cpu")
-    with pytest.raises(NotImplementedError):
-        ConjugateGradient(backend="auto", device="cpu")
+    cg = ConjugateGradient(backend="sharded2d", engine="xla", device="cpu")
+    assert cg._sharded_engine == "xla"  # the dense grid
+    # backend auto: one process is one rank, so local; more ranks asked
+    # for than the group has is sharded's refusal
+    assert ConjugateGradient(backend="auto", device="cpu").backend == "local"
+    with pytest.raises(ValueError, match="requested 2 devices"):
+        ConjugateGradient(backend="auto", n_devices=2, device="cpu")
     if not torch.cuda.is_available():  # cuda is the default; no fallback
         with pytest.raises(RuntimeError, match="cuda"):
             ConjugateGradient(backend="sharded")
@@ -1103,7 +1220,10 @@ def test_sharded_configurations_refused():
                                                 device="cpu")
     with pytest.raises(ValueError, match="f32' or 'df64"):
         pcg.ShardedDenseOperator.from_dense(_symmetric(256, 1),
-                                            precision="f64", device="cpu")
+                                            precision="fq", device="cpu")
+    # f64 forces engine xla, as in lam_tpu
+    assert pcg.ShardedDenseOperator.from_dense(
+        _symmetric(256, 1), precision="f64", device="cpu").engine == "xla"
 
 
 def test_sharded_cli_flags_refused(capsys):

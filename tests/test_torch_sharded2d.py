@@ -14,6 +14,7 @@ the matvec to 1e-13 of a @ p; every rank ran the plain dense matvecs on its
 block.
 """
 
+import json
 import math
 import os
 
@@ -26,7 +27,7 @@ from lam_tpu import generate as jgen
 from lam_tpu import io as jio
 from lam_tpu.parallel import pcg2d as jpcg2d
 from lam_tpu.solver import cg as jcg
-from lam_tpu_torch import ConjugateGradient
+from lam_tpu_torch import ConjugateGradient, cg_solve, cg_solve_block
 from lam_tpu_torch import cli as tcli
 from lam_tpu_torch import io as tio
 from lam_tpu_torch.parallel import mesh as pmesh
@@ -173,10 +174,19 @@ def test_one_rank_grid_solve(system, precision, capsys):
 def test_grid_refusals(system):
     a = system[0]
     mesh = pmesh.Mesh2D(0, 1, "cpu")
-    for kw in ({"precision": "f64"}, {"engine": "xla"}):
-        with pytest.raises(NotImplementedError, match="plain f64 path"):
-            pcg2d.Sharded2DOperator.from_dense(a, mesh=mesh, device="cpu",
-                                               **kw)
+    # the plain path (engine xla; f64 forces it): padded only to R
+    for kw, precision in (({"precision": "f64"}, "f64"),
+                          ({"engine": "xla"}, "df64")):
+        op = pcg2d.Sharded2DOperator.from_dense(a, mesh=mesh, device="cpu",
+                                                **kw)
+        assert (op.engine, op.precision, op.n_padded) == (
+            "xla", precision, a.shape[0])
+        res = cg_solve(op, system[1], max_iters=10000, rel_error=1e-9)
+        assert _true_rel(a, system[1], res.x.numpy()) <= 1e-9
+    f64 = pcg2d.Sharded2DOperator.from_dense(a, mesh=mesh, precision="f64",
+                                             device="cpu")
+    with pytest.raises(NotImplementedError, match="rebuild with df64"):
+        f64.as_f32()  # lam_tpu's words: ir runs on the df64 pair
     with pytest.raises(ValueError, match="unknown precision"):
         pcg2d.Sharded2DOperator.from_dense(a, mesh=mesh, precision="dfq",
                                            device="cpu")
@@ -186,12 +196,13 @@ def test_grid_refusals(system):
     with pytest.raises(ValueError, match="square"):
         pcg2d.Sharded2DOperator.from_dense(a[:, :10], mesh=mesh,
                                            device="cpu")
-    with pytest.raises(NotImplementedError, match="plain f64 path"):
-        pcg2d.Sharded2DOperator.from_gen_tridiagonal(100, mesh=mesh,
-                                                     precision="f64")
+    gen64 = pcg2d.Sharded2DOperator.from_gen_tridiagonal(100, mesh=mesh,
+                                                         precision="f64")
+    assert (gen64.engine, gen64.n_padded) == ("xla", 100)
+    assert gen64.operand.dtype == torch.float64
     op = pcg2d.Sharded2DOperator.from_dense(a, mesh=mesh, device="cpu")
-    # the Jacobi preconditioner runs (one rank: the whole diagonal); the
-    # block matvec stays refused
+    # the Jacobi preconditioner runs (one rank: the whole diagonal), and
+    # the block matvec
     d = op.diagonal()
     assert d.dtype == torch.float64
     np.testing.assert_allclose(d[:a.shape[0]].numpy(), np.diag(a),
@@ -199,8 +210,12 @@ def test_grid_refusals(system):
     res = op.run_pcg(op.prepare_b(system[1]), 10000, 1e-9)
     assert bool(res.converged)
     assert _true_rel(a, system[1], op.extract_x(res.x).numpy()) <= 1e-9
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        op.prepare_b_block(None)
+    bb = np.stack([system[1], -system[1]], axis=1)
+    blk = cg_solve_block(op, bb, max_iters=10000, rel_error=1e-9)
+    assert blk.x.shape == bb.shape and bool(blk.converged.all())
+    assert blk.num_iters[0] == blk.num_iters[1]
+    with pytest.raises(ValueError, match="rhs block must be"):
+        op.prepare_b_block(np.zeros(3))
     assert op.as_f32().operand is op.operand
     assert op.as_f32().as_f32().precision == "f32"
     with pytest.raises(ValueError, match="rhs has shape"):
@@ -230,6 +245,26 @@ def _jobs(a_path, b_path, p_path, out):
                      "op": "grid", "precision": precision, "matrix": a_path,
                      "rhs": b_path, "rel_error": JACOBI_REL,
                      "preconditioner": "jacobi"})
+    # resumable solves on the grid: engine xla's f64 and the dense
+    # kernels' ir, each stopped with its state on disk and resumed; the
+    # CLI's --checkpoint and --resume; block CG over the xla blocks
+    for name, precision, engine in (("ck-grid-xla", "f64", "xla"),
+                                    ("ck-grid-ir", "ir", "auto")):
+        jobs.append({"kind": "checkpoint", "name": name, "op": "grid",
+                     "precision": precision, "engine": engine,
+                     "matrix": a_path, "rhs": b_path, "rel_error": 1e-9,
+                     "dir": os.path.join(out, name)})
+    ck_argv = ["-A", a_path, "-b", b_path, "--backend", "sharded2d",
+               "--precision", "df64", "--checkpoint",
+               os.path.join(out, "cli-ck")]
+    jobs.append({"kind": "cli", "name": "cli-ck", "argv": ck_argv + [
+        "-o", os.path.join(out, "x_ck.bin"), "-i", "30"]})
+    jobs.append({"kind": "cli", "name": "cli-resume", "argv": ck_argv + [
+        "-o", os.path.join(out, "x_resume.bin"), "--resume"]})
+    jobs.append({"kind": "block", "name": "block-grid-xla", "op": "grid",
+                 "precision": "f64", "engine": "xla", "matrix": a_path,
+                 "rhs_block": p_path[:-4] + "_block.npy",
+                 "rel_error": 1e-9})
     return jobs
 
 
@@ -240,6 +275,7 @@ def cluster(system, tmp_path_factory):
     d = tmp_path_factory.mktemp("grid_cluster")
     p_path = str(d / "p.npy")
     np.save(p_path, np.random.default_rng(6).uniform(-1, 1, N))
+    np.save(str(d / "p_block.npy"), _rhs_block())
     run_dir = str(d / "r2")
     return launch_cluster(4, _jobs(a_path, b_path, p_path, run_dir), run_dir,
                           CLUSTER_TIMEOUT_S), run_dir
@@ -391,3 +427,74 @@ def test_grid_jacobi_solve_matches_lam_tpu(system, cluster, lam_ref,
             (iters, ref_iters)
     assert _rel(xs[0], ref_x) <= 1e-6
     assert _true_rel(a, b, xs[0]) < 1e-9
+
+
+def _rhs_block():
+    return np.random.default_rng(7).uniform(-1, 1, (N, 2))
+
+
+@pytest.mark.parametrize("name", ["ck-grid-xla", "ck-grid-ir"])
+def test_grid_checkpoint_resume(system, cluster, lam_ref, name):
+    """Stopped (CG at 30 iterations, ir after one cycle) with the whole
+    vectors on disk, resumed on every rank of the grid: bitwise the
+    uninterrupted resumable run (CG: and cg_solve's; ir: the fused
+    cg_solve_ir's, the grid-ir job)."""
+    a, b = system[:2]
+    records, run_dir = cluster
+    recs = [rank[name] for rank in records]
+    xs = [np.load(os.path.join(run_dir, f"{name}.r{r}.npy"))
+          for r in range(4)]
+    for rec, x in zip(recs, xs):
+        assert rec["converged"] and rec["bitwise"]
+        assert not rec["part_converged"]
+        assert rec["resumed_iters"] == rec["iters"] == recs[0]["iters"]
+        assert rec["mono_bitwise"] in (None, True)
+        assert np.array_equal(x, xs[0])
+    assert _true_rel(a, b, xs[0]) <= 1e-8
+    if name == "ck-grid-ir":
+        grid_ir = np.load(os.path.join(run_dir, "grid-ir.r0.npy"))
+        assert np.array_equal(xs[0], grid_ir)
+        assert recs[0]["counts"]["gemv_f32_plain"] > 0
+    else:
+        assert abs(recs[0]["iters"] - lam_ref["df64"][0]) <= 2
+        assert not any(recs[0]["counts"].values())  # xla: no kernel
+    with open(os.path.join(run_dir, name, "state.json" if name.endswith(
+            "xla") else "ir_state.json")) as f:
+        assert json.load(f)["n_padded"] == (
+            N if name.endswith("xla") else
+            pcg2d.Sharded2DOperator.block_padded_size(N, 2))
+
+
+def test_grid_cli_checkpoint_then_resume(cluster):
+    records, run_dir = cluster
+    rows = {}
+    for name in ("cli-ck", "cli-resume"):
+        recs = [rank[name] for rank in records]
+        assert [rec["rc"] for rec in recs] == [0] * 4
+        assert not any(rec["stdout"].strip() for rec in recs[1:])
+        rows[name] = recs[0]["stdout"].strip().split(",")
+    assert rows["cli-ck"][6] == "31"
+    assert int(rows["cli-resume"][6]) == records[0]["grid-df64"]["iters"]
+    np.testing.assert_array_equal(
+        tio.read_vector(os.path.join(run_dir, "x_resume.bin")),
+        np.load(os.path.join(run_dir, "grid-df64.r0.npy")))
+
+
+def test_grid_block_cg(system, cluster):
+    a = system[0]
+    records, run_dir = cluster
+    bb = _rhs_block()
+    xs = [np.load(os.path.join(run_dir, f"block-grid-xla.r{r}.npy"))
+          for r in range(4)]
+    iters = records[0]["block-grid-xla"]["iters"]
+    ref = lam_tpu.cg_solve_block(
+        lam_tpu.DenseOperator.from_dense(a, precision="f64"), bb,
+        max_iters=10000, rel_error=1e-9)
+    for j in range(2):
+        # within 2% (as test_torch_sharded.py's block test says why)
+        ref_j = int(ref.num_iters[j])
+        assert abs(iters[j] - ref_j) <= math.ceil(0.02 * ref_j)
+        assert _true_rel(a, bb[:, j], xs[0][:, j]) <= 1e-8
+    for r in range(4):
+        assert np.array_equal(xs[r], xs[0])
+        assert records[r]["block-grid-xla"]["iters"] == iters

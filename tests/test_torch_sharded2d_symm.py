@@ -410,8 +410,10 @@ def test_api_routes_the_2d_grid():
                            "df64/ir/dfq/irq/fq/irfq"):
             ConjugateGradient(backend="sharded2d", precision="f32",
                               engine=engine, device="cpu")
-    with pytest.raises(NotImplementedError, match="xla"):
-        ConjugateGradient(backend="sharded2d", engine="xla", device="cpu")
+    # engine xla: the dense grid with plain torch products, as in lam_tpu
+    cg = ConjugateGradient(backend="sharded2d", engine="xla",
+                           precision="f64", device="cpu")
+    assert cg._sharded_engine == "xla"
     with pytest.raises(ValueError, match="unknown engine"):
         ConjugateGradient(backend="sharded2d", engine="mxu", device="cpu")
 

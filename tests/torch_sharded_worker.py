@@ -33,7 +33,16 @@ and left after the last. Jobs:
   {"kind": "heat-cli", "name", "argv"}: lam_tpu_torch.apps.heat_cli.main
       as the "cli" job runs lam_tpu_torch.cli.main;
   {"kind": "halo", "name"}: Mesh.halo of the rows rank+1 and -(rank+1)
-      (4 wide); the (up, dn) it returns saved as above.
+      (4 wide); the (up, dn) it returns saved as above;
+  {"kind": "checkpoint", "name", "op", "precision", "engine", ..., "dir"}:
+      the resumable solve (lam_tpu_torch.solver.checkpoint) uninterrupted,
+      then stopped (CG after 30 iterations, refinement after one cycle)
+      with its state in "dir" and resumed from it; each run's iterations,
+      whether the resumed x is bitwise the uninterrupted one (and, for
+      CG, cg_solve's), and the resumed x saved as above;
+  {"kind": "block", "name", "op", "precision", "engine", ..., "rhs_block"}:
+      cg_solve_block of np.load(rhs_block); per-column iterations and the
+      whole X saved as above.
 A rank outside the grid records {"idle": true} for a grid job.
 `launch_cluster` is what the tests call: it starts the rank processes of
 one CPU cluster and returns their records. One cluster runs at a time on a
@@ -59,7 +68,9 @@ import torch.distributed as dist
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from lam_tpu_torch import cg_solve, cg_solve_ir, cli, ops  # noqa: E402
+from lam_tpu_torch import (cg_solve, cg_solve_block, cg_solve_ir,  # noqa: E402
+                           cli, ops)
+from lam_tpu_torch.solver import checkpoint as ckpt  # noqa: E402
 from lam_tpu_torch import io as lio  # noqa: E402
 from lam_tpu_torch.apps import heat, heat_cli  # noqa: E402
 from lam_tpu_torch.parallel import mesh as pmesh  # noqa: E402
@@ -134,12 +145,15 @@ def _operator(job, mesh):
     def block(r0, c0, h, w):
         return lio.read_matrix_block(path, r0, c0, h, w)
 
+    engine = job.get("engine", "auto")
     if job["op"] == "dense":
         return ShardedDenseOperator.from_row_block_fn(
-            rows, n, mesh=mesh, precision=storage, comm=job["comm"])
+            rows, n, mesh=mesh, precision=storage, comm=job["comm"],
+            engine=engine)
     if job["op"] == "grid":
         return Sharded2DOperator.from_block_fn(block, n, mesh=mesh,
-                                               precision=storage)
+                                               precision=storage,
+                                               engine=engine)
     if job["op"] == "symgrid":
         return Symm2DOperator.from_block_fn(
             block, n, mesh=mesh, tb=job["tb"], precision=storage,
@@ -200,6 +214,15 @@ def _run(job, args, out, meshes):
             y = op.extract_x(y)
         _save(out, name, args.process_id, y[:op.n].double().cpu().numpy())
         return rec
+    if job["kind"] == "checkpoint":
+        return _checkpoint(job, op, rec, out, args.process_id)
+    if job["kind"] == "block":
+        res = cg_solve_block(op, np.load(job["rhs_block"]), max_iters=10000,
+                             rel_error=job["rel_error"])
+        _save(out, name, args.process_id, res.x.double().cpu().numpy())
+        rec.update(iters=res.num_iters.tolist(),
+                   converged=res.converged.tolist())
+        return rec
     b = lio.read_vector(job["rhs"])
     pre = job.get("preconditioner")
     if job["precision"] in _BASE:
@@ -213,6 +236,39 @@ def _run(job, args, out, meshes):
     _save(out, name, args.process_id, res.x.double().cpu().numpy())
     rec.update(iters=int(res.num_iters), converged=bool(res.converged),
                rel=float(res.rel_residual))
+    return rec
+
+
+def _checkpoint(job, op, rec, out, rank):
+    b = lio.read_vector(job["rhs"])
+    kw = {"max_iters": 10000, "rel_error": job["rel_error"]}
+    ck = job["dir"]
+    if job["precision"] in _BASE:
+        kw["inner_floor"] = default_inner_floor(job["precision"])
+        op32 = op.as_f32()
+        full, _ = ckpt.cg_solve_ir_resumable(op32, op, b, **kw)
+        part, _ = ckpt.cg_solve_ir_resumable(op32, op, b, max_cycles=1,
+                                             checkpoint_path=ck, **kw)
+        res, _ = ckpt.cg_solve_ir_resumable(op32, op, b, checkpoint_path=ck,
+                                            resume=True, **kw)
+        mono_equal = None
+    else:
+        full, _ = ckpt.cg_solve_resumable(op, b, segment=25, **kw)
+        part, _ = ckpt.cg_solve_resumable(op, b, max_iters=30, segment=10,
+                                          rel_error=job["rel_error"],
+                                          checkpoint_path=ck)
+        res, _ = ckpt.cg_solve_resumable(op, b, segment=50,
+                                         checkpoint_path=ck, resume=True,
+                                         **kw)
+        mono = cg_solve(op, b, **kw)
+        mono_equal = bool(torch.equal(mono.x, full.x))
+    _save(out, job["name"], rank, res.x.double().cpu().numpy())
+    rec.update(iters=int(full.num_iters), part_iters=int(part.num_iters),
+               part_converged=bool(part.converged),
+               resumed_iters=int(res.num_iters),
+               converged=bool(res.converged),
+               bitwise=bool(torch.equal(res.x, full.x)),
+               mono_bitwise=mono_equal)
     return rec
 
 
