@@ -440,6 +440,18 @@
    plain version, the xla, f64 and block runs no port kernel and no plain
    version. The phase's seconds. Its launches stay out of the kernels
    line.
+12. The port's compile check and multi-rank dry run
+   (lam_tpu_torch.dryrun): `entry()`'s 20 df64 CG iterations on the
+   card, kernel 4 launched and no plain version, x within 1e-10 relative
+   of oracle_cg's after 20 iterations; then `dryrun_multichip(4)`: four
+   rank processes of that module sharing the card over gloo, every
+   sharded backend and storage through one converged solve (or one
+   matvec) of random_spd_system(4096, seed=2024) held to oracle_cg
+   (iterations within max(3, k // 50), TRUE residual < 1e-8), the
+   row-sharded heat solve against the one-device f64 grid, each leg's
+   kernels launched and no plain version. Prints each leg's line and
+   kernels, and the phase's seconds beside the card's name and power
+   limit. Its launches stay out of the kernels line.
 
 Prints {"kernels": [...]} on the line before the last (each solver
 kernel's launches summed over the runs of phases 3-6, 8 and 9, every
@@ -689,6 +701,7 @@ FRESH_CHECKS = 2  # phase 10: fresh processes that repeat phase 2's checks
 FRESH_TIMEOUT_S = 600  # a fresh process that takes longer is killed
 HEAT_IR_ITERS = 4448  # heat `ir` at 1200 x 1000, every chip run (PERF.md 5)
 CLUSTER_TIMEOUT_S = 450  # a cluster that takes longer is killed: a hang
+DRYRUN_RANKS = 4  # phase 12: rank processes of the dry run on the card
 # phase 11: the iteration counts of phase 3's runs (PERF.md section 2),
 # which a stopped and resumed run must give in all
 CKPT_ITERS = {"df64": 358, "ir": 365, "irfq": 375, "df64-jacobi": 39}
@@ -5635,6 +5648,37 @@ def fresh_checks():
            f"killed: exit codes {codes}")
 
 
+def dryrun_phase(ops, smi):
+    """Phase 12: lam_tpu_torch.dryrun's entry() and dryrun_multichip(4)
+    on the card (see the module docstring). Returns nothing: its launches
+    stay out of the kernels line."""
+    from lam_tpu_torch import dryrun, generate
+    from lam_tpu_torch.solver import oracle_cg
+    t0 = time.perf_counter()
+    fn, args = dryrun.entry()
+    ops.reset_counters()
+    x = fn(*args)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    _check(counts["gemv_df64"] > 0, "phase 12 entry: kernel 4 never "
+           "launched")
+    _check(not any(counts[f.__name__] for f in ops.PLAIN),
+           "phase 12 entry: a plain version ran")
+    a, b = generate.tridiagonal_matrix(512), generate.ones_rhs(512)
+    xo = torch.from_numpy(oracle_cg(a, b, max_iters=20)[0])
+    err = _rel(x.cpu(), xo)
+    _check(err < 1e-10, f"phase 12 entry: x {err} from oracle_cg's")
+    print(f"phase 12 entry: gemv_df64 {counts['gemv_df64']} launches, x "
+          f"{err:.3e} relative from oracle_cg's 20 iterations")
+    t1 = time.perf_counter()
+    for rec in dryrun.dryrun_multichip(DRYRUN_RANKS, device="cuda"):
+        print(f"phase 12 {rec['line']}; kernels " + ", ".join(
+            f"{k} {v}" for k, v in sorted(rec["kernels"].items())))
+    print(f"phase 12: dry run over {DRYRUN_RANKS} ranks "
+          f"{time.perf_counter() - t1:.1f} s, phase "
+          f"{time.perf_counter() - t0:.1f} s ({smi})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
@@ -5648,6 +5692,7 @@ def main():
     from lam_tpu_torch.parallel.mesh import Mesh, Mesh2D
     from lam_tpu_torch.tools import q16_probe
 
+    t_run = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -5703,6 +5748,9 @@ def main():
         mesh_gen_counts = mesh_generate_runs(ops, lio, tmp)
     torch.cuda.empty_cache()
     fresh_checks()
+    torch.cuda.empty_cache()
+    dryrun_phase(ops, smi)
+    print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all ({smi})")
     for r in results:
         r["launches"] = sum(c.get(r["name"], 0) for c in (
             counts, heat_counts, shard_counts, large_counts, probe_counts,

@@ -32,7 +32,11 @@ The other matvecs are hand-written CUDA kernels for sm_90a
 (lam_tpu_torch/csrc, built at first use). The heat-equation demo (lam_tpu_torch.apps: Jacobi sweeps, and CG
 on the 5-point Laplacian, whose 'ir' inner matvec is the hand-written
 stencil kernel, on one device or row-sharded over ranks) and its BMP
-converter run on the same engine.
+converter run on the same engine. Beside them: the numpy f64 CG oracle
+(`lam_tpu_torch.solver.oracle_cg`), the random SPD system generator
+(`lam_tpu_torch.tools.spd_gen`, `lam-spd-gen-torch`) and the multi-rank
+dry run of every sharded backend against that oracle
+(`lam_tpu_torch.dryrun`).
 """
 
 from lam_tpu_torch.solver import checkpoint

@@ -36,7 +36,9 @@ summing consumers, each warp's transpose row kept, give their two-pass
 controls' bits; none spills. The stencil on each row shard of a
 row-sharded grid, its edges the rows the halo exchange delivers, gives its
 plain version's bits and the one-device grid's; local Jacobi PCG (df64,
-irfq) launches the kernels of CG and no plain version.
+irfq) launches the kernels of CG and no plain version. `dryrun.entry()`
+launches kernel 4 and no plain version, and `dryrun_multichip(2)` passes
+every leg on the card with no plain version.
 """
 
 import numpy as np
@@ -3028,3 +3030,35 @@ def test_block_cg_on_the_card():
                     <= 2e-9 * np.linalg.norm(bb[:, j])), j
     torch.cuda.synchronize()
     assert not any(ops.counters().values())
+
+
+def test_entry_launches_kernel_4():
+    """dryrun.entry() on the card: 20 iterations of the df64 CG loop over
+    kernel 4 (`gemv_df64`), no plain version, x within 1e-10 relative of
+    the f64 oracle's after 20 iterations."""
+    from lam_tpu_torch import dryrun, generate
+    from lam_tpu_torch.solver import oracle_cg
+    fn, args = dryrun.entry()
+    assert all(t.device.type == "cuda" for t in args)
+    ops.reset_counters()
+    x = fn(*args)
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    assert counts["gemv_df64"] >= 20 and counts["gemv_df64_plain"] == 0
+    a, b = generate.tridiagonal_matrix(512), generate.ones_rhs(512)
+    xo = oracle_cg(a, b, max_iters=20)[0]
+    x = x.cpu().numpy()
+    assert np.linalg.norm(x - xo) / np.linalg.norm(xo) < 1e-10
+
+
+def test_dryrun_multichip_two_ranks_on_the_card():
+    """dryrun_multichip(2): two rank processes share the card over gloo;
+    every leg passes against the oracle, launches the kernels of its
+    KERNELS_OF row and no plain version (the function raises otherwise)."""
+    from lam_tpu_torch import dryrun
+    recs = dryrun.dryrun_multichip(2, device="cuda")
+    assert [r["leg"] for r in recs] == dryrun.legs_of(2)
+    for rec in recs:
+        assert rec["plain"] == {}, rec
+        assert all(rec["kernels"].get(k) for k in dryrun.KERNELS_OF[
+            rec["leg"]]), rec

@@ -46,8 +46,9 @@ and left after the last. Jobs:
 A rank outside the grid records {"idle": true} for a grid job.
 `launch_cluster` is what the tests call: it starts the rank processes of
 one CPU cluster and returns their records. One cluster runs at a time on a
-host (a file lock): a solve is a chain of small collectives, and clusters
-of several test files sharing the cores stretch each other many times over.
+host (`host_lock`, a file lock, which the dry run's test takes too): a
+solve is a chain of small collectives, and clusters of several test files
+sharing the cores stretch each other many times over.
 Imports nothing of JAX.
 """
 
@@ -91,6 +92,18 @@ def _free_port():
         return s.getsockname()[1]
 
 
+@contextlib.contextmanager
+def host_lock():
+    """Hold this host's cluster lock (a file lock in the temporary
+    directory): one cluster of rank processes runs at a time, whichever
+    test file starts it."""
+    lock_path = os.path.join(tempfile.gettempdir(),
+                             f"lam_tpu_torch_cluster.{os.getuid()}.lock")
+    with open(lock_path, "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        yield
+
+
 def launch_cluster(g, jobs, out, timeout_s, device="cpu"):
     """Run the jobs in a gloo cluster of g processes of this script (on
     CPUs, or sharing the card with device="cuda"); returns each rank's
@@ -101,12 +114,9 @@ def launch_cluster(g, jobs, out, timeout_s, device="cpu"):
         json.dump(jobs, f)
     env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    lock_path = os.path.join(tempfile.gettempdir(),
-                             f"lam_tpu_torch_cluster.{os.getuid()}.lock")
     logs = []
-    with open(lock_path, "w") as lock:
-        # held until this cluster has ended; the timeout runs from its start
-        fcntl.flock(lock, fcntl.LOCK_EX)
+    # held until this cluster has ended; the timeout runs from its start
+    with host_lock():
         port = _free_port()
         procs = [subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), "--coordinator",
