@@ -273,7 +273,9 @@
    `lam-heat-to-bmp` converter on the ir grid, a (1000, 1200, 3) image.
    Then the row-sharded heat path at the same plate, through lam-heat
    with --devices 2 and --devices 4 (HEAT_DEVICES), G rank processes of
-   this script sharing the card over gloo, as phase 5 starts them: each
+   this script sharing the card over gloo, as phase 5 starts them, the two
+   clusters side by side (each solve time is taken beside the other
+   cluster's, so it is contended): each
    converged to a TRUE residual <= 2e-10 on the host from rank 0's grid,
    within IR_F64_ATOL of the f64 grid, every rank launching
    laplace5_f32_halo and nothing else (no gemv kernel, no plain version),
@@ -283,7 +285,9 @@
 5. Solves the benchmark system through the port's CLI with --backend
    sharded, G rank processes of this script (`--rank r ...`, started with
    subprocess, each killed if its cluster outlives CLUSTER_TIMEOUT_S)
-   sharing the one card over gloo, each running lam_tpu_torch.cli.main in
+   sharing the one card over gloo (the G=2 and G=4 clusters side by side,
+   so their load, solve and gemv times are contended, then the mxu
+   cluster alone), each running lam_tpu_torch.cli.main in
    process: ring-ir, gather-df64, slab-ir and packed-ir at G=2, ring-ir-4
    and packed-ir-4 at G=4; the quantized band-pair storages packed-irfq
    twice with --pack-cache (cold writes A.bin.shardpack/fq.g2.s<rank>,
@@ -319,9 +323,10 @@
    symgrid-ir-4-jacobi at G=4, each held to the gates of its run without
    a preconditioner, its x against phase 3's one-device Jacobi x of the
    same mode (JACOBI_OF), its iterations printed beside that run's.
+   Last in the 2-rank cluster, phase 13's sharded row (see there).
 6. Writes bench.py's system at its second size (random_spd_matrix_fast(
-   20000, seed=2024), random_rhs(20000, seed=2034), 3.2 GB) to a new
-   temporary directory, phase 3's freed, and solves it through the port's
+   20000, seed=2024), random_rhs(20000, seed=2034), 3.2 GB; generated as
+   phase 3's is) to a new temporary directory, phase 3's freed, and solves it through the port's
    CLI: irfq --pack-cache cold and warm under "auto" (gemv_q16_symm_bf16
    and gemv_fq_symm, not the exact q16 body; warm: the same count and a
    bitwise-equal x), irfq with the engine set to "vpu" (the exact body,
@@ -376,7 +381,7 @@
    build) and avg_gemv_s printed beside the plane's byte bound; the
    phase's seconds.
 9. Generate mode on the meshes. First the four broadcast modes on the
-   N=4000 operands that the gen builders make on the card (rank 0 of
+   N=2000 operands that the gen builders make on the card (rank 0 of
    G=2's band walk, rank (1, 0)'s half-slab of R=2): zero tiles equal to
    the full-plane kernels over zero planes bit for bit, the operands and
    non-zero tiles against the plain versions and the f64 oracle at 1e-13,
@@ -389,9 +394,10 @@
    gemv_df64_symm_slab_zero and gemv_fq_symm_slab_zero on the band walk's
    packed tiles give the tile-reading walk's bits. Then G rank processes
    of this script on the one card over gloo, as in phase 5, through the
-   port's CLI. At N=4000
-   (-e 1e-9; padded to 4096, so the walks meet the within-rank and
-   cross-block corners) MESH_GEN_RUNS: ring-ir, slab-ir, packed-df64,
+   port's CLI. At N=2000
+   (-e 1e-9; padded to 2048: one tile a band at G=2, two a block side at
+   R=2, so the walks meet the within-rank and cross-block corners and a
+   padded edge) MESH_GEN_RUNS: ring-ir, slab-ir, packed-df64,
    packed-ir and packed-irfq at G=2 (kernels 5/6; 8/9; 9's kernel for a
    zero tile; 8 and 9's; 16 and 17's kernel for zero tiles), grid-ir-4
    (3, 4) and, on the symmetric grid, symgrid-df64-4, symgrid-ir-4 and
@@ -415,7 +421,8 @@
    not. The phase's seconds.
 10. Phase 2's kernel-against-plain checks again, without their timings,
    in FRESH_CHECKS fresh processes of this script started together
-   (`chip_smoke.py --fresh-checks`) on this run's library: each must exit
+   (`chip_smoke.py --fresh-checks`) on this run's library, while phase 12
+   runs in this process (they time nothing): each must exit
    0; one that fails prints the library's path (its hash) and the card's
    name, power limit, temperature, SM clock and uncorrected ECC errors,
    and fails the run: a check that held in phase 2 and fails in a fresh
@@ -440,8 +447,8 @@
    plain version, the xla, f64 and block runs no port kernel and no plain
    version. The phase's seconds. Its launches stay out of the kernels
    line.
-12. The port's compile check and multi-rank dry run
-   (lam_tpu_torch.dryrun): `entry()`'s 20 df64 CG iterations on the
+12. (Beside phase 10's fresh processes.) The port's compile check and
+   multi-rank dry run (lam_tpu_torch.dryrun): `entry()`'s 20 df64 CG iterations on the
    card, kernel 4 launched and no plain version, x within 1e-10 relative
    of oracle_cg's after 20 iterations; then `dryrun_multichip(4)`: four
    rank processes of that module sharing the card over gloo, every
@@ -452,6 +459,28 @@
    kernels launched and no plain version. Prints each leg's line and
    kernels, and the phase's seconds beside the card's name and power
    limit. Its launches stay out of the kernels line.
+13. (Run after phase 9.) The sweep runner lam-bench-torch
+   (lam_tpu_torch.bench.runner.main) in process, its .npy system cache
+   in a temporary directory, the only one it searches (no system of this
+   size is found there before the cold run), every run appending
+   to one CSV (BENCH_RUNS): --mode gen --sizes 10000 150000 (precision
+   auto = df64: the packed hi plane and a zero lo tile, kernel 2's
+   broadcast mode), both rows num_iter 16, procs 1, the N=150000 row's
+   avg_gemv_s within 10% of phase 8's df64 probe; --mode spd --sizes 10000
+   in memory (the facade's _build_operator) with df64 and ir, bench.py's
+   system, phase 3's 358 and 365 iterations; and --pack-cache --precision
+   irfq twice, cold (generates, publishes the .npy, equal element for
+   element to phase 3's matrix, and packs into its .fqpack) and warm (reads
+   both, a lower load_s), each 375 iterations, the same err; each spd row's
+   err <= 2e-9, each run's kernels launched (1, 2; 14's exact body, 15)
+   and no plain version. Phase 5's 2-rank cluster ran the sharded row
+   (bench-spd-irfq-sharded: --backend sharded --precision irfq, in memory,
+   each rank building its own band pair): procs 2, 375 iterations, rank 0's
+   row alone in its CSV, kernels 16 and 17 on each rank and nothing else.
+   That row joins the CSV, and lam_tpu_torch.bench.clean.main writes
+   BEST_RESULTS: one row per (N, procs), the lowest total_cg_s. Prints
+   each row, its launches and the phase's seconds beside the card's name
+   and power limit. Its launches stay out of the kernels line.
 
 Prints {"kernels": [...]} on the line before the last (each solver
 kernel's launches summed over the runs of phases 3-6, 8 and 9, every
@@ -465,6 +494,7 @@ import contextlib
 import filecmp
 import gc
 import io
+import itertools
 import json
 import os
 import re
@@ -716,7 +746,7 @@ GEN_X_GATE = 1e-10   # the df64 probe's x against the host f64 CG's x
 GEN_ERR_GATE = 1e-6  # a probe's residual against the host TRUE residual
 TILES_N = 10240      # phase 8's operators over a tile handed in: no padding
 TILES_EPS = 2.0 ** -8  # their broadcast tile is TILES_EPS * I
-TILES_GRID_N = 4096  # phase 9's grid over a tile handed in: no padding at R=2
+TILES_GRID_N = 2048  # phase 9's grid over a tile handed in: no padding at R=2
 _SQUARE = ("gemv_f32_symm_square", "gemv_df64_symm_square")
 _BCAST = ("gemv_df64_symm_bcast", "gemv_fq_symm_bcast", "gemv_fq_symm_zero")
 # the tile-reading walks of kernels 15, 9, 12, 17 and 19, which generate
@@ -758,10 +788,12 @@ GEN_PROBES = (
 )
 
 
-# phase 9, generate mode on the meshes: N=4000 pads to 4096, two tiles a
-# band at G=2 and c = 4 tiles a block side at R=2, so the walks meet the
-# within-rank and the cross-block corners
-GEN_MESH_N = 4000
+# phase 9, generate mode on the meshes: N=2000 pads to 2048, one tile a
+# band at G=2 (the band pairs' least, 2 G tiles) and c = 2 tiles a block
+# side at R=2, so the walks meet the within-rank and the cross-block corners
+# and a padded edge; the tridiagonal's CG takes N/2 iterations, so the
+# converged runs stay short
+GEN_MESH_N = 2000
 _GEN_SYMGRID = _SYMGRID + ["--engine", "pallas_symm_packed"]
 # (run, ranks, CLI flags, kernels it must launch, kernels it must not
 # launch); a symmetric-grid run gives (the diagonal ranks' kernels, the
@@ -819,6 +851,32 @@ MESH_TILES_RUNS = (
     ("tiles-symgrid-fq-4", 4, TILES_GRID_N,
      (("gemv_fq_symm_bcast",), ("gemv_fq_dual_bcast",)),
      ("gemv_fq_symm_zero", "gemv_fq_dual_zero")),)
+# phase 13, lam-bench-torch in process: (run, its flags, the rows' num_iter,
+# kernels it must launch, kernels it must not); spd mode is bench.py's
+# system (phase 3's: seed 2024, rhs seed 2034), so its counts are phase 3's
+BENCH_RUNS = (
+    ("bench-gen", ["--mode", "gen", "--sizes", str(GEN_N), str(GEN_PROBE_N)],
+     GEN_PROBE_ITERS + 1, ("gemv_df64_symm_bcast",),
+     ("gemv_df64_symm",) + _SQUARE),
+    ("bench-spd-df64", ["--mode", "spd", "--sizes", str(N), "--precision",
+                        "df64"], 358, ("gemv_df64_symm",),
+     ("gemv_df64_symm_bcast", "gemv_f32_symm")),
+    ("bench-spd-ir", ["--mode", "spd", "--sizes", str(N), "--precision",
+                      "ir"], 365, ("gemv_f32_symm", "gemv_df64_symm"),
+     ("gemv_df64_symm_bcast",)),
+    ("bench-spd-irfq-cold", ["--mode", "spd", "--sizes", str(N),
+                             "--pack-cache", "--precision", "irfq"], 375,
+     ("gemv_q16_symm", "gemv_fq_symm"), ("gemv_q16_symm_bf16",)),
+    ("bench-spd-irfq-warm", ["--mode", "spd", "--sizes", str(N),
+                             "--pack-cache", "--precision", "irfq"], 375,
+     ("gemv_q16_symm", "gemv_fq_symm"), ("gemv_q16_symm_bf16",)))
+BENCH_GEN_GATE = 0.10  # the N=150000 row's avg_gemv_s against phase 8's
+# phase 13's sharded row, a job of phase 5's 2-rank cluster: spd mode in
+# memory, each rank building its own band pair; phase 5's packed-irfq count
+BENCH_SHARDED_RUN = "bench-spd-irfq-sharded"
+BENCH_SHARDED_FLAGS = ["--mode", "spd", "--sizes", str(N), "--backend",
+                       "sharded", "--precision", "irfq"]
+BENCH_SHARDED_ITERS = 375
 # the q16 walks' kernels, by engine: which one each rank ran
 _Q16_WALKS = ("gemv_q16_symm", "gemv_q16_symm_bf16", "gemv_q16_symm_slab",
               "gemv_q16_symm_slab_bf16", "gemv_q16_dual",
@@ -3977,16 +4035,18 @@ def sharded_heat_runs(ops, lio, grid_f64, tmp, total):
     grid, launch laplace5_f32_halo on every rank and no other kernel and
     no plain version, and report gloo with every rank on cuda:0; its inner
     iterations are printed beside the one-device HEAT_IR_ITERS, with its
-    solve time. Adds the launches to total."""
+    solve time. The clusters run side by side (each solve's time is taken
+    beside the other's). Adds the launches to total."""
     stencil_k = "laplace5_f32_halo"
-    for g in HEAT_DEVICES:
+    t0 = time.perf_counter()
+    every = _clusters([(g, [{"run": f"heat-ir-{g}", "app": "heat", "argv": [
+        str(HEAT_NX), str(HEAT_NY), os.path.join(tmp, f"heat-ir-{g}.bin"),
+        "100000", "--devices", str(g)]}], None, f"heat{g}")
+        for g in HEAT_DEVICES], tmp)
+    wall = time.perf_counter() - t0
+    for g, records in zip(HEAT_DEVICES, every):
         run = f"heat-ir-{g}"
         path = os.path.join(tmp, f"{run}.bin")
-        t0 = time.perf_counter()
-        records = _cluster(g, [{"run": run, "app": "heat", "argv": [
-            str(HEAT_NX), str(HEAT_NY), path, "100000", "--devices",
-            str(g)]}], tmp, label=f"heat{g}")
-        wall = time.perf_counter() - t0
         recs = [rank_recs[0] for rank_recs in records]
         _check(all(rec["rc"] == 0 for rec in recs),
                f"{run}: a rank's lam-heat failed: "
@@ -4005,7 +4065,8 @@ def sharded_heat_runs(ops, lio, grid_f64, tmp, total):
         meshes = sorted({(rec["backend"], rec["device"]) for rec in recs})
         print(f"{run} {HEAT_NX}x{HEAT_NY}: {g} ranks on {meshes}, {iters} "
               f"inner iterations (one device: {HEAT_IR_ITERS}), "
-              f"rel_residual {m.group(2)}, solve {solve_s:.4f} s, cluster "
+              f"rel_residual {m.group(2)}, solve {solve_s:.4f} s (taken "
+              f"beside the other cluster), clusters "
               f"{wall:.1f} s of wall time, TRUE rel residual {true_rel:.3e} "
               f"(<= {HEAT_GATE:g}), grid vs f64 max abs {gap:.3e} "
               f"(<= {IR_F64_ATOL:g}), launches rank 0 "
@@ -4025,16 +4086,17 @@ def sharded_heat_runs(ops, lio, grid_f64, tmp, total):
                 total[k] += counts.get(k, 0)
 
 
-def bench_system(generate, lio, tmp):
-    """The benchmark system, written in the binary format into tmp:
+def bench_system(generate, n, lio, tmp):
+    """bench.py's system at size n, written in the binary format into tmp:
     (a, b, A.bin path, b.bin path)."""
     t0 = time.perf_counter()
-    a = generate.random_spd_matrix_fast(N, seed=SEED_A)
-    b = generate.random_rhs(N, seed=SEED_B)
-    print(f"bench system N={N} generated in {time.perf_counter() - t0:.1f} s")
+    a = generate.random_spd_matrix_fast(n, seed=SEED_A)
+    b = generate.random_rhs(n, seed=SEED_B)
     a_path, b_path = os.path.join(tmp, "A.bin"), os.path.join(tmp, "b.bin")
     lio.write_matrix(a_path, a)
     lio.write_matrix(b_path, b)
+    print(f"bench system N={n} generated and written in "
+          f"{time.perf_counter() - t0:.1f} s")
     return a, b, a_path, b_path
 
 
@@ -4410,7 +4472,8 @@ def rank_main(argv):
     """One rank of a phase-5 cluster (`chip_smoke.py --rank r --ranks G
     --port P --jobs J --out D`): joins the process group, runs every job
     of J through the port's CLI in process with --backend sharded (or the
-    job's own --backend), and
+    job's own --backend; a job with an "app" through lam-heat-torch's or
+    lam-bench-torch's main with the rank flags), and
     writes D/rank<r>.json with each job's exit code, output, launch
     counts and the mesh's backend and device."""
     import argparse
@@ -4437,10 +4500,12 @@ def rank_main(argv):
     for job in jobs:
         out = io.StringIO()
         ops.reset_counters()
-        if job.get("app") == "heat":
+        if "app" in job:  # lam-heat-torch or lam-bench-torch
             from lam_tpu_torch.apps import heat_cli
+            from lam_tpu_torch.bench import runner
+            app = {"heat": heat_cli.main, "bench": runner.main}[job["app"]]
             with contextlib.redirect_stdout(out):
-                rc = heat_cli.main(job["argv"] + [
+                rc = app(job["argv"] + [
                     "--device", "cuda", "--coordinator", address,
                     "--num-processes", str(args.ranks), "--process-id",
                     str(args.rank)])
@@ -4544,64 +4609,93 @@ def _tiles_grid_solve(job):
             "rel_residual": float(res.rel_residual), "solve_s": solve_s}
 
 
-def _free_port():
+def _free_ports(k):
+    """k distinct free TCP ports of this host, their sockets held open
+    together while they are picked."""
     import socket
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+    socks = [socket.socket() for _ in range(k)]
+    try:
+        for sock in socks:
+            sock.bind(("127.0.0.1", 0))
+        return [sock.getsockname()[1] for sock in socks]
+    finally:
+        for sock in socks:
+            sock.close()
 
 
 def _cluster(g, jobs, tmp, env=None, label=None):
     """Run the jobs in a cluster of g rank processes of this script on the
     one card, with `env` added to their environment; returns each rank's
-    records. Kills every rank and fails when one fails or the cluster
-    outlives CLUSTER_TIMEOUT_S."""
-    out = os.path.join(tmp, label or f"cluster{g}")
-    os.makedirs(out, exist_ok=True)
-    jobs_path = os.path.join(out, "jobs.json")
-    with open(jobs_path, "w") as f:
-        json.dump(jobs, f)
-    port = _free_port()
-    logs = [open(os.path.join(out, f"rank{r}.log"), "w") for r in range(g)]
-    procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-         "--ranks", str(g), "--port", str(port), "--jobs", jobs_path,
-         "--out", out], stdout=logs[r], stderr=subprocess.STDOUT,
-        env=None if env is None else {**os.environ, **env})
-        for r in range(g)]
+    records (`_clusters` of one)."""
+    return _clusters([(g, jobs, env, label)], tmp)[0]
+
+
+def _clusters(specs, tmp):
+    """Run clusters side by side on the one card, each (g, jobs, env,
+    label) a process group of g rank processes of this script with `env`
+    added to their environment; returns each cluster's records, one list
+    of job records a rank. Kills every rank and fails when one fails or
+    the clusters outlive CLUSTER_TIMEOUT_S."""
+    started = []
+    for (g, jobs, env, label), port in zip(specs, _free_ports(len(specs))):
+        out = os.path.join(tmp, label or f"cluster{g}")
+        os.makedirs(out, exist_ok=True)
+        jobs_path = os.path.join(out, "jobs.json")
+        with open(jobs_path, "w") as f:
+            json.dump(jobs, f)
+        logs = [open(os.path.join(out, f"rank{r}.log"), "w")
+                for r in range(g)]
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
+             "--ranks", str(g), "--port", str(port), "--jobs", jobs_path,
+             "--out", out], stdout=logs[r], stderr=subprocess.STDOUT,
+            env=None if env is None else {**os.environ, **env})
+            for r in range(g)]
+        started.append((g, out, logs, procs))
     deadline = time.monotonic() + CLUSTER_TIMEOUT_S
+    every = [proc for _, _, _, procs in started for proc in procs]
     try:
-        for proc in procs:
+        for proc in every:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
     except subprocess.TimeoutExpired:
         pass
     finally:
-        for proc in procs:
+        for proc in every:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        for log in logs:
-            log.close()
-    codes = [proc.returncode for proc in procs]
-    if any(codes):
-        for r in range(g):
-            with open(os.path.join(out, f"rank{r}.log")) as f:
-                print(f"--- rank {r} of {g} (exit {codes[r]}):\n"
-                      + f.read()[-3000:])
-        raise AssertionError(f"the {g}-rank cluster failed: exit codes "
-                             f"{codes}")
+        for _, _, logs, _ in started:
+            for log in logs:
+                log.close()
+    failed = []
+    for g, out, _, procs in started:
+        codes = [proc.returncode for proc in procs]
+        if any(codes):
+            for r in range(g):
+                with open(os.path.join(out, f"rank{r}.log")) as f:
+                    print(f"--- rank {r} of {g} (exit {codes[r]}):\n"
+                          + f.read()[-3000:])
+            failed.append(f"the {g}-rank cluster failed: exit codes "
+                          f"{codes}")
+    if failed:
+        raise AssertionError("; ".join(failed))
     records = []
-    for r in range(g):
-        with open(os.path.join(out, f"rank{r}.json")) as f:
-            records.append(json.load(f))
+    for g, out, _, _ in started:
+        ranks = []
+        for r in range(g):
+            with open(os.path.join(out, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        records.append(ranks)
     return records
 
 
 def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
     """Phase 5: the bench system through the port's CLI with --backend
     sharded, G rank processes on the one card over gloo, one cluster per
-    G running its entries of SHARDED_RUNS in order. Returns the kernel
-    launches summed over the runs and ranks."""
+    G running its entries of SHARDED_RUNS in order; last in the 2-rank
+    cluster, phase 13's sharded row (`bench_sharded_row`). Returns the
+    kernel launches summed over the runs and ranks (that row's apart) and
+    that row."""
     a, b, a_path, b_path = system
     x_local = local_xs["ir"]
     bnorm = np.linalg.norm(b)
@@ -4610,17 +4704,29 @@ def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
     xs, iters_of = {}, {}
     clusters = [(g, [r for r in SHARDED_RUNS if r[1] == g], None)
                 for g in SHARD_G] + [(4, MXU_RUNS, MXU_ENV)]
+    bench_csv = os.path.join(tmp, "bench_sharded.csv")
+    specs = []
     for g, runs, env in clusters:
         jobs = [{"run": run, "argv": ["-A", a_path, "-b", b_path, "-o",
                                       os.path.join(tmp, f"x_{run}.bin"),
                                       *flags]}
                 for run, _, flags, _, _ in runs]
-        t0 = time.perf_counter()
-        records = _cluster(g, jobs, tmp, env,
-                           f"cluster{g}" + ("-mxu" if env else ""))
-        print(f"{g}-rank cluster{' with ' + str(env) if env else ''}: "
-              f"{len(runs)} runs in {time.perf_counter() - t0:.1f} s of wall "
-              "time")
+        if g == 2 and env is None:
+            jobs.append({"run": BENCH_SHARDED_RUN, "app": "bench",
+                         "argv": BENCH_SHARDED_FLAGS + ["-o", bench_csv]})
+        specs.append((g, jobs, env, f"cluster{g}" + ("-mxu" if env else "")))
+    # the G=2 and G=4 clusters side by side (their own files, a few GB of
+    # the card), then the mxu cluster alone
+    t0 = time.perf_counter()
+    every = _clusters(specs[:2], tmp)
+    print(f"{' and '.join(str(g) for g, _, _ in clusters[:2])}-rank "
+          f"clusters side by side: {time.perf_counter() - t0:.1f} s of wall "
+          "time")
+    t0 = time.perf_counter()
+    every += _clusters(specs[2:], tmp)
+    print(f"{clusters[2][0]}-rank cluster with {clusters[2][2]}: "
+          f"{time.perf_counter() - t0:.1f} s of wall time")
+    for (g, runs, env), records in zip(clusters, every):
         for j, (run, _, flags, kernels, not_kernels) in enumerate(runs):
             recs = [rank_recs[j] for rank_recs in records]
             _check(all(rec["run"] == run and rec["rc"] == 0 for rec in recs),
@@ -4642,8 +4748,10 @@ def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
             x_rel = float(np.linalg.norm(x - x_ref) / np.linalg.norm(x_ref))
             x_gate = X_ENGINE_GATE if env else X_GATE
             meshes = sorted({(rec["backend"], rec["device"]) for rec in recs})
-            print(f"{run}: {g} ranks on {meshes}, load {load_s:.3f} s, "
-                  f"init {init_s:.3f} s, {iters} iterations, solve "
+            beside = "" if env else ", taken beside the other cluster"
+            print(f"{run}: {g} ranks on {meshes}{beside}, load "
+                  f"{load_s:.3f} s, init {init_s:.3f} s, {iters} "
+                  f"iterations, solve "
                   f"{solve_s:.4f} s, avg gemv {gemv_s * 1e3:.3f} ms, TRUE "
                   f"rel residual {true_rel:.3e} "
                   f"(<= {TRUE_GATE:g}), x vs one-device "
@@ -4685,6 +4793,10 @@ def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
                        f"{run}: a plain version ran on rank {r}")
                 for k in total:
                     total[k] += counts[k]
+        if g == 2 and env is None:
+            bench_row = bench_sharded_row(
+                [rank_recs[len(runs)] for rank_recs in records], bench_csv,
+                plain)
     # --pack-cache: cold wrote one shard file per rank, warm read them
     for c in range(2):
         _check(os.path.exists(f"{a_path}.shardpack/fq.g2.s{c}"),
@@ -4702,7 +4814,44 @@ def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
            "the symmetric grid's irfq from the shard cache differs from a "
            "fresh pack")
     print(f"sharded launches, summed over the runs and ranks: {total}")
-    return total
+    return total, bench_row
+
+
+def bench_sharded_row(recs, csv_path, plain):
+    """Phase 13's sharded row, run in phase 5's 2-rank cluster: both ranks
+    through lam-bench-torch's main with the rank flags, spd mode in memory
+    at N=10000 (each rank builds its own band pair through the facade's
+    _build_operator), --precision irfq. Rank 0 alone prints and appends its
+    row: procs 2, phase 5's packed-irfq count, err <= 2e-9; every rank
+    launched kernels 16 and 17 and nothing else, no plain version. Returns
+    the row; its launches stay out of the kernels line."""
+    run = BENCH_SHARDED_RUN
+    _check(all(rec["run"] == run and rec["rc"] == 0 for rec in recs),
+           f"{run}: a rank's lam-bench-torch failed: "
+           f"{[rec['rc'] for rec in recs]}")
+    _check(not any(rec["stdout"].strip() for rec in recs[1:]),
+           f"{run}: a rank other than 0 printed")
+    line = recs[0]["stdout"].strip()
+    with open(csv_path) as f:
+        _check(f.read().splitlines() == [line],
+               f"{run}: the CSV holds other rows than rank 0's {line!r}")
+    fields = line.split(",")
+    print(f"phase 13 {run} (in phase 5's 2-rank cluster) CSV (N,procs,"
+          f"threads,load_s,avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s): "
+          f"{line}")
+    _check(fields[:3] == [str(N), "2", "1"], f"{run}: row {line}")
+    _check(int(fields[6]) == BENCH_SHARDED_ITERS,
+           f"{run}: {fields[6]} iterations, not phase 5's "
+           f"{BENCH_SHARDED_ITERS}")
+    _check(float(fields[7]) <= TRUE_GATE, f"{run}: err {fields[7]}")
+    for r, rec in enumerate(recs):
+        launched = {k: v for k, v in rec["counts"].items() if v}
+        print(f"phase 13 {run}: rank {r} launches {launched}")
+        _check(sorted(launched) == sorted(_QFQ), f"{run}: rank {r} "
+               f"launched {sorted(launched)}, not {sorted(_QFQ)}")
+        _check(not any(rec["counts"][k] for k in plain),
+               f"{run}: a plain version ran on rank {r}")
+    return line
 
 
 def _ckpt_stop(spec):
@@ -4906,14 +5055,7 @@ def large_system_runs(ops, gemv, generate, lio, cli, tmp):
     from lam_tpu_torch.solver import api
     from lam_tpu_torch.solver import operators as tops
     t_phase = time.perf_counter()
-    t0 = time.perf_counter()
-    a = generate.random_spd_matrix_fast(N_LARGE, seed=SEED_A)
-    b = generate.random_rhs(N_LARGE, seed=SEED_B)
-    a_path, b_path = os.path.join(tmp, "A.bin"), os.path.join(tmp, "b.bin")
-    lio.write_matrix(a_path, a)
-    lio.write_matrix(b_path, b)
-    print(f"bench system N={N_LARGE} generated and written in "
-          f"{time.perf_counter() - t0:.1f} s")
+    a, b, a_path, b_path = bench_system(generate, N_LARGE, lio, tmp)
     bnorm = np.linalg.norm(b)
     total = {fn.__name__: 0 for fn in ops.KERNELS}
     plain = [fn.__name__ for fn in ops.PLAIN]
@@ -5250,7 +5392,7 @@ def generate_runs(ops, lio, cli, tmp):
     equal to the host's TRUE residual of its x within 1e-6, load_s and
     avg_gemv_s printed beside the plane's byte bound. Between them,
     `handed_tiles_runs`. Returns the kernel launches summed over the
-    runs."""
+    runs and each probe's avg_gemv_s (phase 13's yardstick)."""
     from lam_tpu_torch.ops import layout
     from lam_tpu_torch.parallel import pcg_symm
     from lam_tpu_torch.parallel.mesh import Mesh
@@ -5297,6 +5439,7 @@ def generate_runs(ops, lio, cli, tmp):
                    "q1": 2 * tile * layout.padded_tri_tile_count(nblk)}
     x_host, k_host = _host_cg(GEN_PROBE_N, GEN_PROBE_ITERS, 1e-9)
     _check(k_host == GEN_PROBE_ITERS, "the host CG stopped early")
+    probe_gemv_s = {}
     for run, precision, kernels, plane in GEN_PROBES:
         t0 = time.perf_counter()
         x_path = os.path.join(tmp, f"x_{run}.bin")
@@ -5337,9 +5480,10 @@ def generate_runs(ops, lio, cli, tmp):
             _check(x_rel <= GEN_X_GATE, f"{run}: x differs from the host "
                    f"CG's by {x_rel:.3e}")
         _gen_counts(run, counts, kernels, _TILE_WALKS, total)
+        probe_gemv_s[run] = timings["avg_gemv_s"]
         os.remove(x_path)
     print(f"phase 8: {time.perf_counter() - t_phase:.1f} s")
-    return total
+    return total, probe_gemv_s
 
 
 def _mesh_kernels(run, r, kernels, not_kernels, names):
@@ -5355,8 +5499,8 @@ def _mesh_kernels(run, r, kernels, not_kernels, names):
 def mesh_generate_runs(ops, lio, tmp):
     """Phase 9: generate mode on the meshes through the port's CLI, G rank
     processes of this script on the one card over gloo (phase 5's
-    clusters, one for G=2 and one for G=4). At N=4000 (-e 1e-9) the runs
-    of MESH_GEN_RUNS, each converged with a TRUE |b - A x| / |b| <= 2e-9
+    clusters, one for G=2 and one for G=4). At N=GEN_MESH_N (-e 1e-9) the
+    runs of MESH_GEN_RUNS, each converged with a TRUE |b - A x| / |b| <= 2e-9
     on the host (the O(N) tridiagonal product of rank 0's x), procs = G in
     rank 0's CSV row, every rank's kernels launched and the others not, no
     plain version; the df64-class counts within 1% of a host f64 CG's on
@@ -5615,19 +5759,28 @@ def fresh_main():
     return 0
 
 
-def fresh_checks():
+def fresh_checks(beside):
     """Phase 10: phase 2's kernel-against-plain checks, without their
     timings, in FRESH_CHECKS fresh processes of this script started
     together (`--fresh-checks`), on the library this run built: a check
     that fails there and held in phase 2 is a fault (one earlier chip
     call's kernels disagreed with their plain versions in a fresh process,
-    once). Each is killed after FRESH_TIMEOUT_S; the run fails unless
-    every one exits 0."""
+    once). They run while `beside()` (phase 12, host-bound rank processes)
+    runs in this one: they time nothing. Each is killed after
+    FRESH_TIMEOUT_S, and every one is stopped when `beside` fails; the
+    run fails unless every one exits 0."""
     t0 = time.perf_counter()
     procs = [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), "--fresh-checks"],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for _ in range(FRESH_CHECKS)]
+    try:
+        beside()
+    except BaseException:
+        for proc in procs:
+            proc.kill()
+            proc.communicate()
+        raise
     outs, codes = [], []
     for proc in procs:
         try:
@@ -5646,6 +5799,129 @@ def fresh_checks():
     print(f"phase 10: {time.perf_counter() - t0:.1f} s")
     _check(not any(codes), f"phase 10: a fresh process failed or was "
            f"killed: exit codes {codes}")
+
+
+def _best_of(csv_rows):
+    """{(N, procs): the lowest total_cg_s of the group} of CSV rows."""
+    best = {}
+    for row in csv_rows:
+        f = row.split(",")
+        key, t = (int(f[0]), int(f[1])), float(f[8])
+        best[key] = min(t, best.get(key, t))
+    return best
+
+
+def bench_runs(ops, smi, bench_a, probe_gemv_s, sharded_row):
+    """Phase 13: lam-bench-torch (lam_tpu_torch.bench.runner.main) in
+    process, its system cache a temporary directory and the only one
+    searched (`systems.cache_dirs` patched: no .npy in the checkout's
+    io/bench or the temporary directory is read or written), the runs of
+    BENCH_RUNS appending to one CSV: each run's rows with their num_iter,
+    procs 1, err <= 2e-9 (spd mode), its kernels launched and the others
+    not, no plain version; the N=150000 gen row's avg_gemv_s within 10% of
+    phase 8's df64 probe (`probe_gemv_s`); the cold irfq run found no
+    system in the cache and published the .npy, equal element for element
+    to phase 3's matrix (`bench_a`), and its .fqpack, which the warm run
+    reads with a lower load_s and the same count and err. Then
+    phase 5's sharded row is appended and lam_tpu_torch.bench.clean.main
+    picks the best: one BEST_RESULTS row per (N, procs), the lowest
+    total_cg_s. Its launches stay out of the kernels line."""
+    from lam_tpu_torch.bench import clean, runner, systems
+    from lam_tpu_torch.solver import pack_cache
+    t0 = time.perf_counter()
+    plain = [fn.__name__ for fn in ops.PLAIN]
+    cache_dirs = systems.cache_dirs
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "cache")
+        systems.cache_dirs = lambda: [cache]
+        csv_path = os.path.join(tmp, "bench.csv")
+        rows_of = {}
+        try:
+            _check(systems.find_cached(N, SEED_A) is None, "phase 13: a "
+                   "cached system before the cold run")
+            for run, flags, iters, kernels, not_kernels in BENCH_RUNS:
+                out = io.StringIO()
+                t1 = time.perf_counter()
+                ops.reset_counters()
+                with contextlib.redirect_stdout(out):
+                    rc = runner.main(flags + ["-o", csv_path, "--device",
+                                              "cuda"])
+                torch.cuda.synchronize()
+                counts = ops.counters()
+                gc.collect()
+                torch.cuda.empty_cache()
+                rows = out.getvalue().strip().splitlines()
+                launched = {k: v for k, v in counts.items() if v}
+                for row in rows:
+                    print(f"phase 13 {run} CSV (N,procs,threads,load_s,"
+                          f"avg_gemv_s,avg_iter_s,num_iter,err,total_cg_s): "
+                          f"{row}")
+                print(f"phase 13 {run}: launches {launched}, "
+                      f"{time.perf_counter() - t1:.1f} s")
+                _check(rc == 0, f"phase 13 {run}: lam-bench-torch exited {rc}")
+                sizes = list(itertools.takewhile(
+                    str.isdigit, flags[flags.index("--sizes") + 1:]))
+                _check(len(rows) == len(sizes),
+                       f"phase 13 {run}: {len(rows)} rows for {sizes}")
+                for row, n in zip(rows, sizes):
+                    f = row.split(",")
+                    _check(f[:3] == [n, "1", "1"] and int(f[6]) == iters,
+                           f"phase 13 {run}: row {row}, not N={n}, procs 1, "
+                           f"num_iter {iters}")
+                    if "spd" in flags:
+                        _check(float(f[7]) <= TRUE_GATE,
+                               f"phase 13 {run}: err {f[7]}")
+                for k in kernels:
+                    _check(counts[k] > 0, f"phase 13 {run} never launched "
+                           f"{k}")
+                for k in not_kernels:
+                    _check(counts[k] == 0, f"phase 13 {run} launched {k}")
+                _check(not any(counts[k] for k in plain),
+                       f"phase 13 {run}: a plain version ran")
+                rows_of[run] = [row.split(",") for row in rows]
+        finally:
+            systems.cache_dirs = cache_dirs
+        big = rows_of["bench-gen"][1]
+        ratio = float(big[4]) / probe_gemv_s
+        print(f"phase 13 bench-gen: N={GEN_PROBE_N} avg_gemv_s "
+              f"{float(big[4]) * 1e3:.3f} ms, x{ratio:.4f} of phase 8's "
+              f"df64 probe ({probe_gemv_s * 1e3:.3f} ms; <= "
+              f"{BENCH_GEN_GATE:.0%} apart)")
+        _check(abs(ratio - 1) <= BENCH_GEN_GATE, "phase 13 bench-gen: "
+               "avg_gemv_s is not phase 8's df64 probe's")
+        npy = os.path.join(cache, f"lam_bench_spd_N{N}_s{SEED_A}.npy")
+        _check(os.path.exists(npy) and os.path.exists(
+            pack_cache.cache_path(npy, "fq")), "phase 13: the cold irfq run "
+            "published no .npy or no .fqpack")
+        _check(np.array_equal(np.load(npy, mmap_mode="r"), bench_a),
+               "phase 13: the cached system is not phase 3's matrix")
+        (cold,), (warm,) = (rows_of["bench-spd-irfq-cold"],
+                            rows_of["bench-spd-irfq-warm"])
+        print(f"phase 13 irfq --pack-cache: load_s cold {cold[3]} s "
+              f"(generate, publish, pack), warm {warm[3]} s (both caches "
+              f"read); the .npy equals phase 3's matrix")
+        _check(cold[6:8] == warm[6:8], "phase 13: the warm irfq run differs "
+               "from the cold one")
+        _check(float(warm[3]) < float(cold[3]), "phase 13: the warm load "
+               "was not the faster")
+        with open(csv_path, "a") as f:
+            f.write(sharded_row + "\n")
+        with open(csv_path) as f:
+            csv_rows = f.read().splitlines()
+        best_path = os.path.join(tmp, "BEST_RESULTS")
+        _check(clean.main([csv_path, "-o", best_path]) == 0,
+               "phase 13: lam-bench-clean failed")
+        with open(best_path) as f:
+            best = [line for line in f.read().splitlines()
+                    if clean.is_data(line)]
+        print("phase 13 BEST_RESULTS: " + " | ".join(best))
+        want = _best_of(csv_rows)
+        got = {(int(f[0]), int(f[1])): float(f[8])
+               for f in (line.split(",") for line in best)}
+        _check(len(best) == len(got) == len(want) == 3 and got == want,
+               f"phase 13: BEST_RESULTS {got}, not one row per (N, procs) "
+               f"at its lowest total_cg_s {want}")
+    print(f"phase 13: {time.perf_counter() - t0:.1f} s ({smi})")
 
 
 def dryrun_phase(ops, smi):
@@ -5684,13 +5960,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; this run "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    from lam_tpu_torch import cli, generate, ops
-    from lam_tpu_torch import io as lio
-    from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
-    from lam_tpu_torch.ops import _build, gemv
-    from lam_tpu_torch.parallel import pcg2d_symm, pcg_symm
-    from lam_tpu_torch.parallel.mesh import Mesh, Mesh2D
-    from lam_tpu_torch.tools import q16_probe
+    from lam_tpu_torch.ops import _build
 
     t_run = time.perf_counter()
     smi = subprocess.run(
@@ -5715,23 +5985,32 @@ def main():
                          text=True, check=True).stdout.splitlines()[0]
     print(f"native host library built in {time.perf_counter() - t0:.1f} s "
           f"by {gpp}: {os.path.relpath(native)}")
+    from lam_tpu_torch import cli, generate, ops
+    from lam_tpu_torch import io as lio
+    from lam_tpu_torch.apps import bmp, bmp_cli, heat, heat_cli
+    from lam_tpu_torch.ops import gemv
+    from lam_tpu_torch.parallel import pcg2d_symm, pcg_symm
+    from lam_tpu_torch.parallel.mesh import Mesh, Mesh2D
+    from lam_tpu_torch.tools import q16_probe
+
     stream_sass(_build)
     results = kernel_checks()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        system = bench_system(generate, lio, tmp)
+        system = bench_system(generate, N, lio, tmp)
         counts, local_xs, local_iters = solve_slice(ops, lio, cli, system,
                                                     tmp)
         torch.cuda.empty_cache()
         heat_counts = heat_demo(ops, heat, heat_cli, bmp_cli, bmp, lio)
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        shard_counts = sharded_runs(ops, lio, system, local_xs,
-                                    local_iters, tmp)
+        shard_counts, bench_sharded = sharded_runs(ops, lio, system,
+                                                   local_xs, local_iters, tmp)
         print(f"phase 5: {time.perf_counter() - t0:.1f} s")
         del local_xs
         torch.cuda.empty_cache()
         checkpoint_runs(ops, lio, cli, system, tmp)
+        bench_a = system[0]  # phase 13 holds its cached system to it
         del system
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -5740,16 +6019,18 @@ def main():
     probe_counts = probe_tool(q16_probe)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        gen_counts = generate_runs(ops, lio, cli, tmp)
+        gen_counts, probe_gemv_s = generate_runs(ops, lio, cli, tmp)
     torch.cuda.empty_cache()
     gen_bcast_vs_plain(gemv, pcg_symm, pcg2d_symm, Mesh, Mesh2D)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         mesh_gen_counts = mesh_generate_runs(ops, lio, tmp)
     torch.cuda.empty_cache()
-    fresh_checks()
+    bench_runs(ops, smi, bench_a, probe_gemv_s["gen-df64-150k"],
+               bench_sharded)
+    del bench_a
     torch.cuda.empty_cache()
-    dryrun_phase(ops, smi)
+    fresh_checks(lambda: dryrun_phase(ops, smi))
     print(f"chip_smoke: {time.perf_counter() - t_run:.1f} s in all ({smi})")
     for r in results:
         r["launches"] = sum(c.get(r["name"], 0) for c in (

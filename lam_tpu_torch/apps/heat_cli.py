@@ -76,31 +76,14 @@ def _cli_main(argv=None):
 
     import torch.distributed as dist
 
-    if args.coordinator:
-        # a caller that joined the group already keeps it; a group joined
-        # here is left here
-        owns_group = not dist.is_initialized()
-        from lam_tpu_torch.parallel.mesh import distributed_init
-        distributed_init(args.coordinator, args.num_processes,
-                         args.process_id, device=args.device)
-    elif args.num_processes is not None or args.process_id is not None:
-        raise ValueError("--num-processes and --process-id need "
-                         "--coordinator")
-    else:
-        owns_group = False
-    rank = dist.get_rank() if dist.is_initialized() else 0
-    try:
+    from lam_tpu_torch.parallel.mesh import process_group
+    with process_group(args.coordinator, args.num_processes,
+                       args.process_id, device=args.device):
+        rank = dist.get_rank() if dist.is_initialized() else 0
         # only rank 0 prints and writes the file
         with (contextlib.redirect_stdout(io.StringIO()) if rank
               else contextlib.nullcontext()):
             rc = _demo(args, rank)
-        if owns_group:
-            # the store's host (rank 0) must not leave while another rank
-            # still talks to it
-            dist.barrier()
-    finally:
-        if owns_group:
-            dist.destroy_process_group()
     return rc
 
 

@@ -323,30 +323,10 @@ def _cli_main(argv=None):
             "--num-processes and --process-id (--device cpu for a CPU "
             "cluster)")
 
-    import torch.distributed as dist
-
-    if args.coordinator:
-        # a caller that joined the group already (a launcher running
-        # several solves per process) keeps it; a group joined here is
-        # left here
-        owns_group = not dist.is_initialized()
-        from lam_tpu_torch.parallel.mesh import distributed_init
-        distributed_init(args.coordinator, args.num_processes,
-                         args.process_id, device=args.device)
-    elif args.num_processes is not None or args.process_id is not None:
-        raise ValueError("--num-processes and --process-id need "
-                         "--coordinator")
-    else:
-        owns_group = False
-    try:
+    from lam_tpu_torch.parallel.mesh import process_group
+    with process_group(args.coordinator, args.num_processes,
+                       args.process_id, device=args.device):
         rc = _solve(args)
-        if owns_group:
-            # the store's host (rank 0) must not leave while another rank
-            # still talks to it
-            dist.barrier()
-    finally:
-        if owns_group:
-            dist.destroy_process_group()
     return rc
 
 

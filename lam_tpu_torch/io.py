@@ -59,6 +59,16 @@ def read_header(path):
     return rows, cols
 
 
+def square_size(path):
+    """n of the n x n matrix in a file (its header, or a .npy's shape);
+    ValueError, in lam_tpu's words (lam_tpu/parallel/pcg.py:519-522), for
+    one that is not square."""
+    rows, cols = read_header(path)
+    if rows != cols:
+        raise ValueError(f"{path}: matrix must be square ({rows}x{cols})")
+    return rows
+
+
 def read_matrix(path, dtype=np.float64):
     """Read a full matrix (or column vector) as a (rows, cols) array."""
     rows, cols = read_header(path)
@@ -154,14 +164,11 @@ def open_matrix_memmap(path):
         if a.dtype != np.float64:
             raise ValueError(f"{path}: expected float64, got {a.dtype}")
     else:
-        rows, cols = read_header(path)
-        if rows != cols:
-            # check the header before mapping: an overstated size would
-            # otherwise fail as a raw mmap error
-            raise ValueError(f"{path}: matrix must be square "
-                             f"({rows}x{cols})")
+        # the header checked before mapping: an overstated size would
+        # otherwise fail as a raw mmap error
+        n = square_size(path)
         a = np.memmap(path, dtype=np.float64, mode="r",
-                      offset=_HEADER.size, shape=(rows, cols))
+                      offset=_HEADER.size, shape=(n, n))
     if a.ndim != 2 or a.shape[0] != a.shape[1]:
         raise ValueError(f"{path}: matrix must be square, got {a.shape}")
     return a

@@ -20,6 +20,7 @@ never leave the card.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import os
@@ -105,6 +106,32 @@ def distributed_init(coordinator_address, num_processes, process_id,
                             world_size=num_processes, rank=process_id,
                             timeout=datetime.timedelta(seconds=timeout_s))
     return backend
+
+
+@contextlib.contextmanager
+def process_group(coordinator, num_processes, process_id, device="cuda"):
+    """The process group of an entry point's run (the CLIs' --coordinator,
+    --num-processes, --process-id): joined by `distributed_init` and left
+    at the end, after a barrier, since the store's host (rank 0) must not
+    leave while another rank still talks to it. A group the caller joined
+    already (a launcher running several entry points a process) is kept.
+    Without a coordinator there is no group to join, and a rank count or
+    rank alone is refused."""
+    if not coordinator:
+        if num_processes is not None or process_id is not None:
+            raise ValueError("--num-processes and --process-id need "
+                             "--coordinator")
+        yield
+        return
+    owns = not dist.is_initialized()
+    distributed_init(coordinator, num_processes, process_id, device=device)
+    try:
+        yield
+        if owns:
+            dist.barrier()
+    finally:
+        if owns:
+            dist.destroy_process_group()
 
 
 class Mesh:

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from lam_tpu_torch import generate as gen
+from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.parallel.mesh import make_mesh
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
@@ -258,6 +259,17 @@ class ShardedDenseOperator(ops.LinearOperator):
             raise ValueError(f"matrix must be square, got {a.shape}")
         return ShardedDenseOperator.from_row_block_fn(
             lambda s, m: a[s:s + m, :], n, mesh=mesh, precision=precision,
+            engine=engine, comm=comm, device=device)
+
+    @staticmethod
+    def from_file(path, mesh=None, precision="df64", engine="auto",
+                  comm="gather", device="cuda"):
+        """Build from a matrix file (the binary format or .npy): this rank
+        reads only its own rows, the reference's per-rank MPI-IO seek and
+        read (lam_tpu/parallel/pcg.py:514-526)."""
+        return ShardedDenseOperator.from_row_block_fn(
+            lambda s, m: lio.read_matrix_rows(path, s, m),
+            lio.square_size(path), mesh=mesh, precision=precision,
             engine=engine, comm=comm, device=device)
 
     # -- solve path --------------------------------------------------------

@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from lam_tpu_torch import generate as gen
+from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import layout
 from lam_tpu_torch.parallel.mesh import make_mesh2d
 from lam_tpu_torch.parallel.pcg import (MATVEC, TILE_K, TILE_M, XLA,
@@ -200,6 +201,17 @@ class Sharded2DOperator(GridOperator):
                                      "f64", mesh, engine)
         return Sharded2DOperator((hi, torch.zeros_like(hi)), n, n_p,
                                  torch.float64, "df64", mesh, engine)
+
+    @staticmethod
+    def from_file(path, mesh=None, precision="df64", engine="auto",
+                  device="cuda"):
+        """Build from a matrix file (the binary format or .npy): this rank
+        reads only its own block, a column window of its rows
+        (lam_tpu/parallel/pcg2d.py:331-343)."""
+        return Sharded2DOperator.from_block_fn(
+            lambda r0, c0, h, w: lio.read_matrix_block(path, r0, c0, h, w),
+            lio.square_size(path), mesh=mesh, precision=precision,
+            engine=engine, device=device)
 
     # -- solve path --------------------------------------------------------
 

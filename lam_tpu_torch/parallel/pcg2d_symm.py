@@ -66,6 +66,7 @@ import numpy as np
 import torch
 
 from lam_tpu_torch import generate as gen
+from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.parallel.mesh import make_mesh2d
 from lam_tpu_torch.parallel.pcg2d import GridOperator, check_active
@@ -347,6 +348,19 @@ class Symm2DOperator(GridOperator):
         return Symm2DOperator.from_block_fn(
             lambda r0, c0, h, w: a[r0:r0 + h, c0:c0 + w], n, mesh=mesh,
             tb=tb, precision=precision, device=device)
+
+    @staticmethod
+    def from_file(path, mesh=None, tb=None, precision="df64",
+                  pack_cache_src=None, device="cuda"):
+        """Build from a symmetric matrix file (the binary format or .npy):
+        this rank reads only the blocks of its triangle or half-slab
+        (lam_tpu/parallel/pcg2d_symm.py:689-699). pack_cache_src, the
+        facade's addition, names the source of a quantized storage's shard
+        cache, as in from_block_fn."""
+        return Symm2DOperator.from_block_fn(
+            lambda r0, c0, h, w: lio.read_matrix_block(path, r0, c0, h, w),
+            lio.square_size(path), mesh=mesh, tb=tb, precision=precision,
+            pack_cache_src=pack_cache_src, device=device)
 
     @staticmethod
     def _gen_plane(n, mesh, tb, device, diag, band):

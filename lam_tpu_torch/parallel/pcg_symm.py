@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from lam_tpu_torch import generate as gen
+from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout
 from lam_tpu_torch.parallel.mesh import make_mesh
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
@@ -403,6 +404,20 @@ class SymmShardedOperator(ops.LinearOperator):
             lambda s, rows: a[s:s + rows, :], n, mesh=mesh, tb=tb,
             packed=packed, precision=precision,
             pack_cache_src=pack_cache_src, device=device)
+
+    @staticmethod
+    def from_file(path, mesh=None, tb=None, packed=False, precision="df64",
+                  pack_cache_src=None, device="cuda"):
+        """Build from a symmetric matrix file (the binary format or .npy):
+        this rank reads only the rows of its two bands
+        (lam_tpu/parallel/pcg_symm.py:779-789). pack_cache_src, the
+        facade's addition, names the source of a quantized storage's shard
+        cache, as in from_row_block_fn."""
+        return SymmShardedOperator.from_row_block_fn(
+            lambda s, rows: lio.read_matrix_rows(path, s, rows),
+            lio.square_size(path), mesh=mesh, tb=tb, packed=packed,
+            precision=precision, pack_cache_src=pack_cache_src,
+            device=device)
 
     def as_f32(self):
         """f32 triangle-walk view sharing this operator's buffers (the hi

@@ -91,6 +91,13 @@ the file's memory map before anything is built (lam_tpu's up-front check
 and words). `solve(warmup=False)` times the first solve with the kernel
 build and first launches in it, and records no init_s.
 
+A system held in memory is built by `_build_operator(row_block_fn, n,
+full_matrix=None)` (lam_tpu's name and signature, which its bench runner
+calls): on 'local' the whole matrix, on the meshes each rank's own part
+read through row_block_fn; the generate path of the meshes builds through
+it too. A file on the meshes is read by the operator's own `from_file`, each
+rank reading only its part; both choose the class in `_mesh_operator_type`.
+
 Checkpointed solves (lam_tpu_torch/solver/checkpoint.py) run on the
 facade's operator: the CLI's --checkpoint drives them and stores their
 result through `record_result`. The device is explicit; asking for CUDA
@@ -276,12 +283,9 @@ class ConjugateGradient:
                       "backend=local f32/df64/ir/dfq/irq/fq/irfq and "
                       "sharded/sharded2d dfq/irq/fq/irfq file loads; "
                       "ignored for this backend/precision", file=sys.stderr)
-            self.op = self._sharded_operator(
-                storage, rows,
-                lambda s, m: lio.read_matrix_rows(filename, s, m),
-                lambda r0, c0, h, w: lio.read_matrix_block(filename, r0, c0,
-                                                           h, w),
+            cls, kw = self._mesh_operator_type(
                 str(filename) if self.pack_cache else None)
+            self.op = cls.from_file(filename, mesh=self.mesh, **kw)
         elif (self.engine in (DENSE_ENGINE, SQUARE_ENGINE, XLA_ENGINE)
               or storage == "f64"):
             # the full square, as lam_tpu's file-mode fallback builds it
@@ -309,36 +313,55 @@ class ConjugateGradient:
         self.timings["load_s"] = time.perf_counter() - t0
         return True
 
-    def _sharded_operator(self, storage, n, row_fn, block_fn,
-                          pack_cache_src=None):
-        """This rank's part of the sharded operator, from reads of the
-        source matrix (row_fn(r0, rows) -> f64 rows, block_fn(r0, c0, h,
-        w) -> an f64 block; each rank reads only its own rows or block):
-        lam_tpu's `_build_operator` (lam_tpu/solver/api.py:112-200).
+    def _build_operator(self, row_block_fn, n, full_matrix=None,
+                        block_fn=None, pack_cache_src=None):
+        """The operator of an n x n system held as row_block_fn(r0, rows)
+        -> its f64 rows: lam_tpu's `_build_operator` (lam_tpu/solver/
+        api.py:112-194), which an in-memory system is built through. On
+        'local' DenseOperator.from_dense of the whole matrix (full_matrix
+        where given, else all its rows). On 'sharded' and 'sharded2d' this
+        rank's part, reading only its own rows or block (block_fn(r0, c0,
+        h, w) -> an f64 block, cut from row_block_fn where not given).
         pack_cache_src names the source file of a quantized storage's
-        shard cache (the df64 storage has none and ignores it)."""
+        shard cache (the other storages ignore it)."""
+        storage = _BASE.get(self.precision, self.precision)
+        if self.backend == "local":
+            a = (full_matrix if full_matrix is not None
+                 else row_block_fn(0, n))
+            return DenseOperator.from_dense(a, precision=storage,
+                                            engine=self.engine,
+                                            device=self.device)
+        cls, kw = self._mesh_operator_type(pack_cache_src)
+        if self.backend == "sharded2d":
+            if block_fn is None:
+                def block_fn(r0, c0, h, w):
+                    return row_block_fn(r0, h)[:, c0:c0 + w]
+            return cls.from_block_fn(block_fn, n, mesh=self.mesh, **kw)
+        return cls.from_row_block_fn(row_block_fn, n, mesh=self.mesh, **kw)
+
+    def _mesh_operator_type(self, pack_cache_src):
+        """(the operator class, its keyword arguments) of this rank's part
+        on 'sharded' and 'sharded2d', whichever constructor builds it
+        (`_build_operator`'s row or block reads, `from_file`)."""
+        storage = _BASE.get(self.precision, self.precision)
         engine = self._sharded_engine
         if self.backend == "sharded2d":
             if engine in SYMM_ENGINES:
                 from lam_tpu_torch.parallel.pcg2d_symm import Symm2DOperator
-                return Symm2DOperator.from_block_fn(
-                    block_fn, n, mesh=self.mesh, precision=storage,
-                    pack_cache_src=pack_cache_src)
+                return Symm2DOperator, {"precision": storage,
+                                        "pack_cache_src": pack_cache_src}
             from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator
-            return Sharded2DOperator.from_block_fn(
-                block_fn, n, mesh=self.mesh, precision=storage,
-                engine=self.engine)
+            return Sharded2DOperator, {"precision": storage,
+                                       "engine": self.engine}
         if engine in SYMM_ENGINES:
             from lam_tpu_torch.parallel.pcg_symm import SymmShardedOperator
-            return SymmShardedOperator.from_row_block_fn(
-                row_fn, n, mesh=self.mesh,
-                packed=engine == "pallas_symm_packed",
-                precision=storage if storage in QUANT_LAYOUT else "df64",
-                pack_cache_src=pack_cache_src)
+            return SymmShardedOperator, {
+                "packed": engine == "pallas_symm_packed",
+                "precision": storage if storage in QUANT_LAYOUT else "df64",
+                "pack_cache_src": pack_cache_src}
         from lam_tpu_torch.parallel.pcg import ShardedDenseOperator
-        return ShardedDenseOperator.from_row_block_fn(
-            row_fn, n, mesh=self.mesh, precision=storage, engine=engine,
-            comm=self.comm)
+        return ShardedDenseOperator, {"precision": storage, "engine": engine,
+                                      "comm": self.comm}
 
     def generate_matrix(self, rows, cols=None):
         """Generate mode's dense tridiagonal, built on the device (see the
@@ -363,11 +386,8 @@ class ConjugateGradient:
         else:
             self.op = self._generate_mesh_operator(rows)
             if self.op is None:  # lam_tpu's host build (api.py:297-300)
-                self.op = self._sharded_operator(
-                    _BASE.get(self.precision, self.precision), rows,
-                    lambda s, m: gen.tridiagonal_rows(s, m, rows),
-                    lambda r0, c0, h, w: gen.tridiagonal_rows(
-                        r0, h, rows)[:, c0:c0 + w])
+                self.op = self._build_operator(
+                    lambda s, m: gen.tridiagonal_rows(s, m, rows), rows)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.timings["load_s"] = time.perf_counter() - t0

@@ -38,7 +38,9 @@ row-sharded grid, its edges the rows the halo exchange delivers, gives its
 plain version's bits and the one-device grid's; local Jacobi PCG (df64,
 irfq) launches the kernels of CG and no plain version. `dryrun.entry()`
 launches kernel 4 and no plain version, and `dryrun_multichip(2)` passes
-every leg on the card with no plain version.
+every leg on the card with no plain version. `lam-bench-torch`'s run_one
+(gen mode at N=4096 -i 15, spd mode in memory at N=1024) launches its
+storage's kernels and no plain version.
 """
 
 import numpy as np
@@ -3062,3 +3064,30 @@ def test_dryrun_multichip_two_ranks_on_the_card():
         assert rec["plain"] == {}, rec
         assert all(rec["kernels"].get(k) for k in dryrun.KERNELS_OF[
             rec["leg"]]), rec
+
+
+@pytest.mark.parametrize("mode,n,precision,kernels", [
+    ("gen", 4096, "auto", ("gemv_df64_symm_bcast",)),
+    ("spd", 1024, "df64", ("gemv_df64_symm",)),
+    ("spd", 1024, "ir", ("gemv_f32_symm", "gemv_df64_symm")),
+    ("spd", 1024, "irfq", ("gemv_q16_symm", "gemv_fq_symm"))])
+def test_bench_run_one_launches_its_kernels(mode, n, precision, kernels):
+    """lam_tpu_torch.bench.runner.run_one on the card: gen mode's capped
+    probe (num_iter 16) and spd mode's in-memory build through the
+    facade's _build_operator, each launching its storage's kernels and no
+    plain version."""
+    from lam_tpu_torch.bench import runner
+    ops.reset_counters()
+    row = runner.run_one(n, mode, 15 if mode == "gen" else 10000, 1e-9,
+                         "local", precision, "auto", None, device="cuda")
+    torch.cuda.synchronize()
+    counts = ops.counters()
+    f = row.split(",")
+    assert len(f) == 9 and f[:3] == [str(n), "1", "1"]
+    if mode == "gen":
+        assert f[6] == "16"
+    else:
+        assert int(f[6]) < 10000 and float(f[7]) < 1e-9
+    assert all(float(x) > 0 for x in (f[3], f[4], f[5], f[8]))
+    assert all(counts[k] > 0 for k in kernels), counts
+    assert not any(counts[fn.__name__] for fn in ops.PLAIN), counts

@@ -47,6 +47,7 @@ from lam_tpu.parallel import pcg_symm as jpcg_symm
 from lam_tpu.parallel.mesh import make_mesh as jmake_mesh
 from lam_tpu.parallel.pcg import ShardedDenseOperator as JDense
 from lam_tpu.solver import cg as jcg
+from lam_tpu.solver.oracle import oracle_cg as lam_oracle_cg
 from lam_tpu_torch import ConjugateGradient, DenseOperator, cg_solve_ir
 from lam_tpu_torch import cli as tcli
 from lam_tpu_torch import io as tio
@@ -79,6 +80,24 @@ DIAGONALS = {"gather": ("dense", "df64", "gather"),
              "dfq": ("symm", "dfq", True), "fq": ("symm", "fq", True)}
 QUANT_PRECISIONS = ("dfq", "irq", "fq", "irfq")
 F32_REL_ERROR = 1e-5
+# the from_file constructors at G=2, each against the operator of per-rank
+# reads: (op, precision, comm or packed, the file: "bin" or its .npy twin)
+FROM_FILE = {"ff-dense-df64": ("dense", "df64", "gather", "bin"),
+             "ff-dense-f32-npy": ("dense", "f32", "ring", "npy"),
+             "ff-slab-df64": ("symm", "df64", False, "bin"),
+             "ff-packed-df64-npy": ("symm", "df64", True, "npy"),
+             "ff-packed-fq": ("symm", "fq", True, "bin"),
+             "ff-packed-dfq-npy": ("symm", "dfq", True, "npy")}
+# lam-bench-torch over the 2 ranks (tests/test_torch_bench.py's (i)):
+# name -> its flags; each runs with --backend sharded and appends to one CSV
+BENCH_SIZE = 256
+BENCH_JOBS = {
+    "bench-gen": ["--mode", "gen", "--sizes", "1024", "-i", "15"],
+    "bench-spd": ["--mode", "spd", "--sizes", str(BENCH_SIZE)],
+    "bench-spd-irfq": ["--mode", "spd", "--sizes", str(BENCH_SIZE),
+                       "--precision", "irfq"],
+    "bench-spd-cache": ["--mode", "spd", "--sizes", str(BENCH_SIZE),
+                        "--pack-cache"]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -705,6 +724,17 @@ def _jobs(g, a_path, b_path, p_path, out):
             "--checkpoint-every", "10"]})
         jobs.append({"kind": "cli", "name": "cli-resume", "argv": ck_argv + [
             "-o", os.path.join(out, "x_resume.bin"), "--resume"]})
+        npy = os.path.join(os.path.dirname(p_path), "A.npy")
+        for name, (op, precision, how, kind) in FROM_FILE.items():
+            jobs.append({"kind": "from_file", "name": name, "op": op,
+                         "precision": precision, "comm": how, "packed": how,
+                         "tb": TB, "matrix": a_path if kind == "bin"
+                         else npy})
+        for name, flags in BENCH_JOBS.items():
+            jobs.append({"kind": "bench", "name": name, "argv": flags + [
+                "--backend", "sharded", "-o", os.path.join(out,
+                                                           "bench.csv")],
+                "env": {"LAM_BENCH_CACHE_DIR": os.path.join(out, "cache")}})
         # block CG over the row shards, the dense kernels' storage and xla
         for engine in ("auto", "xla"):
             jobs.append({"kind": "block", "name": f"block-dense-{engine}",
@@ -736,6 +766,7 @@ def clusters(system, tmp_path_factory):
     p_path = str(d / "p.npy")
     np.save(p_path, np.random.default_rng(5).uniform(-1, 1, N))
     np.save(str(d / "p_block.npy"), _rhs_block())
+    np.save(str(d / "A.npy"), a)
     out = {}
     for g in RANKS:
         run_dir = str(d / f"g{g}")
@@ -1138,6 +1169,126 @@ def test_cli_across_two_ranks(system, clusters):
     assert _rel(x, x_local) <= 1e-6
     for rec in recs:  # both ranks walked their column blocks
         assert rec["counts"]["gemv_f32_cols_plain"] > 0
+
+
+@pytest.mark.parametrize("name", list(FROM_FILE))
+def test_from_file_equals_the_per_rank_reads(clusters, name):
+    """ShardedDenseOperator.from_file and SymmShardedOperator.from_file
+    (lam_tpu/parallel/pcg.py:514, pcg_symm.py:779) on every rank of G=2:
+    the operand byte-equal to the operator built from the same rows by
+    from_row_block_fn, on the binary file and on its .npy twin."""
+    records, _ = clusters[2]
+    op = FROM_FILE[name][0]
+    for rank in records:
+        rec = rank[name]
+        assert rec["equal"] and rec["tensors"] >= 1
+        assert rec["types"][0] == rec["types"][1] == (
+            "ShardedDenseOperator" if op == "dense" else
+            "SymmShardedOperator")
+        assert rec["sizes"][0] == rec["sizes"][1]
+        assert rec["sizes"][0][0] == N
+
+
+@pytest.mark.parametrize("cls,lam_cls", [
+    ("pcg.ShardedDenseOperator", "pcg.ShardedDenseOperator"),
+    ("pcg_symm.SymmShardedOperator", "pcg_symm.SymmShardedOperator"),
+    ("pcg2d.Sharded2DOperator", "pcg2d.Sharded2DOperator"),
+    ("pcg2d_symm.Symm2DOperator", "pcg2d_symm.Symm2DOperator")])
+def test_from_file_takes_lam_tpus_arguments(cls, lam_cls):
+    """The four from_file constructors take lam_tpu's arguments in its
+    order (less the row shards' `axis`, a JAX mesh axis; plus the port's
+    `device`, and on the symmetric storages the facade's `pack_cache_src`,
+    None by default), with the port's documented precision default: df64,
+    where lam_tpu's row shards and dense grid default to 'auto'
+    (ROADMAP.md, "Observed differences")."""
+    import importlib
+    import inspect
+    sigs = []
+    for pkg in ("lam_tpu_torch", "lam_tpu"):
+        mod, name = (cls if pkg == "lam_tpu_torch" else lam_cls).split(".")
+        fn = getattr(importlib.import_module(f"{pkg}.parallel.{mod}"),
+                     name).from_file
+        sigs.append(inspect.signature(fn).parameters)
+    port, ref = sigs
+    assert [k for k in port if k not in ("device", "pack_cache_src")] == [
+        k for k in ref if k != "axis"]
+    assert ("pack_cache_src" in port) == ("symm" in cls)
+    if "symm" in cls:
+        assert port["pack_cache_src"].default is None
+    assert port["device"].default == "cuda"
+    assert port["precision"].default == "df64"
+    assert ref["precision"].default in ("df64", "auto")
+    for k in ref:
+        if k not in ("axis", "precision"):
+            assert port[k].default == ref[k].default
+
+
+def test_from_file_refuses_a_matrix_that_is_not_square(tmp_path):
+    path = str(tmp_path / "A.bin")
+    tio.write_matrix(path, np.ones((6, 4)))
+    mesh = pmesh.Mesh(0, 1, "cpu")
+    for build in (
+            lambda: pcg.ShardedDenseOperator.from_file(path, mesh=mesh),
+            lambda: pcg_symm.SymmShardedOperator.from_file(path,
+                                                           mesh=mesh)):
+        with pytest.raises(ValueError,
+                           match=r"matrix must be square \(6x4\)"):
+            build()
+
+
+def _bench_rows(clusters):
+    """Rank 0's one printed row of each bench job, checked: both ranks
+    exited 0 and rank 1 printed nothing."""
+    records, _ = clusters[2]
+    rows = {}
+    for name in BENCH_JOBS:
+        recs = [rank[name] for rank in records]
+        assert [rec["rc"] for rec in recs] == [0, 0], recs[0]["stderr"]
+        assert not recs[1]["stdout"]
+        (line,) = recs[0]["stdout"].strip().splitlines()
+        rows[name] = line.split(",")
+        assert len(rows[name]) == 9
+        assert rows[name][1:3] == ["2", "1"]  # procs = the ranks
+    return rows
+
+
+@pytest.mark.parametrize("name", list(BENCH_JOBS))
+def test_bench_sweep_across_two_ranks(clusters, name):
+    """lam-bench-torch --backend sharded --device cpu on both ranks:
+    rank 0 alone prints its row, procs 2, and appends it; gen mode at
+    N=1024 -i 15 (num_iter 16), spd mode at n=256 in memory (f64 and irfq:
+    each rank builds its own part through the facade's _build_operator)
+    and through the .npy cache, which rank 0 alone publishes."""
+    records, _ = clusters[2]
+    f = _bench_rows(clusters)[name]
+    if name == "bench-gen":
+        assert f[0] == "1024" and f[6] == "16"
+        return
+    a = jgen.random_spd_matrix(BENCH_SIZE, seed=2024)
+    b = jgen.random_rhs(BENCH_SIZE, seed=2034)
+    k = lam_oracle_cg(a, b, max_iters=10000)[1]
+    assert f[0] == str(BENCH_SIZE) and float(f[7]) < 1e-9
+    assert int(f[6]) <= 10000
+    if name == "bench-spd-irfq":
+        for rank in records:  # the quantized band pairs on every rank
+            counts = rank[name]["counts"]
+            assert counts["gemv_q16_symm_slab_plain"] > 0
+            assert counts["gemv_fq_symm_slab_plain"] > 0
+    else:
+        # f64 sums in other orders: within 2% of the oracle's count
+        assert abs(int(f[6]) - k) <= math.ceil(0.02 * k)
+
+
+def test_bench_sweep_appends_rank_0s_rows_and_caches_once(clusters):
+    records, run_dir = clusters[2]
+    rows = _bench_rows(clusters)
+    with open(os.path.join(run_dir, "bench.csv")) as f:
+        lines = f.read().splitlines()
+    assert [line.split(",") for line in lines] == list(rows.values())
+    # the cached system gives the in-memory one's solve
+    assert rows["bench-spd-cache"][6:8] == rows["bench-spd"][6:8]
+    assert os.listdir(os.path.join(run_dir, "cache")) == [
+        f"lam_bench_spd_N{BENCH_SIZE}_s2024.npy"]
 
 
 # -- what the backends refuse ----------------------------------------------

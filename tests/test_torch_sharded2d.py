@@ -39,6 +39,13 @@ CLUSTER_TIMEOUT_S = 240
 PRECISIONS = ("f32", "df64", "ir")
 F32_REL_ERROR = 1e-5
 JACOBI_REL = 5e-10  # half the TRUE gate of the Jacobi solves, 1e-9
+# the 2-D from_file constructors on the 2 x 2 grid, each against the
+# operator of per-rank block reads: (op, precision, the file)
+FROM_FILE = {"ff-grid-df64": ("grid", "df64", "bin"),
+             "ff-grid-f32-npy": ("grid", "f32", "npy"),
+             "ff-symgrid-df64-npy": ("symgrid", "df64", "npy"),
+             "ff-symgrid-fq": ("symgrid", "fq", "bin")}
+TB = 128  # the symmetric grid's tile at N=500
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -265,6 +272,11 @@ def _jobs(a_path, b_path, p_path, out):
                  "precision": "f64", "engine": "xla", "matrix": a_path,
                  "rhs_block": p_path[:-4] + "_block.npy",
                  "rel_error": 1e-9})
+    npy = os.path.join(os.path.dirname(p_path), "A.npy")
+    for name, (op, precision, kind) in FROM_FILE.items():
+        jobs.append({"kind": "from_file", "name": name, "op": op,
+                     "precision": precision, "tb": TB,
+                     "matrix": a_path if kind == "bin" else npy})
     return jobs
 
 
@@ -276,6 +288,7 @@ def cluster(system, tmp_path_factory):
     p_path = str(d / "p.npy")
     np.save(p_path, np.random.default_rng(6).uniform(-1, 1, N))
     np.save(str(d / "p_block.npy"), _rhs_block())
+    np.save(str(d / "A.npy"), a)
     run_dir = str(d / "r2")
     return launch_cluster(4, _jobs(a_path, b_path, p_path, run_dir), run_dir,
                           CLUSTER_TIMEOUT_S), run_dir
@@ -498,3 +511,19 @@ def test_grid_block_cg(system, cluster):
     for r in range(4):
         assert np.array_equal(xs[r], xs[0])
         assert records[r]["block-grid-xla"]["iters"] == iters
+
+
+@pytest.mark.parametrize("name", list(FROM_FILE))
+def test_from_file_equals_the_per_rank_reads(cluster, name):
+    """Sharded2DOperator.from_file and Symm2DOperator.from_file
+    (lam_tpu/parallel/pcg2d.py:331, pcg2d_symm.py:689) on every rank of the
+    2 x 2 grid: the operand byte-equal to the operator built from the same
+    blocks by from_block_fn, on the binary file and on its .npy twin."""
+    records, _ = cluster
+    for rank in records:
+        rec = rank[name]
+        assert rec["equal"] and rec["tensors"] >= 1
+        assert rec["types"][0] == rec["types"][1] == (
+            "Sharded2DOperator" if FROM_FILE[name][0] == "grid"
+            else "Symm2DOperator")
+        assert rec["sizes"][0] == rec["sizes"][1] and rec["sizes"][0][0] == N

@@ -32,6 +32,13 @@ and left after the last. Jobs:
       inner iterations, residual, and the grid saved as above;
   {"kind": "heat-cli", "name", "argv"}: lam_tpu_torch.apps.heat_cli.main
       as the "cli" job runs lam_tpu_torch.cli.main;
+  {"kind": "bench", "name", "argv", "env"}: lam_tpu_torch.bench.runner.main
+      the same way, with "env" set in this process's environment first;
+  {"kind": "from_file", "name", "op", "precision", "engine", "comm",
+      "packed", "tb", "matrix"}: the operator's `from_file` constructor
+      beside the one built from per-rank reads (as "solve" builds it):
+      whether every operand tensor is equal (dtype and bits) and the
+      sizes (n, n_padded) of both;
   {"kind": "halo", "name"}: Mesh.halo of the rows rank+1 and -(rank+1)
       (4 wide); the (up, dn) it returns saved as above;
   {"kind": "checkpoint", "name", "op", "precision", "engine", ..., "dir"}:
@@ -74,6 +81,7 @@ from lam_tpu_torch import (cg_solve, cg_solve_block, cg_solve_ir,  # noqa: E402
 from lam_tpu_torch.solver import checkpoint as ckpt  # noqa: E402
 from lam_tpu_torch import io as lio  # noqa: E402
 from lam_tpu_torch.apps import heat, heat_cli  # noqa: E402
+from lam_tpu_torch.bench import runner  # noqa: E402
 from lam_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from lam_tpu_torch.parallel.pcg import ShardedDenseOperator  # noqa: E402
 from lam_tpu_torch.parallel.pcg2d import Sharded2DOperator  # noqa: E402
@@ -173,19 +181,45 @@ def _operator(job, mesh):
         precision=storage, pack_cache_src=src)
 
 
+def _from_file(job, mesh):
+    """This rank's part of the job's operator through its `from_file`
+    constructor."""
+    storage = _BASE.get(job["precision"], job["precision"])
+    path, engine = job["matrix"], job.get("engine", "auto")
+    if job["op"] == "dense":
+        return ShardedDenseOperator.from_file(
+            path, mesh=mesh, precision=storage, engine=engine,
+            comm=job["comm"])
+    if job["op"] == "grid":
+        return Sharded2DOperator.from_file(path, mesh=mesh,
+                                           precision=storage, engine=engine)
+    if job["op"] == "symgrid":
+        return Symm2DOperator.from_file(path, mesh=mesh, tb=job["tb"],
+                                        precision=storage)
+    return SymmShardedOperator.from_file(
+        path, mesh=mesh, tb=job["tb"], packed=job.get("packed", False),
+        precision=storage)
+
+
+def _operands(op):
+    return op.operand if isinstance(op.operand, tuple) else (op.operand,)
+
+
 def _save(out, name, rank, x):
     np.save(os.path.join(out, f"{name}.r{rank}.npy"), x)
 
 
 def _run(job, args, out, meshes):
     name = job["name"]
-    if job["kind"] in ("cli", "heat-cli"):
+    if job["kind"] in ("cli", "heat-cli", "bench"):
+        os.environ.update(job.get("env", {}))
         argv = job["argv"] + [
             "--coordinator", args.coordinator, "--num-processes",
             str(args.num_processes), "--process-id", str(args.process_id),
             "--device", args.device]
         buf, err = io.StringIO(), io.StringIO()
-        main = cli.main if job["kind"] == "cli" else heat_cli.main
+        main = {"cli": cli.main, "heat-cli": heat_cli.main,
+                "bench": runner.main}[job["kind"]]
         with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
             rc = main(argv)
         return {"rc": rc, "stdout": buf.getvalue(), "stderr": err.getvalue()}
@@ -209,6 +243,16 @@ def _run(job, args, out, meshes):
     op = _operator(job, mesh)
     rec = {"backend": mesh.backend, "device": str(mesh.device),
            "size": mesh.size}
+    if job["kind"] == "from_file":
+        other = _from_file(job, mesh)
+        pairs = list(zip(_operands(op), _operands(other)))
+        rec.update(
+            equal=len(_operands(op)) == len(_operands(other)) and all(
+                x.dtype == y.dtype and torch.equal(x, y) for x, y in pairs),
+            tensors=len(pairs), types=[type(op).__name__,
+                                       type(other).__name__],
+            sizes=[[op.n, op.n_padded], [other.n, other.n_padded]])
+        return rec
     if job["kind"] == "diagonal":
         d, inv = op.diagonal(), _inv_diag_f32(op)
         if not isinstance(op, SymmShardedOperator):
