@@ -284,7 +284,11 @@
    G ranks on one card measure the sharded program, not scaling.
 5. Solves the benchmark system through the port's CLI with --backend
    sharded, G rank processes of this script (`--rank r ...`, started with
-   subprocess, each killed if its cluster outlives CLUSTER_TIMEOUT_S)
+   subprocess, each killed if its cluster outlives CLUSTER_TIMEOUT_S; the
+   G=2 cluster's ranks as srun starts them, their rank and rank count in
+   SLURM's variables and no rank flag, the CLI given --coordinator alone;
+   each rank's rank, size, card, backend, the source of its join and its
+   card's UUID printed, both ranks on cuda:0 over gloo from source slurm)
    sharing the one card over gloo (the G=2 and G=4 clusters side by side,
    so their load, solve and gemv times are contended, then the mxu
    cluster alone), each running lam_tpu_torch.cli.main in
@@ -491,6 +495,7 @@ no result line. Without a CUDA device it exits 1 at once.
 """
 
 import contextlib
+import dataclasses
 import filecmp
 import gc
 import io
@@ -4041,7 +4046,7 @@ def sharded_heat_runs(ops, lio, grid_f64, tmp, total):
     t0 = time.perf_counter()
     every = _clusters([(g, [{"run": f"heat-ir-{g}", "app": "heat", "argv": [
         str(HEAT_NX), str(HEAT_NY), os.path.join(tmp, f"heat-ir-{g}.bin"),
-        "100000", "--devices", str(g)]}], None, f"heat{g}")
+        "100000", "--devices", str(g)]}], None, f"heat{g}", None)
         for g in HEAT_DEVICES], tmp)
     wall = time.perf_counter() - t0
     for g, records in zip(HEAT_DEVICES, every):
@@ -4470,12 +4475,15 @@ def host_outer_runs(ops, api, cli, lio, a_path, b_path, tmp, n, kernels,
 
 def rank_main(argv):
     """One rank of a phase-5 cluster (`chip_smoke.py --rank r --ranks G
-    --port P --jobs J --out D`): joins the process group, runs every job
-    of J through the port's CLI in process with --backend sharded (or the
-    job's own --backend; a job with an "app" through lam-heat-torch's or
-    lam-bench-torch's main with the rank flags), and
-    writes D/rank<r>.json with each job's exit code, output, launch
-    counts and the mesh's backend and device."""
+    --port P --jobs J --out D`, or `chip_smoke.py --jobs J --out D` under
+    srun's variables, which give the rank, the rank count and the
+    coordinator): joins the process group, runs every job of J through
+    the port's CLI in process with --backend sharded (or the job's own
+    --backend; a job with an "app" through lam-heat-torch's or
+    lam-bench-torch's main) with the rank flags it was given
+    (--coordinator alone under srun), and writes D/rank<r>.json with each
+    job's exit code, output, launch counts and the mesh's backend and
+    device, and D/launch<r>.json with the join's `mesh.Launch`."""
     import argparse
 
     import torch.distributed as dist
@@ -4486,13 +4494,24 @@ def rank_main(argv):
 
     p = argparse.ArgumentParser()
     for flag in ("--rank", "--ranks", "--port"):
-        p.add_argument(flag, type=int, required=True)
+        p.add_argument(flag, type=int)
     p.add_argument("--jobs", required=True)
     p.add_argument("--out", required=True)
     args = p.parse_args(argv)
-    address = f"127.0.0.1:{args.port}"
-    pmesh.distributed_init(address, args.ranks, args.rank, device="cuda",
-                           timeout_s=CLUSTER_TIMEOUT_S)
+    if args.port is None:  # all from srun's variables
+        launch = pmesh.distributed_init(device="cuda",
+                                        timeout_s=CLUSTER_TIMEOUT_S)
+        rank_flags = ["--coordinator", launch.coordinator]
+    else:
+        address = f"127.0.0.1:{args.port}"
+        launch = pmesh.distributed_init(address, args.ranks, args.rank,
+                                        device="cuda",
+                                        timeout_s=CLUSTER_TIMEOUT_S)
+        rank_flags = ["--coordinator", address, "--num-processes",
+                      str(args.ranks), "--process-id", str(args.rank)]
+    args.rank = launch.process_id
+    with open(os.path.join(args.out, f"launch{args.rank}.json"), "w") as f:
+        json.dump(dataclasses.asdict(launch), f)
     mesh = pmesh.make_mesh(device="cuda")
     with open(args.jobs) as f:
         jobs = json.load(f)
@@ -4505,10 +4524,7 @@ def rank_main(argv):
             from lam_tpu_torch.bench import runner
             app = {"heat": heat_cli.main, "bench": runner.main}[job["app"]]
             with contextlib.redirect_stdout(out):
-                rc = app(job["argv"] + [
-                    "--device", "cuda", "--coordinator", address,
-                    "--num-processes", str(args.ranks), "--process-id",
-                    str(args.rank)])
+                rc = app(job["argv"] + ["--device", "cuda"] + rank_flags)
             torch.cuda.synchronize()
             results.append({"run": job["run"], "rc": rc,
                             "stdout": out.getvalue(),
@@ -4542,9 +4558,7 @@ def rank_main(argv):
             backend = ([] if "--backend" in job["argv"]
                        else ["--backend", "sharded"])
             rc = cli.main(job["argv"] + backend + [
-                "--device", "cuda", "--init-col",
-                "--coordinator", address, "--num-processes",
-                str(args.ranks), "--process-id", str(args.rank)])
+                "--device", "cuda", "--init-col"] + rank_flags)
         torch.cuda.synchronize()
         # the facade's unrounded timings and the bytes of its operand's
         # planes of the first plane's shape (not a broadcast tile)
@@ -4627,17 +4641,35 @@ def _cluster(g, jobs, tmp, env=None, label=None):
     """Run the jobs in a cluster of g rank processes of this script on the
     one card, with `env` added to their environment; returns each rank's
     records (`_clusters` of one)."""
-    return _clusters([(g, jobs, env, label)], tmp)[0]
+    return _clusters([(g, jobs, env, label, None)], tmp)[0]
+
+
+def _rank_start(launcher, g, r, port):
+    """(the argv, the environment added) of rank r of g: the rank flags,
+    or under 'slurm' srun's variables of one node's step (node list
+    127.0.0.1, the coordinator's port in JAX_COORDINATOR_PORT, SLURM_LOCALID
+    r, which the one card's count folds onto cuda:0) and no rank flag."""
+    if launcher is None:
+        return ["--rank", str(r), "--ranks", str(g), "--port", str(port)], {}
+    return [], {"SLURM_JOB_ID": "4242", "SLURM_STEP_NODELIST": "127.0.0.1",
+                "SLURM_NTASKS": str(g), "SLURM_PROCID": str(r),
+                "SLURM_LOCALID": str(r), "JAX_COORDINATOR_PORT": str(port)}
 
 
 def _clusters(specs, tmp):
     """Run clusters side by side on the one card, each (g, jobs, env,
-    label) a process group of g rank processes of this script with `env`
-    added to their environment; returns each cluster's records, one list
-    of job records a rank. Kills every rank and fails when one fails or
-    the clusters outlive CLUSTER_TIMEOUT_S."""
+    label, launcher) a process group of g rank processes of this script
+    with `env` added to their environment, started with the rank flags or
+    (launcher 'slurm') as srun starts them; prints each rank's join and
+    returns each cluster's records, one list of job records a rank. Kills
+    every rank and fails when one fails, when a rank's join did not come
+    from its launcher, or when the clusters outlive CLUSTER_TIMEOUT_S."""
     started = []
-    for (g, jobs, env, label), port in zip(specs, _free_ports(len(specs))):
+    # no launcher's variables but a cluster's own
+    base = {k: v for k, v in os.environ.items()
+            if not k.startswith(("SLURM_", "OMPI_", "JAX_COORDINATOR_"))}
+    for (g, jobs, env, label, launcher), port in zip(
+            specs, _free_ports(len(specs))):
         out = os.path.join(tmp, label or f"cluster{g}")
         os.makedirs(out, exist_ok=True)
         jobs_path = os.path.join(out, "jobs.json")
@@ -4645,15 +4677,16 @@ def _clusters(specs, tmp):
             json.dump(jobs, f)
         logs = [open(os.path.join(out, f"rank{r}.log"), "w")
                 for r in range(g)]
+        starts = [_rank_start(launcher, g, r, port) for r in range(g)]
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--rank", str(r),
-             "--ranks", str(g), "--port", str(port), "--jobs", jobs_path,
-             "--out", out], stdout=logs[r], stderr=subprocess.STDOUT,
-            env=None if env is None else {**os.environ, **env})
-            for r in range(g)]
-        started.append((g, out, logs, procs))
+            [sys.executable, os.path.abspath(__file__), *flags, "--jobs",
+             jobs_path, "--out", out], stdout=logs[r],
+            stderr=subprocess.STDOUT,
+            env={**base, **(env or {}), **rank_env})
+            for r, (flags, rank_env) in enumerate(starts)]
+        started.append((g, out, logs, procs, launcher))
     deadline = time.monotonic() + CLUSTER_TIMEOUT_S
-    every = [proc for _, _, _, procs in started for proc in procs]
+    every = [proc for _, _, _, procs, _ in started for proc in procs]
     try:
         for proc in every:
             proc.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -4664,11 +4697,11 @@ def _clusters(specs, tmp):
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-        for _, _, logs, _ in started:
+        for _, _, logs, _, _ in started:
             for log in logs:
                 log.close()
     failed = []
-    for g, out, _, procs in started:
+    for g, out, _, procs, _ in started:
         codes = [proc.returncode for proc in procs]
         if any(codes):
             for r in range(g):
@@ -4680,11 +4713,29 @@ def _clusters(specs, tmp):
     if failed:
         raise AssertionError("; ".join(failed))
     records = []
-    for g, out, _, _ in started:
+    for g, out, _, _, launcher in started:
         ranks = []
         for r in range(g):
             with open(os.path.join(out, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
+            with open(os.path.join(out, f"launch{r}.json")) as f:
+                launch = json.load(f)
+            print(f"{os.path.basename(out)} rank {r}: rank "
+                  f"{launch['process_id']} of {launch['num_processes']} on "
+                  f"{launch['device']} over {launch['backend']}, source "
+                  f"{launch['source']['process_id']} "
+                  f"({launch['source']}), card {launch['uuid']} on "
+                  f"{launch['host']}")
+            # ranks sharing the one card: cuda:0 over gloo, whatever the
+            # launcher's local id
+            _check((launch["process_id"], launch["num_processes"],
+                    launch["source"]["process_id"], launch["device"],
+                    launch["backend"])
+                   == (r, g, launcher or "flags", "cuda:0", "gloo"),
+                   f"{os.path.basename(out)} rank {r}: joined as "
+                   f"{launch['process_id']} of {launch['num_processes']} "
+                   f"on {launch['device']} over {launch['backend']} from "
+                   f"{launch['source']}")
         records.append(ranks)
     return records
 
@@ -4714,7 +4765,9 @@ def sharded_runs(ops, lio, system, local_xs, local_iters, tmp):
         if g == 2 and env is None:
             jobs.append({"run": BENCH_SHARDED_RUN, "app": "bench",
                          "argv": BENCH_SHARDED_FLAGS + ["-o", bench_csv]})
-        specs.append((g, jobs, env, f"cluster{g}" + ("-mxu" if env else "")))
+        # the 2-rank cluster starts as srun starts it
+        specs.append((g, jobs, env, f"cluster{g}" + ("-mxu" if env else ""),
+                      "slurm" if g == 2 and env is None else None))
     # the G=2 and G=4 clusters side by side (their own files, a few GB of
     # the card), then the mxu cluster alone
     t0 = time.perf_counter()
@@ -6046,5 +6099,5 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(rank_main(sys.argv[1:]) if "--rank" in sys.argv else
+    sys.exit(rank_main(sys.argv[1:]) if "--jobs" in sys.argv else
              fresh_main() if "--fresh-checks" in sys.argv else main())

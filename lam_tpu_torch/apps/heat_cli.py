@@ -11,7 +11,8 @@ reference defaults. Flags:
                          implies ir): one process per rank, each started
                          with the same flags and its own --process-id
   --coordinator <host:port> --num-processes G --process-id r
-                         the process group of a --devices run (as lam-cg's)
+                         the process group of a --devices run (as lam-cg's;
+                         under srun or mpirun --coordinator alone)
   --device cuda|cpu      (default cuda; cuda raises when no card is present)
 The printed lines are lam_tpu's, so one parser reads both CLIs' output;
 with --devices only rank 0 prints and writes the output file.
@@ -53,13 +54,15 @@ def _cli_main(argv=None):
     p.add_argument("--coordinator", metavar="<host:port>", default=None,
                    help="Multi-process mode: address of the TCP rendezvous "
                         "of torch.distributed.init_process_group (rank 0 "
-                        "listens there). Launch one process per rank.")
+                        "listens there). Launch one process per rank; "
+                        "under srun or mpirun the rank count and rank "
+                        "come from the launcher's variables.")
     p.add_argument("--num-processes", type=int, default=None,
                    metavar="<int>", help="Total process count "
-                   "(multi-process mode)")
+                   "(multi-process mode; default: the launcher's)")
     p.add_argument("--process-id", type=int, default=None,
                    metavar="<int>", help="This process's rank "
-                   "(multi-process mode)")
+                   "(multi-process mode; default: the launcher's)")
     p.add_argument("--precision", choices=["auto", "f64", "ir"],
                    default="auto",
                    help="CG solver precision: ir = f32 inner on the stencil "

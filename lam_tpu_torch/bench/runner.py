@@ -29,11 +29,12 @@ Flags: lam_tpu's (--sizes --mode -i -e -o --backend --precision --engine
 --devices --comm --seed --pack-cache) and the port's --device cuda|cpu
 (default cuda; cuda without a card is rc 1, never a CPU run). A sharded
 sweep starts one process per rank with the same flags and its own
---coordinator <host:port> --num-processes G --process-id r, as lam-cg-torch
-takes them: every rank runs every solve and measurement, rank 0 alone
-prints and appends, and a rank outside the R x R grid of --backend
-sharded2d takes no part. A group the caller joined already is kept.
-Errors print one line on stderr and give rc 1.
+--coordinator <host:port> --num-processes G --process-id r, or under srun
+or mpirun with --coordinator alone, as lam-cg-torch takes them: every
+rank runs every solve and measurement, rank 0 alone prints and appends,
+and a rank outside the R x R grid of --backend sharded2d takes no part.
+A group the caller joined already is kept. Errors print one line on
+stderr and give rc 1.
 """
 
 from __future__ import annotations
@@ -147,11 +148,15 @@ def build_parser():
     p.add_argument("--coordinator", metavar="<host:port>", default=None,
                    help="Multi-process mode: the TCP rendezvous of the "
                         "process group (rank 0 listens there). Launch one "
-                        "process per rank.")
+                        "process per rank; under srun or mpirun the rank "
+                        "count and rank come from the launcher's "
+                        "variables.")
     p.add_argument("--num-processes", type=int, default=None,
-                   metavar="<int>", help="Total process count")
+                   metavar="<int>", help="Total process count (default: "
+                   "the launcher's)")
     p.add_argument("--process-id", type=int, default=None,
-                   metavar="<int>", help="This process's rank")
+                   metavar="<int>", help="This process's rank (default: "
+                   "the launcher's)")
     return p
 
 

@@ -51,9 +51,15 @@ own part on its device. With --outer host the CSV row is the same, its
 avg_gemv_s the inner q1 matvec.
 
 A sharded run starts one process per rank, each with the same flags and
-its own --process-id (lam_tpu/cli.py:108-120, :265-269); --device cuda
-puts rank r on cuda:{r % device_count} (the card of LOCAL_RANK where a
-launcher sets it), --device cpu runs a CPU cluster over gloo. Only rank 0
+its own --process-id (lam_tpu/cli.py:108-120, :265-269), or under srun
+or mpirun with --coordinator alone: the rank count and rank come from
+the launcher's variables, as lam_tpu takes them (`srun -n G
+lam-cg-torch --backend sharded --coordinator <first node>:<port> ...`;
+`mpirun -np G ...` the same). --device cuda puts a rank on the card of
+its index on its host (SLURM_LOCALID, OMPI_COMM_WORLD_LOCAL_RANK or
+LOCAL_RANK where a launcher sets one, else its rank) modulo the visible
+cards, over NCCL when every rank has a card of its own and over gloo
+when ranks share one; --device cpu runs a CPU cluster over gloo. Only rank 0
 prints and writes the solution. --backend sharded takes every precision:
 f32/df64/ir on row shards or the band-pair walk, dfq/irq/fq/irfq on the
 band-pair walk's quantized storages (with --pack-cache each rank keeps
@@ -179,13 +185,15 @@ def build_parser():
     p.add_argument("--coordinator", metavar="<host:port>", default=None,
                    help="Multi-process mode: address of the TCP rendezvous "
                         "of torch.distributed.init_process_group (rank 0 "
-                        "listens there). Launch one process per rank.")
+                        "listens there). Launch one process per rank; "
+                        "under srun or mpirun the rank count and rank "
+                        "come from the launcher's variables.")
     p.add_argument("--num-processes", type=int, default=None,
                    metavar="<int>", help="Total process count "
-                   "(multi-process mode)")
+                   "(multi-process mode; default: the launcher's)")
     p.add_argument("--process-id", type=int, default=None,
                    metavar="<int>", help="This process's rank "
-                   "(multi-process mode)")
+                   "(multi-process mode; default: the launcher's)")
     p.add_argument("--local-devices", type=int, default=None,
                    metavar="<int>", help=argparse.SUPPRESS)
     p.add_argument("--platform", default=None, help=argparse.SUPPRESS)

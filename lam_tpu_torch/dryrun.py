@@ -12,9 +12,11 @@ generate-mode tridiagonal of n=512 against ones.
 
 `dryrun_multichip(G, device)` starts G rank processes of this module
 (`--coordinator/--num-processes/--process-id/--device`, as the CLI's
-sharded runs take them), joined in one process group (gloo when they
-share a card or the CPU). Each leg is one converged solve of
-`random_spd_system(n, seed=2024)`, or one matvec, in lam_tpu's order:
+sharded runs take them; a rank started by srun or mpirun needs only
+`--coordinator`, `--device` and `--workdir`), joined in one process
+group (gloo when they share a card or the CPU). Each leg is one
+converged solve of `random_spd_system(n, seed=2024)`, or one matvec, in
+lam_tpu's order:
 
   gather, ir/gather, ring, ir/ring     row shards (precision 'auto': df64
                                        on a card, f64 on the CPU), then
@@ -283,7 +285,6 @@ class _Rank:
     def __init__(self, args):
         from lam_tpu_torch.parallel import mesh as pmesh
         self.device = args.device
-        self.rank = args.process_id
         work = args.workdir
         with open(os.path.join(work, "system.json")) as f:
             meta = json.load(f)
@@ -292,6 +293,7 @@ class _Rank:
         self.b = np.load(os.path.join(work, "b.npy"))
         self.bnorm = np.linalg.norm(self.b)
         self.mesh = pmesh.make_mesh(device=self.device)
+        self.rank = self.mesh.rank
         r = math.isqrt(self.mesh.size)
         self.mesh2 = None
         if r >= 2:  # every rank creates the grid's subgroups, idle ones too

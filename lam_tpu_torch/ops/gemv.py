@@ -137,6 +137,11 @@ import numpy as np
 import torch
 
 from lam_tpu_torch.ops import layout
+# lam_tpu's gemv module holds its layout too: the same names at its path
+from lam_tpu_torch.ops.layout import (  # noqa: F401
+    DF64_SYMM_TB, Q16_P, SYMM_TB, TILE_K, TILE_M, pack_rect_host,
+    pack_tri_host, padded_tri_tile_count, quantize_fq_tiles,
+    quantize_lo_tiles, tri_tile_count)
 from lam_tpu_torch.precision import split_f64
 
 

@@ -6,8 +6,9 @@ the fq additions `Q16_P`, `padded_tri_tile_count`,
 `_symm_tables_padded`, `_pow2_scale`, `quantize_fq_tiles`, gemv.py:300,
 :337-361, :1123, :1876; the dfq lo quantizer `quantize_lo_tiles`,
 gemv.py:1134; the dual kernels' rectangle pack `pack_rect_host`,
-gemv.py:1832) and the padding rule of
-lam_tpu/solver/operators.py (`PAD_MULTIPLE`, `padded_size`,
+gemv.py:1832), the tile widths `DF64_SYMM_TB` (gemv.py:988) and the
+dense tile contract `TILE_M`, `TILE_K` (gemv.py:46-47), and the padding
+rule of lam_tpu/solver/operators.py (`PAD_MULTIPLE`, `padded_size`,
 operators.py:31-43), byte-for-byte. The values are fixed here as layout
 contracts: the port reads none of the JAX package's LAM_TPU_* tuning
 variables.
@@ -26,6 +27,9 @@ import functools
 import numpy as np
 
 SYMM_TB = 512        # tile width of the packed layout
+DF64_SYMM_TB = 512   # the df64 band pairs' and symmetric grid's tile width
+TILE_M = 256         # the dense tile contract, which sets the padding of
+TILE_K = 1024        # a sharded full-square operator
 PAD_MULTIPLE = 1024  # operators pad n up to a multiple of this
 _LANES = 128         # smallest legal tile width
 Q16_P = 8            # fq planes pad their tile count to a multiple of this

@@ -8,22 +8,30 @@ collectives of the sharded solvers are methods of `Mesh` (1-D) and
 `Mesh2D` (the R x R grid: rank i * R + j sits at grid row i, grid
 column j, with a process subgroup per grid row and per grid column).
 
-Backend: NCCL when every rank has a card of its own (a CUDA device and
-at most one rank of this host per visible card; the host's share of the
-ranks is torchrun's LOCAL_WORLD_SIZE where set), gloo when ranks share a
-card or the device is the CPU. Gloo's point-to-point operations take CPU tensors
-only, so under gloo every collective sends a CUDA tensor through the
-host (`Mesh._to_comm` / `_from_comm`, the one place that copies); the
-vectors and the matrix stay on the rank's card. Under NCCL the tensors
-never leave the card.
+A run starts as lam_tpu's does (`distributed_init`): one process a rank,
+with the coordinator, the rank count and the rank given as flags, or
+taken, where they are not given, from the variables of the launcher that
+started the processes (srun or mpirun, detected by jax's rules). Each
+rank takes the card of its index on its host (the launcher's local id,
+or torchrun's LOCAL_RANK), and the ranks exchange their cards' UUIDs
+before they join. Backend: NCCL when every rank has a card of its own,
+gloo when ranks share a card or the device is the CPU. Gloo's
+point-to-point operations take CPU tensors only, so under gloo every
+collective sends a CUDA tensor through the host (`Mesh._to_comm` /
+`_from_comm`, the one place that copies); the vectors and the matrix stay
+on the rank's card. Under NCCL the tensors never leave the card.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import datetime
+import json
 import math
 import os
+import re
+import socket
 import sys
 
 import torch
@@ -34,89 +42,269 @@ from lam_tpu_torch.solver.operators import resolve_device, vdot
 ROWS_AXIS = "rows"
 
 
-def _local_layout(rank, num_processes):
-    """(local rank, local world size) of this process on its host:
-    torchrun's LOCAL_RANK / LOCAL_WORLD_SIZE where set; else every rank
-    is taken to share this host (rank, num_processes)."""
-    local_size = os.environ.get("LOCAL_WORLD_SIZE")
-    if local_size is None:
-        return rank, num_processes
-    return int(os.environ.get("LOCAL_RANK", rank)), int(local_size)
+# The launchers of lam_tpu's runs, detected by jax.distributed.initialize
+# (jax/_src/clusters/{ompi,slurm}_cluster.py), in jax's order: a launcher
+# is present only when all of its variables are set
+_OMPI_URI = "OMPI_MCA_orte_hnp_uri"
+_OMPI = ("OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK",
+         "OMPI_COMM_WORLD_LOCAL_RANK")
+_SLURM = ("SLURM_JOB_ID", "SLURM_STEP_NODELIST", "SLURM_NTASKS",
+          "SLURM_PROCID", "SLURM_LOCALID")
+_PORT_BASE = 65535 - 2**12 + 1  # the coordinator's port range: 4096 ports
+_CARD_KEY = "lam_tpu_torch/card/"
+
+
+def launcher():
+    """'ompi' or 'slurm': the launcher this process was started by, as
+    jax detects it (Open MPI by OMPI_MCA_orte_hnp_uri, SLURM by all of
+    SLURM_JOB_ID, SLURM_STEP_NODELIST, SLURM_NTASKS, SLURM_PROCID and
+    SLURM_LOCALID), or None."""
+    if _OMPI_URI in os.environ:
+        return "ompi"
+    if all(var in os.environ for var in _SLURM):
+        return "slurm"
+    return None
+
+
+def _env_int(var):
+    if var not in os.environ:
+        raise ValueError(f"{var} is not set, but {_OMPI_URI} is: this is "
+                         "no complete Open MPI launch")
+    return int(os.environ[var])
+
+
+def _launcher_coordinator(name):
+    """The coordinator jax derives from the launcher's variables: the
+    first host of the SLURM step's node list on port SLURM_JOB_ID % 4096
+    + 61440, or the first tcp/tcp6 address of Open MPI's launcher URI on
+    port (job id // 4096) % 4096 + 61440; JAX_COORDINATOR_PORT, where
+    set, is the port."""
+    port = os.environ.get("JAX_COORDINATOR_PORT")
+    if name == "slurm":
+        if not port:
+            port = int(os.environ["SLURM_JOB_ID"]) % 2**12 + _PORT_BASE
+        # node001 | node001,host2 | node[001-015],host2 | node[001,007],h
+        nodes = os.environ["SLURM_STEP_NODELIST"]
+        head = re.match(r"[^,\[]*", nodes).group()
+        if nodes[len(head):].startswith("["):
+            head += re.match(r"[^,\-]*", nodes[len(head) + 1:]).group()
+        return f"{head}:{port}"
+    uri = os.environ[_OMPI_URI]
+    if not port:
+        port = int(uri.split(".", 1)[0]) // 2**12 % 2**12 + _PORT_BASE
+    found = re.search(r"tcp://(.+?)[,:]|tcp6://\[(.+?)[,\]]", uri)
+    if found is None:
+        raise ValueError(f"no tcp address in {_OMPI_URI}={uri!r}")
+    return f"{found.group(1) or found.group(2)}:{port}"
+
+
+@dataclasses.dataclass(frozen=True)
+class Launch:
+    """A rank's place in a multi-process run and where each part of it
+    came from. `source` maps 'coordinator', 'num_processes', 'process_id'
+    and 'local_id' to 'flags' (given by the caller), 'slurm', 'ompi' or
+    'torchrun' (LOCAL_RANK, which only places the card), or None where
+    nothing gave it. `local_id` is the rank's index on its host, which
+    picks its card. After the join, `device`, `backend`, `host` and
+    `uuid` (the card's; None on the CPU) are filled in, and `source`
+    also holds 'card' (where the card's index came from: the local id's
+    source, or 'flags' for the rank) and 'backend' ('cards' when the
+    ranks' card UUIDs decided it, 'cpu' on the CPU)."""
+
+    coordinator: str | None
+    num_processes: int | None
+    process_id: int | None
+    local_id: int | None
+    source: dict
+    device: str | None = None
+    backend: str | None = None
+    host: str | None = None
+    uuid: str | None = None
+
+    @property
+    def launched_by(self):
+        """Where the rank came from: 'slurm', 'ompi', or 'flags' when the
+        caller gave it."""
+        return self.source["process_id"]
+
+
+def _local_id():
+    """(the rank's index on its host, its source): Open MPI's or SLURM's
+    local rank under those launchers, torchrun's LOCAL_RANK, or (None,
+    None)."""
+    name = launcher()
+    if name == "ompi":
+        return _env_int("OMPI_COMM_WORLD_LOCAL_RANK"), name
+    if name == "slurm":
+        return int(os.environ["SLURM_LOCALID"]), name
+    if "LOCAL_RANK" in os.environ:
+        return int(os.environ["LOCAL_RANK"]), "torchrun"
+    return None, None
+
+
+def detect(coordinator_address=None, num_processes=None, process_id=None):
+    """The run's coordinator, rank count, rank and local id: each value
+    given wins, each one not given comes from the launcher, if one is
+    found (jax's ClusterEnv.auto_detect_unset_distributed_params with
+    lam_tpu's launchers). A value nothing gave stays None."""
+    name = launcher()
+    given = {"coordinator": coordinator_address,
+             "num_processes": num_processes, "process_id": process_id}
+    source = {k: "flags" if v is not None else None for k, v in given.items()}
+    if name is not None:
+        if coordinator_address is None:
+            coordinator_address = _launcher_coordinator(name)
+            source["coordinator"] = name
+        count, rank = (("OMPI_COMM_WORLD_SIZE", "OMPI_COMM_WORLD_RANK")
+                       if name == "ompi" else ("SLURM_NTASKS", "SLURM_PROCID"))
+        if num_processes is None:
+            num_processes = _env_int(count)
+            source["num_processes"] = name
+        if process_id is None:
+            process_id = _env_int(rank)
+            source["process_id"] = name
+    local_id, source["local_id"] = _local_id()
+    return Launch(coordinator_address, num_processes, process_id, local_id,
+                  source)
+
+
+def _card_index(local_id, rank):
+    """The card of a rank: its local id's, else its rank's, modulo the
+    visible cards (one card a task under `srun --gpus-per-task=1`)."""
+    return (rank if local_id is None else local_id) % torch.cuda.device_count()
 
 
 def _rank_device(dev_type, rank):
-    """The device of rank r: the card of its LOCAL rank on a host whose
-    launcher says so (LOCAL_RANK), else cuda:{r % device_count}; or the
-    CPU."""
+    """The device of rank r: on CUDA the card of its local id where a
+    launcher sets one (SLURM_LOCALID, OMPI_COMM_WORLD_LOCAL_RANK,
+    LOCAL_RANK), else cuda:{r % device_count}; or the CPU."""
     if dev_type == "cuda":
-        local_rank, _ = _local_layout(rank, None)
-        return torch.device("cuda", local_rank % torch.cuda.device_count())
+        return torch.device("cuda", _card_index(_local_id()[0], rank))
     return torch.device("cpu")
 
 
-def choose_backend(device, num_processes):
-    """'nccl' when each rank of THIS host has a card of its own (the
-    host's LOCAL_WORLD_SIZE where set, else all num_processes ranks,
-    against the visible cards), else 'gloo' (ranks sharing a card, or
-    the CPU). With 2 hosts x 4 cards x 4 ranks each, the 8 ranks run
-    NCCL."""
-    _, local_size = _local_layout(0, num_processes)
-    if (resolve_device(device).type == "cuda"
-            and local_size <= torch.cuda.device_count()):
+def choose_backend(device, cards):
+    """'nccl' when the device is CUDA and every rank has a card of its
+    own: `cards`, one (host, card UUID) a rank, holds no card twice;
+    'gloo' when ranks share a card, or on the CPU. Every rank decides
+    from the same list, whatever the layout of its own host."""
+    if resolve_device(device).type == "cuda" and len(set(cards)) == len(cards):
         return "nccl"
     return "gloo"
 
 
-def distributed_init(coordinator_address, num_processes, process_id,
-                     device="cuda", timeout_s=1800):
-    """Join the process group of a multi-process run (the analog of
-    lam_tpu's jax.distributed bootstrap and of the reference's MPI_Init +
-    NCCL communicator setup): `init_process_group` over
-    tcp://<coordinator_address> with the given world size and rank, on
-    the backend `choose_backend` picks. Returns the backend.
+def _split_address(address):
+    """(host, port) of 'host:port' or 'tcp://host:port' (an IPv6 host
+    bare, as jax writes Open MPI's, or in brackets)."""
+    host, port = address.split("://", 1)[-1].rsplit(":", 1)
+    return host.strip("[]"), int(port)
 
-    Calling it again with the same world size and rank is a no-op; a
-    process group of another shape cannot be joined a second time."""
-    if num_processes is None or process_id is None:
-        raise ValueError("a multi-process run needs --num-processes and "
-                         "--process-id beside --coordinator")
-    if not 0 <= process_id < num_processes:
-        raise ValueError(f"process id {process_id} is outside "
-                         f"0..{num_processes - 1}")
+
+def _exchange_cards(store, rank, size, card):
+    """Every rank's card, in rank order, through the coordinator's store:
+    the counterpart of the reference's host-name hash, which binds the
+    ranks to their cards (ConjugateGradient_MultiGPUS_CUDA_MPI.cu:444-456)."""
+    store.set(f"{_CARD_KEY}{rank}", json.dumps(card))
+    keys = [f"{_CARD_KEY}{r}" for r in range(size)]
+    store.wait(keys)
+    return [tuple(json.loads(store.get(k))) for k in keys]
+
+
+_joined = None  # the Launch of this process's group, once joined here
+
+
+def distributed_init(coordinator_address=None, num_processes=None,
+                     process_id=None, device="cuda", timeout_s=1800):
+    """Join the process group of a multi-process run (the analog of
+    lam_tpu's `distributed_init`, the reference's MPI_Init + NCCL
+    communicator setup) and return its `Launch`.
+
+    The values given win; each one not given comes from the launcher
+    (`detect`: srun's or mpirun's variables), the coordinator too. With
+    no coordinator and no launcher this is a no-op that returns None:
+    one process, no group. A coordinator without a rank count or rank is
+    a ValueError that names what is missing. The ranks meet in a TCP
+    store at the coordinator (rank 0 hosts it), exchange their cards'
+    (host, UUID), and join over NCCL when every card is distinct, else
+    over gloo (`choose_backend`); a failing NCCL join raises.
+
+    Calling it again when joined is a no-op where the rank count and rank
+    match; a process group of another shape cannot be joined a second
+    time."""
+    global _joined
+    launch = detect(coordinator_address, num_processes, process_id)
+    size, rank = launch.num_processes, launch.process_id
     if dist.is_initialized():
-        if (dist.get_world_size(), dist.get_rank()) != (num_processes,
-                                                        process_id):
+        if ((size is not None and size != dist.get_world_size())
+                or (rank is not None and rank != dist.get_rank())):
             raise RuntimeError(
                 "torch.distributed is already initialized with world size "
                 f"{dist.get_world_size()} and rank {dist.get_rank()}; it "
-                "cannot be joined again as rank "
-                f"{process_id} of {num_processes}")
-        return dist.get_backend()
-    backend = choose_backend(device, num_processes)
-    if backend == "nccl":
-        torch.cuda.set_device(_rank_device("cuda", process_id))
-    elif (resolve_device(device).type == "cpu"
-          and "OMP_NUM_THREADS" not in os.environ):
-        # the ranks of a CPU cluster share the host's cores: a full
-        # thread pool in each would oversubscribe them many times over
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // num_processes))
-    address = (coordinator_address if "://" in coordinator_address
-               else f"tcp://{coordinator_address}")
-    dist.init_process_group(backend, init_method=address,
-                            world_size=num_processes, rank=process_id,
-                            timeout=datetime.timedelta(seconds=timeout_s))
-    return backend
+                f"cannot be joined again as rank {rank} of {size}")
+        if _joined is not None and (_joined.num_processes,
+                                    _joined.process_id) == (
+                                        dist.get_world_size(),
+                                        dist.get_rank()):
+            return _joined
+        return dataclasses.replace(
+            launch, num_processes=dist.get_world_size(),
+            process_id=dist.get_rank(), backend=dist.get_backend())
+    if launch.coordinator is None:
+        if size is not None or rank is not None:
+            raise ValueError("--num-processes and --process-id need "
+                             "--coordinator")
+        return None
+    missing = [what for what, value in (
+        ("the rank count (--num-processes)", size),
+        ("this process's rank (--process-id)", rank)) if value is None]
+    if missing:
+        raise ValueError(
+            f"--coordinator {launch.coordinator} needs "
+            f"{' and '.join(missing)}: no launcher gave it (srun sets "
+            f"{', '.join(_SLURM)}; mpirun {_OMPI_URI}, "
+            f"{', '.join(_OMPI)})")
+    if not 0 <= rank < size:
+        raise ValueError(f"process id {rank} is outside 0..{size - 1}")
+    dev = resolve_device(device)
+    timeout = datetime.timedelta(seconds=timeout_s)
+    host, port = _split_address(launch.coordinator)
+    store = dist.TCPStore(host, port, size, rank == 0, timeout=timeout,
+                          multi_tenant=True)
+    me, source = socket.gethostname(), dict(launch.source)
+    if dev.type == "cuda":
+        index = _card_index(launch.local_id, rank)
+        uuid = str(torch.cuda.get_device_properties(index).uuid)
+        backend = choose_backend(dev, _exchange_cards(store, rank, size,
+                                                      (me, uuid)))
+        device_name = f"cuda:{index}"
+        source.update(card=source["local_id"] or "flags", backend="cards")
+        if backend == "nccl":
+            torch.cuda.set_device(index)
+    else:
+        uuid, backend, device_name = None, "gloo", "cpu"
+        source.update(card=None, backend="cpu")
+        if "OMP_NUM_THREADS" not in os.environ:
+            # the ranks of a CPU cluster share the host's cores: a full
+            # thread pool in each would oversubscribe them many times over
+            torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
+    dist.init_process_group(backend, store=store, world_size=size, rank=rank,
+                            timeout=timeout)
+    _joined = dataclasses.replace(launch, source=source, device=device_name,
+                                  backend=backend, host=me, uuid=uuid)
+    return _joined
 
 
 @contextlib.contextmanager
 def process_group(coordinator, num_processes, process_id, device="cuda"):
     """The process group of an entry point's run (the CLIs' --coordinator,
-    --num-processes, --process-id): joined by `distributed_init` and left
-    at the end, after a barrier, since the store's host (rank 0) must not
-    leave while another rank still talks to it. A group the caller joined
-    already (a launcher running several entry points a process) is kept.
-    Without a coordinator there is no group to join, and a rank count or
-    rank alone is refused."""
+    --num-processes, --process-id): joined by `distributed_init`, which
+    takes the rank count and rank from srun's or mpirun's variables where
+    the flags leave them out, and left at the end, after a barrier, since
+    the store's host (rank 0) must not leave while another rank still
+    talks to it. A group the caller joined already (a launcher running
+    several entry points a process) is kept. Without a coordinator there
+    is no group to join, under a launcher too (lam_tpu's CLI joins only
+    with --coordinator), and a rank count or rank alone is refused."""
     if not coordinator:
         if num_processes is not None or process_id is not None:
             raise ValueError("--num-processes and --process-id need "

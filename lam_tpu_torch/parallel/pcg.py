@@ -44,14 +44,10 @@ import torch
 from lam_tpu_torch import generate as gen
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout
-from lam_tpu_torch.parallel.mesh import make_mesh
+from lam_tpu_torch.ops.layout import TILE_K, TILE_M
+from lam_tpu_torch.parallel.mesh import ROWS_AXIS, make_mesh  # noqa: F401
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
 from lam_tpu_torch.solver import operators as ops
-
-# lam_tpu's dense tile contract (lam_tpu/ops/gemv.py:46-47), which sets
-# the padding of a sharded full-square operator
-TILE_M = 256
-TILE_K = 1024
 
 
 def _cols_f32(a, p_blk, blk):

@@ -63,7 +63,7 @@ import torch
 from lam_tpu_torch import generate as gen
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout
-from lam_tpu_torch.parallel.mesh import make_mesh
+from lam_tpu_torch.parallel.mesh import ROWS_AXIS, make_mesh  # noqa: F401
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
 from lam_tpu_torch.solver import operators as ops
 from lam_tpu_torch.solver import pack_cache as pc

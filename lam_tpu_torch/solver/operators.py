@@ -89,6 +89,7 @@ import torch
 from lam_tpu_torch import _native_io
 from lam_tpu_torch import io as lio
 from lam_tpu_torch.ops import gemv, layout, transfer
+from lam_tpu_torch.ops.layout import PAD_MULTIPLE, padded_size  # noqa: F401
 from lam_tpu_torch.precision import join_f64, split_f64, split_f64_host
 from lam_tpu_torch.solver import pack_cache as pc
 

@@ -997,6 +997,32 @@ def test_two_rank_gloo_solve_on_one_card(tmp_path):
     assert np.linalg.norm(b - a @ x) <= 2e-9 * np.linalg.norm(b)
 
 
+def test_slurm_started_cluster_shares_the_card(tmp_path):
+    """Two ranks started as srun starts them (SLURM_LOCALID 0 and 1, no
+    rank flag) on the one card: both fold onto cuda:0, exchange the same
+    card UUID and so join over gloo; the halo exchange goes through."""
+    from torch_sharded_worker import launch_cluster
+
+    records = launch_cluster(2, [{"kind": "halo", "name": "halo"}],
+                             str(tmp_path / "run"), 300, device="cuda",
+                             launcher="slurm")
+    uuid = str(torch.cuda.get_device_properties(0).uuid)
+    for r, rec in enumerate(records):
+        launch = rec["launch"]
+        assert (launch["rank"], launch["size"], launch["device"],
+                launch["backend"], launch["uuid"]) == (r, 2, "cuda:0",
+                                                       "gloo", uuid)
+        assert (launch["mesh_device"], launch["mesh_backend"]) == (
+            "cuda:0", "gloo")
+        assert launch["source"] == {
+            "coordinator": "slurm", "num_processes": "slurm",
+            "process_id": "slurm", "local_id": "slurm", "card": "slurm",
+            "backend": "cards"}
+        # rank 1's up is rank 0's last row, -(0 + 1); rank 0's is zeros
+        up, _ = np.load(tmp_path / "run" / f"halo.r{r}.npy")
+        assert float(up[0]) == -float(r)
+
+
 def test_four_rank_grid_solve_on_one_card(tmp_path):
     """Four rank processes share the one card over gloo as a 2 x 2 grid:
     the CLI's --backend sharded2d ir solve runs the dense kernels on every

@@ -502,9 +502,11 @@ def _cluster_jobs(backend, runs, out):
 
 @pytest.fixture(scope="module")
 def sharded_cluster(tmp_path_factory):
+    """The 2-rank cluster, started as mpirun starts it: the rank count and
+    rank in Open MPI's variables, an explicit --coordinator."""
     out = str(tmp_path_factory.mktemp("gen_sharded"))
     return launch_cluster(2, _cluster_jobs("sharded", SHARDED_RUNS, out),
-                          out, CLUSTER_TIMEOUT_S), out
+                          out, CLUSTER_TIMEOUT_S, launcher="ompi"), out
 
 
 @pytest.fixture(scope="module")
@@ -544,6 +546,23 @@ def _check_run(records, out, run, precision, flags, plain, backend, size,
         # symmetric grid: the diagonal ranks' mode, then the others'
         name = plain[r not in (0, 3)] if symgrid else plain
         assert rec[run]["counts"][name] > 0, (r, name)
+
+
+def test_sharded_cluster_starts_by_open_mpi(sharded_cluster):
+    """Each rank took its rank and the rank count from Open MPI's
+    variables and the coordinator from --coordinator, its card index from
+    OMPI_COMM_WORLD_LOCAL_RANK; the CLI runs, given --coordinator alone,
+    found that group."""
+    records, _ = sharded_cluster
+    for r, rec in enumerate(records):
+        launch = rec["launch"]
+        assert (launch["rank"], launch["size"], launch["device"],
+                launch["backend"]) == (r, 2, "cpu", "gloo")
+        assert launch["source"] == {
+            "coordinator": "flags", "num_processes": "ompi",
+            "process_id": "ompi", "local_id": "ompi", "card": None,
+            "backend": "cpu"}
+        assert all(rec[run]["rc"] == 0 for run, *_ in SHARDED_RUNS)
 
 
 @pytest.mark.parametrize("run,precision,flags,plain", SHARDED_RUNS)

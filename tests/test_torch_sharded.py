@@ -649,10 +649,17 @@ def test_one_rank_sharded_solve(system, engine, comm, capsys):
 # -- rank processes --------------------------------------------------------
 
 
+# the G=2 cluster starts as srun starts it (the rank count and rank in
+# SLURM's variables, no rank flag), the G=4 cluster with the rank flags
+LAUNCHER = {2: "slurm", 4: None}
+
+
 def _launch(g, jobs, out):
-    """Run the jobs in a gloo CPU cluster of g worker processes; returns
-    each rank's records. Every rank is killed at the timeout."""
-    return launch_cluster(g, jobs, out, CLUSTER_TIMEOUT_S)
+    """Run the jobs in a gloo CPU cluster of g worker processes, started
+    by LAUNCHER[g]; returns each rank's records. Every rank is killed at
+    the timeout."""
+    return launch_cluster(g, jobs, out, CLUSTER_TIMEOUT_S,
+                          launcher=LAUNCHER[g])
 
 
 def _jobs(g, a_path, b_path, p_path, out):
@@ -1397,6 +1404,31 @@ def test_sharded_cli_flags_refused(capsys):
         pmesh.distributed_init("127.0.0.1:1", 2, 2, device="cpu")
 
 
+def test_clusters_start_by_their_launchers(clusters):
+    """The G=2 cluster joined from SLURM's variables alone, its CLI jobs
+    given --coordinator alone; the G=4 cluster from the rank flags. Every
+    rank's record shows where its rank, count, card and backend came
+    from."""
+    for g in RANKS:
+        records, _ = clusters[g]
+        source = LAUNCHER[g] or "flags"
+        for r, rec in enumerate(records):
+            launch = rec["launch"]
+            assert (launch["rank"], launch["size"]) == (r, g)
+            assert (launch["device"], launch["backend"]) == ("cpu", "gloo")
+            assert (launch["mesh_device"], launch["mesh_backend"]) == (
+                "cpu", "gloo")
+            assert launch["coordinator"].startswith("127.0.0.1:")
+            assert launch["uuid"] is None
+            assert launch["source"] == {
+                "coordinator": source, "num_processes": source,
+                "process_id": source,
+                "local_id": LAUNCHER[g], "card": None, "backend": "cpu"}
+    # the CLI jobs, given --coordinator alone, found the group that
+    # SLURM's variables joined
+    assert all(rec["cli-ir"]["rc"] == 0 for rec in clusters[2][0])
+
+
 def test_mesh_of_one_rank_is_the_identity():
     mesh = pmesh.make_mesh(device="cpu")
     assert (mesh.rank, mesh.size, mesh.backend) == (0, 1, None)
@@ -1404,30 +1436,54 @@ def test_mesh_of_one_rank_is_the_identity():
     assert mesh.all_reduce(x) is x and mesh.all_gather(x) is x
     assert mesh.ppermute_prev(x) is x
     assert float(mesh.dot(x, x)) == 14.0
-    assert pmesh.choose_backend("cpu", 4) == "gloo"
+    assert pmesh.choose_backend("cpu", [("h", r) for r in range(4)]) \
+        == "gloo"
     with pytest.raises(ValueError, match="requested 3 devices"):
         pmesh.make_mesh(3, device="cpu")
 
 
+def _layout_cards(monkeypatch, hosts, ranks_per_host):
+    """The (host, card) of every rank of a torchrun layout, each rank's
+    card picked by `_rank_device` under its LOCAL_RANK (the ranks'
+    exchange of card UUIDs, the card's index standing for its UUID)."""
+    cards = []
+    for h in range(hosts):
+        for local in range(ranks_per_host):
+            monkeypatch.setenv("LOCAL_RANK", str(local))
+            dev = pmesh._rank_device("cuda", h * ranks_per_host + local)
+            cards.append((f"host{h}", dev.index))
+    monkeypatch.delenv("LOCAL_RANK")
+    return cards
+
+
 def test_backend_and_device_follow_the_local_layout(monkeypatch):
     """2 hosts x 4 cards x 4 ranks each: every rank has a card of its own,
-    so the group runs NCCL and a rank sits on the card of its LOCAL rank."""
+    so the group runs NCCL and a rank sits on the card of its LOCAL rank.
+    The backend follows the cards every rank reports (tests/
+    test_torch_launch.py holds the launchers' layouts)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
     monkeypatch.delenv("LOCAL_RANK", raising=False)
-    # no launcher variables: all ranks are taken to share this host
-    assert pmesh.choose_backend("cuda", 4) == "nccl"
-    assert pmesh.choose_backend("cuda", 8) == "gloo"
+    for var in ("OMPI_MCA_orte_hnp_uri", "SLURM_JOB_ID"):
+        monkeypatch.delenv(var, raising=False)
+    # no launcher variables: rank r on card r % 4 of this one host
+    one_host = [("host0", pmesh._rank_device("cuda", r).index)
+                for r in range(8)]
+    assert pmesh.choose_backend("cuda", one_host[:4]) == "nccl"
+    assert pmesh.choose_backend("cuda", one_host) == "gloo"
     assert pmesh._rank_device("cuda", 6) == torch.device("cuda", 2)
-    monkeypatch.setenv("LOCAL_WORLD_SIZE", "4")
+    # torchrun on 2 hosts, LOCAL_WORLD_SIZE 4
+    assert pmesh.choose_backend(
+        "cuda", _layout_cards(monkeypatch, 2, 4)) == "nccl"
     monkeypatch.setenv("LOCAL_RANK", "1")
-    assert pmesh.choose_backend("cuda", 8) == "nccl"
     assert pmesh._rank_device("cuda", 5) == torch.device("cuda", 1)
-    assert pmesh.choose_backend("cpu", 8) == "gloo"
+    assert pmesh.choose_backend("cpu", _layout_cards(monkeypatch, 2, 4)) \
+        == "gloo"
     assert pmesh._rank_device("cpu", 5) == torch.device("cpu")
-    monkeypatch.setenv("LOCAL_WORLD_SIZE", "8")  # two ranks per card
-    assert pmesh.choose_backend("cuda", 8) == "gloo"
+    # torchrun, LOCAL_WORLD_SIZE 8 on one host: two ranks per card
+    assert pmesh.choose_backend(
+        "cuda", _layout_cards(monkeypatch, 1, 8)) == "gloo"
 
 
 def test_help_names_the_sharded_flags():

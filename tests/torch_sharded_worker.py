@@ -1,16 +1,20 @@
 """One rank of a lam_tpu_torch sharded cluster, for the tests.
 
-    python tests/torch_sharded_worker.py --coordinator 127.0.0.1:<port> \\
-        --num-processes G --process-id r --device cpu|cuda \\
+    python tests/torch_sharded_worker.py [--coordinator 127.0.0.1:<port>] \\
+        [--num-processes G --process-id r] --device cpu|cuda \\
         --jobs jobs.json --out <dir>
 
 Runs the jobs of jobs.json in order, every rank the same list, and writes
 <dir>/results.r<rank>.json: one record per job with its kernel and
-plain-version counts. The process group is joined before the first job
-and left after the last. Jobs:
+plain-version counts, and first the record "launch": the rank, size,
+device, backend, card and the sources of the join (`mesh.Launch`). The
+process group is joined before the first job and left after the last,
+with the flags given, or from a launcher's variables (srun's or mpirun's,
+set by `launch_cluster`) where they are left out. Jobs:
   {"kind": "cli", "name", "argv"}: lam_tpu_torch.cli.main(argv plus this
       rank's --coordinator/--num-processes/--process-id/--device, which
-      find the group joined), its exit code and standard output;
+      find the group joined; --coordinator alone under a launcher), its
+      exit code and standard output;
   {"kind": "solve", "name", "op": "dense"|"symm"|"grid"|"symgrid",
       "precision": "f32"|"df64"|"ir"|"dfq"|"irq"|"fq"|"irfq", "comm",
       "packed", "tb", "pack_cache", "matrix", "rhs", "rel_error"}: the
@@ -112,26 +116,60 @@ def host_lock():
         yield
 
 
-def launch_cluster(g, jobs, out, timeout_s, device="cpu"):
+# an Open MPI launcher's URI: job id 1531576320 (a multiple of 4096), the
+# launcher's address, its port
+OMPI_URI = "1531576320.0;tcp://127.0.0.1:34911"
+
+
+def _rank_start(launcher, g, r, port):
+    """(the extra argv, the launcher's variables) of rank r of g: the
+    three rank flags (launcher None); under 'slurm' no flag, the step's
+    node list 127.0.0.1 and JAX_COORDINATOR_PORT the coordinator's port;
+    under 'ompi' an explicit --coordinator beside mpirun's variables."""
+    coordinator = ["--coordinator", f"127.0.0.1:{port}"]
+    if launcher is None:
+        return coordinator + ["--num-processes", str(g), "--process-id",
+                              str(r)], {}
+    if launcher == "slurm":
+        return [], {"SLURM_JOB_ID": "4242", "SLURM_STEP_NODELIST":
+                    "127.0.0.1", "SLURM_NTASKS": str(g),
+                    "SLURM_PROCID": str(r), "SLURM_LOCALID": str(r),
+                    "JAX_COORDINATOR_PORT": str(port)}
+    assert launcher == "ompi", launcher
+    return coordinator, {"OMPI_MCA_orte_hnp_uri": OMPI_URI,
+                         "OMPI_COMM_WORLD_SIZE": str(g),
+                         "OMPI_COMM_WORLD_RANK": str(r),
+                         "OMPI_COMM_WORLD_LOCAL_RANK": str(r)}
+
+
+def launch_cluster(g, jobs, out, timeout_s, device="cpu", launcher=None):
     """Run the jobs in a gloo cluster of g processes of this script (on
-    CPUs, or sharing the card with device="cuda"); returns each rank's
-    records as {job name: record}. Every rank is killed at the timeout."""
+    CPUs, or sharing the card with device="cuda"), started with the rank
+    flags, or as srun ('slurm') or mpirun ('ompi') starts them, the rank
+    count and rank in the launcher's variables and no rank flag; returns
+    each rank's records as {job name: record}, among them "launch", which
+    must show the rank, the size and the launcher the rank was given.
+    Every rank is killed at the timeout."""
     os.makedirs(out, exist_ok=True)
     jobs_path = os.path.join(out, "jobs.json")
     with open(jobs_path, "w") as f:
         json.dump(jobs, f)
-    env = dict(os.environ, OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
+    # no launcher's variables but the cluster's own
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("SLURM_", "OMPI_", "JAX_COORDINATOR_"))}
+    env.update(OMP_NUM_THREADS="1", JAX_PLATFORMS="cpu")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     logs = []
     # held until this cluster has ended; the timeout runs from its start
     with host_lock():
         port = _free_port()
+        starts = [_rank_start(launcher, g, r, port) for r in range(g)]
         procs = [subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--coordinator",
-             f"127.0.0.1:{port}", "--num-processes", str(g), "--process-id",
-             str(r), "--device", device, "--jobs", jobs_path, "--out", out],
-            env=env, cwd=root, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True) for r in range(g)]
+            [sys.executable, os.path.abspath(__file__), *flags, "--device",
+             device, "--jobs", jobs_path, "--out", out],
+            env={**env, **rank_env}, cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for flags, rank_env in starts]
         try:
             for proc in procs:
                 logs.append(proc.communicate(timeout=timeout_s)[0])
@@ -146,6 +184,9 @@ def launch_cluster(g, jobs, out, timeout_s, device="cpu"):
     for r in range(g):
         with open(os.path.join(out, f"results.r{r}.json")) as f:
             records.append({rec["name"]: rec for rec in json.load(f)})
+        launch = records[r]["launch"]
+        assert (launch["rank"], launch["size"], launch["launched_by"]) == (
+            r, g, launcher or "flags"), launch
     return records
 
 
@@ -209,13 +250,22 @@ def _save(out, name, rank, x):
     np.save(os.path.join(out, f"{name}.r{rank}.npy"), x)
 
 
+def _rank_flags(launch):
+    """The rank flags of an entry point's run in this cluster: the three
+    flags as this rank was started, or --coordinator alone under a
+    launcher, whose variables give the rest."""
+    flags = ["--coordinator", launch.coordinator]
+    if launch.launched_by == "flags":
+        flags += ["--num-processes", str(launch.num_processes),
+                  "--process-id", str(launch.process_id)]
+    return flags
+
+
 def _run(job, args, out, meshes):
     name = job["name"]
     if job["kind"] in ("cli", "heat-cli", "bench"):
         os.environ.update(job.get("env", {}))
-        argv = job["argv"] + [
-            "--coordinator", args.coordinator, "--num-processes",
-            str(args.num_processes), "--process-id", str(args.process_id),
+        argv = job["argv"] + _rank_flags(args.launch) + [
             "--device", args.device]
         buf, err = io.StringIO(), io.StringIO()
         main = {"cli": cli.main, "heat-cli": heat_cli.main,
@@ -328,9 +378,9 @@ def _checkpoint(job, op, rec, out, rank):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--coordinator", required=True)
-    p.add_argument("--num-processes", type=int, required=True)
-    p.add_argument("--process-id", type=int, required=True)
+    p.add_argument("--coordinator")
+    p.add_argument("--num-processes", type=int)
+    p.add_argument("--process-id", type=int)
     p.add_argument("--device", default="cpu")
     p.add_argument("--jobs", required=True)
     p.add_argument("--out", required=True)
@@ -338,12 +388,22 @@ def main():
     torch.set_num_threads(1)
     with open(args.jobs) as f:
         jobs = json.load(f)
-    pmesh.distributed_init(args.coordinator, args.num_processes,
-                           args.process_id, device=args.device)
+    if args.coordinator is None:  # all from the launcher
+        launch = pmesh.distributed_init(device=args.device)
+    else:
+        launch = pmesh.distributed_init(args.coordinator, args.num_processes,
+                                        args.process_id, device=args.device)
+    args.launch, args.process_id = launch, launch.process_id
     meshes = [pmesh.make_mesh(device=args.device), None]
     if any(job.get("op") in _GRID_OPS for job in jobs):
         meshes[1] = pmesh.make_mesh2d(device=args.device)
-    results = []
+    results = [{"name": "launch", "rank": launch.process_id,
+                "size": launch.num_processes, "device": launch.device,
+                "backend": launch.backend,
+                "mesh_device": str(meshes[0].device),
+                "mesh_backend": meshes[0].backend,
+                "launched_by": launch.launched_by, "source": launch.source,
+                "coordinator": launch.coordinator, "uuid": launch.uuid}]
     for job in jobs:
         ops.reset_counters()
         rec = _run(job, args, args.out, meshes)
